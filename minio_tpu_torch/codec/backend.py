@@ -355,6 +355,53 @@ class CodecBackend:
         """(B, n, L) u8 + (B, n, 8) digests -> (B, n) bool intact mask."""
         return (self.digest(shards) == np.asarray(digests)).all(axis=-1)
 
+    def reconstruct_and_verify(
+        self,
+        shards: np.ndarray,
+        digests: np.ndarray,
+        present: "tuple[bool, ...] | np.ndarray",
+        data_shards: int,
+        parity_shards: int,
+    ) -> "tuple[np.ndarray, np.ndarray]":
+        """Verify digests of present shards AND decode the data rows.
+
+        (B, n, L) u8 + (B, n, 8) digests + present mask ->
+        (data (B, k, L) u8, ok (B, n) bool).  The returned ok mask
+        reflects per-shard digest checks (absent shards are False);
+        decode uses only shards that verified intact.  Raises
+        ValueError when fewer than k shards verify for some stripe.
+        Backends may fuse the two passes; this default composes them.
+        """
+        shards = np.ascontiguousarray(shards, dtype=np.uint8)
+        pres = np.asarray(present, dtype=bool)
+        ok = self.verify(shards, digests) & pres
+        return (
+            self._reconstruct_from_ok(
+                shards, ok, data_shards, parity_shards
+            ),
+            ok,
+        )
+
+    def _reconstruct_from_ok(self, shards, ok, data_shards, parity_shards):
+        """Decode each stripe from its own verified-intact shard set,
+        grouping stripes that share a survivor pattern into one
+        reconstruct call."""
+        B, n, L = shards.shape
+        out = np.empty((B, data_shards, L), dtype=np.uint8)
+        groups: "dict[tuple[bool, ...], list[int]]" = {}
+        for b in range(B):
+            if int(ok[b].sum()) < data_shards:
+                raise ValueError(
+                    f"stripe {b}: {int(ok[b].sum())}/{n} shards intact,"
+                    f" need {data_shards}"
+                )
+            groups.setdefault(tuple(bool(x) for x in ok[b]), []).append(b)
+        for pat, idxs in groups.items():
+            out[idxs] = self.reconstruct(
+                shards[idxs], pat, data_shards, parity_shards
+            )
+        return out
+
     # -- async pipeline seam (erasure-encode.go:73-109 overlap) --------
     #
     # encode_begin enqueues the H2D transfer + device pass and returns an
@@ -540,6 +587,42 @@ class TorchBackend(CodecBackend):
         out = codec_step.tensor_to_words(got)
         _record_d2h("data", out.nbytes)
         return out
+
+    def reconstruct_and_verify(
+        self, shards, digests, present, data_shards, parity_shards
+    ):
+        """Heal's read side in ONE device pass (the verify_reconstruct
+        kernel): decode from the first k present rows while hashing every
+        present row.  On the rare digest mismatch among the chosen
+        survivors, re-pick survivors from the verified mask and re-solve
+        just the hit stripes (through gf_matmul_words)."""
+        codec_step.codec_kernel_mode()
+        codec_step.codec_formulation()
+        codec_step.codec_overlap_mode()
+        shards = np.ascontiguousarray(shards, dtype=np.uint8)
+        pres = np.asarray(present, dtype=bool)
+        L = shards.shape[-1]
+        words = self._stage(codec_step.host_bytes_to_words(shards))
+        stored = codec_step.words_to_tensor(
+            np.ascontiguousarray(digests, dtype=np.uint32), self.device
+        )
+        dw_d, ok_d = codec_step.verify_and_reconstruct_words(
+            words, stored, tuple(bool(b) for b in pres), data_shards,
+            parity_shards, L,
+        )
+        _record_pass("verify_and_reconstruct_words")
+        dw = codec_step.tensor_to_words(dw_d)
+        ok = ok_d.cpu().numpy()
+        _record_d2h("data", dw.nbytes)
+        data = codec_step.host_words_to_bytes(dw)
+        surv = np.nonzero(pres)[0][:data_shards]
+        bad = ~ok[:, surv].all(axis=1)
+        if bad.any():
+            idxs = np.nonzero(bad)[0]
+            data[idxs] = self._reconstruct_from_ok(
+                shards[idxs], ok[idxs], data_shards, parity_shards
+            )
+        return data, ok
 
 
 _lock = threading.Lock()

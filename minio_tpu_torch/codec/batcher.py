@@ -237,6 +237,18 @@ class BatchingBackend(CodecBackend):
     def fused_encode(self):  # type: ignore[override]
         return getattr(self.inner, "fused_encode", False)
 
+    def reconstruct_and_verify(
+        self, shards, digests, present, data_shards, parity_shards
+    ):
+        # straight delegation, no coalescing: this op serves heal - rare,
+        # latency-insensitive, and keyed by a per-call digest array that
+        # would defeat batch merging anyway.  The default composition
+        # would route through self.verify/self.reconstruct and lose the
+        # inner fused pass.
+        return self.inner.reconstruct_and_verify(
+            shards, digests, present, data_shards, parity_shards
+        )
+
     def shutdown(self) -> None:
         with self._cv:
             self._running = False

@@ -18,6 +18,8 @@ from __future__ import annotations
 
 import numpy as np
 
+from ..ops import hash as phash
+
 DIGEST_SIZE = 32
 ALIGN = 32  # shard blocks padded to this; also the digest frame size
 
@@ -44,3 +46,10 @@ def digest_from_bytes(b: bytes) -> np.ndarray:
     if len(b) != DIGEST_SIZE:
         raise ValueError(f"bad digest frame length {len(b)}")
     return np.frombuffer(b, dtype=np.uint32).copy()
+
+
+def verify_block(payload: bytes, digest_frame: bytes) -> bool:
+    """Host-side single-block verification (heal's deep scan,
+    XLStorage.verify_file).  The read path verifies in one batched
+    device pass instead (codec backend verify())."""
+    return phash.phash256_host(payload) == digest_frame

@@ -16,8 +16,9 @@ Writers/readers are any objects with ``write(bytes) -> None`` /
 ``read_at(offset, length) -> bytes`` (storage-layer bitrot streams); a
 None writer/reader is an offline disk, tolerated down to the quorum.
 
-Heal (cmd/erasure-lowlevel-heal.go) is not ported yet: it needs the fused
-verify+reconstruct kernel and lands in a later slice.
+* Heal (cmd/erasure-lowlevel-heal.go) rebuilds missing shard files one
+  block at a time: one fused verify+reconstruct pass over the survivors,
+  then the re-encode of the rebuilt data.
 """
 
 from __future__ import annotations
@@ -117,6 +118,20 @@ class _Begun:
             )
 
 
+def _fanout_reads(fn, slots: list, readers, nbytes: int) -> list:
+    """Run ``fn(slot)`` for every slot through the shared iopool, one
+    job per shard.  ``fn`` must capture its own errors - a reader
+    failure is data (a dead shard), not an exception."""
+    if len(slots) <= 1:
+        return [fn(s) for s in slots]
+    pool = iopool.get_pool()
+    futs = [
+        pool.submit(_io_key(readers[s]), (lambda s=s: fn(s)), nbytes=nbytes)
+        for s in slots
+    ]
+    return [f.result_or_raise() for f in futs]
+
+
 class ErasureError(Exception):
     pass
 
@@ -156,6 +171,11 @@ class Erasure:
     def shard_size_padded(self, block_len: "int | None" = None) -> int:
         """Device-aligned shard length actually encoded and stored."""
         return bitrot.padded_len(self.shard_size(block_len))
+
+    def block_count(self, total_length: int) -> int:
+        if total_length == 0:
+            return 0
+        return -(-total_length // self.block_size)
 
     def shard_block_offset(self, block_index: int) -> int:
         """Framed offset of block_index within every shard file."""
@@ -881,6 +901,95 @@ class Erasure:
                 if is_hedge:
                     KERNEL_STATS.record_hedge("wasted")
         return shards, digests, ok, heal
+
+    # ---- heal (cmd/erasure-lowlevel-heal.go:28-48) ----------------------
+
+    def heal(
+        self,
+        readers: list,
+        writers: list,
+        total_length: int,
+        backend: "backend_mod.CodecBackend | None" = None,
+    ) -> None:
+        """Rebuild missing shard files from survivors (quorum = k).
+
+        readers[i] is None for the outdated/offline disks; writers[i] is
+        non-None exactly where a shard must be rebuilt.  Streams
+        block-by-block: verify survivors, reconstruct all shards, re-frame
+        and write the ones needed.
+        """
+        be = backend or backend_mod.get_backend()
+        k, m = self.data_blocks, self.parity_blocks
+        n = k + m
+        stages = {"assemble": 0.0, "codec": 0.0, "disk": 0.0}
+        for b in range(self.block_count(total_length)):
+            block_len = self._block_len(b, total_length)
+            shard_len = self.shard_size_padded(block_len)
+            frame = bitrot.DIGEST_SIZE + shard_len
+            off = self.shard_block_offset(b)
+            shards = np.zeros((1, n, shard_len), dtype=np.uint8)
+            digests = np.zeros((1, n, 8), dtype=np.uint32)
+            present = np.zeros(n, dtype=bool)
+
+            def read_frame(s):
+                try:
+                    buf = readers[s].read_at(off, frame)
+                except Exception:  # noqa: BLE001 - dead shard
+                    return None
+                return buf if len(buf) == frame else None
+
+            live = [
+                s
+                for s in range(n)
+                if s < len(readers) and readers[s] is not None
+            ]
+            # survivors read concurrently, one iopool queue per disk
+            # (the heal twin of the decode fan-out)
+            t0 = time.monotonic()
+            results = _fanout_reads(read_frame, live, readers, frame)
+            stages["disk"] += time.monotonic() - t0
+            t0 = time.monotonic()
+            for s, buf in zip(live, results):
+                if buf is None:
+                    continue
+                digests[0, s] = bitrot.digest_from_bytes(
+                    buf[: bitrot.DIGEST_SIZE]
+                )
+                shards[0, s] = np.frombuffer(
+                    buf[bitrot.DIGEST_SIZE :], dtype=np.uint8
+                )
+                present[s] = True
+            results = None
+            stages["assemble"] += time.monotonic() - t0
+            # fused read side: digest checks + survivor decode in one
+            # device pass (the verify_reconstruct kernel), then the
+            # re-encode of the rebuilt data (encode_pack without the pack
+            # leg).  The data crosses to the host and back between them,
+            # as the JAX package's heal does.
+            t0 = time.monotonic()
+            try:
+                data, ok = be.reconstruct_and_verify(
+                    shards, digests, present, k, m
+                )  # data (1, k, L)
+            except ValueError:
+                ok = (be.verify(shards, digests)[0]) & present
+                raise QuorumError(
+                    f"heal: {int(ok.sum())}/{n} shards intact, need {k}"
+                ) from None
+            parity, new_digests = be.encode(data, m)
+            stages["codec"] += time.monotonic() - t0
+            t0 = time.monotonic()
+            full = np.concatenate([data, parity], axis=1)[0]
+            for s in range(n):
+                w = writers[s] if s < len(writers) else None
+                if w is None:
+                    continue
+                frame_bytes = bitrot.digest_to_bytes(new_digests[0, s])
+                w.write(frame_bytes + full[s].tobytes())
+            stages["disk"] += time.monotonic() - t0
+        KERNEL_STATS.record_stream("heal", total_length)
+        KERNEL_STATS.record_stages("heal", stages)
+
 
 def _read_full(reader, size: int) -> bytes:
     """Read exactly size bytes unless EOF (io.ReadFull semantics)."""

@@ -48,7 +48,7 @@ class KernelStats:
         self._streams: "dict[str, list]" = {}
         self._heal_required = 0
         # per-stream stage breakdown: (op, stage) -> [streams, seconds]
-        # op in {"put","get"}, stage in {"assemble","codec",
+        # op in {"put","get","heal"}, stage in {"assemble","codec",
         # "codec_fused","disk"} - codec_fused is encode time on a
         # backend whose parity+digest pass is fused (erasure._codec_stage)
         self._stages: "dict[tuple[str, str], list]" = {}

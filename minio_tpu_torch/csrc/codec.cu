@@ -1,8 +1,9 @@
 // Erasure codec kernels for Hopper (sm_90a): the PUT pass, the bitrot
-// digest and the GF(2^8) product, each behind a plain C entry point that
-// ops/kernels.py binds with ctypes.  Every entry launches on the stream it
-// is given, allocates nothing (the Python wrapper passes outputs and
-// zeroed accumulators) and returns cudaGetLastError() after each launch.
+// digest, the GF(2^8) product and heal's fused verify + reconstruct,
+// each behind a plain C entry point that ops/kernels.py binds with
+// ctypes.  Every entry launches on the stream it is given, allocates
+// nothing (the Python wrapper passes outputs and zeroed accumulators)
+// and returns cudaGetLastError() after each launch.
 //
 // Words are little-endian u32 (4 packed GF(2^8) elements).  The GF product
 // uses the xtime-powers decomposition: for input word x the powers x, 2x,
@@ -308,6 +309,86 @@ gf_matmul_kernel(const uint32_t* __restrict__ in, uint32_t* __restrict__ out,
     if (r < o) dst[(size_t)r * w + col] = acc[r];
 }
 
+// --------------------------------------------------------------------------
+// K4 verify_reconstruct: replaces rs_pallas.verify_reconstruct_fused (P5)
+// and its DMA-pipelined body verify_reconstruct_pipelined (P7) on heal.
+// The fusion of K2 and K3: every present row of a (B, n, w) shard batch
+// is hashed and, when it is one of the k chosen survivors, multiplied
+// into the k rebuilt data rows, in the same pass.
+//
+// Bound: bytes (each present row read once, k rows + n digests written:
+// at EC 8+4 with 8 present rows, 10 MiB in + 10 MiB out per stripe).
+// Design: one thread per column, the K1/K2 hash leg with one (h1, h2)
+// register pair per row (NB rows, templated), the K3 xtime chain with
+// OB register accumulators.  The plan is indexed by shard row: the
+// reconstruction matrix arrives expanded to (k, n) with zero columns
+// for the rows that are not survivors, so a present non-survivor has an
+// empty chain and is only hashed, and no gather copy is made.  Rows not
+// in ``present`` are neither read nor hashed; their partials stay zero.
+// That differs from the TPU kernel, which hashes absent rows' garbage
+// too: the caller's ok mask is False for them whatever their digest.
+// --------------------------------------------------------------------------
+
+template <int NB, int OB>
+__global__ void __launch_bounds__(kThreads)
+verify_reconstruct_kernel(const uint32_t* __restrict__ shards,
+                          uint32_t* __restrict__ data,
+                          uint32_t* __restrict__ partials, int n, int k,
+                          int w, uint32_t present, int ntiles,
+                          int tiles_per_block, const GfPlan plan) {
+  __shared__ uint32_t s[NB * 8];
+  const int b = blockIdx.y;
+  const int tid = threadIdx.x;
+  for (int i = tid; i < n * 8; i += kThreads) s[i] = 0;
+  __syncthreads();
+
+  uint32_t h1[NB], h2[NB];
+#pragma unroll
+  for (int r = 0; r < NB; ++r) h1[r] = h2[r] = 0;
+
+  const uint32_t* in = shards + (size_t)b * n * w;
+  uint32_t* out = data + (size_t)b * k * w;
+
+  for (int t = 0; t < tiles_per_block; ++t) {
+    const int tile = blockIdx.x * tiles_per_block + t;
+    if (tile >= ntiles) break;  // uniform across the block
+    const int col = tile * kTile + tid;
+    const bool valid = col < w;
+    const uint32_t key = hash_key((uint32_t)col);
+    uint32_t acc[OB];
+#pragma unroll
+    for (int o = 0; o < OB; ++o) acc[o] = 0;
+#pragma unroll
+    for (int r = 0; r < NB; ++r) {
+      if (r < n && ((present >> r) & 1u)) {
+        uint32_t p = valid ? in[(size_t)r * w + col] : 0u;
+        if (valid) hash_word(p, key, h1[r], h2[r]);
+#pragma unroll
+        for (int bit = 0; bit < 8; ++bit) {
+          if (bit >= plan.nb[r]) break;
+          const uint32_t msk = plan.rm[r * 8 + bit];
+#pragma unroll
+          for (int o = 0; o < OB; ++o)
+            if ((msk >> o) & 1u) acc[o] ^= p;
+          p = xtime(p);
+        }
+      }
+    }
+    if (valid) {
+#pragma unroll
+      for (int o = 0; o < OB; ++o)
+        if (o < k) out[(size_t)o * w + col] = acc[o];
+    }
+  }
+
+#pragma unroll
+  for (int r = 0; r < NB; ++r)
+    if (r < n && ((present >> r) & 1u)) fold_block(h1[r], h2[r], &s[r * 8]);
+  __syncthreads();
+  for (int i = tid; i < n * 8; i += kThreads)
+    if (s[i]) atomicXor(&partials[(size_t)b * n * 8 + i], s[i]);
+}
+
 int bucket(int v) { return v <= 4 ? 4 : (v <= 8 ? 8 : 16); }
 
 GfPlan make_plan(const uint16_t* rm, const uint8_t* nb, const uint8_t* row) {
@@ -413,6 +494,42 @@ int mtt_gf_matmul(int device, const uint32_t* in, uint32_t* out, int B, int rows
     gf_matmul_kernel<8><<<grid, kThreads, 0, st>>>(in, out, rows_in, o, s, w, plan);
   else
     gf_matmul_kernel<16><<<grid, kThreads, 0, st>>>(in, out, rows_in, o, s, w, plan);
+  return (int)cudaGetLastError();
+}
+
+// shards (B, n, w), the (k, n) plan of the expanded reconstruction matrix
+// and the present-row bitmask -> data (B, k, w) and digests (B, n, 8)
+// finalized in the zeroed `partials` (absent rows: the finalize of zero
+// partials).
+int mtt_verify_reconstruct(int device, const uint32_t* shards, uint32_t* data,
+                           uint32_t* partials, int B, int n, int k, int w,
+                           uint32_t present, uint32_t nbytes,
+                           int tiles_per_block, const uint16_t* rm,
+                           const uint8_t* nb, void* stream) {
+  if (n < 1 || n > kMaxRows || k < 1 || k > n || w <= 0 ||
+      tiles_per_block < 1 || B <= 0 || B > 65535 || (present >> n) != 0u)
+    return (int)cudaErrorInvalidValue;
+  cudaError_t err = cudaSetDevice(device);
+  if (err != cudaSuccess) return (int)err;
+  cudaStream_t st = (cudaStream_t)stream;
+  const GfPlan plan = make_plan(rm, nb, nullptr);
+  const int ntiles = (w + kTile - 1) / kTile;
+  dim3 grid((ntiles + tiles_per_block - 1) / tiles_per_block, B);
+  const int nbk = bucket(n), ob = bucket(k);
+#define MTT_VR(NB_, OB_)                                                     \
+  if (nbk == NB_ && ob == OB_)                                               \
+    verify_reconstruct_kernel<NB_, OB_><<<grid, kThreads, 0, st>>>(          \
+        shards, data, partials, n, k, w, present, ntiles, tiles_per_block,   \
+        plan);
+  MTT_VR(4, 4)
+  MTT_VR(8, 4) MTT_VR(8, 8)
+  MTT_VR(16, 4) MTT_VR(16, 8) MTT_VR(16, 16)
+#undef MTT_VR
+  err = cudaGetLastError();
+  if (err != cudaSuccess) return (int)err;
+  const int count = B * n * 8;
+  finalize_kernel<<<(count + kThreads - 1) / kThreads, kThreads, 0, st>>>(
+      partials, count, nbytes);
   return (int)cudaGetLastError();
 }
 

@@ -153,3 +153,13 @@ class ObjectLayer:
         self, bucket: str, object_name: str, version_id: str = ""
     ) -> ObjectInfo:
         raise NotImplementedError
+
+    # health / maintenance
+    def heal_object(
+        self, bucket: str, object_name: str, version_id: str = "",
+        dry_run: bool = False,
+    ) -> dict:
+        raise NotImplementedError
+
+    def heal_bucket(self, bucket: str, dry_run: bool = False) -> dict:
+        raise NotImplementedError

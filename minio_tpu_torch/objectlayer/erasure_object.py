@@ -7,11 +7,12 @@ semantics follow the reference call stack; the codec work itself is the
 batched device pass in codec/erasure.py, run by the codec backend of the
 set's ``device`` (the card unless the caller names another).
 
-This slice carries buckets, PUT, GET (ranges and degraded reads
-included), object info and DELETE.  What the JAX package layers on top -
-transparent compression, SSE, multipart, heal, the read cache - raises
-NotImplementedError naming the slice that ports it, instead of being
-silently skipped.
+The port carries buckets, PUT, GET (ranges and degraded reads
+included), object info, DELETE and heal (``heal_object`` /
+``heal_bucket``, fed by ``heal_hook`` through heal/background.py).  What
+the JAX package layers on top - transparent compression, SSE, multipart,
+the read cache - raises NotImplementedError naming the slice that ports
+it, instead of being silently skipped.
 """
 
 from __future__ import annotations
@@ -24,7 +25,7 @@ from ..codec.erasure import BLOCK_SIZE_V1, Erasure, QuorumError
 from ..dsync.namespace import NamespaceLock
 from ..parallel import iopool
 from ..parallel.iopool import tag_disk_stream
-from ..storage import errors as serrors
+from ..storage import errors as serrors, health as disk_health, metered
 from ..storage.meta import (
     ErasureInfo,
     FileInfo,
@@ -77,9 +78,10 @@ def _check_parity_ack() -> None:
     """MINIO_TPU_PARITY_ACK: only ``settle`` (the default) is ported - a
     PUT returns after every shard, parity included, is written, closed
     and renamed.  ``early`` (ack at data-shard quorum, parity settled in
-    the background and heal-flagged on failure) needs heal."""
+    the background ParityBand and heal-flagged on failure) comes with
+    the PUT-overlap work of slice 9."""
     if os.environ.get("MINIO_TPU_PARITY_ACK", "settle").lower() == "early":
-        raise _unported("MINIO_TPU_PARITY_ACK=early", 2)
+        raise _unported("MINIO_TPU_PARITY_ACK=early", 9)
 
 
 class ErasureObjects(ObjectLayer):
@@ -98,7 +100,9 @@ class ErasureObjects(ObjectLayer):
     ):
         if len(disks) < 2:
             raise ValueError("erasure set needs >= 2 disks")
-        self.disks = list(disks)
+        # per-disk API ledgers feed each disk's circuit breaker; wrap()
+        # is idempotent
+        self.disks = [metered.wrap(d) for d in disks]
         n = len(disks)
         self.parity_blocks = (
             parity_blocks if parity_blocks is not None else n // 2
@@ -111,7 +115,7 @@ class ErasureObjects(ObjectLayer):
         self.nslock = nslock or NamespaceLock()
         # MRF seam (addPartial, erasure-object.go:999): called with
         # (bucket, object) when a write misses disks or a read detects
-        # bitrot; the heal queue that consumes it is a later slice
+        # bitrot; wired to heal.background.HealQueue.push_object
         self.heal_hook = None
 
     # ------------------------------------------------------------------
@@ -130,12 +134,20 @@ class ErasureObjects(ObjectLayer):
         return wq
 
     def _online_disks(self) -> list:
-        """Live disks (offline ones as None): the single choke point
-        every path derives its disk list from.  Masking breaker-tripped
-        disks needs the metered disk layer, a later slice; the GET path
-        already sorts suspect disks last (codec/erasure.py)."""
+        """Live disks, with breaker-tripped ones masked to None.
+
+        This is the single choke point every path (GET preference, PUT
+        fan-out, metadata quorums, heal) derives its disk list from, so
+        an open circuit breaker (storage/health.py) makes the disk
+        vanish uniformly until its backoff admits a probe."""
         return [
-            d if d is not None and d.is_online() else None
+            d
+            if (
+                d is not None
+                and not disk_health.should_skip(d)
+                and d.is_online()
+            )
+            else None
             for d in self.disks
         ]
 
@@ -604,14 +616,201 @@ class ErasureObjects(ObjectLayer):
         )
 
     # ------------------------------------------------------------------
+    # heal (erasure-healing.go:227 healObject)
+    # ------------------------------------------------------------------
+
+    def heal_bucket(self, bucket: str, dry_run: bool = False) -> dict:
+        """Recreate the bucket volume on online disks missing it
+        (erasure-healing.go:105 healBucket): a replaced/wiped drive loses
+        every volume, and object heal cannot rename into a volume that
+        does not exist.  Quorum of present copies is required before we
+        re-stamp the stragglers."""
+        check_bucket_name(bucket)
+        with self.nslock.write(bucket, ""):
+            disks = self._online_disks()  # one snapshot for probe + repair
+            present, missing = [], []
+            for i, d in enumerate(disks):
+                if d is None:
+                    continue
+                try:
+                    d.stat_vol(bucket)
+                    present.append(i)
+                except serrors.VolumeNotFound:
+                    missing.append(i)
+                except Exception:  # noqa: BLE001
+                    continue  # transient error: neither present nor missing
+            if not present:
+                raise BucketNotFound(bucket)
+            result = {
+                "bucket": bucket,
+                "present": present,
+                "healed": [],
+                "dry_run": dry_run,
+            }
+            if len(present) < self.read_quorum:
+                # bucket exists but too few confirmations to re-stamp
+                # stragglers safely; report without mutating
+                return result
+            if dry_run:
+                result["healed"] = missing
+                return result
+            for i in missing:
+                try:
+                    disks[i].make_vol(bucket)
+                    result["healed"].append(i)
+                except serrors.VolumeExists:
+                    result["healed"].append(i)
+                except Exception as exc:  # noqa: BLE001
+                    _log.debug("bucket heal make_vol failed", extra=kv(err=str(exc)))
+            return result
+
+    def probe_object_health(
+        self, bucket, object_name, version_id=""
+    ) -> dict:
+        """Metadata-only shard-health probe: per-disk xl.meta quorum
+        compare, NO namespace lock and NO shard reads.  A racy false
+        positive only queues a heal that then finds nothing.
+
+        ObjectNotFound/VersionNotFound propagate (cleanly absent); an
+        object damaged PAST read quorum reports every disk outdated -
+        those are the most urgent heals, not exceptions to swallow."""
+        out = {"bucket": bucket, "object": object_name}
+        try:
+            fi, fis = self._read_quorum_fileinfo(
+                bucket, object_name, version_id
+            )
+        except ReadQuorumError:
+            return {
+                **out,
+                "outdated": list(range(len(self.disks))),
+                "no_quorum": True,
+            }
+        disks = self._online_disks()
+        out["outdated"] = [
+            i
+            for i, (d, f) in enumerate(zip(disks, fis))
+            if d is not None
+            and (
+                f is None
+                or f.mod_time_ns != fi.mod_time_ns
+                or f.data_dir != fi.data_dir
+            )
+        ]
+        return out
+
+    def heal_object(
+        self, bucket, object_name, version_id="", dry_run=False
+    ) -> dict:
+        """Rebuild the shards of every outdated disk - xl.meta missing or
+        stale, or a part file that fails the deep bitrot scan - from the
+        survivors, and commit them with the same staging + rename as a
+        PUT.  Indices in the result are shard positions (erasure index
+        - 1).  The port has no read cache yet, so there is no cached
+        generation to drop after the rewrite."""
+        # heal the bucket volume first (MakeVol on wiped disks) so the
+        # shard rename below has a destination (erasure-healing.go:105)
+        self.heal_bucket(bucket, dry_run=dry_run)
+        with self.nslock.write(bucket, object_name):
+            disks_raw = self._online_disks()
+            fis, _errs = read_all_fileinfo(
+                disks_raw, bucket, object_name, version_id
+            )
+            fi = find_fileinfo_in_quorum(fis, self.read_quorum)
+            disks = shuffle_disks(disks_raw, fi.erasure.distribution)
+            fis_shuffled = shuffle_disks(fis, fi.erasure.distribution)
+            er = Erasure(
+                fi.erasure.data_blocks,
+                fi.erasure.parity_blocks,
+                fi.erasure.block_size,
+            )
+            # classify disks: ok / outdated (disksWithAllParts semantics)
+            outdated: list[int] = []
+            for i, d in enumerate(disks):
+                f = fis_shuffled[i]
+                if d is None:
+                    continue  # offline: cannot heal
+                if (
+                    f is None
+                    or f.mod_time_ns != fi.mod_time_ns
+                    or f.data_dir != fi.data_dir
+                ):
+                    outdated.append(i)
+                    continue
+                try:
+                    d.verify_file(bucket, object_name, fi)
+                except Exception:  # noqa: BLE001 - any failure = outdated
+                    outdated.append(i)
+            result = {
+                "bucket": bucket,
+                "object": object_name,
+                "disks": len(self.disks),
+                "outdated": list(outdated),
+                "healed": [],
+                "dry_run": dry_run,
+            }
+            if not outdated or dry_run:
+                return result
+            tmp_ids = {i: uuid.uuid4().hex for i in outdated}
+            # a fully wiped disk lost its staging volume too
+            for i in outdated:
+                try:
+                    disks[i].make_vol(SYS_VOL)
+                except Exception as exc:  # noqa: BLE001
+                    _log.debug("staging vol re-create failed on wiped disk", extra=kv(err=str(exc)))
+            for part in fi.parts:
+                readers = []
+                for i, d in enumerate(disks):
+                    if d is None or i in outdated:
+                        readers.append(None)
+                        continue
+                    try:
+                        readers.append(
+                            tag_disk_stream(
+                                d.read_file_stream(
+                                    bucket,
+                                    f"{object_name}/{fi.data_dir}/part.{part.number}",
+                                ),
+                                d,
+                            )
+                        )
+                    except Exception:  # noqa: BLE001 - a missing shard
+                        readers.append(None)
+                writers = [None] * len(disks)
+                for i in outdated:
+                    writers[i] = tag_disk_stream(
+                        disks[i].create_file(
+                            SYS_VOL,
+                            f"tmp/{tmp_ids[i]}/{fi.data_dir}/part.{part.number}",
+                        ),
+                        disks[i],
+                    )
+                try:
+                    er.heal(readers, writers, part.size, backend=self.backend)
+                except QuorumError as e:
+                    raise ReadQuorumError(str(e)) from e
+                finally:
+                    for r in readers:
+                        if r is not None:
+                            r.close()
+                    for w in writers:
+                        if w is not None:
+                            w.close()
+            for i in outdated:
+                hfi = FileInfo(**{**fi.__dict__})
+                hfi.erasure = ErasureInfo(**fi.erasure.__dict__)
+                hfi.erasure.index = i + 1
+                disks[i].rename_data(
+                    SYS_VOL, f"tmp/{tmp_ids[i]}", hfi, bucket, object_name
+                )
+                result["healed"].append(i)
+            return result
+
+    # ------------------------------------------------------------------
     # not ported yet
     # ------------------------------------------------------------------
 
     def new_multipart_upload(self, bucket, object_name, metadata=None):
         raise _unported("multipart upload", 5)
-
-    def heal_object(self, bucket, object_name, version_id="", dry_run=False):
-        raise _unported("object heal", 2)
 
 
 def from_reference_disks(

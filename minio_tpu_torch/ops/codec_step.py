@@ -4,7 +4,9 @@ The reference's PutObject hot loop does RS-encode on CPU and then streams
 each shard through a HighwayHash writer (cmd/erasure-encode.go:73-109 +
 cmd/bitrot-streaming.go:38-88) - two passes over every byte.  Here both
 happen in one fused device pass per batch (the encode_pack kernel), and
-only the 32-byte digests must come back to the host eagerly.
+only the 32-byte digests must come back to the host eagerly.  Heal's
+read side is fused the same way: one verify_reconstruct pass hashes the
+survivors and rebuilds the data rows.
 
 Layout contract: the device works on int32 tensors that reinterpret the
 little-endian u32 "words" (4 field elements per lane).  Byte views
@@ -139,6 +141,34 @@ def reconstruct_words_batch(
         raise ValueError(f"need {k} shards, have {len(idx)}")
     rm = gf.reconstruction_matrix(k, m, tuple(idx))
     return kernels.gf_matmul_words(rm, shards, tuple(idx))
+
+
+def verify_and_reconstruct_words(
+    shards: torch.Tensor,
+    digests: torch.Tensor,
+    present: "tuple[bool, ...]",
+    data_shards: int,
+    parity_shards: int,
+    shard_len: int,
+):
+    """Heal codec step: digest-verify + reconstruct in ONE pass.
+
+    shards: (B, n, w) int32 as read (absent rows hold garbage); digests:
+    (B, n, 8) int32 stored; present: per-row availability.  Returns (data
+    (B, k, w) int32 rebuilt from the first k present rows, ok (B, n) bool
+    = digest match AND present).  The caller rechecks ok over its chosen
+    survivors and re-solves the stripes where one was corrupt (backend
+    reconstruct_and_verify escalation)."""
+    k = data_shards
+    n = shards.shape[1]
+    if n != k + parity_shards:
+        raise ValueError("shard rows must equal k + m")
+    if shard_len != 4 * shards.shape[-1]:
+        raise ValueError("shard_len must equal 4 * words-per-shard")
+    data, got = kernels.verify_reconstruct(shards, present, k, shard_len)
+    pres = torch.tensor(present, dtype=torch.bool, device=shards.device)
+    ok = (got == digests).all(dim=-1) & pres
+    return data, ok
 
 
 def digest_words_batched(words: torch.Tensor, shard_len: int) -> torch.Tensor:

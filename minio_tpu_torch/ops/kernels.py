@@ -1,6 +1,6 @@
 """The codec's CUDA kernels: build, binding, and the dispatching wrappers.
 
-Three kernels, all in ``csrc/codec.cu`` (CUDA C++ for ``sm_90a``):
+Four kernels, all in ``csrc/codec.cu`` (CUDA C++ for ``sm_90a``):
 
 * ``encode_pack`` (K1) replaces ``rs_pallas.encode_pack_fused`` (P4) and
   its pipelined body ``encode_pack_pipelined`` (P6): parity + phash256
@@ -11,6 +11,12 @@ Three kernels, all in ``csrc/codec.cu`` (CUDA C++ for ``sm_90a``):
 * ``gf_matmul_words`` (K3) replaces ``rs_pallas.matmul_words`` (P1): a
   runtime (o, s) GF(2^8) matrix over s selected rows of a (B, R, w)
   batch -> (B, o, w).
+* ``verify_reconstruct`` (K4) replaces ``rs_pallas.verify_reconstruct_fused``
+  (P5) and its pipelined body ``verify_reconstruct_pipelined`` (P7):
+  finalized digests of the present rows of a (B, n, w) batch and the k
+  data rows rebuilt from the first k present rows, in one pass.  With
+  ``group=0``, K1 also computes ``rs_pallas.encode_hash_fused`` (P2),
+  heal's re-encode.
 
 Build: ``nvcc -gencode arch=compute_90a,code=sm_90a -O3 -shared`` into
 ``minio_tpu_torch/build/`` at first use, keyed by a hash of the sources
@@ -23,7 +29,8 @@ ops/rs.py and ops/hash.py); for a CUDA tensor it launches the kernel on
 ``torch.cuda.current_stream()`` or raises - a failed build, a refused
 launch (non-zero ``cudaGetLastError()``) or a wrong device, dtype, shape
 or layout never falls back.  ``LAUNCHES`` counts kernel launches per
-wrapper (never plain runs); ``reset_launches`` zeroes it.
+wrapper (never plain runs), and ``encode_pack[group=0]`` the K1 launches
+without the pack leg among them; ``reset_launches`` zeroes it.
 """
 
 from __future__ import annotations
@@ -56,7 +63,10 @@ TILE = 256  # columns per block tile == PARITY_GROUP_WORDS
 _MAX_ROWS = 16
 _TARGET_BLOCKS = 132 * 8  # enough resident blocks to fill the SMs
 
-LAUNCHES = {"encode_pack": 0, "phash256_batched": 0, "gf_matmul_words": 0}
+LAUNCHES = {
+    "encode_pack": 0, "encode_pack[group=0]": 0, "phash256_batched": 0,
+    "gf_matmul_words": 0, "verify_reconstruct": 0,
+}
 _count_lk = threading.Lock()
 
 _lib = None
@@ -132,7 +142,11 @@ def _load():
             ]
             lib.mtt_phash256.argtypes = [I, P, P, I, I, U, I, P]
             lib.mtt_gf_matmul.argtypes = [I, P, P, I, I, I, I, I, P, P, P, P]
-            for fn in (lib.mtt_encode_pack, lib.mtt_phash256, lib.mtt_gf_matmul):
+            lib.mtt_verify_reconstruct.argtypes = [
+                I, P, P, P, I, I, I, I, U, U, I, P, P, P,
+            ]
+            for fn in (lib.mtt_encode_pack, lib.mtt_phash256, lib.mtt_gf_matmul,
+                       lib.mtt_verify_reconstruct):
                 fn.restype = ctypes.c_int
             _lib = lib
         return _lib
@@ -254,6 +268,8 @@ def encode_pack(words: torch.Tensor, parity_shards: int, shard_len: int,
     )
     _check_rc(rc, "encode_pack")
     _count("encode_pack")
+    if not group:
+        _count("encode_pack[group=0]")
     return parity, digests, flags, packed
 
 
@@ -317,3 +333,73 @@ def gf_matmul_words(matrix: np.ndarray, words: torch.Tensor,
     _check_rc(rc, "gf_matmul_words")
     _count("gf_matmul_words")
     return out
+
+
+# ---------------------------------------------------------------------------
+# K4 verify_reconstruct
+# ---------------------------------------------------------------------------
+
+
+def _survivors(present: "tuple[bool, ...]", k: int) -> "tuple[int, ...]":
+    idx = tuple(i for i, p in enumerate(present) if p)[:k]
+    if len(idx) < k:
+        raise ValueError(f"need {k} shards, have {len(idx)}")
+    return idx
+
+
+def verify_reconstruct_plain(shards: torch.Tensor, present: "tuple[bool, ...]",
+                             data_shards: int, shard_len: int):
+    """Plain version of verify_reconstruct (any device): the portable path
+    of codec_step.verify_and_reconstruct_words in the JAX package, with
+    the partials of absent rows zeroed as the kernel leaves them."""
+    B, n, w = shards.shape
+    k = data_shards
+    idx = _survivors(present, k)
+    data = rs.gf_matmul_words(
+        gf.reconstruction_matrix(k, n - k, idx), shards, idx
+    )
+    mask = torch.tensor(present, dtype=torch.bool, device=shards.device)
+    partials = torch.where(
+        mask[:, None], phash.tile_partials(shards, 0), 0
+    )
+    return data, phash.finalize_partials(partials, shard_len)
+
+
+def verify_reconstruct(shards: torch.Tensor, present: "tuple[bool, ...]",
+                       data_shards: int, shard_len: int):
+    """(B, n, w) shard words as read + the present-row mask -> (data
+    (B, k, w) rebuilt from the first k present rows, digests (B, n, 8)
+    finalized), int32.  Only the digests of present rows are the rows'
+    phash256; an absent row is neither read nor hashed."""
+    B, n, w = shards.shape
+    k = data_shards
+    if len(present) != n:
+        raise ValueError(f"present has {len(present)} rows, shards {n}")
+    if not 1 <= k <= n <= _MAX_ROWS:
+        raise ValueError(f"verify_reconstruct supports k <= n <= {_MAX_ROWS}")
+    if w % 4:
+        raise ValueError(f"word count {w} must be a multiple of 4")
+    if shards.device.type == "cpu":
+        return verify_reconstruct_plain(shards, present, k, shard_len)
+    _require_cuda(shards, "verify_reconstruct", 3)
+    idx = _survivors(present, k)
+    dev = shards.device
+    data = torch.empty((B, k, w), dtype=torch.int32, device=dev)
+    digests = torch.zeros((B, n, 8), dtype=torch.int32, device=dev)
+    if B == 0:
+        return data, digests
+    # the plan is indexed by shard row: survivors carry their column of
+    # the reconstruction matrix, every other row an empty chain
+    full = np.zeros((k, n), dtype=np.uint8)
+    full[:, list(idx)] = gf.reconstruction_matrix(k, n - k, idx)
+    rm, nb, _row = _matrix_plan(full, ())
+    mask = sum(1 << i for i, p in enumerate(present) if p)
+    ntiles = -(-w // TILE)
+    rc = _load().mtt_verify_reconstruct(
+        dev.index or 0, shards.data_ptr(), data.data_ptr(),
+        digests.data_ptr(), B, n, k, w, mask, shard_len & 0xFFFFFFFF,
+        _tiles_per_block(ntiles, B), rm, nb, _stream(shards),
+    )
+    _check_rc(rc, "verify_reconstruct")
+    _count("verify_reconstruct")
+    return data, digests

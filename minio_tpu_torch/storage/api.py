@@ -4,8 +4,8 @@ This port implements xl.XLStorage (local POSIX); remote disks over the
 storage REST plane come with the cluster slice.  The object layer only
 ever talks to this interface, so local and remote disks are
 interchangeable - the seam the reference uses to make a distributed
-cluster look like a big JBOD.  Only the calls the PUT/GET/DELETE path
-makes are declared here.
+cluster look like a big JBOD.  Only the calls the PUT/GET/DELETE and
+heal paths make are declared here.
 """
 
 from __future__ import annotations
@@ -116,4 +116,10 @@ class StorageAPI:
         """Atomically move a staged object dir into place and commit its
         xl.meta version (the RenameData crash-consistency point,
         xl-storage.go:2000)."""
+        raise NotImplementedError
+
+    # ---- maintenance ----------------------------------------------------
+    def verify_file(self, volume: str, path: str, fi: FileInfo) -> None:
+        """Deep scan every part's framed blocks against their digests;
+        raises FileCorrupt on a truncated or bitrotted block."""
         raise NotImplementedError

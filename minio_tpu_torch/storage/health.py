@@ -9,23 +9,23 @@ coordination:
   trips after ``MINIO_TPU_BREAKER_TRIP_ERRORS`` failures in a row) and
   by p99-outlier latency (reads far beyond the pool-wide p99, or reads
   abandoned by the hedging loop, accrue *slow strikes* that demote the
-  disk to suspect for a decaying window).  The GET path sorts suspect
-  and tripped disks last among otherwise-equal shards; skipping them
-  outright (``admit``) needs the metered disk layer, which this port
-  carries in a later slice.  Tripped disks recover through a
-  **half-open window** with exponential backoff: after the backoff lapses callers are
+  disk to suspect for a decaying window).  Tripped disks are skipped
+  everywhere ``_online_disks`` is consulted (GET preference, PUT
+  fan-out bookkeeping, heal) and recover through a **half-open window**
+  with exponential backoff: after the backoff lapses callers are
   admitted until the first verdict lands — success closes the breaker,
   failure re-trips it with doubled backoff — so a dead disk eats at
   most one concurrent round of probe traffic per backoff period.
 * **How long is a shard read allowed to take?**  The registry keeps
-  pool-wide streaming read quantiles (``P2Quantile`` below — constant
-  memory); ``hedge_deadline()`` is the clamped multiple of the
+  pool-wide streaming read quantiles (``P2Quantile`` from metered.py —
+  constant memory); ``hedge_deadline()`` is the clamped multiple of the
   live p99 that ``codec/erasure.py`` races each round of shard reads
   against before launching a duplicate on the next parity shard.
 
 Lock discipline: the registry lock only guards the disk table and the
 pool estimators; each ``DiskHealth`` has its own lock and the two are
-never nested.
+never nested (MeteredDisk likewise calls in only after releasing its
+ledger lock).
 """
 
 from __future__ import annotations
@@ -35,96 +35,10 @@ import threading
 import time
 
 from ..utils.log import kv, logger
+from .metered import P2Quantile
 
 _log = logger("diskhealth")
 
-
-class P2Quantile:
-    """Streaming quantile estimator (Jain & Chlamtac's P² algorithm).
-
-    Five markers track the running q-quantile in O(1) memory — no
-    sample buffer, so a disk that serves millions of reads costs the
-    same 5 floats as one that served fifty.  Not thread-safe; callers
-    hold their own lock (DiskHealth._mu / HealthRegistry._mu).
-    """
-
-    __slots__ = ("q", "count", "_h", "_pos", "_want", "_inc")
-
-    def __init__(self, q: float):
-        self.q = float(q)
-        self.count = 0
-        self._h: "list[float]" = []  # first 5 raw samples, then heights
-        self._pos = [0.0, 1.0, 2.0, 3.0, 4.0]
-        self._want = [0.0, 2 * q, 4 * q, 2 + 2 * q, 4.0]
-        self._inc = [0.0, q / 2, q, (1 + q) / 2, 1.0]
-
-    def observe(self, x: float) -> None:
-        self.count += 1
-        h = self._h
-        if self.count <= 5:
-            h.append(float(x))
-            if self.count == 5:
-                h.sort()
-            return
-        # locate cell k such that h[k] <= x < h[k+1], clamping extremes
-        if x < h[0]:
-            h[0] = float(x)
-            k = 0
-        elif x >= h[4]:
-            h[4] = float(x)
-            k = 3
-        else:
-            k = 0
-            while k < 3 and not (h[k] <= x < h[k + 1]):
-                k += 1
-        pos, want = self._pos, self._want
-        for i in range(k + 1, 5):
-            pos[i] += 1.0
-        for i in range(5):
-            want[i] += self._inc[i]
-        # nudge interior markers toward their desired positions
-        for i in (1, 2, 3):
-            d = want[i] - pos[i]
-            if (d >= 1.0 and pos[i + 1] - pos[i] > 1.0) or (
-                d <= -1.0 and pos[i - 1] - pos[i] < -1.0
-            ):
-                s = 1.0 if d > 0 else -1.0
-                cand = self._parabolic(i, s)
-                if not (h[i - 1] < cand < h[i + 1]):
-                    cand = self._linear(i, s)
-                h[i] = cand
-                pos[i] += s
-
-    def _parabolic(self, i: int, s: float) -> float:
-        h, n = self._h, self._pos
-        return h[i] + s / (n[i + 1] - n[i - 1]) * (
-            (n[i] - n[i - 1] + s)
-            * (h[i + 1] - h[i])
-            / (n[i + 1] - n[i])
-            + (n[i + 1] - n[i] - s)
-            * (h[i] - h[i - 1])
-            / (n[i] - n[i - 1])
-        )
-
-    def _linear(self, i: int, s: float) -> float:
-        h, n = self._h, self._pos
-        j = i + int(s)
-        return h[i] + s * (h[j] - h[i]) / (n[j] - n[i])
-
-    def value(self) -> "float | None":
-        """Current estimate; None before the first observation.
-
-        Below 5 samples the markers aren't live yet — fall back to the
-        nearest-rank quantile of the few raw samples so early readers
-        (hedge-deadline warmup) get a sane number, not None.
-        """
-        if self.count == 0:
-            return None
-        if self.count >= 5:
-            return self._h[2]
-        xs = sorted(self._h)
-        idx = min(len(xs) - 1, int(self.q * len(xs)))
-        return xs[idx]
 
 # states, ordered by preference penalty (sort key in the GET path)
 HEALTHY = 0
@@ -271,6 +185,15 @@ class DiskHealth:
         return HEALTHY
 
     # -- observations -----------------------------------------------------
+
+    def record_api(self, api: str, seconds: float, ok: bool) -> None:
+        """Verdict from a metered disk-API call (MeteredDisk._record)."""
+        now = time.monotonic()
+        with self._mu:
+            if ok:
+                self._on_success_locked(now)
+            else:
+                self._on_failure_locked(now, api)
 
     def record_shard_read(
         self,
@@ -455,3 +378,16 @@ def reset_registry() -> None:
     global _REGISTRY
     with _REGISTRY_LK:
         _REGISTRY = None
+
+
+def should_skip(disk) -> bool:
+    """True if the disk's breaker is open and no probe is due.
+
+    Works on any layer of the wrap chain: a MeteredDisk carries the
+    ``health`` attribute; bare disks (no metering, e.g. unit-test
+    doubles) have no breaker and never skip.
+    """
+    h = getattr(disk, "health", None)
+    if h is None:
+        return False
+    return not h.admit()

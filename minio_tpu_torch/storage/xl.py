@@ -294,3 +294,41 @@ class XLStorage(StorageAPI):
             dst_volume, f"{dst_path}/{XL_META}", xl.to_bytes()
         )
         shutil.rmtree(src_dir, ignore_errors=True)
+
+    # ---- maintenance ----------------------------------------------------
+
+    def verify_file(self, volume: str, path: str, fi: FileInfo) -> None:
+        """Deep scan every part's framed blocks against its digests (on
+        the host: heal's per-disk check, erasure-healing.go
+        disksWithAllParts)."""
+        from ..codec import bitrot
+        from ..codec.erasure import Erasure
+
+        er = Erasure(
+            fi.erasure.data_blocks,
+            fi.erasure.parity_blocks,
+            fi.erasure.block_size,
+        )
+        for part in fi.parts:
+            rel = f"{path}/{fi.data_dir}/part.{part.number}"
+            rd = self.read_file_stream(volume, rel)
+            try:
+                for b in range(er.block_count(part.size)):
+                    block_len = min(
+                        er.block_size, part.size - b * er.block_size
+                    )
+                    frame = bitrot.DIGEST_SIZE + er.shard_size_padded(
+                        block_len
+                    )
+                    buf = rd.read_at(er.shard_block_offset(b), frame)
+                    if len(buf) != frame:
+                        raise errors.FileCorrupt(
+                            f"{rel}: truncated block {b}"
+                        )
+                    if not bitrot.verify_block(
+                        buf[bitrot.DIGEST_SIZE :],
+                        buf[: bitrot.DIGEST_SIZE],
+                    ):
+                        raise errors.FileCorrupt(f"{rel}: bitrot block {b}")
+            finally:
+                rd.close()

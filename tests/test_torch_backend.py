@@ -88,6 +88,61 @@ def test_reconstruct(backends, present):
     assert np.array_equal(got, data)
 
 
+def _heal_frames(present, seed=0, rot=None):
+    """Encoded stripes as heal reads them: absent rows zero, and with
+    ``rot`` = (stripe, row) one byte of a present row flipped."""
+    data = _data("random", (3, 8, 1056), seed=seed)
+    jb = jbackend.TpuBackend()
+    parity, digests = jb.encode(data, 4)
+    shards = np.concatenate([data, np.asarray(parity)], axis=1)
+    shards[:, [i for i, p in enumerate(present) if not p]] = 0
+    if rot is not None:
+        shards[rot[0], rot[1], 100] ^= 0x21
+    return data, shards, np.asarray(digests)
+
+
+@pytest.mark.parametrize(
+    "present,rot",
+    [
+        ((False, True, False, True) + (True,) * 8, None),
+        ((True,) * 8 + (False,) * 4, None),
+        # a chosen survivor bitrotted in stripe 2: the backend re-solves
+        # that stripe from the verified mask (escalation through K3)
+        ((False, True, False, True) + (True,) * 8, (2, 4)),
+        # a spare present row bitrotted: ok flags it, no escalation
+        ((True,) * 12, (1, 10)),
+    ],
+)
+def test_reconstruct_and_verify(backends, present, rot):
+    jb, tb = backends
+    data, shards, digests = _heal_frames(present, seed=4, rot=rot)
+    KERNEL_STATS.reset()
+    got, ok = tb.reconstruct_and_verify(shards, digests, present, 8, 4)
+    want, want_ok = jb.reconstruct_and_verify(shards, digests, present, 8, 4)
+    assert np.array_equal(got, np.asarray(want))
+    assert np.array_equal(ok, np.asarray(want_ok))
+    assert np.array_equal(got, data)
+    assert ok.sum() == sum(present) * 3 - (rot is not None)
+    passes = KERNEL_STATS.snapshot()["device_passes"]
+    assert passes["verify_and_reconstruct_words"] == 1
+    assert passes.get("reconstruct_words_batch", 0) == (
+        1 if rot == (2, 4) else 0
+    )
+
+
+def test_reconstruct_and_verify_below_k_raises(backends):
+    jb, tb = backends
+    present = (False, True, False, True, False, False) + (True,) * 6
+    _data_, shards, digests = _heal_frames(present, seed=5, rot=(0, 6))
+    for be in (tb, jb):
+        with pytest.raises(ValueError, match="stripe 0: 7/12 shards intact"):
+            be.reconstruct_and_verify(shards, digests, present, 8, 4)
+    short = (False,) * 5 + (True,) * 7
+    for be in (tb, jb):
+        with pytest.raises(ValueError, match="need 8 shards, have 7"):
+            be.reconstruct_and_verify(shards, digests, short, 8, 4)
+
+
 def test_parity_cache_accounts_and_releases(backends):
     _jb, tb = backends
     data = _data("random", (1, 8, 4096), seed=1)
@@ -114,10 +169,16 @@ def test_get_backend_stack_counts_passes(monkeypatch, batch):
         _d, ref = be.encode_digest_end(be.encode_digest_begin(data, 4))
         ref.drain()
         be.digest(np.concatenate([data, data], axis=1))
-        passes = KERNEL_STATS.snapshot()["device_passes"]
-        assert passes == {
-            "encode_words_fused1": 1, "phash256_words_batched": 1
+        shards = np.concatenate([data, ref.drain()], axis=1)
+        got, ok = be.reconstruct_and_verify(shards, _d, (True,) * 12, 8, 4)
+        assert np.array_equal(got, data) and ok.all()
+        snap = KERNEL_STATS.snapshot()
+        assert snap["device_passes"] == {
+            "encode_words_fused1": 1, "phash256_words_batched": 1,
+            "verify_and_reconstruct_words": 1,
         }
+        # the telemetry wrapper books it under the JAX package's op name
+        assert any(o["op"] == "reconstruct_and_verify" for o in snap["ops"])
     finally:
         tbackend.reset_backend()
 

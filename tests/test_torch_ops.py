@@ -143,6 +143,95 @@ def test_gf_matmul_matches_pallas_interpret(k, m, present):
     assert np.array_equal(_n(got)[0], np.asarray(ref))
 
 
+def _vr_inputs(k, m, present, w, seed):
+    """Clean shards with their stored digests, then the damage heal
+    sees: absent rows hold garbage and, in stripe 1, one present row
+    has a flipped word."""
+    n = k + m
+    data = _stripes("random", (3, k, w), seed=seed)
+    data[0, :, :8] = 0xFFFFFFFF
+    parity = jcs.encode_and_hash_words(jnp.asarray(data), m, 4 * w)[0]
+    shards = np.concatenate([data, np.asarray(parity)], axis=1)
+    digests = jhash.phash256_host_batched(shards, 4 * w)
+    shards[:, [i for i, p in enumerate(present) if not p]] = 0xA5A5A5A5
+    bad = [i for i, p in enumerate(present) if p][n % 3 % len(present)]
+    shards[1, bad, w // 2] ^= 0x00010000
+    return shards, digests
+
+
+VR_PATTERNS = PATTERNS + [
+    (8, 4, (True,) * 12),
+    (8, 4, (True,) * 8 + (False,) * 4),
+    (6, 3, (True, True, False, True, False, True, True, True, True)),
+]
+
+
+@pytest.mark.parametrize("k,m,present", VR_PATTERNS)
+@pytest.mark.parametrize("w", [8, 264, 4096])
+def test_verify_and_reconstruct_matches_jax(k, m, present, w):
+    shards, digests = _vr_inputs(k, m, present, w, seed=w + k)
+    ref_data, ref_ok = jcs.verify_and_reconstruct_words(
+        jnp.asarray(shards), jnp.asarray(digests), present, k, m, 4 * w,
+        use_pallas=False,
+    )
+    data, ok = tcs.verify_and_reconstruct_words(
+        _t(shards), _t(digests), present, k, m, 4 * w
+    )
+    assert np.array_equal(_n(data), np.asarray(ref_data))
+    assert np.array_equal(ok.numpy(), np.asarray(ref_ok))
+    assert not ok[1].all() and ok.sum() > 0
+
+
+@pytest.mark.parametrize("k,m,present", VR_PATTERNS[:2] + VR_PATTERNS[-3:])
+def test_verify_reconstruct_matches_pallas_interpret(k, m, present):
+    """K4's plain version against P5 in interpret mode: the same data
+    rows, and the same digests for every present row (the kernel leaves
+    absent rows unhashed)."""
+    w = 4096
+    shards, _d = _vr_inputs(k, m, present, w, seed=k * 7)
+    idx = tuple(i for i, p in enumerate(present) if p)[:k]
+    ref_data, partials = rs_pallas.verify_reconstruct_fused(
+        jnp.asarray(shards), idx, k, m, interpret=True
+    )
+    ref_dig = np.asarray(jhash.finalize_partials(partials, 4 * w))
+    data, digests = kernels.verify_reconstruct(_t(shards), present, k, 4 * w)
+    pres = np.asarray(present)
+    assert np.array_equal(_n(data), np.asarray(ref_data))
+    assert np.array_equal(_n(digests)[:, pres], ref_dig[:, pres])
+    assert np.array_equal(
+        _n(digests)[:, pres], jhash.phash256_host_batched(shards[:, pres], 4 * w)
+    )
+
+
+def test_verify_reconstruct_rejects_short_patterns():
+    words = _t(_stripes("random", (1, 12, 64), seed=2))
+    with pytest.raises(ValueError, match="need 8 shards, have 7"):
+        kernels.verify_reconstruct(words, (True,) * 7 + (False,) * 5, 8, 256)
+    with pytest.raises(ValueError, match="present"):
+        kernels.verify_reconstruct(words, (True,) * 11, 8, 256)
+    with pytest.raises(ValueError, match="shard_len"):
+        tcs.verify_and_reconstruct_words(
+            words, torch.zeros((1, 12, 8), dtype=torch.int32),
+            (True,) * 12, 8, 4, 255,
+        )
+
+
+@pytest.mark.parametrize("k,m", [(8, 4), (4, 2), (12, 4)])
+def test_encode_group0_matches_encode_hash_fused(k, m):
+    """K1 without the pack leg computes P2 (heal's re-encode)."""
+    w = 8192
+    words = _stripes("random", (2, k, w), seed=k + m)
+    parity, partials = rs_pallas.encode_hash_fused(
+        jnp.asarray(words), m, interpret=True
+    )
+    got_p, got_d, flags, packed = kernels.encode_pack(_t(words), m, 4 * w, 0)
+    assert np.array_equal(_n(got_p), np.asarray(parity))
+    assert np.array_equal(
+        _n(got_d), np.asarray(jhash.finalize_partials(partials, 4 * w))
+    )
+    assert flags.shape == (2, m, 0) and packed is got_p
+
+
 def test_reconstruct_inverts_encode():
     data = _stripes("random", (2, 8, 264), seed=5)
     parity, _d, _f, _p = tcs.encode_words_fused1(_t(data), 4, 4 * 264)
@@ -189,10 +278,13 @@ def test_cpu_wrappers_run_plain_and_count_nothing():
     kernels.reset_launches()
     words = _t(_stripes("random", (1, 8, 512), seed=1))
     kernels.encode_pack(words, 4, 2048, 256)
+    kernels.encode_pack(words, 4, 2048, 0)
     kernels.phash256_batched(words, 2048)
     kernels.gf_matmul_words(tgf.parity_matrix(8, 4), words, tuple(range(8)))
+    kernels.verify_reconstruct(words, (True,) * 8, 6, 2048)
     assert kernels.LAUNCHES == {
-        "encode_pack": 0, "phash256_batched": 0, "gf_matmul_words": 0
+        "encode_pack": 0, "encode_pack[group=0]": 0, "phash256_batched": 0,
+        "gf_matmul_words": 0, "verify_reconstruct": 0,
     }
 
 
