@@ -13,20 +13,33 @@
    gf_matmul_words, phash256_host_batched and data that encode_pack
    encoded, with a bitrotted survivor that the backend must re-solve;
    and encode_pack without the pack leg (the P2 function, heal's
-   re-encode) at heal's shape.
-3. Drives the main path through the object layer: 12 temp-dir disks, EC
-   8+4, 10 MiB blocks; PUT four 64 MiB objects and one of 10 MiB + 17
-   bytes, GET each healthy and again with 4 disks offline (data-shard
-   disks among them), compares every body with its source, compares the
-   part files of the 10 MiB + 17 object with those the same port writes
-   on the CPU, and checks that every kernel of that path launched.
+   re-encode) at heal's shape.  The overlap kernels too: the pipelined
+   K5 and K6 against their plain versions and against K1 and K4, and the
+   sub-chunk forms of K1 and K4 chained over S chunks against the
+   whole-row pass and against their plain chains.
+3. Drives the main path through the object layer under the default
+   MINIO_TPU_CODEC_OVERLAP (unset: ``pipeline`` on the card): 12 temp-dir
+   disks, EC 8+4, 10 MiB blocks; PUT four 64 MiB objects and one of
+   10 MiB + 17 bytes, GET each healthy and again with 4 disks offline
+   (data-shard disks among them), compares every body with its source,
+   compares the part files of the 10 MiB + 17 object with those the same
+   port writes on the CPU, and checks that every kernel of that path
+   launched (K5 on PUT, and K1 not at all).
 4. Heals the same 5 objects on the same disks: 4 shards deleted from each
    64 MiB object and healed with heal_object; on the last object one
    shard bitrotted and 3 deleted, healed by the MRF HealRoutine after a
    GET flags it.  Every rebuilt part file must equal the one it replaces;
    then each object is read with 4 other disks offline, so the healed
-   shards carry the read.  K4 and K1 without the pack leg must launch.
-5. Prints the kernels JSON line, the card's name and power limit, and as
+   shards carry the read.  K6 and K1 without the pack leg must launch,
+   and K4 must not.
+5. Every mode against every other: on fresh disks, under ``pipeline``,
+   ``off`` and ``async`` in turn and then in reverse order, PUT one
+   64 MiB object and the 10 MiB + 17 B one, GET both with 4 disks offline, delete 4 shards of each and
+   heal_object them.  Part files must be byte-identical to the main
+   path's, and xl.meta equal up to its mod time, data dir and version id
+   (fresh for every PUT); each mode's own kernels must launch and
+   ``async`` must count overlap windows both ways.
+6. Prints the kernels JSON line, the card's name and power limit, and as
    the last line ``{"ok": true, "device": {...}}``.
 
 Exits non-zero, without the result lines, when there is no CUDA device or
@@ -349,10 +362,184 @@ def check_heal_kernels(dev, rng) -> dict:
     return results
 
 
+def _chain(fn, x, acc_rows: int, cw: int, *args):
+    """Run a sub-chunk form over x's last axis in chunks of cw words at
+    their offsets; returns (concatenated first outputs, accumulator)."""
+    import torch
+
+    B, _r, w = x.shape
+    acc = torch.zeros((B, acc_rows, 8), dtype=torch.int32, device=x.device)
+    offs = list(range(0, w, cw))
+    outs = []
+    for i, off in enumerate(offs):
+        chunk = x[:, :, off:off + cw].contiguous()
+        outs.append(fn(chunk, acc, off, *args, i == len(offs) - 1)[0])
+    return torch.cat(outs, dim=-1), acc
+
+
+def check_overlap_kernels(dev, rng) -> dict:
+    """Phase 2, overlap: K5 and K6 against their plain versions and
+    against K1 and K4; the sub-chunk forms of K1 and K4 chained over S
+    chunks against the whole-row pass and their plain chains; timings."""
+    import torch
+
+    from minio_tpu_torch.ops import gf, kernels
+
+    results = {}
+    lost = (0, 2, 9, 11)  # shards 1, 3 (data) and 10, 12 (parity)
+    patterns = {
+        "data+parity missing": tuple(i not in lost for i in range(N)),
+        "parity missing": tuple(i < K for i in range(N)),
+        "all present": (True,) * N,
+    }
+
+    def same(got, *wants) -> int:
+        e = max(max_err(a, b) for want in wants for a, b in zip(got, want))
+        if e or not all(torch.equal(a, b) for want in wants
+                        for a, b in zip(got, want)):
+            return max(e, 1)
+        return 0
+
+    # --- K5 encode_pack_pipelined ----------------------------------------
+    err = 0
+    for B, w, group in [(4, W, 256), (1, W, 0), (1, W, 256), (2, 131072, 256),
+                        (2, 4104, 0), (1, 8, 0)]:
+        x = rand_words(rng, (B, K, w), dev)
+        x[0, :, : min(w, 64)] = -1
+        if w >= 4096:
+            x[-1, :, 256:2048] = 0  # zero groups for the pack leg
+        got = kernels.encode_pack_pipelined(x, M, 4 * w, group)
+        k1 = kernels.encode_pack(x, M, 4 * w, group)
+        torch.cuda.synchronize()
+        e = same(got, kernels.encode_pack_pipelined_plain(x, M, 4 * w, group), k1)
+        if e:
+            fail(f"encode_pack_pipelined differs from its plain version or K1 at {B, w, group}")
+        err = max(err, e)
+    pm = gf.parity_matrix(K, M)
+    timings = {}
+    for B, group in [(4, 256), (1, 0)]:
+        x = rand_words(rng, (B, K, W), dev)
+        g = W // 256 if group else 0
+        nbytes = 4 * (B * K * W + (2 if group else 1) * B * M * W + B * M * g + B * N * 8)
+        bms, by = bound(nbytes, B * W * (_KEY + N * _HASH + gf_ops(pm) + M))
+        timings[f"B={B}, group={group}"] = dict(
+            ms=cuda_ms(lambda: kernels.encode_pack_pipelined(x, M, 4 * W, group), 20),
+            k1_ms=cuda_ms(lambda: kernels.encode_pack(x, M, 4 * W, group), 20),
+            plain_ms=cuda_ms(lambda: kernels.encode_pack_pipelined_plain(x, M, 4 * W, group), 3, 1),
+            bound_ms=bms, bound_by=by, shape=[B, K, W],
+        )
+    results["encode_pack_pipelined"] = dict(
+        max_abs_err=err, **timings["B=4, group=256"], timings=timings
+    )
+
+    # --- K6 verify_reconstruct_pipelined ------------------------------------
+    err = 0
+    for B, w in [(1, W), (4, W), (1, 131072), (2, 4104), (1, 8)]:
+        x = rand_words(rng, (B, N, w), dev)
+        for pname, pres in patterns.items():
+            got = kernels.verify_reconstruct_pipelined(x, pres, K, 4 * w)
+            k4 = kernels.verify_reconstruct(x, pres, K, 4 * w)
+            torch.cuda.synchronize()
+            e = same(got, kernels.verify_reconstruct_pipelined_plain(x, pres, K, 4 * w), k4)
+            if e:
+                fail(f"verify_reconstruct_pipelined differs from its plain version or K4 at {B, w}, {pname}")
+            err = max(err, e)
+    timings = {}
+    for pname, B in [("data+parity missing", 1), ("data+parity missing", 4),
+                     ("all present", 1)]:
+        pres = patterns[pname]
+        x = rand_words(rng, (B, N, W), dev)
+        rows = tuple(i for i, p in enumerate(pres) if p)[:K]
+        live = sum(pres)
+        bms, by = bound(
+            4 * (B * live * W + B * K * W + B * N * 8),
+            B * W * (_KEY + live * _HASH + gf_ops(gf.reconstruction_matrix(K, M, rows))),
+        )
+        timings[f"{pname}, B={B}"] = dict(
+            ms=cuda_ms(lambda: kernels.verify_reconstruct_pipelined(x, pres, K, 4 * W), 20),
+            k4_ms=cuda_ms(lambda: kernels.verify_reconstruct(x, pres, K, 4 * W), 20),
+            plain_ms=cuda_ms(lambda: kernels.verify_reconstruct_pipelined_plain(x, pres, K, 4 * W), 3, 1),
+            bound_ms=bms, bound_by=by, shape=[B, N, W], present=live,
+        )
+    results["verify_reconstruct_pipelined"] = dict(
+        max_abs_err=err, **timings["data+parity missing, B=1"], timings=timings
+    )
+
+    # --- the sub-chunk forms of K1 and K4 -----------------------------------
+    CW = 65536  # 256 KiB of shard bytes, the default MINIO_TPU_CODEC_SUBCHUNK_KB
+    err = 0
+    for B, w, cw, group in [(4, W, CW, 256), (1, W, CW - 768, 256),
+                            (2, 4104, 1000, 0)]:
+        x = rand_words(rng, (B, K, w), dev)
+        if w >= 4096:
+            x[-1, :, 256:2048] = 0
+        par, acc = _chain(kernels.encode_pack_subchunk, x, N, cw, M, 4 * w, group)
+        whole = kernels.encode_pack(x, M, 4 * w, 0)
+        torch.cuda.synchronize()
+        plain = _chain(kernels.encode_pack_subchunk_plain, x, N, cw, M, 4 * w, group)
+        e = same((par, acc), whole[:2], plain)
+        if e:
+            fail(f"encode_pack_subchunk chain differs from the whole row or its plain chain at {B, w, cw}")
+        err = max(err, e)
+    B = 4
+    x = rand_words(rng, (B, K, W), dev)
+    chunks = [(o, x[:, :, o:o + CW].contiguous()) for o in range(0, W, CW)]
+
+    def enc_chain(fn):
+        acc = torch.zeros((B, N, 8), dtype=torch.int32, device=dev)
+        for i, (o, c) in enumerate(chunks):
+            fn(c, acc, o, M, 4 * W, 256, i == len(chunks) - 1)
+
+    g = W // 256
+    bms, by = bound(
+        4 * (B * K * W + 2 * B * M * W + B * M * g + B * N * 8),
+        B * W * (_KEY + N * _HASH + gf_ops(pm) + M),
+    )
+    results["encode_pack[subchunk]"] = dict(
+        max_abs_err=err, ms=cuda_ms(lambda: enc_chain(kernels.encode_pack_subchunk), 20),
+        plain_ms=cuda_ms(lambda: enc_chain(kernels.encode_pack_subchunk_plain), 3, 1),
+        bound_ms=bms, bound_by=by, shape=[B, K, W], chunks=len(chunks),
+    )
+    err = 0
+    for B, w, cw in [(1, W, CW), (4, W, CW), (1, W, CW - 768), (2, 4104, 1000)]:
+        x = rand_words(rng, (B, N, w), dev)
+        for pname, pres in patterns.items():
+            data, acc = _chain(kernels.verify_reconstruct_subchunk, x, N, cw, pres, K, 4 * w)
+            whole = kernels.verify_reconstruct(x, pres, K, 4 * w)
+            torch.cuda.synchronize()
+            plain = _chain(kernels.verify_reconstruct_subchunk_plain, x, N, cw, pres, K, 4 * w)
+            e = same((data, acc), whole, plain)
+            if e:
+                fail(f"verify_reconstruct_subchunk chain differs from the whole row or its plain chain at {B, w, cw}, {pname}")
+            err = max(err, e)
+    B = 1
+    pres = patterns["data+parity missing"]
+    x = rand_words(rng, (B, N, W), dev)
+    chunks = [(o, x[:, :, o:o + CW].contiguous()) for o in range(0, W, CW)]
+
+    def vr_chain(fn):
+        acc = torch.zeros((B, N, 8), dtype=torch.int32, device=dev)
+        for i, (o, c) in enumerate(chunks):
+            fn(c, acc, o, pres, K, 4 * W, i == len(chunks) - 1)
+
+    rows = tuple(i for i, p in enumerate(pres) if p)[:K]
+    live = sum(pres)
+    bms, by = bound(
+        4 * (B * live * W + B * K * W + B * N * 8),
+        B * W * (_KEY + live * _HASH + gf_ops(gf.reconstruction_matrix(K, M, rows))),
+    )
+    results["verify_reconstruct[subchunk]"] = dict(
+        max_abs_err=err, ms=cuda_ms(lambda: vr_chain(kernels.verify_reconstruct_subchunk), 20),
+        plain_ms=cuda_ms(lambda: vr_chain(kernels.verify_reconstruct_subchunk_plain), 3, 1),
+        bound_ms=bms, bound_by=by, shape=[B, N, W], present=live, chunks=len(chunks),
+    )
+    return results
+
+
 def transfer_ms(dev) -> dict:
-    """Host<->device copies of one main-path batch, as the backend does
-    them (pageable numpy memory): 4 blocks of data in, 4 parity planes
-    out."""
+    """Host<->device copies of one main-path batch: 4 blocks of data in,
+    4 parity planes out, from pageable memory as the serialized paths
+    copy and from pinned memory as the async chain's staging does."""
     import numpy as np
     import torch
 
@@ -362,9 +549,13 @@ def transfer_ms(dev) -> dict:
     t = torch.from_numpy(host)
     out = {}
     out["h2d_ms"] = cuda_ms(lambda: t.to(dev), 5, 1)
+    pinned = t.pin_memory()  # the async chain's staging is pinned
+    out["h2d_pinned_ms"] = cuda_ms(lambda: pinned.to(dev, non_blocking=True), 5, 1)
     out["h2d_bytes"] = host.nbytes
     par = torch.zeros((4, M, W), dtype=torch.int32, device=dev)
     out["d2h_ms"] = cuda_ms(lambda: par.cpu(), 5, 1)
+    back = torch.empty(par.shape, dtype=torch.int32, pin_memory=True)
+    out["d2h_pinned_ms"] = cuda_ms(lambda: back.copy_(par, non_blocking=True), 5, 1)
     out["d2h_bytes"] = par.numel() * 4
     return out
 
@@ -385,12 +576,35 @@ def part_files(root: str, bucket: str, name: str) -> "bytes | None":
         return f.read()
 
 
+def object_files(roots: list, name: str) -> list:
+    """Per disk: (part.1 bytes, xl.meta without its mod time, data dir
+    and version id), or None where the disk lacks the object."""
+    from minio_tpu_torch.storage.meta import XLMeta
+
+    out = []
+    for r in roots:
+        part = part_files(r, "bench", name)
+        if part is None:
+            out.append(None)
+            continue
+        with open(os.path.join(r, "bench", name, "xl.meta"), "rb") as f:
+            docs = [v.to_dict() for v in XLMeta.from_bytes(f.read()).versions]
+        for d in docs:
+            for volatile in ("mod_time_ns", "data_dir", "version_id"):
+                d.pop(volatile)
+        out.append((part, docs))
+    return out
+
+
 def main_path(dev, work: str) -> dict:
     """Phase 3: PUT, healthy GET and degraded GET through the object
-    layer, with the kernel launch counters read around the run."""
+    layer under the default overlap mode, with the kernel launch
+    counters read around the run."""
     import numpy as np
 
+    from minio_tpu_torch.codec.backend import get_backend
     from minio_tpu_torch.codec.telemetry import KERNEL_STATS
+    from minio_tpu_torch.ops.codec_step import codec_overlap_mode
     from minio_tpu_torch.objectlayer.erasure_object import (
         ErasureObjects,
         from_reference_disks,
@@ -407,6 +621,9 @@ def main_path(dev, work: str) -> dict:
         device=dev,
     )
     ol.make_bucket("bench")
+    mode = codec_overlap_mode(get_backend(dev).device)
+    if mode != "pipeline":
+        fail(f"the default overlap mode on the card is {mode}, not pipeline")
 
     kernels.reset_launches()
     KERNEL_STATS.reset()
@@ -422,6 +639,8 @@ def main_path(dev, work: str) -> dict:
         t_get += time.monotonic() - t0
         if sink.getvalue() != data:
             fail(f"healthy GET of obj{i} differs from its source")
+    # what every mode must write (phase 5), taken before heal damages it
+    written = {name: object_files(roots, name) for name in MODE_OBJECTS}
     for i, data in enumerate(payloads):
         dist = XLStorage(roots[0]).read_version("bench", f"obj{i}").erasure.distribution
         # offline: the disks holding shards 1 and 3 (data) and 10, 12
@@ -440,9 +659,13 @@ def main_path(dev, work: str) -> dict:
             fail(f"degraded GET of obj{i} did not flag heal")
     launches = dict(kernels.LAUNCHES)
     stats = KERNEL_STATS.snapshot()
-    for name in ("encode_pack", "phash256_batched", "gf_matmul_words"):
+    for name in ("encode_pack_pipelined", "phash256_batched", "gf_matmul_words"):
         if launches[name] <= 0:
             fail(f"kernel {name} never launched on the main path")
+    if launches["encode_pack"] != launches["encode_pack[group=0]"]:
+        fail("K1 with the pack leg launched on the main path under pipeline")
+    if stats["overlap_windows"]["put"] <= 0:
+        fail("the main path's PUT counted no pipelined overlap windows")
 
     # the same port on the CPU writes the same shard files
     cpu_roots = [os.path.join(work, f"cpu{i}") for i in range(N)]
@@ -458,7 +681,8 @@ def main_path(dev, work: str) -> dict:
             fail("obj4 part files differ between device=cuda and device=cpu")
 
     total = sum(sizes)
-    return payloads, {
+    return payloads, written, {
+        "overlap_mode": mode,
         "objects": len(sizes),
         "bytes": total,
         "put_s": t_put,
@@ -472,6 +696,7 @@ def main_path(dev, work: str) -> dict:
         "hedge": stats["hedge"],
         "h2d": stats["h2d"],
         "d2h": stats["d2h"],
+        "overlap_windows": stats["overlap_windows"],
         "stages": stats["stages"],
     }
 
@@ -576,9 +801,17 @@ def heal_phase(dev, work: str, payloads: list) -> dict:
         if sink.getvalue() != data:
             fail(f"GET of {name} through its healed shards differs from its source")
     launches = dict(kernels.LAUNCHES)
-    for name in ("verify_reconstruct", "encode_pack[group=0]"):
+    for name in ("verify_reconstruct_pipelined", "encode_pack[group=0]"):
         if launches[name] <= 0:
             fail(f"kernel {name} never launched on the heal path")
+    # under pipeline, K1 runs only as heal's re-encode (the overlap knob
+    # leaves encode alone) and escalation re-solves through K3, not K4
+    if launches["encode_pack"] != launches["encode_pack[group=0]"]:
+        fail("K1 with the pack leg launched on the heal path under pipeline")
+    if launches["verify_reconstruct"]:
+        fail("K4 launched on the heal path under pipeline")
+    if heal_stats["overlap_windows"]["get"] <= 0:
+        fail("heal counted no pipelined overlap windows")
     healed_bytes = sum(len(p) for p in payloads[:-1])
     return {
         "objects": len(names),
@@ -591,27 +824,141 @@ def heal_phase(dev, work: str, payloads: list) -> dict:
         "device_passes": heal_stats["device_passes"],
         "h2d": heal_stats["h2d"],
         "d2h": heal_stats["d2h"],
+        "overlap_windows": heal_stats["overlap_windows"],
         "stages": heal_stats["stages"],
         "disk_api_s": disk_api_s,
     }
 
 
-# the TPU function each kernel replaces: encode_pack_fused (P4; the
-# pipelined P6 computes the same), phash256_words_batched (left to XLA),
-# matmul_words (P1), verify_reconstruct_fused (P5; the pipelined P7
-# computes the same), and encode_hash_fused (P2), which encode_pack
-# computes without the pack leg
+# phase 5: one 64 MiB object and the 10 MiB + 17 B one, under each mode;
+# the kernels each mode must launch, and those it must not
+MODE_OBJECTS = ("obj0", "obj4")
+MODE_KERNELS = {
+    "pipeline": (("encode_pack_pipelined", "verify_reconstruct_pipelined"),
+                 ("verify_reconstruct", "encode_pack[subchunk]",
+                  "verify_reconstruct[subchunk]")),
+    "off": (("encode_pack", "verify_reconstruct"),
+            ("encode_pack_pipelined", "verify_reconstruct_pipelined",
+             "encode_pack[subchunk]", "verify_reconstruct[subchunk]")),
+    "async": (("encode_pack[subchunk]", "verify_reconstruct[subchunk]"),
+              ("encode_pack_pipelined", "verify_reconstruct_pipelined")),
+}
+
+
+def modes_phase(dev, work: str, payloads: list, written: dict) -> dict:
+    """Phase 5: PUT, GET with 4 disks offline and heal_object of the
+    MODE_OBJECTS on fresh disks under each overlap mode; part files and
+    xl.meta against the main path's, launch counters per mode."""
+    from minio_tpu_torch.codec.telemetry import KERNEL_STATS
+    from minio_tpu_torch.objectlayer.erasure_object import (
+        ErasureObjects,
+        from_reference_disks,
+    )
+    from minio_tpu_torch.ops import kernels
+    from minio_tpu_torch.storage.xl import XLStorage
+
+    data = {f"obj{i}": p for i, p in enumerate(payloads)}
+    out: dict = {mode: [] for mode in MODE_KERNELS}
+    try:
+        # each mode twice, in turns (ABC then CBA), so host-clock drift
+        # over the phase does not favour one mode
+        for mode in [*MODE_KERNELS, *reversed(MODE_KERNELS)]:
+            os.environ["MINIO_TPU_CODEC_OVERLAP"] = mode
+            roots = [os.path.join(work, f"{mode}{i}") for i in range(N)]
+            ol = ErasureObjects(
+                [XLStorage(r) for r in roots], parity_blocks=M,
+                block_size=BLOCK, device=dev,
+            )
+            ol.make_bucket("bench")
+            kernels.reset_launches()
+            KERNEL_STATS.reset()
+            t0 = time.monotonic()
+            for name in MODE_OBJECTS:
+                ol.put_object("bench", name, io.BytesIO(data[name]), len(data[name]))
+            t_put = time.monotonic() - t0
+            for name in MODE_OBJECTS:
+                if object_files(roots, name) != written[name]:
+                    fail(f"{mode}: {name} part files or xl.meta differ from the main path's")
+            t_get = 0.0
+            for name in MODE_OBJECTS:
+                dist = XLStorage(roots[0]).read_version("bench", name).erasure.distribution
+                dead = {d for d in range(N) if dist[d] in (1, 3, 10, 12)}
+                degraded = from_reference_disks(
+                    [None if d in dead else r for d, r in enumerate(roots)],
+                    parity_blocks=M, block_size=BLOCK, device=dev,
+                )
+                sink = io.BytesIO()
+                t0 = time.monotonic()
+                degraded.get_object("bench", name, sink)
+                t_get += time.monotonic() - t0
+                if sink.getvalue() != data[name]:
+                    fail(f"{mode}: degraded GET of {name} differs from its source")
+                for d in dead:
+                    shutil.rmtree(os.path.join(roots[d], "bench", name))
+            t0 = time.monotonic()
+            for name in MODE_OBJECTS:
+                res = ol.heal_object("bench", name)
+                if res["healed"] != [0, 2, 9, 11]:
+                    fail(f"{mode}: heal_object({name}) healed {res['healed']}")
+            t_heal = time.monotonic() - t0
+            for name in MODE_OBJECTS:
+                if object_files(roots, name) != written[name]:
+                    fail(f"{mode}: healed {name} differs from the main path's")
+            launches = dict(kernels.LAUNCHES)
+            stats = KERNEL_STATS.snapshot()
+            must, must_not = MODE_KERNELS[mode]
+            for name in must:
+                if launches[name] <= 0:
+                    fail(f"{mode}: kernel {name} never launched")
+            for name in must_not:
+                if launches[name]:
+                    fail(f"{mode}: kernel {name} launched")
+            if mode == "pipeline" and (
+                launches["encode_pack"] != launches["encode_pack[group=0]"]
+            ):
+                fail("pipeline: K1 with the pack leg launched")
+            windows = stats["overlap_windows"]
+            if mode != "off" and min(windows.values()) <= 0:
+                fail(f"{mode}: overlap windows {windows}")
+            if mode == "off" and any(windows.values()):
+                fail(f"off: overlap windows {windows}")
+            nbytes = sum(len(data[n]) for n in MODE_OBJECTS)
+            out[mode].append({
+                "bytes": nbytes, "put_s": t_put, "get_degraded_s": t_get,
+                "heal_s": t_heal, "launches": launches,
+                "device_passes": stats["device_passes"],
+                "overlap_windows": windows, "h2d": stats["h2d"],
+                "d2h": stats["d2h"],
+            })
+            for r in roots:
+                shutil.rmtree(r, ignore_errors=True)
+    finally:
+        os.environ.pop("MINIO_TPU_CODEC_OVERLAP", None)
+    return out
+
+
+# the TPU function each kernel replaces: encode_pack_fused (P4),
+# encode_hash_fused (P2, which encode_pack computes without the pack
+# leg), phash256_words_batched (left to XLA), matmul_words (P1),
+# verify_reconstruct_fused (P5), the pipelined P6 and P7, and the XLA
+# sub-chunk steps of the async overlap chain (X2, X3); and the phase
+# whose counters each kernel's launches are read from
 REPLACES = {
-    "encode_pack": "minio_tpu/ops/rs_pallas.py:472",
-    "phash256_batched": "minio_tpu/ops/hash.py:162",
-    "gf_matmul_words": "minio_tpu/ops/rs_pallas.py:84",
-    "verify_reconstruct": "minio_tpu/ops/rs_pallas.py:595",
-    "encode_pack[group=0]": "minio_tpu/ops/rs_pallas.py:193",
+    "encode_pack": ("minio_tpu/ops/rs_pallas.py:472", "off"),
+    "encode_pack[group=0]": ("minio_tpu/ops/rs_pallas.py:193", "heal"),
+    "phash256_batched": ("minio_tpu/ops/hash.py:162", "main"),
+    "gf_matmul_words": ("minio_tpu/ops/rs_pallas.py:84", "main"),
+    "verify_reconstruct": ("minio_tpu/ops/rs_pallas.py:595", "off"),
+    "encode_pack_pipelined": ("minio_tpu/ops/rs_pallas.py:802", "main"),
+    "verify_reconstruct_pipelined": ("minio_tpu/ops/rs_pallas.py:970", "heal"),
+    "encode_pack[subchunk]": ("minio_tpu/ops/codec_step.py:422", "async"),
+    "verify_reconstruct[subchunk]": ("minio_tpu/ops/codec_step.py:486", "async"),
 }
 
 
 _KERNEL_NAME = re.compile(
-    r"(encode_kernel|pack_kernel|finalize_kernel|phash_kernel|"
+    r"(encode_pipelined_kernel|verify_reconstruct_pipelined_kernel|"
+    r"encode_kernel|pack_kernel|finalize_kernel|phash_kernel|"
     r"gf_matmul_kernel|verify_reconstruct_kernel)(?:I((?:Li\d+E)+)E)?"
 )
 
@@ -656,23 +1003,30 @@ def main() -> int:
     rng = np.random.default_rng(SEED)
     kres = check_kernels(dev, rng)
     kres.update(check_heal_kernels(dev, rng))
+    kres.update(check_overlap_kernels(dev, rng))
     for name, r in kres.items():
         print(f"kernel {name}: {json.dumps(r)}", flush=True)
     xfer = transfer_ms(dev)
     print(f"transfers: {json.dumps(xfer)}", flush=True)
 
+    # the main path and heal run under the default mode
+    os.environ.pop("MINIO_TPU_CODEC_OVERLAP", None)
     work = tempfile.mkdtemp(prefix="chip_smoke-")
     try:
-        payloads, mp = main_path(dev, work)
+        payloads, written, mp = main_path(dev, work)
         print(f"main path: {json.dumps(mp)}", flush=True)
         hp = heal_phase(dev, work, payloads)
+        print(f"heal: {json.dumps(hp)}", flush=True)
+        mo = modes_phase(dev, work, payloads, written)
     finally:
         shutil.rmtree(work, ignore_errors=True)
-    print(f"heal: {json.dumps(hp)}", flush=True)
-    phase_launches = {**mp["launches"], **{
-        name: hp["launches"][name]
-        for name in ("verify_reconstruct", "encode_pack[group=0]")
-    }}
+    for mode, runs in mo.items():
+        for i, r in enumerate(runs):
+            print(f"mode {mode} run {i + 1}: {json.dumps(r)}", flush=True)
+    phase_launches = {
+        "main": mp["launches"], "heal": hp["launches"],
+        "off": mo["off"][0]["launches"], "async": mo["async"][0]["launches"],
+    }
 
     line = {
         "kernels": [
@@ -680,8 +1034,8 @@ def main() -> int:
                 "name": name,
                 "route": "cuda",
                 "source": "minio_tpu_torch/csrc/codec.cu",
-                "replaces": REPLACES[name],
-                "launches": phase_launches[name],
+                "replaces": replaces,
+                "launches": phase_launches[phase][name],
                 "max_abs_err": kres[name]["max_abs_err"],
                 "ms": kres[name]["ms"],
                 "plain_ms": kres[name]["plain_ms"],
@@ -689,7 +1043,7 @@ def main() -> int:
                 "bound_by": kres[name]["bound_by"],
                 "library_ms": None,
             }
-            for name in REPLACES
+            for name, (replaces, phase) in REPLACES.items()
         ]
     }
     print(json.dumps(line), flush=True)

@@ -10,6 +10,11 @@ codec-agnostic.  This module is that seam for the port:
   one torch device - the hand-written CUDA kernels on the card, their
   plain PyTorch versions on the CPU.  It keeps the parity plane
   device-resident and reads back only the digests at encode time.
+  MINIO_TPU_CODEC_OVERLAP (codec_step.codec_overlap_mode) picks the PUT
+  and heal passes: the pipelined kernels (``pipeline``, the default on
+  the card), a sub-chunk chain through pinned staging on CUDA streams
+  (``async``), or the serialized kernels (``off``, the default on the
+  CPU).
 
 There is no automatic choice of device and no silent fallback: asking
 for the card where there is none raises.
@@ -17,13 +22,14 @@ for the card where there is none raises.
 
 from __future__ import annotations
 
+import contextlib
 import os
 import threading
 
 import numpy as np
 import torch
 
-from ..ops import codec_step
+from ..ops import codec_step, kernels
 from ..utils.log import logger
 from . import compress as compmod
 
@@ -53,6 +59,121 @@ def _record_h2d(plane: str, nbytes: int) -> None:
     from .telemetry import KERNEL_STATS
 
     KERNEL_STATS.record_h2d(plane, int(nbytes))
+
+
+def _record_overlap(plane: str, windows: int) -> None:
+    """Account overlap windows (plane = put|get): sub-chunks, or kernel
+    tile steps, whose transfer ran while a neighbour's compute ran."""
+    from .telemetry import KERNEL_STATS
+
+    KERNEL_STATS.record_overlap_windows(plane, int(windows))
+
+
+# Ping-pong staging ledger of the async sub-chunk chain: while a batch is
+# between encode_digest_begin and _end (or inside a heal chain), TWO
+# sub-chunk input buffers are live on the device (the one computing and
+# the one arriving) on top of the parity planes the ParityPlaneCache
+# accounts.  Posted to the shared device-byte budget.
+_staging_bytes = 0
+
+
+def _stage_reserve(nbytes: int) -> int:
+    global _staging_bytes
+    nbytes = int(nbytes)
+    with _lock:
+        _staging_bytes += nbytes
+        total = _staging_bytes
+    _post_staging(total)
+    return nbytes
+
+
+def _stage_release(nbytes: int) -> None:
+    global _staging_bytes
+    with _lock:
+        _staging_bytes = max(0, _staging_bytes - int(nbytes))
+        total = _staging_bytes
+    _post_staging(total)
+
+
+def _post_staging(total: int) -> None:
+    from ..cache.allocator import device_budget
+
+    device_budget().set_usage("codec_staging", total)
+
+
+class _PinnedStaging:
+    """The async chain's host side on one CUDA device: two pinned input
+    slots and two pinned output slots (ping-pong), a copy stream per
+    direction and the events that order them.
+
+    Allocated once per backend and grown when a chain needs larger
+    slots (a pinned allocation costs milliseconds).  A slot is refilled
+    only after the event of its previous copy completed; device tensors
+    are allocated on the stream that writes them and ``record_stream``ed
+    onto the stream that reads them, so the caching allocator never
+    hands their memory out early.  ``lock`` serializes chains, which
+    share the slots.
+    """
+
+    def __init__(self, device: torch.device):
+        self.device = device
+        self.lock = threading.Lock()
+        self.h2d_stream = torch.cuda.Stream(device)
+        self.d2h_stream = torch.cuda.Stream(device)
+        self._in: list = [None, None]
+        self._out: list = [None, None]
+        self._in_done: list = [None, None]
+
+    @staticmethod
+    def _slot(bufs: list, slot: int, shape) -> torch.Tensor:
+        nwords = int(np.prod(shape))
+        buf = bufs[slot]
+        if buf is None or buf.numel() < nwords:
+            buf = torch.empty(nwords, dtype=torch.int32, pin_memory=True)
+            bufs[slot] = buf
+        return buf[:nwords].view(tuple(shape))
+
+    def h2d(self, src: np.ndarray, slot: int) -> torch.Tensor:
+        """uint32 host words -> int32 device tensor, copied on the copy
+        stream; the current (compute) stream waits for it."""
+        done = self._in_done[slot]
+        if done is not None:
+            done.synchronize()  # the slot's previous H2D has landed
+        pinned = self._slot(self._in, slot, src.shape)
+        np.copyto(pinned.numpy().view(np.uint32), src)
+        with torch.cuda.stream(self.h2d_stream):
+            dst = torch.empty(src.shape, dtype=torch.int32, device=self.device)
+            dst.copy_(pinned, non_blocking=True)
+            done = torch.cuda.Event()
+            done.record(self.h2d_stream)
+        self._in_done[slot] = done
+        compute = torch.cuda.current_stream(self.device)
+        compute.wait_event(done)
+        dst.record_stream(compute)
+        return dst
+
+    def d2h_start(self, src: torch.Tensor, slot: int):
+        """Queue src's D2H into output slot ``slot`` behind the compute
+        stream's work so far; the caller has consumed the slot's previous
+        content.  Returns (event, pinned view) for d2h_finish."""
+        ready = torch.cuda.Event()
+        ready.record(torch.cuda.current_stream(self.device))
+        self.d2h_stream.wait_event(ready)
+        pinned = self._slot(self._out, slot, src.shape)
+        with torch.cuda.stream(self.d2h_stream):
+            pinned.copy_(src, non_blocking=True)
+            done = torch.cuda.Event()
+            done.record(self.d2h_stream)
+        src.record_stream(self.d2h_stream)
+        return done, pinned
+
+    @staticmethod
+    def d2h_finish(started) -> np.ndarray:
+        """Wait for a d2h_start and view its words (valid until the slot
+        is reused)."""
+        done, pinned = started
+        done.synchronize()
+        return pinned.numpy().view(np.uint32)
 
 
 # ---------------------------------------------------------------------------
@@ -256,6 +377,78 @@ class _DeviceParityRef:
                 )
                 return codec_step.host_words_to_bytes(words)
         return _DeviceParityRef._drain_raw(parity_w)
+
+
+class _SubchunkParityRef:
+    """One batch's device-resident parity plane held as the S sub-chunk
+    tensors of the async chain (splits along the stripe-length axis).
+
+    Same contract as _DeviceParityRef: ``drain()`` is the single memoized
+    D2H seam shared by the m parity writers, ``release()`` drops the
+    plane without the transfer, and the ParityPlaneCache accounts every
+    live device plane - parity AND the packed twin when the pack leg ran.
+    """
+
+    __slots__ = (
+        "_lk",
+        "_cache",
+        "_parity",
+        "_flags",
+        "_packed",
+        "_group",
+        "_host",
+        "nbytes",
+    )
+
+    def __init__(self, cache: ParityPlaneCache, parity_chunks, flags=None,
+                 packed=None, group: int = 0):
+        self._lk = threading.Lock()
+        self._cache = cache
+        self._parity = list(parity_chunks)
+        self._flags = list(flags) if flags else None
+        self._packed = list(packed) if packed else None
+        self._group = int(group)
+        self._host: "np.ndarray | None" = None
+        plane = sum(int(p.numel()) * 4 for p in self._parity)
+        self.nbytes = plane * (2 if self._packed is not None else 1)
+        cache.add(self)
+
+    def drain(self) -> np.ndarray:
+        """(B, m, L) uint8 parity bytes, materialized at most once."""
+        with self._lk:
+            if self._host is None and self._parity is not None:
+                self._host = self._drain_chunks()
+                self._parity = None
+                self._flags = None
+                self._packed = None
+                self._cache.forget(self)
+            return self._host
+
+    def release(self) -> None:
+        """Drop an undrained plane without the transfer."""
+        with self._lk:
+            if self._parity is not None:
+                self._parity = None
+                self._flags = None
+                self._packed = None
+                self._cache.forget(self)
+
+    def _drain_chunks(self) -> np.ndarray:
+        """Per-chunk D2H through the fused1 drain bodies, concatenated
+        along the length axis: the occupancy screen picks the packed
+        prefix or the raw plane per chunk, so a sparse chunk of a dense
+        plane still crosses the bus compressed."""
+        parts = [
+            (
+                _DeviceParityRef._drain_precomputed(
+                    p, self._flags[i], self._packed[i], self._group
+                )
+                if self._packed is not None
+                else _DeviceParityRef._drain_raw(p)
+            )
+            for i, p in enumerate(self._parity)
+        ]
+        return np.concatenate(parts, axis=-1)
 
 
 class _ParityCaches:
@@ -463,21 +656,37 @@ class TorchBackend(CodecBackend):
             )
         if self.device.type not in ("cuda", "cpu"):
             raise ValueError(f"unsupported codec device {self.device}")
+        self._staging_lk = threading.Lock()
+        self._pinned: "_PinnedStaging | None" = None
 
     def _stage(self, words_h: np.ndarray) -> torch.Tensor:
         t = codec_step.words_to_tensor(words_h, self.device)
         _record_h2d("data", words_h.nbytes)
         return t
 
+    def _overlap(self) -> str:
+        return codec_step.codec_overlap_mode(self.device)
+
+    def _record_pipelined(self, plane: str, B: int, w: int) -> None:
+        """Overlap windows of one K5/K6 launch (none on the CPU, where
+        the plain version runs)."""
+        if self.device.type == "cuda":
+            windows = kernels.pipeline_windows(
+                B, w, kernels.sm_count(self.device)
+            )
+            if windows:
+                _record_overlap(plane, windows)
+
     def encode(self, data, parity_shards):
         return self.encode_end(self.encode_begin(data, parity_shards))
 
     def encode_begin(self, data, parity_shards):
         """Eager-readback encode: the launch is asynchronous on the card,
-        so the pass runs while the caller streams the previous batch."""
+        so the pass runs while the caller streams the previous batch.
+        MINIO_TPU_CODEC_OVERLAP does not touch this seam (heal's
+        re-encode), as in the JAX package."""
         codec_step.codec_kernel_mode()
         codec_step.codec_formulation()
-        codec_step.codec_overlap_mode()
         data = np.ascontiguousarray(data, dtype=np.uint8)
         L = data.shape[-1]
         words = self._stage(codec_step.host_bytes_to_words(data))
@@ -505,14 +714,16 @@ class TorchBackend(CodecBackend):
         return handle.result
 
     def encode_digest_begin(self, data, parity_shards):
-        """Digest-only start: the single encode_pack launch also emits
-        the occupancy flags and the nonzero-group prefix pack when the
-        plane is packable, so the eventual drain launches nothing."""
+        """Digest-only start: the encode launch also emits the occupancy
+        flags and the nonzero-group prefix pack when the plane is
+        packable, so the eventual drain launches nothing.  ``pipeline``
+        runs K5 (K1 at m == 0); ``async`` runs the sub-chunk chain, or
+        the serialized path when the batch is too small to cut S >= 3
+        chunks."""
         codec_step.codec_kernel_mode()
         codec_step.codec_formulation()
-        codec_step.codec_overlap_mode()
         data = np.ascontiguousarray(data, dtype=np.uint8)
-        L = data.shape[-1]
+        B, _k, L = data.shape
         w = L // 4
         G = compmod.PARITY_GROUP_WORDS
         group = (
@@ -524,11 +735,22 @@ class TorchBackend(CodecBackend):
             )
             else 0
         )
-        words = self._stage(codec_step.host_bytes_to_words(data))
+        words_h = codec_step.host_bytes_to_words(data)
+        overlap = self._overlap()
+        if overlap == "async":
+            handle = self._encode_subchunk_begin(
+                words_h, parity_shards, L, group
+            )
+            if handle is not None:
+                return handle
+        words = self._stage(words_h)
+        pipeline = overlap == "pipeline"
         parity_w, digests, flags_d, packed_d = codec_step.encode_words_fused1(
-            words, parity_shards, L, group=group
+            words, parity_shards, L, group=group, pipeline=pipeline
         )
         _record_pass("encode_words_fused1")
+        if pipeline and parity_shards > 0:
+            self._record_pipelined("put", B, w)
         return _AsyncHandle(
             "digest-fused1",
             (
@@ -540,25 +762,107 @@ class TorchBackend(CodecBackend):
             ),
         )
 
+    def _chain_stage(self, src: np.ndarray, slot: int) -> torch.Tensor:
+        """One sub-chunk H2D of the async chain: through the pinned
+        ping-pong slots and the copy stream on the card; a copy on the
+        CPU."""
+        _record_h2d("data", src.nbytes)
+        if self.device.type == "cpu":
+            return codec_step.words_to_tensor(np.ascontiguousarray(src), "cpu")
+        return self._staging().h2d(src, slot)
+
+    def _staging(self) -> _PinnedStaging:
+        with self._staging_lk:
+            if self._pinned is None:
+                self._pinned = _PinnedStaging(self.device)
+            return self._pinned
+
+    def _chain_lock(self):
+        """Serializes chains over the shared pinned slots (none on the
+        CPU, where each chunk is its own copy)."""
+        if self.device.type == "cuda":
+            return self._staging().lock
+        return contextlib.nullcontext()
+
+    def _encode_subchunk_begin(self, words_h, parity_shards, shard_len, group):
+        """MINIO_TPU_CODEC_OVERLAP=async PUT: split the stripe batch along
+        w into S sub-chunks; chunk s+1's H2D (pinned slot, copy stream)
+        overlaps chunk s's K1 pass, whose accumulator carries the
+        phash256 partials; the LAST chunk's launch finalizes the digests.
+
+        Returns the in-flight handle, or None when the batch is too small
+        to cut S >= 3 chunks (the caller takes the serialized path).
+        """
+        from .erasure import subchunk_words
+
+        B, k, w = words_h.shape
+        m = parity_shards
+        cw = subchunk_words(w, group if group else 8)
+        if not cw:
+            return None
+        offs = list(range(0, w, cw))
+        reserved = _stage_reserve(2 * B * k * cw * 4)
+        try:
+            with self._chain_lock():
+                acc = torch.zeros(
+                    (B, k + m, 8), dtype=torch.int32, device=self.device
+                )
+                parity_c, flags_c, packed_c = [], [], []
+                for i, off in enumerate(offs):
+                    chunk = self._chain_stage(
+                        words_h[:, :, off:off + cw], i % 2
+                    )
+                    p_c, acc, f_c, pk_c = codec_step.encode_subchunk_words(
+                        chunk, acc, off, m, shard_len, group=group,
+                        finalize=i == len(offs) - 1,
+                    )
+                    _record_pass("encode_subchunk_words")
+                    parity_c.append(p_c)
+                    if group:
+                        flags_c.append(f_c)
+                        packed_c.append(pk_c)
+            _record_overlap("put", len(offs) - 1)
+        except BaseException:
+            _stage_release(reserved)
+            raise
+        return _AsyncHandle(
+            "digest-subchunk",
+            (parity_c, acc, flags_c or None, packed_c or None, group, reserved),
+        )
+
     def encode_digest_end(self, handle):
-        if not isinstance(handle, _AsyncHandle) or handle.kind != (
-            "digest-fused1"
+        if not isinstance(handle, _AsyncHandle) or handle.kind not in (
+            "digest-fused1", "digest-subchunk",
         ):
             return super().encode_digest_end(handle)
         if handle.consumed:
             return handle.result
         # digests are the ONLY eager readback; parity, flags and packed
         # stay device-resident behind the ref
-        parity_w, digests_d, flags_d, packed_d, group = handle.payload
-        digests = codec_step.tensor_to_words(digests_d)
-        _record_d2h("data", digests.nbytes)
-        handle.result = (
-            digests,
-            _DeviceParityRef(
+        if handle.kind == "digest-fused1":
+            parity_w, digests_d, flags_d, packed_d, group = handle.payload
+            digests = codec_step.tensor_to_words(digests_d)
+            _record_d2h("data", digests.nbytes)
+            ref = _DeviceParityRef(
                 parity_plane_cache(), parity_w, flags=flags_d,
                 packed=packed_d, group=group,
-            ),
-        )
+            )
+        else:
+            parity_c, digests_d, flags_c, packed_c, group, reserved = (
+                handle.payload
+            )
+            # the staging reservation drops even when the digest D2H
+            # throws: it must not strand ledger bytes for the process
+            try:
+                digests = codec_step.tensor_to_words(digests_d)
+                _record_d2h("data", digests.nbytes)
+            finally:
+                _stage_release(reserved)
+            ref = _SubchunkParityRef(
+                parity_plane_cache(), parity_c, flags=flags_c,
+                packed=packed_c, group=group,
+            )
+        handle.result = (digests, ref)
         handle.consumed = True
         handle.payload = None
         return handle.result
@@ -591,29 +895,43 @@ class TorchBackend(CodecBackend):
     def reconstruct_and_verify(
         self, shards, digests, present, data_shards, parity_shards
     ):
-        """Heal's read side in ONE device pass (the verify_reconstruct
-        kernel): decode from the first k present rows while hashing every
-        present row.  On the rare digest mismatch among the chosen
-        survivors, re-pick survivors from the verified mask and re-solve
-        just the hit stripes (through gf_matmul_words)."""
+        """Heal's read side in ONE device pass per batch: decode from the
+        first k present rows while hashing every present row (K4; K6
+        under ``pipeline``; the sub-chunk chain under ``async``).  On the
+        rare digest mismatch among the chosen survivors, re-pick
+        survivors from the verified mask and re-solve just the hit
+        stripes (through gf_matmul_words)."""
         codec_step.codec_kernel_mode()
         codec_step.codec_formulation()
-        codec_step.codec_overlap_mode()
         shards = np.ascontiguousarray(shards, dtype=np.uint8)
         pres = np.asarray(present, dtype=bool)
-        L = shards.shape[-1]
-        words = self._stage(codec_step.host_bytes_to_words(shards))
-        stored = codec_step.words_to_tensor(
-            np.ascontiguousarray(digests, dtype=np.uint32), self.device
-        )
-        dw_d, ok_d = codec_step.verify_and_reconstruct_words(
-            words, stored, tuple(bool(b) for b in pres), data_shards,
-            parity_shards, L,
-        )
-        _record_pass("verify_and_reconstruct_words")
-        dw = codec_step.tensor_to_words(dw_d)
-        ok = ok_d.cpu().numpy()
-        _record_d2h("data", dw.nbytes)
+        B, _n, L = shards.shape
+        present_t = tuple(bool(b) for b in pres)
+        words_h = codec_step.host_bytes_to_words(shards)
+        overlap = self._overlap()
+        got = None
+        if overlap == "async":
+            got = self._drain_vr_subchunks(
+                words_h, digests, present_t, data_shards, parity_shards, L
+            )
+        if got is not None:
+            dw, ok = got
+        else:
+            words = self._stage(words_h)
+            stored = codec_step.words_to_tensor(
+                np.ascontiguousarray(digests, dtype=np.uint32), self.device
+            )
+            pipeline = overlap == "pipeline"
+            dw_d, ok_d = codec_step.verify_and_reconstruct_words(
+                words, stored, present_t, data_shards, parity_shards, L,
+                pipeline=pipeline,
+            )
+            _record_pass("verify_and_reconstruct_words")
+            if pipeline:
+                self._record_pipelined("get", B, L // 4)
+            dw = codec_step.tensor_to_words(dw_d)
+            ok = ok_d.cpu().numpy()
+            _record_d2h("data", dw.nbytes)
         data = codec_step.host_words_to_bytes(dw)
         surv = np.nonzero(pres)[0][:data_shards]
         bad = ~ok[:, surv].all(axis=1)
@@ -623,6 +941,73 @@ class TorchBackend(CodecBackend):
                 shards[idxs], ok[idxs], data_shards, parity_shards
             )
         return data, ok
+
+    def _drain_vr_subchunks(
+        self, words_h, digests, present, data_shards, parity_shards, shard_len
+    ):
+        """MINIO_TPU_CODEC_OVERLAP=async heal read side: the sub-chunked
+        verify+reconstruct chain.  Chunk s+1's H2D (pinned slot, copy
+        stream) overlaps chunk s's K4 pass, which overlaps chunk s-1's
+        D2H into a pinned output slot on the D2H stream; the partials
+        thread through the accumulator and the LAST chunk's launch
+        finalizes them for the verify mask.
+
+        Returns (data words (B, k, w), ok (B, n) bool), or None when the
+        batch is too small to cut S >= 3 chunks.
+        """
+        from .erasure import subchunk_words
+
+        B, n, w = words_h.shape
+        cw = subchunk_words(w, 8)
+        if not cw:
+            return None
+        offs = list(range(0, w, cw))
+        out = np.empty((B, data_shards, w), dtype=np.uint32)
+        reserved = _stage_reserve(2 * B * n * cw * 4)
+        try:
+            with self._chain_lock():
+                digests_d = codec_step.words_to_tensor(
+                    np.ascontiguousarray(digests, dtype=np.uint32), self.device
+                )
+                acc = torch.zeros((B, n, 8), dtype=torch.int32, device=self.device)
+                pending = None
+                for i, off in enumerate(offs):
+                    chunk = self._chain_stage(
+                        words_h[:, :, off:off + cw], i % 2
+                    )
+                    d_c, acc, ok_d = (
+                        codec_step.verify_reconstruct_subchunk_words(
+                            chunk, acc, digests_d, off, present, data_shards,
+                            parity_shards, shard_len,
+                            finalize=i == len(offs) - 1,
+                        )
+                    )
+                    _record_pass("verify_reconstruct_subchunk_words")
+                    started = (off, self._chain_d2h_start(d_c, i % 2))
+                    if pending is not None:
+                        # chunk i-1 drains while chunk i computes
+                        self._chain_d2h_finish(out, pending)
+                    pending = started
+                self._chain_d2h_finish(out, pending)
+                ok = ok_d.cpu().numpy()
+            _record_overlap("get", len(offs) - 1)
+        finally:
+            _stage_release(reserved)
+        return out, ok
+
+    def _chain_d2h_start(self, d_c: torch.Tensor, slot: int):
+        if self.device.type == "cpu":
+            return d_c
+        return self._staging().d2h_start(d_c, slot)
+
+    def _chain_d2h_finish(self, out: np.ndarray, pending) -> None:
+        off, started = pending
+        if self.device.type == "cpu":
+            part = codec_step.tensor_to_words(started)
+        else:
+            part = _PinnedStaging.d2h_finish(started)
+        out[:, :, off:off + part.shape[-1]] = part
+        _record_d2h("data", part.nbytes)
 
 
 _lock = threading.Lock()

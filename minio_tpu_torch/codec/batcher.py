@@ -191,6 +191,14 @@ class BatchingBackend(CodecBackend):
     def parity_cache_pressure(self) -> float:
         return self.inner.parity_cache_pressure()
 
+    @property
+    def device(self):
+        """The wrapped backend's device: the codec overlap mode and the
+        async chain's staging belong to it, and run unchanged inside the
+        merged calls below (a merged encode_digest drains through one
+        parent ref, sub-chunked or not)."""
+        return getattr(self.inner, "device", None)
+
     def _cache_backoff(self, bound_s: float = 0.25) -> None:
         """Stall new digest-encode admission briefly while the parity
         cache is at/over budget, so lazy drains catch up instead of

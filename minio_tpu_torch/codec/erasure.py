@@ -74,6 +74,30 @@ def _parity_plane_on() -> bool:
     return os.environ.get("MINIO_TPU_PARITY_PLANE", "on") != "off"
 
 
+def subchunk_words(w: int, quantum: int) -> int:
+    """Sub-chunk size in uint32 words for the async overlap chain
+    (MINIO_TPU_CODEC_OVERLAP=async), or 0 when the batch is too small.
+
+    MINIO_TPU_CODEC_SUBCHUNK_KB (default 256 KiB of shard bytes per
+    sub-chunk; a value that does not parse falls back to it) is rounded
+    down to a multiple of ``quantum`` words - the parity pack group when
+    the pack leg is on, the hash partition stride otherwise - so chunk
+    cuts land on group AND partition boundaries and the per-chunk math
+    composes bit-identically.  The chain engages only at S >= 3 full
+    chunks: below that the ping-pong staging cannot amortize its second
+    buffer and the serialized path is strictly better.
+    """
+    try:
+        kb = float(os.environ.get("MINIO_TPU_CODEC_SUBCHUNK_KB") or 256)
+    except ValueError:
+        kb = 256.0
+    q = max(int(quantum), 1)
+    cw = max(q, (int(kb * 256) // q) * q)  # KiB -> u32 words, quantized
+    if w // cw < 3:
+        return 0
+    return cw
+
+
 class _Begun:
     """One begun encode group: the SINGLE consume point for its handle.
 

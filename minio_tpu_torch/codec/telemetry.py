@@ -63,8 +63,12 @@ class KernelStats:
         # The parity-plane PUT restructure exists to drive the parity
         # row of this table to the post-ack drain band only
         self._d2h: "dict[str, list]" = {}
-        # host->device staging by plane (mirror of _d2h)
+        # host->device staging by plane (mirror of _d2h), and overlap
+        # windows by direction (put|get): a sub-chunk or kernel tile step
+        # whose transfer was in flight while a neighbour's compute ran -
+        # the count that shows MINIO_TPU_CODEC_OVERLAP engaged
         self._h2d: "dict[str, list]" = {}
+        self._overlap: "dict[str, int]" = {}
         # codec passes by entry point: fused1 runs one pass per
         # direction per batch
         self._passes: "dict[str, int]" = {}
@@ -112,6 +116,13 @@ class KernelStats:
             row = self._h2d.setdefault(plane, [0, 0])
             row[0] += 1
             row[1] += nbytes
+
+    def record_overlap_windows(self, plane: str, windows: int) -> None:
+        """``windows`` sub-chunks (or in-kernel tile steps) whose
+        transfer overlapped a neighbour's compute, keyed by direction:
+        plane = put (encode side) | get (verify/reconstruct side)."""
+        with self._mu:
+            self._overlap[plane] = self._overlap.get(plane, 0) + windows
 
     def record_pass(self, kernel: str) -> None:
         """One codec device pass by entry-point name — backend.py
@@ -195,6 +206,10 @@ class KernelStats:
                     {"plane": plane, "transfers": n, "bytes": nbytes}
                     for plane, (n, nbytes) in sorted(self._h2d.items())
                 ],
+                "overlap_windows": {
+                    plane: self._overlap.get(plane, 0)
+                    for plane in ("put", "get")
+                },
                 "device_passes": dict(sorted(self._passes.items())),
                 "parity_cache": _parity_cache_stats(),
                 "hedge": {
@@ -244,6 +259,7 @@ class KernelStats:
             self._hedge.clear()
             self._d2h.clear()
             self._h2d.clear()
+            self._overlap.clear()
             self._passes.clear()
 
 
@@ -351,6 +367,12 @@ class InstrumentedBackend(CodecBackend):
 
     def parity_cache_pressure(self) -> float:
         return self.inner.parity_cache_pressure()
+
+    @property
+    def device(self):
+        """The inner backend's device (codec_overlap_mode resolves its
+        default from it)."""
+        return getattr(self.inner, "device", None)
 
     def digest(self, shards):
         return self._timed(

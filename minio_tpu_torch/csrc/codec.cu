@@ -1,9 +1,10 @@
 // Erasure codec kernels for Hopper (sm_90a): the PUT pass, the bitrot
-// digest, the GF(2^8) product and heal's fused verify + reconstruct,
-// each behind a plain C entry point that ops/kernels.py binds with
-// ctypes.  Every entry launches on the stream it is given, allocates
-// nothing (the Python wrapper passes outputs and zeroed accumulators)
-// and returns cudaGetLastError() after each launch.
+// digest, the GF(2^8) product, heal's fused verify + reconstruct, and
+// the pipelined twins of the PUT and heal passes, each behind a plain C
+// entry point that ops/kernels.py binds with ctypes.  Every entry
+// launches on the stream it is given, allocates nothing (the Python
+// wrapper passes outputs and zeroed accumulators) and returns
+// cudaGetLastError() after each launch.
 //
 // Words are little-endian u32 (4 packed GF(2^8) elements).  The GF product
 // uses the xtime-powers decomposition: for input word x the powers x, 2x,
@@ -86,8 +87,11 @@ __device__ __forceinline__ void fold_block(uint32_t h1, uint32_t h2,
 }
 
 // --------------------------------------------------------------------------
-// K1 encode_pack: replaces rs_pallas.encode_pack_fused (P4) and its
-// DMA-pipelined body encode_pack_pipelined (P6).
+// K1 encode_pack: replaces rs_pallas.encode_pack_fused (P4).  Without the
+// pack leg it is also encode_hash_fused (P2), and with a word offset and
+// no finalize it is the GPU body of codec_step.encode_subchunk_words
+// (X2, left to XLA by the JAX package): one sub-chunk of the async
+// overlap chain, XOR-accumulating into the caller's partials.
 //
 // Bound: bytes.  Per stripe it reads the k data rows once and writes the
 // m parity rows (the pack leg then writes m packed rows), so at EC 8+4
@@ -104,8 +108,8 @@ template <int KB, int MB>
 __global__ void __launch_bounds__(kThreads)
 encode_kernel(const uint32_t* __restrict__ data, uint32_t* __restrict__ parity,
               uint32_t* __restrict__ partials, uint32_t* __restrict__ flags,
-              int k, int m, int w, int ntiles, int tiles_per_block,
-              const GfPlan plan) {
+              int k, int m, int w, uint32_t word_offset, int ntiles,
+              int tiles_per_block, const GfPlan plan) {
   __shared__ uint32_t s[(KB + MB) * 8];
   const int b = blockIdx.y;
   const int n = k + m;
@@ -126,7 +130,7 @@ encode_kernel(const uint32_t* __restrict__ data, uint32_t* __restrict__ parity,
     if (tile >= ntiles) break;  // uniform across the block
     const int col = tile * kTile + tid;
     const bool valid = col < w;
-    const uint32_t key = hash_key((uint32_t)col);
+    const uint32_t key = hash_key((uint32_t)col + word_offset);
     uint32_t acc[MB];
 #pragma unroll
     for (int r = 0; r < MB; ++r) acc[r] = 0;
@@ -311,10 +315,11 @@ gf_matmul_kernel(const uint32_t* __restrict__ in, uint32_t* __restrict__ out,
 
 // --------------------------------------------------------------------------
 // K4 verify_reconstruct: replaces rs_pallas.verify_reconstruct_fused (P5)
-// and its DMA-pipelined body verify_reconstruct_pipelined (P7) on heal.
-// The fusion of K2 and K3: every present row of a (B, n, w) shard batch
-// is hashed and, when it is one of the k chosen survivors, multiplied
-// into the k rebuilt data rows, in the same pass.
+// on heal; with a word offset and no finalize it is the GPU body of
+// codec_step.verify_reconstruct_subchunk_words (X3, left to XLA by the
+// JAX package).  The fusion of K2 and K3: every present row of a (B, n,
+// w) shard batch is hashed and, when it is one of the k chosen
+// survivors, multiplied into the k rebuilt data rows, in the same pass.
 //
 // Bound: bytes (each present row read once, k rows + n digests written:
 // at EC 8+4 with 8 present rows, 10 MiB in + 10 MiB out per stripe).
@@ -334,8 +339,8 @@ __global__ void __launch_bounds__(kThreads)
 verify_reconstruct_kernel(const uint32_t* __restrict__ shards,
                           uint32_t* __restrict__ data,
                           uint32_t* __restrict__ partials, int n, int k,
-                          int w, uint32_t present, int ntiles,
-                          int tiles_per_block, const GfPlan plan) {
+                          int w, uint32_t present, uint32_t word_offset,
+                          int ntiles, int tiles_per_block, const GfPlan plan) {
   __shared__ uint32_t s[NB * 8];
   const int b = blockIdx.y;
   const int tid = threadIdx.x;
@@ -354,7 +359,7 @@ verify_reconstruct_kernel(const uint32_t* __restrict__ shards,
     if (tile >= ntiles) break;  // uniform across the block
     const int col = tile * kTile + tid;
     const bool valid = col < w;
-    const uint32_t key = hash_key((uint32_t)col);
+    const uint32_t key = hash_key((uint32_t)col + word_offset);
     uint32_t acc[OB];
 #pragma unroll
     for (int o = 0; o < OB; ++o) acc[o] = 0;
@@ -389,7 +394,301 @@ verify_reconstruct_kernel(const uint32_t* __restrict__ shards,
     if (s[i]) atomicXor(&partials[(size_t)b * n * 8 + i], s[i]);
 }
 
+// --------------------------------------------------------------------------
+// The pipelined twins K5 and K6 (MINIO_TPU_CODEC_OVERLAP=pipeline).
+//
+// P6/P7 keep the stripe in HBM and walk its 4096-word tiles inside ONE
+// kernel invocation per stripe: a 2-slot VMEM ring prefetches tile t+1
+// while tile t computes, and the hash accumulator, flags and pack
+// counter stay on the chip across the row.  Their (B,) grid would use
+// 1 to 4 of the 132 SMs here, so K5/K6 keep the idea and not the grid:
+//
+// * Persistent grid.  The wrapper (kernels._pipelined_grid) launches
+//   about as many blocks as fit resident - 2 per SM, which
+//   __launch_bounds__(kThreads, 2) holds the register budget to - split
+//   evenly over the B stripes; each block walks a CONTIGUOUS run of
+//   256-column tiles of one stripe and keeps its (h1, h2) per row in
+//   registers over the whole run.  At B = 1, EC 8+4 and 10 MiB blocks
+//   that is 1,280 tiles over 256 blocks of 5: 256 atomicXors per digest
+//   word where K1/K4 land 1,280.
+// * Asynchronous staging.  The k (K5) or present n (K6) input rows of
+//   a tile go global -> shared with 16-byte cp.async.cg copies into a
+//   kStages-deep ring: tiles t+1 and t+2 are in flight while tile t
+//   computes out of shared memory (one commit group per tile,
+//   cp.async.wait_group kStages-1 before a tile is read).  Outputs are
+//   stored straight from registers; a store does not stall the thread,
+//   so there is no outbound ring.  K6 stages only the present rows.
+// * Ragged tails.  Every w % 4 == 0 is taken: a 16-byte copy past w is
+//   zero-filled (src-size 0), and stores and hashing are masked.
+// * Finalize by the last block.  Each block XORs its folded partials
+//   into the zeroed accumulator, fences, and takes a ticket; the block
+//   that draws the last ticket applies the length fold to all of them,
+//   so no finalize launch follows.  K5's pack leg stays K1's second
+//   launch (pack_kernel), which writes the full-row `packed`: the prefix
+//   P6 promises, zeros behind it.
+// Bound: bytes, as K1/K4 (each input row read once, outputs written
+// once).
+// --------------------------------------------------------------------------
+
+constexpr int kStages = 3;                 // ring depth: 2 tiles in flight
+constexpr int kChunksPerRow = kTile / 4;   // 16-byte copies per tile row
+constexpr int kPipeBlocksPerSM = 2;        // residency the grid is sized for
+
+__device__ __forceinline__ void cp_async16(uint32_t* smem, const uint32_t* gmem,
+                                           int src_bytes) {
+  const unsigned dst = static_cast<unsigned>(__cvta_generic_to_shared(smem));
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(dst),
+               "l"(gmem), "r"(src_bytes)
+               : "memory");
+}
+
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
+
+template <int N>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
+}
+
+// Stage `rows` rows of tile `tile` into `slot` (row j of the slot <- input
+// row src_row[j]), zero-filling the columns at or past w.
+__device__ __forceinline__ void stage_tile(uint32_t* slot, const uint32_t* in,
+                                           const uint8_t* src_row, int rows,
+                                           int w, int tile) {
+  const int base = tile * kTile;
+  for (int i = threadIdx.x; i < rows * kChunksPerRow; i += kThreads) {
+    const int j = i / kChunksPerRow;
+    const int c = (i % kChunksPerRow) * 4;
+    const bool ok = base + c < w;
+    const uint32_t* src = in + (size_t)src_row[j] * w + (ok ? base + c : 0);
+    cp_async16(slot + j * kTile + c, src, ok ? 16 : 0);
+  }
+}
+
+// Called by every thread after its block's atomicXors into `partials`:
+// the block holding the last ticket finalizes all `count` words in place.
+__device__ __forceinline__ void finalize_if_last(uint32_t* partials, int count,
+                                                 uint32_t nbytes,
+                                                 unsigned int* ticket) {
+  __shared__ int s_last;
+  __threadfence();
+  __syncthreads();
+  if (threadIdx.x == 0) {
+    const unsigned int total = gridDim.x * gridDim.y;
+    s_last = atomicAdd(ticket, 1u) == total - 1u;
+  }
+  __syncthreads();
+  if (!s_last) return;
+  __threadfence();
+  for (int i = threadIdx.x; i < count; i += kThreads) {
+    const uint32_t p = __ldcg(partials + i);  // L2: the other blocks' XORs
+    partials[i] = mix32(p ^ (nbytes * kC1 + (uint32_t)(i & 7)));
+  }
+}
+
+// --------------------------------------------------------------------------
+// K5 encode_pack_pipelined: replaces rs_pallas.encode_pack_pipelined (P6).
+// P4's function (K1's outputs, bit for bit) on the pipelined design above.
+// --------------------------------------------------------------------------
+
+template <int KB, int MB>
+__global__ void __launch_bounds__(kThreads, kPipeBlocksPerSM)
+encode_pipelined_kernel(const uint32_t* __restrict__ data,
+                        uint32_t* __restrict__ parity,
+                        uint32_t* __restrict__ partials,
+                        uint32_t* __restrict__ flags,
+                        unsigned int* __restrict__ ticket, int k, int m, int w,
+                        int ntiles, int tiles_per_block, uint32_t nbytes,
+                        const GfPlan plan) {
+  extern __shared__ __align__(16) uint32_t ring[];  // kStages x k x kTile
+  __shared__ uint32_t s[(KB + MB) * 8];
+  __shared__ uint8_t s_row[kMaxRows];
+  const int b = blockIdx.y;
+  const int n = k + m;
+  const int tid = threadIdx.x;
+  for (int i = tid; i < n * 8; i += kThreads) s[i] = 0;
+  if (tid < k) s_row[tid] = (uint8_t)tid;
+  __syncthreads();
+
+  const uint32_t* in = data + (size_t)b * k * w;
+  uint32_t* out = parity + (size_t)b * m * w;
+  const int g = w / kTile;  // flag columns (flags only when w % 256 == 0)
+  const int first = blockIdx.x * tiles_per_block;
+  const int count = min(tiles_per_block, ntiles - first);  // >= 1
+  const int slot_words = k * kTile;
+
+#pragma unroll 1
+  for (int st = 0; st < kStages - 1; ++st) {
+    if (st < count) stage_tile(ring + st * slot_words, in, s_row, k, w, first + st);
+    cp_async_commit();
+  }
+
+  uint32_t h1[KB + MB], h2[KB + MB];
+#pragma unroll
+  for (int r = 0; r < KB + MB; ++r) h1[r] = h2[r] = 0;
+
+#pragma unroll 1
+  for (int i = 0; i < count; ++i) {
+    const int next = i + kStages - 1;
+    if (next < count)
+      stage_tile(ring + (next % kStages) * slot_words, in, s_row, k, w, first + next);
+    cp_async_commit();
+    cp_async_wait<kStages - 1>();  // this thread's copies of tile i landed
+    __syncthreads();               // ... and every other thread's
+    const uint32_t* cur = ring + (i % kStages) * slot_words;
+    const int tile = first + i;
+    const int col = tile * kTile + tid;
+    const bool valid = col < w;
+    const uint32_t key = hash_key((uint32_t)col);
+    uint32_t acc[MB];
+#pragma unroll
+    for (int r = 0; r < MB; ++r) acc[r] = 0;
+#pragma unroll
+    for (int c = 0; c < KB; ++c) {
+      if (c < k) {
+        uint32_t p = cur[c * kTile + tid];
+        if (valid) hash_word(p, key, h1[c], h2[c]);
+#pragma unroll
+        for (int bit = 0; bit < 8; ++bit) {
+          if (bit >= plan.nb[c]) break;
+          const uint32_t msk = plan.rm[c * 8 + bit];
+#pragma unroll
+          for (int r = 0; r < MB; ++r)
+            if ((msk >> r) & 1u) acc[r] ^= p;
+          p = xtime(p);
+        }
+      }
+    }
+#pragma unroll
+    for (int r = 0; r < MB; ++r) {
+      if (r < m) {
+        if (valid) {
+          out[(size_t)r * w + col] = acc[r];
+          hash_word(acc[r], key, h1[KB + r], h2[KB + r]);
+        }
+        if (flags != nullptr) {
+          const int any = __syncthreads_or(valid && acc[r] != 0u);
+          if (tid == 0) flags[((size_t)b * m + r) * g + tile] = any ? 1u : 0u;
+        }
+      }
+    }
+    __syncthreads();  // the slot is refilled by iteration i + 1
+  }
+
+#pragma unroll
+  for (int c = 0; c < KB; ++c)
+    if (c < k) fold_block(h1[c], h2[c], &s[c * 8]);
+#pragma unroll
+  for (int r = 0; r < MB; ++r)
+    if (r < m) fold_block(h1[KB + r], h2[KB + r], &s[(k + r) * 8]);
+  __syncthreads();
+  for (int i = tid; i < n * 8; i += kThreads)
+    if (s[i]) atomicXor(&partials[(size_t)b * n * 8 + i], s[i]);
+  finalize_if_last(partials, (int)gridDim.y * n * 8, nbytes, ticket);
+}
+
+// --------------------------------------------------------------------------
+// K6 verify_reconstruct_pipelined: replaces
+// rs_pallas.verify_reconstruct_pipelined (P7).  K4's function and plan
+// (indexed by shard row, absent rows neither read nor hashed) on the
+// pipelined design above; the ring holds only the np present rows, in
+// row order (plan.row lists them).
+// --------------------------------------------------------------------------
+
+template <int NB, int OB>
+__global__ void __launch_bounds__(kThreads, kPipeBlocksPerSM)
+verify_reconstruct_pipelined_kernel(const uint32_t* __restrict__ shards,
+                                    uint32_t* __restrict__ data,
+                                    uint32_t* __restrict__ partials,
+                                    unsigned int* __restrict__ ticket, int n,
+                                    int k, int w, uint32_t present, int np,
+                                    int ntiles, int tiles_per_block,
+                                    uint32_t nbytes, const GfPlan plan) {
+  extern __shared__ __align__(16) uint32_t ring[];  // kStages x np x kTile
+  __shared__ uint32_t s[NB * 8];
+  __shared__ uint8_t s_row[kMaxRows];
+  const int b = blockIdx.y;
+  const int tid = threadIdx.x;
+  for (int i = tid; i < n * 8; i += kThreads) s[i] = 0;
+  if (tid < np) s_row[tid] = plan.row[tid];
+  __syncthreads();
+
+  const uint32_t* in = shards + (size_t)b * n * w;
+  uint32_t* out = data + (size_t)b * k * w;
+  const int first = blockIdx.x * tiles_per_block;
+  const int count = min(tiles_per_block, ntiles - first);  // >= 1
+  const int slot_words = np * kTile;
+
+#pragma unroll 1
+  for (int st = 0; st < kStages - 1; ++st) {
+    if (st < count) stage_tile(ring + st * slot_words, in, s_row, np, w, first + st);
+    cp_async_commit();
+  }
+
+  uint32_t h1[NB], h2[NB];
+#pragma unroll
+  for (int r = 0; r < NB; ++r) h1[r] = h2[r] = 0;
+
+#pragma unroll 1
+  for (int i = 0; i < count; ++i) {
+    const int next = i + kStages - 1;
+    if (next < count)
+      stage_tile(ring + (next % kStages) * slot_words, in, s_row, np, w, first + next);
+    cp_async_commit();
+    cp_async_wait<kStages - 1>();
+    __syncthreads();
+    const uint32_t* cur = ring + (i % kStages) * slot_words;
+    const int col = (first + i) * kTile + tid;
+    const bool valid = col < w;
+    const uint32_t key = hash_key((uint32_t)col);
+    uint32_t acc[OB];
+#pragma unroll
+    for (int o = 0; o < OB; ++o) acc[o] = 0;
+    int j = 0;  // slot row of shard row r: its rank among present rows
+#pragma unroll
+    for (int r = 0; r < NB; ++r) {
+      if (r < n && ((present >> r) & 1u)) {
+        uint32_t p = cur[j * kTile + tid];
+        ++j;
+        if (valid) hash_word(p, key, h1[r], h2[r]);
+#pragma unroll
+        for (int bit = 0; bit < 8; ++bit) {
+          if (bit >= plan.nb[r]) break;
+          const uint32_t msk = plan.rm[r * 8 + bit];
+#pragma unroll
+          for (int o = 0; o < OB; ++o)
+            if ((msk >> o) & 1u) acc[o] ^= p;
+          p = xtime(p);
+        }
+      }
+    }
+    if (valid) {
+#pragma unroll
+      for (int o = 0; o < OB; ++o)
+        if (o < k) out[(size_t)o * w + col] = acc[o];
+    }
+    __syncthreads();  // the slot is refilled by iteration i + 1
+  }
+
+#pragma unroll
+  for (int r = 0; r < NB; ++r)
+    if (r < n && ((present >> r) & 1u)) fold_block(h1[r], h2[r], &s[r * 8]);
+  __syncthreads();
+  for (int i = tid; i < n * 8; i += kThreads)
+    if (s[i]) atomicXor(&partials[(size_t)b * n * 8 + i], s[i]);
+  finalize_if_last(partials, (int)gridDim.y * n * 8, nbytes, ticket);
+}
+
 int bucket(int v) { return v <= 4 ? 4 : (v <= 8 ? 8 : 16); }
+
+// Dynamic shared memory of a pipelined launch; above the default 48 KiB
+// window only after the per-kernel opt-in.
+template <typename Kernel>
+cudaError_t prepare_smem(Kernel kernel, size_t smem) {
+  return cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                              (int)smem);
+}
 
 GfPlan make_plan(const uint16_t* rm, const uint8_t* nb, const uint8_t* row) {
   GfPlan p;
@@ -404,24 +703,59 @@ GfPlan make_plan(const uint16_t* rm, const uint8_t* nb, const uint8_t* row) {
 template <int KB, int MB>
 void launch_encode(dim3 grid, cudaStream_t st, const uint32_t* data,
                    uint32_t* parity, uint32_t* partials, uint32_t* flags,
-                   int k, int m, int w, int ntiles, int tpb, const GfPlan& plan) {
+                   int k, int m, int w, uint32_t word_offset, int ntiles,
+                   int tpb, const GfPlan& plan) {
   encode_kernel<KB, MB><<<grid, kThreads, 0, st>>>(
-      data, parity, partials, flags, k, m, w, ntiles, tpb, plan);
+      data, parity, partials, flags, k, m, w, word_offset, ntiles, tpb, plan);
+}
+
+template <int KB, int MB>
+cudaError_t launch_encode_pipelined(dim3 grid, size_t smem, cudaStream_t st,
+                                    const uint32_t* data, uint32_t* parity,
+                                    uint32_t* partials, uint32_t* flags,
+                                    unsigned int* ticket, int k, int m, int w,
+                                    int ntiles, int tpb, uint32_t nbytes,
+                                    const GfPlan& plan) {
+  cudaError_t err = prepare_smem(encode_pipelined_kernel<KB, MB>, smem);
+  if (err != cudaSuccess) return err;
+  encode_pipelined_kernel<KB, MB><<<grid, kThreads, smem, st>>>(
+      data, parity, partials, flags, ticket, k, m, w, ntiles, tpb, nbytes, plan);
+  return cudaGetLastError();
+}
+
+template <int NB, int OB>
+cudaError_t launch_vr_pipelined(dim3 grid, size_t smem, cudaStream_t st,
+                                const uint32_t* shards, uint32_t* data,
+                                uint32_t* partials, unsigned int* ticket, int n,
+                                int k, int w, uint32_t present, int np,
+                                int ntiles, int tpb, uint32_t nbytes,
+                                const GfPlan& plan) {
+  cudaError_t err = prepare_smem(verify_reconstruct_pipelined_kernel<NB, OB>, smem);
+  if (err != cudaSuccess) return err;
+  verify_reconstruct_pipelined_kernel<NB, OB><<<grid, kThreads, smem, st>>>(
+      shards, data, partials, ticket, n, k, w, present, np, ntiles, tpb, nbytes,
+      plan);
+  return cudaGetLastError();
 }
 
 }  // namespace
 
 extern "C" {
 
-// words (B, k, w) -> parity (B, m, w), digests (B, k+m, 8) finalized in
-// the zeroed `partials`, and with group == 256: flags (B, m, w/256) 0/1
-// and packed (B, m, w).  Returns the first non-zero cudaGetLastError().
+// words (B, k, w) -> parity (B, m, w), the phash256 partials of all k+m
+// rows XORed into `partials` (B, k+m, 8) with the hash key of column c
+// taken at c + word_offset, and with group == 256: flags (B, m, w/256)
+// 0/1 and packed (B, m, w).  With finalize != 0 the partials are then
+// finalized in place (zeroed on entry: the digests); with finalize == 0
+// they stay raw for the next sub-chunk.  Returns the first non-zero
+// cudaGetLastError().
 int mtt_encode_pack(int device, const uint32_t* data, uint32_t* parity, uint32_t* partials,
                     uint32_t* flags, uint32_t* packed, int B, int k, int m,
-                    int w, int group, uint32_t nbytes, int tiles_per_block,
-                    const uint16_t* rm, const uint8_t* nb, void* stream) {
+                    int w, int group, uint32_t nbytes, uint32_t word_offset,
+                    int finalize, int tiles_per_block, const uint16_t* rm,
+                    const uint8_t* nb, void* stream) {
   if (k < 1 || k > kMaxRows || m < 0 || m > kMaxRows || w <= 0 ||
-      tiles_per_block < 1 || B <= 0 || B > 65535 ||
+      tiles_per_block < 1 || B <= 0 || B > 65535 || word_offset % 4 != 0 ||
       (group != 0 && (group != kTile || w % kTile != 0)))
     return (int)cudaErrorInvalidValue;
   cudaError_t err = cudaSetDevice(device);
@@ -435,7 +769,7 @@ int mtt_encode_pack(int device, const uint32_t* data, uint32_t* parity, uint32_t
 #define MTT_ENC(KB_, MB_)                                                   \
   if (kb == KB_ && mb == MB_)                                               \
     launch_encode<KB_, MB_>(grid, st, data, parity, partials, fl, k, m, w, \
-                            ntiles, tiles_per_block, plan);
+                            word_offset, ntiles, tiles_per_block, plan);
   MTT_ENC(4, 4) MTT_ENC(4, 8) MTT_ENC(4, 16)
   MTT_ENC(8, 4) MTT_ENC(8, 8) MTT_ENC(8, 16)
   MTT_ENC(16, 4) MTT_ENC(16, 8) MTT_ENC(16, 16)
@@ -449,10 +783,56 @@ int mtt_encode_pack(int device, const uint32_t* data, uint32_t* parity, uint32_t
     err = cudaGetLastError();
     if (err != cudaSuccess) return (int)err;
   }
+  if (!finalize) return (int)cudaSuccess;
   const int count = B * (k + m) * 8;
   finalize_kernel<<<(count + kThreads - 1) / kThreads, kThreads, 0, st>>>(
       partials, count, nbytes);
   return (int)cudaGetLastError();
+}
+
+// K5: mtt_encode_pack's outputs (finalize always on) from one pipelined
+// launch plus, with group == 256, the pack launch.  `partials` and the
+// one-word `ticket` arrive zeroed; tiles_per_block comes from the
+// wrapper's persistent-grid choice.  Takes m >= 1 and w % 4 == 0, with
+// 16-byte aligned rows.
+int mtt_encode_pack_pipelined(int device, const uint32_t* data, uint32_t* parity,
+                              uint32_t* partials, uint32_t* flags, uint32_t* packed,
+                              unsigned int* ticket, int B, int k, int m, int w,
+                              int group, uint32_t nbytes, int tiles_per_block,
+                              const uint16_t* rm, const uint8_t* nb, void* stream) {
+  if (k < 1 || k > kMaxRows || m < 1 || m > kMaxRows || w <= 0 || w % 4 != 0 ||
+      tiles_per_block < 1 || B <= 0 || B > 65535 ||
+      ((uintptr_t)data & 15u) != 0 ||
+      (group != 0 && (group != kTile || w % kTile != 0)))
+    return (int)cudaErrorInvalidValue;
+  cudaError_t err = cudaSetDevice(device);
+  if (err != cudaSuccess) return (int)err;
+  cudaStream_t st = (cudaStream_t)stream;
+  const GfPlan plan = make_plan(rm, nb, nullptr);
+  const int ntiles = (w + kTile - 1) / kTile;
+  dim3 grid((ntiles + tiles_per_block - 1) / tiles_per_block, B);
+  const size_t smem = (size_t)kStages * k * kTile * sizeof(uint32_t);
+  uint32_t* fl = group ? flags : nullptr;
+  const int kb = bucket(k), mb = bucket(m);
+  err = cudaErrorInvalidValue;
+#define MTT_ENCP(KB_, MB_)                                                    \
+  if (kb == KB_ && mb == MB_)                                                 \
+    err = launch_encode_pipelined<KB_, MB_>(grid, smem, st, data, parity,     \
+                                            partials, fl, ticket, k, m, w,    \
+                                            ntiles, tiles_per_block, nbytes,  \
+                                            plan);
+  MTT_ENCP(4, 4) MTT_ENCP(4, 8) MTT_ENCP(4, 16)
+  MTT_ENCP(8, 4) MTT_ENCP(8, 8) MTT_ENCP(8, 16)
+  MTT_ENCP(16, 4) MTT_ENCP(16, 8) MTT_ENCP(16, 16)
+#undef MTT_ENCP
+  if (err != cudaSuccess) return (int)err;
+  if (group) {
+    const int g = w / kTile;
+    dim3 pgrid(B * m, (g + kGroupsPerBlock - 1) / kGroupsPerBlock);
+    pack_kernel<<<pgrid, kThreads, 0, st>>>(parity, flags, packed, w, g);
+    err = cudaGetLastError();
+  }
+  return (int)err;
 }
 
 // words (R, w) -> digests (R, 8), finalized in the zeroed `partials`.
@@ -498,16 +878,20 @@ int mtt_gf_matmul(int device, const uint32_t* in, uint32_t* out, int B, int rows
 }
 
 // shards (B, n, w), the (k, n) plan of the expanded reconstruction matrix
-// and the present-row bitmask -> data (B, k, w) and digests (B, n, 8)
-// finalized in the zeroed `partials` (absent rows: the finalize of zero
-// partials).
+// and the present-row bitmask -> data (B, k, w), and the partials of the
+// present rows XORed into `partials` (B, n, 8) with the hash key of
+// column c taken at c + word_offset.  With finalize != 0 they are then
+// finalized in place (zeroed on entry: the digests; absent rows get the
+// finalize of zero partials).
 int mtt_verify_reconstruct(int device, const uint32_t* shards, uint32_t* data,
                            uint32_t* partials, int B, int n, int k, int w,
                            uint32_t present, uint32_t nbytes,
+                           uint32_t word_offset, int finalize,
                            int tiles_per_block, const uint16_t* rm,
                            const uint8_t* nb, void* stream) {
   if (n < 1 || n > kMaxRows || k < 1 || k > n || w <= 0 ||
-      tiles_per_block < 1 || B <= 0 || B > 65535 || (present >> n) != 0u)
+      tiles_per_block < 1 || B <= 0 || B > 65535 || (present >> n) != 0u ||
+      word_offset % 4 != 0)
     return (int)cudaErrorInvalidValue;
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return (int)err;
@@ -519,18 +903,57 @@ int mtt_verify_reconstruct(int device, const uint32_t* shards, uint32_t* data,
 #define MTT_VR(NB_, OB_)                                                     \
   if (nbk == NB_ && ob == OB_)                                               \
     verify_reconstruct_kernel<NB_, OB_><<<grid, kThreads, 0, st>>>(          \
-        shards, data, partials, n, k, w, present, ntiles, tiles_per_block,   \
-        plan);
+        shards, data, partials, n, k, w, present, word_offset, ntiles,       \
+        tiles_per_block, plan);
   MTT_VR(4, 4)
   MTT_VR(8, 4) MTT_VR(8, 8)
   MTT_VR(16, 4) MTT_VR(16, 8) MTT_VR(16, 16)
 #undef MTT_VR
   err = cudaGetLastError();
   if (err != cudaSuccess) return (int)err;
+  if (!finalize) return (int)cudaSuccess;
   const int count = B * n * 8;
   finalize_kernel<<<(count + kThreads - 1) / kThreads, kThreads, 0, st>>>(
       partials, count, nbytes);
   return (int)cudaGetLastError();
+}
+
+// K6: mtt_verify_reconstruct's outputs (finalize always on) from one
+// pipelined launch.  `row` lists the np present rows in order;
+// `partials` and the one-word `ticket` arrive zeroed.  Takes w % 4 == 0
+// with 16-byte aligned rows.
+int mtt_verify_reconstruct_pipelined(int device, const uint32_t* shards,
+                                     uint32_t* data, uint32_t* partials,
+                                     unsigned int* ticket, int B, int n, int k,
+                                     int w, uint32_t present, uint32_t nbytes,
+                                     int tiles_per_block, const uint16_t* rm,
+                                     const uint8_t* nb, const uint8_t* row,
+                                     void* stream) {
+  const int np = __builtin_popcount(present);
+  if (n < 1 || n > kMaxRows || k < 1 || k > np || w <= 0 || w % 4 != 0 ||
+      tiles_per_block < 1 || B <= 0 || B > 65535 || (present >> n) != 0u ||
+      ((uintptr_t)shards & 15u) != 0)
+    return (int)cudaErrorInvalidValue;
+  cudaError_t err = cudaSetDevice(device);
+  if (err != cudaSuccess) return (int)err;
+  cudaStream_t st = (cudaStream_t)stream;
+  const GfPlan plan = make_plan(rm, nb, row);
+  const int ntiles = (w + kTile - 1) / kTile;
+  dim3 grid((ntiles + tiles_per_block - 1) / tiles_per_block, B);
+  const size_t smem = (size_t)kStages * np * kTile * sizeof(uint32_t);
+  const int nbk = bucket(n), ob = bucket(k);
+  err = cudaErrorInvalidValue;
+#define MTT_VRP(NB_, OB_)                                                    \
+  if (nbk == NB_ && ob == OB_)                                               \
+    err = launch_vr_pipelined<NB_, OB_>(grid, smem, st, shards, data,        \
+                                        partials, ticket, n, k, w, present,  \
+                                        np, ntiles, tiles_per_block, nbytes, \
+                                        plan);
+  MTT_VRP(4, 4)
+  MTT_VRP(8, 4) MTT_VRP(8, 8)
+  MTT_VRP(16, 4) MTT_VRP(16, 8) MTT_VRP(16, 16)
+#undef MTT_VRP
+  return (int)err;
 }
 
 }  // extern "C"

@@ -79,9 +79,9 @@ def _check_parity_ack() -> None:
     PUT returns after every shard, parity included, is written, closed
     and renamed.  ``early`` (ack at data-shard quorum, parity settled in
     the background ParityBand and heal-flagged on failure) comes with
-    the PUT-overlap work of slice 9."""
+    the legacy pass structure in slice 11."""
     if os.environ.get("MINIO_TPU_PARITY_ACK", "settle").lower() == "early":
-        raise _unported("MINIO_TPU_PARITY_ACK=early", 9)
+        raise _unported("MINIO_TPU_PARITY_ACK=early", 11)
 
 
 class ErasureObjects(ObjectLayer):
@@ -233,12 +233,12 @@ class ErasureObjects(ObjectLayer):
         versioned=False, compress=None, sse=None,
     ) -> ObjectInfo:
         if sse is not None:
-            raise _unported("server-side encryption", 6)
+            raise _unported("server-side encryption", 8)
         if compress or (
             compress is None
             and os.environ.get("MINIO_TPU_COMPRESS", "off") == "on"
         ):
-            raise _unported("transparent object compression", 6)
+            raise _unported("transparent object compression", 8)
         _check_parity_ack()
         check_object_name(object_name)
         self._require_bucket(bucket)
@@ -446,7 +446,7 @@ class ErasureObjects(ObjectLayer):
         version_id="", sse=None,
     ) -> ObjectInfo:
         if sse is not None:
-            raise _unported("server-side encryption", 6)
+            raise _unported("server-side encryption", 8)
         check_object_name(object_name)
         self._require_bucket(bucket)
         with self.nslock.read(bucket, object_name):
@@ -454,7 +454,7 @@ class ErasureObjects(ObjectLayer):
             if fi.deleted:
                 raise ObjectNotFound(f"{bucket}/{object_name}")
             if fi.metadata.get(_META_COMPRESSION) or fi.metadata.get(_META_SSE):
-                raise _unported("reading compressed or encrypted objects", 6)
+                raise _unported("reading compressed or encrypted objects", 8)
             if length < 0:
                 length = fi.size - offset
             if offset < 0 or length < 0 or offset + length > fi.size:
@@ -810,7 +810,7 @@ class ErasureObjects(ObjectLayer):
     # ------------------------------------------------------------------
 
     def new_multipart_upload(self, bucket, object_name, metadata=None):
-        raise _unported("multipart upload", 5)
+        raise _unported("multipart upload", 7)
 
 
 def from_reference_disks(

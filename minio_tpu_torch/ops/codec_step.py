@@ -16,7 +16,9 @@ words_to_tensor / tensor_to_words to cross it.
 
 Every step dispatches on its tensor's device through the kernel
 wrappers of ops/kernels.py: the hand-written CUDA kernel on the card,
-the plain PyTorch version on the CPU.
+the plain PyTorch version on the CPU.  MINIO_TPU_CODEC_OVERLAP picks the
+kernel of the PUT and heal passes, or splits them into sub-chunks
+(codec_overlap_mode).
 """
 
 from __future__ import annotations
@@ -57,8 +59,8 @@ def tensor_to_words(t: torch.Tensor) -> np.ndarray:
 
 
 # ---------------------------------------------------------------------------
-# Knobs of the JAX package that this port does not carry yet.  Each one,
-# set to a non-default value, raises instead of being ignored.
+# The codec knobs of the JAX package.  A value this port does not carry
+# yet raises instead of being ignored.
 # ---------------------------------------------------------------------------
 
 
@@ -68,7 +70,7 @@ def codec_kernel_mode() -> str:
     if v == "legacy":
         raise NotImplementedError(
             "MINIO_TPU_CODEC_KERNEL=legacy (the three-pass encode with "
-            "group_flags/pack_nonzero_groups at drain) is ported in slice 9"
+            "group_flags/pack_nonzero_groups at drain) is ported in slice 11"
         )
     return "fused1"
 
@@ -79,19 +81,33 @@ def codec_formulation() -> str:
     if v == "mxu":
         raise NotImplementedError(
             "MINIO_TPU_CODEC_FORMULATION=mxu (gf_matmul_mxu, a tensor-core "
-            "GF(2) product) is ported in slice 9"
+            "GF(2) product) is ported in slice 4"
         )
     return "swar"
 
 
-def codec_overlap_mode() -> str:
-    """MINIO_TPU_CODEC_OVERLAP: only ``off`` (the default) is ported."""
+def codec_overlap_mode(device=None) -> str:
+    """MINIO_TPU_CODEC_OVERLAP: ``pipeline`` | ``async`` | ``off``.
+
+    * ``pipeline``: the PUT and heal passes run the pipelined kernels
+      (K5 encode_pack_pipelined, K6 verify_reconstruct_pipelined), still
+      one kernel pass per direction.
+    * ``async``: the backend splits the stripe batch along w into S
+      sub-chunks and chains them through pinned ping-pong staging on a
+      copy stream, so chunk s+1's H2D overlaps chunk s's pass, which
+      overlaps chunk s-1's D2H (encode_subchunk_words /
+      verify_reconstruct_subchunk_words).  S passes per direction.
+    * ``off``: the serialized path (K1 / K4).
+
+    An explicit value wins.  Unset (or unknown), it follows the codec's
+    ``device`` as the JAX package follows its backend: ``pipeline`` on
+    CUDA, ``off`` elsewhere.
+    """
     v = os.environ.get("MINIO_TPU_CODEC_OVERLAP", "").strip().lower()
-    if v in ("pipeline", "async"):
-        raise NotImplementedError(
-            f"MINIO_TPU_CODEC_OVERLAP={v} (the transfer/compute overlap "
-            "pipeline) is ported in slice 9"
-        )
+    if v in ("pipeline", "async", "off"):
+        return v
+    if device is not None and torch.device(device).type == "cuda":
+        return "pipeline"
     return "off"
 
 
@@ -101,7 +117,8 @@ def codec_overlap_mode() -> str:
 
 
 def encode_words_fused1(
-    words: torch.Tensor, parity_shards: int, shard_len: int, group: int = 0
+    words: torch.Tensor, parity_shards: int, shard_len: int, group: int = 0,
+    pipeline: bool = False,
 ):
     """PUT codec step: parity + digests + occupancy + pack in one pass.
 
@@ -110,6 +127,8 @@ def encode_words_fused1(
     int32) with g = w // group; group == 0 disables the pack leg (flags
     has g == 0, packed is parity).  Only ``digests`` should be read back
     eagerly; parity/flags/packed stay device-resident until drain.
+    ``pipeline`` runs encode_pack_pipelined (K5) instead of encode_pack
+    (K1), except at m == 0, which K1 serves as in the JAX package.
     """
     batch, k, w = words.shape
     if shard_len != 4 * w:
@@ -118,9 +137,12 @@ def encode_words_fused1(
         raise ValueError("words per shard must be a multiple of 8")
     if group and w % group:
         raise ValueError("words per shard must be a multiple of group")
-    parity, digests, flags, packed = kernels.encode_pack(
-        words, parity_shards, shard_len, group
+    enc = (
+        kernels.encode_pack_pipelined
+        if pipeline and parity_shards > 0
+        else kernels.encode_pack
     )
+    parity, digests, flags, packed = enc(words, parity_shards, shard_len, group)
     return parity, digests, flags != 0, packed
 
 
@@ -150,6 +172,7 @@ def verify_and_reconstruct_words(
     data_shards: int,
     parity_shards: int,
     shard_len: int,
+    pipeline: bool = False,
 ):
     """Heal codec step: digest-verify + reconstruct in ONE pass.
 
@@ -158,17 +181,98 @@ def verify_and_reconstruct_words(
     (B, k, w) int32 rebuilt from the first k present rows, ok (B, n) bool
     = digest match AND present).  The caller rechecks ok over its chosen
     survivors and re-solves the stripes where one was corrupt (backend
-    reconstruct_and_verify escalation)."""
+    reconstruct_and_verify escalation).  ``pipeline`` runs
+    verify_reconstruct_pipelined (K6) instead of verify_reconstruct (K4)."""
     k = data_shards
     n = shards.shape[1]
     if n != k + parity_shards:
         raise ValueError("shard rows must equal k + m")
     if shard_len != 4 * shards.shape[-1]:
         raise ValueError("shard_len must equal 4 * words-per-shard")
-    data, got = kernels.verify_reconstruct(shards, present, k, shard_len)
-    pres = torch.tensor(present, dtype=torch.bool, device=shards.device)
-    ok = (got == digests).all(dim=-1) & pres
-    return data, ok
+    vr = (
+        kernels.verify_reconstruct_pipelined
+        if pipeline
+        else kernels.verify_reconstruct
+    )
+    data, got = vr(shards, present, k, shard_len)
+    return data, _ok_mask(got, digests, present)
+
+
+def _ok_mask(got, digests, present) -> torch.Tensor:
+    pres = torch.tensor(present, dtype=torch.bool, device=got.device)
+    return (got == digests).all(dim=-1) & pres
+
+
+# ---------------------------------------------------------------------------
+# Sub-chunk steps of the async overlap chain (MINIO_TPU_CODEC_OVERLAP=async)
+# ---------------------------------------------------------------------------
+#
+# The backend splits a stripe batch along w into S sub-chunks.  RS parity
+# is column-local, so per-chunk parity is exact; the phash256 partials
+# XOR-accumulate across chunks in a (B, n, 8) accumulator whose hash key
+# uses the GLOBAL word offset, and the last chunk finalizes them in its
+# own launch.  The JAX package donates the accumulator into each step;
+# here each step updates it in place.
+
+
+def encode_subchunk_words(
+    chunk: torch.Tensor,
+    acc: torch.Tensor,
+    word_offset: int,
+    parity_shards: int,
+    shard_len: int,
+    group: int = 0,
+    finalize: bool = False,
+):
+    """One PUT sub-chunk: parity + hash partials (+ flags/pack) of a
+    (B, k, cw) int32 slice of the stripe batch at global ``word_offset``.
+
+    ``acc`` (B, n, 8) int32 is updated IN PLACE: the chunk's partials are
+    XORed in, and with ``finalize`` (the last chunk) it then holds the
+    finalized digests.  Returns (parity (B, m, cw), acc, flags (B, m,
+    gc) bool, packed (B, m, cw)); group == 0 disables the pack leg as in
+    encode_words_fused1.  ``shard_len`` is the FULL row's byte length
+    (the digest length fold), not the chunk's.
+    """
+    _b, _k, cw = chunk.shape
+    if cw % 8:
+        raise ValueError("chunk words must be a multiple of 8")
+    if group and cw % group:
+        raise ValueError("chunk words must be a multiple of group")
+    parity, acc, flags, packed = kernels.encode_pack_subchunk(
+        chunk, acc, word_offset, parity_shards, shard_len, group, finalize
+    )
+    return parity, acc, flags != 0, packed
+
+
+def verify_reconstruct_subchunk_words(
+    chunk: torch.Tensor,
+    acc: torch.Tensor,
+    digests: torch.Tensor,
+    word_offset: int,
+    present: "tuple[bool, ...]",
+    data_shards: int,
+    parity_shards: int,
+    shard_len: int,
+    finalize: bool = False,
+):
+    """One heal sub-chunk: reconstruct a (B, n, cw) slice of the shard
+    rows AND accumulate the verify partials into ``acc`` (B, n, 8),
+    IN PLACE (finalized on the ``finalize`` chunk).
+
+    Returns (data (B, k, cw) int32, acc, ok (B, n) bool).  ``ok`` is
+    meaningful only on the ``finalize`` call (digest match of the WHOLE
+    row AND present); earlier chunks return all-False.
+    """
+    B, n, _cw = chunk.shape
+    if n != data_shards + parity_shards:
+        raise ValueError("shard rows must equal k + m")
+    data, acc = kernels.verify_reconstruct_subchunk(
+        chunk, acc, word_offset, present, data_shards, shard_len, finalize
+    )
+    if finalize:
+        return data, acc, _ok_mask(acc, digests, present)
+    return data, acc, torch.zeros((B, n), dtype=torch.bool, device=chunk.device)
 
 
 def digest_words_batched(words: torch.Tensor, shard_len: int) -> torch.Tensor:

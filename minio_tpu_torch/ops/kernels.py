@@ -1,22 +1,30 @@
 """The codec's CUDA kernels: build, binding, and the dispatching wrappers.
 
-Four kernels, all in ``csrc/codec.cu`` (CUDA C++ for ``sm_90a``):
+Six kernels, all in ``csrc/codec.cu`` (CUDA C++ for ``sm_90a``):
 
-* ``encode_pack`` (K1) replaces ``rs_pallas.encode_pack_fused`` (P4) and
-  its pipelined body ``encode_pack_pipelined`` (P6): parity + phash256
-  partials of all n rows + per-256-word occupancy flags + the
-  nonzero-group prefix pack, plus the digest finalize.
+* ``encode_pack`` (K1) replaces ``rs_pallas.encode_pack_fused`` (P4):
+  parity + phash256 partials of all n rows + per-256-word occupancy
+  flags + the nonzero-group prefix pack, plus the digest finalize.  With
+  ``group=0`` it also computes ``rs_pallas.encode_hash_fused`` (P2),
+  heal's re-encode.  ``encode_pack_subchunk`` is its sub-chunk form, the
+  GPU body of ``codec_step.encode_subchunk_words`` (X2, left to XLA by
+  the JAX package): a chunk at a global word offset, XOR-accumulating
+  into the caller's partials, finalizing only on the last chunk.
 * ``phash256_batched`` (K2) replaces ``hash.phash256_words_batched``
   (X1, left to XLA by the JAX package): (R, w) rows -> (R, 8) digests.
 * ``gf_matmul_words`` (K3) replaces ``rs_pallas.matmul_words`` (P1): a
   runtime (o, s) GF(2^8) matrix over s selected rows of a (B, R, w)
   batch -> (B, o, w).
 * ``verify_reconstruct`` (K4) replaces ``rs_pallas.verify_reconstruct_fused``
-  (P5) and its pipelined body ``verify_reconstruct_pipelined`` (P7):
-  finalized digests of the present rows of a (B, n, w) batch and the k
-  data rows rebuilt from the first k present rows, in one pass.  With
-  ``group=0``, K1 also computes ``rs_pallas.encode_hash_fused`` (P2),
-  heal's re-encode.
+  (P5): finalized digests of the present rows of a (B, n, w) batch and
+  the k data rows rebuilt from the first k present rows, in one pass.
+  ``verify_reconstruct_subchunk`` is its sub-chunk form, the GPU body of
+  ``codec_step.verify_reconstruct_subchunk_words`` (X3).
+* ``encode_pack_pipelined`` (K5) replaces ``rs_pallas.encode_pack_pipelined``
+  (P6) and ``verify_reconstruct_pipelined`` (K6) replaces
+  ``rs_pallas.verify_reconstruct_pipelined`` (P7): K1's and K4's
+  functions on a persistent grid that stages tiles into a shared-memory
+  ring with ``cp.async`` and finalizes in its last block.
 
 Build: ``nvcc -gencode arch=compute_90a,code=sm_90a -O3 -shared`` into
 ``minio_tpu_torch/build/`` at first use, keyed by a hash of the sources
@@ -29,8 +37,10 @@ ops/rs.py and ops/hash.py); for a CUDA tensor it launches the kernel on
 ``torch.cuda.current_stream()`` or raises - a failed build, a refused
 launch (non-zero ``cudaGetLastError()``) or a wrong device, dtype, shape
 or layout never falls back.  ``LAUNCHES`` counts kernel launches per
-wrapper (never plain runs), and ``encode_pack[group=0]`` the K1 launches
-without the pack leg among them; ``reset_launches`` zeroes it.
+wrapper (never plain runs): ``encode_pack[group=0]`` counts the K1
+launches without the pack leg among ``encode_pack``'s, and the two
+``[subchunk]`` names count the sub-chunk forms, which ``encode_pack``
+and ``verify_reconstruct`` do not; ``reset_launches`` zeroes it.
 """
 
 from __future__ import annotations
@@ -63,9 +73,13 @@ TILE = 256  # columns per block tile == PARITY_GROUP_WORDS
 _MAX_ROWS = 16
 _TARGET_BLOCKS = 132 * 8  # enough resident blocks to fill the SMs
 
+_PIPE_BLOCKS_PER_SM = 2  # K5/K6 residency (kPipeBlocksPerSM in codec.cu)
+
 LAUNCHES = {
-    "encode_pack": 0, "encode_pack[group=0]": 0, "phash256_batched": 0,
-    "gf_matmul_words": 0, "verify_reconstruct": 0,
+    "encode_pack": 0, "encode_pack[group=0]": 0, "encode_pack[subchunk]": 0,
+    "phash256_batched": 0, "gf_matmul_words": 0, "verify_reconstruct": 0,
+    "verify_reconstruct[subchunk]": 0, "encode_pack_pipelined": 0,
+    "verify_reconstruct_pipelined": 0,
 }
 _count_lk = threading.Lock()
 
@@ -138,15 +152,23 @@ def _load():
             lib = ctypes.CDLL(str(build()))
             P, I, U = ctypes.c_void_p, ctypes.c_int, ctypes.c_uint32
             lib.mtt_encode_pack.argtypes = [
-                I, P, P, P, P, P, I, I, I, I, I, U, I, P, P, P,
+                I, P, P, P, P, P, I, I, I, I, I, U, U, I, I, P, P, P,
+            ]
+            lib.mtt_encode_pack_pipelined.argtypes = [
+                I, P, P, P, P, P, P, I, I, I, I, I, U, I, P, P, P,
             ]
             lib.mtt_phash256.argtypes = [I, P, P, I, I, U, I, P]
             lib.mtt_gf_matmul.argtypes = [I, P, P, I, I, I, I, I, P, P, P, P]
             lib.mtt_verify_reconstruct.argtypes = [
-                I, P, P, P, I, I, I, I, U, U, I, P, P, P,
+                I, P, P, P, I, I, I, I, U, U, U, I, I, P, P, P,
             ]
-            for fn in (lib.mtt_encode_pack, lib.mtt_phash256, lib.mtt_gf_matmul,
-                       lib.mtt_verify_reconstruct):
+            lib.mtt_verify_reconstruct_pipelined.argtypes = [
+                I, P, P, P, P, I, I, I, I, U, U, I, P, P, P, P,
+            ]
+            for fn in (lib.mtt_encode_pack, lib.mtt_encode_pack_pipelined,
+                       lib.mtt_phash256, lib.mtt_gf_matmul,
+                       lib.mtt_verify_reconstruct,
+                       lib.mtt_verify_reconstruct_pipelined):
                 fn.restype = ctypes.c_int
             _lib = lib
         return _lib
@@ -168,6 +190,12 @@ def _require_cuda(t: torch.Tensor, name: str, ndim: int) -> None:
         raise ValueError(f"{name}: expected a contiguous tensor")
 
 
+def _require_aligned(t: torch.Tensor, name: str) -> None:
+    """The pipelined kernels stage rows with 16-byte copies."""
+    if t.data_ptr() % 16:
+        raise ValueError(f"{name}: expected a 16-byte aligned tensor")
+
+
 def _stream(t: torch.Tensor) -> int:
     return torch.cuda.current_stream(t.device).cuda_stream
 
@@ -176,6 +204,32 @@ def _tiles_per_block(ntiles: int, rows: int) -> int:
     """Tiles a block walks: enough blocks to fill the card, and fewer
     global atomics per digest word as the grid grows."""
     return max(1, min(8, (ntiles * rows) // _TARGET_BLOCKS))
+
+
+@functools.lru_cache(maxsize=8)
+def sm_count(device: torch.device) -> int:
+    """Streaming multiprocessors of a CUDA device."""
+    return torch.cuda.get_device_properties(device).multi_processor_count
+
+
+def pipelined_grid(B: int, w: int, sms: int) -> "tuple[int, int]":
+    """(tiles per block, blocks per stripe) of K5/K6's persistent grid:
+    about ``_PIPE_BLOCKS_PER_SM`` blocks per SM split evenly over the B
+    stripes, each block a contiguous run of 256-column tiles."""
+    ntiles = -(-w // TILE)
+    resident = sms * _PIPE_BLOCKS_PER_SM
+    per_stripe = min(ntiles, max(1, -(-resident // B)))
+    tpb = -(-ntiles // per_stripe)
+    return tpb, -(-ntiles // tpb)
+
+
+def pipeline_windows(B: int, w: int, sms: int) -> int:
+    """Overlap windows of one K5/K6 launch: the tile computes during
+    which a later tile's copy was in flight.  A block walking c tiles
+    has c - 1 of them, so the launch has B * (ntiles - blocks per
+    stripe)."""
+    _tpb, per_stripe = pipelined_grid(B, w, sms)
+    return B * (-(-w // TILE) - per_stripe)
 
 
 @functools.lru_cache(maxsize=256)
@@ -211,29 +265,41 @@ def _matrix_plan(matrix: np.ndarray, rows: "tuple[int, ...]"):
 # ---------------------------------------------------------------------------
 
 
-def encode_pack_plain(words: torch.Tensor, parity_shards: int,
-                      shard_len: int, group: int = 0):
-    """Plain version of encode_pack (any device): the portable path of
-    codec_step.encode_words_fused1 in the JAX package."""
-    B, k, w = words.shape
-    m = parity_shards
-    parity = rs.encode_words(words, m)
-    digests = phash.phash256_words_batched(
-        torch.cat([words, parity], dim=1), shard_len
-    )
+def _flags_and_pack(parity: torch.Tensor, group: int):
+    """Plain occupancy flags (B, m, w // group) int32 and the full-row
+    prefix pack of a parity plane: nonzero groups first, in order, then
+    zeros."""
+    B, m, w = parity.shape
     if not group:
-        empty = torch.zeros((B, m, 0), dtype=torch.int32, device=words.device)
-        return parity, digests, empty, parity
+        empty = torch.zeros((B, m, 0), dtype=torch.int32, device=parity.device)
+        return empty, parity
     g = w // group
     grouped = parity.reshape(B, m, g, group)
     flags = (grouped != 0).any(dim=-1)
-    idx = torch.arange(g, dtype=torch.int64, device=words.device)
+    idx = torch.arange(g, dtype=torch.int64, device=parity.device)
     key = torch.where(flags, 0, g) + idx  # unique keys: nonzero groups first
     order = torch.argsort(key, dim=-1)
     packed = torch.take_along_dim(
         grouped, order[..., None].expand(B, m, g, group), dim=-2
     ).reshape(B, m, w)
-    return parity, digests, flags.to(torch.int32), packed
+    return flags.to(torch.int32), packed
+
+
+def encode_pack_plain(words: torch.Tensor, parity_shards: int,
+                      shard_len: int, group: int = 0):
+    """Plain version of encode_pack (any device): the portable path of
+    codec_step.encode_words_fused1 in the JAX package."""
+    parity = rs.encode_words(words, parity_shards)
+    digests = phash.phash256_words_batched(
+        torch.cat([words, parity], dim=1), shard_len
+    )
+    flags, packed = _flags_and_pack(parity, group)
+    return parity, digests, flags, packed
+
+
+def _check_group(group: int, w: int) -> None:
+    if group not in (0, TILE) or (group and w % group):
+        raise ValueError(f"group must be 0 or {TILE} dividing w, got {group}")
 
 
 def encode_pack(words: torch.Tensor, parity_shards: int, shard_len: int,
@@ -244,17 +310,27 @@ def encode_pack(words: torch.Tensor, parity_shards: int, shard_len: int,
     parity); otherwise group must be 256 and divide w."""
     B, k, w = words.shape
     m = parity_shards
-    if group not in (0, TILE) or (group and w % group):
-        raise ValueError(f"group must be 0 or {TILE} dividing w, got {group}")
+    _check_group(group, w)
     if words.device.type == "cpu":
         return encode_pack_plain(words, m, shard_len, group)
     _require_cuda(words, "encode_pack", 3)
+    digests = torch.zeros((B, k + m, 8), dtype=torch.int32, device=words.device)
+    out = _launch_encode_pack(words, digests, 0, m, shard_len, group, True)
+    _count("encode_pack")
+    if not group:
+        _count("encode_pack[group=0]")
+    return out
+
+
+def _launch_encode_pack(words, partials, word_offset, m, shard_len, group,
+                        finalize):
+    """K1 on checked CUDA words, XORing into ``partials``."""
+    B, k, w = words.shape
     if not (1 <= k <= _MAX_ROWS and 0 <= m <= _MAX_ROWS):
         raise ValueError(f"encode_pack supports k, m <= {_MAX_ROWS}")
     lib = _load()
     dev = words.device
     parity = torch.empty((B, m, w), dtype=torch.int32, device=dev)
-    digests = torch.zeros((B, k + m, 8), dtype=torch.int32, device=dev)
     g = w // TILE if group else 0
     flags = torch.empty((B, m, g), dtype=torch.int32, device=dev)
     packed = torch.empty_like(parity) if group else parity
@@ -262,14 +338,109 @@ def encode_pack(words: torch.Tensor, parity_shards: int, shard_len: int,
     ntiles = -(-w // TILE)
     rc = lib.mtt_encode_pack(
         dev.index or 0, words.data_ptr(), parity.data_ptr(),
-        digests.data_ptr(), flags.data_ptr(), packed.data_ptr(),
-        B, k, m, w, group, shard_len & 0xFFFFFFFF,
-        _tiles_per_block(ntiles, B), rm, nb, _stream(words),
+        partials.data_ptr(), flags.data_ptr(), packed.data_ptr(),
+        B, k, m, w, group, shard_len & 0xFFFFFFFF, word_offset & 0xFFFFFFFF,
+        int(finalize), _tiles_per_block(ntiles, B), rm, nb, _stream(words),
     )
     _check_rc(rc, "encode_pack")
-    _count("encode_pack")
-    if not group:
-        _count("encode_pack[group=0]")
+    return parity, partials, flags, packed
+
+
+def encode_pack_subchunk_plain(chunk: torch.Tensor, acc: torch.Tensor,
+                               word_offset: int, parity_shards: int,
+                               shard_len: int, group: int = 0,
+                               finalize: bool = False):
+    """Plain version of encode_pack_subchunk (any device): the function
+    of codec_step.encode_subchunk_words in the JAX package, with ``acc``
+    updated in place."""
+    parity = rs.encode_words(chunk, parity_shards)
+    acc ^= phash.tile_partials(torch.cat([chunk, parity], dim=1), word_offset)
+    if finalize:
+        acc.copy_(phash.finalize_partials(acc, shard_len))
+    flags, packed = _flags_and_pack(parity, group)
+    return parity, acc, flags, packed
+
+
+def encode_pack_subchunk(chunk: torch.Tensor, acc: torch.Tensor,
+                         word_offset: int, parity_shards: int,
+                         shard_len: int, group: int = 0,
+                         finalize: bool = False):
+    """K1 on one (B, k, cw) sub-chunk whose first word is column
+    ``word_offset`` of the row: (parity (B, m, cw), acc, flags (B, m,
+    cw//group), packed (B, m, cw)).  The chunk's phash256 partials are
+    XORed into ``acc`` (B, k+m, 8) IN PLACE; with ``finalize`` acc then
+    holds the finalized digests of the whole row of ``shard_len``
+    bytes."""
+    B, k, cw = chunk.shape
+    m = parity_shards
+    _check_group(group, cw)
+    if word_offset % 4:
+        raise ValueError(f"word_offset {word_offset} must be a multiple of 4")
+    if tuple(acc.shape) != (B, k + m, 8):
+        raise ValueError(f"acc must be {(B, k + m, 8)}, got {tuple(acc.shape)}")
+    if chunk.device.type == "cpu":
+        return encode_pack_subchunk_plain(
+            chunk, acc, word_offset, m, shard_len, group, finalize
+        )
+    _require_cuda(chunk, "encode_pack_subchunk", 3)
+    _require_cuda(acc, "encode_pack_subchunk acc", 3)
+    out = _launch_encode_pack(
+        chunk, acc, word_offset, m, shard_len, group, finalize
+    )
+    _count("encode_pack[subchunk]")
+    return out
+
+
+# ---------------------------------------------------------------------------
+# K5 encode_pack_pipelined
+# ---------------------------------------------------------------------------
+
+
+def encode_pack_pipelined_plain(words: torch.Tensor, parity_shards: int,
+                                shard_len: int, group: int = 0):
+    """Plain version of encode_pack_pipelined: P6 computes P4's
+    function, so this is encode_pack_plain."""
+    return encode_pack_plain(words, parity_shards, shard_len, group)
+
+
+def encode_pack_pipelined(words: torch.Tensor, parity_shards: int,
+                          shard_len: int, group: int = 0):
+    """K5: encode_pack's outputs, bit for bit, from the pipelined kernel
+    (persistent grid, cp.async tile ring, last-block finalize).  Needs
+    parity_shards >= 1, as P6 does, and w % 4 == 0."""
+    B, k, w = words.shape
+    m = parity_shards
+    _check_group(group, w)
+    if m < 1:
+        raise ValueError("encode_pack_pipelined needs parity_shards >= 1")
+    if w % 4:
+        raise ValueError(f"word count {w} must be a multiple of 4")
+    if words.device.type == "cpu":
+        return encode_pack_pipelined_plain(words, m, shard_len, group)
+    _require_cuda(words, "encode_pack_pipelined", 3)
+    _require_aligned(words, "encode_pack_pipelined")
+    if not (1 <= k <= _MAX_ROWS and m <= _MAX_ROWS):
+        raise ValueError(f"encode_pack_pipelined supports k, m <= {_MAX_ROWS}")
+    lib = _load()
+    dev = words.device
+    n = k + m
+    parity = torch.empty((B, m, w), dtype=torch.int32, device=dev)
+    # the digests and the last-block ticket share one zeroed allocation
+    acc = torch.zeros(B * n * 8 + 1, dtype=torch.int32, device=dev)
+    digests = acc[:-1].view(B, n, 8)
+    g = w // TILE if group else 0
+    flags = torch.empty((B, m, g), dtype=torch.int32, device=dev)
+    packed = torch.empty_like(parity) if group else parity
+    rm, nb, _row = _matrix_plan(gf.parity_matrix(k, m), ())
+    tpb, _per_stripe = pipelined_grid(B, w, sm_count(dev))
+    rc = lib.mtt_encode_pack_pipelined(
+        dev.index or 0, words.data_ptr(), parity.data_ptr(),
+        digests.data_ptr(), flags.data_ptr(), packed.data_ptr(),
+        acc[-1:].data_ptr(), B, k, m, w, group, shard_len & 0xFFFFFFFF, tpb,
+        rm, nb, _stream(words),
+    )
+    _check_rc(rc, "encode_pack_pipelined")
+    _count("encode_pack_pipelined")
     return parity, digests, flags, packed
 
 
@@ -352,17 +523,57 @@ def verify_reconstruct_plain(shards: torch.Tensor, present: "tuple[bool, ...]",
     """Plain version of verify_reconstruct (any device): the portable path
     of codec_step.verify_and_reconstruct_words in the JAX package, with
     the partials of absent rows zeroed as the kernel leaves them."""
-    B, n, w = shards.shape
+    acc = torch.zeros(
+        (shards.shape[0], shards.shape[1], 8), dtype=torch.int32,
+        device=shards.device,
+    )
+    return verify_reconstruct_subchunk_plain(
+        shards, acc, 0, present, data_shards, shard_len, True
+    )
+
+
+def verify_reconstruct_subchunk_plain(chunk: torch.Tensor, acc: torch.Tensor,
+                                      word_offset: int,
+                                      present: "tuple[bool, ...]",
+                                      data_shards: int, shard_len: int,
+                                      finalize: bool = False):
+    """Plain version of verify_reconstruct_subchunk (any device): the
+    function of codec_step.verify_reconstruct_subchunk_words in the JAX
+    package, with ``acc`` updated in place and absent rows unhashed."""
+    n = chunk.shape[1]
     k = data_shards
     idx = _survivors(present, k)
     data = rs.gf_matmul_words(
-        gf.reconstruction_matrix(k, n - k, idx), shards, idx
+        gf.reconstruction_matrix(k, n - k, idx), chunk, idx
     )
-    mask = torch.tensor(present, dtype=torch.bool, device=shards.device)
-    partials = torch.where(
-        mask[:, None], phash.tile_partials(shards, 0), 0
-    )
-    return data, phash.finalize_partials(partials, shard_len)
+    mask = torch.tensor(present, dtype=torch.bool, device=chunk.device)
+    acc ^= torch.where(mask[:, None], phash.tile_partials(chunk, word_offset), 0)
+    if finalize:
+        acc.copy_(phash.finalize_partials(acc, shard_len))
+    return data, acc
+
+
+def _check_vr(shards: torch.Tensor, present, k: int) -> None:
+    n, w = shards.shape[1], shards.shape[2]
+    if len(present) != n:
+        raise ValueError(f"present has {len(present)} rows, shards {n}")
+    if not 1 <= k <= n <= _MAX_ROWS:
+        raise ValueError(f"verify_reconstruct supports k <= n <= {_MAX_ROWS}")
+    if w % 4:
+        raise ValueError(f"word count {w} must be a multiple of 4")
+
+
+def _vr_plan(present: "tuple[bool, ...]", k: int):
+    """K4/K6's plan, indexed by shard row: survivors carry their column
+    of the reconstruction matrix, every other row an empty chain; ``row``
+    lists the present rows (the rows K6 stages)."""
+    n = len(present)
+    idx = _survivors(present, k)
+    full = np.zeros((k, n), dtype=np.uint8)
+    full[:, list(idx)] = gf.reconstruction_matrix(k, n - k, idx)
+    live = tuple(i for i, p in enumerate(present) if p)
+    rm, nb, row = _matrix_plan(full, live)
+    return rm, nb, row, sum(1 << i for i in live)
 
 
 def verify_reconstruct(shards: torch.Tensor, present: "tuple[bool, ...]",
@@ -371,35 +582,107 @@ def verify_reconstruct(shards: torch.Tensor, present: "tuple[bool, ...]",
     (B, k, w) rebuilt from the first k present rows, digests (B, n, 8)
     finalized), int32.  Only the digests of present rows are the rows'
     phash256; an absent row is neither read nor hashed."""
-    B, n, w = shards.shape
+    B, n, _w = shards.shape
     k = data_shards
-    if len(present) != n:
-        raise ValueError(f"present has {len(present)} rows, shards {n}")
-    if not 1 <= k <= n <= _MAX_ROWS:
-        raise ValueError(f"verify_reconstruct supports k <= n <= {_MAX_ROWS}")
-    if w % 4:
-        raise ValueError(f"word count {w} must be a multiple of 4")
+    _check_vr(shards, present, k)
     if shards.device.type == "cpu":
         return verify_reconstruct_plain(shards, present, k, shard_len)
     _require_cuda(shards, "verify_reconstruct", 3)
-    idx = _survivors(present, k)
+    digests = torch.zeros((B, n, 8), dtype=torch.int32, device=shards.device)
+    out = _launch_verify_reconstruct(shards, digests, 0, present, k,
+                                     shard_len, True)
+    _count("verify_reconstruct")
+    return out
+
+
+def _launch_verify_reconstruct(shards, partials, word_offset, present, k,
+                               shard_len, finalize):
+    """K4 on checked CUDA shards, XORing into ``partials``."""
+    B, n, w = shards.shape
+    rm, nb, _row, mask = _vr_plan(tuple(present), k)
     dev = shards.device
     data = torch.empty((B, k, w), dtype=torch.int32, device=dev)
-    digests = torch.zeros((B, n, 8), dtype=torch.int32, device=dev)
     if B == 0:
-        return data, digests
-    # the plan is indexed by shard row: survivors carry their column of
-    # the reconstruction matrix, every other row an empty chain
-    full = np.zeros((k, n), dtype=np.uint8)
-    full[:, list(idx)] = gf.reconstruction_matrix(k, n - k, idx)
-    rm, nb, _row = _matrix_plan(full, ())
-    mask = sum(1 << i for i, p in enumerate(present) if p)
+        return data, partials
     ntiles = -(-w // TILE)
     rc = _load().mtt_verify_reconstruct(
         dev.index or 0, shards.data_ptr(), data.data_ptr(),
-        digests.data_ptr(), B, n, k, w, mask, shard_len & 0xFFFFFFFF,
-        _tiles_per_block(ntiles, B), rm, nb, _stream(shards),
+        partials.data_ptr(), B, n, k, w, mask, shard_len & 0xFFFFFFFF,
+        word_offset & 0xFFFFFFFF, int(finalize), _tiles_per_block(ntiles, B),
+        rm, nb, _stream(shards),
     )
     _check_rc(rc, "verify_reconstruct")
-    _count("verify_reconstruct")
+    return data, partials
+
+
+def verify_reconstruct_subchunk(chunk: torch.Tensor, acc: torch.Tensor,
+                                word_offset: int,
+                                present: "tuple[bool, ...]",
+                                data_shards: int, shard_len: int,
+                                finalize: bool = False):
+    """K4 on one (B, n, cw) sub-chunk whose first word is column
+    ``word_offset`` of the row: (data (B, k, cw), acc).  The partials of
+    the chunk's present rows are XORed into ``acc`` (B, n, 8) IN PLACE;
+    with ``finalize`` acc then holds the finalized digests of the whole
+    row of ``shard_len`` bytes."""
+    B, n, _cw = chunk.shape
+    k = data_shards
+    _check_vr(chunk, present, k)
+    if word_offset % 4:
+        raise ValueError(f"word_offset {word_offset} must be a multiple of 4")
+    if tuple(acc.shape) != (B, n, 8):
+        raise ValueError(f"acc must be {(B, n, 8)}, got {tuple(acc.shape)}")
+    if chunk.device.type == "cpu":
+        return verify_reconstruct_subchunk_plain(
+            chunk, acc, word_offset, present, k, shard_len, finalize
+        )
+    _require_cuda(chunk, "verify_reconstruct_subchunk", 3)
+    _require_cuda(acc, "verify_reconstruct_subchunk acc", 3)
+    out = _launch_verify_reconstruct(chunk, acc, word_offset, present, k,
+                                     shard_len, finalize)
+    _count("verify_reconstruct[subchunk]")
+    return out
+
+
+# ---------------------------------------------------------------------------
+# K6 verify_reconstruct_pipelined
+# ---------------------------------------------------------------------------
+
+
+def verify_reconstruct_pipelined_plain(shards: torch.Tensor,
+                                       present: "tuple[bool, ...]",
+                                       data_shards: int, shard_len: int):
+    """Plain version of verify_reconstruct_pipelined: P7 computes P5's
+    function, so this is verify_reconstruct_plain."""
+    return verify_reconstruct_plain(shards, present, data_shards, shard_len)
+
+
+def verify_reconstruct_pipelined(shards: torch.Tensor,
+                                 present: "tuple[bool, ...]",
+                                 data_shards: int, shard_len: int):
+    """K6: verify_reconstruct's outputs, bit for bit, from the pipelined
+    kernel (persistent grid, cp.async ring of the present rows,
+    last-block finalize)."""
+    B, n, w = shards.shape
+    k = data_shards
+    _check_vr(shards, present, k)
+    if shards.device.type == "cpu":
+        return verify_reconstruct_pipelined_plain(shards, present, k, shard_len)
+    _require_cuda(shards, "verify_reconstruct_pipelined", 3)
+    _require_aligned(shards, "verify_reconstruct_pipelined")
+    rm, nb, row, mask = _vr_plan(tuple(present), k)
+    dev = shards.device
+    data = torch.empty((B, k, w), dtype=torch.int32, device=dev)
+    acc = torch.zeros(B * n * 8 + 1, dtype=torch.int32, device=dev)
+    digests = acc[:-1].view(B, n, 8)
+    if B == 0:
+        return data, digests
+    tpb, _per_stripe = pipelined_grid(B, w, sm_count(dev))
+    rc = _load().mtt_verify_reconstruct_pipelined(
+        dev.index or 0, shards.data_ptr(), data.data_ptr(),
+        digests.data_ptr(), acc[-1:].data_ptr(), B, n, k, w, mask,
+        shard_len & 0xFFFFFFFF, tpb, rm, nb, row, _stream(shards),
+    )
+    _check_rc(rc, "verify_reconstruct_pipelined")
+    _count("verify_reconstruct_pipelined")
     return data, digests

@@ -204,15 +204,15 @@ def test_overwrite_and_delete(tmp_path):
 
 def test_unported_features_raise(sets, tmp_path, monkeypatch):
     port, _ref, _t, _j = sets
-    with pytest.raises(NotImplementedError, match="slice 6"):
+    with pytest.raises(NotImplementedError, match="slice 8"):
         port.put_object("bkt", "z", io.BytesIO(b"x" * 8192), 8192, compress=True)
     monkeypatch.setenv("MINIO_TPU_COMPRESS", "on")
-    with pytest.raises(NotImplementedError, match="slice 6"):
+    with pytest.raises(NotImplementedError, match="slice 8"):
         port.put_object("bkt", "z", io.BytesIO(b"x"), 1)
     monkeypatch.delenv("MINIO_TPU_COMPRESS")
-    with pytest.raises(NotImplementedError, match="slice 6"):
+    with pytest.raises(NotImplementedError, match="slice 8"):
         port.put_object("bkt", "z", io.BytesIO(b"x"), 1, sse=object())
-    with pytest.raises(NotImplementedError, match="slice 5"):
+    with pytest.raises(NotImplementedError, match="slice 7"):
         port.new_multipart_upload("bkt", "z")
     # heal is ported: a shard lost on one disk comes back byte-identical
     _port, _ref, troots, _j = sets
@@ -223,7 +223,7 @@ def test_unported_features_raise(sets, tmp_path, monkeypatch):
     assert port.heal_object("bkt", "block")["healed"] == [shard]
     assert _part(troots[d], "block") == before
     monkeypatch.setenv("MINIO_TPU_PARITY_ACK", "early")
-    with pytest.raises(NotImplementedError, match="slice 9"):
+    with pytest.raises(NotImplementedError, match="slice 11"):
         port.put_object("bkt", "z", io.BytesIO(b"x"), 1)
     monkeypatch.delenv("MINIO_TPU_PARITY_ACK")
     # an object the JAX package stored compressed is refused, not misread
@@ -232,16 +232,23 @@ def test_unported_features_raise(sets, tmp_path, monkeypatch):
     ref.make_bucket("bkt")
     ref.put_object("bkt", "c", io.BytesIO(b"a" * 8192), 8192, compress=True)
     ol = from_reference_disks(jroots, parity_blocks=M, block_size=BLOCK, device="cpu")
-    with pytest.raises(NotImplementedError, match="slice 6"):
+    with pytest.raises(NotImplementedError, match="slice 8"):
         _get(ol, "c")
 
 
-def test_healthy_get_verifies_each_data_shard_once():
+def test_healthy_get_verifies_each_data_shard_once(monkeypatch):
     """The number of verify passes of a healthy GET depends on how the
     shard reads' completions fall into settle rounds (so the digest
     kernel's launch count varies from run to run), but every block's k
-    data shards are hashed exactly once and parity is never read."""
+    data shards are hashed exactly once and parity is never read.
+    Hedging is off: under a loaded host a slow read may otherwise hedge
+    to a parity shard, which is the hedge working, not a second hash."""
     from minio_tpu_torch.codec.erasure import Erasure
+    from minio_tpu_torch.storage import health
+
+    monkeypatch.setenv("MINIO_TPU_HEDGE", "0")
+    health.reset_registry()
+    monkeypatch.setattr(health, "_REGISTRY", None)  # dropped at teardown
 
     class Shard:
         def __init__(self):

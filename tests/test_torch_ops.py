@@ -282,10 +282,18 @@ def test_cpu_wrappers_run_plain_and_count_nothing():
     kernels.phash256_batched(words, 2048)
     kernels.gf_matmul_words(tgf.parity_matrix(8, 4), words, tuple(range(8)))
     kernels.verify_reconstruct(words, (True,) * 8, 6, 2048)
-    assert kernels.LAUNCHES == {
-        "encode_pack": 0, "encode_pack[group=0]": 0, "phash256_batched": 0,
-        "gf_matmul_words": 0, "verify_reconstruct": 0,
+    acc = torch.zeros((1, 12, 8), dtype=torch.int32)
+    kernels.encode_pack_subchunk(words, acc, 0, 4, 2048)
+    kernels.encode_pack_pipelined(words, 4, 2048, 256)
+    kernels.verify_reconstruct_subchunk(words, acc[:, :8], 0, (True,) * 8, 6, 2048)
+    kernels.verify_reconstruct_pipelined(words, (True,) * 8, 6, 2048)
+    assert set(kernels.LAUNCHES) == {
+        "encode_pack", "encode_pack[group=0]", "encode_pack[subchunk]",
+        "phash256_batched", "gf_matmul_words", "verify_reconstruct",
+        "verify_reconstruct[subchunk]", "encode_pack_pipelined",
+        "verify_reconstruct_pipelined",
     }
+    assert not any(kernels.LAUNCHES.values())
 
 
 def test_wrappers_reject_bad_groups():
@@ -319,14 +327,43 @@ def test_kernel_module_builds_nothing_on_import():
     ],
 )
 def test_unported_codec_knobs_raise(monkeypatch, env, value):
+    """legacy and mxu still raise, naming their slice; the overlap modes
+    are ported: each resolves on either device and its PUT and heal
+    passes equal ``off``'s."""
     monkeypatch.setenv(env, value)
-    with pytest.raises(NotImplementedError, match="slice"):
-        tcs.codec_kernel_mode()
-        tcs.codec_formulation()
-        tcs.codec_overlap_mode()
+    if env != "MINIO_TPU_CODEC_OVERLAP":
+        with pytest.raises(NotImplementedError, match="slice"):
+            tcs.codec_kernel_mode()
+            tcs.codec_formulation()
+        return
+    assert tcs.codec_overlap_mode("cpu") == value
+    assert tcs.codec_overlap_mode("cuda") == value
+    from minio_tpu_torch.codec.backend import TorchBackend
+
+    monkeypatch.setenv("MINIO_TPU_CODEC_SUBCHUNK_KB", "1")
+    data = np.random.default_rng(6).integers(0, 256, (2, 4, 4096), np.uint8)
+    present = (False, True, True, True, True, False)
+
+    def run():
+        be = TorchBackend("cpu")
+        digests, ref = be.encode_digest_end(be.encode_digest_begin(data, 2))
+        shards = np.concatenate([data, ref.drain()], axis=1)
+        shards[:, [0, 5]] = 0
+        return digests, shards, be.reconstruct_and_verify(
+            shards, digests, present, 4, 2
+        )
+
+    got = run()
+    monkeypatch.setenv("MINIO_TPU_CODEC_OVERLAP", "off")
+    want = run()
+    for a, b in zip(got[:2] + got[2], want[:2] + want[2]):
+        assert np.array_equal(a, b)
+    assert np.array_equal(got[2][0], data)
 
 
 def test_default_codec_knobs(monkeypatch):
+    """Unset, the overlap mode follows the codec's device as the JAX
+    package follows its backend: pipeline on the card, off on the CPU."""
     for env in (
         "MINIO_TPU_CODEC_KERNEL",
         "MINIO_TPU_CODEC_FORMULATION",
@@ -335,6 +372,10 @@ def test_default_codec_knobs(monkeypatch):
         monkeypatch.delenv(env, raising=False)
     assert tcs.codec_kernel_mode() == "fused1"
     assert tcs.codec_formulation() == "swar"
+    assert tcs.codec_overlap_mode("cpu") == "off"
+    assert tcs.codec_overlap_mode(torch.device("cuda", 0)) == "pipeline"
     assert tcs.codec_overlap_mode() == "off"
+    monkeypatch.setenv("MINIO_TPU_CODEC_OVERLAP", "bogus")
+    assert tcs.codec_overlap_mode("cuda") == "pipeline"
     monkeypatch.setenv("MINIO_TPU_CODEC_OVERLAP", "off")
-    assert tcs.codec_overlap_mode() == "off"
+    assert tcs.codec_overlap_mode("cuda") == "off"
