@@ -16,7 +16,10 @@
    re-encode) at heal's shape.  The overlap kernels too: the pipelined
    K5 and K6 against their plain versions and against K1 and K4, and the
    sub-chunk forms of K1 and K4 chained over S chunks against the
-   whole-row pass and against their plain chains.
+   whole-row pass and against their plain chains.  The mxu formulation
+   too: K7 gf_matmul_mxu and the ``mxu`` instantiations of K1, K4, K5
+   and K6 against their plain versions and their swar twins, at the main
+   path's and heal's shapes and at ragged ones.
 3. Drives the main path through the object layer under the default
    MINIO_TPU_CODEC_OVERLAP (unset: ``pipeline`` on the card): 12 temp-dir
    disks, EC 8+4, 10 MiB blocks; PUT four 64 MiB objects and one of
@@ -39,7 +42,13 @@
    path's, and xl.meta equal up to its mod time, data dir and version id
    (fresh for every PUT); each mode's own kernels must launch and
    ``async`` must count overlap windows both ways.
-6. Prints the kernels JSON line, the card's name and power limit, and as
+6. MINIO_TPU_CODEC_FORMULATION=mxu beside swar, on fresh disks: swar
+   and mxu under ``pipeline``, mxu and swar under ``off``, then in
+   reverse order, the same two objects PUT, read with 4 disks offline
+   and healed.  Part files must equal the main path's; under mxu the
+   ``[mxu]`` kernels must launch and the swar PUT and heal-read kernels
+   must not, while heal's re-encode stays on swar K1.
+7. Prints the kernels JSON line, the card's name and power limit, and as
    the last line ``{"ok": true, "device": {...}}``.
 
 Exits non-zero, without the result lines, when there is no CUDA device or
@@ -59,10 +68,16 @@ import tempfile
 import time
 
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM device memory
-# 32-bit arithmetic outside the tensor cores: the float32 rate of the
-# H100 data sheet, the ceiling used for the integer XOR/shift/multiply
-# chains these kernels run
-PEAK_OPS_PER_S = 67e12
+# The integer XOR/shift/multiply/permute work of these kernels runs on
+# the integer pipe: 64 lanes per SM per clock, half the float32 lanes.
+# Set in main() from the card: SMs x 64 x the SM clock's maximum.
+INT_LANES_PER_SM = 64
+INT_OPS_PER_S = 132 * INT_LANES_PER_SM * 1.98e9
+# int8 tensor cores, dense (H100 SXM data sheet).  The mxu product's bit
+# pairs are held to it: the data sheet gives no rate for the 1-bit MMA the
+# kernels issue, so this is an assumption (a faster b1 rate would lower
+# the bound).
+TC_INT8_OPS_PER_S = 1979e12
 
 K, M, N = 8, 4, 12
 BLOCK = 10 * 1024 * 1024
@@ -92,12 +107,34 @@ def cuda_ms(fn, reps: int, warmup: int = 2) -> float:
     return start.elapsed_time(end) / reps
 
 
-def bound(nbytes: float, ops: float) -> "tuple[float, str]":
+def bound(nbytes: float, ops: float, mma_ops: float = 0.0) -> "tuple[float, str]":
+    """(ms, what binds): the larger of the bytes over the memory rate and
+    the operations over their pipes' rates (integer ops, plus MMA ops at
+    the int8 tensor-core rate)."""
     t_bytes = nbytes / HBM_BYTES_PER_S
-    t_ops = ops / PEAK_OPS_PER_S
+    t_ops = ops / INT_OPS_PER_S + mma_ops / TC_INT8_OPS_PER_S
     if t_bytes >= t_ops:
         return t_bytes * 1e3, "bytes"
     return t_ops * 1e3, "operations"
+
+
+def int_rate() -> dict:
+    """The integer pipe's rate on this card: SMs x 64 lanes x the maximum
+    SM clock that nvidia-smi reports."""
+    import torch
+
+    global INT_OPS_PER_S
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    smi = subprocess.run(
+        ["nvidia-smi", "--query-gpu=clocks.max.sm", "--format=csv,noheader,nounits"],
+        capture_output=True, text=True, timeout=60,
+    )
+    if smi.returncode != 0:
+        fail(f"nvidia-smi failed: {smi.stderr.strip()}")
+    mhz = float(smi.stdout.strip().splitlines()[0])
+    INT_OPS_PER_S = sms * INT_LANES_PER_SM * mhz * 1e6
+    return {"sms": sms, "sm_clock_max_mhz": mhz, "int_ops_per_s": INT_OPS_PER_S,
+            "tc_int8_ops_per_s": TC_INT8_OPS_PER_S, "hbm_bytes_per_s": HBM_BYTES_PER_S}
 
 
 # operation counts per element (32-bit integer ops): mix32 is 3 shifts,
@@ -117,6 +154,36 @@ def gf_ops(matrix) -> int:
     return _XTIME * chain + terms
 
 
+def mxu_ops(o: int, s: int) -> int:
+    """MMA ops of one word column (4 byte columns) of the mxu product of an
+    (o, s) matrix: the (8o x 8s) bit pairs that matter, counted as
+    multiply + add, with no padding of the tile."""
+    return 2 * (8 * o) * (8 * s) * 4
+
+
+# The design's own integer work (csrc/codec.cu mxu_tile) per 8 byte
+# columns, per lane of a warp: 3 byte permutes build its B word, and per
+# m-tile (2 output rows) 19 ops turn its 4 accumulators into the output
+# word (4 ands, 4 shifts, 3 ors, 3 shuffles, 3 ors, a shift and an or, the
+# store's predicate).  Printed beside the bound, never part of it: the
+# function does not need them.
+_PERM, _REPACK = 3, 19
+
+
+def mxu_design_ops(o: int, s: int) -> int:
+    """The mxu_tile lanes' permutes and repack per word column."""
+    return 32 * (_PERM + _REPACK * -(-o // 2)) // 2
+
+
+def mxu_bound(nbytes: float, int_ops: float, mma_ops: float,
+              swar: "tuple[float, str]") -> "tuple[float, str]":
+    """Bound of an mxu kernel: the bytes, or the integer ops the function
+    needs besides its product (hash, flags) plus the product's bit pairs
+    at the tensor-core rate - never above the swar twin's bound for the
+    same function."""
+    return min(bound(nbytes, int_ops, mma_ops), swar)
+
+
 def rand_words(rng, shape, device):
     import numpy as np
     import torch
@@ -129,6 +196,28 @@ def max_err(a, b) -> int:
     if a.numel() == 0:
         return 0
     return int((a.long() - b.long()).abs().max().item())
+
+
+def same(got, *wants) -> int:
+    """max_abs_err of the tuple ``got`` against each of ``wants``, at
+    least 1 where any tensor differs."""
+    import torch
+
+    e = max(max_err(a, b) for want in wants for a, b in zip(got, want))
+    if e or not all(torch.equal(a, b) for want in wants
+                    for a, b in zip(got, want)):
+        return max(e, 1)
+    return 0
+
+
+# heal's loss (shards 1, 3 of data and 10, 12 of parity) and the other
+# survivor patterns the heal kernels are checked over
+LOST = (0, 2, 9, 11)
+PATTERNS = {
+    "data+parity missing": tuple(i not in LOST for i in range(N)),
+    "parity missing": tuple(i < K for i in range(N)),
+    "all present": (True,) * N,
+}
 
 
 def check_kernels(dev, rng) -> dict:
@@ -255,18 +344,12 @@ def check_heal_kernels(dev, rng) -> dict:
     from minio_tpu_torch.ops import codec_step, gf, hash as phash, kernels
 
     results = {}
-    lost = (0, 2, 9, 11)  # shards 1, 3 (data) and 10, 12 (parity)
-    patterns = {
-        "data+parity missing": tuple(i not in lost for i in range(N)),
-        "parity missing": tuple(i < K for i in range(N)),
-        "all present": (True,) * N,
-    }
     # --- K4 verify_reconstruct ------------------------------------------
     err = 0
     for B, w in [(1, W), (4, W), (1, 131072), (1, 8), (2, 4104)]:
         x = rand_words(rng, (B, N, w), dev)
         host = x.cpu().numpy().view(np.uint32)
-        for pname, pres in patterns.items():
+        for pname, pres in PATTERNS.items():
             got = kernels.verify_reconstruct(x, pres, K, 4 * w)
             torch.cuda.synchronize()
             want = kernels.verify_reconstruct_plain(x, pres, K, 4 * w)
@@ -292,16 +375,16 @@ def check_heal_kernels(dev, rng) -> dict:
         data = rand_words(rng, (B, K, w), dev)
         par, dig, _f, _p = kernels.encode_pack(data, M, 4 * w, 0)
         full = torch.cat([data, par], dim=1)
-        pres = patterns["data+parity missing"]
+        pres = PATTERNS["data+parity missing"]
         damaged = full.clone()
-        damaged[:, list(lost)] = rand_words(rng, (B, len(lost), w), dev)
+        damaged[:, list(LOST)] = rand_words(rng, (B, len(LOST), w), dev)
         got, ok = codec_step.verify_and_reconstruct_words(
             damaged, dig, pres, K, M, 4 * w
         )
         want_ok = torch.tensor(pres, device=dev).expand(B, N)
         if not torch.equal(got, data) or not torch.equal(ok, want_ok):
             fail(f"verify_reconstruct does not rebuild encoded data at {B, w}")
-        pres = patterns["all present"]
+        pres = PATTERNS["all present"]
         full[B - 1, 4, w // 3] ^= 1 << 20  # row 4 is a chosen survivor
         _d, ok = codec_step.verify_and_reconstruct_words(
             full, dig, pres, K, M, 4 * w
@@ -317,7 +400,7 @@ def check_heal_kernels(dev, rng) -> dict:
     timings = {}
     for pname, B in [("data+parity missing", 1), ("data+parity missing", 4),
                      ("all present", 1)]:
-        pres = patterns[pname]
+        pres = PATTERNS[pname]
         x = rand_words(rng, (B, N, W), dev)
         rows = tuple(i for i, p in enumerate(pres) if p)[:K]
         live = sum(pres)
@@ -386,19 +469,6 @@ def check_overlap_kernels(dev, rng) -> dict:
     from minio_tpu_torch.ops import gf, kernels
 
     results = {}
-    lost = (0, 2, 9, 11)  # shards 1, 3 (data) and 10, 12 (parity)
-    patterns = {
-        "data+parity missing": tuple(i not in lost for i in range(N)),
-        "parity missing": tuple(i < K for i in range(N)),
-        "all present": (True,) * N,
-    }
-
-    def same(got, *wants) -> int:
-        e = max(max_err(a, b) for want in wants for a, b in zip(got, want))
-        if e or not all(torch.equal(a, b) for want in wants
-                        for a, b in zip(got, want)):
-            return max(e, 1)
-        return 0
 
     # --- K5 encode_pack_pipelined ----------------------------------------
     err = 0
@@ -436,7 +506,7 @@ def check_overlap_kernels(dev, rng) -> dict:
     err = 0
     for B, w in [(1, W), (4, W), (1, 131072), (2, 4104), (1, 8)]:
         x = rand_words(rng, (B, N, w), dev)
-        for pname, pres in patterns.items():
+        for pname, pres in PATTERNS.items():
             got = kernels.verify_reconstruct_pipelined(x, pres, K, 4 * w)
             k4 = kernels.verify_reconstruct(x, pres, K, 4 * w)
             torch.cuda.synchronize()
@@ -447,7 +517,7 @@ def check_overlap_kernels(dev, rng) -> dict:
     timings = {}
     for pname, B in [("data+parity missing", 1), ("data+parity missing", 4),
                      ("all present", 1)]:
-        pres = patterns[pname]
+        pres = PATTERNS[pname]
         x = rand_words(rng, (B, N, W), dev)
         rows = tuple(i for i, p in enumerate(pres) if p)[:K]
         live = sum(pres)
@@ -503,7 +573,7 @@ def check_overlap_kernels(dev, rng) -> dict:
     err = 0
     for B, w, cw in [(1, W, CW), (4, W, CW), (1, W, CW - 768), (2, 4104, 1000)]:
         x = rand_words(rng, (B, N, w), dev)
-        for pname, pres in patterns.items():
+        for pname, pres in PATTERNS.items():
             data, acc = _chain(kernels.verify_reconstruct_subchunk, x, N, cw, pres, K, 4 * w)
             whole = kernels.verify_reconstruct(x, pres, K, 4 * w)
             torch.cuda.synchronize()
@@ -513,7 +583,7 @@ def check_overlap_kernels(dev, rng) -> dict:
                 fail(f"verify_reconstruct_subchunk chain differs from the whole row or its plain chain at {B, w, cw}, {pname}")
             err = max(err, e)
     B = 1
-    pres = patterns["data+parity missing"]
+    pres = PATTERNS["data+parity missing"]
     x = rand_words(rng, (B, N, W), dev)
     chunks = [(o, x[:, :, o:o + CW].contiguous()) for o in range(0, W, CW)]
 
@@ -533,6 +603,131 @@ def check_overlap_kernels(dev, rng) -> dict:
         plain_ms=cuda_ms(lambda: vr_chain(kernels.verify_reconstruct_subchunk_plain), 3, 1),
         bound_ms=bms, bound_by=by, shape=[B, N, W], present=live, chunks=len(chunks),
     )
+    return results
+
+
+def check_mxu_kernels(dev, rng) -> dict:
+    """Phase 2, mxu: K7 gf_matmul_mxu and the mxu instantiations of K1,
+    K4, K5 and K6 against their plain versions (rs.mxu_rows) and their
+    swar twins (K3 for K7), then timings beside the twins'."""
+    import numpy as np
+    import torch
+
+    from minio_tpu_torch.ops import gf, kernels, rs
+
+    results = {}
+
+    # --- K7 gf_matmul_mxu -------------------------------------------------
+    pm = gf.parity_matrix(K, M)
+    rows = tuple(i for i, p in enumerate(PATTERNS["data+parity missing"]) if p)[:K]
+    rm = gf.reconstruction_matrix(K, M, rows)
+    L = BLOCK // K  # one shard of a 10 MiB block: 10 MiB over the 8 rows
+    err = 0
+    for mat, length in [(pm, L), (rm, L), (pm, 8192 + 17), (rm, 4104 * 4 + 3),
+                        (gf.parity_matrix(16, 16), 4096), (pm[:1, :1], 5)]:
+        o, s_ = mat.shape
+        sh = torch.from_numpy(rng.integers(0, 256, (s_, length), dtype=np.uint8)).to(dev)
+        got = kernels.gf_matmul_mxu(mat, sh)
+        torch.cuda.synchronize()
+        e = same((got,), (rs.gf_matmul_mxu_plain(mat, sh),))
+        if length % 4 == 0:  # the swar twin: K3 on the same bytes as words
+            words = sh.view(torch.int32)[None]
+            twin = kernels.gf_matmul_words(mat, words, tuple(range(s_)))
+            e = max(e, same((got,), (twin[0].contiguous().view(torch.uint8),)))
+        if e:
+            fail(f"gf_matmul_mxu differs from its plain version or K3 at {o, s_, length}")
+        err = max(err, e)
+    x = torch.from_numpy(rng.integers(0, 256, (8, 64), dtype=np.uint8)).to(dev)
+    if not np.array_equal(kernels.gf_matmul_mxu(pm, x).cpu().numpy(),
+                          gf.encode_ref(x.cpu().numpy(), M)):
+        fail("gf_matmul_mxu differs from gf.encode_ref")
+    sh = torch.from_numpy(rng.integers(0, 256, (K, L), dtype=np.uint8)).to(dev)
+    words = sh.view(torch.int32)[None]
+    bms, by = mxu_bound((K + M) * L, 0, L // 4 * mxu_ops(M, K),
+                        bound((K + M) * L, L // 4 * gf_ops(pm)))
+    results["gf_matmul_mxu"] = dict(
+        max_abs_err=err, ms=cuda_ms(lambda: kernels.gf_matmul_mxu(pm, sh), 20),
+        swar_ms=cuda_ms(lambda: kernels.gf_matmul_words(pm, words, tuple(range(K))), 20),
+        plain_ms=cuda_ms(lambda: rs.gf_matmul_mxu_plain(pm, sh), 3, 1),
+        bound_ms=bms, bound_by=by, shape=[M, K, L],
+        design_int_ops=L // 4 * mxu_design_ops(M, K),
+    )
+
+    # --- K1 and K5 [mxu] ----------------------------------------------------
+    for name, fn, plain in [
+        ("encode_pack", kernels.encode_pack, kernels.encode_pack_plain),
+        ("encode_pack_pipelined", kernels.encode_pack_pipelined,
+         kernels.encode_pack_pipelined_plain),
+    ]:
+        err = 0
+        for B, w, group in [(4, W, 256), (1, W, 0), (2, 131072, 256),
+                            (2, 4104, 0), (1, 8, 0)]:
+            x = rand_words(rng, (B, K, w), dev)
+            x[0, :, : min(w, 64)] = -1
+            if w >= 4096:
+                x[-1, :, 256:2048] = 0  # zero groups for the pack leg
+            got = fn(x, M, 4 * w, group, formulation="mxu")
+            twin = fn(x, M, 4 * w, group)
+            torch.cuda.synchronize()
+            e = same(got, plain(x, M, 4 * w, group, "mxu"), twin)
+            if e:
+                fail(f"{name}[mxu] differs from its plain version or swar twin at {B, w, group}")
+            err = max(err, e)
+        B = 4
+        x = rand_words(rng, (B, K, W), dev)
+        g = W // 256
+        nbytes = 4 * (B * K * W + 2 * B * M * W + B * M * g + B * N * 8)
+        hash_ops = B * W * (_KEY + N * _HASH + M)
+        bms, by = mxu_bound(nbytes, hash_ops, B * W * mxu_ops(M, K),
+                            bound(nbytes, hash_ops + B * W * gf_ops(pm)))
+        results[f"{name}[mxu]"] = dict(
+            max_abs_err=err,
+            ms=cuda_ms(lambda: fn(x, M, 4 * W, 256, formulation="mxu"), 20),
+            swar_ms=cuda_ms(lambda: fn(x, M, 4 * W, 256), 20),
+            plain_ms=cuda_ms(lambda: plain(x, M, 4 * W, 256, "mxu"), 3, 1),
+            bound_ms=bms, bound_by=by, shape=[B, K, W],
+            design_int_ops=B * W * mxu_design_ops(M, K),
+        )
+
+    # --- K4 and K6 [mxu] ----------------------------------------------------
+    for name, fn, plain in [
+        ("verify_reconstruct", kernels.verify_reconstruct,
+         kernels.verify_reconstruct_plain),
+        ("verify_reconstruct_pipelined", kernels.verify_reconstruct_pipelined,
+         kernels.verify_reconstruct_pipelined_plain),
+    ]:
+        err = 0
+        for B, w in [(1, W), (4, W), (2, 4104), (1, 8)]:
+            x = rand_words(rng, (B, N, w), dev)
+            for pname, pres in PATTERNS.items():
+                got = fn(x, pres, K, 4 * w, formulation="mxu")
+                twin = fn(x, pres, K, 4 * w)
+                torch.cuda.synchronize()
+                e = same(got, plain(x, pres, K, 4 * w, "mxu"), twin)
+                if e:
+                    fail(f"{name}[mxu] differs from its plain version or swar twin at {B, w}, {pname}")
+                err = max(err, e)
+        timings = {}
+        for pname, B in [("data+parity missing", 1), ("data+parity missing", 4)]:
+            pres = PATTERNS[pname]
+            x = rand_words(rng, (B, N, W), dev)
+            rows = tuple(i for i, p in enumerate(pres) if p)[:K]
+            live = sum(pres)
+            nbytes = 4 * (B * live * W + B * K * W + B * N * 8)
+            hash_ops = B * W * (_KEY + live * _HASH)
+            swar_ops = B * W * gf_ops(gf.reconstruction_matrix(K, M, rows))
+            bms, by = mxu_bound(nbytes, hash_ops, B * W * mxu_ops(K, K),
+                                bound(nbytes, hash_ops + swar_ops))
+            timings[f"{pname}, B={B}"] = dict(
+                ms=cuda_ms(lambda: fn(x, pres, K, 4 * W, formulation="mxu"), 20),
+                swar_ms=cuda_ms(lambda: fn(x, pres, K, 4 * W), 20),
+                plain_ms=cuda_ms(lambda: plain(x, pres, K, 4 * W, "mxu"), 3, 1),
+                bound_ms=bms, bound_by=by, shape=[B, N, W], present=live,
+                design_int_ops=B * W * mxu_design_ops(K, K),
+            )
+        results[f"{name}[mxu]"] = dict(
+            max_abs_err=err, **timings["data+parity missing, B=1"], timings=timings
+        )
     return results
 
 
@@ -830,25 +1025,54 @@ def heal_phase(dev, work: str, payloads: list) -> dict:
     }
 
 
-# phase 5: one 64 MiB object and the 10 MiB + 17 B one, under each mode;
-# the kernels each mode must launch, and those it must not
+# phases 5 and 6: one 64 MiB object and the 10 MiB + 17 B one, under an
+# overlap mode and a formulation per run; the kernels each run must
+# launch, and those it must not
 MODE_OBJECTS = ("obj0", "obj4")
-MODE_KERNELS = {
-    "pipeline": (("encode_pack_pipelined", "verify_reconstruct_pipelined"),
-                 ("verify_reconstruct", "encode_pack[subchunk]",
-                  "verify_reconstruct[subchunk]")),
-    "off": (("encode_pack", "verify_reconstruct"),
-            ("encode_pack_pipelined", "verify_reconstruct_pipelined",
-             "encode_pack[subchunk]", "verify_reconstruct[subchunk]")),
-    "async": (("encode_pack[subchunk]", "verify_reconstruct[subchunk]"),
-              ("encode_pack_pipelined", "verify_reconstruct_pipelined")),
+_MXU_NAMES = ("encode_pack[mxu]", "verify_reconstruct[mxu]",
+              "encode_pack_pipelined[mxu]", "verify_reconstruct_pipelined[mxu]")
+RUN_KERNELS = {
+    ("swar", "pipeline"): (
+        ("encode_pack_pipelined", "verify_reconstruct_pipelined"),
+        ("verify_reconstruct", "encode_pack[subchunk]",
+         "verify_reconstruct[subchunk]", *_MXU_NAMES)),
+    ("swar", "off"): (
+        ("encode_pack", "verify_reconstruct"),
+        ("encode_pack_pipelined", "verify_reconstruct_pipelined",
+         "encode_pack[subchunk]", "verify_reconstruct[subchunk]", *_MXU_NAMES)),
+    ("swar", "async"): (
+        ("encode_pack[subchunk]", "verify_reconstruct[subchunk]"),
+        ("encode_pack_pipelined", "verify_reconstruct_pipelined", *_MXU_NAMES)),
+    # under mxu only the PUT pass and heal's read pass change kernels:
+    # heal's re-encode stays swar K1 without the pack leg, the degraded
+    # GET K3
+    ("mxu", "pipeline"): (
+        ("encode_pack_pipelined[mxu]", "verify_reconstruct_pipelined[mxu]",
+         "encode_pack[group=0]", "gf_matmul_words"),
+        ("encode_pack_pipelined", "verify_reconstruct_pipelined",
+         "verify_reconstruct", "encode_pack[mxu]", "verify_reconstruct[mxu]",
+         "encode_pack[subchunk]", "verify_reconstruct[subchunk]")),
+    ("mxu", "off"): (
+        ("encode_pack[mxu]", "verify_reconstruct[mxu]", "encode_pack[group=0]",
+         "gf_matmul_words"),
+        ("encode_pack_pipelined", "verify_reconstruct_pipelined",
+         "verify_reconstruct", "encode_pack_pipelined[mxu]",
+         "verify_reconstruct_pipelined[mxu]", "encode_pack[subchunk]",
+         "verify_reconstruct[subchunk]")),
 }
+# phase 5: every overlap mode; phase 6: each formulation beside the other
+# under the same mode
+MODE_RUNS = [("swar", "pipeline"), ("swar", "off"), ("swar", "async")]
+MXU_RUNS = [("swar", "pipeline"), ("mxu", "pipeline"), ("mxu", "off"),
+            ("swar", "off")]
 
 
-def modes_phase(dev, work: str, payloads: list, written: dict) -> dict:
-    """Phase 5: PUT, GET with 4 disks offline and heal_object of the
-    MODE_OBJECTS on fresh disks under each overlap mode; part files and
-    xl.meta against the main path's, launch counters per mode."""
+def modes_phase(dev, work: str, payloads: list, written: dict,
+                runs: list) -> dict:
+    """Phases 5 and 6: PUT, GET with 4 disks offline and heal_object of
+    the MODE_OBJECTS on fresh disks for each (formulation, overlap mode)
+    of ``runs``; part files and xl.meta against the main path's, launch
+    counters per run."""
     from minio_tpu_torch.codec.telemetry import KERNEL_STATS
     from minio_tpu_torch.objectlayer.erasure_object import (
         ErasureObjects,
@@ -858,13 +1082,14 @@ def modes_phase(dev, work: str, payloads: list, written: dict) -> dict:
     from minio_tpu_torch.storage.xl import XLStorage
 
     data = {f"obj{i}": p for i, p in enumerate(payloads)}
-    out: dict = {mode: [] for mode in MODE_KERNELS}
+    out: dict = {run: [] for run in runs}
     try:
-        # each mode twice, in turns (ABC then CBA), so host-clock drift
-        # over the phase does not favour one mode
-        for mode in [*MODE_KERNELS, *reversed(MODE_KERNELS)]:
+        # each run twice, in turns (ABC then CBA), so host-clock drift
+        # over the phase does not favour one run
+        for formulation, mode in [*runs, *reversed(runs)]:
+            os.environ["MINIO_TPU_CODEC_FORMULATION"] = formulation
             os.environ["MINIO_TPU_CODEC_OVERLAP"] = mode
-            roots = [os.path.join(work, f"{mode}{i}") for i in range(N)]
+            roots = [os.path.join(work, f"{formulation}-{mode}{i}") for i in range(N)]
             ol = ErasureObjects(
                 [XLStorage(r) for r in roots], parity_blocks=M,
                 block_size=BLOCK, device=dev,
@@ -878,7 +1103,7 @@ def modes_phase(dev, work: str, payloads: list, written: dict) -> dict:
             t_put = time.monotonic() - t0
             for name in MODE_OBJECTS:
                 if object_files(roots, name) != written[name]:
-                    fail(f"{mode}: {name} part files or xl.meta differ from the main path's")
+                    fail(f"{formulation} {mode}: {name} part files or xl.meta differ from the main path's")
             t_get = 0.0
             for name in MODE_OBJECTS:
                 dist = XLStorage(roots[0]).read_version("bench", name).erasure.distribution
@@ -892,38 +1117,39 @@ def modes_phase(dev, work: str, payloads: list, written: dict) -> dict:
                 degraded.get_object("bench", name, sink)
                 t_get += time.monotonic() - t0
                 if sink.getvalue() != data[name]:
-                    fail(f"{mode}: degraded GET of {name} differs from its source")
+                    fail(f"{formulation} {mode}: degraded GET of {name} differs from its source")
                 for d in dead:
                     shutil.rmtree(os.path.join(roots[d], "bench", name))
             t0 = time.monotonic()
             for name in MODE_OBJECTS:
                 res = ol.heal_object("bench", name)
                 if res["healed"] != [0, 2, 9, 11]:
-                    fail(f"{mode}: heal_object({name}) healed {res['healed']}")
+                    fail(f"{formulation} {mode}: heal_object({name}) healed {res['healed']}")
             t_heal = time.monotonic() - t0
             for name in MODE_OBJECTS:
                 if object_files(roots, name) != written[name]:
-                    fail(f"{mode}: healed {name} differs from the main path's")
+                    fail(f"{formulation} {mode}: healed {name} differs from the main path's")
             launches = dict(kernels.LAUNCHES)
             stats = KERNEL_STATS.snapshot()
-            must, must_not = MODE_KERNELS[mode]
+            must, must_not = RUN_KERNELS[(formulation, mode)]
+            label = f"{formulation} {mode}"
             for name in must:
                 if launches[name] <= 0:
-                    fail(f"{mode}: kernel {name} never launched")
+                    fail(f"{label}: kernel {name} never launched")
             for name in must_not:
                 if launches[name]:
-                    fail(f"{mode}: kernel {name} launched")
-            if mode == "pipeline" and (
+                    fail(f"{label}: kernel {name} launched")
+            if (mode == "pipeline" or formulation == "mxu") and (
                 launches["encode_pack"] != launches["encode_pack[group=0]"]
             ):
-                fail("pipeline: K1 with the pack leg launched")
+                fail(f"{label}: swar K1 with the pack leg launched")
             windows = stats["overlap_windows"]
             if mode != "off" and min(windows.values()) <= 0:
-                fail(f"{mode}: overlap windows {windows}")
+                fail(f"{label}: overlap windows {windows}")
             if mode == "off" and any(windows.values()):
-                fail(f"off: overlap windows {windows}")
+                fail(f"{label}: overlap windows {windows}")
             nbytes = sum(len(data[n]) for n in MODE_OBJECTS)
-            out[mode].append({
+            out[(formulation, mode)].append({
                 "bytes": nbytes, "put_s": t_put, "get_degraded_s": t_get,
                 "heal_s": t_heal, "launches": launches,
                 "device_passes": stats["device_passes"],
@@ -934,15 +1160,19 @@ def modes_phase(dev, work: str, payloads: list, written: dict) -> dict:
                 shutil.rmtree(r, ignore_errors=True)
     finally:
         os.environ.pop("MINIO_TPU_CODEC_OVERLAP", None)
+        os.environ.pop("MINIO_TPU_CODEC_FORMULATION", None)
     return out
 
 
 # the TPU function each kernel replaces: encode_pack_fused (P4),
 # encode_hash_fused (P2, which encode_pack computes without the pack
 # leg), phash256_words_batched (left to XLA), matmul_words (P1),
-# verify_reconstruct_fused (P5), the pipelined P6 and P7, and the XLA
-# sub-chunk steps of the async overlap chain (X2, X3); and the phase
-# whose counters each kernel's launches are read from
+# verify_reconstruct_fused (P5), the pipelined P6 and P7, the XLA
+# sub-chunk steps of the async overlap chain (X2, X3), gf_matmul_mxu (P3)
+# and P4-P7 under the mxu formulation; and the phase whose counters each
+# kernel's launches are read from.  P3 has no runtime caller in the JAX
+# package, so K7 has no path of its own: its count is read from the main
+# path's counters, where it is 0.
 REPLACES = {
     "encode_pack": ("minio_tpu/ops/rs_pallas.py:472", "off"),
     "encode_pack[group=0]": ("minio_tpu/ops/rs_pallas.py:193", "heal"),
@@ -953,13 +1183,19 @@ REPLACES = {
     "verify_reconstruct_pipelined": ("minio_tpu/ops/rs_pallas.py:970", "heal"),
     "encode_pack[subchunk]": ("minio_tpu/ops/codec_step.py:422", "async"),
     "verify_reconstruct[subchunk]": ("minio_tpu/ops/codec_step.py:486", "async"),
+    "gf_matmul_mxu": ("minio_tpu/ops/rs_pallas.py:296", "main"),
+    "encode_pack[mxu]": ("minio_tpu/ops/rs_pallas.py:472", "mxu off"),
+    "verify_reconstruct[mxu]": ("minio_tpu/ops/rs_pallas.py:595", "mxu off"),
+    "encode_pack_pipelined[mxu]": ("minio_tpu/ops/rs_pallas.py:802", "mxu pipeline"),
+    "verify_reconstruct_pipelined[mxu]": ("minio_tpu/ops/rs_pallas.py:970", "mxu pipeline"),
 }
 
 
 _KERNEL_NAME = re.compile(
     r"(encode_pipelined_kernel|verify_reconstruct_pipelined_kernel|"
     r"encode_kernel|pack_kernel|finalize_kernel|phash_kernel|"
-    r"gf_matmul_kernel|verify_reconstruct_kernel)(?:I((?:Li\d+E)+)E)?"
+    r"gf_matmul_mxu_kernel|gf_matmul_kernel|verify_reconstruct_kernel)"
+    r"(?:I((?:L[ib]\d+E)+)E)?"
 )
 
 
@@ -972,7 +1208,11 @@ def ptxas_summary(log: str) -> list:
             m = _KERNEL_NAME.search(line)
             name = m.group(1) if m else line.split("'")[1]
             if m and m.group(2):
-                name += "<" + ",".join(re.findall(r"Li(\d+)E", m.group(2))) + ">"
+                args = re.findall(r"L([ib])(\d+)E", m.group(2))
+                name += "<" + ",".join(
+                    ("mxu" if v == "1" else "swar") if t == "b" else v
+                    for t, v in args
+                ) + ">"
         elif "spill" in line:
             spill = line.strip()
         elif "registers" in line:
@@ -991,6 +1231,10 @@ def main() -> int:
     from minio_tpu_torch.ops import kernels
 
     dev = torch.device("cuda", 0)
+    # the plain mxu product is a float32 matmul of 0/1 values: keep it in
+    # full float32 (exact either way: counts <= 128, 0/1 exact in TF32)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    print(f"rates: {json.dumps(int_rate())}", flush=True)
     t0 = time.monotonic()
     lib = kernels.build()
     build_s = time.monotonic() - t0
@@ -1004,6 +1248,7 @@ def main() -> int:
     kres = check_kernels(dev, rng)
     kres.update(check_heal_kernels(dev, rng))
     kres.update(check_overlap_kernels(dev, rng))
+    kres.update(check_mxu_kernels(dev, rng))
     for name, r in kres.items():
         print(f"kernel {name}: {json.dumps(r)}", flush=True)
     xfer = transfer_ms(dev)
@@ -1017,15 +1262,21 @@ def main() -> int:
         print(f"main path: {json.dumps(mp)}", flush=True)
         hp = heal_phase(dev, work, payloads)
         print(f"heal: {json.dumps(hp)}", flush=True)
-        mo = modes_phase(dev, work, payloads, written)
+        mo = modes_phase(dev, work, payloads, written, MODE_RUNS)
+        mx = modes_phase(dev, work, payloads, written, MXU_RUNS)
     finally:
         shutil.rmtree(work, ignore_errors=True)
-    for mode, runs in mo.items():
-        for i, r in enumerate(runs):
-            print(f"mode {mode} run {i + 1}: {json.dumps(r)}", flush=True)
+    for label, by_run in (("mode", mo), ("mxu phase", mx)):
+        for (formulation, mode), runs in by_run.items():
+            for i, r in enumerate(runs):
+                print(f"{label} {formulation} {mode} run {i + 1}: {json.dumps(r)}",
+                      flush=True)
     phase_launches = {
         "main": mp["launches"], "heal": hp["launches"],
-        "off": mo["off"][0]["launches"], "async": mo["async"][0]["launches"],
+        "off": mo[("swar", "off")][0]["launches"],
+        "async": mo[("swar", "async")][0]["launches"],
+        "mxu off": mx[("mxu", "off")][0]["launches"],
+        "mxu pipeline": mx[("mxu", "pipeline")][0]["launches"],
     }
 
     line = {

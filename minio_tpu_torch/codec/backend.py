@@ -683,8 +683,9 @@ class TorchBackend(CodecBackend):
     def encode_begin(self, data, parity_shards):
         """Eager-readback encode: the launch is asynchronous on the card,
         so the pass runs while the caller streams the previous batch.
-        MINIO_TPU_CODEC_OVERLAP does not touch this seam (heal's
-        re-encode), as in the JAX package."""
+        MINIO_TPU_CODEC_OVERLAP and MINIO_TPU_CODEC_FORMULATION do not
+        touch this seam (heal's re-encode), as in the JAX package: the
+        formulation is only read to check the knob."""
         codec_step.codec_kernel_mode()
         codec_step.codec_formulation()
         data = np.ascontiguousarray(data, dtype=np.uint8)
@@ -719,9 +720,10 @@ class TorchBackend(CodecBackend):
         packable, so the eventual drain launches nothing.  ``pipeline``
         runs K5 (K1 at m == 0); ``async`` runs the sub-chunk chain, or
         the serialized path when the batch is too small to cut S >= 3
-        chunks."""
+        chunks.  MINIO_TPU_CODEC_FORMULATION picks the serialized
+        pass's product; the sub-chunk chain stays ``swar``."""
         codec_step.codec_kernel_mode()
-        codec_step.codec_formulation()
+        formulation = codec_step.codec_formulation()
         data = np.ascontiguousarray(data, dtype=np.uint8)
         B, _k, L = data.shape
         w = L // 4
@@ -746,7 +748,8 @@ class TorchBackend(CodecBackend):
         words = self._stage(words_h)
         pipeline = overlap == "pipeline"
         parity_w, digests, flags_d, packed_d = codec_step.encode_words_fused1(
-            words, parity_shards, L, group=group, pipeline=pipeline
+            words, parity_shards, L, group=group, pipeline=pipeline,
+            formulation=formulation,
         )
         _record_pass("encode_words_fused1")
         if pipeline and parity_shards > 0:
@@ -900,9 +903,11 @@ class TorchBackend(CodecBackend):
         under ``pipeline``; the sub-chunk chain under ``async``).  On the
         rare digest mismatch among the chosen survivors, re-pick
         survivors from the verified mask and re-solve just the hit
-        stripes (through gf_matmul_words)."""
+        stripes (through gf_matmul_words).  MINIO_TPU_CODEC_FORMULATION
+        picks the serialized pass's product; the sub-chunk chain and the
+        re-solve stay ``swar``."""
         codec_step.codec_kernel_mode()
-        codec_step.codec_formulation()
+        formulation = codec_step.codec_formulation()
         shards = np.ascontiguousarray(shards, dtype=np.uint8)
         pres = np.asarray(present, dtype=bool)
         B, _n, L = shards.shape
@@ -924,7 +929,7 @@ class TorchBackend(CodecBackend):
             pipeline = overlap == "pipeline"
             dw_d, ok_d = codec_step.verify_and_reconstruct_words(
                 words, stored, present_t, data_shards, parity_shards, L,
-                pipeline=pipeline,
+                pipeline=pipeline, formulation=formulation,
             )
             _record_pass("verify_and_reconstruct_words")
             if pipeline:

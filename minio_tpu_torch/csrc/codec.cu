@@ -24,6 +24,13 @@
 // and one atomicXor per block per partition word reaches the zeroed
 // (rows, 8) accumulator.  XOR is order-free, so the digest is bit-exact
 // whatever order the blocks run in.
+//
+// MINIO_TPU_CODEC_FORMULATION=mxu swaps the xtime chain of the PUT and
+// heal passes (K1, K4, K5, K6: the `MXU` template parameter) for a
+// tensor-core product of the lifted GF(2) bit matrix (mxu_tile), and K7
+// runs that product alone on bytes.  Everything around the product - the
+// hash leg, flags, pack leg, ring and finalize - is the same code, so the
+// outputs are bit for bit the swar ones.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -87,35 +94,144 @@ __device__ __forceinline__ void fold_block(uint32_t h1, uint32_t h2,
 }
 
 // --------------------------------------------------------------------------
+// The mxu product: replaces the body of rs_pallas._mxu_rows (the product
+// P3-P7 run under MINIO_TPU_CODEC_FORMULATION=mxu).
+//
+// Multiplying a byte by a constant is an 8x8 linear map over GF(2), so an
+// (o, s) GF(2^8) matrix lifts to the (8o, 8s) 0/1 matrix A whose row 8r+t,
+// column 8c+b is bit t of matrix[r,c] * x^b, and every output bit is the
+// parity of a row of A ANDed with the input bits.  The TPU kernel counts
+// those bits with a bf16 matmul on the MXU and takes them mod 2.  Here the
+// count is one 1-bit tensor-core instruction,
+//   mma.sync.aligned.m16n8k128.row.col.s32.b1.b1.s32.and.popc,
+// D = popc(A & B) over K = 128 bits: 8 bits of 16 input rows, the most the
+// codec has, so one instruction covers the whole depth.  Its B operand is
+// 32 bits of one byte column per thread: the bytes of input rows 4tig ..
+// 4tig+3 at that column, which three byte permutes pull out of four words
+// as they lie in shared memory - no bit unpacking and no unpacked copy of
+// the tile.  (The int8 form m16n8k32.s8 would need every bit spread to a
+// byte first; the 1-bit form computes the same popc(a & b) & 1.)
+//
+// Layout.  An n-tile is 8 byte columns: word columns wc, wc + 1 (bytes 0-3
+// each).  An m-tile is 16 rows of A: output rows 2t and 2t + 1.  Lane
+// (g, tig) = (lane / 4, lane % 4) feeds B column g (word wc + g/4, byte
+// g%4); its A words (ops/kernels.py mxu_fragments, read once per block
+// into registers) are the rows for bit g%4 and bit g%4 + 4 of output row
+// 2t + g/4, so its accumulators c0..c3 hold those two bits of that row at
+// byte columns 2tig, 2tig + 1.  Two shuffles gather a row's 8 bits over
+// the 4 lanes that hold them and one more joins the two half words: the
+// output word lands in shared memory, where the kernel's own thread for
+// that column picks it up as it picked up its xtime accumulator.
+//
+// Bound: the kernels that call it move the same bytes as their swar twins,
+// and the function needs only their hash leg on the integer pipe plus the
+// product's bit pairs on the tensor cores, which take less time than the
+// xtime chain.  The byte permutes, shuffles and shifts this design adds on
+// the integer pipe are its own cost above that bound: it keeps the unpack
+// at three permutes per 8 byte columns and input row quad, and the MMA
+// count at (output rows / 2) per 8 byte columns.
+// --------------------------------------------------------------------------
+
+constexpr int kInStride = kTile + 2;  // staged rows: 4 rows apart hit other banks
+
+__device__ __forceinline__ void mma_b1(uint32_t a0, uint32_t a1, uint32_t b,
+                                       uint32_t& d0, uint32_t& d1, uint32_t& d2,
+                                       uint32_t& d3) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k128.row.col.s32.b1.b1.s32.and.popc "
+      "{%0,%1,%2,%3}, {%4,%5}, {%6}, {%7,%7,%7,%7};\n"
+      : "=r"(d0), "=r"(d1), "=r"(d2), "=r"(d3)
+      : "r"(a0), "r"(a1), "r"(b), "r"(0));
+}
+
+// The A words of m-tiles 0 .. MB/2 - 1 for this lane (kernels.mxu_fragments:
+// 8 m-tiles x 32 lanes x 2 words).
+template <int MB>
+__device__ __forceinline__ void load_frags(const uint32_t* __restrict__ amat,
+                                           uint32_t (&af)[MB]) {
+  const int lane = threadIdx.x & 31;
+#pragma unroll
+  for (int i = 0; i < MB; ++i) af[i] = __ldg(amat + ((i >> 1) * 32 + lane) * 2 + (i & 1));
+}
+
+// out[r * kTile + col] = the GF(2^8) product's word r at tile column col,
+// for r < o, from the s <= 16 input rows in[c * stride + col] (col < 256,
+// MB >= o rounded up to even).  Called by all threads of the block; each
+// warp computes its 32 columns.  The caller puts barriers around it.
+template <int MB>
+__device__ __forceinline__ void mxu_tile(const uint32_t* in, int stride, int s,
+                                         uint32_t* out, int o,
+                                         const uint32_t (&af)[MB]) {
+  const int lane = threadIdx.x & 31;
+  const int g = lane >> 2, tig = lane & 3, q = g & 3, h = g >> 2;
+  const uint32_t sel = (uint32_t)q | ((uint32_t)(4 + q) << 4);
+#pragma unroll 1
+  for (int nt = 0; nt < 16; ++nt) {
+    const int base = (threadIdx.x >> 5) * 32 + nt * 2;  // first word column
+    uint32_t x[4];
+#pragma unroll
+    for (int i = 0; i < 4; ++i) {
+      const int r = 4 * tig + i;
+      x[i] = r < s ? in[r * stride + base + h] : 0u;
+    }
+    const uint32_t b = __byte_perm(__byte_perm(x[0], x[1], sel),
+                                   __byte_perm(x[2], x[3], sel), 0x5410);
+#pragma unroll
+    for (int mt = 0; mt < MB / 2; ++mt) {
+      if (2 * mt >= o) break;  // uniform
+      uint32_t c0, c1, c2, c3;
+      mma_b1(af[2 * mt], af[2 * mt + 1], b, c0, c1, c2, c3);
+      // bits q and q+4 of row 2mt+h at byte columns 2tig, 2tig+1
+      uint32_t v = ((c0 & 1u) << q) | ((c2 & 1u) << (q + 4)) |
+                   ((c1 & 1u) << (8 + q)) | ((c3 & 1u) << (12 + q));
+      v |= __shfl_xor_sync(0xffffffffu, v, 4);
+      v |= __shfl_xor_sync(0xffffffffu, v, 8);
+      const uint32_t other = __shfl_xor_sync(0xffffffffu, v, 1);
+      const int r = 2 * mt + h;
+      if (q == 0 && (tig & 1) == 0 && r < o)
+        out[r * kTile + base + (tig >> 1)] = v | (other << 16);
+    }
+  }
+}
+
+// --------------------------------------------------------------------------
 // K1 encode_pack: replaces rs_pallas.encode_pack_fused (P4).  Without the
 // pack leg it is also encode_hash_fused (P2), and with a word offset and
 // no finalize it is the GPU body of codec_step.encode_subchunk_words
 // (X2, left to XLA by the JAX package): one sub-chunk of the async
 // overlap chain, XOR-accumulating into the caller's partials.
 //
-// Bound: bytes.  Per stripe it reads the k data rows once and writes the
-// m parity rows (the pack leg then writes m packed rows), so at EC 8+4
-// and 10 MiB blocks: 10 MiB in + 5 MiB parity + 5 MiB packed.
+// Bound: operations.  Per stripe it reads the k data rows once and writes
+// the m parity rows (the pack leg then writes m packed rows), so at EC 8+4
+// and 10 MiB blocks: 10 MiB in + 5 MiB parity + 5 MiB packed; the hash of
+// all n rows and the xtime chain on the integer pipe take longer.
 // Design: one thread per column; the k data words are loaded coalesced,
 // hashed and multiplied into MB register accumulators in the same pass,
 // so a data byte is read from device memory once.  The parity words are
 // stored, hashed, and screened per 256-column tile (one tile is one pack
 // group) with __syncthreads_or for the occupancy flags.  Hash partials
-// stay in registers across the block's tiles.
+// stay in registers across the block's tiles.  The mxu instantiation
+// stages the tile's k words per column in shared memory instead of running
+// the xtime chain, and takes the parity words from mxu_tile.
 // --------------------------------------------------------------------------
 
-template <int KB, int MB>
+template <int KB, int MB, bool MXU>
 __global__ void __launch_bounds__(kThreads)
 encode_kernel(const uint32_t* __restrict__ data, uint32_t* __restrict__ parity,
               uint32_t* __restrict__ partials, uint32_t* __restrict__ flags,
               int k, int m, int w, uint32_t word_offset, int ntiles,
-              int tiles_per_block, const GfPlan plan) {
+              int tiles_per_block, const GfPlan plan,
+              const uint32_t* __restrict__ amat) {
   __shared__ uint32_t s[(KB + MB) * 8];
+  __shared__ uint32_t in_s[MXU ? KB * kInStride : 1];
+  __shared__ uint32_t out_s[MXU ? MB * kTile : 1];
   const int b = blockIdx.y;
   const int n = k + m;
   const int tid = threadIdx.x;
   for (int i = tid; i < n * 8; i += kThreads) s[i] = 0;
   __syncthreads();
+  uint32_t af[MB];
+  if constexpr (MXU) load_frags<MB>(amat, af);
 
   uint32_t h1[KB + MB], h2[KB + MB];
 #pragma unroll
@@ -139,16 +255,28 @@ encode_kernel(const uint32_t* __restrict__ data, uint32_t* __restrict__ parity,
       if (c < k) {
         uint32_t p = valid ? in[(size_t)c * w + col] : 0u;
         if (valid) hash_word(p, key, h1[c], h2[c]);
+        if constexpr (MXU) {
+          in_s[c * kInStride + tid] = p;
+        } else {
 #pragma unroll
-        for (int bit = 0; bit < 8; ++bit) {
-          if (bit >= plan.nb[c]) break;
-          const uint32_t msk = plan.rm[c * 8 + bit];
+          for (int bit = 0; bit < 8; ++bit) {
+            if (bit >= plan.nb[c]) break;
+            const uint32_t msk = plan.rm[c * 8 + bit];
 #pragma unroll
-          for (int r = 0; r < MB; ++r)
-            if ((msk >> r) & 1u) acc[r] ^= p;
-          p = xtime(p);
+            for (int r = 0; r < MB; ++r)
+              if ((msk >> r) & 1u) acc[r] ^= p;
+            p = xtime(p);
+          }
         }
       }
+    }
+    if constexpr (MXU) {
+      __syncthreads();
+      mxu_tile<MB>(in_s, kInStride, k, out_s, m, af);
+      __syncthreads();
+#pragma unroll
+      for (int r = 0; r < MB; ++r)
+        if (r < m) acc[r] = out_s[r * kTile + tid];
     }
 #pragma unroll
     for (int r = 0; r < MB; ++r) {
@@ -245,7 +373,8 @@ __global__ void finalize_kernel(uint32_t* __restrict__ part, int count,
 // K2 phash256_batched: replaces hash.phash256_words_batched (X1, which the
 // JAX package leaves to XLA) on the healthy-GET verify.
 //
-// Bound: bytes (each word is read once; the digest is 32 bytes a row).
+// Bound: operations (the hash on the integer pipe takes longer than
+// reading each word once; the digest is 32 bytes a row).
 // Design: block (tile-run, row), one thread per column, the same
 // hash_word and block fold as encode_pack, one atomicXor per block per
 // partition word, then the finalize launch.
@@ -278,8 +407,9 @@ phash_kernel(const uint32_t* __restrict__ words, uint32_t* __restrict__ partials
 // GfPlan, whose row[] picks the s input rows straight out of the
 // (B, R, w) shard batch - no gather copy of the survivors.
 //
-// Bound: bytes (s rows in + o rows out per stripe: 10 MiB + 10 MiB at
-// EC 8+4 with all k data rows rebuilt).
+// Bound: operations (the xtime chain on the integer pipe takes longer
+// than s rows in + o rows out per stripe: 10 MiB + 10 MiB at EC 8+4 with
+// all k data rows rebuilt).
 // Design: one thread per column, the xtime chain of each input word in a
 // register, o <= OB accumulators in registers.
 // --------------------------------------------------------------------------
@@ -321,8 +451,9 @@ gf_matmul_kernel(const uint32_t* __restrict__ in, uint32_t* __restrict__ out,
 // w) shard batch is hashed and, when it is one of the k chosen
 // survivors, multiplied into the k rebuilt data rows, in the same pass.
 //
-// Bound: bytes (each present row read once, k rows + n digests written:
-// at EC 8+4 with 8 present rows, 10 MiB in + 10 MiB out per stripe).
+// Bound: operations when rows are missing (the hash and the xtime chain
+// on the integer pipe take longer than each present row read once, k
+// rows + n digests written); bytes when all are present (identity).
 // Design: one thread per column, the K1/K2 hash leg with one (h1, h2)
 // register pair per row (NB rows, templated), the K3 xtime chain with
 // OB register accumulators.  The plan is indexed by shard row: the
@@ -332,20 +463,28 @@ gf_matmul_kernel(const uint32_t* __restrict__ in, uint32_t* __restrict__ out,
 // in ``present`` are neither read nor hashed; their partials stay zero.
 // That differs from the TPU kernel, which hashes absent rows' garbage
 // too: the caller's ok mask is False for them whatever their digest.
+// The mxu instantiation stages the first k present rows (the survivors, in
+// row order) in shared memory and multiplies them by the (k, k)
+// reconstruction matrix in mxu_tile, as P5 does under mxu.
 // --------------------------------------------------------------------------
 
-template <int NB, int OB>
+template <int NB, int OB, bool MXU>
 __global__ void __launch_bounds__(kThreads)
 verify_reconstruct_kernel(const uint32_t* __restrict__ shards,
                           uint32_t* __restrict__ data,
                           uint32_t* __restrict__ partials, int n, int k,
                           int w, uint32_t present, uint32_t word_offset,
-                          int ntiles, int tiles_per_block, const GfPlan plan) {
+                          int ntiles, int tiles_per_block, const GfPlan plan,
+                          const uint32_t* __restrict__ amat) {
   __shared__ uint32_t s[NB * 8];
+  __shared__ uint32_t in_s[MXU ? OB * kInStride : 1];
+  __shared__ uint32_t out_s[MXU ? OB * kTile : 1];
   const int b = blockIdx.y;
   const int tid = threadIdx.x;
   for (int i = tid; i < n * 8; i += kThreads) s[i] = 0;
   __syncthreads();
+  uint32_t af[OB];
+  if constexpr (MXU) load_frags<OB>(amat, af);
 
   uint32_t h1[NB], h2[NB];
 #pragma unroll
@@ -363,21 +502,35 @@ verify_reconstruct_kernel(const uint32_t* __restrict__ shards,
     uint32_t acc[OB];
 #pragma unroll
     for (int o = 0; o < OB; ++o) acc[o] = 0;
+    [[maybe_unused]] int j = 0;  // rank of shard row r among the present rows
 #pragma unroll
     for (int r = 0; r < NB; ++r) {
       if (r < n && ((present >> r) & 1u)) {
         uint32_t p = valid ? in[(size_t)r * w + col] : 0u;
         if (valid) hash_word(p, key, h1[r], h2[r]);
+        if constexpr (MXU) {
+          if (j < k) in_s[j * kInStride + tid] = p;
+          ++j;
+        } else {
 #pragma unroll
-        for (int bit = 0; bit < 8; ++bit) {
-          if (bit >= plan.nb[r]) break;
-          const uint32_t msk = plan.rm[r * 8 + bit];
+          for (int bit = 0; bit < 8; ++bit) {
+            if (bit >= plan.nb[r]) break;
+            const uint32_t msk = plan.rm[r * 8 + bit];
 #pragma unroll
-          for (int o = 0; o < OB; ++o)
-            if ((msk >> o) & 1u) acc[o] ^= p;
-          p = xtime(p);
+            for (int o = 0; o < OB; ++o)
+              if ((msk >> o) & 1u) acc[o] ^= p;
+            p = xtime(p);
+          }
         }
       }
+    }
+    if constexpr (MXU) {
+      __syncthreads();
+      mxu_tile<OB>(in_s, kInStride, k, out_s, k, af);
+      __syncthreads();
+#pragma unroll
+      for (int o = 0; o < OB; ++o)
+        if (o < k) acc[o] = out_s[o * kTile + tid];
     }
     if (valid) {
 #pragma unroll
@@ -426,8 +579,8 @@ verify_reconstruct_kernel(const uint32_t* __restrict__ shards,
 //   so no finalize launch follows.  K5's pack leg stays K1's second
 //   launch (pack_kernel), which writes the full-row `packed`: the prefix
 //   P6 promises, zeros behind it.
-// Bound: bytes, as K1/K4 (each input row read once, outputs written
-// once).
+// Bound: as K1/K4 (each input row read once, outputs written once; the
+// integer pipe's work takes longer).
 // --------------------------------------------------------------------------
 
 constexpr int kStages = 3;                 // ring depth: 2 tiles in flight
@@ -490,9 +643,10 @@ __device__ __forceinline__ void finalize_if_last(uint32_t* partials, int count,
 // --------------------------------------------------------------------------
 // K5 encode_pack_pipelined: replaces rs_pallas.encode_pack_pipelined (P6).
 // P4's function (K1's outputs, bit for bit) on the pipelined design above.
+// The mxu instantiation runs mxu_tile straight on the ring slot.
 // --------------------------------------------------------------------------
 
-template <int KB, int MB>
+template <int KB, int MB, bool MXU>
 __global__ void __launch_bounds__(kThreads, kPipeBlocksPerSM)
 encode_pipelined_kernel(const uint32_t* __restrict__ data,
                         uint32_t* __restrict__ parity,
@@ -500,16 +654,19 @@ encode_pipelined_kernel(const uint32_t* __restrict__ data,
                         uint32_t* __restrict__ flags,
                         unsigned int* __restrict__ ticket, int k, int m, int w,
                         int ntiles, int tiles_per_block, uint32_t nbytes,
-                        const GfPlan plan) {
+                        const GfPlan plan, const uint32_t* __restrict__ amat) {
   extern __shared__ __align__(16) uint32_t ring[];  // kStages x k x kTile
   __shared__ uint32_t s[(KB + MB) * 8];
   __shared__ uint8_t s_row[kMaxRows];
+  __shared__ uint32_t out_s[MXU ? MB * kTile : 1];
   const int b = blockIdx.y;
   const int n = k + m;
   const int tid = threadIdx.x;
   for (int i = tid; i < n * 8; i += kThreads) s[i] = 0;
   if (tid < k) s_row[tid] = (uint8_t)tid;
   __syncthreads();
+  uint32_t af[MB];
+  if constexpr (MXU) load_frags<MB>(amat, af);
 
   const uint32_t* in = data + (size_t)b * k * w;
   uint32_t* out = parity + (size_t)b * m * w;
@@ -549,16 +706,25 @@ encode_pipelined_kernel(const uint32_t* __restrict__ data,
       if (c < k) {
         uint32_t p = cur[c * kTile + tid];
         if (valid) hash_word(p, key, h1[c], h2[c]);
+        if constexpr (!MXU) {
 #pragma unroll
-        for (int bit = 0; bit < 8; ++bit) {
-          if (bit >= plan.nb[c]) break;
-          const uint32_t msk = plan.rm[c * 8 + bit];
+          for (int bit = 0; bit < 8; ++bit) {
+            if (bit >= plan.nb[c]) break;
+            const uint32_t msk = plan.rm[c * 8 + bit];
 #pragma unroll
-          for (int r = 0; r < MB; ++r)
-            if ((msk >> r) & 1u) acc[r] ^= p;
-          p = xtime(p);
+            for (int r = 0; r < MB; ++r)
+              if ((msk >> r) & 1u) acc[r] ^= p;
+            p = xtime(p);
+          }
         }
       }
+    }
+    if constexpr (MXU) {
+      mxu_tile<MB>(cur, kTile, k, out_s, m, af);
+      __syncthreads();
+#pragma unroll
+      for (int r = 0; r < MB; ++r)
+        if (r < m) acc[r] = out_s[r * kTile + tid];
     }
 #pragma unroll
     for (int r = 0; r < MB; ++r) {
@@ -593,10 +759,11 @@ encode_pipelined_kernel(const uint32_t* __restrict__ data,
 // rs_pallas.verify_reconstruct_pipelined (P7).  K4's function and plan
 // (indexed by shard row, absent rows neither read nor hashed) on the
 // pipelined design above; the ring holds only the np present rows, in
-// row order (plan.row lists them).
+// row order (plan.row lists them).  Its first k slots are the survivors,
+// which the mxu instantiation multiplies in place with mxu_tile.
 // --------------------------------------------------------------------------
 
-template <int NB, int OB>
+template <int NB, int OB, bool MXU>
 __global__ void __launch_bounds__(kThreads, kPipeBlocksPerSM)
 verify_reconstruct_pipelined_kernel(const uint32_t* __restrict__ shards,
                                     uint32_t* __restrict__ data,
@@ -604,15 +771,19 @@ verify_reconstruct_pipelined_kernel(const uint32_t* __restrict__ shards,
                                     unsigned int* __restrict__ ticket, int n,
                                     int k, int w, uint32_t present, int np,
                                     int ntiles, int tiles_per_block,
-                                    uint32_t nbytes, const GfPlan plan) {
+                                    uint32_t nbytes, const GfPlan plan,
+                                    const uint32_t* __restrict__ amat) {
   extern __shared__ __align__(16) uint32_t ring[];  // kStages x np x kTile
   __shared__ uint32_t s[NB * 8];
   __shared__ uint8_t s_row[kMaxRows];
+  __shared__ uint32_t out_s[MXU ? OB * kTile : 1];
   const int b = blockIdx.y;
   const int tid = threadIdx.x;
   for (int i = tid; i < n * 8; i += kThreads) s[i] = 0;
   if (tid < np) s_row[tid] = plan.row[tid];
   __syncthreads();
+  uint32_t af[OB];
+  if constexpr (MXU) load_frags<OB>(amat, af);
 
   const uint32_t* in = shards + (size_t)b * n * w;
   uint32_t* out = data + (size_t)b * k * w;
@@ -652,16 +823,25 @@ verify_reconstruct_pipelined_kernel(const uint32_t* __restrict__ shards,
         uint32_t p = cur[j * kTile + tid];
         ++j;
         if (valid) hash_word(p, key, h1[r], h2[r]);
+        if constexpr (!MXU) {
 #pragma unroll
-        for (int bit = 0; bit < 8; ++bit) {
-          if (bit >= plan.nb[r]) break;
-          const uint32_t msk = plan.rm[r * 8 + bit];
+          for (int bit = 0; bit < 8; ++bit) {
+            if (bit >= plan.nb[r]) break;
+            const uint32_t msk = plan.rm[r * 8 + bit];
 #pragma unroll
-          for (int o = 0; o < OB; ++o)
-            if ((msk >> o) & 1u) acc[o] ^= p;
-          p = xtime(p);
+            for (int o = 0; o < OB; ++o)
+              if ((msk >> o) & 1u) acc[o] ^= p;
+            p = xtime(p);
+          }
         }
       }
+    }
+    if constexpr (MXU) {
+      mxu_tile<OB>(cur, kTile, k, out_s, k, af);
+      __syncthreads();
+#pragma unroll
+      for (int o = 0; o < OB; ++o)
+        if (o < k) acc[o] = out_s[o * kTile + tid];
     }
     if (valid) {
 #pragma unroll
@@ -678,6 +858,58 @@ verify_reconstruct_pipelined_kernel(const uint32_t* __restrict__ shards,
   for (int i = tid; i < n * 8; i += kThreads)
     if (s[i]) atomicXor(&partials[(size_t)b * n * 8 + i], s[i]);
   finalize_if_last(partials, (int)gridDim.y * n * 8, nbytes, ticket);
+}
+
+// --------------------------------------------------------------------------
+// K7 gf_matmul_mxu: replaces rs_pallas.gf_matmul_mxu (P3): a runtime (o, s)
+// GF(2^8) matrix over (s, length) bytes through mxu_tile.  P3 pads the rows
+// to 8,192-byte tiles; here a block takes 1,024 bytes of every row (256
+// words of 4 byte columns) and masks the ragged end on load and store.
+//
+// Bound: bytes at the codec's shapes (s rows read, o rows written once);
+// the product's bit pairs on the tensor cores take less, and mxu_tile's
+// permutes and repack are the design's own cost above the bound.
+// Design: each thread loads one 4-byte word of every input row (one u32
+// load when the rows are 4-byte aligned, single bytes otherwise), mxu_tile
+// forms the o output words, and the thread stores its column of them.
+// --------------------------------------------------------------------------
+
+__device__ __forceinline__ uint32_t load_word(const uint8_t* row, size_t off,
+                                              size_t length, bool aligned) {
+  if (aligned && off + 4 <= length)
+    return *reinterpret_cast<const uint32_t*>(row + off);
+  uint32_t v = 0;
+  for (int j = 0; j < 4; ++j)
+    if (off + j < length) v |= (uint32_t)row[off + j] << (8 * j);
+  return v;
+}
+
+template <int MB>
+__global__ void __launch_bounds__(kThreads)
+gf_matmul_mxu_kernel(const uint8_t* __restrict__ in, uint8_t* __restrict__ out,
+                     int o, int s, size_t length, bool aligned,
+                     const uint32_t* __restrict__ amat) {
+  __shared__ uint32_t in_s[kMaxRows * kInStride];
+  __shared__ uint32_t out_s[MB * kTile];
+  const int tid = threadIdx.x;
+  uint32_t af[MB];
+  load_frags<MB>(amat, af);
+  const size_t off = ((size_t)blockIdx.x * kTile + tid) * 4;  // first byte
+  for (int c = 0; c < s; ++c)
+    in_s[c * kInStride + tid] = load_word(in + (size_t)c * length, off, length, aligned);
+  __syncthreads();
+  mxu_tile<MB>(in_s, kInStride, s, out_s, o, af);
+  __syncthreads();
+  for (int r = 0; r < o; ++r) {
+    const uint32_t v = out_s[r * kTile + tid];
+    uint8_t* row = out + (size_t)r * length;
+    if (aligned && off + 4 <= length) {
+      *reinterpret_cast<uint32_t*>(row + off) = v;
+    } else {
+      for (int j = 0; j < 4; ++j)
+        if (off + j < length) row[off + j] = (uint8_t)(v >> (8 * j));
+    }
+  }
 }
 
 int bucket(int v) { return v <= 4 ? 4 : (v <= 8 ? 8 : 16); }
@@ -700,41 +932,65 @@ GfPlan make_plan(const uint16_t* rm, const uint8_t* nb, const uint8_t* row) {
   return p;
 }
 
+// amat == nullptr launches the swar instantiation, else the mxu one.
 template <int KB, int MB>
 void launch_encode(dim3 grid, cudaStream_t st, const uint32_t* data,
                    uint32_t* parity, uint32_t* partials, uint32_t* flags,
                    int k, int m, int w, uint32_t word_offset, int ntiles,
-                   int tpb, const GfPlan& plan) {
-  encode_kernel<KB, MB><<<grid, kThreads, 0, st>>>(
-      data, parity, partials, flags, k, m, w, word_offset, ntiles, tpb, plan);
+                   int tpb, const GfPlan& plan, const uint32_t* amat) {
+  if (amat)
+    encode_kernel<KB, MB, true><<<grid, kThreads, 0, st>>>(
+        data, parity, partials, flags, k, m, w, word_offset, ntiles, tpb, plan,
+        amat);
+  else
+    encode_kernel<KB, MB, false><<<grid, kThreads, 0, st>>>(
+        data, parity, partials, flags, k, m, w, word_offset, ntiles, tpb, plan,
+        amat);
 }
 
-template <int KB, int MB>
+template <int NB, int OB>
+void launch_vr(dim3 grid, cudaStream_t st, const uint32_t* shards,
+               uint32_t* data, uint32_t* partials, int n, int k, int w,
+               uint32_t present, uint32_t word_offset, int ntiles, int tpb,
+               const GfPlan& plan, const uint32_t* amat) {
+  if (amat)
+    verify_reconstruct_kernel<NB, OB, true><<<grid, kThreads, 0, st>>>(
+        shards, data, partials, n, k, w, present, word_offset, ntiles, tpb,
+        plan, amat);
+  else
+    verify_reconstruct_kernel<NB, OB, false><<<grid, kThreads, 0, st>>>(
+        shards, data, partials, n, k, w, present, word_offset, ntiles, tpb,
+        plan, amat);
+}
+
+template <int KB, int MB, bool MXU>
 cudaError_t launch_encode_pipelined(dim3 grid, size_t smem, cudaStream_t st,
                                     const uint32_t* data, uint32_t* parity,
                                     uint32_t* partials, uint32_t* flags,
                                     unsigned int* ticket, int k, int m, int w,
                                     int ntiles, int tpb, uint32_t nbytes,
-                                    const GfPlan& plan) {
-  cudaError_t err = prepare_smem(encode_pipelined_kernel<KB, MB>, smem);
+                                    const GfPlan& plan, const uint32_t* amat) {
+  cudaError_t err = prepare_smem(encode_pipelined_kernel<KB, MB, MXU>, smem);
   if (err != cudaSuccess) return err;
-  encode_pipelined_kernel<KB, MB><<<grid, kThreads, smem, st>>>(
-      data, parity, partials, flags, ticket, k, m, w, ntiles, tpb, nbytes, plan);
+  encode_pipelined_kernel<KB, MB, MXU><<<grid, kThreads, smem, st>>>(
+      data, parity, partials, flags, ticket, k, m, w, ntiles, tpb, nbytes, plan,
+      amat);
   return cudaGetLastError();
 }
 
-template <int NB, int OB>
+template <int NB, int OB, bool MXU>
 cudaError_t launch_vr_pipelined(dim3 grid, size_t smem, cudaStream_t st,
                                 const uint32_t* shards, uint32_t* data,
                                 uint32_t* partials, unsigned int* ticket, int n,
                                 int k, int w, uint32_t present, int np,
                                 int ntiles, int tpb, uint32_t nbytes,
-                                const GfPlan& plan) {
-  cudaError_t err = prepare_smem(verify_reconstruct_pipelined_kernel<NB, OB>, smem);
+                                const GfPlan& plan, const uint32_t* amat) {
+  cudaError_t err =
+      prepare_smem(verify_reconstruct_pipelined_kernel<NB, OB, MXU>, smem);
   if (err != cudaSuccess) return err;
-  verify_reconstruct_pipelined_kernel<NB, OB><<<grid, kThreads, smem, st>>>(
+  verify_reconstruct_pipelined_kernel<NB, OB, MXU><<<grid, kThreads, smem, st>>>(
       shards, data, partials, ticket, n, k, w, present, np, ntiles, tpb, nbytes,
-      plan);
+      plan, amat);
   return cudaGetLastError();
 }
 
@@ -747,13 +1003,14 @@ extern "C" {
 // taken at c + word_offset, and with group == 256: flags (B, m, w/256)
 // 0/1 and packed (B, m, w).  With finalize != 0 the partials are then
 // finalized in place (zeroed on entry: the digests); with finalize == 0
-// they stay raw for the next sub-chunk.  Returns the first non-zero
-// cudaGetLastError().
+// they stay raw for the next sub-chunk.  A non-null `amat` (the m x k
+// parity matrix in kernels.mxu_fragments order) selects the mxu product.
+// Returns the first non-zero cudaGetLastError().
 int mtt_encode_pack(int device, const uint32_t* data, uint32_t* parity, uint32_t* partials,
                     uint32_t* flags, uint32_t* packed, int B, int k, int m,
                     int w, int group, uint32_t nbytes, uint32_t word_offset,
                     int finalize, int tiles_per_block, const uint16_t* rm,
-                    const uint8_t* nb, void* stream) {
+                    const uint8_t* nb, const uint32_t* amat, void* stream) {
   if (k < 1 || k > kMaxRows || m < 0 || m > kMaxRows || w <= 0 ||
       tiles_per_block < 1 || B <= 0 || B > 65535 || word_offset % 4 != 0 ||
       (group != 0 && (group != kTile || w % kTile != 0)))
@@ -769,7 +1026,7 @@ int mtt_encode_pack(int device, const uint32_t* data, uint32_t* parity, uint32_t
 #define MTT_ENC(KB_, MB_)                                                   \
   if (kb == KB_ && mb == MB_)                                               \
     launch_encode<KB_, MB_>(grid, st, data, parity, partials, fl, k, m, w, \
-                            word_offset, ntiles, tiles_per_block, plan);
+                            word_offset, ntiles, tiles_per_block, plan, amat);
   MTT_ENC(4, 4) MTT_ENC(4, 8) MTT_ENC(4, 16)
   MTT_ENC(8, 4) MTT_ENC(8, 8) MTT_ENC(8, 16)
   MTT_ENC(16, 4) MTT_ENC(16, 8) MTT_ENC(16, 16)
@@ -794,12 +1051,13 @@ int mtt_encode_pack(int device, const uint32_t* data, uint32_t* parity, uint32_t
 // launch plus, with group == 256, the pack launch.  `partials` and the
 // one-word `ticket` arrive zeroed; tiles_per_block comes from the
 // wrapper's persistent-grid choice.  Takes m >= 1 and w % 4 == 0, with
-// 16-byte aligned rows.
+// 16-byte aligned rows; a non-null `amat` selects the mxu product.
 int mtt_encode_pack_pipelined(int device, const uint32_t* data, uint32_t* parity,
                               uint32_t* partials, uint32_t* flags, uint32_t* packed,
                               unsigned int* ticket, int B, int k, int m, int w,
                               int group, uint32_t nbytes, int tiles_per_block,
-                              const uint16_t* rm, const uint8_t* nb, void* stream) {
+                              const uint16_t* rm, const uint8_t* nb,
+                              const uint32_t* amat, void* stream) {
   if (k < 1 || k > kMaxRows || m < 1 || m > kMaxRows || w <= 0 || w % 4 != 0 ||
       tiles_per_block < 1 || B <= 0 || B > 65535 ||
       ((uintptr_t)data & 15u) != 0 ||
@@ -815,12 +1073,14 @@ int mtt_encode_pack_pipelined(int device, const uint32_t* data, uint32_t* parity
   uint32_t* fl = group ? flags : nullptr;
   const int kb = bucket(k), mb = bucket(m);
   err = cudaErrorInvalidValue;
-#define MTT_ENCP(KB_, MB_)                                                    \
-  if (kb == KB_ && mb == MB_)                                                 \
-    err = launch_encode_pipelined<KB_, MB_>(grid, smem, st, data, parity,     \
-                                            partials, fl, ticket, k, m, w,    \
-                                            ntiles, tiles_per_block, nbytes,  \
-                                            plan);
+#define MTT_ENCP(KB_, MB_)                                                     \
+  if (kb == KB_ && mb == MB_)                                                  \
+    err = amat ? launch_encode_pipelined<KB_, MB_, true>(                      \
+                     grid, smem, st, data, parity, partials, fl, ticket, k, m, \
+                     w, ntiles, tiles_per_block, nbytes, plan, amat)           \
+               : launch_encode_pipelined<KB_, MB_, false>(                     \
+                     grid, smem, st, data, parity, partials, fl, ticket, k, m, \
+                     w, ntiles, tiles_per_block, nbytes, plan, amat);
   MTT_ENCP(4, 4) MTT_ENCP(4, 8) MTT_ENCP(4, 16)
   MTT_ENCP(8, 4) MTT_ENCP(8, 8) MTT_ENCP(8, 16)
   MTT_ENCP(16, 4) MTT_ENCP(16, 8) MTT_ENCP(16, 16)
@@ -882,13 +1142,15 @@ int mtt_gf_matmul(int device, const uint32_t* in, uint32_t* out, int B, int rows
 // present rows XORed into `partials` (B, n, 8) with the hash key of
 // column c taken at c + word_offset.  With finalize != 0 they are then
 // finalized in place (zeroed on entry: the digests; absent rows get the
-// finalize of zero partials).
+// finalize of zero partials).  A non-null `amat` (the k x k reconstruction
+// matrix over the first k present rows) selects the mxu product.
 int mtt_verify_reconstruct(int device, const uint32_t* shards, uint32_t* data,
                            uint32_t* partials, int B, int n, int k, int w,
                            uint32_t present, uint32_t nbytes,
                            uint32_t word_offset, int finalize,
                            int tiles_per_block, const uint16_t* rm,
-                           const uint8_t* nb, void* stream) {
+                           const uint8_t* nb, const uint32_t* amat,
+                           void* stream) {
   if (n < 1 || n > kMaxRows || k < 1 || k > n || w <= 0 ||
       tiles_per_block < 1 || B <= 0 || B > 65535 || (present >> n) != 0u ||
       word_offset % 4 != 0)
@@ -900,11 +1162,10 @@ int mtt_verify_reconstruct(int device, const uint32_t* shards, uint32_t* data,
   const int ntiles = (w + kTile - 1) / kTile;
   dim3 grid((ntiles + tiles_per_block - 1) / tiles_per_block, B);
   const int nbk = bucket(n), ob = bucket(k);
-#define MTT_VR(NB_, OB_)                                                     \
-  if (nbk == NB_ && ob == OB_)                                               \
-    verify_reconstruct_kernel<NB_, OB_><<<grid, kThreads, 0, st>>>(          \
-        shards, data, partials, n, k, w, present, word_offset, ntiles,       \
-        tiles_per_block, plan);
+#define MTT_VR(NB_, OB_)                                                  \
+  if (nbk == NB_ && ob == OB_)                                            \
+    launch_vr<NB_, OB_>(grid, st, shards, data, partials, n, k, w, present, \
+                        word_offset, ntiles, tiles_per_block, plan, amat);
   MTT_VR(4, 4)
   MTT_VR(8, 4) MTT_VR(8, 8)
   MTT_VR(16, 4) MTT_VR(16, 8) MTT_VR(16, 16)
@@ -921,14 +1182,14 @@ int mtt_verify_reconstruct(int device, const uint32_t* shards, uint32_t* data,
 // K6: mtt_verify_reconstruct's outputs (finalize always on) from one
 // pipelined launch.  `row` lists the np present rows in order;
 // `partials` and the one-word `ticket` arrive zeroed.  Takes w % 4 == 0
-// with 16-byte aligned rows.
+// with 16-byte aligned rows; a non-null `amat` selects the mxu product.
 int mtt_verify_reconstruct_pipelined(int device, const uint32_t* shards,
                                      uint32_t* data, uint32_t* partials,
                                      unsigned int* ticket, int B, int n, int k,
                                      int w, uint32_t present, uint32_t nbytes,
                                      int tiles_per_block, const uint16_t* rm,
                                      const uint8_t* nb, const uint8_t* row,
-                                     void* stream) {
+                                     const uint32_t* amat, void* stream) {
   const int np = __builtin_popcount(present);
   if (n < 1 || n > kMaxRows || k < 1 || k > np || w <= 0 || w % 4 != 0 ||
       tiles_per_block < 1 || B <= 0 || B > 65535 || (present >> n) != 0u ||
@@ -945,15 +1206,40 @@ int mtt_verify_reconstruct_pipelined(int device, const uint32_t* shards,
   err = cudaErrorInvalidValue;
 #define MTT_VRP(NB_, OB_)                                                    \
   if (nbk == NB_ && ob == OB_)                                               \
-    err = launch_vr_pipelined<NB_, OB_>(grid, smem, st, shards, data,        \
-                                        partials, ticket, n, k, w, present,  \
-                                        np, ntiles, tiles_per_block, nbytes, \
-                                        plan);
+    err = amat ? launch_vr_pipelined<NB_, OB_, true>(                        \
+                     grid, smem, st, shards, data, partials, ticket, n, k, w, \
+                     present, np, ntiles, tiles_per_block, nbytes, plan, amat) \
+               : launch_vr_pipelined<NB_, OB_, false>(                       \
+                     grid, smem, st, shards, data, partials, ticket, n, k, w, \
+                     present, np, ntiles, tiles_per_block, nbytes, plan, amat);
   MTT_VRP(4, 4)
   MTT_VRP(8, 4) MTT_VRP(8, 8)
   MTT_VRP(16, 4) MTT_VRP(16, 8) MTT_VRP(16, 16)
 #undef MTT_VRP
   return (int)err;
+}
+
+// K7: (o, s) matrix in kernels.mxu_fragments order (`amat`) @ (s, length)
+// bytes -> (o, length) bytes, rows `length` bytes apart, any length.
+int mtt_gf_matmul_mxu(int device, const uint8_t* in, uint8_t* out, int o, int s,
+                      int length, const uint32_t* amat, void* stream) {
+  if (o < 1 || o > kMaxRows || s < 1 || s > kMaxRows || length <= 0 ||
+      amat == nullptr)
+    return (int)cudaErrorInvalidValue;
+  cudaError_t err = cudaSetDevice(device);
+  if (err != cudaSuccess) return (int)err;
+  cudaStream_t st = (cudaStream_t)stream;
+  const bool aligned = length % 4 == 0 && ((uintptr_t)in & 3u) == 0 &&
+                       ((uintptr_t)out & 3u) == 0;
+  const dim3 grid((unsigned)(((size_t)length + 4 * kTile - 1) / (4 * kTile)));
+  const int ob = bucket(o);
+  if (ob == 4)
+    gf_matmul_mxu_kernel<4><<<grid, kThreads, 0, st>>>(in, out, o, s, (size_t)length, aligned, amat);
+  else if (ob == 8)
+    gf_matmul_mxu_kernel<8><<<grid, kThreads, 0, st>>>(in, out, o, s, (size_t)length, aligned, amat);
+  else
+    gf_matmul_mxu_kernel<16><<<grid, kThreads, 0, st>>>(in, out, o, s, (size_t)length, aligned, amat);
+  return (int)cudaGetLastError();
 }
 
 }  // extern "C"

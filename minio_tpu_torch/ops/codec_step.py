@@ -18,7 +18,8 @@ Every step dispatches on its tensor's device through the kernel
 wrappers of ops/kernels.py: the hand-written CUDA kernel on the card,
 the plain PyTorch version on the CPU.  MINIO_TPU_CODEC_OVERLAP picks the
 kernel of the PUT and heal passes, or splits them into sub-chunks
-(codec_overlap_mode).
+(codec_overlap_mode); MINIO_TPU_CODEC_FORMULATION picks the GF(2^8)
+product inside those two passes (codec_formulation).
 """
 
 from __future__ import annotations
@@ -28,7 +29,7 @@ import os
 import numpy as np
 import torch
 
-from . import gf, kernels
+from . import gf, kernels, rs
 
 
 def host_bytes_to_words(a: np.ndarray) -> np.ndarray:
@@ -76,14 +77,16 @@ def codec_kernel_mode() -> str:
 
 
 def codec_formulation() -> str:
-    """MINIO_TPU_CODEC_FORMULATION: only ``swar`` (the default) is ported."""
+    """MINIO_TPU_CODEC_FORMULATION: ``swar`` (default) or ``mxu``.
+
+    Picks the GF(2^8) product inside the PUT pass (encode_words_fused1)
+    and heal's read pass (verify_and_reconstruct_words): the xtime chain
+    or the tensor-core product of the lifted GF(2) bit matrix (ops/rs.py
+    module doc).  Both are bit-exact.  Heal's re-encode, the degraded-GET
+    reconstruct and the async sub-chunk chain take no formulation, as in
+    the JAX package.  Unknown values resolve to ``swar``."""
     v = os.environ.get("MINIO_TPU_CODEC_FORMULATION", "swar").strip().lower()
-    if v == "mxu":
-        raise NotImplementedError(
-            "MINIO_TPU_CODEC_FORMULATION=mxu (gf_matmul_mxu, a tensor-core "
-            "GF(2) product) is ported in slice 4"
-        )
-    return "swar"
+    return v if v in rs.FORMULATIONS else "swar"
 
 
 def codec_overlap_mode(device=None) -> str:
@@ -118,7 +121,7 @@ def codec_overlap_mode(device=None) -> str:
 
 def encode_words_fused1(
     words: torch.Tensor, parity_shards: int, shard_len: int, group: int = 0,
-    pipeline: bool = False,
+    pipeline: bool = False, formulation: str = "swar",
 ):
     """PUT codec step: parity + digests + occupancy + pack in one pass.
 
@@ -129,6 +132,7 @@ def encode_words_fused1(
     eagerly; parity/flags/packed stay device-resident until drain.
     ``pipeline`` runs encode_pack_pipelined (K5) instead of encode_pack
     (K1), except at m == 0, which K1 serves as in the JAX package.
+    ``formulation`` (``swar`` | ``mxu``) picks the kernel's product.
     """
     batch, k, w = words.shape
     if shard_len != 4 * w:
@@ -142,7 +146,9 @@ def encode_words_fused1(
         if pipeline and parity_shards > 0
         else kernels.encode_pack
     )
-    parity, digests, flags, packed = enc(words, parity_shards, shard_len, group)
+    parity, digests, flags, packed = enc(
+        words, parity_shards, shard_len, group, formulation
+    )
     return parity, digests, flags != 0, packed
 
 
@@ -173,6 +179,7 @@ def verify_and_reconstruct_words(
     parity_shards: int,
     shard_len: int,
     pipeline: bool = False,
+    formulation: str = "swar",
 ):
     """Heal codec step: digest-verify + reconstruct in ONE pass.
 
@@ -182,7 +189,8 @@ def verify_and_reconstruct_words(
     = digest match AND present).  The caller rechecks ok over its chosen
     survivors and re-solves the stripes where one was corrupt (backend
     reconstruct_and_verify escalation).  ``pipeline`` runs
-    verify_reconstruct_pipelined (K6) instead of verify_reconstruct (K4)."""
+    verify_reconstruct_pipelined (K6) instead of verify_reconstruct (K4);
+    ``formulation`` (``swar`` | ``mxu``) picks the kernel's product."""
     k = data_shards
     n = shards.shape[1]
     if n != k + parity_shards:
@@ -194,7 +202,7 @@ def verify_and_reconstruct_words(
         if pipeline
         else kernels.verify_reconstruct
     )
-    data, got = vr(shards, present, k, shard_len)
+    data, got = vr(shards, present, k, shard_len, formulation)
     return data, _ok_mask(got, digests, present)
 
 

@@ -1,6 +1,6 @@
 """The codec's CUDA kernels: build, binding, and the dispatching wrappers.
 
-Six kernels, all in ``csrc/codec.cu`` (CUDA C++ for ``sm_90a``):
+Seven kernels, all in ``csrc/codec.cu`` (CUDA C++ for ``sm_90a``):
 
 * ``encode_pack`` (K1) replaces ``rs_pallas.encode_pack_fused`` (P4):
   parity + phash256 partials of all n rows + per-256-word occupancy
@@ -25,6 +25,17 @@ Six kernels, all in ``csrc/codec.cu`` (CUDA C++ for ``sm_90a``):
   ``rs_pallas.verify_reconstruct_pipelined`` (P7): K1's and K4's
   functions on a persistent grid that stages tiles into a shared-memory
   ring with ``cp.async`` and finalizes in its last block.
+* ``gf_matmul_mxu`` (K7) replaces ``rs_pallas.gf_matmul_mxu`` (P3): a
+  runtime (o, s) GF(2^8) matrix over (s, length) uint8 shards through a
+  1-bit tensor-core product of the lifted (8o, 8s) GF(2) matrix.
+
+``formulation="mxu"`` (MINIO_TPU_CODEC_FORMULATION) on K1, K4, K5 and K6
+swaps their xtime chain for the same tensor-core product (the ``mxu``
+instantiations), as ``_mxu_rows`` replaces ``_swar_rows`` inside P4-P7;
+everything around the product is unchanged, so their outputs are bit for
+bit the ``swar`` ones.  The lifted matrix reaches the kernel as a small
+device tensor in the product's operand order (``_mxu_operand``), cached
+per matrix and device.
 
 Build: ``nvcc -gencode arch=compute_90a,code=sm_90a -O3 -shared`` into
 ``minio_tpu_torch/build/`` at first use, keyed by a hash of the sources
@@ -39,8 +50,9 @@ launch (non-zero ``cudaGetLastError()``) or a wrong device, dtype, shape
 or layout never falls back.  ``LAUNCHES`` counts kernel launches per
 wrapper (never plain runs): ``encode_pack[group=0]`` counts the K1
 launches without the pack leg among ``encode_pack``'s, and the two
-``[subchunk]`` names count the sub-chunk forms, which ``encode_pack``
-and ``verify_reconstruct`` do not; ``reset_launches`` zeroes it.
+``[subchunk]`` names count the sub-chunk forms and the four ``[mxu]``
+names the ``mxu`` instantiations, which the base names do not;
+``reset_launches`` zeroes it.
 """
 
 from __future__ import annotations
@@ -79,7 +91,9 @@ LAUNCHES = {
     "encode_pack": 0, "encode_pack[group=0]": 0, "encode_pack[subchunk]": 0,
     "phash256_batched": 0, "gf_matmul_words": 0, "verify_reconstruct": 0,
     "verify_reconstruct[subchunk]": 0, "encode_pack_pipelined": 0,
-    "verify_reconstruct_pipelined": 0,
+    "verify_reconstruct_pipelined": 0, "gf_matmul_mxu": 0,
+    "encode_pack[mxu]": 0, "verify_reconstruct[mxu]": 0,
+    "encode_pack_pipelined[mxu]": 0, "verify_reconstruct_pipelined[mxu]": 0,
 }
 _count_lk = threading.Lock()
 
@@ -151,24 +165,28 @@ def _load():
         if _lib is None:
             lib = ctypes.CDLL(str(build()))
             P, I, U = ctypes.c_void_p, ctypes.c_int, ctypes.c_uint32
+            # the pointer before the stream of the four codec passes is
+            # the mxu operand (None: the swar instantiation)
             lib.mtt_encode_pack.argtypes = [
-                I, P, P, P, P, P, I, I, I, I, I, U, U, I, I, P, P, P,
+                I, P, P, P, P, P, I, I, I, I, I, U, U, I, I, P, P, P, P,
             ]
             lib.mtt_encode_pack_pipelined.argtypes = [
-                I, P, P, P, P, P, P, I, I, I, I, I, U, I, P, P, P,
+                I, P, P, P, P, P, P, I, I, I, I, I, U, I, P, P, P, P,
             ]
             lib.mtt_phash256.argtypes = [I, P, P, I, I, U, I, P]
             lib.mtt_gf_matmul.argtypes = [I, P, P, I, I, I, I, I, P, P, P, P]
             lib.mtt_verify_reconstruct.argtypes = [
-                I, P, P, P, I, I, I, I, U, U, U, I, I, P, P, P,
+                I, P, P, P, I, I, I, I, U, U, U, I, I, P, P, P, P,
             ]
             lib.mtt_verify_reconstruct_pipelined.argtypes = [
-                I, P, P, P, P, I, I, I, I, U, U, I, P, P, P, P,
+                I, P, P, P, P, I, I, I, I, U, U, I, P, P, P, P, P,
             ]
+            lib.mtt_gf_matmul_mxu.argtypes = [I, P, P, I, I, I, P, P]
             for fn in (lib.mtt_encode_pack, lib.mtt_encode_pack_pipelined,
                        lib.mtt_phash256, lib.mtt_gf_matmul,
                        lib.mtt_verify_reconstruct,
-                       lib.mtt_verify_reconstruct_pipelined):
+                       lib.mtt_verify_reconstruct_pipelined,
+                       lib.mtt_gf_matmul_mxu):
                 fn.restype = ctypes.c_int
             _lib = lib
         return _lib
@@ -260,6 +278,42 @@ def _matrix_plan(matrix: np.ndarray, rows: "tuple[int, ...]"):
     return _plan(m.tobytes(), m.shape[0], m.shape[1], tuple(rows))
 
 
+def mxu_fragments(matrix: np.ndarray) -> np.ndarray:
+    """The lifted (8o, 8s) bit matrix of ``matrix`` (rs.bit_matrix) in the
+    A-operand order of the kernels' ``mma.m16n8k128`` on 1-bit values:
+    (8 m-tiles, 32 lanes, 2) uint32.  M-tile t covers output rows 2t and
+    2t + 1; lane = tig + 4 g holds in word 0 the row for bit g % 4 of
+    output row 2t + g // 4 and in word 1 the row for bit g % 4 + 4, each
+    over the inputs' bits k in [32 tig, 32 tig + 32) (bit i: k = 32 tig +
+    i, so input row 4 tig + i // 8, bit i % 8).  Rows and inputs past
+    (o, s) are zero, up to 16 x 16."""
+    o, s = matrix.shape
+    full = np.zeros((8 * _MAX_ROWS, 8 * _MAX_ROWS), dtype=np.uint8)
+    full[: 8 * o, : 8 * s] = rs.bit_matrix(matrix)
+    packed = np.packbits(full, axis=1, bitorder="little").view("<u4")
+    lane = np.arange(32)
+    g, tig = lane >> 2, lane & 3
+    row = 8 * (2 * np.arange(_MAX_ROWS // 2)[:, None] + (g >> 2)) + (g & 3)
+    return np.stack([packed[row, tig], packed[row + 4, tig]], axis=-1).astype(
+        np.uint32
+    )
+
+
+@functools.lru_cache(maxsize=64)
+def _mxu_tensor(matrix_key: bytes, o: int, s: int, device: str) -> torch.Tensor:
+    matrix = np.frombuffer(matrix_key, dtype=np.uint8).reshape(o, s)
+    frags = np.ascontiguousarray(mxu_fragments(matrix)).view(np.int32)
+    return torch.from_numpy(frags).to(device)
+
+
+def _mxu_operand(matrix: np.ndarray, device: torch.device) -> torch.Tensor:
+    """mxu_fragments(matrix) as a device tensor, made once per matrix and
+    device (the kernels read it from global memory: at 16 rows the
+    operand is 2 KiB, the kernel parameters already hold the GfPlan)."""
+    m = np.ascontiguousarray(matrix, dtype=np.uint8)
+    return _mxu_tensor(m.tobytes(), m.shape[0], m.shape[1], str(device))
+
+
 # ---------------------------------------------------------------------------
 # K1 encode_pack
 # ---------------------------------------------------------------------------
@@ -286,10 +340,12 @@ def _flags_and_pack(parity: torch.Tensor, group: int):
 
 
 def encode_pack_plain(words: torch.Tensor, parity_shards: int,
-                      shard_len: int, group: int = 0):
+                      shard_len: int, group: int = 0,
+                      formulation: str = "swar"):
     """Plain version of encode_pack (any device): the portable path of
-    codec_step.encode_words_fused1 in the JAX package."""
-    parity = rs.encode_words(words, parity_shards)
+    codec_step.encode_words_fused1 in the JAX package, with the product
+    of ``formulation``."""
+    parity = rs.encode_words(words, parity_shards, formulation)
     digests = phash.phash256_words_batched(
         torch.cat([words, parity], dim=1), shard_len
     )
@@ -303,19 +359,25 @@ def _check_group(group: int, w: int) -> None:
 
 
 def encode_pack(words: torch.Tensor, parity_shards: int, shard_len: int,
-                group: int = 0):
+                group: int = 0, formulation: str = "swar"):
     """(B, k, w) data words -> (parity (B, m, w), digests (B, k+m, 8)
     finalized, flags (B, m, w//group) 0/1, packed (B, m, w)), all int32.
     group == 0 disables the pack leg (flags has g == 0, packed is
-    parity); otherwise group must be 256 and divide w."""
+    parity); otherwise group must be 256 and divide w.  ``formulation``
+    picks the product (``swar`` or ``mxu``); the outputs are the same."""
     B, k, w = words.shape
     m = parity_shards
     _check_group(group, w)
+    rs.check_formulation(formulation)
     if words.device.type == "cpu":
-        return encode_pack_plain(words, m, shard_len, group)
+        return encode_pack_plain(words, m, shard_len, group, formulation)
     _require_cuda(words, "encode_pack", 3)
     digests = torch.zeros((B, k + m, 8), dtype=torch.int32, device=words.device)
-    out = _launch_encode_pack(words, digests, 0, m, shard_len, group, True)
+    out = _launch_encode_pack(words, digests, 0, m, shard_len, group, True,
+                              formulation)
+    if formulation == "mxu":
+        _count("encode_pack[mxu]")
+        return out
     _count("encode_pack")
     if not group:
         _count("encode_pack[group=0]")
@@ -323,7 +385,7 @@ def encode_pack(words: torch.Tensor, parity_shards: int, shard_len: int,
 
 
 def _launch_encode_pack(words, partials, word_offset, m, shard_len, group,
-                        finalize):
+                        finalize, formulation="swar"):
     """K1 on checked CUDA words, XORing into ``partials``."""
     B, k, w = words.shape
     if not (1 <= k <= _MAX_ROWS and 0 <= m <= _MAX_ROWS):
@@ -334,13 +396,16 @@ def _launch_encode_pack(words, partials, word_offset, m, shard_len, group,
     g = w // TILE if group else 0
     flags = torch.empty((B, m, g), dtype=torch.int32, device=dev)
     packed = torch.empty_like(parity) if group else parity
-    rm, nb, _row = _matrix_plan(gf.parity_matrix(k, m), ())
+    pm = gf.parity_matrix(k, m)
+    rm, nb, _row = _matrix_plan(pm, ())
+    amat = _mxu_operand(pm, dev).data_ptr() if formulation == "mxu" else None
     ntiles = -(-w // TILE)
     rc = lib.mtt_encode_pack(
         dev.index or 0, words.data_ptr(), parity.data_ptr(),
         partials.data_ptr(), flags.data_ptr(), packed.data_ptr(),
         B, k, m, w, group, shard_len & 0xFFFFFFFF, word_offset & 0xFFFFFFFF,
-        int(finalize), _tiles_per_block(ntiles, B), rm, nb, _stream(words),
+        int(finalize), _tiles_per_block(ntiles, B), rm, nb, amat,
+        _stream(words),
     )
     _check_rc(rc, "encode_pack")
     return parity, partials, flags, packed
@@ -397,26 +462,31 @@ def encode_pack_subchunk(chunk: torch.Tensor, acc: torch.Tensor,
 
 
 def encode_pack_pipelined_plain(words: torch.Tensor, parity_shards: int,
-                                shard_len: int, group: int = 0):
+                                shard_len: int, group: int = 0,
+                                formulation: str = "swar"):
     """Plain version of encode_pack_pipelined: P6 computes P4's
     function, so this is encode_pack_plain."""
-    return encode_pack_plain(words, parity_shards, shard_len, group)
+    return encode_pack_plain(words, parity_shards, shard_len, group,
+                             formulation)
 
 
 def encode_pack_pipelined(words: torch.Tensor, parity_shards: int,
-                          shard_len: int, group: int = 0):
+                          shard_len: int, group: int = 0,
+                          formulation: str = "swar"):
     """K5: encode_pack's outputs, bit for bit, from the pipelined kernel
     (persistent grid, cp.async tile ring, last-block finalize).  Needs
     parity_shards >= 1, as P6 does, and w % 4 == 0."""
     B, k, w = words.shape
     m = parity_shards
     _check_group(group, w)
+    rs.check_formulation(formulation)
     if m < 1:
         raise ValueError("encode_pack_pipelined needs parity_shards >= 1")
     if w % 4:
         raise ValueError(f"word count {w} must be a multiple of 4")
     if words.device.type == "cpu":
-        return encode_pack_pipelined_plain(words, m, shard_len, group)
+        return encode_pack_pipelined_plain(words, m, shard_len, group,
+                                           formulation)
     _require_cuda(words, "encode_pack_pipelined", 3)
     _require_aligned(words, "encode_pack_pipelined")
     if not (1 <= k <= _MAX_ROWS and m <= _MAX_ROWS):
@@ -431,16 +501,19 @@ def encode_pack_pipelined(words: torch.Tensor, parity_shards: int,
     g = w // TILE if group else 0
     flags = torch.empty((B, m, g), dtype=torch.int32, device=dev)
     packed = torch.empty_like(parity) if group else parity
-    rm, nb, _row = _matrix_plan(gf.parity_matrix(k, m), ())
+    pm = gf.parity_matrix(k, m)
+    rm, nb, _row = _matrix_plan(pm, ())
+    amat = _mxu_operand(pm, dev).data_ptr() if formulation == "mxu" else None
     tpb, _per_stripe = pipelined_grid(B, w, sm_count(dev))
     rc = lib.mtt_encode_pack_pipelined(
         dev.index or 0, words.data_ptr(), parity.data_ptr(),
         digests.data_ptr(), flags.data_ptr(), packed.data_ptr(),
         acc[-1:].data_ptr(), B, k, m, w, group, shard_len & 0xFFFFFFFF, tpb,
-        rm, nb, _stream(words),
+        rm, nb, amat, _stream(words),
     )
     _check_rc(rc, "encode_pack_pipelined")
-    _count("encode_pack_pipelined")
+    _count("encode_pack_pipelined[mxu]" if formulation == "mxu"
+           else "encode_pack_pipelined")
     return parity, digests, flags, packed
 
 
@@ -519,16 +592,18 @@ def _survivors(present: "tuple[bool, ...]", k: int) -> "tuple[int, ...]":
 
 
 def verify_reconstruct_plain(shards: torch.Tensor, present: "tuple[bool, ...]",
-                             data_shards: int, shard_len: int):
+                             data_shards: int, shard_len: int,
+                             formulation: str = "swar"):
     """Plain version of verify_reconstruct (any device): the portable path
     of codec_step.verify_and_reconstruct_words in the JAX package, with
-    the partials of absent rows zeroed as the kernel leaves them."""
+    the partials of absent rows zeroed as the kernel leaves them and the
+    product of ``formulation``."""
     acc = torch.zeros(
         (shards.shape[0], shards.shape[1], 8), dtype=torch.int32,
         device=shards.device,
     )
     return verify_reconstruct_subchunk_plain(
-        shards, acc, 0, present, data_shards, shard_len, True
+        shards, acc, 0, present, data_shards, shard_len, True, formulation
     )
 
 
@@ -536,7 +611,8 @@ def verify_reconstruct_subchunk_plain(chunk: torch.Tensor, acc: torch.Tensor,
                                       word_offset: int,
                                       present: "tuple[bool, ...]",
                                       data_shards: int, shard_len: int,
-                                      finalize: bool = False):
+                                      finalize: bool = False,
+                                      formulation: str = "swar"):
     """Plain version of verify_reconstruct_subchunk (any device): the
     function of codec_step.verify_reconstruct_subchunk_words in the JAX
     package, with ``acc`` updated in place and absent rows unhashed."""
@@ -544,7 +620,7 @@ def verify_reconstruct_subchunk_plain(chunk: torch.Tensor, acc: torch.Tensor,
     k = data_shards
     idx = _survivors(present, k)
     data = rs.gf_matmul_words(
-        gf.reconstruction_matrix(k, n - k, idx), chunk, idx
+        gf.reconstruction_matrix(k, n - k, idx), chunk, idx, formulation
     )
     mask = torch.tensor(present, dtype=torch.bool, device=chunk.device)
     acc ^= torch.where(mask[:, None], phash.tile_partials(chunk, word_offset), 0)
@@ -577,30 +653,45 @@ def _vr_plan(present: "tuple[bool, ...]", k: int):
 
 
 def verify_reconstruct(shards: torch.Tensor, present: "tuple[bool, ...]",
-                       data_shards: int, shard_len: int):
+                       data_shards: int, shard_len: int,
+                       formulation: str = "swar"):
     """(B, n, w) shard words as read + the present-row mask -> (data
     (B, k, w) rebuilt from the first k present rows, digests (B, n, 8)
     finalized), int32.  Only the digests of present rows are the rows'
-    phash256; an absent row is neither read nor hashed."""
+    phash256; an absent row is neither read nor hashed.  ``formulation``
+    picks the product (``swar`` or ``mxu``); the outputs are the same."""
     B, n, _w = shards.shape
     k = data_shards
     _check_vr(shards, present, k)
+    rs.check_formulation(formulation)
     if shards.device.type == "cpu":
-        return verify_reconstruct_plain(shards, present, k, shard_len)
+        return verify_reconstruct_plain(shards, present, k, shard_len,
+                                        formulation)
     _require_cuda(shards, "verify_reconstruct", 3)
     digests = torch.zeros((B, n, 8), dtype=torch.int32, device=shards.device)
     out = _launch_verify_reconstruct(shards, digests, 0, present, k,
-                                     shard_len, True)
-    _count("verify_reconstruct")
+                                     shard_len, True, formulation)
+    _count("verify_reconstruct[mxu]" if formulation == "mxu"
+           else "verify_reconstruct")
     return out
 
 
+def _mxu_vr_operand(present: "tuple[bool, ...]", k: int, device):
+    """K4/K6's mxu operand: the (k, k) reconstruction matrix over the
+    first k present rows, as P5/P7 lift it."""
+    idx = _survivors(present, k)
+    rmat = gf.reconstruction_matrix(k, len(present) - k, idx)
+    return _mxu_operand(rmat, device).data_ptr()
+
+
 def _launch_verify_reconstruct(shards, partials, word_offset, present, k,
-                               shard_len, finalize):
+                               shard_len, finalize, formulation="swar"):
     """K4 on checked CUDA shards, XORing into ``partials``."""
     B, n, w = shards.shape
     rm, nb, _row, mask = _vr_plan(tuple(present), k)
     dev = shards.device
+    amat = (_mxu_vr_operand(tuple(present), k, dev)
+            if formulation == "mxu" else None)
     data = torch.empty((B, k, w), dtype=torch.int32, device=dev)
     if B == 0:
         return data, partials
@@ -609,7 +700,7 @@ def _launch_verify_reconstruct(shards, partials, word_offset, present, k,
         dev.index or 0, shards.data_ptr(), data.data_ptr(),
         partials.data_ptr(), B, n, k, w, mask, shard_len & 0xFFFFFFFF,
         word_offset & 0xFFFFFFFF, int(finalize), _tiles_per_block(ntiles, B),
-        rm, nb, _stream(shards),
+        rm, nb, amat, _stream(shards),
     )
     _check_rc(rc, "verify_reconstruct")
     return data, partials
@@ -651,27 +742,34 @@ def verify_reconstruct_subchunk(chunk: torch.Tensor, acc: torch.Tensor,
 
 def verify_reconstruct_pipelined_plain(shards: torch.Tensor,
                                        present: "tuple[bool, ...]",
-                                       data_shards: int, shard_len: int):
+                                       data_shards: int, shard_len: int,
+                                       formulation: str = "swar"):
     """Plain version of verify_reconstruct_pipelined: P7 computes P5's
     function, so this is verify_reconstruct_plain."""
-    return verify_reconstruct_plain(shards, present, data_shards, shard_len)
+    return verify_reconstruct_plain(shards, present, data_shards, shard_len,
+                                    formulation)
 
 
 def verify_reconstruct_pipelined(shards: torch.Tensor,
                                  present: "tuple[bool, ...]",
-                                 data_shards: int, shard_len: int):
+                                 data_shards: int, shard_len: int,
+                                 formulation: str = "swar"):
     """K6: verify_reconstruct's outputs, bit for bit, from the pipelined
     kernel (persistent grid, cp.async ring of the present rows,
     last-block finalize)."""
     B, n, w = shards.shape
     k = data_shards
     _check_vr(shards, present, k)
+    rs.check_formulation(formulation)
     if shards.device.type == "cpu":
-        return verify_reconstruct_pipelined_plain(shards, present, k, shard_len)
+        return verify_reconstruct_pipelined_plain(shards, present, k,
+                                                  shard_len, formulation)
     _require_cuda(shards, "verify_reconstruct_pipelined", 3)
     _require_aligned(shards, "verify_reconstruct_pipelined")
     rm, nb, row, mask = _vr_plan(tuple(present), k)
     dev = shards.device
+    amat = (_mxu_vr_operand(tuple(present), k, dev)
+            if formulation == "mxu" else None)
     data = torch.empty((B, k, w), dtype=torch.int32, device=dev)
     acc = torch.zeros(B * n * 8 + 1, dtype=torch.int32, device=dev)
     digests = acc[:-1].view(B, n, 8)
@@ -681,8 +779,49 @@ def verify_reconstruct_pipelined(shards: torch.Tensor,
     rc = _load().mtt_verify_reconstruct_pipelined(
         dev.index or 0, shards.data_ptr(), data.data_ptr(),
         digests.data_ptr(), acc[-1:].data_ptr(), B, n, k, w, mask,
-        shard_len & 0xFFFFFFFF, tpb, rm, nb, row, _stream(shards),
+        shard_len & 0xFFFFFFFF, tpb, rm, nb, row, amat, _stream(shards),
     )
     _check_rc(rc, "verify_reconstruct_pipelined")
-    _count("verify_reconstruct_pipelined")
+    _count("verify_reconstruct_pipelined[mxu]" if formulation == "mxu"
+           else "verify_reconstruct_pipelined")
     return data, digests
+
+
+# ---------------------------------------------------------------------------
+# K7 gf_matmul_mxu
+# ---------------------------------------------------------------------------
+
+
+def gf_matmul_mxu(matrix: np.ndarray, shards: torch.Tensor) -> torch.Tensor:
+    """(o, s) GF matrix @ (s, length) uint8 shards -> (o, length) uint8
+    through the tensor-core product of the lifted bit matrix (K7); any
+    length.  The plain version is rs.gf_matmul_mxu_plain."""
+    o, s = matrix.shape
+    if shards.dim() != 2 or shards.shape[0] != s:
+        raise ValueError(
+            f"matrix wants ({s}, length) shards, got {tuple(shards.shape)}"
+        )
+    if shards.device.type == "cpu":
+        return rs.gf_matmul_mxu_plain(matrix, shards)
+    if shards.device.type != "cuda":
+        raise ValueError(f"gf_matmul_mxu: expected a CUDA tensor, got {shards.device}")
+    if shards.dtype != torch.uint8:
+        raise TypeError(f"gf_matmul_mxu: expected uint8 shards, got {shards.dtype}")
+    if not shards.is_contiguous():
+        raise ValueError("gf_matmul_mxu: expected a contiguous tensor")
+    if not (1 <= o <= _MAX_ROWS and 1 <= s <= _MAX_ROWS):
+        raise ValueError(f"gf_matmul_mxu supports o, s <= {_MAX_ROWS}")
+    length = shards.shape[1]
+    if length >= 1 << 31:
+        raise ValueError("gf_matmul_mxu: rows of at most 2^31 - 1 bytes")
+    dev = shards.device
+    out = torch.empty((o, length), dtype=torch.uint8, device=dev)
+    if length == 0:
+        return out
+    rc = _load().mtt_gf_matmul_mxu(
+        dev.index or 0, shards.data_ptr(), out.data_ptr(), o, s, length,
+        _mxu_operand(matrix, dev).data_ptr(), _stream(shards),
+    )
+    _check_rc(rc, "gf_matmul_mxu")
+    _count("gf_matmul_mxu")
+    return out

@@ -287,11 +287,16 @@ def test_cpu_wrappers_run_plain_and_count_nothing():
     kernels.encode_pack_pipelined(words, 4, 2048, 256)
     kernels.verify_reconstruct_subchunk(words, acc[:, :8], 0, (True,) * 8, 6, 2048)
     kernels.verify_reconstruct_pipelined(words, (True,) * 8, 6, 2048)
+    kernels.encode_pack(words, 4, 2048, 256, formulation="mxu")
+    kernels.verify_reconstruct_pipelined(words, (True,) * 8, 6, 2048, "mxu")
+    kernels.gf_matmul_mxu(tgf.parity_matrix(8, 4), torch.zeros((8, 9), dtype=torch.uint8))
     assert set(kernels.LAUNCHES) == {
         "encode_pack", "encode_pack[group=0]", "encode_pack[subchunk]",
         "phash256_batched", "gf_matmul_words", "verify_reconstruct",
         "verify_reconstruct[subchunk]", "encode_pack_pipelined",
-        "verify_reconstruct_pipelined",
+        "verify_reconstruct_pipelined", "gf_matmul_mxu", "encode_pack[mxu]",
+        "verify_reconstruct[mxu]", "encode_pack_pipelined[mxu]",
+        "verify_reconstruct_pipelined[mxu]",
     }
     assert not any(kernels.LAUNCHES.values())
 
@@ -327,17 +332,20 @@ def test_kernel_module_builds_nothing_on_import():
     ],
 )
 def test_unported_codec_knobs_raise(monkeypatch, env, value):
-    """legacy and mxu still raise, naming their slice; the overlap modes
-    are ported: each resolves on either device and its PUT and heal
-    passes equal ``off``'s."""
+    """legacy still raises, naming its slice; the overlap modes and the
+    mxu formulation are ported: each resolves, and its PUT and heal
+    passes equal the default's."""
     monkeypatch.setenv(env, value)
-    if env != "MINIO_TPU_CODEC_OVERLAP":
+    if env == "MINIO_TPU_CODEC_KERNEL":
         with pytest.raises(NotImplementedError, match="slice"):
             tcs.codec_kernel_mode()
-            tcs.codec_formulation()
         return
-    assert tcs.codec_overlap_mode("cpu") == value
-    assert tcs.codec_overlap_mode("cuda") == value
+    if env == "MINIO_TPU_CODEC_FORMULATION":
+        assert tcs.codec_formulation() == "mxu"
+        assert tcs.codec_kernel_mode() == "fused1"
+    else:
+        assert tcs.codec_overlap_mode("cpu") == value
+        assert tcs.codec_overlap_mode("cuda") == value
     from minio_tpu_torch.codec.backend import TorchBackend
 
     monkeypatch.setenv("MINIO_TPU_CODEC_SUBCHUNK_KB", "1")
@@ -355,6 +363,7 @@ def test_unported_codec_knobs_raise(monkeypatch, env, value):
 
     got = run()
     monkeypatch.setenv("MINIO_TPU_CODEC_OVERLAP", "off")
+    monkeypatch.setenv("MINIO_TPU_CODEC_FORMULATION", "swar")
     want = run()
     for a, b in zip(got[:2] + got[2], want[:2] + want[2]):
         assert np.array_equal(a, b)
@@ -363,7 +372,8 @@ def test_unported_codec_knobs_raise(monkeypatch, env, value):
 
 def test_default_codec_knobs(monkeypatch):
     """Unset, the overlap mode follows the codec's device as the JAX
-    package follows its backend: pipeline on the card, off on the CPU."""
+    package follows its backend: pipeline on the card, off on the CPU.
+    An unknown formulation resolves to swar."""
     for env in (
         "MINIO_TPU_CODEC_KERNEL",
         "MINIO_TPU_CODEC_FORMULATION",
@@ -379,3 +389,7 @@ def test_default_codec_knobs(monkeypatch):
     assert tcs.codec_overlap_mode("cuda") == "pipeline"
     monkeypatch.setenv("MINIO_TPU_CODEC_OVERLAP", "off")
     assert tcs.codec_overlap_mode("cuda") == "off"
+    monkeypatch.setenv("MINIO_TPU_CODEC_FORMULATION", "bogus")
+    assert tcs.codec_formulation() == "swar"  # as the JAX package resolves it
+    monkeypatch.setenv("MINIO_TPU_CODEC_FORMULATION", " MXU ")
+    assert tcs.codec_formulation() == "mxu"
