@@ -2,8 +2,12 @@
 """Smoke run of the PyTorch/CUDA port (minio_tpu_torch) on one NVIDIA GPU.
 
     python3 chip_smoke.py            # from the repository root
+    python3 chip_smoke.py --parent DIR   # and K2/K6 beside an older copy
 
-1. Builds the CUDA kernels from ``minio_tpu_torch/csrc`` with nvcc.
+1. Builds the CUDA kernels from ``minio_tpu_torch/csrc`` with nvcc (and
+   those of ``--parent``'s copy at the same time), and prints each
+   kernel's registers and spills and the static SASS of K2 and K6
+   (``sass_loops``).
 2. Holds each kernel bit-exactly against its plain PyTorch version on the
    card, at the main path's shapes (EC 8+4, 10 MiB blocks: 327,680 words
    per shard) and at ragged ones, and times kernel, plain version and the
@@ -19,7 +23,15 @@
    whole-row pass and against their plain chains.  The mxu formulation
    too: K7 gf_matmul_mxu and the ``mxu`` instantiations of K1, K4, K5
    and K6 against their plain versions and their swar twins, at the main
-   path's and heal's shapes and at ragged ones.
+   path's and heal's shapes and at ragged ones.  K2 also at row counts
+   off its 4-row group, widths off its 1,024-word tile and an unaligned
+   view; K6 and K6 ``mxu`` also against their plain versions and K4 for
+   every EC 8+4 survivor pattern with 0-4 rows absent.  Beside each
+   kernel's back-to-back event time (``ms``): its device time from a
+   replayed CUDA graph, the host's time per wrapper call and its L2-cold
+   time (``device_times``).  With ``--parent``, K2 and K6 of both copies
+   at the main path's shapes in turns parent, new, new, parent
+   (``compare_copies``).
 3. Drives the main path through the object layer under the default
    MINIO_TPU_CODEC_OVERLAP (unset: ``pipeline`` on the card): 12 temp-dir
    disks, EC 8+4, 10 MiB blocks; PUT four 64 MiB objects and one of
@@ -107,6 +119,68 @@ def cuda_ms(fn, reps: int, warmup: int = 2) -> float:
     return start.elapsed_time(end) / reps
 
 
+def device_times(fn, reps: int = 20) -> dict:
+    """Three times of a wrapper call beside cuda_ms's back-to-back events
+    (which measure the host when it enqueues slower than the device runs):
+
+    * ``device_ms``: ``reps`` calls captured in one CUDA graph and
+      replayed, per call (device time only, the zeroing memsets included;
+      a capture the wrapper does not allow fails the run);
+    * ``host_us``: the host's time per call (time.perf_counter around it,
+      no synchronisation; median of 100);
+    * ``cold_ms``: one call replayed from a graph right after 512 MiB were
+      written, so the 50 MB L2 holds none of its input (median of 9)."""
+    import statistics
+
+    import torch
+
+    fn()
+    torch.cuda.synchronize()
+    e0 = torch.cuda.Event(enable_timing=True)
+    e1 = torch.cuda.Event(enable_timing=True)
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        fn()
+    torch.cuda.current_stream().wait_stream(side)
+    torch.cuda.synchronize()
+    graph, one = torch.cuda.CUDAGraph(), torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        for _ in range(reps):
+            fn()
+    with torch.cuda.graph(one):
+        fn()
+    graph.replay()
+    torch.cuda.synchronize()
+    runs = []
+    for _ in range(3):
+        e0.record()
+        graph.replay()
+        e1.record()
+        torch.cuda.synchronize()
+        runs.append(e0.elapsed_time(e1) / reps)
+    host = []
+    for i in range(100):
+        t0 = time.perf_counter()
+        fn()
+        host.append(time.perf_counter() - t0)
+        if i % 20 == 19:
+            torch.cuda.synchronize()
+    torch.cuda.synchronize()
+    flush = torch.empty(512 << 20, dtype=torch.uint8, device="cuda")
+    cold = []
+    for _ in range(9):
+        flush.fill_(1)
+        e0.record()
+        one.replay()
+        e1.record()
+        torch.cuda.synchronize()
+        cold.append(e0.elapsed_time(e1))
+    return {"device_ms": statistics.median(runs),
+            "host_us": statistics.median(host) * 1e6,
+            "cold_ms": statistics.median(cold)}
+
+
 def bound(nbytes: float, ops: float, mma_ops: float = 0.0) -> "tuple[float, str]":
     """(ms, what binds): the larger of the bytes over the memory rate and
     the operations over their pipes' rates (integer ops, plus MMA ops at
@@ -144,14 +218,30 @@ def int_rate() -> dict:
 _MIX, _KEY, _HASH, _XTIME = 8, 10, 22, 6
 
 
+def product_rows(matrix):
+    """The rows of a GF product that take operations: a unit row (one
+    coefficient, 1) copies its input, whose bytes the bound counts."""
+    import numpy as np
+
+    m = np.asarray(matrix)
+    unit = (np.count_nonzero(m, axis=1) == 1) & (m.max(axis=1, initial=0) == 1)
+    return m[~unit]
+
+
 def gf_ops(matrix) -> int:
-    """Ops of one column of a GF product: the xtime chains plus one xor
-    per selected power."""
+    """Ops of one column of a GF product as the function needs them: none
+    for the rows that are copies (``product_rows``); for the others the
+    cheaper of an xtime chain per input up to its highest coefficient bit
+    and Horner's form per output row (acc = xtime(acc) ^ ..., one chain
+    per row up to its highest bit), plus one xor per set coefficient
+    bit."""
     from minio_tpu_torch.ops import rs
 
-    chain = sum(max(b - 1, 0) for b in rs.need_bits(matrix))
-    terms = sum(bin(int(v)).count("1") for v in matrix.reshape(-1))
-    return _XTIME * chain + terms
+    m = product_rows(matrix)
+    per_input = sum(max(b - 1, 0) for b in rs.need_bits(m))
+    per_output = sum(max(b - 1, 0) for b in rs.need_bits(m.T))
+    terms = sum(bin(int(v)).count("1") for v in m.reshape(-1))
+    return _XTIME * min(per_input, per_output) + terms
 
 
 def mxu_ops(o: int, s: int) -> int:
@@ -220,6 +310,47 @@ PATTERNS = {
 }
 
 
+def survivor_patterns(n: int, m: int):
+    """Every present mask of n rows with 0 .. m rows absent."""
+    import itertools
+
+    for lost in range(m + 1):
+        for gone in itertools.combinations(range(n), lost):
+            yield tuple(i not in gone for i in range(n))
+
+
+def vr_pattern_sweep(dev, rng, formulation: str) -> int:
+    """K6 (of ``formulation``) against its plain version and K4 (the same
+    formulation) for every EC 8+4 survivor pattern with 0-4 rows absent,
+    three of EC 12+4 and every one of EC 4+2, at w = 4,104 and B = 1, 2;
+    returns the max_abs_err (0)."""
+    import torch
+
+    from minio_tpu_torch.ops import kernels
+
+    err = 0
+    w = 4104
+    # every EC 8+4 pattern, then the other row buckets: EC 12+4 (16 rows
+    # staged, the widest ring) and EC 4+2
+    sets = [(K, N, list(survivor_patterns(N, M)))]
+    sets.append((12, 16, [(True,) * 16, tuple(i != 0 for i in range(16)),
+                          tuple(i not in (0, 5, 13, 15) for i in range(16))]))
+    sets.append((4, 6, list(survivor_patterns(6, 2))))
+    for k, n, patterns in sets:
+        for B in (1, 2):
+            x = rand_words(rng, (B, n, w), dev)
+            for pres in patterns:
+                got = kernels.verify_reconstruct_pipelined(x, pres, k, 4 * w, formulation)
+                k4 = kernels.verify_reconstruct(x, pres, k, 4 * w, formulation)
+                want = kernels.verify_reconstruct_pipelined_plain(x, pres, k, 4 * w)
+                e = same(got, want, k4)
+                if e:
+                    fail(f"verify_reconstruct_pipelined ({formulation}) differs from "
+                         f"its plain version or K4 at k={k}, B={B}, present={pres}")
+                err = max(err, e)
+    return err
+
+
 def check_kernels(dev, rng) -> dict:
     """Phase 2: each kernel against its plain version, then timings."""
     import numpy as np
@@ -272,11 +403,17 @@ def check_kernels(dev, rng) -> dict:
     results["encode_pack"] = dict(
         max_abs_err=err, ms=ms, plain_ms=plain_ms, bound_ms=bms,
         bound_by=by, shape=[B, K, W],
+        **device_times(lambda: kernels.encode_pack(x, M, 4 * W, 256)),
     )
 
     # --- K2 phash256_batched ---------------------------------------------
     err = 0
-    for R, w in [(32, W), (8, W), (3, 8), (12, 4104), (16, 131072)]:
+    # the main path's shapes, then row counts off the 4-row group and
+    # widths off the 1,024-word tile (and a view off 16-byte alignment)
+    cases = [(32, W), (8, W), (3, 8), (12, 4104), (16, 131072)] + [
+        (R, w) for R in (1, 3, 33) for w in (4, 8, 4104, 131076)
+    ]
+    for R, w in cases:
         x = rand_words(rng, (R, w), dev)
         got = kernels.phash256_batched(x, 4 * w)
         torch.cuda.synchronize()
@@ -285,6 +422,11 @@ def check_kernels(dev, rng) -> dict:
         if e or not torch.equal(got, want):
             fail(f"phash256_batched differs from its plain version at {R, w}")
         err = max(err, e)
+    x = rand_words(rng, (3 * 4104 + 1,), dev)[1:].view(3, 4104)  # 4-byte aligned
+    got = kernels.phash256_batched(x, 4 * 4104)
+    e = same((got,), (phash.phash256_words_batched(x, 4 * 4104),))
+    if e:
+        fail("phash256_batched differs from its plain version on an unaligned view")
     x = rand_words(rng, (5, 1000), dev)
     if not np.array_equal(
         kernels.phash256_batched(x, 4000).cpu().numpy().view(np.uint32),
@@ -295,11 +437,18 @@ def check_kernels(dev, rng) -> dict:
     x = rand_words(rng, (R, W), dev)
     ms = cuda_ms(lambda: kernels.phash256_batched(x, 4 * W), 20)
     plain_ms = cuda_ms(lambda: phash.phash256_words_batched(x, 4 * W), 3, 1)
-    bms, by = bound(4 * (R * W + R * 8), R * W * (_KEY + _HASH))
+    # the key depends only on the column: the function needs it once per
+    # column, not once per row (W * _KEY + R * W * _HASH)
+    bms, by = bound(4 * (R * W + R * 8), W * _KEY + R * W * _HASH)
     results["phash256_batched"] = dict(
         max_abs_err=err, ms=ms, plain_ms=plain_ms, bound_ms=bms,
         bound_by=by, shape=[R, W],
+        **device_times(lambda: kernels.phash256_batched(x, 4 * W)),
     )
+    # one row of 4 words: the launch's fixed chain
+    x = rand_words(rng, (1, 4), dev)
+    results["phash256_batched"]["one_quad"] = device_times(
+        lambda: kernels.phash256_batched(x, 16))
 
     # --- K3 gf_matmul_words ---------------------------------------------
     present = tuple(i not in (0, 2, 9, 11) for i in range(N))
@@ -329,6 +478,7 @@ def check_kernels(dev, rng) -> dict:
     results["gf_matmul_words"] = dict(
         max_abs_err=err, ms=ms, plain_ms=plain_ms, bound_ms=bms,
         bound_by=by, shape=[B, N, W],
+        **device_times(lambda: kernels.gf_matmul_words(rm, x, rows)),
     )
     return results
 
@@ -417,6 +567,9 @@ def check_heal_kernels(dev, rng) -> dict:
             ms=ms, plain_ms=plain_ms, bound_ms=bms, bound_by=by,
             shape=[B, N, W], present=live,
         )
+        if (pname, B) == ("data+parity missing", 1):
+            timings[f"{pname}, B={B}"].update(device_times(
+                lambda: kernels.verify_reconstruct(x, pres, K, 4 * W)))
     main = timings["data+parity missing, B=1"]
     results["verify_reconstruct"] = dict(max_abs_err=err, **main, timings=timings)
 
@@ -441,6 +594,7 @@ def check_heal_kernels(dev, rng) -> dict:
     results["encode_pack[group=0]"] = dict(
         max_abs_err=err, ms=ms, plain_ms=plain_ms, bound_ms=bms,
         bound_by=by, shape=[1, K, W],
+        **device_times(lambda: kernels.encode_pack(x, M, 4 * W, 0)),
     )
     return results
 
@@ -498,6 +652,9 @@ def check_overlap_kernels(dev, rng) -> dict:
             plain_ms=cuda_ms(lambda: kernels.encode_pack_pipelined_plain(x, M, 4 * W, group), 3, 1),
             bound_ms=bms, bound_by=by, shape=[B, K, W],
         )
+        if (B, group) == (4, 256):
+            timings[f"B={B}, group={group}"].update(device_times(
+                lambda: kernels.encode_pack_pipelined(x, M, 4 * W, group)))
     results["encode_pack_pipelined"] = dict(
         max_abs_err=err, **timings["B=4, group=256"], timings=timings
     )
@@ -514,6 +671,7 @@ def check_overlap_kernels(dev, rng) -> dict:
             if e:
                 fail(f"verify_reconstruct_pipelined differs from its plain version or K4 at {B, w}, {pname}")
             err = max(err, e)
+    err = max(err, vr_pattern_sweep(dev, rng, "swar"))
     timings = {}
     for pname, B in [("data+parity missing", 1), ("data+parity missing", 4),
                      ("all present", 1)]:
@@ -530,7 +688,14 @@ def check_overlap_kernels(dev, rng) -> dict:
             k4_ms=cuda_ms(lambda: kernels.verify_reconstruct(x, pres, K, 4 * W), 20),
             plain_ms=cuda_ms(lambda: kernels.verify_reconstruct_pipelined_plain(x, pres, K, 4 * W), 3, 1),
             bound_ms=bms, bound_by=by, shape=[B, N, W], present=live,
+            **device_times(lambda: kernels.verify_reconstruct_pipelined(x, pres, K, 4 * W)),
         )
+    # one block of one tile: the launch's fixed chain (memset, staging,
+    # fold, atomics, ticket, finalize) with next to no columns
+    x = rand_words(rng, (1, N, 4), dev)
+    pres = PATTERNS["data+parity missing"]
+    timings["data+parity missing, B=1, w=4"] = device_times(
+        lambda: kernels.verify_reconstruct_pipelined(x, pres, K, 16))
     results["verify_reconstruct_pipelined"] = dict(
         max_abs_err=err, **timings["data+parity missing, B=1"], timings=timings
     )
@@ -569,6 +734,7 @@ def check_overlap_kernels(dev, rng) -> dict:
         max_abs_err=err, ms=cuda_ms(lambda: enc_chain(kernels.encode_pack_subchunk), 20),
         plain_ms=cuda_ms(lambda: enc_chain(kernels.encode_pack_subchunk_plain), 3, 1),
         bound_ms=bms, bound_by=by, shape=[B, K, W], chunks=len(chunks),
+        **device_times(lambda: enc_chain(kernels.encode_pack_subchunk)),
     )
     err = 0
     for B, w, cw in [(1, W, CW), (4, W, CW), (1, W, CW - 768), (2, 4104, 1000)]:
@@ -602,6 +768,7 @@ def check_overlap_kernels(dev, rng) -> dict:
         max_abs_err=err, ms=cuda_ms(lambda: vr_chain(kernels.verify_reconstruct_subchunk), 20),
         plain_ms=cuda_ms(lambda: vr_chain(kernels.verify_reconstruct_subchunk_plain), 3, 1),
         bound_ms=bms, bound_by=by, shape=[B, N, W], present=live, chunks=len(chunks),
+        **device_times(lambda: vr_chain(kernels.verify_reconstruct_subchunk)),
     )
     return results
 
@@ -651,6 +818,7 @@ def check_mxu_kernels(dev, rng) -> dict:
         plain_ms=cuda_ms(lambda: rs.gf_matmul_mxu_plain(pm, sh), 3, 1),
         bound_ms=bms, bound_by=by, shape=[M, K, L],
         design_int_ops=L // 4 * mxu_design_ops(M, K),
+        **device_times(lambda: kernels.gf_matmul_mxu(pm, sh)),
     )
 
     # --- K1 and K5 [mxu] ----------------------------------------------------
@@ -687,6 +855,7 @@ def check_mxu_kernels(dev, rng) -> dict:
             plain_ms=cuda_ms(lambda: plain(x, M, 4 * W, 256, "mxu"), 3, 1),
             bound_ms=bms, bound_by=by, shape=[B, K, W],
             design_int_ops=B * W * mxu_design_ops(M, K),
+            **device_times(lambda: fn(x, M, 4 * W, 256, formulation="mxu")),
         )
 
     # --- K4 and K6 [mxu] ----------------------------------------------------
@@ -707,6 +876,8 @@ def check_mxu_kernels(dev, rng) -> dict:
                 if e:
                     fail(f"{name}[mxu] differs from its plain version or swar twin at {B, w}, {pname}")
                 err = max(err, e)
+        if name == "verify_reconstruct_pipelined":
+            err = max(err, vr_pattern_sweep(dev, rng, "mxu"))
         timings = {}
         for pname, B in [("data+parity missing", 1), ("data+parity missing", 4)]:
             pres = PATTERNS[pname]
@@ -715,9 +886,11 @@ def check_mxu_kernels(dev, rng) -> dict:
             live = sum(pres)
             nbytes = 4 * (B * live * W + B * K * W + B * N * 8)
             hash_ops = B * W * (_KEY + live * _HASH)
-            swar_ops = B * W * gf_ops(gf.reconstruction_matrix(K, M, rows))
-            bms, by = mxu_bound(nbytes, hash_ops, B * W * mxu_ops(K, K),
-                                bound(nbytes, hash_ops + swar_ops))
+            rm = gf.reconstruction_matrix(K, M, rows)
+            # the product the function needs: the rebuilt rows only
+            mma = B * W * mxu_ops(len(product_rows(rm)), K)
+            bms, by = mxu_bound(nbytes, hash_ops, mma,
+                                bound(nbytes, hash_ops + B * W * gf_ops(rm)))
             timings[f"{pname}, B={B}"] = dict(
                 ms=cuda_ms(lambda: fn(x, pres, K, 4 * W, formulation="mxu"), 20),
                 swar_ms=cuda_ms(lambda: fn(x, pres, K, 4 * W), 20),
@@ -725,6 +898,9 @@ def check_mxu_kernels(dev, rng) -> dict:
                 bound_ms=bms, bound_by=by, shape=[B, N, W], present=live,
                 design_int_ops=B * W * mxu_design_ops(K, K),
             )
+            if B == 1:
+                timings[f"{pname}, B={B}"].update(device_times(
+                    lambda: fn(x, pres, K, 4 * W, formulation="mxu")))
         results[f"{name}[mxu]"] = dict(
             max_abs_err=err, **timings["data+parity missing, B=1"], timings=timings
         )
@@ -1199,20 +1375,28 @@ _KERNEL_NAME = re.compile(
 )
 
 
+def kernel_label(mangled: str) -> str:
+    """A kernel's name with its template buckets in <> (swar or mxu for
+    the formulation), from its mangled name."""
+    m = _KERNEL_NAME.search(mangled)
+    if not m:
+        return mangled
+    name = m.group(1)
+    if m.group(2):
+        args = re.findall(r"L([ib])(\d+)E", m.group(2))
+        name += "<" + ",".join(
+            ("mxu" if v == "1" else "swar") if t == "b" else v for t, v in args
+        ) + ">"
+    return name
+
+
 def ptxas_summary(log: str) -> list:
     """One line per compiled kernel (template buckets in <>): registers,
     shared memory and spills from nvcc's -Xptxas -v output."""
     out, name, spill = [], "?", ""
     for line in log.splitlines():
         if "Compiling entry function" in line:
-            m = _KERNEL_NAME.search(line)
-            name = m.group(1) if m else line.split("'")[1]
-            if m and m.group(2):
-                args = re.findall(r"L([ib])(\d+)E", m.group(2))
-                name += "<" + ",".join(
-                    ("mxu" if v == "1" else "swar") if t == "b" else v
-                    for t, v in args
-                ) + ">"
+            name = kernel_label(line.split("'")[1])
         elif "spill" in line:
             spill = line.strip()
         elif "registers" in line:
@@ -1220,14 +1404,123 @@ def ptxas_summary(log: str) -> list:
     return out
 
 
-def main() -> int:
+_SASS_INSN = re.compile(r"^\s*/\*([0-9a-f]{4,})\*/\s+(\S.*?)\s*;")
+
+
+def sass_loops(lib, kernels_mod) -> dict:
+    """Static SASS of K2 and K6 (``cuobjdump -sass`` of the built library),
+    per instantiation: its instruction count and, for each loop (the span
+    of a backward branch), its size and the sizes of the pieces that the
+    branches inside it cut it into.  A thread walks one column (K6) or
+    column quad (K2) per pass of the tile loop, so its size is the static
+    instruction count per column or quad; a piece that a uniform branch
+    skips (a rebuilt row past the pattern's) does not run."""
+    tool = shutil.which("cuobjdump") or os.path.join(
+        os.path.dirname(kernels_mod._nvcc()), "cuobjdump")
+    proc = subprocess.run([tool, "-sass", str(lib)], capture_output=True,
+                          text=True, timeout=300)
+    if proc.returncode != 0:
+        fail(f"cuobjdump failed: {proc.stderr.strip()}")
+    out = {}
+    for body in proc.stdout.split("Function : ")[1:]:
+        name = kernel_label(body.split("\n", 1)[0].strip())
+        if not name.startswith(("phash_kernel", "verify_reconstruct_pipelined")):
+            continue
+        insns = []
+        for line in body.splitlines():
+            m = _SASS_INSN.match(line)
+            if m:
+                text = re.sub(r"^@!?U?P\w+\s+", "", m.group(2))
+                insns.append((int(m.group(1), 16), text))
+        loops = []
+        for addr, text in insns:
+            to = re.search(r"\b0x([0-9a-f]+)\b", text)
+            if text.startswith("BRA") and to and int(to.group(1), 16) <= addr:
+                span = [t for a, t in insns if int(to.group(1), 16) <= a <= addr]
+                pieces, n = [], 0
+                for t in span:
+                    n += 1
+                    if t.startswith("BRA"):
+                        pieces.append(n)
+                        n = 0
+                loops.append({"insns": len(span), "pieces": pieces + [n] * (n > 0)})
+        out[name] = {"insns": len(insns), "loops": loops}
+    return out
+
+
+def load_copy(path: str):
+    """The kernels module of another copy of the port: PATH holds an
+    ``__init__.py``, its ``ops/`` and its ``csrc/``, and builds its own
+    library into PATH/build."""
+    import importlib
+
+    parent, pkg = os.path.split(os.path.abspath(path))
+    sys.path.insert(0, parent)
+    try:
+        return importlib.import_module(f"{pkg}.ops.kernels")
+    finally:
+        sys.path.remove(parent)
+
+
+def compare_copies(dev, mods: dict, order: list) -> list:
+    """K2 and K6 of several copies of the port (``mods``: name -> kernels
+    module) in turns (``order``), at the main path's shapes: K2 at
+    (32, 327,680), K6 at heal's (1, 12, 327,680) swar and mxu, and with
+    all rows present.  Every result is first held bit for bit against the
+    plain version; then cuda_ms and device_times of each."""
+    import numpy as np
     import torch
 
+    from minio_tpu_torch.ops import hash as phash
+
+    heal, every = PATTERNS["data+parity missing"], PATTERNS["all present"]
+    rows = []
+    for turn, name in enumerate(order):
+        kern = mods[name]
+        rng = np.random.default_rng(SEED)
+        x2 = rand_words(rng, (4 * K, W), dev)
+        x6 = rand_words(rng, (1, N, W), dev)
+        cases = {
+            "K2 (32, 327680)": (lambda: kern.phash256_batched(x2, 4 * W),
+                                lambda: (phash.phash256_words_batched(x2, 4 * W),)),
+        }
+        for label, pres, form in (("heal swar", heal, "swar"), ("heal mxu", heal, "mxu"),
+                                  ("all present swar", every, "swar")):
+            cases[f"K6 {label} (1, 12, 327680)"] = (
+                lambda pres=pres, form=form: kern.verify_reconstruct_pipelined(
+                    x6, pres, K, 4 * W, formulation=form),
+                lambda pres=pres: kern.verify_reconstruct_pipelined_plain(
+                    x6, pres, K, 4 * W))
+        for label, (fn, plain) in cases.items():
+            got = fn()
+            got = got if isinstance(got, tuple) else (got,)
+            if same(got, plain()):
+                fail(f"{label} of copy {name} differs from its plain version")
+            rows.append({"turn": turn, "copy": name, "case": label,
+                         "events_ms": cuda_ms(fn, 20, 3), **device_times(fn)})
+        torch.cuda.synchronize()
+    return rows
+
+
+def main() -> int:
+    import argparse
+
+    import torch
+
+    ap = argparse.ArgumentParser(description=__doc__.split("\n", 1)[0])
+    ap.add_argument(
+        "--parent", metavar="DIR",
+        help="another copy of the port (DIR/__init__.py, DIR/ops, DIR/csrc): "
+             "build it too and time its K2 and K6 beside this checkout's, "
+             "in turns parent, new, new, parent")
+    args = ap.parse_args()
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is False", file=sys.stderr)
         return 2
     here = os.path.dirname(os.path.abspath(__file__))
     sys.path.insert(0, here)
+    from concurrent.futures import ThreadPoolExecutor
+
     from minio_tpu_torch.ops import kernels
 
     dev = torch.device("cuda", 0)
@@ -1235,12 +1528,19 @@ def main() -> int:
     # full float32 (exact either way: counts <= 128, 0/1 exact in TF32)
     torch.backends.cuda.matmul.allow_tf32 = False
     print(f"rates: {json.dumps(int_rate())}", flush=True)
+    copies = {"new": kernels}
+    if args.parent:
+        copies["parent"] = load_copy(args.parent)
     t0 = time.monotonic()
-    lib = kernels.build()
+    with ThreadPoolExecutor(len(copies)) as pool:  # one nvcc per copy, at once
+        libs = dict(zip(copies, pool.map(lambda m: m.build(), copies.values())))
     build_s = time.monotonic() - t0
-    print(f"build: {build_s:.2f} s -> {os.path.relpath(lib, here)}", flush=True)
-    for line in ptxas_summary(kernels.BUILD_INFO.get("log", "")):
-        print("  ptxas:", line)
+    for name, lib in libs.items():
+        print(f"build {name}: {build_s:.2f} s -> {os.path.relpath(lib, here)}",
+              flush=True)
+        for line in ptxas_summary(copies[name].BUILD_INFO.get("log", "")):
+            print("  ptxas:", line)
+        print(f"  sass: {json.dumps(sass_loops(lib, kernels))}", flush=True)
 
     import numpy as np
 
@@ -1251,6 +1551,9 @@ def main() -> int:
     kres.update(check_mxu_kernels(dev, rng))
     for name, r in kres.items():
         print(f"kernel {name}: {json.dumps(r)}", flush=True)
+    if args.parent:
+        for row in compare_copies(dev, copies, ["parent", "new", "new", "parent"]):
+            print(f"compare: {json.dumps(row)}", flush=True)
     xfer = transfer_ms(dev)
     print(f"transfers: {json.dumps(xfer)}", flush=True)
 
@@ -1293,6 +1596,8 @@ def main() -> int:
                 "bound_ms": kres[name]["bound_ms"],
                 "bound_by": kres[name]["bound_by"],
                 "library_ms": None,
+                **{key: kres[name][key] for key in ("device_ms", "host_us", "cold_ms")
+                   if key in kres[name]},
             }
             for name, (replaces, phase) in REPLACES.items()
         ]

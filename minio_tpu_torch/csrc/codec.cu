@@ -16,14 +16,15 @@
 // on the plan are uniform across the block.
 //
 // phash256 (ops/hash.py) mixes word j of a row with the key
-// mix(j*C1+1) into two 32-bit lanes and XOR-folds them by j mod 4.  Every
-// block here starts its columns at a multiple of 256 and a thread's
-// columns are strided by 256, so a thread only ever feeds partition
-// (threadIdx.x mod 4): it folds its columns in registers, a warp folds
-// lanes with shuffles at offsets 16, 8, 4, shared memory folds the warps
-// and one atomicXor per block per partition word reaches the zeroed
-// (rows, 8) accumulator.  XOR is order-free, so the digest is bit-exact
-// whatever order the blocks run in.
+// mix(j*C1+1) into two 32-bit lanes and XOR-folds them by j mod 4.  In
+// K1 and K4-K6 every block starts its columns at a multiple of 256 and a
+// thread's columns are strided by 256, so a thread only ever feeds
+// partition (threadIdx.x mod 4): it folds its columns in registers, a
+// warp folds lanes with shuffles at offsets 16, 8, 4, shared memory folds
+// the warps and one atomicXor per block per partition word reaches the
+// zeroed (rows, 8) accumulator.  K2 gives a thread whole column quads
+// instead (one word of each partition; see there).  XOR is order-free, so
+// the digest is bit-exact whatever order the blocks run in.
 //
 // MINIO_TPU_CODEC_FORMULATION=mxu swaps the xtime chain of the PUT and
 // heal passes (K1, K4, K5, K6: the `MXU` template parameter) for a
@@ -34,6 +35,7 @@
 
 #include <cuda_runtime.h>
 #include <stdint.h>
+#include <string.h>
 
 namespace {
 
@@ -369,35 +371,172 @@ __global__ void finalize_kernel(uint32_t* __restrict__ part, int count,
   part[i] = mix32(part[i] ^ (nbytes * kC1 + (uint32_t)(i & 7)));
 }
 
+// Called by every thread after its block's atomicXors into `partials`
+// (K2, K5, K6): the block holding the last ticket applies the length fold
+// of finalize_kernel to all `count` words in place, so no finalize launch
+// follows.  `ticket` arrives zeroed with the partials.
+__device__ __forceinline__ void finalize_if_last(uint32_t* partials, int count,
+                                                 uint32_t nbytes,
+                                                 unsigned int* ticket) {
+  __shared__ int s_last;
+  __threadfence();
+  __syncthreads();
+  if (threadIdx.x == 0) {
+    const unsigned int total = gridDim.x * gridDim.y;
+    s_last = atomicAdd(ticket, 1u) == total - 1u;
+  }
+  __syncthreads();
+  if (!s_last) return;
+  __threadfence();
+  for (int i = threadIdx.x; i < count; i += kThreads) {
+    const uint32_t p = __ldcg(partials + i);  // L2: the other blocks' XORs
+    partials[i] = mix32(p ^ (nbytes * kC1 + (uint32_t)(i & 7)));
+  }
+}
+
 // --------------------------------------------------------------------------
 // K2 phash256_batched: replaces hash.phash256_words_batched (X1, which the
 // JAX package leaves to XLA) on the healthy-GET verify.
 //
-// Bound: operations (the hash on the integer pipe takes longer than
-// reading each word once; the digest is 32 bytes a row).
-// Design: block (tile-run, row), one thread per column, the same
-// hash_word and block fold as encode_pack, one atomicXor per block per
-// partition word, then the finalize launch.
+// Bound: operations.  The hash takes 22 integer ops a word and the key
+// 10 a column, once for all rows; at (32, 327,680) that is 14.0 us on an
+// H100's integer pipe against 12.5 us for reading each word once.
+// Design, for bytes in flight and for the key:
+// * A thread owns a column quad j..j+3 (j % 4 == 0) and loads it with one
+//   16-byte load per row.  The quad is one word of each phash256
+//   partition, so the thread folds into 4 + 4 registers per row and no
+//   lane pattern is tied to a partition.
+// * A block covers a run of 256-quad tiles of one group of kPhashRows
+//   rows.  The 4 keys of a quad are computed once per tile and reused by
+//   every row of the group.  Tiles go in pairs, and the next pair's
+//   2 x kPhashRows 16-byte loads are issued before this pair is hashed,
+//   so 16 loads are in flight while the thread computes (120 registers,
+//   2 blocks per SM: the grid is one wave of them).
+// * A warp folds its 8 partials per row with a transposing reduction (4,
+//   2, 1 shuffles that halve the values held, then 2 that finish), so
+//   lanes 0, 4, ..., 28 hold the 8 partition words; the warps meet in
+//   shared memory and one atomicXor per block per word reaches the zeroed
+//   accumulator.
+// * One launch: the block that draws the last ticket applies the length
+//   fold (finalize_if_last, as K5/K6), so the memset of the accumulator +
+//   ticket (one buffer, zeroed by the entry) is the only other work on
+//   the stream.  The ticket is part of each call's own buffer, never
+//   cached across calls: concurrent GETs launch K2 on different streams.
+// Rows that are not 16-byte aligned (a view at an odd offset) take four
+// 4-byte loads instead; a uniform branch.
 // --------------------------------------------------------------------------
 
-__global__ void __launch_bounds__(kThreads)
-phash_kernel(const uint32_t* __restrict__ words, uint32_t* __restrict__ partials,
-             int w, int ntiles, int tiles_per_block) {
-  __shared__ uint32_t s[8];
-  const int tid = threadIdx.x;
-  if (tid < 8) s[tid] = 0;
-  __syncthreads();
-  const uint32_t* in = words + (size_t)blockIdx.y * w;
-  uint32_t h1 = 0, h2 = 0;
-  for (int t = 0; t < tiles_per_block; ++t) {
-    const int tile = blockIdx.x * tiles_per_block + t;
-    if (tile >= ntiles) break;
-    const int col = tile * kTile + tid;
-    if (col < w) hash_word(in[col], hash_key((uint32_t)col), h1, h2);
+constexpr int kPhashRows = 4;  // rows per K2 block: the group sharing the keys
+
+__device__ __forceinline__ uint4 load_quad(const uint32_t* p, bool aligned) {
+  if (aligned) return __ldg(reinterpret_cast<const uint4*>(p));
+  return make_uint4(__ldg(p), __ldg(p + 1), __ldg(p + 2), __ldg(p + 3));
+}
+
+// XOR of v[0..7] over the warp, transposed: lane l returns word
+// 4*l[4] + 2*l[3] + l[2] of the fold (l[i]: bit i of the lane), the same
+// in the 4 lanes that differ in bits 0, 1.
+__device__ __forceinline__ uint32_t warp_fold8(uint32_t (&v)[8]) {
+  const int lane = threadIdx.x & 31;
+#pragma unroll
+  for (int half = 4; half >= 1; half >>= 1) {
+    const bool hi = lane & (half * 4);
+#pragma unroll
+    for (int i = 0; i < half; ++i) {
+      const uint32_t send = hi ? v[i] : v[i + half];
+      const uint32_t keep = hi ? v[i + half] : v[i];
+      v[i] = keep ^ __shfl_xor_sync(0xffffffffu, send, half * 4);
+    }
   }
-  fold_block(h1, h2, s);
+  uint32_t x = v[0];
+  x ^= __shfl_xor_sync(0xffffffffu, x, 2);
+  x ^= __shfl_xor_sync(0xffffffffu, x, 1);
+  return x;
+}
+
+__device__ __forceinline__ int warp_fold8_word() {
+  const int lane = threadIdx.x & 31;
+  return ((lane >> 4) & 1) * 4 + ((lane >> 3) & 1) * 2 + ((lane >> 2) & 1);
+}
+
+__device__ __forceinline__ void hash_quad(uint4 v, const uint32_t (&key)[4],
+                                          uint32_t (&h)[8]) {
+  hash_word(v.x, key[0], h[0], h[4]);
+  hash_word(v.y, key[1], h[1], h[5]);
+  hash_word(v.z, key[2], h[2], h[6]);
+  hash_word(v.w, key[3], h[3], h[7]);
+}
+
+// Quad q of the group's rows: zeros where `ok` is false or past the group.
+__device__ __forceinline__ void load_tile(const uint32_t* in, int rows, int w,
+                                          int q, bool ok, bool aligned,
+                                          uint4 (&v)[kPhashRows]) {
+#pragma unroll
+  for (int r = 0; r < kPhashRows; ++r)
+    v[r] = ok && r < rows ? load_quad(in + (size_t)r * w + 4 * q, aligned) : uint4{};
+}
+
+// The quad's 4 keys once, then every row of the group.
+__device__ __forceinline__ void hash_tile(const uint4 (&v)[kPhashRows], int rows,
+                                          int q, uint32_t (&h)[kPhashRows][8]) {
+  uint32_t key[4];
+#pragma unroll
+  for (int i = 0; i < 4; ++i) key[i] = hash_key((uint32_t)(4 * q + i));
+#pragma unroll
+  for (int r = 0; r < kPhashRows; ++r)
+    if (r < rows) hash_quad(v[r], key, h[r]);
+}
+
+__global__ void __launch_bounds__(kThreads, 2)
+phash_kernel(const uint32_t* __restrict__ words, uint32_t* __restrict__ acc,
+             int R, int w, int tiles_per_block, uint32_t nbytes, bool aligned) {
+  __shared__ uint32_t s[kPhashRows * 8];
+  const int tid = threadIdx.x;
+  if (tid < kPhashRows * 8) s[tid] = 0;
+  const int r0 = blockIdx.y * kPhashRows;
+  const int rows = min(kPhashRows, R - r0);
+  const int nq = w >> 2;  // column quads
+  const uint32_t* in = words + (size_t)r0 * w;
+  uint32_t h[kPhashRows][8];
+#pragma unroll
+  for (int r = 0; r < kPhashRows; ++r)
+#pragma unroll
+    for (int i = 0; i < 8; ++i) h[r][i] = 0;
+
+  // tile t of this block: quad q0 + 256 t; tiles go in pairs, and the
+  // next pair's loads are issued before this pair is hashed
+  const int q0 = blockIdx.x * tiles_per_block * kThreads + tid;
+  const int tpb = tiles_per_block;
+  uint4 a[kPhashRows], b[kPhashRows];
+  load_tile(in, rows, w, q0, q0 < nq, aligned, a);
+  load_tile(in, rows, w, q0 + kThreads, 1 < tpb && q0 + kThreads < nq, aligned, b);
+#pragma unroll 1
+  for (int t = 0; t < tpb; t += 2) {
+    const int qa = q0 + t * kThreads, qb = qa + kThreads;
+    const int qc = qb + kThreads, qd = qc + kThreads;
+    uint4 c[kPhashRows], d[kPhashRows];
+    load_tile(in, rows, w, qc, t + 2 < tpb && qc < nq, aligned, c);
+    load_tile(in, rows, w, qd, t + 3 < tpb && qd < nq, aligned, d);
+    if (qa < nq) hash_tile(a, rows, qa, h);
+    if (t + 1 < tpb && qb < nq) hash_tile(b, rows, qb, h);
+#pragma unroll
+    for (int r = 0; r < kPhashRows; ++r) {
+      a[r] = c[r];
+      b[r] = d[r];
+    }
+  }
+
+  __syncthreads();  // s zeroed
+#pragma unroll
+  for (int r = 0; r < kPhashRows; ++r) {
+    if (r < rows) {
+      const uint32_t x = warp_fold8(h[r]);
+      if ((tid & 3) == 0) atomicXor(&s[r * 8 + warp_fold8_word()], x);
+    }
+  }
   __syncthreads();
-  if (tid < 8 && s[tid]) atomicXor(&partials[(size_t)blockIdx.y * 8 + tid], s[tid]);
+  if (tid < rows * 8 && s[tid]) atomicXor(&acc[(size_t)r0 * 8 + tid], s[tid]);
+  finalize_if_last(acc, R * 8, nbytes, reinterpret_cast<unsigned int*>(acc) + R * 8);
 }
 
 // --------------------------------------------------------------------------
@@ -556,7 +695,7 @@ verify_reconstruct_kernel(const uint32_t* __restrict__ shards,
 // counter stay on the chip across the row.  Their (B,) grid would use
 // 1 to 4 of the 132 SMs here, so K5/K6 keep the idea and not the grid:
 //
-// * Persistent grid.  The wrapper (kernels._pipelined_grid) launches
+// * Persistent grid.  The wrapper (kernels.pipelined_grid) launches
 //   about as many blocks as fit resident - 2 per SM, which
 //   __launch_bounds__(kThreads, 2) holds the register budget to - split
 //   evenly over the B stripes; each block walks a CONTIGUOUS run of
@@ -616,27 +755,6 @@ __device__ __forceinline__ void stage_tile(uint32_t* slot, const uint32_t* in,
     const bool ok = base + c < w;
     const uint32_t* src = in + (size_t)src_row[j] * w + (ok ? base + c : 0);
     cp_async16(slot + j * kTile + c, src, ok ? 16 : 0);
-  }
-}
-
-// Called by every thread after its block's atomicXors into `partials`:
-// the block holding the last ticket finalizes all `count` words in place.
-__device__ __forceinline__ void finalize_if_last(uint32_t* partials, int count,
-                                                 uint32_t nbytes,
-                                                 unsigned int* ticket) {
-  __shared__ int s_last;
-  __threadfence();
-  __syncthreads();
-  if (threadIdx.x == 0) {
-    const unsigned int total = gridDim.x * gridDim.y;
-    s_last = atomicAdd(ticket, 1u) == total - 1u;
-  }
-  __syncthreads();
-  if (!s_last) return;
-  __threadfence();
-  for (int i = threadIdx.x; i < count; i += kThreads) {
-    const uint32_t p = __ldcg(partials + i);  // L2: the other blocks' XORs
-    partials[i] = mix32(p ^ (nbytes * kC1 + (uint32_t)(i & 7)));
   }
 }
 
@@ -756,34 +874,80 @@ encode_pipelined_kernel(const uint32_t* __restrict__ data,
 
 // --------------------------------------------------------------------------
 // K6 verify_reconstruct_pipelined: replaces
-// rs_pallas.verify_reconstruct_pipelined (P7).  K4's function and plan
-// (indexed by shard row, absent rows neither read nor hashed) on the
-// pipelined design above; the ring holds only the np present rows, in
-// row order (plan.row lists them).  Its first k slots are the survivors,
-// which the mxu instantiation multiplies in place with mxu_tile.
+// rs_pallas.verify_reconstruct_pipelined (P7).  K4's function on the
+// pipelined design above: the ring holds only the np present rows, in row
+// order (terms.row lists them); slot j's hash registers fold into shard row
+// terms.row[j]'s digest, and absent rows are neither read nor hashed.
+//
+// Bound: operations at heal's pattern (EC 8+4, shards 1, 3, 10, 12 gone:
+// 8 present rows hashed, 2 data rows rebuilt in 2 x (7 xtimes + 29 terms)
+// = 142 ops a column), bytes with all rows present.
+// Design of the product, for the terms the matrix has:
+// * Output data rows that are present are copies: their row of the
+//   reconstruction matrix is a unit vector.  The thread stores them
+//   straight from the ring slot it hashes (terms.copy).
+// * Only the rb rebuilt rows go through the GF product, and each takes it
+//   in Horner form over the coefficient bits: acc = S7; acc = xtime(acc)
+//   ^ S6; ...; ^ S0, where Sb is the XOR of the k survivor words whose
+//   coefficient for that row has bit b set.  The host compiles the masks
+//   once per (present, k) (kernels.vr_terms) into the kernel parameters as
+//   all-ones / zero words, indexed at compile time, so each candidate
+//   term is one LOP3 (acc ^ (x & mask)) plus half a ULDC.64 (the masks
+//   reach uniform registers two at a time), and a rebuilt row costs 7
+//   xtimes + 8k such terms, with no test and no branch per term.  The
+//   function itself needs only the set terms (heal's pattern: 7 xtimes
+//   and 29 terms a row); skipping the others would take a test or a
+//   branch per term, which is what the earlier walk over every candidate
+//   paid.  Static SASS of the <8,8> instantiation (chip_smoke.py's sass
+//   line): the tile loop holds about 186 instructions of staging, wait
+//   and key, 38 per present slot (load, hash, copy) and 8 rebuilt-row
+//   bodies of 141-146, of which a launch runs rb.
+// * The grid, ring and staging stay K5's: at B = 1, 2 blocks per SM of 5
+//   tiles each put 10 tiles on every SM but 8.  Trial builds with 3 to 6
+//   blocks per SM, a 2- or 4-deep ring, or staging from precomputed
+//   per-block chunk offsets ran no faster at B = 1.
+// The mxu instantiation keeps its earlier design: mxu_tile over the 256-
+// column ring slot (one column per thread, which the swar path keeps too)
+// multiplies the first k slots by the (k, k) reconstruction matrix and
+// every data row is stored from out_s; its terms are ignored.
 // --------------------------------------------------------------------------
 
-template <int NB, int OB, bool MXU>
+// Rebuilt rows of a term program: at most min(k, n - k), so 8 for k <= 8
+// and 7 once k > 8 (n <= 16) - which keeps VrTerms<16> inside the 4 KB of
+// kernel parameters.
+template <int KB>
+constexpr int kRbMax = KB <= 4 ? 4 : (KB <= 8 ? 8 : 7);
+
+template <int KB>
+struct VrTerms {
+  uint32_t m[kRbMax<KB>][8][KB];  // ~0u where bit b of (rebuilt o, survivor j) is set
+  uint8_t row[kMaxRows];          // shard row staged in ring slot j
+  int8_t copy[kMaxRows];          // data row slot j is stored to, or -1
+  uint8_t rebuilt[kRbMax<KB>];    // data row of rebuilt output o
+  int rb;                         // rebuilt outputs
+};
+
+template <int PB, int KB, bool MXU>
 __global__ void __launch_bounds__(kThreads, kPipeBlocksPerSM)
 verify_reconstruct_pipelined_kernel(const uint32_t* __restrict__ shards,
                                     uint32_t* __restrict__ data,
                                     uint32_t* __restrict__ partials,
                                     unsigned int* __restrict__ ticket, int n,
-                                    int k, int w, uint32_t present, int np,
-                                    int ntiles, int tiles_per_block,
-                                    uint32_t nbytes, const GfPlan plan,
+                                    int k, int w, int np, int ntiles,
+                                    int tiles_per_block, uint32_t nbytes,
+                                    const VrTerms<KB> terms,
                                     const uint32_t* __restrict__ amat) {
   extern __shared__ __align__(16) uint32_t ring[];  // kStages x np x kTile
-  __shared__ uint32_t s[NB * 8];
+  __shared__ uint32_t s[kMaxRows * 8];
   __shared__ uint8_t s_row[kMaxRows];
-  __shared__ uint32_t out_s[MXU ? OB * kTile : 1];
+  __shared__ uint32_t out_s[MXU ? KB * kTile : 1];
   const int b = blockIdx.y;
   const int tid = threadIdx.x;
   for (int i = tid; i < n * 8; i += kThreads) s[i] = 0;
-  if (tid < np) s_row[tid] = plan.row[tid];
+  if (tid < np) s_row[tid] = terms.row[tid];
   __syncthreads();
-  uint32_t af[OB];
-  if constexpr (MXU) load_frags<OB>(amat, af);
+  uint32_t af[KB];
+  if constexpr (MXU) load_frags<KB>(amat, af);
 
   const uint32_t* in = shards + (size_t)b * n * w;
   uint32_t* out = data + (size_t)b * k * w;
@@ -797,9 +961,9 @@ verify_reconstruct_pipelined_kernel(const uint32_t* __restrict__ shards,
     cp_async_commit();
   }
 
-  uint32_t h1[NB], h2[NB];
+  uint32_t h1[PB], h2[PB];  // per ring slot
 #pragma unroll
-  for (int r = 0; r < NB; ++r) h1[r] = h2[r] = 0;
+  for (int j = 0; j < PB; ++j) h1[j] = h2[j] = 0;
 
 #pragma unroll 1
   for (int i = 0; i < count; ++i) {
@@ -813,47 +977,49 @@ verify_reconstruct_pipelined_kernel(const uint32_t* __restrict__ shards,
     const int col = (first + i) * kTile + tid;
     const bool valid = col < w;
     const uint32_t key = hash_key((uint32_t)col);
-    uint32_t acc[OB];
+    uint32_t x[KB];  // the survivors: slots 0 .. k-1
 #pragma unroll
-    for (int o = 0; o < OB; ++o) acc[o] = 0;
-    int j = 0;  // slot row of shard row r: its rank among present rows
+    for (int j = 0; j < KB; ++j) x[j] = 0;
 #pragma unroll
-    for (int r = 0; r < NB; ++r) {
-      if (r < n && ((present >> r) & 1u)) {
-        uint32_t p = cur[j * kTile + tid];
-        ++j;
-        if (valid) hash_word(p, key, h1[r], h2[r]);
+    for (int j = 0; j < PB; ++j) {
+      if (j < np) {
+        const uint32_t v = cur[j * kTile + tid];
+        if (valid) hash_word(v, key, h1[j], h2[j]);
+        if (j < KB) x[j] = v;
         if constexpr (!MXU) {
-#pragma unroll
-          for (int bit = 0; bit < 8; ++bit) {
-            if (bit >= plan.nb[r]) break;
-            const uint32_t msk = plan.rm[r * 8 + bit];
-#pragma unroll
-            for (int o = 0; o < OB; ++o)
-              if ((msk >> o) & 1u) acc[o] ^= p;
-            p = xtime(p);
-          }
+          const int d = terms.copy[j];
+          if (d >= 0 && valid) out[(size_t)d * w + col] = v;
         }
       }
     }
     if constexpr (MXU) {
-      mxu_tile<OB>(cur, kTile, k, out_s, k, af);
+      mxu_tile<KB>(cur, kTile, k, out_s, k, af);
       __syncthreads();
+      if (valid) {
 #pragma unroll
-      for (int o = 0; o < OB; ++o)
-        if (o < k) acc[o] = out_s[o * kTile + tid];
-    }
-    if (valid) {
+        for (int o = 0; o < KB; ++o)
+          if (o < k) out[(size_t)o * w + col] = out_s[o * kTile + tid];
+      }
+    } else {
 #pragma unroll
-      for (int o = 0; o < OB; ++o)
-        if (o < k) out[(size_t)o * w + col] = acc[o];
+      for (int o = 0; o < kRbMax<KB>; ++o) {
+        if (o >= terms.rb) break;  // uniform
+        uint32_t acc = 0;
+#pragma unroll
+        for (int bit = 7; bit >= 0; --bit) {
+          acc = xtime(acc);
+#pragma unroll
+          for (int j = 0; j < KB; ++j) acc ^= x[j] & terms.m[o][bit][j];
+        }
+        if (valid) out[(size_t)terms.rebuilt[o] * w + col] = acc;
+      }
     }
     __syncthreads();  // the slot is refilled by iteration i + 1
   }
 
 #pragma unroll
-  for (int r = 0; r < NB; ++r)
-    if (r < n && ((present >> r) & 1u)) fold_block(h1[r], h2[r], &s[r * 8]);
+  for (int j = 0; j < PB; ++j)
+    if (j < np) fold_block(h1[j], h2[j], &s[terms.row[j] * 8]);
   __syncthreads();
   for (int i = tid; i < n * 8; i += kThreads)
     if (s[i]) atomicXor(&partials[(size_t)b * n * 8 + i], s[i]);
@@ -978,19 +1144,39 @@ cudaError_t launch_encode_pipelined(dim3 grid, size_t smem, cudaStream_t st,
   return cudaGetLastError();
 }
 
-template <int NB, int OB, bool MXU>
+// The term program as kernels.vr_terms packs it: m, row, copy, rebuilt,
+// back to back, terms_bytes<KB>() in all (the entry refuses another size).
+template <int KB>
+constexpr size_t terms_bytes() {
+  return sizeof(VrTerms<KB>::m) + sizeof(VrTerms<KB>::row) +
+         sizeof(VrTerms<KB>::copy) + sizeof(VrTerms<KB>::rebuilt);
+}
+
+template <int KB>
+VrTerms<KB> make_terms(const uint8_t* blob, int rb) {
+  VrTerms<KB> t;
+  memcpy(t.m, blob, sizeof t.m);
+  blob += sizeof t.m;
+  memcpy(t.row, blob, sizeof t.row);
+  memcpy(t.copy, blob + sizeof t.row, sizeof t.copy);
+  memcpy(t.rebuilt, blob + sizeof t.row + sizeof t.copy, sizeof t.rebuilt);
+  t.rb = rb;
+  return t;
+}
+
+template <int PB, int KB, bool MXU>
 cudaError_t launch_vr_pipelined(dim3 grid, size_t smem, cudaStream_t st,
                                 const uint32_t* shards, uint32_t* data,
                                 uint32_t* partials, unsigned int* ticket, int n,
-                                int k, int w, uint32_t present, int np,
-                                int ntiles, int tpb, uint32_t nbytes,
-                                const GfPlan& plan, const uint32_t* amat) {
-  cudaError_t err =
-      prepare_smem(verify_reconstruct_pipelined_kernel<NB, OB, MXU>, smem);
+                                int k, int w, int np, int ntiles, int tpb,
+                                uint32_t nbytes, const VrTerms<KB>& terms,
+                                const uint32_t* amat) {
+  const cudaError_t err =
+      prepare_smem(verify_reconstruct_pipelined_kernel<PB, KB, MXU>, smem);
   if (err != cudaSuccess) return err;
-  verify_reconstruct_pipelined_kernel<NB, OB, MXU><<<grid, kThreads, smem, st>>>(
-      shards, data, partials, ticket, n, k, w, present, np, ntiles, tpb, nbytes,
-      plan, amat);
+  verify_reconstruct_pipelined_kernel<PB, KB, MXU><<<grid, kThreads, smem, st>>>(
+      shards, data, partials, ticket, n, k, w, np, ntiles, tpb, nbytes, terms,
+      amat);
   return cudaGetLastError();
 }
 
@@ -1095,23 +1281,28 @@ int mtt_encode_pack_pipelined(int device, const uint32_t* data, uint32_t* parity
   return (int)err;
 }
 
-// words (R, w) -> digests (R, 8), finalized in the zeroed `partials`.
-int mtt_phash256(int device, const uint32_t* words, uint32_t* partials, int R, int w,
-                 uint32_t nbytes, int tiles_per_block, void* stream) {
-  if (R <= 0 || R > 65535 || w <= 0 || tiles_per_block < 1)
+// K2: words (R, w), w % 4 == 0 -> digests (R, 8) in acc[0 .. 8R), with
+// acc[8R] the last-block ticket; the entry zeroes all 8R + 1 words on the
+// stream first.  tiles_per_block (of 256 column quads) comes from the
+// wrapper's grid, which it sizes for rows_per_block (kPhashRows) rows per
+// block.
+int mtt_phash256(int device, const uint32_t* words, uint32_t* acc, int R, int w,
+                 uint32_t nbytes, int rows_per_block, int tiles_per_block,
+                 void* stream) {
+  if (R <= 0 || R > 65535 || w <= 0 || w % 4 != 0 || tiles_per_block < 1 ||
+      rows_per_block != kPhashRows)
     return (int)cudaErrorInvalidValue;
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return (int)err;
   cudaStream_t st = (cudaStream_t)stream;
-  const int ntiles = (w + kTile - 1) / kTile;
-  dim3 grid((ntiles + tiles_per_block - 1) / tiles_per_block, R);
-  phash_kernel<<<grid, kThreads, 0, st>>>(words, partials, w, ntiles,
-                                          tiles_per_block);
-  err = cudaGetLastError();
+  err = cudaMemsetAsync(acc, 0, ((size_t)R * 8 + 1) * sizeof(uint32_t), st);
   if (err != cudaSuccess) return (int)err;
-  const int count = R * 8;
-  finalize_kernel<<<(count + kThreads - 1) / kThreads, kThreads, 0, st>>>(
-      partials, count, nbytes);
+  const int nq = w / 4;
+  const int span = tiles_per_block * kThreads;  // quads per block
+  dim3 grid((nq + span - 1) / span, (R + kPhashRows - 1) / kPhashRows);
+  const bool aligned = ((uintptr_t)words & 15u) == 0;
+  phash_kernel<<<grid, kThreads, 0, st>>>(words, acc, R, w, tiles_per_block,
+                                          nbytes, aligned);
   return (int)cudaGetLastError();
 }
 
@@ -1180,38 +1371,51 @@ int mtt_verify_reconstruct(int device, const uint32_t* shards, uint32_t* data,
 }
 
 // K6: mtt_verify_reconstruct's outputs (finalize always on) from one
-// pipelined launch.  `row` lists the np present rows in order;
-// `partials` and the one-word `ticket` arrive zeroed.  Takes w % 4 == 0
-// with 16-byte aligned rows; a non-null `amat` selects the mxu product.
+// pipelined launch: data (B, k, w), and the digests (B, n, 8) in
+// acc[0 .. 8Bn) with acc[8Bn] the last-block ticket, all zeroed by the
+// entry on the stream first.  `terms` is the term program kernels.vr_terms
+// packs per (present, k) - the (kRbMax, 8, bucket(k)) rebuilt-row masks,
+// the 16 staged rows, the 16 copy targets, the kRbMax rebuilt rows - with
+// `rb` rebuilt rows.  Takes w % 4 == 0 with 16-byte aligned rows; a
+// non-null `amat` selects the mxu product.
 int mtt_verify_reconstruct_pipelined(int device, const uint32_t* shards,
-                                     uint32_t* data, uint32_t* partials,
-                                     unsigned int* ticket, int B, int n, int k,
-                                     int w, uint32_t present, uint32_t nbytes,
-                                     int tiles_per_block, const uint16_t* rm,
-                                     const uint8_t* nb, const uint8_t* row,
-                                     const uint32_t* amat, void* stream) {
+                                     uint32_t* data, uint32_t* acc, int B,
+                                     int n, int k, int w, uint32_t present,
+                                     uint32_t nbytes, int tiles_per_block,
+                                     const uint8_t* terms, int terms_len,
+                                     int rb, const uint32_t* amat,
+                                     void* stream) {
   const int np = __builtin_popcount(present);
+  const int pbk = bucket(np), kbk = bucket(k);
+  const bool t4 = kbk == 4, t8 = kbk == 8;
   if (n < 1 || n > kMaxRows || k < 1 || k > np || w <= 0 || w % 4 != 0 ||
       tiles_per_block < 1 || B <= 0 || B > 65535 || (present >> n) != 0u ||
+      rb < 0 || rb > (t4 ? kRbMax<4> : t8 ? kRbMax<8> : kRbMax<16>) ||
+      (size_t)terms_len != (t4 ? terms_bytes<4>() : t8 ? terms_bytes<8>()
+                                                    : terms_bytes<16>()) ||
       ((uintptr_t)shards & 15u) != 0)
     return (int)cudaErrorInvalidValue;
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return (int)err;
   cudaStream_t st = (cudaStream_t)stream;
-  const GfPlan plan = make_plan(rm, nb, row);
+  const size_t count = (size_t)B * n * 8;
+  err = cudaMemsetAsync(acc, 0, (count + 1) * sizeof(uint32_t), st);
+  if (err != cudaSuccess) return (int)err;
+  unsigned int* ticket = reinterpret_cast<unsigned int*>(acc + count);
   const int ntiles = (w + kTile - 1) / kTile;
   dim3 grid((ntiles + tiles_per_block - 1) / tiles_per_block, B);
   const size_t smem = (size_t)kStages * np * kTile * sizeof(uint32_t);
-  const int nbk = bucket(n), ob = bucket(k);
   err = cudaErrorInvalidValue;
-#define MTT_VRP(NB_, OB_)                                                    \
-  if (nbk == NB_ && ob == OB_)                                               \
-    err = amat ? launch_vr_pipelined<NB_, OB_, true>(                        \
-                     grid, smem, st, shards, data, partials, ticket, n, k, w, \
-                     present, np, ntiles, tiles_per_block, nbytes, plan, amat) \
-               : launch_vr_pipelined<NB_, OB_, false>(                       \
-                     grid, smem, st, shards, data, partials, ticket, n, k, w, \
-                     present, np, ntiles, tiles_per_block, nbytes, plan, amat);
+#define MTT_VRP(PB_, KB_)                                                      \
+  if (pbk == PB_ && kbk == KB_) {                                              \
+    const VrTerms<KB_> t = make_terms<KB_>(terms, rb);                         \
+    err = amat ? launch_vr_pipelined<PB_, KB_, true>(                          \
+                     grid, smem, st, shards, data, acc, ticket, n, k, w, np,   \
+                     ntiles, tiles_per_block, nbytes, t, amat)                 \
+               : launch_vr_pipelined<PB_, KB_, false>(                         \
+                     grid, smem, st, shards, data, acc, ticket, n, k, w, np,   \
+                     ntiles, tiles_per_block, nbytes, t, amat);                \
+  }
   MTT_VRP(4, 4)
   MTT_VRP(8, 4) MTT_VRP(8, 8)
   MTT_VRP(16, 4) MTT_VRP(16, 8) MTT_VRP(16, 16)

@@ -11,7 +11,8 @@ Seven kernels, all in ``csrc/codec.cu`` (CUDA C++ for ``sm_90a``):
   the JAX package): a chunk at a global word offset, XOR-accumulating
   into the caller's partials, finalizing only on the last chunk.
 * ``phash256_batched`` (K2) replaces ``hash.phash256_words_batched``
-  (X1, left to XLA by the JAX package): (R, w) rows -> (R, 8) digests.
+  (X1, left to XLA by the JAX package): (R, w) rows -> (R, 8) digests,
+  in one launch that finalizes in its last block.
 * ``gf_matmul_words`` (K3) replaces ``rs_pallas.matmul_words`` (P1): a
   runtime (o, s) GF(2^8) matrix over s selected rows of a (B, R, w)
   batch -> (B, o, w).
@@ -24,7 +25,9 @@ Seven kernels, all in ``csrc/codec.cu`` (CUDA C++ for ``sm_90a``):
   (P6) and ``verify_reconstruct_pipelined`` (K6) replaces
   ``rs_pallas.verify_reconstruct_pipelined`` (P7): K1's and K4's
   functions on a persistent grid that stages tiles into a shared-memory
-  ring with ``cp.async`` and finalizes in its last block.
+  ring with ``cp.async`` and finalizes in its last block.  K6 copies the
+  present data rows and rebuilds the others from a term program made
+  once per (present, k) (``vr_terms``).
 * ``gf_matmul_mxu`` (K7) replaces ``rs_pallas.gf_matmul_mxu`` (P3): a
   runtime (o, s) GF(2^8) matrix over (s, length) uint8 shards through a
   1-bit tensor-core product of the lifted (8o, 8s) GF(2) matrix.
@@ -58,6 +61,7 @@ names the ``mxu`` instantiations, which the base names do not;
 from __future__ import annotations
 
 import ctypes
+import dataclasses
 import functools
 import hashlib
 import os
@@ -86,6 +90,8 @@ _MAX_ROWS = 16
 _TARGET_BLOCKS = 132 * 8  # enough resident blocks to fill the SMs
 
 _PIPE_BLOCKS_PER_SM = 2  # K5/K6 residency (kPipeBlocksPerSM in codec.cu)
+_PHASH_ROWS = 4  # rows per K2 block (kPhashRows: the entry refuses another)
+_PHASH_BLOCKS_PER_SM = 2  # K2's one-wave grid
 
 LAUNCHES = {
     "encode_pack": 0, "encode_pack[group=0]": 0, "encode_pack[subchunk]": 0,
@@ -173,13 +179,13 @@ def _load():
             lib.mtt_encode_pack_pipelined.argtypes = [
                 I, P, P, P, P, P, P, I, I, I, I, I, U, I, P, P, P, P,
             ]
-            lib.mtt_phash256.argtypes = [I, P, P, I, I, U, I, P]
+            lib.mtt_phash256.argtypes = [I, P, P, I, I, U, I, I, P]
             lib.mtt_gf_matmul.argtypes = [I, P, P, I, I, I, I, I, P, P, P, P]
             lib.mtt_verify_reconstruct.argtypes = [
                 I, P, P, P, I, I, I, I, U, U, U, I, I, P, P, P, P,
             ]
             lib.mtt_verify_reconstruct_pipelined.argtypes = [
-                I, P, P, P, P, I, I, I, I, U, U, I, P, P, P, P, P,
+                I, P, P, P, I, I, I, I, U, U, I, P, I, I, P, P,
             ]
             lib.mtt_gf_matmul_mxu.argtypes = [I, P, P, I, I, I, P, P]
             for fn in (lib.mtt_encode_pack, lib.mtt_encode_pack_pipelined,
@@ -215,7 +221,20 @@ def _require_aligned(t: torch.Tensor, name: str) -> None:
 
 
 def _stream(t: torch.Tensor) -> int:
-    return torch.cuda.current_stream(t.device).cuda_stream
+    """The raw handle of the current stream of t's device (the call
+    torch's own generated kernels use: no Stream object per launch)."""
+    return torch._C._cuda_getCurrentRawStream(t.device.index)
+
+
+def _rows_view(acc: torch.Tensor, lead: "tuple[int, ...]") -> torch.Tensor:
+    """The first prod(lead) * 8 words of ``acc`` as a contiguous (*lead,
+    8) view, in one call (a slice and a view cost twice the host time)."""
+    shape = (*lead, 8)
+    strides, step = [], 1
+    for d in reversed(shape):
+        strides.append(step)
+        step *= d
+    return acc.as_strided(shape, tuple(reversed(strides)))
 
 
 def _tiles_per_block(ntiles: int, rows: int) -> int:
@@ -230,6 +249,7 @@ def sm_count(device: torch.device) -> int:
     return torch.cuda.get_device_properties(device).multi_processor_count
 
 
+@functools.lru_cache(maxsize=1024)
 def pipelined_grid(B: int, w: int, sms: int) -> "tuple[int, int]":
     """(tiles per block, blocks per stripe) of K5/K6's persistent grid:
     about ``_PIPE_BLOCKS_PER_SM`` blocks per SM split evenly over the B
@@ -248,6 +268,16 @@ def pipeline_windows(B: int, w: int, sms: int) -> int:
     stripe)."""
     _tpb, per_stripe = pipelined_grid(B, w, sms)
     return B * (-(-w // TILE) - per_stripe)
+
+
+@functools.lru_cache(maxsize=1024)
+def phash_grid(R: int, w: int, sms: int) -> int:
+    """Tiles (of 256 column quads) per K2 block: one wave of
+    ``_PHASH_BLOCKS_PER_SM`` blocks per SM over the quad tiles of every
+    group of ``_PHASH_ROWS`` rows."""
+    tiles = -(-(w // 4) // TILE)
+    blocks = -(-R // _PHASH_ROWS) * tiles
+    return max(1, min(tiles, -(-blocks // (sms * _PHASH_BLOCKS_PER_SM))))
 
 
 @functools.lru_cache(maxsize=256)
@@ -523,7 +553,9 @@ def encode_pack_pipelined(words: torch.Tensor, parity_shards: int,
 
 
 def phash256_batched(words: torch.Tensor, nbytes: int) -> torch.Tensor:
-    """Finalized phash256 over the LAST axis: (..., w) int32 -> (..., 8)."""
+    """Finalized phash256 over the LAST axis: (..., w) int32 -> (..., 8).
+    On the card: one memset and one K2 launch, for every w % 4 == 0 and
+    at most 65535 rows."""
     if words.device.type == "cpu":
         return phash.phash256_words_batched(words, nbytes)
     lead, w = tuple(words.shape[:-1]), words.shape[-1]
@@ -532,19 +564,22 @@ def phash256_batched(words: torch.Tensor, nbytes: int) -> torch.Tensor:
     flat = words.reshape(-1, w)
     _require_cuda(flat, "phash256_batched", 2)
     R = flat.shape[0]
-    out = torch.zeros((R, 8), dtype=torch.int32, device=words.device)
-    if R == 0:
-        return out.reshape(*lead, 8)
     if R > 65535:
         raise ValueError("phash256_batched: at most 65535 rows per launch")
-    ntiles = -(-w // TILE)
+    dev = words.device
+    if R == 0:
+        return torch.zeros((*lead, 8), dtype=torch.int32, device=dev)
+    # the digests and the last-block ticket: one buffer the entry zeroes
+    acc = torch.empty(R * 8 + 1, dtype=torch.int32, device=dev)
+    out = _rows_view(acc, lead)
     rc = _load().mtt_phash256(
-        words.device.index or 0, flat.data_ptr(), out.data_ptr(), R, w,
-        nbytes & 0xFFFFFFFF, _tiles_per_block(ntiles, R), _stream(flat),
+        dev.index, flat.data_ptr(), acc.data_ptr(), R, w,
+        nbytes & 0xFFFFFFFF, _PHASH_ROWS, phash_grid(R, w, sm_count(dev)),
+        _stream(flat),
     )
     _check_rc(rc, "phash256_batched")
     _count("phash256_batched")
-    return out.reshape(*lead, 8)
+    return out
 
 
 # ---------------------------------------------------------------------------
@@ -639,10 +674,11 @@ def _check_vr(shards: torch.Tensor, present, k: int) -> None:
         raise ValueError(f"word count {w} must be a multiple of 4")
 
 
+@functools.lru_cache(maxsize=1024)
 def _vr_plan(present: "tuple[bool, ...]", k: int):
-    """K4/K6's plan, indexed by shard row: survivors carry their column
-    of the reconstruction matrix, every other row an empty chain; ``row``
-    lists the present rows (the rows K6 stages)."""
+    """K4's plan, indexed by shard row, made once per (present, k):
+    survivors carry their column of the reconstruction matrix, every
+    other row an empty chain; ``row`` lists the present rows."""
     n = len(present)
     idx = _survivors(present, k)
     full = np.zeros((k, n), dtype=np.uint8)
@@ -650,6 +686,69 @@ def _vr_plan(present: "tuple[bool, ...]", k: int):
     live = tuple(i for i, p in enumerate(present) if p)
     rm, nb, row = _matrix_plan(full, live)
     return rm, nb, row, sum(1 << i for i in live)
+
+
+def _bucket(v: int) -> int:
+    """The kernels' row bucket (``bucket`` in codec.cu; the K6 entry
+    refuses a term program sized for another)."""
+    return 4 if v <= 4 else (8 if v <= 8 else 16)
+
+
+def _rb_max(kb: int) -> int:
+    """Rebuilt rows a K6 term program holds (``kRbMax`` in codec.cu; the
+    entry checks the program's size against its own)."""
+    return {4: 4, 8: 8, 16: 7}[kb]
+
+
+@dataclasses.dataclass(frozen=True, eq=False)
+class VrTerms:
+    """K6's term program for one (present, k), made once by ``vr_terms``.
+
+    Ring slot j holds present row ``rows[j]``; slots 0 .. k-1 are the
+    survivors.  A slot whose row is a data row is stored straight to that
+    data row (``copy[j]``, else -1).  Data row ``rebuilt[o]`` is the GF
+    product of the survivors with row ``rebuilt[o]`` of the reconstruction
+    matrix, taken in Horner form over the coefficient bits:
+    ``masks[o, b, j]`` is all ones where bit b of its coefficient for
+    survivor j is set (zero past k), and the kernel computes
+    ``acc = xtime(acc) ^ XOR_j(x_j & masks[o, b, j])`` for b = 7 .. 0.
+    ``blob`` packs masks, rows, copy and rebuilt as the launch passes
+    them (``make_terms`` in codec.cu)."""
+
+    present_mask: int
+    rows: "tuple[int, ...]"
+    copy: "tuple[int, ...]"
+    rebuilt: "tuple[int, ...]"
+    masks: np.ndarray
+    blob: ctypes.Array
+
+
+@functools.lru_cache(maxsize=1024)
+def vr_terms(present: "tuple[bool, ...]", k: int) -> VrTerms:
+    """K6's term program (``VrTerms``), compiled once per (present, k)."""
+    n = len(present)
+    idx = _survivors(present, k)
+    rmat = gf.reconstruction_matrix(k, n - k, idx)
+    rows = tuple(i for i, p in enumerate(present) if p)
+    kb = _bucket(k)
+    rebuilt = tuple(d for d in range(k) if not present[d])
+    if len(rebuilt) > _rb_max(kb):
+        raise ValueError(f"{len(rebuilt)} rebuilt rows exceed {_rb_max(kb)}")
+    copy = tuple(r if r < k else -1 for r in rows)
+    masks = np.zeros((_rb_max(kb), 8, kb), dtype=np.uint32)
+    for o, d in enumerate(rebuilt):
+        for j in range(k):
+            for b in range(8):
+                if (int(rmat[d, j]) >> b) & 1:
+                    masks[o, b, j] = 0xFFFFFFFF
+    packed = b"".join((
+        masks.astype("<u4").tobytes(),
+        np.array(rows + (0,) * (_MAX_ROWS - len(rows)), np.uint8).tobytes(),
+        np.array(copy + (-1,) * (_MAX_ROWS - len(copy)), np.int8).tobytes(),
+        np.array(rebuilt + (0,) * (_rb_max(kb) - len(rebuilt)), np.uint8).tobytes(),
+    ))
+    blob = ctypes.create_string_buffer(packed, len(packed))
+    return VrTerms(sum(1 << i for i in rows), rows, copy, rebuilt, masks, blob)
 
 
 def verify_reconstruct(shards: torch.Tensor, present: "tuple[bool, ...]",
@@ -676,12 +775,15 @@ def verify_reconstruct(shards: torch.Tensor, present: "tuple[bool, ...]",
     return out
 
 
-def _mxu_vr_operand(present: "tuple[bool, ...]", k: int, device):
-    """K4/K6's mxu operand: the (k, k) reconstruction matrix over the
-    first k present rows, as P5/P7 lift it."""
+@functools.lru_cache(maxsize=256)
+def _mxu_vr_operand(present: "tuple[bool, ...]", k: int,
+                    device) -> torch.Tensor:
+    """K4/K6's mxu operand, made once per (present, k, device): the (k, k)
+    reconstruction matrix over the first k present rows, as P5/P7 lift
+    it."""
     idx = _survivors(present, k)
     rmat = gf.reconstruction_matrix(k, len(present) - k, idx)
-    return _mxu_operand(rmat, device).data_ptr()
+    return _mxu_operand(rmat, device)
 
 
 def _launch_verify_reconstruct(shards, partials, word_offset, present, k,
@@ -690,7 +792,7 @@ def _launch_verify_reconstruct(shards, partials, word_offset, present, k,
     B, n, w = shards.shape
     rm, nb, _row, mask = _vr_plan(tuple(present), k)
     dev = shards.device
-    amat = (_mxu_vr_operand(tuple(present), k, dev)
+    amat = (_mxu_vr_operand(tuple(present), k, dev).data_ptr()
             if formulation == "mxu" else None)
     data = torch.empty((B, k, w), dtype=torch.int32, device=dev)
     if B == 0:
@@ -755,7 +857,8 @@ def verify_reconstruct_pipelined(shards: torch.Tensor,
                                  data_shards: int, shard_len: int,
                                  formulation: str = "swar"):
     """K6: verify_reconstruct's outputs, bit for bit, from the pipelined
-    kernel (persistent grid, cp.async ring of the present rows,
+    kernel (persistent grid, cp.async ring of the present rows, copies of
+    the present data rows and the product of ``vr_terms`` for the rest,
     last-block finalize)."""
     B, n, w = shards.shape
     k = data_shards
@@ -766,20 +869,22 @@ def verify_reconstruct_pipelined(shards: torch.Tensor,
                                                   shard_len, formulation)
     _require_cuda(shards, "verify_reconstruct_pipelined", 3)
     _require_aligned(shards, "verify_reconstruct_pipelined")
-    rm, nb, row, mask = _vr_plan(tuple(present), k)
+    present = tuple(present)
+    terms = vr_terms(present, k)
     dev = shards.device
-    amat = (_mxu_vr_operand(tuple(present), k, dev)
+    amat = (_mxu_vr_operand(present, k, dev).data_ptr()
             if formulation == "mxu" else None)
     data = torch.empty((B, k, w), dtype=torch.int32, device=dev)
-    acc = torch.zeros(B * n * 8 + 1, dtype=torch.int32, device=dev)
-    digests = acc[:-1].view(B, n, 8)
     if B == 0:
-        return data, digests
+        return data, torch.zeros((0, n, 8), dtype=torch.int32, device=dev)
+    # the digests and the last-block ticket: one buffer the entry zeroes
+    acc = torch.empty(B * n * 8 + 1, dtype=torch.int32, device=dev)
+    digests = _rows_view(acc, (B, n))
     tpb, _per_stripe = pipelined_grid(B, w, sm_count(dev))
     rc = _load().mtt_verify_reconstruct_pipelined(
-        dev.index or 0, shards.data_ptr(), data.data_ptr(),
-        digests.data_ptr(), acc[-1:].data_ptr(), B, n, k, w, mask,
-        shard_len & 0xFFFFFFFF, tpb, rm, nb, row, amat, _stream(shards),
+        dev.index, shards.data_ptr(), data.data_ptr(), acc.data_ptr(), B, n,
+        k, w, terms.present_mask, shard_len & 0xFFFFFFFF, tpb, terms.blob,
+        len(terms.blob), len(terms.rebuilt), amat, _stream(shards),
     )
     _check_rc(rc, "verify_reconstruct_pipelined")
     _count("verify_reconstruct_pipelined[mxu]" if formulation == "mxu"
