@@ -2,12 +2,12 @@
 """Smoke run of the PyTorch/CUDA port (minio_tpu_torch) on one NVIDIA GPU.
 
     python3 chip_smoke.py            # from the repository root
-    python3 chip_smoke.py --parent DIR   # and K2/K6 beside an older copy
+    python3 chip_smoke.py --parent DIR   # and K1/K2/K3/K6 beside an older copy
 
 1. Builds the CUDA kernels from ``minio_tpu_torch/csrc`` with nvcc (and
    those of ``--parent``'s copy at the same time), and prints each
-   kernel's registers and spills and the static SASS of K2 and K6
-   (``sass_loops``).
+   kernel's registers and spills and the static SASS of K1 (EC 8+4), K2,
+   K3 and K6 (``sass_loops``).
 2. Holds each kernel bit-exactly against its plain PyTorch version on the
    card, at the main path's shapes (EC 8+4, 10 MiB blocks: 327,680 words
    per shard) and at ragged ones, and times kernel, plain version and the
@@ -26,11 +26,16 @@
    path's and heal's shapes and at ragged ones.  K2 also at row counts
    off its 4-row group, widths off its 1,024-word tile and an unaligned
    view; K6 and K6 ``mxu`` also against their plain versions and K4 for
-   every EC 8+4 survivor pattern with 0-4 rows absent.  Beside each
-   kernel's back-to-back event time (``ms``): its device time from a
-   replayed CUDA graph, the host's time per wrapper call and its L2-cold
-   time (``device_times``).  With ``--parent``, K2 and K6 of both copies
-   at the main path's shapes in turns parent, new, new, parent
+   every EC 8+4 survivor pattern with 0-4 rows absent.  K1 also at one
+   (k, m) of each row bucket and at EC 8+4, 12+4 and 4+2, against its
+   plain version and K5 (``encode_geometry_sweep``); K3 for every EC 8+4
+   and 4+2 survivor pattern, edge matrices, a width off the 4-word quad
+   and an unaligned view (``gf_pattern_sweep``).  Beside each kernel's
+   back-to-back event time (``ms``): its device time from a replayed
+   CUDA graph, the host's time per wrapper call and its L2-cold time
+   (``device_times``), and for K1, K3 and K6 a one-tile launch (the
+   fixed chain).  With ``--parent``, K1, K2, K3 and K6 of both copies at
+   the main path's shapes in turns parent, new, new, parent
    (``compare_copies``).
 3. Drives the main path through the object layer under the default
    MINIO_TPU_CODEC_OVERLAP (unset: ``pipeline`` on the card): 12 temp-dir
@@ -211,11 +216,21 @@ def int_rate() -> dict:
             "tc_int8_ops_per_s": TC_INT8_OPS_PER_S, "hbm_bytes_per_s": HBM_BYTES_PER_S}
 
 
-# operation counts per element (32-bit integer ops): mix32 is 3 shifts,
-# 3 xors and 2 multiplies; the key adds a multiply and an add; one
-# hashed word is two (op + multiply + mix32) plus the two folding xors;
-# one xtime is 2 ands, 2 shifts, a multiply and an xor
-_MIX, _KEY, _HASH, _XTIME = 8, 10, 22, 6
+# Operation counts per element, as integer-pipe instructions (one a lane
+# a cycle): LOP3 takes any logic of three inputs, so XORing v values
+# together takes ceil((v - 1) / 2); IMAD is a multiply and an add.
+# mix32 is 3 shifts, 3 xors and 2 multiplies (8); the key is an IMAD and
+# a mix32, plus key * kM2 once a column (10); one hashed word is
+# LOP3 + IMAD for (w ^ key) * kM1 and one IMAD for w * kM2 + key * kM2,
+# then a mix32 each whose last LOP3 also folds into h1 / h2 (19); one
+# xtime, ((x & 0x7F7F7F7F) << 1) ^ (sign-spread bytes of x & 0x1D1D1D1D),
+# is a LOP3, a shift, a PRMT and a LOP3 (4).
+_MIX, _KEY, _HASH, _XTIME = 8, 10, 19, 4
+
+
+def _xors(v: int) -> int:
+    """LOP3s that XOR v values into one."""
+    return max(v - 1, 0) // 2 + max(v - 1, 0) % 2
 
 
 def product_rows(matrix):
@@ -229,19 +244,32 @@ def product_rows(matrix):
 
 
 def gf_ops(matrix) -> int:
-    """Ops of one column of a GF product as the function needs them: none
-    for the rows that are copies (``product_rows``); for the others the
-    cheaper of an xtime chain per input up to its highest coefficient bit
-    and Horner's form per output row (acc = xtime(acc) ^ ..., one chain
-    per row up to its highest bit), plus one xor per set coefficient
-    bit."""
-    from minio_tpu_torch.ops import rs
+    """Instructions of one column of a GF product as the function needs
+    them: none for the rows that are copies (``product_rows``); for the
+    others the cheaper of two forms.  Horner's form per output row: from
+    its top coefficient bit down, an xtime then the XOR of that bit's
+    terms (ceil(c / 2) LOP3s), the top bit's terms XORed together.  A
+    chain per input: an xtime per bit below its top one, then per output
+    row the XOR of its terms."""
+    import numpy as np
 
-    m = product_rows(matrix)
-    per_input = sum(max(b - 1, 0) for b in rs.need_bits(m))
-    per_output = sum(max(b - 1, 0) for b in rs.need_bits(m.T))
-    terms = sum(bin(int(v)).count("1") for v in m.reshape(-1))
-    return _XTIME * min(per_input, per_output) + terms
+    m = np.asarray(product_rows(matrix), dtype=np.int64)
+    if m.size == 0:
+        return 0
+    bits = (m[..., None] >> np.arange(8)) & 1  # (rows, inputs, bit)
+    horner = 0
+    for row in bits:
+        per_bit = row.sum(axis=0)  # terms at each bit
+        set_bits = np.flatnonzero(per_bit)
+        if set_bits.size == 0:
+            continue
+        top = int(set_bits[-1])
+        horner += _xors(int(per_bit[top]))
+        horner += sum(_XTIME + -(-int(per_bit[b]) // 2) for b in range(top))
+    tops = [int(np.flatnonzero(col.any(axis=0))[-1]) for col in bits.transpose(1, 0, 2)
+            if col.any()]
+    chain = _XTIME * sum(tops) + sum(_xors(int(row.sum())) for row in bits)
+    return min(horner, chain)
 
 
 def mxu_ops(o: int, s: int) -> int:
@@ -351,6 +379,85 @@ def vr_pattern_sweep(dev, rng, formulation: str) -> int:
     return err
 
 
+# one (k, m) in each (k, m) row bucket K1's entry takes (the masked
+# Horner form), m = 0, EC 8+4 (the fixed product), EC 12+4 and 4+2
+K1_GEOMETRIES = [(3, 2), (4, 6), (2, 12), (6, 3), (8, 8), (5, 11), (13, 3),
+                 (10, 6), (16, 16), (4, 0), (8, 4), (12, 4), (4, 2)]
+
+
+def encode_geometry_sweep(dev, rng) -> int:
+    """K1 at every geometry of K1_GEOMETRIES, with and without the pack
+    leg, against its plain version and (m >= 1) K5, whose product is the
+    chain of powers; returns the max_abs_err (0)."""
+    from minio_tpu_torch.ops import kernels
+
+    err = 0
+    w = 4096
+    for k, m in K1_GEOMETRIES:
+        x = rand_words(rng, (2, k, w), dev)
+        x[1, :, 256:1024] = 0  # zero groups for the pack leg
+        for group in ((0, 256) if m else (0,)):
+            got = kernels.encode_pack(x, m, 4 * w, group)
+            wants = [kernels.encode_pack_plain(x, m, 4 * w, group)]
+            if m:
+                wants.append(kernels.encode_pack_pipelined(x, m, 4 * w, group))
+            e = same(got, *wants)
+            if e:
+                fail(f"encode_pack differs from its plain version or K5 at k={k}, "
+                     f"m={m}, group={group}")
+            err = max(err, e)
+    return err
+
+
+def gf_cases(rng):
+    """K3's matrices: every EC 8+4 survivor pattern with 0-4 rows absent
+    and every EC 4+2 one (the reconstruction matrix over the first k
+    present rows), then non-square and edge ones: one output row, 16
+    outputs over 16 inputs, input rows picked out of order, an output row
+    that repeats another's unit row, a zero row.  Yields (label, matrix,
+    rows, R)."""
+    import numpy as np
+
+    from minio_tpu_torch.ops import gf
+
+    for k, m in ((K, M), (4, 2)):
+        for pres in survivor_patterns(k + m, m):
+            idx = tuple(i for i, p in enumerate(pres) if p)[:k]
+            yield f"EC {k}+{m} {pres}", gf.reconstruction_matrix(k, m, idx), idx, k + m
+    pm = gf.parity_matrix(K, M)
+    yield "o=1", pm[:1], tuple(range(K)), N
+    yield "o=16, s=16", gf.parity_matrix(16, 16), tuple(range(16)), 16
+    yield "rows out of order", pm, (11, 3, 0, 7, 5, 9, 1, 4), N
+    dup = np.zeros((5, 3), dtype=np.uint8)
+    dup[0, 1] = dup[2, 1] = dup[3, 0] = 1  # rows 0 and 2 copy input 1
+    dup[1] = rng.integers(1, 256, 3)  # row 4 stays zero
+    yield "repeated unit row, zero row", dup, (2, 0, 1), 3
+
+
+def gf_pattern_sweep(dev, rng) -> int:
+    """K3 against its plain version for every matrix of gf_cases at w =
+    4,104 and B = 1, 2, and at a width off the 4-word quad and on a view
+    off 16-byte alignment (4-byte loads); returns the max_abs_err (0)."""
+    from minio_tpu_torch.ops import kernels, rs
+
+    err = 0
+    for label, mat, rows, R in gf_cases(rng):
+        for B, w in ((1, 4104), (2, 4104), (2, 4101)):
+            x = rand_words(rng, (B, R, w), dev)
+            got = kernels.gf_matmul_words(mat, x, rows)
+            e = same((got,), (rs.gf_matmul_words(mat, x, rows),))
+            if e:
+                fail(f"gf_matmul_words differs from its plain version at {label}, B={B}, w={w}")
+            err = max(err, e)
+        x = rand_words(rng, (2 * R * 4104 + 1,), dev)[1:].view(2, R, 4104)
+        got = kernels.gf_matmul_words(mat, x, rows)
+        e = same((got,), (rs.gf_matmul_words(mat, x, rows),))
+        if e:
+            fail(f"gf_matmul_words differs from its plain version on an unaligned view at {label}")
+        err = max(err, e)
+    return err
+
+
 def check_kernels(dev, rng) -> dict:
     """Phase 2: each kernel against its plain version, then timings."""
     import numpy as np
@@ -392,6 +499,7 @@ def check_kernels(dev, rng) -> dict:
         phash.phash256_host_batched(allw, 4096),
     ):
         fail("encode_pack digests differ from phash256_host_batched")
+    err = max(err, encode_geometry_sweep(dev, rng))
     B = 4
     x = rand_words(rng, (B, K, W), dev)
     ms = cuda_ms(lambda: kernels.encode_pack(x, M, 4 * W, 256), 20)
@@ -405,6 +513,11 @@ def check_kernels(dev, rng) -> dict:
         bound_by=by, shape=[B, K, W],
         **device_times(lambda: kernels.encode_pack(x, M, 4 * W, 256)),
     )
+    # one stripe of one tile without the pack leg: the launch's fixed chain
+    # (memset, launch, fold, atomics, ticket, finalize)
+    x = rand_words(rng, (1, K, 256), dev)
+    results["encode_pack"]["one_tile"] = device_times(
+        lambda: kernels.encode_pack(x, M, 1024, 0))
 
     # --- K2 phash256_batched ---------------------------------------------
     err = 0
@@ -470,6 +583,7 @@ def check_kernels(dev, rng) -> dict:
     full = torch.cat([data, par], dim=1).contiguous()
     if not torch.equal(kernels.gf_matmul_words(rm, full, rows), data):
         fail("gf_matmul_words does not rebuild the data rows")
+    err = max(err, gf_pattern_sweep(dev, rng))
     B = 4
     x = rand_words(rng, (B, N, W), dev)
     ms = cuda_ms(lambda: kernels.gf_matmul_words(rm, x, rows), 20)
@@ -480,6 +594,9 @@ def check_kernels(dev, rng) -> dict:
         bound_by=by, shape=[B, N, W],
         **device_times(lambda: kernels.gf_matmul_words(rm, x, rows)),
     )
+    x = rand_words(rng, (1, N, 256), dev)
+    results["gf_matmul_words"]["one_tile"] = device_times(
+        lambda: kernels.gf_matmul_words(rm, x, rows))
     return results
 
 
@@ -1369,7 +1486,7 @@ REPLACES = {
 
 _KERNEL_NAME = re.compile(
     r"(encode_pipelined_kernel|verify_reconstruct_pipelined_kernel|"
-    r"encode_kernel|pack_kernel|finalize_kernel|phash_kernel|"
+    r"encode_kernel|encode_mxu_kernel|pack_kernel|finalize_kernel|phash_kernel|"
     r"gf_matmul_mxu_kernel|gf_matmul_kernel|verify_reconstruct_kernel)"
     r"(?:I((?:L[ib]\d+E)+)E)?"
 )
@@ -1405,16 +1522,20 @@ def ptxas_summary(log: str) -> list:
 
 
 _SASS_INSN = re.compile(r"^\s*/\*([0-9a-f]{4,})\*/\s+(\S.*?)\s*;")
+# the instantiations sass_loops reads: K2, K6, K1 at EC 8+4 and K3
+SASS_KERNELS = ("phash_kernel", "verify_reconstruct_pipelined",
+                "encode_kernel<8,4,", "encode_mxu_kernel<8,4>", "gf_matmul_kernel")
 
 
 def sass_loops(lib, kernels_mod) -> dict:
-    """Static SASS of K2 and K6 (``cuobjdump -sass`` of the built library),
-    per instantiation: its instruction count and, for each loop (the span
-    of a backward branch), its size and the sizes of the pieces that the
-    branches inside it cut it into.  A thread walks one column (K6) or
-    column quad (K2) per pass of the tile loop, so its size is the static
-    instruction count per column or quad; a piece that a uniform branch
-    skips (a rebuilt row past the pattern's) does not run."""
+    """Static SASS of K2, K6, K1 at EC 8+4 and K3 (``SASS_KERNELS``;
+    ``cuobjdump -sass`` of the built library), per instantiation: its
+    instruction count and, for each loop (the span of a backward branch),
+    its size and the sizes of the pieces that the branches inside it cut
+    it into.  A thread walks one column (K6, K1) or column quad (K2, and
+    K3 where it loads quads) per pass of the tile loop, so its size is the
+    static instruction count per column or quad; a piece that a uniform
+    branch skips (a rebuilt row past the pattern's) does not run."""
     tool = shutil.which("cuobjdump") or os.path.join(
         os.path.dirname(kernels_mod._nvcc()), "cuobjdump")
     proc = subprocess.run([tool, "-sass", str(lib)], capture_output=True,
@@ -1424,7 +1545,7 @@ def sass_loops(lib, kernels_mod) -> dict:
     out = {}
     for body in proc.stdout.split("Function : ")[1:]:
         name = kernel_label(body.split("\n", 1)[0].strip())
-        if not name.startswith(("phash_kernel", "verify_reconstruct_pipelined")):
+        if not name.startswith(SASS_KERNELS):
             continue
         insns = []
         for line in body.splitlines():
@@ -1463,27 +1584,62 @@ def load_copy(path: str):
 
 
 def compare_copies(dev, mods: dict, order: list) -> list:
-    """K2 and K6 of several copies of the port (``mods``: name -> kernels
-    module) in turns (``order``), at the main path's shapes: K2 at
-    (32, 327,680), K6 at heal's (1, 12, 327,680) swar and mxu, and with
-    all rows present.  Every result is first held bit for bit against the
+    """K1, K2, K3 and K6 of several copies of the port (``mods``: name ->
+    kernels module) in turns (``order``), at the main path's shapes: K1
+    with the pack leg at (4, 8, 327,680) swar and mxu, without it at
+    heal's (1, 8, 327,680) and one tile, and its sub-chunk chain (X2) at
+    (4, 8, 327,680); K2 at (32, 327,680); K3 at the degraded GET's
+    (4, 12, 327,680) and (1, 12, 327,680) and one tile, shards 1, 3, 10,
+    12 absent; K6 at heal's (1, 12, 327,680) swar and mxu, and with all
+    rows present.  Every result is first held bit for bit against the
     plain version; then cuda_ms and device_times of each."""
     import numpy as np
     import torch
 
-    from minio_tpu_torch.ops import hash as phash
+    from minio_tpu_torch.ops import gf, hash as phash, rs
 
     heal, every = PATTERNS["data+parity missing"], PATTERNS["all present"]
+    idx = tuple(i for i, p in enumerate(heal) if p)[:K]
+    rmat = gf.reconstruction_matrix(K, M, idx)
     rows = []
     for turn, name in enumerate(order):
         kern = mods[name]
         rng = np.random.default_rng(SEED)
         x2 = rand_words(rng, (4 * K, W), dev)
         x6 = rand_words(rng, (1, N, W), dev)
-        cases = {
-            "K2 (32, 327680)": (lambda: kern.phash256_batched(x2, 4 * W),
-                                lambda: (phash.phash256_words_batched(x2, 4 * W),)),
-        }
+        x1 = rand_words(rng, (4, K, W), dev)
+        x1[-1, :, 256:2048] = 0  # zero groups for the pack leg
+        x3 = rand_words(rng, (4, N, W), dev)
+        cases = {}
+        for label, x, group, form in (
+                ("K1 group=256 (4, 8, 327680)", x1, 256, "swar"),
+                ("K1 group=0 (1, 8, 327680)", x1[:1], 0, "swar"),
+                ("K1 group=0 one tile (1, 8, 256)", x1[:1, :, :256].contiguous(), 0, "swar"),
+                ("K1 mxu group=256 (4, 8, 327680)", x1, 256, "mxu")):
+            cases[label] = (
+                lambda x=x, group=group, form=form: kern.encode_pack(
+                    x, M, 4 * x.shape[-1], group, form),
+                lambda x=x, group=group: kern.encode_pack_plain(x, M, 4 * x.shape[-1], group))
+        chunks = [(o, x1[:, :, o:o + 65536].contiguous()) for o in range(0, W, 65536)]
+
+        def x2_chain(kern=kern, chunks=chunks):
+            acc = torch.zeros((4, N, 8), dtype=torch.int32, device=dev)
+            for i, (o, c) in enumerate(chunks):
+                kern.encode_pack_subchunk(c, acc, o, M, 4 * W, 256, i == len(chunks) - 1)
+            return (acc,)
+
+        # X2: K1's sub-chunk form chained over the row (5 chunks of 65,536
+        # words, as the async overlap mode cuts it), against the whole
+        # row's digests
+        cases["X2 chain of 5 (4, 8, 327680)"] = (
+            x2_chain, lambda: (kern.encode_pack_plain(x1, M, 4 * W, 0)[1],))
+        cases["K2 (32, 327680)"] = (
+            lambda: kern.phash256_batched(x2, 4 * W),
+            lambda: (phash.phash256_words_batched(x2, 4 * W),))
+        for label, x in (("K3 (4, 12, 327680)", x3), ("K3 (1, 12, 327680)", x3[:1]),
+                         ("K3 one tile (1, 12, 256)", x3[:1, :, :256].contiguous())):
+            cases[label] = (lambda x=x: kern.gf_matmul_words(rmat, x, idx),
+                            lambda x=x: (rs.gf_matmul_words(rmat, x, idx),))
         for label, pres, form in (("heal swar", heal, "swar"), ("heal mxu", heal, "mxu"),
                                   ("all present swar", every, "swar")):
             cases[f"K6 {label} (1, 12, 327680)"] = (
@@ -1511,8 +1667,8 @@ def main() -> int:
     ap.add_argument(
         "--parent", metavar="DIR",
         help="another copy of the port (DIR/__init__.py, DIR/ops, DIR/csrc): "
-             "build it too and time its K2 and K6 beside this checkout's, "
-             "in turns parent, new, new, parent")
+             "build it too and time its K1, K2, K3 and K6 beside this "
+             "checkout's, in turns parent, new, new, parent")
     args = ap.parse_args()
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is False", file=sys.stderr)

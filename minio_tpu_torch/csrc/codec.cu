@@ -6,14 +6,20 @@
 // wrapper passes outputs and zeroed accumulators) and returns
 // cudaGetLastError() after each launch.
 //
-// Words are little-endian u32 (4 packed GF(2^8) elements).  The GF product
-// uses the xtime-powers decomposition: for input word x the powers x, 2x,
-// 4x, ..., 128x come from SWAR doublings, and every output word is the XOR
-// of the powers its coefficients select.  The coefficient bits reach the
-// kernel as a by-value GfPlan (kernel parameters live in the constant
-// bank, so every thread reads them at the same address): rm[c*8+b] has
-// bit r set when output row r takes power b of input row c.  All branches
-// on the plan are uniform across the block.
+// Words are little-endian u32 (4 packed GF(2^8) elements), multiplied by
+// SWAR doublings (xtime).  K4 and K5 use the xtime-powers decomposition:
+// for input word x the powers x, 2x, 4x, ..., 128x, and every output word
+// is the XOR of the powers its coefficients select.  Their coefficient
+// bits reach the kernel as a by-value GfPlan (kernel parameters live in
+// the constant bank, so every thread reads them at the same address):
+// rm[c*8+b] has bit r set when output row r takes power b of input row c.
+// All branches on the plan are uniform across the block.  K1, K3 and K6
+// take the product in Horner form from a term program instead (GfTerms,
+// VrTerms): copies for unit rows, 7 xtimes a product row.
+//
+// The constants that ops/kernels.py shares with this file (the tile, row
+// buckets, residencies, term-program sizes) are exported by
+// mtt_constants(), which the loader checks against its own.
 //
 // phash256 (ops/hash.py) mixes word j of a row with the key
 // mix(j*C1+1) into two 32-bit lanes and XOR-folds them by j mod 4.  In
@@ -35,6 +41,7 @@
 
 #include <cuda_runtime.h>
 #include <stdint.h>
+#include <stdio.h>
 #include <string.h>
 
 namespace {
@@ -51,7 +58,6 @@ constexpr uint32_t kM2 = 0x1B873593u;
 struct GfPlan {
   uint16_t rm[kMaxRows * 8];  // rm[c*8+b]: output rows taking power b of input c
   uint8_t nb[kMaxRows];       // xtime chain length of input c
-  uint8_t row[kMaxRows];      // input row index of input c (gf_matmul_words)
 };
 
 __device__ __forceinline__ uint32_t mix32(uint32_t x) {
@@ -63,8 +69,12 @@ __device__ __forceinline__ uint32_t mix32(uint32_t x) {
   return x;
 }
 
+// Multiply each byte by x: shift, and reduce the bytes whose top bit
+// was set (prmt's sign-spread bytes: 0xFF there) - 4 instructions.
 __device__ __forceinline__ uint32_t xtime(uint32_t x) {
-  return ((x & 0x7F7F7F7Fu) << 1) ^ (((x & 0x80808080u) >> 7) * 0x1Du);
+  uint32_t sign;
+  asm("prmt.b32 %0, %1, 0, 0xBA98;" : "=r"(sign) : "r"(x));
+  return ((x & 0x7F7F7F7Fu) << 1) ^ (sign & 0x1D1D1D1Du);
 }
 
 __device__ __forceinline__ uint32_t hash_key(uint32_t col) {
@@ -92,6 +102,38 @@ __device__ __forceinline__ void fold_block(uint32_t h1, uint32_t h2,
   if (lane < 4) {
     atomicXor(&s[lane], h1);
     atomicXor(&s[4 + lane], h2);
+  }
+}
+
+// Length fold of the XOR-combined partials (hash.finalize_partials),
+// in place: (rows, 8) partials -> (rows, 8) digests.
+__global__ void finalize_kernel(uint32_t* __restrict__ part, int count,
+                                uint32_t nbytes) {
+  const int i = blockIdx.x * blockDim.x + threadIdx.x;
+  if (i >= count) return;
+  part[i] = mix32(part[i] ^ (nbytes * kC1 + (uint32_t)(i & 7)));
+}
+
+// Called by every thread after its block's atomicXors into `partials`
+// (K1, K2, K5, K6): the block holding the last ticket applies the length
+// fold of finalize_kernel to all `count` words in place, so no finalize
+// launch follows.  `ticket` arrives zeroed.
+__device__ __forceinline__ void finalize_if_last(uint32_t* partials, int count,
+                                                 uint32_t nbytes,
+                                                 unsigned int* ticket) {
+  __shared__ int s_last;
+  __threadfence();
+  __syncthreads();
+  if (threadIdx.x == 0) {
+    const unsigned int total = gridDim.x * gridDim.y;
+    s_last = atomicAdd(ticket, 1u) == total - 1u;
+  }
+  __syncthreads();
+  if (!s_last) return;
+  __threadfence();
+  for (int i = threadIdx.x; i < count; i += kThreads) {
+    const uint32_t p = __ldcg(partials + i);  // L2: the other blocks' XORs
+    partials[i] = mix32(p ^ (nbytes * kC1 + (uint32_t)(i & 7)));
   }
 }
 
@@ -197,6 +239,86 @@ __device__ __forceinline__ void mxu_tile(const uint32_t* in, int stride, int s,
 }
 
 // --------------------------------------------------------------------------
+// Term programs of a GF(2^8) product (K1 and K3; kernels.gf_terms and
+// kernels.parity_terms compile them once per matrix on the host).
+//
+// Horner's form over the coefficient bits: product row r is
+//   acc = S7; acc = xtime(acc) ^ S6; ...; acc = xtime(acc) ^ S0,
+// where Sb is the XOR of the inputs whose coefficient for row r has bit
+// b set: 7 xtimes a row, against up to 7 per input for the chain of
+// powers, and no test per (input, bit, row).  bits[r][b] has bit j set
+// where input j is in Sb.  The kernels expand them once per block into
+// all-ones / zero words in shared memory (expand_masks), so a term is one
+// LOP3 (acc ^ (x & mask)) and a 16-byte shared load brings the masks of
+// four inputs.  For K3, an output row that is a unit row of the matrix is
+// no product at all: copy[j] names the output row stored straight from
+// input j, and only the other rows are product rows (out[r]).
+// --------------------------------------------------------------------------
+
+struct GfTerms {
+  uint16_t bits[kMaxRows][8];  // bit j: input j's coefficient for product row r has bit b
+  uint8_t row[kMaxRows];       // K3: the input row (of rows_in) of input j
+  int8_t copy[kMaxRows];       // K3: the output row stored from input j, or -1
+  uint8_t out[kMaxRows];       // K3: the output row of product row r
+  int rows;                    // product rows
+};
+
+// The blob kernels.GfTerms packs: bits, row, copy, out, back to back.
+constexpr size_t gf_terms_bytes() {
+  return sizeof(GfTerms::bits) + sizeof(GfTerms::row) + sizeof(GfTerms::copy) +
+         sizeof(GfTerms::out);
+}
+
+GfTerms make_gf_terms(const uint8_t* blob, int rows) {
+  GfTerms t;
+  memcpy(t.bits, blob, sizeof t.bits);
+  blob += sizeof t.bits;
+  memcpy(t.row, blob, sizeof t.row);
+  memcpy(t.copy, blob + sizeof t.row, sizeof t.copy);
+  memcpy(t.out, blob + sizeof t.row + sizeof t.copy, sizeof t.out);
+  t.rows = rows;
+  return t;
+}
+
+// masks[r][b][j] = ~0 where bit j of bits[r][b] is set (r < rows).  The
+// caller syncs the block before reading them.
+template <int SB>
+__device__ __forceinline__ void expand_masks(const GfTerms& t, int rows,
+                                             uint32_t (*masks)[8][SB]) {
+  for (int i = threadIdx.x; i < rows * 8 * SB; i += kThreads) {
+    const int j = i % SB, b = (i / SB) % 8, r = i / (8 * SB);
+    masks[r][b][j] = ((t.bits[r][b] >> j) & 1u) ? ~0u : 0u;
+  }
+}
+
+// One product row of one column word in Horner form; x[j] is 0 past the
+// inputs, whose masks are zero too.
+template <int SB>
+__device__ __forceinline__ uint32_t horner(const uint32_t (&x)[SB],
+                                           const uint32_t (*m)[SB]) {
+  uint32_t acc = 0;
+#pragma unroll
+  for (int b = 7; b >= 0; --b) {
+    acc = xtime(acc);
+#pragma unroll
+    for (int j = 0; j < SB; j += 4) {
+      const uint4 v = *reinterpret_cast<const uint4*>(&m[b][j]);
+      acc ^= (x[j] & v.x) ^ (x[j + 1] & v.y) ^ (x[j + 2] & v.z) ^ (x[j + 3] & v.w);
+    }
+  }
+  return acc;
+}
+
+// The fixed geometries: fixed_parity<K, M> is the parity product of
+// gf.parity_matrix(K, M) in Horner form with only its set terms, as
+// straight-line code that kernels.build generates from the port's own
+// matrix (MTT_FIXED_GEOMETRIES lists them).
+template <int K, int M>
+__device__ __forceinline__ void fixed_parity(const uint32_t* x, uint32_t* acc);
+
+#include "mtt_fixed.cuh"
+
+// --------------------------------------------------------------------------
 // K1 encode_pack: replaces rs_pallas.encode_pack_fused (P4).  Without the
 // pack leg it is also encode_hash_fused (P2), and with a word offset and
 // no finalize it is the GPU body of codec_step.encode_subchunk_words
@@ -206,34 +328,102 @@ __device__ __forceinline__ void mxu_tile(const uint32_t* in, int stride, int s,
 // Bound: operations.  Per stripe it reads the k data rows once and writes
 // the m parity rows (the pack leg then writes m packed rows), so at EC 8+4
 // and 10 MiB blocks: 10 MiB in + 5 MiB parity + 5 MiB packed; the hash of
-// all n rows and the xtime chain on the integer pipe take longer.
-// Design: one thread per column; the k data words are loaded coalesced,
-// hashed and multiplied into MB register accumulators in the same pass,
-// so a data byte is read from device memory once.  The parity words are
-// stored, hashed, and screened per 256-column tile (one tile is one pack
-// group) with __syncthreads_or for the occupancy flags.  Hash partials
-// stay in registers across the block's tiles.  The mxu instantiation
-// stages the tile's k words per column in shared memory instead of running
-// the xtime chain, and takes the parity words from mxu_tile.
+// all n rows (19 integer instructions a word) and the parity product
+// (172 a column at EC 8+4) on the integer pipe take longer.  What the design does about it:
+// * The product in Horner form per parity row: 7 xtimes a row (4 x 7 at
+//   EC 8+4, where a chain of powers per input needs 8 x 7) and no test
+//   per (input, bit, row).  The fixed geometry (fixed_parity: EC 8+4)
+//   runs only the matrix's set terms, generated at build time (4 x 7
+//   xtimes and 116 terms a column, the XORs merged three at a time).
+//   Every other (k, m) takes the masked form from the per-(k, m) term
+//   program (kernels.parity_terms) expanded into shared memory.
+// * One column per thread, a persistent grid (kernels.encode_grid: about
+//   kEncBlocksPerSM blocks per SM split over the stripes), each block a
+//   contiguous run of 256-column tiles; the next tile's k words are
+//   loaded before this tile is hashed and multiplied.
+// * Flags: a warp ballot per parity row into shared memory (two buffers,
+//   by tile parity), read after one barrier per tile: a block-wide vote
+//   per parity row would take m barriers a tile.
+// * With a ticket the last block applies the length fold
+//   (finalize_if_last) after the entry's one memset of accumulator and
+//   ticket: group=0 is one launch, group=256 two (the pack leg needs
+//   every flag of its row).  Without one the partials stay raw (X2).
+// The mxu product runs in its own kernel (encode_mxu_kernel, below),
+// with the same flags and finalize.
 // --------------------------------------------------------------------------
 
-template <int KB, int MB, bool MXU>
-__global__ void __launch_bounds__(kThreads)
+constexpr int kWarps = kThreads / 32;
+constexpr int kEncBlocksPerSM = 3;  // residency encode_grid sizes swar for
+
+// Blocks per SM an instantiation is compiled for: the wider buckets keep
+// more registers (two hash lanes per row) than a third of the file.
+constexpr int enc_min_blocks(int kb, int mb) {
+  return kb + mb > 16 ? (kb + mb <= 24 ? 2 : 1) : kEncBlocksPerSM;
+}
+
+// A tile's flags from its per-warp ballots (one barrier): thread r < m
+// ORs row r's.
+template <int MB>
+__device__ __forceinline__ void flags_of_tile(const uint32_t (&ballots)[MB][kWarps],
+                                              uint32_t* __restrict__ flags, int b,
+                                              int m, int g, int tile) {
+  __syncthreads();
+  const int tid = threadIdx.x;
+  if (tid < m) {
+    uint32_t any = 0;
+#pragma unroll
+    for (int wp = 0; wp < kWarps; ++wp) any |= ballots[tid][wp];
+    flags[((size_t)b * m + tid) * g + tile] = any ? 1u : 0u;
+  }
+}
+
+// The block's partials of all k + m rows XORed into `partials`, then the
+// last block's finalize when there is a ticket.  `s` is zeroed.
+template <int KB, int MB>
+__device__ __forceinline__ void fold_and_finalize(
+    const uint32_t (&h1)[KB + MB], const uint32_t (&h2)[KB + MB], uint32_t* s,
+    uint32_t* __restrict__ partials, unsigned int* __restrict__ ticket, int k,
+    int m, uint32_t nbytes) {
+  const int n = k + m;
+#pragma unroll
+  for (int c = 0; c < KB; ++c)
+    if (c < k) fold_block(h1[c], h2[c], &s[c * 8]);
+#pragma unroll
+  for (int r = 0; r < MB; ++r)
+    if (r < m) fold_block(h1[KB + r], h2[KB + r], &s[(k + r) * 8]);
+  __syncthreads();
+  for (int i = threadIdx.x; i < n * 8; i += kThreads)
+    if (s[i]) atomicXor(&partials[(size_t)blockIdx.y * n * 8 + i], s[i]);
+  if (ticket != nullptr)
+    finalize_if_last(partials, (int)gridDim.y * n * 8, nbytes, ticket);
+}
+
+// The k words of one column (zeros past k and at or past w).
+template <int KB>
+__device__ __forceinline__ void load_column(const uint32_t* __restrict__ in, int k,
+                                            int w, int col, uint32_t (&x)[KB]) {
+#pragma unroll
+  for (int c = 0; c < KB; ++c)
+    x[c] = c < k && col < w ? __ldg(in + (size_t)c * w + col) : 0u;
+}
+
+template <int KB, int MB, int FK, int FM>
+__global__ void __launch_bounds__(kThreads, enc_min_blocks(KB, MB))
 encode_kernel(const uint32_t* __restrict__ data, uint32_t* __restrict__ parity,
-              uint32_t* __restrict__ partials, uint32_t* __restrict__ flags,
-              int k, int m, int w, uint32_t word_offset, int ntiles,
-              int tiles_per_block, const GfPlan plan,
-              const uint32_t* __restrict__ amat) {
+              uint32_t* __restrict__ partials, unsigned int* __restrict__ ticket,
+              uint32_t* __restrict__ flags, int k, int m, int w,
+              uint32_t word_offset, uint32_t nbytes, int ntiles,
+              int tiles_per_block, const GfTerms terms) {
+  constexpr bool kMasked = FK == 0;
   __shared__ uint32_t s[(KB + MB) * 8];
-  __shared__ uint32_t in_s[MXU ? KB * kInStride : 1];
-  __shared__ uint32_t out_s[MXU ? MB * kTile : 1];
+  __shared__ __align__(16) uint32_t masks[kMasked ? MB : 1][8][KB];
+  __shared__ uint32_t s_flag[2][MB][kWarps];
   const int b = blockIdx.y;
   const int n = k + m;
   const int tid = threadIdx.x;
   for (int i = tid; i < n * 8; i += kThreads) s[i] = 0;
+  if constexpr (kMasked) expand_masks<KB>(terms, m, masks);
   __syncthreads();
-  uint32_t af[MB];
-  if constexpr (MXU) load_frags<MB>(amat, af);
 
   uint32_t h1[KB + MB], h2[KB + MB];
 #pragma unroll
@@ -242,44 +432,32 @@ encode_kernel(const uint32_t* __restrict__ data, uint32_t* __restrict__ parity,
   const uint32_t* in = data + (size_t)b * k * w;
   uint32_t* out = parity + (size_t)b * m * w;
   const int g = w / kTile;  // flag columns (flags only when w % 256 == 0)
+  const int first = blockIdx.x * tiles_per_block;
+  const int count = min(tiles_per_block, ntiles - first);  // >= 1
 
-  for (int t = 0; t < tiles_per_block; ++t) {
-    const int tile = blockIdx.x * tiles_per_block + t;
-    if (tile >= ntiles) break;  // uniform across the block
+  uint32_t x[KB];
+  load_column<KB>(in, k, w, first * kTile + tid, x);
+#pragma unroll 1
+  for (int i = 0; i < count; ++i) {
+    const int tile = first + i;
     const int col = tile * kTile + tid;
     const bool valid = col < w;
     const uint32_t key = hash_key((uint32_t)col + word_offset);
-    uint32_t acc[MB];
+    uint32_t acc[MB];  // the parity words
+    uint32_t nx[KB];   // the next tile's words, in flight
+    load_column<KB>(in, k, w, i + 1 < count ? col + kTile : w, nx);
 #pragma unroll
-    for (int r = 0; r < MB; ++r) acc[r] = 0;
-#pragma unroll
-    for (int c = 0; c < KB; ++c) {
-      if (c < k) {
-        uint32_t p = valid ? in[(size_t)c * w + col] : 0u;
-        if (valid) hash_word(p, key, h1[c], h2[c]);
-        if constexpr (MXU) {
-          in_s[c * kInStride + tid] = p;
-        } else {
-#pragma unroll
-          for (int bit = 0; bit < 8; ++bit) {
-            if (bit >= plan.nb[c]) break;
-            const uint32_t msk = plan.rm[c * 8 + bit];
-#pragma unroll
-            for (int r = 0; r < MB; ++r)
-              if ((msk >> r) & 1u) acc[r] ^= p;
-            p = xtime(p);
-          }
-        }
-      }
-    }
-    if constexpr (MXU) {
-      __syncthreads();
-      mxu_tile<MB>(in_s, kInStride, k, out_s, m, af);
-      __syncthreads();
+    for (int c = 0; c < KB; ++c)
+      if (c < k && valid) hash_word(x[c], key, h1[c], h2[c]);
+    if constexpr (FK > 0) {
+      fixed_parity<FK, FM>(x, acc);
+    } else {
 #pragma unroll
       for (int r = 0; r < MB; ++r)
-        if (r < m) acc[r] = out_s[r * kTile + tid];
+        if (r < m) acc[r] = horner<KB>(x, masks[r]);
     }
+    // row by row: store, hash and the row's ballot
+    uint32_t(&ballots)[MB][kWarps] = s_flag[i & 1];
 #pragma unroll
     for (int r = 0; r < MB; ++r) {
       if (r < m) {
@@ -287,23 +465,87 @@ encode_kernel(const uint32_t* __restrict__ data, uint32_t* __restrict__ parity,
           out[(size_t)r * w + col] = acc[r];
           hash_word(acc[r], key, h1[KB + r], h2[KB + r]);
         }
-        if (flags != nullptr) {
-          const int any = __syncthreads_or(valid && acc[r] != 0u);
-          if (tid == 0) flags[((size_t)b * m + r) * g + tile] = any ? 1u : 0u;
+        if (flags != nullptr) {  // uniform
+          const uint32_t bal = __ballot_sync(0xffffffffu, valid && acc[r] != 0u);
+          if ((tid & 31) == 0) ballots[r][tid >> 5] = bal;
         }
       }
     }
+    if (flags != nullptr) flags_of_tile<MB>(ballots, flags, b, m, g, tile);
+#pragma unroll
+    for (int c = 0; c < KB; ++c) x[c] = nx[c];
   }
+  fold_and_finalize<KB, MB>(h1, h2, s, partials, ticket, k, m, nbytes);
+}
 
-#pragma unroll
-  for (int c = 0; c < KB; ++c)
-    if (c < k) fold_block(h1[c], h2[c], &s[c * 8]);
-#pragma unroll
-  for (int r = 0; r < MB; ++r)
-    if (r < m) fold_block(h1[KB + r], h2[KB + r], &s[(k + r) * 8]);
+// K1 [mxu]: each word loaded, hashed and staged in turn, mxu_tile makes
+// the parity words from the staged tile; a grid of short runs (1-8 tiles
+// a block, as K4's: kernels.encode_grid), so that blocks at other phases
+// of the tile overlap mxu_tile's two barriers.  No register bound: 61
+// registers (4 blocks per SM) run faster than 48 with spills (5).  Flags
+// and finalize as encode_kernel's.
+template <int KB, int MB>
+__global__ void __launch_bounds__(kThreads)
+encode_mxu_kernel(const uint32_t* __restrict__ data, uint32_t* __restrict__ parity,
+                  uint32_t* __restrict__ partials, unsigned int* __restrict__ ticket,
+                  uint32_t* __restrict__ flags, int k, int m, int w,
+                  uint32_t word_offset, uint32_t nbytes, int ntiles,
+                  int tiles_per_block, const uint32_t* __restrict__ amat) {
+  __shared__ uint32_t s[(KB + MB) * 8];
+  __shared__ uint32_t s_flag[2][MB][kWarps];
+  __shared__ uint32_t in_s[KB * kInStride];
+  __shared__ uint32_t out_s[MB * kTile];
+  const int b = blockIdx.y;
+  const int n = k + m;
+  const int tid = threadIdx.x;
+  for (int i = tid; i < n * 8; i += kThreads) s[i] = 0;
   __syncthreads();
-  for (int i = tid; i < n * 8; i += kThreads)
-    if (s[i]) atomicXor(&partials[(size_t)b * n * 8 + i], s[i]);
+  uint32_t af[MB];
+  load_frags<MB>(amat, af);
+
+  uint32_t h1[KB + MB], h2[KB + MB];
+#pragma unroll
+  for (int r = 0; r < KB + MB; ++r) h1[r] = h2[r] = 0;
+
+  const uint32_t* in = data + (size_t)b * k * w;
+  uint32_t* out = parity + (size_t)b * m * w;
+  const int g = w / kTile;
+
+  for (int t = 0; t < tiles_per_block; ++t) {
+    const int tile = blockIdx.x * tiles_per_block + t;
+    if (tile >= ntiles) break;  // uniform across the block
+    const int col = tile * kTile + tid;
+    const bool valid = col < w;
+    const uint32_t key = hash_key((uint32_t)col + word_offset);
+#pragma unroll
+    for (int c = 0; c < KB; ++c) {
+      if (c < k) {
+        const uint32_t p = valid ? in[(size_t)c * w + col] : 0u;
+        if (valid) hash_word(p, key, h1[c], h2[c]);
+        in_s[c * kInStride + tid] = p;
+      }
+    }
+    __syncthreads();
+    mxu_tile<MB>(in_s, kInStride, k, out_s, m, af);
+    __syncthreads();
+    uint32_t(&ballots)[MB][kWarps] = s_flag[t & 1];
+#pragma unroll
+    for (int r = 0; r < MB; ++r) {
+      if (r < m) {
+        const uint32_t v = out_s[r * kTile + tid];
+        if (valid) {
+          out[(size_t)r * w + col] = v;
+          hash_word(v, key, h1[KB + r], h2[KB + r]);
+        }
+        if (flags != nullptr) {  // uniform
+          const uint32_t bal = __ballot_sync(0xffffffffu, valid && v != 0u);
+          if ((tid & 31) == 0) ballots[r][tid >> 5] = bal;
+        }
+      }
+    }
+    if (flags != nullptr) flags_of_tile<MB>(ballots, flags, b, m, g, tile);
+  }
+  fold_and_finalize<KB, MB>(h1, h2, s, partials, ticket, k, m, nbytes);
 }
 
 // The pack leg: a parallel grid cannot carry the TPU kernel's sequential
@@ -362,45 +604,14 @@ pack_kernel(const uint32_t* __restrict__ parity, const uint32_t* __restrict__ fl
   }
 }
 
-// Length fold of the XOR-combined partials (hash.finalize_partials),
-// in place: (rows, 8) partials -> (rows, 8) digests.
-__global__ void finalize_kernel(uint32_t* __restrict__ part, int count,
-                                uint32_t nbytes) {
-  const int i = blockIdx.x * blockDim.x + threadIdx.x;
-  if (i >= count) return;
-  part[i] = mix32(part[i] ^ (nbytes * kC1 + (uint32_t)(i & 7)));
-}
-
-// Called by every thread after its block's atomicXors into `partials`
-// (K2, K5, K6): the block holding the last ticket applies the length fold
-// of finalize_kernel to all `count` words in place, so no finalize launch
-// follows.  `ticket` arrives zeroed with the partials.
-__device__ __forceinline__ void finalize_if_last(uint32_t* partials, int count,
-                                                 uint32_t nbytes,
-                                                 unsigned int* ticket) {
-  __shared__ int s_last;
-  __threadfence();
-  __syncthreads();
-  if (threadIdx.x == 0) {
-    const unsigned int total = gridDim.x * gridDim.y;
-    s_last = atomicAdd(ticket, 1u) == total - 1u;
-  }
-  __syncthreads();
-  if (!s_last) return;
-  __threadfence();
-  for (int i = threadIdx.x; i < count; i += kThreads) {
-    const uint32_t p = __ldcg(partials + i);  // L2: the other blocks' XORs
-    partials[i] = mix32(p ^ (nbytes * kC1 + (uint32_t)(i & 7)));
-  }
-}
-
 // --------------------------------------------------------------------------
 // K2 phash256_batched: replaces hash.phash256_words_batched (X1, which the
 // JAX package leaves to XLA) on the healthy-GET verify.
 //
-// Bound: operations.  The hash takes 22 integer ops a word and the key
-// 10 a column, once for all rows; at (32, 327,680) that is 14.0 us on an
-// H100's integer pipe against 12.5 us for reading each word once.
+// Bound: bytes, nearly level with the operations.  The hash takes 19
+// integer instructions a word and the key 10 a column, once for all rows;
+// at (32, 327,680) that is 12.1 us on an H100's integer pipe against
+// 12.5 us for reading each word once.
 // Design, for bytes in flight and for the key:
 // * A thread owns a column quad j..j+3 (j % 4 == 0) and loads it with one
 //   16-byte load per row.  The quad is one word of each phash256
@@ -427,6 +638,7 @@ __device__ __forceinline__ void finalize_if_last(uint32_t* partials, int count,
 // --------------------------------------------------------------------------
 
 constexpr int kPhashRows = 4;  // rows per K2 block: the group sharing the keys
+constexpr int kPhashBlocksPerSM = 2;  // K2's one-wave grid (kernels.phash_grid)
 
 __device__ __forceinline__ uint4 load_quad(const uint32_t* p, bool aligned) {
   if (aligned) return __ldg(reinterpret_cast<const uint4*>(p));
@@ -487,7 +699,7 @@ __device__ __forceinline__ void hash_tile(const uint4 (&v)[kPhashRows], int rows
     if (r < rows) hash_quad(v[r], key, h[r]);
 }
 
-__global__ void __launch_bounds__(kThreads, 2)
+__global__ void __launch_bounds__(kThreads, kPhashBlocksPerSM)
 phash_kernel(const uint32_t* __restrict__ words, uint32_t* __restrict__ acc,
              int R, int w, int tiles_per_block, uint32_t nbytes, bool aligned) {
   __shared__ uint32_t s[kPhashRows * 8];
@@ -541,45 +753,110 @@ phash_kernel(const uint32_t* __restrict__ words, uint32_t* __restrict__ acc,
 
 // --------------------------------------------------------------------------
 // K3 gf_matmul_words: replaces rs_pallas.matmul_words (P1) on the
-// degraded-GET reconstruct.  The matrix is known only at run time (it is
-// the inverted sub-matrix of the survivor pattern) and arrives as a
-// GfPlan, whose row[] picks the s input rows straight out of the
-// (B, R, w) shard batch - no gather copy of the survivors.
+// degraded-GET reconstruct (and the backend's re-solve of a stripe).  The
+// matrix is known only at run time (the inverted sub-matrix of the
+// survivor pattern) and arrives as the GfTerms that kernels.gf_terms
+// compiles once per (matrix, rows), whose row[] picks the s input rows
+// straight out of the (B, rows_in, w) shard batch: no gather copy.
 //
-// Bound: operations (the xtime chain on the integer pipe takes longer
-// than s rows in + o rows out per stripe: 10 MiB + 10 MiB at EC 8+4 with
-// all k data rows rebuilt).
-// Design: one thread per column, the xtime chain of each input word in a
-// register, o <= OB accumulators in registers.
+// Bound: bytes.  Degraded GET at EC 8+4 with shards 1, 3, 10, 12 absent
+// rebuilds all 8 data rows, but 6 of them are unit rows of the matrix
+// (present data rows): copies.  Only the 2 others take the product, 2 x
+// (7 xtimes + 29 terms) = 86 instructions a column, which the integer pipe
+// does in less time than reading 8 rows and writing 8 (20 MiB a stripe).
+// Design, for bytes in flight:
+// * A thread owns a column quad and moves it with one 16-byte load per
+//   input row and one 16-byte store per output row (4-byte ones where a
+//   row is not 16-byte aligned, or past w).  Copies are stored straight
+//   from the loaded quad.
+// * Product rows in Horner form from masks expanded into shared memory
+//   (expand_masks); one 16-byte shared load brings four inputs' masks,
+//   used for the quad's four words.
+// * A grid of about kGfBlocksPerSM blocks per SM (kernels.gf_grid)
+//   strides over the (stripe, 256-quad tile) pairs.
 // --------------------------------------------------------------------------
 
-template <int OB>
-__global__ void __launch_bounds__(kThreads)
+constexpr int kGfBlocksPerSM = 4;  // the grid gf_grid sizes
+
+__device__ __forceinline__ uint4 xtime4(uint4 v) {
+  return make_uint4(xtime(v.x), xtime(v.y), xtime(v.z), xtime(v.w));
+}
+
+// Words col .. col+3 of a row: one 16-byte load when `full` (16-byte
+// aligned rows, the quad inside w), else 4-byte loads inside w.
+__device__ __forceinline__ uint4 load4(const uint32_t* __restrict__ row, int col,
+                                       int w, bool full) {
+  if (full) return __ldg(reinterpret_cast<const uint4*>(row + col));
+  uint4 v = make_uint4(0u, 0u, 0u, 0u);
+  if (col < w) v.x = __ldg(row + col);
+  if (col + 1 < w) v.y = __ldg(row + col + 1);
+  if (col + 2 < w) v.z = __ldg(row + col + 2);
+  if (col + 3 < w) v.w = __ldg(row + col + 3);
+  return v;
+}
+
+__device__ __forceinline__ void store4(uint32_t* row, int col, int w, bool full,
+                                       uint4 v) {
+  if (full) {
+    *reinterpret_cast<uint4*>(row + col) = v;
+    return;
+  }
+  if (col < w) row[col] = v.x;
+  if (col + 1 < w) row[col + 1] = v.y;
+  if (col + 2 < w) row[col + 2] = v.z;
+  if (col + 3 < w) row[col + 3] = v.w;
+}
+
+template <int SB>
+__global__ void __launch_bounds__(kThreads, SB <= 8 ? kGfBlocksPerSM : 2)
 gf_matmul_kernel(const uint32_t* __restrict__ in, uint32_t* __restrict__ out,
-                 int rows_in, int o, int s, int w, const GfPlan plan) {
-  const int b = blockIdx.y;
-  const int col = blockIdx.x * kThreads + threadIdx.x;
-  if (col >= w) return;
-  const uint32_t* src = in + (size_t)b * rows_in * w;
-  uint32_t acc[OB];
+                 int B, int rows_in, int o, int s, int w, bool aligned,
+                 const GfTerms terms) {
+  __shared__ __align__(16) uint32_t masks[kMaxRows][8][SB];
+  expand_masks<SB>(terms, terms.rows, masks);
+  __syncthreads();
+  const int nq = (w + 3) >> 2;
+  const int tiles = (nq + kThreads - 1) / kThreads;  // per stripe
+#pragma unroll 1
+  for (int t = blockIdx.x; t < B * tiles; t += gridDim.x) {
+    const int b = t / tiles;
+    const int col = 4 * ((t - b * tiles) * kThreads + threadIdx.x);
+    if (col >= w) continue;
+    const bool full = aligned && col + 4 <= w;
+    const uint32_t* src = in + (size_t)b * rows_in * w;
+    uint32_t* dst = out + (size_t)b * o * w;
+    uint4 x[SB];
 #pragma unroll
-  for (int r = 0; r < OB; ++r) acc[r] = 0;
-  for (int c = 0; c < s; ++c) {
-    uint32_t p = src[(size_t)plan.row[c] * w + col];
+    for (int j = 0; j < SB; ++j)
+      x[j] = j < s ? load4(src + (size_t)terms.row[j] * w, col, w, full)
+                   : make_uint4(0u, 0u, 0u, 0u);
 #pragma unroll
-    for (int bit = 0; bit < 8; ++bit) {
-      if (bit >= plan.nb[c]) break;
-      const uint32_t msk = plan.rm[c * 8 + bit];
+    for (int j = 0; j < SB; ++j) {
+      const int d = terms.copy[j];
+      if (j < s && d >= 0) store4(dst + (size_t)d * w, col, w, full, x[j]);
+    }
+#pragma unroll 1
+    for (int r = 0; r < terms.rows; ++r) {
+      uint4 acc = make_uint4(0u, 0u, 0u, 0u);
 #pragma unroll
-      for (int r = 0; r < OB; ++r)
-        if ((msk >> r) & 1u) acc[r] ^= p;
-      p = xtime(p);
+      for (int bit = 7; bit >= 0; --bit) {
+        acc = xtime4(acc);
+#pragma unroll
+        for (int j = 0; j < SB; j += 4) {
+          const uint4 v = *reinterpret_cast<const uint4*>(&masks[r][bit][j]);
+          const uint32_t mv[4] = {v.x, v.y, v.z, v.w};
+#pragma unroll
+          for (int i = 0; i < 4; ++i) {
+            acc.x ^= x[j + i].x & mv[i];
+            acc.y ^= x[j + i].y & mv[i];
+            acc.z ^= x[j + i].z & mv[i];
+            acc.w ^= x[j + i].w & mv[i];
+          }
+        }
+      }
+      store4(dst + (size_t)terms.out[r] * w, col, w, full, acc);
     }
   }
-  uint32_t* dst = out + (size_t)b * o * w;
-#pragma unroll
-  for (int r = 0; r < OB; ++r)
-    if (r < o) dst[(size_t)r * w + col] = acc[r];
 }
 
 // --------------------------------------------------------------------------
@@ -590,9 +867,9 @@ gf_matmul_kernel(const uint32_t* __restrict__ in, uint32_t* __restrict__ out,
 // w) shard batch is hashed and, when it is one of the k chosen
 // survivors, multiplied into the k rebuilt data rows, in the same pass.
 //
-// Bound: operations when rows are missing (the hash and the xtime chain
-// on the integer pipe take longer than each present row read once, k
-// rows + n digests written); bytes when all are present (identity).
+// Bound: bytes (each present row read once, k rows + n digests
+// written); at heal's pattern the hash and the product on the integer
+// pipe come close.
 // Design: one thread per column, the K1/K2 hash leg with one (h1, h2)
 // register pair per row (NB rows, templated), the K3 xtime chain with
 // OB register accumulators.  The plan is indexed by shard row: the
@@ -879,9 +1156,9 @@ encode_pipelined_kernel(const uint32_t* __restrict__ data,
 // order (terms.row lists them); slot j's hash registers fold into shard row
 // terms.row[j]'s digest, and absent rows are neither read nor hashed.
 //
-// Bound: operations at heal's pattern (EC 8+4, shards 1, 3, 10, 12 gone:
-// 8 present rows hashed, 2 data rows rebuilt in 2 x (7 xtimes + 29 terms)
-// = 142 ops a column), bytes with all rows present.
+// Bound: bytes (at heal's pattern, EC 8+4, shards 1, 3, 10, 12 gone, the
+// operations come close: 8 present rows hashed, 2 data rows rebuilt in
+// 2 x (7 xtimes + 29 terms) = 86 instructions a column).
 // Design of the product, for the terms the matrix has:
 // * Output data rows that are present are copies: their row of the
 //   reconstruction matrix is a unit vector.  The thread stores them
@@ -1078,7 +1355,7 @@ gf_matmul_mxu_kernel(const uint8_t* __restrict__ in, uint8_t* __restrict__ out,
   }
 }
 
-int bucket(int v) { return v <= 4 ? 4 : (v <= 8 ? 8 : 16); }
+constexpr int bucket(int v) { return v <= 4 ? 4 : (v <= 8 ? 8 : 16); }
 
 // Dynamic shared memory of a pipelined launch; above the default 48 KiB
 // window only after the per-kernel opt-in.
@@ -1088,30 +1365,27 @@ cudaError_t prepare_smem(Kernel kernel, size_t smem) {
                               (int)smem);
 }
 
-GfPlan make_plan(const uint16_t* rm, const uint8_t* nb, const uint8_t* row) {
+GfPlan make_plan(const uint16_t* rm, const uint8_t* nb) {
   GfPlan p;
   for (int i = 0; i < kMaxRows * 8; ++i) p.rm[i] = rm[i];
-  for (int i = 0; i < kMaxRows; ++i) {
-    p.nb[i] = nb[i];
-    p.row[i] = row ? row[i] : (uint8_t)i;
-  }
+  for (int i = 0; i < kMaxRows; ++i) p.nb[i] = nb[i];
   return p;
 }
 
-// amat == nullptr launches the swar instantiation, else the mxu one.
-template <int KB, int MB>
+template <int KB, int MB, int FK = 0, int FM = 0>
 void launch_encode(dim3 grid, cudaStream_t st, const uint32_t* data,
-                   uint32_t* parity, uint32_t* partials, uint32_t* flags,
-                   int k, int m, int w, uint32_t word_offset, int ntiles,
-                   int tpb, const GfPlan& plan, const uint32_t* amat) {
+                   uint32_t* parity, uint32_t* partials, unsigned int* ticket,
+                   uint32_t* flags, int k, int m, int w, uint32_t word_offset,
+                   uint32_t nbytes, int ntiles, int tpb, const GfTerms& terms,
+                   const uint32_t* amat) {
   if (amat)
-    encode_kernel<KB, MB, true><<<grid, kThreads, 0, st>>>(
-        data, parity, partials, flags, k, m, w, word_offset, ntiles, tpb, plan,
-        amat);
+    encode_mxu_kernel<KB, MB><<<grid, kThreads, 0, st>>>(
+        data, parity, partials, ticket, flags, k, m, w, word_offset, nbytes,
+        ntiles, tpb, amat);
   else
-    encode_kernel<KB, MB, false><<<grid, kThreads, 0, st>>>(
-        data, parity, partials, flags, k, m, w, word_offset, ntiles, tpb, plan,
-        amat);
+    encode_kernel<KB, MB, FK, FM><<<grid, kThreads, 0, st>>>(
+        data, parity, partials, ticket, flags, k, m, w, word_offset, nbytes,
+        ntiles, tpb, terms);
 }
 
 template <int NB, int OB>
@@ -1184,52 +1458,85 @@ cudaError_t launch_vr_pipelined(dim3 grid, size_t smem, cudaStream_t st,
 
 extern "C" {
 
+// The arguments of one K1 launch, packed by kernels.py (_ENCODE_ARGS: 9
+// addresses, 9 ints, 2 u32, 4 bytes of padding) and passed as one
+// pointer: ctypes converts one argument instead of twenty.
+struct EncodeArgs {
+  uint64_t data, parity, acc, ticket, flags, packed, terms, amat, stream;
+  int32_t device, B, k, m, w, group, zero_acc, tiles_per_block, terms_len;
+  uint32_t nbytes, word_offset;
+};
+static_assert(sizeof(EncodeArgs) == 120, "kernels._ENCODE_ARGS packs 120 bytes");
+
 // words (B, k, w) -> parity (B, m, w), the phash256 partials of all k+m
-// rows XORed into `partials` (B, k+m, 8) with the hash key of column c
-// taken at c + word_offset, and with group == 256: flags (B, m, w/256)
-// 0/1 and packed (B, m, w).  With finalize != 0 the partials are then
-// finalized in place (zeroed on entry: the digests); with finalize == 0
-// they stay raw for the next sub-chunk.  A non-null `amat` (the m x k
+// rows XORed into `acc` (B, k+m, 8) with the hash key of column c taken
+// at c + word_offset, and with group == 256: flags (B, m, w/256) 0/1 and
+// packed (B, m, w).  zero_acc != 0 zeroes `acc` first (else the partials
+// accumulate onto it, as a sub-chunk chain does).  A non-null `ticket`
+// (zeroed here) makes the last block finalize the partials in place: the
+// digests; with a null one they stay raw.  The whole-row call passes
+// ticket == acc + B*(k+m)*8, so one memset zeroes both.  `terms` is the
+// parity matrix's term program (kernels.parity_terms, gf_terms_bytes()
+// long); the fixed geometry ignores it.  A non-null `amat` (the m x k
 // parity matrix in kernels.mxu_fragments order) selects the mxu product.
-// Returns the first non-zero cudaGetLastError().
-int mtt_encode_pack(int device, const uint32_t* data, uint32_t* parity, uint32_t* partials,
-                    uint32_t* flags, uint32_t* packed, int B, int k, int m,
-                    int w, int group, uint32_t nbytes, uint32_t word_offset,
-                    int finalize, int tiles_per_block, const uint16_t* rm,
-                    const uint8_t* nb, const uint32_t* amat, void* stream) {
+// Returns the first non-zero CUDA error.
+int mtt_encode_pack(const EncodeArgs* a) {
+  const uint32_t* data = reinterpret_cast<const uint32_t*>(a->data);
+  uint32_t* parity = reinterpret_cast<uint32_t*>(a->parity);
+  uint32_t* acc = reinterpret_cast<uint32_t*>(a->acc);
+  unsigned int* ticket = reinterpret_cast<unsigned int*>(a->ticket);
+  uint32_t* flags = reinterpret_cast<uint32_t*>(a->flags);
+  uint32_t* packed = reinterpret_cast<uint32_t*>(a->packed);
+  const uint32_t* amat = reinterpret_cast<const uint32_t*>(a->amat);
+  const int device = a->device, B = a->B, k = a->k, m = a->m, w = a->w,
+            group = a->group, zero_acc = a->zero_acc,
+            tiles_per_block = a->tiles_per_block;
+  const uint32_t nbytes = a->nbytes, word_offset = a->word_offset;
+  void* stream = reinterpret_cast<void*>(a->stream);
   if (k < 1 || k > kMaxRows || m < 0 || m > kMaxRows || w <= 0 ||
       tiles_per_block < 1 || B <= 0 || B > 65535 || word_offset % 4 != 0 ||
+      (size_t)a->terms_len != gf_terms_bytes() ||
       (group != 0 && (group != kTile || w % kTile != 0)))
     return (int)cudaErrorInvalidValue;
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return (int)err;
   cudaStream_t st = (cudaStream_t)stream;
-  const GfPlan plan = make_plan(rm, nb, nullptr);
+  const size_t count = (size_t)B * (k + m) * 8;
+  const bool joint = ticket == reinterpret_cast<unsigned int*>(acc + count);
+  if (zero_acc)
+    err = cudaMemsetAsync(acc, 0, (count + (joint ? 1 : 0)) * sizeof(uint32_t), st);
+  if (err == cudaSuccess && ticket != nullptr && !(zero_acc && joint))
+    err = cudaMemsetAsync(ticket, 0, sizeof(unsigned int), st);
+  if (err != cudaSuccess) return (int)err;
+  const GfTerms t = make_gf_terms(reinterpret_cast<const uint8_t*>(a->terms), m);
   const int ntiles = (w + kTile - 1) / kTile;
   dim3 grid((ntiles + tiles_per_block - 1) / tiles_per_block, B);
   uint32_t* fl = group ? flags : nullptr;
   const int kb = bucket(k), mb = bucket(m);
-#define MTT_ENC(KB_, MB_)                                                   \
-  if (kb == KB_ && mb == MB_)                                               \
-    launch_encode<KB_, MB_>(grid, st, data, parity, partials, fl, k, m, w, \
-                            word_offset, ntiles, tiles_per_block, plan, amat);
+  bool fixed = false;
+#define MTT_FIXED_ENC(K_, M_)                                                  \
+  if (!amat && k == K_ && m == M_) {                                           \
+    launch_encode<bucket(K_), bucket(M_), K_, M_>(                             \
+        grid, st, data, parity, acc, ticket, fl, k, m, w, word_offset, nbytes, \
+        ntiles, tiles_per_block, t, amat);                                     \
+    fixed = true;                                                              \
+  }
+  MTT_FIXED_GEOMETRIES(MTT_FIXED_ENC)
+#undef MTT_FIXED_ENC
+#define MTT_ENC(KB_, MB_)                                                      \
+  if (!fixed && kb == KB_ && mb == MB_)                                        \
+    launch_encode<KB_, MB_>(grid, st, data, parity, acc, ticket, fl, k, m, w,  \
+                            word_offset, nbytes, ntiles, tiles_per_block, t,   \
+                            amat);
   MTT_ENC(4, 4) MTT_ENC(4, 8) MTT_ENC(4, 16)
   MTT_ENC(8, 4) MTT_ENC(8, 8) MTT_ENC(8, 16)
   MTT_ENC(16, 4) MTT_ENC(16, 8) MTT_ENC(16, 16)
 #undef MTT_ENC
   err = cudaGetLastError();
-  if (err != cudaSuccess) return (int)err;
-  if (group && m > 0) {
-    const int g = w / kTile;
-    dim3 pgrid(B * m, (g + kGroupsPerBlock - 1) / kGroupsPerBlock);
-    pack_kernel<<<pgrid, kThreads, 0, st>>>(parity, flags, packed, w, g);
-    err = cudaGetLastError();
-    if (err != cudaSuccess) return (int)err;
-  }
-  if (!finalize) return (int)cudaSuccess;
-  const int count = B * (k + m) * 8;
-  finalize_kernel<<<(count + kThreads - 1) / kThreads, kThreads, 0, st>>>(
-      partials, count, nbytes);
+  if (err != cudaSuccess || !group || m == 0) return (int)err;
+  const int g = w / kTile;
+  dim3 pgrid(B * m, (g + kGroupsPerBlock - 1) / kGroupsPerBlock);
+  pack_kernel<<<pgrid, kThreads, 0, st>>>(parity, flags, packed, w, g);
   return (int)cudaGetLastError();
 }
 
@@ -1252,7 +1559,7 @@ int mtt_encode_pack_pipelined(int device, const uint32_t* data, uint32_t* parity
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return (int)err;
   cudaStream_t st = (cudaStream_t)stream;
-  const GfPlan plan = make_plan(rm, nb, nullptr);
+  const GfPlan plan = make_plan(rm, nb);
   const int ntiles = (w + kTile - 1) / kTile;
   dim3 grid((ntiles + tiles_per_block - 1) / tiles_per_block, B);
   const size_t smem = (size_t)kStages * k * kTile * sizeof(uint32_t);
@@ -1306,25 +1613,40 @@ int mtt_phash256(int device, const uint32_t* words, uint32_t* acc, int R, int w,
   return (int)cudaGetLastError();
 }
 
-// (B, rows_in, w) words, plan rows row[0..s) -> (B, o, w).
-int mtt_gf_matmul(int device, const uint32_t* in, uint32_t* out, int B, int rows_in,
-                  int w, int o, int s, const uint16_t* rm, const uint8_t* nb,
-                  const uint8_t* row, void* stream) {
+// The arguments of one K3 launch, packed by kernels.py (_GF_ARGS: 4
+// addresses, 9 ints, 4 bytes of padding).
+struct GfMatmulArgs {
+  uint64_t in, out, terms, stream;
+  int32_t device, B, rows_in, w, o, s, blocks, terms_len, rows;
+};
+static_assert(sizeof(GfMatmulArgs) == 72, "kernels._GF_ARGS packs 72 bytes");
+
+// (B, rows_in, w) words, inputs terms.row[0..s) -> (B, o, w), any w > 0.
+// `terms` is the (o, s) matrix's term program (kernels.gf_terms,
+// gf_terms_bytes() long) with `rows` product rows; the grid strides over
+// the (stripe, 256-quad tile) pairs with `blocks` blocks.
+int mtt_gf_matmul(const GfMatmulArgs* a) {
+  const uint32_t* in = reinterpret_cast<const uint32_t*>(a->in);
+  uint32_t* out = reinterpret_cast<uint32_t*>(a->out);
+  const int device = a->device, B = a->B, rows_in = a->rows_in, w = a->w,
+            o = a->o, s = a->s, blocks = a->blocks, rows = a->rows;
+  void* stream = reinterpret_cast<void*>(a->stream);
   if (o < 1 || o > kMaxRows || s < 1 || s > kMaxRows || w <= 0 || B <= 0 ||
-      B > 65535)
+      blocks < 1 || rows < 0 || rows > o || (size_t)a->terms_len != gf_terms_bytes())
     return (int)cudaErrorInvalidValue;
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return (int)err;
   cudaStream_t st = (cudaStream_t)stream;
-  const GfPlan plan = make_plan(rm, nb, row);
-  dim3 grid((w + kThreads - 1) / kThreads, B);
-  const int ob = bucket(o);
-  if (ob == 4)
-    gf_matmul_kernel<4><<<grid, kThreads, 0, st>>>(in, out, rows_in, o, s, w, plan);
-  else if (ob == 8)
-    gf_matmul_kernel<8><<<grid, kThreads, 0, st>>>(in, out, rows_in, o, s, w, plan);
+  const GfTerms t = make_gf_terms(reinterpret_cast<const uint8_t*>(a->terms), rows);
+  const bool aligned = w % 4 == 0 && ((uintptr_t)in & 15u) == 0 &&
+                       ((uintptr_t)out & 15u) == 0;
+  const int sb = bucket(s);
+  if (sb == 4)
+    gf_matmul_kernel<4><<<blocks, kThreads, 0, st>>>(in, out, B, rows_in, o, s, w, aligned, t);
+  else if (sb == 8)
+    gf_matmul_kernel<8><<<blocks, kThreads, 0, st>>>(in, out, B, rows_in, o, s, w, aligned, t);
   else
-    gf_matmul_kernel<16><<<grid, kThreads, 0, st>>>(in, out, rows_in, o, s, w, plan);
+    gf_matmul_kernel<16><<<blocks, kThreads, 0, st>>>(in, out, B, rows_in, o, s, w, aligned, t);
   return (int)cudaGetLastError();
 }
 
@@ -1349,7 +1671,7 @@ int mtt_verify_reconstruct(int device, const uint32_t* shards, uint32_t* data,
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return (int)err;
   cudaStream_t st = (cudaStream_t)stream;
-  const GfPlan plan = make_plan(rm, nb, nullptr);
+  const GfPlan plan = make_plan(rm, nb);
   const int ntiles = (w + kTile - 1) / kTile;
   dim3 grid((ntiles + tiles_per_block - 1) / tiles_per_block, B);
   const int nbk = bucket(n), ob = bucket(k);
@@ -1444,6 +1766,32 @@ int mtt_gf_matmul_mxu(int device, const uint8_t* in, uint8_t* out, int o, int s,
   else
     gf_matmul_mxu_kernel<16><<<grid, kThreads, 0, st>>>(in, out, o, s, (size_t)length, aligned, amat);
   return (int)cudaGetLastError();
+}
+
+// The constants ops/kernels.py shares with this file, as "name=v[,v...]"
+// words: the loader (kernels._load) refuses a library whose values
+// differ from its own.
+const char* mtt_constants() {
+#define MTT_FIXED_STR(K_, M_) "," #K_ "x" #M_
+  static char buf[512];
+  static const int len = snprintf(
+      buf, sizeof buf,
+      "tile=%d max_rows=%d phash_rows=%d phash_blocks_per_sm=%d "
+      "pipe_blocks_per_sm=%d enc_blocks_per_sm=%d gf_blocks_per_sm=%d "
+      "bucket=%d,%d,%d,%d,%d,%d,%d,%d,%d,%d,%d,%d,%d,%d,%d,%d "
+      "rb_max=%d,%d,%d vr_terms_bytes=%d,%d,%d gf_terms_bytes=%d "
+      "encode_args_bytes=%d gf_args_bytes=%d fixed=%s",
+      kTile, kMaxRows, kPhashRows, kPhashBlocksPerSM, kPipeBlocksPerSM,
+      kEncBlocksPerSM, kGfBlocksPerSM, bucket(1), bucket(2), bucket(3), bucket(4), bucket(5),
+      bucket(6), bucket(7), bucket(8), bucket(9), bucket(10), bucket(11),
+      bucket(12), bucket(13), bucket(14), bucket(15), bucket(16), kRbMax<4>,
+      kRbMax<8>, kRbMax<16>, (int)terms_bytes<4>(), (int)terms_bytes<8>(),
+      (int)terms_bytes<16>(), (int)gf_terms_bytes(), (int)sizeof(EncodeArgs),
+      (int)sizeof(GfMatmulArgs),
+      "" MTT_FIXED_GEOMETRIES(MTT_FIXED_STR));
+#undef MTT_FIXED_STR
+  (void)len;
+  return buf;
 }
 
 }  // extern "C"

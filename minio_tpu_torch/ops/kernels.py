@@ -4,18 +4,23 @@ Seven kernels, all in ``csrc/codec.cu`` (CUDA C++ for ``sm_90a``):
 
 * ``encode_pack`` (K1) replaces ``rs_pallas.encode_pack_fused`` (P4):
   parity + phash256 partials of all n rows + per-256-word occupancy
-  flags + the nonzero-group prefix pack, plus the digest finalize.  With
-  ``group=0`` it also computes ``rs_pallas.encode_hash_fused`` (P2),
-  heal's re-encode.  ``encode_pack_subchunk`` is its sub-chunk form, the
-  GPU body of ``codec_step.encode_subchunk_words`` (X2, left to XLA by
-  the JAX package): a chunk at a global word offset, XOR-accumulating
-  into the caller's partials, finalizing only on the last chunk.
+  flags + the nonzero-group prefix pack, plus the digest finalize in its
+  last block.  With ``group=0`` it also computes
+  ``rs_pallas.encode_hash_fused`` (P2), heal's re-encode.  The parity
+  product runs in Horner form: straight-line code with only the set
+  terms for ``FIXED_GEOMETRIES`` (generated by ``fixed_source``), masks
+  from ``parity_terms`` for every other (k, m).
+  ``encode_pack_subchunk`` is its sub-chunk form, the GPU body of
+  ``codec_step.encode_subchunk_words`` (X2, left to XLA by the JAX
+  package): a chunk at a global word offset, XOR-accumulating into the
+  caller's partials, finalizing only on the last chunk.
 * ``phash256_batched`` (K2) replaces ``hash.phash256_words_batched``
   (X1, left to XLA by the JAX package): (R, w) rows -> (R, 8) digests,
   in one launch that finalizes in its last block.
 * ``gf_matmul_words`` (K3) replaces ``rs_pallas.matmul_words`` (P1): a
   runtime (o, s) GF(2^8) matrix over s selected rows of a (B, R, w)
-  batch -> (B, o, w).
+  batch -> (B, o, w); unit rows are copies, the others the Horner
+  product of ``gf_terms`` (made once per (matrix, rows)).
 * ``verify_reconstruct`` (K4) replaces ``rs_pallas.verify_reconstruct_fused``
   (P5): finalized digests of the present rows of a (B, n, w) batch and
   the k data rows rebuilt from the first k present rows, in one pass.
@@ -66,6 +71,7 @@ import functools
 import hashlib
 import os
 import shutil
+import struct
 import subprocess
 import threading
 import time
@@ -85,13 +91,23 @@ NVCC_FLAGS = (
     "-Xptxas", "-v",
 )
 
+# Constants shared with csrc/codec.cu, which exports its own values
+# (mtt_constants); _load refuses a library that differs from these.
 TILE = 256  # columns per block tile == PARITY_GROUP_WORDS
 _MAX_ROWS = 16
-_TARGET_BLOCKS = 132 * 8  # enough resident blocks to fill the SMs
 
-_PIPE_BLOCKS_PER_SM = 2  # K5/K6 residency (kPipeBlocksPerSM in codec.cu)
+_PIPE_BLOCKS_PER_SM = 2  # K5/K6 residency (kPipeBlocksPerSM)
+_ENC_BLOCKS_PER_SM = 3  # K1's persistent grid (kEncBlocksPerSM)
+_GF_BLOCKS_PER_SM = 4  # K3's grid (kGfBlocksPerSM)
 _PHASH_ROWS = 4  # rows per K2 block (kPhashRows: the entry refuses another)
-_PHASH_BLOCKS_PER_SM = 2  # K2's one-wave grid
+_PHASH_BLOCKS_PER_SM = 2  # K2's one-wave grid (kPhashBlocksPerSM)
+
+# (k, m) whose parity product K1 runs as straight-line code with only the
+# matrix's set terms (fixed_parity in codec.cu, generated by fixed_source
+# at build time); every other geometry takes the masked Horner form.  A
+# geometry joins only with a same-call timing of both forms at its shape:
+# EC 8+4 (the default deployment) has one.
+FIXED_GEOMETRIES = ((8, 4),)
 
 LAUNCHES = {
     "encode_pack": 0, "encode_pack[group=0]": 0, "encode_pack[subchunk]": 0,
@@ -114,9 +130,10 @@ def reset_launches() -> None:
             LAUNCHES[name] = 0
 
 
-def _count(name: str) -> None:
+def _count(*names: str) -> None:
     with _count_lk:
-        LAUNCHES[name] += 1
+        for name in names:
+            LAUNCHES[name] += 1
 
 
 # ---------------------------------------------------------------------------
@@ -133,25 +150,35 @@ def _nvcc() -> str:
     return path
 
 
-def _fingerprint() -> str:
+def _fingerprint(generated: str) -> str:
     h = hashlib.sha256()
     for src in SOURCES:
         h.update(src.read_bytes())
+    h.update(generated.encode())
     h.update(" ".join(NVCC_FLAGS).encode())
     return h.hexdigest()[:16]
 
 
 def build() -> Path:
-    """Compile the kernels (once per source hash) and return the library
-    path.  Raises RuntimeError with the compiler's output on failure."""
-    out = BUILD_DIR / f"libmtt_codec-{_fingerprint()}.so"
+    """Compile the kernels (once per source hash, the generated
+    ``mtt_fixed.cuh`` included) and return the library path.  Raises
+    RuntimeError with the compiler's output on failure."""
+    generated = fixed_source()
+    fp = _fingerprint(generated)
+    out = BUILD_DIR / f"libmtt_codec-{fp}.so"
     if out.exists():
         BUILD_INFO.setdefault("seconds", 0.0)
         BUILD_INFO.setdefault("log", "")
         return out
-    BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    gen_dir = BUILD_DIR / f"gen-{fp}"
+    gen_dir.mkdir(parents=True, exist_ok=True)
+    header = gen_dir / "mtt_fixed.cuh"
+    tmp_header = header.with_suffix(f".{os.getpid()}.tmp")
+    tmp_header.write_text(generated)
+    os.replace(tmp_header, header)
     tmp = out.with_suffix(f".{os.getpid()}.tmp")
-    cmd = [_nvcc(), *NVCC_FLAGS, "-o", str(tmp), *map(str, SOURCES)]
+    cmd = [_nvcc(), *NVCC_FLAGS, "-I", str(gen_dir), "-o", str(tmp),
+           *map(str, SOURCES)]
     t0 = time.monotonic()
     proc = subprocess.run(cmd, capture_output=True, text=True)
     BUILD_INFO["seconds"] = time.monotonic() - t0
@@ -171,16 +198,16 @@ def _load():
         if _lib is None:
             lib = ctypes.CDLL(str(build()))
             P, I, U = ctypes.c_void_p, ctypes.c_int, ctypes.c_uint32
-            # the pointer before the stream of the four codec passes is
-            # the mxu operand (None: the swar instantiation)
-            lib.mtt_encode_pack.argtypes = [
-                I, P, P, P, P, P, I, I, I, I, I, U, U, I, I, P, P, P, P,
-            ]
+            # K1 and K3 take one packed argument struct (_ENCODE_ARGS,
+            # _GF_ARGS): ctypes converts one argument, not 13-20.  In
+            # the other codec passes the pointer before the stream is the
+            # mxu operand (None: the swar instantiation).
+            lib.mtt_encode_pack.argtypes = [ctypes.c_char_p]
             lib.mtt_encode_pack_pipelined.argtypes = [
                 I, P, P, P, P, P, P, I, I, I, I, I, U, I, P, P, P, P,
             ]
             lib.mtt_phash256.argtypes = [I, P, P, I, I, U, I, I, P]
-            lib.mtt_gf_matmul.argtypes = [I, P, P, I, I, I, I, I, P, P, P, P]
+            lib.mtt_gf_matmul.argtypes = [ctypes.c_char_p]
             lib.mtt_verify_reconstruct.argtypes = [
                 I, P, P, P, I, I, I, I, U, U, U, I, I, P, P, P, P,
             ]
@@ -194,8 +221,48 @@ def _load():
                        lib.mtt_verify_reconstruct_pipelined,
                        lib.mtt_gf_matmul_mxu):
                 fn.restype = ctypes.c_int
+            lib.mtt_constants.restype = ctypes.c_char_p
+            _check_constants(lib.mtt_constants().decode())
             _lib = lib
         return _lib
+
+
+def _constants() -> dict:
+    """The values codec.cu must export (mtt_constants), from this
+    module's own."""
+    return {
+        "tile": (TILE,), "max_rows": (_MAX_ROWS,),
+        "phash_rows": (_PHASH_ROWS,), "phash_blocks_per_sm": (_PHASH_BLOCKS_PER_SM,),
+        "pipe_blocks_per_sm": (_PIPE_BLOCKS_PER_SM,),
+        "enc_blocks_per_sm": (_ENC_BLOCKS_PER_SM,),
+        "gf_blocks_per_sm": (_GF_BLOCKS_PER_SM,),
+        "bucket": tuple(_bucket(v) for v in range(1, _MAX_ROWS + 1)),
+        "rb_max": tuple(_rb_max(kb) for kb in (4, 8, 16)),
+        "vr_terms_bytes": tuple(_vr_terms_bytes(kb) for kb in (4, 8, 16)),
+        "gf_terms_bytes": (_GF_TERMS_BYTES,),
+        "encode_args_bytes": (_ENCODE_ARGS.size,),
+        "gf_args_bytes": (_GF_ARGS.size,),
+        "fixed": tuple(f"{k}x{m}" for k, m in FIXED_GEOMETRIES),
+    }
+
+
+def parse_constants(text: str) -> dict:
+    """mtt_constants' "name=v[,v...]" words -> {name: values}; ints where
+    they parse as ints."""
+    out = {}
+    for word in text.split():
+        name, _eq, vals = word.partition("=")
+        items = [v for v in vals.split(",") if v]
+        out[name] = tuple(int(v) if v.lstrip("-").isdigit() else v for v in items)
+    return out
+
+
+def _check_constants(text: str) -> None:
+    got, want = parse_constants(text), _constants()
+    if got != want:
+        diff = {k: (got.get(k), v) for k, v in want.items() if got.get(k) != v}
+        diff.update({k: (v, None) for k, v in got.items() if k not in want})
+        raise RuntimeError(f"codec.cu constants differ from kernels.py's: {diff}")
 
 
 def _check_rc(rc: int, what: str) -> None:
@@ -226,21 +293,27 @@ def _stream(t: torch.Tensor) -> int:
     return torch._C._cuda_getCurrentRawStream(t.device.index)
 
 
-def _rows_view(acc: torch.Tensor, lead: "tuple[int, ...]") -> torch.Tensor:
-    """The first prod(lead) * 8 words of ``acc`` as a contiguous (*lead,
-    8) view, in one call (a slice and a view cost twice the host time)."""
+@functools.lru_cache(maxsize=1024)
+def _rows_layout(lead: "tuple[int, ...]"):
     shape = (*lead, 8)
     strides, step = [], 1
     for d in reversed(shape):
         strides.append(step)
         step *= d
-    return acc.as_strided(shape, tuple(reversed(strides)))
+    return shape, tuple(reversed(strides))
 
 
-def _tiles_per_block(ntiles: int, rows: int) -> int:
-    """Tiles a block walks: enough blocks to fill the card, and fewer
-    global atomics per digest word as the grid grows."""
-    return max(1, min(8, (ntiles * rows) // _TARGET_BLOCKS))
+def _rows_view(acc: torch.Tensor, lead: "tuple[int, ...]") -> torch.Tensor:
+    """The first prod(lead) * 8 words of ``acc`` as a contiguous (*lead,
+    8) view, in one call (a slice and a view cost twice the host time)."""
+    return acc.as_strided(*_rows_layout(lead))
+
+
+def _tiles_per_block(ntiles: int, rows: int, sms: int) -> int:
+    """Tiles a K4 (or K1 [mxu]) block walks: short runs over about 8
+    blocks per SM, and fewer global atomics per digest word as the grid
+    grows."""
+    return max(1, min(8, (ntiles * rows) // (sms * 8)))
 
 
 @functools.lru_cache(maxsize=8)
@@ -249,16 +322,43 @@ def sm_count(device: torch.device) -> int:
     return torch.cuda.get_device_properties(device).multi_processor_count
 
 
-@functools.lru_cache(maxsize=1024)
-def pipelined_grid(B: int, w: int, sms: int) -> "tuple[int, int]":
-    """(tiles per block, blocks per stripe) of K5/K6's persistent grid:
-    about ``_PIPE_BLOCKS_PER_SM`` blocks per SM split evenly over the B
-    stripes, each block a contiguous run of 256-column tiles."""
+def _persistent_grid(B: int, w: int, resident: int) -> "tuple[int, int]":
+    """(tiles per block, blocks per stripe): about ``resident`` blocks
+    split evenly over the B stripes, each block a contiguous run of
+    256-column tiles."""
     ntiles = -(-w // TILE)
-    resident = sms * _PIPE_BLOCKS_PER_SM
     per_stripe = min(ntiles, max(1, -(-resident // B)))
     tpb = -(-ntiles // per_stripe)
     return tpb, -(-ntiles // tpb)
+
+
+@functools.lru_cache(maxsize=1024)
+def pipelined_grid(B: int, w: int, sms: int) -> "tuple[int, int]":
+    """K5/K6's persistent grid: ``_PIPE_BLOCKS_PER_SM`` blocks per SM."""
+    return _persistent_grid(B, w, sms * _PIPE_BLOCKS_PER_SM)
+
+
+@functools.lru_cache(maxsize=1024)
+def encode_grid(B: int, w: int, sms: int, mxu: bool = False) -> "tuple[int, int]":
+    """K1's grid: a persistent one of ``_ENC_BLOCKS_PER_SM`` blocks per SM
+    for swar; short runs (``_tiles_per_block``) for the mxu
+    instantiation, whose two barriers a tile other blocks' phases must
+    hide."""
+    if mxu:
+        ntiles = -(-w // TILE)
+        tpb = _tiles_per_block(ntiles, B, sms)
+        return tpb, -(-ntiles // tpb)
+    return _persistent_grid(B, w, sms * _ENC_BLOCKS_PER_SM)
+
+
+@functools.lru_cache(maxsize=1024)
+def gf_grid(B: int, w: int, sms: int) -> int:
+    """K3's blocks: ``_GF_BLOCKS_PER_SM`` per SM, or one per (stripe,
+    256-quad tile) pair when there are fewer; they stride over the
+    pairs."""
+    quads = -(-w // 4)
+    tiles = -(-quads // TILE)  # per stripe
+    return max(1, min(B * tiles, sms * _GF_BLOCKS_PER_SM))
 
 
 def pipeline_windows(B: int, w: int, sms: int) -> int:
@@ -281,8 +381,8 @@ def phash_grid(R: int, w: int, sms: int) -> int:
 
 
 @functools.lru_cache(maxsize=256)
-def _plan(matrix_key: bytes, o: int, s: int, rows: "tuple[int, ...]"):
-    """ctypes buffers of the kernels' GfPlan for one (o, s) matrix."""
+def _plan(matrix_key: bytes, o: int, s: int):
+    """ctypes buffers of K4/K5's GfPlan for one (o, s) matrix."""
     matrix = np.frombuffer(matrix_key, dtype=np.uint8).reshape(o, s)
     rm = np.zeros(_MAX_ROWS * 8, dtype=np.uint16)
     for c in range(s):
@@ -294,18 +394,157 @@ def _plan(matrix_key: bytes, o: int, s: int, rows: "tuple[int, ...]"):
             rm[c * 8 + b] = bits
     nb = np.zeros(_MAX_ROWS, dtype=np.uint8)
     nb[:s] = rs.need_bits(matrix)
-    row = np.zeros(_MAX_ROWS, dtype=np.uint8)
-    row[: len(rows)] = rows
     return (
         (ctypes.c_uint16 * len(rm))(*rm.tolist()),
         (ctypes.c_uint8 * len(nb))(*nb.tolist()),
-        (ctypes.c_uint8 * len(row))(*row.tolist()),
     )
 
 
-def _matrix_plan(matrix: np.ndarray, rows: "tuple[int, ...]"):
+def _matrix_plan(matrix: np.ndarray):
     m = np.ascontiguousarray(matrix, dtype=np.uint8)
-    return _plan(m.tobytes(), m.shape[0], m.shape[1], tuple(rows))
+    return _plan(m.tobytes(), m.shape[0], m.shape[1])
+
+
+# ---------------------------------------------------------------------------
+# term programs (K1, K3, K6): the GF product in Horner form
+# ---------------------------------------------------------------------------
+
+
+@functools.lru_cache(maxsize=1024)
+def _gf_program(matrix_key: bytes, o: int, s: int, copies: bool):
+    """The term program of an (o, s) GF(2^8) matrix: (copy, out, bits).
+
+    With ``copies``, an output row that is a unit row (one coefficient,
+    1) is stored straight from its input: ``copy[j]`` is that output row
+    for input j, else -1 (the first such row per input; another one with
+    the same input is a product row).  Every other output row is a
+    product row: ``out`` lists them in order and ``bits[r, b]`` (uint16)
+    has bit j set where input j's coefficient for product row r has bit
+    b, so the row is acc = xtime(acc) ^ XOR(inputs of bits[r, b]) for b =
+    7 .. 0 (Horner's form)."""
+    matrix = np.frombuffer(matrix_key, dtype=np.uint8).reshape(o, s)
+    copy = [-1] * s
+    out = []
+    for r in range(o):
+        nz = np.flatnonzero(matrix[r])
+        if copies and len(nz) == 1 and matrix[r, nz[0]] == 1 and copy[nz[0]] < 0:
+            copy[int(nz[0])] = r
+        else:
+            out.append(r)
+    bits = np.zeros((len(out), 8), dtype=np.uint16)
+    for i, r in enumerate(out):
+        for j in range(s):
+            for b in range(8):
+                if (int(matrix[r, j]) >> b) & 1:
+                    bits[i, b] |= 1 << j
+    bits.setflags(write=False)
+    return tuple(copy), tuple(out), bits
+
+
+def horner_steps(bits_row: np.ndarray) -> "list[tuple[int, ...]]":
+    """One product row's Horner steps from its top set bit down to bit 0:
+    the inputs XORed in after each xtime (the first step starts from
+    zero).  Empty for a zero row."""
+    top = max((b for b in range(8) if bits_row[b]), default=-1)
+    return [tuple(j for j in range(_MAX_ROWS) if (int(bits_row[b]) >> j) & 1)
+            for b in range(top, -1, -1)]
+
+
+_GF_TERMS_BYTES = 2 * _MAX_ROWS * 8 + 3 * _MAX_ROWS  # gf_terms_bytes() in codec.cu
+
+# The K1 and K3 entries' argument structs (EncodeArgs, GfMatmulArgs in
+# codec.cu): data, parity, acc, ticket, flags, packed, terms, amat, stream
+# addresses; device, B, k, m, w, group, zero_acc, tiles_per_block,
+# terms_len; nbytes, word_offset.  And in, out, terms, stream; device, B,
+# rows_in, w, o, s, blocks, terms_len, rows.  A null address is 0.
+_ENCODE_ARGS = struct.Struct("<9Q9i2I4x")
+_GF_ARGS = struct.Struct("<4Q9i4x")
+
+
+@dataclasses.dataclass(frozen=True, eq=False)
+class GfTerms:
+    """K1's and K3's term program (``GfTerms`` in codec.cu) for one
+    matrix: inputs ``rows`` (K3's picks out of the batch), ``copy[j]``
+    the output row stored straight from input j or -1, product rows
+    ``out`` with their Horner bits (``_gf_program``).  ``blob`` packs
+    bits (16 x 8 uint16), row, copy and out (16 bytes each) as the entry
+    takes them (``make_gf_terms``)."""
+
+    rows: "tuple[int, ...]"
+    copy: "tuple[int, ...]"
+    out: "tuple[int, ...]"
+    bits: np.ndarray
+    blob: ctypes.Array
+
+
+def _gf_terms(matrix_key: bytes, o: int, s: int, rows, copies: bool) -> GfTerms:
+    copy, out, bits = _gf_program(matrix_key, o, s, copies)
+    full = np.zeros((_MAX_ROWS, 8), dtype="<u2")
+    full[: len(out)] = bits
+    pad = _MAX_ROWS
+    packed = b"".join((
+        full.tobytes(),
+        np.array(rows + (0,) * (pad - len(rows)), np.uint8).tobytes(),
+        np.array(copy + (-1,) * (pad - len(copy)), np.int8).tobytes(),
+        np.array(out + (0,) * (pad - len(out)), np.uint8).tobytes(),
+    ))
+    blob = ctypes.create_string_buffer(packed, len(packed))
+    return GfTerms(rows, copy, out, bits, blob)
+
+
+@functools.lru_cache(maxsize=1024)
+def _gf_terms_cached(matrix_key: bytes, o: int, s: int,
+                     rows: "tuple[int, ...]") -> GfTerms:
+    return _gf_terms(matrix_key, o, s, rows, True)
+
+
+def gf_terms(matrix: np.ndarray, rows: "tuple[int, ...]") -> GfTerms:
+    """K3's term program for an (o, s) matrix over input rows ``rows``,
+    compiled once per (matrix, rows): unit rows are copies."""
+    m = np.ascontiguousarray(matrix, dtype=np.uint8)
+    return _gf_terms_cached(m.tobytes(), m.shape[0], m.shape[1],
+                            tuple(int(r) for r in rows))
+
+
+@functools.lru_cache(maxsize=512)
+def parity_terms(k: int, m: int) -> GfTerms:
+    """K1's term program for gf.parity_matrix(k, m), compiled once per
+    (k, m): every parity row is a product row."""
+    pm = np.ascontiguousarray(gf.parity_matrix(k, m), dtype=np.uint8)
+    return _gf_terms(pm.tobytes(), m, k, tuple(range(k)), False)
+
+
+def fixed_source() -> str:
+    """``mtt_fixed.cuh``, which codec.cu includes: the list of
+    FIXED_GEOMETRIES and, per geometry, ``fixed_parity<k, m>``, the parity
+    product of ``parity_terms(k, m)`` as straight-line Horner steps with
+    only the set terms."""
+    lines = [
+        "// Generated by minio_tpu_torch/ops/kernels.py (fixed_source) from",
+        "// gf.parity_matrix at build time; do not edit.",
+        "#define MTT_FIXED_GEOMETRIES(X)"
+        + "".join(f" X({k}, {m})" for k, m in FIXED_GEOMETRIES),
+    ]
+    for k, m in FIXED_GEOMETRIES:
+        terms = parity_terms(k, m)
+        lines += ["template <>",
+                  f"__device__ __forceinline__ void fixed_parity<{k}, {m}>("
+                  "const uint32_t* x, uint32_t* acc) {"]
+        for r in range(m):
+            steps = horner_steps(terms.bits[r])
+            if not steps:
+                lines.append(f"  acc[{r}] = 0u;")
+                continue
+            lines.append("  {")
+            for i, inputs in enumerate(steps):
+                terms_ = [f"x[{j}]" for j in inputs]
+                if i == 0:
+                    lines.append(f"    uint32_t a = {' ^ '.join(terms_) or '0u'};")
+                else:
+                    lines.append(f"    a = {' ^ '.join(['xtime(a)'] + terms_)};")
+            lines += [f"    acc[{r}] = a;", "  }"]
+        lines.append("}")
+    return "\n".join(lines) + "\n"
 
 
 def mxu_fragments(matrix: np.ndarray) -> np.ndarray:
@@ -394,51 +633,103 @@ def encode_pack(words: torch.Tensor, parity_shards: int, shard_len: int,
     finalized, flags (B, m, w//group) 0/1, packed (B, m, w)), all int32.
     group == 0 disables the pack leg (flags has g == 0, packed is
     parity); otherwise group must be 256 and divide w.  ``formulation``
-    picks the product (``swar`` or ``mxu``); the outputs are the same."""
+    picks the product (``swar`` or ``mxu``); the outputs are the same.
+    On the card: one memset and one K1 launch (plus the pack launch with
+    group == 256), finalized by K1's last block."""
     B, k, w = words.shape
     m = parity_shards
     _check_group(group, w)
     rs.check_formulation(formulation)
-    if words.device.type == "cpu":
+    dev = words.device
+    if dev.type == "cpu":
         return encode_pack_plain(words, m, shard_len, group, formulation)
     _require_cuda(words, "encode_pack", 3)
-    digests = torch.zeros((B, k + m, 8), dtype=torch.int32, device=words.device)
-    out = _launch_encode_pack(words, digests, 0, m, shard_len, group, True,
-                              formulation)
+    plan = _enc_plan(B, k, m, w, group, formulation, dev)
+    # parity, then the digests and the last-block ticket: one allocation,
+    # whose tail the entry zeroes with one memset
+    buf = torch.empty(plan.buf_words, dtype=torch.int32, device=dev)
+    parity = buf.as_strided(*plan.parity)
+    acc = buf.data_ptr() + 4 * plan.parity_words
+    flags, packed = _launch_encode_pack(
+        plan, words, parity, acc, acc + 4 * plan.digest_words, True, 0,
+        shard_len)
+    digests = buf.as_strided(*plan.digests)
     if formulation == "mxu":
         _count("encode_pack[mxu]")
-        return out
-    _count("encode_pack")
-    if not group:
-        _count("encode_pack[group=0]")
-    return out
+    elif group:
+        _count("encode_pack")
+    else:
+        _count("encode_pack", "encode_pack[group=0]")
+    return parity, digests, flags, packed
 
 
-def _launch_encode_pack(words, partials, word_offset, m, shard_len, group,
-                        finalize, formulation="swar"):
-    """K1 on checked CUDA words, XORing into ``partials``."""
-    B, k, w = words.shape
+@dataclasses.dataclass(frozen=True, eq=False)
+class _EncPlan:
+    """K1's launch constants for one call shape (``_enc_plan``)."""
+
+    B: int
+    k: int
+    m: int
+    w: int
+    group: int
+    terms: int  # address of the term program's blob
+    terms_len: int
+    amat: int  # address of the mxu operand, or 0 (swar)
+    operand: "torch.Tensor | None"  # holds amat (_mxu_tensor may drop it)
+    tiles_per_block: int
+    no_flags: "torch.Tensor | None"  # the (B, m, 0) flags of group=0
+    parity_words: int
+    digest_words: int
+    buf_words: int  # parity + digests + the ticket
+    parity: tuple  # as_strided (size, stride) of parity in encode_pack's buffer
+    digests: tuple  # the same of the digests, after parity
+
+
+@functools.lru_cache(maxsize=1024)
+def _enc_plan(B: int, k: int, m: int, w: int, group: int, formulation: str,
+              device: torch.device) -> _EncPlan:
+    """K1's launch constants for one call shape, made once: the term
+    program (cached per (k, m)), the mxu operand, the grid and the
+    layout of encode_pack's one buffer."""
     if not (1 <= k <= _MAX_ROWS and 0 <= m <= _MAX_ROWS):
         raise ValueError(f"encode_pack supports k, m <= {_MAX_ROWS}")
-    lib = _load()
-    dev = words.device
-    parity = torch.empty((B, m, w), dtype=torch.int32, device=dev)
-    g = w // TILE if group else 0
-    flags = torch.empty((B, m, g), dtype=torch.int32, device=dev)
-    packed = torch.empty_like(parity) if group else parity
-    pm = gf.parity_matrix(k, m)
-    rm, nb, _row = _matrix_plan(pm, ())
-    amat = _mxu_operand(pm, dev).data_ptr() if formulation == "mxu" else None
-    ntiles = -(-w // TILE)
-    rc = lib.mtt_encode_pack(
-        dev.index or 0, words.data_ptr(), parity.data_ptr(),
-        partials.data_ptr(), flags.data_ptr(), packed.data_ptr(),
-        B, k, m, w, group, shard_len & 0xFFFFFFFF, word_offset & 0xFFFFFFFF,
-        int(finalize), _tiles_per_block(ntiles, B), rm, nb, amat,
-        _stream(words),
+    terms = parity_terms(k, m)
+    operand = (_mxu_operand(gf.parity_matrix(k, m), device)
+               if formulation == "mxu" else None)
+    amat = 0 if operand is None else operand.data_ptr()
+    tpb, _per_stripe = encode_grid(B, w, sm_count(device), amat != 0)
+    no_flags = (None if group else
+                torch.empty((B, m, 0), dtype=torch.int32, device=device))
+    n, pw = k + m, B * m * w
+    return _EncPlan(
+        B, k, m, w, group, ctypes.addressof(terms.blob), len(terms.blob),
+        amat, operand, tpb, no_flags, pw, B * n * 8, pw + B * n * 8 + 1,
+        ((B, m, w), (m * w, w, 1)), ((B, n, 8), (n * 8, 8, 1), pw),
     )
+
+
+def _launch_encode_pack(plan: _EncPlan, words, parity, acc_ptr, ticket_ptr,
+                        zero_acc, word_offset, shard_len):
+    """K1 on checked CUDA words into ``parity``, XORing the partials into
+    the accumulator at ``acc_ptr`` (zeroed first with ``zero_acc``); a
+    ticket address (``ticket_ptr``, or 0) makes the last block finalize
+    them.  Returns (flags, packed)."""
+    B, k, m, w = plan.B, plan.k, plan.m, plan.w
+    dev = words.device
+    if plan.group:
+        flags = torch.empty((B, m, w // TILE), dtype=torch.int32, device=dev)
+        packed = torch.empty_like(parity)
+        fptr, pptr = flags.data_ptr(), packed.data_ptr()
+    else:
+        flags, packed, fptr, pptr = plan.no_flags, parity, 0, 0
+    rc = _load().mtt_encode_pack(_ENCODE_ARGS.pack(
+        words.data_ptr(), parity.data_ptr(), acc_ptr, ticket_ptr, fptr, pptr,
+        plan.terms, plan.amat, torch._C._cuda_getCurrentRawStream(dev.index),
+        dev.index, B, k, m, w, plan.group, int(zero_acc), plan.tiles_per_block,
+        plan.terms_len, shard_len & 0xFFFFFFFF, word_offset & 0xFFFFFFFF,
+    ))
     _check_rc(rc, "encode_pack")
-    return parity, partials, flags, packed
+    return flags, packed
 
 
 def encode_pack_subchunk_plain(chunk: torch.Tensor, acc: torch.Tensor,
@@ -479,11 +770,19 @@ def encode_pack_subchunk(chunk: torch.Tensor, acc: torch.Tensor,
         )
     _require_cuda(chunk, "encode_pack_subchunk", 3)
     _require_cuda(acc, "encode_pack_subchunk acc", 3)
-    out = _launch_encode_pack(
-        chunk, acc, word_offset, m, shard_len, group, finalize
+    # the last chunk's last block finalizes: it needs a zeroed ticket,
+    # held here until the launch is enqueued (a freed one could be handed
+    # to the outputs)
+    ticket = (torch.empty(1, dtype=torch.int32, device=chunk.device)
+              if finalize else None)
+    parity = torch.empty((B, m, cw), dtype=torch.int32, device=chunk.device)
+    flags, packed = _launch_encode_pack(
+        _enc_plan(B, k, m, cw, group, "swar", chunk.device), chunk, parity,
+        acc.data_ptr(), 0 if ticket is None else ticket.data_ptr(), False,
+        word_offset, shard_len,
     )
     _count("encode_pack[subchunk]")
-    return out
+    return parity, acc, flags, packed
 
 
 # ---------------------------------------------------------------------------
@@ -532,7 +831,7 @@ def encode_pack_pipelined(words: torch.Tensor, parity_shards: int,
     flags = torch.empty((B, m, g), dtype=torch.int32, device=dev)
     packed = torch.empty_like(parity) if group else parity
     pm = gf.parity_matrix(k, m)
-    rm, nb, _row = _matrix_plan(pm, ())
+    rm, nb = _matrix_plan(pm)
     amat = _mxu_operand(pm, dev).data_ptr() if formulation == "mxu" else None
     tpb, _per_stripe = pipelined_grid(B, w, sm_count(dev))
     rc = lib.mtt_encode_pack_pipelined(
@@ -589,7 +888,9 @@ def phash256_batched(words: torch.Tensor, nbytes: int) -> torch.Tensor:
 
 def gf_matmul_words(matrix: np.ndarray, words: torch.Tensor,
                     rows: "tuple[int, ...]") -> torch.Tensor:
-    """(o, s) GF matrix over rows ``rows`` of (B, R, w) words -> (B, o, w)."""
+    """(o, s) GF matrix over rows ``rows`` of (B, R, w) words -> (B, o, w).
+    On the card one K3 launch: unit rows of the matrix are copies, the
+    others the product of ``gf_terms`` (made once per (matrix, rows))."""
     o, s = matrix.shape
     if len(rows) != s:
         raise ValueError(f"matrix wants {s} input rows, got {len(rows)}")
@@ -601,14 +902,16 @@ def gf_matmul_words(matrix: np.ndarray, words: torch.Tensor,
         raise ValueError(f"gf_matmul_words supports o, s <= {_MAX_ROWS}")
     if any(not 0 <= r < R for r in rows):
         raise ValueError(f"row index out of range for {R} rows: {rows}")
-    out = torch.empty((B, o, w), dtype=torch.int32, device=words.device)
+    dev = words.device
+    out = torch.empty((B, o, w), dtype=torch.int32, device=dev)
     if B == 0 or w == 0:
         return out
-    rm, nb, row = _matrix_plan(matrix, tuple(int(r) for r in rows))
-    rc = _load().mtt_gf_matmul(
-        words.device.index or 0, words.data_ptr(), out.data_ptr(),
-        B, R, w, o, s, rm, nb, row, _stream(words),
-    )
+    terms = gf_terms(matrix, rows)
+    rc = _load().mtt_gf_matmul(_GF_ARGS.pack(
+        words.data_ptr(), out.data_ptr(), ctypes.addressof(terms.blob),
+        torch._C._cuda_getCurrentRawStream(dev.index), dev.index, B, R, w, o,
+        s, gf_grid(B, w, sm_count(dev)), len(terms.blob), len(terms.out),
+    ))
     _check_rc(rc, "gf_matmul_words")
     _count("gf_matmul_words")
     return out
@@ -678,14 +981,13 @@ def _check_vr(shards: torch.Tensor, present, k: int) -> None:
 def _vr_plan(present: "tuple[bool, ...]", k: int):
     """K4's plan, indexed by shard row, made once per (present, k):
     survivors carry their column of the reconstruction matrix, every
-    other row an empty chain; ``row`` lists the present rows."""
+    other row an empty chain; with the present rows' bitmask."""
     n = len(present)
     idx = _survivors(present, k)
     full = np.zeros((k, n), dtype=np.uint8)
     full[:, list(idx)] = gf.reconstruction_matrix(k, n - k, idx)
-    live = tuple(i for i, p in enumerate(present) if p)
-    rm, nb, row = _matrix_plan(full, live)
-    return rm, nb, row, sum(1 << i for i in live)
+    rm, nb = _matrix_plan(full)
+    return rm, nb, sum(1 << i for i, p in enumerate(present) if p)
 
 
 def _bucket(v: int) -> int:
@@ -723,24 +1025,29 @@ class VrTerms:
     blob: ctypes.Array
 
 
+def _vr_terms_bytes(kb: int) -> int:
+    """The packed size of a K6 term program (``terms_bytes<KB>()`` in
+    codec.cu; the entry refuses another): masks, row, copy, rebuilt."""
+    return 4 * _rb_max(kb) * 8 * kb + 2 * _MAX_ROWS + _rb_max(kb)
+
+
 @functools.lru_cache(maxsize=1024)
 def vr_terms(present: "tuple[bool, ...]", k: int) -> VrTerms:
-    """K6's term program (``VrTerms``), compiled once per (present, k)."""
+    """K6's term program (``VrTerms``), compiled once per (present, k)
+    from the reconstruction matrix's term program (``_gf_program``): its
+    copies are the present data rows, its product rows the absent ones."""
     n = len(present)
     idx = _survivors(present, k)
-    rmat = gf.reconstruction_matrix(k, n - k, idx)
+    rmat = np.ascontiguousarray(gf.reconstruction_matrix(k, n - k, idx))
+    slot_copy, rebuilt, bits = _gf_program(rmat.tobytes(), k, k, True)
     rows = tuple(i for i, p in enumerate(present) if p)
     kb = _bucket(k)
-    rebuilt = tuple(d for d in range(k) if not present[d])
     if len(rebuilt) > _rb_max(kb):
         raise ValueError(f"{len(rebuilt)} rebuilt rows exceed {_rb_max(kb)}")
-    copy = tuple(r if r < k else -1 for r in rows)
+    copy = slot_copy + (-1,) * (len(rows) - k)
     masks = np.zeros((_rb_max(kb), 8, kb), dtype=np.uint32)
-    for o, d in enumerate(rebuilt):
-        for j in range(k):
-            for b in range(8):
-                if (int(rmat[d, j]) >> b) & 1:
-                    masks[o, b, j] = 0xFFFFFFFF
+    for j in range(k):
+        masks[: len(rebuilt), :, j] = np.where((bits >> j) & 1, 0xFFFFFFFF, 0)
     packed = b"".join((
         masks.astype("<u4").tobytes(),
         np.array(rows + (0,) * (_MAX_ROWS - len(rows)), np.uint8).tobytes(),
@@ -790,7 +1097,7 @@ def _launch_verify_reconstruct(shards, partials, word_offset, present, k,
                                shard_len, finalize, formulation="swar"):
     """K4 on checked CUDA shards, XORing into ``partials``."""
     B, n, w = shards.shape
-    rm, nb, _row, mask = _vr_plan(tuple(present), k)
+    rm, nb, mask = _vr_plan(tuple(present), k)
     dev = shards.device
     amat = (_mxu_vr_operand(tuple(present), k, dev).data_ptr()
             if formulation == "mxu" else None)
@@ -801,8 +1108,9 @@ def _launch_verify_reconstruct(shards, partials, word_offset, present, k,
     rc = _load().mtt_verify_reconstruct(
         dev.index or 0, shards.data_ptr(), data.data_ptr(),
         partials.data_ptr(), B, n, k, w, mask, shard_len & 0xFFFFFFFF,
-        word_offset & 0xFFFFFFFF, int(finalize), _tiles_per_block(ntiles, B),
-        rm, nb, amat, _stream(shards),
+        word_offset & 0xFFFFFFFF, int(finalize),
+        _tiles_per_block(ntiles, B, sm_count(dev)), rm, nb, amat,
+        _stream(shards),
     )
     _check_rc(rc, "verify_reconstruct")
     return data, partials
