@@ -2,12 +2,12 @@
 """Smoke run of the PyTorch/CUDA port (minio_tpu_torch) on one NVIDIA GPU.
 
     python3 chip_smoke.py            # from the repository root
-    python3 chip_smoke.py --parent DIR   # and K1/K2/K3/K6 beside an older copy
+    python3 chip_smoke.py --parent DIR   # and K1/K2/K3/K5/K6 beside an older copy
 
 1. Builds the CUDA kernels from ``minio_tpu_torch/csrc`` with nvcc (and
    those of ``--parent``'s copy at the same time), and prints each
-   kernel's registers and spills and the static SASS of K1 (EC 8+4), K2,
-   K3 and K6 (``sass_loops``).
+   kernel's registers and spills and the static SASS of K1 and K5 (EC
+   8+4, swar and mxu), K2, K3 and K6 (``sass_loops``).
 2. Holds each kernel bit-exactly against its plain PyTorch version on the
    card, at the main path's shapes (EC 8+4, 10 MiB blocks: 327,680 words
    per shard) and at ragged ones, and times kernel, plain version and the
@@ -28,14 +28,14 @@
    view; K6 and K6 ``mxu`` also against their plain versions and K4 for
    every EC 8+4 survivor pattern with 0-4 rows absent.  K1 also at one
    (k, m) of each row bucket and at EC 8+4, 12+4 and 4+2, against its
-   plain version and K5 (``encode_geometry_sweep``); K3 for every EC 8+4
-   and 4+2 survivor pattern, edge matrices, a width off the 4-word quad
-   and an unaligned view (``gf_pattern_sweep``).  Beside each kernel's
+   plain version, K5 and K5 ``mxu`` (``encode_geometry_sweep``); K3 for
+   every EC 8+4 and 4+2 survivor pattern, edge matrices, a width off the
+   4-word quad and an unaligned view (``gf_pattern_sweep``).  Beside each kernel's
    back-to-back event time (``ms``): its device time from a replayed
    CUDA graph, the host's time per wrapper call and its L2-cold time
    (``device_times``), and for K1, K3 and K6 a one-tile launch (the
-   fixed chain).  With ``--parent``, K1, K2, K3 and K6 of both copies at
-   the main path's shapes in turns parent, new, new, parent
+   fixed chain).  With ``--parent``, K1, K2, K3, K5 and K6 of both
+   copies at the main path's shapes in turns parent, new, new, parent
    (``compare_copies``).
 3. Drives the main path through the object layer under the default
    MINIO_TPU_CODEC_OVERLAP (unset: ``pipeline`` on the card): 12 temp-dir
@@ -293,6 +293,21 @@ def mxu_design_ops(o: int, s: int) -> int:
     return 32 * (_PERM + _REPACK * -(-o // 2)) // 2
 
 
+# K5 [mxu]'s product (csrc/codec.cu mxu_ring_tile) repacks two m-tiles
+# at once: per n-tile and pair of m-tiles, 6 shift-adds gather the 8
+# accumulators into two words of bytes, 4 ops (two masks, a multiply-add,
+# the multiply by 1 << q) place their bits, 2 shuffles and 2 adds join the
+# 4 lanes of a byte, 1 shuffle and 2 permutes the half words of both
+# rows, and 2 for the stores' predicates.
+_RING_REPACK = 19
+
+
+def mxu_ring_design_ops(o: int, s: int) -> int:
+    """The mxu_ring_tile lanes' permutes and repack per word column."""
+    mtiles = -(-o // 2)
+    return 32 * (_PERM + _RING_REPACK * -(-mtiles // 2)) // 2
+
+
 def mxu_bound(nbytes: float, int_ops: float, mma_ops: float,
               swar: "tuple[float, str]") -> "tuple[float, str]":
     """Bound of an mxu kernel: the bytes, or the integer ops the function
@@ -387,8 +402,8 @@ K1_GEOMETRIES = [(3, 2), (4, 6), (2, 12), (6, 3), (8, 8), (5, 11), (13, 3),
 
 def encode_geometry_sweep(dev, rng) -> int:
     """K1 at every geometry of K1_GEOMETRIES, with and without the pack
-    leg, against its plain version and (m >= 1) K5, whose product is the
-    chain of powers; returns the max_abs_err (0)."""
+    leg, against its plain version and (m >= 1) K5 and K5 [mxu]; returns
+    the max_abs_err (0)."""
     from minio_tpu_torch.ops import kernels
 
     err = 0
@@ -401,10 +416,11 @@ def encode_geometry_sweep(dev, rng) -> int:
             wants = [kernels.encode_pack_plain(x, m, 4 * w, group)]
             if m:
                 wants.append(kernels.encode_pack_pipelined(x, m, 4 * w, group))
+                wants.append(kernels.encode_pack_pipelined(x, m, 4 * w, group, "mxu"))
             e = same(got, *wants)
             if e:
-                fail(f"encode_pack differs from its plain version or K5 at k={k}, "
-                     f"m={m}, group={group}")
+                fail(f"encode_pack differs from its plain version, K5 or K5 [mxu] at "
+                     f"k={k}, m={m}, group={group}")
             err = max(err, e)
     return err
 
@@ -954,9 +970,13 @@ def check_mxu_kernels(dev, rng) -> dict:
             got = fn(x, M, 4 * w, group, formulation="mxu")
             twin = fn(x, M, 4 * w, group)
             torch.cuda.synchronize()
-            e = same(got, plain(x, M, 4 * w, group, "mxu"), twin)
+            wants = [plain(x, M, 4 * w, group, "mxu"), twin]
+            if name == "encode_pack_pipelined":
+                wants.append(kernels.encode_pack(x, M, 4 * w, group))  # K1
+            e = same(got, *wants)
             if e:
-                fail(f"{name}[mxu] differs from its plain version or swar twin at {B, w, group}")
+                fail(f"{name}[mxu] differs from its plain version, swar twin or K1 "
+                     f"at {B, w, group}")
             err = max(err, e)
         B = 4
         x = rand_words(rng, (B, K, W), dev)
@@ -971,7 +991,10 @@ def check_mxu_kernels(dev, rng) -> dict:
             swar_ms=cuda_ms(lambda: fn(x, M, 4 * W, 256), 20),
             plain_ms=cuda_ms(lambda: plain(x, M, 4 * W, 256, "mxu"), 3, 1),
             bound_ms=bms, bound_by=by, shape=[B, K, W],
-            design_int_ops=B * W * mxu_design_ops(M, K),
+            # K5 [mxu] has its own product (mxu_ring_tile)
+            design_int_ops=B * W * (mxu_ring_design_ops(M, K)
+                                    if name == "encode_pack_pipelined"
+                                    else mxu_design_ops(M, K)),
             **device_times(lambda: fn(x, M, 4 * W, 256, formulation="mxu")),
         )
 
@@ -1485,7 +1508,8 @@ REPLACES = {
 
 
 _KERNEL_NAME = re.compile(
-    r"(encode_pipelined_kernel|verify_reconstruct_pipelined_kernel|"
+    r"(encode_pipelined_mxu_kernel|encode_pipelined_kernel|"
+    r"verify_reconstruct_pipelined_kernel|"
     r"encode_kernel|encode_mxu_kernel|pack_kernel|finalize_kernel|phash_kernel|"
     r"gf_matmul_mxu_kernel|gf_matmul_kernel|verify_reconstruct_kernel)"
     r"(?:I((?:L[ib]\d+E)+)E)?"
@@ -1522,18 +1546,20 @@ def ptxas_summary(log: str) -> list:
 
 
 _SASS_INSN = re.compile(r"^\s*/\*([0-9a-f]{4,})\*/\s+(\S.*?)\s*;")
-# the instantiations sass_loops reads: K2, K6, K1 at EC 8+4 and K3
+# the instantiations sass_loops reads: K2, K6, K1 and K5 at EC 8+4 (swar
+# and mxu) and K3
 SASS_KERNELS = ("phash_kernel", "verify_reconstruct_pipelined",
-                "encode_kernel<8,4,", "encode_mxu_kernel<8,4>", "gf_matmul_kernel")
+                "encode_kernel<8,4,", "encode_mxu_kernel<8,4>", "gf_matmul_kernel",
+                "encode_pipelined_kernel<8,4,", "encode_pipelined_mxu_kernel<8,4,")
 
 
 def sass_loops(lib, kernels_mod) -> dict:
-    """Static SASS of K2, K6, K1 at EC 8+4 and K3 (``SASS_KERNELS``;
+    """Static SASS of K2, K6, K1 and K5 at EC 8+4 and K3 (``SASS_KERNELS``;
     ``cuobjdump -sass`` of the built library), per instantiation: its
     instruction count and, for each loop (the span of a backward branch),
     its size and the sizes of the pieces that the branches inside it cut
-    it into.  A thread walks one column (K6, K1) or column quad (K2, and
-    K3 where it loads quads) per pass of the tile loop, so its size is the
+    it into.  A thread walks one column (K6, K1, K5) or column quad (K2,
+    and K3 where it loads quads) per pass of the tile loop, so its size is the
     static instruction count per column or quad; a piece that a uniform
     branch skips (a rebuilt row past the pattern's) does not run."""
     tool = shutil.which("cuobjdump") or os.path.join(
@@ -1584,11 +1610,11 @@ def load_copy(path: str):
 
 
 def compare_copies(dev, mods: dict, order: list) -> list:
-    """K1, K2, K3 and K6 of several copies of the port (``mods``: name ->
-    kernels module) in turns (``order``), at the main path's shapes: K1
-    with the pack leg at (4, 8, 327,680) swar and mxu, without it at
-    heal's (1, 8, 327,680) and one tile, and its sub-chunk chain (X2) at
-    (4, 8, 327,680); K2 at (32, 327,680); K3 at the degraded GET's
+    """K1, K2, K3, K5 and K6 of several copies of the port (``mods``: name
+    -> kernels module) in turns (``order``), at the main path's shapes: K1
+    and K5 with the pack leg at (4, 8, 327,680) swar and mxu, without it
+    at heal's (1, 8, 327,680), K1 also at one tile, and K1's sub-chunk
+    chain (X2) at (4, 8, 327,680); K2 at (32, 327,680); K3 at the degraded GET's
     (4, 12, 327,680) and (1, 12, 327,680) and one tile, shards 1, 3, 10,
     12 absent; K6 at heal's (1, 12, 327,680) swar and mxu, and with all
     rows present.  Every result is first held bit for bit against the
@@ -1620,6 +1646,17 @@ def compare_copies(dev, mods: dict, order: list) -> list:
                 lambda x=x, group=group, form=form: kern.encode_pack(
                     x, M, 4 * x.shape[-1], group, form),
                 lambda x=x, group=group: kern.encode_pack_plain(x, M, 4 * x.shape[-1], group))
+        # K5 at the PUT's shape (swar and mxu) and at B = 1 without the
+        # pack leg, beside K1 at the same shapes above
+        for label, x, group, form in (
+                ("K5 group=256 (4, 8, 327680)", x1, 256, "swar"),
+                ("K5 group=0 (1, 8, 327680)", x1[:1], 0, "swar"),
+                ("K5 mxu group=256 (4, 8, 327680)", x1, 256, "mxu")):
+            cases[label] = (
+                lambda x=x, group=group, form=form: kern.encode_pack_pipelined(
+                    x, M, 4 * x.shape[-1], group, form),
+                lambda x=x, group=group: kern.encode_pack_pipelined_plain(
+                    x, M, 4 * x.shape[-1], group))
         chunks = [(o, x1[:, :, o:o + 65536].contiguous()) for o in range(0, W, 65536)]
 
         def x2_chain(kern=kern, chunks=chunks):
@@ -1667,7 +1704,7 @@ def main() -> int:
     ap.add_argument(
         "--parent", metavar="DIR",
         help="another copy of the port (DIR/__init__.py, DIR/ops, DIR/csrc): "
-             "build it too and time its K1, K2, K3 and K6 beside this "
+             "build it too and time its K1, K2, K3, K5 and K6 beside this "
              "checkout's, in turns parent, new, new, parent")
     args = ap.parse_args()
     if not torch.cuda.is_available():

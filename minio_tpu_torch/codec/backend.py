@@ -667,12 +667,15 @@ class TorchBackend(CodecBackend):
     def _overlap(self) -> str:
         return codec_step.codec_overlap_mode(self.device)
 
-    def _record_pipelined(self, plane: str, B: int, w: int) -> None:
-        """Overlap windows of one K5/K6 launch (none on the CPU, where
-        the plain version runs)."""
+    def _record_pipelined(self, plane: str, B: int, w: int,
+                          formulation: str = "swar") -> None:
+        """Overlap windows of one K5 (``put``) or K6 (``get``) launch of
+        ``formulation`` (none on the CPU, where the plain version
+        runs)."""
         if self.device.type == "cuda":
             windows = kernels.pipeline_windows(
-                B, w, kernels.sm_count(self.device)
+                B, w, kernels.sm_count(self.device), encode=plane == "put",
+                mxu=formulation == "mxu",
             )
             if windows:
                 _record_overlap(plane, windows)
@@ -753,7 +756,7 @@ class TorchBackend(CodecBackend):
         )
         _record_pass("encode_words_fused1")
         if pipeline and parity_shards > 0:
-            self._record_pipelined("put", B, w)
+            self._record_pipelined("put", B, w, formulation)
         return _AsyncHandle(
             "digest-fused1",
             (

@@ -7,14 +7,14 @@
 // cudaGetLastError() after each launch.
 //
 // Words are little-endian u32 (4 packed GF(2^8) elements), multiplied by
-// SWAR doublings (xtime).  K4 and K5 use the xtime-powers decomposition:
+// SWAR doublings (xtime).  K4 uses the xtime-powers decomposition:
 // for input word x the powers x, 2x, 4x, ..., 128x, and every output word
 // is the XOR of the powers its coefficients select.  Their coefficient
 // bits reach the kernel as a by-value GfPlan (kernel parameters live in
 // the constant bank, so every thread reads them at the same address):
 // rm[c*8+b] has bit r set when output row r takes power b of input row c.
-// All branches on the plan are uniform across the block.  K1, K3 and K6
-// take the product in Horner form from a term program instead (GfTerms,
+// All branches on the plan are uniform across the block.  K1, K3, K5 and
+// K6 take the product in Horner form from a term program instead (GfTerms,
 // VrTerms): copies for unit rows, 7 xtimes a product row.
 //
 // The constants that ops/kernels.py shares with this file (the tile, row
@@ -33,16 +33,20 @@
 // the digest is bit-exact whatever order the blocks run in.
 //
 // MINIO_TPU_CODEC_FORMULATION=mxu swaps the xtime chain of the PUT and
-// heal passes (K1, K4, K5, K6: the `MXU` template parameter) for a
-// tensor-core product of the lifted GF(2) bit matrix (mxu_tile), and K7
+// heal passes (K1, K4, K5, K6: the `MXU` template parameter or an mxu
+// kernel of their own) for a tensor-core product of the lifted GF(2) bit
+// matrix (mxu_tile; K5 has its own form of it, mxu_ring_tile), and K7
 // runs that product alone on bytes.  Everything around the product - the
-// hash leg, flags, pack leg, ring and finalize - is the same code, so the
-// outputs are bit for bit the swar ones.
+// hash leg, flags, pack leg, ring and finalize - is the same code (K5's
+// ring swizzled for its product), so the outputs are bit for bit the
+// swar ones.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
 #include <stdio.h>
 #include <string.h>
+
+#include <atomic>
 
 namespace {
 
@@ -361,13 +365,12 @@ constexpr int enc_min_blocks(int kb, int mb) {
   return kb + mb > 16 ? (kb + mb <= 24 ? 2 : 1) : kEncBlocksPerSM;
 }
 
-// A tile's flags from its per-warp ballots (one barrier): thread r < m
-// ORs row r's.
+// The flags of a tile from its per-warp ballots, once a barrier has
+// made them visible: thread r < m ORs row r's.
 template <int MB>
-__device__ __forceinline__ void flags_of_tile(const uint32_t (&ballots)[MB][kWarps],
-                                              uint32_t* __restrict__ flags, int b,
-                                              int m, int g, int tile) {
-  __syncthreads();
+__device__ __forceinline__ void write_tile_flags(const uint32_t (&ballots)[MB][kWarps],
+                                                 uint32_t* __restrict__ flags, int b,
+                                                 int m, int g, int tile) {
   const int tid = threadIdx.x;
   if (tid < m) {
     uint32_t any = 0;
@@ -375,6 +378,15 @@ __device__ __forceinline__ void flags_of_tile(const uint32_t (&ballots)[MB][kWar
     for (int wp = 0; wp < kWarps; ++wp) any |= ballots[tid][wp];
     flags[((size_t)b * m + tid) * g + tile] = any ? 1u : 0u;
   }
+}
+
+// A tile's flags after one barrier (K1).
+template <int MB>
+__device__ __forceinline__ void flags_of_tile(const uint32_t (&ballots)[MB][kWarps],
+                                              uint32_t* __restrict__ flags, int b,
+                                              int m, int g, int tile) {
+  __syncthreads();
+  write_tile_flags<MB>(ballots, flags, b, m, g, tile);
 }
 
 // The block's partials of all k + m rows XORed into `partials`, then the
@@ -972,9 +984,10 @@ verify_reconstruct_kernel(const uint32_t* __restrict__ shards,
 // counter stay on the chip across the row.  Their (B,) grid would use
 // 1 to 4 of the 132 SMs here, so K5/K6 keep the idea and not the grid:
 //
-// * Persistent grid.  The wrapper (kernels.pipelined_grid) launches
-//   about as many blocks as fit resident - 2 per SM, which
-//   __launch_bounds__(kThreads, 2) holds the register budget to - split
+// * Persistent grid.  The wrapper (kernels.pipelined_grid for K6 and K5
+//   [mxu], kernels.encode_pipelined_grid for K5) launches about as many
+//   blocks as fit resident - 2 per SM for K6 and K5 [mxu], 3 for K5,
+//   which their __launch_bounds__ hold the register budget to - split
 //   evenly over the B stripes; each block walks a CONTIGUOUS run of
 //   256-column tiles of one stripe and keeps its (h1, h2) per row in
 //   registers over the whole run.  At B = 1, EC 8+4 and 10 MiB blocks
@@ -983,8 +996,9 @@ verify_reconstruct_kernel(const uint32_t* __restrict__ shards,
 // * Asynchronous staging.  The k (K5) or present n (K6) input rows of
 //   a tile go global -> shared with 16-byte cp.async.cg copies into a
 //   kStages-deep ring: tiles t+1 and t+2 are in flight while tile t
-//   computes out of shared memory (one commit group per tile,
-//   cp.async.wait_group kStages-1 before a tile is read).  Outputs are
+//   computes out of shared memory (one commit group per tile; K6 waits
+//   with cp.async.wait_group kStages-1 after committing tile t+2, K5 with
+//   kStages-2 before staging it, behind its one barrier a tile).  Outputs are
 //   stored straight from registers; a store does not stall the thread,
 //   so there is no outbound ring.  K6 stages only the present rows.
 // * Ragged tails.  Every w % 4 == 0 is taken: a 16-byte copy past w is
@@ -1038,30 +1052,113 @@ __device__ __forceinline__ void stage_tile(uint32_t* slot, const uint32_t* in,
 // --------------------------------------------------------------------------
 // K5 encode_pack_pipelined: replaces rs_pallas.encode_pack_pipelined (P6).
 // P4's function (K1's outputs, bit for bit) on the pipelined design above.
-// The mxu instantiation runs mxu_tile straight on the ring slot.
+//
+// Bound: operations, as K1 (at EC 8+4 the hash of all 12 rows and the
+// 172-instruction parity product a column take longer on the integer
+// pipe than the 20 MiB a stripe take to move).  What the design does:
+// * K1's product, called as K1 calls it: fixed_parity<FK, FM> for the
+//   fixed geometries (EC 8+4), the masked Horner form over the term
+//   program (kernels.parity_terms, expanded once per block) for every
+//   other (k, m).  A thread reads its column's k words from the ring slot
+//   into registers once, hashes them and multiplies them.
+// * One barrier a tile.  Tile i's barrier (after its copies landed)
+//   also frees the slot tile i + 2 is staged into (read in tile i - 1)
+//   and publishes tile i - 1's flag ballots: a warp ballot per parity
+//   row goes into shared memory (two buffers, by tile parity) and
+//   threads r < m OR row r's after the next barrier.
+// * K1's residency and grid (enc_min_blocks, kernels.encode_pipelined_grid):
+//   3 blocks per SM at EC 8+4, whose register budget holds with no
+//   next-tile registers; the ring takes 24 KiB a block at k = 8.  The
+//   [mxu] kernel runs K6's 2 blocks per SM (kPipeBlocksPerSM), 1 past 16
+//   rows.
+// * A thread stages the same 16-byte chunk column of its rows in every
+//   tile (stage_rows), and the fixed geometry compiles k and m in, so
+//   no test on them is left in the tile loop.
+//
+// K5 [mxu] (encode_pipelined_mxu_kernel) has its own product,
+// mxu_ring_tile, on a swizzled ring; mxu_tile stays as it is for K1,
+// K4, K6 and K7 [mxu].
 // --------------------------------------------------------------------------
 
-template <int KB, int MB, bool MXU>
-__global__ void __launch_bounds__(kThreads, kPipeBlocksPerSM)
+
+// The chunk swizzle of K5 [mxu]'s ring: rows 4t .. 4t + 3 XOR their chunk
+// index by 2t.  mxu_ring_tile's lane (g, tig) reads a 16-byte chunk of
+// rows 4 tig + i, so for each i the 8 chunks a warp reads (4 tig x 2
+// chunks) fall on 8 different quads of banks; a warp reading one row's
+// 32 consecutive words (the hash leg) still meets 32 banks, since the
+// XOR only permutes the 8 chunks of an aligned 32-word run.
+// kernels.ring_swizzle is the same function.
+__host__ __device__ constexpr int ring_swizzle(int row) { return ((row >> 2) << 1) & 7; }
+
+// A thread's share of staging every tile: 16-byte chunk c = tid % 64 of
+// rows tid / 64 + 4t (t < KB / 4, rows < k), the same chunk column in
+// every tile, so only the tile's base moves (`src` is the thread's chunk
+// of tile 0).  Columns at or past w are zero-filled.  With kSwizzle the
+// chunk lands at c ^ ring_swizzle(row), which is 2t for all its rows.
+template <int KB, bool kSwizzle>
+__device__ __forceinline__ void stage_rows(uint32_t* slot, const uint32_t* in,
+                                           const uint32_t* src, int k, int w,
+                                           int tile) {
+  const int c = threadIdx.x % kChunksPerRow, j0 = threadIdx.x / kChunksPerRow;
+  const bool ok = tile * kTile + 4 * c < w;
+  const uint32_t* from = ok ? src + tile * kTile : in;
+#pragma unroll
+  for (int t = 0; t < KB / 4; ++t) {
+    const int dc = kSwizzle ? c ^ ring_swizzle(4 * t) : c;
+    if (j0 + 4 * t < k)
+      cp_async16(slot + (j0 + 4 * t) * kTile + 4 * dc, ok ? from + (size_t)4 * t * w : in,
+                 ok ? 16 : 0);
+  }
+}
+
+// A tile's parity words: store, hash and the rows' ballots into
+// `ballots` (flags != nullptr).
+template <int KB, int MB>
+__device__ __forceinline__ void emit_parity(const uint32_t (&acc)[MB], int m, bool valid,
+                                            uint32_t key, uint32_t* __restrict__ out,
+                                            int w, int col, uint32_t (&h1)[KB + MB],
+                                            uint32_t (&h2)[KB + MB], bool flags,
+                                            uint32_t (&ballots)[MB][kWarps]) {
+  if (valid) {
+#pragma unroll
+    for (int r = 0; r < MB; ++r) {
+      if (r < m) {
+        out[(size_t)r * w + col] = acc[r];
+        hash_word(acc[r], key, h1[KB + r], h2[KB + r]);
+      }
+    }
+  }
+  if (flags) {  // uniform
+#pragma unroll
+    for (int r = 0; r < MB; ++r) {
+      if (r < m) {
+        const uint32_t bal = __ballot_sync(0xffffffffu, valid && acc[r] != 0u);
+        if ((threadIdx.x & 31) == 0) ballots[r][threadIdx.x >> 5] = bal;
+      }
+    }
+  }
+}
+
+template <int KB, int MB, int FK, int FM>
+__global__ void __launch_bounds__(kThreads, enc_min_blocks(KB, MB))
 encode_pipelined_kernel(const uint32_t* __restrict__ data,
                         uint32_t* __restrict__ parity,
                         uint32_t* __restrict__ partials,
-                        uint32_t* __restrict__ flags,
-                        unsigned int* __restrict__ ticket, int k, int m, int w,
+                        unsigned int* __restrict__ ticket,
+                        uint32_t* __restrict__ flags, int k_, int m_, int w,
                         int ntiles, int tiles_per_block, uint32_t nbytes,
-                        const GfPlan plan, const uint32_t* __restrict__ amat) {
+                        const GfTerms terms) {
+  constexpr bool kMasked = FK == 0;
+  const int k = FK ? FK : k_, m = FK ? FM : m_;  // the fixed geometry's at compile time
   extern __shared__ __align__(16) uint32_t ring[];  // kStages x k x kTile
   __shared__ uint32_t s[(KB + MB) * 8];
-  __shared__ uint8_t s_row[kMaxRows];
-  __shared__ uint32_t out_s[MXU ? MB * kTile : 1];
+  __shared__ __align__(16) uint32_t masks[kMasked ? MB : 1][8][KB];
+  __shared__ uint32_t s_flag[2][MB][kWarps];
   const int b = blockIdx.y;
   const int n = k + m;
   const int tid = threadIdx.x;
   for (int i = tid; i < n * 8; i += kThreads) s[i] = 0;
-  if (tid < k) s_row[tid] = (uint8_t)tid;
-  __syncthreads();
-  uint32_t af[MB];
-  if constexpr (MXU) load_frags<MB>(amat, af);
+  if constexpr (kMasked) expand_masks<KB>(terms, m, masks);
 
   const uint32_t* in = data + (size_t)b * k * w;
   uint32_t* out = parity + (size_t)b * m * w;
@@ -1069,10 +1166,12 @@ encode_pipelined_kernel(const uint32_t* __restrict__ data,
   const int first = blockIdx.x * tiles_per_block;
   const int count = min(tiles_per_block, ntiles - first);  // >= 1
   const int slot_words = k * kTile;
+  const uint32_t* src =
+      in + (size_t)(tid / kChunksPerRow) * w + 4 * (tid % kChunksPerRow);
 
 #pragma unroll 1
   for (int st = 0; st < kStages - 1; ++st) {
-    if (st < count) stage_tile(ring + st * slot_words, in, s_row, k, w, first + st);
+    if (st < count) stage_rows<KB, false>(ring + st * slot_words, in, src, k, w, first + st);
     cp_async_commit();
   }
 
@@ -1082,71 +1181,223 @@ encode_pipelined_kernel(const uint32_t* __restrict__ data,
 
 #pragma unroll 1
   for (int i = 0; i < count; ++i) {
+    cp_async_wait<kStages - 2>();  // this thread's copies of tile i landed
+    __syncthreads();  // ... and every other thread's; slot (i-1) % kStages is free
+    if (flags != nullptr && i > 0)
+      write_tile_flags<MB>(s_flag[(i - 1) & 1], flags, b, m, g, first + i - 1);
     const int next = i + kStages - 1;
     if (next < count)
-      stage_tile(ring + (next % kStages) * slot_words, in, s_row, k, w, first + next);
+      stage_rows<KB, false>(ring + (next % kStages) * slot_words, in, src, k, w,
+                            first + next);
     cp_async_commit();
-    cp_async_wait<kStages - 1>();  // this thread's copies of tile i landed
-    __syncthreads();               // ... and every other thread's
     const uint32_t* cur = ring + (i % kStages) * slot_words;
-    const int tile = first + i;
-    const int col = tile * kTile + tid;
+    const int col = (first + i) * kTile + tid;
     const bool valid = col < w;
     const uint32_t key = hash_key((uint32_t)col);
-    uint32_t acc[MB];
+    uint32_t x[KB];
 #pragma unroll
-    for (int r = 0; r < MB; ++r) acc[r] = 0;
+    for (int c = 0; c < KB; ++c) x[c] = c < k ? cur[c * kTile + tid] : 0u;
+    if (valid) {
 #pragma unroll
-    for (int c = 0; c < KB; ++c) {
-      if (c < k) {
-        uint32_t p = cur[c * kTile + tid];
-        if (valid) hash_word(p, key, h1[c], h2[c]);
-        if constexpr (!MXU) {
-#pragma unroll
-          for (int bit = 0; bit < 8; ++bit) {
-            if (bit >= plan.nb[c]) break;
-            const uint32_t msk = plan.rm[c * 8 + bit];
-#pragma unroll
-            for (int r = 0; r < MB; ++r)
-              if ((msk >> r) & 1u) acc[r] ^= p;
-            p = xtime(p);
-          }
-        }
-      }
+      for (int c = 0; c < KB; ++c)
+        if (c < k) hash_word(x[c], key, h1[c], h2[c]);
     }
-    if constexpr (MXU) {
-      mxu_tile<MB>(cur, kTile, k, out_s, m, af);
-      __syncthreads();
+    uint32_t acc[MB];
+    if constexpr (FK > 0) {
+      fixed_parity<FK, FM>(x, acc);
+    } else {
 #pragma unroll
       for (int r = 0; r < MB; ++r)
-        if (r < m) acc[r] = out_s[r * kTile + tid];
+        if (r < m) acc[r] = horner<KB>(x, masks[r]);
     }
+    emit_parity<KB, MB>(acc, m, valid, key, out, w, col, h1, h2, flags != nullptr,
+                        s_flag[i & 1]);
+  }
+  if (flags != nullptr) {
+    __syncthreads();
+    write_tile_flags<MB>(s_flag[(count - 1) & 1], flags, b, m, g, first + count - 1);
+  }
+  fold_and_finalize<KB, MB>(h1, h2, s, partials, ticket, k, m, nbytes);
+}
+
+// --------------------------------------------------------------------------
+// K5 [mxu]'s product, mxu_ring_tile: the 1-bit tensor-core product of
+// mxu_tile (same A operand, kernels.mxu_fragments; same B words: byte q
+// of input rows 4 tig .. 4 tig + 3), rebuilt for the ring:
+// * Loads.  A warp's 32 word columns are 4 groups of 8 (two 16-byte
+//   chunks).  Lane (g, tig), h = g / 4, loads chunk h of the group from
+//   each of its 4 rows with one 16-byte shared load (4 loads a group,
+//   not 16 word loads), on the swizzled ring (ring_swizzle): no bank
+//   conflicts.  Word j of the chunk feeds n-tile j of the group, whose 8
+//   byte columns are words 8 grp + j (h = 0) and 8 grp + 4 + j (h = 1).
+// * Latency.  A group's 4 n-tiles x (output rows / 2) m-tiles are
+//   independent MMAs, unrolled together with the next group's loads.
+// * Repack.  The m-tiles go in pairs: the 8 accumulators (counts of at
+//   most 128) are summed into two words of bytes (c0, c1, d0, d1 and c2,
+//   c3, d2, d3), whose bits 0 of each byte, moved to q and q + 4, give
+//   both m-tiles' 16 output bits of this lane in one word; two shuffles
+//   join the 4 lanes of a byte and one more brings the neighbouring half
+//   word, so 3 shuffles serve 2 m-tiles (mxu_tile takes 3 for one).
+//   Sums and products where mxu_tile shifts and ORs: IMAD issues to the
+//   FMA pipe, beside the integer pipe that the hash leg fills.
+// * Return.  A warp's outputs are its own lanes' columns: they go
+//   through out_s with one __syncwarp(), no block barrier.
+// Bound: as mxu_tile's callers; chip_smoke.mxu_ring_design_ops counts its
+// integer work per word column.
+// --------------------------------------------------------------------------
+
+constexpr int kOutStride = kTile + 1;  // out_s rows: an m-tile's 2 rows on 2 banks
+
+// This lane's 16-byte chunk of group grp from each of its rows 4 tig + i
+// (zeros past k), on the swizzled ring.
+__device__ __forceinline__ void ring_chunks(const uint32_t* slot, int k, int grp,
+                                            uint4 (&x)[4]) {
+  const int lane = threadIdx.x & 31, tig = lane & 3;
+  const int chunk = ((threadIdx.x >> 5) * 8 + 2 * grp + (lane >> 4)) ^ ring_swizzle(4 * tig);
 #pragma unroll
-    for (int r = 0; r < MB; ++r) {
-      if (r < m) {
-        if (valid) {
-          out[(size_t)r * w + col] = acc[r];
-          hash_word(acc[r], key, h1[KB + r], h2[KB + r]);
-        }
-        if (flags != nullptr) {
-          const int any = __syncthreads_or(valid && acc[r] != 0u);
-          if (tid == 0) flags[((size_t)b * m + r) * g + tile] = any ? 1u : 0u;
+  for (int i = 0; i < 4; ++i)
+    x[i] = 4 * tig + i < k
+               ? *reinterpret_cast<const uint4*>(slot + (4 * tig + i) * kTile + 4 * chunk)
+               : make_uint4(0u, 0u, 0u, 0u);
+}
+
+// An MMA's B word: byte `sel` picks of four rows' words (mxu_tile's).
+__device__ __forceinline__ uint32_t b_word(uint32_t r0, uint32_t r1, uint32_t r2,
+                                           uint32_t r3, uint32_t sel) {
+  return __byte_perm(__byte_perm(r0, r1, sel), __byte_perm(r2, r3, sel), 0x5410);
+}
+
+template <int MB>
+__device__ __forceinline__ void mxu_ring_tile(const uint32_t* slot, int k, int m,
+                                              uint32_t* out_s,
+                                              const uint32_t (&af)[MB]) {
+  constexpr int kPairs = (MB / 2 + 1) / 2;  // m-tile pairs
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  const int g = lane >> 2, tig = lane & 3, q = g & 3, h = g >> 2;
+  const uint32_t sel = (uint32_t)q | ((uint32_t)(4 + q) << 4);
+  const uint32_t qbit = 1u << q;
+  const bool writer = q == 0 && (tig & 1) == 0;
+  uint4 x[4];
+  ring_chunks(slot, k, 0, x);
+#pragma unroll
+  for (int grp = 0; grp < 4; ++grp) {
+    // the B words of n-tiles j = 0..3: byte q of word j of the 4 rows
+    const uint32_t bw[4] = {b_word(x[0].x, x[1].x, x[2].x, x[3].x, sel),
+                            b_word(x[0].y, x[1].y, x[2].y, x[3].y, sel),
+                            b_word(x[0].z, x[1].z, x[2].z, x[3].z, sel),
+                            b_word(x[0].w, x[1].w, x[2].w, x[3].w, sel)};
+    if (grp < 3) ring_chunks(slot, k, grp + 1, x);  // the next group's, in flight
+#pragma unroll
+    for (int p = 0; p < kPairs; ++p) {
+      if (4 * p >= m) break;  // uniform
+      const bool second = 4 * p + 2 < m;  // m-tile 2p + 1 has rows
+      uint32_t c[4][4], d[4][4];
+#pragma unroll
+      for (int j = 0; j < 4; ++j) {  // every MMA of the group first
+        mma_b1(af[4 * p], af[4 * p + 1], bw[j], c[j][0], c[j][1], c[j][2], c[j][3]);
+        d[j][0] = d[j][1] = d[j][2] = d[j][3] = 0u;
+        if (second)
+          mma_b1(af[4 * p + 2], af[4 * p + 3], bw[j], d[j][0], d[j][1], d[j][2], d[j][3]);
+      }
+#pragma unroll
+      for (int j = 0; j < 4; ++j) {
+        // bytes: columns 2 tig, 2 tig + 1 of m-tile 2p, then of 2p + 1
+        // (the counts are at most 128: a sum places them), their bits 0
+        // at q and q + 4; the lanes' bits are disjoint, so sums join them
+        const uint32_t lo = c[j][0] + (c[j][1] << 8) + (d[j][0] << 16) + (d[j][1] << 24);
+        const uint32_t hi = c[j][2] + (c[j][3] << 8) + (d[j][2] << 16) + (d[j][3] << 24);
+        uint32_t v = ((lo & 0x01010101u) + (hi & 0x01010101u) * 16u) * qbit;
+        v += __shfl_xor_sync(0xffffffffu, v, 4);
+        v += __shfl_xor_sync(0xffffffffu, v, 8);
+        const uint32_t other = __shfl_xor_sync(0xffffffffu, v, 1);
+        if (writer) {
+          const int col = warp * 32 + 8 * grp + 2 * tig + j;  // tig 0 or 2
+          const int r0 = 4 * p + h;
+          if (r0 < m) out_s[r0 * kOutStride + col] = __byte_perm(v, other, 0x5410);
+          if (r0 + 2 < m) out_s[(r0 + 2) * kOutStride + col] = __byte_perm(v, other, 0x7632);
         }
       }
     }
-    __syncthreads();  // the slot is refilled by iteration i + 1
+  }
+}
+
+// K5 [mxu]: the ring of encode_pipelined_kernel, swizzled for
+// mxu_ring_tile; the product comes back through out_s with a
+// __syncwarp(), and flags, stores, hashing and finalize are swar's.
+template <int KB, int MB, int FK, int FM>
+__global__ void __launch_bounds__(kThreads, KB + MB > 16 ? 1 : kPipeBlocksPerSM)
+encode_pipelined_mxu_kernel(const uint32_t* __restrict__ data,
+                            uint32_t* __restrict__ parity,
+                            uint32_t* __restrict__ partials,
+                            unsigned int* __restrict__ ticket,
+                            uint32_t* __restrict__ flags, int k_, int m_, int w,
+                            int ntiles, int tiles_per_block, uint32_t nbytes,
+                            const uint32_t* __restrict__ amat) {
+  const int k = FK ? FK : k_, m = FK ? FM : m_;  // the fixed geometry's at compile time
+  extern __shared__ __align__(16) uint32_t ring[];  // kStages x k x kTile
+  __shared__ uint32_t s[(KB + MB) * 8];
+  __shared__ uint32_t s_flag[2][MB][kWarps];
+  __shared__ uint32_t out_s[MB * kOutStride];
+  const int b = blockIdx.y;
+  const int n = k + m;
+  const int tid = threadIdx.x;
+  for (int i = tid; i < n * 8; i += kThreads) s[i] = 0;
+  uint32_t af[MB];
+  load_frags<MB>(amat, af);
+
+  const uint32_t* in = data + (size_t)b * k * w;
+  uint32_t* out = parity + (size_t)b * m * w;
+  const int g = w / kTile;
+  const int first = blockIdx.x * tiles_per_block;
+  const int count = min(tiles_per_block, ntiles - first);  // >= 1
+  const int slot_words = k * kTile;
+  const uint32_t* src =
+      in + (size_t)(tid / kChunksPerRow) * w + 4 * (tid % kChunksPerRow);
+
+#pragma unroll 1
+  for (int st = 0; st < kStages - 1; ++st) {
+    if (st < count) stage_rows<KB, true>(ring + st * slot_words, in, src, k, w, first + st);
+    cp_async_commit();
   }
 
+  uint32_t h1[KB + MB], h2[KB + MB];
 #pragma unroll
-  for (int c = 0; c < KB; ++c)
-    if (c < k) fold_block(h1[c], h2[c], &s[c * 8]);
+  for (int r = 0; r < KB + MB; ++r) h1[r] = h2[r] = 0;
+
+#pragma unroll 1
+  for (int i = 0; i < count; ++i) {
+    cp_async_wait<kStages - 2>();
+    __syncthreads();
+    if (flags != nullptr && i > 0)
+      write_tile_flags<MB>(s_flag[(i - 1) & 1], flags, b, m, g, first + i - 1);
+    const int next = i + kStages - 1;
+    if (next < count)
+      stage_rows<KB, true>(ring + (next % kStages) * slot_words, in, src, k, w,
+                            first + next);
+    cp_async_commit();
+    const uint32_t* cur = ring + (i % kStages) * slot_words;
+    const int col = (first + i) * kTile + tid;
+    const bool valid = col < w;
+    const uint32_t key = hash_key((uint32_t)col);
+    if (valid) {
 #pragma unroll
-  for (int r = 0; r < MB; ++r)
-    if (r < m) fold_block(h1[KB + r], h2[KB + r], &s[(k + r) * 8]);
-  __syncthreads();
-  for (int i = tid; i < n * 8; i += kThreads)
-    if (s[i]) atomicXor(&partials[(size_t)b * n * 8 + i], s[i]);
-  finalize_if_last(partials, (int)gridDim.y * n * 8, nbytes, ticket);
+      for (int c = 0; c < KB; ++c)
+        if (c < k)
+          hash_word(cur[c * kTile + (tid ^ (ring_swizzle(c) << 2))], key, h1[c], h2[c]);
+    }
+    mxu_ring_tile<MB>(cur, k, m, out_s, af);
+    __syncwarp();
+    uint32_t acc[MB];
+#pragma unroll
+    for (int r = 0; r < MB; ++r) acc[r] = r < m ? out_s[r * kOutStride + tid] : 0u;
+    emit_parity<KB, MB>(acc, m, valid, key, out, w, col, h1, h2, flags != nullptr,
+                        s_flag[i & 1]);
+  }
+  if (flags != nullptr) {
+    __syncthreads();
+    write_tile_flags<MB>(s_flag[(count - 1) & 1], flags, b, m, g, first + count - 1);
+  }
+  fold_and_finalize<KB, MB>(h1, h2, s, partials, ticket, k, m, nbytes);
 }
 
 // --------------------------------------------------------------------------
@@ -1403,18 +1654,41 @@ void launch_vr(dim3 grid, cudaStream_t st, const uint32_t* shards,
         plan, amat);
 }
 
-template <int KB, int MB, bool MXU>
-cudaError_t launch_encode_pipelined(dim3 grid, size_t smem, cudaStream_t st,
+// The one-time opt-in of a kernel instantiation to `smem` bytes of
+// dynamic shared memory (the most any of its launches takes), per device:
+// cudaFuncSetAttribute is not called again for launches after the first.
+template <auto Kernel>
+cudaError_t smem_opt_in(int device, size_t smem) {
+  static std::atomic<unsigned long long> done{0};
+  const unsigned long long bit = device < 64 ? 1ull << device : 0ull;
+  if (bit && (done.load(std::memory_order_relaxed) & bit)) return cudaSuccess;
+  const cudaError_t err = prepare_smem(Kernel, smem);
+  if (err == cudaSuccess && bit) done.fetch_or(bit, std::memory_order_relaxed);
+  return err;
+}
+
+// K5 swar or [mxu] (amat != nullptr); FK, FM > 0 compile the fixed
+// geometry's k and m in (and its product, for swar).
+template <int KB, int MB, int FK = 0, int FM = 0>
+cudaError_t launch_encode_pipelined(int device, dim3 grid, size_t smem, cudaStream_t st,
                                     const uint32_t* data, uint32_t* parity,
-                                    uint32_t* partials, uint32_t* flags,
-                                    unsigned int* ticket, int k, int m, int w,
-                                    int ntiles, int tpb, uint32_t nbytes,
-                                    const GfPlan& plan, const uint32_t* amat) {
-  cudaError_t err = prepare_smem(encode_pipelined_kernel<KB, MB, MXU>, smem);
-  if (err != cudaSuccess) return err;
-  encode_pipelined_kernel<KB, MB, MXU><<<grid, kThreads, smem, st>>>(
-      data, parity, partials, flags, ticket, k, m, w, ntiles, tpb, nbytes, plan,
-      amat);
+                                    uint32_t* partials, unsigned int* ticket,
+                                    uint32_t* flags, int k, int m, int w, int ntiles,
+                                    int tpb, uint32_t nbytes, const GfTerms& terms,
+                                    const uint32_t* amat) {
+  constexpr size_t kMaxSmem = (size_t)kStages * KB * kTile * sizeof(uint32_t);
+  cudaError_t err;
+  if (amat) {
+    err = smem_opt_in<encode_pipelined_mxu_kernel<KB, MB, FK, FM>>(device, kMaxSmem);
+    if (err != cudaSuccess) return err;
+    encode_pipelined_mxu_kernel<KB, MB, FK, FM><<<grid, kThreads, smem, st>>>(
+        data, parity, partials, ticket, flags, k, m, w, ntiles, tpb, nbytes, amat);
+  } else {
+    err = smem_opt_in<encode_pipelined_kernel<KB, MB, FK, FM>>(device, kMaxSmem);
+    if (err != cudaSuccess) return err;
+    encode_pipelined_kernel<KB, MB, FK, FM><<<grid, kThreads, smem, st>>>(
+        data, parity, partials, ticket, flags, k, m, w, ntiles, tpb, nbytes, terms);
+  }
   return cudaGetLastError();
 }
 
@@ -1540,40 +1814,66 @@ int mtt_encode_pack(const EncodeArgs* a) {
   return (int)cudaGetLastError();
 }
 
-// K5: mtt_encode_pack's outputs (finalize always on) from one pipelined
-// launch plus, with group == 256, the pack launch.  `partials` and the
-// one-word `ticket` arrive zeroed; tiles_per_block comes from the
-// wrapper's persistent-grid choice.  Takes m >= 1 and w % 4 == 0, with
-// 16-byte aligned rows; a non-null `amat` selects the mxu product.
-int mtt_encode_pack_pipelined(int device, const uint32_t* data, uint32_t* parity,
-                              uint32_t* partials, uint32_t* flags, uint32_t* packed,
-                              unsigned int* ticket, int B, int k, int m, int w,
-                              int group, uint32_t nbytes, int tiles_per_block,
-                              const uint16_t* rm, const uint8_t* nb,
-                              const uint32_t* amat, void* stream) {
+// The arguments of one K5 launch, packed by kernels.py (_ENCODE_PIPE_ARGS:
+// 8 addresses, 8 ints, 1 u32, 4 bytes of padding).
+struct EncodePipeArgs {
+  uint64_t data, parity, packed, flags, acc, terms, amat, stream;
+  int32_t device, B, k, m, w, group, tiles_per_block, terms_len;
+  uint32_t nbytes;
+};
+static_assert(sizeof(EncodePipeArgs) == 104, "kernels._ENCODE_PIPE_ARGS packs 104 bytes");
+
+// K5: mtt_encode_pack's outputs (finalize always on) from one memset, one
+// pipelined launch and, with group == 256, the pack launch.  `acc` holds
+// the (B, k+m, 8) digests and then the one-word last-block ticket; the
+// entry zeroes both.  `terms` is the parity matrix's term program
+// (kernels.parity_terms, gf_terms_bytes() long; the fixed geometry ignores
+// it); a non-null `amat` (kernels.mxu_fragments order) selects the mxu
+// kernel.  Takes m >= 1 and w % 4 == 0, with 16-byte aligned rows;
+// tiles_per_block comes from kernels.encode_pipelined_grid.
+int mtt_encode_pack_pipelined(const EncodePipeArgs* a) {
+  const uint32_t* data = reinterpret_cast<const uint32_t*>(a->data);
+  uint32_t* parity = reinterpret_cast<uint32_t*>(a->parity);
+  uint32_t* packed = reinterpret_cast<uint32_t*>(a->packed);
+  uint32_t* flags = reinterpret_cast<uint32_t*>(a->flags);
+  uint32_t* acc = reinterpret_cast<uint32_t*>(a->acc);
+  const uint32_t* amat = reinterpret_cast<const uint32_t*>(a->amat);
+  const int device = a->device, B = a->B, k = a->k, m = a->m, w = a->w,
+            group = a->group, tiles_per_block = a->tiles_per_block;
   if (k < 1 || k > kMaxRows || m < 1 || m > kMaxRows || w <= 0 || w % 4 != 0 ||
-      tiles_per_block < 1 || B <= 0 || B > 65535 ||
-      ((uintptr_t)data & 15u) != 0 ||
-      (group != 0 && (group != kTile || w % kTile != 0)))
+      tiles_per_block < 1 || B <= 0 || B > 65535 || (a->data & 15u) != 0 ||
+      (size_t)a->terms_len != gf_terms_bytes() ||
+      (group != 0 && (group != kTile || w % kTile != 0 || !flags || !packed)))
     return (int)cudaErrorInvalidValue;
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return (int)err;
-  cudaStream_t st = (cudaStream_t)stream;
-  const GfPlan plan = make_plan(rm, nb);
+  cudaStream_t st = reinterpret_cast<cudaStream_t>(a->stream);
+  const size_t count = (size_t)B * (k + m) * 8;
+  err = cudaMemsetAsync(acc, 0, (count + 1) * sizeof(uint32_t), st);
+  if (err != cudaSuccess) return (int)err;
+  unsigned int* ticket = reinterpret_cast<unsigned int*>(acc + count);
+  const GfTerms t = make_gf_terms(reinterpret_cast<const uint8_t*>(a->terms), m);
   const int ntiles = (w + kTile - 1) / kTile;
   dim3 grid((ntiles + tiles_per_block - 1) / tiles_per_block, B);
   const size_t smem = (size_t)kStages * k * kTile * sizeof(uint32_t);
   uint32_t* fl = group ? flags : nullptr;
   const int kb = bucket(k), mb = bucket(m);
+  bool fixed = false;
   err = cudaErrorInvalidValue;
-#define MTT_ENCP(KB_, MB_)                                                     \
-  if (kb == KB_ && mb == MB_)                                                  \
-    err = amat ? launch_encode_pipelined<KB_, MB_, true>(                      \
-                     grid, smem, st, data, parity, partials, fl, ticket, k, m, \
-                     w, ntiles, tiles_per_block, nbytes, plan, amat)           \
-               : launch_encode_pipelined<KB_, MB_, false>(                     \
-                     grid, smem, st, data, parity, partials, fl, ticket, k, m, \
-                     w, ntiles, tiles_per_block, nbytes, plan, amat);
+#define MTT_FIXED_ENCP(K_, M_)                                                    \
+  if (k == K_ && m == M_) {                                                       \
+    err = launch_encode_pipelined<bucket(K_), bucket(M_), K_, M_>(                \
+        device, grid, smem, st, data, parity, acc, ticket, fl, k, m, w, ntiles,   \
+        tiles_per_block, a->nbytes, t, amat);                                     \
+    fixed = true;                                                                 \
+  }
+  MTT_FIXED_GEOMETRIES(MTT_FIXED_ENCP)
+#undef MTT_FIXED_ENCP
+#define MTT_ENCP(KB_, MB_)                                                        \
+  if (!fixed && kb == KB_ && mb == MB_)                                           \
+    err = launch_encode_pipelined<KB_, MB_>(                                      \
+        device, grid, smem, st, data, parity, acc, ticket, fl, k, m, w, ntiles,   \
+        tiles_per_block, a->nbytes, t, amat);
   MTT_ENCP(4, 4) MTT_ENCP(4, 8) MTT_ENCP(4, 16)
   MTT_ENCP(8, 4) MTT_ENCP(8, 8) MTT_ENCP(8, 16)
   MTT_ENCP(16, 4) MTT_ENCP(16, 8) MTT_ENCP(16, 16)
@@ -1777,17 +2077,20 @@ const char* mtt_constants() {
   static const int len = snprintf(
       buf, sizeof buf,
       "tile=%d max_rows=%d phash_rows=%d phash_blocks_per_sm=%d "
-      "pipe_blocks_per_sm=%d enc_blocks_per_sm=%d gf_blocks_per_sm=%d "
+      "pipe_blocks_per_sm=%d enc_blocks_per_sm=%d "
+      "gf_blocks_per_sm=%d "
       "bucket=%d,%d,%d,%d,%d,%d,%d,%d,%d,%d,%d,%d,%d,%d,%d,%d "
       "rb_max=%d,%d,%d vr_terms_bytes=%d,%d,%d gf_terms_bytes=%d "
-      "encode_args_bytes=%d gf_args_bytes=%d fixed=%s",
+      "encode_args_bytes=%d encode_pipe_args_bytes=%d gf_args_bytes=%d "
+      "ring_swizzle=%d,%d,%d,%d fixed=%s",
       kTile, kMaxRows, kPhashRows, kPhashBlocksPerSM, kPipeBlocksPerSM,
       kEncBlocksPerSM, kGfBlocksPerSM, bucket(1), bucket(2), bucket(3), bucket(4), bucket(5),
       bucket(6), bucket(7), bucket(8), bucket(9), bucket(10), bucket(11),
       bucket(12), bucket(13), bucket(14), bucket(15), bucket(16), kRbMax<4>,
       kRbMax<8>, kRbMax<16>, (int)terms_bytes<4>(), (int)terms_bytes<8>(),
       (int)terms_bytes<16>(), (int)gf_terms_bytes(), (int)sizeof(EncodeArgs),
-      (int)sizeof(GfMatmulArgs),
+      (int)sizeof(EncodePipeArgs), (int)sizeof(GfMatmulArgs), ring_swizzle(0),
+      ring_swizzle(4), ring_swizzle(8), ring_swizzle(12),
       "" MTT_FIXED_GEOMETRIES(MTT_FIXED_STR));
 #undef MTT_FIXED_STR
   (void)len;

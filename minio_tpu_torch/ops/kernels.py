@@ -30,9 +30,11 @@ Seven kernels, all in ``csrc/codec.cu`` (CUDA C++ for ``sm_90a``):
   (P6) and ``verify_reconstruct_pipelined`` (K6) replaces
   ``rs_pallas.verify_reconstruct_pipelined`` (P7): K1's and K4's
   functions on a persistent grid that stages tiles into a shared-memory
-  ring with ``cp.async`` and finalizes in its last block.  K6 copies the
-  present data rows and rebuilds the others from a term program made
-  once per (present, k) (``vr_terms``).
+  ring with ``cp.async`` and finalizes in its last block.  K5 runs K1's
+  product (``fixed_source``, ``parity_terms``) from the ring slot, its
+  mxu kernel a product of its own on a swizzled ring (``ring_swizzle``);
+  K6 copies the present data rows and rebuilds the others from a term
+  program made once per (present, k) (``vr_terms``).
 * ``gf_matmul_mxu`` (K7) replaces ``rs_pallas.gf_matmul_mxu`` (P3): a
   runtime (o, s) GF(2^8) matrix over (s, length) uint8 shards through a
   1-bit tensor-core product of the lifted (8o, 8s) GF(2) matrix.
@@ -96,7 +98,7 @@ NVCC_FLAGS = (
 TILE = 256  # columns per block tile == PARITY_GROUP_WORDS
 _MAX_ROWS = 16
 
-_PIPE_BLOCKS_PER_SM = 2  # K5/K6 residency (kPipeBlocksPerSM)
+_PIPE_BLOCKS_PER_SM = 2  # K6 residency (kPipeBlocksPerSM)
 _ENC_BLOCKS_PER_SM = 3  # K1's persistent grid (kEncBlocksPerSM)
 _GF_BLOCKS_PER_SM = 4  # K3's grid (kGfBlocksPerSM)
 _PHASH_ROWS = 4  # rows per K2 block (kPhashRows: the entry refuses another)
@@ -198,14 +200,12 @@ def _load():
         if _lib is None:
             lib = ctypes.CDLL(str(build()))
             P, I, U = ctypes.c_void_p, ctypes.c_int, ctypes.c_uint32
-            # K1 and K3 take one packed argument struct (_ENCODE_ARGS,
-            # _GF_ARGS): ctypes converts one argument, not 13-20.  In
-            # the other codec passes the pointer before the stream is the
-            # mxu operand (None: the swar instantiation).
+            # K1, K3 and K5 take one packed argument struct (_ENCODE_ARGS,
+            # _GF_ARGS, _ENCODE_PIPE_ARGS): ctypes converts one argument,
+            # not 13-20.  In the other codec passes the pointer before the
+            # stream is the mxu operand (None: the swar instantiation).
             lib.mtt_encode_pack.argtypes = [ctypes.c_char_p]
-            lib.mtt_encode_pack_pipelined.argtypes = [
-                I, P, P, P, P, P, P, I, I, I, I, I, U, I, P, P, P, P,
-            ]
+            lib.mtt_encode_pack_pipelined.argtypes = [ctypes.c_char_p]
             lib.mtt_phash256.argtypes = [I, P, P, I, I, U, I, I, P]
             lib.mtt_gf_matmul.argtypes = [ctypes.c_char_p]
             lib.mtt_verify_reconstruct.argtypes = [
@@ -241,7 +241,9 @@ def _constants() -> dict:
         "vr_terms_bytes": tuple(_vr_terms_bytes(kb) for kb in (4, 8, 16)),
         "gf_terms_bytes": (_GF_TERMS_BYTES,),
         "encode_args_bytes": (_ENCODE_ARGS.size,),
+        "encode_pipe_args_bytes": (_ENCODE_PIPE_ARGS.size,),
         "gf_args_bytes": (_GF_ARGS.size,),
+        "ring_swizzle": tuple(ring_swizzle(r) for r in (0, 4, 8, 12)),
         "fixed": tuple(f"{k}x{m}" for k, m in FIXED_GEOMETRIES),
     }
 
@@ -334,8 +336,17 @@ def _persistent_grid(B: int, w: int, resident: int) -> "tuple[int, int]":
 
 @functools.lru_cache(maxsize=1024)
 def pipelined_grid(B: int, w: int, sms: int) -> "tuple[int, int]":
-    """K5/K6's persistent grid: ``_PIPE_BLOCKS_PER_SM`` blocks per SM."""
+    """K6's persistent grid: ``_PIPE_BLOCKS_PER_SM`` blocks per SM."""
     return _persistent_grid(B, w, sms * _PIPE_BLOCKS_PER_SM)
+
+
+@functools.lru_cache(maxsize=1024)
+def encode_pipelined_grid(B: int, w: int, sms: int,
+                          mxu: bool = False) -> "tuple[int, int]":
+    """K5's persistent grid: K1's (``encode_grid``, the residency K5's
+    swar kernel is compiled for) or, for the mxu kernel, K6's
+    (``pipelined_grid``)."""
+    return pipelined_grid(B, w, sms) if mxu else encode_grid(B, w, sms)
 
 
 @functools.lru_cache(maxsize=1024)
@@ -361,13 +372,25 @@ def gf_grid(B: int, w: int, sms: int) -> int:
     return max(1, min(B * tiles, sms * _GF_BLOCKS_PER_SM))
 
 
-def pipeline_windows(B: int, w: int, sms: int) -> int:
-    """Overlap windows of one K5/K6 launch: the tile computes during
-    which a later tile's copy was in flight.  A block walking c tiles
-    has c - 1 of them, so the launch has B * (ntiles - blocks per
-    stripe)."""
-    _tpb, per_stripe = pipelined_grid(B, w, sms)
+def pipeline_windows(B: int, w: int, sms: int, encode: bool = False,
+                     mxu: bool = False) -> int:
+    """Overlap windows of one K6 launch (``encode``: K5, of the mxu
+    kernel with ``mxu``): the tile computes during which a later tile's
+    copy was in flight.  A block walking c tiles has c - 1 of them, so
+    the launch has B * (ntiles - blocks per stripe)."""
+    if encode:
+        _tpb, per_stripe = encode_pipelined_grid(B, w, sms, mxu)
+    else:
+        _tpb, per_stripe = pipelined_grid(B, w, sms)
     return B * (-(-w // TILE) - per_stripe)
+
+
+def ring_swizzle(row: int) -> int:
+    """The chunk swizzle of K5 [mxu]'s ring (``ring_swizzle`` in codec.cu):
+    16-byte chunk c of ring row ``row`` lies at chunk c ^ ring_swizzle(row)
+    of the slot's row, so that the warp's 16-byte B-operand loads of rows
+    4 tig + i meet 8 different quads of banks."""
+    return ((row >> 2) << 1) & 7
 
 
 @functools.lru_cache(maxsize=1024)
@@ -382,7 +405,7 @@ def phash_grid(R: int, w: int, sms: int) -> int:
 
 @functools.lru_cache(maxsize=256)
 def _plan(matrix_key: bytes, o: int, s: int):
-    """ctypes buffers of K4/K5's GfPlan for one (o, s) matrix."""
+    """ctypes buffers of K4's GfPlan for one (o, s) matrix."""
     matrix = np.frombuffer(matrix_key, dtype=np.uint8).reshape(o, s)
     rm = np.zeros(_MAX_ROWS * 8, dtype=np.uint16)
     for c in range(s):
@@ -459,6 +482,10 @@ _GF_TERMS_BYTES = 2 * _MAX_ROWS * 8 + 3 * _MAX_ROWS  # gf_terms_bytes() in codec
 # rows_in, w, o, s, blocks, terms_len, rows.  A null address is 0.
 _ENCODE_ARGS = struct.Struct("<9Q9i2I4x")
 _GF_ARGS = struct.Struct("<4Q9i4x")
+# K5's (EncodePipeArgs): data, parity, packed, flags, acc, terms, amat,
+# stream addresses; device, B, k, m, w, group, tiles_per_block,
+# terms_len; nbytes.
+_ENCODE_PIPE_ARGS = struct.Struct("<8Q8iI4x")
 
 
 @dataclasses.dataclass(frozen=True, eq=False)
@@ -799,51 +826,102 @@ def encode_pack_pipelined_plain(words: torch.Tensor, parity_shards: int,
                              formulation)
 
 
-def encode_pack_pipelined(words: torch.Tensor, parity_shards: int,
-                          shard_len: int, group: int = 0,
-                          formulation: str = "swar"):
-    """K5: encode_pack's outputs, bit for bit, from the pipelined kernel
-    (persistent grid, cp.async tile ring, last-block finalize).  Needs
-    parity_shards >= 1, as P6 does, and w % 4 == 0."""
-    B, k, w = words.shape
-    m = parity_shards
-    _check_group(group, w)
-    rs.check_formulation(formulation)
+def _check_pipelined(m: int, w: int) -> None:
     if m < 1:
         raise ValueError("encode_pack_pipelined needs parity_shards >= 1")
     if w % 4:
         raise ValueError(f"word count {w} must be a multiple of 4")
+
+
+@dataclasses.dataclass(frozen=True, eq=False)
+class _EncPipePlan:
+    """K5's launch constants for one call shape (``_encp_plan``): the
+    term program, the mxu operand, the grid, and where parity, packed,
+    flags, digests and the ticket lie in the call's one buffer."""
+
+    terms: int  # address of the term program's blob
+    terms_len: int
+    amat: int  # address of the mxu operand, or 0 (swar)
+    operand: "torch.Tensor | None"  # holds amat (_mxu_tensor may drop it)
+    tiles_per_block: int
+    no_flags: "torch.Tensor | None"  # the (B, m, 0) flags of group=0
+    buf_words: int  # parity, packed, flags, digests, ticket
+    packed_off: int  # byte offsets into the buffer
+    flags_off: int
+    acc_off: int
+    parity: tuple  # as_strided (size, stride[, offset]) of each output
+    packed: tuple
+    flags: tuple
+    digests: tuple
+
+
+@functools.lru_cache(maxsize=1024)
+def _encp_plan(B: int, k: int, m: int, w: int, group: int, formulation: str,
+               device: torch.device) -> _EncPipePlan:
+    """K5's launch constants for one call shape, made once (checks the
+    shape and the options on the first call of each)."""
+    _check_group(group, w)
+    rs.check_formulation(formulation)
+    _check_pipelined(m, w)
+    if not (1 <= k <= _MAX_ROWS and m <= _MAX_ROWS):
+        raise ValueError(f"encode_pack_pipelined supports k, m <= {_MAX_ROWS}")
+    terms = parity_terms(k, m)
+    mxu = formulation == "mxu"
+    operand = _mxu_operand(gf.parity_matrix(k, m), device) if mxu else None
+    tpb, _per_stripe = encode_pipelined_grid(B, w, sm_count(device), mxu)
+    n, pw = k + m, B * m * w
+    g = w // TILE if group else 0
+    packed_w = pw if group else 0
+    flags_at, acc_at = pw + packed_w, pw + packed_w + B * m * g
+    return _EncPipePlan(
+        ctypes.addressof(terms.blob), len(terms.blob),
+        0 if operand is None else operand.data_ptr(), operand, tpb,
+        None if group else torch.empty((B, m, 0), dtype=torch.int32, device=device),
+        acc_at + B * n * 8 + 1, 4 * pw, 4 * flags_at, 4 * acc_at,
+        ((B, m, w), (m * w, w, 1)), ((B, m, w), (m * w, w, 1), pw),
+        ((B, m, g), (m * g, g, 1), flags_at), ((B, n, 8), (n * 8, 8, 1), acc_at),
+    )
+
+
+def encode_pack_pipelined(words: torch.Tensor, parity_shards: int,
+                          shard_len: int, group: int = 0,
+                          formulation: str = "swar"):
+    """K5: encode_pack's outputs, bit for bit, from the pipelined kernel
+    (persistent grid, cp.async tile ring, K1's product, last-block
+    finalize).  Needs parity_shards >= 1, as P6 does, and w % 4 == 0.
+    On the card: one allocation for every output, the entry's memset of
+    digests and ticket, the K5 launch and, with group == 256, the pack
+    launch."""
+    B, k, w = words.shape
+    m = parity_shards
     if words.device.type == "cpu":
+        _check_group(group, w)
+        rs.check_formulation(formulation)
+        _check_pipelined(m, w)
         return encode_pack_pipelined_plain(words, m, shard_len, group,
                                            formulation)
     _require_cuda(words, "encode_pack_pipelined", 3)
-    _require_aligned(words, "encode_pack_pipelined")
-    if not (1 <= k <= _MAX_ROWS and m <= _MAX_ROWS):
-        raise ValueError(f"encode_pack_pipelined supports k, m <= {_MAX_ROWS}")
-    lib = _load()
+    src = words.data_ptr()
+    if src % 16:
+        raise ValueError("encode_pack_pipelined: expected a 16-byte aligned tensor")
     dev = words.device
-    n = k + m
-    parity = torch.empty((B, m, w), dtype=torch.int32, device=dev)
-    # the digests and the last-block ticket share one zeroed allocation
-    acc = torch.zeros(B * n * 8 + 1, dtype=torch.int32, device=dev)
-    digests = acc[:-1].view(B, n, 8)
-    g = w // TILE if group else 0
-    flags = torch.empty((B, m, g), dtype=torch.int32, device=dev)
-    packed = torch.empty_like(parity) if group else parity
-    pm = gf.parity_matrix(k, m)
-    rm, nb = _matrix_plan(pm)
-    amat = _mxu_operand(pm, dev).data_ptr() if formulation == "mxu" else None
-    tpb, _per_stripe = pipelined_grid(B, w, sm_count(dev))
-    rc = lib.mtt_encode_pack_pipelined(
-        dev.index or 0, words.data_ptr(), parity.data_ptr(),
-        digests.data_ptr(), flags.data_ptr(), packed.data_ptr(),
-        acc[-1:].data_ptr(), B, k, m, w, group, shard_len & 0xFFFFFFFF, tpb,
-        rm, nb, amat, _stream(words),
-    )
+    plan = _encp_plan(B, k, m, w, group, formulation, dev)
+    buf = torch.empty(plan.buf_words, dtype=torch.int32, device=dev)
+    base = buf.data_ptr()
+    rc = _load().mtt_encode_pack_pipelined(_ENCODE_PIPE_ARGS.pack(
+        src, base, base + plan.packed_off, base + plan.flags_off,
+        base + plan.acc_off, plan.terms, plan.amat,
+        torch._C._cuda_getCurrentRawStream(dev.index), dev.index, B, k, m, w,
+        group, plan.tiles_per_block, plan.terms_len, shard_len & 0xFFFFFFFF,
+    ))
     _check_rc(rc, "encode_pack_pipelined")
-    _count("encode_pack_pipelined[mxu]" if formulation == "mxu"
-           else "encode_pack_pipelined")
-    return parity, digests, flags, packed
+    parity = buf.as_strided(*plan.parity)
+    if group:
+        packed, flags = buf.as_strided(*plan.packed), buf.as_strided(*plan.flags)
+    else:
+        packed, flags = parity, plan.no_flags
+    _count("encode_pack_pipelined[mxu]" if plan.amat else "encode_pack_pipelined")
+    return parity, buf.as_strided(*plan.digests), flags, packed
 
 
 # ---------------------------------------------------------------------------

@@ -524,7 +524,8 @@ def test_constants_check_accepts_the_library_string_and_refuses_drift():
         "pipe_blocks_per_sm=2 enc_blocks_per_sm=3 gf_blocks_per_sm=4 "
         "bucket=4,4,4,4,8,8,8,8,16,16,16,16,16,16,16,16 rb_max=4,8,7 "
         "vr_terms_bytes=548,2088,3623 gf_terms_bytes=304 encode_args_bytes=120 "
-        "gf_args_bytes=72 fixed=," + fixed
+        "encode_pipe_args_bytes=104 gf_args_bytes=72 ring_swizzle=0,2,4,6 "
+        "fixed=," + fixed
     )
     kernels._check_constants(text)
     assert kernels.parse_constants(text)["vr_terms_bytes"] == (548, 2088, 3623)

@@ -143,8 +143,9 @@ def test_pipeline_equals_off_and_m0_takes_k1(monkeypatch):
 
 
 def test_pipeline_windows_formula():
-    """K5/K6's persistent grid and its overlap windows: B * (tiles -
-    blocks per stripe), since a block walking c tiles overlaps c - 1."""
+    """K5/K6's persistent grids and their overlap windows: B * (tiles -
+    blocks per stripe), since a block walking c tiles overlaps c - 1.
+    K6 sizes for 2 blocks per SM, K5 for 3 (its mxu kernel for 2)."""
     W = 327_680  # EC 8+4, 10 MiB blocks: 1,280 tiles of 256 words
     assert kernels.pipelined_grid(1, W, 132) == (5, 256)
     assert kernels.pipeline_windows(1, W, 132) == 1280 - 256
@@ -152,6 +153,13 @@ def test_pipeline_windows_formula():
     assert kernels.pipeline_windows(4, W, 132) == 4 * (1280 - 64)
     assert kernels.pipeline_windows(2, 8, 132) == 0  # one tile per stripe
     assert kernels.pipelined_grid(300, 512, 132) == (2, 1)
+    # K5
+    assert kernels.encode_pipelined_grid(4, W, 132) == (13, 99)
+    assert kernels.pipeline_windows(4, W, 132, encode=True) == 4 * (1280 - 99)
+    assert kernels.encode_pipelined_grid(1, W, 132) == (4, 320)
+    assert kernels.pipeline_windows(1, W, 132, encode=True) == 1280 - 320
+    assert kernels.pipeline_windows(4, W, 132, encode=True, mxu=True) == 4 * (1280 - 64)
+    assert kernels.pipeline_windows(2, 8, 132, encode=True) == 0
 
 
 def _rand_words(shape, seed):
