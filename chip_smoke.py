@@ -2,12 +2,12 @@
 """Smoke run of the PyTorch/CUDA port (minio_tpu_torch) on one NVIDIA GPU.
 
     python3 chip_smoke.py            # from the repository root
-    python3 chip_smoke.py --parent DIR   # and K1/K2/K3/K5/K6 beside an older copy
+    python3 chip_smoke.py --parent DIR   # and K1-K6 beside an older copy
 
 1. Builds the CUDA kernels from ``minio_tpu_torch/csrc`` with nvcc (and
    those of ``--parent``'s copy at the same time), and prints each
-   kernel's registers and spills and the static SASS of K1 and K5 (EC
-   8+4, swar and mxu), K2, K3 and K6 (``sass_loops``).
+   kernel's registers and spills and the static SASS of K1, K4 and K5
+   (EC 8+4, swar and mxu), K2, K3 and K6 (``sass_loops``).
 2. Holds each kernel bit-exactly against its plain PyTorch version on the
    card, at the main path's shapes (EC 8+4, 10 MiB blocks: 327,680 words
    per shard) and at ragged ones, and times kernel, plain version and the
@@ -23,7 +23,10 @@
    whole-row pass and against their plain chains.  The mxu formulation
    too: K7 gf_matmul_mxu and the ``mxu`` instantiations of K1, K4, K5
    and K6 against their plain versions and their swar twins, at the main
-   path's and heal's shapes and at ragged ones.  K2 also at row counts
+   path's and heal's shapes and at ragged ones; K1 ``mxu`` also at every
+   geometry of ``encode_geometry_sweep`` and on an unaligned view, K4
+   ``mxu`` also at 1 to 8 rebuilt rows, other row buckets and an
+   unaligned view (``vr_mxu_sweep``).  K2 also at row counts
    off its 4-row group, widths off its 1,024-word tile and an unaligned
    view; K6 and K6 ``mxu`` also against their plain versions and K4 for
    every EC 8+4 survivor pattern with 0-4 rows absent.  K1 also at one
@@ -34,7 +37,7 @@
    back-to-back event time (``ms``): its device time from a replayed
    CUDA graph, the host's time per wrapper call and its L2-cold time
    (``device_times``), and for K1, K3 and K6 a one-tile launch (the
-   fixed chain).  With ``--parent``, K1, K2, K3, K5 and K6 of both
+   fixed chain).  With ``--parent``, K1-K6 of both
    copies at the main path's shapes in turns parent, new, new, parent
    (``compare_copies``).
 3. Drives the main path through the object layer under the default
@@ -303,7 +306,10 @@ _RING_REPACK = 19
 
 
 def mxu_ring_design_ops(o: int, s: int) -> int:
-    """The mxu_ring_tile lanes' permutes and repack per word column."""
+    """The mxu_ring_tile lanes' permutes and repack per word column; none
+    without output rows (K4 [mxu] runs no product then)."""
+    if o == 0:
+        return 0
     mtiles = -(-o // 2)
     return 32 * (_PERM + _RING_REPACK * -(-mtiles // 2)) // 2
 
@@ -394,6 +400,37 @@ def vr_pattern_sweep(dev, rng, formulation: str) -> int:
     return err
 
 
+# K4 [mxu] off EC 8+4's buckets: (k, n, absent rows) with 1 to 8 rebuilt
+# rows (the 8-row bucket of the product from 5 on), 4 tile slots, k = 1
+# and k = 12
+VR_MXU_GEOMETRIES = [(8, 16, (0, 1, 2, 3, 4)), (8, 16, tuple(range(8))),
+                     (5, 10, (0, 2, 4)), (2, 4, (0,)), (1, 2, (0,)),
+                     (12, 16, (1, 2, 3, 4))]
+
+
+def vr_mxu_sweep(dev, rng) -> int:
+    """K4 [mxu] against its plain version and K4 swar at every geometry of
+    VR_MXU_GEOMETRIES, at w = 4,104 and B = 1, 2, and on a view off
+    16-byte alignment (4-byte loads); returns the max_abs_err (0)."""
+    from minio_tpu_torch.ops import kernels
+
+    err = 0
+    w = 4104
+    for k, n, gone in VR_MXU_GEOMETRIES:
+        pres = tuple(i not in gone for i in range(n))
+        for x in (rand_words(rng, (1, n, w), dev), rand_words(rng, (2, n, w), dev),
+                  rand_words(rng, (2 * n * w + 1,), dev)[1:].view(2, n, w)):
+            got = kernels.verify_reconstruct(x, pres, k, 4 * w, "mxu")
+            e = same(got, kernels.verify_reconstruct_plain(x, pres, k, 4 * w, "mxu"),
+                     kernels.verify_reconstruct(x, pres, k, 4 * w))
+            if e:
+                fail(f"verify_reconstruct[mxu] differs from its plain version or K4 at "
+                     f"k={k}, n={n}, absent {gone}, B={x.shape[0]}, "
+                     f"offset {x.storage_offset()}")
+            err = max(err, e)
+    return err
+
+
 # one (k, m) in each (k, m) row bucket K1's entry takes (the masked
 # Horner form), m = 0, EC 8+4 (the fixed product), EC 12+4 and 4+2
 K1_GEOMETRIES = [(3, 2), (4, 6), (2, 12), (6, 3), (8, 8), (5, 11), (13, 3),
@@ -401,9 +438,9 @@ K1_GEOMETRIES = [(3, 2), (4, 6), (2, 12), (6, 3), (8, 8), (5, 11), (13, 3),
 
 
 def encode_geometry_sweep(dev, rng) -> int:
-    """K1 at every geometry of K1_GEOMETRIES, with and without the pack
-    leg, against its plain version and (m >= 1) K5 and K5 [mxu]; returns
-    the max_abs_err (0)."""
+    """K1 and K1 [mxu] at every geometry of K1_GEOMETRIES, with and without
+    the pack leg, against its plain version and (m >= 1) K5 and K5 [mxu];
+    returns the max_abs_err (0)."""
     from minio_tpu_torch.ops import kernels
 
     err = 0
@@ -417,10 +454,11 @@ def encode_geometry_sweep(dev, rng) -> int:
             if m:
                 wants.append(kernels.encode_pack_pipelined(x, m, 4 * w, group))
                 wants.append(kernels.encode_pack_pipelined(x, m, 4 * w, group, "mxu"))
-            e = same(got, *wants)
+            e = max(same(got, *wants),
+                    same(kernels.encode_pack(x, m, 4 * w, group, "mxu"), *wants))
             if e:
-                fail(f"encode_pack differs from its plain version, K5 or K5 [mxu] at "
-                     f"k={k}, m={m}, group={group}")
+                fail(f"encode_pack or encode_pack[mxu] differs from its plain version, "
+                     f"K5 or K5 [mxu] at k={k}, m={m}, group={group}")
             err = max(err, e)
     return err
 
@@ -978,6 +1016,16 @@ def check_mxu_kernels(dev, rng) -> dict:
                 fail(f"{name}[mxu] differs from its plain version, swar twin or K1 "
                      f"at {B, w, group}")
             err = max(err, e)
+        if name == "encode_pack":
+            # K1 [mxu] off its 16-byte staging loads: a view off 16-byte
+            # alignment
+            x = rand_words(rng, (2 * K * 4104 + 1,), dev)[1:].view(2, K, 4104)
+            e = same(fn(x, M, 4 * 4104, 0, formulation="mxu"),
+                     plain(x, M, 4 * 4104, 0, "mxu"), fn(x, M, 4 * 4104, 0))
+            if e:
+                fail("encode_pack[mxu] differs from its plain version or swar twin "
+                     "on an unaligned view")
+            err = max(err, e)
         B = 4
         x = rand_words(rng, (B, K, W), dev)
         g = W // 256
@@ -992,9 +1040,8 @@ def check_mxu_kernels(dev, rng) -> dict:
             plain_ms=cuda_ms(lambda: plain(x, M, 4 * W, 256, "mxu"), 3, 1),
             bound_ms=bms, bound_by=by, shape=[B, K, W],
             # K5 [mxu] has its own product (mxu_ring_tile)
-            design_int_ops=B * W * (mxu_ring_design_ops(M, K)
-                                    if name == "encode_pack_pipelined"
-                                    else mxu_design_ops(M, K)),
+            # K1 and K5 [mxu] run mxu_ring_tile
+            design_int_ops=B * W * mxu_ring_design_ops(M, K),
             **device_times(lambda: fn(x, M, 4 * W, 256, formulation="mxu")),
         )
 
@@ -1018,6 +1065,8 @@ def check_mxu_kernels(dev, rng) -> dict:
                 err = max(err, e)
         if name == "verify_reconstruct_pipelined":
             err = max(err, vr_pattern_sweep(dev, rng, "mxu"))
+        else:
+            err = max(err, vr_mxu_sweep(dev, rng))
         timings = {}
         for pname, B in [("data+parity missing", 1), ("data+parity missing", 4)]:
             pres = PATTERNS[pname]
@@ -1028,7 +1077,8 @@ def check_mxu_kernels(dev, rng) -> dict:
             hash_ops = B * W * (_KEY + live * _HASH)
             rm = gf.reconstruction_matrix(K, M, rows)
             # the product the function needs: the rebuilt rows only
-            mma = B * W * mxu_ops(len(product_rows(rm)), K)
+            rb = len(product_rows(rm))
+            mma = B * W * mxu_ops(rb, K)
             bms, by = mxu_bound(nbytes, hash_ops, mma,
                                 bound(nbytes, hash_ops + B * W * gf_ops(rm)))
             timings[f"{pname}, B={B}"] = dict(
@@ -1036,7 +1086,11 @@ def check_mxu_kernels(dev, rng) -> dict:
                 swar_ms=cuda_ms(lambda: fn(x, pres, K, 4 * W), 20),
                 plain_ms=cuda_ms(lambda: plain(x, pres, K, 4 * W, "mxu"), 3, 1),
                 bound_ms=bms, bound_by=by, shape=[B, N, W], present=live,
-                design_int_ops=B * W * mxu_design_ops(K, K),
+                # K4 [mxu] multiplies the rebuilt rows in mxu_ring_tile,
+                # K6 [mxu] all k rows in mxu_tile
+                design_int_ops=B * W * (mxu_ring_design_ops(rb, K)
+                                        if name == "verify_reconstruct"
+                                        else mxu_design_ops(K, K)),
             )
             if B == 1:
                 timings[f"{pname}, B={B}"].update(device_times(
@@ -1511,7 +1565,8 @@ _KERNEL_NAME = re.compile(
     r"(encode_pipelined_mxu_kernel|encode_pipelined_kernel|"
     r"verify_reconstruct_pipelined_kernel|"
     r"encode_kernel|encode_mxu_kernel|pack_kernel|finalize_kernel|phash_kernel|"
-    r"gf_matmul_mxu_kernel|gf_matmul_kernel|verify_reconstruct_kernel)"
+    r"gf_matmul_mxu_kernel|gf_matmul_kernel|verify_reconstruct_mxu_kernel|"
+    r"verify_reconstruct_kernel)"
     r"(?:I((?:L[ib]\d+E)+)E)?"
 )
 
@@ -1546,19 +1601,24 @@ def ptxas_summary(log: str) -> list:
 
 
 _SASS_INSN = re.compile(r"^\s*/\*([0-9a-f]{4,})\*/\s+(\S.*?)\s*;")
+_MMA_OPS = ("BMMA", "IMMA", "HMMA")  # the tensor-core instructions
 # the instantiations sass_loops reads: K2, K6, K1 and K5 at EC 8+4 (swar
-# and mxu) and K3
+# and mxu), K3, and K4 at EC 8+4 (swar; mxu at heal's pattern and with
+# every row present)
 SASS_KERNELS = ("phash_kernel", "verify_reconstruct_pipelined",
-                "encode_kernel<8,4,", "encode_mxu_kernel<8,4>", "gf_matmul_kernel",
-                "encode_pipelined_kernel<8,4,", "encode_pipelined_mxu_kernel<8,4,")
+                "encode_kernel<8,4,", "encode_mxu_kernel<8,4", "gf_matmul_kernel",
+                "encode_pipelined_kernel<8,4,", "encode_pipelined_mxu_kernel<8,4,",
+                "verify_reconstruct_kernel<16,8", "verify_reconstruct_mxu_kernel<8,4>",
+                "verify_reconstruct_mxu_kernel<16,4>")
 
 
 def sass_loops(lib, kernels_mod) -> dict:
-    """Static SASS of K2, K6, K1 and K5 at EC 8+4 and K3 (``SASS_KERNELS``;
-    ``cuobjdump -sass`` of the built library), per instantiation: its
-    instruction count and, for each loop (the span of a backward branch),
-    its size and the sizes of the pieces that the branches inside it cut
-    it into.  A thread walks one column (K6, K1, K5) or column quad (K2,
+    """Static SASS of K1, K2, K4, K5 and K6 at EC 8+4 and K3
+    (``SASS_KERNELS``; ``cuobjdump -sass`` of the built library), per
+    instantiation: its instruction count and, for each loop (the span of a
+    backward branch), its size, the sizes of the pieces that the branches
+    inside it cut it into, and its block barriers (``bars``) and
+    tensor-core instructions (``mmas``).  A thread walks one column (K1, K4-K6) or column quad (K2,
     and K3 where it loads quads) per pass of the tile loop, so its size is the
     static instruction count per column or quad; a piece that a uniform
     branch skips (a rebuilt row past the pattern's) does not run."""
@@ -1590,7 +1650,9 @@ def sass_loops(lib, kernels_mod) -> dict:
                     if t.startswith("BRA"):
                         pieces.append(n)
                         n = 0
-                loops.append({"insns": len(span), "pieces": pieces + [n] * (n > 0)})
+                loops.append({"insns": len(span), "pieces": pieces + [n] * (n > 0),
+                              "bars": sum(t.startswith("BAR") for t in span),
+                              "mmas": sum(t.startswith(_MMA_OPS) for t in span)})
         out[name] = {"insns": len(insns), "loops": loops}
     return out
 
@@ -1610,14 +1672,16 @@ def load_copy(path: str):
 
 
 def compare_copies(dev, mods: dict, order: list) -> list:
-    """K1, K2, K3, K5 and K6 of several copies of the port (``mods``: name
-    -> kernels module) in turns (``order``), at the main path's shapes: K1
-    and K5 with the pack leg at (4, 8, 327,680) swar and mxu, without it
-    at heal's (1, 8, 327,680), K1 also at one tile, and K1's sub-chunk
-    chain (X2) at (4, 8, 327,680); K2 at (32, 327,680); K3 at the degraded GET's
-    (4, 12, 327,680) and (1, 12, 327,680) and one tile, shards 1, 3, 10,
-    12 absent; K6 at heal's (1, 12, 327,680) swar and mxu, and with all
-    rows present.  Every result is first held bit for bit against the
+    """K1-K6 of several copies of the port (``mods``: name -> kernels
+    module) in turns (``order``), at the main path's shapes: K1 and K5
+    with the pack leg at (4, 8, 327,680) swar and mxu, without it at
+    heal's (1, 8, 327,680) (K1 swar and mxu, K5 swar), K1 also at one
+    tile, and K1's sub-chunk chain (X2) at (4, 8, 327,680); K2 at (32,
+    327,680); K3 at the degraded GET's (4, 12, 327,680) and (1, 12,
+    327,680) and one tile, shards 1, 3, 10, 12 absent; K4 at heal's (1,
+    12, 327,680) swar and mxu, with those shards absent and with all rows
+    present; K6 at heal's shape swar and mxu, and with all rows present
+    (swar).  Every result is first held bit for bit against the
     plain version; then cuda_ms and device_times of each."""
     import numpy as np
     import torch
@@ -1641,7 +1705,8 @@ def compare_copies(dev, mods: dict, order: list) -> list:
                 ("K1 group=256 (4, 8, 327680)", x1, 256, "swar"),
                 ("K1 group=0 (1, 8, 327680)", x1[:1], 0, "swar"),
                 ("K1 group=0 one tile (1, 8, 256)", x1[:1, :, :256].contiguous(), 0, "swar"),
-                ("K1 mxu group=256 (4, 8, 327680)", x1, 256, "mxu")):
+                ("K1 mxu group=256 (4, 8, 327680)", x1, 256, "mxu"),
+                ("K1 mxu group=0 (1, 8, 327680)", x1[:1], 0, "mxu")):
             cases[label] = (
                 lambda x=x, group=group, form=form: kern.encode_pack(
                     x, M, 4 * x.shape[-1], group, form),
@@ -1677,6 +1742,15 @@ def compare_copies(dev, mods: dict, order: list) -> list:
                          ("K3 one tile (1, 12, 256)", x3[:1, :, :256].contiguous())):
             cases[label] = (lambda x=x: kern.gf_matmul_words(rmat, x, idx),
                             lambda x=x: (rs.gf_matmul_words(rmat, x, idx),))
+        # K4 at heal's shape, swar and mxu, at heal's pattern and with every
+        # row present (no rebuilt row)
+        for label, pres, form in (("heal swar", heal, "swar"), ("heal mxu", heal, "mxu"),
+                                  ("all present swar", every, "swar"),
+                                  ("all present mxu", every, "mxu")):
+            cases[f"K4 {label} (1, 12, 327680)"] = (
+                lambda pres=pres, form=form: kern.verify_reconstruct(
+                    x6, pres, K, 4 * W, formulation=form),
+                lambda pres=pres: kern.verify_reconstruct_plain(x6, pres, K, 4 * W))
         for label, pres, form in (("heal swar", heal, "swar"), ("heal mxu", heal, "mxu"),
                                   ("all present swar", every, "swar")):
             cases[f"K6 {label} (1, 12, 327680)"] = (
@@ -1704,7 +1778,7 @@ def main() -> int:
     ap.add_argument(
         "--parent", metavar="DIR",
         help="another copy of the port (DIR/__init__.py, DIR/ops, DIR/csrc): "
-             "build it too and time its K1, K2, K3, K5 and K6 beside this "
+             "build it too and time its K1-K6 beside this "
              "checkout's, in turns parent, new, new, parent")
     args = ap.parse_args()
     if not torch.cuda.is_available():

@@ -35,11 +35,11 @@
 // MINIO_TPU_CODEC_FORMULATION=mxu swaps the xtime chain of the PUT and
 // heal passes (K1, K4, K5, K6: the `MXU` template parameter or an mxu
 // kernel of their own) for a tensor-core product of the lifted GF(2) bit
-// matrix (mxu_tile; K5 has its own form of it, mxu_ring_tile), and K7
-// runs that product alone on bytes.  Everything around the product - the
-// hash leg, flags, pack leg, ring and finalize - is the same code (K5's
-// ring swizzled for its product), so the outputs are bit for bit the
-// swar ones.
+// matrix (mxu_tile for K6; K1, K4 and K5 run its form for a swizzled
+// tile, mxu_ring_tile), and K7 runs mxu_tile alone on bytes.  Everything
+// around the product - the hash leg, flags, pack leg, ring and finalize -
+// is the swar kernels' code (on a tile swizzled for mxu_ring_tile), so
+// the outputs are bit for bit the swar ones.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -352,8 +352,8 @@ __device__ __forceinline__ void fixed_parity(const uint32_t* x, uint32_t* acc);
 //   (finalize_if_last) after the entry's one memset of accumulator and
 //   ticket: group=0 is one launch, group=256 two (the pack leg needs
 //   every flag of its row).  Without one the partials stay raw (X2).
-// The mxu product runs in its own kernel (encode_mxu_kernel, below),
-// with the same flags and finalize.
+// The mxu product runs in its own kernel (encode_mxu_kernel, after K5
+// [mxu], whose product it shares), with the same flags and finalize.
 // --------------------------------------------------------------------------
 
 constexpr int kWarps = kThreads / 32;
@@ -486,76 +486,6 @@ encode_kernel(const uint32_t* __restrict__ data, uint32_t* __restrict__ parity,
     if (flags != nullptr) flags_of_tile<MB>(ballots, flags, b, m, g, tile);
 #pragma unroll
     for (int c = 0; c < KB; ++c) x[c] = nx[c];
-  }
-  fold_and_finalize<KB, MB>(h1, h2, s, partials, ticket, k, m, nbytes);
-}
-
-// K1 [mxu]: each word loaded, hashed and staged in turn, mxu_tile makes
-// the parity words from the staged tile; a grid of short runs (1-8 tiles
-// a block, as K4's: kernels.encode_grid), so that blocks at other phases
-// of the tile overlap mxu_tile's two barriers.  No register bound: 61
-// registers (4 blocks per SM) run faster than 48 with spills (5).  Flags
-// and finalize as encode_kernel's.
-template <int KB, int MB>
-__global__ void __launch_bounds__(kThreads)
-encode_mxu_kernel(const uint32_t* __restrict__ data, uint32_t* __restrict__ parity,
-                  uint32_t* __restrict__ partials, unsigned int* __restrict__ ticket,
-                  uint32_t* __restrict__ flags, int k, int m, int w,
-                  uint32_t word_offset, uint32_t nbytes, int ntiles,
-                  int tiles_per_block, const uint32_t* __restrict__ amat) {
-  __shared__ uint32_t s[(KB + MB) * 8];
-  __shared__ uint32_t s_flag[2][MB][kWarps];
-  __shared__ uint32_t in_s[KB * kInStride];
-  __shared__ uint32_t out_s[MB * kTile];
-  const int b = blockIdx.y;
-  const int n = k + m;
-  const int tid = threadIdx.x;
-  for (int i = tid; i < n * 8; i += kThreads) s[i] = 0;
-  __syncthreads();
-  uint32_t af[MB];
-  load_frags<MB>(amat, af);
-
-  uint32_t h1[KB + MB], h2[KB + MB];
-#pragma unroll
-  for (int r = 0; r < KB + MB; ++r) h1[r] = h2[r] = 0;
-
-  const uint32_t* in = data + (size_t)b * k * w;
-  uint32_t* out = parity + (size_t)b * m * w;
-  const int g = w / kTile;
-
-  for (int t = 0; t < tiles_per_block; ++t) {
-    const int tile = blockIdx.x * tiles_per_block + t;
-    if (tile >= ntiles) break;  // uniform across the block
-    const int col = tile * kTile + tid;
-    const bool valid = col < w;
-    const uint32_t key = hash_key((uint32_t)col + word_offset);
-#pragma unroll
-    for (int c = 0; c < KB; ++c) {
-      if (c < k) {
-        const uint32_t p = valid ? in[(size_t)c * w + col] : 0u;
-        if (valid) hash_word(p, key, h1[c], h2[c]);
-        in_s[c * kInStride + tid] = p;
-      }
-    }
-    __syncthreads();
-    mxu_tile<MB>(in_s, kInStride, k, out_s, m, af);
-    __syncthreads();
-    uint32_t(&ballots)[MB][kWarps] = s_flag[t & 1];
-#pragma unroll
-    for (int r = 0; r < MB; ++r) {
-      if (r < m) {
-        const uint32_t v = out_s[r * kTile + tid];
-        if (valid) {
-          out[(size_t)r * w + col] = v;
-          hash_word(v, key, h1[KB + r], h2[KB + r]);
-        }
-        if (flags != nullptr) {  // uniform
-          const uint32_t bal = __ballot_sync(0xffffffffu, valid && v != 0u);
-          if ((tid & 31) == 0) ballots[r][tid >> 5] = bal;
-        }
-      }
-    }
-    if (flags != nullptr) flags_of_tile<MB>(ballots, flags, b, m, g, tile);
   }
   fold_and_finalize<KB, MB>(h1, h2, s, partials, ticket, k, m, nbytes);
 }
@@ -891,28 +821,22 @@ gf_matmul_kernel(const uint32_t* __restrict__ in, uint32_t* __restrict__ out,
 // in ``present`` are neither read nor hashed; their partials stay zero.
 // That differs from the TPU kernel, which hashes absent rows' garbage
 // too: the caller's ok mask is False for them whatever their digest.
-// The mxu instantiation stages the first k present rows (the survivors, in
-// row order) in shared memory and multiplies them by the (k, k)
-// reconstruction matrix in mxu_tile, as P5 does under mxu.
+// The mxu formulation runs in its own kernel (verify_reconstruct_mxu_kernel,
+// after K5 [mxu], whose product it shares).
 // --------------------------------------------------------------------------
 
-template <int NB, int OB, bool MXU>
+template <int NB, int OB>
 __global__ void __launch_bounds__(kThreads)
 verify_reconstruct_kernel(const uint32_t* __restrict__ shards,
                           uint32_t* __restrict__ data,
                           uint32_t* __restrict__ partials, int n, int k,
                           int w, uint32_t present, uint32_t word_offset,
-                          int ntiles, int tiles_per_block, const GfPlan plan,
-                          const uint32_t* __restrict__ amat) {
+                          int ntiles, int tiles_per_block, const GfPlan plan) {
   __shared__ uint32_t s[NB * 8];
-  __shared__ uint32_t in_s[MXU ? OB * kInStride : 1];
-  __shared__ uint32_t out_s[MXU ? OB * kTile : 1];
   const int b = blockIdx.y;
   const int tid = threadIdx.x;
   for (int i = tid; i < n * 8; i += kThreads) s[i] = 0;
   __syncthreads();
-  uint32_t af[OB];
-  if constexpr (MXU) load_frags<OB>(amat, af);
 
   uint32_t h1[NB], h2[NB];
 #pragma unroll
@@ -930,35 +854,21 @@ verify_reconstruct_kernel(const uint32_t* __restrict__ shards,
     uint32_t acc[OB];
 #pragma unroll
     for (int o = 0; o < OB; ++o) acc[o] = 0;
-    [[maybe_unused]] int j = 0;  // rank of shard row r among the present rows
 #pragma unroll
     for (int r = 0; r < NB; ++r) {
       if (r < n && ((present >> r) & 1u)) {
         uint32_t p = valid ? in[(size_t)r * w + col] : 0u;
         if (valid) hash_word(p, key, h1[r], h2[r]);
-        if constexpr (MXU) {
-          if (j < k) in_s[j * kInStride + tid] = p;
-          ++j;
-        } else {
 #pragma unroll
-          for (int bit = 0; bit < 8; ++bit) {
-            if (bit >= plan.nb[r]) break;
-            const uint32_t msk = plan.rm[r * 8 + bit];
+        for (int bit = 0; bit < 8; ++bit) {
+          if (bit >= plan.nb[r]) break;
+          const uint32_t msk = plan.rm[r * 8 + bit];
 #pragma unroll
-            for (int o = 0; o < OB; ++o)
-              if ((msk >> o) & 1u) acc[o] ^= p;
-            p = xtime(p);
-          }
+          for (int o = 0; o < OB; ++o)
+            if ((msk >> o) & 1u) acc[o] ^= p;
+          p = xtime(p);
         }
       }
-    }
-    if constexpr (MXU) {
-      __syncthreads();
-      mxu_tile<OB>(in_s, kInStride, k, out_s, k, af);
-      __syncthreads();
-#pragma unroll
-      for (int o = 0; o < OB; ++o)
-        if (o < k) acc[o] = out_s[o * kTile + tid];
     }
     if (valid) {
 #pragma unroll
@@ -1076,8 +986,8 @@ __device__ __forceinline__ void stage_tile(uint32_t* slot, const uint32_t* in,
 //   no test on them is left in the tile loop.
 //
 // K5 [mxu] (encode_pipelined_mxu_kernel) has its own product,
-// mxu_ring_tile, on a swizzled ring; mxu_tile stays as it is for K1,
-// K4, K6 and K7 [mxu].
+// mxu_ring_tile, on a swizzled ring, which K1 [mxu] and K4 [mxu] share;
+// mxu_tile stays as it is for K6 [mxu] and K7.
 // --------------------------------------------------------------------------
 
 
@@ -1401,6 +1311,244 @@ encode_pipelined_mxu_kernel(const uint32_t* __restrict__ data,
 }
 
 // --------------------------------------------------------------------------
+// K1 [mxu] and K4 [mxu]: K5 [mxu]'s product on a tile staged through
+// registers.
+//
+// K1 [mxu] (encode_mxu_kernel) computes K1's function (P4 under mxu: the
+// parity product of _mxu_rows), K4 [mxu] (verify_reconstruct_mxu_kernel)
+// K4's (P5 under mxu).  Bound: as their swar twins (K1: operations, the
+// hash of n rows on the integer pipe; K4: bytes); the product's bit pairs
+// on the tensor cores take less.  What the design does:
+// * The product is mxu_ring_tile, as K5 [mxu] calls it, on a tile held in
+//   two swizzled shared buffers (ring_swizzle): 16-byte B loads that meet
+//   8 bank quads, a group's MMAs before their repack, m-tiles repacked in
+//   pairs, results back through out_s with a __syncwarp().
+// * Staging through registers, one barrier a tile.  A thread owns the
+//   16-byte chunk column of stage_rows (chunk tid % 64 of slots tid / 64
+//   + 4t), loads tile i + 1's chunks with 16-byte loads (load_chunks)
+//   while tile i computes, and after tile i's product stores them at the
+//   swizzled chunk (store_chunks) into the other buffer, which tile i - 1
+//   read before tile i's barrier.  No cp.async ring: the chunks in flight
+//   take bucket(rows) / 4 x 16 bytes of registers a thread, the two
+//   buffers 2 x rows KiB.  K5 [mxu]'s ring in its place, timed beside it
+//   on an H100, ran 1-2 % faster (PERF.md); this staging stays because it
+//   takes two buffers, not three, and K4 [mxu] stores its copies from the
+//   same registers.
+// * The hash leg reads the thread's column of each slot from the tile at
+//   the swizzled index, as K5 [mxu] does.
+// * K1 [mxu]: parity stores, hashing and ballot flags through emit_parity,
+//   the flags published a tile late after the one barrier (K5's), the
+//   last-block finalize of fold_and_finalize; EC 8+4 compiles k and m in.
+// * K4 [mxu]: the tile holds the np present rows in row order, survivors
+//   first.  A present data row's row of the reconstruction matrix is a
+//   unit vector, so it is a copy: stored with 16-byte stores straight from
+//   the staging registers (VrSlots::copy).  Only the rb rebuilt rows (rb
+//   <= min(k, n - k) <= 8) go through mxu_ring_tile, whose A operand
+//   (kernels._mxu_rebuilt_operand) holds their (rb, k) rows of the
+//   matrix: one m-tile per n-tile at heal's pattern, none with every data
+//   row present.  Present non-survivors are hashed only; absent rows are
+//   neither read nor hashed.  The block holding the last ticket finalizes
+//   (finalize_if_last): one memset + one launch a call.
+// * A persistent grid of kPipeBlocksPerSM blocks per SM (the residency
+//   their __launch_bounds__ hold; kernels.pipelined_grid), each block a
+//   contiguous run of tiles of one stripe.
+// Columns at or past w load as zeros and are neither stored nor hashed;
+// rows that are not 16-byte aligned load 4 bytes at a time (load4).
+// --------------------------------------------------------------------------
+
+// A thread's chunks of tile `tile` (zeros past w): chunk tid % 64 of slots
+// j = tid / 64 + 4t < rows, slot j lying in the row that row_of(j) points
+// at.
+template <int SB, typename RowOf>
+__device__ __forceinline__ void load_chunks(RowOf row_of, int rows, int w, int tile,
+                                            bool aligned, uint4 (&x)[SB / 4]) {
+  const int j0 = threadIdx.x / kChunksPerRow;
+  const int col = tile * kTile + 4 * (threadIdx.x % kChunksPerRow);
+  const bool full = aligned && col + 4 <= w;
+#pragma unroll
+  for (int t = 0; t < SB / 4; ++t)
+    x[t] = j0 + 4 * t < rows ? load4(row_of(j0 + 4 * t), col, w, full)
+                             : make_uint4(0u, 0u, 0u, 0u);
+}
+
+// The chunks of load_chunks into a tile buffer, chunk c of slot j at chunk
+// c ^ ring_swizzle(j) (ring_swizzle(j) == ring_swizzle(4t) for this
+// thread's slots).
+template <int SB>
+__device__ __forceinline__ void store_chunks(uint32_t* buf, int rows,
+                                             const uint4 (&x)[SB / 4]) {
+  const int c = threadIdx.x % kChunksPerRow, j0 = threadIdx.x / kChunksPerRow;
+#pragma unroll
+  for (int t = 0; t < SB / 4; ++t)
+    if (j0 + 4 * t < rows)
+      *reinterpret_cast<uint4*>(buf + (j0 + 4 * t) * kTile + 4 * (c ^ ring_swizzle(4 * t))) =
+          x[t];
+}
+
+template <int KB, int MB, int FK, int FM>
+__global__ void __launch_bounds__(kThreads, KB + MB > 16 ? 1 : kPipeBlocksPerSM)
+encode_mxu_kernel(const uint32_t* __restrict__ data, uint32_t* __restrict__ parity,
+                  uint32_t* __restrict__ partials, unsigned int* __restrict__ ticket,
+                  uint32_t* __restrict__ flags, int k_, int m_, int w,
+                  uint32_t word_offset, uint32_t nbytes, int ntiles,
+                  int tiles_per_block, bool aligned, const uint32_t* __restrict__ amat) {
+  const int k = FK ? FK : k_, m = FK ? FM : m_;  // the fixed geometry's at compile time
+  extern __shared__ __align__(16) uint32_t tiles[];  // 2 x k x kTile, swizzled
+  __shared__ uint32_t s[(KB + MB) * 8];
+  __shared__ uint32_t s_flag[2][MB][kWarps];
+  __shared__ uint32_t out_s[MB * kOutStride];
+  const int b = blockIdx.y;
+  const int n = k + m;
+  const int tid = threadIdx.x;
+  for (int i = tid; i < n * 8; i += kThreads) s[i] = 0;
+  uint32_t af[MB];
+  load_frags<MB>(amat, af);
+
+  const uint32_t* in = data + (size_t)b * k * w;
+  uint32_t* out = parity + (size_t)b * m * w;
+  const int g = w / kTile;  // flag columns (flags only when w % 256 == 0)
+  const int first = blockIdx.x * tiles_per_block;
+  const int count = min(tiles_per_block, ntiles - first);  // >= 1
+  const int slot_words = k * kTile;
+  const auto row_of = [&](int j) { return in + (size_t)j * w; };
+
+  uint32_t h1[KB + MB], h2[KB + MB];
+#pragma unroll
+  for (int r = 0; r < KB + MB; ++r) h1[r] = h2[r] = 0;
+
+  uint4 x[KB / 4];  // the next tile's chunks, in flight
+  load_chunks<KB>(row_of, k, w, first, aligned, x);
+#pragma unroll 1
+  for (int i = 0; i < count; ++i) {
+    uint32_t* cur = tiles + (i & 1) * slot_words;
+    store_chunks<KB>(cur, k, x);
+    if (i + 1 < count) load_chunks<KB>(row_of, k, w, first + i + 1, aligned, x);
+    __syncthreads();  // tile i staged; tile i - 1's buffer and out_s are free
+    if (flags != nullptr && i > 0)
+      write_tile_flags<MB>(s_flag[(i - 1) & 1], flags, b, m, g, first + i - 1);
+    const int col = (first + i) * kTile + tid;
+    const bool valid = col < w;
+    const uint32_t key = hash_key((uint32_t)col + word_offset);
+    if (valid) {
+#pragma unroll
+      for (int c = 0; c < KB; ++c)
+        if (c < k)
+          hash_word(cur[c * kTile + (tid ^ (ring_swizzle(c) << 2))], key, h1[c], h2[c]);
+    }
+    mxu_ring_tile<MB>(cur, k, m, out_s, af);
+    __syncwarp();
+    uint32_t acc[MB];
+#pragma unroll
+    for (int r = 0; r < MB; ++r) acc[r] = r < m ? out_s[r * kOutStride + tid] : 0u;
+    emit_parity<KB, MB>(acc, m, valid, key, out, w, col, h1, h2, flags != nullptr,
+                        s_flag[i & 1]);
+  }
+  if (flags != nullptr) {
+    __syncthreads();
+    write_tile_flags<MB>(s_flag[(count - 1) & 1], flags, b, m, g, first + count - 1);
+  }
+  fold_and_finalize<KB, MB>(h1, h2, s, partials, ticket, k, m, nbytes);
+}
+
+constexpr int kRebuiltMax = 8;  // rebuilt rows of K4 [mxu]: min(k, n - k) <= 8
+
+// K4 [mxu]'s slots, by value in the kernel parameters: tile slot j holds
+// shard row row[j] (the present rows in order, survivors first), stored
+// to data row copy[j] or -1; rebuilt output o is data row rebuilt[o].
+struct VrSlots {
+  uint8_t row[kMaxRows];
+  int8_t copy[kMaxRows];
+  uint8_t rebuilt[kRebuiltMax];
+};
+
+template <int PB, int RB>
+__global__ void __launch_bounds__(kThreads, kPipeBlocksPerSM)
+verify_reconstruct_mxu_kernel(const uint32_t* __restrict__ shards,
+                              uint32_t* __restrict__ data,
+                              uint32_t* __restrict__ partials,
+                              unsigned int* __restrict__ ticket, int n, int k, int w,
+                              int np, int rb, int ntiles, int tiles_per_block,
+                              uint32_t nbytes, bool aligned, const VrSlots slots,
+                              const uint32_t* __restrict__ amat) {
+  extern __shared__ __align__(16) uint32_t tiles[];  // 2 x np x kTile, swizzled
+  __shared__ uint32_t s[kMaxRows * 8];
+  __shared__ uint32_t out_s[RB * kOutStride];
+  __shared__ uint8_t s_row[kMaxRows];  // the slots a thread indexes by its own j
+  __shared__ int8_t s_copy[kMaxRows];
+  const int b = blockIdx.y;
+  const int tid = threadIdx.x;
+  for (int i = tid; i < n * 8; i += kThreads) s[i] = 0;
+  if (tid == 0) {  // constant indices: the parameters stay in the constant bank
+#pragma unroll
+    for (int j = 0; j < kMaxRows; ++j) {
+      s_row[j] = slots.row[j];
+      s_copy[j] = slots.copy[j];
+    }
+  }
+  __syncthreads();
+  uint32_t af[RB];
+  load_frags<RB>(amat, af);
+
+  const uint32_t* in = shards + (size_t)b * n * w;
+  uint32_t* out = data + (size_t)b * k * w;
+  const int first = blockIdx.x * tiles_per_block;
+  const int count = min(tiles_per_block, ntiles - first);  // >= 1
+  const int slot_words = np * kTile;
+  const auto row_of = [&](int j) { return in + (size_t)s_row[j] * w; };
+  const int j0 = tid / kChunksPerRow;
+
+  uint32_t h1[PB], h2[PB];  // per slot
+#pragma unroll
+  for (int j = 0; j < PB; ++j) h1[j] = h2[j] = 0;
+
+  uint4 x[PB / 4];  // the next tile's chunks, in flight
+  load_chunks<PB>(row_of, np, w, first, aligned, x);
+#pragma unroll 1
+  for (int i = 0; i < count; ++i) {
+    uint32_t* cur = tiles + (i & 1) * slot_words;
+    store_chunks<PB>(cur, np, x);
+    // the present data rows: copies, straight from the staged chunks
+    const int c0 = (first + i) * kTile + 4 * (tid % kChunksPerRow);
+    if (c0 < w) {
+#pragma unroll
+      for (int t = 0; t < PB / 4; ++t) {
+        const int j = j0 + 4 * t;
+        const int d = j < np ? s_copy[j] : -1;
+        if (d >= 0) *reinterpret_cast<uint4*>(out + (size_t)d * w + c0) = x[t];
+      }
+    }
+    if (i + 1 < count) load_chunks<PB>(row_of, np, w, first + i + 1, aligned, x);
+    __syncthreads();  // tile i staged; tile i - 1's buffer and out_s are free
+    const int col = (first + i) * kTile + tid;
+    const bool valid = col < w;
+    if (valid) {
+      const uint32_t key = hash_key((uint32_t)col);
+#pragma unroll
+      for (int j = 0; j < PB; ++j)
+        if (j < np)
+          hash_word(cur[j * kTile + (tid ^ (ring_swizzle(j) << 2))], key, h1[j], h2[j]);
+    }
+    if (rb > 0) {  // uniform: the rebuilt rows
+      mxu_ring_tile<RB>(cur, k, rb, out_s, af);
+      __syncwarp();
+      if (valid) {
+#pragma unroll
+        for (int o = 0; o < RB; ++o)
+          if (o < rb) out[(size_t)slots.rebuilt[o] * w + col] = out_s[o * kOutStride + tid];
+      }
+    }
+  }
+
+#pragma unroll
+  for (int j = 0; j < PB; ++j)
+    if (j < np) fold_block(h1[j], h2[j], &s[slots.row[j] * 8]);
+  __syncthreads();
+  for (int i = tid; i < n * 8; i += kThreads)
+    if (s[i]) atomicXor(&partials[(size_t)b * n * 8 + i], s[i]);
+  finalize_if_last(partials, (int)gridDim.y * n * 8, nbytes, ticket);
+}
+
+// --------------------------------------------------------------------------
 // K6 verify_reconstruct_pipelined: replaces
 // rs_pallas.verify_reconstruct_pipelined (P7).  K4's function on the
 // pipelined design above: the ring holds only the np present rows, in row
@@ -1623,37 +1771,6 @@ GfPlan make_plan(const uint16_t* rm, const uint8_t* nb) {
   return p;
 }
 
-template <int KB, int MB, int FK = 0, int FM = 0>
-void launch_encode(dim3 grid, cudaStream_t st, const uint32_t* data,
-                   uint32_t* parity, uint32_t* partials, unsigned int* ticket,
-                   uint32_t* flags, int k, int m, int w, uint32_t word_offset,
-                   uint32_t nbytes, int ntiles, int tpb, const GfTerms& terms,
-                   const uint32_t* amat) {
-  if (amat)
-    encode_mxu_kernel<KB, MB><<<grid, kThreads, 0, st>>>(
-        data, parity, partials, ticket, flags, k, m, w, word_offset, nbytes,
-        ntiles, tpb, amat);
-  else
-    encode_kernel<KB, MB, FK, FM><<<grid, kThreads, 0, st>>>(
-        data, parity, partials, ticket, flags, k, m, w, word_offset, nbytes,
-        ntiles, tpb, terms);
-}
-
-template <int NB, int OB>
-void launch_vr(dim3 grid, cudaStream_t st, const uint32_t* shards,
-               uint32_t* data, uint32_t* partials, int n, int k, int w,
-               uint32_t present, uint32_t word_offset, int ntiles, int tpb,
-               const GfPlan& plan, const uint32_t* amat) {
-  if (amat)
-    verify_reconstruct_kernel<NB, OB, true><<<grid, kThreads, 0, st>>>(
-        shards, data, partials, n, k, w, present, word_offset, ntiles, tpb,
-        plan, amat);
-  else
-    verify_reconstruct_kernel<NB, OB, false><<<grid, kThreads, 0, st>>>(
-        shards, data, partials, n, k, w, present, word_offset, ntiles, tpb,
-        plan, amat);
-}
-
 // The one-time opt-in of a kernel instantiation to `smem` bytes of
 // dynamic shared memory (the most any of its launches takes), per device:
 // cudaFuncSetAttribute is not called again for launches after the first.
@@ -1665,6 +1782,53 @@ cudaError_t smem_opt_in(int device, size_t smem) {
   const cudaError_t err = prepare_smem(Kernel, smem);
   if (err == cudaSuccess && bit) done.fetch_or(bit, std::memory_order_relaxed);
   return err;
+}
+
+// K1 swar or [mxu] (amat != nullptr); FK, FM > 0 compile the fixed
+// geometry's k and m in (and its product, for swar).
+template <int KB, int MB, int FK = 0, int FM = 0>
+cudaError_t launch_encode(int device, dim3 grid, cudaStream_t st, const uint32_t* data,
+                          uint32_t* parity, uint32_t* partials, unsigned int* ticket,
+                          uint32_t* flags, int k, int m, int w, uint32_t word_offset,
+                          uint32_t nbytes, int ntiles, int tpb, bool aligned,
+                          const GfTerms& terms, const uint32_t* amat) {
+  if (amat) {
+    constexpr size_t kMaxSmem = (size_t)2 * KB * kTile * sizeof(uint32_t);
+    const cudaError_t err = smem_opt_in<encode_mxu_kernel<KB, MB, FK, FM>>(device, kMaxSmem);
+    if (err != cudaSuccess) return err;
+    encode_mxu_kernel<KB, MB, FK, FM>
+        <<<grid, kThreads, (size_t)2 * k * kTile * sizeof(uint32_t), st>>>(
+            data, parity, partials, ticket, flags, k, m, w, word_offset, nbytes, ntiles,
+            tpb, aligned, amat);
+  } else {
+    encode_kernel<KB, MB, FK, FM><<<grid, kThreads, 0, st>>>(
+        data, parity, partials, ticket, flags, k, m, w, word_offset, nbytes, ntiles,
+        tpb, terms);
+  }
+  return cudaGetLastError();
+}
+
+template <int NB, int OB>
+void launch_vr(dim3 grid, cudaStream_t st, const uint32_t* shards,
+               uint32_t* data, uint32_t* partials, int n, int k, int w,
+               uint32_t present, uint32_t word_offset, int ntiles, int tpb,
+               const GfPlan& plan) {
+  verify_reconstruct_kernel<NB, OB><<<grid, kThreads, 0, st>>>(
+      shards, data, partials, n, k, w, present, word_offset, ntiles, tpb, plan);
+}
+
+template <int PB, int RB>
+cudaError_t launch_vr_mxu(int device, dim3 grid, size_t smem, cudaStream_t st,
+                          const uint32_t* shards, uint32_t* data, uint32_t* acc,
+                          unsigned int* ticket, int n, int k, int w, int np, int rb,
+                          int ntiles, int tpb, uint32_t nbytes, bool aligned,
+                          const VrSlots& slots, const uint32_t* amat) {
+  constexpr size_t kMaxSmem = (size_t)2 * PB * kTile * sizeof(uint32_t);
+  const cudaError_t err = smem_opt_in<verify_reconstruct_mxu_kernel<PB, RB>>(device, kMaxSmem);
+  if (err != cudaSuccess) return err;
+  verify_reconstruct_mxu_kernel<PB, RB><<<grid, kThreads, smem, st>>>(
+      shards, data, acc, ticket, n, k, w, np, rb, ntiles, tpb, nbytes, aligned, slots, amat);
+  return cudaGetLastError();
 }
 
 // K5 swar or [mxu] (amat != nullptr); FK, FM > 0 compile the fixed
@@ -1752,8 +1916,9 @@ static_assert(sizeof(EncodeArgs) == 120, "kernels._ENCODE_ARGS packs 120 bytes")
 // ticket == acc + B*(k+m)*8, so one memset zeroes both.  `terms` is the
 // parity matrix's term program (kernels.parity_terms, gf_terms_bytes()
 // long); the fixed geometry ignores it.  A non-null `amat` (the m x k
-// parity matrix in kernels.mxu_fragments order) selects the mxu product.
-// Returns the first non-zero CUDA error.
+// parity matrix in kernels.mxu_fragments order) selects the mxu kernel,
+// whose grid is kernels.pipelined_grid's.  Returns the first non-zero
+// CUDA error.
 int mtt_encode_pack(const EncodeArgs* a) {
   const uint32_t* data = reinterpret_cast<const uint32_t*>(a->data);
   uint32_t* parity = reinterpret_cast<uint32_t*>(a->parity);
@@ -1786,27 +1951,29 @@ int mtt_encode_pack(const EncodeArgs* a) {
   const int ntiles = (w + kTile - 1) / kTile;
   dim3 grid((ntiles + tiles_per_block - 1) / tiles_per_block, B);
   uint32_t* fl = group ? flags : nullptr;
+  // the mxu kernel's 16-byte staging loads (4-byte ones otherwise)
+  const bool aligned = (a->data & 15u) == 0 && w % 4 == 0;
   const int kb = bucket(k), mb = bucket(m);
   bool fixed = false;
-#define MTT_FIXED_ENC(K_, M_)                                                  \
-  if (!amat && k == K_ && m == M_) {                                           \
-    launch_encode<bucket(K_), bucket(M_), K_, M_>(                             \
-        grid, st, data, parity, acc, ticket, fl, k, m, w, word_offset, nbytes, \
-        ntiles, tiles_per_block, t, amat);                                     \
-    fixed = true;                                                              \
+  err = cudaErrorInvalidValue;
+#define MTT_FIXED_ENC(K_, M_)                                                    \
+  if (k == K_ && m == M_) {                                                      \
+    err = launch_encode<bucket(K_), bucket(M_), K_, M_>(                         \
+        device, grid, st, data, parity, acc, ticket, fl, k, m, w, word_offset,   \
+        nbytes, ntiles, tiles_per_block, aligned, t, amat);                      \
+    fixed = true;                                                                \
   }
   MTT_FIXED_GEOMETRIES(MTT_FIXED_ENC)
 #undef MTT_FIXED_ENC
-#define MTT_ENC(KB_, MB_)                                                      \
-  if (!fixed && kb == KB_ && mb == MB_)                                        \
-    launch_encode<KB_, MB_>(grid, st, data, parity, acc, ticket, fl, k, m, w,  \
-                            word_offset, nbytes, ntiles, tiles_per_block, t,   \
-                            amat);
+#define MTT_ENC(KB_, MB_)                                                        \
+  if (!fixed && kb == KB_ && mb == MB_)                                          \
+    err = launch_encode<KB_, MB_>(device, grid, st, data, parity, acc, ticket,   \
+                                  fl, k, m, w, word_offset, nbytes, ntiles,      \
+                                  tiles_per_block, aligned, t, amat);
   MTT_ENC(4, 4) MTT_ENC(4, 8) MTT_ENC(4, 16)
   MTT_ENC(8, 4) MTT_ENC(8, 8) MTT_ENC(8, 16)
   MTT_ENC(16, 4) MTT_ENC(16, 8) MTT_ENC(16, 16)
 #undef MTT_ENC
-  err = cudaGetLastError();
   if (err != cudaSuccess || !group || m == 0) return (int)err;
   const int g = w / kTile;
   dim3 pgrid(B * m, (g + kGroupsPerBlock - 1) / kGroupsPerBlock);
@@ -1950,20 +2117,18 @@ int mtt_gf_matmul(const GfMatmulArgs* a) {
   return (int)cudaGetLastError();
 }
 
-// shards (B, n, w), the (k, n) plan of the expanded reconstruction matrix
-// and the present-row bitmask -> data (B, k, w), and the partials of the
-// present rows XORed into `partials` (B, n, 8) with the hash key of
-// column c taken at c + word_offset.  With finalize != 0 they are then
-// finalized in place (zeroed on entry: the digests; absent rows get the
-// finalize of zero partials).  A non-null `amat` (the k x k reconstruction
-// matrix over the first k present rows) selects the mxu product.
+// K4 swar: shards (B, n, w), the (k, n) plan of the expanded
+// reconstruction matrix and the present-row bitmask -> data (B, k, w),
+// and the partials of the present rows XORed into `partials` (B, n, 8)
+// with the hash key of column c taken at c + word_offset.  With finalize
+// != 0 they are then finalized in place (zeroed on entry: the digests;
+// absent rows get the finalize of zero partials).
 int mtt_verify_reconstruct(int device, const uint32_t* shards, uint32_t* data,
                            uint32_t* partials, int B, int n, int k, int w,
                            uint32_t present, uint32_t nbytes,
                            uint32_t word_offset, int finalize,
                            int tiles_per_block, const uint16_t* rm,
-                           const uint8_t* nb, const uint32_t* amat,
-                           void* stream) {
+                           const uint8_t* nb, void* stream) {
   if (n < 1 || n > kMaxRows || k < 1 || k > n || w <= 0 ||
       tiles_per_block < 1 || B <= 0 || B > 65535 || (present >> n) != 0u ||
       word_offset % 4 != 0)
@@ -1978,7 +2143,7 @@ int mtt_verify_reconstruct(int device, const uint32_t* shards, uint32_t* data,
 #define MTT_VR(NB_, OB_)                                                  \
   if (nbk == NB_ && ob == OB_)                                            \
     launch_vr<NB_, OB_>(grid, st, shards, data, partials, n, k, w, present, \
-                        word_offset, ntiles, tiles_per_block, plan, amat);
+                        word_offset, ntiles, tiles_per_block, plan);
   MTT_VR(4, 4)
   MTT_VR(8, 4) MTT_VR(8, 8)
   MTT_VR(16, 4) MTT_VR(16, 8) MTT_VR(16, 16)
@@ -1990,6 +2155,64 @@ int mtt_verify_reconstruct(int device, const uint32_t* shards, uint32_t* data,
   finalize_kernel<<<(count + kThreads - 1) / kThreads, kThreads, 0, st>>>(
       partials, count, nbytes);
   return (int)cudaGetLastError();
+}
+
+// The arguments of one K4 [mxu] launch, packed by kernels.py
+// (_VR_MXU_ARGS: 5 addresses, 8 ints, 2 u32, then the VrSlots bytes).
+struct VrMxuArgs {
+  uint64_t shards, data, acc, amat, stream;
+  int32_t device, B, n, k, w, np, rb, tiles_per_block;
+  uint32_t present, nbytes;
+  VrSlots slots;
+};
+static_assert(sizeof(VrMxuArgs) == 120, "kernels._VR_MXU_ARGS packs 120 bytes");
+
+// K4 [mxu]: mtt_verify_reconstruct's outputs (finalize always on) from
+// one memset and one launch.  `data` (B, k, w) must be 16-byte aligned
+// (the copies are 16-byte stores) and w % 4 == 0; `acc` holds the (B, n,
+// 8) digests and then the one-word last-block ticket, zeroed here.  The
+// np present rows of the `present` mask are slots.row[0 .. np), the
+// survivors first; `amat` is the (rb, k) matrix of the rebuilt rows in
+// kernels.mxu_fragments order.  tiles_per_block comes from
+// kernels.pipelined_grid.
+int mtt_verify_reconstruct_mxu(const VrMxuArgs* a) {
+  const VrSlots& sl = a->slots;
+  const int device = a->device, B = a->B, n = a->n, k = a->k, w = a->w, np = a->np,
+            rb = a->rb, tiles_per_block = a->tiles_per_block;
+  bool ok = n >= 1 && n <= kMaxRows && k >= 1 && k <= np && w > 0 && w % 4 == 0 &&
+            tiles_per_block >= 1 && B > 0 && B <= 65535 && (a->present >> n) == 0u &&
+            __builtin_popcount(a->present) == np && rb >= 0 && rb <= kRebuiltMax &&
+            rb <= k && a->amat != 0 && (a->data & 15u) == 0;
+  for (int j = 0; ok && j < np; ++j)
+    ok = sl.row[j] < n && ((a->present >> sl.row[j]) & 1u) && sl.copy[j] < k &&
+         (j == 0 || sl.row[j] > sl.row[j - 1]);
+  for (int o = 0; ok && o < rb; ++o) ok = sl.rebuilt[o] < k;
+  if (!ok) return (int)cudaErrorInvalidValue;
+  cudaError_t err = cudaSetDevice(device);
+  if (err != cudaSuccess) return (int)err;
+  cudaStream_t st = reinterpret_cast<cudaStream_t>(a->stream);
+  uint32_t* acc = reinterpret_cast<uint32_t*>(a->acc);
+  const size_t count = (size_t)B * n * 8;
+  err = cudaMemsetAsync(acc, 0, (count + 1) * sizeof(uint32_t), st);
+  if (err != cudaSuccess) return (int)err;
+  unsigned int* ticket = reinterpret_cast<unsigned int*>(acc + count);
+  const int ntiles = (w + kTile - 1) / kTile;
+  dim3 grid((ntiles + tiles_per_block - 1) / tiles_per_block, B);
+  const size_t smem = (size_t)2 * np * kTile * sizeof(uint32_t);
+  const uint32_t* shards = reinterpret_cast<const uint32_t*>(a->shards);
+  uint32_t* data = reinterpret_cast<uint32_t*>(a->data);
+  const uint32_t* amat = reinterpret_cast<const uint32_t*>(a->amat);
+  const bool aligned = (a->shards & 15u) == 0;
+  const int pbk = bucket(np), rbk = rb <= 4 ? 4 : 8;
+  err = cudaErrorInvalidValue;
+#define MTT_VRM(PB_, RB_)                                                       \
+  if (pbk == PB_ && rbk == RB_)                                                 \
+    err = launch_vr_mxu<PB_, RB_>(device, grid, smem, st, shards, data, acc,    \
+                                  ticket, n, k, w, np, rb, ntiles,              \
+                                  tiles_per_block, a->nbytes, aligned, sl, amat);
+  MTT_VRM(4, 4) MTT_VRM(8, 4) MTT_VRM(8, 8) MTT_VRM(16, 4) MTT_VRM(16, 8)
+#undef MTT_VRM
+  return (int)err;
 }
 
 // K6: mtt_verify_reconstruct's outputs (finalize always on) from one
@@ -2082,6 +2305,7 @@ const char* mtt_constants() {
       "bucket=%d,%d,%d,%d,%d,%d,%d,%d,%d,%d,%d,%d,%d,%d,%d,%d "
       "rb_max=%d,%d,%d vr_terms_bytes=%d,%d,%d gf_terms_bytes=%d "
       "encode_args_bytes=%d encode_pipe_args_bytes=%d gf_args_bytes=%d "
+      "vr_mxu_args_bytes=%d rebuilt_max=%d "
       "ring_swizzle=%d,%d,%d,%d fixed=%s",
       kTile, kMaxRows, kPhashRows, kPhashBlocksPerSM, kPipeBlocksPerSM,
       kEncBlocksPerSM, kGfBlocksPerSM, bucket(1), bucket(2), bucket(3), bucket(4), bucket(5),
@@ -2089,7 +2313,8 @@ const char* mtt_constants() {
       bucket(12), bucket(13), bucket(14), bucket(15), bucket(16), kRbMax<4>,
       kRbMax<8>, kRbMax<16>, (int)terms_bytes<4>(), (int)terms_bytes<8>(),
       (int)terms_bytes<16>(), (int)gf_terms_bytes(), (int)sizeof(EncodeArgs),
-      (int)sizeof(EncodePipeArgs), (int)sizeof(GfMatmulArgs), ring_swizzle(0),
+      (int)sizeof(EncodePipeArgs), (int)sizeof(GfMatmulArgs), (int)sizeof(VrMxuArgs),
+      kRebuiltMax, ring_swizzle(0),
       ring_swizzle(4), ring_swizzle(8), ring_swizzle(12),
       "" MTT_FIXED_GEOMETRIES(MTT_FIXED_STR));
 #undef MTT_FIXED_STR

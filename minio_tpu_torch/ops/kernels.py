@@ -25,7 +25,10 @@ Seven kernels, all in ``csrc/codec.cu`` (CUDA C++ for ``sm_90a``):
   (P5): finalized digests of the present rows of a (B, n, w) batch and
   the k data rows rebuilt from the first k present rows, in one pass.
   ``verify_reconstruct_subchunk`` is its sub-chunk form, the GPU body of
-  ``codec_step.verify_reconstruct_subchunk_words`` (X3).
+  ``codec_step.verify_reconstruct_subchunk_words`` (X3).  Its mxu kernel
+  copies the present data rows and multiplies only the rebuilt ones
+  (``_mxu_rebuilt_operand``), in one launch that finalizes in its last
+  block (``_vr_mxu_plan``).
 * ``encode_pack_pipelined`` (K5) replaces ``rs_pallas.encode_pack_pipelined``
   (P6) and ``verify_reconstruct_pipelined`` (K6) replaces
   ``rs_pallas.verify_reconstruct_pipelined`` (P7): K1's and K4's
@@ -41,9 +44,9 @@ Seven kernels, all in ``csrc/codec.cu`` (CUDA C++ for ``sm_90a``):
 
 ``formulation="mxu"`` (MINIO_TPU_CODEC_FORMULATION) on K1, K4, K5 and K6
 swaps their xtime chain for the same tensor-core product (the ``mxu``
-instantiations), as ``_mxu_rows`` replaces ``_swar_rows`` inside P4-P7;
-everything around the product is unchanged, so their outputs are bit for
-bit the ``swar`` ones.  The lifted matrix reaches the kernel as a small
+kernels; K1, K4 and K5 on a swizzled tile, ``ring_swizzle``), as
+``_mxu_rows`` replaces ``_swar_rows`` inside P4-P7; their outputs are bit
+for bit the ``swar`` ones.  The lifted matrix reaches the kernel as a small
 device tensor in the product's operand order (``_mxu_operand``), cached
 per matrix and device.
 
@@ -200,17 +203,19 @@ def _load():
         if _lib is None:
             lib = ctypes.CDLL(str(build()))
             P, I, U = ctypes.c_void_p, ctypes.c_int, ctypes.c_uint32
-            # K1, K3 and K5 take one packed argument struct (_ENCODE_ARGS,
-            # _GF_ARGS, _ENCODE_PIPE_ARGS): ctypes converts one argument,
-            # not 13-20.  In the other codec passes the pointer before the
-            # stream is the mxu operand (None: the swar instantiation).
+            # K1, K3, K5 and K4 [mxu] take one packed argument struct
+            # (_ENCODE_ARGS, _GF_ARGS, _ENCODE_PIPE_ARGS, _VR_MXU_ARGS):
+            # ctypes converts one argument, not 13-20.  In K6 the pointer
+            # before the stream is the mxu operand (None: the swar
+            # instantiation).
             lib.mtt_encode_pack.argtypes = [ctypes.c_char_p]
             lib.mtt_encode_pack_pipelined.argtypes = [ctypes.c_char_p]
             lib.mtt_phash256.argtypes = [I, P, P, I, I, U, I, I, P]
             lib.mtt_gf_matmul.argtypes = [ctypes.c_char_p]
             lib.mtt_verify_reconstruct.argtypes = [
-                I, P, P, P, I, I, I, I, U, U, U, I, I, P, P, P, P,
+                I, P, P, P, I, I, I, I, U, U, U, I, I, P, P, P,
             ]
+            lib.mtt_verify_reconstruct_mxu.argtypes = [ctypes.c_char_p]
             lib.mtt_verify_reconstruct_pipelined.argtypes = [
                 I, P, P, P, I, I, I, I, U, U, I, P, I, I, P, P,
             ]
@@ -218,6 +223,7 @@ def _load():
             for fn in (lib.mtt_encode_pack, lib.mtt_encode_pack_pipelined,
                        lib.mtt_phash256, lib.mtt_gf_matmul,
                        lib.mtt_verify_reconstruct,
+                       lib.mtt_verify_reconstruct_mxu,
                        lib.mtt_verify_reconstruct_pipelined,
                        lib.mtt_gf_matmul_mxu):
                 fn.restype = ctypes.c_int
@@ -243,6 +249,7 @@ def _constants() -> dict:
         "encode_args_bytes": (_ENCODE_ARGS.size,),
         "encode_pipe_args_bytes": (_ENCODE_PIPE_ARGS.size,),
         "gf_args_bytes": (_GF_ARGS.size,),
+        "vr_mxu_args_bytes": (_VR_MXU_ARGS.size,), "rebuilt_max": (_REBUILT_MAX,),
         "ring_swizzle": tuple(ring_swizzle(r) for r in (0, 4, 8, 12)),
         "fixed": tuple(f"{k}x{m}" for k, m in FIXED_GEOMETRIES),
     }
@@ -312,9 +319,8 @@ def _rows_view(acc: torch.Tensor, lead: "tuple[int, ...]") -> torch.Tensor:
 
 
 def _tiles_per_block(ntiles: int, rows: int, sms: int) -> int:
-    """Tiles a K4 (or K1 [mxu]) block walks: short runs over about 8
-    blocks per SM, and fewer global atomics per digest word as the grid
-    grows."""
+    """Tiles a K4 swar block walks: short runs over about 8 blocks per
+    SM, and fewer global atomics per digest word as the grid grows."""
     return max(1, min(8, (ntiles * rows) // (sms * 8)))
 
 
@@ -336,7 +342,9 @@ def _persistent_grid(B: int, w: int, resident: int) -> "tuple[int, int]":
 
 @functools.lru_cache(maxsize=1024)
 def pipelined_grid(B: int, w: int, sms: int) -> "tuple[int, int]":
-    """K6's persistent grid: ``_PIPE_BLOCKS_PER_SM`` blocks per SM."""
+    """The persistent grid of K6 and of the mxu kernels of K1, K4 and K5:
+    ``_PIPE_BLOCKS_PER_SM`` blocks per SM, the residency their
+    ``__launch_bounds__`` hold."""
     return _persistent_grid(B, w, sms * _PIPE_BLOCKS_PER_SM)
 
 
@@ -350,15 +358,9 @@ def encode_pipelined_grid(B: int, w: int, sms: int,
 
 
 @functools.lru_cache(maxsize=1024)
-def encode_grid(B: int, w: int, sms: int, mxu: bool = False) -> "tuple[int, int]":
-    """K1's grid: a persistent one of ``_ENC_BLOCKS_PER_SM`` blocks per SM
-    for swar; short runs (``_tiles_per_block``) for the mxu
-    instantiation, whose two barriers a tile other blocks' phases must
-    hide."""
-    if mxu:
-        ntiles = -(-w // TILE)
-        tpb = _tiles_per_block(ntiles, B, sms)
-        return tpb, -(-ntiles // tpb)
+def encode_grid(B: int, w: int, sms: int) -> "tuple[int, int]":
+    """K1's grid (swar): a persistent one of ``_ENC_BLOCKS_PER_SM`` blocks
+    per SM; the mxu kernel takes ``pipelined_grid``."""
     return _persistent_grid(B, w, sms * _ENC_BLOCKS_PER_SM)
 
 
@@ -486,6 +488,11 @@ _GF_ARGS = struct.Struct("<4Q9i4x")
 # stream addresses; device, B, k, m, w, group, tiles_per_block,
 # terms_len; nbytes.
 _ENCODE_PIPE_ARGS = struct.Struct("<8Q8iI4x")
+# K4 [mxu]'s (VrMxuArgs): shards, data, acc, amat, stream addresses;
+# device, B, n, k, w, np, rb, tiles_per_block; present, nbytes; then the
+# VrSlots: row (16 bytes), copy (16), rebuilt (_REBUILT_MAX).
+_REBUILT_MAX = 8  # rebuilt rows of K4 [mxu] (kRebuiltMax): min(k, n - k) <= 8
+_VR_MXU_ARGS = struct.Struct(f"<5Q8i2I16s16s{_REBUILT_MAX}s")
 
 
 @dataclasses.dataclass(frozen=True, eq=False)
@@ -724,7 +731,8 @@ def _enc_plan(B: int, k: int, m: int, w: int, group: int, formulation: str,
     operand = (_mxu_operand(gf.parity_matrix(k, m), device)
                if formulation == "mxu" else None)
     amat = 0 if operand is None else operand.data_ptr()
-    tpb, _per_stripe = encode_grid(B, w, sm_count(device), amat != 0)
+    grid = pipelined_grid if amat else encode_grid
+    tpb, _per_stripe = grid(B, w, sm_count(device))
     no_flags = (None if group else
                 torch.empty((B, m, 0), dtype=torch.int32, device=device))
     n, pw = k + m, B * m * w
@@ -1143,7 +1151,11 @@ def verify_reconstruct(shards: torch.Tensor, present: "tuple[bool, ...]",
     (B, k, w) rebuilt from the first k present rows, digests (B, n, 8)
     finalized), int32.  Only the digests of present rows are the rows'
     phash256; an absent row is neither read nor hashed.  ``formulation``
-    picks the product (``swar`` or ``mxu``); the outputs are the same."""
+    picks the product (``swar`` or ``mxu``); the outputs are the same.
+    On the card, swar: a zeroed digest tensor, the K4 launch and a
+    finalize launch; mxu: one allocation for data, digests and ticket,
+    the entry's memset and one K4 [mxu] launch, finalized by its last
+    block."""
     B, n, _w = shards.shape
     k = data_shards
     _check_vr(shards, present, k)
@@ -1152,18 +1164,98 @@ def verify_reconstruct(shards: torch.Tensor, present: "tuple[bool, ...]",
         return verify_reconstruct_plain(shards, present, k, shard_len,
                                         formulation)
     _require_cuda(shards, "verify_reconstruct", 3)
+    if formulation == "mxu":
+        return _verify_reconstruct_mxu(shards, tuple(present), k, shard_len)
     digests = torch.zeros((B, n, 8), dtype=torch.int32, device=shards.device)
     out = _launch_verify_reconstruct(shards, digests, 0, present, k,
-                                     shard_len, True, formulation)
-    _count("verify_reconstruct[mxu]" if formulation == "mxu"
-           else "verify_reconstruct")
+                                     shard_len, True)
+    _count("verify_reconstruct")
     return out
+
+
+@functools.lru_cache(maxsize=256)
+def _mxu_rebuilt_operand(present: "tuple[bool, ...]", k: int,
+                         device) -> torch.Tensor:
+    """K4 [mxu]'s A operand, made once per (present, k, device): the rows
+    of the reconstruction matrix over the first k present rows that are
+    rebuilt (``vr_terms(present, k).rebuilt``), (rb, k), in
+    ``mxu_fragments`` order.  The present data rows are copies and take
+    none."""
+    idx = _survivors(present, k)
+    rmat = gf.reconstruction_matrix(k, len(present) - k, idx)
+    return _mxu_operand(rmat[list(vr_terms(present, k).rebuilt)], device)
+
+
+@dataclasses.dataclass(frozen=True, eq=False)
+class _VrMxuPlan:
+    """K4 [mxu]'s launch constants for one call shape (``_vr_mxu_plan``):
+    the operand, the grid, the slots (``VrSlots``: present rows, copies,
+    rebuilt rows) and where data, digests and the ticket lie in the
+    call's one buffer."""
+
+    operand: torch.Tensor  # _mxu_rebuilt_operand; amat is its address
+    tiles_per_block: int
+    np: int  # present rows: the tile's slots
+    rb: int  # rebuilt rows
+    present_mask: int
+    slots: "tuple[bytes, bytes, bytes]"  # VrSlots' row, copy, rebuilt
+    buf_words: int  # data, digests, ticket
+    acc_off: int  # byte offset of the digests
+    data: tuple  # as_strided (size, stride[, offset]) of each output
+    digests: tuple
+
+
+@functools.lru_cache(maxsize=1024)
+def _vr_mxu_plan(B: int, n: int, k: int, w: int, present: "tuple[bool, ...]",
+                 device: torch.device) -> _VrMxuPlan:
+    """K4 [mxu]'s launch constants for one call shape, made once: the
+    slots from ``vr_terms`` (cached per (present, k)), the rebuilt rows'
+    operand, ``pipelined_grid`` and the buffer layout."""
+    if w < 1:
+        raise ValueError("verify_reconstruct needs at least one word a row")
+    terms = vr_terms(present, k)
+    tpb, _per_stripe = pipelined_grid(B, w, sm_count(device))
+    pad = _MAX_ROWS - len(terms.rows)
+    slots = (
+        bytes(terms.rows) + bytes(pad),
+        np.array(terms.copy + (-1,) * pad, np.int8).tobytes(),
+        bytes(terms.rebuilt) + bytes(_REBUILT_MAX - len(terms.rebuilt)),
+    )
+    dw = B * k * w
+    return _VrMxuPlan(
+        _mxu_rebuilt_operand(present, k, device), tpb, len(terms.rows),
+        len(terms.rebuilt), terms.present_mask, slots, dw + B * n * 8 + 1,
+        4 * dw, ((B, k, w), (k * w, w, 1)), ((B, n, 8), (n * 8, 8, 1), dw),
+    )
+
+
+def _verify_reconstruct_mxu(shards: torch.Tensor, present: "tuple[bool, ...]",
+                            k: int, shard_len: int):
+    """K4 [mxu] on checked CUDA shards: one buffer (data, digests, ticket),
+    one packed struct, the entry's memset and one launch."""
+    B, n, w = shards.shape
+    dev = shards.device
+    if B == 0:
+        return (torch.empty((0, k, w), dtype=torch.int32, device=dev),
+                torch.zeros((0, n, 8), dtype=torch.int32, device=dev))
+    plan = _vr_mxu_plan(B, n, k, w, present, dev)
+    buf = torch.empty(plan.buf_words, dtype=torch.int32, device=dev)
+    base = buf.data_ptr()
+    rc = _load().mtt_verify_reconstruct_mxu(_VR_MXU_ARGS.pack(
+        shards.data_ptr(), base, base + plan.acc_off, plan.operand.data_ptr(),
+        torch._C._cuda_getCurrentRawStream(dev.index), dev.index, B, n, k, w,
+        plan.np, plan.rb, plan.tiles_per_block, plan.present_mask,
+        shard_len & 0xFFFFFFFF, *plan.slots,
+    ))
+    _check_rc(rc, "verify_reconstruct")
+    _count("verify_reconstruct[mxu]")
+    return buf.as_strided(*plan.data), buf.as_strided(*plan.digests)
 
 
 @functools.lru_cache(maxsize=256)
 def _mxu_vr_operand(present: "tuple[bool, ...]", k: int,
                     device) -> torch.Tensor:
-    """K4/K6's mxu operand, made once per (present, k, device): the (k, k)
+    """K6's mxu operand, made once per (present, k, device): the (k, k)
     reconstruction matrix over the first k present rows, as P5/P7 lift
     it."""
     idx = _survivors(present, k)
@@ -1172,13 +1264,11 @@ def _mxu_vr_operand(present: "tuple[bool, ...]", k: int,
 
 
 def _launch_verify_reconstruct(shards, partials, word_offset, present, k,
-                               shard_len, finalize, formulation="swar"):
-    """K4 on checked CUDA shards, XORing into ``partials``."""
+                               shard_len, finalize):
+    """K4 swar on checked CUDA shards, XORing into ``partials``."""
     B, n, w = shards.shape
     rm, nb, mask = _vr_plan(tuple(present), k)
     dev = shards.device
-    amat = (_mxu_vr_operand(tuple(present), k, dev).data_ptr()
-            if formulation == "mxu" else None)
     data = torch.empty((B, k, w), dtype=torch.int32, device=dev)
     if B == 0:
         return data, partials
@@ -1187,8 +1277,7 @@ def _launch_verify_reconstruct(shards, partials, word_offset, present, k,
         dev.index or 0, shards.data_ptr(), data.data_ptr(),
         partials.data_ptr(), B, n, k, w, mask, shard_len & 0xFFFFFFFF,
         word_offset & 0xFFFFFFFF, int(finalize),
-        _tiles_per_block(ntiles, B, sm_count(dev)), rm, nb, amat,
-        _stream(shards),
+        _tiles_per_block(ntiles, B, sm_count(dev)), rm, nb, _stream(shards),
     )
     _check_rc(rc, "verify_reconstruct")
     return data, partials

@@ -472,14 +472,14 @@ def test_cpu_wrappers_stay_plain():
 
 def test_grids_follow_the_sm_count():
     """K1: about 3 blocks per SM over the stripes, contiguous tile runs
-    (mxu: runs of 1-8 tiles over about 8 blocks per SM, as K4); K3: 4
-    blocks per SM striding over (stripe, quad tile) pairs."""
+    (mxu: K6's persistent grid, 2 blocks per SM); K3: 4 blocks per SM
+    striding over (stripe, quad tile) pairs."""
     assert kernels.encode_grid(4, W, SMS) == (13, 99)
     assert kernels.encode_grid(1, W, SMS) == (4, 320)
     assert kernels.encode_grid(1, 256, SMS) == (1, 1)
     assert kernels.encode_grid(4, W, 66) == (26, 50)
-    assert kernels.encode_grid(4, W, SMS, True) == (4, 320)  # mxu: short runs
-    assert kernels.encode_grid(1, W, SMS, True) == (1, 1280)
+    assert kernels.pipelined_grid(4, W, SMS) == (20, 64)  # mxu
+    assert kernels.pipelined_grid(1, W, SMS) == (5, 256)
     assert kernels.gf_grid(4, W, SMS) == 4 * SMS
     assert kernels.gf_grid(1, 256, SMS) == 1
     assert kernels.gf_grid(2, 4101, SMS) == 2 * 5
@@ -524,7 +524,8 @@ def test_constants_check_accepts_the_library_string_and_refuses_drift():
         "pipe_blocks_per_sm=2 enc_blocks_per_sm=3 gf_blocks_per_sm=4 "
         "bucket=4,4,4,4,8,8,8,8,16,16,16,16,16,16,16,16 rb_max=4,8,7 "
         "vr_terms_bytes=548,2088,3623 gf_terms_bytes=304 encode_args_bytes=120 "
-        "encode_pipe_args_bytes=104 gf_args_bytes=72 ring_swizzle=0,2,4,6 "
+        "encode_pipe_args_bytes=104 gf_args_bytes=72 vr_mxu_args_bytes=120 "
+        "rebuilt_max=8 ring_swizzle=0,2,4,6 "
         "fixed=," + fixed
     )
     kernels._check_constants(text)
