@@ -25,8 +25,9 @@
    and K6 against their plain versions and their swar twins, at the main
    path's and heal's shapes and at ragged ones; K1 ``mxu`` also at every
    geometry of ``encode_geometry_sweep`` and on an unaligned view, K4
-   ``mxu`` also at 1 to 8 rebuilt rows, other row buckets and an
-   unaligned view (``vr_mxu_sweep``).  K2 also at row counts
+   ``mxu`` and K6 ``mxu`` also at 1 to 8 rebuilt rows and other row
+   buckets, K4 ``mxu`` also on an unaligned view (``vr_mxu_sweep``), K4
+   swar on an unaligned view too.  K2 also at row counts
    off its 4-row group, widths off its 1,024-word tile and an unaligned
    view; K6 and K6 ``mxu`` also against their plain versions and K4 for
    every EC 8+4 survivor pattern with 0-4 rows absent.  K1 also at one
@@ -400,32 +401,40 @@ def vr_pattern_sweep(dev, rng, formulation: str) -> int:
     return err
 
 
-# K4 [mxu] off EC 8+4's buckets: (k, n, absent rows) with 1 to 8 rebuilt
-# rows (the 8-row bucket of the product from 5 on), 4 tile slots, k = 1
-# and k = 12
+# K4 [mxu] and K6 [mxu] off EC 8+4's buckets: (k, n, absent rows) with 1 to
+# 8 rebuilt rows (the 8-row bucket of the product from 5 on), 4 tile slots,
+# k = 1 and k = 12
 VR_MXU_GEOMETRIES = [(8, 16, (0, 1, 2, 3, 4)), (8, 16, tuple(range(8))),
                      (5, 10, (0, 2, 4)), (2, 4, (0,)), (1, 2, (0,)),
                      (12, 16, (1, 2, 3, 4))]
 
 
-def vr_mxu_sweep(dev, rng) -> int:
-    """K4 [mxu] against its plain version and K4 swar at every geometry of
-    VR_MXU_GEOMETRIES, at w = 4,104 and B = 1, 2, and on a view off
-    16-byte alignment (4-byte loads); returns the max_abs_err (0)."""
+def vr_mxu_sweep(dev, rng, fn) -> int:
+    """K4 [mxu] or K6 [mxu] (``fn``: verify_reconstruct or
+    verify_reconstruct_pipelined) against its plain version, K4 swar and
+    (K6) K4 [mxu] at every geometry of VR_MXU_GEOMETRIES, at w = 4,104 and
+    B = 1, 2, and (K4, whose staging loads take it) on a view off 16-byte
+    alignment (4-byte loads); returns the max_abs_err (0)."""
     from minio_tpu_torch.ops import kernels
 
     err = 0
     w = 4104
+    k4 = fn is kernels.verify_reconstruct
     for k, n, gone in VR_MXU_GEOMETRIES:
         pres = tuple(i not in gone for i in range(n))
-        for x in (rand_words(rng, (1, n, w), dev), rand_words(rng, (2, n, w), dev),
-                  rand_words(rng, (2 * n * w + 1,), dev)[1:].view(2, n, w)):
-            got = kernels.verify_reconstruct(x, pres, k, 4 * w, "mxu")
-            e = same(got, kernels.verify_reconstruct_plain(x, pres, k, 4 * w, "mxu"),
-                     kernels.verify_reconstruct(x, pres, k, 4 * w))
+        xs = [rand_words(rng, (1, n, w), dev), rand_words(rng, (2, n, w), dev)]
+        if k4:
+            xs.append(rand_words(rng, (2 * n * w + 1,), dev)[1:].view(2, n, w))
+        for x in xs:
+            got = fn(x, pres, k, 4 * w, "mxu")
+            wants = [kernels.verify_reconstruct_plain(x, pres, k, 4 * w, "mxu"),
+                     kernels.verify_reconstruct(x, pres, k, 4 * w)]
+            if not k4:
+                wants.append(kernels.verify_reconstruct(x, pres, k, 4 * w, "mxu"))
+            e = same(got, *wants)
             if e:
-                fail(f"verify_reconstruct[mxu] differs from its plain version or K4 at "
-                     f"k={k}, n={n}, absent {gone}, B={x.shape[0]}, "
+                fail(f"{fn.__name__}[mxu] differs from its plain version, K4 or K4 [mxu] "
+                     f"at k={k}, n={n}, absent {gone}, B={x.shape[0]}, "
                      f"offset {x.storage_offset()}")
             err = max(err, e)
     return err
@@ -688,6 +697,14 @@ def check_heal_kernels(dev, rng) -> dict:
                 phash.phash256_host_batched(host[:, live], 4 * w),
             ):
                 fail(f"verify_reconstruct digests differ from phash256_host_batched at {B, w}, {pname}")
+    # the staging's 4-byte loads: a view off 16-byte alignment
+    x = rand_words(rng, (2 * N * 4104 + 1,), dev)[1:].view(2, N, 4104)
+    for pname, pres in PATTERNS.items():
+        e = same(kernels.verify_reconstruct(x, pres, K, 4 * 4104),
+                 kernels.verify_reconstruct_plain(x, pres, K, 4 * 4104))
+        if e:
+            fail(f"verify_reconstruct differs from its plain version on an unaligned view, {pname}")
+        err = max(err, e)
     # it rebuilds what encode_pack encoded (absent rows hold garbage);
     # with all rows present and a chosen survivor bitrotted, ok flags it
     # and the backend's escalation still returns the data
@@ -1065,8 +1082,7 @@ def check_mxu_kernels(dev, rng) -> dict:
                 err = max(err, e)
         if name == "verify_reconstruct_pipelined":
             err = max(err, vr_pattern_sweep(dev, rng, "mxu"))
-        else:
-            err = max(err, vr_mxu_sweep(dev, rng))
+        err = max(err, vr_mxu_sweep(dev, rng, fn))
         timings = {}
         for pname, B in [("data+parity missing", 1), ("data+parity missing", 4)]:
             pres = PATTERNS[pname]
@@ -1086,11 +1102,8 @@ def check_mxu_kernels(dev, rng) -> dict:
                 swar_ms=cuda_ms(lambda: fn(x, pres, K, 4 * W), 20),
                 plain_ms=cuda_ms(lambda: plain(x, pres, K, 4 * W, "mxu"), 3, 1),
                 bound_ms=bms, bound_by=by, shape=[B, N, W], present=live,
-                # K4 [mxu] multiplies the rebuilt rows in mxu_ring_tile,
-                # K6 [mxu] all k rows in mxu_tile
-                design_int_ops=B * W * (mxu_ring_design_ops(rb, K)
-                                        if name == "verify_reconstruct"
-                                        else mxu_design_ops(K, K)),
+                # K4 and K6 [mxu] multiply the rebuilt rows in mxu_ring_tile
+                design_int_ops=B * W * mxu_ring_design_ops(rb, K),
             )
             if B == 1:
                 timings[f"{pname}, B={B}"].update(device_times(
@@ -1564,7 +1577,7 @@ REPLACES = {
 _KERNEL_NAME = re.compile(
     r"(encode_pipelined_mxu_kernel|encode_pipelined_kernel|"
     r"verify_reconstruct_pipelined_kernel|"
-    r"encode_kernel|encode_mxu_kernel|pack_kernel|finalize_kernel|phash_kernel|"
+    r"encode_kernel|encode_mxu_kernel|pack_kernel|phash_kernel|"
     r"gf_matmul_mxu_kernel|gf_matmul_kernel|verify_reconstruct_mxu_kernel|"
     r"verify_reconstruct_kernel)"
     r"(?:I((?:L[ib]\d+E)+)E)?"
@@ -1603,13 +1616,16 @@ def ptxas_summary(log: str) -> list:
 _SASS_INSN = re.compile(r"^\s*/\*([0-9a-f]{4,})\*/\s+(\S.*?)\s*;")
 _MMA_OPS = ("BMMA", "IMMA", "HMMA")  # the tensor-core instructions
 # the instantiations sass_loops reads: K2, K6, K1 and K5 at EC 8+4 (swar
-# and mxu), K3, and K4 at EC 8+4 (swar; mxu at heal's pattern and with
-# every row present)
+# and mxu), K3, and K4 at EC 8+4: swar and mxu at heal's pattern (<8,8,swar>,
+# <8,4,mxu>) and with every row present (<16,8,swar>, <16,4,mxu>).  An older
+# copy's K4 is verify_reconstruct_kernel<16,8> (swar) and
+# verify_reconstruct_mxu_kernel<PB,RB>.
 SASS_KERNELS = ("phash_kernel", "verify_reconstruct_pipelined",
                 "encode_kernel<8,4,", "encode_mxu_kernel<8,4", "gf_matmul_kernel",
                 "encode_pipelined_kernel<8,4,", "encode_pipelined_mxu_kernel<8,4,",
-                "verify_reconstruct_kernel<16,8", "verify_reconstruct_mxu_kernel<8,4>",
-                "verify_reconstruct_mxu_kernel<16,4>")
+                "verify_reconstruct_kernel<16,8", "verify_reconstruct_kernel<8,8,swar>",
+                "verify_reconstruct_kernel<8,4,mxu>", "verify_reconstruct_kernel<16,4,mxu>",
+                "verify_reconstruct_mxu_kernel<8,4>", "verify_reconstruct_mxu_kernel<16,4>")
 
 
 def sass_loops(lib, kernels_mod) -> dict:
@@ -1678,11 +1694,14 @@ def compare_copies(dev, mods: dict, order: list) -> list:
     heal's (1, 8, 327,680) (K1 swar and mxu, K5 swar), K1 also at one
     tile, and K1's sub-chunk chain (X2) at (4, 8, 327,680); K2 at (32,
     327,680); K3 at the degraded GET's (4, 12, 327,680) and (1, 12,
-    327,680) and one tile, shards 1, 3, 10, 12 absent; K4 at heal's (1,
-    12, 327,680) swar and mxu, with those shards absent and with all rows
-    present; K6 at heal's shape swar and mxu, and with all rows present
-    (swar).  Every result is first held bit for bit against the
-    plain version; then cuda_ms and device_times of each."""
+    327,680) and one tile, shards 1, 3, 10, 12 absent; K4 and K6 at
+    heal's (1, 12, 327,680) swar and mxu, with those shards absent and
+    with all rows present, K4 swar also at one tile (1, 12, 256); K4's
+    sub-chunk chain (X3) over heal's row in 5 chunks of 65,536 words, and
+    one such chunk at word offset 65,536 (not the last: no finalize).
+    Every result is first held bit for bit against the plain version
+    (the X3 chain's digests against the whole row's, its data once per
+    copy); then cuda_ms and device_times of each."""
     import numpy as np
     import torch
 
@@ -1751,13 +1770,46 @@ def compare_copies(dev, mods: dict, order: list) -> list:
                 lambda pres=pres, form=form: kern.verify_reconstruct(
                     x6, pres, K, 4 * W, formulation=form),
                 lambda pres=pres: kern.verify_reconstruct_plain(x6, pres, K, 4 * W))
+        x4t = x6[:, :, :256].contiguous()
+        cases["K4 heal swar one tile (1, 12, 256)"] = (
+            lambda: kern.verify_reconstruct(x4t, heal, K, 1024),
+            lambda: kern.verify_reconstruct_plain(x4t, heal, K, 1024))
         for label, pres, form in (("heal swar", heal, "swar"), ("heal mxu", heal, "mxu"),
-                                  ("all present swar", every, "swar")):
+                                  ("all present swar", every, "swar"),
+                                  ("all present mxu", every, "mxu")):
             cases[f"K6 {label} (1, 12, 327680)"] = (
                 lambda pres=pres, form=form: kern.verify_reconstruct_pipelined(
                     x6, pres, K, 4 * W, formulation=form),
                 lambda pres=pres: kern.verify_reconstruct_pipelined_plain(
                     x6, pres, K, 4 * W))
+        # X3: K4's sub-chunk form chained over heal's row (5 chunks of
+        # 65,536 words, as the async overlap mode cuts it), against the
+        # whole row; and one chunk at a nonzero word offset, not the last
+        vr_chunks = [(o, x6[:, :, o:o + 65536].contiguous()) for o in range(0, W, 65536)]
+
+        def x3_chain(kern=kern, chunks=vr_chunks, outs=None):
+            acc = torch.zeros((1, N, 8), dtype=torch.int32, device=dev)
+            for i, (o, c) in enumerate(chunks):
+                data = kern.verify_reconstruct_subchunk(c, acc, o, heal, K, 4 * W,
+                                                        i == len(chunks) - 1)[0]
+                if outs is not None:
+                    outs.append(data)
+            return (acc,)
+
+        outs = []
+        x3_chain(outs=outs)
+        if not torch.equal(torch.cat(outs, dim=-1),
+                           kern.verify_reconstruct_plain(x6, heal, K, 4 * W)[0]):
+            fail(f"X3 chain of copy {name} does not rebuild the whole row's data")
+        cases["X3 chain of 5 heal (1, 12, 327680)"] = (
+            x3_chain, lambda: (kern.verify_reconstruct_plain(x6, heal, K, 4 * W)[1],))
+        off, chunk = vr_chunks[1]
+        acc1 = torch.zeros((1, N, 8), dtype=torch.int32, device=dev)
+        cases["X3 one chunk heal (1, 12, 65536) at 65536"] = (
+            lambda kern=kern: kern.verify_reconstruct_subchunk(
+                chunk, acc1, off, heal, K, 4 * W),
+            lambda: kern.verify_reconstruct_subchunk_plain(
+                chunk, torch.zeros_like(acc1), off, heal, K, 4 * W))
         for label, (fn, plain) in cases.items():
             got = fn()
             got = got if isinstance(got, tuple) else (got,)

@@ -7,15 +7,12 @@
 // cudaGetLastError() after each launch.
 //
 // Words are little-endian u32 (4 packed GF(2^8) elements), multiplied by
-// SWAR doublings (xtime).  K4 uses the xtime-powers decomposition:
-// for input word x the powers x, 2x, 4x, ..., 128x, and every output word
-// is the XOR of the powers its coefficients select.  Their coefficient
-// bits reach the kernel as a by-value GfPlan (kernel parameters live in
-// the constant bank, so every thread reads them at the same address):
-// rm[c*8+b] has bit r set when output row r takes power b of input row c.
-// All branches on the plan are uniform across the block.  K1, K3, K5 and
-// K6 take the product in Horner form from a term program instead (GfTerms,
-// VrTerms): copies for unit rows, 7 xtimes a product row.
+// SWAR doublings (xtime).  Every kernel takes the GF product in Horner form
+// from a term program (GfTerms for K1, K3 and K5, VrTerms for K4 and K6):
+// copies for unit rows, 7 xtimes a product row.  Term programs reach the
+// kernel by value (kernel parameters live in the constant bank, so every
+// thread reads them at the same address) or as masks it expands into
+// shared memory; every branch on them is uniform across the block.
 //
 // The constants that ops/kernels.py shares with this file (the tile, row
 // buckets, residencies, term-program sizes) are exported by
@@ -35,8 +32,9 @@
 // MINIO_TPU_CODEC_FORMULATION=mxu swaps the xtime chain of the PUT and
 // heal passes (K1, K4, K5, K6: the `MXU` template parameter or an mxu
 // kernel of their own) for a tensor-core product of the lifted GF(2) bit
-// matrix (mxu_tile for K6; K1, K4 and K5 run its form for a swizzled
-// tile, mxu_ring_tile), and K7 runs mxu_tile alone on bytes.  Everything
+// matrix (mxu_ring_tile, the form of mxu_tile for a swizzled tile; K4
+// and K6 multiply only the rebuilt rows), and K7 runs mxu_tile alone on
+// bytes.  Everything
 // around the product - the hash leg, flags, pack leg, ring and finalize -
 // is the swar kernels' code (on a tile swizzled for mxu_ring_tile), so
 // the outputs are bit for bit the swar ones.
@@ -47,6 +45,7 @@
 #include <string.h>
 
 #include <atomic>
+#include <type_traits>
 
 namespace {
 
@@ -58,11 +57,6 @@ constexpr uint32_t kC2 = 0x85EBCA6Bu;
 constexpr uint32_t kC3 = 0xC2B2AE35u;
 constexpr uint32_t kM1 = 0xCC9E2D51u;
 constexpr uint32_t kM2 = 0x1B873593u;
-
-struct GfPlan {
-  uint16_t rm[kMaxRows * 8];  // rm[c*8+b]: output rows taking power b of input c
-  uint8_t nb[kMaxRows];       // xtime chain length of input c
-};
 
 __device__ __forceinline__ uint32_t mix32(uint32_t x) {
   x ^= x >> 16;
@@ -109,19 +103,11 @@ __device__ __forceinline__ void fold_block(uint32_t h1, uint32_t h2,
   }
 }
 
-// Length fold of the XOR-combined partials (hash.finalize_partials),
-// in place: (rows, 8) partials -> (rows, 8) digests.
-__global__ void finalize_kernel(uint32_t* __restrict__ part, int count,
-                                uint32_t nbytes) {
-  const int i = blockIdx.x * blockDim.x + threadIdx.x;
-  if (i >= count) return;
-  part[i] = mix32(part[i] ^ (nbytes * kC1 + (uint32_t)(i & 7)));
-}
-
 // Called by every thread after its block's atomicXors into `partials`
-// (K1, K2, K5, K6): the block holding the last ticket applies the length
-// fold of finalize_kernel to all `count` words in place, so no finalize
-// launch follows.  `ticket` arrives zeroed.
+// (K1, K2, K4-K6): the block holding the last ticket applies the length
+// fold of the XOR-combined partials (hash.finalize_partials) to all
+// `count` words in place, turning (rows, 8) partials into (rows, 8)
+// digests, so no finalize launch follows.  `ticket` arrives zeroed.
 __device__ __forceinline__ void finalize_if_last(uint32_t* partials, int count,
                                                  uint32_t nbytes,
                                                  unsigned int* ticket) {
@@ -802,90 +788,6 @@ gf_matmul_kernel(const uint32_t* __restrict__ in, uint32_t* __restrict__ out,
 }
 
 // --------------------------------------------------------------------------
-// K4 verify_reconstruct: replaces rs_pallas.verify_reconstruct_fused (P5)
-// on heal; with a word offset and no finalize it is the GPU body of
-// codec_step.verify_reconstruct_subchunk_words (X3, left to XLA by the
-// JAX package).  The fusion of K2 and K3: every present row of a (B, n,
-// w) shard batch is hashed and, when it is one of the k chosen
-// survivors, multiplied into the k rebuilt data rows, in the same pass.
-//
-// Bound: bytes (each present row read once, k rows + n digests
-// written); at heal's pattern the hash and the product on the integer
-// pipe come close.
-// Design: one thread per column, the K1/K2 hash leg with one (h1, h2)
-// register pair per row (NB rows, templated), the K3 xtime chain with
-// OB register accumulators.  The plan is indexed by shard row: the
-// reconstruction matrix arrives expanded to (k, n) with zero columns
-// for the rows that are not survivors, so a present non-survivor has an
-// empty chain and is only hashed, and no gather copy is made.  Rows not
-// in ``present`` are neither read nor hashed; their partials stay zero.
-// That differs from the TPU kernel, which hashes absent rows' garbage
-// too: the caller's ok mask is False for them whatever their digest.
-// The mxu formulation runs in its own kernel (verify_reconstruct_mxu_kernel,
-// after K5 [mxu], whose product it shares).
-// --------------------------------------------------------------------------
-
-template <int NB, int OB>
-__global__ void __launch_bounds__(kThreads)
-verify_reconstruct_kernel(const uint32_t* __restrict__ shards,
-                          uint32_t* __restrict__ data,
-                          uint32_t* __restrict__ partials, int n, int k,
-                          int w, uint32_t present, uint32_t word_offset,
-                          int ntiles, int tiles_per_block, const GfPlan plan) {
-  __shared__ uint32_t s[NB * 8];
-  const int b = blockIdx.y;
-  const int tid = threadIdx.x;
-  for (int i = tid; i < n * 8; i += kThreads) s[i] = 0;
-  __syncthreads();
-
-  uint32_t h1[NB], h2[NB];
-#pragma unroll
-  for (int r = 0; r < NB; ++r) h1[r] = h2[r] = 0;
-
-  const uint32_t* in = shards + (size_t)b * n * w;
-  uint32_t* out = data + (size_t)b * k * w;
-
-  for (int t = 0; t < tiles_per_block; ++t) {
-    const int tile = blockIdx.x * tiles_per_block + t;
-    if (tile >= ntiles) break;  // uniform across the block
-    const int col = tile * kTile + tid;
-    const bool valid = col < w;
-    const uint32_t key = hash_key((uint32_t)col + word_offset);
-    uint32_t acc[OB];
-#pragma unroll
-    for (int o = 0; o < OB; ++o) acc[o] = 0;
-#pragma unroll
-    for (int r = 0; r < NB; ++r) {
-      if (r < n && ((present >> r) & 1u)) {
-        uint32_t p = valid ? in[(size_t)r * w + col] : 0u;
-        if (valid) hash_word(p, key, h1[r], h2[r]);
-#pragma unroll
-        for (int bit = 0; bit < 8; ++bit) {
-          if (bit >= plan.nb[r]) break;
-          const uint32_t msk = plan.rm[r * 8 + bit];
-#pragma unroll
-          for (int o = 0; o < OB; ++o)
-            if ((msk >> o) & 1u) acc[o] ^= p;
-          p = xtime(p);
-        }
-      }
-    }
-    if (valid) {
-#pragma unroll
-      for (int o = 0; o < OB; ++o)
-        if (o < k) out[(size_t)o * w + col] = acc[o];
-    }
-  }
-
-#pragma unroll
-  for (int r = 0; r < NB; ++r)
-    if (r < n && ((present >> r) & 1u)) fold_block(h1[r], h2[r], &s[r * 8]);
-  __syncthreads();
-  for (int i = tid; i < n * 8; i += kThreads)
-    if (s[i]) atomicXor(&partials[(size_t)b * n * 8 + i], s[i]);
-}
-
-// --------------------------------------------------------------------------
 // The pipelined twins K5 and K6 (MINIO_TPU_CODEC_OVERLAP=pipeline).
 //
 // P6/P7 keep the stripe in HBM and walk its 4096-word tiles inside ONE
@@ -902,7 +804,7 @@ verify_reconstruct_kernel(const uint32_t* __restrict__ shards,
 //   256-column tiles of one stripe and keeps its (h1, h2) per row in
 //   registers over the whole run.  At B = 1, EC 8+4 and 10 MiB blocks
 //   that is 1,280 tiles over 256 blocks of 5: 256 atomicXors per digest
-//   word where K1/K4 land 1,280.
+//   word, not one per tile.
 // * Asynchronous staging.  The k (K5) or present n (K6) input rows of
 //   a tile go global -> shared with 16-byte cp.async.cg copies into a
 //   kStages-deep ring: tiles t+1 and t+2 are in flight while tile t
@@ -944,8 +846,19 @@ __device__ __forceinline__ void cp_async_wait() {
   asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
 }
 
+// The chunk swizzle of the mxu kernels' tiles and rings: rows 4t .. 4t + 3 XOR their chunk
+// index by 2t.  mxu_ring_tile's lane (g, tig) reads a 16-byte chunk of
+// rows 4 tig + i, so for each i the 8 chunks a warp reads (4 tig x 2
+// chunks) fall on 8 different quads of banks; a warp reading one row's
+// 32 consecutive words (the hash leg) still meets 32 banks, since the
+// XOR only permutes the 8 chunks of an aligned 32-word run.
+// kernels.ring_swizzle is the same function.
+__host__ __device__ constexpr int ring_swizzle(int row) { return ((row >> 2) << 1) & 7; }
+
 // Stage `rows` rows of tile `tile` into `slot` (row j of the slot <- input
-// row src_row[j]), zero-filling the columns at or past w.
+// row src_row[j]), zero-filling the columns at or past w; with kSwizzle
+// chunk c of row j lands at chunk c ^ ring_swizzle(j) (K6 [mxu]).
+template <bool kSwizzle>
 __device__ __forceinline__ void stage_tile(uint32_t* slot, const uint32_t* in,
                                            const uint8_t* src_row, int rows,
                                            int w, int tile) {
@@ -955,7 +868,8 @@ __device__ __forceinline__ void stage_tile(uint32_t* slot, const uint32_t* in,
     const int c = (i % kChunksPerRow) * 4;
     const bool ok = base + c < w;
     const uint32_t* src = in + (size_t)src_row[j] * w + (ok ? base + c : 0);
-    cp_async16(slot + j * kTile + c, src, ok ? 16 : 0);
+    cp_async16(slot + j * kTile + (kSwizzle ? c ^ (ring_swizzle(j) << 2) : c), src,
+               ok ? 16 : 0);
   }
 }
 
@@ -986,19 +900,11 @@ __device__ __forceinline__ void stage_tile(uint32_t* slot, const uint32_t* in,
 //   no test on them is left in the tile loop.
 //
 // K5 [mxu] (encode_pipelined_mxu_kernel) has its own product,
-// mxu_ring_tile, on a swizzled ring, which K1 [mxu] and K4 [mxu] share;
-// mxu_tile stays as it is for K6 [mxu] and K7.
+// mxu_ring_tile, on a swizzled ring, which K1 [mxu], K4 [mxu] and K6 [mxu]
+// share; mxu_tile stays as it is for K7.
 // --------------------------------------------------------------------------
 
 
-// The chunk swizzle of K5 [mxu]'s ring: rows 4t .. 4t + 3 XOR their chunk
-// index by 2t.  mxu_ring_tile's lane (g, tig) reads a 16-byte chunk of
-// rows 4 tig + i, so for each i the 8 chunks a warp reads (4 tig x 2
-// chunks) fall on 8 different quads of banks; a warp reading one row's
-// 32 consecutive words (the hash leg) still meets 32 banks, since the
-// XOR only permutes the 8 chunks of an aligned 32-word run.
-// kernels.ring_swizzle is the same function.
-__host__ __device__ constexpr int ring_swizzle(int row) { return ((row >> 2) << 1) & 7; }
 
 // A thread's share of staging every tile: 16-byte chunk c = tid % 64 of
 // rows tid / 64 + 4t (t < KB / 4, rows < k), the same chunk column in
@@ -1311,14 +1217,12 @@ encode_pipelined_mxu_kernel(const uint32_t* __restrict__ data,
 }
 
 // --------------------------------------------------------------------------
-// K1 [mxu] and K4 [mxu]: K5 [mxu]'s product on a tile staged through
-// registers.
+// K1 [mxu]: K5 [mxu]'s product on a tile staged through registers.
 //
-// K1 [mxu] (encode_mxu_kernel) computes K1's function (P4 under mxu: the
-// parity product of _mxu_rows), K4 [mxu] (verify_reconstruct_mxu_kernel)
-// K4's (P5 under mxu).  Bound: as their swar twins (K1: operations, the
-// hash of n rows on the integer pipe; K4: bytes); the product's bit pairs
-// on the tensor cores take less.  What the design does:
+// encode_mxu_kernel computes K1's function (P4 under mxu: the parity
+// product of _mxu_rows).  Bound: as K1 (operations, the hash of n rows on
+// the integer pipe); the product's bit pairs on the tensor cores take
+// less.  What the design does:
 // * The product is mxu_ring_tile, as K5 [mxu] calls it, on a tile held in
 //   two swizzled shared buffers (ring_swizzle): 16-byte B loads that meet
 //   8 bank quads, a group's MMAs before their repack, m-tiles repacked in
@@ -1326,31 +1230,20 @@ encode_pipelined_mxu_kernel(const uint32_t* __restrict__ data,
 // * Staging through registers, one barrier a tile.  A thread owns the
 //   16-byte chunk column of stage_rows (chunk tid % 64 of slots tid / 64
 //   + 4t), loads tile i + 1's chunks with 16-byte loads (load_chunks)
-//   while tile i computes, and after tile i's product stores them at the
-//   swizzled chunk (store_chunks) into the other buffer, which tile i - 1
-//   read before tile i's barrier.  No cp.async ring: the chunks in flight
-//   take bucket(rows) / 4 x 16 bytes of registers a thread, the two
-//   buffers 2 x rows KiB.  K5 [mxu]'s ring in its place, timed beside it
-//   on an H100, ran 1-2 % faster (PERF.md); this staging stays because it
-//   takes two buffers, not three, and K4 [mxu] stores its copies from the
-//   same registers.
+//   while tile i computes, and stores them at the swizzled chunk
+//   (store_chunks) into the other buffer, which tile i - 1 read before
+//   tile i's barrier.  No cp.async ring: the chunks in flight take
+//   bucket(rows) / 4 x 16 bytes of registers a thread, the two buffers 2 x
+//   rows KiB.  K5 [mxu]'s ring in its place, timed beside it on an H100,
+//   ran 1-2 % faster (PERF.md); this staging stays because it takes two
+//   buffers, not three, and K4 stores its copies from the same registers.
 // * The hash leg reads the thread's column of each slot from the tile at
 //   the swizzled index, as K5 [mxu] does.
-// * K1 [mxu]: parity stores, hashing and ballot flags through emit_parity,
-//   the flags published a tile late after the one barrier (K5's), the
-//   last-block finalize of fold_and_finalize; EC 8+4 compiles k and m in.
-// * K4 [mxu]: the tile holds the np present rows in row order, survivors
-//   first.  A present data row's row of the reconstruction matrix is a
-//   unit vector, so it is a copy: stored with 16-byte stores straight from
-//   the staging registers (VrSlots::copy).  Only the rb rebuilt rows (rb
-//   <= min(k, n - k) <= 8) go through mxu_ring_tile, whose A operand
-//   (kernels._mxu_rebuilt_operand) holds their (rb, k) rows of the
-//   matrix: one m-tile per n-tile at heal's pattern, none with every data
-//   row present.  Present non-survivors are hashed only; absent rows are
-//   neither read nor hashed.  The block holding the last ticket finalizes
-//   (finalize_if_last): one memset + one launch a call.
-// * A persistent grid of kPipeBlocksPerSM blocks per SM (the residency
-//   their __launch_bounds__ hold; kernels.pipelined_grid), each block a
+// * Parity stores, hashing and ballot flags through emit_parity, the flags
+//   published a tile late after the one barrier (K5's), the last-block
+//   finalize of fold_and_finalize; EC 8+4 compiles k and m in.
+// * A persistent grid of kPipeBlocksPerSM blocks per SM (the residency its
+//   __launch_bounds__ holds; kernels.pipelined_grid), each block a
 //   contiguous run of tiles of one stripe.
 // Columns at or past w load as zeros and are neither stored nor hashed;
 // rows that are not 16-byte aligned load 4 bytes at a time (load4).
@@ -1450,47 +1343,259 @@ encode_mxu_kernel(const uint32_t* __restrict__ data, uint32_t* __restrict__ pari
   fold_and_finalize<KB, MB>(h1, h2, s, partials, ticket, k, m, nbytes);
 }
 
-constexpr int kRebuiltMax = 8;  // rebuilt rows of K4 [mxu]: min(k, n - k) <= 8
+// --------------------------------------------------------------------------
+// K6 verify_reconstruct_pipelined: replaces
+// rs_pallas.verify_reconstruct_pipelined (P7), and K4 verify_reconstruct:
+// replaces rs_pallas.verify_reconstruct_fused (P5) on heal; with a word
+// offset and no finalize K4 is also the GPU body of
+// codec_step.verify_reconstruct_subchunk_words (X3, left to XLA by the JAX
+// package): one sub-chunk of the async overlap chain.  Every present row
+// of a (B, n, w) shard batch is hashed and the k data rows are rebuilt
+// from the first k present rows (the survivors), in one pass.  Rows not in
+// ``present`` are neither read nor hashed; their partials stay zero.  That
+// differs from the TPU kernels, which hash absent rows' garbage too: the
+// caller's ok mask is False for them whatever their digest.
+//
+// Bound: bytes (at heal's pattern, EC 8+4, shards 1, 3, 10, 12 gone, the
+// operations come close: 8 present rows hashed, 2 data rows rebuilt in
+// 2 x (7 xtimes + 29 terms) = 86 instructions a column).
+// Both kernels stage the np present rows of a tile in row order (slot j
+// holds shard row row[j]; slots 0 .. k - 1 are the survivors), K6 into its
+// cp.async ring (swizzled for mxu), K4 through registers into two swizzled
+// buffers (K1 [mxu]'s staging, one barrier a tile), and run one tile body
+// (vr_tile).  The design of the product, for the terms the matrix has:
+// * Output data rows that are present are copies: their row of the
+//   reconstruction matrix is a unit vector.  K6 stores them straight from
+//   the ring slot it hashes (copy[j]), K4 with 16-byte stores straight from
+//   its staging registers.
+// * Only the rb rebuilt rows go through the GF product.  swar takes it in
+//   Horner form over the coefficient bits: acc = S7; acc = xtime(acc) ^
+//   S6; ...; ^ S0, where Sb is the XOR of the k survivor words whose
+//   coefficient for that row has bit b set.  The host compiles the masks
+//   once per (present, k) (kernels.vr_terms) into the kernel parameters as
+//   all-ones / zero words, indexed at compile time, so each candidate
+//   term is one LOP3 (acc ^ (x & mask)) plus half a ULDC.64 (the masks
+//   reach uniform registers two at a time), and a rebuilt row costs 7
+//   xtimes + 8k such terms, with no test and no branch per term.  The
+//   function itself needs only the set terms (heal's pattern: 7 xtimes
+//   and 29 terms a row); skipping the others would take a test or a
+//   branch per term.  mxu runs mxu_ring_tile on the swizzled tile, whose A
+//   operand (kernels._mxu_rebuilt_operand) holds the (rb, k) rows of the
+//   matrix (rb <= min(k, n - k) <= 8): one m-tile per n-tile at heal's
+//   pattern, no product with every data row present; the results come
+//   back through out_s with a __syncwarp().
+// * A persistent grid of kPipeBlocksPerSM blocks per SM (the residency
+//   their __launch_bounds__ hold; kernels.pipelined_grid), each block a
+//   contiguous run of tiles of one stripe.  At B = 1, 2 blocks per SM of
+//   5 tiles each put 10 tiles on every SM but 8.  Trial builds of K6 with
+//   3 to 6 blocks per SM, a 2- or 4-deep ring, or staging from
+//   precomputed per-block chunk offsets ran no faster at B = 1.
+// * Finalize: the block holding the last ticket applies the length fold
+//   (finalize_if_last), after the entry's one memset of digests and
+//   ticket.  K4 without a ticket leaves its partials raw in the caller's
+//   accumulator (X3's chunks before the last); the last chunk passes a
+//   ticket in its own output buffer, zeroed on the stream.
+// Columns at or past w load as zeros and are neither stored nor hashed;
+// K4 loads rows that are not 16-byte aligned 4 bytes at a time (load4).
+// --------------------------------------------------------------------------
 
-// K4 [mxu]'s slots, by value in the kernel parameters: tile slot j holds
-// shard row row[j] (the present rows in order, survivors first), stored
-// to data row copy[j] or -1; rebuilt output o is data row rebuilt[o].
+// Rebuilt rows of a term program: at most min(k, n - k), so 8 for k <= 8
+// and 7 once k > 8 (n <= 16) - which keeps VrTerms<16> inside the 4 KB of
+// kernel parameters.
+template <int KB>
+constexpr int kRbMax = KB <= 4 ? 4 : (KB <= 8 ? 8 : 7);
+
+template <int KB>
+struct VrTerms {
+  uint32_t m[kRbMax<KB>][8][KB];  // ~0u where bit b of (rebuilt o, survivor j) is set
+  uint8_t row[kMaxRows];          // shard row staged in slot j
+  int8_t copy[kMaxRows];          // data row slot j is stored to, or -1
+  uint8_t rebuilt[kRbMax<KB>];    // data row of rebuilt output o
+};
+
+constexpr int kRebuiltMax = 8;  // rebuilt rows of the mxu product: min(k, n - k) <= 8
+
+// The mxu kernels' slots, by value in the kernel parameters: VrTerms
+// without the masks.
 struct VrSlots {
   uint8_t row[kMaxRows];
   int8_t copy[kMaxRows];
   uint8_t rebuilt[kRebuiltMax];
 };
 
-template <int PB, int RB>
+// A K4 / K6 instantiation's term parameter: the slots and, for swar, the
+// rebuilt rows' masks over QB survivor words (mxu: QB is the bucket of the
+// rebuilt rows, whose product takes its operand from amat).
+template <int QB, bool MXU>
+using VrParams = std::conditional_t<MXU, VrSlots, VrTerms<QB>>;
+
+// One tile of K4 / K6 at column col = tile * kTile + tid out of the staged
+// tile `cur` (slot j: shard row t.row[j]; its chunks at c ^ ring_swizzle(j)
+// when kSwizzled): every present slot's word hashed into its registers,
+// the present data rows stored from the slot when kSlotCopies (K6), and the
+// rb rebuilt rows - swar in Horner form over the survivors' words and the
+// masks of `t`, mxu through mxu_ring_tile and out_s.  The caller's barrier
+// comes before it.
+template <int PB, int QB, bool MXU, bool kSwizzled, bool kSlotCopies>
+__device__ __forceinline__ void vr_tile(const uint32_t* cur, const VrParams<QB, MXU>& t,
+                                        int np, int k, int rb, bool valid, uint32_t key,
+                                        uint32_t* __restrict__ out, int w, int col,
+                                        uint32_t (&h1)[PB], uint32_t (&h2)[PB],
+                                        uint32_t* out_s, const uint32_t (&af)[MXU ? QB : 1]) {
+  const int tid = threadIdx.x;
+  constexpr int KB = MXU ? 1 : QB;  // survivor words of the swar product
+  uint32_t x[KB];
+#pragma unroll
+  for (int j = 0; j < KB; ++j) x[j] = 0;
+#pragma unroll
+  for (int j = 0; j < PB; ++j) {
+    if (j < np) {
+      const uint32_t v = cur[j * kTile + (kSwizzled ? tid ^ (ring_swizzle(j) << 2) : tid)];
+      if (valid) hash_word(v, key, h1[j], h2[j]);
+      if constexpr (!MXU) {
+        if (j < KB) x[j] = v;
+      }
+      if constexpr (kSlotCopies) {
+        const int d = t.copy[j];
+        if (d >= 0 && valid) out[(size_t)d * w + col] = v;
+      }
+    }
+  }
+  if constexpr (MXU) {
+    if (rb > 0) {  // uniform: the rebuilt rows
+      mxu_ring_tile<QB>(cur, k, rb, out_s, af);
+      __syncwarp();
+      if (valid) {
+#pragma unroll
+        for (int o = 0; o < QB; ++o)
+          if (o < rb) out[(size_t)t.rebuilt[o] * w + col] = out_s[o * kOutStride + tid];
+      }
+    }
+  } else {
+#pragma unroll
+    for (int o = 0; o < kRbMax<KB>; ++o) {
+      if (o >= rb) break;  // uniform
+      uint32_t acc = 0;
+#pragma unroll
+      for (int bit = 7; bit >= 0; --bit) {
+        acc = xtime(acc);
+#pragma unroll
+        for (int j = 0; j < KB; ++j) acc ^= x[j] & t.m[o][bit][j];
+      }
+      if (valid) out[(size_t)t.rebuilt[o] * w + col] = acc;
+    }
+  }
+}
+
+// The block's partials of its present slots XORed into `partials`, then,
+// with a ticket, the last block's finalize.
+template <int PB>
+__device__ __forceinline__ void vr_fold(const uint32_t (&h1)[PB], const uint32_t (&h2)[PB],
+                                        const uint8_t* row, int np, int n, uint32_t* s,
+                                        uint32_t* __restrict__ partials,
+                                        unsigned int* __restrict__ ticket, uint32_t nbytes) {
+#pragma unroll
+  for (int j = 0; j < PB; ++j)
+    if (j < np) fold_block(h1[j], h2[j], &s[row[j] * 8]);
+  __syncthreads();
+  for (int i = threadIdx.x; i < n * 8; i += kThreads)
+    if (s[i]) atomicXor(&partials[(size_t)blockIdx.y * n * 8 + i], s[i]);
+  if (ticket != nullptr)  // uniform
+    finalize_if_last(partials, (int)gridDim.y * n * 8, nbytes, ticket);
+}
+
+template <int PB, int QB, bool MXU>
 __global__ void __launch_bounds__(kThreads, kPipeBlocksPerSM)
-verify_reconstruct_mxu_kernel(const uint32_t* __restrict__ shards,
-                              uint32_t* __restrict__ data,
-                              uint32_t* __restrict__ partials,
-                              unsigned int* __restrict__ ticket, int n, int k, int w,
-                              int np, int rb, int ntiles, int tiles_per_block,
-                              uint32_t nbytes, bool aligned, const VrSlots slots,
-                              const uint32_t* __restrict__ amat) {
+verify_reconstruct_pipelined_kernel(const uint32_t* __restrict__ shards,
+                                    uint32_t* __restrict__ data,
+                                    uint32_t* __restrict__ partials,
+                                    unsigned int* __restrict__ ticket, int n,
+                                    int k, int w, int np, int rb, int ntiles,
+                                    int tiles_per_block, uint32_t nbytes,
+                                    const VrParams<QB, MXU> t,
+                                    const uint32_t* __restrict__ amat) {
+  extern __shared__ __align__(16) uint32_t ring[];  // kStages x np x kTile
+  __shared__ uint32_t s[kMaxRows * 8];
+  __shared__ uint8_t s_row[kMaxRows];
+  __shared__ uint32_t out_s[MXU ? QB * kOutStride : 1];
+  const int tid = threadIdx.x;
+  for (int i = tid; i < n * 8; i += kThreads) s[i] = 0;
+  if (tid == 0) {  // constant indices: the parameters stay in the constant bank
+#pragma unroll
+    for (int j = 0; j < kMaxRows; ++j) s_row[j] = t.row[j];
+  }
+  __syncthreads();
+  uint32_t af[MXU ? QB : 1];
+  if constexpr (MXU) load_frags<QB>(amat, af);
+
+  const uint32_t* in = shards + (size_t)blockIdx.y * n * w;
+  uint32_t* out = data + (size_t)blockIdx.y * k * w;
+  const int first = blockIdx.x * tiles_per_block;
+  const int count = min(tiles_per_block, ntiles - first);  // >= 1
+  const int slot_words = np * kTile;
+
+#pragma unroll 1
+  for (int st = 0; st < kStages - 1; ++st) {
+    if (st < count) stage_tile<MXU>(ring + st * slot_words, in, s_row, np, w, first + st);
+    cp_async_commit();
+  }
+
+  uint32_t h1[PB], h2[PB];  // per ring slot
+#pragma unroll
+  for (int j = 0; j < PB; ++j) h1[j] = h2[j] = 0;
+
+#pragma unroll 1
+  for (int i = 0; i < count; ++i) {
+    // tile i + 2's copies go out before tile i is waited for (a same-call
+    // A/B on an H100 against K5's one barrier a tile, staging after the
+    // wait, ran as fast or up to 2.5 % faster this way, PERF.md), so the
+    // slot they fill, read in tile i - 1, is freed by a second barrier
+    const int next = i + kStages - 1;
+    if (next < count)
+      stage_tile<MXU>(ring + (next % kStages) * slot_words, in, s_row, np, w, first + next);
+    cp_async_commit();
+    cp_async_wait<kStages - 1>();  // this thread's copies of tile i landed
+    __syncthreads();  // ... and every other thread's
+    const int col = (first + i) * kTile + tid;
+    vr_tile<PB, QB, MXU, MXU, true>(ring + (i % kStages) * slot_words, t, np, k, rb,
+                                    col < w, hash_key((uint32_t)col), out, w, col, h1, h2,
+                                    out_s, af);
+    __syncthreads();  // the slot is refilled by iteration i + 1
+  }
+  vr_fold<PB>(h1, h2, s_row, np, n, s, partials, ticket, nbytes);
+}
+
+// K4 (and X3 with a word offset): the staging of K1 [mxu] over the np
+// present rows, their copies stored from the staging registers, then
+// vr_tile on the swizzled tile.  Without a ticket the partials stay raw.
+template <int PB, int QB, bool MXU>
+__global__ void __launch_bounds__(kThreads, kPipeBlocksPerSM)
+verify_reconstruct_kernel(const uint32_t* __restrict__ shards, uint32_t* __restrict__ data,
+                          uint32_t* __restrict__ partials, unsigned int* __restrict__ ticket,
+                          int n, int k, int w, int np, int rb, int ntiles,
+                          int tiles_per_block, uint32_t word_offset, uint32_t nbytes,
+                          bool aligned, const VrParams<QB, MXU> t,
+                          const uint32_t* __restrict__ amat) {
   extern __shared__ __align__(16) uint32_t tiles[];  // 2 x np x kTile, swizzled
   __shared__ uint32_t s[kMaxRows * 8];
-  __shared__ uint32_t out_s[RB * kOutStride];
+  __shared__ uint32_t out_s[MXU ? QB * kOutStride : 1];
   __shared__ uint8_t s_row[kMaxRows];  // the slots a thread indexes by its own j
   __shared__ int8_t s_copy[kMaxRows];
-  const int b = blockIdx.y;
   const int tid = threadIdx.x;
   for (int i = tid; i < n * 8; i += kThreads) s[i] = 0;
   if (tid == 0) {  // constant indices: the parameters stay in the constant bank
 #pragma unroll
     for (int j = 0; j < kMaxRows; ++j) {
-      s_row[j] = slots.row[j];
-      s_copy[j] = slots.copy[j];
+      s_row[j] = t.row[j];
+      s_copy[j] = t.copy[j];
     }
   }
   __syncthreads();
-  uint32_t af[RB];
-  load_frags<RB>(amat, af);
+  uint32_t af[MXU ? QB : 1];
+  if constexpr (MXU) load_frags<QB>(amat, af);
 
-  const uint32_t* in = shards + (size_t)b * n * w;
-  uint32_t* out = data + (size_t)b * k * w;
+  const uint32_t* in = shards + (size_t)blockIdx.y * n * w;
+  uint32_t* out = data + (size_t)blockIdx.y * k * w;
   const int first = blockIdx.x * tiles_per_block;
   const int count = min(tiles_per_block, ntiles - first);  // >= 1
   const int slot_words = np * kTile;
@@ -1511,195 +1616,20 @@ verify_reconstruct_mxu_kernel(const uint32_t* __restrict__ shards,
     const int c0 = (first + i) * kTile + 4 * (tid % kChunksPerRow);
     if (c0 < w) {
 #pragma unroll
-      for (int t = 0; t < PB / 4; ++t) {
-        const int j = j0 + 4 * t;
+      for (int q = 0; q < PB / 4; ++q) {
+        const int j = j0 + 4 * q;
         const int d = j < np ? s_copy[j] : -1;
-        if (d >= 0) *reinterpret_cast<uint4*>(out + (size_t)d * w + c0) = x[t];
+        if (d >= 0) *reinterpret_cast<uint4*>(out + (size_t)d * w + c0) = x[q];
       }
     }
     if (i + 1 < count) load_chunks<PB>(row_of, np, w, first + i + 1, aligned, x);
     __syncthreads();  // tile i staged; tile i - 1's buffer and out_s are free
     const int col = (first + i) * kTile + tid;
-    const bool valid = col < w;
-    if (valid) {
-      const uint32_t key = hash_key((uint32_t)col);
-#pragma unroll
-      for (int j = 0; j < PB; ++j)
-        if (j < np)
-          hash_word(cur[j * kTile + (tid ^ (ring_swizzle(j) << 2))], key, h1[j], h2[j]);
-    }
-    if (rb > 0) {  // uniform: the rebuilt rows
-      mxu_ring_tile<RB>(cur, k, rb, out_s, af);
-      __syncwarp();
-      if (valid) {
-#pragma unroll
-        for (int o = 0; o < RB; ++o)
-          if (o < rb) out[(size_t)slots.rebuilt[o] * w + col] = out_s[o * kOutStride + tid];
-      }
-    }
+    vr_tile<PB, QB, MXU, true, false>(cur, t, np, k, rb, col < w,
+                                      hash_key((uint32_t)col + word_offset), out, w, col,
+                                      h1, h2, out_s, af);
   }
-
-#pragma unroll
-  for (int j = 0; j < PB; ++j)
-    if (j < np) fold_block(h1[j], h2[j], &s[slots.row[j] * 8]);
-  __syncthreads();
-  for (int i = tid; i < n * 8; i += kThreads)
-    if (s[i]) atomicXor(&partials[(size_t)b * n * 8 + i], s[i]);
-  finalize_if_last(partials, (int)gridDim.y * n * 8, nbytes, ticket);
-}
-
-// --------------------------------------------------------------------------
-// K6 verify_reconstruct_pipelined: replaces
-// rs_pallas.verify_reconstruct_pipelined (P7).  K4's function on the
-// pipelined design above: the ring holds only the np present rows, in row
-// order (terms.row lists them); slot j's hash registers fold into shard row
-// terms.row[j]'s digest, and absent rows are neither read nor hashed.
-//
-// Bound: bytes (at heal's pattern, EC 8+4, shards 1, 3, 10, 12 gone, the
-// operations come close: 8 present rows hashed, 2 data rows rebuilt in
-// 2 x (7 xtimes + 29 terms) = 86 instructions a column).
-// Design of the product, for the terms the matrix has:
-// * Output data rows that are present are copies: their row of the
-//   reconstruction matrix is a unit vector.  The thread stores them
-//   straight from the ring slot it hashes (terms.copy).
-// * Only the rb rebuilt rows go through the GF product, and each takes it
-//   in Horner form over the coefficient bits: acc = S7; acc = xtime(acc)
-//   ^ S6; ...; ^ S0, where Sb is the XOR of the k survivor words whose
-//   coefficient for that row has bit b set.  The host compiles the masks
-//   once per (present, k) (kernels.vr_terms) into the kernel parameters as
-//   all-ones / zero words, indexed at compile time, so each candidate
-//   term is one LOP3 (acc ^ (x & mask)) plus half a ULDC.64 (the masks
-//   reach uniform registers two at a time), and a rebuilt row costs 7
-//   xtimes + 8k such terms, with no test and no branch per term.  The
-//   function itself needs only the set terms (heal's pattern: 7 xtimes
-//   and 29 terms a row); skipping the others would take a test or a
-//   branch per term, which is what the earlier walk over every candidate
-//   paid.  Static SASS of the <8,8> instantiation (chip_smoke.py's sass
-//   line): the tile loop holds about 186 instructions of staging, wait
-//   and key, 38 per present slot (load, hash, copy) and 8 rebuilt-row
-//   bodies of 141-146, of which a launch runs rb.
-// * The grid, ring and staging stay K5's: at B = 1, 2 blocks per SM of 5
-//   tiles each put 10 tiles on every SM but 8.  Trial builds with 3 to 6
-//   blocks per SM, a 2- or 4-deep ring, or staging from precomputed
-//   per-block chunk offsets ran no faster at B = 1.
-// The mxu instantiation keeps its earlier design: mxu_tile over the 256-
-// column ring slot (one column per thread, which the swar path keeps too)
-// multiplies the first k slots by the (k, k) reconstruction matrix and
-// every data row is stored from out_s; its terms are ignored.
-// --------------------------------------------------------------------------
-
-// Rebuilt rows of a term program: at most min(k, n - k), so 8 for k <= 8
-// and 7 once k > 8 (n <= 16) - which keeps VrTerms<16> inside the 4 KB of
-// kernel parameters.
-template <int KB>
-constexpr int kRbMax = KB <= 4 ? 4 : (KB <= 8 ? 8 : 7);
-
-template <int KB>
-struct VrTerms {
-  uint32_t m[kRbMax<KB>][8][KB];  // ~0u where bit b of (rebuilt o, survivor j) is set
-  uint8_t row[kMaxRows];          // shard row staged in ring slot j
-  int8_t copy[kMaxRows];          // data row slot j is stored to, or -1
-  uint8_t rebuilt[kRbMax<KB>];    // data row of rebuilt output o
-  int rb;                         // rebuilt outputs
-};
-
-template <int PB, int KB, bool MXU>
-__global__ void __launch_bounds__(kThreads, kPipeBlocksPerSM)
-verify_reconstruct_pipelined_kernel(const uint32_t* __restrict__ shards,
-                                    uint32_t* __restrict__ data,
-                                    uint32_t* __restrict__ partials,
-                                    unsigned int* __restrict__ ticket, int n,
-                                    int k, int w, int np, int ntiles,
-                                    int tiles_per_block, uint32_t nbytes,
-                                    const VrTerms<KB> terms,
-                                    const uint32_t* __restrict__ amat) {
-  extern __shared__ __align__(16) uint32_t ring[];  // kStages x np x kTile
-  __shared__ uint32_t s[kMaxRows * 8];
-  __shared__ uint8_t s_row[kMaxRows];
-  __shared__ uint32_t out_s[MXU ? KB * kTile : 1];
-  const int b = blockIdx.y;
-  const int tid = threadIdx.x;
-  for (int i = tid; i < n * 8; i += kThreads) s[i] = 0;
-  if (tid < np) s_row[tid] = terms.row[tid];
-  __syncthreads();
-  uint32_t af[KB];
-  if constexpr (MXU) load_frags<KB>(amat, af);
-
-  const uint32_t* in = shards + (size_t)b * n * w;
-  uint32_t* out = data + (size_t)b * k * w;
-  const int first = blockIdx.x * tiles_per_block;
-  const int count = min(tiles_per_block, ntiles - first);  // >= 1
-  const int slot_words = np * kTile;
-
-#pragma unroll 1
-  for (int st = 0; st < kStages - 1; ++st) {
-    if (st < count) stage_tile(ring + st * slot_words, in, s_row, np, w, first + st);
-    cp_async_commit();
-  }
-
-  uint32_t h1[PB], h2[PB];  // per ring slot
-#pragma unroll
-  for (int j = 0; j < PB; ++j) h1[j] = h2[j] = 0;
-
-#pragma unroll 1
-  for (int i = 0; i < count; ++i) {
-    const int next = i + kStages - 1;
-    if (next < count)
-      stage_tile(ring + (next % kStages) * slot_words, in, s_row, np, w, first + next);
-    cp_async_commit();
-    cp_async_wait<kStages - 1>();
-    __syncthreads();
-    const uint32_t* cur = ring + (i % kStages) * slot_words;
-    const int col = (first + i) * kTile + tid;
-    const bool valid = col < w;
-    const uint32_t key = hash_key((uint32_t)col);
-    uint32_t x[KB];  // the survivors: slots 0 .. k-1
-#pragma unroll
-    for (int j = 0; j < KB; ++j) x[j] = 0;
-#pragma unroll
-    for (int j = 0; j < PB; ++j) {
-      if (j < np) {
-        const uint32_t v = cur[j * kTile + tid];
-        if (valid) hash_word(v, key, h1[j], h2[j]);
-        if (j < KB) x[j] = v;
-        if constexpr (!MXU) {
-          const int d = terms.copy[j];
-          if (d >= 0 && valid) out[(size_t)d * w + col] = v;
-        }
-      }
-    }
-    if constexpr (MXU) {
-      mxu_tile<KB>(cur, kTile, k, out_s, k, af);
-      __syncthreads();
-      if (valid) {
-#pragma unroll
-        for (int o = 0; o < KB; ++o)
-          if (o < k) out[(size_t)o * w + col] = out_s[o * kTile + tid];
-      }
-    } else {
-#pragma unroll
-      for (int o = 0; o < kRbMax<KB>; ++o) {
-        if (o >= terms.rb) break;  // uniform
-        uint32_t acc = 0;
-#pragma unroll
-        for (int bit = 7; bit >= 0; --bit) {
-          acc = xtime(acc);
-#pragma unroll
-          for (int j = 0; j < KB; ++j) acc ^= x[j] & terms.m[o][bit][j];
-        }
-        if (valid) out[(size_t)terms.rebuilt[o] * w + col] = acc;
-      }
-    }
-    __syncthreads();  // the slot is refilled by iteration i + 1
-  }
-
-#pragma unroll
-  for (int j = 0; j < PB; ++j)
-    if (j < np) fold_block(h1[j], h2[j], &s[terms.row[j] * 8]);
-  __syncthreads();
-  for (int i = tid; i < n * 8; i += kThreads)
-    if (s[i]) atomicXor(&partials[(size_t)b * n * 8 + i], s[i]);
-  finalize_if_last(partials, (int)gridDim.y * n * 8, nbytes, ticket);
+  vr_fold<PB>(h1, h2, s_row, np, n, s, partials, ticket, nbytes);
 }
 
 // --------------------------------------------------------------------------
@@ -1764,13 +1694,6 @@ cudaError_t prepare_smem(Kernel kernel, size_t smem) {
                               (int)smem);
 }
 
-GfPlan make_plan(const uint16_t* rm, const uint8_t* nb) {
-  GfPlan p;
-  for (int i = 0; i < kMaxRows * 8; ++i) p.rm[i] = rm[i];
-  for (int i = 0; i < kMaxRows; ++i) p.nb[i] = nb[i];
-  return p;
-}
-
 // The one-time opt-in of a kernel instantiation to `smem` bytes of
 // dynamic shared memory (the most any of its launches takes), per device:
 // cudaFuncSetAttribute is not called again for launches after the first.
@@ -1808,29 +1731,6 @@ cudaError_t launch_encode(int device, dim3 grid, cudaStream_t st, const uint32_t
   return cudaGetLastError();
 }
 
-template <int NB, int OB>
-void launch_vr(dim3 grid, cudaStream_t st, const uint32_t* shards,
-               uint32_t* data, uint32_t* partials, int n, int k, int w,
-               uint32_t present, uint32_t word_offset, int ntiles, int tpb,
-               const GfPlan& plan) {
-  verify_reconstruct_kernel<NB, OB><<<grid, kThreads, 0, st>>>(
-      shards, data, partials, n, k, w, present, word_offset, ntiles, tpb, plan);
-}
-
-template <int PB, int RB>
-cudaError_t launch_vr_mxu(int device, dim3 grid, size_t smem, cudaStream_t st,
-                          const uint32_t* shards, uint32_t* data, uint32_t* acc,
-                          unsigned int* ticket, int n, int k, int w, int np, int rb,
-                          int ntiles, int tpb, uint32_t nbytes, bool aligned,
-                          const VrSlots& slots, const uint32_t* amat) {
-  constexpr size_t kMaxSmem = (size_t)2 * PB * kTile * sizeof(uint32_t);
-  const cudaError_t err = smem_opt_in<verify_reconstruct_mxu_kernel<PB, RB>>(device, kMaxSmem);
-  if (err != cudaSuccess) return err;
-  verify_reconstruct_mxu_kernel<PB, RB><<<grid, kThreads, smem, st>>>(
-      shards, data, acc, ticket, n, k, w, np, rb, ntiles, tpb, nbytes, aligned, slots, amat);
-  return cudaGetLastError();
-}
-
 // K5 swar or [mxu] (amat != nullptr); FK, FM > 0 compile the fixed
 // geometry's k and m in (and its product, for swar).
 template <int KB, int MB, int FK = 0, int FM = 0>
@@ -1857,7 +1757,7 @@ cudaError_t launch_encode_pipelined(int device, dim3 grid, size_t smem, cudaStre
 }
 
 // The term program as kernels.vr_terms packs it: m, row, copy, rebuilt,
-// back to back, terms_bytes<KB>() in all (the entry refuses another size).
+// back to back, terms_bytes<KB>() in all (the entries refuse another size).
 template <int KB>
 constexpr size_t terms_bytes() {
   return sizeof(VrTerms<KB>::m) + sizeof(VrTerms<KB>::row) +
@@ -1865,30 +1765,70 @@ constexpr size_t terms_bytes() {
 }
 
 template <int KB>
-VrTerms<KB> make_terms(const uint8_t* blob, int rb) {
+VrTerms<KB> make_terms(const uint8_t* blob) {
   VrTerms<KB> t;
   memcpy(t.m, blob, sizeof t.m);
   blob += sizeof t.m;
   memcpy(t.row, blob, sizeof t.row);
   memcpy(t.copy, blob + sizeof t.row, sizeof t.copy);
   memcpy(t.rebuilt, blob + sizeof t.row + sizeof t.copy, sizeof t.rebuilt);
-  t.rb = rb;
   return t;
 }
 
-template <int PB, int KB, bool MXU>
-cudaError_t launch_vr_pipelined(dim3 grid, size_t smem, cudaStream_t st,
+// The slots of a term program for bucket(k) == kb, without its masks.
+VrSlots make_slots(const uint8_t* blob, int kb) {
+  const size_t masks = kb == 4 ? sizeof(VrTerms<4>::m)
+                       : kb == 8 ? sizeof(VrTerms<8>::m) : sizeof(VrTerms<16>::m);
+  const int rb_max = kb == 4 ? kRbMax<4> : kb == 8 ? kRbMax<8> : kRbMax<16>;
+  VrSlots sl{};
+  blob += masks;
+  memcpy(sl.row, blob, sizeof sl.row);
+  memcpy(sl.copy, blob + sizeof sl.row, sizeof sl.copy);
+  memcpy(sl.rebuilt, blob + sizeof sl.row + sizeof sl.copy, rb_max);
+  return sl;
+}
+
+// A term program's slots must be the np present rows in order with copies
+// and rebuilt rows inside the k data rows: the kernels index by them.
+bool slots_valid(const VrSlots& sl, int n, int k, int np, int rb, uint32_t present) {
+  for (int j = 0; j < np; ++j)
+    if (sl.row[j] >= n || !((present >> sl.row[j]) & 1u) || sl.copy[j] >= k ||
+        (j > 0 && sl.row[j] <= sl.row[j - 1]))
+      return false;
+  for (int o = 0; o < rb; ++o)
+    if (sl.rebuilt[o] >= k) return false;
+  return true;
+}
+
+template <int PB, int QB, bool MXU>
+cudaError_t launch_vr(int device, dim3 grid, size_t smem, cudaStream_t st,
+                      const uint32_t* shards, uint32_t* data, uint32_t* acc,
+                      unsigned int* ticket, int n, int k, int w, int np, int rb, int ntiles,
+                      int tpb, uint32_t word_offset, uint32_t nbytes, bool aligned,
+                      const VrParams<QB, MXU>& t, const uint32_t* amat) {
+  constexpr size_t kMaxSmem = (size_t)2 * PB * kTile * sizeof(uint32_t);
+  const cudaError_t err =
+      smem_opt_in<verify_reconstruct_kernel<PB, QB, MXU>>(device, kMaxSmem);
+  if (err != cudaSuccess) return err;
+  verify_reconstruct_kernel<PB, QB, MXU><<<grid, kThreads, smem, st>>>(
+      shards, data, acc, ticket, n, k, w, np, rb, ntiles, tpb, word_offset, nbytes, aligned,
+      t, amat);
+  return cudaGetLastError();
+}
+
+template <int PB, int QB, bool MXU>
+cudaError_t launch_vr_pipelined(int device, dim3 grid, size_t smem, cudaStream_t st,
                                 const uint32_t* shards, uint32_t* data,
                                 uint32_t* partials, unsigned int* ticket, int n,
-                                int k, int w, int np, int ntiles, int tpb,
-                                uint32_t nbytes, const VrTerms<KB>& terms,
+                                int k, int w, int np, int rb, int ntiles, int tpb,
+                                uint32_t nbytes, const VrParams<QB, MXU>& t,
                                 const uint32_t* amat) {
+  constexpr size_t kMaxSmem = (size_t)kStages * PB * kTile * sizeof(uint32_t);
   const cudaError_t err =
-      prepare_smem(verify_reconstruct_pipelined_kernel<PB, KB, MXU>, smem);
+      smem_opt_in<verify_reconstruct_pipelined_kernel<PB, QB, MXU>>(device, kMaxSmem);
   if (err != cudaSuccess) return err;
-  verify_reconstruct_pipelined_kernel<PB, KB, MXU><<<grid, kThreads, smem, st>>>(
-      shards, data, partials, ticket, n, k, w, np, ntiles, tpb, nbytes, terms,
-      amat);
+  verify_reconstruct_pipelined_kernel<PB, QB, MXU><<<grid, kThreads, smem, st>>>(
+      shards, data, partials, ticket, n, k, w, np, rb, ntiles, tpb, nbytes, t, amat);
   return cudaGetLastError();
 }
 
@@ -2117,85 +2057,56 @@ int mtt_gf_matmul(const GfMatmulArgs* a) {
   return (int)cudaGetLastError();
 }
 
-// K4 swar: shards (B, n, w), the (k, n) plan of the expanded
-// reconstruction matrix and the present-row bitmask -> data (B, k, w),
-// and the partials of the present rows XORed into `partials` (B, n, 8)
-// with the hash key of column c taken at c + word_offset.  With finalize
-// != 0 they are then finalized in place (zeroed on entry: the digests;
-// absent rows get the finalize of zero partials).
-int mtt_verify_reconstruct(int device, const uint32_t* shards, uint32_t* data,
-                           uint32_t* partials, int B, int n, int k, int w,
-                           uint32_t present, uint32_t nbytes,
-                           uint32_t word_offset, int finalize,
-                           int tiles_per_block, const uint16_t* rm,
-                           const uint8_t* nb, void* stream) {
-  if (n < 1 || n > kMaxRows || k < 1 || k > n || w <= 0 ||
-      tiles_per_block < 1 || B <= 0 || B > 65535 || (present >> n) != 0u ||
-      word_offset % 4 != 0)
-    return (int)cudaErrorInvalidValue;
-  cudaError_t err = cudaSetDevice(device);
-  if (err != cudaSuccess) return (int)err;
-  cudaStream_t st = (cudaStream_t)stream;
-  const GfPlan plan = make_plan(rm, nb);
-  const int ntiles = (w + kTile - 1) / kTile;
-  dim3 grid((ntiles + tiles_per_block - 1) / tiles_per_block, B);
-  const int nbk = bucket(n), ob = bucket(k);
-#define MTT_VR(NB_, OB_)                                                  \
-  if (nbk == NB_ && ob == OB_)                                            \
-    launch_vr<NB_, OB_>(grid, st, shards, data, partials, n, k, w, present, \
-                        word_offset, ntiles, tiles_per_block, plan);
-  MTT_VR(4, 4)
-  MTT_VR(8, 4) MTT_VR(8, 8)
-  MTT_VR(16, 4) MTT_VR(16, 8) MTT_VR(16, 16)
-#undef MTT_VR
-  err = cudaGetLastError();
-  if (err != cudaSuccess) return (int)err;
-  if (!finalize) return (int)cudaSuccess;
-  const int count = B * n * 8;
-  finalize_kernel<<<(count + kThreads - 1) / kThreads, kThreads, 0, st>>>(
-      partials, count, nbytes);
-  return (int)cudaGetLastError();
-}
-
-// The arguments of one K4 [mxu] launch, packed by kernels.py
-// (_VR_MXU_ARGS: 5 addresses, 8 ints, 2 u32, then the VrSlots bytes).
-struct VrMxuArgs {
-  uint64_t shards, data, acc, amat, stream;
-  int32_t device, B, n, k, w, np, rb, tiles_per_block;
-  uint32_t present, nbytes;
-  VrSlots slots;
+// The arguments of one K4 launch, packed by kernels.py (_VR_ARGS: 7
+// addresses, 10 ints, 3 u32, 4 bytes of padding).
+struct VrArgs {
+  uint64_t shards, data, acc, ticket, terms, amat, stream;
+  int32_t device, B, n, k, w, np, rb, tiles_per_block, terms_len, zero_acc;
+  uint32_t present, nbytes, word_offset;
 };
-static_assert(sizeof(VrMxuArgs) == 120, "kernels._VR_MXU_ARGS packs 120 bytes");
+static_assert(sizeof(VrArgs) == 112, "kernels._VR_ARGS packs 112 bytes");
 
-// K4 [mxu]: mtt_verify_reconstruct's outputs (finalize always on) from
-// one memset and one launch.  `data` (B, k, w) must be 16-byte aligned
-// (the copies are 16-byte stores) and w % 4 == 0; `acc` holds the (B, n,
-// 8) digests and then the one-word last-block ticket, zeroed here.  The
-// np present rows of the `present` mask are slots.row[0 .. np), the
-// survivors first; `amat` is the (rb, k) matrix of the rebuilt rows in
+// K4, swar or [mxu] (amat != nullptr): shards (B, n, w), w % 4 == 0 ->
+// data (B, k, w) rebuilt from the first k present rows (16-byte aligned:
+// the copies are 16-byte stores), and the phash256 partials of the np
+// present rows XORed into `acc` (B, n, 8) with the hash key of column c
+// taken at c + word_offset.  zero_acc != 0 zeroes `acc` first (else the
+// partials accumulate onto it, as a sub-chunk chain does).  A non-null
+// `ticket` (zeroed here) makes the last block finalize the partials in
+// place: the digests (absent rows get the finalize of zero partials); with
+// a null one they stay raw.  The whole-row call passes ticket == acc +
+// B*n*8, so one memset zeroes both.  `terms` is the term program
+// kernels.vr_terms packs per (present, k) (terms_bytes<bucket(k)>() long,
+// rb rebuilt rows); `amat` the (rb, k) matrix of the rebuilt rows in
 // kernels.mxu_fragments order.  tiles_per_block comes from
-// kernels.pipelined_grid.
-int mtt_verify_reconstruct_mxu(const VrMxuArgs* a) {
-  const VrSlots& sl = a->slots;
+// kernels.pipelined_grid.  Returns the first non-zero CUDA error.
+int mtt_verify_reconstruct(const VrArgs* a) {
   const int device = a->device, B = a->B, n = a->n, k = a->k, w = a->w, np = a->np,
             rb = a->rb, tiles_per_block = a->tiles_per_block;
-  bool ok = n >= 1 && n <= kMaxRows && k >= 1 && k <= np && w > 0 && w % 4 == 0 &&
-            tiles_per_block >= 1 && B > 0 && B <= 65535 && (a->present >> n) == 0u &&
-            __builtin_popcount(a->present) == np && rb >= 0 && rb <= kRebuiltMax &&
-            rb <= k && a->amat != 0 && (a->data & 15u) == 0;
-  for (int j = 0; ok && j < np; ++j)
-    ok = sl.row[j] < n && ((a->present >> sl.row[j]) & 1u) && sl.copy[j] < k &&
-         (j == 0 || sl.row[j] > sl.row[j - 1]);
-  for (int o = 0; ok && o < rb; ++o) ok = sl.rebuilt[o] < k;
-  if (!ok) return (int)cudaErrorInvalidValue;
+  const uint8_t* blob = reinterpret_cast<const uint8_t*>(a->terms);
+  const int kbk = bucket(k);
+  const size_t want = kbk == 4 ? terms_bytes<4>() : kbk == 8 ? terms_bytes<8>() : terms_bytes<16>();
+  const int rb_max = kbk == 4 ? kRbMax<4> : kbk == 8 ? kRbMax<8> : kRbMax<16>;
+  if (n < 1 || n > kMaxRows || k < 1 || k > np || w <= 0 || w % 4 != 0 ||
+      tiles_per_block < 1 || B <= 0 || B > 65535 || (a->present >> n) != 0u ||
+      __builtin_popcount(a->present) != np || rb < 0 || rb > rb_max || rb > k ||
+      a->word_offset % 4 != 0 || (a->data & 15u) != 0 || blob == nullptr ||
+      (size_t)a->terms_len != want)
+    return (int)cudaErrorInvalidValue;
+  const VrSlots sl = make_slots(blob, kbk);
+  if (!slots_valid(sl, n, k, np, rb, a->present)) return (int)cudaErrorInvalidValue;
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return (int)err;
   cudaStream_t st = reinterpret_cast<cudaStream_t>(a->stream);
   uint32_t* acc = reinterpret_cast<uint32_t*>(a->acc);
+  unsigned int* ticket = reinterpret_cast<unsigned int*>(a->ticket);
   const size_t count = (size_t)B * n * 8;
-  err = cudaMemsetAsync(acc, 0, (count + 1) * sizeof(uint32_t), st);
+  const bool joint = ticket == reinterpret_cast<unsigned int*>(acc + count);
+  if (a->zero_acc)
+    err = cudaMemsetAsync(acc, 0, (count + (joint ? 1 : 0)) * sizeof(uint32_t), st);
+  if (err == cudaSuccess && ticket != nullptr && !(a->zero_acc && joint))
+    err = cudaMemsetAsync(ticket, 0, sizeof(unsigned int), st);
   if (err != cudaSuccess) return (int)err;
-  unsigned int* ticket = reinterpret_cast<unsigned int*>(acc + count);
   const int ntiles = (w + kTile - 1) / kTile;
   dim3 grid((ntiles + tiles_per_block - 1) / tiles_per_block, B);
   const size_t smem = (size_t)2 * np * kTile * sizeof(uint32_t);
@@ -2203,15 +2114,27 @@ int mtt_verify_reconstruct_mxu(const VrMxuArgs* a) {
   uint32_t* data = reinterpret_cast<uint32_t*>(a->data);
   const uint32_t* amat = reinterpret_cast<const uint32_t*>(a->amat);
   const bool aligned = (a->shards & 15u) == 0;
-  const int pbk = bucket(np), rbk = rb <= 4 ? 4 : 8;
+  const int pbk = bucket(np);
   err = cudaErrorInvalidValue;
-#define MTT_VRM(PB_, RB_)                                                       \
-  if (pbk == PB_ && rbk == RB_)                                                 \
-    err = launch_vr_mxu<PB_, RB_>(device, grid, smem, st, shards, data, acc,    \
-                                  ticket, n, k, w, np, rb, ntiles,              \
-                                  tiles_per_block, a->nbytes, aligned, sl, amat);
-  MTT_VRM(4, 4) MTT_VRM(8, 4) MTT_VRM(8, 8) MTT_VRM(16, 4) MTT_VRM(16, 8)
+  if (amat) {
+    const int rbk = rb <= 4 ? 4 : 8;
+#define MTT_VRM(PB_, RB_)                                                           \
+  if (pbk == PB_ && rbk == RB_)                                                     \
+    err = launch_vr<PB_, RB_, true>(device, grid, smem, st, shards, data, acc, ticket, \
+                                    n, k, w, np, rb, ntiles, tiles_per_block,       \
+                                    a->word_offset, a->nbytes, aligned, sl, amat);
+    MTT_VRM(4, 4) MTT_VRM(8, 4) MTT_VRM(8, 8) MTT_VRM(16, 4) MTT_VRM(16, 8)
 #undef MTT_VRM
+  } else {
+#define MTT_VRS(PB_, KB_)                                                           \
+  if (pbk == PB_ && kbk == KB_)                                                     \
+    err = launch_vr<PB_, KB_, false>(device, grid, smem, st, shards, data, acc,     \
+                                     ticket, n, k, w, np, rb, ntiles,               \
+                                     tiles_per_block, a->word_offset, a->nbytes,    \
+                                     aligned, make_terms<KB_>(blob), nullptr);
+    MTT_VRS(4, 4) MTT_VRS(8, 4) MTT_VRS(8, 8) MTT_VRS(16, 4) MTT_VRS(16, 8) MTT_VRS(16, 16)
+#undef MTT_VRS
+  }
   return (int)err;
 }
 
@@ -2222,7 +2145,8 @@ int mtt_verify_reconstruct_mxu(const VrMxuArgs* a) {
 // packs per (present, k) - the (kRbMax, 8, bucket(k)) rebuilt-row masks,
 // the 16 staged rows, the 16 copy targets, the kRbMax rebuilt rows - with
 // `rb` rebuilt rows.  Takes w % 4 == 0 with 16-byte aligned rows; a
-// non-null `amat` selects the mxu product.
+// non-null `amat` (the (rb, k) matrix of the rebuilt rows in
+// kernels.mxu_fragments order) selects the mxu product.
 int mtt_verify_reconstruct_pipelined(int device, const uint32_t* shards,
                                      uint32_t* data, uint32_t* acc, int B,
                                      int n, int k, int w, uint32_t present,
@@ -2235,11 +2159,14 @@ int mtt_verify_reconstruct_pipelined(int device, const uint32_t* shards,
   const bool t4 = kbk == 4, t8 = kbk == 8;
   if (n < 1 || n > kMaxRows || k < 1 || k > np || w <= 0 || w % 4 != 0 ||
       tiles_per_block < 1 || B <= 0 || B > 65535 || (present >> n) != 0u ||
-      rb < 0 || rb > (t4 ? kRbMax<4> : t8 ? kRbMax<8> : kRbMax<16>) ||
+      rb < 0 || rb > k || rb > (t4 ? kRbMax<4> : t8 ? kRbMax<8> : kRbMax<16>) ||
+      terms == nullptr ||
       (size_t)terms_len != (t4 ? terms_bytes<4>() : t8 ? terms_bytes<8>()
                                                     : terms_bytes<16>()) ||
       ((uintptr_t)shards & 15u) != 0)
     return (int)cudaErrorInvalidValue;
+  const VrSlots sl = make_slots(terms, kbk);
+  if (!slots_valid(sl, n, k, np, rb, present)) return (int)cudaErrorInvalidValue;
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return (int)err;
   cudaStream_t st = (cudaStream_t)stream;
@@ -2251,20 +2178,25 @@ int mtt_verify_reconstruct_pipelined(int device, const uint32_t* shards,
   dim3 grid((ntiles + tiles_per_block - 1) / tiles_per_block, B);
   const size_t smem = (size_t)kStages * np * kTile * sizeof(uint32_t);
   err = cudaErrorInvalidValue;
+  if (amat) {
+    const int rbk = rb <= 4 ? 4 : 8;
+#define MTT_VRPM(PB_, RB_)                                                     \
+  if (pbk == PB_ && rbk == RB_)                                                \
+    err = launch_vr_pipelined<PB_, RB_, true>(device, grid, smem, st, shards,  \
+                                              data, acc, ticket, n, k, w, np,  \
+                                              rb, ntiles, tiles_per_block,     \
+                                              nbytes, sl, amat);
+    MTT_VRPM(4, 4) MTT_VRPM(8, 4) MTT_VRPM(8, 8) MTT_VRPM(16, 4) MTT_VRPM(16, 8)
+#undef MTT_VRPM
+  } else {
 #define MTT_VRP(PB_, KB_)                                                      \
-  if (pbk == PB_ && kbk == KB_) {                                              \
-    const VrTerms<KB_> t = make_terms<KB_>(terms, rb);                         \
-    err = amat ? launch_vr_pipelined<PB_, KB_, true>(                          \
-                     grid, smem, st, shards, data, acc, ticket, n, k, w, np,   \
-                     ntiles, tiles_per_block, nbytes, t, amat)                 \
-               : launch_vr_pipelined<PB_, KB_, false>(                         \
-                     grid, smem, st, shards, data, acc, ticket, n, k, w, np,   \
-                     ntiles, tiles_per_block, nbytes, t, amat);                \
-  }
-  MTT_VRP(4, 4)
-  MTT_VRP(8, 4) MTT_VRP(8, 8)
-  MTT_VRP(16, 4) MTT_VRP(16, 8) MTT_VRP(16, 16)
+  if (pbk == PB_ && kbk == KB_)                                                \
+    err = launch_vr_pipelined<PB_, KB_, false>(                                \
+        device, grid, smem, st, shards, data, acc, ticket, n, k, w, np, rb,    \
+        ntiles, tiles_per_block, nbytes, make_terms<KB_>(terms), nullptr);
+    MTT_VRP(4, 4) MTT_VRP(8, 4) MTT_VRP(8, 8) MTT_VRP(16, 4) MTT_VRP(16, 8) MTT_VRP(16, 16)
 #undef MTT_VRP
+  }
   return (int)err;
 }
 
@@ -2305,7 +2237,7 @@ const char* mtt_constants() {
       "bucket=%d,%d,%d,%d,%d,%d,%d,%d,%d,%d,%d,%d,%d,%d,%d,%d "
       "rb_max=%d,%d,%d vr_terms_bytes=%d,%d,%d gf_terms_bytes=%d "
       "encode_args_bytes=%d encode_pipe_args_bytes=%d gf_args_bytes=%d "
-      "vr_mxu_args_bytes=%d rebuilt_max=%d "
+      "vr_args_bytes=%d rebuilt_max=%d "
       "ring_swizzle=%d,%d,%d,%d fixed=%s",
       kTile, kMaxRows, kPhashRows, kPhashBlocksPerSM, kPipeBlocksPerSM,
       kEncBlocksPerSM, kGfBlocksPerSM, bucket(1), bucket(2), bucket(3), bucket(4), bucket(5),
@@ -2313,7 +2245,7 @@ const char* mtt_constants() {
       bucket(12), bucket(13), bucket(14), bucket(15), bucket(16), kRbMax<4>,
       kRbMax<8>, kRbMax<16>, (int)terms_bytes<4>(), (int)terms_bytes<8>(),
       (int)terms_bytes<16>(), (int)gf_terms_bytes(), (int)sizeof(EncodeArgs),
-      (int)sizeof(EncodePipeArgs), (int)sizeof(GfMatmulArgs), (int)sizeof(VrMxuArgs),
+      (int)sizeof(EncodePipeArgs), (int)sizeof(GfMatmulArgs), (int)sizeof(VrArgs),
       kRebuiltMax, ring_swizzle(0),
       ring_swizzle(4), ring_swizzle(8), ring_swizzle(12),
       "" MTT_FIXED_GEOMETRIES(MTT_FIXED_STR));

@@ -23,12 +23,15 @@ Seven kernels, all in ``csrc/codec.cu`` (CUDA C++ for ``sm_90a``):
   product of ``gf_terms`` (made once per (matrix, rows)).
 * ``verify_reconstruct`` (K4) replaces ``rs_pallas.verify_reconstruct_fused``
   (P5): finalized digests of the present rows of a (B, n, w) batch and
-  the k data rows rebuilt from the first k present rows, in one pass.
-  ``verify_reconstruct_subchunk`` is its sub-chunk form, the GPU body of
-  ``codec_step.verify_reconstruct_subchunk_words`` (X3).  Its mxu kernel
-  copies the present data rows and multiplies only the rebuilt ones
-  (``_mxu_rebuilt_operand``), in one launch that finalizes in its last
-  block (``_vr_mxu_plan``).
+  the k data rows rebuilt from the first k present rows, in one pass that
+  copies the present data rows and rebuilds only the others (the term
+  program of ``vr_terms``; under mxu ``_mxu_rebuilt_operand``), in one
+  launch that finalizes in its last block.  ``verify_reconstruct_subchunk``
+  is its sub-chunk form, the GPU body of
+  ``codec_step.verify_reconstruct_subchunk_words`` (X3): a chunk at a
+  global word offset, XOR-accumulating into the caller's partials,
+  finalizing only on the last chunk.  Both take a plan per call shape
+  (``_vr_plan``).
 * ``encode_pack_pipelined`` (K5) replaces ``rs_pallas.encode_pack_pipelined``
   (P6) and ``verify_reconstruct_pipelined`` (K6) replaces
   ``rs_pallas.verify_reconstruct_pipelined`` (P7): K1's and K4's
@@ -36,15 +39,16 @@ Seven kernels, all in ``csrc/codec.cu`` (CUDA C++ for ``sm_90a``):
   ring with ``cp.async`` and finalizes in its last block.  K5 runs K1's
   product (``fixed_source``, ``parity_terms``) from the ring slot, its
   mxu kernel a product of its own on a swizzled ring (``ring_swizzle``);
-  K6 copies the present data rows and rebuilds the others from a term
-  program made once per (present, k) (``vr_terms``).
+  K6 copies the present data rows and rebuilds the others from the term
+  program made once per (present, k) (``vr_terms``), its mxu kernel from
+  the rebuilt rows' operand (``_mxu_rebuilt_operand``).
 * ``gf_matmul_mxu`` (K7) replaces ``rs_pallas.gf_matmul_mxu`` (P3): a
   runtime (o, s) GF(2^8) matrix over (s, length) uint8 shards through a
   1-bit tensor-core product of the lifted (8o, 8s) GF(2) matrix.
 
 ``formulation="mxu"`` (MINIO_TPU_CODEC_FORMULATION) on K1, K4, K5 and K6
 swaps their xtime chain for the same tensor-core product (the ``mxu``
-kernels; K1, K4 and K5 on a swizzled tile, ``ring_swizzle``), as
+kernels, on a swizzled tile, ``ring_swizzle``), as
 ``_mxu_rows`` replaces ``_swar_rows`` inside P4-P7; their outputs are bit
 for bit the ``swar`` ones.  The lifted matrix reaches the kernel as a small
 device tensor in the product's operand order (``_mxu_operand``), cached
@@ -203,8 +207,8 @@ def _load():
         if _lib is None:
             lib = ctypes.CDLL(str(build()))
             P, I, U = ctypes.c_void_p, ctypes.c_int, ctypes.c_uint32
-            # K1, K3, K5 and K4 [mxu] take one packed argument struct
-            # (_ENCODE_ARGS, _GF_ARGS, _ENCODE_PIPE_ARGS, _VR_MXU_ARGS):
+            # K1, K3, K4 and K5 take one packed argument struct
+            # (_ENCODE_ARGS, _GF_ARGS, _VR_ARGS, _ENCODE_PIPE_ARGS):
             # ctypes converts one argument, not 13-20.  In K6 the pointer
             # before the stream is the mxu operand (None: the swar
             # instantiation).
@@ -212,10 +216,7 @@ def _load():
             lib.mtt_encode_pack_pipelined.argtypes = [ctypes.c_char_p]
             lib.mtt_phash256.argtypes = [I, P, P, I, I, U, I, I, P]
             lib.mtt_gf_matmul.argtypes = [ctypes.c_char_p]
-            lib.mtt_verify_reconstruct.argtypes = [
-                I, P, P, P, I, I, I, I, U, U, U, I, I, P, P, P,
-            ]
-            lib.mtt_verify_reconstruct_mxu.argtypes = [ctypes.c_char_p]
+            lib.mtt_verify_reconstruct.argtypes = [ctypes.c_char_p]
             lib.mtt_verify_reconstruct_pipelined.argtypes = [
                 I, P, P, P, I, I, I, I, U, U, I, P, I, I, P, P,
             ]
@@ -223,7 +224,6 @@ def _load():
             for fn in (lib.mtt_encode_pack, lib.mtt_encode_pack_pipelined,
                        lib.mtt_phash256, lib.mtt_gf_matmul,
                        lib.mtt_verify_reconstruct,
-                       lib.mtt_verify_reconstruct_mxu,
                        lib.mtt_verify_reconstruct_pipelined,
                        lib.mtt_gf_matmul_mxu):
                 fn.restype = ctypes.c_int
@@ -249,7 +249,7 @@ def _constants() -> dict:
         "encode_args_bytes": (_ENCODE_ARGS.size,),
         "encode_pipe_args_bytes": (_ENCODE_PIPE_ARGS.size,),
         "gf_args_bytes": (_GF_ARGS.size,),
-        "vr_mxu_args_bytes": (_VR_MXU_ARGS.size,), "rebuilt_max": (_REBUILT_MAX,),
+        "vr_args_bytes": (_VR_ARGS.size,), "rebuilt_max": (_REBUILT_MAX,),
         "ring_swizzle": tuple(ring_swizzle(r) for r in (0, 4, 8, 12)),
         "fixed": tuple(f"{k}x{m}" for k, m in FIXED_GEOMETRIES),
     }
@@ -318,12 +318,6 @@ def _rows_view(acc: torch.Tensor, lead: "tuple[int, ...]") -> torch.Tensor:
     return acc.as_strided(*_rows_layout(lead))
 
 
-def _tiles_per_block(ntiles: int, rows: int, sms: int) -> int:
-    """Tiles a K4 swar block walks: short runs over about 8 blocks per
-    SM, and fewer global atomics per digest word as the grid grows."""
-    return max(1, min(8, (ntiles * rows) // (sms * 8)))
-
-
 @functools.lru_cache(maxsize=8)
 def sm_count(device: torch.device) -> int:
     """Streaming multiprocessors of a CUDA device."""
@@ -342,7 +336,7 @@ def _persistent_grid(B: int, w: int, resident: int) -> "tuple[int, int]":
 
 @functools.lru_cache(maxsize=1024)
 def pipelined_grid(B: int, w: int, sms: int) -> "tuple[int, int]":
-    """The persistent grid of K6 and of the mxu kernels of K1, K4 and K5:
+    """The persistent grid of K4, K6 and of the mxu kernels of K1 and K5:
     ``_PIPE_BLOCKS_PER_SM`` blocks per SM, the residency their
     ``__launch_bounds__`` hold."""
     return _persistent_grid(B, w, sms * _PIPE_BLOCKS_PER_SM)
@@ -388,7 +382,8 @@ def pipeline_windows(B: int, w: int, sms: int, encode: bool = False,
 
 
 def ring_swizzle(row: int) -> int:
-    """The chunk swizzle of K5 [mxu]'s ring (``ring_swizzle`` in codec.cu):
+    """The chunk swizzle of the mxu kernels' rings and of K4's staged tile
+    (``ring_swizzle`` in codec.cu):
     16-byte chunk c of ring row ``row`` lies at chunk c ^ ring_swizzle(row)
     of the slot's row, so that the warp's 16-byte B-operand loads of rows
     4 tig + i meet 8 different quads of banks."""
@@ -405,33 +400,8 @@ def phash_grid(R: int, w: int, sms: int) -> int:
     return max(1, min(tiles, -(-blocks // (sms * _PHASH_BLOCKS_PER_SM))))
 
 
-@functools.lru_cache(maxsize=256)
-def _plan(matrix_key: bytes, o: int, s: int):
-    """ctypes buffers of K4's GfPlan for one (o, s) matrix."""
-    matrix = np.frombuffer(matrix_key, dtype=np.uint8).reshape(o, s)
-    rm = np.zeros(_MAX_ROWS * 8, dtype=np.uint16)
-    for c in range(s):
-        for b in range(8):
-            bits = 0
-            for r in range(o):
-                if (int(matrix[r, c]) >> b) & 1:
-                    bits |= 1 << r
-            rm[c * 8 + b] = bits
-    nb = np.zeros(_MAX_ROWS, dtype=np.uint8)
-    nb[:s] = rs.need_bits(matrix)
-    return (
-        (ctypes.c_uint16 * len(rm))(*rm.tolist()),
-        (ctypes.c_uint8 * len(nb))(*nb.tolist()),
-    )
-
-
-def _matrix_plan(matrix: np.ndarray):
-    m = np.ascontiguousarray(matrix, dtype=np.uint8)
-    return _plan(m.tobytes(), m.shape[0], m.shape[1])
-
-
 # ---------------------------------------------------------------------------
-# term programs (K1, K3, K6): the GF product in Horner form
+# term programs (K1, K3, K4, K6): the GF product in Horner form
 # ---------------------------------------------------------------------------
 
 
@@ -488,11 +458,11 @@ _GF_ARGS = struct.Struct("<4Q9i4x")
 # stream addresses; device, B, k, m, w, group, tiles_per_block,
 # terms_len; nbytes.
 _ENCODE_PIPE_ARGS = struct.Struct("<8Q8iI4x")
-# K4 [mxu]'s (VrMxuArgs): shards, data, acc, amat, stream addresses;
-# device, B, n, k, w, np, rb, tiles_per_block; present, nbytes; then the
-# VrSlots: row (16 bytes), copy (16), rebuilt (_REBUILT_MAX).
-_REBUILT_MAX = 8  # rebuilt rows of K4 [mxu] (kRebuiltMax): min(k, n - k) <= 8
-_VR_MXU_ARGS = struct.Struct(f"<5Q8i2I16s16s{_REBUILT_MAX}s")
+# K4's (VrArgs): shards, data, acc, ticket, terms, amat, stream addresses;
+# device, B, n, k, w, np, rb, tiles_per_block, terms_len, zero_acc;
+# present, nbytes, word_offset.
+_VR_ARGS = struct.Struct("<7Q10i3I4x")
+_REBUILT_MAX = 8  # rebuilt rows of the mxu product (kRebuiltMax): min(k, n - k) <= 8
 
 
 @dataclasses.dataclass(frozen=True, eq=False)
@@ -612,7 +582,7 @@ def _mxu_tensor(matrix_key: bytes, o: int, s: int, device: str) -> torch.Tensor:
 def _mxu_operand(matrix: np.ndarray, device: torch.device) -> torch.Tensor:
     """mxu_fragments(matrix) as a device tensor, made once per matrix and
     device (the kernels read it from global memory: at 16 rows the
-    operand is 2 KiB, the kernel parameters already hold the GfPlan)."""
+    operand is 2 KiB)."""
     m = np.ascontiguousarray(matrix, dtype=np.uint8)
     return _mxu_tensor(m.tobytes(), m.shape[0], m.shape[1], str(device))
 
@@ -1053,8 +1023,7 @@ def verify_reconstruct_subchunk_plain(chunk: torch.Tensor, acc: torch.Tensor,
     return data, acc
 
 
-def _check_vr(shards: torch.Tensor, present, k: int) -> None:
-    n, w = shards.shape[1], shards.shape[2]
+def _check_vr(n: int, w: int, present, k: int) -> None:
     if len(present) != n:
         raise ValueError(f"present has {len(present)} rows, shards {n}")
     if not 1 <= k <= n <= _MAX_ROWS:
@@ -1063,36 +1032,24 @@ def _check_vr(shards: torch.Tensor, present, k: int) -> None:
         raise ValueError(f"word count {w} must be a multiple of 4")
 
 
-@functools.lru_cache(maxsize=1024)
-def _vr_plan(present: "tuple[bool, ...]", k: int):
-    """K4's plan, indexed by shard row, made once per (present, k):
-    survivors carry their column of the reconstruction matrix, every
-    other row an empty chain; with the present rows' bitmask."""
-    n = len(present)
-    idx = _survivors(present, k)
-    full = np.zeros((k, n), dtype=np.uint8)
-    full[:, list(idx)] = gf.reconstruction_matrix(k, n - k, idx)
-    rm, nb = _matrix_plan(full)
-    return rm, nb, sum(1 << i for i, p in enumerate(present) if p)
-
-
 def _bucket(v: int) -> int:
-    """The kernels' row bucket (``bucket`` in codec.cu; the K6 entry
-    refuses a term program sized for another)."""
+    """The kernels' row bucket (``bucket`` in codec.cu; the K4 and K6
+    entries refuse a term program sized for another)."""
     return 4 if v <= 4 else (8 if v <= 8 else 16)
 
 
 def _rb_max(kb: int) -> int:
-    """Rebuilt rows a K6 term program holds (``kRbMax`` in codec.cu; the
-    entry checks the program's size against its own)."""
+    """Rebuilt rows a K4 / K6 term program holds (``kRbMax`` in codec.cu;
+    the entries check the program's size against their own)."""
     return {4: 4, 8: 8, 16: 7}[kb]
 
 
 @dataclasses.dataclass(frozen=True, eq=False)
 class VrTerms:
-    """K6's term program for one (present, k), made once by ``vr_terms``.
+    """K4's and K6's term program for one (present, k), made once by
+    ``vr_terms``.
 
-    Ring slot j holds present row ``rows[j]``; slots 0 .. k-1 are the
+    Tile slot j holds present row ``rows[j]``; slots 0 .. k-1 are the
     survivors.  A slot whose row is a data row is stored straight to that
     data row (``copy[j]``, else -1).  Data row ``rebuilt[o]`` is the GF
     product of the survivors with row ``rebuilt[o]`` of the reconstruction
@@ -1112,14 +1069,14 @@ class VrTerms:
 
 
 def _vr_terms_bytes(kb: int) -> int:
-    """The packed size of a K6 term program (``terms_bytes<KB>()`` in
-    codec.cu; the entry refuses another): masks, row, copy, rebuilt."""
+    """The packed size of a K4 / K6 term program (``terms_bytes<KB>()`` in
+    codec.cu; the entries refuse another): masks, row, copy, rebuilt."""
     return 4 * _rb_max(kb) * 8 * kb + 2 * _MAX_ROWS + _rb_max(kb)
 
 
 @functools.lru_cache(maxsize=1024)
 def vr_terms(present: "tuple[bool, ...]", k: int) -> VrTerms:
-    """K6's term program (``VrTerms``), compiled once per (present, k)
+    """K4's and K6's term program (``VrTerms``), compiled once per (present, k)
     from the reconstruction matrix's term program (``_gf_program``): its
     copies are the present data rows, its product rows the absent ones."""
     n = len(present)
@@ -1144,6 +1101,81 @@ def vr_terms(present: "tuple[bool, ...]", k: int) -> VrTerms:
     return VrTerms(sum(1 << i for i in rows), rows, copy, rebuilt, masks, blob)
 
 
+@functools.lru_cache(maxsize=256)
+def _mxu_rebuilt_operand(present: "tuple[bool, ...]", k: int,
+                         device) -> torch.Tensor:
+    """The A operand of K4 [mxu] and K6 [mxu], made once per (present, k,
+    device): the rows of the reconstruction matrix over the first k
+    present rows that are rebuilt (``vr_terms(present, k).rebuilt``),
+    (rb, k), in ``mxu_fragments`` order.  The present data rows are copies
+    and take none."""
+    idx = _survivors(present, k)
+    rmat = gf.reconstruction_matrix(k, len(present) - k, idx)
+    return _mxu_operand(rmat[list(vr_terms(present, k).rebuilt)], device)
+
+
+@dataclasses.dataclass(frozen=True, eq=False)
+class _VrPlan:
+    """K4's launch constants for one call shape (``_vr_plan``): the term
+    program (slots, copies, rebuilt rows and their masks), the mxu
+    operand, the grid, and where data, digests (whole rows) and the ticket
+    lie in the call's one buffer."""
+
+    terms: VrTerms
+    operand: "torch.Tensor | None"  # _mxu_rebuilt_operand (mxu), else None
+    amat: int  # its address, or 0 (swar)
+    tiles_per_block: int
+    np: int  # present rows: the tile's slots
+    rb: int  # rebuilt rows
+    buf_words: int  # data, [digests,] ticket
+    acc_off: int  # byte offsets into the buffer: the digests (whole rows)
+    ticket_off: int  # ... and the ticket
+    data: tuple  # as_strided (size, stride[, offset]) of each output
+    digests: "tuple | None"
+
+
+@functools.lru_cache(maxsize=1024)
+def _vr_plan(B: int, n: int, k: int, w: int, present: "tuple[bool, ...]",
+             formulation: str, whole: bool, device: torch.device) -> _VrPlan:
+    """K4's launch constants for one call shape, made once (checks the
+    shape on the first call of each): the term program (``vr_terms``,
+    cached per (present, k)), the rebuilt rows' operand (mxu),
+    ``pipelined_grid`` and the buffer layout: data, then with ``whole``
+    the digests, then the ticket."""
+    _check_vr(n, w, present, k)
+    if w < 1:
+        raise ValueError("verify_reconstruct needs at least one word a row")
+    terms = vr_terms(present, k)
+    operand = (_mxu_rebuilt_operand(present, k, device)
+               if formulation == "mxu" else None)
+    tpb, _per_stripe = pipelined_grid(B, w, sm_count(device))
+    dw = B * k * w
+    dig = B * n * 8 if whole else 0
+    return _VrPlan(
+        terms, operand, 0 if operand is None else operand.data_ptr(), tpb,
+        len(terms.rows), len(terms.rebuilt), dw + dig + 1, 4 * dw, 4 * (dw + dig),
+        ((B, k, w), (k * w, w, 1)),
+        ((B, n, 8), (n * 8, 8, 1), dw) if whole else None,
+    )
+
+
+def _launch_vr(plan: _VrPlan, shards, k: int, base: int, acc: int, ticket: int,
+               zero_acc: bool, word_offset: int, shard_len: int) -> None:
+    """K4 on checked CUDA shards: data into the buffer at ``base``,
+    partials XORed into ``acc`` (zeroed first with ``zero_acc``); a ticket
+    address (or 0) makes the last block finalize them."""
+    B, n, w = shards.shape
+    dev = shards.device
+    t = plan.terms
+    rc = _load().mtt_verify_reconstruct(_VR_ARGS.pack(
+        shards.data_ptr(), base, acc, ticket, ctypes.addressof(t.blob), plan.amat,
+        torch._C._cuda_getCurrentRawStream(dev.index), dev.index, B, n, k, w,
+        plan.np, plan.rb, plan.tiles_per_block, len(t.blob), int(zero_acc),
+        t.present_mask, shard_len & 0xFFFFFFFF, word_offset & 0xFFFFFFFF,
+    ))
+    _check_rc(rc, "verify_reconstruct")
+
+
 def verify_reconstruct(shards: torch.Tensor, present: "tuple[bool, ...]",
                        data_shards: int, shard_len: int,
                        formulation: str = "swar"):
@@ -1152,135 +1184,28 @@ def verify_reconstruct(shards: torch.Tensor, present: "tuple[bool, ...]",
     finalized), int32.  Only the digests of present rows are the rows'
     phash256; an absent row is neither read nor hashed.  ``formulation``
     picks the product (``swar`` or ``mxu``); the outputs are the same.
-    On the card, swar: a zeroed digest tensor, the K4 launch and a
-    finalize launch; mxu: one allocation for data, digests and ticket,
-    the entry's memset and one K4 [mxu] launch, finalized by its last
-    block."""
-    B, n, _w = shards.shape
+    On the card: one allocation for data, digests and ticket, the entry's
+    memset and one K4 launch, finalized by its last block."""
+    B, n, w = shards.shape
     k = data_shards
-    _check_vr(shards, present, k)
     rs.check_formulation(formulation)
     if shards.device.type == "cpu":
+        _check_vr(n, w, present, k)
         return verify_reconstruct_plain(shards, present, k, shard_len,
                                         formulation)
     _require_cuda(shards, "verify_reconstruct", 3)
-    if formulation == "mxu":
-        return _verify_reconstruct_mxu(shards, tuple(present), k, shard_len)
-    digests = torch.zeros((B, n, 8), dtype=torch.int32, device=shards.device)
-    out = _launch_verify_reconstruct(shards, digests, 0, present, k,
-                                     shard_len, True)
-    _count("verify_reconstruct")
-    return out
-
-
-@functools.lru_cache(maxsize=256)
-def _mxu_rebuilt_operand(present: "tuple[bool, ...]", k: int,
-                         device) -> torch.Tensor:
-    """K4 [mxu]'s A operand, made once per (present, k, device): the rows
-    of the reconstruction matrix over the first k present rows that are
-    rebuilt (``vr_terms(present, k).rebuilt``), (rb, k), in
-    ``mxu_fragments`` order.  The present data rows are copies and take
-    none."""
-    idx = _survivors(present, k)
-    rmat = gf.reconstruction_matrix(k, len(present) - k, idx)
-    return _mxu_operand(rmat[list(vr_terms(present, k).rebuilt)], device)
-
-
-@dataclasses.dataclass(frozen=True, eq=False)
-class _VrMxuPlan:
-    """K4 [mxu]'s launch constants for one call shape (``_vr_mxu_plan``):
-    the operand, the grid, the slots (``VrSlots``: present rows, copies,
-    rebuilt rows) and where data, digests and the ticket lie in the
-    call's one buffer."""
-
-    operand: torch.Tensor  # _mxu_rebuilt_operand; amat is its address
-    tiles_per_block: int
-    np: int  # present rows: the tile's slots
-    rb: int  # rebuilt rows
-    present_mask: int
-    slots: "tuple[bytes, bytes, bytes]"  # VrSlots' row, copy, rebuilt
-    buf_words: int  # data, digests, ticket
-    acc_off: int  # byte offset of the digests
-    data: tuple  # as_strided (size, stride[, offset]) of each output
-    digests: tuple
-
-
-@functools.lru_cache(maxsize=1024)
-def _vr_mxu_plan(B: int, n: int, k: int, w: int, present: "tuple[bool, ...]",
-                 device: torch.device) -> _VrMxuPlan:
-    """K4 [mxu]'s launch constants for one call shape, made once: the
-    slots from ``vr_terms`` (cached per (present, k)), the rebuilt rows'
-    operand, ``pipelined_grid`` and the buffer layout."""
-    if w < 1:
-        raise ValueError("verify_reconstruct needs at least one word a row")
-    terms = vr_terms(present, k)
-    tpb, _per_stripe = pipelined_grid(B, w, sm_count(device))
-    pad = _MAX_ROWS - len(terms.rows)
-    slots = (
-        bytes(terms.rows) + bytes(pad),
-        np.array(terms.copy + (-1,) * pad, np.int8).tobytes(),
-        bytes(terms.rebuilt) + bytes(_REBUILT_MAX - len(terms.rebuilt)),
-    )
-    dw = B * k * w
-    return _VrMxuPlan(
-        _mxu_rebuilt_operand(present, k, device), tpb, len(terms.rows),
-        len(terms.rebuilt), terms.present_mask, slots, dw + B * n * 8 + 1,
-        4 * dw, ((B, k, w), (k * w, w, 1)), ((B, n, 8), (n * 8, 8, 1), dw),
-    )
-
-
-def _verify_reconstruct_mxu(shards: torch.Tensor, present: "tuple[bool, ...]",
-                            k: int, shard_len: int):
-    """K4 [mxu] on checked CUDA shards: one buffer (data, digests, ticket),
-    one packed struct, the entry's memset and one launch."""
-    B, n, w = shards.shape
     dev = shards.device
     if B == 0:
+        _check_vr(n, w, present, k)
         return (torch.empty((0, k, w), dtype=torch.int32, device=dev),
                 torch.zeros((0, n, 8), dtype=torch.int32, device=dev))
-    plan = _vr_mxu_plan(B, n, k, w, present, dev)
+    plan = _vr_plan(B, n, k, w, tuple(present), formulation, True, dev)
     buf = torch.empty(plan.buf_words, dtype=torch.int32, device=dev)
     base = buf.data_ptr()
-    rc = _load().mtt_verify_reconstruct_mxu(_VR_MXU_ARGS.pack(
-        shards.data_ptr(), base, base + plan.acc_off, plan.operand.data_ptr(),
-        torch._C._cuda_getCurrentRawStream(dev.index), dev.index, B, n, k, w,
-        plan.np, plan.rb, plan.tiles_per_block, plan.present_mask,
-        shard_len & 0xFFFFFFFF, *plan.slots,
-    ))
-    _check_rc(rc, "verify_reconstruct")
-    _count("verify_reconstruct[mxu]")
+    _launch_vr(plan, shards, k, base, base + plan.acc_off, base + plan.ticket_off,
+               True, 0, shard_len)
+    _count("verify_reconstruct[mxu]" if plan.amat else "verify_reconstruct")
     return buf.as_strided(*plan.data), buf.as_strided(*plan.digests)
-
-
-@functools.lru_cache(maxsize=256)
-def _mxu_vr_operand(present: "tuple[bool, ...]", k: int,
-                    device) -> torch.Tensor:
-    """K6's mxu operand, made once per (present, k, device): the (k, k)
-    reconstruction matrix over the first k present rows, as P5/P7 lift
-    it."""
-    idx = _survivors(present, k)
-    rmat = gf.reconstruction_matrix(k, len(present) - k, idx)
-    return _mxu_operand(rmat, device)
-
-
-def _launch_verify_reconstruct(shards, partials, word_offset, present, k,
-                               shard_len, finalize):
-    """K4 swar on checked CUDA shards, XORing into ``partials``."""
-    B, n, w = shards.shape
-    rm, nb, mask = _vr_plan(tuple(present), k)
-    dev = shards.device
-    data = torch.empty((B, k, w), dtype=torch.int32, device=dev)
-    if B == 0:
-        return data, partials
-    ntiles = -(-w // TILE)
-    rc = _load().mtt_verify_reconstruct(
-        dev.index or 0, shards.data_ptr(), data.data_ptr(),
-        partials.data_ptr(), B, n, k, w, mask, shard_len & 0xFFFFFFFF,
-        word_offset & 0xFFFFFFFF, int(finalize),
-        _tiles_per_block(ntiles, B, sm_count(dev)), rm, nb, _stream(shards),
-    )
-    _check_rc(rc, "verify_reconstruct")
-    return data, partials
 
 
 def verify_reconstruct_subchunk(chunk: torch.Tensor, acc: torch.Tensor,
@@ -1292,24 +1217,36 @@ def verify_reconstruct_subchunk(chunk: torch.Tensor, acc: torch.Tensor,
     ``word_offset`` of the row: (data (B, k, cw), acc).  The partials of
     the chunk's present rows are XORed into ``acc`` (B, n, 8) IN PLACE;
     with ``finalize`` acc then holds the finalized digests of the whole
-    row of ``shard_len`` bytes."""
-    B, n, _cw = chunk.shape
+    row of ``shard_len`` bytes.  On the card: one allocation (the data;
+    with ``finalize`` the ticket after it, which the entry zeroes) and one
+    K4 launch, whose last block finalizes with ``finalize``."""
+    B, n, cw = chunk.shape
     k = data_shards
-    _check_vr(chunk, present, k)
     if word_offset % 4:
         raise ValueError(f"word_offset {word_offset} must be a multiple of 4")
     if tuple(acc.shape) != (B, n, 8):
         raise ValueError(f"acc must be {(B, n, 8)}, got {tuple(acc.shape)}")
     if chunk.device.type == "cpu":
+        _check_vr(n, cw, present, k)
         return verify_reconstruct_subchunk_plain(
             chunk, acc, word_offset, present, k, shard_len, finalize
         )
     _require_cuda(chunk, "verify_reconstruct_subchunk", 3)
     _require_cuda(acc, "verify_reconstruct_subchunk acc", 3)
-    out = _launch_verify_reconstruct(chunk, acc, word_offset, present, k,
-                                     shard_len, finalize)
+    dev = chunk.device
+    if B == 0:
+        _check_vr(n, cw, present, k)
+        return torch.empty((0, k, cw), dtype=torch.int32, device=dev), acc
+    plan = _vr_plan(B, n, k, cw, tuple(present), "swar", False, dev)
+    if finalize:
+        buf = torch.empty(plan.buf_words, dtype=torch.int32, device=dev)
+        data, ticket = buf.as_strided(*plan.data), buf.data_ptr() + plan.ticket_off
+    else:  # no ticket: the data alone
+        data, ticket = torch.empty(plan.data[0], dtype=torch.int32, device=dev), 0
+    _launch_vr(plan, chunk, k, data.data_ptr(), acc.data_ptr(), ticket, False,
+               word_offset, shard_len)
     _count("verify_reconstruct[subchunk]")
-    return out
+    return data, acc
 
 
 # ---------------------------------------------------------------------------
@@ -1333,11 +1270,11 @@ def verify_reconstruct_pipelined(shards: torch.Tensor,
                                  formulation: str = "swar"):
     """K6: verify_reconstruct's outputs, bit for bit, from the pipelined
     kernel (persistent grid, cp.async ring of the present rows, copies of
-    the present data rows and the product of ``vr_terms`` for the rest,
-    last-block finalize)."""
+    the present data rows and the product of ``vr_terms`` - under mxu of
+    ``_mxu_rebuilt_operand`` - for the rest, last-block finalize)."""
     B, n, w = shards.shape
     k = data_shards
-    _check_vr(shards, present, k)
+    _check_vr(n, w, present, k)
     rs.check_formulation(formulation)
     if shards.device.type == "cpu":
         return verify_reconstruct_pipelined_plain(shards, present, k,
@@ -1347,7 +1284,7 @@ def verify_reconstruct_pipelined(shards: torch.Tensor,
     present = tuple(present)
     terms = vr_terms(present, k)
     dev = shards.device
-    amat = (_mxu_vr_operand(present, k, dev).data_ptr()
+    amat = (_mxu_rebuilt_operand(present, k, dev).data_ptr()
             if formulation == "mxu" else None)
     data = torch.empty((B, k, w), dtype=torch.int32, device=dev)
     if B == 0:

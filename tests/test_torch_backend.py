@@ -13,6 +13,7 @@ import pytest
 from minio_tpu.codec import backend as jbackend
 from minio_tpu_torch.codec import backend as tbackend
 from minio_tpu_torch.codec.telemetry import KERNEL_STATS
+from tests.test_torch_threads import torch_threads  # noqa: F401
 
 
 @pytest.fixture

@@ -36,6 +36,7 @@ import torch
 
 from minio_tpu.ops import gf as jgf, hash as jhash, rs_pallas
 from minio_tpu_torch.ops import codec_step as tcs, gf, hash as thash, kernels, rs
+from tests.test_torch_threads import torch_threads  # noqa: F401
 
 U32 = np.uint32
 SMS = 132  # an H100's SMs: the grid the wrappers size on the card
@@ -524,7 +525,7 @@ def test_constants_check_accepts_the_library_string_and_refuses_drift():
         "pipe_blocks_per_sm=2 enc_blocks_per_sm=3 gf_blocks_per_sm=4 "
         "bucket=4,4,4,4,8,8,8,8,16,16,16,16,16,16,16,16 rb_max=4,8,7 "
         "vr_terms_bytes=548,2088,3623 gf_terms_bytes=304 encode_args_bytes=120 "
-        "encode_pipe_args_bytes=104 gf_args_bytes=72 vr_mxu_args_bytes=120 "
+        "encode_pipe_args_bytes=104 gf_args_bytes=72 vr_args_bytes=112 "
         "rebuilt_max=8 ring_swizzle=0,2,4,6 "
         "fixed=," + fixed
     )

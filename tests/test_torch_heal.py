@@ -28,6 +28,7 @@ from minio_tpu_torch.heal.background import HealQueue, HealRoutine, HealTask
 from minio_tpu_torch.objectlayer.erasure_object import ErasureObjects
 from minio_tpu_torch.storage import errors as serrors, health, metered
 from minio_tpu_torch.storage.xl import XLStorage
+from tests.test_torch_threads import torch_threads  # noqa: F401
 
 N, K, M = 12, 8, 4
 BLOCK = 32 * 1024

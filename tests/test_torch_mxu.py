@@ -32,6 +32,7 @@ from minio_tpu_torch.ops import codec_step as tcs, gf as tgf, hash as thash
 from minio_tpu_torch.ops import kernels, rs
 from minio_tpu_torch.storage.meta import XLMeta
 from minio_tpu_torch.storage.xl import XLStorage
+from tests.test_torch_threads import torch_threads  # noqa: F401
 
 
 @pytest.fixture(autouse=True)

@@ -38,6 +38,7 @@ from minio_tpu.ops import hash as jhash, rs_pallas
 from minio_tpu_torch.ops import codec_step as tcs, gf, hash as thash, kernels, rs
 from tests.test_torch_encode_matmul_design import k1_pack
 from tests.test_torch_pipelined_design import _ballots, _data, _words, mxu_ring_emulate
+from tests.test_torch_threads import torch_threads  # noqa: F401
 
 U32 = np.uint32
 TILE = kernels.TILE
@@ -398,11 +399,13 @@ def test_mxu_kernels_take_the_persistent_grid(monkeypatch):
 
 @pytest.fixture
 def vr_plans(monkeypatch):
-    """_vr_mxu_plan on the CPU: the grid sized for an H100's SMs."""
+    """K4's launch plan under mxu for whole rows (_vr_plan) on the CPU:
+    the grid sized for an H100's SMs."""
     monkeypatch.setattr(kernels, "sm_count", lambda device: SMS)
-    kernels._vr_mxu_plan.cache_clear()
-    yield kernels._vr_mxu_plan
-    kernels._vr_mxu_plan.cache_clear()
+    kernels._vr_plan.cache_clear()
+    yield lambda B, n, k, w, present, device: kernels._vr_plan(
+        B, n, k, w, present, "mxu", True, device)
+    kernels._vr_plan.cache_clear()
 
 
 def test_vr_mxu_plan_made_once_per_call_shape(vr_plans):
@@ -413,15 +416,17 @@ def test_vr_mxu_plan_made_once_per_call_shape(vr_plans):
         assert vr_plans(1, 12, 8, W, heal, cpu) is a
     b = vr_plans(4, 12, 8, W, heal, cpu)
     c = vr_plans(1, 12, 8, W, every, cpu)
-    assert b is not a and c is not a and vr_plans.cache_info().misses == 3
+    assert b is not a and c is not a and kernels._vr_plan.cache_info().misses == 3
     assert (a.np, a.rb, a.tiles_per_block) == (8, 2, 5)
     assert (b.tiles_per_block, c.np, c.rb) == (20, 12, 0)
-    assert a.present_mask == sum(1 << i for i, p in enumerate(heal) if p)
-    row, copy, rebuilt = a.slots
-    assert row == bytes((1, 3, 4, 5, 6, 7, 8, 10)) + bytes(8)
-    assert np.frombuffer(copy, np.int8).tolist() == [1, 3, 4, 5, 6, 7, -1, -1] + [-1] * 8
-    assert rebuilt == bytes((0, 2)) + bytes(6)
+    t = a.terms
+    assert t is kernels.vr_terms(heal, 8)
+    assert t.present_mask == sum(1 << i for i, p in enumerate(heal) if p)
+    assert t.rows == (1, 3, 4, 5, 6, 7, 8, 10)
+    assert t.copy == (1, 3, 4, 5, 6, 7, -1, -1)
+    assert t.rebuilt == (0, 2)
     assert a.operand is kernels._mxu_rebuilt_operand(heal, 8, cpu)
+    assert a.amat == a.operand.data_ptr()
     with pytest.raises(ValueError, match="need 8 shards"):
         vr_plans(1, 12, 8, W, _present(12, (0, 1, 2, 3, 4)), cpu)
     with pytest.raises(ValueError, match="one word"):
@@ -444,22 +449,23 @@ def test_vr_mxu_buffer_layout(vr_plans, B, n, k, w):
     seen = torch.cat([data.reshape(-1), digests.reshape(-1)])
     assert seen.unique().numel() == seen.numel() == plan.buf_words - 1
     assert int(digests.reshape(-1)[-1]) == plan.buf_words - 2  # then the ticket
+    assert plan.ticket_off == 4 * (plan.buf_words - 1)
 
 
 def test_vr_mxu_packed_argument_layout():
-    """_VR_MXU_ARGS is VrMxuArgs: 5 addresses, 8 int32, 2 u32, then the
-    VrSlots bytes (row 16, copy 16, rebuilt 8) - 120 bytes with no
-    padding (static_assert'ed in codec.cu, exported by mtt_constants)."""
-    args = kernels._VR_MXU_ARGS
-    assert args.size == 120
-    row, copy, rebuilt = bytes(range(16)), bytes([0xFF] * 16), bytes(range(8))
-    raw = args.pack(*range(1, 6), *range(10, 18), 0xFFFFFFFF, 7, row, copy, rebuilt)
-    assert np.array_equal(np.frombuffer(raw[:40], "<u8"), np.arange(1, 6))
-    assert np.array_equal(np.frombuffer(raw[40:72], "<i4"), np.arange(10, 18))
-    assert np.frombuffer(raw[72:80], "<u4").tolist() == [0xFFFFFFFF, 7]
-    assert raw[80:96] == row and raw[96:112] == copy and raw[112:] == rebuilt
+    """_VR_ARGS is VrArgs, which K4 [mxu] shares with K4 swar and X3: 7
+    addresses, 10 int32, 3 u32 and 4 bytes of padding - 112 bytes
+    (static_assert'ed in codec.cu, exported by mtt_constants); the slots
+    travel in the term program's blob."""
+    args = kernels._VR_ARGS
+    assert args.size == 112
+    raw = args.pack(*range(1, 8), *range(10, 20), 0xFFFFFFFF, 7, 1 << 31)
+    assert np.array_equal(np.frombuffer(raw[:56], "<u8"), np.arange(1, 8))
+    assert np.array_equal(np.frombuffer(raw[56:96], "<i4"), np.arange(10, 20))
+    assert np.frombuffer(raw[96:108], "<u4").tolist() == [0xFFFFFFFF, 7, 1 << 31]
+    assert raw[108:] == bytes(4)
     consts = kernels._constants()
-    assert consts["vr_mxu_args_bytes"] == (120,) and consts["rebuilt_max"] == (8,)
+    assert consts["vr_args_bytes"] == (112,) and consts["rebuilt_max"] == (8,)
 
 
 def test_cpu_wrappers_stay_plain():

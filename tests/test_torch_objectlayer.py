@@ -28,6 +28,7 @@ from minio_tpu_torch.objectlayer.erasure_object import (
 )
 from minio_tpu_torch.storage.meta import XLMeta
 from minio_tpu_torch.storage.xl import XLStorage
+from tests.test_torch_threads import torch_threads  # noqa: F401
 
 N, M = 12, 4
 BLOCK = 32 * 1024  # 1,024 words per shard: the pack leg runs

@@ -17,6 +17,7 @@ import torch
 
 from minio_tpu.ops import codec_step as jcs, gf as jgf, hash as jhash, rs_pallas
 from minio_tpu_torch.ops import codec_step as tcs, gf as tgf, hash as thash, kernels
+from tests.test_torch_threads import torch_threads  # noqa: F401
 
 GEOMS = [(1, 1), (4, 2), (8, 4), (12, 4)]
 WIDTHS = [8, 264, 4096, 8192 + 8]

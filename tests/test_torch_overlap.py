@@ -35,6 +35,7 @@ from minio_tpu_torch.objectlayer.erasure_object import (
 from minio_tpu_torch.ops import codec_step as tcs, kernels
 from minio_tpu_torch.storage.meta import XLMeta
 from minio_tpu_torch.storage.xl import XLStorage
+from tests.test_torch_threads import torch_threads  # noqa: F401
 
 MODES = ["off", "pipeline", "async"]
 

@@ -35,6 +35,7 @@ import torch
 from minio_tpu.ops import hash as jhash, rs_pallas
 from minio_tpu_torch.ops import codec_step as tcs, gf, hash as thash, kernels, rs
 from tests.test_torch_encode_matmul_design import k1_pack, k1_parity
+from tests.test_torch_threads import torch_threads  # noqa: F401
 
 SMS = 132  # an H100's SMs: the grid the wrappers size on the card
 U32 = np.uint32

@@ -30,6 +30,7 @@ import torch
 
 from minio_tpu.ops import hash as jhash, rs_pallas
 from minio_tpu_torch.ops import codec_step as tcs, gf, hash as thash, kernels, rs
+from tests.test_torch_threads import torch_threads  # noqa: F401
 
 SMS = 132  # an H100's SMs: the grid the wrappers size on the card
 U32 = np.uint32
@@ -261,18 +262,31 @@ def test_k6_term_walk_matches_p7_interpret():
     assert np.array_equal(tcs.tensor_to_words(dig)[:, pres], want[:, pres])
 
 
-def test_plan_and_terms_made_once_per_pattern():
+def test_plan_and_terms_made_once_per_pattern(monkeypatch):
+    """The term program once per (present, k) and K4's launch plan once
+    per call shape (here one shape per pattern), the plan holding the
+    cached program."""
+    monkeypatch.setattr(kernels, "sm_count", lambda device: SMS)
     kernels.vr_terms.cache_clear()
     kernels._vr_plan.cache_clear()
+    cpu = torch.device("cpu")
     pats = [tuple(i not in lost for i in range(12))
             for lost in [(0, 2, 9, 11), (), (5,)]]
-    first = {p: (kernels.vr_terms(p, 8), kernels._vr_plan(p, 8)) for p in pats}
-    for _ in range(5):
-        for p in pats:
-            terms, plan = kernels.vr_terms(p, 8), kernels._vr_plan(p, 8)
-            assert terms is first[p][0] and plan is first[p][1]
-    assert kernels.vr_terms.cache_info().misses == len(pats)
-    assert kernels._vr_plan.cache_info().misses == len(pats)
+
+    def plan(p):
+        return kernels._vr_plan(1, 12, 8, 327_680, p, "swar", True, cpu)
+
+    try:
+        first = {p: (kernels.vr_terms(p, 8), plan(p)) for p in pats}
+        for _ in range(5):
+            for p in pats:
+                terms, got = kernels.vr_terms(p, 8), plan(p)
+                assert terms is first[p][0] and got is first[p][1]
+                assert got.terms is terms
+        assert kernels.vr_terms.cache_info().misses == len(pats)
+        assert kernels._vr_plan.cache_info().misses == len(pats)
+    finally:
+        kernels._vr_plan.cache_clear()
 
 
 def test_k6_wrapper_cpu_is_plain():

@@ -18,6 +18,7 @@ from minio_tpu.objectlayer.erasure_object import ErasureObjects as JaxObjects
 from minio_tpu.storage import meta as jmeta
 from minio_tpu.storage.xl import XLStorage as JaxStorage
 from minio_tpu_torch.storage import meta as tmeta, mpack
+from tests.test_torch_threads import torch_threads  # noqa: F401
 
 ROOT = pathlib.Path(__file__).resolve().parent.parent
 FORBIDDEN = {"jax", "jaxlib", "msgpack", "minio_tpu"}
