@@ -69,7 +69,21 @@
    and healed.  Part files must equal the main path's; under mxu the
    ``[mxu]`` kernels must launch and the swar PUT and heal-read kernels
    must not, while heal's re-encode stays on swar K1.
-7. Prints the kernels JSON line, the card's name and power limit, and as
+7. The S3 front: the port's S3Server (threaded plane, unset
+   MINIO_TPU_SERVER) over a fresh ErasureObjects on the card (12 disks,
+   EC 8+4, 10 MiB blocks), driven through SigV4 over HTTP by this
+   script's own signer (``S3Signer``, on minio_tpu_torch.server.auth):
+   bucket create and policy (a bucket document, erasure-coded in
+   ``.sys``), a 1 KiB object read back anonymously under the policy, the
+   10 MiB + 17 B object (its part files must equal the main path's), 4
+   clients PUTting two 64 MiB objects each at once (one aws-chunked),
+   every object read back by 4 clients healthy and again with the disks
+   of shards 1, 3, 10 and 12 offline, a ranged GET across a block
+   boundary, HEAD of each, ListObjectsV2 paged by 3, then DELETE of
+   each, a 404 and the bucket's delete.  K5, K2 and K3 must launch and
+   K1 must not; at least one batcher flush must merge jobs of more than
+   one client.  Prints the ``s3:`` line.
+8. Prints the kernels JSON line, the card's name and power limit, and as
    the last line ``{"ok": true, "device": {...}}``.
 
 Exits non-zero, without the result lines, when there is no CUDA device or
@@ -1206,15 +1220,18 @@ def main_path(dev, work: str) -> dict:
     kernels.reset_launches()
     KERNEL_STATS.reset()
     t_put = t_get = t_deg = 0.0
+    put_each, get_each = [], []
     for i, data in enumerate(payloads):
         t0 = time.monotonic()
         ol.put_object("bench", f"obj{i}", io.BytesIO(data), len(data))
-        t_put += time.monotonic() - t0
+        put_each.append(time.monotonic() - t0)
+        t_put += put_each[-1]
     for i, data in enumerate(payloads):
         sink = io.BytesIO()
         t0 = time.monotonic()
         ol.get_object("bench", f"obj{i}", sink)
-        t_get += time.monotonic() - t0
+        get_each.append(time.monotonic() - t0)
+        t_get += get_each[-1]
         if sink.getvalue() != data:
             fail(f"healthy GET of obj{i} differs from its source")
     # what every mode must write (phase 5), taken before heal damages it
@@ -1266,6 +1283,8 @@ def main_path(dev, work: str) -> dict:
         "put_s": t_put,
         "get_s": t_get,
         "get_degraded_s": t_deg,
+        "put_each_s": put_each,
+        "get_each_s": get_each,
         "put_MBps": total / t_put / 1e6,
         "get_MBps": total / t_get / 1e6,
         "get_degraded_MBps": total / t_deg / 1e6,
@@ -1544,6 +1563,392 @@ def modes_phase(dev, work: str, payloads: list, written: dict,
     finally:
         os.environ.pop("MINIO_TPU_CODEC_OVERLAP", None)
         os.environ.pop("MINIO_TPU_CODEC_FORMULATION", None)
+    return out
+
+
+# -- phase 7: the S3 front -------------------------------------------------
+
+S3_CLIENTS = 4
+S3_BIG = 64 << 20
+S3_POLICY = (
+    b'{"Version":"2012-10-17","Statement":[{"Effect":"Allow",'
+    b'"Principal":{"AWS":["*"]},"Action":["s3:GetObject"],'
+    b'"Resource":["arn:aws:s3:::bench/public/*"]}]}'
+)
+
+
+class S3Signer:
+    """A small SigV4 client over http.client, signing with the port's
+    own server/auth.py: one keep-alive connection per instance."""
+
+    def __init__(self, host: str, port: int, access_key="minioadmin",
+                 secret_key="minioadmin", region="us-east-1"):
+        import http.client
+
+        self.host, self.port = host, port
+        self.ak, self.sk, self.region = access_key, secret_key, region
+        self.conn = http.client.HTTPConnection(host, port, timeout=600)
+
+    def _now(self) -> str:
+        import datetime
+
+        return datetime.datetime.now(datetime.timezone.utc).strftime(
+            "%Y%m%dT%H%M%SZ")
+
+    def _sign(self, method, path, query, headers, payload_hash):
+        from minio_tpu_torch.server import auth
+
+        amz_date = headers["x-amz-date"]
+        signed = sorted(headers)
+        qmap = {k: [v] for k, v in (query or {}).items()}
+        sig = auth.sign_v4(method, path, qmap, headers, signed, payload_hash,
+                           self.ak, self.sk, amz_date, self.region)
+        scope = f"{amz_date[:8]}/{self.region}/s3/aws4_request"
+        headers["authorization"] = (
+            f"{auth.SIGN_V4_ALGORITHM} Credential={self.ak}/{scope}, "
+            f"SignedHeaders={';'.join(signed)}, Signature={sig}")
+        return sig
+
+    def _send(self, method, path, query, headers, body):
+        import urllib.parse
+
+        qs = urllib.parse.urlencode(query or {})
+        url = urllib.parse.quote(path) + (f"?{qs}" if qs else "")
+        self.conn.request(method, url, body=body or None, headers=headers)
+        r = self.conn.getresponse()
+        data = r.read()
+        return r.status, {k.lower(): v for k, v in r.getheaders()}, data
+
+    def request(self, method, path, query=None, body=b"", headers=None,
+                unsigned_payload=False, anonymous=False, payload_hash=None):
+        """(status, headers, body); the payload is signed by its sha256
+        (``payload_hash`` when the caller computed it) unless
+        ``unsigned_payload`` (x-amz-content-sha256: UNSIGNED-PAYLOAD)."""
+        import hashlib
+
+        from minio_tpu_torch.server import auth
+
+        headers = {k.lower(): v for k, v in (headers or {}).items()}
+        headers["host"] = f"{self.host}:{self.port}"
+        if not anonymous:
+            phash = (auth.UNSIGNED_PAYLOAD if unsigned_payload
+                     else payload_hash or hashlib.sha256(body).hexdigest())
+            headers["x-amz-date"] = self._now()
+            headers["x-amz-content-sha256"] = phash
+            self._sign(method, path, query, headers, phash)
+        return self._send(method, path, query, headers, body)
+
+    def put_chunked(self, path, data: bytes, chunk: int = 1 << 20):
+        """PUT with STREAMING-AWS4-HMAC-SHA256-PAYLOAD framing: every
+        chunk signed, chained from the seed signature."""
+        import hashlib
+        import hmac
+
+        from minio_tpu_torch.server import auth
+
+        headers = {
+            "host": f"{self.host}:{self.port}",
+            "x-amz-date": self._now(),
+            "x-amz-content-sha256": auth.STREAMING_PAYLOAD,
+            "x-amz-decoded-content-length": str(len(data)),
+            "content-encoding": "aws-chunked",
+        }
+        prev = self._sign("PUT", path, None, headers, auth.STREAMING_PAYLOAD)
+        amz_date = headers["x-amz-date"]
+        key = auth._signing_key(self.sk, amz_date[:8], self.region, "s3")
+        scope = f"{amz_date[:8]}/{self.region}/s3/aws4_request"
+        body = bytearray()
+        pieces = [data[i:i + chunk] for i in range(0, len(data), chunk)]
+        for c in [*pieces, b""]:
+            sts = "\n".join(["AWS4-HMAC-SHA256-PAYLOAD", amz_date, scope,
+                             prev, auth.EMPTY_SHA256,
+                             hashlib.sha256(c).hexdigest()])
+            prev = hmac.new(key, sts.encode(), hashlib.sha256).hexdigest()
+            body += f"{len(c):x};chunk-signature={prev}\r\n".encode()
+            if c:
+                body += c + b"\r\n"
+        body += b"\r\n"
+        return self._send("PUT", path, None, headers, bytes(body))
+
+    def close(self) -> None:
+        self.conn.close()
+
+
+def _in_clients(host, port, jobs_per_client, fn) -> "tuple[float, list]":
+    """Run ``fn(signer, job)`` for each client's jobs, S3_CLIENTS clients
+    at once on their own connections; (wall seconds, results)."""
+    import threading
+
+    results: list = [None] * len(jobs_per_client)
+    errors: list = []
+    start = threading.Barrier(len(jobs_per_client) + 1)
+
+    def run(ix):
+        signer = S3Signer(host, port)
+        try:
+            start.wait()
+            results[ix] = [fn(signer, job) for job in jobs_per_client[ix]]
+        except BaseException as e:  # noqa: BLE001 - reported below
+            errors.append(e)
+        finally:
+            signer.close()
+
+    threads = [threading.Thread(target=run, args=(i,))
+               for i in range(len(jobs_per_client))]
+    for t in threads:
+        t.start()
+    start.wait()
+    t0 = time.monotonic()
+    for t in threads:
+        t.join()
+    wall = time.monotonic() - t0
+    if errors:
+        fail(f"S3 phase: a client failed: {errors[0]!r}")
+    return wall, [r for rs in results for r in rs]
+
+
+def s3_phase(dev, work: str, payloads: list, written: dict, mp: dict) -> dict:
+    """Phase 7: the main path through the S3 front.  The port's S3Server
+    (threaded plane) over a fresh ErasureObjects on the card (12 disks,
+    EC 8+4, 10 MiB blocks), driven by 4 concurrent SigV4 clients."""
+    import hashlib
+    import xml.etree.ElementTree as ET
+
+    import numpy as np
+
+    from minio_tpu_torch.codec.telemetry import KERNEL_STATS
+    from minio_tpu_torch.objectlayer.erasure_object import ErasureObjects
+    from minio_tpu_torch.ops import kernels
+    from minio_tpu_torch.server.http import S3Server
+    from minio_tpu_torch.storage.xl import XLStorage
+
+    roots = [os.path.join(work, f"s3disk{i}") for i in range(N)]
+    ol = ErasureObjects([XLStorage(r) for r in roots], parity_blocks=M,
+                        block_size=BLOCK)
+    srv = S3Server(ol, address="127.0.0.1:0").start()
+    if srv.server_mode != "threaded":
+        fail(f"S3 phase: server plane {srv.server_mode}")
+    host, port = srv.host, srv.port
+    rng = np.random.default_rng(SEED + 7)
+    big = {f"c{c}/big{j}": rng.bytes(S3_BIG)
+           for c in range(S3_CLIENTS) for j in range(2)}
+    small = {"public/small": rng.bytes(1024)}
+    objects = {**small, "obj4": payloads[4], **big}
+    sha = {k: hashlib.sha256(v).digest() for k, v in objects.items()}
+
+    # bucket documents: every read that finds one is an erasure GET on
+    # the card; count them (this script's own instrumentation)
+    bms = srv.bucket_meta
+    doc = {"loads": 0, "found": 0}
+    load = bms._load
+
+    def counted_load(bucket):
+        bm = load(bucket)
+        doc["loads"] += 1
+        doc["found"] += bool(bm.created_ns)
+        return bm
+
+    bms._load = counted_load
+    one = S3Signer(host, port)
+    out: dict = {}
+    try:
+        kernels.reset_launches()
+        KERNEL_STATS.reset()
+        t_phase = time.monotonic()
+        st, _h, body = one.request("PUT", "/bench")
+        if st != 200:
+            fail(f"S3 phase: bucket create {st} {body[:200]!r}")
+        before = dict(kernels.LAUNCHES)
+        st, _h, body = one.request("PUT", "/bench", {"policy": ""}, S3_POLICY)
+        if st != 204:
+            fail(f"S3 phase: bucket policy {st} {body[:200]!r}")
+        doc_write = {k: v - before[k] for k, v in kernels.LAUNCHES.items()
+                     if v != before[k]}
+        # one bucket-document read on a quiet card: its launches
+        bms.invalidate("bench")
+        before = dict(kernels.LAUNCHES)
+        if bms.get("bench").policy() is None:
+            fail("S3 phase: the bucket policy did not read back")
+        doc_read = {k: v - before[k] for k, v in kernels.LAUNCHES.items()
+                    if v != before[k]}
+        doc["loads"] = doc["found"] = 0
+
+        st, _h, body = one.request("PUT", "/bench/public/small",
+                                   body=small["public/small"])
+        if st != 200:
+            fail(f"S3 phase: PUT public/small {st} {body[:200]!r}")
+        # the 10 MiB + 17 B object alone: PUT signed by its sha256 (the
+        # server verifies it) and again UNSIGNED-PAYLOAD, each read back
+        single = {"put_signed_s": [], "put_unsigned_s": [], "get_s": []}
+        for unsigned in (False, True):
+            t0 = time.monotonic()
+            st, _h, body = one.request(
+                "PUT", "/bench/obj4", body=objects["obj4"],
+                unsigned_payload=unsigned, payload_hash=sha["obj4"].hex())
+            single["put_unsigned_s" if unsigned else "put_signed_s"].append(
+                time.monotonic() - t0)
+            if st != 200:
+                fail(f"S3 phase: PUT obj4 {st} {body[:200]!r}")
+            t0 = time.monotonic()
+            st, _h, got = one.request("GET", "/bench/obj4")
+            single["get_s"].append(time.monotonic() - t0)
+            if st != 200 or hashlib.sha256(got).digest() != sha["obj4"]:
+                fail("S3 phase: single-client GET of obj4 differs from its source")
+        st, _h, got = one.request("GET", "/bench/public/small", anonymous=True)
+        if st != 200 or got != small["public/small"]:
+            fail(f"S3 phase: anonymous GET under the bucket policy: {st}")
+        for d, r in enumerate(roots):
+            part = part_files(r, "bench", "obj4")
+            want = written["obj4"][d]
+            if part is None or want is None or part != want[0]:
+                fail(f"S3 phase: obj4 part file on disk {d} differs from the main path's")
+
+        # concurrent PUT: each client two 64 MiB objects; client 0's
+        # second one aws-chunked, the others UNSIGNED-PAYLOAD
+        def put(signer, key):
+            if key == "c0/big1":
+                st, _h, body = signer.put_chunked(f"/bench/{key}", big[key])
+            else:
+                st, _h, body = signer.request(
+                    "PUT", f"/bench/{key}", body=big[key],
+                    unsigned_payload=True)
+            if st != 200:
+                fail(f"S3 phase: PUT {key}: {st} {body[:200]!r}")
+            return key
+
+        jobs = [[f"c{c}/big{j}" for j in range(2)] for c in range(S3_CLIENTS)]
+        b0 = KERNEL_STATS.snapshot()["batch"]
+        put_wall, _ = _in_clients(host, port, jobs, put)
+        b1 = KERNEL_STATS.snapshot()["batch"]
+
+        def get(signer, key):
+            st, _h, body = signer.request("GET", f"/bench/{key}")
+            if st != 200 or hashlib.sha256(body).digest() != sha[key]:
+                fail(f"S3 phase: GET {key}: {st}, body differs from its source")
+            return len(body)
+
+        all_keys = sorted(objects)
+        get_jobs = [all_keys[c::S3_CLIENTS] for c in range(S3_CLIENTS)]
+        get_wall, sizes = _in_clients(host, port, get_jobs, get)
+        b2 = KERNEL_STATS.snapshot()["batch"]
+        lo = BLOCK - 60
+        st, h, got = one.request("GET", "/bench/c1/big0",
+                                 headers={"range": f"bytes={lo}-{lo + 200}"})
+        if st != 206 or got != big["c1/big0"][lo:lo + 201]:
+            fail(f"S3 phase: ranged GET across a block boundary: {st}")
+        for key in all_keys:
+            st, h, _b = one.request("HEAD", f"/bench/{key}")
+            if (st != 200 or int(h["content-length"]) != len(objects[key])
+                    or h["etag"] != f'"{hashlib.md5(objects[key]).hexdigest()}"'):
+                fail(f"S3 phase: HEAD {key}: {st} {h}")
+        listed, token, pages = [], "", 0
+        while True:
+            q = {"list-type": "2", "max-keys": "3"}
+            if token:
+                q["continuation-token"] = token
+            st, _h, body = one.request("GET", "/bench", q)
+            if st != 200:
+                fail(f"S3 phase: ListObjectsV2 {st}")
+            root = ET.fromstring(body)
+            ns = root.tag[: root.tag.index("}") + 1]
+            listed += [e.text for e in root.iter(f"{ns}Key")]
+            pages += 1
+            if root.findtext(f"{ns}IsTruncated") != "true":
+                break
+            token = root.findtext(f"{ns}NextContinuationToken")
+        if listed != all_keys:
+            fail(f"S3 phase: ListObjectsV2 paged {listed} != {all_keys}")
+
+        # degraded: the disks of obj4's shards 1, 3, 10 and 12 offline
+        dist = XLStorage(roots[0]).read_version("bench", "obj4").erasure.distribution
+        dead = sorted(d for d in range(N) if dist[d] in (1, 3, 10, 12))
+        live = list(ol.disks)
+        for d in dead:
+            ol.disks[d] = None
+        try:
+            k3 = kernels.LAUNCHES["gf_matmul_words"]
+            deg_wall, _ = _in_clients(host, port, get_jobs, get)
+            if kernels.LAUNCHES["gf_matmul_words"] <= k3:
+                fail("S3 phase: the degraded GETs reconstructed nothing")
+        finally:
+            ol.disks[:] = live
+        b3 = KERNEL_STATS.snapshot()["batch"]
+
+        for key in all_keys:
+            st, _h, body = one.request("DELETE", f"/bench/{key}")
+            if st != 204:
+                fail(f"S3 phase: DELETE {key}: {st} {body[:200]!r}")
+        st, _h, _b = one.request("GET", "/bench/obj4")
+        if st != 404:
+            fail(f"S3 phase: GET after DELETE answered {st}")
+        st, _h, body = one.request("DELETE", "/bench")
+        if st != 204:
+            fail(f"S3 phase: bucket delete {st} {body[:200]!r}")
+        phase_s = time.monotonic() - t_phase
+        launches = dict(kernels.LAUNCHES)
+        stats = KERNEL_STATS.snapshot()
+    finally:
+        one.close()
+        bms._load = load
+        srv.shutdown()
+        for r in roots:
+            shutil.rmtree(r, ignore_errors=True)
+
+    for name in ("encode_pack_pipelined", "phash256_batched", "gf_matmul_words"):
+        if launches[name] <= 0:
+            fail(f"S3 phase: kernel {name} never launched")
+    for name in ("encode_pack", "encode_pack[mxu]", "encode_pack_pipelined[mxu]"):
+        if launches[name]:
+            fail(f"S3 phase: kernel {name} launched")
+
+    def merged(a, b):
+        return {k: b[k] - a[k] for k in ("flushes", "jobs", "multi_client_flushes")}
+
+    put_batch, get_batch, deg_batch = merged(b0, b1), merged(b1, b2), merged(b2, b3)
+    cross = sum(x["multi_client_flushes"] for x in (put_batch, get_batch, deg_batch))
+    if cross <= 0:
+        fail("S3 phase: no batcher flush merged jobs of more than one client")
+    nbig = sum(len(v) for v in big.values())
+    nall = sum(sizes)
+    obj4 = len(payloads[4])
+    out = {
+        "clients": S3_CLIENTS,
+        "objects": len(objects),
+        "server_mode": "threaded",
+        "phase_s": phase_s,
+        "put_concurrent": {"bytes": nbig, "s": put_wall,
+                           "MBps": nbig / put_wall / 1e6},
+        "get_concurrent": {"bytes": nall, "s": get_wall,
+                           "MBps": nall / get_wall / 1e6},
+        "get_degraded_concurrent": {"bytes": nall, "s": deg_wall,
+                                    "MBps": nall / deg_wall / 1e6,
+                                    "offline_disks": dead},
+        "obj4_single_client": {
+            "bytes": obj4, **single,
+            **{k[:-2] + "_MBps": [obj4 / t / 1e6 for t in v]
+               for k, v in single.items()},
+            "main_path_put_s": mp["put_each_s"][4],
+            "main_path_get_s": mp["get_each_s"][4],
+            "main_path_put_MBps": obj4 / mp["put_each_s"][4] / 1e6,
+            "main_path_get_MBps": obj4 / mp["get_each_s"][4] / 1e6,
+        },
+        "list_pages": pages,
+        "launches": {k: v for k, v in launches.items() if v},
+        "batch": {"put": put_batch, "get": get_batch, "get_degraded": deg_batch,
+                  "jobs_per_flush": {
+                      name: (x["jobs"] / x["flushes"] if x["flushes"] else None)
+                      for name, x in (("put", put_batch), ("get", get_batch),
+                                      ("get_degraded", deg_batch))}},
+        "bucket_doc": {
+            "write_launches": doc_write,
+            "read_launches_each": doc_read,
+            "reads_in_phase": doc["found"],
+            "loads_in_phase": doc["loads"],
+            "read_launches_in_phase": {
+                k: v * doc["found"] for k, v in doc_read.items()},
+        },
+        "stages": stats["stages"],
+    }
     return out
 
 
@@ -1886,6 +2291,7 @@ def main() -> int:
         print(f"heal: {json.dumps(hp)}", flush=True)
         mo = modes_phase(dev, work, payloads, written, MODE_RUNS)
         mx = modes_phase(dev, work, payloads, written, MXU_RUNS)
+        s3 = s3_phase(dev, work, payloads, written, mp)
     finally:
         shutil.rmtree(work, ignore_errors=True)
     for label, by_run in (("mode", mo), ("mxu phase", mx)):
@@ -1893,6 +2299,7 @@ def main() -> int:
             for i, r in enumerate(runs):
                 print(f"{label} {formulation} {mode} run {i + 1}: {json.dumps(r)}",
                       flush=True)
+    print(f"s3: {json.dumps(s3)}", flush=True)
     phase_launches = {
         "main": mp["launches"], "heal": hp["launches"],
         "off": mo[("swar", "off")][0]["launches"],

@@ -311,6 +311,7 @@ class BatchingBackend(CodecBackend):
                 len(jobs),
                 sum(j.arrays[0].shape[0] for j in jobs),
                 sum(now - j.created for j in jobs),
+                clients=len({j.client for j in jobs}),
             )
             groups: dict[tuple, list[_Job]] = {}
             for j in jobs:

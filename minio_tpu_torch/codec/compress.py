@@ -11,7 +11,11 @@ unpack_nonzero_groups below restores the full plane on the host,
 bit-identically.
 
 Transparent object compression (the S2 seam of the reference,
-MINIO_TPU_COMPRESS) is not ported yet: the object layer refuses it.
+MINIO_TPU_COMPRESS) is decided here too: ``should_compress`` is the
+write-path predicate (cmd/object-api-utils.go:434 isCompressible).  The
+raw-deflate transform itself comes in slice 8, so the object layer
+refuses exactly the PUTs this predicate admits and stores every other
+one uncompressed, as the JAX package does.
 """
 
 from __future__ import annotations
@@ -22,6 +26,56 @@ import numpy as np
 
 # words per transport group (1 KiB of parity per flag bit)
 PARITY_GROUP_WORDS = 256
+
+MIN_COMPRESS_SIZE = 4 << 10  # tiny objects gain nothing
+
+# extensions/types that are already entropy-coded
+# (cmd/config/compress standard excludes)
+EXCLUDED_EXTENSIONS = frozenset(
+    {
+        ".gz", ".bz2", ".zip", ".rar", ".7z", ".xz", ".zst", ".lz4",
+        ".mp4", ".mkv", ".mov", ".avi", ".webm",
+        ".mp3", ".aac", ".ogg", ".flac",
+        ".jpg", ".jpeg", ".png", ".gif", ".webp", ".heic",
+        ".pdf", ".docx", ".xlsx", ".pptx",
+    }
+)
+EXCLUDED_TYPE_PREFIXES = ("video/", "audio/", "image/")
+EXCLUDED_TYPES = frozenset(
+    {
+        "application/zip", "application/gzip", "application/x-gzip",
+        "application/x-bzip2", "application/x-xz", "application/zstd",
+        "application/x-7z-compressed", "application/x-rar-compressed",
+        "application/pdf",
+    }
+)
+
+
+def enabled() -> bool:
+    """Global compression switch (MINIO_TPU_COMPRESS=on), read per call."""
+    return os.environ.get("MINIO_TPU_COMPRESS", "off") == "on"
+
+
+def should_compress(key: str, content_type: str, size: int) -> bool:
+    """The single write-path predicate: global switch AND per-object
+    compressibility."""
+    return enabled() and is_compressible(key, content_type, size)
+
+
+def is_compressible(key: str, content_type: str, size: int) -> bool:
+    """Whether a PUT would be transparently compressed
+    (isCompressible, object-api-utils.go:434)."""
+    if 0 <= size < MIN_COMPRESS_SIZE:
+        return False
+    dot = key.rfind(".")
+    if dot >= 0 and key[dot:].lower() in EXCLUDED_EXTENSIONS:
+        return False
+    ct = (content_type or "").split(";")[0].strip().lower()
+    if ct in EXCLUDED_TYPES:
+        return False
+    if ct.startswith(EXCLUDED_TYPE_PREFIXES):
+        return False
+    return True
 
 
 def device_compress_mode() -> str:

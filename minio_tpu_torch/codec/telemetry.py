@@ -43,7 +43,8 @@ class KernelStats:
         # (op, backend) -> [calls, bytes, seconds]
         self._ops: "dict[tuple[str, str], list]" = {}
         # batcher occupancy: flushes, jobs, blocks, queue-wait seconds
-        self._batch = [0, 0, 0, 0.0]
+        # flushes, jobs, blocks, wait seconds, flushes merging clients
+        self._batch = [0, 0, 0, 0.0, 0]
         # erasure-layer streams: kind -> [streams, bytes]
         self._streams: "dict[str, list]" = {}
         self._heal_required = 0
@@ -85,13 +86,17 @@ class KernelStats:
             row[2] += seconds
 
     def record_batch_flush(
-        self, jobs: int, blocks: int, wait_s: float
+        self, jobs: int, blocks: int, wait_s: float, clients: int = 1
     ) -> None:
+        """One batcher flush of ``jobs`` jobs submitted by ``clients``
+        distinct threads (requests): more than one is a cross-request
+        merge."""
         with self._mu:
             self._batch[0] += 1
             self._batch[1] += jobs
             self._batch[2] += blocks
             self._batch[3] += wait_s
+            self._batch[4] += clients > 1
 
     def record_stream(self, kind: str, nbytes: int) -> None:
         with self._mu:
@@ -190,6 +195,7 @@ class KernelStats:
                     "jobs": self._batch[1],
                     "blocks": self._batch[2],
                     "wait_seconds": round(self._batch[3], 6),
+                    "multi_client_flushes": self._batch[4],
                 },
                 "streams": [
                     {"kind": kind, "streams": n, "bytes": nbytes}
@@ -249,7 +255,7 @@ class KernelStats:
     def reset(self) -> None:
         with self._mu:
             self._ops.clear()
-            self._batch = [0, 0, 0, 0.0]
+            self._batch = [0, 0, 0, 0.0, 0]
             self._streams.clear()
             self._heal_required = 0
             self._stages.clear()

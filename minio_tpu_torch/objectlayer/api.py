@@ -3,7 +3,7 @@
 The seam between API handlers and storage backends
 (cmd/object-api-interface.go:66-140 ObjectLayer; error types from
 cmd/object-api-errors.go).  This port implements ErasureObjects (one
-erasure set); the S3 front that calls it is ported in a later slice.
+erasure set); the S3 front (server/http.py) calls it.
 """
 
 from __future__ import annotations
@@ -83,6 +83,14 @@ class ObjectInfo:
         return self.mod_time_ns / 1e9
 
 
+@dataclasses.dataclass
+class ListObjectsInfo:
+    is_truncated: bool = False
+    next_marker: str = ""
+    objects: list = dataclasses.field(default_factory=list)
+    prefixes: list = dataclasses.field(default_factory=list)
+
+
 META_BUCKET = ".sys"
 
 
@@ -159,6 +167,12 @@ class ObjectLayer:
         self, bucket: str, object_name: str, version_id: str = "",
         dry_run: bool = False,
     ) -> dict:
+        raise NotImplementedError
+
+    def list_objects(
+        self, bucket: str, prefix: str = "", marker: str = "",
+        delimiter: str = "", max_keys: int = 1000,
+    ) -> ListObjectsInfo:
         raise NotImplementedError
 
     def heal_bucket(self, bucket: str, dry_run: bool = False) -> dict:

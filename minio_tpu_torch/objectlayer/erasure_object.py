@@ -8,11 +8,12 @@ batched device pass in codec/erasure.py, run by the codec backend of the
 set's ``device`` (the card unless the caller names another).
 
 The port carries buckets, PUT, GET (ranges and degraded reads
-included), object info, DELETE and heal (``heal_object`` /
-``heal_bucket``, fed by ``heal_hook`` through heal/background.py).  What
-the JAX package layers on top - transparent compression, SSE, multipart,
-the read cache - raises NotImplementedError naming the slice that ports
-it, instead of being silently skipped.
+included), object info, DELETE, listing (``list_objects`` over the
+disks' ordered walks) and heal (``heal_object`` / ``heal_bucket``, fed
+by ``heal_hook`` through heal/background.py).  What the JAX package
+layers on top - transparent compression of the objects it would
+compress, SSE, multipart, the read cache - raises NotImplementedError
+naming the slice that ports it, instead of being silently skipped.
 """
 
 from __future__ import annotations
@@ -20,7 +21,7 @@ from __future__ import annotations
 import os
 import uuid
 
-from ..codec import backend as backend_mod
+from ..codec import backend as backend_mod, compress as compmod
 from ..codec.erasure import BLOCK_SIZE_V1, Erasure, QuorumError
 from ..dsync.namespace import NamespaceLock
 from ..parallel import iopool
@@ -42,6 +43,7 @@ from .api import (
     BucketInfo,
     BucketNotEmpty,
     BucketNotFound,
+    ListObjectsInfo,
     ObjectInfo,
     ObjectLayer,
     ObjectNotFound,
@@ -234,14 +236,18 @@ class ErasureObjects(ObjectLayer):
     ) -> ObjectInfo:
         if sse is not None:
             raise _unported("server-side encryption", 8)
-        if compress or (
-            compress is None
-            and os.environ.get("MINIO_TPU_COMPRESS", "off") == "on"
-        ):
-            raise _unported("transparent object compression", 8)
         _check_parity_ack()
         check_object_name(object_name)
         self._require_bucket(bucket)
+        # the JAX package's compression decision (erasure_object.py
+        # _put_object): what it would compress is refused here, every
+        # other PUT is stored uncompressed exactly as it stores it
+        if compress is None:
+            compress = compmod.should_compress(
+                object_name, (metadata or {}).get("content-type", ""), size
+            )
+        if compress:
+            raise _unported("transparent object compression", 8)
         with self.nslock.write(bucket, object_name):
             return self._put_object(
                 bucket, object_name, reader, size, metadata, versioned
@@ -614,6 +620,118 @@ class ErasureObjects(ObjectLayer):
             delete_marker=True,
             mod_time_ns=mod_time,
         )
+
+    # ------------------------------------------------------------------
+    # list (merged walk; cmd/erasure-sets.go listing semantics simplified)
+    # ------------------------------------------------------------------
+
+    def _merged_walk(
+        self, bucket, prefix, marker, recursive, inclusive=False
+    ):
+        """K-way lazy merge of the per-disk ordered walks, deduplicated
+        by name (lexicallySortedEntry, erasure-sets.go:842) - nothing is
+        materialized; a page pulls only what it emits."""
+        import heapq
+
+        def safe(gen):
+            # one bad disk ends its stream, not the listing
+            while True:
+                try:
+                    yield next(gen)
+                except StopIteration:
+                    return
+                except Exception:  # noqa: BLE001
+                    return
+
+        its = []
+        for d in self._online_disks():
+            if d is None:
+                continue
+            try:
+                its.append(
+                    safe(
+                        d.walk_sorted(
+                            bucket, prefix, marker,
+                            recursive=recursive, inclusive=inclusive,
+                        )
+                    )
+                )
+            except Exception:  # noqa: BLE001
+                continue
+        last = None
+        for name, is_prefix in heapq.merge(*its):
+            if name == last:
+                continue
+            last = name
+            yield name, is_prefix
+
+    def _list_entries(
+        self, bucket, prefix, marker, delimiter, inclusive=False
+    ):
+        """Shared listing front half: merged walk filtered down to
+        ("prefix", name) / ("key", name) entries in lexical order, with
+        delimiter folding.  Pagination/truncation stays with callers
+        (they differ: one entry per key vs one per version)."""
+        # delimiter "/" maps onto single-level directory reads; other
+        # delimiters need the full recursive stream (tree-walk.go)
+        recursive = delimiter != "/"
+        seen_prefixes: set[str] = set()
+        for name, is_prefix in self._merged_walk(
+            bucket, prefix, marker, recursive, inclusive=inclusive
+        ):
+            if is_prefix:
+                if name <= marker:
+                    continue
+                yield "prefix", name
+                continue
+            if prefix and not name.startswith(prefix):
+                continue
+            if delimiter and recursive:
+                # non-"/" delimiter: fold names into common prefixes
+                rest = name[len(prefix):]
+                di = rest.find(delimiter)
+                if di >= 0:
+                    cp = prefix + rest[: di + len(delimiter)]
+                    if cp <= marker:
+                        continue
+                    if cp not in seen_prefixes:
+                        seen_prefixes.add(cp)
+                        yield "prefix", cp
+                    continue
+            if marker and (name < marker or (name == marker and not inclusive)):
+                continue
+            yield "key", name
+
+    def list_objects(
+        self, bucket, prefix="", marker="", delimiter="", max_keys=1000,
+    ) -> ListObjectsInfo:
+        self._require_bucket(bucket)
+        max_keys = max(0, min(max_keys, 1000))
+        out = ListObjectsInfo()
+        count = 0
+        last_key = ""
+        for kind, name in self._list_entries(
+            bucket, prefix, marker, delimiter
+        ):
+            if count >= max_keys:
+                out.is_truncated = True
+                out.next_marker = last_key
+                break
+            if kind == "prefix":
+                out.prefixes.append(name)
+                count += 1
+                last_key = name
+                continue
+            try:
+                fi, _ = self._read_quorum_fileinfo(bucket, name)
+            except Exception:  # noqa: BLE001
+                continue
+            if fi.deleted:
+                continue
+            out.objects.append(self._to_object_info(bucket, name, fi))
+            count += 1
+            last_key = name
+        return out
 
     # ------------------------------------------------------------------
     # heal (erasure-healing.go:227 healObject)

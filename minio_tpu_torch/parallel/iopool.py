@@ -277,6 +277,11 @@ class IOPool:
 
     # -- lifecycle --------------------------------------------------------
 
+    def queued_jobs(self) -> int:
+        """Jobs waiting (not yet dequeued) across every band - the
+        server plane's codec-stage queue-depth gauge samples this."""
+        return sum(len(q.items) for q in self._queues)
+
     def shutdown(self, timeout: float = 10.0) -> None:
         """Drain every queue and join the workers (tests / reset)."""
         with self._mu:
@@ -432,6 +437,14 @@ def get_pool() -> IOPool:
                 _POOL = IOPool()
             p = _POOL
     return p
+
+
+def queued_depth() -> int:
+    """Codec-stage queue-depth gauge for the server plane - reads the
+    singleton without instantiating it (a scrape must not boot an I/O
+    plane)."""
+    p = _POOL
+    return p.queued_jobs() if p is not None else 0
 
 
 def stream_io_key(stream):

@@ -21,6 +21,18 @@ class VolInfo:
     created_ns: int
 
 
+@dataclasses.dataclass
+class DiskInfo:
+    total: int
+    free: int
+    used: int
+    root_disk: bool
+    endpoint: str
+    mount_path: str
+    disk_id: str
+    error: str = ""
+
+
 class ShardWriter:
     """Streaming shard-file writer handle (CreateFile stream)."""
 
@@ -116,6 +128,25 @@ class StorageAPI:
         """Atomically move a staged object dir into place and commit its
         xl.meta version (the RenameData crash-consistency point,
         xl-storage.go:2000)."""
+        raise NotImplementedError
+
+    # ---- listing (cmd/tree-walk.go) --------------------------------------
+    def list_dir(self, volume: str, dir_path: str, count: int = -1) -> list[str]:
+        raise NotImplementedError
+
+    def walk(self, volume: str, prefix: str = ""):
+        """Yield object paths (directories holding xl.meta) under prefix."""
+        raise NotImplementedError
+
+    def walk_sorted(
+        self, volume: str, prefix: str = "", marker: str = "",
+        recursive: bool = True, inclusive: bool = False,
+    ):
+        """Yield (name, is_prefix) in lexical order, pruning subtrees
+        outside prefix/after marker (tree-walk.go)."""
+        raise NotImplementedError
+
+    def disk_info(self) -> DiskInfo:
         raise NotImplementedError
 
     # ---- maintenance ----------------------------------------------------

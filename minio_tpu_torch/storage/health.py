@@ -44,6 +44,7 @@ _log = logger("diskhealth")
 HEALTHY = 0
 SUSPECT = 1
 TRIPPED = 2
+STATE_NAMES = {HEALTHY: "healthy", SUSPECT: "suspect", TRIPPED: "tripped"}
 
 
 def _env_float(name: str, default: float, lo: float, hi: float) -> float:
@@ -183,6 +184,23 @@ class DiskHealth:
         ):
             return SUSPECT
         return HEALTHY
+
+    def snapshot(self) -> dict:
+        """The breaker's state for the metrics plane (server/metrics.py);
+        this port keeps no per-disk read quantiles, only the pool's."""
+        now = time.monotonic()
+        with self._mu:
+            out = {
+                "state": STATE_NAMES[self._state_locked(now)],
+                "consec_errors": self._consec_errors,
+                "slow_strikes": self._slow_strikes,
+                "trips": self.trips,
+                "recoveries": self.recoveries,
+                "probing": self._probing,
+            }
+            if self._state == TRIPPED:
+                out["retry_in_seconds"] = round(max(0.0, self._until - now), 3)
+            return out
 
     # -- observations -----------------------------------------------------
 
@@ -337,6 +355,23 @@ class HealthRegistry:
         self.get_disk(endpoint).record_shard_read(
             seconds, ok, censored=censored, pool_p99=pool_p99
         )
+
+    def snapshot(self) -> dict:
+        with self._mu:
+            disks = dict(self._disks)
+            p99 = self._pool_p99.value()
+        return {
+            "pool": {
+                "read_p99_seconds": round(p99, 6) if p99 is not None else None,
+            },
+            "disks": {ep: dh.snapshot() for ep, dh in sorted(disks.items())},
+        }
+
+    def states(self) -> "dict[str, int]":
+        """endpoint -> numeric state (Prometheus miniotpu_disk_state)."""
+        with self._mu:
+            disks = dict(self._disks)
+        return {ep: dh.state() for ep, dh in disks.items()}
 
     def hedge_deadline(self) -> "float | None":
         """Seconds a shard read may run before the GET path hedges.

@@ -21,7 +21,7 @@ import shutil
 import uuid
 
 from . import errors
-from .api import ShardReader, ShardWriter, StorageAPI, VolInfo
+from .api import DiskInfo, ShardReader, ShardWriter, StorageAPI, VolInfo
 from .meta import FileInfo, XLMeta
 
 SYS_DIR = ".sys"
@@ -80,6 +80,20 @@ class XLStorage(StorageAPI):
 
     def endpoint(self) -> str:
         return self._endpoint
+
+    def disk_info(self) -> DiskInfo:
+        st = os.statvfs(self.root)
+        total = st.f_blocks * st.f_frsize
+        free = st.f_bavail * st.f_frsize
+        return DiskInfo(
+            total=total,
+            free=free,
+            used=total - free,
+            root_disk=False,
+            endpoint=self._endpoint,
+            mount_path=self.root,
+            disk_id="",
+        )
 
     # ---- path helpers ---------------------------------------------------
 
@@ -162,6 +176,24 @@ class XLStorage(StorageAPI):
             raise errors.VolumeNotEmpty(volume) from None
 
     # ---- raw files ------------------------------------------------------
+
+    def list_dir(self, volume: str, dir_path: str, count: int = -1) -> list[str]:
+        self._require_vol(volume)
+        full = self._file_path(volume, dir_path) if dir_path else self._vol_path(volume)
+        try:
+            names = sorted(os.listdir(full))
+        except FileNotFoundError:
+            raise errors.FileNotFound(dir_path) from None
+        except NotADirectoryError:
+            raise errors.IsNotRegular(dir_path) from None
+        out = []
+        for nm in names:
+            if os.path.isdir(os.path.join(full, nm)):
+                nm += "/"
+            out.append(nm)
+            if 0 <= count <= len(out):
+                break
+        return out
 
     def read_all(self, volume: str, path: str) -> bytes:
         self._require_vol(volume)
@@ -296,6 +328,107 @@ class XLStorage(StorageAPI):
         shutil.rmtree(src_dir, ignore_errors=True)
 
     # ---- maintenance ----------------------------------------------------
+
+    def walk(self, volume: str, prefix: str = ""):
+        """Yield object paths (dirs containing xl.meta) under prefix."""
+        vol = self._require_vol(volume)
+        base = (
+            os.path.join(vol, *prefix.split("/")) if prefix else vol
+        )
+        if not os.path.isdir(base):
+            return
+        for dirpath, dirnames, filenames in os.walk(base):
+            if XL_META in filenames:
+                rel = os.path.relpath(dirpath, vol).replace(os.sep, "/")
+                dirnames[:] = []  # don't descend into data dirs
+                yield rel
+
+    # ---- ordered bounded walk (tree-walk.go analogue) -------------------
+
+    def walk_sorted(
+        self,
+        volume: str,
+        prefix: str = "",
+        marker: str = "",
+        recursive: bool = True,
+        inclusive: bool = False,
+    ):
+        """Yield ``(name, is_prefix)`` in lexical order, lazily.
+
+        The scalable-listing primitive (cmd/tree-walk.go doTreeWalk):
+        directories are read in sorted order and subtrees that cannot
+        contain a name matching ``prefix`` and > ``marker`` are pruned,
+        so one page of results touches only the directories it needs.
+        ``recursive=False`` lists a single level (delimiter="/" mode):
+        plain directories come back once as ("dir/", True) without
+        descending.  ``inclusive`` keeps names equal to the marker
+        (version listings re-visit the marker key).
+        """
+        vol = self._require_vol(volume)
+        if recursive:
+            yield from self._walk_rec(vol, "", prefix, marker, inclusive)
+            return
+        base, _, leaf = prefix.rpartition("/")
+        base_fs = (
+            os.path.join(vol, *base.split("/")) if base else vol
+        )
+        if base and os.path.isfile(os.path.join(base_fs, XL_META)):
+            # the prefix points INSIDE an object's directory: its
+            # children are erasure data dirs, not namespace entries -
+            # leaking them as CommonPrefixes exposes internal layout
+            return
+        try:
+            entries = sorted(os.listdir(base_fs))
+        except (FileNotFoundError, NotADirectoryError):
+            return
+        basep = base + "/" if base else ""
+        for e in entries:
+            if leaf and not e.startswith(leaf):
+                continue
+            full = os.path.join(base_fs, e)
+            if not os.path.isdir(full):
+                continue
+            if os.path.isfile(os.path.join(full, XL_META)):
+                name = basep + e
+                if name > marker or (inclusive and name == marker):
+                    yield (name, False)
+            else:
+                cp = basep + e + "/"
+                if cp > marker:
+                    yield (cp, True)
+
+    def _walk_rec(self, vol, rel, prefix, marker, inclusive):
+        base = os.path.join(vol, *rel.split("/")) if rel else vol
+        try:
+            entries = sorted(os.listdir(base))
+        except (FileNotFoundError, NotADirectoryError):
+            return
+        for e in entries:
+            name = f"{rel}/{e}" if rel else e
+            full = os.path.join(base, e)
+            if not os.path.isdir(full):
+                continue
+            if os.path.isfile(os.path.join(full, XL_META)):
+                if prefix and not name.startswith(prefix):
+                    continue
+                if name > marker or (inclusive and name == marker):
+                    yield (name, False)
+                continue  # object dirs hold data dirs, not children
+            sub = name + "/"
+            # prefix prune: the subtree's names all start with `sub`
+            if prefix and not (
+                sub.startswith(prefix) or prefix.startswith(sub)
+            ):
+                continue
+            # marker prune: every name under `sub` is < marker exactly
+            # when marker doesn't extend `sub` and sorts after it
+            if (
+                marker
+                and not marker.startswith(sub)
+                and sub < marker
+            ):
+                continue
+            yield from self._walk_rec(vol, name, prefix, marker, inclusive)
 
     def verify_file(self, volume: str, path: str, fi: FileInfo) -> None:
         """Deep scan every part's framed blocks against its digests (on

@@ -193,3 +193,30 @@ def test_cuda_backend_raises_without_a_card():
         tbackend.get_backend()
     with pytest.raises(RuntimeError, match="CUDA"):
         tbackend.TorchBackend()
+
+
+@pytest.mark.parametrize("clients", [1, 2])
+def test_batcher_counts_cross_request_flushes(backends, clients):
+    """Jobs of two requests (two submitting threads) merged into one
+    flush count as a multi-client flush; each still gets its own rows,
+    equal to the JAX package's digests."""
+    from minio_tpu_torch.codec.batcher import BatchingBackend, _Job
+
+    jax_be, port_be = backends
+    be = BatchingBackend(port_be, deadline_s=1.0)
+    KERNEL_STATS.reset()
+    try:
+        shards = [_data("random", (1, 12, 1024), seed=s) for s in (5, 6)]
+        jobs = [_Job("digest", (12, 1024), (s,)) for s in shards]
+        jobs[1].client = jobs[0].client + clients - 1
+        with be._cv:  # both queued before the dispatcher looks
+            be._jobs.extend(jobs)
+            be._cv.notify_all()
+        for j, s in zip(jobs, shards):
+            assert j.done.wait(10) and j.error is None
+            assert np.array_equal(j.result, jax_be.digest(s))
+        batch = KERNEL_STATS.snapshot()["batch"]
+        assert (batch["flushes"], batch["jobs"]) == (1, 2)
+        assert batch["multi_client_flushes"] == (clients > 1)
+    finally:
+        be.shutdown()

@@ -208,8 +208,11 @@ def test_unported_features_raise(sets, tmp_path, monkeypatch):
     with pytest.raises(NotImplementedError, match="slice 8"):
         port.put_object("bkt", "z", io.BytesIO(b"x" * 8192), 8192, compress=True)
     monkeypatch.setenv("MINIO_TPU_COMPRESS", "on")
+    # an object the JAX package stores uncompressed (under 4 KiB) is
+    # stored; one it would compress is refused
+    assert port.put_object("bkt", "z", io.BytesIO(b"x"), 1).size == 1
     with pytest.raises(NotImplementedError, match="slice 8"):
-        port.put_object("bkt", "z", io.BytesIO(b"x"), 1)
+        port.put_object("bkt", "z.txt", io.BytesIO(b"x" * 8192), 8192)
     monkeypatch.delenv("MINIO_TPU_COMPRESS")
     with pytest.raises(NotImplementedError, match="slice 8"):
         port.put_object("bkt", "z", io.BytesIO(b"x"), 1, sse=object())
@@ -235,6 +238,48 @@ def test_unported_features_raise(sets, tmp_path, monkeypatch):
     ol = from_reference_disks(jroots, parity_blocks=M, block_size=BLOCK, device="cpu")
     with pytest.raises(NotImplementedError, match="slice 8"):
         _get(ol, "c")
+
+
+# MINIO_TPU_COMPRESS=on: (name, content-type, size) the JAX package stores
+# uncompressed - under MIN_COMPRESS_SIZE, an excluded extension, an
+# excluded type - so the port stores them identically
+UNCOMPRESSED = [
+    ("small-1k", "", 1024), ("photo.jpg", "", 3 * BLOCK // 2),
+    ("blob", "image/png", 3 * BLOCK // 2),
+]
+
+
+@pytest.mark.parametrize("name,ctype,size", UNCOMPRESSED,
+                         ids=[u[0] for u in UNCOMPRESSED])
+def test_compress_on_stores_what_the_reference_stores_plain(
+    sets, monkeypatch, name, ctype, size
+):
+    port, ref, troots, jroots = sets
+    monkeypatch.setenv("MINIO_TPU_COMPRESS", "on")
+    data = _payload(size)
+    meta = {"content-type": ctype} if ctype else None
+    port.put_object("bkt", name, io.BytesIO(data), size, metadata=meta)
+    ref.put_object("bkt", name, io.BytesIO(data), size, metadata=meta)
+    for t, j in zip(troots, jroots):
+        assert _part(t, name) == _part(j, name)
+        assert _meta_doc(t, name) == _meta_doc(j, name)
+    assert "x-internal-compression" not in str(_meta_doc(jroots[0], name))
+    assert _get(port, name) == data
+
+
+def test_compress_on_refuses_what_the_reference_compresses(
+    sets, monkeypatch
+):
+    port, ref, _troots, jroots = sets
+    monkeypatch.setenv("MINIO_TPU_COMPRESS", "on")
+    size = 64 * 1024
+    data = b"compressible text " * (size // 18) + b"x" * (size % 18)
+    ref.put_object("bkt", "notes.txt", io.BytesIO(data), size)
+    assert "x-internal-compression" in str(_meta_doc(jroots[0], "notes.txt"))
+    with pytest.raises(NotImplementedError, match="slice 8"):
+        port.put_object("bkt", "notes.txt", io.BytesIO(data), size)
+    with pytest.raises(api.ObjectNotFound):
+        port.get_object_info("bkt", "notes.txt")
 
 
 def test_healthy_get_verifies_each_data_shard_once(monkeypatch):

@@ -6,9 +6,19 @@ module, oversubscribes the cores, and timing tests in the other workers
 then miss their limits.  Each port test module imports the module-scoped
 autouse fixture ``torch_threads``: it caps the threads for the module's
 tests and restores the earlier count after them.
+
+With ``TORCH_TEST_TIMES=<file>`` set, the fixture also appends one JSON
+line per module to that file: the xdist worker, the module's wall-clock
+start and end, its wall seconds, the CPU seconds its worker process
+spent meanwhile (every thread of it: torch's, XLA's, the servers') and
+the worker's OS thread count at the end - the load a port module puts
+beside the timing tests of other workers.
 """
 
 import contextlib
+import json
+import os
+import time
 
 import pytest
 import torch
@@ -27,10 +37,34 @@ def capped_threads(n: int = THREADS):
         torch.set_num_threads(before)
 
 
+def _os_threads() -> int:
+    try:
+        with open("/proc/self/status") as f:
+            for line in f:
+                if line.startswith("Threads:"):
+                    return int(line.split()[1])
+    except OSError:
+        pass
+    return 0
+
+
 @pytest.fixture(autouse=True, scope="module")
-def torch_threads():
+def torch_threads(request):
+    out = os.environ.get("TORCH_TEST_TIMES")
+    t0, c0 = time.time(), time.process_time()
     with capped_threads() as n:
         yield n
+    if out:
+        t1 = time.time()
+        row = {
+            "module": request.module.__name__,
+            "worker": os.environ.get("PYTEST_XDIST_WORKER", "main"),
+            "start": t0, "end": t1, "wall_s": round(t1 - t0, 3),
+            "cpu_s": round(time.process_time() - c0, 3),
+            "os_threads": _os_threads(),
+        }
+        with open(out, "a") as f:
+            f.write(json.dumps(row) + "\n")
 
 
 def test_threads_capped_inside_the_module_and_restored_after(torch_threads):
