@@ -83,7 +83,24 @@
    each, a 404 and the bucket's delete.  K5, K2 and K3 must launch and
    K1 must not; at least one batcher flush must merge jobs of more than
    one client.  Prints the ``s3:`` line.
-8. Prints the kernels JSON line, the card's name and power limit, and as
+8. Multipart and copies, on a fresh S3Server and disks of the same
+   deployment: 4 clients upload a 64 MiB object each as 8 x 8 MiB parts
+   at once, then the 10 MiB + 17 B object goes up as 5 MiB, 5 MiB and
+   17 B parts; ListParts, and each CompleteMultipartUpload alone (no
+   launch; the object's shard files are the staged ``part.N`` files,
+   hashed per disk; the ETag is md5 of the part md5s, "-N"); one 8 MiB
+   part against a single PUT of it by erasure index; an upload listed
+   by ListMultipartUploads, aborted, gone from every disk; GETs by 4
+   clients healthy and with shards 1, 3, 10, 12 offline, and a ranged
+   GET across a part boundary; an UploadPartCopy upload from two
+   ranges plus a part, a 64 MiB CopyObject and a REPLACE self-copy;
+   heal of a multipart object's deleted part files on 4 disks (K6, K1
+   without the pack leg), read through the healed shards;
+   ListObjectVersions paged by one, a POST-policy upload and a quiet
+   multi-delete after which every GET answers 404.  K5 (with merged
+   jobs) covers every part, K3 runs on the degraded GETs, K2 and K5 on
+   the copies.  Prints the ``s3_mp:`` line.
+9. Prints the kernels JSON line, the card's name and power limit, and as
    the last line ``{"ok": true, "device": {...}}``.
 
 Exits non-zero, without the result lines, when there is no CUDA device or
@@ -1952,6 +1969,513 @@ def s3_phase(dev, work: str, payloads: list, written: dict, mp: dict) -> dict:
     return out
 
 
+# -- phase 8: multipart, copies, versions, multi-delete, POST policy ----------
+
+MP_PART = 8 << 20  # the AWS CLI's multipart chunk
+MP_MIN_PART = 5 << 20  # S3's minimum part (the object layer's default)
+MP_SHARDS_OFF = (1, 3, 10, 12)
+
+
+def _mp_etag(parts: list) -> str:
+    import hashlib
+
+    md5s = b"".join(hashlib.md5(p).digest() for p in parts)
+    return f"{hashlib.md5(md5s).hexdigest()}-{len(parts)}"
+
+
+def _xml_text(body: bytes, tag: str) -> list:
+    import xml.etree.ElementTree as ET
+
+    root = ET.fromstring(body)
+    ns = root.tag[: root.tag.index("}") + 1] if root.tag.startswith("{") else ""
+    return [e.text or "" for e in root.iter(f"{ns}{tag}")]
+
+
+def _complete_body(etags: list) -> bytes:
+    return ("<CompleteMultipartUpload>" + "".join(
+        f'<Part><PartNumber>{n}</PartNumber><ETag>"{e}"</ETag></Part>'
+        for n, e in enumerate(etags, 1)) + "</CompleteMultipartUpload>").encode()
+
+
+def _post_policy_form(signer, bucket: str, key: str, data: bytes):
+    """(body, content type) of a browser form upload whose policy is
+    signed with the signer's key (SigV4 POST policy)."""
+    import base64
+    import datetime
+    import hashlib
+    import hmac
+
+    from minio_tpu_torch.server import auth
+
+    amz_date = signer._now()
+    scope = f"{amz_date[:8]}/{signer.region}/s3/aws4_request"
+    credential = f"{signer.ak}/{scope}"
+    exp = (datetime.datetime.now(datetime.timezone.utc)
+           + datetime.timedelta(seconds=600)).strftime("%Y-%m-%dT%H:%M:%S.000Z")
+    policy = base64.b64encode(json.dumps({"expiration": exp, "conditions": [
+        {"bucket": bucket}, ["eq", "$key", key],
+        {"x-amz-credential": credential}, {"x-amz-date": amz_date},
+        {"x-amz-algorithm": auth.SIGN_V4_ALGORITHM},
+    ]}).encode()).decode()
+    skey = auth._signing_key(signer.sk, amz_date[:8], signer.region, "s3")
+    fields = {
+        "key": key, "policy": policy,
+        "x-amz-algorithm": auth.SIGN_V4_ALGORITHM,
+        "x-amz-credential": credential, "x-amz-date": amz_date,
+        "x-amz-signature": hmac.new(skey, policy.encode(),
+                                    hashlib.sha256).hexdigest(),
+    }
+    boundary = "----chipsmoke"
+    body = bytearray()
+    for k, v in fields.items():
+        body += (f"--{boundary}\r\nContent-Disposition: form-data; "
+                 f'name="{k}"\r\n\r\n{v}\r\n').encode()
+    body += (f"--{boundary}\r\nContent-Disposition: form-data; "
+             f'name="file"; filename="f.bin"\r\n'
+             f"Content-Type: application/octet-stream\r\n\r\n").encode()
+    body += data + f"\r\n--{boundary}--\r\n".encode()
+    return bytes(body), f"multipart/form-data; boundary={boundary}"
+
+
+def _staged_hashes(roots: list, upload_id: str, nparts: int) -> list:
+    """Per disk: the sha256 of each staged ``part.N`` (None if absent)."""
+    import hashlib
+
+    out = []
+    for r in roots:
+        row = []
+        for n in range(1, nparts + 1):
+            p = os.path.join(r, ".sys", "multipart", upload_id, f"part.{n}")
+            try:
+                with open(p, "rb") as f:
+                    row.append(hashlib.sha256(f.read()).hexdigest())
+            except OSError:
+                row.append(None)
+        out.append(row)
+    return out
+
+
+def _object_hashes(roots: list, bucket: str, key: str) -> list:
+    """Per disk: the sha256 of each of the object's ``part.N`` files
+    (None where the disk lacks the object)."""
+    import hashlib
+
+    from minio_tpu_torch.storage import errors as serrors
+    from minio_tpu_torch.storage.xl import XLStorage
+
+    out = []
+    for r in roots:
+        try:
+            fi = XLStorage(r).read_version(bucket, key)
+        except serrors.FileNotFound:
+            out.append(None)
+            continue
+        row = []
+        for part in fi.parts:
+            with open(os.path.join(r, bucket, key, fi.data_dir,
+                                   f"part.{part.number}"), "rb") as f:
+                row.append(hashlib.sha256(f.read()).hexdigest())
+        out.append(row)
+    return out
+
+
+def _by_index(roots: list, bucket: str, key: str, part: int) -> dict:
+    """Erasure index -> bytes of the object's ``part.<part>`` on that
+    index's disk."""
+    from minio_tpu_torch.storage.xl import XLStorage
+
+    out = {}
+    for r in roots:
+        fi = XLStorage(r).read_version(bucket, key)
+        with open(os.path.join(r, bucket, key, fi.data_dir, f"part.{part}"),
+                  "rb") as f:
+            out[fi.erasure.index] = f.read()
+    return out
+
+
+def s3_mp_phase(dev, work: str, payloads: list) -> dict:
+    """Phase 8: multipart uploads, uploads in progress, multipart reads
+    (healthy, degraded, ranged across a part boundary), UploadPartCopy,
+    CopyObject and the self-copy, heal of a multipart object, then
+    ListObjectVersions, a POST-policy upload and a quiet multi-delete -
+    through the port's S3Server (threaded plane) over a fresh
+    ErasureObjects on the card (12 disks, EC 8+4, 10 MiB blocks), by 4
+    SigV4 clients on keep-alive connections."""
+    import hashlib
+    import xml.etree.ElementTree as ET
+
+    import numpy as np
+
+    from minio_tpu_torch.codec.telemetry import KERNEL_STATS
+    from minio_tpu_torch.objectlayer.erasure_object import ErasureObjects
+    from minio_tpu_torch.ops import kernels
+    from minio_tpu_torch.server.http import S3Server
+    from minio_tpu_torch.storage.xl import XLStorage
+
+    roots = [os.path.join(work, f"s3mpdisk{i}") for i in range(N)]
+    ol = ErasureObjects([XLStorage(r) for r in roots], parity_blocks=M,
+                        block_size=BLOCK)
+    if getattr(ol, "min_part_size", MP_MIN_PART) != MP_MIN_PART:
+        fail("S3 mp phase: the object layer's minimum part is not 5 MiB")
+    srv = S3Server(ol, address="127.0.0.1:0").start()
+    host, port = srv.host, srv.port
+    rng = np.random.default_rng(SEED + 8)
+    objs = {f"mp{c}": rng.bytes(S3_BIG) for c in range(S3_CLIENTS)}
+    objs["mp-small"] = payloads[4]  # the 10 MiB + 17 B object
+    splits = {k: [v[i:i + MP_PART] for i in range(0, len(v), MP_PART)]
+              for k, v in objs.items() if k != "mp-small"}
+    small = objs["mp-small"]
+    splits["mp-small"] = [small[:MP_MIN_PART],
+                          small[MP_MIN_PART:2 * MP_MIN_PART],
+                          small[2 * MP_MIN_PART:]]
+    if [len(p) for p in splits["mp-small"]] != [MP_MIN_PART, MP_MIN_PART, 17]:
+        fail("S3 mp phase: the 10 MiB + 17 B object did not split 5/5/17")
+    one = S3Signer(host, port)
+    out: dict = {}
+
+    def req(method, path, query=None, body=b"", headers=None, want=200,
+            what="", **kw):
+        st, h, b = one.request(method, path, query, body, headers, **kw)
+        if st != want:
+            fail(f"S3 mp phase: {what or method + ' ' + path}: {st} {b[:300]!r}")
+        return h, b
+
+    def launched() -> dict:
+        return dict(kernels.LAUNCHES)
+
+    def delta(a: dict, b: dict) -> dict:
+        return {k: b[k] - a.get(k, 0) for k in b if b[k] != a.get(k, 0)}
+
+    try:
+        kernels.reset_launches()
+        KERNEL_STATS.reset()
+        t_phase = time.monotonic()
+        req("PUT", "/mpb", what="bucket create")
+
+        # -- 1. multipart upload: 4 clients, 8 x 8 MiB parts each, at once
+        uploads: dict = {}
+
+        def upload_parts(signer, key):
+            st, _h, b = signer.request("POST", f"/mpb/{key}", {"uploads": ""})
+            if st != 200:
+                fail(f"S3 mp phase: initiate {key}: {st} {b[:200]!r}")
+            uid = _xml_text(b, "UploadId")[0]
+            etags = []
+            for n, part in enumerate(splits[key], 1):
+                st, h, b = signer.request(
+                    "PUT", f"/mpb/{key}",
+                    {"partNumber": str(n), "uploadId": uid}, part,
+                    unsigned_payload=True)
+                if st != 200:
+                    fail(f"S3 mp phase: part {n} of {key}: {st} {b[:200]!r}")
+                etags.append(h["etag"].strip('"'))
+            uploads[key] = (uid, etags)
+            return key
+
+        l0, b0 = launched(), KERNEL_STATS.snapshot()["batch"]
+        put_wall, _ = _in_clients(
+            host, port, [[f"mp{c}"] for c in range(S3_CLIENTS)], upload_parts)
+        l1, b1 = launched(), KERNEL_STATS.snapshot()["batch"]
+        nparts = sum(len(splits[f"mp{c}"]) for c in range(S3_CLIENTS))
+        put_launch = delta(l0, l1)
+        put_batch = {k: b1[k] - b0[k]
+                     for k in ("flushes", "jobs", "multi_client_flushes")}
+        # each part is one encode job; a flush that merges jobs of
+        # several clients encodes them in one K5 launch
+        merged = put_batch["jobs"] - put_batch["flushes"]
+        k5 = put_launch.get("encode_pack_pipelined", 0)
+        if k5 <= 0 or k5 + merged < nparts:
+            fail(f"S3 mp phase: {k5} K5 launches (+{merged} merged jobs) for "
+                 f"{nparts} parts")
+        for name in ("encode_pack", "encode_pack[mxu]"):
+            if put_launch.get(name):
+                fail(f"S3 mp phase: kernel {name} launched on the part PUTs")
+        # the small object alone: one K5 launch per part
+        lsm = launched()
+        upload_parts(one, "mp-small")
+        small_launch = delta(lsm, launched())
+        if small_launch.get("encode_pack_pipelined", 0) < 3:
+            fail(f"S3 mp phase: the 3-part upload launched {small_launch}")
+
+        # a disk whose staged part is missing - a write that lost a race
+        # with another request's pruning of .sys/tmp (XLStorage, in both
+        # packages) - must lack the completed object; the others must
+        # hold exactly the staged files
+        complete_s, staged, short = {}, {}, {}
+        for key in sorted(uploads):
+            uid, etags = uploads[key]
+            _h, b = req("GET", f"/mpb/{key}", {"uploadId": uid},
+                        what=f"ListParts {key}")
+            want = [hashlib.md5(p).hexdigest() for p in splits[key]]
+            if [e.strip('"') for e in _xml_text(b, "ETag")] != want or etags != want:
+                fail(f"S3 mp phase: ListParts of {key} disagrees with the parts")
+            staged[key] = _staged_hashes(roots, uid, len(etags))
+            lc = launched()
+            t0 = time.monotonic()
+            _h, b = req("POST", f"/mpb/{key}", {"uploadId": uid},
+                        _complete_body(etags), what=f"Complete {key}")
+            complete_s[key] = time.monotonic() - t0
+            if delta(lc, launched()):
+                fail(f"S3 mp phase: CompleteMultipartUpload of {key} launched "
+                     f"{delta(lc, launched())}")
+            etag = _xml_text(b, "ETag")[0].strip('"')
+            if etag != _mp_etag(splits[key]):
+                fail(f"S3 mp phase: ETag of {key} {etag} != {_mp_etag(splits[key])}")
+            for d, (got, want) in enumerate(zip(
+                    _object_hashes(roots, "mpb", key), staged[key])):
+                if None in want:
+                    short.setdefault(key, []).append(d)
+                    if got is not None:
+                        fail(f"S3 mp phase: {key} completed on disk {d}, "
+                             "which lacks staged parts")
+                elif got != want:
+                    fail(f"S3 mp phase: {key}'s shard files on disk {d} are "
+                         "not the staged ones")
+        # the set's own repair for a write that missed disks: heal them
+        # before anything reads with disks offline
+        lr = launched()
+        for key, disks in short.items():
+            dist_k = XLStorage(roots[0]).read_version("mpb", key).erasure.distribution
+            res = ol.heal_object("mpb", key)
+            if sorted(res["healed"]) != sorted(dist_k[d] - 1 for d in disks):
+                fail(f"S3 mp phase: repair of {key} healed {res['healed']}")
+        repair_launch = delta(lr, launched())
+        # one 8 MiB part against a single put_object of the same bytes
+        ol.put_object("mpb", "single8", io.BytesIO(splits["mp0"][0]), MP_PART)
+        if _by_index(roots, "mpb", "mp0", 1) != _by_index(roots, "mpb",
+                                                          "single8", 1):
+            fail("S3 mp phase: part 1 of mp0 differs from a single PUT of it")
+        ol.delete_object("mpb", "single8")
+
+        # -- 2. uploads in progress
+        _h, b = req("POST", "/mpb/pending", {"uploads": ""})
+        pending = _xml_text(b, "UploadId")[0]
+        req("PUT", "/mpb/pending", {"partNumber": "1", "uploadId": pending},
+            b"p" * 1024)
+        _h, b = req("GET", "/mpb", {"uploads": ""})
+        if _xml_text(b, "UploadId") != [pending]:
+            fail(f"S3 mp phase: ListMultipartUploads {_xml_text(b, 'UploadId')}")
+        req("DELETE", "/mpb/pending", {"uploadId": pending}, want=204)
+        _h, b = req("GET", "/mpb", {"uploads": ""})
+        if _xml_text(b, "UploadId"):
+            fail("S3 mp phase: the aborted upload is still listed")
+        for r in roots:
+            if os.path.exists(os.path.join(r, ".sys", "multipart", pending)):
+                fail(f"S3 mp phase: the aborted upload's dir remains on {r}")
+
+        # -- 3. reading multipart objects, healthy and degraded
+        sha = {k: hashlib.sha256(v).digest() for k, v in objs.items()}
+
+        def get(signer, key):
+            st, _h, body = signer.request("GET", f"/mpb/{key}")
+            if st != 200 or hashlib.sha256(body).digest() != sha[key]:
+                fail(f"S3 mp phase: GET {key}: {st}, body differs from its source")
+            return len(body)
+
+        keys = sorted(objs)
+        get_jobs = [keys[c::S3_CLIENTS] for c in range(S3_CLIENTS)]
+        lo = MP_PART - 100
+        rng_hdr = {"range": f"bytes={lo}-{MP_PART + 99}"}
+
+        def ranged(what):
+            st, _h, got = one.request("GET", "/mpb/mp1", headers=rng_hdr)
+            if st != 206 or got != objs["mp1"][lo:MP_PART + 100]:
+                fail(f"S3 mp phase: {what} ranged GET across a part boundary: {st}")
+
+        get_wall, sizes = _in_clients(host, port, get_jobs, get)
+        ranged("healthy")
+        dist = XLStorage(roots[0]).read_version("mpb", "mp-small").erasure.distribution
+        dead = sorted(d for d in range(N) if dist[d] in MP_SHARDS_OFF)
+        live = list(ol.disks)
+        for d in dead:
+            ol.disks[d] = None
+        try:
+            ld = launched()
+            deg_wall, _ = _in_clients(host, port, get_jobs, get)
+            ranged("degraded")
+            deg_launch = delta(ld, launched())
+            if deg_launch.get("gf_matmul_words", 0) <= 0:
+                fail("S3 mp phase: the degraded GETs reconstructed nothing")
+        finally:
+            ol.disks[:] = live
+        nget = sum(sizes)
+
+        # -- 4. copies: UploadPartCopy, CopyObject, self-copy
+        lcp = launched()
+        t0 = time.monotonic()
+        _h, b = req("POST", "/mpb/assembled", {"uploads": ""})
+        asm = _xml_text(b, "UploadId")[0]
+        # 7 MiB across mp2's first part boundary, mp-small's first 5 MiB
+        r1 = (MP_PART // 2, MP_PART // 2 + MP_MIN_PART + MP_PART // 4 - 1)
+        r2 = (0, MP_MIN_PART - 1)
+        tail = rng.bytes(MP_PART // 8)
+        asm_parts = [objs["mp2"][r1[0]:r1[1] + 1],
+                     objs["mp-small"][r2[0]:r2[1] + 1], tail]
+        for n, (src, r) in enumerate((("mp2", r1), ("mp-small", r2)), 1):
+            _h, b = req("PUT", "/mpb/assembled",
+                        {"partNumber": str(n), "uploadId": asm},
+                        headers={"x-amz-copy-source": f"/mpb/{src}",
+                                 "x-amz-copy-source-range": f"bytes={r[0]}-{r[1]}"},
+                        what=f"UploadPartCopy {n}")
+            if _xml_text(b, "ETag")[0].strip('"') != hashlib.md5(
+                    asm_parts[n - 1]).hexdigest():
+                fail(f"S3 mp phase: UploadPartCopy {n} ETag")
+        req("PUT", "/mpb/assembled", {"partNumber": "3", "uploadId": asm}, tail)
+        _h, b = req("POST", "/mpb/assembled", {"uploadId": asm},
+                    _complete_body([hashlib.md5(p).hexdigest()
+                                    for p in asm_parts]))
+        upc_wall = time.monotonic() - t0
+        asm_body = b"".join(asm_parts)
+        _h, got = req("GET", "/mpb/assembled")
+        if got != asm_body:
+            fail("S3 mp phase: the UploadPartCopy object differs from its ranges")
+        t0 = time.monotonic()
+        _h, b = req("PUT", "/mpb/copy-mp3",
+                    headers={"x-amz-copy-source": "/mpb/mp3"},
+                    what="CopyObject")
+        copy_wall = time.monotonic() - t0
+        _h, got = req("GET", "/mpb/copy-mp3")
+        if hashlib.sha256(got).digest() != sha["mp3"]:
+            fail("S3 mp phase: the CopyObject copy differs from its source")
+        kib = rng.bytes(1024)
+        req("PUT", "/mpb/kib", body=kib, headers={"x-amz-meta-v": "1"})
+        req("PUT", "/mpb/kib", headers={
+            "x-amz-copy-source": "/mpb/kib",
+            "x-amz-metadata-directive": "REPLACE", "x-amz-meta-v": "2"},
+            what="self-copy")
+        h, got = req("GET", "/mpb/kib")
+        if got != kib or h.get("x-amz-meta-v") != "2":
+            fail(f"S3 mp phase: self-copy gave {h.get('x-amz-meta-v')!r}")
+        copy_launch = delta(lcp, launched())
+        for name in ("phash256_batched", "encode_pack_pipelined"):
+            if copy_launch.get(name, 0) <= 0:
+                fail(f"S3 mp phase: the copies never launched {name}")
+
+        # -- 5. heal a multipart object
+        hdist = XLStorage(roots[0]).read_version("mpb", "mp0").erasure.distribution
+        hurt = sorted(d for d in range(N) if hdist[d] in MP_SHARDS_OFF)
+        saved = {}
+        for d in hurt:
+            fi = XLStorage(roots[d]).read_version("mpb", "mp0")
+            ddir = os.path.join(roots[d], "mpb", "mp0", fi.data_dir)
+            for name in sorted(os.listdir(ddir)):
+                with open(os.path.join(ddir, name), "rb") as f:
+                    saved[(d, name)] = f.read()
+                os.remove(os.path.join(ddir, name))
+        lh = launched()
+        t0 = time.monotonic()
+        res = ol.heal_object("mpb", "mp0")
+        heal_s = time.monotonic() - t0
+        heal_launch = delta(lh, launched())
+        want = sorted(s - 1 for s in MP_SHARDS_OFF)
+        if res["healed"] != want:
+            fail(f"S3 mp phase: heal_object healed {res['healed']}, want {want}")
+        for name in ("verify_reconstruct_pipelined", "encode_pack[group=0]"):
+            if heal_launch.get(name, 0) <= 0:
+                fail(f"S3 mp phase: heal never launched {name}")
+        for (d, name), data in saved.items():
+            fi = XLStorage(roots[d]).read_version("mpb", "mp0")
+            with open(os.path.join(roots[d], "mpb", "mp0", fi.data_dir, name),
+                      "rb") as f:
+                if f.read() != data:
+                    fail(f"S3 mp phase: healed {name} on disk {d} differs")
+        others = [d for d in range(N) if d not in hurt][:4]
+        for d in others:
+            ol.disks[d] = None
+        try:
+            get(one, "mp0")
+        finally:
+            ol.disks[:] = live
+
+        # -- 6. versions, POST policy, multi-delete
+        req("PUT", "/mpver", what="versioned bucket create")
+        req("PUT", "/mpver", {"versioning": ""},
+            b"<VersioningConfiguration><Status>Enabled</Status>"
+            b"</VersioningConfiguration>")
+        req("PUT", "/mpver/k", body=b"v1")
+        req("PUT", "/mpver/k", body=b"v2-longer")
+        req("DELETE", "/mpver/k", want=204)
+        seen, km, vm = [], "", ""
+        for _ in range(10):
+            q = {"versions": "", "max-keys": "1"}
+            if km:
+                q.update({"key-marker": km, "version-id-marker": vm})
+            _h, b = req("GET", "/mpver", q)
+            root = ET.fromstring(b)
+            ns = root.tag[: root.tag.index("}") + 1]
+            for e in root:
+                if e.tag in (f"{ns}Version", f"{ns}DeleteMarker"):
+                    seen.append((e.tag[len(ns):], e.findtext(f"{ns}IsLatest"),
+                                 e.findtext(f"{ns}Size")))
+            if root.findtext(f"{ns}IsTruncated") != "true":
+                break
+            km = root.findtext(f"{ns}NextKeyMarker")
+            vm = root.findtext(f"{ns}NextVersionIdMarker")
+        want_v = [("DeleteMarker", "true", None), ("Version", "false", "9"),
+                  ("Version", "false", "2")]
+        if seen != want_v:
+            fail(f"S3 mp phase: ListObjectVersions paged {seen} != {want_v}")
+        form_data = rng.bytes(3000)
+        body, ctype = _post_policy_form(one, "mpb", "posted", form_data)
+        req("POST", "/mpb", body=body, headers={"content-type": ctype},
+            anonymous=True, want=204, what="POST policy upload")
+        _h, got = req("GET", "/mpb/posted")
+        if got != form_data:
+            fail("S3 mp phase: the POST-policy object differs from the form's")
+        _h, b = req("GET", "/mpb", {"list-type": "2"})
+        all_keys = _xml_text(b, "Key")
+        dbody = ("<Delete><Quiet>true</Quiet>" + "".join(
+            f"<Object><Key>{k}</Key></Object>" for k in all_keys)
+            + "</Delete>").encode()
+        _h, b = req("POST", "/mpb", {"delete": ""}, dbody, what="multi-delete")
+        if _xml_text(b, "Key"):
+            fail(f"S3 mp phase: quiet multi-delete answered {b[:300]!r}")
+        for k in all_keys:
+            req("GET", f"/mpb/{k}", want=404, what=f"GET {k} after multi-delete")
+        phase_s = time.monotonic() - t_phase
+        launches = {k: v for k, v in kernels.LAUNCHES.items() if v}
+        stats = KERNEL_STATS.snapshot()
+    finally:
+        one.close()
+        srv.shutdown()
+        for r in roots:
+            shutil.rmtree(r, ignore_errors=True)
+
+    nput = sum(len(objs[f"mp{c}"]) for c in range(S3_CLIENTS))
+    batch = stats["batch"]
+    out = {
+        "clients": S3_CLIENTS,
+        "objects": len(objs),
+        "parts": nparts + 3,
+        "phase_s": phase_s,
+        "mp_put_concurrent": {"bytes": nput, "s": put_wall,
+                              "MBps": nput / put_wall / 1e6,
+                              "parts": nparts, "k5_launches": k5,
+                              "batch": put_batch},
+        "complete_s": complete_s,
+        "get_concurrent": {"bytes": nget, "s": get_wall,
+                           "MBps": nget / get_wall / 1e6},
+        "get_degraded_concurrent": {"bytes": nget, "s": deg_wall,
+                                    "MBps": nget / deg_wall / 1e6,
+                                    "offline_disks": dead},
+        "copy_object": {"bytes": len(objs["mp3"]), "s": copy_wall,
+                        "MBps": len(objs["mp3"]) / copy_wall / 1e6},
+        "upload_part_copy": {"bytes": len(asm_body), "s": upc_wall,
+                             "MBps": len(asm_body) / upc_wall / 1e6},
+        "heal_object_s": heal_s,
+        "short_writes": short,
+        "launches": launches,
+        "launches_by_step": {"part_puts": put_launch, "small_upload": small_launch,
+                             "repair": repair_launch,
+                             "get_degraded": deg_launch, "copies": copy_launch,
+                             "heal": heal_launch},
+        "flushes": {"multi_client": batch["multi_client_flushes"],
+                    "total": batch["flushes"], "jobs": batch["jobs"]},
+        "stages": stats["stages"],
+    }
+    return out
+
+
 # the TPU function each kernel replaces: encode_pack_fused (P4),
 # encode_hash_fused (P2, which encode_pack computes without the pack
 # leg), phash256_words_batched (left to XLA), matmul_words (P1),
@@ -2292,6 +2816,7 @@ def main() -> int:
         mo = modes_phase(dev, work, payloads, written, MODE_RUNS)
         mx = modes_phase(dev, work, payloads, written, MXU_RUNS)
         s3 = s3_phase(dev, work, payloads, written, mp)
+        s3mp = s3_mp_phase(dev, work, payloads)
     finally:
         shutil.rmtree(work, ignore_errors=True)
     for label, by_run in (("mode", mo), ("mxu phase", mx)):
@@ -2300,6 +2825,7 @@ def main() -> int:
                 print(f"{label} {formulation} {mode} run {i + 1}: {json.dumps(r)}",
                       flush=True)
     print(f"s3: {json.dumps(s3)}", flush=True)
+    print(f"s3_mp: {json.dumps(s3mp)}", flush=True)
     phase_launches = {
         "main": mp["launches"], "heal": hp["launches"],
         "off": mo[("swar", "off")][0]["launches"],

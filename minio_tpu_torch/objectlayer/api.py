@@ -55,6 +55,22 @@ class InvalidRange(ObjectLayerError):
     pass
 
 
+class InvalidUploadID(ObjectLayerError):
+    pass
+
+
+class InvalidPart(ObjectLayerError):
+    pass
+
+
+class InvalidPartOrder(ObjectLayerError):
+    pass
+
+
+class EntityTooSmall(ObjectLayerError):
+    """Non-final multipart part below the S3 5 MiB minimum."""
+
+
 @dataclasses.dataclass
 class BucketInfo:
     name: str
@@ -91,7 +107,64 @@ class ListObjectsInfo:
     prefixes: list = dataclasses.field(default_factory=list)
 
 
+@dataclasses.dataclass
+class ListObjectVersionsInfo:
+    """ListObjectVersions result: versions + delete markers interleaved
+    newest-first per key (ListObjectVersions, cmd/object-api-datatypes.go)."""
+
+    is_truncated: bool = False
+    next_key_marker: str = ""
+    next_version_id_marker: str = ""
+    versions: list = dataclasses.field(default_factory=list)
+    prefixes: list = dataclasses.field(default_factory=list)
+
+
+@dataclasses.dataclass
+class ListMultipartsInfo:
+    uploads: list = dataclasses.field(default_factory=list)
+    is_truncated: bool = False
+
+
+@dataclasses.dataclass
+class MultipartInfo:
+    bucket: str = ""
+    object: str = ""
+    upload_id: str = ""
+    initiated_ns: int = 0
+
+
+@dataclasses.dataclass
+class PartInfo:
+    part_number: int = 0
+    etag: str = ""
+    size: int = 0
+    actual_size: int = 0
+    mod_time_ns: int = 0
+
+
+@dataclasses.dataclass
+class CompletePart:
+    part_number: int
+    etag: str
+
+
 META_BUCKET = ".sys"
+
+# metadata markers of the JAX package's object transforms (compression,
+# SSE): an object or upload carrying one cannot be served until slice 8
+META_COMPRESSION = "x-internal-compression"
+META_SSE = "x-internal-sse"
+
+
+def is_transformed(meta: dict) -> bool:
+    return bool(meta.get(META_COMPRESSION) or meta.get(META_SSE))
+
+
+def unported(what: str, slice_no: int) -> NotImplementedError:
+    """The error of a feature this package has not ported yet."""
+    return NotImplementedError(
+        f"{what} is not ported to minio_tpu_torch yet (slice {slice_no})"
+    )
 
 
 def check_bucket_name(name: str) -> None:
@@ -121,6 +194,24 @@ def check_object_name(name: str) -> None:
         raise InvalidObjectName(name)
     if "\0" in name:
         raise InvalidObjectName(name)
+
+
+def prepare_copy_meta(src_info, metadata: "dict | None") -> dict:
+    """Destination metadata for CopyObject: source user metadata with
+    directive overrides applied, minus the etag and EVERY internal
+    transform marker (compression, SSE, ...) - the copy pipe carries
+    decoded plaintext and the destination put re-applies its own
+    transforms, so a stale marker would make GET misinterpret the
+    stored bytes."""
+    meta = {
+        k: v
+        for k, v in src_info.user_defined.items()
+        if not k.startswith("x-internal-")
+    }
+    if metadata:
+        meta.update(metadata)
+    meta.pop("etag", None)
+    return meta
 
 
 class ObjectLayer:
@@ -162,6 +253,62 @@ class ObjectLayer:
     ) -> ObjectInfo:
         raise NotImplementedError
 
+    def update_object_meta(
+        self, bucket: str, object_name: str, updates: dict,
+        version_id: str = "",
+    ) -> ObjectInfo:
+        """Merge metadata updates into an existing version (tags,
+        retention, legal hold).  None values remove keys."""
+        raise NotImplementedError
+
+    def copy_object(
+        self, src_bucket: str, src_object: str, dst_bucket: str,
+        dst_object: str, metadata: "dict | None" = None,
+        versioned: bool = False,
+    ) -> ObjectInfo:
+        raise NotImplementedError
+
+    def list_object_versions(
+        self, bucket: str, prefix: str = "", key_marker: str = "",
+        version_id_marker: str = "", delimiter: str = "",
+        max_keys: int = 1000,
+    ) -> ListObjectVersionsInfo:
+        raise NotImplementedError
+
+    # multipart
+    def new_multipart_upload(
+        self, bucket: str, object_name: str, metadata: "dict | None" = None
+    ) -> str:
+        raise NotImplementedError
+
+    def put_object_part(
+        self, bucket: str, object_name: str, upload_id: str,
+        part_number: int, reader, size: int = -1,
+    ) -> PartInfo:
+        raise NotImplementedError
+
+    def list_object_parts(
+        self, bucket: str, object_name: str, upload_id: str,
+        part_marker: int = 0, max_parts: int = 1000,
+    ) -> list[PartInfo]:
+        raise NotImplementedError
+
+    def list_multipart_uploads(
+        self, bucket: str, prefix: str = ""
+    ) -> list[MultipartInfo]:
+        raise NotImplementedError
+
+    def abort_multipart_upload(
+        self, bucket: str, object_name: str, upload_id: str
+    ) -> None:
+        raise NotImplementedError
+
+    def complete_multipart_upload(
+        self, bucket: str, object_name: str, upload_id: str,
+        parts: list[CompletePart],
+    ) -> ObjectInfo:
+        raise NotImplementedError
+
     # health / maintenance
     def heal_object(
         self, bucket: str, object_name: str, version_id: str = "",
@@ -176,4 +323,7 @@ class ObjectLayer:
         raise NotImplementedError
 
     def heal_bucket(self, bucket: str, dry_run: bool = False) -> dict:
+        raise NotImplementedError
+
+    def storage_info(self) -> dict:
         raise NotImplementedError

@@ -8,11 +8,13 @@ batched device pass in codec/erasure.py, run by the codec backend of the
 set's ``device`` (the card unless the caller names another).
 
 The port carries buckets, PUT, GET (ranges and degraded reads
-included), object info, DELETE, listing (``list_objects`` over the
-disks' ordered walks) and heal (``heal_object`` / ``heal_bucket``, fed
-by ``heal_hook`` through heal/background.py).  What the JAX package
-layers on top - transparent compression of the objects it would
-compress, SSE, multipart, the read cache - raises NotImplementedError
+included), object info, metadata updates, CopyObject, DELETE, listing
+(``list_objects`` over the disks' ordered walks, ``list_object_versions``
+over the merged version journals), multipart uploads
+(objectlayer/erasure_multipart.py) and heal (``heal_object`` /
+``heal_bucket``, fed by ``heal_hook`` through heal/background.py).  What
+the JAX package layers on top - transparent compression of the objects
+it would compress, SSE, the read cache - raises NotImplementedError
 naming the slice that ports it, instead of being silently skipped.
 """
 
@@ -51,7 +53,10 @@ from .api import (
     WriteQuorumError,
     check_bucket_name,
     check_object_name,
+    is_transformed,
+    unported as _unported,
 )
+from .erasure_multipart import MultipartMixin
 from .metadata import (
     find_fileinfo_in_quorum,
     hash_order,
@@ -62,18 +67,7 @@ from .metadata import (
 
 SYS_VOL = ".sys"
 
-# metadata markers of the JAX package's object transforms (compression,
-# SSE): objects carrying them cannot be served by this slice
-_META_COMPRESSION = "x-internal-compression"
-_META_SSE = "x-internal-sse"
-
 _log = logger("objectlayer")
-
-
-def _unported(what: str, slice_no: int):
-    return NotImplementedError(
-        f"{what} is not ported to minio_tpu_torch yet (slice {slice_no})"
-    )
 
 
 def _check_parity_ack() -> None:
@@ -86,7 +80,7 @@ def _check_parity_ack() -> None:
         raise _unported("MINIO_TPU_PARITY_ACK=early", 11)
 
 
-class ErasureObjects(ObjectLayer):
+class ErasureObjects(MultipartMixin, ObjectLayer):
     """One erasure set over ``disks`` (offline entries are None).
 
     ``device`` names the torch device the codec runs on; it defaults to
@@ -447,6 +441,65 @@ class ErasureObjects(ObjectLayer):
             parts=list(fi.parts),
         )
 
+    def update_object_meta(
+        self, bucket, object_name, updates: dict, version_id=""
+    ) -> ObjectInfo:
+        """Merge metadata updates into an existing version on every disk
+        holding it - the PutObjectTags / PutObjectRetention seam
+        (erasure-object.go PutObjectTags -> disk.UpdateMetadata).
+
+        A key mapped to None is removed; other keys are set.  The quorum
+        version is located first, then each agreeing disk rewrites its
+        own FileInfo (preserving its per-disk erasure index)."""
+        check_object_name(object_name)
+        self._require_bucket(bucket)
+        with self.nslock.write(bucket, object_name):
+            disks = self._online_disks()
+            fis, _errs = read_all_fileinfo(
+                disks, bucket, object_name, version_id
+            )
+            not_found = sum(
+                isinstance(e, (serrors.FileNotFound, serrors.VersionNotFound))
+                for e in _errs
+            )
+            if not_found > len(self.disks) - self.read_quorum:
+                if version_id and any(
+                    isinstance(e, serrors.VersionNotFound) for e in _errs
+                ):
+                    raise api.VersionNotFound(f"{bucket}/{object_name}")
+                raise ObjectNotFound(f"{bucket}/{object_name}")
+            fi = find_fileinfo_in_quorum(fis, self.read_quorum)
+            if fi.deleted:
+                raise ObjectNotFound(f"{bucket}/{object_name}")
+            merged = dict(fi.metadata)
+            for k, v in updates.items():
+                if v is None:
+                    merged.pop(k, None)
+                else:
+                    merged[k] = v
+            qkey = (fi.mod_time_ns, fi.data_dir, fi.deleted)
+            errs = []
+            for i, d in enumerate(disks):
+                dfi = fis[i]
+                if (
+                    d is None
+                    or dfi is None
+                    or (dfi.mod_time_ns, dfi.data_dir, dfi.deleted) != qkey
+                ):
+                    errs.append(serrors.DiskNotFound("offline"))
+                    continue
+                dfi.metadata = dict(merged)
+                try:
+                    d.update_metadata(bucket, object_name, dfi)
+                    errs.append(None)
+                except Exception as e:  # noqa: BLE001 - per-disk error slot
+                    errs.append(e)
+            reduce_errs(errs, self.write_quorum, WriteQuorumError)
+            # the JAX package drops the read cache's generations here;
+            # the port has no read cache yet (slice 9a)
+            fi.metadata = merged
+            return self._to_object_info(bucket, object_name, fi)
+
     def get_object(
         self, bucket, object_name, writer, offset=0, length=-1,
         version_id="", sse=None,
@@ -459,7 +512,7 @@ class ErasureObjects(ObjectLayer):
             fi, _ = self._read_quorum_fileinfo(bucket, object_name, version_id)
             if fi.deleted:
                 raise ObjectNotFound(f"{bucket}/{object_name}")
-            if fi.metadata.get(_META_COMPRESSION) or fi.metadata.get(_META_SSE):
+            if is_transformed(fi.metadata):
                 raise _unported("reading compressed or encrypted objects", 8)
             if length < 0:
                 length = fi.size - offset
@@ -622,6 +675,48 @@ class ErasureObjects(ObjectLayer):
         )
 
     # ------------------------------------------------------------------
+    # copy
+    # ------------------------------------------------------------------
+
+    def copy_object(
+        self, src_bucket, src_object, dst_bucket, dst_object,
+        metadata=None, versioned=False, sse_src=None, sse=None,
+    ) -> ObjectInfo:
+        from ..utils.pipe import streaming_copy
+
+        src_info = self.get_object_info(src_bucket, src_object)
+        # a source the JAX package stored compressed or encrypted would
+        # fail inside the copy's reader thread: refuse it up front
+        if is_transformed(src_info.user_defined):
+            raise _unported("copying compressed or encrypted objects", 8)
+        meta = api.prepare_copy_meta(src_info, metadata)
+        if src_bucket == dst_bucket and src_object == dst_object:
+            # self-copy (metadata rewrite): the concurrent pipe would
+            # deadlock the namespace lock against itself - run the read
+            # fully before the write (small objects; the S3 layer only
+            # permits self-copy with REPLACE)
+            import io
+
+            buf = io.BytesIO()
+            self.get_object(src_bucket, src_object, buf, sse=sse_src)
+            buf.seek(0)
+            return self.put_object(
+                dst_bucket, dst_object, buf, src_info.size, meta,
+                versioned=versioned, sse=sse,
+            )
+        # decode streams into a bounded pipe while the encoder consumes
+        # it - constant memory for any object size
+        return streaming_copy(
+            lambda sink: self.get_object(
+                src_bucket, src_object, sink, sse=sse_src
+            ),
+            lambda source: self.put_object(
+                dst_bucket, dst_object, source, src_info.size, meta,
+                versioned=versioned, sse=sse,
+            ),
+        )
+
+    # ------------------------------------------------------------------
     # list (merged walk; cmd/erasure-sets.go listing semantics simplified)
     # ------------------------------------------------------------------
 
@@ -731,6 +826,100 @@ class ErasureObjects(ObjectLayer):
             out.objects.append(self._to_object_info(bucket, name, fi))
             count += 1
             last_key = name
+        return out
+
+    # ------------------------------------------------------------------
+    # version listing (ListObjectVersions merge)
+    # ------------------------------------------------------------------
+
+    def _read_version_journal(
+        self, bucket, object_name
+    ) -> "list[FileInfo]":
+        """Merged, quorum-checked version journal for one object: every
+        disk's xl.meta read, versions grouped by id, kept when at least
+        read_quorum disks agree, newest first."""
+        groups: "dict[str, list[FileInfo]]" = {}
+        for d in self._online_disks():
+            if d is None:
+                continue
+            try:
+                xl = d.read_xl(bucket, object_name)
+            except Exception:  # noqa: BLE001 - a disk without the key
+                continue
+            for v in xl.versions:
+                groups.setdefault(v.version_id or "null", []).append(v)
+        out: list[FileInfo] = []
+        for vid, vs in groups.items():
+            if len(vs) < self.read_quorum:
+                continue
+            fi = vs[0]
+            fi.volume, fi.name = bucket, object_name
+            out.append(fi)
+        out.sort(key=lambda v: -v.mod_time_ns)
+        for i, fi in enumerate(out):
+            fi.is_latest = i == 0
+        return out
+
+    def has_object_versions(self, bucket, object_name) -> bool:
+        """Any journal entry at all (incl. delete markers) - used by the
+        zone router, where get_object_info hides marker-latest keys."""
+        return bool(self._read_version_journal(bucket, object_name))
+
+    def list_object_versions(
+        self, bucket, prefix="", key_marker="", version_id_marker="",
+        delimiter="", max_keys=1000,
+    ) -> api.ListObjectVersionsInfo:
+        self._require_bucket(bucket)
+        max_keys = max(0, min(max_keys, 1000))
+        out = api.ListObjectVersionsInfo()
+        count = 0
+        last = (key_marker, version_id_marker)  # last emitted (key, vid)
+        # the marker key itself is re-visited (version resume)
+        for kind, name in self._list_entries(
+            bucket, prefix, key_marker, delimiter, inclusive=True
+        ):
+            if kind == "prefix":
+                if count >= max_keys:
+                    out.is_truncated = True
+                    out.next_key_marker = last[0]
+                    out.next_version_id_marker = last[1]
+                    return out
+                out.prefixes.append(name)
+                count += 1
+                last = (name, "")
+                continue
+            versions = self._read_version_journal(bucket, name)
+            resumed = False
+            if name == key_marker and version_id_marker:
+                # if the marker version vanished between pages (deleted
+                # concurrently), emit the whole key again - duplicates
+                # beat silently dropping every remaining version
+                if not any(
+                    (fi.version_id or "null") == version_id_marker
+                    for fi in versions
+                ):
+                    resumed = True
+            for fi in versions:
+                vid = fi.version_id or "null"
+                if name == key_marker and not resumed:
+                    # resume inside this key's version list: skip up to
+                    # and including the version-id marker (no marker =
+                    # the whole key was emitted last page)
+                    if not version_id_marker:
+                        continue
+                    if vid == version_id_marker:
+                        resumed = True
+                    continue
+                if count >= max_keys:
+                    out.is_truncated = True
+                    out.next_key_marker, out.next_version_id_marker = last
+                    return out
+                oi = self._to_object_info(bucket, name, fi)
+                oi.is_latest = fi.is_latest
+                oi.version_id = vid
+                out.versions.append(oi)
+                count += 1
+                last = (name, vid)
         return out
 
     # ------------------------------------------------------------------
@@ -923,12 +1112,15 @@ class ErasureObjects(ObjectLayer):
                 result["healed"].append(i)
             return result
 
-    # ------------------------------------------------------------------
-    # not ported yet
-    # ------------------------------------------------------------------
-
-    def new_multipart_upload(self, bucket, object_name, metadata=None):
-        raise _unported("multipart upload", 7)
+    def storage_info(self) -> dict:
+        online = sum(d is not None for d in self._online_disks())
+        return {
+            "disks": len(self.disks),
+            "online": online,
+            "offline": len(self.disks) - online,
+            "data": self.data_blocks,
+            "parity": self.parity_blocks,
+        }
 
 
 def from_reference_disks(

@@ -14,19 +14,25 @@ hooks, error rendering, request IDs.
 This package serves one erasure set (``S3Server(ErasureObjects(disks))``)
 on the thread-per-request plane: health, metrics, ListBuckets, bucket
 create / HEAD / DELETE / ``?location`` / ``?policy`` / ``?versioning``,
-ListObjects V1 and V2, and PutObject / GetObject / HeadObject /
-DeleteObject.  Every route of a feature not ported yet answers S3
-``NotImplemented`` with a message naming the slice that ports it, and
-every PUT-path seam (quota, object lock and tagging, replication, SSE,
-events) raises the same way when the request or the bucket's metadata
-document asks for such a feature - nothing is silently ignored.
+ListObjects V1 and V2, ListObjectVersions, PutObject / GetObject /
+HeadObject / DeleteObject, CopyObject, multi-object delete, POST-policy
+uploads and the multipart routes (CreateMultipartUpload, UploadPart,
+UploadPartCopy, ListParts, ListMultipartUploads, AbortMultipartUpload,
+CompleteMultipartUpload).  Every route of a feature not ported yet
+answers S3 ``NotImplemented`` with a message naming the slice that
+ports it, and every PUT-path seam (quota, object lock and tagging,
+replication, SSE, events) raises the same way when the request or the
+bucket's metadata document asks for such a feature - nothing is
+silently ignored.
 """
 
 from __future__ import annotations
 
 import base64
 import email.utils
+import io
 import os
+import re
 import threading
 import time as _time
 import urllib.parse
@@ -35,7 +41,7 @@ import xml.etree.ElementTree as ET
 from http.server import BaseHTTPRequestHandler, ThreadingHTTPServer
 
 from ..iam.sys import IAMSys
-from ..objectlayer.api import ObjectInfo
+from ..objectlayer.api import CompletePart, ObjectInfo
 from ..objectlayer.bucket_meta import BucketMetadataSys
 from ..utils.hashreader import HashReader
 from . import authz, response as xmlr, s3errors
@@ -52,6 +58,7 @@ _log = logger("http")
 
 MAX_IN_MEMORY_BODY = 1 << 30  # buffered-body cap (XML configs)
 MAX_OBJECT_SIZE = 5 << 40  # globalMaxObjectSize (cmd/globals.go)
+MAX_MULTI_DELETE_BODY = 1 << 20  # multi-delete key lists
 
 # request-plane mode: the thread-per-request stdlib plane is the one
 # ported; MINIO_TPU_SERVER=async (the JAX package's default) raises
@@ -1006,37 +1013,31 @@ class _Handler(BaseHTTPRequestHandler):
 
     # object and bucket sub-resources of features not ported yet, with
     # the slice that ports each; matched in the JAX package's dispatch
-    # order so a request naming several answers for the one it serves
+    # order (the multipart routes it serves first are served first here
+    # too) so a request naming several answers for the one it serves
     _UNPORTED_OBJECT = {
         "GET": (
-            ("uploadId", "multipart uploads", "7"),
             ("tagging", "object tagging", "9c"),
             ("retention", "object retention", "9c"),
             ("legal-hold", "object legal hold", "9c"),
             ("acl", "ACLs", "9c"),
         ),
         "PUT": (
-            ("uploadId", "multipart uploads", "7"),
             ("tagging", "object tagging", "9c"),
             ("retention", "object retention", "9c"),
             ("legal-hold", "object legal hold", "9c"),
             ("acl", "ACLs", "9c"),
         ),
         "POST": (
-            ("uploads", "multipart uploads", "7"),
-            ("uploadId", "multipart uploads", "7"),
             ("select", "S3 Select", "6"),
         ),
         "DELETE": (
-            ("uploadId", "multipart uploads", "7"),
             ("tagging", "object tagging", "9c"),
         ),
     }
     _UNPORTED_BUCKET = {
         "GET": (
             ("events", "ListenBucketNotification", "9c"),
-            ("versions", "ListObjectVersions", "5c"),
-            ("uploads", "multipart uploads", "7"),
             ("notification", "bucket notification", "9c"),
             ("lifecycle", "bucket lifecycle", "9c"),
             ("tagging", "bucket tagging", "9c"),
@@ -1059,9 +1060,6 @@ class _Handler(BaseHTTPRequestHandler):
             ("tagging", "bucket tagging", "9c"),
             ("encryption", "bucket encryption configuration", "9c"),
             ("replication", "bucket replication", "9c"),
-        ),
-        "POST": (
-            ("delete", "multi-object delete", "5c"),
         ),
     }
 
@@ -1088,6 +1086,19 @@ class _Handler(BaseHTTPRequestHandler):
             raise unported("bucket federation", "9b")
 
         if key:
+            if m == "GET" and "uploadId" in query:
+                return self._list_parts(bucket, key, query)
+            if m == "PUT" and "partNumber" in query and "uploadId" in query:
+                return self._put_part(bucket, key, query)
+            if m == "POST":
+                if "uploads" in query:
+                    return self._initiate_multipart(bucket, key)
+                if "uploadId" in query:
+                    return self._complete_multipart(
+                        bucket, key, query, self._read_body()
+                    )
+            if m == "DELETE" and "uploadId" in query:
+                return self._abort_multipart(bucket, key, query)
             self._refuse_unported(self._UNPORTED_OBJECT, m, query)
             if m == "GET":
                 self._reject_subresources(
@@ -1101,7 +1112,7 @@ class _Handler(BaseHTTPRequestHandler):
                     query, self._OBJECT_SUBRESOURCES
                 )
                 if "x-amz-copy-source" in self.headers:
-                    raise unported("CopyObject", "5c")
+                    return self._copy_object(bucket, key)
                 return self._put_object(bucket, key)
             if m == "POST":
                 self._reject_subresources(
@@ -1121,6 +1132,10 @@ class _Handler(BaseHTTPRequestHandler):
                 return self._respond(200, xmlr.location_xml(""))
             if "policy" in query:
                 return self._get_bucket_policy(bucket)
+            if "versions" in query:
+                return self._list_object_versions(bucket, query)
+            if "uploads" in query:
+                return self._list_uploads(bucket, query)
             if "versioning" in query:
                 ol.get_bucket_info(bucket)
                 state = self.s3.bucket_meta.get(bucket).versioning
@@ -1192,8 +1207,14 @@ class _Handler(BaseHTTPRequestHandler):
             self._bucket_delete(bucket)
             return self._respond(204)
         if m == "POST":
+            if "delete" in query:
+                # multi-delete bodies are key lists, not data: cap far
+                # below the generic buffered-body limit before reading
+                if self._body_size() > MAX_MULTI_DELETE_BODY:
+                    raise S3Error("EntityTooLarge")
+                return self._delete_multiple(bucket, self._read_body())
             if self._is_post_policy(path, query):
-                raise unported("POST-policy uploads", "5c")
+                return self._post_policy(bucket)
         raise S3Error("MethodNotAllowed")
 
     def _bucket_create(self, bucket: str) -> None:
@@ -1320,6 +1341,30 @@ class _Handler(BaseHTTPRequestHandler):
         self.s3.bucket_meta.update(bucket, versioning=status)
         self._respond(200)
 
+    def _list_object_versions(self, bucket: str, query):
+        q1 = {k: v[0] for k, v in query.items()}
+        try:
+            max_keys = int(q1.get("max-keys", 1000))
+        except ValueError:
+            raise S3Error("InvalidArgument", "max-keys") from None
+        if max_keys < 0:
+            raise S3Error("InvalidArgument", "max-keys negative")
+        prefix = q1.get("prefix", "")
+        delimiter = q1.get("delimiter", "")
+        key_marker = q1.get("key-marker", "")
+        vid_marker = q1.get("version-id-marker", "")
+        encode = q1.get("encoding-type", "") == "url"
+        res = self.s3.object_layer.list_object_versions(
+            bucket, prefix, key_marker, vid_marker, delimiter, max_keys
+        )
+        self._respond(
+            200,
+            xmlr.list_versions_xml(
+                bucket, prefix, key_marker, vid_marker, delimiter,
+                max_keys, res, encode,
+            ),
+        )
+
     # -- bucket policy (PutBucketPolicyHandler, bucket-policy-handlers.go)
 
     def _get_bucket_policy(self, bucket: str):
@@ -1374,6 +1419,128 @@ class _Handler(BaseHTTPRequestHandler):
                 endpoint=s3.endpoint,
             )
         )
+
+    def _delete_multiple(self, bucket: str, body: bytes):
+        try:
+            root = ET.fromstring(body)
+        except ET.ParseError:
+            raise S3Error("MalformedXML") from None
+        ns = ""
+        if root.tag.startswith("{"):
+            ns = root.tag[: root.tag.index("}") + 1]
+        quiet = (root.findtext(f"{ns}Quiet") or "").lower() == "true"
+        deleted, errs = [], []
+        account = self._auth.access_key if self._auth else ""
+        versioned, suspended = self._versioning(bucket)
+        objs = [
+            (
+                obj.findtext(f"{ns}Key") or "",
+                (obj.findtext(f"{ns}VersionId") or "").strip(),
+            )
+            for obj in root.findall(f"{ns}Object")
+        ]
+        # the seams DELETE passes: object lock guards a named version or
+        # unversioned data (the JAX package's per-key WORM check), and
+        # every removal is an event
+        if any(vid or not (versioned or suspended) for _k, vid in objs):
+            self._refuse_bucket_config(bucket, "object_lock_xml")
+        self._refuse_bucket_config(bucket, "notification_xml")
+        for key, vid in objs:
+            # per-key authorization (DeleteMultipleObjectsHandler checks
+            # DeleteObject for every named key)
+            action = "s3:DeleteObjectVersion" if vid else "s3:DeleteObject"
+            if not self._check_action(action, bucket, key, account):
+                errs.append((key, "AccessDenied", "Access Denied."))
+                continue
+            try:
+                # a named version is removed outright; an unqualified
+                # delete on a versioned bucket writes a marker
+                dinfo = self.s3.object_layer.delete_object(
+                    bucket, key, vid,
+                    versioned=versioned, version_suspended=suspended,
+                )
+                from ..event.event import EventName
+
+                self._notify(
+                    EventName.OBJECT_REMOVED_DELETE_MARKER
+                    if dinfo.delete_marker
+                    else EventName.OBJECT_REMOVED_DELETE,
+                    bucket, key, version_id=dinfo.version_id or vid,
+                )
+                if not quiet:
+                    deleted.append(key)
+            except Exception as e:  # noqa: BLE001 - a per-key error
+                err = s3errors.from_exception(e)
+                if err.code in ("NoSuchKey", "NoSuchVersion"):
+                    if not quiet:
+                        deleted.append(key)  # S3 treats as success
+                else:
+                    errs.append((key, err.code, err.message))
+        self._respond(200, xmlr.delete_result_xml(deleted, errs))
+
+    def _post_policy(self, bucket: str):
+        """Browser form upload (PostPolicyBucketHandler,
+        cmd/bucket-handlers.go): multipart/form-data with a signed,
+        base64-encoded policy document."""
+        ctype = self.headers.get("Content-Type", "")
+        boundary = ""
+        for param in ctype.split(";")[1:]:
+            k, _, v = param.strip().partition("=")
+            if k == "boundary":
+                boundary = v.strip('"')
+        if not boundary:
+            raise S3Error("MalformedPOSTRequest", "missing boundary")
+        reader, size = self._open_body()
+        if size > MAX_IN_MEMORY_BODY:
+            raise S3Error("EntityTooLarge")
+        body = b""
+        while len(body) < size:
+            c = reader.read(size - len(body))
+            if not c:
+                break
+            body += c
+        form, file_data, file_name = _parse_multipart_form(body, boundary)
+        key = form.get("key", "")
+        if not key:
+            raise S3Error("InvalidArgument", "POST requires key field")
+        key = key.replace("${filename}", file_name)
+        form["key"] = key
+        form["bucket"] = bucket
+        form["content-length"] = str(len(file_data))
+        post_account = self.s3.verifier.verify_post_policy(form)
+        # the form's signer must hold PutObject (isPutActionAllowed,
+        # auth-handler.go:583)
+        if not self._check_action(
+            "s3:PutObject", bucket, key, post_account
+        ):
+            raise S3Error("AccessDenied")
+        meta = {}
+        if form.get("content-type"):
+            meta["content-type"] = form["content-type"]
+        for k, v in form.items():
+            if k.startswith("x-amz-meta-"):
+                meta[k] = v
+        hreader = HashReader(io.BytesIO(file_data), len(file_data))
+        from ..event.event import EventName
+
+        info = self._checked_put(
+            bucket, key, hreader, len(file_data), meta,
+            versioned=self._versioning(bucket)[0],
+            event_name=EventName.OBJECT_CREATED_POST,
+        )
+        status = form.get("success_action_status", "204")
+        etag_hdr = {"ETag": f'"{info.etag}"'}
+        if status == "201":
+            location = f"{self.s3.endpoint}/{bucket}/{key}"
+            self._respond(
+                201,
+                xmlr.post_response_xml(location, bucket, key, info.etag),
+                {**etag_hdr, "Location": location},
+            )
+        elif status == "200":
+            self._respond(200, b"", etag_hdr)
+        else:
+            self._respond(204, b"", etag_hdr)
 
     # -- object ops -------------------------------------------------------
 
@@ -1561,17 +1728,27 @@ class _Handler(BaseHTTPRequestHandler):
                 meta[lk] = v
         return meta
 
-    def _checked_put(self, bucket, key, hreader, size, meta, versioned=False):
-        """The PUT invariant chain of the JAX package's _checked_put -
-        size cap, quota, lock/tagging, replication, SSE, events - with
-        each seam of a feature not ported yet raising when the request
-        or the bucket's metadata document asks for it, and a no-op
-        otherwise, so a PUT stores what the JAX package stores."""
-        if size > MAX_OBJECT_SIZE:
-            raise S3Error("EntityTooLarge")
+    def _refuse_unported_put(self, bucket: str) -> None:
+        """The seams of the JAX package's PUT chain whose features are
+        not ported yet - quota, lock/tagging, replication, SSE and event
+        targets - each raising when the request or the destination
+        bucket's metadata document asks for it, and a no-op otherwise."""
         self._refuse_bucket_config(bucket, *UNPORTED_BUCKET_CONFIG)
         self._refuse_lock_and_tag_headers()
         self._refuse_sse_headers()
+
+    def _checked_put(
+        self, bucket, key, hreader, size, meta,
+        versioned=False, event_name=None,
+    ):
+        """The PUT invariant chain of the JAX package's _checked_put -
+        size cap, quota, lock/tagging, replication, SSE, events - shared
+        by the S3 PUT and POST-policy paths, with each seam of a feature
+        not ported yet raising (``_refuse_unported_put``), so a PUT
+        stores what the JAX package stores."""
+        if size > MAX_OBJECT_SIZE:
+            raise S3Error("EntityTooLarge")
+        self._refuse_unported_put(bucket)
         # transparent compression (MINIO_TPU_COMPRESS) is decided inside
         # the object layer, which refuses what it would compress
         info = self.s3.object_layer.put_object(
@@ -1580,7 +1757,7 @@ class _Handler(BaseHTTPRequestHandler):
         from ..event.event import EventName
 
         self._notify(
-            EventName.OBJECT_CREATED_PUT, bucket, key,
+            event_name or EventName.OBJECT_CREATED_PUT, bucket, key,
             info.etag, info.size, info.version_id,
         )
         return info
@@ -1637,3 +1814,242 @@ class _Handler(BaseHTTPRequestHandler):
             if err.code not in ("NoSuchKey", "NoSuchVersion"):
                 raise
         self._respond(204, b"", hdrs)
+
+    # -- copy (CopyObjectHandler, object-handlers.go) ----------------------
+
+    def _copy_object(self, bucket, key):
+        src_bucket, src_key = self._parse_copy_source()
+        directive = self.headers.get(
+            "x-amz-metadata-directive", "COPY"
+        )
+        if (src_bucket, src_key) == (bucket, key) and directive != "REPLACE":
+            # S3: copying onto itself without changing metadata is
+            # rejected (CopyObjectHandler)
+            raise S3Error(
+                "InvalidRequest",
+                "self-copy requires x-amz-metadata-directive: REPLACE",
+            )
+        # tags and lock settings of the new version are slice 9c
+        if self.headers.get("x-amz-tagging-directive"):
+            raise unported("object tagging", "9c")
+        self._refuse_unported_put(bucket)
+        # the source is refused like a GET's: SSE headers, or an object
+        # the JAX package stored compressed or encrypted (slice 8)
+        self._read_info(self.s3.object_layer, src_bucket, src_key, "")
+        meta = (
+            self._collect_user_metadata()
+            if directive == "REPLACE"
+            else None
+        )
+        versioned, _ = self._versioning(bucket)
+        info = self.s3.object_layer.copy_object(
+            src_bucket, src_key, bucket, key, meta, versioned=versioned,
+        )
+        hdrs = (
+            {"x-amz-version-id": info.version_id}
+            if info.version_id
+            else None
+        )
+        from ..event.event import EventName
+
+        self._notify(
+            EventName.OBJECT_CREATED_COPY, bucket, key,
+            info.etag, info.size, info.version_id,
+        )
+        self._respond(
+            200, xmlr.copy_object_xml(info.etag, info.mod_time_ns), hdrs
+        )
+
+    # -- multipart (object-handlers.go multipart handlers) ----------------
+
+    def _initiate_multipart(self, bucket, key):
+        # lock headers and tagging ride an initiate as they ride a PUT
+        # (checkPutObjectLockAllowed in NewMultipartUploadHandler), and
+        # so do replication and SSE; the object layer refuses an upload
+        # it would compress
+        self._refuse_bucket_config(
+            bucket, "object_lock_xml", "replication_xml", "sse_config_xml"
+        )
+        self._refuse_lock_and_tag_headers()
+        self._refuse_sse_headers()
+        meta = self._collect_user_metadata()
+        uid = self.s3.object_layer.new_multipart_upload(bucket, key, meta)
+        self._respond(200, xmlr.initiate_multipart_xml(bucket, key, uid))
+
+    def _part_number(self, query) -> int:
+        try:
+            return int(query["partNumber"][0])
+        except (KeyError, ValueError):
+            raise S3Error("InvalidArgument", "partNumber") from None
+
+    def _put_part(self, bucket, key, query):
+        if "x-amz-copy-source" in self.headers:
+            return self._upload_part_copy(bucket, key, query)
+        uid = query["uploadId"][0]
+        pnum = self._part_number(query)
+        reader, size = self._open_body()
+        if size > MAX_OBJECT_SIZE:
+            raise S3Error("EntityTooLarge")
+        # a part passes the quota and takes SSE-C headers
+        self._refuse_bucket_config(bucket, "quota_json")
+        self._refuse_sse_headers()
+        hreader = self._hash_reader(reader, size)
+        pi = self.s3.object_layer.put_object_part(
+            bucket, key, uid, pnum, hreader, size
+        )
+        self._respond(200, b"", {"ETag": f'"{pi.etag}"'})
+
+    def _upload_part_copy(self, bucket, key, query):
+        """UploadPartCopy (CopyObjectPartHandler,
+        object-handlers.go:795): stream a source object (or byte
+        range of it) in as one part."""
+        from ..utils.pipe import streaming_copy
+
+        uid = query["uploadId"][0]
+        pnum = self._part_number(query)
+        src_bucket, src_key = self._parse_copy_source()
+        ol = self.s3.object_layer
+        src_info = self._read_info(ol, src_bucket, src_key, "")
+        offset, length = 0, -1
+        rng = self.headers.get("x-amz-copy-source-range")
+        if rng:
+            # strict "bytes=a-b" (ErrInvalidCopyPartRange): open-ended
+            # and suffix forms are NOT valid here, unlike GET ranges
+            m = re.fullmatch(r"bytes=(\d+)-(\d+)", rng.strip())
+            if not m:
+                raise S3Error(
+                    "InvalidArgument",
+                    "The x-amz-copy-source-range value must be of the "
+                    "form bytes=first-last where first and last are "
+                    "the zero-based offsets of the first and last "
+                    "bytes to copy",
+                )
+            lo, hi = int(m.group(1)), int(m.group(2))
+            if lo > hi or hi >= src_info.size:
+                raise S3Error(
+                    "InvalidArgument",
+                    f"Range specified is not valid for source object "
+                    f"of size: {src_info.size}",
+                )
+            offset, length = lo, hi - lo + 1
+        size = length if length >= 0 else src_info.size
+        if size > MAX_OBJECT_SIZE:
+            raise S3Error("EntityTooLarge")
+        self._refuse_bucket_config(bucket, "quota_json")
+        # the source decodes in a reader thread into a bounded pipe
+        # while this thread encodes the part from it
+        pi = streaming_copy(
+            lambda sink: ol.get_object(
+                src_bucket, src_key, sink, offset, length
+            ),
+            lambda source: ol.put_object_part(
+                bucket, key, uid, pnum, HashReader(source, size), size,
+            ),
+        )
+        self._respond(
+            200, xmlr.copy_part_xml(pi.etag, pi.mod_time_ns)
+        )
+
+    def _complete_multipart(self, bucket, key, query, body):
+        uid = query["uploadId"][0]
+        try:
+            root = ET.fromstring(body)
+        except ET.ParseError:
+            raise S3Error("MalformedXML") from None
+        ns = root.tag[: root.tag.index("}") + 1] if root.tag.startswith("{") else ""
+        parts = []
+        for pe in root.findall(f"{ns}Part"):
+            parts.append(
+                CompletePart(
+                    int(pe.findtext(f"{ns}PartNumber")),
+                    (pe.findtext(f"{ns}ETag") or "").strip('"'),
+                )
+            )
+        # replication and the completion event are the seams here
+        self._refuse_bucket_config(
+            bucket, "replication_xml", "notification_xml"
+        )
+        versioned, _ = self._versioning(bucket)
+        info = self.s3.object_layer.complete_multipart_upload(
+            bucket, key, uid, parts, versioned=versioned
+        )
+        from ..event.event import EventName
+
+        self._notify(
+            EventName.OBJECT_CREATED_COMPLETE_MULTIPART, bucket, key,
+            info.etag, info.size, info.version_id,
+        )
+        hdrs = (
+            {"x-amz-version-id": info.version_id}
+            if info.version_id
+            else None
+        )
+        self._respond(
+            200,
+            xmlr.complete_multipart_xml(
+                f"{self.s3.endpoint}/{bucket}/{key}",
+                bucket,
+                key,
+                info.etag,
+            ),
+            hdrs,
+        )
+
+    def _abort_multipart(self, bucket, key, query):
+        uid = query["uploadId"][0]
+        self.s3.object_layer.abort_multipart_upload(bucket, key, uid)
+        self._respond(204)
+
+    def _list_parts(self, bucket, key, query):
+        uid = query["uploadId"][0]
+        parts = self.s3.object_layer.list_object_parts(bucket, key, uid)
+        self._respond(
+            200, xmlr.list_parts_xml(bucket, key, uid, parts)
+        )
+
+    def _list_uploads(self, bucket, query):
+        prefix = query.get("prefix", [""])[0]
+        ups = self.s3.object_layer.list_multipart_uploads(bucket, prefix)
+        self._respond(200, xmlr.list_uploads_xml(bucket, ups))
+
+
+def _parse_multipart_form(
+    body: bytes, boundary: str
+) -> "tuple[dict[str, str], bytes, str]":
+    """Parse a multipart/form-data body into (fields, file_bytes, filename).
+
+    Field names are lower-cased; only the "file" part keeps raw bytes.
+    """
+    delim = b"--" + boundary.encode()
+    fields: dict[str, str] = {}
+    file_data, file_name = b"", ""
+    for part in body.split(delim)[1:]:
+        if part in (b"--", b"--\r\n") or part.startswith(b"--"):
+            break
+        part = part.lstrip(b"\r\n")
+        head, sep, data = part.partition(b"\r\n\r\n")
+        if not sep:
+            raise S3Error("MalformedPOSTRequest", "bad form part")
+        data = data[:-2] if data.endswith(b"\r\n") else data
+        name, fname, ctype = "", "", ""
+        for line in head.split(b"\r\n"):
+            hname, _, hval = line.decode("latin-1").partition(":")
+            hname = hname.strip().lower()
+            hval = hval.strip()
+            if hname == "content-disposition":
+                for piece in hval.split(";")[1:]:
+                    pk, _, pv = piece.strip().partition("=")
+                    pv = pv.strip('"')
+                    if pk == "name":
+                        name = pv
+                    elif pk == "filename":
+                        fname = pv
+            elif hname == "content-type":
+                ctype = hval
+        if name.lower() == "file":
+            file_data, file_name = data, fname
+            if ctype and "content-type" not in fields:
+                fields["content-type"] = ctype
+        elif name:
+            fields[name.lower()] = data.decode("utf-8", "replace")
+    return fields, file_data, file_name

@@ -1,9 +1,7 @@
 """S3 XML response rendering (cmd/api-response.go).
 
 Hand-built with xml.etree: responses are small and schema-fixed; the S3
-namespace is applied on the root element like encodeResponse.  The
-multipart, version-listing, copy, multi-delete and POST-upload documents
-come with the slices that port those routes.
+namespace is applied on the root element like encodeResponse.
 """
 
 from __future__ import annotations
@@ -135,4 +133,127 @@ def list_objects_v2_xml(
 def location_xml(region: str = "") -> bytes:
     root = ET.Element("LocationConstraint", xmlns=S3_NS)
     root.text = region
+    return _render(root)
+
+
+def initiate_multipart_xml(bucket, key, upload_id) -> bytes:
+    root = ET.Element("InitiateMultipartUploadResult", xmlns=S3_NS)
+    _el(root, "Bucket", bucket)
+    _el(root, "Key", key)
+    _el(root, "UploadId", upload_id)
+    return _render(root)
+
+
+def complete_multipart_xml(location, bucket, key, etag) -> bytes:
+    root = ET.Element("CompleteMultipartUploadResult", xmlns=S3_NS)
+    _el(root, "Location", location)
+    _el(root, "Bucket", bucket)
+    _el(root, "Key", key)
+    _el(root, "ETag", f'"{etag}"')
+    return _render(root)
+
+
+def list_parts_xml(bucket, key, upload_id, parts) -> bytes:
+    root = ET.Element("ListPartsResult", xmlns=S3_NS)
+    _el(root, "Bucket", bucket)
+    _el(root, "Key", key)
+    _el(root, "UploadId", upload_id)
+    _el(root, "StorageClass", "STANDARD")
+    _el(root, "IsTruncated", "false")
+    for p in parts:
+        pe = _el(root, "Part")
+        _el(pe, "PartNumber", p.part_number)
+        _el(pe, "LastModified", _iso(p.mod_time_ns))
+        _el(pe, "ETag", f'"{p.etag}"')
+        _el(pe, "Size", p.size)
+    return _render(root)
+
+
+def list_uploads_xml(bucket, uploads) -> bytes:
+    root = ET.Element("ListMultipartUploadsResult", xmlns=S3_NS)
+    _el(root, "Bucket", bucket)
+    _el(root, "IsTruncated", "false")
+    for u in uploads:
+        ue = _el(root, "Upload")
+        _el(ue, "Key", u.object)
+        _el(ue, "UploadId", u.upload_id)
+        _el(ue, "StorageClass", "STANDARD")
+        _el(ue, "Initiated", _iso(u.initiated_ns))
+    return _render(root)
+
+
+def copy_object_xml(etag, mod_time_ns) -> bytes:
+    root = ET.Element("CopyObjectResult", xmlns=S3_NS)
+    _el(root, "LastModified", _iso(mod_time_ns))
+    _el(root, "ETag", f'"{etag}"')
+    return _render(root)
+
+
+def copy_part_xml(etag, mod_time_ns) -> bytes:
+    """UploadPartCopy response (CopyObjectPartResponse)."""
+    root = ET.Element("CopyPartResult", xmlns=S3_NS)
+    _el(root, "LastModified", _iso(mod_time_ns))
+    _el(root, "ETag", f'"{etag}"')
+    return _render(root)
+
+
+def delete_result_xml(deleted: list[str], errors: list[tuple]) -> bytes:
+    root = ET.Element("DeleteResult", xmlns=S3_NS)
+    for key in deleted:
+        de = _el(root, "Deleted")
+        _el(de, "Key", key)
+    for key, code, msg in errors:
+        ee = _el(root, "Error")
+        _el(ee, "Key", key)
+        _el(ee, "Code", code)
+        _el(ee, "Message", msg)
+    return _render(root)
+
+
+def post_response_xml(location, bucket, key, etag) -> bytes:
+    """201 body for POST policy uploads with success_action_status=201."""
+    root = ET.Element("PostResponse")
+    _el(root, "Location", location)
+    _el(root, "Bucket", bucket)
+    _el(root, "Key", key)
+    _el(root, "ETag", f'"{etag}"')
+    return _render(root)
+
+
+def list_versions_xml(
+    bucket, prefix, key_marker, version_id_marker, delimiter,
+    max_keys, res, encode: bool = False,
+) -> bytes:
+    """ListVersionsResult: Version + DeleteMarker entries
+    (generateListVersionsResponse, cmd/api-response.go)."""
+    root = ET.Element("ListVersionsResult", xmlns=S3_NS)
+    _el(root, "Name", bucket)
+    _el(root, "Prefix", _maybe_encode(prefix, encode))
+    _el(root, "KeyMarker", _maybe_encode(key_marker, encode))
+    if version_id_marker:
+        _el(root, "VersionIdMarker", version_id_marker)
+    if delimiter:
+        _el(root, "Delimiter", _maybe_encode(delimiter, encode))
+    _el(root, "MaxKeys", max_keys)
+    _el(root, "IsTruncated", "true" if res.is_truncated else "false")
+    if res.is_truncated:
+        _el(root, "NextKeyMarker", _maybe_encode(res.next_key_marker, encode))
+        _el(root, "NextVersionIdMarker", res.next_version_id_marker)
+    for o in res.versions:
+        tag = "DeleteMarker" if o.delete_marker else "Version"
+        ve = _el(root, tag)
+        _el(ve, "Key", _maybe_encode(o.name, encode))
+        _el(ve, "VersionId", o.version_id or "null")
+        _el(ve, "IsLatest", "true" if o.is_latest else "false")
+        _el(ve, "LastModified", _iso(o.mod_time_ns))
+        if not o.delete_marker:
+            _el(ve, "ETag", f'"{o.etag}"')
+            _el(ve, "Size", o.size)
+            _el(ve, "StorageClass", "STANDARD")
+        own = _el(ve, "Owner")
+        _el(own, "ID", "minio")
+        _el(own, "DisplayName", "minio")
+    for p in res.prefixes:
+        cp = _el(root, "CommonPrefixes")
+        _el(cp, "Prefix", _maybe_encode(p, encode))
     return _render(root)

@@ -278,6 +278,10 @@ def from_exception(e: Exception) -> APIError:
         (olapi.VersionNotFound, "NoSuchVersion"),
         (olapi.InvalidObjectName, "KeyTooLongError"),
         (olapi.InvalidRange, "InvalidRange"),
+        (olapi.InvalidUploadID, "NoSuchUpload"),
+        (olapi.InvalidPartOrder, "InvalidPartOrder"),
+        (olapi.InvalidPart, "InvalidPart"),
+        (olapi.EntityTooSmall, "EntityTooSmall"),
         (olapi.ReadQuorumError, "SlowDown"),
         (olapi.WriteQuorumError, "SlowDown"),
         # lock quorum unavailable (dead peers) = service unavailable,

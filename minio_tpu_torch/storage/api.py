@@ -4,8 +4,8 @@ This port implements xl.XLStorage (local POSIX); remote disks over the
 storage REST plane come with the cluster slice.  The object layer only
 ever talks to this interface, so local and remote disks are
 interchangeable - the seam the reference uses to make a distributed
-cluster look like a big JBOD.  Only the calls the PUT/GET/DELETE and
-heal paths make are declared here.
+cluster look like a big JBOD.  Only the calls the object routes,
+multipart and heal paths make are declared here.
 """
 
 from __future__ import annotations
@@ -31,6 +31,13 @@ class DiskInfo:
     mount_path: str
     disk_id: str
     error: str = ""
+
+
+@dataclasses.dataclass
+class StatInfo:
+    size: int
+    mod_time_ns: int
+    is_dir: bool = False
 
 
 class ShardWriter:
@@ -94,6 +101,14 @@ class StorageAPI:
         raise NotImplementedError
 
     # ---- shard streams --------------------------------------------------
+    def rename_file(
+        self, src_volume: str, src_path: str, dst_volume: str, dst_path: str
+    ) -> None:
+        raise NotImplementedError
+
+    def stat_file(self, volume: str, path: str) -> StatInfo:
+        raise NotImplementedError
+
     def create_file(self, volume: str, path: str) -> ShardWriter:
         raise NotImplementedError
 
@@ -110,6 +125,9 @@ class StorageAPI:
         raise NotImplementedError
 
     def write_metadata(self, volume: str, path: str, fi: FileInfo) -> None:
+        raise NotImplementedError
+
+    def update_metadata(self, volume: str, path: str, fi: FileInfo) -> None:
         raise NotImplementedError
 
     def delete_version(

@@ -45,9 +45,10 @@ _BENIGN_ERRORS = (
 _METERED = frozenset(
     {
         "make_vol", "list_vols", "stat_vol", "delete_vol",
-        "read_all", "write_all", "delete_file", "create_file",
+        "list_dir", "read_all", "write_all", "delete_file",
+        "rename_file", "stat_file", "create_file", "walk", "walk_sorted",
         "read_file_stream", "read_version", "read_xl", "write_metadata",
-        "delete_version", "rename_data", "verify_file",
+        "update_metadata", "delete_version", "rename_data", "verify_file",
     }
 )
 

@@ -21,7 +21,14 @@ import shutil
 import uuid
 
 from . import errors
-from .api import DiskInfo, ShardReader, ShardWriter, StorageAPI, VolInfo
+from .api import (
+    DiskInfo,
+    ShardReader,
+    ShardWriter,
+    StatInfo,
+    StorageAPI,
+    VolInfo,
+)
 from .meta import FileInfo, XLMeta
 
 SYS_DIR = ".sys"
@@ -246,6 +253,30 @@ class XLStorage(StorageAPI):
                 break
             parent = os.path.dirname(parent)
 
+    def rename_file(
+        self, src_volume: str, src_path: str, dst_volume: str, dst_path: str
+    ) -> None:
+        self._require_vol(src_volume)
+        self._require_vol(dst_volume)
+        src = self._file_path(src_volume, src_path)
+        dst = self._file_path(dst_volume, dst_path)
+        if not os.path.exists(src):
+            raise errors.FileNotFound(src_path)
+        os.makedirs(os.path.dirname(dst), exist_ok=True)
+        os.replace(src, dst)
+
+    def stat_file(self, volume: str, path: str) -> StatInfo:
+        self._require_vol(volume)
+        try:
+            st = os.stat(self._file_path(volume, path))
+        except FileNotFoundError:
+            raise errors.FileNotFound(path) from None
+        return StatInfo(
+            size=st.st_size,
+            mod_time_ns=st.st_mtime_ns,
+            is_dir=os.path.isdir(self._file_path(volume, path)),
+        )
+
     # ---- shard streams --------------------------------------------------
 
     def create_file(self, volume: str, path: str) -> ShardWriter:
@@ -275,6 +306,11 @@ class XLStorage(StorageAPI):
             xl = self.read_xl(volume, path)
         except errors.FileNotFound:
             xl = XLMeta()
+        xl.add_version(fi)
+        self.write_all(volume, f"{path}/{XL_META}", xl.to_bytes())
+
+    def update_metadata(self, volume: str, path: str, fi: FileInfo) -> None:
+        xl = self.read_xl(volume, path)  # must exist
         xl.add_version(fi)
         self.write_all(volume, f"{path}/{XL_META}", xl.to_bytes())
 

@@ -216,8 +216,6 @@ def test_unported_features_raise(sets, tmp_path, monkeypatch):
     monkeypatch.delenv("MINIO_TPU_COMPRESS")
     with pytest.raises(NotImplementedError, match="slice 8"):
         port.put_object("bkt", "z", io.BytesIO(b"x"), 1, sse=object())
-    with pytest.raises(NotImplementedError, match="slice 7"):
-        port.new_multipart_upload("bkt", "z")
     # heal is ported: a shard lost on one disk comes back byte-identical
     _port, _ref, troots, _j = sets
     d = sorted(_dead(troots, "block"))[0]

@@ -376,6 +376,16 @@ def _settled(read, pause: float = 0.05, tries: int = 100):
     raise AssertionError("the server's request books did not settle")
 
 
+def _until(cond, timeout_s: float = 10.0) -> bool:
+    """True once ``cond()`` holds, False after ``timeout_s``."""
+    deadline = time.monotonic() + timeout_s
+    while not cond():
+        if time.monotonic() > deadline:
+            return False
+        time.sleep(0.01)
+    return True
+
+
 def _start(kind: str, roots: list):
     if kind == "jax":
         ol = JaxObjects([JaxStorage(r) for r in roots], parity_blocks=M,
@@ -560,31 +570,9 @@ UNPORTED = [
     # (name, slice, request)
     ("admin", "5b", lambda c: c.request(
         "GET", "/minio-tpu/admin/v1/info")),
-    ("list_object_versions", "5c", lambda c: c.request(
-        "GET", "/bkt", query={"versions": ""})),
-    ("copy_object", "5c", lambda c: c.put_object(
-        "bkt", "copy", b"", headers={"x-amz-copy-source": "/bkt/obj"})),
-    ("multi_delete", "5c", lambda c: c.request(
-        "POST", "/bkt", query={"delete": ""},
-        body=b"<Delete><Object><Key>obj</Key></Object></Delete>")),
-    ("post_policy", "5c", lambda c: c.request(
-        "POST", "/bkt", body=b"--x--\r\n", headers={
-            "content-type": "multipart/form-data; boundary=x"},
-        sign=False)),
     ("select", "6", lambda c: c.request(
         "POST", "/bkt/obj", query={"select": "", "select-type": "2"},
         body=b"<SelectObjectContentRequest/>")),
-    ("initiate_multipart", "7", lambda c: c.request(
-        "POST", "/bkt/mp", query={"uploads": ""})),
-    ("put_part", "7", lambda c: c.request(
-        "PUT", "/bkt/mp", query={"partNumber": "1", "uploadId": "u"},
-        body=b"x")),
-    ("list_parts", "7", lambda c: c.request(
-        "GET", "/bkt/mp", query={"uploadId": "u"})),
-    ("abort_multipart", "7", lambda c: c.request(
-        "DELETE", "/bkt/mp", query={"uploadId": "u"})),
-    ("list_uploads", "7", lambda c: c.request(
-        "GET", "/bkt", query={"uploads": ""})),
     ("sse_s3_put", "8", lambda c: c.put_object(
         "bkt", "enc", b"x", headers={"x-amz-server-side-encryption": "AES256"})),
     ("sse_kms_put", "8", lambda c: c.put_object(
@@ -839,6 +827,10 @@ def test_tenant_shedding(tmp_path, monkeypatch, kind):
     try:
         c = S3Client(srv.endpoint)
         assert c.make_bucket("bkt").status == 200
+        # the bucket create's handler leaves its tenant slot just after
+        # answering: wait until it has, so the parked PUT is the tenant's
+        # only request inside the server
+        assert _until(lambda: not srv.admission.tenant_inflight())
         sock, body = _parked_put(srv.endpoint, "/bkt/parked", b"x" * 5000)
         try:
             shed = c.get_object("bkt", "parked")
@@ -851,6 +843,7 @@ def test_tenant_shedding(tmp_path, monkeypatch, kind):
         assert (shed.status, shed.error_code) == (503, "SlowDown")
         assert reply.startswith(b"HTTP/1.1 200"), reply
         assert srv.plane_stats.snapshot()["shed"]["tenant"] == 1
+        assert _until(lambda: not srv.admission.tenant_inflight())
         assert c.get_object("bkt", "parked").body == b"x" * 5000
     finally:
         srv.shutdown()
