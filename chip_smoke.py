@@ -69,8 +69,8 @@
    and healed.  Part files must equal the main path's; under mxu the
    ``[mxu]`` kernels must launch and the swar PUT and heal-read kernels
    must not, while heal's re-encode stays on swar K1.
-7. The S3 front: the port's S3Server (threaded plane, unset
-   MINIO_TPU_SERVER) over a fresh ErasureObjects on the card (12 disks,
+7. The S3 front: the port's S3Server (threaded plane,
+   MINIO_TPU_SERVER=threaded) over a fresh ErasureObjects on the card (12 disks,
    EC 8+4, 10 MiB blocks), driven through SigV4 over HTTP by this
    script's own signer (``S3Signer``, on minio_tpu_torch.server.auth):
    bucket create and policy (a bucket document, erasure-coded in
@@ -100,7 +100,24 @@
    multi-delete after which every GET answers 404.  K5 (with merged
    jobs) covers every part, K3 runs on the degraded GETs, K2 and K5 on
    the copies.  Prints the ``s3_mp:`` line.
-9. Prints the kernels JSON line, the card's name and power limit, and as
+9. The server as users start it (``boot_phase``): ``python -m
+   minio_tpu_torch.server --parity 4`` over 24 temp-dir drives in a
+   process of its own, on the async plane and the card (neither
+   MINIO_TPU_SERVER nor MINIO_ERASURE_BACKEND set), the fresh-disk
+   monitor every second.  Boot until readiness answers 200 (each
+   drive's format.json: 2 sets x 12, one deployment id; loops/status
+   async; 24 drives online); 4 SigV4 clients PUT 8 x 64 MiB and the
+   10 MiB + 17 B object at once (both sets hold objects), GET every one;
+   drive 5 (set 0) wiped while the server runs: stamped back with its
+   uuid and every set-0 object healed onto it, its files equal to those
+   before the wipe; one part file of a set-1 object deleted and healed
+   through the admin API; SIGTERM (exit 0, ``shutdown complete``); drive
+   17 (set 1) wiped while the server is down, then a restart over the
+   same drives: the same deployment id, drive 17 stamped by the hole
+   fill and healed by the sweep, every GET equal to its source, SIGTERM.
+   The admin ``kernel-stats`` is read around each step (device passes,
+   batcher flushes, merges, wait seconds).  Prints the ``boot:`` line.
+10. Prints the kernels JSON line, the card's name and power limit, and as
    the last line ``{"ok": true, "device": {...}}``.
 
 Exits non-zero, without the result lines, when there is no CUDA device or
@@ -1919,7 +1936,8 @@ def s3_phase(dev, work: str, payloads: list, written: dict, mp: dict) -> dict:
             fail(f"S3 phase: kernel {name} launched")
 
     def merged(a, b):
-        return {k: b[k] - a[k] for k in ("flushes", "jobs", "multi_client_flushes")}
+        return {k: b[k] - a[k] for k in ("flushes", "jobs", "multi_client_flushes",
+                                         "wait_seconds")}
 
     put_batch, get_batch, deg_batch = merged(b0, b1), merged(b1, b2), merged(b2, b3)
     cross = sum(x["multi_client_flushes"] for x in (put_batch, get_batch, deg_batch))
@@ -2235,7 +2253,9 @@ def s3_mp_phase(dev, work: str, payloads: list) -> dict:
         # before anything reads with disks offline
         lr = launched()
         for key, disks in short.items():
-            dist_k = XLStorage(roots[0]).read_version("mpb", key).erasure.distribution
+            # the distribution from a disk that holds the completed object
+            src = next(d for d in range(N) if d not in disks)
+            dist_k = XLStorage(roots[src]).read_version("mpb", key).erasure.distribution
             res = ol.heal_object("mpb", key)
             if sorted(res["healed"]) != sorted(dist_k[d] - 1 for d in disks):
                 fail(f"S3 mp phase: repair of {key} healed {res['healed']}")
@@ -2473,6 +2493,375 @@ def s3_mp_phase(dev, work: str, payloads: list) -> dict:
                     "total": batch["flushes"], "jobs": batch["jobs"]},
         "stages": stats["stages"],
     }
+    return out
+
+
+# -- phase 9: the server as users start it -------------------------------------
+
+BOOT_DRIVES = 24  # two EC 8+4 sets
+BOOT_SPEC = "disk{1...24}"
+BOOT_WIPE_LIVE = 5  # drive of set 0, wiped while the server runs
+BOOT_WIPE_DOWN = 17  # drive of set 1, wiped while it is down
+BOOT_READY_S = 300.0  # spawn to ready, CUDA start and library load included
+BOOT_HEAL_S = 180.0
+ADMIN = "/minio-tpu/admin/v1"
+
+
+def _free_port() -> int:
+    import socket
+
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        return s.getsockname()[1]
+
+
+def _drive_files(root: str, bucket: str) -> dict:
+    """{path under the bucket: sha256} of every file one drive holds for
+    the bucket (xl.meta and part files), read straight from the disk."""
+    import hashlib
+
+    out = {}
+    base = os.path.join(root, bucket)
+    for dirpath, _dirs, files in os.walk(base):
+        for name in files:
+            path = os.path.join(dirpath, name)
+            try:
+                with open(path, "rb") as f:
+                    out[os.path.relpath(path, base)] = hashlib.sha256(
+                        f.read()).hexdigest()
+            except OSError:
+                continue
+    return out
+
+
+def _wipe_drive(root: str) -> None:
+    """A replaced drive: the mount point stays, its contents are gone."""
+    for entry in os.listdir(root):
+        path = os.path.join(root, entry)
+        if os.path.isdir(path):
+            shutil.rmtree(path, ignore_errors=True)
+        else:
+            os.remove(path)
+
+
+class _BootedServer:
+    """``python -m minio_tpu_torch.server`` in a process of its own (never
+    a fork of this one, which holds a CUDA context); its output goes to a
+    log file read back at the end."""
+
+    def __init__(self, work: str, port: int, env: dict, tag: str):
+        self.port = port
+        self.log_path = os.path.join(work, f"server-{tag}.log")
+        self._log = open(self.log_path, "w")
+        here = os.path.dirname(os.path.abspath(__file__))
+        self.t_spawn = time.monotonic()
+        self.proc = subprocess.Popen(
+            [sys.executable, "-m", "minio_tpu_torch.server", "--parity",
+             str(M), "--address", f"127.0.0.1:{port}",
+             os.path.join(work, "boot", BOOT_SPEC)],
+            cwd=here, env=env, stdout=self._log, stderr=subprocess.STDOUT)
+
+    def wait_ready(self) -> float:
+        """Seconds from spawn until /minio/health/ready answers 200."""
+        import http.client
+
+        deadline = self.t_spawn + BOOT_READY_S
+        while time.monotonic() < deadline:
+            if self.proc.poll() is not None:
+                fail(f"boot phase: the server exited {self.proc.returncode}: "
+                     f"{self.output()[-2000:]}")
+            try:
+                conn = http.client.HTTPConnection("127.0.0.1", self.port,
+                                                  timeout=5)
+                conn.request("GET", "/minio/health/ready")
+                status = conn.getresponse().status
+                conn.close()
+                if status == 200:
+                    return time.monotonic() - self.t_spawn
+            except OSError:
+                pass
+            time.sleep(0.05)
+        fail(f"boot phase: not ready within {BOOT_READY_S} s")
+
+    def output(self) -> str:
+        self._log.flush()
+        with open(self.log_path) as f:
+            return f.read()
+
+    def sigterm(self) -> float:
+        """SIGTERM; seconds until the process exits (0 expected)."""
+        import signal
+
+        t0 = time.monotonic()
+        self.proc.send_signal(signal.SIGTERM)
+        try:
+            rc = self.proc.wait(timeout=120)
+        except subprocess.TimeoutExpired:
+            self.kill()
+            fail("boot phase: the server did not exit on SIGTERM")
+        took = time.monotonic() - t0
+        out = self.output()
+        if rc != 0 or "shutdown complete" not in out.splitlines()[-1:]:
+            fail(f"boot phase: SIGTERM exit {rc}: {out[-2000:]}")
+        return took
+
+    def kill(self) -> None:
+        if self.proc.poll() is None:
+            self.proc.kill()
+            self.proc.wait(timeout=30)
+        self._log.close()
+
+
+def boot_phase(work: str, payloads: list, backend: "str | None" = None) -> dict:
+    """Phase 9: the port's real entry point.  ``python -m
+    minio_tpu_torch.server --parity 4`` over 24 temp-dir drives (two EC
+    8+4 sets, 10 MiB blocks) on the async plane and the card (neither
+    MINIO_TPU_SERVER nor MINIO_ERASURE_BACKEND set; ``backend`` sets the
+    latter for a rehearsal on the CPU), the fresh-disk monitor every
+    second.  Boot, traffic of 4 SigV4 clients, a drive wiped while the
+    server runs and healed back, an admin heal, SIGTERM, then a restart
+    over the same drives with another drive wiped while it was down."""
+    import hashlib
+    import json as _json
+
+    import numpy as np
+
+    from minio_tpu_torch.objectlayer.sets import crc_hash_mod
+
+    roots = [os.path.join(work, "boot", f"disk{i}")
+             for i in range(1, BOOT_DRIVES + 1)]
+    per_set = BOOT_DRIVES // 2
+    env = {k: v for k, v in os.environ.items()
+           if k not in ("MINIO_TPU_SERVER", "MINIO_ERASURE_BACKEND")}
+    env["MINIO_TPU_FRESH_DISK_INTERVAL_S"] = "1"
+    env["MINIO_TPU_LOG_LEVEL"] = "warning"
+    if backend is not None:
+        env["MINIO_ERASURE_BACKEND"] = backend
+    rng = np.random.default_rng(SEED + 9)
+    objs = {f"c{c}/big{j}": rng.bytes(S3_BIG)
+            for c in range(S3_CLIENTS) for j in range(2)}
+    objs["obj4"] = payloads[4]  # the 10 MiB + 17 B object
+    sha = {k: hashlib.sha256(v).digest() for k, v in objs.items()}
+    set_of = {k: crc_hash_mod(k, 2) for k in objs}
+    if set(set_of.values()) != {0, 1}:
+        fail(f"boot phase: the objects do not cover both sets: {set_of}")
+    out: dict = {"drives": BOOT_DRIVES, "sets": 2, "objects": len(objs)}
+    servers: list = []
+
+    def admin(signer, method, tail, query=None, want=200):
+        st, _h, body = signer.request(method, f"{ADMIN}/{tail}", query)
+        if st != want:
+            fail(f"boot phase: admin {method} {tail}: {st} {body[:300]!r}")
+        return _json.loads(body) if body else {}
+
+    def stats(signer) -> dict:
+        return admin(signer, "GET", "kernel-stats")
+
+    def step_delta(a: dict, b: dict) -> dict:
+        pa, pb = a["device_passes"], b["device_passes"]
+        return {
+            "device_passes": {k: pb[k] - pa.get(k, 0) for k in pb
+                              if pb[k] != pa.get(k, 0)},
+            "flushes": b["batch"]["flushes"] - a["batch"]["flushes"],
+            "jobs": b["batch"]["jobs"] - a["batch"]["jobs"],
+            "multi_client_flushes": (b["batch"]["multi_client_flushes"]
+                                     - a["batch"]["multi_client_flushes"]),
+            "wait_seconds": b["batch"]["wait_seconds"]
+            - a["batch"]["wait_seconds"],
+        }
+
+    def boot(tag: str) -> "tuple[_BootedServer, float]":
+        srv = _BootedServer(work, _free_port(), env, tag)
+        servers.append(srv)
+        return srv, srv.wait_ready()
+
+    def wait_files(root: str, want: dict, t0: float, what: str) -> float:
+        """Seconds from ``t0`` until ``root`` holds exactly ``want``."""
+        while time.monotonic() - t0 < BOOT_HEAL_S:
+            if _drive_files(root, "boot") == want:
+                return time.monotonic() - t0
+            time.sleep(0.1)
+        got = _drive_files(root, "boot")
+        fail(f"boot phase: {what}: {len(got)} of {len(want)} files back, "
+             f"{sum(got.get(k) == v for k, v in want.items())} equal")
+
+    def get_all(host, port) -> "tuple[float, int]":
+        def get(signer, key):
+            st, _h, body = signer.request("GET", f"/boot/{key}")
+            if st != 200 or hashlib.sha256(body).digest() != sha[key]:
+                fail(f"boot phase: GET {key}: {st}, body differs from its source")
+            return len(body)
+
+        keys = sorted(objs)
+        wall, sizes = _in_clients(host, port,
+                                  [keys[c::S3_CLIENTS] for c in range(S3_CLIENTS)],
+                                  get)
+        return wall, sum(sizes)
+
+    t_phase = time.monotonic()
+    try:
+        os.makedirs(os.path.join(work, "boot"), exist_ok=True)
+        # -- 1. boot -------------------------------------------------------
+        srv, out["ready_s"] = boot("first")
+        host, port = "127.0.0.1", srv.port
+        fmts = []
+        for r in roots:
+            with open(os.path.join(r, ".sys", "format.json")) as f:
+                fmts.append(_json.load(f))
+        dep = {f["id"] for f in fmts}
+        layout = {(len(f["erasure"]["sets"]), len(f["erasure"]["sets"][0]))
+                  for f in fmts}
+        if len(dep) != 1 or layout != {(2, per_set)}:
+            fail(f"boot phase: format.json ids {dep}, layouts {layout}")
+        for i, f in enumerate(fmts):
+            if f["erasure"]["this"] != f["erasure"]["sets"][i // per_set][i % per_set]:
+                fail(f"boot phase: drive {i + 1} is not in its slot")
+        deployment = dep.pop()
+        one = S3Signer(host, port)
+        loops = admin(one, "GET", "loops/status")
+        if loops["mode"] != "async" or not loops["count"]:
+            fail(f"boot phase: loops/status {loops}")
+        si = admin(one, "GET", "storageinfo")["zones"][0]
+        if (si["disks"], si["online"]) != (BOOT_DRIVES, BOOT_DRIVES):
+            fail(f"boot phase: storageinfo {si}")
+        out["loops"] = loops["count"]
+        out["reuseport"] = loops["reuseport"]
+        st, _h, body = one.request("PUT", "/boot")
+        if st != 200:
+            fail(f"boot phase: bucket create {st} {body[:200]!r}")
+
+        # -- 2. traffic: 4 clients PUT 8 x 64 MiB + the 10 MiB + 17 B at once
+        def put(signer, key):
+            st, _h, body = signer.request("PUT", f"/boot/{key}", body=objs[key],
+                                          payload_hash=sha[key].hex())
+            if st != 200:
+                fail(f"boot phase: PUT {key}: {st} {body[:200]!r}")
+            return len(objs[key])
+
+        keys = sorted(objs)
+        s0 = stats(one)
+        put_wall, put_sizes = _in_clients(
+            host, port, [keys[c::S3_CLIENTS] for c in range(S3_CLIENTS)], put)
+        s1 = stats(one)
+        # a write that missed drives queued its object for MRF heal: let
+        # the heal routine finish, then every drive of the object's set
+        # must hold it
+        t0 = time.monotonic()
+        while admin(one, "GET", "background-heal/status")["nodes"][0]["queued"]:
+            if time.monotonic() - t0 > BOOT_HEAL_S:
+                fail("boot phase: the MRF queue did not drain")
+            time.sleep(0.1)
+        short = {}
+        for k, s in set_of.items():
+            lacking = [d for d in range(s * per_set, (s + 1) * per_set)
+                       if not os.path.exists(os.path.join(roots[d], "boot", k,
+                                                          "xl.meta"))]
+            if lacking:
+                short[k] = lacking
+                admin(one, "POST", "heal", {"bucket": "boot", "object": k})
+        held = {s: sum(1 for d in range(s * per_set, (s + 1) * per_set)
+                       for k in objs if os.path.exists(
+                           os.path.join(roots[d], "boot", k, "xl.meta")))
+                for s in (0, 1)}
+        want_held = {s: per_set * sum(1 for v in set_of.values() if v == s)
+                     for s in (0, 1)}
+        if held != want_held:
+            fail(f"boot phase: shards by set {held}, want {want_held}")
+        get_wall, get_bytes = get_all(host, port)
+        s2 = stats(one)
+
+        # -- 3. a drive of set 0 replaced while the server runs ------------
+        live = roots[BOOT_WIPE_LIVE - 1]
+        before_live = _drive_files(live, "boot")
+        set0 = sorted(k for k, s in set_of.items() if s == 0)
+        if {p.split("/xl.meta")[0] for p in before_live if p.endswith("xl.meta")} != set(set0):
+            fail("boot phase: drive 5 does not hold every set-0 object")
+        t0 = time.monotonic()
+        _wipe_drive(live)
+        live_heal_s = wait_files(live, before_live, t0,
+                                 f"drive {BOOT_WIPE_LIVE} healed back")
+        with open(os.path.join(live, ".sys", "format.json")) as f:
+            doc = _json.load(f)
+        if (doc["id"], doc["erasure"]["this"]) != (
+                deployment, fmts[BOOT_WIPE_LIVE - 1]["erasure"]["this"]):
+            fail("boot phase: the wiped drive was stamped with another identity")
+        s3 = stats(one)
+
+        # -- 4. admin heal of one deleted shard file of a set-1 object -----
+        victim = sorted(k for k, s in set_of.items() if s == 1)[0]
+        vroot = roots[per_set + 3]
+        vfiles = {p: h for p, h in _drive_files(vroot, "boot").items()
+                  if p.startswith(victim + "/") and "part." in p}
+        if not vfiles:
+            fail(f"boot phase: drive {per_set + 4} lacks {victim}'s part file")
+        vpath = sorted(vfiles)[0]
+        os.remove(os.path.join(vroot, "boot", vpath))
+        t0 = time.monotonic()
+        res = admin(one, "POST", "heal", {"bucket": "boot", "object": victim})
+        admin_heal_s = time.monotonic() - t0
+        if _drive_files(vroot, "boot").get(vpath) != vfiles[vpath]:
+            fail(f"boot phase: admin heal of {victim} left {vpath} {res}")
+        s4 = stats(one)
+        one.close()
+
+        # -- 5. SIGTERM ------------------------------------------------------
+        out["sigterm_s"] = [srv.sigterm()]
+        first_out = srv.output()
+
+        # -- 6. a drive of set 1 replaced while the server is down ---------
+        down = roots[BOOT_WIPE_DOWN - 1]
+        before_down = _drive_files(down, "boot")
+        _wipe_drive(down)
+        srv, ready2 = boot("restart")
+        t_ready = time.monotonic()
+        port = srv.port
+        with open(os.path.join(down, ".sys", "format.json")) as f:
+            doc = _json.load(f)
+        if (doc["id"], doc["erasure"]["this"]) != (
+                deployment, fmts[BOOT_WIPE_DOWN - 1]["erasure"]["this"]):
+            fail("boot phase: the restart did not stamp drive 17 into its slot")
+        one = S3Signer(host, port)
+        r0 = stats(one)
+        down_heal_s = wait_files(down, before_down, t_ready,
+                                 f"drive {BOOT_WIPE_DOWN} healed back")
+        r1 = stats(one)
+        get2_wall, _ = get_all(host, port)
+        r2 = stats(one)
+        one.close()
+        out["sigterm_s"].append(srv.sigterm())
+        restart_out = srv.output()
+    finally:
+        for s in servers:
+            s.kill()
+    for name, text in (("first", first_out), ("restart", restart_out)):
+        lines = text.splitlines()
+        if not any("(bootstrapping)" in ln for ln in lines) or not any(
+                ln.startswith("minio-tpu serving 1 zone(s) [24] drives") for ln in lines):
+            fail(f"boot phase: the {name} boot's lines: {lines[:6]}")
+    nput = sum(put_sizes)
+    out.update({
+        "phase_s": time.monotonic() - t_phase,
+        "ready_s": [out["ready_s"], ready2],
+        "deployment_kept": True,
+        "put_concurrent": {"bytes": nput, "s": put_wall,
+                           "MBps": nput / put_wall / 1e6},
+        "get_concurrent": {"bytes": get_bytes, "s": get_wall,
+                           "MBps": get_bytes / get_wall / 1e6},
+        "get_after_restart": {"bytes": get_bytes, "s": get2_wall,
+                              "MBps": get_bytes / get2_wall / 1e6},
+        "heal_live": {"drive": BOOT_WIPE_LIVE, "files": len(before_live),
+                      "objects": len(set0), "s": live_heal_s},
+        "heal_down": {"drive": BOOT_WIPE_DOWN, "files": len(before_down),
+                      "s_after_ready": down_heal_s},
+        "admin_heal": {"object": victim, "file": vpath, "s": admin_heal_s,
+                       "healed": res.get("healed")},
+        "short_writes": short,
+        "steps": {
+            "put": step_delta(s0, s1), "get": step_delta(s1, s2),
+            "heal_live": step_delta(s2, s3), "admin_heal": step_delta(s3, s4),
+            "heal_down": step_delta(r0, r1), "get_after_restart": step_delta(r1, r2),
+        },
+    })
     return out
 
 
@@ -2792,18 +3181,31 @@ def main() -> int:
 
     import numpy as np
 
+    # wall seconds of each phase of this run (the script's own clock)
+    phases_s = {"build": build_s}
+    mark = time.monotonic()
+
+    def lap(name: str) -> None:
+        nonlocal mark
+        now = time.monotonic()
+        phases_s[name] = now - mark
+        mark = now
+
     rng = np.random.default_rng(SEED)
     kres = check_kernels(dev, rng)
     kres.update(check_heal_kernels(dev, rng))
     kres.update(check_overlap_kernels(dev, rng))
     kres.update(check_mxu_kernels(dev, rng))
+    lap("kernel_checks")
     for name, r in kres.items():
         print(f"kernel {name}: {json.dumps(r)}", flush=True)
     if args.parent:
         for row in compare_copies(dev, copies, ["parent", "new", "new", "parent"]):
             print(f"compare: {json.dumps(row)}", flush=True)
+    lap("compare")
     xfer = transfer_ms(dev)
     print(f"transfers: {json.dumps(xfer)}", flush=True)
+    lap("transfers")
 
     # the main path and heal run under the default mode
     os.environ.pop("MINIO_TPU_CODEC_OVERLAP", None)
@@ -2811,12 +3213,24 @@ def main() -> int:
     try:
         payloads, written, mp = main_path(dev, work)
         print(f"main path: {json.dumps(mp)}", flush=True)
+        lap("main_path")
         hp = heal_phase(dev, work, payloads)
         print(f"heal: {json.dumps(hp)}", flush=True)
+        lap("heal")
         mo = modes_phase(dev, work, payloads, written, MODE_RUNS)
+        lap("modes")
         mx = modes_phase(dev, work, payloads, written, MXU_RUNS)
+        lap("mxu")
+        # phases 7 and 8 serve in this process on the threaded plane;
+        # the boot phase's server takes the default (async)
+        os.environ["MINIO_TPU_SERVER"] = "threaded"
         s3 = s3_phase(dev, work, payloads, written, mp)
+        lap("s3")
         s3mp = s3_mp_phase(dev, work, payloads)
+        lap("s3_mp")
+        os.environ.pop("MINIO_TPU_SERVER", None)
+        bt = boot_phase(work, payloads)
+        lap("boot")
     finally:
         shutil.rmtree(work, ignore_errors=True)
     for label, by_run in (("mode", mo), ("mxu phase", mx)):
@@ -2826,6 +3240,8 @@ def main() -> int:
                       flush=True)
     print(f"s3: {json.dumps(s3)}", flush=True)
     print(f"s3_mp: {json.dumps(s3mp)}", flush=True)
+    print(f"boot: {json.dumps(bt)}", flush=True)
+    print(f"phases_s: {json.dumps(phases_s)}", flush=True)
     phase_launches = {
         "main": mp["launches"], "heal": hp["launches"],
         "off": mo[("swar", "off")][0]["launches"],

@@ -1,1 +1,2 @@
-"""Background healing: the MRF queue and the heal routine."""
+"""Background healing: the MRF queue, the heal routine and the
+fresh-disk monitor."""

@@ -1,4 +1,4 @@
-"""Background healing: MRF queue and heal routine.
+"""Background healing: MRF queue, heal routine, fresh-disk monitor.
 
 The reference splits this across pieces that we mirror:
 
@@ -10,10 +10,12 @@ The reference splits this across pieces that we mirror:
 - Heal routine (healRoutine.run, background-heal-ops.go:77): one
   background consumer draining heal tasks against the object layer,
   throttled so it cannot starve foreground I/O.
-
-The fresh-disk monitor (a replaced drive detected through its missing
-format.json, then swept) needs the format bootstrap and listing, which
-come with the cluster slice.
+- Fresh-disk monitor (monitorLocalDisksAndHeal,
+  background-newdisks-heal-ops.go:124 + healErasureSet,
+  global-heal.go:92): detects a replaced/wiped drive (format.json gone),
+  re-stamps it from the set's reference format, and sweeps the set's
+  buckets + objects through the heal queue so the new drive converges
+  with no operator action.
 """
 
 from __future__ import annotations
@@ -166,3 +168,155 @@ class HealRoutine:
                 throttle = self._throttle
             if throttle:
                 self._stop.wait(throttle)
+
+
+class FreshDiskMonitor:
+    """Detects wiped/replaced local drives and heals them back in.
+
+    Every interval, each LOCAL disk of every set is probed for its
+    format document.  A reachable disk without one is a replacement:
+    it is re-stamped with the uuid its slot records in the set's
+    reference format (HealFormat semantics, erasure-sets.go:1328), and
+    the set's namespace is swept into the heal queue (healErasureSet).
+    """
+
+    def __init__(
+        self,
+        zones_layer,
+        queue: HealQueue,
+        interval_s: float = 10.0,
+    ):
+        self._zones = zones_layer
+        self._queue = queue
+        self._interval = interval_s
+        self._stop = threading.Event()
+        self._thread: "threading.Thread | None" = None
+        self.stamped = 0
+
+    def start(self) -> "FreshDiskMonitor":
+        self._thread = threading.Thread(
+            target=self._run, name="fresh-disk-monitor", daemon=True
+        )
+        self._thread.start()
+        return self
+
+    def stop(self) -> None:
+        self._stop.set()
+        if self._thread is not None:
+            self._thread.join(timeout=5)
+
+    def _effective_interval(self) -> float:
+        try:
+            v = float(
+                os.environ.get("MINIO_TPU_FRESH_DISK_INTERVAL_S")
+                or self._interval
+            )
+        except ValueError:
+            return self._interval
+        return v if v >= 1.0 else max(self._interval, 1.0)
+
+    def _run(self) -> None:
+        while not self._stop.wait(self._effective_interval()):
+            try:
+                self.scan_once()
+            except Exception as exc:
+                _log.warning("background heal scan failed", extra=kv(err=str(exc)))
+
+    def scan_once(self) -> int:
+        """One probe pass; returns how many fresh disks were stamped."""
+        from ..objectlayer.format import (
+            FormatErasure,
+            read_format,
+            write_format,
+        )
+
+        stamped = 0
+        for zone in getattr(self._zones, "zones", [self._zones]):
+            ref = getattr(zone, "format_ref", None)
+            if ref is None:
+                continue
+            for s_idx, eset in enumerate(zone.sets):
+                fresh: list[int] = []
+                for d_idx, disk in enumerate(eset.disks):
+                    if disk is None:
+                        continue
+                    # probe THROUGH the decorator chain (DiskIDCheck,
+                    # MeteredDisk - in either stacking order) to the
+                    # raw disk: the ID check (rightly) fails every op
+                    # on an unformatted drive, but this monitor's
+                    # whole job is resurrecting exactly those drives
+                    raw = disk
+                    while True:
+                        inner = (
+                            raw.__dict__.get("unwrapped")
+                            if hasattr(raw, "__dict__")
+                            else None
+                        )
+                        if inner is None:
+                            break
+                        raw = inner
+                    # stamped at boot (load_or_init_format hole fill):
+                    # still needs its set swept
+                    if getattr(raw, "_freshly_stamped", False):
+                        raw._freshly_stamped = False
+                        fresh.append(d_idx)
+                        continue
+                    if not raw.is_local() or not raw.is_online():
+                        continue
+                    try:
+                        fmt = read_format(raw)
+                    except Exception:  # noqa: BLE001
+                        continue  # corrupt format: operator decision
+                    if fmt is not None:
+                        continue
+                    # replaced drive: restore staging vol + identity
+                    # (write_format recreates .sys itself)
+                    try:
+                        write_format(
+                            raw,
+                            FormatErasure(
+                                id=ref.id,
+                                this=ref.sets[s_idx][d_idx],
+                                sets=ref.sets,
+                            ),
+                        )
+                        fresh.append(d_idx)
+                        stamped += 1
+                    except Exception:  # noqa: BLE001
+                        continue
+                    # the identity check may hold a verdict cached
+                    # while the drive was blank: drop it before the
+                    # sweep's heals look for the drive
+                    recheck = getattr(disk, "recheck", None)
+                    if recheck is not None:
+                        recheck()
+                if fresh:
+                    self._sweep_set(eset)
+        self.stamped += stamped
+        return stamped
+
+    def _sweep_set(self, eset) -> None:
+        """Enqueue every bucket + object of the set for heal
+        (healErasureSet, global-heal.go:92)."""
+        buckets: dict[str, None] = {}
+        for disk in eset.disks:
+            if disk is None or not disk.is_online():
+                continue
+            try:
+                for v in disk.list_vols():
+                    buckets[v.name] = None
+            except Exception:  # noqa: BLE001
+                continue
+        for bucket in buckets:
+            self._queue.push(HealTask(bucket))
+            names: dict[str, None] = {}
+            for disk in eset.disks:
+                if disk is None or not disk.is_online():
+                    continue
+                try:
+                    for name in disk.walk(bucket):
+                        names[name] = None
+                except Exception:  # noqa: BLE001
+                    continue
+            for name in names:
+                self._queue.push(HealTask(bucket, name))

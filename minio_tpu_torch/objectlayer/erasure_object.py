@@ -154,19 +154,25 @@ class ErasureObjects(MultipartMixin, ObjectLayer):
     def make_bucket(self, bucket: str) -> None:
         check_bucket_name(bucket)
         with self.nslock.write(bucket, ""):
-            errs = []
-            for d in self._online_disks():
-                if d is None:
-                    errs.append(serrors.DiskNotFound("offline"))
-                    continue
-                try:
-                    d.make_vol(bucket)
-                    errs.append(None)
-                except Exception as e:  # noqa: BLE001 - per-disk error slot
-                    errs.append(e)
-            if any(isinstance(e, serrors.VolumeExists) for e in errs):
-                raise BucketExists(bucket)
-            reduce_errs(errs, self.write_quorum, WriteQuorumError)
+            self._make_bucket(bucket)
+
+    def _make_bucket(self, bucket: str) -> None:
+        """make_bucket under a bucket lock the caller holds (ErasureSets
+        takes one lock over its fan-out: the sets share one nslock,
+        which is not reentrant)."""
+        errs = []
+        for d in self._online_disks():
+            if d is None:
+                errs.append(serrors.DiskNotFound("offline"))
+                continue
+            try:
+                d.make_vol(bucket)
+                errs.append(None)
+            except Exception as e:  # noqa: BLE001 - per-disk error slot
+                errs.append(e)
+        if any(isinstance(e, serrors.VolumeExists) for e in errs):
+            raise BucketExists(bucket)
+        reduce_errs(errs, self.write_quorum, WriteQuorumError)
 
     def get_bucket_info(self, bucket: str) -> BucketInfo:
         check_bucket_name(bucket)
@@ -196,26 +202,30 @@ class ErasureObjects(MultipartMixin, ObjectLayer):
 
     def delete_bucket(self, bucket: str, force: bool = False) -> None:
         with self.nslock.write(bucket, ""):
-            self.get_bucket_info(bucket)  # existence check
-            errs = []
-            nonempty = False
-            for d in self._online_disks():
-                if d is None:
-                    errs.append(serrors.DiskNotFound("offline"))
-                    continue
-                try:
-                    d.delete_vol(bucket, force=force)
-                    errs.append(None)
-                except serrors.VolumeNotEmpty as e:
-                    nonempty = True
-                    errs.append(e)
-                except (serrors.VolumeNotFound, FileNotFoundError):
-                    errs.append(None)
-                except Exception as e:  # noqa: BLE001 - per-disk error slot
-                    errs.append(e)
-            if nonempty:
-                raise BucketNotEmpty(bucket)
-            reduce_errs(errs, self.write_quorum, WriteQuorumError)
+            self._delete_bucket(bucket, force)
+
+    def _delete_bucket(self, bucket: str, force: bool = False) -> None:
+        """delete_bucket under a bucket lock the caller holds."""
+        self.get_bucket_info(bucket)  # existence check
+        errs = []
+        nonempty = False
+        for d in self._online_disks():
+            if d is None:
+                errs.append(serrors.DiskNotFound("offline"))
+                continue
+            try:
+                d.delete_vol(bucket, force=force)
+                errs.append(None)
+            except serrors.VolumeNotEmpty as e:
+                nonempty = True
+                errs.append(e)
+            except (serrors.VolumeNotFound, FileNotFoundError):
+                errs.append(None)
+            except Exception as e:  # noqa: BLE001 - per-disk error slot
+                errs.append(e)
+        if nonempty:
+            raise BucketNotEmpty(bucket)
+        reduce_errs(errs, self.write_quorum, WriteQuorumError)
 
     def _require_bucket(self, bucket: str) -> None:
         self.get_bucket_info(bucket)

@@ -233,6 +233,13 @@ def _load():
         return _lib
 
 
+def load() -> None:
+    """Build (or find by its fingerprint) and load the kernel library
+    now, not at the first launch: the server does it at boot, before it
+    reports ready."""
+    _load()
+
+
 def _constants() -> dict:
     """The values codec.cu must export (mtt_constants), from this
     module's own."""

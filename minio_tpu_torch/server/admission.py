@@ -25,7 +25,7 @@ modes: inflight gauge, per-stage queue depths, shed counters.  It is
 sampled by the Prometheus exposition (server/metrics.py) and by admin
 healthinfo.
 
-Multi-loop plane (the async plane, slice 5b): with
+Multi-loop plane (the async plane, server/aio.py): with
 ``MINIO_TPU_SERVER_LOOPS=N`` the async plane runs N shared-nothing
 event loops, so admission state splits in two:
 

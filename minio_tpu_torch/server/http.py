@@ -1,6 +1,6 @@
 """The S3 HTTP server: router + handlers (L6/L7 of the layer map).
 
-One threaded stdlib HTTP server hosting the S3 API surface
+One HTTP server hosting the S3 API surface
 (cmd/api-router.go routes + cmd/object-handlers.go / bucket-handlers.go
 glue).  Requests are authenticated with SigV4 (auth.py), dispatched on
 (method, path-shape, query), and translated to ObjectLayer calls; errors
@@ -11,14 +11,19 @@ The reference funnels every handler through middleware
 equivalent cross-cutting layer lives in _Handler.route(): auth, tracing
 hooks, error rendering, request IDs.
 
-This package serves one erasure set (``S3Server(ErasureObjects(disks))``)
-on the thread-per-request plane: health, metrics, ListBuckets, bucket
+The server fronts any of the port's object layers - one erasure set
+(``S3Server(ErasureObjects(disks))``) or the zones over sets over
+guarded drives that ``python -m minio_tpu_torch.server`` builds - on
+the asyncio request plane (server/aio.py, the default) or the
+thread-per-request stdlib plane (``MINIO_TPU_SERVER=threaded``, the
+bisection oracle).  It serves health, metrics, ListBuckets, bucket
 create / HEAD / DELETE / ``?location`` / ``?policy`` / ``?versioning``,
 ListObjects V1 and V2, ListObjectVersions, PutObject / GetObject /
 HeadObject / DeleteObject, CopyObject, multi-object delete, POST-policy
 uploads and the multipart routes (CreateMultipartUpload, UploadPart,
 UploadPartCopy, ListParts, ListMultipartUploads, AbortMultipartUpload,
-CompleteMultipartUpload).  Every route of a feature not ported yet
+CompleteMultipartUpload), and the admin API (server/admin.py) with
+its trace and console streams.  Every route of a feature not ported yet
 answers S3 ``NotImplemented`` with a message naming the slice that
 ports it, and every PUT-path seam (quota, object lock and tagging,
 replication, SSE, events) raises the same way when the request or the
@@ -60,14 +65,11 @@ MAX_IN_MEMORY_BODY = 1 << 30  # buffered-body cap (XML configs)
 MAX_OBJECT_SIZE = 5 << 40  # globalMaxObjectSize (cmd/globals.go)
 MAX_MULTI_DELETE_BODY = 1 << 20  # multi-delete key lists
 
-# request-plane mode: the thread-per-request stdlib plane is the one
-# ported; MINIO_TPU_SERVER=async (the JAX package's default) raises
-# until slice 5b ports the event-loop plane
-DEFAULT_SERVER_MODE = "threaded"
+# request-plane mode: the asyncio plane (server/aio.py) unless
+# MINIO_TPU_SERVER=threaded asks for the thread-per-request oracle
+DEFAULT_SERVER_MODE = "async"
 
-# mounts of the planes not ported yet: the admin API (slice 5b) and
-# the web/console plane (slice 9c)
-ADMIN_PREFIX = "/minio-tpu/admin"
+# mounts of the web/console plane, not ported yet (slice 9c)
 WEB_RPC_PATH = "/minio-tpu/webrpc"
 WEB_PREFIX = "/minio-tpu/web"
 WEB_CONSOLE_PATH = "/minio-tpu/console"
@@ -247,6 +249,9 @@ class S3Server:
         self.draining = False
         self._adm_mu = threading.Lock()
         self._adm_cv = threading.Condition(self._adm_mu)
+        # background workers an embedder attaches (server/__main__.py):
+        # shutdown() stops them after the drain
+        self.disk_monitor = None
         # server-plane telemetry + tenant/quota admission
         # (server/admission.py)
         from .admission import AdmissionController, PlaneStats
@@ -260,6 +265,7 @@ class S3Server:
             return queued_depth()
 
         self.plane_stats.register_stage("codec", _codec_depth)
+        self._plane = None  # AsyncPlane when server_mode == "async"
         self.server_mode = "threaded"
 
     def _requests_max(self) -> int:
@@ -334,6 +340,19 @@ class S3Server:
         self._event_rules_loaded.discard(bucket)
 
     @property
+    def config(self):
+        """Runtime KV config subsystem, lazily bound to the object
+        layer (cmd/config ConfigSys analogue)."""
+        cs = getattr(self, "_config_sys", None)
+        if cs is None or cs._ol is not self.object_layer:
+            from ..config import ConfigSys
+
+            cs = ConfigSys(self.object_layer)
+            self._config_sys = cs
+        cs.notifier = self.peer_notifier
+        return cs
+
+    @property
     def bucket_meta(self) -> BucketMetadataSys:
         """Bucket metadata subsystem, lazily bound once the object
         layer attaches (it persists through the layer)."""
@@ -359,12 +378,18 @@ class S3Server:
         mode = (
             os.environ.get("MINIO_TPU_SERVER") or DEFAULT_SERVER_MODE
         ).lower()
-        if mode == "async":
-            raise unported("the async request plane (MINIO_TPU_SERVER=async)", "5b")
-        self.server_mode = "threaded"
-        # slow-loris guard: a per-connection socket timeout covers the
-        # header/body read (the stdlib drops the connection without a
-        # response on expiry)
+        self.server_mode = "async" if mode == "async" else "threaded"
+        if self.server_mode == "async":
+            from . import aio
+
+            ssl_ctx = tlsconf.server_context() if self.tls else None
+            self._plane = aio.AsyncPlane(self)
+            self._plane.start(Handler, self.host, self.port, ssl_ctx)
+            self.port = self._plane.port
+            return self
+        # slow-loris guard for the threaded oracle: a per-connection
+        # socket timeout covers the header/body read (the stdlib drops
+        # the connection without a response on expiry)
         idle = os.environ.get("MINIO_TPU_IDLE_TIMEOUT_S")
         if idle:
             try:
@@ -388,11 +413,16 @@ class S3Server:
     def shutdown(self, drain_s: float = 10.0) -> None:
         """Stop accepting, then drain in-flight requests up to
         ``drain_s`` (the reference's graceful shutdown,
-        cmd/http/server.go:116 request draining).  Idempotent."""
+        cmd/http/server.go:116 request draining).  Idempotent: SIGTERM
+        followed by an embedder's own shutdown() (or a double signal)
+        must not re-stop half-torn-down subsystems - every loop drains
+        exactly once."""
         self.draining = True
         if getattr(self, "_shutdown_done", False):
             return
         self._shutdown_done = True
+        if self._plane is not None:
+            self._plane.stop(drain_s)
         if self._httpd:
             self._httpd.shutdown()  # stop accepting new connections
         deadline = _time.monotonic() + drain_s
@@ -403,17 +433,19 @@ class S3Server:
         if self._thread:
             self._thread.join(timeout=5)
         self.events.shutdown()
-        # the heal routine stops AFTER the drain so an in-flight PUT's
-        # heal hooks land
-        worker = self.heal_routine
-        if worker is not None and hasattr(worker, "stop"):
-            try:
-                worker.stop()
-            except Exception as exc:
-                _log.debug(
-                    "background worker stop failed",
-                    extra=kv(worker="heal_routine", err=str(exc)),
-                )
+        # background maintenance threads (fresh-disk monitor, heal
+        # routine) stop AFTER the drain so an in-flight PUT's heal
+        # hooks land
+        for attr in ("disk_monitor", "heal_routine"):
+            worker = getattr(self, attr, None)
+            if worker is not None and hasattr(worker, "stop"):
+                try:
+                    worker.stop()
+                except Exception as exc:
+                    _log.debug(
+                        "background worker stop failed",
+                        extra=kv(worker=attr, err=str(exc)),
+                    )
         # detach the console ring from the package logger: a process
         # constructing several servers must not accumulate handlers
         self.console.uninstall()
@@ -426,8 +458,19 @@ class S3Server:
         doc = {"object_layer": self.object_layer is not None}
         if self.boot_status is not None:
             doc.update(self.boot_status)
+        plane = self._plane
+        if plane is not None:
+            # every server loop must be accepting before ready flips
+            doc["server_loops"] = plane.loops_ready()
         ok = all(doc.values()) and not self.draining
         doc["draining"] = self.draining
+        if plane is not None:
+            # per-loop detail rides after the ok computation (like
+            # "draining"): states are strings, not readiness gates
+            doc["loops"] = {
+                str(row["loop"]): row["state"]
+                for row in plane.describe()["per_loop"]
+            }
         return ok, _json.dumps(doc, sort_keys=True).encode()
 
     @property
@@ -724,31 +767,37 @@ class _Handler(BaseHTTPRequestHandler):
                 ),
                 content_type="text/plain; version=0.0.4",
             )
-        # tenant/quota admission (server/admission.py), run in the
-        # handler thread so the threaded plane sheds with the same
-        # semantics as the JAX package's
-        adm = self.s3.admission
-        if adm.quota_rejects_put(self.command, path, self.headers):
-            self.s3.plane_stats.shed_inc("quota")
-            self.s3.metrics.observe("Shed", 503, 0.0)
-            self.close_connection = True
-            return self._error(s3errors.get("SlowDown"), path)
-        tenant = adm.tenant_of(self.headers)
-        if not adm.try_enter_tenant(tenant):
-            self.s3.plane_stats.shed_inc("tenant")
-            self.s3.metrics.observe("Shed", 503, 0.0)
-            self.close_connection = True
-            return self._error(s3errors.get("SlowDown"), path)
+        # tenant/quota admission (server/admission.py): the async plane
+        # runs this loop-side before enqueueing; the threaded oracle
+        # runs it here so both modes shed with the same semantics
+        tenant = None
+        if not getattr(self, "_plane_admitted", False):
+            adm = self.s3.admission
+            if adm.quota_rejects_put(self.command, path, self.headers):
+                self.s3.plane_stats.shed_inc("quota")
+                self.s3.metrics.observe("Shed", 503, 0.0)
+                self.close_connection = True
+                return self._error(s3errors.get("SlowDown"), path)
+            tenant = adm.tenant_of(self.headers)
+            if not adm.try_enter_tenant(tenant):
+                self.s3.plane_stats.shed_inc("tenant")
+                self.s3.metrics.observe("Shed", 503, 0.0)
+                self.close_connection = True
+                return self._error(s3errors.get("SlowDown"), path)
         # admission control (maxClients, handler-api.go:85): overload
         # answers 503 instead of spawning unbounded work
         if not self.s3.admit():
-            self.s3.admission.leave_tenant(tenant)
+            if tenant is not None:
+                self.s3.admission.leave_tenant(tenant)
             self.s3.plane_stats.shed_inc("queue")
             self.s3.metrics.observe("Shed", 503, 0.0)
             self.close_connection = True
             self._error(s3errors.get("SlowDown"), path)
             return
-        self.s3.plane_stats.enter(loop=None)
+        # multi-loop async plane: attribute the inflight gauge to the
+        # owning loop's lock-free cell (threaded oracle: loop=None)
+        _loop_ix = getattr(self, "_loop_index", None)
+        self.s3.plane_stats.enter(loop=_loop_ix)
         t0 = _time.monotonic()
         self._t_start = t0
         try:
@@ -769,8 +818,9 @@ class _Handler(BaseHTTPRequestHandler):
                 self._route_authed(path, query)
         finally:
             self.s3.release()
-            self.s3.plane_stats.leave(loop=None)
-            self.s3.admission.leave_tenant(tenant)
+            self.s3.plane_stats.leave(loop=_loop_ix)
+            if tenant is not None:
+                self.s3.admission.leave_tenant(tenant)
             # collectAPIStats analogue: every authed-path request lands
             # in the metrics registry
             try:
@@ -861,13 +911,12 @@ class _Handler(BaseHTTPRequestHandler):
                     )
                 except InvalidToken as e:
                     raise S3Error("InvalidTokenId", str(e)) from None
-            if path.startswith(ADMIN_PREFIX + "/"):
-                # owner-only like the JAX package's admin plane; the
-                # plane itself is slice 5b
-                self._action = "Admin"
-                if ctx.anonymous or not self.s3.iam.is_owner(ctx.access_key):
-                    raise S3Error("AccessDenied", "admin requires the owner")
-                raise unported("the admin API", "5b")
+            from . import admin as adminmod
+
+            if path.startswith(adminmod.PREFIX + "/"):
+                return self._route_admin(
+                    path[len(adminmod.PREFIX) + 1 :], query, ctx
+                )
             # STS plane: POST / with a form body (registerSTSRouter
             # mounts on the root path)
             if (
@@ -890,6 +939,78 @@ class _Handler(BaseHTTPRequestHandler):
             self._error(s3errors.from_exception(e), path)
         else:
             self._finish_body()
+
+    def _route_admin(self, tail: str, query, ctx) -> None:
+        """Admin plane: SigV4-authenticated, owner-only
+        (adminAPIHandlers privilege default)."""
+        from .admin import AdminAPI, map_admin_error
+
+        # metrics label only after the owner check: unauthenticated
+        # garbage paths must not mint registry keys (cardinality)
+        self._action = "Admin"
+        if ctx.anonymous or not self.s3.iam.is_owner(ctx.access_key):
+            raise S3Error("AccessDenied", "admin requires the owner")
+        self._action = f"Admin.{tail}"
+        if tail in ("trace", "console"):
+            self._finish_body()
+            return self._admin_stream(tail, query)
+        body = b""
+        if self.command in ("PUT", "POST"):
+            body = self._read_body()
+        q1 = {k: v[0] for k, v in query.items()}
+        try:
+            status, payload = AdminAPI(self.s3).handle(
+                self.command, tail, q1, body
+            )
+        except Exception as e:  # noqa: BLE001
+            mapped = map_admin_error(e)
+            if mapped is None:
+                raise
+            raise mapped from e
+        self._finish_body()
+        self._respond(status, payload, content_type="application/json")
+
+    def _admin_stream(self, kind: str, query) -> None:
+        """`mc admin trace` / `mc admin console`: stream this node's
+        JSON lines for ``duration`` seconds (TraceHandler,
+        cmd/admin-handlers.go:1007; the peers' rings join with the peer
+        plane, slice 9b)."""
+        import json as _json
+
+        try:
+            duration = float(query.get("duration", ["10"])[0])
+        except ValueError:
+            duration = 10.0
+        duration = max(0.1, min(duration, 300.0))
+        local_ring = (
+            self.s3.tracer.ring
+            if kind == "trace"
+            else self.s3.console.ring
+        )
+        self.send_response(200)
+        self.send_header("Server", "MinIO-TPU")
+        self.send_header("Content-Type", "application/x-ndjson")
+        self.send_header("Connection", "close")
+        self.close_connection = True
+        self.end_headers()
+        local_seq, _ = self.s3.tracer.poll(1 << 62) if kind == "trace" \
+            else local_ring.since(1 << 62)
+        deadline = _time.monotonic() + duration
+        while _time.monotonic() < deadline:
+            if kind == "trace":
+                local_seq, items = self.s3.tracer.poll(local_seq)
+            else:
+                local_seq, items = local_ring.since(local_seq)
+            batch = sorted(items, key=lambda e: e.get("time", 0))
+            try:
+                for item in batch:
+                    line = (_json.dumps(item) + "\n").encode()
+                    self.wfile.write(line)
+                    self._resp_bytes += len(line)
+                self.wfile.flush()
+            except OSError:
+                return  # client went away
+            _time.sleep(0.5)
 
     do_GET = do_PUT = do_POST = do_DELETE = do_HEAD = route
 

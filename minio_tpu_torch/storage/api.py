@@ -74,6 +74,18 @@ class StorageAPI:
     def endpoint(self) -> str:
         raise NotImplementedError
 
+    def is_local(self) -> bool:
+        raise NotImplementedError
+
+    def disk_info(self) -> DiskInfo:
+        raise NotImplementedError
+
+    def get_disk_id(self) -> str:
+        raise NotImplementedError
+
+    def set_disk_id(self, disk_id: str) -> None:
+        raise NotImplementedError
+
     def close(self) -> None:
         pass
 
@@ -162,9 +174,6 @@ class StorageAPI:
     ):
         """Yield (name, is_prefix) in lexical order, pruning subtrees
         outside prefix/after marker (tree-walk.go)."""
-        raise NotImplementedError
-
-    def disk_info(self) -> DiskInfo:
         raise NotImplementedError
 
     # ---- maintenance ----------------------------------------------------

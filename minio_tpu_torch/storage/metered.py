@@ -14,9 +14,9 @@ circuit breaker, which is what turns errors into trip decisions:
 
 ``wrap()`` is idempotent and walks existing ``unwrapped`` chains, so
 construction sites and the object layer can both call it safely.  The
-disk-identity decorator (``DiskIDCheck``) needs ``format.json`` and
-comes with the slice that ports the format bootstrap; until then the
-only chains are a bare disk or a MeteredDisk over one.
+server's drives stack as ``DiskIDCheck(MeteredDisk(XLStorage))``
+(storage/diskcheck.py): the identity check outermost, metering inside
+it, found there by ``is_metered``.
 """
 
 from __future__ import annotations

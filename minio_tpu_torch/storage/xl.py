@@ -79,6 +79,7 @@ class XLStorage(StorageAPI):
         self.root = os.path.abspath(root)
         self._endpoint = endpoint or self.root
         os.makedirs(os.path.join(self.root, TMP_DIR), exist_ok=True)
+        self._disk_id = ""
 
     # ---- identity / health ----------------------------------------------
 
@@ -87,6 +88,9 @@ class XLStorage(StorageAPI):
 
     def endpoint(self) -> str:
         return self._endpoint
+
+    def is_local(self) -> bool:
+        return True
 
     def disk_info(self) -> DiskInfo:
         st = os.statvfs(self.root)
@@ -99,8 +103,14 @@ class XLStorage(StorageAPI):
             root_disk=False,
             endpoint=self._endpoint,
             mount_path=self.root,
-            disk_id="",
+            disk_id=self._disk_id,
         )
+
+    def get_disk_id(self) -> str:
+        return self._disk_id
+
+    def set_disk_id(self, disk_id: str) -> None:
+        self._disk_id = disk_id
 
     # ---- path helpers ---------------------------------------------------
 

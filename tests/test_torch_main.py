@@ -1,0 +1,206 @@
+"""``python -m minio_tpu_torch.server`` as users start it, on the CPU.
+
+The server runs as a subprocess with ``MINIO_ERASURE_BACKEND=cpu``:
+
+* it boots over four drives of which only two carry ``format.json`` - no
+  quorum - so it listens and answers 503 (readiness, and S3 requests
+  with XMinioServerNotInitialized) while its boot loop waits; once a
+  third drive's format is back the boot completes, the fourth drive is
+  stamped into its hole, and readiness answers 200;
+* a signed PUT and GET, the admin API on the async plane;
+* a drive wiped while the server runs is stamped back and healed by the
+  fresh-disk monitor and the heal routine;
+* SIGTERM drains and exits 0, printing ``shutdown complete``;
+* each layout or env this package has not ported exits non-zero with a
+  message naming its slice, and so does a codec device other than
+  ``cuda`` or ``cpu`` (and ``cuda`` on a host without a card).
+"""
+
+import json
+import os
+import shutil
+import signal
+import socket
+import subprocess
+import sys
+import time
+import urllib.request
+
+import pytest
+
+from minio_tpu_torch.objectlayer import format as tformat
+from minio_tpu_torch.storage.xl import XLStorage
+from tests.s3client import S3Client
+from tests.test_torch_threads import torch_threads  # noqa: F401
+
+ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+_SCRUB = ("MINIO_TPU_SERVER", "MINIO_TPU_SERVER_LOOPS", "MINIO_ERASURE_BACKEND",
+          "MINIO_TPU_FAULT_INJECTION", "MINIO_TPU_FEDERATION_DIR",
+          "MINIO_TPU_CACHE_DRIVES", "MINIO_TPU_TLS")
+
+
+def _env(**extra) -> dict:
+    env = {k: v for k, v in os.environ.items() if k not in _SCRUB}
+    env.update({"MINIO_ERASURE_BACKEND": "cpu", "MINIO_TPU_SERVER_LOOPS": "2",
+                "MINIO_TPU_FRESH_DISK_INTERVAL_S": "1",
+                "MINIO_TPU_LOG_LEVEL": "warning", "PYTHONUNBUFFERED": "1"})
+    env.update(extra)
+    return {k: v for k, v in env.items() if v is not None}
+
+
+def _free_port() -> int:
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        return s.getsockname()[1]
+
+
+def _ready(port: int) -> "int | None":
+    try:
+        with urllib.request.urlopen(
+                f"http://127.0.0.1:{port}/minio/health/ready", timeout=2) as r:
+            return r.status
+    except urllib.error.HTTPError as e:
+        return e.code
+    except OSError:
+        return None
+
+
+def _until(cond, timeout_s: float, what: str):
+    deadline = time.monotonic() + timeout_s
+    while True:
+        got = cond()
+        if got:
+            return got
+        if time.monotonic() > deadline:
+            raise AssertionError(f"timed out waiting for {what}")
+        time.sleep(0.1)
+
+
+def _run(args, env, timeout=60):
+    return subprocess.run(
+        [sys.executable, "-m", "minio_tpu_torch.server", *args],
+        cwd=ROOT, env=env, capture_output=True, text=True, timeout=timeout)
+
+
+def _part_files(root: str, bucket: str) -> dict:
+    out = {}
+    base = os.path.join(root, bucket)
+    for dirpath, _dirs, files in os.walk(base):
+        for name in files:
+            path = os.path.join(dirpath, name)
+            with open(path, "rb") as f:
+                out[os.path.relpath(path, base)] = f.read()
+    return out
+
+
+def test_boot_serve_heal_and_sigterm(tmp_path):
+    drives = [str(tmp_path / f"d{i}") for i in range(1, 5)]
+    tformat.load_or_init_format([XLStorage(d) for d in drives], 1, 4)
+    fmt3 = os.path.join(drives[2], ".sys", "format.json")
+    saved = open(fmt3, "rb").read()
+    for d in drives[2:]:
+        os.remove(os.path.join(d, ".sys", "format.json"))
+    port = _free_port()
+    proc = subprocess.Popen(
+        [sys.executable, "-m", "minio_tpu_torch.server", "--address",
+         f"127.0.0.1:{port}", str(tmp_path / "d{1...4}")],
+        cwd=ROOT, env=_env(), stdout=subprocess.PIPE,
+        stderr=subprocess.STDOUT, text=True)
+    try:
+        # listening, but the format has no quorum: 503 everywhere
+        assert _until(lambda: _ready(port), 60, "the listener") == 503
+        c = S3Client(f"http://127.0.0.1:{port}")
+        r = c.make_bucket("early")
+        assert r.status == 503 and r.error_code == "XMinioServerNotInitialized"
+        with open(fmt3, "wb") as f:
+            f.write(saved)
+        _until(lambda: _ready(port) == 200, 60, "readiness 200")
+        stamped = tformat.read_format(XLStorage(drives[3]))
+        ref = tformat.read_format(XLStorage(drives[0]))
+        assert stamped.id == ref.id and stamped.this == ref.sets[0][3]
+
+        assert c.make_bucket("bkt").status == 200
+        objs = {f"k{i}": os.urandom(70_000 * i + 5) for i in range(4)}
+        for k, v in objs.items():
+            assert c.put_object("bkt", k, v).status == 200
+        for k, v in objs.items():
+            r = c.get_object("bkt", k)
+            assert (r.status, r.body) == (200, v)
+        r = c.request("GET", "/minio-tpu/admin/v1/loops/status")
+        doc = json.loads(r.body)
+        assert (r.status, doc["mode"], doc["count"]) == (200, "async", 2)
+        r = c.request("GET", "/minio-tpu/admin/v1/storageinfo")
+        assert json.loads(r.body)["zones"][0]["online"] == 4
+
+        # a drive replaced while the server runs: stamped back, healed
+        before = _part_files(drives[1], "bkt")
+        assert len(before) >= 2 * len(objs)
+        for entry in os.listdir(drives[1]):
+            path = os.path.join(drives[1], entry)
+            if os.path.isdir(path):
+                shutil.rmtree(path)
+        _until(lambda: _part_files(drives[1], "bkt") == before, 60,
+               "the wiped drive's shard files")
+        assert tformat.read_format(XLStorage(drives[1])).this == \
+            ref.sets[0][1]
+        for k, v in objs.items():
+            assert c.get_object("bkt", k).body == v
+    finally:
+        proc.send_signal(signal.SIGTERM)
+        try:
+            out, _ = proc.communicate(timeout=60)
+        except subprocess.TimeoutExpired:
+            proc.kill()
+            out, _ = proc.communicate()
+    assert proc.returncode == 0, out
+    lines = out.splitlines()
+    assert f"minio-tpu listening at http://127.0.0.1:{port} (bootstrapping)" \
+        in lines
+    assert (f"minio-tpu serving 1 zone(s) [4] drives at "
+            f"http://127.0.0.1:{port}") in lines
+    assert lines[-1] == "shutdown complete"
+
+
+REFUSED = [
+    # (id, args, env, text the message must hold)
+    ("gateway", ["gateway", "nas", "/tmp/x"], {}, "(slice 9c)"),
+    ("url_endpoints", ["http://127.0.0.1:9000/d{{1...4}}"], {}, "(slice 9b)"),
+    ("second_node", ["http://h{{1...2}}:9000/d{{1...2}}"], {}, "(slice 9b)"),
+    ("single_drive", ["{base}/solo"], {}, "(slice 9c)"),
+    ("fault_injection", ["{base}/d{{1...4}}"],
+     {"MINIO_TPU_FAULT_INJECTION": "1"}, "(slice 9b)"),
+    ("federation", ["{base}/d{{1...4}}"],
+     {"MINIO_TPU_FEDERATION_DIR": "{base}/fed"}, "(slice 9b)"),
+    ("disk_cache", ["{base}/d{{1...4}}"],
+     {"MINIO_TPU_CACHE_DRIVES": "{base}/cache"}, "(slice 9c)"),
+    ("backend_tpu", ["{base}/d{{1...4}}"], {"MINIO_ERASURE_BACKEND": "tpu"},
+     "cuda"),
+    ("backend_auto", ["{base}/d{{1...4}}"], {"MINIO_ERASURE_BACKEND": "auto"},
+     "cuda"),
+    ("mixed_args", ["{base}/d{{1...4}}", "{base}/e1"], {}, "ellipses"),
+]
+
+
+@pytest.mark.parametrize("args,env,text", [r[1:] for r in REFUSED],
+                         ids=[r[0] for r in REFUSED])
+def test_refused_layouts_name_their_slice(tmp_path, args, env, text):
+    base = str(tmp_path)
+    args = [a.format(base=base) for a in args]
+    env = {k: v.format(base=base) for k, v in env.items()}
+    res = _run(["--address", "127.0.0.1:0", *args], _env(**env))
+    assert res.returncode != 0, res.stdout
+    assert text in res.stderr, res.stderr
+    assert "listening" not in res.stdout
+    assert not os.path.exists(os.path.join(base, "d1", ".sys", "format.json"))
+
+
+def test_no_card_and_cuda_asked_exits(tmp_path):
+    import torch
+
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA device is present: the server would boot on it")
+    res = _run(["--address", "127.0.0.1:0", str(tmp_path / "d{1...4}")],
+               _env(MINIO_ERASURE_BACKEND=None))
+    assert res.returncode != 0
+    assert "no CUDA device" in res.stderr
+    assert "MINIO_ERASURE_BACKEND=cpu" in res.stderr

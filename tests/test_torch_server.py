@@ -568,8 +568,10 @@ def _ep(c):
 
 UNPORTED = [
     # (name, slice, request)
-    ("admin", "5b", lambda c: c.request(
-        "GET", "/minio-tpu/admin/v1/info")),
+    # the admin API itself is ported (tests/test_torch_admin_config.py);
+    # its routes of unported features name their slices
+    ("admin", "9b", lambda c: c.request(
+        "GET", "/minio-tpu/admin/v1/datausage")),
     ("select", "6", lambda c: c.request(
         "POST", "/bkt/obj", query={"select": "", "select-type": "2"},
         body=b"<SelectObjectContentRequest/>")),
@@ -680,21 +682,57 @@ def test_delete_seams(port_server, field, versioned, status):
 
 
 def test_async_server_mode_names_slice_5b(tmp_path, monkeypatch):
+    """MINIO_TPU_SERVER=async, the event-loop plane slice 5b ports: the
+    server starts on it and serves (tests/test_torch_aio.py holds it
+    against the JAX package's)."""
     monkeypatch.setenv("MINIO_TPU_SERVER", "async")
+    monkeypatch.setenv("MINIO_TPU_SERVER_LOOPS", "2")
     ol = ErasureObjects([XLStorage(str(tmp_path / f"d{i}")) for i in range(N)],
                         parity_blocks=M, block_size=BLOCK, device="cpu")
     srv = S3Server(ol, address="127.0.0.1:0")
     try:
-        with pytest.raises(NotImplementedError, match=r"slice 5b"):
-            srv.start()
+        srv.start()
+        assert srv.server_mode == "async"
+        assert len(srv._plane.loops) == 2 and srv._plane.loops_ready()
+        c = S3Client(srv.endpoint)
+        assert c.make_bucket("bkt").status == 200
+        assert c.put_object("bkt", "obj", b"hello").status == 200
+        r = c.get_object("bkt", "obj")
+        assert (r.status, r.body) == (200, b"hello")
     finally:
         srv.shutdown()
+    assert [sl.state for sl in srv._plane.loops] == ["stopped"] * 2
 
 
-def test_unset_server_mode_is_threaded(port_server):
+def test_unset_server_mode_is_threaded(port_server, tmp_path, monkeypatch):
+    """The plane a server starts on: MINIO_TPU_SERVER=threaded (this
+    module's fixture) gives the threaded oracle; unset, the default is
+    the async plane since slice 5b, as in the JAX package."""
     srv, _c = port_server
-    assert thttp.DEFAULT_SERVER_MODE == "threaded"
-    assert srv.server_mode == "threaded"
+    assert srv.server_mode == "threaded" and srv._plane is None
+    assert thttp.DEFAULT_SERVER_MODE == "async"
+    monkeypatch.delenv("MINIO_TPU_SERVER", raising=False)
+    ol = ErasureObjects([XLStorage(str(tmp_path / f"d{i}")) for i in range(N)],
+                        parity_blocks=M, block_size=BLOCK, device="cpu")
+    unset = S3Server(ol, address="127.0.0.1:0").start()
+    try:
+        assert unset.server_mode == "async"
+    finally:
+        unset.shutdown()
+
+
+def test_admin_info_answers(port_server):
+    """The admin API answers the owner (it was NotImplemented before
+    slice 5b) and refuses anyone else."""
+    srv, c = port_server
+    r = c.request("GET", "/minio-tpu/admin/v1/info")
+    assert r.status == 200
+    doc = json.loads(r.body)
+    assert doc["storage"]["disks"] == N and doc["mode"] == "erasure"
+    r = c.request("GET", "/minio-tpu/admin/v1/loops/status")
+    assert json.loads(r.body)["mode"] == "threaded"
+    other = S3Client(srv.endpoint, access_key="nobody")
+    assert other.request("GET", "/minio-tpu/admin/v1/info").status == 403
 
 
 def test_event_target_env_names_slice_9c(tmp_path, monkeypatch):
