@@ -4,8 +4,10 @@
     python3 chip_smoke.py            # from the repository root
     python3 chip_smoke.py --parent DIR   # and K1-K6 beside an older copy
 
-1. Builds the CUDA kernels from ``minio_tpu_torch/csrc`` with nvcc (and
-   those of ``--parent``'s copy at the same time), and prints each
+1. Builds the CUDA kernels from ``minio_tpu_torch/csrc`` with nvcc into
+   one library (and ``--parent``'s copy into its own), one ``nvcc -c``
+   per source (codec.cu, select.cu, the copy's codec.cu) all at once,
+   prints each library's and each source's build seconds and each
    kernel's registers and spills and the static SASS of K1, K4 and K5
    (EC 8+4, swar and mxu), K2, K3 and K6 (``sass_loops``).
 2. Holds each kernel bit-exactly against its plain PyTorch version on the
@@ -34,7 +36,15 @@
    (k, m) of each row bucket and at EC 8+4, 12+4 and 4+2, against its
    plain version, K5 and K5 ``mxu`` (``encode_geometry_sweep``); K3 for
    every EC 8+4 and 4+2 survivor pattern, edge matrices, a width off the
-   4-word quad and an unaligned view (``gf_pattern_sweep``).  Beside each kernel's
+   4-word quad and an unaligned view (``gf_pattern_sweep``).  S3 Select's
+   K8-K11 (``csrc/select.cu``, in the same library as the codec's)
+   against their plain versions on a 32 MiB TPC-H lineitem chunk (one
+   DEV_CHUNK): K8 under the screens of Q1-Q4, of an IN list of 16 options
+   (row and field anchored) and of every atom kind (both anchors, sci
+   guard on and off), on a hazard chunk and on the SWAR-borrow plane; K9
+   at every program's candidates; K10 at the three row windows and
+   backwards, also over rows 10-6,000 bytes wide; K11 at 64-4,096-byte
+   windows (``check_select_kernels``).  Beside each kernel's
    back-to-back event time (``ms``): its device time from a replayed
    CUDA graph, the host's time per wrapper call and its L2-cold time
    (``device_times``), and for K1, K3 and K6 a one-tile launch (the
@@ -100,7 +110,17 @@
    multi-delete after which every GET answers 404.  K5 (with merged
    jobs) covers every part, K3 runs on the degraded GETs, K2 and K5 on
    the copies.  Prints the ``s3_mp:`` line.
-9. The server as users start it (``boot_phase``): ``python -m
+9. S3 Select (``select_phase``): on a fresh S3Server and disks of the
+   same deployment, a 256 MiB TPC-H lineitem CSV (``lineitem_csv``, 8
+   DEV_CHUNKs) is PUT and queried through ``POST ?select`` by Q1-Q4
+   (``SELECT_QUERIES``) under the default engine and under
+   MINIO_TPU_SELECT=host (Records byte-identical), Q1 on 16 MiB against
+   the ``row`` engine, Q1 with 4 disks offline, Q1 and Q2 by 4 clients at
+   once; the fallbacks must be SELECT_FALLBACK's on every chunk, the
+   ``miniotpu_select_*`` families must move, ``run_device`` over
+   ``as_device_plane`` of the object on the card must answer Q1 (K11),
+   and K8-K11, K2 and K3 must launch.  Prints the ``select:`` line.
+10. The server as users start it (``boot_phase``): ``python -m
    minio_tpu_torch.server --parity 4`` over 24 temp-dir drives in a
    process of its own, on the async plane and the card (neither
    MINIO_TPU_SERVER nor MINIO_ERASURE_BACKEND set), the fresh-disk
@@ -116,8 +136,11 @@
    same drives: the same deployment id, drive 17 stamped by the hole
    fill and healed by the sweep, every GET equal to its source, SIGTERM.
    The admin ``kernel-stats`` is read around each step (device passes,
-   batcher flushes, merges, wait seconds).  Prints the ``boot:`` line.
-10. Prints the kernels JSON line, the card's name and power limit, and as
+   batcher flushes, merges, wait seconds).  Last, one Q1 select over a
+   16 MiB lineitem object on the restarted server, against the host
+   engine's answer, with ``miniotpu_select_requests_total{engine="device"}``
+   at least 1.  Prints the ``boot:`` line.
+11. Prints the kernels JSON line, the card's name and power limit, and as
    the last line ``{"ok": true, "device": {...}}``.
 
 Exits non-zero, without the result lines, when there is no CUDA device or
@@ -2496,7 +2519,7 @@ def s3_mp_phase(dev, work: str, payloads: list) -> dict:
     return out
 
 
-# -- phase 9: the server as users start it -------------------------------------
+# -- phase 10: the server as users start it -----------------------------------
 
 BOOT_DRIVES = 24  # two EC 8+4 sets
 BOOT_SPEC = "disk{1...24}"
@@ -2613,7 +2636,7 @@ class _BootedServer:
 
 
 def boot_phase(work: str, payloads: list, backend: "str | None" = None) -> dict:
-    """Phase 9: the port's real entry point.  ``python -m
+    """Phase 10: the port's real entry point.  ``python -m
     minio_tpu_torch.server --parity 4`` over 24 temp-dir drives (two EC
     8+4 sets, 10 MiB blocks) on the async plane and the card (neither
     MINIO_TPU_SERVER nor MINIO_ERASURE_BACKEND set; ``backend`` sets the
@@ -2827,6 +2850,38 @@ def boot_phase(work: str, payloads: list, backend: "str | None" = None) -> dict:
         r1 = stats(one)
         get2_wall, _ = get_all(host, port)
         r2 = stats(one)
+
+        # -- 7. one S3 Select (Q1) on the restarted server -----------------
+        sel_data = lineitem_csv(SEED + 16, SELECT_ROW_OBJECT)
+        for method, path, body in (("PUT", "/bootsel", b""),
+                                   ("PUT", "/bootsel/lineitem.csv", sel_data)):
+            st, _h, got = one.request(method, path, body=body)
+            if st != 200:
+                fail(f"boot phase: {method} {path}: {st} {got[:200]!r}")
+        t0 = time.monotonic()
+        st, _h, got = one.request("POST", "/bootsel/lineitem.csv",
+                                  {"select": "", "select-type": "2"},
+                                  select_body(SELECT_QUERIES["Q1"]))
+        sel_s = time.monotonic() - t0
+        if st != 200:
+            fail(f"boot phase: select Q1: {st} {got[:300]!r}")
+        recs = select_records(got)[0]
+        from minio_tpu_torch.s3select.engine import run_select
+
+        frames: list = []
+        os.environ["MINIO_TPU_SELECT"] = "host"
+        try:
+            run_select(select_body(SELECT_QUERIES["Q1"]), sel_data, frames.append,
+                       device="cpu")
+        finally:
+            os.environ.pop("MINIO_TPU_SELECT", None)
+        if not recs or recs != select_records(b"".join(frames))[0]:
+            fail("boot phase: select Q1 differs from the host engine's answer")
+        prom = _prom_select(one)
+        if prom.get('miniotpu_select_requests_total{engine="device"}', 0) < 1:
+            fail(f"boot phase: select Q1 ran on no device engine: {prom}")
+        out["select_Q1"] = {"bytes": len(sel_data), "records_bytes": len(recs),
+                            "s": sel_s, "prometheus": prom}
         one.close()
         out["sigterm_s"].append(srv.sigterm())
         restart_out = srv.output()
@@ -2865,12 +2920,702 @@ def boot_phase(work: str, payloads: list, backend: "str | None" = None) -> dict:
     return out
 
 
+# ---------------------------------------------------------------------------
+# slice 6: S3 Select (K8-K11 and the select sub-phase)
+# ---------------------------------------------------------------------------
+
+# TPC-H lineitem (TPC-H specification 4.2.3): 16 fields, "|" delimiter,
+# a header row, no trailing delimiter, rows in l_orderkey order as dbgen
+# writes them (sparse keys 1-7, 32-39, ...; 1-7 lines an order).  Text
+# fields hold words only, as TPC-H's text grammar does: no quote and no
+# digit, so no chunk is a hazard under a numeric compare's sci guard.
+_LI_WORDS = (
+    "furiously carefully quickly slyly blithely fluffily ironic regular "
+    "express final pending special even bold silent unusual idle close "
+    "ruthless permanent daring busy deposits packages accounts requests "
+    "instructions theodolites pinto beans foxes ideas dependencies excuses "
+    "platelets asymptotes courts dolphins multipliers sauternes warhorses "
+    "frets dinos attainments somas tithes sheaves decoys across above "
+    "against along among around after at before behind beneath beside "
+    "besides between beyond by during inside into near of on outside over "
+    "past since through throughout to toward under until up upon via with "
+    "within without haggle nag wake sleep detect integrate cajole use "
+    "boost affix engage grow sublate are").split()
+_LI_INSTRUCT = ("DELIVER IN PERSON", "COLLECT COD", "NONE", "TAKE BACK RETURN")
+_LI_MODES = ("REG AIR", "AIR", "RAIL", "SHIP", "TRUCK", "MAIL", "FOB")
+LI_HEADER = (
+    "l_orderkey|l_partkey|l_suppkey|l_linenumber|l_quantity|"
+    "l_extendedprice|l_discount|l_tax|l_returnflag|l_linestatus|"
+    "l_shipdate|l_commitdate|l_receiptdate|l_shipinstruct|l_shipmode|"
+    "l_comment")
+SELECT_OBJECT = 256 << 20  # 8 DEV_CHUNKs, about 2.1 M rows
+SELECT_ROW_OBJECT = 16 << 20  # the `row` engine's comparison object
+# Q1 row-anchored and selective (K8, K9, K10 [row]); Q2 field-anchored,
+# about 1/7 of rows (K10 [back]); Q3 a numeric compare the screen cannot
+# discriminate (13-14 candidates a row: past _MAX_CANDS in a 32 MiB
+# chunk, so `overflow` on every chunk); Q4 a string compare half the rows
+# match (`ratio` on every chunk)
+SELECT_QUERIES = {
+    "Q1": "SELECT * FROM S3Object s WHERE s.l_orderkey < 1000",
+    "Q2": ("SELECT s.l_orderkey, s.l_extendedprice FROM S3Object s "
+           "WHERE s.l_shipmode = 'AIR'"),
+    "Q3": "SELECT s.l_orderkey FROM S3Object s WHERE s.l_quantity < 24",
+    "Q4": "SELECT s.l_orderkey FROM S3Object s WHERE s.l_linestatus = 'O'",
+}
+SELECT_FALLBACK = {"Q1": None, "Q2": None, "Q3": "overflow", "Q4": "ratio"}
+
+
+def lineitem_csv(seed: int, nbytes: int) -> bytes:
+    """About ``nbytes`` (whole rows, at most nbytes) of lineitem rows from
+    ``seed``: keys, part, supplier and line numbers per row; the other
+    twelve fields of each row drawn from 65,536 rows made from the seed."""
+    import numpy as np
+
+    rng = np.random.default_rng(seed)
+    base = np.datetime64("1992-01-02")
+    cutoff = int((np.datetime64("1995-06-17") - base).astype(int))
+    T = 1 << 16
+    qty = rng.integers(1, 51, T)
+    price = (90000 + rng.integers(0, 20001, T)) * qty  # cents
+    disc = rng.integers(0, 11, T)
+    tax = rng.integers(0, 9, T)
+    ship = rng.integers(1, 2526, T)
+    commit = ship + rng.integers(-60, 61, T)
+    receipt = ship + rng.integers(1, 31, T)
+    rflag = np.where(receipt <= cutoff,
+                     np.where(rng.integers(0, 2, T) == 1, "R", "A"), "N")
+    lstat = np.where(ship > cutoff, "O", "F")
+
+    def day(x):
+        return np.datetime_as_string(base + x.astype("timedelta64[D]")).tolist()
+
+    ins = np.array(_LI_INSTRUCT)[rng.integers(0, 4, T)]
+    mode = np.array(_LI_MODES)[rng.integers(0, 7, T)]
+    comments = []
+    for _ in range(T):
+        n = int(rng.integers(10, 44))
+        words: list = []
+        while sum(map(len, words)) + len(words) < n:
+            words.append(_LI_WORDS[int(rng.integers(len(_LI_WORDS)))])
+        comments.append(" ".join(words)[:n].rstrip())
+    tails = [
+        f"{q}|{g // 100}.{g % 100:02d}|0.{h:02d}|0.{t:02d}|{rf}|{ls}|{s1}|{s2}"
+        f"|{s3}|{si}|{sm}|{cm}\n"
+        for q, g, h, t, rf, ls, s1, s2, s3, si, sm, cm in zip(
+            qty.tolist(), price.tolist(), disc.tolist(), tax.tolist(),
+            rflag.tolist(), lstat.tolist(), day(ship), day(commit),
+            day(receipt), ins.tolist(), mode.tolist(), comments)
+    ]
+    avg = sum(map(len, tails)) / T + 22
+    R = int(nbytes / avg * 1.02) + 16
+    lines = rng.integers(1, 8, R // 4 + 8)
+    lines = lines[:int(np.searchsorted(np.cumsum(lines), R)) + 1]
+    i = np.arange(1, len(lines) + 1)
+    okey = np.repeat(((i >> 3) << 5) + (i & 7), lines)  # dbgen's mk_sparse
+    lnum = np.arange(len(okey)) - np.repeat(np.cumsum(lines) - lines, lines) + 1
+    part = rng.integers(1, 200001, len(okey))
+    supp = rng.integers(1, 10001, len(okey))
+    pick = rng.integers(0, T, len(okey)).tolist()
+    body = "".join([LI_HEADER, "\n"] + [
+        f"{a}|{b}|{c}|{e}|{tails[p]}" for a, b, c, e, p in zip(
+            okey.tolist(), part.tolist(), supp.tolist(), lnum.tolist(), pick)
+    ]).encode()
+    return body[:body.rfind(b"\n", 0, nbytes) + 1]
+
+
+def select_body(expr: str, fd: str = "|") -> bytes:
+    """A SelectObjectContentRequest over CSV with a header row."""
+    from xml.sax.saxutils import escape
+
+    return (
+        "<SelectObjectContentRequest>"
+        f"<Expression>{escape(expr)}</Expression>"
+        "<ExpressionType>SQL</ExpressionType><InputSerialization><CSV>"
+        f"<FileHeaderInfo>USE</FileHeaderInfo><FieldDelimiter>{fd}"
+        "</FieldDelimiter></CSV></InputSerialization>"
+        f"<OutputSerialization><CSV><FieldDelimiter>{fd}</FieldDelimiter>"
+        "</CSV></OutputSerialization></SelectObjectContentRequest>"
+    ).encode()
+
+
+def select_records(body: bytes) -> "tuple[bytes, list]":
+    """(the Records payloads joined, the event types) of an EventStream
+    response."""
+    from minio_tpu_torch.s3select.message import decode_all
+
+    msgs = decode_all(body)
+    kinds = [m["headers"].get(":event-type") for m in msgs]
+    if not kinds or kinds[-1] != "End" or "Stats" not in kinds:
+        fail(f"select: the response's events are {kinds[-4:]}")
+    return b"".join(m["payload"] for m, k in zip(msgs, kinds)
+                    if k == "Records"), kinds
+
+
+def screen_ops(atoms, anchor: str, sci_guard: bool) -> int:
+    """Integer instructions per word of the screen: the JAX package's
+    expression, each distinct shifted view W(k) and terminator / digit
+    flag set counted once (memoized there too), every u64 operator (and,
+    or, xor, not, add, sub, shift; a three-input and-not-and is one)
+    two 32-bit instructions, a view W(k) with k % 8 != 0 two (two funnel
+    shifts build its two halves), a popcount two; the block sums'
+    shuffles and the scalars' reductions are left out."""
+    seen: set = set()
+    u64 = 0
+    views = 0
+
+    def view(k):
+        nonlocal views
+        if ("w", k) not in seen:
+            seen.add(("w", k))
+            views += 2 if k % 8 else 0
+
+    def term(k):
+        nonlocal u64
+        if ("t", k) not in seen:
+            seen.add(("t", k))
+            view(k)
+            u64 += 3 + 3 + 1  # two swar_eq, or
+
+    def digit(k):
+        nonlocal u64
+        if ("d", k) not in seen:
+            seen.add(("d", k))
+            view(k)
+            u64 += 3 + 3 + 1  # two swar_ge, and-not
+
+    for branch in atoms:
+        for atom in branch:
+            kind = atom[0]
+            if kind == "len":
+                for ln in range(atom[1], atom[2] + 1):
+                    term(ln + 1)
+                    u64 += 1
+            elif kind == "deep":
+                for i in range(1, atom[1] + 1):
+                    term(i)
+                    u64 += 1
+                u64 += 1
+            elif kind == "byte0":
+                view(1)
+                u64 += 3 + 3 + 1 + (2 if atom[1] == 0 else 0)
+            elif kind == "nd":
+                for i in range(1, atom[1] + 1):
+                    term(i)
+                    digit(i)
+                    u64 += 4
+            else:
+                lit, mode = atom[1], atom[2]
+                n = min(len(lit), 8)
+                for i in range(n):
+                    view(i + 1)
+                    if mode in ("lt", "le"):
+                        term(i + 1)
+                        u64 += 8
+                    elif mode in ("gt", "ge"):
+                        term(i + 1)
+                        u64 += 7
+                    u64 += 4  # pref &= swar_eq
+                term(n + 1)
+                u64 += 2
+            u64 += 1  # the branch's and
+        u64 += 1  # the or of branches
+    view(0)
+    u64 += 3  # newline flags
+    if anchor == "field":
+        term(0)
+    view(1)
+    u64 += 3 + 3 + 4 + 3 + 3  # base and, quote, bare CR, NUL, ors
+    if sci_guard:
+        digit(-1)
+        u64 += 3 + 3 + 3
+    return 2 * u64 + views + 2 * 2 + 4  # the two popcounts and the packing
+
+
+def _positions_bytes(cum, cap: int) -> int:
+    """Bytes extract_positions must read for ranks 0..cap-1: the 32-byte
+    sectors of ``cum`` that the binary searches (searchsorted, side
+    right) and the base reads touch, and the 64-byte candidate block of
+    each rank, each counted once; the positions written out besides."""
+    import numpy as np
+
+    cum = cum.cpu().numpy()
+    nblk = len(cum)
+    k = np.arange(cap)
+    lo, hi = np.zeros(cap, np.int64), np.full(cap, nblk, np.int64)
+    read = []
+    while (lo < hi).any():
+        act = lo < hi
+        mid = (lo + hi) >> 1
+        read.append(mid[act])
+        right = act & (cum[np.minimum(mid, nblk - 1)] <= k)
+        lo = np.where(right, mid + 1, lo)
+        hi = np.where(act & ~right, mid, hi)
+    b = np.minimum(lo, nblk - 1)
+    read.append(b[b > 0] - 1)
+    sectors = len(np.unique(np.concatenate(read) // 8))
+    return 32 * sectors + 64 * len(np.unique(b)) + 4 * cap
+
+
+def _span_scanned(arr, anchors, window: int, back: bool) -> int:
+    """Bytes the span function must look at for these anchors: up to and
+    including the newline it finds, the whole window where none."""
+    from minio_tpu_torch.ops import select_step as ss
+
+    fn = ss.anchors_back_plain if back else ss.row_spans_plain
+    off, found = fn(arr, anchors, window=window)
+    if back:
+        off = anchors.long() - off.long()
+    n = (off.long() + 1).clamp(max=window)
+    return int(n.masked_fill(~found, window).sum().item())
+
+
+def check_select_kernels(dev, rng) -> dict:
+    """K8-K11 against their plain versions on the card, at the select
+    path's shapes: a 32 MiB lineitem chunk (one DEV_CHUNK) under the
+    programs of Q1-Q4, of an IN list of 16 options (row and field
+    anchored) and of every atom kind (both anchors, sci guard on and
+    off); a hazard chunk (a quote, a bare CR); the SWAR-borrow plane;
+    positions of every program's candidates; row spans at the three
+    windows and backward anchors over the lineitem chunk and over a plane
+    of rows 10-6,000 bytes wide (found and not found, the chunk start);
+    gathers at 64-4,096-byte windows, clamped at the plane's end.  Times
+    each at the path's shape beside its bound and its plain version; K9
+    and K11 also beside the PyTorch calls that compute the same
+    function."""
+    import numpy as np
+    import torch
+
+    from minio_tpu_torch.ops import select_step as ss
+    from minio_tpu_torch.s3select import device as sdev, sql
+
+    fd, qc = ord("|"), ord('"')
+    data = lineitem_csv(SEED + 14, sdev.DEV_CHUNK)
+    header = LI_HEADER.split("|")
+    plane = sdev.host_plane(data, dev)
+    nbytes = plane.numel()
+    progs = {q: sdev.compile_screen(sql.parse(t).where, header)
+             for q, t in SELECT_QUERIES.items()}
+    keys = ", ".join(str(int(k)) for k in rng.integers(1, 200000, 16))
+    progs["IN16 field"] = sdev.compile_screen(sql.parse(
+        f"SELECT * FROM S3Object s WHERE s.l_partkey IN ({keys})").where, header)
+    progs["IN16 row"] = sdev.compile_screen(sql.parse(
+        f"SELECT * FROM S3Object s WHERE s.l_orderkey IN ({keys})").where, header)
+    kinds = ((("len", 1, 3), ("byte0", 48, 57)), (("deep", 5), ("nd", 7)),
+             (("lex", b"1000", "lt"),), (("lex", b"TAKE BACK RETURN", "le"),),
+             (("lex", b"MAIL", "eq"),), (("lex", b"1997-09", "ge"),),
+             (("lex", b"SHIP", "gt"),), (("byte0", 0, 50), ("len", 0, 0)))
+    progs["kinds row"] = sdev._Screen(kinds, "row", False)
+    progs["kinds field sci"] = sdev._Screen(kinds, "field", True)
+    for kind in ("len", "deep", "byte0", "nd", "lex"):
+        if not any(a[0] == kind for p in progs.values() for b in p.atoms
+                   for a in b):
+            fail(f"select kernels: no program holds a {kind} atom")
+    if len(progs["IN16 field"].atoms) < 16:
+        fail("select kernels: the IN program has fewer than 16 branches")
+    # a hazard chunk: a quote in one row, a bare CR in another
+    hz = bytearray(data[:4 << 20])
+    hz[1000] = qc
+    hz[2_000_001] = 13
+    hazard = sdev.host_plane(bytes(hz), dev)
+    borrow = sdev.host_plane(b"a,b\n1,-5\n22,7\n", dev)
+
+    def screen(arr, scr, fdb=fd, fn=ss.screen_chunk):
+        return fn(arr, fd=fdb, qc=qc, atoms=scr.atoms, anchor=scr.anchor,
+                  sci_guard=scr.sci_guard)
+
+    def screen_plain(arr, scr, fdb=fd):
+        return screen(arr, scr, fdb, ss.screen_chunk_plain)
+
+    err = 0
+    counts = {}
+    outs = {}
+    for label, scr in progs.items():
+        got = screen(plane, scr)
+        want = screen_plain(plane, scr)
+        e = same(got, want)
+        if e:
+            fail(f"select_screen differs from its plain version under {label}")
+        err = max(err, e)
+        outs[label] = got
+        counts[label] = {"rows": int(got[2].item()), "cands": int(got[1].sum().item()),
+                         "hazard": bool(got[3].item())}
+        if counts[label]["hazard"]:
+            fail(f"select_screen: the lineitem chunk is a hazard under {label}")
+        for hlabel, arr in (("hazard", hazard),):
+            g, w = screen(arr, scr), screen_plain(arr, scr)
+            if same(g, w) or not bool(g[3].item()):
+                fail(f"select_screen on the hazard chunk under {label}: "
+                     f"hazard {bool(g[3].item())}")
+    bscr = sdev._Screen(((("deep", 2),),), "field", False)
+    g = screen(borrow, bscr, ord(","))
+    if same(g, screen_plain(borrow, bscr, ord(","))):
+        fail("select_screen differs from its plain version on the borrow plane")
+    flags = np.unpackbits(g[0].cpu().numpy().view(np.uint8), bitorder="little")
+    if (np.flatnonzero(flags) // 8).tolist() != [8, 13]:
+        fail(f"select_screen: borrow plane flags {np.flatnonzero(flags) // 8}")
+    # the reference's own numbers on the chunk: Q1 flags keys of up to 4
+    # digits, Q2 the AIR rows, Q3 past _MAX_CANDS, Q4 past the ratio cap
+    nrows = data.count(b"\n")
+    if counts["Q1"]["rows"] != nrows:
+        fail(f"select_screen: {counts['Q1']['rows']} rows, the chunk has {nrows}")
+    if counts["Q3"]["cands"] <= sdev._MAX_CANDS or not (
+            nrows * sdev._RATIO_CAP < counts["Q4"]["cands"] <= sdev._MAX_CANDS):
+        fail(f"select_screen: Q3/Q4 candidate counts {counts}")
+    res: dict = {}
+
+    # K8 timed under Q1 (the selective row screen) and Q2
+    def k8_row(label):
+        scr = progs[label]
+        nw = nbytes // 8
+        bms, by = bound(2 * nbytes + nbytes // 16,
+                        nw * screen_ops(scr.atoms, scr.anchor, scr.sci_guard))
+        return dict(
+            ms=cuda_ms(lambda: screen(plane, scr), 20),
+            plain_ms=cuda_ms(lambda: screen_plain(plane, scr), 3, 1),
+            bound_ms=bms, bound_by=by, shape=[nbytes], program=label,
+            records=int(ss.screen_program(scr.atoms).shape[0]),
+            int_ops_per_word=screen_ops(scr.atoms, scr.anchor, scr.sci_guard),
+            **device_times(lambda: screen(plane, scr)))
+
+    res["select_screen"] = dict(max_abs_err=err, **k8_row("Q1"))
+    res["select_screen"]["Q2"] = k8_row("Q2")
+
+    # --- K9 positions -------------------------------------------------------
+    err = 0
+    pos = {}
+    for label, (cand, blk, _n, _h) in outs.items():
+        count = counts[label]["cands"]
+        if not count or count > sdev._MAX_CANDS:
+            continue
+        cum = torch.cumsum(blk, 0, dtype=torch.int32)
+        cap = 1 << max(6, (count - 1).bit_length())
+        got = ss.extract_positions(cand, cum, cap=cap)[:count]
+        want = ss.extract_positions_plain(cand, cum, cap=cap)[:count]
+        e = same((got,), (want,))
+        if e:
+            fail(f"select_positions differs from its plain version under {label}")
+        err = max(err, e)
+        pos[label] = got
+    if "Q1" not in pos or "Q2" not in pos:
+        fail("select_positions: Q1 or Q2 has no candidates")
+    cand, blk = outs["Q1"][0], outs["Q1"][1]
+    cum = torch.cumsum(blk, 0, dtype=torch.int32)
+    count = counts["Q1"]["cands"]
+    cap = 1 << max(6, (count - 1).bit_length())
+    nblk = cum.numel()
+    steps = max(1, nblk.bit_length())
+    bms, by = bound(_positions_bytes(cum, cap), cap * (4 * steps + 8 * 6 + 6 * 11))
+    res["select_positions"] = dict(
+        max_abs_err=err, ms=cuda_ms(lambda: ss.extract_positions(cand, cum, cap=cap), 20),
+        plain_ms=cuda_ms(lambda: ss.extract_positions_plain(cand, cum, cap=cap), 3, 1),
+        library_ms=cuda_ms(lambda: ss.extract_positions_plain(cand, cum, cap=cap), 20),
+        bound_ms=bms, bound_by=by, shape=[cap, nblk], program="Q1",
+        **device_times(lambda: ss.extract_positions(cand, cum, cap=cap)))
+
+    # --- K10 spans ------------------------------------------------------------
+    wide_rows = []
+    for n in rng.integers(10, 6000, 1500):
+        wide_rows.append(b"w" * int(n) + b"\n")
+    wide = sdev.host_plane(b"".join(wide_rows), dev)
+    nl = torch.nonzero(plane[:len(data)] == 10).flatten().to(torch.int32)
+    wnl = torch.nonzero(wide == 10).flatten().to(torch.int32)
+    mids = torch.from_numpy(rng.integers(0, wide.numel(), 4096).astype(np.int32)).to(dev)
+    err_row = err_back = 0
+    for window in (256, 1024, 4096):
+        for label, arr, anchors in (
+                ("Q1", plane, torch.cat([torch.tensor([-1], dtype=torch.int32, device=dev),
+                                         pos["Q1"]])),
+                ("every row", plane, torch.cat([torch.tensor([-1], dtype=torch.int32,
+                                                             device=dev), nl])),
+                ("wide rows", wide, torch.cat([torch.tensor([-1], dtype=torch.int32,
+                                                            device=dev), wnl])),
+                ("wide mid-row", wide, mids)):
+            e = same(ss.row_spans(arr, anchors, window=window),
+                     ss.row_spans_plain(arr, anchors, window=window))
+            if e:
+                fail(f"select_spans[row] differs from its plain version: {label}, "
+                     f"window {window}")
+            err_row = max(err_row, e)
+    for label, arr, hits in (("Q2", plane, pos["Q2"]), ("wide mid-row", wide, mids),
+                             ("chunk start", plane,
+                              torch.arange(0, 2048, 7, dtype=torch.int32, device=dev))):
+        for window in (1024, 256):
+            got = ss.anchors_back(arr, hits, window=window)
+            e = same(got, ss.anchors_back_plain(arr, hits, window=window))
+            if e:
+                fail(f"select_spans[back] differs from its plain version: {label}")
+            err_back = max(err_back, e)
+    wf = ss.row_spans(wide, torch.cat([torch.tensor([-1], dtype=torch.int32, device=dev),
+                                       wnl]), window=256)[1]
+    if bool(wf.all().item()) or not bool(wf.any().item()):
+        fail("select_spans[row]: the wide plane found every row or none at 256")
+    q1a = torch.cat([torch.tensor([-1], dtype=torch.int32, device=dev), pos["Q1"]])
+    C = q1a.numel()
+    bms, by = bound(9 * C + _span_scanned(plane, q1a, 256, False),
+                    2 * _span_scanned(plane, q1a, 256, False))
+    res["select_spans[row]"] = dict(
+        max_abs_err=err_row, ms=cuda_ms(lambda: ss.row_spans(plane, q1a, window=256), 20),
+        plain_ms=cuda_ms(lambda: ss.row_spans_plain(plane, q1a, window=256), 3, 1),
+        bound_ms=bms, bound_by=by, shape=[C, 256], program="Q1",
+        **device_times(lambda: ss.row_spans(plane, q1a, window=256)))
+    q2h = pos["Q2"]
+    C = q2h.numel()
+    scanned = _span_scanned(plane, q2h, sdev._BACK_WINDOW, True)
+    bms, by = bound(9 * C + scanned, 2 * scanned)
+    res["select_spans[back]"] = dict(
+        max_abs_err=err_back,
+        ms=cuda_ms(lambda: ss.anchors_back(plane, q2h, window=sdev._BACK_WINDOW), 20),
+        plain_ms=cuda_ms(lambda: ss.anchors_back_plain(plane, q2h,
+                                                       window=sdev._BACK_WINDOW), 3, 1),
+        bound_ms=bms, bound_by=by, shape=[C, sdev._BACK_WINDOW], program="Q2",
+        **device_times(lambda: ss.anchors_back(plane, q2h, window=sdev._BACK_WINDOW)))
+
+    # --- K11 gather -------------------------------------------------------------
+    err = 0
+    ends = torch.from_numpy(rng.integers(nbytes - 300, nbytes, 64).astype(np.int32)).to(dev)
+    for window, starts in ((256, q1a + 1), (64, ends), (4096, mids[:512]),
+                           (64, torch.zeros(0, dtype=torch.int32, device=dev))):
+        arr = wide if window == 4096 else plane
+        e = same((ss.gather_rows(arr, starts, window=window),),
+                 (ss.gather_rows_plain(arr, starts, window=window),))
+        if e:
+            fail(f"select_gather differs from its plain version at window {window}")
+        err = max(err, e)
+    starts = q1a + 1
+    C = starts.numel()
+    idx = (starts.long()[:, None] + torch.arange(256, device=dev)[None, :]).clamp(
+        0, nbytes - 1)
+    bms, by = bound(4 * C + 2 * C * 256, 3 * C * 256)
+    res["select_gather"] = dict(
+        max_abs_err=err, ms=cuda_ms(lambda: ss.gather_rows(plane, starts, window=256), 20),
+        plain_ms=cuda_ms(lambda: ss.gather_rows_plain(plane, starts, window=256), 3, 1),
+        library_ms=cuda_ms(lambda: plane[idx], 20),
+        bound_ms=bms, bound_by=by, shape=[C, 256], program="Q1",
+        **device_times(lambda: ss.gather_rows(plane, starts, window=256)))
+    res["select_screen"]["counts"] = counts
+    torch.cuda.synchronize()
+    return res
+
+
+def _prom_select(signer) -> dict:
+    """The miniotpu_select_* samples of the server's Prometheus page."""
+    st, _h, body = signer.request("GET", "/minio-tpu/prometheus/metrics")
+    if st != 200:
+        fail(f"select: Prometheus answered {st}")
+    out = {}
+    for line in body.decode().splitlines():
+        if line.startswith("miniotpu_select_"):
+            name, _sp, value = line.rpartition(" ")
+            out[name] = float(value)
+    return out
+
+
+def select_phase(dev, work: str) -> dict:
+    """Phase 9 (slice 6): S3 Select pushdown on the port's S3Server
+    (threaded plane) over a fresh ErasureObjects on the card (12 disks,
+    EC 8+4, 10 MiB blocks).  A 256 MiB TPC-H lineitem CSV (about 2.1 M
+    rows, 8 DEV_CHUNKs) PUT with SigV4, then Q1-Q4 through POST
+    ?select&select-type=2 under the default engine (auto: the device
+    screen) and under MINIO_TPU_SELECT=host, whose Records must be byte
+    identical; Q1 on a 16 MiB object of the same shape against the
+    ``row`` engine; Q1 with the disks of shards 1, 3, 10 and 12 offline;
+    Q1 and Q2 from 4 clients at once; the Select families in Prometheus;
+    ``DeviceScan.run_device`` over ``as_device_plane`` of the object's
+    10 MiB blocks on the card.  K8-K11 must launch, the fallbacks match
+    SELECT_FALLBACK, and the counters move."""
+    import torch
+
+    from minio_tpu_torch.codec.telemetry import KERNEL_STATS
+    from minio_tpu_torch.objectlayer.erasure_object import ErasureObjects
+    from minio_tpu_torch.ops import kernels, select_step as ss
+    from minio_tpu_torch.s3select import device as sdev
+    from minio_tpu_torch.s3select.engine import S3Select, SelectRequest
+    from minio_tpu_torch.server.http import S3Server
+    from minio_tpu_torch.storage.xl import XLStorage
+
+    roots = [os.path.join(work, f"seldisk{i}") for i in range(N)]
+    ol = ErasureObjects([XLStorage(r) for r in roots], parity_blocks=M,
+                        block_size=BLOCK)
+    srv = S3Server(ol, address="127.0.0.1:0").start()
+    if srv.server_mode != "threaded":
+        fail(f"select: server plane {srv.server_mode}")
+    host, port = srv.host, srv.port
+    t0 = time.monotonic()
+    big = lineitem_csv(SEED + 6, SELECT_OBJECT)
+    small = lineitem_csv(SEED + 16, SELECT_ROW_OBJECT)
+    out: dict = {"object_bytes": len(big), "rows": big.count(b"\n") - 1,
+                 "row_object_bytes": len(small), "make_s": time.monotonic() - t0}
+    one = S3Signer(host, port)
+    os.environ.pop("MINIO_TPU_SELECT", None)
+    try:
+        st, _h, body = one.request("PUT", "/sel")
+        if st != 200:
+            fail(f"select: bucket create {st} {body[:200]!r}")
+        for key, data in (("lineitem.csv", big), ("lineitem16.csv", small)):
+            t0 = time.monotonic()
+            st, _h, body = one.request("PUT", f"/sel/{key}", body=data)
+            if st != 200:
+                fail(f"select: PUT {key}: {st} {body[:200]!r}")
+            out.setdefault("put_s", {})[key] = time.monotonic() - t0
+        kernels.reset_launches()
+        KERNEL_STATS.reset()
+        sdev.STATS.reset()
+        t_phase = time.monotonic()
+
+        def post(signer, key, q, mode=None):
+            """(records, seconds, STATS delta) of one request."""
+            if mode:
+                os.environ["MINIO_TPU_SELECT"] = mode
+            try:
+                s0 = sdev.STATS.snapshot()
+                t = time.monotonic()
+                st, _h, body = signer.request(
+                    "POST", f"/sel/{key}", {"select": "", "select-type": "2"},
+                    select_body(SELECT_QUERIES[q]))
+                took = time.monotonic() - t
+                s1 = sdev.STATS.snapshot()
+            finally:
+                os.environ.pop("MINIO_TPU_SELECT", None)
+            if st != 200:
+                fail(f"select: {q} on {key} ({mode or 'auto'}): {st} {body[:300]!r}")
+            recs, _kinds = select_records(body)
+            delta = {
+                "requests": {k: v - s0["requests"][k] for k, v in s1["requests"].items()
+                             if v != s0["requests"][k]},
+                "fallbacks": {k: v - s0["fallbacks"][k] for k, v in s1["fallbacks"].items()
+                              if v != s0["fallbacks"][k]},
+                "device_seconds": s1["device_seconds"] - s0["device_seconds"],
+                "screened": {k: v - s0["screened"][k]
+                             for k, v in s1["screened"].items()},
+            }
+            return recs, took, delta
+
+        queries: dict = {}
+        answers: dict = {}
+        chunks = -(-len(big) // sdev.DEV_CHUNK)
+        for q in SELECT_QUERIES:
+            before = dict(kernels.LAUNCHES)
+            recs, took, delta = post(one, "lineitem.csv", q)
+            launched = {k: v - before[k] for k, v in kernels.LAUNCHES.items()
+                        if v != before[k]}
+            hrecs, htook, hdelta = post(one, "lineitem.csv", q, "host")
+            if recs != hrecs:
+                fail(f"select: {q}'s device answer differs from the host engine's "
+                     f"({len(recs)} and {len(hrecs)} bytes)")
+            if not recs:
+                fail(f"select: {q} answered no rows")
+            want = SELECT_FALLBACK[q]
+            want_fb = {want: chunks} if want else {}
+            if (delta["requests"] != {"device": 1} or delta["fallbacks"] != want_fb
+                    or delta["screened"]["chunks"] != chunks):
+                fail(f"select: {q}'s engines, fallbacks and screened chunks {delta}, "
+                     f"want {want_fb} and {chunks} chunks")
+            if hdelta["requests"] != {"host": 1}:
+                fail(f"select: {q} under host ran {hdelta}")
+            answers[q] = recs
+            queries[q] = {
+                "records_bytes": len(recs), "rows": recs.count(b"\n"),
+                "device": {"s": took, "MBps": len(big) / took / 1e6,
+                           "device_seconds": delta["device_seconds"],
+                           "screened": delta["screened"],
+                           "fallbacks": delta["fallbacks"], "launches": launched},
+                "host": {"s": htook, "MBps": len(big) / htook / 1e6},
+            }
+        for q, k in (("Q1", ("select_screen", "select_positions", "select_spans[row]")),
+                     ("Q2", ("select_screen", "select_positions", "select_spans[back]",
+                             "select_spans[row]"))):
+            if any(not queries[q]["device"]["launches"].get(n) for n in k):
+                fail(f"select: {q} launched {queries[q]['device']['launches']}")
+        # Q1 against the row engine, on 16 MiB
+        recs, took, _d = post(one, "lineitem16.csv", "Q1")
+        rrecs, rtook, rdelta = post(one, "lineitem16.csv", "Q1", "row")
+        if recs != rrecs or rdelta["requests"] != {"row": 1}:
+            fail(f"select: Q1 on 16 MiB differs from the row engine ({rdelta})")
+        out["row_check"] = {"bytes": len(small), "records_bytes": len(recs),
+                            "device_s": took, "row_s": rtook,
+                            "row_MBps": len(small) / rtook / 1e6}
+        # Q1 with 4 disks offline: the GET reconstructs (K3)
+        dist = XLStorage(roots[0]).read_version("sel", "lineitem.csv").erasure.distribution
+        dead = sorted(d for d in range(N) if dist[d] in (1, 3, 10, 12))
+        live = list(ol.disks)
+        for d in dead:
+            ol.disks[d] = None
+        try:
+            k3 = kernels.LAUNCHES["gf_matmul_words"]
+            recs, took, _d = post(one, "lineitem.csv", "Q1")
+            if kernels.LAUNCHES["gf_matmul_words"] <= k3 or recs != answers["Q1"]:
+                fail("select: Q1 with 4 disks offline reconstructed nothing or differs")
+        finally:
+            ol.disks[:] = live
+        out["degraded_Q1"] = {"s": took, "MBps": len(big) / took / 1e6,
+                              "offline_disks": dead}
+        # Q1 and Q2 from 4 clients at once
+        jobs = [[("Q1",), ("Q2",)] for _ in range(S3_CLIENTS)]
+
+        def job(signer, j):
+            recs, took, _d = post(signer, "lineitem.csv", j[0])
+            if recs != answers[j[0]]:
+                fail(f"select: a concurrent {j[0]} differs from its single answer")
+            return took
+
+        wall, tooks = _in_clients(host, port, jobs, job)
+        out["concurrent"] = {"clients": S3_CLIENTS, "requests": len(tooks),
+                             "wall_s": wall,
+                             "MBps": len(tooks) * len(big) / wall / 1e6,
+                             "max_request_s": max(tooks)}
+        # the Select families
+        prom = _prom_select(one)
+        snap = sdev.STATS.snapshot()
+        want_dev = len(SELECT_QUERIES) + 1 + 1 + 2 * S3_CLIENTS
+        if (prom.get('miniotpu_select_requests_total{engine="device"}') != want_dev
+                or prom.get('miniotpu_select_fallback_total{reason="ratio"}')
+                != chunks
+                or prom.get("miniotpu_select_scanned_bytes_total", 0)
+                < want_dev * len(big) // 2
+                or prom.get("miniotpu_select_device_seconds_total", 0) <= 0):
+            fail(f"select: Prometheus {prom}, want {want_dev} device requests")
+        out["prometheus"] = prom
+        # the device-resident plane: run_device over as_device_plane of the
+        # object's 10 MiB blocks on the card (K11)
+        buf = torch.frombuffer(bytearray(big), dtype=torch.uint8).to(dev)
+        blocks = [buf[i:i + BLOCK] for i in range(0, len(big), BLOCK)]
+        before = dict(kernels.LAUNCHES)
+        t = time.monotonic()
+        plane, nbytes = sdev.as_device_plane(blocks, len(big), dev)
+        frames: list = []
+        sel = S3Select(SelectRequest.from_xml(select_body(SELECT_QUERIES["Q1"])), dev)
+        sel.evaluate(None, len(big), frames.append, device_source=(plane, nbytes))
+        took = time.monotonic() - t
+        recs, _k = select_records(b"".join(frames))
+        launched = {k: v - before[k] for k, v in kernels.LAUNCHES.items()
+                    if v != before[k]}
+        if recs != answers["Q1"] or not launched.get("select_gather"):
+            fail(f"select: run_device over the resident plane: {len(recs)} bytes, "
+                 f"launches {launched}")
+        out["run_device_Q1"] = {"s": took, "MBps": len(big) / took / 1e6,
+                                "launches": launched}
+        del plane, buf, blocks
+        out["phase_s"] = time.monotonic() - t_phase
+        out["launches"] = dict(kernels.LAUNCHES)
+        out["stats"] = sdev.STATS.snapshot()
+        out["queries"] = queries
+        out["batch"] = KERNEL_STATS.snapshot()["batch"]
+        for name in (*ss.LAUNCH_NAMES, "phash256_batched", "gf_matmul_words"):
+            if not out["launches"].get(name):
+                fail(f"select: {name} never launched in the select sub-phase")
+    finally:
+        one.close()
+        srv.shutdown()
+    return out
+
+
 # the TPU function each kernel replaces: encode_pack_fused (P4),
 # encode_hash_fused (P2, which encode_pack computes without the pack
 # leg), phash256_words_batched (left to XLA), matmul_words (P1),
 # verify_reconstruct_fused (P5), the pipelined P6 and P7, the XLA
-# sub-chunk steps of the async overlap chain (X2, X3), gf_matmul_mxu (P3)
-# and P4-P7 under the mxu formulation; and the phase whose counters each
+# sub-chunk steps of the async overlap chain (X2, X3), gf_matmul_mxu (P3),
+# P4-P7 under the mxu formulation, and the XLA functions of S3 Select's
+# device scan (X4-X7, select_step.py); and the phase whose counters each
 # kernel's launches are read from.  P3 has no runtime caller in the JAX
 # package, so K7 has no path of its own: its count is read from the main
 # path's counters, where it is 0.
@@ -2889,6 +3634,11 @@ REPLACES = {
     "verify_reconstruct[mxu]": ("minio_tpu/ops/rs_pallas.py:595", "mxu off"),
     "encode_pack_pipelined[mxu]": ("minio_tpu/ops/rs_pallas.py:802", "mxu pipeline"),
     "verify_reconstruct_pipelined[mxu]": ("minio_tpu/ops/rs_pallas.py:970", "mxu pipeline"),
+    "select_screen": ("minio_tpu/ops/select_step.py:184", "select"),
+    "select_positions": ("minio_tpu/ops/select_step.py:323", "select"),
+    "select_spans[row]": ("minio_tpu/ops/select_step.py:358", "select"),
+    "select_spans[back]": ("minio_tpu/ops/select_step.py:371", "select"),
+    "select_gather": ("minio_tpu/ops/select_step.py:387", "select"),
 }
 
 
@@ -2897,7 +3647,8 @@ _KERNEL_NAME = re.compile(
     r"verify_reconstruct_pipelined_kernel|"
     r"encode_kernel|encode_mxu_kernel|pack_kernel|phash_kernel|"
     r"gf_matmul_mxu_kernel|gf_matmul_kernel|verify_reconstruct_mxu_kernel|"
-    r"verify_reconstruct_kernel)"
+    r"verify_reconstruct_kernel|screen_kernel|positions_kernel|spans_kernel|"
+    r"gather_kernel)"
     r"(?:I((?:L[ib]\d+E)+)E)?"
 )
 
@@ -2909,6 +3660,8 @@ def kernel_label(mangled: str) -> str:
     if not m:
         return mangled
     name = m.group(1)
+    if name == "spans_kernel" and m.group(2):  # <BACK>
+        return name + ("<back>" if m.group(2) == "Lb1E" else "<row>")
     if m.group(2):
         args = re.findall(r"L([ib])(\d+)E", m.group(2))
         name += "<" + ",".join(
@@ -3158,7 +3911,7 @@ def main() -> int:
     sys.path.insert(0, here)
     from concurrent.futures import ThreadPoolExecutor
 
-    from minio_tpu_torch.ops import kernels
+    from minio_tpu_torch.ops import kernels, select_step
 
     dev = torch.device("cuda", 0)
     # the plain mxu product is a float32 matmul of 0/1 values: keep it in
@@ -3169,13 +3922,17 @@ def main() -> int:
     if args.parent:
         copies["parent"] = load_copy(args.parent)
     t0 = time.monotonic()
-    with ThreadPoolExecutor(len(copies)) as pool:  # one nvcc per copy, at once
+    # every copy's library at once, each with one nvcc per source
+    with ThreadPoolExecutor(len(copies)) as pool:
         libs = dict(zip(copies, pool.map(lambda m: m.build(), copies.values())))
     build_s = time.monotonic() - t0
     for name, lib in libs.items():
-        print(f"build {name}: {build_s:.2f} s -> {os.path.relpath(lib, here)}",
-              flush=True)
-        for line in ptxas_summary(copies[name].BUILD_INFO.get("log", "")):
+        info = copies[name].BUILD_INFO
+        print(f"build {name}: {build_s:.2f} s (this library "
+              f"{info.get('seconds', 0.0):.2f} s; nvcc per source "
+              f"{json.dumps(info.get('sources', {}))}) -> "
+              f"{os.path.relpath(lib, here)}", flush=True)
+        for line in ptxas_summary(info.get("log", "")):
             print("  ptxas:", line)
         print(f"  sass: {json.dumps(sass_loops(lib, kernels))}", flush=True)
 
@@ -3196,6 +3953,7 @@ def main() -> int:
     kres.update(check_heal_kernels(dev, rng))
     kres.update(check_overlap_kernels(dev, rng))
     kres.update(check_mxu_kernels(dev, rng))
+    kres.update(check_select_kernels(dev, rng))
     lap("kernel_checks")
     for name, r in kres.items():
         print(f"kernel {name}: {json.dumps(r)}", flush=True)
@@ -3221,13 +3979,15 @@ def main() -> int:
         lap("modes")
         mx = modes_phase(dev, work, payloads, written, MXU_RUNS)
         lap("mxu")
-        # phases 7 and 8 serve in this process on the threaded plane;
+        # phases 7, 8 and 9 serve in this process on the threaded plane;
         # the boot phase's server takes the default (async)
         os.environ["MINIO_TPU_SERVER"] = "threaded"
         s3 = s3_phase(dev, work, payloads, written, mp)
         lap("s3")
         s3mp = s3_mp_phase(dev, work, payloads)
         lap("s3_mp")
+        sel = select_phase(dev, work)
+        lap("select")
         os.environ.pop("MINIO_TPU_SERVER", None)
         bt = boot_phase(work, payloads)
         lap("boot")
@@ -3240,6 +4000,7 @@ def main() -> int:
                       flush=True)
     print(f"s3: {json.dumps(s3)}", flush=True)
     print(f"s3_mp: {json.dumps(s3mp)}", flush=True)
+    print(f"select: {json.dumps(sel)}", flush=True)
     print(f"boot: {json.dumps(bt)}", flush=True)
     print(f"phases_s: {json.dumps(phases_s)}", flush=True)
     phase_launches = {
@@ -3248,6 +4009,7 @@ def main() -> int:
         "async": mo[("swar", "async")][0]["launches"],
         "mxu off": mx[("mxu", "off")][0]["launches"],
         "mxu pipeline": mx[("mxu", "pipeline")][0]["launches"],
+        "select": sel["launches"],
     }
 
     line = {
@@ -3255,15 +4017,16 @@ def main() -> int:
             {
                 "name": name,
                 "route": "cuda",
-                "source": "minio_tpu_torch/csrc/codec.cu",
+                "source": "minio_tpu_torch/csrc/" + (
+                    "select.cu" if name in select_step.LAUNCH_NAMES else "codec.cu"),
                 "replaces": replaces,
-                "launches": phase_launches[phase][name],
+                "launches": phase_launches[phase].get(name, 0),
                 "max_abs_err": kres[name]["max_abs_err"],
                 "ms": kres[name]["ms"],
                 "plain_ms": kres[name]["plain_ms"],
                 "bound_ms": kres[name]["bound_ms"],
                 "bound_by": kres[name]["bound_by"],
-                "library_ms": None,
+                "library_ms": kres[name].get("library_ms"),
                 **{key: kres[name][key] for key in ("device_ms", "host_us", "cold_ms")
                    if key in kres[name]},
             }

@@ -54,10 +54,12 @@ for bit the ``swar`` ones.  The lifted matrix reaches the kernel as a small
 device tensor in the product's operand order (``_mxu_operand``), cached
 per matrix and device.
 
-Build: ``nvcc -gencode arch=compute_90a,code=sm_90a -O3 -shared`` into
-``minio_tpu_torch/build/`` at first use, keyed by a hash of the sources
-and flags, loaded with ctypes.  Nothing is built or imported from CUDA
-when this module is imported.
+Build: one library of ``csrc/codec.cu`` and ``csrc/select.cu`` (S3
+Select's kernels, bound by ``select_step.bind``), one ``nvcc -gencode
+arch=compute_90a,code=sm_90a -O3 -c`` per source started together, then
+one link, into ``minio_tpu_torch/build/`` at first use, keyed by a hash
+of the sources and flags, loaded with ctypes.  Nothing is built or
+imported from CUDA when this module is imported.
 
 Each wrapper takes int32 tensors that reinterpret u32 words.  For a CPU
 tensor it runs the kernel's plain PyTorch version (``*_plain``, built on
@@ -68,7 +70,8 @@ or layout never falls back.  ``LAUNCHES`` counts kernel launches per
 wrapper (never plain runs): ``encode_pack[group=0]`` counts the K1
 launches without the pack leg among ``encode_pack``'s, and the two
 ``[subchunk]`` names count the sub-chunk forms and the four ``[mxu]``
-names the ``mxu`` instantiations, which the base names do not;
+names the ``mxu`` instantiations, which the base names do not; the
+``select_*`` names count S3 Select's kernels (``ops/select_step.py``);
 ``reset_launches`` zeroes it.
 """
 
@@ -84,6 +87,7 @@ import struct
 import subprocess
 import threading
 import time
+from concurrent.futures import ThreadPoolExecutor
 from pathlib import Path
 
 import numpy as np
@@ -92,12 +96,11 @@ import torch
 from . import gf, hash as phash, rs
 
 _PKG = Path(__file__).resolve().parent.parent
-SOURCES = (_PKG / "csrc" / "codec.cu",)
+SOURCES = (_PKG / "csrc" / "codec.cu", _PKG / "csrc" / "select.cu")
 BUILD_DIR = _PKG / "build"
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a",
-    "-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC",
-    "-Xptxas", "-v",
+    "-std=c++17", "-O3", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
 )
 
 # Constants shared with csrc/codec.cu, which exports its own values
@@ -125,6 +128,9 @@ LAUNCHES = {
     "verify_reconstruct_pipelined": 0, "gf_matmul_mxu": 0,
     "encode_pack[mxu]": 0, "verify_reconstruct[mxu]": 0,
     "encode_pack_pipelined[mxu]": 0, "verify_reconstruct_pipelined[mxu]": 0,
+    # S3 Select's kernels (ops/select_step.py, csrc/select.cu)
+    "select_screen": 0, "select_positions": 0, "select_spans[row]": 0,
+    "select_spans[back]": 0, "select_gather": 0,
 }
 _count_lk = threading.Lock()
 
@@ -168,6 +174,47 @@ def _fingerprint(generated: str) -> str:
     return h.hexdigest()[:16]
 
 
+def compile_library(out: Path, sources, info: dict, extra=()) -> Path:
+    """Build the shared library ``out`` unless it exists: one ``nvcc -c``
+    per source, all started together, then one link.  ``info`` gets the
+    wall ``seconds``, each source's compile seconds (``sources``) and the
+    compiler's output (``log``).  Raises RuntimeError with the compiler's
+    output on failure."""
+    if out.exists():
+        info.setdefault("seconds", 0.0)
+        info.setdefault("sources", {})
+        info.setdefault("log", "")
+        return out
+    out.parent.mkdir(parents=True, exist_ok=True)
+    tmp = out.with_suffix(f".{os.getpid()}.tmp")
+    objs = [out.with_suffix(f".{src.stem}.{os.getpid()}.o") for src in sources]
+
+    def run(cmd):
+        t = time.monotonic()
+        proc = subprocess.run(cmd, capture_output=True, text=True)
+        return proc, time.monotonic() - t
+
+    t0 = time.monotonic()
+    with ThreadPoolExecutor(len(sources)) as pool:
+        done = list(pool.map(run, [
+            [_nvcc(), *NVCC_FLAGS, *extra, "-c", "-o", str(obj), str(src)]
+            for src, obj in zip(sources, objs)
+        ]))
+    if all(proc.returncode == 0 for proc, _s in done):
+        done.append(run([_nvcc(), "-shared", "-o", str(tmp), *map(str, objs)]))
+    info["seconds"] = time.monotonic() - t0
+    info["sources"] = {src.name: s for src, (_p, s) in zip(sources, done)}
+    info["log"] = "".join(proc.stdout + proc.stderr for proc, _s in done)
+    for obj in objs:
+        obj.unlink(missing_ok=True)
+    failed = [proc for proc, _s in done if proc.returncode != 0]
+    if failed:
+        tmp.unlink(missing_ok=True)
+        raise RuntimeError(f"nvcc failed ({failed[0].returncode}):\n{info['log']}")
+    os.replace(tmp, out)
+    return out
+
+
 def build() -> Path:
     """Compile the kernels (once per source hash, the generated
     ``mtt_fixed.cuh`` included) and return the library path.  Raises
@@ -175,30 +222,14 @@ def build() -> Path:
     generated = fixed_source()
     fp = _fingerprint(generated)
     out = BUILD_DIR / f"libmtt_codec-{fp}.so"
-    if out.exists():
-        BUILD_INFO.setdefault("seconds", 0.0)
-        BUILD_INFO.setdefault("log", "")
-        return out
     gen_dir = BUILD_DIR / f"gen-{fp}"
-    gen_dir.mkdir(parents=True, exist_ok=True)
-    header = gen_dir / "mtt_fixed.cuh"
-    tmp_header = header.with_suffix(f".{os.getpid()}.tmp")
-    tmp_header.write_text(generated)
-    os.replace(tmp_header, header)
-    tmp = out.with_suffix(f".{os.getpid()}.tmp")
-    cmd = [_nvcc(), *NVCC_FLAGS, "-I", str(gen_dir), "-o", str(tmp),
-           *map(str, SOURCES)]
-    t0 = time.monotonic()
-    proc = subprocess.run(cmd, capture_output=True, text=True)
-    BUILD_INFO["seconds"] = time.monotonic() - t0
-    BUILD_INFO["log"] = proc.stdout + proc.stderr
-    if proc.returncode != 0:
-        tmp.unlink(missing_ok=True)
-        raise RuntimeError(
-            f"nvcc failed ({proc.returncode}):\n{proc.stdout}{proc.stderr}"
-        )
-    os.replace(tmp, out)
-    return out
+    if not out.exists():
+        gen_dir.mkdir(parents=True, exist_ok=True)
+        header = gen_dir / "mtt_fixed.cuh"
+        tmp_header = header.with_suffix(f".{os.getpid()}.tmp")
+        tmp_header.write_text(generated)
+        os.replace(tmp_header, header)
+    return compile_library(out, SOURCES, BUILD_INFO, ("-I", str(gen_dir)))
 
 
 def _load():
@@ -229,6 +260,9 @@ def _load():
                 fn.restype = ctypes.c_int
             lib.mtt_constants.restype = ctypes.c_char_p
             _check_constants(lib.mtt_constants().decode())
+            from . import select_step
+
+            select_step.bind(lib)
             _lib = lib
         return _lib
 
@@ -273,12 +307,16 @@ def parse_constants(text: str) -> dict:
     return out
 
 
-def _check_constants(text: str) -> None:
-    got, want = parse_constants(text), _constants()
+def _check_constants(text: str, want: "dict | None" = None,
+                     what: str = "codec.cu") -> None:
+    """Raise unless a library's exported constants (``text``) are
+    ``want`` (by default this module's own, for codec.cu)."""
+    want = _constants() if want is None else want
+    got = parse_constants(text)
     if got != want:
         diff = {k: (got.get(k), v) for k, v in want.items() if got.get(k) != v}
         diff.update({k: (v, None) for k, v in got.items() if k not in want})
-        raise RuntimeError(f"codec.cu constants differ from kernels.py's: {diff}")
+        raise RuntimeError(f"{what} constants differ from the module's: {diff}")
 
 
 def _check_rc(rc: int, what: str) -> None:
@@ -286,11 +324,12 @@ def _check_rc(rc: int, what: str) -> None:
         raise RuntimeError(f"{what}: CUDA error {rc}")
 
 
-def _require_cuda(t: torch.Tensor, name: str, ndim: int) -> None:
+def _require_cuda(t: torch.Tensor, name: str, ndim: int,
+                  dtype=torch.int32) -> None:
     if t.device.type != "cuda":
         raise ValueError(f"{name}: expected a CUDA tensor, got {t.device}")
-    if t.dtype != torch.int32:
-        raise TypeError(f"{name}: expected int32 words, got {t.dtype}")
+    if t.dtype != dtype:
+        raise TypeError(f"{name}: expected {dtype}, got {t.dtype}")
     if t.dim() != ndim:
         raise ValueError(f"{name}: expected {ndim} dims, got {tuple(t.shape)}")
     if not t.is_contiguous():

@@ -1149,9 +1149,6 @@ class _Handler(BaseHTTPRequestHandler):
             ("legal-hold", "object legal hold", "9c"),
             ("acl", "ACLs", "9c"),
         ),
-        "POST": (
-            ("select", "S3 Select", "6"),
-        ),
         "DELETE": (
             ("tagging", "object tagging", "9c"),
         ),
@@ -1218,6 +1215,8 @@ class _Handler(BaseHTTPRequestHandler):
                     return self._complete_multipart(
                         bucket, key, query, self._read_body()
                     )
+                if "select" in query:
+                    return self._select_object(bucket, key)
             if m == "DELETE" and "uploadId" in query:
                 return self._abort_multipart(bucket, key, query)
             self._refuse_unported(self._UNPORTED_OBJECT, m, query)
@@ -1731,6 +1730,15 @@ class _Handler(BaseHTTPRequestHandler):
         if lo > hi or lo >= total:
             raise S3Error("InvalidRange")
         return lo, min(hi, total - 1)
+
+    def _select_object(self, bucket, key):
+        """SelectObjectContent (object-handlers.go:91): SQL over one
+        object, streamed back as EventStream frames."""
+        from . import select as selmod
+
+        body = self._read_body()
+        info = self._read_info(self.s3.object_layer, bucket, key, "")
+        selmod.handle_select(self, bucket, key, info, body)
 
     def _read_info(self, ol, bucket, key, version_id):
         """Object info for a GET/HEAD, refused before any header goes

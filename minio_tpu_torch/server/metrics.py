@@ -6,9 +6,8 @@ latencies), the heal routine, the codec kernel telemetry registry
 (codec/telemetry.py), and the audit log, rendered in the Prometheus
 text exposition format 0.0.4 at ``/minio-tpu/prometheus/metrics``.
 
-The S3 Select families (slice 6), the read-cache families (slice 9a) and
-the mesh placement families (slice 10) come with the slices that port
-what feeds them.
+The read-cache families (slice 9a) and the mesh placement families
+(slice 10) come with the slices that port what feeds them.
 """
 
 from __future__ import annotations
@@ -223,6 +222,7 @@ class Metrics:
         )
 
         self._emit_codec(emit)
+        self._emit_select(emit)
         self._emit_disk_health(emit)
 
         if object_layer is not None:
@@ -347,6 +347,46 @@ class Metrics:
                     ],
                 )
         return ("\n".join(out) + "\n").encode()
+
+    @staticmethod
+    def _emit_select(emit):
+        """S3 Select pushdown families; every engine/reason cell is
+        zero-filled so the label set is stable whether or not a scan
+        has run (or the device engine exists on this node)."""
+        from ..s3select.device import STATS, SelectStats
+
+        snap = STATS.snapshot()
+        emit(
+            "miniotpu_select_requests_total", "counter",
+            "Select evaluations by executing engine",
+            [
+                ({"engine": e}, snap["requests"].get(e, 0))
+                for e in SelectStats.ENGINES
+            ],
+        )
+        emit(
+            "miniotpu_select_fallback_total", "counter",
+            "Device-scan fallbacks to the host engines, by reason",
+            [
+                ({"reason": r}, snap["fallbacks"].get(r, 0))
+                for r in SelectStats.REASONS
+            ],
+        )
+        emit(
+            "miniotpu_select_scanned_bytes_total", "counter",
+            "Object bytes scanned by select evaluations",
+            [({}, snap["scanned_bytes"])],
+        )
+        emit(
+            "miniotpu_select_returned_bytes_total", "counter",
+            "Result bytes produced by select evaluations",
+            [({}, snap["returned_bytes"])],
+        )
+        emit(
+            "miniotpu_select_device_seconds_total", "counter",
+            "Wall seconds spent in the device scan phase",
+            [({}, f"{snap['device_seconds']:.6f}")],
+        )
 
     @staticmethod
     def _emit_codec(emit):

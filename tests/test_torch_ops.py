@@ -297,7 +297,9 @@ def test_cpu_wrappers_run_plain_and_count_nothing():
         "verify_reconstruct[subchunk]", "encode_pack_pipelined",
         "verify_reconstruct_pipelined", "gf_matmul_mxu", "encode_pack[mxu]",
         "verify_reconstruct[mxu]", "encode_pack_pipelined[mxu]",
-        "verify_reconstruct_pipelined[mxu]",
+        "verify_reconstruct_pipelined[mxu]", "select_screen",
+        "select_positions", "select_spans[row]", "select_spans[back]",
+        "select_gather",
     }
     assert not any(kernels.LAUNCHES.values())
 
@@ -321,6 +323,61 @@ def test_kernel_module_builds_nothing_on_import():
         isinstance(n, ast.Expr) and isinstance(n.value, ast.Call)
         for n in tree.body
     )
+
+
+_FAKE_NVCC = """#!/usr/bin/env python3
+import json, os, sys
+args = sys.argv[1:]
+with open(os.environ["FAKE_NVCC_LOG"], "a") as f:
+    f.write(json.dumps(args) + "\\n")
+out = args[args.index("-o") + 1]
+if os.environ.get("FAKE_NVCC_FAIL") and os.environ["FAKE_NVCC_FAIL"] in args[-1]:
+    sys.stderr.write("error in " + args[-1])
+    sys.exit(2)
+with open(out, "w") as f:
+    f.write(" ".join(args))
+"""
+
+
+@pytest.mark.parametrize("fail", [None, "select.cu"])
+def test_library_builds_one_nvcc_per_source_then_links(
+        monkeypatch, tmp_path, fail):
+    """Both sources build into one library: one ``nvcc -c`` each, then
+    one link of their objects; a failed compile raises with the
+    compiler's output and leaves no library and no object behind."""
+    nvcc = tmp_path / "nvcc"
+    nvcc.write_text(_FAKE_NVCC)
+    nvcc.chmod(0o755)
+    log = tmp_path / "log"
+    monkeypatch.setattr(kernels, "_nvcc", lambda: str(nvcc))
+    monkeypatch.setenv("FAKE_NVCC_LOG", str(log))
+    if fail:
+        monkeypatch.setenv("FAKE_NVCC_FAIL", fail)
+    out = tmp_path / "build" / "libmtt_codec-0.so"
+    info: dict = {}
+    assert [s.name for s in kernels.SOURCES] == ["codec.cu", "select.cu"]
+    if fail:
+        with pytest.raises(RuntimeError, match="error in .*select.cu"):
+            kernels.compile_library(out, kernels.SOURCES, info)
+        assert sorted(p.name for p in out.parent.iterdir()) == []
+        return
+    assert kernels.compile_library(out, kernels.SOURCES, info, ("-I", "g")) == out
+    import json
+
+    calls = [json.loads(line) for line in log.read_text().splitlines()]
+    compiles, link = calls[:-1], calls[-1]
+    assert sorted(c[-1] for c in compiles) == sorted(map(str, kernels.SOURCES))
+    for c in compiles:
+        assert "-c" in c and "-shared" not in c and c[c.index("-I") + 1] == "g"
+        assert "arch=compute_90a,code=sm_90a" in c
+    objs = [c[c.index("-o") + 1] for c in compiles]
+    assert link[0] == "-shared" and sorted(link[3:]) == sorted(objs)
+    assert out.exists() and [p.name for p in out.parent.iterdir()] == [out.name]
+    assert set(info["sources"]) == {"codec.cu", "select.cu"}
+    assert info["seconds"] >= max(info["sources"].values())
+    log.unlink()
+    assert kernels.compile_library(out, kernels.SOURCES, {}) == out
+    assert not log.exists()  # found by its name: nothing runs
 
 
 @pytest.mark.parametrize(

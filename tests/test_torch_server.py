@@ -572,9 +572,6 @@ UNPORTED = [
     # its routes of unported features name their slices
     ("admin", "9b", lambda c: c.request(
         "GET", "/minio-tpu/admin/v1/datausage")),
-    ("select", "6", lambda c: c.request(
-        "POST", "/bkt/obj", query={"select": "", "select-type": "2"},
-        body=b"<SelectObjectContentRequest/>")),
     ("sse_s3_put", "8", lambda c: c.put_object(
         "bkt", "enc", b"x", headers={"x-amz-server-side-encryption": "AES256"})),
     ("sse_kms_put", "8", lambda c: c.put_object(
