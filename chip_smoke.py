@@ -2,14 +2,15 @@
 """Smoke run of the PyTorch/CUDA port (minio_tpu_torch) on one NVIDIA GPU.
 
     python3 chip_smoke.py            # from the repository root
-    python3 chip_smoke.py --parent DIR   # and K1-K6 beside an older copy
+    python3 chip_smoke.py --parent DIR   # and K1-K6, K8, K11 beside an older copy
 
 1. Builds the CUDA kernels from ``minio_tpu_torch/csrc`` with nvcc into
    one library (and ``--parent``'s copy into its own), one ``nvcc -c``
    per source (codec.cu, select.cu, the copy's codec.cu) all at once,
    prints each library's and each source's build seconds and each
    kernel's registers and spills and the static SASS of K1, K4 and K5
-   (EC 8+4, swar and mxu), K2, K3 and K6 (``sass_loops``).
+   (EC 8+4, swar and mxu), K2, K3, K6, K8 (each lookahead) and K11
+   (``sass_loops``).
 2. Holds each kernel bit-exactly against its plain PyTorch version on the
    card, at the main path's shapes (EC 8+4, 10 MiB blocks: 327,680 words
    per shard) and at ragged ones, and times kernel, plain version and the
@@ -40,17 +41,24 @@
    K8-K11 (``csrc/select.cu``, in the same library as the codec's)
    against their plain versions on a 32 MiB TPC-H lineitem chunk (one
    DEV_CHUNK): K8 under the screens of Q1-Q4, of an IN list of 16 options
-   (row and field anchored) and of every atom kind (both anchors, sci
-   guard on and off), on a hazard chunk and on the SWAR-borrow plane; K9
-   at every program's candidates; K10 at the three row windows and
-   backwards, also over rows 10-6,000 bytes wide; K11 at 64-4,096-byte
-   windows (``check_select_kernels``).  Beside each kernel's
+   (row and field anchored), of one of 150 (past the records a launch
+   passes by value), of every atom kind (both anchors, sci guard on and
+   off) and of one program for each lookahead of 1-6 words, on a hazard
+   chunk and on the SWAR-borrow planes (the borrow within a word's half
+   and from lane 3 into lane 4); K9 at every program's candidates; K10
+   at the three row windows and backwards, also over rows 10-6,000 bytes
+   wide; K11 at 4-4,096-byte windows, at every start alignment and plane
+   offset, clamped at both ends of the plane (``check_select_kernels``).  Beside each kernel's
    back-to-back event time (``ms``): its device time from a replayed
    CUDA graph, the host's time per wrapper call and its L2-cold time
    (``device_times``), and for K1, K3 and K6 a one-tile launch (the
    fixed chain).  With ``--parent``, K1-K6 of both
    copies at the main path's shapes in turns parent, new, new, parent
-   (``compare_copies``).
+   (``compare_copies``), then K8 under Q1, Q2, the IN list's field
+   screen and two long lookaheads on the lineitem chunk and K11 at Q1's
+   gather and at one row,
+   in the same turns (``compare_select_copies``), the card's name and
+   power limit printed before them.
 3. Drives the main path through the object layer under the default
    MINIO_TPU_CODEC_OVERLAP (unset: ``pipeline`` on the card): 12 temp-dir
    disks, EC 8+4, 10 MiB blocks; PUT four 64 MiB objects and one of
@@ -3169,19 +3177,54 @@ def _span_scanned(arr, anchors, window: int, back: bool) -> int:
     return int(n.masked_fill(~found, window).sum().item())
 
 
+def select_programs(rng) -> dict:
+    """The screens check_select_kernels holds K8 to, by label: Q1-Q4, an
+    IN list of 16 options field and row anchored, one of 150 (more records
+    than a launch passes by value), every atom kind under both anchors
+    (sci guard off and on), and one program for each lookahead of 1-6
+    words."""
+    from minio_tpu_torch.s3select import device as sdev, sql
+
+    header = LI_HEADER.split("|")
+
+    def screen(where: str):
+        return sdev.compile_screen(sql.parse(
+            f"SELECT * FROM S3Object s WHERE {where}").where, header)
+
+    progs = {q: sdev.compile_screen(sql.parse(t).where, header)
+             for q, t in SELECT_QUERIES.items()}
+    keys = ", ".join(str(int(k)) for k in rng.integers(1, 200000, 16))
+    progs["IN16 field"] = screen(f"s.l_partkey IN ({keys})")
+    progs["IN16 row"] = screen(f"s.l_orderkey IN ({keys})")
+    many = ", ".join(str(int(k)) for k in rng.integers(1, 200000, 150))
+    progs["IN150 field"] = screen(f"s.l_partkey IN ({many})")
+    kinds = ((("len", 1, 3), ("byte0", 48, 57)), (("deep", 5), ("nd", 7)),
+             (("lex", b"1000", "lt"),), (("lex", b"TAKE BACK RETURN", "le"),),
+             (("lex", b"MAIL", "eq"),), (("lex", b"1997-09", "ge"),),
+             (("lex", b"SHIP", "gt"),), (("byte0", 0, 50), ("len", 0, 0)))
+    progs["kinds row"] = sdev._Screen(kinds, "row", False)
+    progs["kinds field sci"] = sdev._Screen(kinds, "field", True)
+    for q in range(1, 7):  # q words read offsets up to 8q - 1
+        progs[f"lookahead {q}"] = sdev._Screen(
+            ((("len", 0, 8 * q - 2),), (("nd", 8 * q - 1),),
+             (("deep", 8 * q - 3), ("lex", b"12", "ge"))), "field", q % 2 == 0)
+    return progs
+
+
 def check_select_kernels(dev, rng) -> dict:
     """K8-K11 against their plain versions on the card, at the select
     path's shapes: a 32 MiB lineitem chunk (one DEV_CHUNK) under the
-    programs of Q1-Q4, of an IN list of 16 options (row and field
-    anchored) and of every atom kind (both anchors, sci guard on and
-    off); a hazard chunk (a quote, a bare CR); the SWAR-borrow plane;
-    positions of every program's candidates; row spans at the three
-    windows and backward anchors over the lineitem chunk and over a plane
-    of rows 10-6,000 bytes wide (found and not found, the chunk start);
-    gathers at 64-4,096-byte windows, clamped at the plane's end.  Times
-    each at the path's shape beside its bound and its plain version; K9
-    and K11 also beside the PyTorch calls that compute the same
-    function."""
+    programs of ``select_programs``; a hazard chunk (a quote, a bare CR);
+    the SWAR-borrow planes (within a word's half, and from lane 3 into
+    lane 4); positions of every program's candidates; row spans at the
+    three windows and backward anchors over the lineitem chunk and over a
+    plane of rows 10-6,000 bytes wide (found and not found, the chunk
+    start); gathers at 4-4,096-byte windows, at every start alignment and
+    plane offset, clamped at both ends of the plane.  Times each at the
+    path's shape beside its bound and its plain version (K8 under Q1, Q2
+    and the IN list's field screen; K11 also at one row, the launch's
+    fixed chain); K9 and K11 also beside the PyTorch calls that compute
+    the same function."""
     import numpy as np
     import torch
 
@@ -3193,19 +3236,11 @@ def check_select_kernels(dev, rng) -> dict:
     header = LI_HEADER.split("|")
     plane = sdev.host_plane(data, dev)
     nbytes = plane.numel()
-    progs = {q: sdev.compile_screen(sql.parse(t).where, header)
-             for q, t in SELECT_QUERIES.items()}
-    keys = ", ".join(str(int(k)) for k in rng.integers(1, 200000, 16))
-    progs["IN16 field"] = sdev.compile_screen(sql.parse(
-        f"SELECT * FROM S3Object s WHERE s.l_partkey IN ({keys})").where, header)
-    progs["IN16 row"] = sdev.compile_screen(sql.parse(
-        f"SELECT * FROM S3Object s WHERE s.l_orderkey IN ({keys})").where, header)
-    kinds = ((("len", 1, 3), ("byte0", 48, 57)), (("deep", 5), ("nd", 7)),
-             (("lex", b"1000", "lt"),), (("lex", b"TAKE BACK RETURN", "le"),),
-             (("lex", b"MAIL", "eq"),), (("lex", b"1997-09", "ge"),),
-             (("lex", b"SHIP", "gt"),), (("byte0", 0, 50), ("len", 0, 0)))
-    progs["kinds row"] = sdev._Screen(kinds, "row", False)
-    progs["kinds field sci"] = sdev._Screen(kinds, "field", True)
+    progs = select_programs(rng)
+    if {ss.screen_program(p.atoms).q for p in progs.values()} != set(range(1, 7)):
+        fail("select kernels: the programs miss a lookahead of 1-6 words")
+    if ss.screen_program(progs["IN150 field"].atoms).nrec <= ss._PARAM_RECS:
+        fail("select kernels: the IN150 program fits the launch's parameters")
     for kind in ("len", "deep", "byte0", "nd", "lex"):
         if not any(a[0] == kind for p in progs.values() for b in p.atoms
                    for a in b):
@@ -3218,6 +3253,9 @@ def check_select_kernels(dev, rng) -> dict:
     hz[2_000_001] = 13
     hazard = sdev.host_plane(bytes(hz), dev)
     borrow = sdev.host_plane(b"a,b\n1,-5\n22,7\n", dev)
+    # a ``,`` at byte 3 of a word, ``-`` (``,`` ^ 1) at byte 4: the borrow
+    # from lane 3 into lane 4, across the word's 32-bit halves
+    borrow34 = sdev.host_plane(b"xyz,-a,b\n,-1,22\n" * 8, dev)
 
     def screen(arr, scr, fdb=fd, fn=ss.screen_chunk):
         return fn(arr, fd=fdb, qc=qc, atoms=scr.atoms, anchor=scr.anchor,
@@ -3253,6 +3291,13 @@ def check_select_kernels(dev, rng) -> dict:
     flags = np.unpackbits(g[0].cpu().numpy().view(np.uint8), bitorder="little")
     if (np.flatnonzero(flags) // 8).tolist() != [8, 13]:
         fail(f"select_screen: borrow plane flags {np.flatnonzero(flags) // 8}")
+    g = screen(borrow34, bscr, ord(","))
+    if same(g, screen_plain(borrow34, bscr, ord(","))):
+        fail("select_screen differs from its plain version across a word's halves")
+    flags = np.flatnonzero(np.unpackbits(g[0].cpu().numpy().view(np.uint8),
+                                         bitorder="little")) // 8
+    if 3 in flags.tolist() or 16 + 3 in flags.tolist():
+        fail(f"select_screen: the lane 3 -> 4 borrow lost, flags {flags[:8]}")
     # the reference's own numbers on the chunk: Q1 flags keys of up to 4
     # digits, Q2 the AIR rows, Q3 past _MAX_CANDS, Q4 past the ratio cap
     nrows = data.count(b"\n")
@@ -3273,12 +3318,13 @@ def check_select_kernels(dev, rng) -> dict:
             ms=cuda_ms(lambda: screen(plane, scr), 20),
             plain_ms=cuda_ms(lambda: screen_plain(plane, scr), 3, 1),
             bound_ms=bms, bound_by=by, shape=[nbytes], program=label,
-            records=int(ss.screen_program(scr.atoms).shape[0]),
+            records=ss.screen_program(scr.atoms).nrec, lookahead=ss.screen_program(scr.atoms).q,
             int_ops_per_word=screen_ops(scr.atoms, scr.anchor, scr.sci_guard),
             **device_times(lambda: screen(plane, scr)))
 
     res["select_screen"] = dict(max_abs_err=err, **k8_row("Q1"))
     res["select_screen"]["Q2"] = k8_row("Q2")
+    res["select_screen"]["IN16 field"] = k8_row("IN16 field")
 
     # --- K9 positions -------------------------------------------------------
     err = 0
@@ -3372,10 +3418,16 @@ def check_select_kernels(dev, rng) -> dict:
 
     # --- K11 gather -------------------------------------------------------------
     err = 0
-    ends = torch.from_numpy(rng.integers(nbytes - 300, nbytes, 64).astype(np.int32)).to(dev)
-    for window, starts in ((256, q1a + 1), (64, ends), (4096, mids[:512]),
-                           (64, torch.zeros(0, dtype=torch.int32, device=dev))):
-        arr = wide if window == 4096 else plane
+    ends = torch.from_numpy(np.concatenate([
+        rng.integers(nbytes - 300, nbytes, 64), rng.integers(-300, 0, 16),
+        [0, -1, nbytes - 1, nbytes]]).astype(np.int32)).to(dev)
+    cases = [(256, plane, q1a + 1), (64, plane, ends), (4096, wide, mids[:512]),
+             (64, plane, torch.zeros(0, dtype=torch.int32, device=dev))]
+    # every start alignment and plane offset, windows off the 16-byte chunk
+    for off in (1, 3, 8, 13):
+        for window in (4, 12, 36, 64, 256):
+            cases.append((window, plane[off:], torch.cat([ends, q1a[:512] + 1])))
+    for window, arr, starts in cases:
         e = same((ss.gather_rows(arr, starts, window=window),),
                  (ss.gather_rows_plain(arr, starts, window=window),))
         if e:
@@ -3392,6 +3444,10 @@ def check_select_kernels(dev, rng) -> dict:
         library_ms=cuda_ms(lambda: plane[idx], 20),
         bound_ms=bms, bound_by=by, shape=[C, 256], program="Q1",
         **device_times(lambda: ss.gather_rows(plane, starts, window=256)))
+    one = starts[:1].clone()
+    res["select_gather"]["one_row"] = dict(
+        ms=cuda_ms(lambda: ss.gather_rows(plane, one, window=256), 20),
+        **device_times(lambda: ss.gather_rows(plane, one, window=256)))
     res["select_screen"]["counts"] = counts
     torch.cuda.synchronize()
     return res
@@ -3688,15 +3744,17 @@ _SASS_INSN = re.compile(r"^\s*/\*([0-9a-f]{4,})\*/\s+(\S.*?)\s*;")
 _MMA_OPS = ("BMMA", "IMMA", "HMMA")  # the tensor-core instructions
 # the instantiations sass_loops reads: K2, K6, K1 and K5 at EC 8+4 (swar
 # and mxu), K3, and K4 at EC 8+4: swar and mxu at heal's pattern (<8,8,swar>,
-# <8,4,mxu>) and with every row present (<16,8,swar>, <16,4,mxu>).  An older
-# copy's K4 is verify_reconstruct_kernel<16,8> (swar) and
-# verify_reconstruct_mxu_kernel<PB,RB>.
+# <8,4,mxu>) and with every row present (<16,8,swar>, <16,4,mxu>), K8 at
+# each lookahead (screen_kernel<Q>; an older copy's is one screen_kernel)
+# and K11.  An older copy's K4 is verify_reconstruct_kernel<16,8> (swar)
+# and verify_reconstruct_mxu_kernel<PB,RB>.
 SASS_KERNELS = ("phash_kernel", "verify_reconstruct_pipelined",
                 "encode_kernel<8,4,", "encode_mxu_kernel<8,4", "gf_matmul_kernel",
                 "encode_pipelined_kernel<8,4,", "encode_pipelined_mxu_kernel<8,4,",
                 "verify_reconstruct_kernel<16,8", "verify_reconstruct_kernel<8,8,swar>",
                 "verify_reconstruct_kernel<8,4,mxu>", "verify_reconstruct_kernel<16,4,mxu>",
-                "verify_reconstruct_mxu_kernel<8,4>", "verify_reconstruct_mxu_kernel<16,4>")
+                "verify_reconstruct_mxu_kernel<8,4>", "verify_reconstruct_mxu_kernel<16,4>",
+                "screen_kernel", "gather_kernel")
 
 
 def sass_loops(lib, kernels_mod) -> dict:
@@ -3892,6 +3950,81 @@ def compare_copies(dev, mods: dict, order: list) -> list:
     return rows
 
 
+def compare_select_copies(dev, mods: dict, order: list) -> list:
+    """K8 and K11 of several copies of the port (``mods``: name -> kernels
+    module; each copy's ``ops.select_step``) in turns (``order``), at the
+    select path's shapes: K8 on the 32 MiB lineitem chunk under Q1, Q2,
+    the IN list's field screen and the programs of lookahead 3 and 6
+    (``select_programs``; the latter two past the register memo), K11 at
+    Q1's gather
+    (the chunk's Q1 rows, 256-byte windows) and at one row (the fixed
+    chain).  Every result is first held bit for bit against the plain
+    version; then cuda_ms and device_times of each."""
+    import importlib
+
+    import numpy as np
+    import torch
+
+    from minio_tpu_torch.ops import select_step as ss
+    from minio_tpu_torch.s3select import device as sdev
+
+    rng = np.random.default_rng(SEED)
+    progs = select_programs(rng)
+    data = lineitem_csv(SEED + 14, sdev.DEV_CHUNK)
+    plane = sdev.host_plane(data, dev)
+    fd, qc = ord("|"), ord('"')
+    # Q1's rows, from the plain versions: the starts K11 gathers
+    cand, blk, _n, _h = ss.screen_chunk_plain(
+        plane, fd=fd, qc=qc, atoms=progs["Q1"].atoms, anchor="row", sci_guard=True)
+    cum = torch.cumsum(blk, 0, dtype=torch.int32)
+    count = int(cum[-1].item())
+    pos = ss.extract_positions_plain(cand, cum, cap=1 << (count - 1).bit_length())
+    starts = torch.cat([torch.zeros(1, dtype=torch.int32, device=dev),
+                        pos[:count] + 1])
+    one = starts[:1].clone()
+    rows = []
+    for turn, name in enumerate(order):
+        sel = importlib.import_module(mods[name].__package__ + ".select_step")
+        cases = {}
+        for label in ("Q1", "Q2", "IN16 field", "lookahead 3", "lookahead 6"):
+            scr = progs[label]
+            cases[f"K8 {label} (32 MiB)"] = (
+                lambda sel=sel, scr=scr: sel.screen_chunk(
+                    plane, fd=fd, qc=qc, atoms=scr.atoms, anchor=scr.anchor,
+                    sci_guard=scr.sci_guard),
+                lambda scr=scr: ss.screen_chunk_plain(
+                    plane, fd=fd, qc=qc, atoms=scr.atoms, anchor=scr.anchor,
+                    sci_guard=scr.sci_guard))
+        for label, st in ((f"K11 Q1 ({starts.numel()}, 256)", starts),
+                          ("K11 one row (1, 256)", one)):
+            cases[label] = (
+                lambda sel=sel, st=st: (sel.gather_rows(plane, st, window=256),),
+                lambda st=st: (ss.gather_rows_plain(plane, st, window=256),))
+        for label, (fn, plain) in cases.items():
+            if same(fn(), plain()):
+                fail(f"{label} of copy {name} differs from its plain version")
+            rows.append({"turn": turn, "copy": name, "case": label,
+                         "events_ms": cuda_ms(fn, 20, 3), **device_times(fn)})
+        idx = (starts.long()[:, None] + torch.arange(256, device=dev)[None, :]).clamp(
+            0, plane.numel() - 1)
+        rows.append({"turn": turn, "copy": "library", "case": "plane[idx] Q1",
+                     "events_ms": cuda_ms(lambda: plane[idx], 20, 3)})
+        torch.cuda.synchronize()
+    return rows
+
+
+def card_name() -> str:
+    """The card's name and power limit, as nvidia-smi gives them."""
+    smi = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit",
+         "--format=csv,noheader"],
+        capture_output=True, text=True, timeout=60,
+    )
+    if smi.returncode != 0:
+        fail(f"nvidia-smi failed: {smi.stderr.strip()}")
+    return smi.stdout.strip().splitlines()[0]
+
+
 def main() -> int:
     import argparse
 
@@ -3901,7 +4034,7 @@ def main() -> int:
     ap.add_argument(
         "--parent", metavar="DIR",
         help="another copy of the port (DIR/__init__.py, DIR/ops, DIR/csrc): "
-             "build it too and time its K1-K6 beside this "
+             "build it too and time its K1-K6, K8 and K11 beside this "
              "checkout's, in turns parent, new, new, parent")
     args = ap.parse_args()
     if not torch.cuda.is_available():
@@ -3958,7 +4091,11 @@ def main() -> int:
     for name, r in kres.items():
         print(f"kernel {name}: {json.dumps(r)}", flush=True)
     if args.parent:
-        for row in compare_copies(dev, copies, ["parent", "new", "new", "parent"]):
+        print(f"compare card: {card_name()}", flush=True)
+        order = ["parent", "new", "new", "parent"]
+        for row in compare_copies(dev, copies, order):
+            print(f"compare: {json.dumps(row)}", flush=True)
+        for row in compare_select_copies(dev, copies, order):
             print(f"compare: {json.dumps(row)}", flush=True)
     lap("compare")
     xfer = transfer_ms(dev)
@@ -4034,14 +4171,7 @@ def main() -> int:
         ]
     }
     print(json.dumps(line), flush=True)
-    smi = subprocess.run(
-        ["nvidia-smi", "--query-gpu=name,power.limit",
-         "--format=csv,noheader"],
-        capture_output=True, text=True, timeout=60,
-    )
-    if smi.returncode != 0:
-        fail(f"nvidia-smi failed: {smi.stderr.strip()}")
-    print(smi.stdout.strip().splitlines()[0], flush=True)
+    print(card_name(), flush=True)
     print(json.dumps({
         "ok": True,
         "device": {

@@ -37,16 +37,28 @@ Screen atoms (static, hashable) compiled by s3select/device.py:
 The kernels (``csrc/select.cu``, CUDA C++ for ``sm_90a``):
 
 * ``select_screen`` (K8) replaces ``select_step.screen_chunk`` (X4, XLA
-  in the JAX package): one thread per word over words staged in shared
-  memory, interpreting the statement's screen from a program of 8-int
-  records (``screen_program``) in a device buffer; one memset (the two
-  scalars) and one launch.
+  in the JAX package).  It is bound by its integer operations: the
+  memoized expression (each distinct view and flag set once a word) over
+  a plane read once.  ``screen_program`` encodes the statement as the
+  reference memoizes it - masks of the offsets whose view, terminator
+  flags and digit flags it reads, and one 16-byte record per atom over
+  those offsets, repeated branches dropped - and the wrapper launches
+  ``screen_kernel<q>`` for the statement's lookahead q (1-6 words): each
+  view two funnel shifts by constant amounts, each memo entry a
+  register computed once a word, the records in the launch's parameters
+  (past 128 from a device buffer).  One packed struct, one memset (the
+  two scalars) and one launch.
 * ``select_positions`` (K9) replaces ``extract_positions`` (X5).  The
   block cumsum before it stays ``torch.cumsum``, outside the function
   as in the JAX package.
 * ``select_spans`` (K10) replaces ``row_spans`` (``[row]``) and
   ``anchors_back`` (``[back]``) (X6): one template, two directions.
-* ``select_gather`` (K11) replaces ``gather_rows`` (X7).
+* ``select_gather`` (K11) replaces ``gather_rows`` (X7).  It is bound by
+  bytes; at the path's shape most of a call is the host's wrapper and
+  the launch, so the wrapper checks both tensors in one pass and passes
+  one packed struct, and the kernel gives each row 1-32 lanes that read
+  aligned 16-byte chunks and write 16-byte chunks (a byte path only for
+  rows the clamp touches).
 
 Each wrapper runs its plain version (``*_plain``) for a CPU tensor and
 launches its kernel on ``torch.cuda.current_stream()`` for a CUDA
@@ -65,7 +77,9 @@ into ``kernels.LAUNCHES`` under ``LAUNCH_NAMES``.
 from __future__ import annotations
 
 import ctypes
+import dataclasses
 import functools
+import struct
 
 import numpy as np
 import torch
@@ -384,71 +398,142 @@ def gather_rows_plain(arr: torch.Tensor, starts: torch.Tensor, *,
 
 
 # ---------------------------------------------------------------------------
-# the screen program (K8's interpreted form of the atoms)
+# the screen program (K8's encoding of the atoms)
 # ---------------------------------------------------------------------------
 
 # Constants shared with csrc/select.cu, which exports its own values
 # (mts_constants); bind refuses a library that differs from these.
 _SCREEN_THREADS = 256
-_MAX_PROGRAM_SHIFT = 47  # kMaxShift: the staged lookahead words
-_REC_INTS = 8
-_KIND = {"end": 0, "len": 1, "deep": 2, "byte0": 3, "nd": 4, "lex": 5}
+_MAX_PROGRAM_SHIFT = 47  # kMaxShift: the largest byte offset a program reads
+_MAX_Q = _MAX_PROGRAM_SHIFT // 8 + 1  # kMaxQ: screen_kernel<1> .. <6>
+_PARAM_RECS = 128  # kParamRecs: records passed by value in the launch
+_REC = np.dtype([("op", "<u4"), ("arg", "<u4"), ("m", "<u8")])  # struct Rec
+_OP = {"terms": 1, "range": 2, "nd": 3, "lex": 4}  # kTerms .. kLex
+_LAST = 16  # kLast: the last atom of its OR branch
+_FLAG = 32  # kFlag: deep's inversion, byte0's lo == 0, lex's len > MAX_LEX
 _MODE = {"lt": 0, "le": 1, "eq": 2, "ge": 3, "gt": 4}
 
 
+@dataclasses.dataclass(frozen=True, eq=False)
+class ScreenProgram:
+    """The atoms as K8 runs them (``screen_program``)."""
+
+    q: int  # lookahead words: the kernel's instantiation screen_kernel<q>
+    vmask: int  # bit k: the program reads the view W(k) (1 <= k < 8q)
+    tmask: int  # ... term_at(k)
+    dmask: int  # ... digit_at(k)
+    records: np.ndarray  # struct Rec (_REC), one per atom
+    blob: ctypes.Array  # the records' bytes, for the entry to copy
+
+    @property
+    def nrec(self) -> int:
+        return len(self.records)
+
+    @property
+    def addr(self) -> int:
+        return ctypes.addressof(self.blob)
+
+
+def _bits(ks) -> int:
+    return sum(1 << k for k in set(ks))
+
+
 @functools.lru_cache(maxsize=256)
-def screen_program(atoms) -> np.ndarray:
-    """The atoms as K8's program: one record of 8 int32 per atom
-    (kind, lo or k, hi, lex mode, n = min(len, MAX_LEX), len > MAX_LEX,
-    the first n literal bytes in two little-endian words), and an
-    ``end`` record closing each OR branch.  Raises OverflowError for the
+def screen_program(atoms) -> ScreenProgram:
+    """The atoms as K8's program, memoized as the reference memoizes
+    them: the masks of the offsets whose view W(k), terminator flags
+    term_at(k) and digit flags digit_at(k) the atoms read (each computed
+    once a word), and one 16-byte record per atom over those offsets
+    (``len``/``deep``: the offsets ORed, deep inverted; ``byte0``: the
+    bytes of its two lane constants; ``nd``: the offsets of its chain;
+    ``lex``: mode, n = min(len, MAX_LEX), len > MAX_LEX and the first n
+    literal bytes), its last atom flagged in each OR branch.  A branch
+    that repeats an earlier one, and an atom that repeats one of its
+    branch, add nothing to an OR or an AND and are dropped; an empty
+    branch is one record that holds every lane.  ``q`` is the lookahead
+    in words, ``_max_shift // 8 + 1``.  Raises OverflowError for the
     atoms whose u64 constants the JAX package cannot form either (a
-    ``byte0`` bound or an lt/le literal byte past 0x80), and ValueError
-    past the kernel's lookahead."""
-    if _max_shift(atoms, False) > _MAX_PROGRAM_SHIFT:
+    ``byte0`` bound or an lt/le literal byte past 0x80), ValueError past
+    the kernel's lookahead, for a field length below 0 and for an unknown
+    atom."""
+    shift = _max_shift(atoms, False)
+    if shift > _MAX_PROGRAM_SHIFT:
         raise ValueError(
             f"screen reads past byte {_MAX_PROGRAM_SHIFT} of the field"
         )
+    views, terms, digits = set(), set(), set()
     recs = []
+    seen_branches = set()
     for branch in atoms:
+        body = []
         for atom in branch:
             kind = atom[0]
-            rec = [0] * _REC_INTS
-            if kind not in _KIND or kind == "end":
+            if kind not in ("len", "deep", "byte0", "nd", "lex"):
                 raise ValueError(f"unknown screen atom {atom!r}")
-            rec[0] = _KIND[kind]
-            if kind in ("len", "byte0"):
-                rec[1], rec[2] = atom[1], atom[2]
-                if kind == "byte0":
-                    _s64((0x80 - atom[1]) * _LO)
-                    _s64((0x80 - atom[2] - 1) * _LO)
-            elif kind in ("deep", "nd"):
-                rec[1] = atom[1]
+            if kind == "len":
+                lo, hi = atom[1], atom[2]
+                if lo < 0:
+                    raise ValueError(f"screen atom {atom!r}: a length below 0")
+                ks = [ln + 1 for ln in range(lo, hi + 1)]
+                terms.update(ks)
+                rec = (_OP["terms"], 0, _bits(ks))
+            elif kind == "deep":
+                ks = list(range(1, atom[1] + 1))
+                terms.update(ks)
+                rec = (_OP["terms"] | _FLAG, 0, _bits(ks))
+            elif kind == "byte0":
+                lo, hi = atom[1], atom[2]
+                b_lo = _s64((0x80 - lo) * _LO) & 0xFF
+                b_hi = _s64((0x80 - hi - 1) * _LO) & 0xFF
+                views.add(1)
+                rec = (_OP["range"] | (_FLAG if lo == 0 else 0),
+                       b_lo | b_hi << 8, 0)
+            elif kind == "nd":
+                ks = list(range(1, atom[1] + 1))
+                terms.update(ks)
+                digits.update(ks)
+                rec = (_OP["nd"], 0, _bits(ks))
             else:
                 lit, mode = bytes(atom[1]), atom[2]
+                if mode not in _MODE:
+                    raise ValueError(f"unknown screen atom {atom!r}")
                 n = min(len(lit), MAX_LEX)
                 if mode in ("lt", "le"):
                     for c in lit[:n]:
                         if c > 0:
                             _s64((0x80 - c) * _LO)
-                word = int.from_bytes(lit[:n].ljust(8, b"\0"), "little")
-                rec[3] = _MODE[mode]
-                rec[4] = n
-                rec[5] = int(len(lit) > MAX_LEX)
-                for j, half in ((6, word & 0xFFFFFFFF), (7, word >> 32)):
-                    rec[j] = half - (1 << 32) if half >> 31 else half
-            recs.append(rec)
-        recs.append([_KIND["end"]] + [0] * (_REC_INTS - 1))
-    out = np.array(recs, dtype=np.int32).reshape(-1, _REC_INTS)
-    out.flags.writeable = False
-    return out
+                views.update(range(1, n + 1))
+                if mode != "eq":
+                    terms.update(range(1, n + 1))
+                terms.add(n + 1)
+                rec = (_OP["lex"] | (_FLAG if len(lit) > MAX_LEX else 0),
+                       _MODE[mode] | n << 8,
+                       int.from_bytes(lit[:n], "little"))
+            if rec not in body:
+                body.append(rec)
+        key = frozenset(body)
+        if key in seen_branches:
+            continue
+        seen_branches.add(key)
+        if not body:  # an empty AND holds every lane: deep over no offset
+            body = [(_OP["terms"] | _FLAG, 0, 0)]
+        body[-1] = (body[-1][0] | _LAST, *body[-1][1:])
+        recs.extend(body)
+    records = np.array(recs, dtype=_REC)
+    records.flags.writeable = False
+    blob = ctypes.create_string_buffer(records.tobytes(), max(1, records.nbytes))
+    vmask = _bits(views | terms | digits)
+    return ScreenProgram(shift // 8 + 1, vmask, _bits(terms), _bits(digits),
+                         records, blob)
 
 
 @functools.lru_cache(maxsize=256)
 def _program_tensor(atoms, device: torch.device) -> torch.Tensor:
-    """``screen_program(atoms)`` on ``device``, made once per statement
-    shape and device."""
-    return torch.from_numpy(screen_program(atoms).copy()).to(device)
+    """The bytes of the records of ``screen_program(atoms)`` past the
+    ones a launch passes by value, on ``device`` (made once per
+    statement shape and device)."""
+    more = screen_program(atoms).records[_PARAM_RECS:]
+    return torch.from_numpy(np.frombuffer(more.tobytes(), np.uint8).copy()).to(device)
 
 
 # ---------------------------------------------------------------------------
@@ -458,27 +543,37 @@ def _program_tensor(atoms, device: torch.device) -> torch.Tensor:
 LAUNCH_NAMES = ("select_screen", "select_positions", "select_spans[row]",
                 "select_spans[back]", "select_gather")  # in kernels.LAUNCHES
 
+# K8's and K11's calls, one packed struct each (struct ScreenCall and
+# GatherCall in select.cu)
+_SCREEN_CALL = struct.Struct("<7Qq3Q8i")
+_GATHER_CALL = struct.Struct("<4Qq4i")
+
 
 def _constants() -> dict:
     """The values select.cu must export (mts_constants)."""
     return {
         "screen_threads": (_SCREEN_THREADS,),
-        "max_shift": (_MAX_PROGRAM_SHIFT,), "rec_ints": (_REC_INTS,),
+        "max_shift": (_MAX_PROGRAM_SHIFT,), "param_recs": (_PARAM_RECS,),
+        "rec_bytes": (_REC.itemsize,),
         "max_lex": (MAX_LEX,), "pop_words": (POP_WORDS,),
-        "kinds": tuple(_KIND[k] for k in
-                       ("end", "len", "deep", "byte0", "nd", "lex")),
+        "ops": tuple(_OP[k] for k in ("terms", "range", "nd", "lex")),
+        "last": (_LAST,), "flag": (_FLAG,),
         "modes": tuple(_MODE[m] for m in ("lt", "le", "eq", "ge", "gt")),
+        "screen_call_bytes": (_SCREEN_CALL.size,),
+        "gather_call_bytes": (_GATHER_CALL.size,),
     }
 
 
 def bind(lib) -> None:
     """Declare select.cu's entries on the loaded kernel library and
-    refuse it if its exported constants differ from this module's."""
+    refuse it if its exported constants differ from this module's.  K8
+    and K11 take one packed struct (_SCREEN_CALL, _GATHER_CALL): ctypes
+    converts one argument, not 8-14."""
     P, I, L = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
-    lib.mts_screen.argtypes = [I, P, L, P, I, I, I, I, I, I, P, P, P, P]
+    lib.mts_screen.argtypes = [ctypes.c_char_p]
     lib.mts_positions.argtypes = [I, P, P, I, I, P, P]
     lib.mts_spans.argtypes = [I, P, L, P, I, I, I, P, P, P]
-    lib.mts_gather.argtypes = [I, P, L, P, I, I, P, P]
+    lib.mts_gather.argtypes = [ctypes.c_char_p]
     for fn in (lib.mts_screen, lib.mts_positions, lib.mts_spans,
                lib.mts_gather):
         fn.restype = ctypes.c_int
@@ -521,21 +616,22 @@ def screen_chunk(arr: torch.Tensor, *, fd: int, qc: int, atoms, anchor: str,
                          f"positive multiple of {POP_WORDS * 8}")
     if arr.data_ptr() % 8:
         raise ValueError("screen_chunk: expected an 8-byte aligned plane")
-    prog = _program_tensor(atoms, arr.device)
-    qmax = _max_shift(atoms, sci_guard) // 8 + 1
-    nw = n // 8
+    prog = screen_program(atoms)
     dev = arr.device
+    more = _program_tensor(atoms, dev) if prog.nrec > _PARAM_RECS else None
+    nw = n // 8
     cand = torch.empty(nw, dtype=torch.int64, device=dev)
     blk = torch.empty(nw // POP_WORDS, dtype=torch.int32, device=dev)
-    scal = torch.empty(2, dtype=torch.int32, device=dev)
-    rc = kernels._load().mts_screen(
-        dev.index, arr.data_ptr(), nw, prog.data_ptr(), prog.shape[0],
-        fd, qc, int(anchor == "field"), int(sci_guard), qmax,
-        cand.data_ptr(), blk.data_ptr(), scal.data_ptr(), kernels._stream(arr),
-    )
+    scal = torch.empty(2, dtype=torch.int32, device=dev)  # nrows, hazard
+    rc = (kernels._lib or kernels._load()).mts_screen(_SCREEN_CALL.pack(
+        arr.data_ptr(), cand.data_ptr(), blk.data_ptr(), scal.data_ptr(),
+        0 if more is None else more.data_ptr(), kernels._stream(arr), prog.addr,
+        nw, prog.vmask, prog.tmask, prog.dmask, dev.index, fd, qc,
+        int(anchor == "field"), int(sci_guard), prog.q, prog.nrec, 0))
     kernels._check_rc(rc, "screen_chunk")
     kernels._count("select_screen")
-    return cand, blk, scal[0], scal[1] != 0
+    # the hazard word is 0 or 1: its low byte read as a bool (no launch)
+    return cand, blk, scal[0], scal.view(torch.bool)[4]
 
 
 def extract_positions(cand: torch.Tensor, cum: torch.Tensor, *,
@@ -564,11 +660,30 @@ def extract_positions(cand: torch.Tensor, cum: torch.Tensor, *,
     return out
 
 
+def _require_rows(name: str, arr: torch.Tensor, idx: torch.Tensor) -> int:
+    """A contiguous 1-d uint8 plane and 1-d int32 indices on one card,
+    checked in one pass (K10 and K11, whose calls are mostly host time);
+    the card's index."""
+    if not (arr.is_cuda and idx.is_cuda):
+        raise ValueError(f"{name}: expected CUDA tensors, got {arr.device} "
+                         f"and {idx.device}")
+    if arr.dtype != torch.uint8 or idx.dtype != torch.int32:
+        raise TypeError(f"{name}: expected uint8 and int32, got {arr.dtype} "
+                        f"and {idx.dtype}")
+    if arr.dim() != 1 or idx.dim() != 1:
+        raise ValueError(f"{name}: expected 1 dim each, got {tuple(arr.shape)} "
+                         f"and {tuple(idx.shape)}")
+    if not (arr.is_contiguous() and idx.is_contiguous()):
+        raise ValueError(f"{name}: expected contiguous tensors")
+    dev = arr.get_device()
+    if idx.get_device() != dev:
+        raise ValueError(f"{name}: tensors on different devices")
+    return dev
+
+
 def _spans(arr, anchors, window: int, back: bool):
     name = "anchors_back" if back else "row_spans"
-    kernels._require_cuda(arr, name, 1, torch.uint8)
-    kernels._require_cuda(anchors, name, 1, torch.int32)
-    _require_same_device(name, arr, anchors)
+    _require_rows(name, arr, anchors)
     if window <= 0 or arr.shape[0] == 0:
         raise ValueError(f"{name}: window {window} over {arr.shape[0]} bytes")
     dev = arr.device
@@ -605,23 +720,22 @@ def anchors_back(arr: torch.Tensor, hits: torch.Tensor, *, window: int):
 def gather_rows(arr: torch.Tensor, starts: torch.Tensor, *,
                 window: int) -> torch.Tensor:
     """(C, window) uint8 rows at ``starts`` (clamped to the plane).  On
-    the card one K11 launch; ``window`` a multiple of 4."""
-    if arr.device.type == "cpu":
+    the card one K11 launch from one packed struct; ``window`` a
+    multiple of 4.  The call is mostly host time at the path's shape,
+    so it checks both tensors in one pass and makes one allocation."""
+    if not arr.is_cuda and arr.device.type == "cpu":
         return gather_rows_plain(arr, starts, window=window)
-    kernels._require_cuda(arr, "gather_rows", 1, torch.uint8)
-    kernels._require_cuda(starts, "gather_rows", 1, torch.int32)
-    _require_same_device("gather_rows", arr, starts)
-    if window <= 0 or window % 4 or arr.shape[0] == 0:
-        raise ValueError(f"gather_rows: window {window} over "
-                         f"{arr.shape[0]} bytes")
-    dev = arr.device
-    C = starts.shape[0]
-    out = torch.empty((C, window), dtype=torch.uint8, device=dev)
+    dev = _require_rows("gather_rows", arr, starts)
+    n = arr.numel()
+    if window <= 0 or window % 4 or n == 0:
+        raise ValueError(f"gather_rows: window {window} over {n} bytes")
+    C = starts.numel()
+    out = arr.new_empty((C, window))
     if C == 0:
         return out
-    rc = kernels._load().mts_gather(dev.index, arr.data_ptr(), arr.shape[0],
-                            starts.data_ptr(), C, window, out.data_ptr(),
-                            kernels._stream(arr))
+    rc = (kernels._lib or kernels._load()).mts_gather(_GATHER_CALL.pack(
+        arr.data_ptr(), starts.data_ptr(), out.data_ptr(),
+        torch._C._cuda_getCurrentRawStream(dev), n, C, window, dev, 0))
     kernels._check_rc(rc, "gather_rows")
     kernels._count("select_gather")
     return out

@@ -314,18 +314,28 @@ def test_non_ascii_literal_screens_where_the_reference_does():
 
 
 def test_screen_program_records():
+    """K8's program of NUMERIC_LT: one 16-byte record per atom, each the
+    last of its one-atom branch, over the offsets the reference reads."""
     prog = tss.screen_program(NUMERIC_LT)
-    kinds = prog[:, 0].tolist()
-    # four one-atom branches, each closed by an end record
-    assert kinds == [1, 0, 4, 0, 3, 0, 5, 0]
-    lex = prog[6]
-    assert lex[3] == tss._MODE["lt"] and lex[4] == 4 and lex[5] == 0
-    assert int(np.uint32(lex[6])) == int.from_bytes(b"1000", "little")
-    long = tss.screen_program(((("lex", b"abcdefghijk", "ge"),),))[0]
-    assert long[4] == tss.MAX_LEX and long[5] == 1
-    word = int(np.uint32(long[6])) | (int(np.uint32(long[7])) << 32)
-    assert word.to_bytes(8, "little") == b"abcdefgh"
-    assert len(tss.screen_program(IN_LIST)) == 2 * len(IN_LIST)
+    last = tss._LAST
+    assert prog.records["op"].tolist() == [
+        tss._OP["terms"] | last, tss._OP["nd"] | last, tss._OP["range"] | last,
+        tss._OP["lex"] | last]
+    # len 0-4: a terminator at offset 1-5; nd 6: offsets 1-6
+    assert prog.records["m"][:2].tolist() == [0b111110, 0b1111110]
+    assert prog.records["arg"][2] == (0x80 - 43) | (0x80 - 49) << 8  # byte0 43-48
+    lex = prog.records[3]
+    assert lex["arg"] & 0xFF == tss._MODE["lt"] and lex["arg"] >> 8 == 4
+    assert int(lex["m"]).to_bytes(8, "little") == b"1000\0\0\0\0"
+    assert (prog.q, prog.vmask, prog.tmask, prog.dmask) == (
+        1, 0b1111110, 0b1111110, 0b1111110)
+    long = tss.screen_program(((("lex", b"abcdefghijk", "ge"),),))
+    rec = long.records[0]
+    assert rec["arg"] >> 8 == tss.MAX_LEX and rec["op"] & tss._FLAG
+    assert int(rec["m"]).to_bytes(8, "little") == b"abcdefgh"
+    assert long.q == 2 and long.tmask == sum(1 << k for k in range(1, 10))
+    # 16 lex branches, one byte0 branch for all 16, one nd per width
+    assert tss.screen_program(IN_LIST).nrec == 16 + 1 + 3
 
 
 def test_popcount_and_shift_on_int64():
@@ -374,7 +384,10 @@ def card():
 
 @pytest.mark.parametrize("name", list(SCREENS))
 def test_kernels_match_plain_versions_on_the_card(card, name):
-    arr = torch.from_numpy(_plane(_csvish(12, 200_000)).copy()).to(card)
+    # a ``,`` at byte 3 of a word and ``-`` = ``,`` ^ 1 at byte 4: the
+    # borrow of _swar_eq crosses the word's 32-bit halves there
+    borrow = b"xyz,-a,b\n,-1,22\n" * 64
+    arr = torch.from_numpy(_plane(_csvish(12, 200_000) + borrow).copy()).to(card)
     for anchor in ("row", "field"):
         got = tss.screen_chunk(arr, fd=FD, qc=QC, atoms=SCREENS[name],
                                anchor=anchor, sci_guard=True)
@@ -394,3 +407,10 @@ def test_kernels_match_plain_versions_on_the_card(card, name):
                                                          plain(arr, pos, window=w)))
         assert torch.equal(tss.gather_rows(arr, pos, window=64),
                            tss.gather_rows_plain(arr, pos, window=64))
+    # K11 at both clamped ends: rows before the plane and past its end
+    n = arr.numel()
+    ends = torch.tensor([-300, -64, -1, 0, n - 300, n - 64, n - 1, n, n + 5],
+                        dtype=torch.int32, device=card)
+    for window in (64, 256, 4096):
+        assert torch.equal(tss.gather_rows(arr, ends, window=window),
+                           tss.gather_rows_plain(arr, ends, window=window))
