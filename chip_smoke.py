@@ -2,15 +2,15 @@
 """Smoke run of the PyTorch/CUDA port (minio_tpu_torch) on one NVIDIA GPU.
 
     python3 chip_smoke.py            # from the repository root
-    python3 chip_smoke.py --parent DIR   # and K1-K6, K8, K11 beside an older copy
+    python3 chip_smoke.py --parent DIR   # and K1-K6, K8-K11 beside an older copy
 
 1. Builds the CUDA kernels from ``minio_tpu_torch/csrc`` with nvcc into
    one library (and ``--parent``'s copy into its own), one ``nvcc -c``
    per source (codec.cu, select.cu, the copy's codec.cu) all at once,
    prints each library's and each source's build seconds and each
    kernel's registers and spills and the static SASS of K1, K4 and K5
-   (EC 8+4, swar and mxu), K2, K3, K6, K8 (each lookahead) and K11
-   (``sass_loops``).
+   (EC 8+4, swar and mxu), K2, K3, K6, K8 (each lookahead), K9, K10
+   (both forms) and K11 (``sass_loops``).
 2. Holds each kernel bit-exactly against its plain PyTorch version on the
    card, at the main path's shapes (EC 8+4, 10 MiB blocks: 327,680 words
    per shard) and at ragged ones, and times kernel, plain version and the
@@ -45,7 +45,9 @@
    passes by value), of every atom kind (both anchors, sci guard on and
    off) and of one program for each lookahead of 1-6 words, on a hazard
    chunk and on the SWAR-borrow planes (the borrow within a word's half
-   and from lane 3 into lane 4); K9 at every program's candidates; K10
+   and from lane 3 into lane 4); K9 at every program's candidates (the
+   whole output, ranks past the count included), beside
+   ``torch.nonzero`` of the candidate bytes; K10
    at the three row windows and backwards, also over rows 10-6,000 bytes
    wide; K11 at 4-4,096-byte windows, at every start alignment and plane
    offset, clamped at both ends of the plane (``check_select_kernels``).  Beside each kernel's
@@ -55,9 +57,9 @@
    fixed chain).  With ``--parent``, K1-K6 of both
    copies at the main path's shapes in turns parent, new, new, parent
    (``compare_copies``), then K8 under Q1, Q2, the IN list's field
-   screen and two long lookaheads on the lineitem chunk and K11 at Q1's
-   gather and at one row,
-   in the same turns (``compare_select_copies``), the card's name and
+   screen and two long lookaheads on the lineitem chunk, K9 at Q1's and
+   Q2's candidates, K10 at Q1's anchors and backwards at Q2's hits, and
+   K11 at Q1's gather and at one row, in the same turns (``compare_select_copies``), the card's name and
    power limit printed before them.
 3. Drives the main path through the object layer under the default
    MINIO_TPU_CODEC_OVERLAP (unset: ``pipeline`` on the card): 12 temp-dir
@@ -3224,7 +3226,7 @@ def check_select_kernels(dev, rng) -> dict:
     path's shape beside its bound and its plain version (K8 under Q1, Q2
     and the IN list's field screen; K11 also at one row, the launch's
     fixed chain); K9 and K11 also beside the PyTorch calls that compute
-    the same function."""
+    the same function (K9: ``torch.nonzero`` of the candidate bytes)."""
     import numpy as np
     import torch
 
@@ -3335,13 +3337,14 @@ def check_select_kernels(dev, rng) -> dict:
             continue
         cum = torch.cumsum(blk, 0, dtype=torch.int32)
         cap = 1 << max(6, (count - 1).bit_length())
-        got = ss.extract_positions(cand, cum, cap=cap)[:count]
-        want = ss.extract_positions_plain(cand, cum, cap=cap)[:count]
+        # the whole output: the ranks past the count go on to K10 [back]
+        got = ss.extract_positions(cand, cum, cap=cap)
+        want = ss.extract_positions_plain(cand, cum, cap=cap)
         e = same((got,), (want,))
         if e:
             fail(f"select_positions differs from its plain version under {label}")
         err = max(err, e)
-        pos[label] = got
+        pos[label] = got[:count]
     if "Q1" not in pos or "Q2" not in pos:
         fail("select_positions: Q1 or Q2 has no candidates")
     cand, blk = outs["Q1"][0], outs["Q1"][1]
@@ -3351,10 +3354,22 @@ def check_select_kernels(dev, rng) -> dict:
     nblk = cum.numel()
     steps = max(1, nblk.bit_length())
     bms, by = bound(_positions_bytes(cum, cap), cap * (4 * steps + 8 * 6 + 6 * 11))
+
+    # the one PyTorch call that computes the same positions: every
+    # candidate byte is 0x80 (_HI's lanes), so its nonzero bytes are the
+    # positions in rank order (the call syncs: it sizes its output)
+    def nonzero():
+        return torch.nonzero(cand.view(torch.uint8)).flatten()[:count]
+
+    flagged = cand.view(torch.uint8)
+    if not bool(((flagged == 0) | (flagged == 0x80)).all().item()):
+        fail("select_positions: a candidate byte other than 0x80")
+    if not torch.equal(nonzero().to(torch.int32), pos["Q1"]):
+        fail("select_positions: torch.nonzero's positions differ from K9's")
     res["select_positions"] = dict(
         max_abs_err=err, ms=cuda_ms(lambda: ss.extract_positions(cand, cum, cap=cap), 20),
         plain_ms=cuda_ms(lambda: ss.extract_positions_plain(cand, cum, cap=cap), 3, 1),
-        library_ms=cuda_ms(lambda: ss.extract_positions_plain(cand, cum, cap=cap), 20),
+        library_ms=cuda_ms(nonzero, 20),
         bound_ms=bms, bound_by=by, shape=[cap, nblk], program="Q1",
         **device_times(lambda: ss.extract_positions(cand, cum, cap=cap)))
 
@@ -3745,16 +3760,17 @@ _MMA_OPS = ("BMMA", "IMMA", "HMMA")  # the tensor-core instructions
 # the instantiations sass_loops reads: K2, K6, K1 and K5 at EC 8+4 (swar
 # and mxu), K3, and K4 at EC 8+4: swar and mxu at heal's pattern (<8,8,swar>,
 # <8,4,mxu>) and with every row present (<16,8,swar>, <16,4,mxu>), K8 at
-# each lookahead (screen_kernel<Q>; an older copy's is one screen_kernel)
-# and K11.  An older copy's K4 is verify_reconstruct_kernel<16,8> (swar)
-# and verify_reconstruct_mxu_kernel<PB,RB>.
+# each lookahead (screen_kernel<Q>; an older copy's is one screen_kernel),
+# K9, both K10 forms (spans_kernel<row>, <back>) and K11.  An older copy's
+# K4 is verify_reconstruct_kernel<16,8> (swar) and
+# verify_reconstruct_mxu_kernel<PB,RB>.
 SASS_KERNELS = ("phash_kernel", "verify_reconstruct_pipelined",
                 "encode_kernel<8,4,", "encode_mxu_kernel<8,4", "gf_matmul_kernel",
                 "encode_pipelined_kernel<8,4,", "encode_pipelined_mxu_kernel<8,4,",
                 "verify_reconstruct_kernel<16,8", "verify_reconstruct_kernel<8,8,swar>",
                 "verify_reconstruct_kernel<8,4,mxu>", "verify_reconstruct_kernel<16,4,mxu>",
                 "verify_reconstruct_mxu_kernel<8,4>", "verify_reconstruct_mxu_kernel<16,4>",
-                "screen_kernel", "gather_kernel")
+                "screen_kernel", "positions_kernel", "spans_kernel", "gather_kernel")
 
 
 def sass_loops(lib, kernels_mod) -> dict:
@@ -3951,15 +3967,16 @@ def compare_copies(dev, mods: dict, order: list) -> list:
 
 
 def compare_select_copies(dev, mods: dict, order: list) -> list:
-    """K8 and K11 of several copies of the port (``mods``: name -> kernels
+    """K8-K11 of several copies of the port (``mods``: name -> kernels
     module; each copy's ``ops.select_step``) in turns (``order``), at the
     select path's shapes: K8 on the 32 MiB lineitem chunk under Q1, Q2,
     the IN list's field screen and the programs of lookahead 3 and 6
-    (``select_programs``; the latter two past the register memo), K11 at
-    Q1's gather
-    (the chunk's Q1 rows, 256-byte windows) and at one row (the fixed
-    chain).  Every result is first held bit for bit against the plain
-    version; then cuda_ms and device_times of each."""
+    (``select_programs``; the latter two past the register memo); K9 at
+    Q1's cap (the whole output) and Q2's; K10 ``[row]`` at Q1's anchors
+    (256-byte windows) and ``[back]`` at Q2's hits (1,024); K11 at Q1's
+    gather (the chunk's Q1 rows, 256-byte windows) and at one row (the
+    fixed chain).  Every result is first held bit for bit against the
+    plain version; then cuda_ms and device_times of each."""
     import importlib
 
     import numpy as np
@@ -3973,14 +3990,21 @@ def compare_select_copies(dev, mods: dict, order: list) -> list:
     data = lineitem_csv(SEED + 14, sdev.DEV_CHUNK)
     plane = sdev.host_plane(data, dev)
     fd, qc = ord("|"), ord('"')
-    # Q1's rows, from the plain versions: the starts K11 gathers
-    cand, blk, _n, _h = ss.screen_chunk_plain(
-        plane, fd=fd, qc=qc, atoms=progs["Q1"].atoms, anchor="row", sci_guard=True)
-    cum = torch.cumsum(blk, 0, dtype=torch.int32)
-    count = int(cum[-1].item())
-    pos = ss.extract_positions_plain(cand, cum, cap=1 << (count - 1).bit_length())
-    starts = torch.cat([torch.zeros(1, dtype=torch.int32, device=dev),
-                        pos[:count] + 1])
+    # Q1's and Q2's candidates and positions, from the plain versions: K9's
+    # inputs, the anchors and hits K10 scans from and the starts K11 gathers
+    cands = {}
+    for q in ("Q1", "Q2"):
+        scr = progs[q]
+        cand, blk, _n, _h = ss.screen_chunk_plain(
+            plane, fd=fd, qc=qc, atoms=scr.atoms, anchor=scr.anchor,
+            sci_guard=scr.sci_guard)
+        cum = torch.cumsum(blk, 0, dtype=torch.int32)
+        count = int(cum[-1].item())
+        cap = 1 << max(6, (count - 1).bit_length())
+        cands[q] = (cand, cum, cap, ss.extract_positions_plain(cand, cum, cap=cap)[:count])
+    pos, hits = cands["Q1"][3], cands["Q2"][3]
+    anchors = torch.cat([torch.full((1,), -1, dtype=torch.int32, device=dev), pos])
+    starts = anchors + 1
     one = starts[:1].clone()
     rows = []
     for turn, name in enumerate(order):
@@ -3995,6 +4019,18 @@ def compare_select_copies(dev, mods: dict, order: list) -> list:
                 lambda scr=scr: ss.screen_chunk_plain(
                     plane, fd=fd, qc=qc, atoms=scr.atoms, anchor=scr.anchor,
                     sci_guard=scr.sci_guard))
+        for q, (cand, cum, cap, _p) in cands.items():
+            cases[f"K9 {q} ({cap}, {cum.numel()})"] = (
+                lambda sel=sel, cand=cand, cum=cum, cap=cap: (
+                    sel.extract_positions(cand, cum, cap=cap),),
+                lambda cand=cand, cum=cum, cap=cap: (
+                    ss.extract_positions_plain(cand, cum, cap=cap),))
+        cases[f"K10 row Q1 ({anchors.numel()}, 256)"] = (
+            lambda sel=sel: sel.row_spans(plane, anchors, window=256),
+            lambda: ss.row_spans_plain(plane, anchors, window=256))
+        cases[f"K10 back Q2 ({hits.numel()}, {sdev._BACK_WINDOW})"] = (
+            lambda sel=sel: sel.anchors_back(plane, hits, window=sdev._BACK_WINDOW),
+            lambda: ss.anchors_back_plain(plane, hits, window=sdev._BACK_WINDOW))
         for label, st in ((f"K11 Q1 ({starts.numel()}, 256)", starts),
                           ("K11 one row (1, 256)", one)):
             cases[label] = (
@@ -4034,7 +4070,7 @@ def main() -> int:
     ap.add_argument(
         "--parent", metavar="DIR",
         help="another copy of the port (DIR/__init__.py, DIR/ops, DIR/csrc): "
-             "build it too and time its K1-K6, K8 and K11 beside this "
+             "build it too and time its K1-K6 and K8-K11 beside this "
              "checkout's, in turns parent, new, new, parent")
     args = ap.parse_args()
     if not torch.cuda.is_available():

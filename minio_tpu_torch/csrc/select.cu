@@ -35,15 +35,43 @@
 //   kParamRecs (an IN list of some hundred values) come from a device
 //   buffer.
 // * positions_kernel (K9 select_positions) replaces
-//   select_step.extract_positions (:323): one thread per rank, a binary
-//   search over the block cumsum (searchsorted, side right, clamped to the
-//   last block), the word inside the 8-word block by running popcounts,
-//   then the in-word select by halving popcounts.
+//   select_step.extract_positions (:323): the byte positions of ranks
+//   0..cap-1, ranks past the count included (the reference's clamp to the
+//   last block).  Bound: bytes, a few KB at the path's shape, so a call is
+//   its chain of dependent loads behind its launch, and the slowest block
+//   sets it.  A binary search of the whole cumsum per rank is 19 dependent
+//   loads over a 32 MiB chunk's 524,288 blocks; a block's 128 ranks are
+//   consecutive, so they fall in one run of blocks and share its search
+//   instead: warp 0 finds its first block and warp 1 the block of its last
+//   rank below the count, each by a search of 128 probes a round summed
+//   across the warp (3 rounds); the block stages that run of the cumsum in
+//   shared memory (kPosRun entries, as 16-byte loads issued before any
+//   store), and each rank finds its block there by a binary search, then
+//   reads the block's 8 words as 4 16-byte loads, its word by running
+//   popcounts and its bit by halving popcounts.  The last rank below the
+//   count takes warp 1's block (under a row screen a chunk's last newline is
+//   a candidate far from the others); a rank past the staged run (candidates
+//   spread thinly) searches the rest of the run in memory; a rank past the
+//   count takes the last block, as searchsorted's clamp does.  Measured on
+//   the H100 against other shapes of the same idea: a 256-rank block,
+//   4,096-8,192 staged entries, scalar staging, and a coarse index of 1,024
+//   probes with a scatter of the ranks into shared slots were all slower.
+//   The entry takes one packed struct.
 // * spans_kernel<BACK> (K10 select_spans) replaces select_step.row_spans
-//   (:358, BACK = false) and anchors_back (:371, BACK = true): one warp per
-//   anchor, each lane looking at 8 consecutive offsets of a 256-offset
-//   pass, the nearest newline by a ballot; rows are ~100-200 bytes, so the
-//   first pass finds it and the warp stops.
+//   (:358, BACK = false) and anchors_back (:371, BACK = true).  Bound:
+//   bytes, the bytes up to each newline.  A group of lanes takes an anchor
+//   and reads aligned 16-byte chunks, numbered on the absolute address so
+//   any plane base and any anchor take them, 128 bytes a step (a lineitem
+//   row is about 125 bytes): 8 lanes of one chunk forward, 4 lanes of two
+//   chunks backward, where 38,725 hits of Q2 against 10,238 anchors of Q1
+//   make fewer threads the faster shape (SpanShape).  A chunk's newline
+//   bytes are an exact SWAR zero test of x ^ 0x0A0A0A0A per 32-bit word (no
+//   borrow between lanes, so the last match is exact too), gathered into 16
+//   bits and masked to the window's bytes inside the plane; one ballot of
+//   the group a step, the first chunk's lowest bit forward and its highest
+//   backward.  The clamp repeats a plane end's byte outside the plane: that
+//   is one byte read, a newline there found at offset 0, and no other byte
+//   path.  The entry takes one packed struct.
 // * gather_kernel (K11 select_gather) replaces select_step.gather_rows
 //   (:387): the (C, window) byte gather.  Bound: bytes (the starts read,
 //   the rows read and written once); at the path's shape (~10,000 rows of
@@ -86,8 +114,20 @@ constexpr unsigned kFlag = 32;  // deep's inversion, byte0's lo == 0, lex's len 
 // lex modes (select_step._MODE)
 constexpr unsigned kLt = 0, kLe = 1, kEq = 2, kGe = 3, kGt = 4;
 
-constexpr int kPosThreads = 256;
-constexpr int kSpanWarps = 8;          // anchors per spans block
+constexpr int kPosThreads = 128;       // ranks a positions block
+constexpr int kPosProbes = 4;          // search probes a lane: 128 a round
+constexpr int kPosRun = 2048;          // cumsum entries a positions block stages
+// lanes an anchor and 16-byte chunks a lane a step, forward and backward:
+// 8 x 1 and 4 x 2, 128 bytes a step either way
+template <bool BACK>
+struct SpanShape {
+  static constexpr int lanes = 8, chunks = 1;
+};
+template <>
+struct SpanShape<true> {
+  static constexpr int lanes = 4, chunks = 2;
+};
+constexpr int kSpanThreads = 256;
 constexpr int kGatherThreads = 256;
 
 struct Rec {
@@ -417,41 +457,172 @@ screen_kernel(const ScreenArgs a) {
   }
 }
 
-__global__ void __launch_bounds__(kPosThreads)
-positions_kernel(const u64* __restrict__ cand, const int* __restrict__ cum,
-                 int nblk, int cap, int* __restrict__ out) {
-  const int k = blockIdx.x * kPosThreads + threadIdx.x;
-  if (k >= cap) return;
-  // searchsorted(cum, k, side="right"): the first block whose inclusive
-  // count exceeds k, clamped to the last block
-  int lo = 0, hi = nblk;
+// K9's launch parameters, by value
+struct PositionsArgs {
+  const u64* cand;
+  const int* cum;  // 16-byte aligned
+  int* out;
+  int nblk, cap;
+};
+
+// searchsorted(cum[0:n], key(), side="right") by one warp: the first
+// index whose count exceeds the key, or n.  A round places kPosProbes
+// probes a lane, 128 in all; the probes at or below the key are a prefix
+// (the counts rise), so their warp sum is the first probe above it, and
+// the range shrinks 128-fold: 3 dependent rounds over 524,288 blocks.
+// The first round's probes do not depend on the key, so key(), which may
+// load, is issued beside them.
+template <class Key>
+__device__ __forceinline__ int warp_upper_bound(const int* __restrict__ cum, int n, Key key,
+                                                int lane) {
+  constexpr int R = 32 * kPosProbes;
+  int lo = 0, hi = n;  // the answer lies in [lo, hi]
+  int step = (n + R - 1) / R;
+  int v[kPosProbes];
+  auto place = [&] {
+#pragma unroll
+    for (int q = 0; q < kPosProbes; ++q) {
+      const int p = lo + (lane * kPosProbes + q + 1) * step - 1;
+      v[q] = p < hi ? __ldg(cum + p) : 0x7fffffff;  // past hi: above every key
+    }
+  };
+  place();
+  const int k = key();
   while (lo < hi) {
-    const int mid = (lo + hi) >> 1;
-    if (cum[mid] <= k) lo = mid + 1;
-    else hi = mid;
+    int f = 0;
+#pragma unroll
+    for (int q = 0; q < kPosProbes; ++q) f += v[q] <= k;
+    f = __reduce_add_sync(0xffffffffu, f);  // the first probe above the key
+    if (f == R) {  // every probe within the count, the last at hi - 1
+      lo = hi;
+      break;
+    }
+    hi = min(lo + (f + 1) * step - 1, hi);
+    lo += f * step;
+    step = (hi - lo + R - 1) / R;
+    if (lo < hi) place();
   }
-  const int b = min(lo, nblk - 1);
-  const int base = b > 0 ? cum[b - 1] : 0;
+  return lo;
+}
+
+__global__ void __launch_bounds__(kPosThreads)
+positions_kernel(const PositionsArgs a) {
+  // run[off + j] = cum[b0 - 1 + j], j = 0 .. sl: the count before the
+  // block's first block, then its run, from a 16-byte aligned start
+  __shared__ __align__(16) int run[kPosRun + 4];
+  __shared__ int span[3];  // b0, b1, the count
+  const int t = threadIdx.x, lane = t & 31;
+  const int nblk = a.nblk;
+  const int k0 = blockIdx.x * kPosThreads;
+  const int kl = min(k0 + kPosThreads, a.cap) - 1;  // the block's last rank
+  if (t < 32) {
+    const int b0 = warp_upper_bound(a.cum, nblk, [&] { return k0; }, lane);
+    if (lane == 0) span[0] = b0;
+  } else if (t < 64) {
+    // the block of its last rank below the count
+    int total = 0;
+    const int b1 = warp_upper_bound(a.cum, nblk, [&] {
+      total = __ldg(a.cum + nblk - 1);
+      return min(kl, total - 1);
+    }, lane);
+    if (lane == 0) {
+      span[1] = min(b1, nblk - 1);
+      span[2] = total;
+    }
+  }
+  __syncthreads();
+  const int b0 = span[0], b1 = span[1], total = span[2];
+  const int key1 = min(kl, total - 1);
+  // the run of its ranks below the count, kPosRun blocks at most, as
+  // 16-byte loads (all issued before any store: one round)
+  const int sl = min(b1 - b0 + 1, kPosRun);  // <= 0: no rank below the count
+  const int st = (b0 - 1) & ~3, off = b0 - 1 - st;
+  constexpr int kLoads = (kPosRun + 8 + 4 * kPosThreads - 1) / (4 * kPosThreads);
+  int4 v[kLoads];
+#pragma unroll
+  for (int i = 0; i < kLoads; ++i) {
+    const int x = st + 4 * (t + i * kPosThreads);  // its first block
+    v[i] = make_int4(0, 0, 0, 0);
+    if (x - st <= sl + off) {
+      if (x >= 0 && x + 3 < nblk) {
+        v[i] = __ldg(reinterpret_cast<const int4*>(a.cum + x));
+      } else {  // the plane's ends: cum[-1] is 0
+        if (x >= 0 && x < nblk) v[i].x = __ldg(a.cum + x);
+        if (x + 1 >= 0 && x + 1 < nblk) v[i].y = __ldg(a.cum + x + 1);
+        if (x + 2 >= 0 && x + 2 < nblk) v[i].z = __ldg(a.cum + x + 2);
+      }
+    }
+  }
+#pragma unroll
+  for (int i = 0; i < kLoads; ++i)
+    if (4 * (t + i * kPosThreads) <= sl + off) reinterpret_cast<int4*>(run)[t + i * kPosThreads] = v[i];
+  __syncthreads();
+  const int k = k0 + t;
+  if (k >= a.cap) return;
+  int b, base;
+  if (k >= total) {
+    // past the count: searchsorted's nblk, clamped to the last block
+    b = nblk - 1;
+    base = b > 0 ? __ldg(a.cum + b - 1) : 0;
+  } else if (k == key1) {
+    // the last rank below the count: warp 1 found its block (it may lie
+    // far from the others: a chunk's last newline)
+    b = b1;
+    base = b > 0 ? __ldg(a.cum + b - 1) : 0;
+  } else if (run[off + sl] > k) {
+    // the first staged block whose count exceeds k
+    int lo = 1, hi = sl;
+    while (lo < hi) {
+      const int mid = (lo + hi) >> 1;
+      if (run[off + mid] <= k) lo = mid + 1;
+      else hi = mid;
+    }
+    b = b0 + lo - 1;
+    base = run[off + lo - 1];
+  } else {
+    // past the staged run (candidates spread thinly): the rest of the run
+    // in memory
+    int lo = b0 + sl, hi = b1;
+    while (lo < hi) {
+      const int mid = (lo + hi) >> 1;
+      if (__ldg(a.cum + mid) <= k) lo = mid + 1;
+      else hi = mid;
+    }
+    b = lo;
+    base = b > 0 ? __ldg(a.cum + b - 1) : 0;
+  }
   const int lr = k - base;
+  // the block's 8 words, 16 bytes a load
+  const ulonglong2* q = reinterpret_cast<const ulonglong2*>(a.cand) + (long long)b * (kPopWords / 2);
+  u64 w[kPopWords];
+#pragma unroll
+  for (int j = 0; j < kPopWords / 2; ++j) {
+    const ulonglong2 x = __ldg(q + j);
+    w[2 * j] = x.x;
+    w[2 * j + 1] = x.y;
+  }
   // the word holding rank lr (argmax of the in-word test: the first
   // such word, else word 0)
   int wsel = 0, psel = 0, pref = 0;
   bool found = false;
-  u64 word = cand[(long long)b * kPopWords];
+  u64 word = w[0];
+#pragma unroll
   for (int j = 0; j < kPopWords; ++j) {
-    const u64 w = cand[(long long)b * kPopWords + j];
-    const int pc = __popcll(w);
+    const int pc = __popcll(w[j]);
     if (!found && pref <= lr && lr < pref + pc) {
       found = true;
       wsel = j;
       psel = pref;
-      word = w;
+      word = w[j];
     }
     pref += pc;
   }
+  // the in-word select by halving popcounts (a rank past the count keeps
+  // the reference's walk)
   const int need0 = lr - psel + 1;
   u64 need = u64(need0 > 1 ? need0 : 1);
   int p = 0;
+#pragma unroll
   for (int half = 32; half; half >>= 1) {
     const u64 lowmask = (1ull << half) - 1ull;
     const u64 cnt = u64(__popcll(word & lowmask));
@@ -461,44 +632,92 @@ positions_kernel(const u64* __restrict__ cand, const int* __restrict__ cum,
       p += half;
     }
   }
-  out[k] = ((b * kPopWords + wsel) << 3) + (p >> 3);
+  a.out[k] = ((b * kPopWords + wsel) << 3) + (p >> 3);
+}
+
+// K10's launch parameters, by value
+struct SpansArgs {
+  const uint8_t* arr;
+  const int* anchors;
+  int* out;
+  uint8_t* found;
+  long long n;
+  int count, window;
+};
+
+// bit i set where byte i of the 16 is a newline: per 32-bit word the
+// exact zero-byte test of x ^ 0x0A0A0A0A (no carry between lanes), its
+// four 0x80 flags gathered into four bits by one multiply
+__device__ __forceinline__ unsigned newline_bits(const uint4 c) {
+  const uint32_t x[4] = {c.x, c.y, c.z, c.w};
+  unsigned m = 0;
+#pragma unroll
+  for (int j = 0; j < 4; ++j) {
+    const uint32_t y = x[j] ^ 0x0A0A0A0Au;
+    const uint32_t z = ~(((y & 0x7F7F7F7Fu) + 0x7F7F7F7Fu) | y) & 0x80808080u;
+    m |= ((((z >> 7) * 0x00204081u) >> 21) & 15u) << (4 * j);
+  }
+  return m;
 }
 
 template <bool BACK>
-__global__ void __launch_bounds__(kSpanWarps * 32)
-spans_kernel(const uint8_t* __restrict__ arr, long long n,
-             const int* __restrict__ anchors, int count, int window,
-             int* __restrict__ out, uint8_t* __restrict__ found) {
-  const int lane = threadIdx.x & 31;
-  const long long wid = (long long)blockIdx.x * kSpanWarps + (threadIdx.x >> 5);
-  if (wid >= count) return;  // whole warps leave together
-  const long long a = anchors[wid];
-  for (int pass = 0; pass < window; pass += 256) {
-    int first = -1;
-    for (int j = 0; j < 8; ++j) {
-      const int off = pass + lane * 8 + j;
-      if (off >= window) break;
-      long long g = BACK ? a - off : a + 1 + off;
-      if (BACK && g < 0) break;  // positions before the plane are no newline
-      g = g < 0 ? 0 : (g > n - 1 ? n - 1 : g);
-      if (arr[g] == 10) {
-        first = off;
+__global__ void __launch_bounds__(kSpanThreads)
+spans_kernel(const SpansArgs a) {
+  constexpr int L = SpanShape<BACK>::lanes, C = SpanShape<BACK>::chunks;
+  const int lane = threadIdx.x & (L - 1);
+  const unsigned group = ((1u << L) - 1u) << ((threadIdx.x & 31) & ~(L - 1));
+  const long long i = ((long long)blockIdx.x * kSpanThreads + threadIdx.x) / L;
+  if (i >= a.count) return;  // whole groups leave together
+  const long long n = a.n, h = a.anchors[i];
+  const long long s = BACK ? h : h + 1;  // forward: the row's first byte
+  // the window's positions inside the plane, [glo, ghi]; outside it the
+  // clamp repeats a plane end's byte, first at offset 0
+  const long long glo = BACK ? max(h - (a.window - 1), 0ll) : max(s, 0ll);
+  const long long ghi = BACK ? min(h, n - 1) : min(s + a.window - 1, n - 1);
+  const long long edge = s > n - 1 ? n - 1 : (!BACK && s < 0 ? 0 : -1);
+  const bool at_edge = edge >= 0 && __ldg(a.arr + edge) == 10;
+  long long g = -1;  // the newline found inside the plane
+  if (!at_edge && glo <= ghi) {
+    // aligned 16-byte chunks, numbered on the absolute address and
+    // scanned from the anchor's end of the window, L x C of them a step,
+    // a lane's C consecutive in scan order
+    const long long base = (long long)reinterpret_cast<uintptr_t>(a.arr);
+    const long long c0 = (base + glo) >> 4, c1 = (base + ghi) >> 4;
+    for (long long j = 0; j <= c1 - c0; j += L * C) {
+      unsigned m[C];
+      long long at[C];
+#pragma unroll
+      for (int q = 0; q < C; ++q) {
+        const long long c = BACK ? c1 - j - lane * C - q : c0 + j + lane * C + q;
+        at[q] = (c << 4) - base;  // the plane index of its byte 0
+        m[q] = (BACK ? c >= c0 : c <= c1)
+                   ? newline_bits(__ldg(reinterpret_cast<const uint4*>(c << 4)))
+                   : 0u;
+      }
+      long long mine = -1;  // the lane's first newline in scan order
+#pragma unroll
+      for (int q = C - 1; q >= 0; --q) {
+        const long long lo = min(max(glo - at[q], 0ll), 16ll);
+        const long long hi = min(max(ghi - at[q] + 1, 0ll), 16ll);
+        const unsigned mq = m[q] & ((1u << hi) - 1u) & ~((1u << lo) - 1u);
+        if (mq) mine = at[q] + (BACK ? 31 - __clz(mq) : __ffs(mq) - 1);
+      }
+      const unsigned got = __ballot_sync(group, mine >= 0);
+      if (got) {
+        // the lowest lane holds the first chunks in scan order
+        g = __shfl_sync(group, mine, __ffs(got) - 1);
         break;
       }
     }
-    const unsigned got = __ballot_sync(0xffffffffu, first >= 0);
-    if (got) {
-      const int off = __shfl_sync(0xffffffffu, first, __ffs(got) - 1);
-      if (lane == 0) {
-        out[wid] = BACK ? int(a - off) : off;
-        found[wid] = 1;
-      }
-      return;
-    }
   }
   if (lane == 0) {
-    out[wid] = BACK ? -1 : 0;
-    found[wid] = BACK ? uint8_t(a - (window - 1) <= 0) : 0;
+    if (BACK) {
+      a.out[i] = int(at_edge ? h : g);
+      a.found[i] = at_edge || g >= 0 || h - (a.window - 1) <= 0;
+    } else {
+      a.out[i] = int(at_edge || g < 0 ? 0 : g - s);
+      a.found[i] = at_edge || g >= 0;
+    }
   }
 }
 
@@ -651,27 +870,59 @@ int mts_screen(const ScreenCall* c) {
 }
 
 
-int mts_positions(int device, const void* cand, const int* cum, int nblk, int cap, int* out,
-                  void* stream) {
-  cudaError_t e = cudaSetDevice(device);
+// K9's call, packed by select_step.extract_positions (_POSITIONS_CALL)
+struct PositionsCall {
+  uint64_t cand, cum, out, stream;
+  int nblk, cap, device, pad;
+};
+static_assert(sizeof(PositionsCall) == 48, "select_step._POSITIONS_CALL");
+
+int mts_positions(const PositionsCall* c) {
+  // cand and cum are read 16 bytes a load; a block's last rank stays an int
+  if (c->nblk <= 0 || c->cap <= 0 || c->cap > 0x7fffffff - kPosThreads || !c->cand ||
+      ((c->cand | c->cum) & 15u) || !c->cum || !c->out)
+    return (int)cudaErrorInvalidValue;
+  PositionsArgs a;
+  a.cand = reinterpret_cast<const u64*>(c->cand);
+  a.cum = reinterpret_cast<const int*>(c->cum);
+  a.out = reinterpret_cast<int*>(c->out);
+  a.nblk = c->nblk;
+  a.cap = c->cap;
+  cudaError_t e = use_device(c->device);
   if (e != cudaSuccess) return (int)e;
-  positions_kernel<<<(cap + kPosThreads - 1) / kPosThreads, kPosThreads, 0,
-                     (cudaStream_t)stream>>>((const u64*)cand, cum, nblk, cap, out);
+  positions_kernel<<<(unsigned)((c->cap + kPosThreads - 1) / kPosThreads), kPosThreads, 0,
+                     reinterpret_cast<cudaStream_t>(c->stream)>>>(a);
   return (int)cudaGetLastError();
 }
 
-int mts_spans(int device, const void* arr, long long n, const int* anchors, int count,
-              int window, int back, int* out, void* found, void* stream) {
-  cudaError_t e = cudaSetDevice(device);
+// K10's call, packed by select_step.row_spans / anchors_back (_SPANS_CALL)
+struct SpansCall {
+  uint64_t arr, anchors, out, found, stream;
+  long long n;
+  int count, window, back, device;
+};
+static_assert(sizeof(SpansCall) == 64, "select_step._SPANS_CALL");
+
+int mts_spans(const SpansCall* c) {
+  if (c->count <= 0 || c->window <= 0 || c->n <= 0 || !c->arr || !c->anchors || !c->out ||
+      !c->found)
+    return (int)cudaErrorInvalidValue;
+  SpansArgs a;
+  a.arr = reinterpret_cast<const uint8_t*>(c->arr);
+  a.anchors = reinterpret_cast<const int*>(c->anchors);
+  a.out = reinterpret_cast<int*>(c->out);
+  a.found = reinterpret_cast<uint8_t*>(c->found);
+  a.n = c->n;
+  a.count = c->count;
+  a.window = c->window;
+  cudaError_t e = use_device(c->device);
   if (e != cudaSuccess) return (int)e;
-  const unsigned blocks = (unsigned)((count + kSpanWarps - 1) / kSpanWarps);
-  cudaStream_t st = (cudaStream_t)stream;
-  if (back)
-    spans_kernel<true><<<blocks, kSpanWarps * 32, 0, st>>>(
-        (const uint8_t*)arr, n, anchors, count, window, out, (uint8_t*)found);
-  else
-    spans_kernel<false><<<blocks, kSpanWarps * 32, 0, st>>>(
-        (const uint8_t*)arr, n, anchors, count, window, out, (uint8_t*)found);
+  const int per_block =
+      kSpanThreads / (c->back ? SpanShape<true>::lanes : SpanShape<false>::lanes);
+  const unsigned blocks = (unsigned)(((long long)c->count + per_block - 1) / per_block);
+  cudaStream_t st = reinterpret_cast<cudaStream_t>(c->stream);
+  if (c->back) spans_kernel<true><<<blocks, kSpanThreads, 0, st>>>(a);
+  else spans_kernel<false><<<blocks, kSpanThreads, 0, st>>>(a);
   return (int)cudaGetLastError();
 }
 
@@ -711,14 +962,19 @@ int mts_gather(const GatherCall* c) {
 
 // the constants select_step.py must share, as "name=v[,v...]" words
 const char* mts_constants() {
-  static char buf[256];
+  static char buf[512];
   snprintf(buf, sizeof buf,
            "screen_threads=%d max_shift=%d param_recs=%d rec_bytes=%d max_lex=%d pop_words=%d "
            "ops=%u,%u,%u,%u last=%u flag=%u modes=%u,%u,%u,%u,%u screen_call_bytes=%d "
-           "gather_call_bytes=%d",
+           "gather_call_bytes=%d pos_threads=%d pos_probes=%d pos_run=%d "
+           "span_lanes=%d,%d span_chunks=%d,%d span_threads=%d positions_call_bytes=%d "
+           "spans_call_bytes=%d",
            kScreenThreads, kMaxShift, kParamRecs, (int)sizeof(Rec), kMaxLex, kPopWords, kTerms,
            kRange, kNd, kLex, kLast, kFlag, kLt, kLe, kEq, kGe, kGt, (int)sizeof(ScreenCall),
-           (int)sizeof(GatherCall));
+           (int)sizeof(GatherCall), kPosThreads, kPosProbes, kPosRun,
+           SpanShape<false>::lanes, SpanShape<true>::lanes, SpanShape<false>::chunks,
+           SpanShape<true>::chunks, kSpanThreads,
+           (int)sizeof(PositionsCall), (int)sizeof(SpansCall));
   return buf;
 }
 

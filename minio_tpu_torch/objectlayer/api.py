@@ -160,7 +160,7 @@ def is_transformed(meta: dict) -> bool:
     return bool(meta.get(META_COMPRESSION) or meta.get(META_SSE))
 
 
-def unported(what: str, slice_no: int) -> NotImplementedError:
+def unported(what: str, slice_no: "int | str") -> NotImplementedError:
     """The error of a feature this package has not ported yet."""
     return NotImplementedError(
         f"{what} is not ported to minio_tpu_torch yet (slice {slice_no})"

@@ -23,6 +23,7 @@ from __future__ import annotations
 import os
 import uuid
 
+from ..cache import READ_CACHE_SLICE, refused_read_cache
 from ..codec import backend as backend_mod, compress as compmod
 from ..codec.erasure import BLOCK_SIZE_V1, Erasure, QuorumError
 from ..dsync.namespace import NamespaceLock
@@ -78,6 +79,16 @@ def _check_parity_ack() -> None:
     the legacy pass structure in slice 11."""
     if os.environ.get("MINIO_TPU_PARITY_ACK", "settle").lower() == "early":
         raise _unported("MINIO_TPU_PARITY_ACK=early", 11)
+
+
+def _check_read_cache() -> None:
+    """MINIO_TPU_READ_CACHE: the JAX package serves PUT and GET through
+    its read cache when the knob resolves to host or device (auto
+    included); that cache is slice 9a, so such a mode raises here.
+    Every value the JAX package resolves to off runs unchanged."""
+    what = refused_read_cache()
+    if what is not None:
+        raise _unported(what, READ_CACHE_SLICE)
 
 
 class ErasureObjects(MultipartMixin, ObjectLayer):
@@ -241,6 +252,7 @@ class ErasureObjects(MultipartMixin, ObjectLayer):
         if sse is not None:
             raise _unported("server-side encryption", 8)
         _check_parity_ack()
+        _check_read_cache()
         check_object_name(object_name)
         self._require_bucket(bucket)
         # the JAX package's compression decision (erasure_object.py
@@ -516,6 +528,7 @@ class ErasureObjects(MultipartMixin, ObjectLayer):
     ) -> ObjectInfo:
         if sse is not None:
             raise _unported("server-side encryption", 8)
+        _check_read_cache()
         check_object_name(object_name)
         self._require_bucket(bucket)
         with self.nslock.read(bucket, object_name):

@@ -50,9 +50,20 @@ The kernels (``csrc/select.cu``, CUDA C++ for ``sm_90a``):
   two scalars) and one launch.
 * ``select_positions`` (K9) replaces ``extract_positions`` (X5).  The
   block cumsum before it stays ``torch.cumsum``, outside the function
-  as in the JAX package.
+  as in the JAX package.  A block's 128 ranks share two warp searches of
+  the cumsum (128 probes a round, 3 rounds) for the first and the last
+  block of their run, which the block stages in shared memory
+  (``_POS_RUN`` entries, 16 bytes a load) before each rank finds its
+  block there, in place of a 19-deep search of the cumsum per rank.
 * ``select_spans`` (K10) replaces ``row_spans`` (``[row]``) and
   ``anchors_back`` (``[back]``) (X6): one template, two directions.
+  ``_SPAN_LANES`` lanes an anchor (8 forward, 4 backward) read
+  ``_SPAN_CHUNKS`` aligned 16-byte chunks each a step, on the absolute
+  address, with an exact SWAR newline test; the clamp is one read of a
+  plane end's byte.
+* K9 and K10 are bound by a few KB of bytes at the path's shape, so a
+  call is mostly the host's wrapper and the launch: each wrapper checks
+  its tensors in one pass and passes one packed struct.
 * ``select_gather`` (K11) replaces ``gather_rows`` (X7).  It is bound by
   bytes; at the path's shape most of a call is the host's wrapper and
   the launch, so the wrapper checks both tensors in one pass and passes
@@ -543,10 +554,20 @@ def _program_tensor(atoms, device: torch.device) -> torch.Tensor:
 LAUNCH_NAMES = ("select_screen", "select_positions", "select_spans[row]",
                 "select_spans[back]", "select_gather")  # in kernels.LAUNCHES
 
-# K8's and K11's calls, one packed struct each (struct ScreenCall and
-# GatherCall in select.cu)
+# K8's to K11's calls, one packed struct each (struct ScreenCall,
+# PositionsCall, SpansCall and GatherCall in select.cu)
 _SCREEN_CALL = struct.Struct("<7Qq3Q8i")
+_POSITIONS_CALL = struct.Struct("<4Q4i")
+_SPANS_CALL = struct.Struct("<5Qq4i")
 _GATHER_CALL = struct.Struct("<4Qq4i")
+_POS_THREADS = 128  # kPosThreads: ranks a K9 block
+_POS_PROBES = 4  # kPosProbes: search probes a lane, 128 a round
+_POS_RUN = 2048  # kPosRun: the cumsum entries a K9 block stages
+# SpanShape<BACK>: lanes an anchor and 16-byte chunks a lane a step, by
+# direction (forward, backward)
+_SPAN_LANES = (8, 4)
+_SPAN_CHUNKS = (1, 2)
+_SPAN_THREADS = 256  # kSpanThreads
 
 
 def _constants() -> dict:
@@ -561,30 +582,27 @@ def _constants() -> dict:
         "modes": tuple(_MODE[m] for m in ("lt", "le", "eq", "ge", "gt")),
         "screen_call_bytes": (_SCREEN_CALL.size,),
         "gather_call_bytes": (_GATHER_CALL.size,),
+        "pos_threads": (_POS_THREADS,), "pos_probes": (_POS_PROBES,),
+        "pos_run": (_POS_RUN,),
+        "span_lanes": _SPAN_LANES, "span_chunks": _SPAN_CHUNKS,
+        "span_threads": (_SPAN_THREADS,),
+        "positions_call_bytes": (_POSITIONS_CALL.size,),
+        "spans_call_bytes": (_SPANS_CALL.size,),
     }
 
 
 def bind(lib) -> None:
     """Declare select.cu's entries on the loaded kernel library and
-    refuse it if its exported constants differ from this module's.  K8
-    and K11 take one packed struct (_SCREEN_CALL, _GATHER_CALL): ctypes
-    converts one argument, not 8-14."""
-    P, I, L = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
-    lib.mts_screen.argtypes = [ctypes.c_char_p]
-    lib.mts_positions.argtypes = [I, P, P, I, I, P, P]
-    lib.mts_spans.argtypes = [I, P, L, P, I, I, I, P, P, P]
-    lib.mts_gather.argtypes = [ctypes.c_char_p]
+    refuse it if its exported constants differ from this module's.  Each
+    entry takes one packed struct (_SCREEN_CALL, _POSITIONS_CALL,
+    _SPANS_CALL, _GATHER_CALL): ctypes converts one argument, not 7-14."""
     for fn in (lib.mts_screen, lib.mts_positions, lib.mts_spans,
                lib.mts_gather):
+        fn.argtypes = [ctypes.c_char_p]
         fn.restype = ctypes.c_int
     lib.mts_constants.restype = ctypes.c_char_p
     kernels._check_constants(lib.mts_constants().decode(), _constants(),
                              "select.cu")
-
-
-def _require_same_device(name: str, *ts: torch.Tensor) -> None:
-    if len({t.device for t in ts}) != 1:
-        raise ValueError(f"{name}: tensors on different devices")
 
 
 # ---------------------------------------------------------------------------
@@ -638,38 +656,43 @@ def extract_positions(cand: torch.Tensor, cum: torch.Tensor, *,
                       cap: int) -> torch.Tensor:
     """Byte positions (int32) of the first ``cap`` candidate flags;
     ``cum`` is the inclusive cumsum of ``screen_chunk``'s block counts.
-    On the card one K9 launch."""
-    if cand.device.type == "cpu":
+    On the card one K9 launch from one packed struct; ``cand`` and
+    ``cum`` 16-byte aligned (the kernel reads both 16 bytes a load)."""
+    if not cand.is_cuda and cand.device.type == "cpu":
         return extract_positions_plain(cand, cum, cap=cap)
-    kernels._require_cuda(cand, "extract_positions", 1, torch.int64)
-    kernels._require_cuda(cum, "extract_positions", 1, torch.int32)
-    _require_same_device("extract_positions", cand, cum)
-    nblk = cum.shape[0]
-    if nblk == 0 or cand.shape[0] != nblk * POP_WORDS:
+    dev = _require_rows("extract_positions", cand, cum, torch.int64)
+    nblk = cum.numel()
+    if nblk == 0 or cand.numel() != nblk * POP_WORDS:
         raise ValueError(
-            f"extract_positions: {cand.shape[0]} words for {nblk} blocks"
+            f"extract_positions: {cand.numel()} words for {nblk} blocks"
         )
-    dev = cand.device
-    out = torch.empty(cap, dtype=torch.int32, device=dev)
+    if not 0 <= cap <= (1 << 31) - 1 - _POS_THREADS:
+        raise ValueError(f"extract_positions: cap {cap}")
+    p, q = cand.data_ptr(), cum.data_ptr()
+    if (p | q) % 16:
+        raise ValueError("extract_positions: expected 16-byte aligned tensors")
+    out = cum.new_empty(cap)
     if cap == 0:
         return out
-    rc = kernels._load().mts_positions(dev.index, cand.data_ptr(), cum.data_ptr(),
-                               nblk, cap, out.data_ptr(), kernels._stream(cand))
+    rc = (kernels._lib or kernels._load()).mts_positions(_POSITIONS_CALL.pack(
+        p, q, out.data_ptr(),
+        torch._C._cuda_getCurrentRawStream(dev), nblk, cap, dev, 0))
     kernels._check_rc(rc, "extract_positions")
     kernels._count("select_positions")
     return out
 
 
-def _require_rows(name: str, arr: torch.Tensor, idx: torch.Tensor) -> int:
-    """A contiguous 1-d uint8 plane and 1-d int32 indices on one card,
-    checked in one pass (K10 and K11, whose calls are mostly host time);
-    the card's index."""
+def _require_rows(name: str, arr: torch.Tensor, idx: torch.Tensor,
+                  dtype: torch.dtype = torch.uint8) -> int:
+    """A contiguous 1-d plane of ``dtype`` (bytes; K9's int64 words) and
+    1-d int32 indices on one card, checked in one pass (K9-K11, whose
+    calls are mostly host time); the card's index."""
     if not (arr.is_cuda and idx.is_cuda):
         raise ValueError(f"{name}: expected CUDA tensors, got {arr.device} "
                          f"and {idx.device}")
-    if arr.dtype != torch.uint8 or idx.dtype != torch.int32:
-        raise TypeError(f"{name}: expected uint8 and int32, got {arr.dtype} "
-                        f"and {idx.dtype}")
+    if arr.dtype != dtype or idx.dtype != torch.int32:
+        raise TypeError(f"{name}: expected {str(dtype)[6:]} and int32, got "
+                        f"{arr.dtype} and {idx.dtype}")
     if arr.dim() != 1 or idx.dim() != 1:
         raise ValueError(f"{name}: expected 1 dim each, got {tuple(arr.shape)} "
                          f"and {tuple(idx.shape)}")
@@ -682,19 +705,22 @@ def _require_rows(name: str, arr: torch.Tensor, idx: torch.Tensor) -> int:
 
 
 def _spans(arr, anchors, window: int, back: bool):
+    """K10 on the card: one-pass checks, one packed struct, ``out`` and
+    ``found`` allocated apart (views of one allocation measured no
+    cheaper on the H100 machine)."""
     name = "anchors_back" if back else "row_spans"
-    _require_rows(name, arr, anchors)
-    if window <= 0 or arr.shape[0] == 0:
-        raise ValueError(f"{name}: window {window} over {arr.shape[0]} bytes")
-    dev = arr.device
-    C = anchors.shape[0]
-    out = torch.empty(C, dtype=torch.int32, device=dev)
-    found = torch.empty(C, dtype=torch.bool, device=dev)
+    dev = _require_rows(name, arr, anchors)
+    n = arr.numel()
+    if window <= 0 or n == 0:
+        raise ValueError(f"{name}: window {window} over {n} bytes")
+    C = anchors.numel()
+    out = anchors.new_empty(C)
+    found = arr.new_empty(C, dtype=torch.bool)
     if C == 0:
         return out, found
-    rc = kernels._load().mts_spans(dev.index, arr.data_ptr(), arr.shape[0],
-                           anchors.data_ptr(), C, window, int(back),
-                           out.data_ptr(), found.data_ptr(), kernels._stream(arr))
+    rc = (kernels._lib or kernels._load()).mts_spans(_SPANS_CALL.pack(
+        arr.data_ptr(), anchors.data_ptr(), out.data_ptr(), found.data_ptr(),
+        torch._C._cuda_getCurrentRawStream(dev), n, C, window, int(back), dev))
     kernels._check_rc(rc, name)
     kernels._count("select_spans[back]" if back else "select_spans[row]")
     return out, found
@@ -704,7 +730,7 @@ def row_spans(arr: torch.Tensor, anchors: torch.Tensor, *, window: int):
     """(offset of the first newline after ``anchor + 1`` within
     ``window``, found) per anchor.  On the card one K10 ``[row]``
     launch."""
-    if arr.device.type == "cpu":
+    if not arr.is_cuda and arr.device.type == "cpu":
         return row_spans_plain(arr, anchors, window=window)
     return _spans(arr, anchors, window, back=False)
 
@@ -712,7 +738,7 @@ def row_spans(arr: torch.Tensor, anchors: torch.Tensor, *, window: int):
 def anchors_back(arr: torch.Tensor, hits: torch.Tensor, *, window: int):
     """(preceding newline of each hit, or -1, found) within ``window``
     bytes back.  On the card one K10 ``[back]`` launch."""
-    if arr.device.type == "cpu":
+    if not arr.is_cuda and arr.device.type == "cpu":
         return anchors_back_plain(arr, hits, window=window)
     return _spans(arr, hits, window, back=True)
 
