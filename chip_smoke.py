@@ -2,14 +2,14 @@
 """Smoke run of the PyTorch/CUDA port (minio_tpu_torch) on one NVIDIA GPU.
 
     python3 chip_smoke.py            # from the repository root
-    python3 chip_smoke.py --parent DIR   # and K1-K6, K8-K11 beside an older copy
+    python3 chip_smoke.py --parent DIR   # and K1-K11 beside an older copy
 
 1. Builds the CUDA kernels from ``minio_tpu_torch/csrc`` with nvcc into
    one library (and ``--parent``'s copy into its own), one ``nvcc -c``
    per source (codec.cu, select.cu, the copy's codec.cu) all at once,
    prints each library's and each source's build seconds and each
    kernel's registers and spills and the static SASS of K1, K4 and K5
-   (EC 8+4, swar and mxu), K2, K3, K6, K8 (each lookahead), K9, K10
+   (EC 8+4, swar and mxu), K2, K3, K6, K7 (4 x 8), K8 (each lookahead), K9, K10
    (both forms) and K11 (``sass_loops``).
 2. Holds each kernel bit-exactly against its plain PyTorch version on the
    card, at the main path's shapes (EC 8+4, 10 MiB blocks: 327,680 words
@@ -53,8 +53,10 @@
    offset, clamped at both ends of the plane (``check_select_kernels``).  Beside each kernel's
    back-to-back event time (``ms``): its device time from a replayed
    CUDA graph, the host's time per wrapper call and its L2-cold time
-   (``device_times``), and for K1, K3 and K6 a one-tile launch (the
-   fixed chain).  With ``--parent``, K1-K6 of both
+   (``device_times``), and for K1, K3, K6 and K7 a one-tile launch (the
+   fixed chain); K7 also every (output, row) bucket, ragged, sub-tile and
+   unaligned shapes against K3, and its ``clock64`` phases per block
+   (``check_k7``, ``k7_phases``).  With ``--parent``, K1-K7 of both
    copies at the main path's shapes in turns parent, new, new, parent
    (``compare_copies``), then K8 under Q1, Q2, the IN list's field
    screen and two long lookaheads on the lineitem chunk, K9 at Q1's and
@@ -364,18 +366,10 @@ def mxu_ops(o: int, s: int) -> int:
     return 2 * (8 * o) * (8 * s) * 4
 
 
-# The design's own integer work (csrc/codec.cu mxu_tile) per 8 byte
-# columns, per lane of a warp: 3 byte permutes build its B word, and per
-# m-tile (2 output rows) 19 ops turn its 4 accumulators into the output
-# word (4 ands, 4 shifts, 3 ors, 3 shuffles, 3 ors, a shift and an or, the
-# store's predicate).  Printed beside the bound, never part of it: the
-# function does not need them.
-_PERM, _REPACK = 3, 19
-
-
-def mxu_design_ops(o: int, s: int) -> int:
-    """The mxu_tile lanes' permutes and repack per word column."""
-    return 32 * (_PERM + _REPACK * -(-o // 2)) // 2
+# The mxu kernels' own integer work, printed beside the bound as
+# ``design_int_ops``, never part of it: the function does not need it.
+# 3 byte permutes build a lane's B word per 8 byte columns.
+_PERM = 3
 
 
 # K5 [mxu]'s product (csrc/codec.cu mxu_ring_tile) repacks two m-tiles
@@ -394,6 +388,25 @@ def mxu_ring_design_ops(o: int, s: int) -> int:
         return 0
     mtiles = -(-o // 2)
     return 32 * (_PERM + _RING_REPACK * -(-mtiles // 2)) // 2
+
+
+# K7's own product (csrc/codec.cu k7_operands, k7_product) per lane and
+# 16-byte chunk, which is per word column (4 lanes share a chunk of 4
+# word columns): the A words' byte permutes (3 a word quad with up to 4
+# input rows - byte 0 needs none - 1 a word with 8, 2 with 16: a 4 x 4
+# byte transpose) and one funnel shift a count (8 m-tiles x bucket(o)
+# n-tiles x 4 counts a lane).
+_K7_PERMS = {4: 12, 8: 16, 16: 32}
+
+
+def _row_bucket(v: int) -> int:
+    """The kernels' row bucket of v rows (codec.cu bucket)."""
+    return 4 if v <= 4 else (8 if v <= 8 else 16)
+
+
+def k7_design_ops(o: int, s: int) -> int:
+    """K7's permutes and funnel shifts per word column."""
+    return _K7_PERMS[_row_bucket(s)] + 32 * _row_bucket(o)
 
 
 def mxu_bound(nbytes: float, int_ops: float, mma_ops: float,
@@ -439,6 +452,16 @@ PATTERNS = {
     "parity missing": tuple(i < K for i in range(N)),
     "all present": (True,) * N,
 }
+
+
+def k7_recon_matrix():
+    """The rows of EC 8+4's reconstruction matrix that rebuild data shards
+    0-3 when those four are lost: a dense (4, 8) matrix, K7's second
+    shape beside the parity matrix."""
+    from minio_tpu_torch.ops import gf
+
+    present = tuple(i for i in range(N) if i >= 4)
+    return gf.reconstruction_matrix(K, M, present)[:4]
 
 
 def survivor_patterns(n: int, m: int):
@@ -1042,6 +1065,81 @@ def check_overlap_kernels(dev, rng) -> dict:
     return results
 
 
+def check_k7(dev, rng) -> dict:
+    """K7 gf_matmul_mxu against its plain version and K3 on the same bytes
+    as words (where the bytes are whole aligned words): EC 8+4's parity,
+    the reconstruction matrices of heal's pattern and of 4 lost data
+    shards at the codec's (4 or 8, 8, 1,310,720), ragged and sub-tile
+    lengths, views 1 and 16 bytes off alignment, a length that leaves
+    blocks without a tile, and one matrix for each (output, row) bucket
+    pair; then gf.encode_ref.  Times at the codec's shape beside K3's,
+    one tile, and the phases (``k7_phases``)."""
+    import numpy as np
+    import torch
+
+    from minio_tpu_torch.ops import gf, kernels, rs
+
+    pm = gf.parity_matrix(K, M)
+    rows = tuple(i for i, p in enumerate(PATTERNS["data+parity missing"]) if p)[:K]
+    rm = gf.reconstruction_matrix(K, M, rows)
+    r4 = k7_recon_matrix()
+    L = BLOCK // K  # one shard of a 10 MiB block: 10 MiB over the 8 rows
+    sms = kernels.sm_count(dev)
+    # an (o, s) matrix for every (output, row) bucket pair of the entry
+    buckets = [(o, s_) for o in (1, 5, 16) for s_ in (3, 8, 13)]
+    edge = np.random.default_rng(SEED + 7)
+    cases = [(pm, L, 0), (rm, L, 0), (r4, L, 0), (pm, 8192 + 17, 0), (rm, 4104 * 4 + 3, 0),
+             (gf.parity_matrix(16, 16), 4096, 0), (pm[:1, :1], 5, 0), (pm, 1000, 0),
+             (pm, 1024, 0), (pm, 1040, 0), (r4, 64 * 1024 + 8, 0),
+             # a view 1 and 16 bytes into its storage
+             (pm, 8192, 1), (r4, 65536 + 48, 16),
+             # blocks past the last tile: 1,281 tiles on 264 blocks of 5
+             (pm, L + 1024, 0)]
+    cases += [(edge.integers(0, 256, (o, s_)).astype(np.uint8), 3 * 1024 + 80, 0)
+              for o, s_ in buckets]
+    err = 0
+    for mat, length, off in cases:
+        o, s_ = mat.shape
+        base = torch.from_numpy(rng.integers(0, 256, (s_ * length + off,), dtype=np.uint8)).to(dev)
+        sh = base[off:].view(s_, length)
+        blocks, tpb = kernels.k7_grid(length, sms, o, s_)
+        if (length, off) == (L + 1024, 0) and blocks * tpb - -(-length // 1024) < tpb:
+            fail("gf_matmul_mxu sweep: the idle-block case leaves no block idle")
+        got = kernels.gf_matmul_mxu(mat, sh)
+        torch.cuda.synchronize()
+        e = same((got,), (rs.gf_matmul_mxu_plain(mat, sh),))
+        if length % 4 == 0 and off % 4 == 0:  # the swar twin: K3 on the same bytes as words
+            words = sh.view(torch.int32)[None]
+            twin = kernels.gf_matmul_words(mat, words, tuple(range(s_)))
+            e = max(e, same((got,), (twin[0].contiguous().view(torch.uint8),)))
+        if e:
+            fail(f"gf_matmul_mxu differs from its plain version or K3 at "
+                 f"{o, s_, length} offset {off}")
+        err = max(err, e)
+    x = torch.from_numpy(rng.integers(0, 256, (8, 64), dtype=np.uint8)).to(dev)
+    if not np.array_equal(kernels.gf_matmul_mxu(pm, x).cpu().numpy(),
+                          gf.encode_ref(x.cpu().numpy(), M)):
+        fail("gf_matmul_mxu differs from gf.encode_ref")
+    sh = torch.from_numpy(rng.integers(0, 256, (K, L), dtype=np.uint8)).to(dev)
+    if not np.array_equal(kernels.gf_matmul_mxu(pm, sh).cpu().numpy(),
+                          gf.encode_ref(sh.cpu().numpy(), M)):
+        fail("gf_matmul_mxu differs from gf.encode_ref at the main shape")
+    words = sh.view(torch.int32)[None]
+    bms, by = mxu_bound((K + M) * L, 0, L // 4 * mxu_ops(M, K),
+                        bound((K + M) * L, L // 4 * gf_ops(pm)))
+    one = sh[:, :1024].contiguous()
+    return dict(
+        max_abs_err=err, ms=cuda_ms(lambda: kernels.gf_matmul_mxu(pm, sh), 20),
+        swar_ms=cuda_ms(lambda: kernels.gf_matmul_words(pm, words, tuple(range(K))), 20),
+        plain_ms=cuda_ms(lambda: rs.gf_matmul_mxu_plain(pm, sh), 3, 1),
+        bound_ms=bms, bound_by=by, shape=[M, K, L],
+        design_int_ops=L // 4 * k7_design_ops(M, K),
+        one_tile_device_ms=device_times(lambda: kernels.gf_matmul_mxu(pm, one))["device_ms"],
+        phases=k7_phases(kernels, pm, sh),
+        **device_times(lambda: kernels.gf_matmul_mxu(pm, sh)),
+    )
+
+
 def check_mxu_kernels(dev, rng) -> dict:
     """Phase 2, mxu: K7 gf_matmul_mxu and the mxu instantiations of K1,
     K4, K5 and K6 against their plain versions (rs.mxu_rows) and their
@@ -1053,42 +1151,8 @@ def check_mxu_kernels(dev, rng) -> dict:
 
     results = {}
 
-    # --- K7 gf_matmul_mxu -------------------------------------------------
+    results["gf_matmul_mxu"] = check_k7(dev, rng)
     pm = gf.parity_matrix(K, M)
-    rows = tuple(i for i, p in enumerate(PATTERNS["data+parity missing"]) if p)[:K]
-    rm = gf.reconstruction_matrix(K, M, rows)
-    L = BLOCK // K  # one shard of a 10 MiB block: 10 MiB over the 8 rows
-    err = 0
-    for mat, length in [(pm, L), (rm, L), (pm, 8192 + 17), (rm, 4104 * 4 + 3),
-                        (gf.parity_matrix(16, 16), 4096), (pm[:1, :1], 5)]:
-        o, s_ = mat.shape
-        sh = torch.from_numpy(rng.integers(0, 256, (s_, length), dtype=np.uint8)).to(dev)
-        got = kernels.gf_matmul_mxu(mat, sh)
-        torch.cuda.synchronize()
-        e = same((got,), (rs.gf_matmul_mxu_plain(mat, sh),))
-        if length % 4 == 0:  # the swar twin: K3 on the same bytes as words
-            words = sh.view(torch.int32)[None]
-            twin = kernels.gf_matmul_words(mat, words, tuple(range(s_)))
-            e = max(e, same((got,), (twin[0].contiguous().view(torch.uint8),)))
-        if e:
-            fail(f"gf_matmul_mxu differs from its plain version or K3 at {o, s_, length}")
-        err = max(err, e)
-    x = torch.from_numpy(rng.integers(0, 256, (8, 64), dtype=np.uint8)).to(dev)
-    if not np.array_equal(kernels.gf_matmul_mxu(pm, x).cpu().numpy(),
-                          gf.encode_ref(x.cpu().numpy(), M)):
-        fail("gf_matmul_mxu differs from gf.encode_ref")
-    sh = torch.from_numpy(rng.integers(0, 256, (K, L), dtype=np.uint8)).to(dev)
-    words = sh.view(torch.int32)[None]
-    bms, by = mxu_bound((K + M) * L, 0, L // 4 * mxu_ops(M, K),
-                        bound((K + M) * L, L // 4 * gf_ops(pm)))
-    results["gf_matmul_mxu"] = dict(
-        max_abs_err=err, ms=cuda_ms(lambda: kernels.gf_matmul_mxu(pm, sh), 20),
-        swar_ms=cuda_ms(lambda: kernels.gf_matmul_words(pm, words, tuple(range(K))), 20),
-        plain_ms=cuda_ms(lambda: rs.gf_matmul_mxu_plain(pm, sh), 3, 1),
-        bound_ms=bms, bound_by=by, shape=[M, K, L],
-        design_int_ops=L // 4 * mxu_design_ops(M, K),
-        **device_times(lambda: kernels.gf_matmul_mxu(pm, sh)),
-    )
 
     # --- K1 and K5 [mxu] ----------------------------------------------------
     for name, fn, plain in [
@@ -1193,6 +1257,39 @@ def check_mxu_kernels(dev, rng) -> dict:
             max_abs_err=err, **timings["data+parity missing, B=1"], timings=timings
         )
     return results
+
+
+def k7_phases(kern, matrix, shards) -> "dict | None":
+    """K7's clock64 phases per block, from one call of a copy whose
+    ``gf_matmul_mxu`` takes ``stamps``: each block's thread 0 writes its
+    cycles before its first tile (setup), waiting for input (load), in
+    the product and in the stores, its %globaltimer at start and end and
+    its SM.  Returns the median and the
+    largest of each phase over the blocks that ran a tile, the launch's
+    span (first start to last end) and the spread of the blocks' starts,
+    in ns; None for a copy without stamps."""
+    import inspect
+    import statistics
+
+    import torch
+
+    if "stamps" not in inspect.signature(kern.gf_matmul_mxu).parameters:
+        return None
+    rows = -(-shards.shape[1] // 1024)  # at most one block a 1,024-byte tile
+    stamps = torch.zeros((rows, 7), dtype=torch.int64, device=shards.device)
+    kern.gf_matmul_mxu(matrix, shards)  # warm
+    kern.gf_matmul_mxu(matrix, shards, stamps=stamps)
+    torch.cuda.synchronize()
+    st = stamps.cpu().numpy()
+    st = st[st[:, 4] > 0]
+    out = {"blocks": int(st.shape[0]), "sms": int(len(set(st[:, 6].tolist())))}
+    for i, name in enumerate(("setup", "load", "product", "store")):
+        out[f"{name}_cycles_median"] = float(statistics.median(st[:, i].tolist()))
+        out[f"{name}_cycles_max"] = int(st[:, i].max())
+    out["span_ns"] = int(st[:, 5].max() - st[:, 4].min())
+    out["start_spread_ns"] = int(st[:, 4].max() - st[:, 4].min())
+    out["block_ns_median"] = float(statistics.median((st[:, 5] - st[:, 4]).tolist()))
+    return out
 
 
 def transfer_ms(dev) -> dict:
@@ -3761,11 +3858,14 @@ _MMA_OPS = ("BMMA", "IMMA", "HMMA")  # the tensor-core instructions
 # and mxu), K3, and K4 at EC 8+4: swar and mxu at heal's pattern (<8,8,swar>,
 # <8,4,mxu>) and with every row present (<16,8,swar>, <16,4,mxu>), K8 at
 # each lookahead (screen_kernel<Q>; an older copy's is one screen_kernel),
-# K9, both K10 forms (spans_kernel<row>, <back>) and K11.  An older copy's
+# K9, both K10 forms (spans_kernel<row>, <back>), K11 and K7 at (o, s) =
+# (4, 8) (gf_matmul_mxu_kernel<8,4>, <SB,OB>; an older copy's is
+# gf_matmul_mxu_kernel<4>, <MB>).  An older copy's
 # K4 is verify_reconstruct_kernel<16,8> (swar) and
 # verify_reconstruct_mxu_kernel<PB,RB>.
 SASS_KERNELS = ("phash_kernel", "verify_reconstruct_pipelined",
                 "encode_kernel<8,4,", "encode_mxu_kernel<8,4", "gf_matmul_kernel",
+                "gf_matmul_mxu_kernel<4>", "gf_matmul_mxu_kernel<8,4>",
                 "encode_pipelined_kernel<8,4,", "encode_pipelined_mxu_kernel<8,4,",
                 "verify_reconstruct_kernel<16,8", "verify_reconstruct_kernel<8,8,swar>",
                 "verify_reconstruct_kernel<8,4,mxu>", "verify_reconstruct_kernel<16,4,mxu>",
@@ -3843,8 +3943,12 @@ def compare_copies(dev, mods: dict, order: list) -> list:
     heal's (1, 12, 327,680) swar and mxu, with those shards absent and
     with all rows present, K4 swar also at one tile (1, 12, 256); K4's
     sub-chunk chain (X3) over heal's row in 5 chunks of 65,536 words, and
-    one such chunk at word offset 65,536 (not the last: no finalize).
-    Every result is first held bit for bit against the plain version
+    one such chunk at word offset 65,536 (not the last: no finalize); K7
+    at (4, 8, 1,310,720) bytes under the parity matrix and the 4 x 8
+    reconstruction rows (``k7_recon_matrix``) and at one tile, K3 on the
+    same bytes as words, and K7's phases (``k7_phases``) where the copy
+    records them.  Every result is first held bit for bit against the
+    plain version
     (the X3 chain's digests against the whole row's, its data once per
     copy); then cuda_ms and device_times of each."""
     import numpy as np
@@ -3855,6 +3959,7 @@ def compare_copies(dev, mods: dict, order: list) -> list:
     heal, every = PATTERNS["data+parity missing"], PATTERNS["all present"]
     idx = tuple(i for i, p in enumerate(heal) if p)[:K]
     rmat = gf.reconstruction_matrix(K, M, idx)
+    pm, r4 = gf.parity_matrix(K, M), k7_recon_matrix()
     rows = []
     for turn, name in enumerate(order):
         kern = mods[name]
@@ -3955,6 +4060,20 @@ def compare_copies(dev, mods: dict, order: list) -> list:
                 chunk, acc1, off, heal, K, 4 * W),
             lambda: kern.verify_reconstruct_subchunk_plain(
                 chunk, torch.zeros_like(acc1), off, heal, K, 4 * W))
+        # K7 at the codec's shape under the parity matrix and the 4 x 8
+        # reconstruction rows, at one tile (its fixed chain), and K3 on the
+        # same bytes as words (its swar twin)
+        x7 = torch.from_numpy(rng.integers(0, 256, (K, BLOCK // K), dtype=np.uint8)).to(dev)
+        w7 = x7.view(torch.int32)[None]
+        t7 = x7[:, :1024].contiguous()
+        for label, mat, x in (("K7 parity (4, 8, 1310720)", pm, x7),
+                              ("K7 recon (4, 8, 1310720)", r4, x7),
+                              ("K7 one tile (4, 8, 1024)", pm, t7)):
+            cases[label] = (lambda kern=kern, mat=mat, x=x: kern.gf_matmul_mxu(mat, x),
+                            lambda mat=mat, x=x: (rs.gf_matmul_mxu_plain(mat, x),))
+        cases["K3 parity (1, 8, 327680) on K7's bytes"] = (
+            lambda kern=kern: kern.gf_matmul_words(pm, w7, tuple(range(K))),
+            lambda: (rs.gf_matmul_words(pm, w7, tuple(range(K))),))
         for label, (fn, plain) in cases.items():
             got = fn()
             got = got if isinstance(got, tuple) else (got,)
@@ -3962,6 +4081,9 @@ def compare_copies(dev, mods: dict, order: list) -> list:
                 fail(f"{label} of copy {name} differs from its plain version")
             rows.append({"turn": turn, "copy": name, "case": label,
                          "events_ms": cuda_ms(fn, 20, 3), **device_times(fn)})
+        phases = k7_phases(kern, pm, x7)
+        if phases is not None:
+            rows.append({"turn": turn, "copy": name, "case": "K7 parity phases", **phases})
         torch.cuda.synchronize()
     return rows
 
@@ -4070,7 +4192,7 @@ def main() -> int:
     ap.add_argument(
         "--parent", metavar="DIR",
         help="another copy of the port (DIR/__init__.py, DIR/ops, DIR/csrc): "
-             "build it too and time its K1-K6 and K8-K11 beside this "
+             "build it too and time its K1-K7 and K8-K11 beside this "
              "checkout's, in turns parent, new, new, parent")
     args = ap.parse_args()
     if not torch.cuda.is_available():

@@ -32,9 +32,9 @@
 // MINIO_TPU_CODEC_FORMULATION=mxu swaps the xtime chain of the PUT and
 // heal passes (K1, K4, K5, K6: the `MXU` template parameter or an mxu
 // kernel of their own) for a tensor-core product of the lifted GF(2) bit
-// matrix (mxu_ring_tile, the form of mxu_tile for a swizzled tile; K4
-// and K6 multiply only the rebuilt rows), and K7 runs mxu_tile alone on
-// bytes.  Everything
+// matrix (mxu_ring_tile, on a swizzled tile; K4 and K6 multiply only the
+// rebuilt rows), and K7 runs a transposed product of its own on bytes
+// (the data as the A operand; see K7).  Everything
 // around the product - the hash leg, flags, pack leg, ring and finalize -
 // is the swar kernels' code (on a tile swizzled for mxu_ring_tile), so
 // the outputs are bit for bit the swar ones.
@@ -152,10 +152,10 @@ __device__ __forceinline__ void finalize_if_last(uint32_t* partials, int count,
 // g%4); its A words (ops/kernels.py mxu_fragments, read once per block
 // into registers) are the rows for bit g%4 and bit g%4 + 4 of output row
 // 2t + g/4, so its accumulators c0..c3 hold those two bits of that row at
-// byte columns 2tig, 2tig + 1.  Two shuffles gather a row's 8 bits over
-// the 4 lanes that hold them and one more joins the two half words: the
-// output word lands in shared memory, where the kernel's own thread for
-// that column picks it up as it picked up its xtime accumulator.
+// byte columns 2tig, 2tig + 1.  mxu_ring_tile (below) gathers a row's 8
+// bits over the 4 lanes that hold them with shuffles; the output word
+// lands in shared memory, where the kernel's own thread for that column
+// picks it up as it picked up its xtime accumulator.
 //
 // Bound: the kernels that call it move the same bytes as their swar twins,
 // and the function needs only their hash leg on the integer pipe plus the
@@ -165,8 +165,6 @@ __device__ __forceinline__ void finalize_if_last(uint32_t* partials, int count,
 // at three permutes per 8 byte columns and input row quad, and the MMA
 // count at (output rows / 2) per 8 byte columns.
 // --------------------------------------------------------------------------
-
-constexpr int kInStride = kTile + 2;  // staged rows: 4 rows apart hit other banks
 
 __device__ __forceinline__ void mma_b1(uint32_t a0, uint32_t a1, uint32_t b,
                                        uint32_t& d0, uint32_t& d1, uint32_t& d2,
@@ -186,46 +184,6 @@ __device__ __forceinline__ void load_frags(const uint32_t* __restrict__ amat,
   const int lane = threadIdx.x & 31;
 #pragma unroll
   for (int i = 0; i < MB; ++i) af[i] = __ldg(amat + ((i >> 1) * 32 + lane) * 2 + (i & 1));
-}
-
-// out[r * kTile + col] = the GF(2^8) product's word r at tile column col,
-// for r < o, from the s <= 16 input rows in[c * stride + col] (col < 256,
-// MB >= o rounded up to even).  Called by all threads of the block; each
-// warp computes its 32 columns.  The caller puts barriers around it.
-template <int MB>
-__device__ __forceinline__ void mxu_tile(const uint32_t* in, int stride, int s,
-                                         uint32_t* out, int o,
-                                         const uint32_t (&af)[MB]) {
-  const int lane = threadIdx.x & 31;
-  const int g = lane >> 2, tig = lane & 3, q = g & 3, h = g >> 2;
-  const uint32_t sel = (uint32_t)q | ((uint32_t)(4 + q) << 4);
-#pragma unroll 1
-  for (int nt = 0; nt < 16; ++nt) {
-    const int base = (threadIdx.x >> 5) * 32 + nt * 2;  // first word column
-    uint32_t x[4];
-#pragma unroll
-    for (int i = 0; i < 4; ++i) {
-      const int r = 4 * tig + i;
-      x[i] = r < s ? in[r * stride + base + h] : 0u;
-    }
-    const uint32_t b = __byte_perm(__byte_perm(x[0], x[1], sel),
-                                   __byte_perm(x[2], x[3], sel), 0x5410);
-#pragma unroll
-    for (int mt = 0; mt < MB / 2; ++mt) {
-      if (2 * mt >= o) break;  // uniform
-      uint32_t c0, c1, c2, c3;
-      mma_b1(af[2 * mt], af[2 * mt + 1], b, c0, c1, c2, c3);
-      // bits q and q+4 of row 2mt+h at byte columns 2tig, 2tig+1
-      uint32_t v = ((c0 & 1u) << q) | ((c2 & 1u) << (q + 4)) |
-                   ((c1 & 1u) << (8 + q)) | ((c3 & 1u) << (12 + q));
-      v |= __shfl_xor_sync(0xffffffffu, v, 4);
-      v |= __shfl_xor_sync(0xffffffffu, v, 8);
-      const uint32_t other = __shfl_xor_sync(0xffffffffu, v, 1);
-      const int r = 2 * mt + h;
-      if (q == 0 && (tig & 1) == 0 && r < o)
-        out[r * kTile + base + (tig >> 1)] = v | (other << 16);
-    }
-  }
 }
 
 // --------------------------------------------------------------------------
@@ -901,7 +859,7 @@ __device__ __forceinline__ void stage_tile(uint32_t* slot, const uint32_t* in,
 //
 // K5 [mxu] (encode_pipelined_mxu_kernel) has its own product,
 // mxu_ring_tile, on a swizzled ring, which K1 [mxu], K4 [mxu] and K6 [mxu]
-// share; mxu_tile stays as it is for K7.
+// share; K7 has a product of its own.
 // --------------------------------------------------------------------------
 
 
@@ -1037,9 +995,9 @@ encode_pipelined_kernel(const uint32_t* __restrict__ data,
 }
 
 // --------------------------------------------------------------------------
-// K5 [mxu]'s product, mxu_ring_tile: the 1-bit tensor-core product of
-// mxu_tile (same A operand, kernels.mxu_fragments; same B words: byte q
-// of input rows 4 tig .. 4 tig + 3), rebuilt for the ring:
+// K5 [mxu]'s product, mxu_ring_tile: the 1-bit tensor-core product above
+// (A operand kernels.mxu_fragments; B words: byte q of input rows
+// 4 tig .. 4 tig + 3) on the ring:
 // * Loads.  A warp's 32 word columns are 4 groups of 8 (two 16-byte
 //   chunks).  Lane (g, tig), h = g / 4, loads chunk h of the group from
 //   each of its 4 rows with one 16-byte shared load (4 loads a group,
@@ -1053,12 +1011,12 @@ encode_pipelined_kernel(const uint32_t* __restrict__ data,
 //   c3, d2, d3), whose bits 0 of each byte, moved to q and q + 4, give
 //   both m-tiles' 16 output bits of this lane in one word; two shuffles
 //   join the 4 lanes of a byte and one more brings the neighbouring half
-//   word, so 3 shuffles serve 2 m-tiles (mxu_tile takes 3 for one).
-//   Sums and products where mxu_tile shifts and ORs: IMAD issues to the
-//   FMA pipe, beside the integer pipe that the hash leg fills.
+//   word, so 3 shuffles serve 2 m-tiles, not one.  Sums and products,
+//   not shifts and ORs: IMAD issues to the FMA pipe, beside the integer
+//   pipe that the hash leg fills.
 // * Return.  A warp's outputs are its own lanes' columns: they go
 //   through out_s with one __syncwarp(), no block barrier.
-// Bound: as mxu_tile's callers; chip_smoke.mxu_ring_design_ops counts its
+// Bound: as its callers'; chip_smoke.mxu_ring_design_ops counts its
 // integer work per word column.
 // --------------------------------------------------------------------------
 
@@ -1077,7 +1035,7 @@ __device__ __forceinline__ void ring_chunks(const uint32_t* slot, int k, int grp
                : make_uint4(0u, 0u, 0u, 0u);
 }
 
-// An MMA's B word: byte `sel` picks of four rows' words (mxu_tile's).
+// An MMA's B word: byte `sel` picks of four rows' words.
 __device__ __forceinline__ uint32_t b_word(uint32_t r0, uint32_t r1, uint32_t r2,
                                            uint32_t r3, uint32_t sel) {
   return __byte_perm(__byte_perm(r0, r1, sel), __byte_perm(r2, r3, sel), 0x5410);
@@ -1634,53 +1592,342 @@ verify_reconstruct_kernel(const uint32_t* __restrict__ shards, uint32_t* __restr
 
 // --------------------------------------------------------------------------
 // K7 gf_matmul_mxu: replaces rs_pallas.gf_matmul_mxu (P3): a runtime (o, s)
-// GF(2^8) matrix over (s, length) bytes through mxu_tile.  P3 pads the rows
-// to 8,192-byte tiles; here a block takes 1,024 bytes of every row (256
-// words of 4 byte columns) and masks the ragged end on load and store.
+// GF(2^8) matrix over (s, length) bytes on the 1-bit tensor cores.  P3
+// pads the rows to 8,192-byte tiles; here the ragged end is masked.
 //
-// Bound: bytes at the codec's shapes (s rows read, o rows written once);
-// the product's bit pairs on the tensor cores take less, and mxu_tile's
-// permutes and repack are the design's own cost above the bound.
-// Design: each thread loads one 4-byte word of every input row (one u32
-// load when the rows are 4-byte aligned, single bytes otherwise), mxu_tile
-// forms the o output words, and the thread stores its column of them.
+// Bound: bytes (s rows read once, o rows written once: 15.7 MB for EC
+// 8+4's parity over a 10 MiB block's shards, 4.7 us); the product's bit
+// pairs on the tensor cores take less.  The design's own integer work -
+// the MMA operands out of bytes and the counts' low bits back into bytes
+// - is kept below the bytes' time (chip_smoke.k7_design_ops):
+// * The product transposed.  The data are the MMA's A operand: an m-tile
+//   is 16 byte columns, and lane (g, tig) = (lane / 4, lane % 4) supplies
+//   byte columns mu and mu + 8 of its 16-byte chunk g, K bits 32 tig ..
+//   32 tig + 31 being input rows tig + 4i (byte i) and their 8 bits.  The
+//   lifted matrix is the B operand (kernels.k7_fragments, in registers
+//   for the whole run): n-tile j's column n is bit 2 (j % 4) + n % 2 of
+//   output row n / 2 + 4 (j / 4).  So lane (g, tig) gets back the counts
+//   of its own chunk's byte columns mu, mu + 8 for output rows tig + 4u,
+//   two bits an n-tile, and after 8 m-tiles x OB n-tiles it holds every
+//   bit of 16 bytes of each of its output rows: no shuffle and no shared
+//   memory on the way out.  One funnel shift a count moves its low bit
+//   into place (the counts come in output bit order), and each row goes
+//   out as one 16-byte store.
+// * A operands: one byte permute a word (two with 16 input rows), where
+//   mxu_ring_tile's B words take three.
+// * A persistent grid: k7_min_blocks(SB, OB) blocks per SM (2; 1 where
+//   the registers would not fit 2 without spilling), each walking a
+//   contiguous run of kMxTile-byte tiles (kernels.k7_grid; a block past
+//   the last tile returns).
+// * Bulk copies into a kMxStages-deep ring, issued by a producer warp:
+//   its lane 0 issues the s row copies of a tile (cp.async.bulk, counted
+//   in bytes by the stage's full mbarrier), the first kMxStages at once,
+//   and refills a stage when the 8 compute warps have arrived on its
+//   empty mbarrier.  A compute warp waits on the full barrier, loads its
+//   operands, arrives, and multiplies and stores while later tiles land.
+//   The copy engine paces the copies (about one 1 KiB copy per 90 cycles
+//   on an H100): issued by a compute warp's thread 0, they held its
+//   block about 2,900 cycles before its first tile.  Rows lie
+//   kMxRowStride bytes apart in a slot (32 bytes of padding: the copy
+//   cannot swizzle), so the 16-byte loads of rows tig + 4i by a quarter
+//   warp (tig = 0..3, two chunks) meet 8 different quads of banks.
+// * The bulk copy takes 16-byte aligned addresses and sizes.  When the
+//   input or output rows are not (a base off alignment, length % 16 !=
+//   0), the threads stage each tile byte by byte into the same slot
+//   layout between two barriers, and the stores go out byte by byte; the
+//   ragged last tile of an aligned run is a shorter copy.  Nothing past
+//   `length` is stored.
 // --------------------------------------------------------------------------
 
-__device__ __forceinline__ uint32_t load_word(const uint8_t* row, size_t off,
-                                              size_t length, bool aligned) {
-  if (aligned && off + 4 <= length)
-    return *reinterpret_cast<const uint32_t*>(row + off);
-  uint32_t v = 0;
-  for (int j = 0; j < 4; ++j)
-    if (off + j < length) v |= (uint32_t)row[off + j] << (8 * j);
-  return v;
+constexpr int kMxTile = 1024;                 // bytes of each row a tile
+constexpr int kMxRowStride = kMxTile + 32;    // a slot's rows, padded
+constexpr int kMxStages = 4;                  // ring depth: 4 tiles in flight
+constexpr int kMxThreads = kThreads + 32;     // 8 compute warps and the producer
+
+// Blocks per SM a K7 instantiation is compiled for (kernels.k7_grid).
+constexpr int k7_min_blocks(int sb, int ob) { return ob <= 8 && sb + ob <= 20 ? 2 : 1; }
+
+__device__ __forceinline__ uint32_t smem_addr(const void* p) {
+  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
 }
 
-template <int MB>
-__global__ void __launch_bounds__(kThreads)
-gf_matmul_mxu_kernel(const uint8_t* __restrict__ in, uint8_t* __restrict__ out,
-                     int o, int s, size_t length, bool aligned,
-                     const uint32_t* __restrict__ amat) {
-  __shared__ uint32_t in_s[kMaxRows * kInStride];
-  __shared__ uint32_t out_s[MB * kTile];
-  const int tid = threadIdx.x;
-  uint32_t af[MB];
-  load_frags<MB>(amat, af);
-  const size_t off = ((size_t)blockIdx.x * kTile + tid) * 4;  // first byte
-  for (int c = 0; c < s; ++c)
-    in_s[c * kInStride + tid] = load_word(in + (size_t)c * length, off, length, aligned);
-  __syncthreads();
-  mxu_tile<MB>(in_s, kInStride, s, out_s, o, af);
-  __syncthreads();
-  for (int r = 0; r < o; ++r) {
-    const uint32_t v = out_s[r * kTile + tid];
-    uint8_t* row = out + (size_t)r * length;
-    if (aligned && off + 4 <= length) {
-      *reinterpret_cast<uint32_t*>(row + off) = v;
-    } else {
-      for (int j = 0; j < 4; ++j)
-        if (off + j < length) row[off + j] = (uint8_t)(v >> (8 * j));
+__device__ __forceinline__ void mbar_init(uint64_t* bar, unsigned count) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" ::"r"(smem_addr(bar)),
+               "r"(count)
+               : "memory");
+}
+
+__device__ __forceinline__ void mbar_expect_tx(uint64_t* bar, unsigned bytes) {
+  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::"r"(
+                   smem_addr(bar)),
+               "r"(bytes)
+               : "memory");
+}
+
+__device__ __forceinline__ void mbar_arrive(uint64_t* bar) {
+  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];\n" ::"r"(smem_addr(bar))
+               : "memory");
+}
+
+__device__ __forceinline__ void mbar_wait(uint64_t* bar, unsigned parity) {
+  unsigned done;
+  do {
+    asm volatile(
+        "{\n .reg .pred p;\n"
+        " mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
+        " selp.u32 %0, 1, 0, p;\n}\n"
+        : "=r"(done)
+        : "r"(smem_addr(bar)), "r"(parity)
+        : "memory");
+  } while (!done);
+}
+
+// Copy `bytes` (a multiple of 16, both addresses 16-byte aligned) from
+// global to shared memory; the mbarrier counts them in.
+__device__ __forceinline__ void bulk_copy(void* dst, const void* src, unsigned bytes,
+                                          uint64_t* bar) {
+  asm volatile(
+      "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes "
+      "[%0], [%1], %2, [%3];\n" ::"r"(smem_addr(dst)),
+      "l"(src), "r"(bytes), "r"(smem_addr(bar))
+      : "memory");
+}
+
+__device__ __forceinline__ uint32_t word_of(const uint4& v, int q) {
+  return q == 0 ? v.x : (q == 1 ? v.y : (q == 2 ? v.z : v.w));
+}
+
+// Thread 0: the s row copies of tile `tile` into `slot`, counted by `bar`.
+__device__ __forceinline__ void k7_issue(uint8_t* slot, const uint8_t* in, int s,
+                                         int length, int tile, uint64_t* bar) {
+  const int col = tile * kMxTile;
+  const unsigned bytes = (unsigned)min(kMxTile, length - col);
+  mbar_expect_tx(bar, bytes * (unsigned)s);
+  for (int r = 0; r < s; ++r)
+    bulk_copy(slot + r * kMxRowStride, in + (size_t)r * length + col, bytes, bar);
+}
+
+// The threads' staging of tile `tile` into `slot`, zeros past length.
+__device__ __forceinline__ void k7_stage(uint8_t* slot, const uint8_t* in, int s,
+                                         int length, int tile) {
+  constexpr int kWords = kMxTile / 4;
+  for (int i = threadIdx.x; i < s * kWords; i += kThreads) {
+    const int r = i / kWords, w = i % kWords;
+    const long long col = (long long)tile * kMxTile + 4 * w;
+    const uint8_t* src = in + (size_t)r * length;
+    uint32_t v = 0;
+#pragma unroll
+    for (int b = 0; b < 4; ++b)
+      if (col + b < length) v |= (uint32_t)src[col + b] << (8 * b);
+    *reinterpret_cast<uint32_t*>(slot + r * kMxRowStride + 4 * w) = v;
+  }
+}
+
+// This lane's A words of one tile: a[p] holds byte column p of its chunk,
+// byte i from input row tig + 4i.  Rows at or past s read as zeros; the
+// bytes past SB / 4 carry whatever the permute leaves, since their B bits
+// (input rows past s) are zero.
+template <int SB>
+__device__ __forceinline__ void k7_operands(const uint8_t* slot, int s,
+                                            uint32_t (&a)[16]) {
+  const int lane = threadIdx.x & 31, tig = lane & 3;
+  const int chunk = (threadIdx.x >> 5) * 8 + (lane >> 2);
+  uint4 x[SB / 4];
+#pragma unroll
+  for (int i = 0; i < SB / 4; ++i) {
+    const int r = tig + 4 * i;
+    x[i] = r < s ? *reinterpret_cast<const uint4*>(slot + r * kMxRowStride + 16 * chunk)
+                 : make_uint4(0u, 0u, 0u, 0u);
+  }
+#pragma unroll
+  for (int q = 0; q < 4; ++q) {
+    const uint32_t w0 = word_of(x[0], q);
+    if constexpr (SB == 4) {
+#pragma unroll
+      for (int r = 0; r < 4; ++r) a[4 * q + r] = w0 >> (8 * r);
+    } else if constexpr (SB == 8) {
+      const uint32_t w1 = word_of(x[1], q);
+#pragma unroll
+      for (int r = 0; r < 4; ++r) a[4 * q + r] = __byte_perm(w0, w1, r | ((4 + r) << 4));
+    } else {  // a 4 x 4 byte transpose of the four rows' words
+      const uint32_t w1 = word_of(x[1], q), w2 = word_of(x[2], q), w3 = word_of(x[3], q);
+      const uint32_t lo01 = __byte_perm(w0, w1, 0x5140), hi01 = __byte_perm(w0, w1, 0x7362);
+      const uint32_t lo23 = __byte_perm(w2, w3, 0x5140), hi23 = __byte_perm(w2, w3, 0x7362);
+      a[4 * q] = __byte_perm(lo01, lo23, 0x5410);
+      a[4 * q + 1] = __byte_perm(lo01, lo23, 0x7632);
+      a[4 * q + 2] = __byte_perm(hi01, hi23, 0x5410);
+      a[4 * q + 3] = __byte_perm(hi01, hi23, 0x7632);
     }
+  }
+}
+
+// The product of one tile for this lane: acc[u] = the 16 output bytes of
+// row tig + 4u at its chunk, as 4 words.  Each word takes exactly 32
+// funnel shifts, so what it held before does not matter.
+template <int OB>
+__device__ __forceinline__ void k7_product(const uint32_t (&a)[16], const uint32_t (&bf)[OB],
+                                           uint32_t (&acc)[OB / 4][4]) {
+#pragma unroll
+  for (int mu = 0; mu < 8; ++mu) {
+#pragma unroll
+    for (int u = 0; u < OB / 4; ++u) {
+#pragma unroll
+      for (int j = 0; j < 4; ++j) {
+        uint32_t d0, d1, d2, d3;
+        mma_b1(a[mu], a[mu + 8], bf[4 * u + j], d0, d1, d2, d3);
+        // bits 2j, 2j + 1 of byte mu (d0, d1) and of byte mu + 8 (d2, d3)
+        uint32_t& lo = acc[u][mu >> 2];
+        uint32_t& hi = acc[u][2 + (mu >> 2)];
+        lo = __funnelshift_r(lo, d0, 1);
+        lo = __funnelshift_r(lo, d1, 1);
+        hi = __funnelshift_r(hi, d2, 1);
+        hi = __funnelshift_r(hi, d3, 1);
+      }
+    }
+  }
+}
+
+// Store this lane's output rows at its chunk of tile `tile`: one 16-byte
+// store a row when `vec` (aligned rows, the chunk inside length), else
+// the bytes inside length.
+template <int OB>
+__device__ __forceinline__ void k7_store(const uint32_t (&acc)[OB / 4][4], uint8_t* out,
+                                         int o, int length, int tile, bool vec) {
+  const int lane = threadIdx.x & 31, tig = lane & 3;
+  const long long col = (long long)tile * kMxTile + 16 * ((threadIdx.x >> 5) * 8 + (lane >> 2));
+  if (col >= length) return;
+#pragma unroll
+  for (int u = 0; u < OB / 4; ++u) {
+    const int row = tig + 4 * u;
+    if (row >= o) break;
+    uint8_t* dst = out + (size_t)row * length + col;
+    if (vec && col + 16 <= length) {
+      *reinterpret_cast<uint4*>(dst) = make_uint4(acc[u][0], acc[u][1], acc[u][2], acc[u][3]);
+    } else {
+#pragma unroll
+      for (int b = 0; b < 16; ++b)
+        if (col + b < length) dst[b] = (uint8_t)(acc[u][b >> 2] >> (8 * (b & 3)));
+    }
+  }
+}
+
+// (o, s) @ (s, length) bytes -> (o, length), SB = bucket(s), OB =
+// bucket(o); `frags` is kernels.k7_fragments (16 n-tiles x 32 lanes).
+// Launched with kMxThreads threads when `bulk`, kThreads (no producer)
+// otherwise.  With `stamps`, thread 0 writes its block's clock64 cycles
+// before its first tile, waiting for input, in the product and in the
+// stores, its %globaltimer at start and end and its SM (7 values a
+// block; chip_smoke.k7_phases reads them).
+template <int SB, int OB>
+__global__ void __launch_bounds__(kMxThreads, k7_min_blocks(SB, OB))
+gf_matmul_mxu_kernel(const uint8_t* __restrict__ in, uint8_t* __restrict__ out,
+                     const uint32_t* __restrict__ frags, long long* __restrict__ stamps,
+                     int o, int s, int length, int ntiles, int tiles_per_block,
+                     bool bulk) {
+  extern __shared__ __align__(128) uint8_t k7_ring[];  // kMxStages x s x kMxRowStride
+  __shared__ __align__(8) uint64_t full[kMxStages], empty[kMxStages];
+  const int first = blockIdx.x * tiles_per_block;
+  const int count = min(tiles_per_block, ntiles - first);
+  if (count <= 0) return;  // uniform: past the last tile
+  const int tid = threadIdx.x, lane = tid & 31;
+  const bool timed = stamps != nullptr;
+  long long t_setup = 0, t_load = 0, t_prod = 0, t_store = 0, g0 = 0, c0 = 0, cs = 0;
+  if (timed) {
+    asm volatile("mov.u64 %0, %%globaltimer;" : "=l"(g0));
+    cs = clock64();
+  }
+  uint32_t bf[OB];
+#pragma unroll
+  for (int j = 0; j < OB; ++j) bf[j] = __ldg(frags + j * 32 + lane);
+  const int slot_bytes = s * kMxRowStride;
+  uint32_t acc[OB / 4][4] = {};
+  uint32_t a[16];
+
+  if (bulk) {
+    if (tid == 0) {
+      for (int st = 0; st < kMxStages; ++st) {
+        mbar_init(&full[st], 1);
+        mbar_init(&empty[st], kWarps);
+      }
+      asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+    }
+    __syncthreads();  // the barriers are initialized
+    if ((tid >> 5) == kWarps) {  // the producer warp
+      if (lane == 0) {
+        for (int st = 0; st < kMxStages && st < count; ++st)
+          k7_issue(k7_ring + st * slot_bytes, in, s, length, first + st, &full[st]);
+        for (int i = 0; i + kMxStages < count; ++i) {
+          const int st = i % kMxStages;
+          mbar_wait(&empty[st], (unsigned)(i / kMxStages) & 1u);  // tile i was read
+          k7_issue(k7_ring + st * slot_bytes, in, s, length, first + i + kMxStages,
+                   &full[st]);
+        }
+      }
+      return;
+    }
+#pragma unroll 1
+    for (int i = 0; i < count; ++i) {
+      const int st = i % kMxStages;
+      const unsigned parity = (unsigned)(i / kMxStages) & 1u;
+      uint8_t* slot = k7_ring + st * slot_bytes;
+      if (timed) {
+        c0 = clock64();
+        if (i == 0) t_setup = c0 - cs;
+      }
+      mbar_wait(&full[st], parity);  // tile i landed
+      long long c1 = 0;
+      if (timed) c1 = clock64();
+      k7_operands<SB>(slot, s, a);
+      __syncwarp();
+      if (lane == 0) mbar_arrive(&empty[st]);  // this warp is done with the slot
+      k7_product<OB>(a, bf, acc);
+      long long c2 = 0;
+      if (timed) c2 = clock64();
+      k7_store<OB>(acc, out, o, length, first + i, true);
+      if (timed) {
+        t_load += c1 - c0;
+        t_prod += c2 - c1;
+        t_store += clock64() - c2;
+      }
+    }
+  } else {
+#pragma unroll 1
+    for (int i = 0; i < count; ++i) {
+      if (timed) {
+        c0 = clock64();
+        if (i == 0) t_setup = c0 - cs;
+      }
+      __syncthreads();  // the previous tile's reads are done
+      k7_stage(k7_ring, in, s, length, first + i);
+      __syncthreads();
+      long long c1 = 0;
+      if (timed) c1 = clock64();
+      k7_operands<SB>(k7_ring, s, a);
+      k7_product<OB>(a, bf, acc);
+      long long c2 = 0;
+      if (timed) c2 = clock64();
+      k7_store<OB>(acc, out, o, length, first + i, false);
+      if (timed) {
+        const long long c3 = clock64();
+        t_load += c1 - c0;
+        t_prod += c2 - c1;
+        t_store += c3 - c2;
+      }
+    }
+  }
+  if (timed && tid == 0) {
+    long long g1;
+    unsigned smid;
+    asm volatile("mov.u64 %0, %%globaltimer;" : "=l"(g1));
+    asm volatile("mov.u32 %0, %%smid;" : "=r"(smid));
+    long long* st = stamps + (size_t)blockIdx.x * 7;
+    st[0] = t_setup;
+    st[1] = t_load;
+    st[2] = t_prod;
+    st[3] = t_store;
+    st[4] = g0;
+    st[5] = g1;
+    st[6] = smid;
   }
 }
 
@@ -1829,6 +2076,20 @@ cudaError_t launch_vr_pipelined(int device, dim3 grid, size_t smem, cudaStream_t
   if (err != cudaSuccess) return err;
   verify_reconstruct_pipelined_kernel<PB, QB, MXU><<<grid, kThreads, smem, st>>>(
       shards, data, partials, ticket, n, k, w, np, rb, ntiles, tpb, nbytes, t, amat);
+  return cudaGetLastError();
+}
+
+// K7 at buckets SB = bucket(s), OB = bucket(o).
+template <int SB, int OB>
+cudaError_t launch_gf_mxu(int device, int blocks, size_t smem, cudaStream_t st,
+                          const uint8_t* in, uint8_t* out, const uint32_t* frags,
+                          long long* stamps, int o, int s, int length, int ntiles,
+                          int tpb, bool bulk) {
+  constexpr size_t kMaxSmem = (size_t)kMxStages * SB * kMxRowStride;
+  const cudaError_t err = smem_opt_in<gf_matmul_mxu_kernel<SB, OB>>(device, kMaxSmem);
+  if (err != cudaSuccess) return err;
+  gf_matmul_mxu_kernel<SB, OB><<<blocks, bulk ? kMxThreads : kThreads, smem, st>>>(
+      in, out, frags, stamps, o, s, length, ntiles, tpb, bulk);
   return cudaGetLastError();
 }
 
@@ -2200,27 +2461,45 @@ int mtt_verify_reconstruct_pipelined(int device, const uint32_t* shards,
   return (int)err;
 }
 
-// K7: (o, s) matrix in kernels.mxu_fragments order (`amat`) @ (s, length)
-// bytes -> (o, length) bytes, rows `length` bytes apart, any length.
-int mtt_gf_matmul_mxu(int device, const uint8_t* in, uint8_t* out, int o, int s,
-                      int length, const uint32_t* amat, void* stream) {
+// The arguments of one K7 launch, packed by kernels.py (_MXU_ARGS: 5
+// addresses, 6 ints).
+struct MxuArgs {
+  uint64_t in, out, frags, stamps, stream;
+  int32_t device, o, s, length, blocks, tiles_per_block;
+};
+static_assert(sizeof(MxuArgs) == 64, "kernels._MXU_ARGS packs 64 bytes");
+
+// K7: (o, s) matrix as kernels.k7_fragments (`frags`) @ (s, length) bytes
+// -> (o, length) bytes, rows `length` bytes apart, any length; `blocks`
+// blocks of `tiles_per_block` kMxTile-byte tiles (kernels.k7_grid).
+int mtt_gf_matmul_mxu(const MxuArgs* a) {
+  const uint8_t* in = reinterpret_cast<const uint8_t*>(a->in);
+  uint8_t* out = reinterpret_cast<uint8_t*>(a->out);
+  const uint32_t* frags = reinterpret_cast<const uint32_t*>(a->frags);
+  long long* stamps = reinterpret_cast<long long*>(a->stamps);
+  const int device = a->device, o = a->o, s = a->s, length = a->length,
+            blocks = a->blocks, tpb = a->tiles_per_block;
   if (o < 1 || o > kMaxRows || s < 1 || s > kMaxRows || length <= 0 ||
-      amat == nullptr)
+      frags == nullptr || blocks < 1 || tpb < 1)
     return (int)cudaErrorInvalidValue;
+  const int ntiles = (int)(((long long)length + kMxTile - 1) / kMxTile);
+  if ((long long)blocks * tpb < ntiles) return (int)cudaErrorInvalidValue;
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return (int)err;
-  cudaStream_t st = (cudaStream_t)stream;
-  const bool aligned = length % 4 == 0 && ((uintptr_t)in & 3u) == 0 &&
-                       ((uintptr_t)out & 3u) == 0;
-  const dim3 grid((unsigned)(((size_t)length + 4 * kTile - 1) / (4 * kTile)));
-  const int ob = bucket(o);
-  if (ob == 4)
-    gf_matmul_mxu_kernel<4><<<grid, kThreads, 0, st>>>(in, out, o, s, (size_t)length, aligned, amat);
-  else if (ob == 8)
-    gf_matmul_mxu_kernel<8><<<grid, kThreads, 0, st>>>(in, out, o, s, (size_t)length, aligned, amat);
-  else
-    gf_matmul_mxu_kernel<16><<<grid, kThreads, 0, st>>>(in, out, o, s, (size_t)length, aligned, amat);
-  return (int)cudaGetLastError();
+  cudaStream_t st = reinterpret_cast<cudaStream_t>(a->stream);
+  const bool bulk = length % 16 == 0 && ((uintptr_t)in & 15u) == 0 &&
+                    ((uintptr_t)out & 15u) == 0;
+  const size_t smem = (size_t)(bulk ? kMxStages : 1) * s * kMxRowStride;
+  const int sb = bucket(s), ob = bucket(o);
+  err = cudaErrorInvalidValue;
+#define MTT_K7(SB_, OB_)                                                          \
+  if (sb == SB_ && ob == OB_)                                                     \
+    err = launch_gf_mxu<SB_, OB_>(device, blocks, smem, st, in, out, frags, stamps, \
+                                  o, s, length, ntiles, tpb, bulk);
+  MTT_K7(4, 4) MTT_K7(4, 8) MTT_K7(4, 16) MTT_K7(8, 4) MTT_K7(8, 8) MTT_K7(8, 16)
+  MTT_K7(16, 4) MTT_K7(16, 8) MTT_K7(16, 16)
+#undef MTT_K7
+  return (int)err;
 }
 
 // The constants ops/kernels.py shares with this file, as "name=v[,v...]"
@@ -2228,7 +2507,7 @@ int mtt_gf_matmul_mxu(int device, const uint8_t* in, uint8_t* out, int o, int s,
 // differ from its own.
 const char* mtt_constants() {
 #define MTT_FIXED_STR(K_, M_) "," #K_ "x" #M_
-  static char buf[512];
+  static char buf[1024];
   static const int len = snprintf(
       buf, sizeof buf,
       "tile=%d max_rows=%d phash_rows=%d phash_blocks_per_sm=%d "
@@ -2238,6 +2517,8 @@ const char* mtt_constants() {
       "rb_max=%d,%d,%d vr_terms_bytes=%d,%d,%d gf_terms_bytes=%d "
       "encode_args_bytes=%d encode_pipe_args_bytes=%d gf_args_bytes=%d "
       "vr_args_bytes=%d rebuilt_max=%d "
+      "mxu_tile_bytes=%d mxu_row_stride=%d mxu_stages=%d "
+      "mxu_blocks_per_sm=%d,%d,%d,%d,%d,%d,%d,%d,%d mxu_args_bytes=%d "
       "ring_swizzle=%d,%d,%d,%d fixed=%s",
       kTile, kMaxRows, kPhashRows, kPhashBlocksPerSM, kPipeBlocksPerSM,
       kEncBlocksPerSM, kGfBlocksPerSM, bucket(1), bucket(2), bucket(3), bucket(4), bucket(5),
@@ -2246,7 +2527,11 @@ const char* mtt_constants() {
       kRbMax<8>, kRbMax<16>, (int)terms_bytes<4>(), (int)terms_bytes<8>(),
       (int)terms_bytes<16>(), (int)gf_terms_bytes(), (int)sizeof(EncodeArgs),
       (int)sizeof(EncodePipeArgs), (int)sizeof(GfMatmulArgs), (int)sizeof(VrArgs),
-      kRebuiltMax, ring_swizzle(0),
+      kRebuiltMax, kMxTile, kMxRowStride, kMxStages, k7_min_blocks(4, 4),
+      k7_min_blocks(4, 8), k7_min_blocks(4, 16), k7_min_blocks(8, 4), k7_min_blocks(8, 8),
+      k7_min_blocks(8, 16), k7_min_blocks(16, 4), k7_min_blocks(16, 8),
+      k7_min_blocks(16, 16),
+      (int)sizeof(MxuArgs), ring_swizzle(0),
       ring_swizzle(4), ring_swizzle(8), ring_swizzle(12),
       "" MTT_FIXED_GEOMETRIES(MTT_FIXED_STR));
 #undef MTT_FIXED_STR

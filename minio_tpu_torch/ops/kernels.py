@@ -44,7 +44,11 @@ Seven kernels, all in ``csrc/codec.cu`` (CUDA C++ for ``sm_90a``):
   the rebuilt rows' operand (``_mxu_rebuilt_operand``).
 * ``gf_matmul_mxu`` (K7) replaces ``rs_pallas.gf_matmul_mxu`` (P3): a
   runtime (o, s) GF(2^8) matrix over (s, length) uint8 shards through a
-  1-bit tensor-core product of the lifted (8o, 8s) GF(2) matrix.
+  1-bit tensor-core product of the lifted (8o, 8s) GF(2) matrix, the
+  data as the A operand and the matrix as the B operand in its own order
+  (``k7_fragments``), on a persistent grid (``k7_grid``) fed by a
+  producer warp's bulk copies into a shared-memory ring; the operand is
+  made once per matrix (``_k7_operand``), the grid once per shape.
 
 ``formulation="mxu"`` (MINIO_TPU_CODEC_FORMULATION) on K1, K4, K5 and K6
 swaps their xtime chain for the same tensor-core product (the ``mxu``
@@ -113,6 +117,9 @@ _ENC_BLOCKS_PER_SM = 3  # K1's persistent grid (kEncBlocksPerSM)
 _GF_BLOCKS_PER_SM = 4  # K3's grid (kGfBlocksPerSM)
 _PHASH_ROWS = 4  # rows per K2 block (kPhashRows: the entry refuses another)
 _PHASH_BLOCKS_PER_SM = 2  # K2's one-wave grid (kPhashBlocksPerSM)
+K7_TILE = 1024  # bytes of each row a K7 tile (kMxTile)
+_K7_ROW_STRIDE = K7_TILE + 32  # a ring slot's rows (kMxRowStride)
+_K7_STAGES = 4  # K7's ring depth (kMxStages)
 
 # (k, m) whose parity product K1 runs as straight-line code with only the
 # matrix's set terms (fixed_parity in codec.cu, generated by fixed_source
@@ -238,8 +245,9 @@ def _load():
         if _lib is None:
             lib = ctypes.CDLL(str(build()))
             P, I, U = ctypes.c_void_p, ctypes.c_int, ctypes.c_uint32
-            # K1, K3, K4 and K5 take one packed argument struct
-            # (_ENCODE_ARGS, _GF_ARGS, _VR_ARGS, _ENCODE_PIPE_ARGS):
+            # K1, K3, K4, K5 and K7 take one packed argument struct
+            # (_ENCODE_ARGS, _GF_ARGS, _VR_ARGS, _ENCODE_PIPE_ARGS,
+            # _MXU_ARGS):
             # ctypes converts one argument, not 13-20.  In K6 the pointer
             # before the stream is the mxu operand (None: the swar
             # instantiation).
@@ -251,7 +259,7 @@ def _load():
             lib.mtt_verify_reconstruct_pipelined.argtypes = [
                 I, P, P, P, I, I, I, I, U, U, I, P, I, I, P, P,
             ]
-            lib.mtt_gf_matmul_mxu.argtypes = [I, P, P, I, I, I, P, P]
+            lib.mtt_gf_matmul_mxu.argtypes = [ctypes.c_char_p]
             for fn in (lib.mtt_encode_pack, lib.mtt_encode_pack_pipelined,
                        lib.mtt_phash256, lib.mtt_gf_matmul,
                        lib.mtt_verify_reconstruct,
@@ -291,6 +299,11 @@ def _constants() -> dict:
         "encode_pipe_args_bytes": (_ENCODE_PIPE_ARGS.size,),
         "gf_args_bytes": (_GF_ARGS.size,),
         "vr_args_bytes": (_VR_ARGS.size,), "rebuilt_max": (_REBUILT_MAX,),
+        "mxu_tile_bytes": (K7_TILE,), "mxu_row_stride": (_K7_ROW_STRIDE,),
+        "mxu_stages": (_K7_STAGES,),
+        "mxu_blocks_per_sm": tuple(k7_blocks_per_sm(o, s) for s in (4, 8, 16)
+                                   for o in (4, 8, 16)),
+        "mxu_args_bytes": (_MXU_ARGS.size,),
         "ring_swizzle": tuple(ring_swizzle(r) for r in (0, 4, 8, 12)),
         "fixed": tuple(f"{k}x{m}" for k, m in FIXED_GEOMETRIES),
     }
@@ -508,6 +521,9 @@ _ENCODE_PIPE_ARGS = struct.Struct("<8Q8iI4x")
 # device, B, n, k, w, np, rb, tiles_per_block, terms_len, zero_acc;
 # present, nbytes, word_offset.
 _VR_ARGS = struct.Struct("<7Q10i3I4x")
+# K7's (MxuArgs): in, out, frags, stamps, stream addresses; device, o, s,
+# length, blocks, tiles_per_block.
+_MXU_ARGS = struct.Struct("<5Q6i")
 _REBUILT_MAX = 8  # rebuilt rows of the mxu product (kRebuiltMax): min(k, n - k) <= 8
 
 
@@ -1355,19 +1371,72 @@ def verify_reconstruct_pipelined(shards: torch.Tensor,
 # ---------------------------------------------------------------------------
 
 
-def gf_matmul_mxu(matrix: np.ndarray, shards: torch.Tensor) -> torch.Tensor:
+def k7_fragments(matrix: np.ndarray) -> np.ndarray:
+    """K7's B operand: the lifted (8o, 8s) bit matrix of ``matrix``
+    (rs.bit_matrix) in the order of its transposed ``mma.m16n8k128`` on
+    1-bit values, (16 n-tiles, 32 lanes) uint32.  Lane = tig + 4 g of
+    n-tile j holds column g: bit 2 (j % 4) + g % 2 of output row g // 2 +
+    4 (j // 4), over the K bits 32 tig + 8 i + b = bit b of input row
+    tig + 4 i.  Rows and inputs past (o, s) are zero, up to 16 x 16; a
+    launch reads the first bucket(o) n-tiles."""
+    o, s = matrix.shape
+    full = np.zeros((8 * _MAX_ROWS, 8 * _MAX_ROWS), dtype=np.uint32)
+    full[: 8 * o, : 8 * s] = rs.bit_matrix(matrix)
+    j = np.arange(16)[:, None, None, None]
+    lane = np.arange(32)[None, :, None, None]
+    g, tig = lane >> 2, lane & 3
+    i = np.arange(4)[None, None, :, None]
+    b = np.arange(8)[None, None, None, :]
+    row = 8 * (g // 2 + 4 * (j // 4)) + 2 * (j % 4) + g % 2
+    col = 8 * (tig + 4 * i) + b
+    bits = full[row, col] << (8 * i + b).astype(np.uint32)
+    return bits.reshape(16, 32, 32).sum(axis=-1, dtype=np.uint64).astype(np.uint32)
+
+
+def k7_blocks_per_sm(o: int, s: int) -> int:
+    """The residency K7's instantiation for (o, s) is compiled for
+    (``k7_min_blocks`` in codec.cu): 2, or 1 where its registers would
+    not fit 2 (16 output rows, or 8 with 16 input rows)."""
+    ob, sb = _bucket(o), _bucket(s)
+    return 2 if ob <= 8 and sb + ob <= 20 else 1
+
+
+@functools.lru_cache(maxsize=1024)
+def k7_grid(length: int, sms: int, o: int, s: int) -> "tuple[int, int]":
+    """K7's persistent grid, (blocks, tiles per block): at most
+    ``k7_blocks_per_sm(o, s)`` blocks per SM, each a contiguous run of
+    ``K7_TILE``-byte tiles; blocks past the last tile (when the runs
+    round up) return at once."""
+    ntiles = -(-length // K7_TILE)
+    blocks = min(ntiles, sms * k7_blocks_per_sm(o, s))
+    return blocks, -(-ntiles // blocks)
+
+
+@functools.lru_cache(maxsize=64)
+def _k7_operand(matrix_key: bytes, o: int, s: int, device: torch.device) -> torch.Tensor:
+    """k7_fragments of a matrix as a device tensor, made once per matrix
+    and device (2 KiB)."""
+    matrix = np.frombuffer(matrix_key, dtype=np.uint8).reshape(o, s)
+    return torch.from_numpy(k7_fragments(matrix).view(np.int32)).to(device)
+
+
+def gf_matmul_mxu(matrix: np.ndarray, shards: torch.Tensor,
+                  stamps: "torch.Tensor | None" = None) -> torch.Tensor:
     """(o, s) GF matrix @ (s, length) uint8 shards -> (o, length) uint8
     through the tensor-core product of the lifted bit matrix (K7); any
-    length.  The plain version is rs.gf_matmul_mxu_plain."""
+    length.  The plain version is rs.gf_matmul_mxu_plain.  ``stamps``, a
+    zeroed (blocks, 7) int64 tensor on the card, receives each block's
+    phase cycles (codec.cu, chip_smoke.k7_phases)."""
     o, s = matrix.shape
     if shards.dim() != 2 or shards.shape[0] != s:
         raise ValueError(
             f"matrix wants ({s}, length) shards, got {tuple(shards.shape)}"
         )
-    if shards.device.type == "cpu":
+    dev = shards.device
+    if dev.type == "cpu":
         return rs.gf_matmul_mxu_plain(matrix, shards)
-    if shards.device.type != "cuda":
-        raise ValueError(f"gf_matmul_mxu: expected a CUDA tensor, got {shards.device}")
+    if dev.type != "cuda":
+        raise ValueError(f"gf_matmul_mxu: expected a CUDA tensor, got {dev}")
     if shards.dtype != torch.uint8:
         raise TypeError(f"gf_matmul_mxu: expected uint8 shards, got {shards.dtype}")
     if not shards.is_contiguous():
@@ -1377,14 +1446,22 @@ def gf_matmul_mxu(matrix: np.ndarray, shards: torch.Tensor) -> torch.Tensor:
     length = shards.shape[1]
     if length >= 1 << 31:
         raise ValueError("gf_matmul_mxu: rows of at most 2^31 - 1 bytes")
-    dev = shards.device
     out = torch.empty((o, length), dtype=torch.uint8, device=dev)
     if length == 0:
         return out
-    rc = _load().mtt_gf_matmul_mxu(
-        dev.index or 0, shards.data_ptr(), out.data_ptr(), o, s, length,
-        _mxu_operand(matrix, dev).data_ptr(), _stream(shards),
-    )
+    m = np.ascontiguousarray(matrix, dtype=np.uint8)
+    frags = _k7_operand(m.tobytes(), o, s, dev)
+    blocks, tpb = k7_grid(length, sm_count(dev), o, s)
+    if stamps is not None:
+        _require_cuda(stamps, "stamps", 2, torch.int64)
+        if stamps.shape[0] < blocks or stamps.shape[1] != 7:
+            raise ValueError(f"stamps: expected ({blocks}, 7), got {tuple(stamps.shape)}")
+    rc = _load().mtt_gf_matmul_mxu(_MXU_ARGS.pack(
+        shards.data_ptr(), out.data_ptr(), frags.data_ptr(),
+        0 if stamps is None else stamps.data_ptr(),
+        torch._C._cuda_getCurrentRawStream(dev.index), dev.index, o, s, length,
+        blocks, tpb,
+    ))
     _check_rc(rc, "gf_matmul_mxu")
     _count("gf_matmul_mxu")
     return out

@@ -526,8 +526,9 @@ def test_constants_check_accepts_the_library_string_and_refuses_drift():
         "bucket=4,4,4,4,8,8,8,8,16,16,16,16,16,16,16,16 rb_max=4,8,7 "
         "vr_terms_bytes=548,2088,3623 gf_terms_bytes=304 encode_args_bytes=120 "
         "encode_pipe_args_bytes=104 gf_args_bytes=72 vr_args_bytes=112 "
-        "rebuilt_max=8 ring_swizzle=0,2,4,6 "
-        "fixed=," + fixed
+        "rebuilt_max=8 mxu_tile_bytes=1024 mxu_row_stride=1056 mxu_stages=4 "
+        "mxu_blocks_per_sm=2,2,1,2,2,1,2,1,1 mxu_args_bytes=64 "
+        "ring_swizzle=0,2,4,6 fixed=," + fixed
     )
     kernels._check_constants(text)
     assert kernels.parse_constants(text)["vr_terms_bytes"] == (548, 2088, 3623)

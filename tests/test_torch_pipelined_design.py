@@ -512,10 +512,9 @@ def test_cpu_wrapper_stays_plain_and_checks():
 @pytest.mark.parametrize("o,s,want", [(4, 8, 352), (8, 8, 656), (1, 1, 352), (16, 16, 1264)])
 def test_ring_design_ops(o, s, want):
     """chip_smoke.mxu_ring_design_ops: per word column, 3 permutes per
-    n-tile for its B word and 19 per pair of m-tiles for the repack,
-    against mxu_tile's 19 per m-tile (mxu_design_ops)."""
+    n-tile for its B word and 19 per pair of m-tiles for the repack (K7's
+    first product, which took 19 per m-tile, is gone)."""
     import chip_smoke
 
     assert chip_smoke.mxu_ring_design_ops(o, s) == want
-    assert chip_smoke.mxu_ring_design_ops(o, s) <= chip_smoke.mxu_design_ops(o, s)
 
