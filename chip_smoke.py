@@ -122,6 +122,26 @@
    multi-delete after which every GET answers 404.  K5 (with merged
    jobs) covers every part, K3 runs on the degraded GETs, K2 and K5 on
    the copies.  Prints the ``s3_mp:`` line.
+8b. Server-side encryption and compression (``sse_phase``): a fresh
+   S3Server over TLS (a self-signed certificate for 127.0.0.1 from the
+   openssl CLI) and disks of the same deployment, SSE-S3 keys from
+   MINIO_TPU_KMS_MASTER_KEY (a key made from SEED).  First 4 x 64 MiB
+   without SSE over the same TLS (the baseline).  SSE-C: 4 clients
+   PUT and GET 8 x 64 MiB, range GETs at 65,436+200, 10,485,660+200 and
+   the last 17 B of each, one GET with the disks of shards 1, 3, 10 and
+   12 offline, a wrong key answered 403 AccessDenied; SSE-S3: a bucket
+   default set by ``PUT ?encryption``, 4 x 64 MiB PUT without a header and
+   read back with ``x-amz-server-side-encryption: AES256``, the admin
+   ``kms/key/status`` round trip; compression (MINIO_TPU_COMPRESS=on): 4
+   x 64 MiB of lineitem text and one compressed+SSE-C copy of it, the
+   stored/actual ratio, a GET and a range GET, Select Q1 over the
+   compressed and the SSE-C object against the host engine's Records over
+   the plain text; an SSE-C multipart upload of 4 x 8 MiB and a GET across
+   a part boundary; CopyObject SSE-C -> SSE-S3 of 64 MiB; one shard of an
+   SSE-C object deleted and healed.  Every body must equal its source;
+   K5, K2, K3, K6, K1 without the pack leg and K8-K10 must launch.  Also
+   times EncryptReader/DecryptWriter and CompressReader/DecompressWriter
+   alone over 64 MiB in memory.  Prints the ``sse:`` line.
 9. S3 Select (``select_phase``): on a fresh S3Server and disks of the
    same deployment, a 256 MiB TPC-H lineitem CSV (``lineitem_csv``, 8
    DEV_CHUNKs) is PUT and queried through ``POST ?select`` by Q1-Q4
@@ -1743,15 +1763,23 @@ S3_POLICY = (
 
 class S3Signer:
     """A small SigV4 client over http.client, signing with the port's
-    own server/auth.py: one keep-alive connection per instance."""
+    own server/auth.py: one keep-alive connection per instance, over TLS
+    verified against ``cafile`` when it is given."""
 
     def __init__(self, host: str, port: int, access_key="minioadmin",
-                 secret_key="minioadmin", region="us-east-1"):
+                 secret_key="minioadmin", region="us-east-1",
+                 cafile: "str | None" = None):
         import http.client
+        import ssl
 
         self.host, self.port = host, port
         self.ak, self.sk, self.region = access_key, secret_key, region
-        self.conn = http.client.HTTPConnection(host, port, timeout=600)
+        if cafile:
+            self.conn = http.client.HTTPSConnection(
+                host, port, timeout=600,
+                context=ssl.create_default_context(cafile=cafile))
+        else:
+            self.conn = http.client.HTTPConnection(host, port, timeout=600)
 
     def _now(self) -> str:
         import datetime
@@ -1838,9 +1866,11 @@ class S3Signer:
         self.conn.close()
 
 
-def _in_clients(host, port, jobs_per_client, fn) -> "tuple[float, list]":
+def _in_clients(host, port, jobs_per_client, fn,
+                cafile: "str | None" = None) -> "tuple[float, list]":
     """Run ``fn(signer, job)`` for each client's jobs, S3_CLIENTS clients
-    at once on their own connections; (wall seconds, results)."""
+    at once on their own connections (TLS against ``cafile`` when it is
+    given); (wall seconds, results)."""
     import threading
 
     results: list = [None] * len(jobs_per_client)
@@ -1848,7 +1878,7 @@ def _in_clients(host, port, jobs_per_client, fn) -> "tuple[float, list]":
     start = threading.Barrier(len(jobs_per_client) + 1)
 
     def run(ix):
-        signer = S3Signer(host, port)
+        signer = S3Signer(host, port, cafile=cafile)
         try:
             start.wait()
             results[ix] = [fn(signer, job) for job in jobs_per_client[ix]]
@@ -2623,6 +2653,471 @@ def s3_mp_phase(dev, work: str, payloads: list) -> dict:
                     "total": batch["flushes"], "jobs": batch["jobs"]},
         "stages": stats["stages"],
     }
+    return out
+
+
+# -- phase 8b: server-side encryption and compression ------------------------
+
+SSE_RANGES = ((65_436, 200), (10_485_660, 200))  # and each object's last 17 B
+SSE_S3_OBJECTS = 4
+SSE_MP_PARTS = 4  # x MP_PART
+SSE_CONFIG = (
+    b"<ServerSideEncryptionConfiguration><Rule>"
+    b"<ApplyServerSideEncryptionByDefault><SSEAlgorithm>AES256</SSEAlgorithm>"
+    b"</ApplyServerSideEncryptionByDefault></Rule>"
+    b"</ServerSideEncryptionConfiguration>")
+
+
+def tls_cert(work: str) -> "tuple[str, str]":
+    """(certificate, key) PEM files of a self-signed certificate for
+    127.0.0.1 (CN and IP SAN), from the openssl CLI."""
+    cert, key = os.path.join(work, "tls-cert.pem"), os.path.join(work, "tls-key.pem")
+    r = subprocess.run(
+        ["openssl", "req", "-x509", "-newkey", "rsa:2048", "-keyout", key,
+         "-out", cert, "-days", "1", "-nodes", "-subj", "/CN=127.0.0.1",
+         "-addext", "subjectAltName=IP:127.0.0.1"],
+        capture_output=True, text=True)
+    if r.returncode != 0:
+        fail(f"sse: openssl req failed: {r.stderr[-300:]}")
+    return cert, key
+
+
+def ssec_headers(key: bytes, copy_source: bool = False) -> dict:
+    """The SSE-C header triplet (or its copy-source form) for ``key``."""
+    import base64
+    import hashlib
+
+    p = ("x-amz-copy-source-server-side-encryption-customer" if copy_source
+         else "x-amz-server-side-encryption-customer")
+    return {f"{p}-algorithm": "AES256",
+            f"{p}-key": base64.b64encode(key).decode(),
+            f"{p}-key-MD5": base64.b64encode(hashlib.md5(key).digest()).decode()}
+
+
+def host_transform_rates(plain: bytes, text: bytes) -> dict:
+    """MB/s of EncryptReader, DecryptWriter, CompressReader and
+    DecompressWriter alone, each over its 64 MiB input in memory, pulled
+    and pushed in 10 MiB steps as the codec moves blocks."""
+    from minio_tpu_torch.codec import compress as compmod, sse as ssemod
+
+    class Sink:
+        n = 0
+
+        def write(self, b):
+            Sink.n += len(b)
+
+    def pull(reader) -> bytes:
+        out = []
+        while True:
+            got = reader.read(BLOCK)
+            if not got:
+                return b"".join(out)
+            out.append(got)
+
+    def push(writer, data) -> None:
+        for i in range(0, len(data), BLOCK):
+            writer.write(data[i:i + BLOCK])
+        writer.finish()
+
+    key, nb = bytes(range(32)), bytes(8)
+    out = {}
+    t = time.monotonic()
+    sealed = pull(ssemod.EncryptReader(io.BytesIO(plain), key, nb))
+    out["encrypt_MBps"] = len(plain) / (time.monotonic() - t) / 1e6
+    Sink.n = 0
+    t = time.monotonic()
+    push(ssemod.DecryptWriter(Sink(), key, nb), sealed)
+    out["decrypt_MBps"] = len(plain) / (time.monotonic() - t) / 1e6
+    if Sink.n != len(plain):
+        fail(f"sse: DecryptWriter gave {Sink.n} of {len(plain)} bytes")
+    t = time.monotonic()
+    deflated = pull(compmod.CompressReader(io.BytesIO(text)))
+    out["compress_MBps"] = len(text) / (time.monotonic() - t) / 1e6
+    Sink.n = 0
+    t = time.monotonic()
+    push(compmod.DecompressWriter(Sink()), deflated)
+    out["decompress_MBps"] = len(text) / (time.monotonic() - t) / 1e6
+    if Sink.n != len(text):
+        fail(f"sse: DecompressWriter gave {Sink.n} of {len(text)} bytes")
+    out["text_ratio"] = len(deflated) / len(text)
+    return out
+
+
+def sse_phase(dev, work: str, s3: dict) -> dict:
+    """Phase 8b (slice 8): SSE-C, SSE-S3 and compression through the
+    port's S3Server (threaded plane, TLS) over a fresh ErasureObjects on
+    the card (12 disks, EC 8+4, 10 MiB blocks), 4 SigV4 clients."""
+    import hashlib
+    import json as _json
+
+    import numpy as np
+
+    from minio_tpu_torch.codec import kms as kmsmod, sse as ssemod
+    from minio_tpu_torch.codec.telemetry import KERNEL_STATS
+    from minio_tpu_torch.objectlayer.erasure_object import ErasureObjects
+    from minio_tpu_torch.ops import kernels
+    from minio_tpu_torch.s3select.engine import S3Select, SelectRequest
+    from minio_tpu_torch.server.http import S3Server
+    from minio_tpu_torch.storage.xl import XLStorage
+
+    # the AEAD route: cryptography's AES-256-GCM, or SSE cannot run here
+    if ssemod._CRYPTO_IMPORT_ERROR is not None:
+        fail(f"sse: no AEAD: {ssemod._CRYPTO_IMPORT_ERROR}")
+    import cryptography
+
+    route = f"cryptography {cryptography.__version__} AESGCM"
+    rng = np.random.default_rng(SEED + 8)
+    master = rng.bytes(32)
+    ckey, wrong = rng.bytes(32), rng.bytes(32)
+    cert, tkey = tls_cert(work)
+    env = {"MINIO_TPU_TLS": "on", "MINIO_TPU_CERT_FILE": cert,
+           "MINIO_TPU_KEY_FILE": tkey,
+           "MINIO_TPU_KMS_MASTER_KEY": "chip-smoke:" + master.hex()}
+    saved = {k: os.environ.get(k) for k in (*env, "MINIO_TPU_COMPRESS")}
+    os.environ.update(env)
+    os.environ.pop("MINIO_TPU_COMPRESS", None)
+    kmsmod.reset_kms_cache()
+    roots = [os.path.join(work, f"ssedisk{i}") for i in range(N)]
+    ol = ErasureObjects([XLStorage(r) for r in roots], parity_blocks=M,
+                        block_size=BLOCK)
+    srv = S3Server(ol, address="127.0.0.1:0").start()
+    host, port = srv.host, srv.port
+    if srv.server_mode != "threaded" or not srv.tls:
+        fail(f"sse: server plane {srv.server_mode}, tls {srv.tls}")
+    t0 = time.monotonic()
+    objs = {f"c{c}/o{j}": rng.bytes(S3_BIG)
+            for c in range(S3_CLIENTS) for j in range(2)}
+    sha = {k: hashlib.sha256(v).digest() for k, v in objs.items()}
+    text = lineitem_csv(SEED + 8, S3_BIG)
+    rows = text.split(b"\n")[1:-1]
+    # four 64 MiB lineitem objects: the same rows, rotated by a quarter
+    texts = [b"\n".join([LI_HEADER.encode()] + rows[i * len(rows) // 4:]
+                        + rows[:i * len(rows) // 4]) + b"\n" for i in range(4)]
+    make_s = time.monotonic() - t0
+    hdr = ssec_headers(ckey)
+    one = S3Signer(host, port, cafile=cert)
+    out: dict = {"aead": route, "tls": True, "make_s": make_s}
+
+    def check(st, body, want, what):
+        if st != want:
+            fail(f"sse: {what}: {st} {body[:300]!r}")
+
+    def launched_since(before: dict) -> dict:
+        return {k: v - before[k] for k, v in kernels.LAUNCHES.items() if v != before[k]}
+
+    try:
+        kernels.reset_launches()
+        KERNEL_STATS.reset()
+        t_phase = time.monotonic()
+        # 0. the same server's TLS without SSE: one plain 64 MiB object
+        # a client, PUT then GET, the baseline the SSE sub-phases stand by
+        st, _h, body = one.request("PUT", "/plain")
+        check(st, body, 200, "bucket create")
+        pjobs = [[f"c{c}/o0"] for c in range(S3_CLIENTS)]
+
+        def put_p(signer, key):
+            st, _h, body = signer.request("PUT", f"/plain/{key}", body=objs[key],
+                                          payload_hash=sha[key].hex())
+            check(st, body, 200, f"TLS PUT {key}")
+            return key
+
+        def get_p(signer, key):
+            st, _h, body = signer.request("GET", f"/plain/{key}")
+            if st != 200 or hashlib.sha256(body).digest() != sha[key]:
+                fail(f"sse: TLS GET {key}: {st}, body differs from its source")
+            return key
+
+        nplain = S3_BIG * len(pjobs)
+        pput_wall, _ = _in_clients(host, port, pjobs, put_p, cert)
+        pget_wall, _ = _in_clients(host, port, pjobs, get_p, cert)
+        out["tls_plain"] = {
+            "objects": len(pjobs), "bytes": nplain,
+            "put": {"s": pput_wall, "MBps": nplain / pput_wall / 1e6},
+            "get": {"s": pget_wall, "MBps": nplain / pget_wall / 1e6},
+        }
+        # a. SSE-C: 4 clients, two 64 MiB objects each, PUT then GET
+        st, _h, body = one.request("PUT", "/ssec")
+        check(st, body, 200, "bucket create")
+        jobs = [[f"c{c}/o{j}" for j in range(2)] for c in range(S3_CLIENTS)]
+
+        def put_c(signer, key):
+            st, h, body = signer.request("PUT", f"/ssec/{key}", body=objs[key],
+                                         headers=hdr, payload_hash=sha[key].hex())
+            check(st, body, 200, f"SSE-C PUT {key}")
+            if h.get("x-amz-server-side-encryption-customer-algorithm") != "AES256":
+                fail(f"sse: SSE-C PUT {key} answered headers {h}")
+            return key
+
+        def get_c(signer, key):
+            st, _h, body = signer.request("GET", f"/ssec/{key}", headers=hdr)
+            if st != 200 or hashlib.sha256(body).digest() != sha[key]:
+                fail(f"sse: SSE-C GET {key}: {st}, body differs from its source")
+            return len(body)
+
+        def ranges_c(signer, key):
+            size = len(objs[key])
+            for lo, n in (*SSE_RANGES, (size - 17, 17)):
+                st, _h, body = signer.request("GET", f"/ssec/{key}", headers={
+                    **hdr, "range": f"bytes={lo}-{lo + n - 1}"})
+                if st != 206 or body != objs[key][lo:lo + n]:
+                    fail(f"sse: SSE-C range {lo}+{n} of {key}: {st}")
+            return key
+
+        nobj = sum(map(len, objs.values()))
+        put_wall, _ = _in_clients(host, port, jobs, put_c, cert)
+        get_wall, _ = _in_clients(host, port, jobs, get_c, cert)
+        range_wall, _ = _in_clients(host, port, jobs, ranges_c, cert)
+        fi = XLStorage(roots[0]).read_version("ssec", "c0/o0")
+        if (fi.metadata.get(ssemod.META_SSE) != "C"
+                or fi.size != ssemod.stored_size(S3_BIG)):
+            fail(f"sse: c0/o0 stored {fi.size} B with {fi.metadata}")
+        dist = fi.erasure.distribution
+        dead = sorted(d for d in range(N) if dist[d] in (1, 3, 10, 12))
+        live = list(ol.disks)
+        before = dict(kernels.LAUNCHES)
+        for d in dead:
+            ol.disks[d] = None
+        try:
+            t = time.monotonic()
+            get_c(one, "c0/o0")
+            deg_s = time.monotonic() - t
+        finally:
+            ol.disks[:] = live
+        deg_launch = launched_since(before)
+        if not deg_launch.get("gf_matmul_words"):
+            fail(f"sse: the degraded SSE-C GET reconstructed nothing: {deg_launch}")
+        st, _h, body = one.request("GET", "/ssec/c0/o0", headers=ssec_headers(wrong))
+        check(st, body, 403, "GET with a wrong key")
+        if b"<Code>AccessDenied</Code>" not in body:
+            fail(f"sse: a wrong key answered {body[:200]!r}")
+        st, _h, body = one.request("GET", "/ssec/c0/o0")
+        check(st, body, 400, "GET without the key")
+        out["ssec"] = {
+            "objects": len(objs), "bytes": nobj,
+            "put": {"s": put_wall, "MBps": nobj / put_wall / 1e6},
+            "get": {"s": get_wall, "MBps": nobj / get_wall / 1e6},
+            "ranges": {"s": range_wall, "count": 3 * len(objs)},
+            "get_degraded_one": {"s": deg_s, "MBps": S3_BIG / deg_s / 1e6,
+                                 "offline_disks": dead, "launches": deg_launch},
+            "stored_over_actual": fi.size / S3_BIG,
+        }
+
+        # b. SSE-S3 by the bucket's default rule: no header on the PUTs
+        st, _h, body = one.request("PUT", "/sses3")
+        check(st, body, 200, "bucket create")
+        st, _h, body = one.request("PUT", "/sses3", {"encryption": ""}, SSE_CONFIG)
+        check(st, body, 200, "PUT ?encryption")
+        st, _h, body = one.request("GET", "/sses3", {"encryption": ""})
+        check(st, body, 200, "GET ?encryption")
+        keys3 = sorted(objs)[:SSE_S3_OBJECTS]
+        jobs3 = [[k] for k in keys3]
+
+        def put_s3(signer, key):
+            st, h, body = signer.request("PUT", f"/sses3/{key}", body=objs[key],
+                                         payload_hash=sha[key].hex())
+            check(st, body, 200, f"SSE-S3 PUT {key}")
+            if h.get("x-amz-server-side-encryption") != "AES256":
+                fail(f"sse: SSE-S3 PUT {key} answered headers {h}")
+            return key
+
+        def get_s3(signer, key):
+            st, h, body = signer.request("GET", f"/sses3/{key}")
+            if (st != 200 or hashlib.sha256(body).digest() != sha[key]
+                    or h.get("x-amz-server-side-encryption") != "AES256"):
+                fail(f"sse: SSE-S3 GET {key}: {st} {h}")
+            return key
+
+        n3 = S3_BIG * len(keys3)
+        put3_wall, _ = _in_clients(host, port, jobs3, put_s3, cert)
+        get3_wall, _ = _in_clients(host, port, jobs3, get_s3, cert)
+        st, _h, body = one.request("GET", f"{ADMIN}/kms/key/status")
+        check(st, body, 200, "admin kms/key/status")
+        status = _json.loads(body)
+        if (status.get("encryption"), status.get("decryption")) != ("success", "success"):
+            fail(f"sse: kms/key/status {status}")
+        meta3 = XLStorage(roots[0]).read_version("sses3", keys3[0]).metadata
+        if meta3.get(ssemod.META_SSE) != "S3" or meta3.get(ssemod.META_SSE_KMS_ID) != "chip-smoke":
+            fail(f"sse: the bucket default stored {meta3}")
+        out["sses3"] = {
+            "objects": len(keys3), "bytes": n3,
+            "put": {"s": put3_wall, "MBps": n3 / put3_wall / 1e6},
+            "get": {"s": get3_wall, "MBps": n3 / get3_wall / 1e6},
+            "kms_key_status": status,
+        }
+
+        # c. compression: 4 x 64 MiB of lineitem text, one more sealed too
+        os.environ["MINIO_TPU_COMPRESS"] = "on"
+        st, _h, body = one.request("PUT", "/zip")
+        check(st, body, 200, "bucket create")
+        zjobs = [[(f"li{i}.csv", i)] for i in range(4)]
+
+        def put_z(signer, job):
+            key, i = job
+            st, _h, body = signer.request("PUT", f"/zip/{key}", body=texts[i])
+            check(st, body, 200, f"compressed PUT {key}")
+            return key
+
+        def get_z(signer, job):
+            key, i = job
+            st, _h, body = signer.request("GET", f"/zip/{key}")
+            if st != 200 or body != texts[i]:
+                fail(f"sse: compressed GET {key}: {st}, body differs")
+            return key
+
+        nz = sum(map(len, texts))
+        zput_wall, _ = _in_clients(host, port, zjobs, put_z, cert)
+        zget_wall, _ = _in_clients(host, port, zjobs, get_z, cert)
+        t = time.monotonic()
+        st, _h, body = one.request("PUT", "/zip/li_ssec.csv", body=texts[0],
+                                   headers=hdr)
+        zc_put_s = time.monotonic() - t
+        check(st, body, 200, "compressed+SSE-C PUT")
+        stored = {k: XLStorage(roots[0]).read_version("zip", k)
+                  for k in ("li0.csv", "li_ssec.csv")}
+        for k, f in stored.items():
+            if (f.metadata.get("x-internal-compression") != "deflate/v1"
+                    or int(f.metadata["x-internal-actual-size"]) != len(texts[0])):
+                fail(f"sse: {k} stored with {f.metadata}")
+        if stored["li_ssec.csv"].metadata.get(ssemod.META_SSE) != "C":
+            fail("sse: li_ssec.csv was not sealed")
+        lo = BLOCK + 12_345
+        for key, h in (("li0.csv", {}), ("li_ssec.csv", hdr)):
+            st, _h, body = one.request("GET", f"/zip/{key}", headers={
+                **h, "range": f"bytes={lo}-{lo + 99_999}"})
+            if st != 206 or body != texts[0][lo:lo + 100_000]:
+                fail(f"sse: compressed range GET of {key}: {st}")
+        os.environ.pop("MINIO_TPU_COMPRESS", None)
+        # Select Q1 over the compressed and the sealed object, against
+        # the host engine's Records over the plain text
+        qbody = select_body(SELECT_QUERIES["Q1"])
+        os.environ["MINIO_TPU_SELECT"] = "host"
+        try:
+            spool = io.BytesIO()
+            t = time.monotonic()
+            S3Select(SelectRequest.from_xml(qbody), dev).evaluate(
+                io.BytesIO(texts[0]), len(texts[0]), spool.write)
+            host_q1_s = time.monotonic() - t
+        finally:
+            os.environ.pop("MINIO_TPU_SELECT", None)
+        want, _k = select_records(spool.getvalue())
+        sel = {"host_plain_s": host_q1_s, "rows": want.count(b"\n")}
+        for key, h in (("li0.csv", {}), ("li_ssec.csv", hdr)):
+            before = dict(kernels.LAUNCHES)
+            t = time.monotonic()
+            st, _h, body = one.request("POST", f"/zip/{key}",
+                                       {"select": "", "select-type": "2"}, qbody,
+                                       headers=h)
+            took = time.monotonic() - t
+            check(st, body, 200, f"Select Q1 over {key}")
+            recs, _k = select_records(body)
+            if recs != want or not recs:
+                fail(f"sse: Q1 over {key} answered {len(recs)} B, the host "
+                     f"engine {len(want)} B")
+            sel[key] = {"s": took, "launches": launched_since(before)}
+            if not sel[key]["launches"].get("select_screen"):
+                fail(f"sse: Q1 over {key} launched {sel[key]['launches']}")
+        sizes = {k: (f.size, len(texts[0])) for k, f in stored.items()}
+        out["compress"] = {
+            "objects": 4, "bytes": nz,
+            "put": {"s": zput_wall, "MBps": nz / zput_wall / 1e6},
+            "get": {"s": zget_wall, "MBps": nz / zget_wall / 1e6},
+            "ssec_put_one": {"s": zc_put_s, "MBps": len(texts[0]) / zc_put_s / 1e6},
+            "stored_over_actual": {k: a / b for k, (a, b) in sizes.items()},
+            "select_Q1": sel,
+        }
+
+        # d. SSE-C multipart: 4 x 8 MiB parts, Complete, a GET across parts
+        parts = [objs["c1/o1"][i * MP_PART:(i + 1) * MP_PART]
+                 for i in range(SSE_MP_PARTS)]
+        whole = b"".join(parts)
+        t = time.monotonic()
+        st, _h, body = one.request("POST", "/ssec/mp", {"uploads": ""}, headers=hdr)
+        check(st, body, 200, "initiate SSE-C upload")
+        uid = _xml_text(body, "UploadId")[0]
+        etags = []
+        for n, data in enumerate(parts, 1):
+            st, h, body = one.request("PUT", "/ssec/mp",
+                                      {"partNumber": str(n), "uploadId": uid},
+                                      body=data, headers=hdr)
+            check(st, body, 200, f"SSE-C part {n}")
+            etags.append(h["etag"].strip('"'))
+        st, _h, body = one.request("POST", "/ssec/mp", {"uploadId": uid},
+                                   _complete_body(etags))
+        check(st, body, 200, "Complete of the SSE-C upload")
+        mp_s = time.monotonic() - t
+        lo = MP_PART - 100
+        st, _h, body = one.request("GET", "/ssec/mp", headers={
+            **hdr, "range": f"bytes={lo}-{lo + 199}"})
+        if st != 206 or body != whole[lo:lo + 200]:
+            fail(f"sse: GET across the SSE-C upload's part boundary: {st}")
+        st, _h, body = one.request("GET", "/ssec/mp", headers=hdr)
+        if st != 200 or body != whole:
+            fail(f"sse: GET of the SSE-C upload: {st}")
+        mpmeta = XLStorage(roots[0]).read_version("ssec", "mp").metadata
+        if mpmeta.get(ssemod.META_SSE_PARTS) != "1,2,3,4":
+            fail(f"sse: the upload stored {mpmeta}")
+        out["multipart"] = {"parts": len(parts), "bytes": len(whole),
+                            "s": mp_s, "MBps": len(whole) / mp_s / 1e6}
+
+        # e. CopyObject SSE-C -> SSE-S3, then heal of an SSE-C object
+        t = time.monotonic()
+        st, _h, body = one.request("PUT", "/sses3/copied", headers={
+            "x-amz-copy-source": "/ssec/c2/o0", **ssec_headers(ckey, True),
+            "x-amz-server-side-encryption": "AES256"})
+        copy_s = time.monotonic() - t
+        check(st, body, 200, "CopyObject SSE-C -> SSE-S3")
+        st, h, body = one.request("GET", "/sses3/copied")
+        if (st != 200 or hashlib.sha256(body).digest() != sha["c2/o0"]
+                or h.get("x-amz-server-side-encryption") != "AES256"):
+            fail(f"sse: GET of the copy: {st} {h}")
+        hfi = XLStorage(roots[0]).read_version("ssec", "c3/o1")
+        victim = hfi.erasure.distribution.index(1)  # the disk of shard 1
+        before_files = part_files(roots[victim], "ssec", "c3/o1")
+        shutil.rmtree(os.path.join(roots[victim], "ssec", "c3", "o1"))
+        before = dict(kernels.LAUNCHES)
+        t = time.monotonic()
+        healed = ol.heal_object("ssec", "c3/o1")
+        heal_s = time.monotonic() - t
+        heal_launch = launched_since(before)
+        for name in ("verify_reconstruct_pipelined", "encode_pack[group=0]"):
+            if not heal_launch.get(name):
+                fail(f"sse: heal launched {heal_launch}, no {name}")
+        if healed.get("healed") != [0] or part_files(
+                roots[victim], "ssec", "c3/o1") != before_files:
+            fail(f"sse: heal of c3/o1 {healed}: the part file differs")
+        get_c(one, "c3/o1")
+        out["copy"] = {"bytes": S3_BIG, "s": copy_s, "MBps": S3_BIG / copy_s / 1e6}
+        out["heal"] = {"s": heal_s, "launches": heal_launch}
+        out["phase_s"] = time.monotonic() - t_phase
+        launches = dict(kernels.LAUNCHES)
+        stats = KERNEL_STATS.snapshot()
+    finally:
+        one.close()
+        srv.shutdown()
+        for k, v in saved.items():
+            if v is None:
+                os.environ.pop(k, None)
+            else:
+                os.environ[k] = v
+        kmsmod.reset_kms_cache()
+        for r in roots:
+            shutil.rmtree(r, ignore_errors=True)
+    for name in ("encode_pack_pipelined", "phash256_batched", "gf_matmul_words",
+                 "verify_reconstruct_pipelined", "encode_pack[group=0]",
+                 "select_screen", "select_positions", "select_spans[row]"):
+        if launches[name] <= 0:
+            fail(f"sse: kernel {name} never launched")
+    # K1 runs only as heal's re-encode (group=0; its launches count
+    # under both names), and no mxu kernel runs
+    if launches["encode_pack"] != launches["encode_pack[group=0]"]:
+        fail(f"sse: K1 launched with the pack leg: {launches}")
+    if launches["encode_pack_pipelined[mxu]"]:
+        fail("sse: kernel encode_pack_pipelined[mxu] launched")
+    out["plain_s3_MBps"] = {"put": s3["put_concurrent"]["MBps"],
+                            "get": s3["get_concurrent"]["MBps"]}
+    out["host_alone"] = host_transform_rates(objs["c0/o0"], texts[0])
+    out["stages"] = stats["stages"]
+    out["launches"] = {k: v for k, v in launches.items() if v}
     return out
 
 
@@ -4274,13 +4769,15 @@ def main() -> int:
         lap("modes")
         mx = modes_phase(dev, work, payloads, written, MXU_RUNS)
         lap("mxu")
-        # phases 7, 8 and 9 serve in this process on the threaded plane;
+        # phases 7, 8, 8b and 9 serve in this process on the threaded plane;
         # the boot phase's server takes the default (async)
         os.environ["MINIO_TPU_SERVER"] = "threaded"
         s3 = s3_phase(dev, work, payloads, written, mp)
         lap("s3")
         s3mp = s3_mp_phase(dev, work, payloads)
         lap("s3_mp")
+        sse = sse_phase(dev, work, s3)
+        lap("sse")
         sel = select_phase(dev, work)
         lap("select")
         os.environ.pop("MINIO_TPU_SERVER", None)
@@ -4295,6 +4792,7 @@ def main() -> int:
                       flush=True)
     print(f"s3: {json.dumps(s3)}", flush=True)
     print(f"s3_mp: {json.dumps(s3mp)}", flush=True)
+    print(f"sse: {json.dumps(sse)}", flush=True)
     print(f"select: {json.dumps(sel)}", flush=True)
     print(f"boot: {json.dumps(bt)}", flush=True)
     print(f"phases_s: {json.dumps(phases_s)}", flush=True)

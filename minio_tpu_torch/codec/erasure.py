@@ -31,7 +31,7 @@ import time
 
 import numpy as np
 
-from . import backend as backend_mod, bitrot
+from . import backend as backend_mod, bitrot, compress
 from .telemetry import KERNEL_STATS
 from ..parallel import iopool
 from ..storage import health as disk_health
@@ -546,10 +546,13 @@ class Erasure:
                     be, readers, batch_idx, total_length, stages
                 )
                 heal_required = heal_required or healed
-                written += self._write_blocks(
+                w, done = self._write_blocks(
                     writer, datas, batch_idx, offset, length,
                     total_length,
                 )
+                written += w
+                if done:
+                    return written, heal_required
             return written, heal_required
         # read-ahead pipeline (the GET twin of the encode double
         # buffer): batch k+1's shard reads + verify + reconstruct run
@@ -583,16 +586,19 @@ class Erasure:
                         ),
                         aux=True,
                     )
-                written += self._write_blocks(
+                w, done = self._write_blocks(
                     writer, datas, batch_idx, offset, length,
                     total_length,
                 )
                 datas = None  # release batch k before blocking on k+1
+                written += w
+                if done:
+                    return written, heal_required
             return written, heal_required
         finally:
-            # an error (client gone) must not leave the prefetch racing
-            # the caller's reader close - drain the in-flight read
-            # before handing back
+            # an early return (RangeSatisfied, client gone) must not
+            # leave the prefetch racing the caller's reader close -
+            # drain the in-flight read before handing back
             if fut is not None:
                 fut.wait()
                 if fut.error is not None:
@@ -600,9 +606,12 @@ class Erasure:
 
     def _write_blocks(
         self, writer, datas, batch_idx, offset, length, total_length
-    ) -> int:
-        """Stream one decoded batch's range slices; returns the bytes
-        written."""
+    ) -> "tuple[int, bool]":
+        """Stream one decoded batch's range slices; (written, done)
+        where done means a skipping decrypt/decompress writer downstream
+        has its full range (RangeSatisfied - stop paying decode I/O, but
+        keep the heal verdict observed so far: losing it would mask
+        bitrot on range reads)."""
         written = 0
         for j, block_index in enumerate(batch_idx):
             block_start = block_index * self.block_size
@@ -615,9 +624,12 @@ class Erasure:
             if hi > lo:
                 # memoryview slice: the decoded block goes to the sink
                 # without the copy a bytes slice would make
-                writer.write(memoryview(datas[j])[lo:hi])
+                try:
+                    writer.write(memoryview(datas[j])[lo:hi])
+                except compress.RangeSatisfied:
+                    return written, True
                 written += hi - lo
-        return written
+        return written, False
 
     def _decode_blocks(
         self, be, readers: list, block_indices: list[int],

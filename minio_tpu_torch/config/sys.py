@@ -19,8 +19,9 @@ backend (batcher included) when the object layer is built at boot, so
 an edit of a ``codec`` key is persisted and takes effect at the next
 boot: it never moves a running server onto the CPU, and ``apply()``
 leaves the running backends alone.  ``compression`` and ``crawler``
-keys are stored and applied to their env seams; their consumers come
-with slices 8 and 9b.
+keys are stored and applied to their env seams: the object layer reads
+MINIO_TPU_COMPRESS per PUT, so ``compression enable=on`` takes effect on
+the next PUT; the crawler's consumer comes with slice 9b.
 """
 
 from __future__ import annotations

@@ -150,8 +150,9 @@ class CompletePart:
 
 META_BUCKET = ".sys"
 
-# metadata markers of the JAX package's object transforms (compression,
-# SSE): an object or upload carrying one cannot be served until slice 8
+# metadata markers of the object transforms (codec/compress.py,
+# codec/sse.py): an object carrying one stores transformed bytes, and its
+# client-visible size is x-internal-actual-size
 META_COMPRESSION = "x-internal-compression"
 META_SSE = "x-internal-sse"
 

@@ -14,9 +14,9 @@ CompleteMultipartUpload (erasure-multipart.go:642).
 
 The multipart ETag is the S3 convention: md5(concat(part md5s)) + "-N".
 
-Compressed and encrypted uploads (the JAX package's transforms) raise
-NotImplementedError naming slice 8 under exactly the conditions in which
-the JAX package would compress a part or seal a key.
+Compression is decided once per upload and SSE seals one object key per
+upload at initiation; every part is its own deflate stream and/or DARE
+stream under a part-derived nonce prefix, as in the JAX package.
 """
 
 from __future__ import annotations
@@ -24,7 +24,7 @@ from __future__ import annotations
 import hashlib
 import uuid
 
-from ..codec import compress as compmod
+from ..codec import compress as compmod, sse as ssemod
 from ..codec.erasure import Erasure, QuorumError
 from ..parallel import iopool
 from ..parallel.iopool import tag_disk_stream
@@ -47,8 +47,6 @@ from .api import (
     PartInfo,
     WriteQuorumError,
     check_object_name,
-    is_transformed,
-    unported,
 )
 from .metadata import (
     find_fileinfo_in_quorum,
@@ -64,12 +62,6 @@ SYS_VOL = ".sys"
 MP_DIR = "multipart"
 # S3 minimum size for any part other than the last (globalMinPartSize)
 MIN_PART_SIZE = 5 << 20
-
-
-def _refuse_transformed(meta: dict) -> None:
-    """An upload the JAX package initiated compressed or encrypted."""
-    if is_transformed(meta):
-        raise unported("compressed or encrypted multipart uploads", 8)
 
 
 class MultipartMixin:
@@ -97,18 +89,25 @@ class MultipartMixin:
     ) -> str:
         check_object_name(object_name)
         self._require_bucket(bucket)
+        upload_id = uuid.uuid4().hex
         meta = dict(metadata or {})
-        # the JAX package decides compression once per upload, with the
-        # part sizes unknown (size -1), and seals a key when asked to
+        meta["x-internal-bucket"] = bucket
+        meta["x-internal-object"] = object_name
+        # compression is decided once per upload (part sizes are unknown
+        # up front - streaming semantics) and every part inherits it so
+        # the assembled object is uniformly coded
         if compmod.should_compress(
             object_name, meta.get("content-type", ""), -1
         ):
-            raise unported("compressed multipart uploads", 8)
+            meta[compmod.META_COMPRESSION] = compmod.ALGORITHM
+        # one object key per upload, sealed at initiation; every part
+        # encrypts under it with a part-derived nonce prefix
         if sse is not None:
-            raise unported("server-side encryption", 8)
-        upload_id = uuid.uuid4().hex
-        meta["x-internal-bucket"] = bucket
-        meta["x-internal-object"] = object_name
+            oek = ssemod.new_object_key()
+            nb = ssemod.new_nonce_base()
+            meta.update(
+                self._seal_sse_meta(sse, oek, nb, f"{bucket}/{object_name}")
+            )
         distribution = hash_order(
             f"{bucket}/{object_name}", len(self.disks)
         )
@@ -148,13 +147,29 @@ class MultipartMixin:
         if not (1 <= part_number <= 10000):
             raise InvalidPart(f"part number {part_number}")
         mfi = self._mp_read_meta(upload_id)
-        if sse is not None:
-            raise unported("server-side encryption", 8)
-        _refuse_transformed(mfi.metadata)
         er = Erasure(
             self.data_blocks, self.parity_blocks, self.block_size
         )
         hreader = HashReader(reader, size)
+        # each part is an independent deflate stream: the GET path can
+        # then skip whole parts by actual size and the part ETag stays
+        # the plaintext MD5 the client computed
+        compress = bool(mfi.metadata.get(compmod.META_COMPRESSION))
+        src = compmod.CompressReader(hreader) if compress else hreader
+        if sse is not None and mfi.metadata.get(ssemod.META_SSE) != "C":
+            # a customer key on a part of an unencrypted OR SSE-S3
+            # upload must fail, not be silently dropped (AWS rejects the
+            # mode mismatch)
+            raise ssemod.SSEError(
+                "upload was not initiated with customer-key encryption"
+            )
+        if mfi.metadata.get(ssemod.META_SSE):
+            bkt = mfi.metadata.get("x-internal-bucket", bucket)
+            obj = mfi.metadata.get("x-internal-object", object_name)
+            oek, nb = self._unseal_oek(mfi.metadata, sse, f"{bkt}/{obj}")
+            src = ssemod.EncryptReader(
+                src, oek, ssemod.part_nonce_base(nb, part_number)
+            )
         disks = shuffle_disks(
             self._online_disks(), mfi.erasure.distribution
         )
@@ -178,7 +193,7 @@ class MultipartMixin:
                 writers.append(None)
         try:
             total = er.encode(
-                hreader, writers, self.write_quorum, backend=self.backend
+                src, writers, self.write_quorum, backend=self.backend
             )
         except QuorumError as e:
             # close writers FIRST, then reap the staging dirs
@@ -351,7 +366,6 @@ class MultipartMixin:
             raise InvalidUploadID(upload_id)
         if not parts:
             raise InvalidPart("no parts")
-        _refuse_transformed(mfi.metadata)
         # validate + collect part metadata
         infos: list[tuple[CompletePart, int, int]] = []
         md5s = hashlib.md5()
@@ -390,6 +404,30 @@ class MultipartMixin:
             if not k.startswith("x-internal-")
         }
         meta["etag"] = final_etag
+        if mfi.metadata.get(compmod.META_COMPRESSION):
+            meta[compmod.META_COMPRESSION] = compmod.ALGORITHM
+        if mfi.metadata.get(ssemod.META_SSE):
+            # carry the sealed key forward, plus the ORIGINAL part
+            # numbers in completion order: chunk nonces derive from the
+            # number each part was uploaded under, which the renumbering
+            # below would otherwise lose
+            for mk in (
+                ssemod.META_SSE,
+                ssemod.META_SSE_SEALED_KEY,
+                ssemod.META_SSE_NONCE,
+                ssemod.META_SSE_KEY_MD5,
+                ssemod.META_SSE_KMS_ID,
+                ssemod.META_SSE_KMS_SEALED_DK,
+            ):
+                if mk in mfi.metadata:
+                    meta[mk] = mfi.metadata[mk]
+            meta[ssemod.META_SSE_PARTS] = ",".join(
+                str(cp.part_number) for cp, _s, _a in infos
+            )
+        if mfi.metadata.get(compmod.META_COMPRESSION) or mfi.metadata.get(
+            ssemod.META_SSE
+        ):
+            meta[compmod.META_ACTUAL_SIZE] = str(total_actual)
 
         with self.nslock.write(bucket, object_name):
             version_id = new_version_id() if versioned else ""

@@ -12,19 +12,24 @@ included), object info, metadata updates, CopyObject, DELETE, listing
 (``list_objects`` over the disks' ordered walks, ``list_object_versions``
 over the merged version journals), multipart uploads
 (objectlayer/erasure_multipart.py) and heal (``heal_object`` /
-``heal_bucket``, fed by ``heal_hook`` through heal/background.py).  What
-the JAX package layers on top - transparent compression of the objects
-it would compress, SSE, the read cache - raises NotImplementedError
-naming the slice that ports it, instead of being silently skipped.
+``heal_bucket``, fed by ``heal_hook`` through heal/background.py), with
+transparent compression (codec/compress.py) and server-side encryption
+(codec/sse.py, keys from codec/kms.py) between the client's bytes and
+the codec: stored = encrypt(compress(plaintext)).  What the JAX package
+layers on top beyond that - the read cache, early parity ack - raises
+NotImplementedError naming the slice that ports it, instead of being
+silently skipped.
 """
 
 from __future__ import annotations
 
+import base64
+import io
 import os
 import uuid
 
 from ..cache import READ_CACHE_SLICE, refused_read_cache
-from ..codec import backend as backend_mod, compress as compmod
+from ..codec import backend as backend_mod, compress as compmod, kms as kmsmod, sse as ssemod
 from ..codec.erasure import BLOCK_SIZE_V1, Erasure, QuorumError
 from ..dsync.namespace import NamespaceLock
 from ..parallel import iopool
@@ -54,7 +59,6 @@ from .api import (
     WriteQuorumError,
     check_bucket_name,
     check_object_name,
-    is_transformed,
     unported as _unported,
 )
 from .erasure_multipart import MultipartMixin
@@ -249,24 +253,14 @@ class ErasureObjects(MultipartMixin, ObjectLayer):
         self, bucket, object_name, reader, size=-1, metadata=None,
         versioned=False, compress=None, sse=None,
     ) -> ObjectInfo:
-        if sse is not None:
-            raise _unported("server-side encryption", 8)
         _check_parity_ack()
         _check_read_cache()
         check_object_name(object_name)
         self._require_bucket(bucket)
-        # the JAX package's compression decision (erasure_object.py
-        # _put_object): what it would compress is refused here, every
-        # other PUT is stored uncompressed exactly as it stores it
-        if compress is None:
-            compress = compmod.should_compress(
-                object_name, (metadata or {}).get("content-type", ""), size
-            )
-        if compress:
-            raise _unported("transparent object compression", 8)
         with self.nslock.write(bucket, object_name):
             return self._put_object(
-                bucket, object_name, reader, size, metadata, versioned
+                bucket, object_name, reader, size, metadata, versioned,
+                compress, sse,
             )
 
     def _old_null_data_dir(self, bucket, object_name) -> str:
@@ -279,13 +273,34 @@ class ErasureObjects(MultipartMixin, ObjectLayer):
             return ""
 
     def _put_object(
-        self, bucket, object_name, reader, size, metadata, versioned=False
+        self, bucket, object_name, reader, size, metadata,
+        versioned=False, compress=None, sse=None,
     ) -> ObjectInfo:
         k, m, n = self.data_blocks, self.parity_blocks, len(self.disks)
         er = Erasure(k, m, self.block_size)
         hreader = (
             reader if isinstance(reader, HashReader) else HashReader(reader, size)
         )
+        # transparent compression: the decision lives HERE so every
+        # write path (PUT, POST-policy, CopyObject re-encode) shares it;
+        # the codec sees STORED (deflate) bytes while the HashReader
+        # keeps hashing the client payload so the ETag stays the
+        # original MD5 (object-api-utils.go:434 seam)
+        if compress is None:
+            compress = compmod.should_compress(
+                object_name, (metadata or {}).get("content-type", ""), size
+            )
+        src = compmod.CompressReader(hreader) if compress else hreader
+        # SSE sits OUTSIDE compression (encrypting first would destroy
+        # compressibility): stored = encrypt(compress(plaintext))
+        sse_meta: dict = {}
+        if sse is not None:
+            oek = ssemod.new_object_key()
+            nb = ssemod.new_nonce_base()
+            sse_meta = self._seal_sse_meta(
+                sse, oek, nb, f"{bucket}/{object_name}", part_numbers=[1]
+            )
+            src = ssemod.EncryptReader(src, oek, nb)
         distribution = hash_order(f"{bucket}/{object_name}", n)
         disks = shuffle_disks(self._online_disks(), distribution)
 
@@ -310,7 +325,7 @@ class ErasureObjects(MultipartMixin, ObjectLayer):
 
         try:
             total = er.encode(
-                hreader, writers, self.write_quorum, backend=self.backend
+                src, writers, self.write_quorum, backend=self.backend
             )
         except QuorumError as e:
             # close writers FIRST, then reap the staging dirs
@@ -335,6 +350,11 @@ class ErasureObjects(MultipartMixin, ObjectLayer):
         actual_size = hreader.bytes_read
         meta = dict(metadata or {})
         meta.setdefault("etag", etag)
+        if compress:
+            meta[compmod.META_COMPRESSION] = compmod.ALGORITHM
+        meta.update(sse_meta)
+        if compress or sse_meta:
+            meta[compmod.META_ACTUAL_SIZE] = str(actual_size)
         # versioned PUT mints a fresh id and preserves prior versions;
         # unversioned PUT overwrites the null version only
         version_id = new_version_id() if versioned else ""
@@ -449,11 +469,114 @@ class ErasureObjects(MultipartMixin, ObjectLayer):
         return self._to_object_info(bucket, object_name, fi)
 
     @staticmethod
+    def _seal_sse_meta(sse, oek: bytes, nonce_base: bytes, aad: str,
+                       part_numbers: "list[int] | None" = None) -> dict:
+        """Metadata carrying the sealed object key (SealObjectKey)."""
+        out = {
+            ssemod.META_SSE_NONCE: base64.b64encode(nonce_base).decode(),
+        }
+        if part_numbers:
+            out[ssemod.META_SSE_PARTS] = ",".join(
+                str(n) for n in part_numbers
+            )
+        if sse.mode == "C":
+            if not sse.key or len(sse.key) != 32:
+                raise ssemod.SSEError("SSE-C key must be 32 bytes")
+            sealed = ssemod.seal_key(sse.key, oek, aad)
+            out.update(
+                {
+                    ssemod.META_SSE: "C",
+                    ssemod.META_SSE_SEALED_KEY: base64.b64encode(
+                        sealed
+                    ).decode(),
+                    ssemod.META_SSE_KEY_MD5: ssemod.key_md5_b64(sse.key),
+                }
+            )
+            return out
+        # SSE-S3 key hierarchy (cmd/crypto/kms.go): the KMS mints a
+        # per-object data key; the OEK seals under the data key and only
+        # the KMS-sealed data key is persisted, so an external KMS (KES)
+        # never sees object keys and master rotation never re-touches
+        # objects
+        kms = kmsmod.get_kms()
+        if kms is None:
+            raise ssemod.SSEError(
+                "SSE-S3 requires a KMS (MINIO_TPU_KMS_MASTER_KEY or "
+                "MINIO_TPU_KMS_KES_ENDPOINT)"
+            )
+        kid = kms.default_key_id()
+        try:
+            dk, sealed_dk = kms.generate_key(kid, {"path": aad})
+        except kmsmod.KMSError as e:
+            raise ssemod.SSEError(str(e)) from None
+        sealed = ssemod.seal_key(dk, oek, aad)
+        out.update(
+            {
+                ssemod.META_SSE: "S3",
+                ssemod.META_SSE_SEALED_KEY: base64.b64encode(
+                    sealed
+                ).decode(),
+                ssemod.META_SSE_KMS_ID: kid,
+                ssemod.META_SSE_KMS_SEALED_DK: base64.b64encode(
+                    sealed_dk
+                ).decode(),
+            }
+        )
+        return out
+
+    @staticmethod
+    def _unseal_oek(fi_meta: dict, sse, aad: str) -> "tuple[bytes, bytes]":
+        """(object key, nonce base) for a stored encrypted object;
+        raises SSEError on a missing or mismatched key."""
+        mode = fi_meta.get(ssemod.META_SSE)
+        sealed = base64.b64decode(fi_meta.get(ssemod.META_SSE_SEALED_KEY, ""))
+        if mode == "C":
+            if sse is None or not sse.key:
+                raise ssemod.SSEError(
+                    "object is encrypted with a customer key; the key "
+                    "must be provided"
+                )
+            if ssemod.key_md5_b64(sse.key) != fi_meta.get(
+                ssemod.META_SSE_KEY_MD5
+            ):
+                raise ssemod.SSEError(
+                    "provided SSE-C key does not match the object key"
+                )
+            kek = sse.key
+        elif fi_meta.get(ssemod.META_SSE_KMS_SEALED_DK):
+            kms = kmsmod.get_kms()
+            if kms is None:
+                raise ssemod.SSEError(
+                    "object is KMS-encrypted but no KMS is configured"
+                )
+            try:
+                kek = kms.unseal_key(
+                    fi_meta.get(ssemod.META_SSE_KMS_ID, ""),
+                    base64.b64decode(fi_meta[ssemod.META_SSE_KMS_SEALED_DK]),
+                    {"path": aad},
+                )
+            except kmsmod.KMSError as e:
+                raise ssemod.SSEError(str(e)) from None
+        else:
+            # legacy layout: OEK sealed directly under the local master
+            # key (pre data-key objects)
+            _, kek = ssemod.master_key()
+        oek = ssemod.unseal_key(kek, sealed, aad)
+        nb = base64.b64decode(fi_meta.get(ssemod.META_SSE_NONCE, ""))
+        return oek, nb
+
+    @staticmethod
     def _to_object_info(bucket, object_name, fi: FileInfo) -> ObjectInfo:
+        size = fi.size
+        if fi.metadata.get(compmod.META_COMPRESSION) or fi.metadata.get(
+            ssemod.META_SSE
+        ):
+            # clients see the original payload size, not stored bytes
+            size = int(fi.metadata.get(compmod.META_ACTUAL_SIZE, size))
         return ObjectInfo(
             bucket=bucket,
             name=object_name,
-            size=fi.size,
+            size=size,
             mod_time_ns=fi.mod_time_ns,
             etag=fi.metadata.get("etag", ""),
             content_type=fi.metadata.get("content-type", ""),
@@ -526,8 +649,6 @@ class ErasureObjects(MultipartMixin, ObjectLayer):
         self, bucket, object_name, writer, offset=0, length=-1,
         version_id="", sse=None,
     ) -> ObjectInfo:
-        if sse is not None:
-            raise _unported("server-side encryption", 8)
         _check_read_cache()
         check_object_name(object_name)
         self._require_bucket(bucket)
@@ -535,12 +656,30 @@ class ErasureObjects(MultipartMixin, ObjectLayer):
             fi, _ = self._read_quorum_fileinfo(bucket, object_name, version_id)
             if fi.deleted:
                 raise ObjectNotFound(f"{bucket}/{object_name}")
-            if is_transformed(fi.metadata):
-                raise _unported("reading compressed or encrypted objects", 8)
+            compressed = bool(fi.metadata.get(compmod.META_COMPRESSION))
+            encrypted = bool(fi.metadata.get(ssemod.META_SSE))
+            transformed = compressed or encrypted
+            logical_size = fi.size
+            if transformed:
+                logical_size = int(
+                    fi.metadata.get(compmod.META_ACTUAL_SIZE, fi.size)
+                )
             if length < 0:
-                length = fi.size - offset
-            if offset < 0 or length < 0 or offset + length > fi.size:
-                raise api.InvalidRange(f"range {offset}+{length} of {fi.size}")
+                length = logical_size - offset
+            if offset < 0 or length < 0 or offset + length > logical_size:
+                raise api.InvalidRange(
+                    f"range {offset}+{length} of {logical_size}"
+                )
+            oek = nonce_base = None
+            orig_part_nums: "list[int]" = []
+            if encrypted:
+                oek, nonce_base = self._unseal_oek(
+                    fi.metadata, sse, f"{bucket}/{object_name}"
+                )
+                raw_nums = fi.metadata.get(ssemod.META_SSE_PARTS, "")
+                orig_part_nums = [
+                    int(x) for x in raw_nums.split(",") if x
+                ] or [p.number for p in fi.parts]
             er = Erasure(
                 fi.erasure.data_blocks,
                 fi.erasure.parity_blocks,
@@ -548,26 +687,54 @@ class ErasureObjects(MultipartMixin, ObjectLayer):
             )
             disks = shuffle_disks(self._online_disks(), fi.erasure.distribution)
             heal_required = False
-            # stream the parts covering [offset, offset+length)
+            # stream the parts covering [offset, offset+length).  Ranges
+            # address LOGICAL bytes; each transformed part is an
+            # independent stream (deflate and/or DARE packages), so
+            # overlapping parts are decoded whole into a skipping
+            # decrypt/decompress chain (decompress-and-skip,
+            # object-api-utils.go:686; DecryptBlocksReader) while plain
+            # parts decode just the overlapping slice.
             part_off = 0
             remaining = length
             cur = offset
-            for part in fi.parts:
+            for pi, part in enumerate(fi.parts):
+                span = part.actual_size if transformed else part.size
                 part_start = part_off
-                part_end = part_off + part.size
+                part_end = part_off + span
                 part_off = part_end
                 if remaining <= 0:
                     break
                 if part_end <= cur:
                     continue
                 in_off = cur - part_start
-                in_len = min(part.size - in_off, remaining)
+                in_len = min(span - in_off, remaining)
+                sink = writer
+                dec_off, dec_len = in_off, in_len
+                if transformed:
+                    dec_off, dec_len = 0, part.size
+                    if compressed:
+                        sink = compmod.DecompressWriter(writer, in_off, in_len)
+                    if encrypted:
+                        pn = (
+                            orig_part_nums[pi]
+                            if pi < len(orig_part_nums)
+                            else part.number
+                        )
+                        sink = ssemod.DecryptWriter(
+                            sink,
+                            oek,
+                            ssemod.part_nonce_base(nonce_base, pn),
+                            0 if compressed else in_off,
+                            -1 if compressed else in_len,
+                        )
                 readers = self._part_readers(
                     disks, bucket, object_name, fi, part.number
                 )
                 try:
+                    # decode returns early (heal verdict intact) once a
+                    # downstream skipping writer's range is satisfied
                     _, healed = er.decode(
-                        writer, readers, in_off, in_len, part.size,
+                        sink, readers, dec_off, dec_len, part.size,
                         backend=self.backend,
                     )
                 except QuorumError as e:
@@ -579,6 +746,8 @@ class ErasureObjects(MultipartMixin, ObjectLayer):
                                 r.close()
                             except Exception as exc:  # noqa: BLE001
                                 _log.debug("shard reader close failed", extra=kv(err=str(exc)))
+                if sink is not writer:
+                    sink.finish()
                 heal_required = heal_required or healed
                 cur += in_len
                 remaining -= in_len
@@ -708,18 +877,15 @@ class ErasureObjects(MultipartMixin, ObjectLayer):
         from ..utils.pipe import streaming_copy
 
         src_info = self.get_object_info(src_bucket, src_object)
-        # a source the JAX package stored compressed or encrypted would
-        # fail inside the copy's reader thread: refuse it up front
-        if is_transformed(src_info.user_defined):
-            raise _unported("copying compressed or encrypted objects", 8)
+        # the copy pipe carries decoded plaintext (decrypted with
+        # ``sse_src``, inflated); every x-internal- transform marker is
+        # dropped and the destination PUT re-applies its own transforms
         meta = api.prepare_copy_meta(src_info, metadata)
         if src_bucket == dst_bucket and src_object == dst_object:
             # self-copy (metadata rewrite): the concurrent pipe would
             # deadlock the namespace lock against itself - run the read
             # fully before the write (small objects; the S3 layer only
             # permits self-copy with REPLACE)
-            import io
-
             buf = io.BytesIO()
             self.get_object(src_bucket, src_object, buf, sse=sse_src)
             buf.seek(0)

@@ -6,7 +6,8 @@ privilege default.  The routes answer as the JAX package's do, for
 this node: server and storage info, heal and the background-heal
 status, service stop/restart, codec kernel telemetry, profiling, the
 runtime KV config, IAM management (users, groups, service accounts,
-canned policies) and the server-loop status and wedge.
+canned policies), the KMS key status and the server-loop status and
+wedge.
 
 A route of a feature this package has not ported answers S3
 ``NotImplemented`` naming the slice that ports it (``UNPORTED``), so
@@ -18,6 +19,7 @@ from __future__ import annotations
 import json
 import time
 
+from ..codec import kms as kmsmod
 from ..iam.policy import Policy, PolicyError
 from ..iam.sys import IAMError, PolicyNotFound, UserNotFound
 from ..objectlayer.api import unported
@@ -34,8 +36,8 @@ _START = time.time()
 # admin routes of features not ported yet: route -> (what, slice).  The
 # distributed planes, heal sequences, the crawler and the lock plane are
 # slice 9b; the read cache (and healthinfo, which reports it and the
-# Select device) 9a; KMS 8; the disk cache, bucket quota and the
-# replication targets 9c.
+# Select device) 9a; the disk cache, bucket quota and the replication
+# targets 9c.
 UNPORTED = {
     ("POST", "heal-sequence"): ("admin heal sequences", "9b"),
     ("POST", "heal-sequence/stop"): ("admin heal sequences", "9b"),
@@ -48,7 +50,6 @@ UNPORTED = {
     ("GET", "read-cache-stats"): ("the tiered read cache", "9a"),
     ("POST", "read-cache-clear"): ("the tiered read cache", "9a"),
     ("GET", "healthinfo"): ("admin healthinfo", "9a"),
-    ("GET", "kms/key/status"): ("KMS", "8"),
     ("GET", "cache-stats"): ("the disk cache", "9c"),
     ("GET", "get-bucket-quota"): ("bucket quota", "9c"),
     ("PUT", "set-bucket-quota"): ("bucket quota", "9c"),
@@ -85,6 +86,11 @@ class AdminAPI:
         # with the peer plane, slice 9b)
         if route == ("GET", "background-heal/status"):
             return 200, _json({"nodes": [self._bg_heal_local()]})
+        # KMS key status (admin-handlers.go KMSKeyStatusHandler): a full
+        # generate->unseal roundtrip proves the configured KMS can both
+        # mint and open data keys for this key id
+        if route == ("GET", "kms/key/status"):
+            return 200, _json(_kms_key_status(q))
         # service control (ServiceHandler, admin-handlers.go:192):
         # stop/restart THIS node
         if route == ("POST", "service"):
@@ -410,3 +416,28 @@ def map_admin_error(e: Exception) -> "S3Error | None":
     if isinstance(e, IAMError):
         return S3Error("InvalidArgument", str(e))
     return None
+
+
+def _kms_key_status(q: "dict[str, str]") -> dict:
+    """The ``kms/key/status`` document: the key id, the KMS's info and
+    the verdicts of one generate->unseal round trip."""
+    kms = kmsmod.get_kms()
+    if kms is None:
+        raise S3Error("InvalidArgument", "KMS is not configured")
+    key_id = q.get("key-id") or kms.default_key_id()
+    status = {"key-id": key_id, **kms.info()}
+    ctx = {"path": "admin/kms-status-check"}
+    try:
+        dk, sealed = kms.generate_key(key_id, ctx)
+        status["encryption"] = "success"
+    except kmsmod.KMSError as e:
+        status["encryption"] = f"failed: {e}"
+        return status
+    try:
+        if kms.unseal_key(key_id, sealed, ctx) == dk:
+            status["decryption"] = "success"
+        else:
+            status["decryption"] = "failed: key mismatch"
+    except kmsmod.KMSError as e:
+        status["decryption"] = f"failed: {e}"
+    return status

@@ -22,11 +22,13 @@ ListObjects V1 and V2, ListObjectVersions, PutObject / GetObject /
 HeadObject / DeleteObject, CopyObject, multi-object delete, POST-policy
 uploads and the multipart routes (CreateMultipartUpload, UploadPart,
 UploadPartCopy, ListParts, ListMultipartUploads, AbortMultipartUpload,
-CompleteMultipartUpload), and the admin API (server/admin.py) with
+CompleteMultipartUpload), bucket default encryption (``?encryption``),
+server-side encryption (SSE-C headers, SSE-S3 and bucket defaults) on
+every object write and read, and the admin API (server/admin.py) with
 its trace and console streams.  Every route of a feature not ported yet
 answers S3 ``NotImplemented`` with a message naming the slice that
 ports it, and every PUT-path seam (quota, object lock and tagging,
-replication, SSE, events) raises the same way when the request or the
+replication, events) raises the same way when the request or the
 bucket's metadata document asks for such a feature - nothing is
 silently ignored.
 """
@@ -46,10 +48,12 @@ import xml.etree.ElementTree as ET
 from http.server import BaseHTTPRequestHandler, ThreadingHTTPServer
 
 from ..cache import READ_CACHE_SLICE, refused_read_cache
+from ..codec import sse as ssemod
 from ..iam.sys import IAMSys
 from ..objectlayer.api import CompletePart, ObjectInfo
 from ..objectlayer.bucket_meta import BucketMetadataSys
 from ..utils.hashreader import HashReader
+from ..utils.xmlutil import strip_ns
 from . import authz, response as xmlr, s3errors
 from .auth import (
     AuthError,
@@ -83,7 +87,6 @@ UNPORTED_BUCKET_CONFIG = {
     "object_lock_xml": ("object lock", "9c"),
     "replication_xml": ("bucket replication", "9c"),
     "notification_xml": ("bucket event notification", "9c"),
-    "sse_config_xml": ("bucket default encryption", "8"),
 }
 
 # request headers of features not ported yet (lower-case prefixes)
@@ -91,10 +94,6 @@ _LOCK_HEADERS = (
     "x-amz-object-lock-mode",
     "x-amz-object-lock-retain-until-date",
     "x-amz-object-lock-legal-hold",
-)
-_SSE_HEADER_PREFIXES = (
-    "x-amz-server-side-encryption",
-    "x-amz-copy-source-server-side-encryption",
 )
 
 
@@ -1161,7 +1160,6 @@ class _Handler(BaseHTTPRequestHandler):
             ("lifecycle", "bucket lifecycle", "9c"),
             ("tagging", "bucket tagging", "9c"),
             ("object-lock", "object lock", "9c"),
-            ("encryption", "bucket encryption configuration", "9c"),
             ("acl", "ACLs", "9c"),
             ("replication", "bucket replication", "9c"),
         ),
@@ -1170,14 +1168,12 @@ class _Handler(BaseHTTPRequestHandler):
             ("lifecycle", "bucket lifecycle", "9c"),
             ("tagging", "bucket tagging", "9c"),
             ("object-lock", "object lock", "9c"),
-            ("encryption", "bucket encryption configuration", "9c"),
             ("acl", "ACLs", "9c"),
             ("replication", "bucket replication", "9c"),
         ),
         "DELETE": (
             ("lifecycle", "bucket lifecycle", "9c"),
             ("tagging", "bucket tagging", "9c"),
-            ("encryption", "bucket encryption configuration", "9c"),
             ("replication", "bucket replication", "9c"),
         ),
     }
@@ -1255,6 +1251,8 @@ class _Handler(BaseHTTPRequestHandler):
                 return self._get_bucket_policy(bucket)
             if "versions" in query:
                 return self._list_object_versions(bucket, query)
+            if "encryption" in query:
+                return self._get_bucket_encryption(bucket)
             if "uploads" in query:
                 return self._list_uploads(bucket, query)
             if "versioning" in query:
@@ -1317,12 +1315,20 @@ class _Handler(BaseHTTPRequestHandler):
                 return self._put_bucket_versioning(
                     bucket, self._read_body()
                 )
+            if "encryption" in query:
+                return self._put_bucket_encryption(
+                    bucket, self._read_body()
+                )
             self._reject_subresources(query, self._BUCKET_SUBRESOURCES)
             return self._make_bucket(bucket)
         if m == "DELETE":
             if "policy" in query:
                 ol.get_bucket_info(bucket)
                 self.s3.bucket_meta.update(bucket, policy_json="")
+                return self._respond(204)
+            if "encryption" in query:
+                ol.get_bucket_info(bucket)
+                self.s3.bucket_meta.update(bucket, sse_config_xml="")
                 return self._respond(204)
             self._reject_subresources(query, self._BUCKET_SUBRESOURCES)
             self._bucket_delete(bucket)
@@ -1460,6 +1466,38 @@ class _Handler(BaseHTTPRequestHandler):
                 "versioning cannot be suspended on object-lock buckets",
             )
         self.s3.bucket_meta.update(bucket, versioning=status)
+        self._respond(200)
+
+    # -- bucket encryption config (bucket-encryption-handlers.go) ---------
+
+    def _get_bucket_encryption(self, bucket: str):
+        self.s3.object_layer.get_bucket_info(bucket)
+        raw = self.s3.bucket_meta.get(bucket).sse_config_xml
+        if not raw:
+            raise S3Error("ServerSideEncryptionConfigurationNotFoundError")
+        self._respond(200, raw.encode())
+
+    def _put_bucket_encryption(self, bucket: str, body: bytes):
+        """Store the SSE default config; only SSE-S3 (AES256) is
+        honored, mirroring validateBucketSSEConfig."""
+        self.s3.object_layer.get_bucket_info(bucket)
+        try:
+            root = ET.fromstring(body)
+        except ET.ParseError:
+            raise S3Error("MalformedXML") from None
+        algos = [
+            (el.text or "").strip()
+            for el in root.iter()
+            if strip_ns(el.tag) == "SSEAlgorithm"
+        ]
+        if algos != ["AES256"]:
+            raise S3Error(
+                "NotImplemented",
+                "only a single AES256 default rule is supported",
+            )
+        self.s3.bucket_meta.update(
+            bucket, sse_config_xml=body.decode("utf-8", "replace")
+        )
         self._respond(200)
 
     def _list_object_versions(self, bucket: str, query):
@@ -1738,20 +1776,8 @@ class _Handler(BaseHTTPRequestHandler):
         from . import select as selmod
 
         body = self._read_body()
-        info = self._read_info(self.s3.object_layer, bucket, key, "")
+        info = self.s3.object_layer.get_object_info(bucket, key)
         selmod.handle_select(self, bucket, key, info, body)
-
-    def _read_info(self, ol, bucket, key, version_id):
-        """Object info for a GET/HEAD, refused before any header goes
-        out when the request or the object needs a transform this
-        package has not ported: SSE-C headers, or an object the JAX
-        package stored compressed or encrypted (slice 8)."""
-        self._refuse_sse_headers()
-        info = ol.get_object_info(bucket, key, version_id)
-        meta = info.user_defined or {}
-        if meta.get("x-internal-compression") or meta.get("x-internal-sse"):
-            raise unported("reading compressed or encrypted objects", "8")
-        return info
 
     def _get_object(self, bucket, key, query):
         """Stream the object body straight to the socket: headers go out
@@ -1765,10 +1791,11 @@ class _Handler(BaseHTTPRequestHandler):
         cache = refused_read_cache()
         if cache is not None:
             raise unported(cache, READ_CACHE_SLICE)
-        info = self._read_info(ol, bucket, key, version_id)
+        info, sse = self._read_info_and_sse(ol, bucket, key, version_id)
         self._check_conditions(info)
         rng = self._parse_range(info.size)
         headers = self._object_headers(info)
+        headers.update(self._sse_response_headers(info.user_defined))
         headers.pop("Content-Type-Override", None)
         # tag count rides GET responses only (GetObject API contract)
         tag_enc = info.user_defined.get("x-amz-tagging", "")
@@ -1794,7 +1821,9 @@ class _Handler(BaseHTTPRequestHandler):
         self.end_headers()
         if length:
             try:
-                ol.get_object(bucket, key, self.wfile, lo, length, version_id)
+                ol.get_object(
+                    bucket, key, self.wfile, lo, length, version_id, sse
+                )
                 self._resp_bytes += length
             except Exception:  # noqa: BLE001
                 # headers already sent; the only honest signal is a
@@ -1813,11 +1842,12 @@ class _Handler(BaseHTTPRequestHandler):
     def _head_object(self, bucket, key, query):
         version_id = query.get("versionId", [""])[0]
         self._refuse_bucket_config(bucket, "notification_xml")
-        info = self._read_info(
+        info, _sse = self._read_info_and_sse(
             self.s3.object_layer, bucket, key, version_id
         )  # key required (and checked) for HEAD too
         self._check_conditions(info)
         headers = self._object_headers(info)
+        headers.update(self._sse_response_headers(info.user_defined))
         headers.pop("Content-Type-Override", None)
         self.send_response(200)
         self.send_header("Server", "MinIO-TPU")
@@ -1845,13 +1875,6 @@ class _Handler(BaseHTTPRequestHandler):
         if any(self.headers.get(h) for h in _LOCK_HEADERS):
             raise unported("object lock", "9c")
 
-    def _refuse_sse_headers(self) -> None:
-        """Any SSE request header - SSE-C, SSE-S3 or SSE-KMS - is
-        slice 8."""
-        for k in self.headers.keys():
-            if k.lower().startswith(_SSE_HEADER_PREFIXES):
-                raise unported("server-side encryption", "8")
-
     def _collect_user_metadata(self) -> dict:
         meta = {}
         ct = self.headers.get("Content-Type")
@@ -1865,29 +1888,30 @@ class _Handler(BaseHTTPRequestHandler):
 
     def _refuse_unported_put(self, bucket: str) -> None:
         """The seams of the JAX package's PUT chain whose features are
-        not ported yet - quota, lock/tagging, replication, SSE and event
+        not ported yet - quota, lock/tagging, replication and event
         targets - each raising when the request or the destination
         bucket's metadata document asks for it, and a no-op otherwise."""
         self._refuse_bucket_config(bucket, *UNPORTED_BUCKET_CONFIG)
         self._refuse_lock_and_tag_headers()
-        self._refuse_sse_headers()
 
     def _checked_put(
         self, bucket, key, hreader, size, meta,
         versioned=False, event_name=None,
     ):
         """The PUT invariant chain of the JAX package's _checked_put -
-        size cap, quota, lock/tagging, replication, SSE, events - shared
-        by the S3 PUT and POST-policy paths, with each seam of a feature
-        not ported yet raising (``_refuse_unported_put``), so a PUT
-        stores what the JAX package stores."""
+        size cap, quota, lock/tagging, replication, bucket-default or
+        requested SSE, events - shared by the S3 PUT and POST-policy
+        paths, with each seam of a feature not ported yet raising
+        (``_refuse_unported_put``), so a PUT stores what the JAX package
+        stores."""
         if size > MAX_OBJECT_SIZE:
             raise S3Error("EntityTooLarge")
         self._refuse_unported_put(bucket)
+        sse = self._request_sse(bucket)
         # transparent compression (MINIO_TPU_COMPRESS) is decided inside
-        # the object layer, which refuses what it would compress
+        # the object layer so POST-policy/multipart/copy share the seam
         info = self.s3.object_layer.put_object(
-            bucket, key, hreader, size, meta, versioned=versioned,
+            bucket, key, hreader, size, meta, versioned=versioned, sse=sse,
         )
         from ..event.event import EventName
 
@@ -1911,9 +1935,196 @@ class _Handler(BaseHTTPRequestHandler):
             bucket, key, hreader, size, meta, versioned=versioned
         )
         hdrs = {"ETag": f'"{info.etag}"'}
+        hdrs.update(self._sse_response_headers(info.user_defined))
         if info.version_id:
             hdrs["x-amz-version-id"] = info.version_id
         self._respond(200, b"", hdrs)
+
+    # -- server-side encryption plumbing (cmd/crypto/header.go,
+    #    cmd/encryption-v1.go) ----------------------------------------
+
+    def _parse_ssec_headers(self, prefix: str):
+        """SSESpec from the SSE-C header triplet under ``prefix``, or
+        None when absent.  Validation order and messages follow
+        crypto.SSEC.ParseHTTP (cmd/crypto/header.go:208)."""
+        algo = self.headers.get(f"{prefix}-algorithm")
+        key_b64 = self.headers.get(f"{prefix}-key")
+        md5_b64 = self.headers.get(f"{prefix}-key-MD5")
+        if algo is None and key_b64 is None and md5_b64 is None:
+            return None
+        if not getattr(self.s3, "tls", False):
+            # ErrInsecureSSECustomerRequest: keys must never ride
+            # plaintext HTTP
+            raise S3Error(
+                "InvalidRequest",
+                "Requests specifying Server Side Encryption with "
+                "Customer provided keys must be made over a secure "
+                "connection.",
+            )
+        if algo != "AES256":
+            raise S3Error(
+                "InvalidArgument",
+                "Requests specifying Server Side Encryption with "
+                "Customer provided keys must provide a valid "
+                "encryption algorithm.",
+            )
+        if not key_b64:
+            raise S3Error(
+                "InvalidArgument",
+                "Requests specifying Server Side Encryption with "
+                "Customer provided keys must provide an appropriate "
+                "secret key.",
+            )
+        if not md5_b64:
+            raise S3Error(
+                "InvalidArgument",
+                "Requests specifying Server Side Encryption with "
+                "Customer provided keys must provide the client "
+                "calculated MD5 of the secret key.",
+            )
+        try:
+            key = base64.b64decode(key_b64, validate=True)
+        except ValueError:
+            raise S3Error(
+                "InvalidArgument", "The secret key was invalid."
+            ) from None
+        if len(key) != 32:
+            raise S3Error(
+                "InvalidArgument",
+                "The secret key was invalid for the specified "
+                "algorithm.",
+            )
+        if ssemod.key_md5_b64(key) != md5_b64:
+            raise S3Error(
+                "InvalidArgument",
+                "The calculated MD5 hash of the key did not match "
+                "the hash that was provided.",
+            )
+        return ssemod.SSESpec("C", key)
+
+    def _request_sse(self, bucket: str):
+        """Encryption intent of a write (PUT/copy-dest/initiate-
+        multipart): explicit SSE-C or SSE-S3 headers, else the bucket's
+        default encryption config.  SSE-KMS requests return
+        NotImplemented exactly like the reference
+        (object-handlers.go:102)."""
+        spec = self._parse_ssec_headers(
+            "x-amz-server-side-encryption-customer"
+        )
+        algo = self.headers.get("x-amz-server-side-encryption")
+        if spec is not None:
+            if algo:
+                raise S3Error(
+                    "InvalidRequest",
+                    "SSE-C and SSE-S3 headers are mutually exclusive",
+                )
+            return spec
+        if algo is not None:
+            if algo == "aws:kms":
+                raise S3Error("NotImplemented", "SSE-KMS")
+            if algo != "AES256":
+                raise S3Error(
+                    "InvalidRequest",
+                    "The encryption method specified is not supported",
+                )
+            if not ssemod.sse_s3_available():
+                raise S3Error(
+                    "InvalidArgument",
+                    "Server side encryption specified but KMS is not "
+                    "configured",
+                )
+            return ssemod.SSESpec("S3")
+        # bucket-default SSE (PutBucketEncryption config): applied when
+        # the request itself is silent (validateAndGetSSE)
+        try:
+            raw = self.s3.bucket_meta.get(bucket).sse_config_xml
+        except Exception:  # noqa: BLE001 - missing bucket: no default
+            raw = ""
+        if raw and self._default_sse_algo(raw) == "AES256":
+            if not ssemod.sse_s3_available():
+                # the bucket DEMANDS encryption: storing plaintext
+                # because the KMS went away would silently violate it
+                raise S3Error(
+                    "InvalidArgument",
+                    "Bucket default encryption is configured but KMS "
+                    "is not configured",
+                )
+            return ssemod.SSESpec("S3")
+        return None
+
+    @staticmethod
+    def _default_sse_algo(raw: str) -> str:
+        """SSEAlgorithm of the bucket's default-encryption rule (parsed,
+        not substring-matched)."""
+        try:
+            root = ET.fromstring(raw)
+        except ET.ParseError:
+            return ""
+        for el in root.iter():
+            if el.tag.split("}")[-1] == "SSEAlgorithm":
+                return (el.text or "").strip()
+        return ""
+
+    def _copy_source_info_and_sse(self, src_bucket, src_key):
+        """(src_info, source read-spec) for copy operations."""
+        info = self.s3.object_layer.get_object_info(src_bucket, src_key)
+        return info, self._read_sse(info, copy_source=True)
+
+    def _read_info_and_sse(self, ol, bucket, key, version_id):
+        """(info, read-spec) for a GET/HEAD, checked before any header
+        goes out."""
+        info = ol.get_object_info(bucket, key, version_id)
+        return info, self._read_sse(info)
+
+    def _read_sse(self, info, copy_source: bool = False):
+        """Spec needed to READ ``info``; enforces that SSE-C objects are
+        fetched with their key and non-SSE-C objects without one
+        (getEncryptedObject guards, cmd/encryption-v1.go)."""
+        prefix = (
+            "x-amz-copy-source-server-side-encryption-customer"
+            if copy_source
+            else "x-amz-server-side-encryption-customer"
+        )
+        spec = self._parse_ssec_headers(prefix)
+        mode = (info.user_defined or {}).get(ssemod.META_SSE)
+        if mode == "C" and spec is None:
+            raise S3Error(
+                "InvalidRequest",
+                "The object was stored using a form of Server Side "
+                "Encryption. The correct parameters must be provided "
+                "to retrieve the object.",
+            )
+        if mode != "C" and spec is not None:
+            raise S3Error(
+                "InvalidRequest",
+                "Encryption parameters were provided but the object "
+                "is not encrypted with a customer key",
+            )
+        if mode == "C" and ssemod.key_md5_b64(spec.key) != (
+            info.user_defined.get(ssemod.META_SSE_KEY_MD5)
+        ):
+            # wrong key, detected BEFORE headers go out - a mid-stream
+            # decrypt failure can only abort the connection
+            raise S3Error(
+                "AccessDenied",
+                "The provided encryption key does not match the key "
+                "used to encrypt the object",
+            )
+        return spec if mode == "C" else None
+
+    @staticmethod
+    def _sse_response_headers(meta: dict) -> dict:
+        mode = (meta or {}).get(ssemod.META_SSE)
+        if mode == "C":
+            return {
+                "x-amz-server-side-encryption-customer-algorithm":
+                    "AES256",
+                "x-amz-server-side-encryption-customer-key-MD5":
+                    meta.get(ssemod.META_SSE_KEY_MD5, ""),
+            }
+        if mode == "S3":
+            return {"x-amz-server-side-encryption": "AES256"}
+        return {}
 
     def _delete_object(self, bucket, key, query):
         version_id = query.get("versionId", [""])[0]
@@ -1968,9 +2179,12 @@ class _Handler(BaseHTTPRequestHandler):
         if self.headers.get("x-amz-tagging-directive"):
             raise unported("object tagging", "9c")
         self._refuse_unported_put(bucket)
-        # the source is refused like a GET's: SSE headers, or an object
-        # the JAX package stored compressed or encrypted (slice 8)
-        self._read_info(self.s3.object_layer, src_bucket, src_key, "")
+        # decrypt with the copy-source key, re-encrypt under the
+        # destination's regime (request headers or bucket default)
+        _src_info, sse_src = self._copy_source_info_and_sse(
+            src_bucket, src_key
+        )
+        sse_dst = self._request_sse(bucket)
         meta = (
             self._collect_user_metadata()
             if directive == "REPLACE"
@@ -1978,7 +2192,8 @@ class _Handler(BaseHTTPRequestHandler):
         )
         versioned, _ = self._versioning(bucket)
         info = self.s3.object_layer.copy_object(
-            src_bucket, src_key, bucket, key, meta, versioned=versioned,
+            src_bucket, src_key, bucket, key, meta,
+            versioned=versioned, sse_src=sse_src, sse=sse_dst,
         )
         hdrs = (
             {"x-amz-version-id": info.version_id}
@@ -2000,16 +2215,30 @@ class _Handler(BaseHTTPRequestHandler):
     def _initiate_multipart(self, bucket, key):
         # lock headers and tagging ride an initiate as they ride a PUT
         # (checkPutObjectLockAllowed in NewMultipartUploadHandler), and
-        # so do replication and SSE; the object layer refuses an upload
-        # it would compress
-        self._refuse_bucket_config(
-            bucket, "object_lock_xml", "replication_xml", "sse_config_xml"
-        )
+        # so does replication; SSE is sealed once per upload and the
+        # object layer decides compression once per upload
+        self._refuse_bucket_config(bucket, "object_lock_xml", "replication_xml")
         self._refuse_lock_and_tag_headers()
-        self._refuse_sse_headers()
         meta = self._collect_user_metadata()
-        uid = self.s3.object_layer.new_multipart_upload(bucket, key, meta)
-        self._respond(200, xmlr.initiate_multipart_xml(bucket, key, uid))
+        sse = self._request_sse(bucket)
+        uid = self.s3.object_layer.new_multipart_upload(
+            bucket, key, meta, sse
+        )
+        hdrs = {}
+        if sse is not None:
+            hdrs = (
+                {
+                    "x-amz-server-side-encryption-customer-algorithm":
+                        "AES256",
+                    "x-amz-server-side-encryption-customer-key-MD5":
+                        ssemod.key_md5_b64(sse.key),
+                }
+                if sse.mode == "C"
+                else {"x-amz-server-side-encryption": "AES256"}
+            )
+        self._respond(
+            200, xmlr.initiate_multipart_xml(bucket, key, uid), hdrs
+        )
 
     def _part_number(self, query) -> int:
         try:
@@ -2025,26 +2254,36 @@ class _Handler(BaseHTTPRequestHandler):
         reader, size = self._open_body()
         if size > MAX_OBJECT_SIZE:
             raise S3Error("EntityTooLarge")
-        # a part passes the quota and takes SSE-C headers
+        # a part passes the quota
         self._refuse_bucket_config(bucket, "quota_json")
-        self._refuse_sse_headers()
         hreader = self._hash_reader(reader, size)
+        # SSE-C uploads must present the key on every part
+        # (PutObjectPartHandler re-derives the seal per part)
+        part_sse = self._parse_ssec_headers(
+            "x-amz-server-side-encryption-customer"
+        )
         pi = self.s3.object_layer.put_object_part(
-            bucket, key, uid, pnum, hreader, size
+            bucket, key, uid, pnum, hreader, size, part_sse
         )
         self._respond(200, b"", {"ETag": f'"{pi.etag}"'})
 
     def _upload_part_copy(self, bucket, key, query):
         """UploadPartCopy (CopyObjectPartHandler,
-        object-handlers.go:795): stream a source object (or byte
-        range of it) in as one part."""
+        object-handlers.go:795): stream a source object (or byte range
+        of it) in as one part - decrypt with the copy-source key,
+        re-encrypt under the upload's regime."""
         from ..utils.pipe import streaming_copy
 
         uid = query["uploadId"][0]
         pnum = self._part_number(query)
         src_bucket, src_key = self._parse_copy_source()
         ol = self.s3.object_layer
-        src_info = self._read_info(ol, src_bucket, src_key, "")
+        src_info, sse_src = self._copy_source_info_and_sse(
+            src_bucket, src_key
+        )
+        part_sse = self._parse_ssec_headers(
+            "x-amz-server-side-encryption-customer"
+        )
         offset, length = 0, -1
         rng = self.headers.get("x-amz-copy-source-range")
         if rng:
@@ -2075,10 +2314,11 @@ class _Handler(BaseHTTPRequestHandler):
         # while this thread encodes the part from it
         pi = streaming_copy(
             lambda sink: ol.get_object(
-                src_bucket, src_key, sink, offset, length
+                src_bucket, src_key, sink, offset, length, "", sse_src
             ),
             lambda source: ol.put_object_part(
-                bucket, key, uid, pnum, HashReader(source, size), size,
+                bucket, key, uid, pnum,
+                HashReader(source, size), size, part_sse,
             ),
         )
         self._respond(

@@ -265,6 +265,12 @@ def from_exception(e: Exception) -> APIError:
         return e.err
     if isinstance(e, AuthError):
         return get(e.code, str(e) if str(e) else "")
+    from ..codec.sse import SSEError
+
+    if isinstance(e, SSEError):
+        # wrong key / missing KMS / tampered ciphertext
+        # (toAPIErrorCode maps crypto errors onto AccessDenied)
+        return get("AccessDenied", str(e))
     if isinstance(e, NotImplementedError):
         # a feature this package has not ported yet: the message names
         # the slice that brings it

@@ -104,9 +104,13 @@ def _run_select(handler, bucket, key, info, sel) -> None:
                     None, info.size, out.write, device_source=src
                 )
             else:
-                # full-object read through the erasure decode; an SSE
-                # or compressed object was refused before (slice 8)
-                handler.s3.object_layer.get_object(bucket, key, spool)
+                # full-object read through the erasure/SSE/compression
+                # stack.  SSE-C objects are selectable with their key
+                # (the reference routes select reads through
+                # getObjectNInfo, which decrypts)
+                handler.s3.object_layer.get_object(
+                    bucket, key, spool, sse=handler._read_sse(info)
+                )
                 spool.seek(0)
                 sel.evaluate(_spool_reader(spool), info.size, out.write)
         except SelectError as e:

@@ -514,29 +514,55 @@ def test_ec_8_4(tmp_path, monkeypatch):
 
 
 def test_unported_transforms_name_slice_8(tmp_path, monkeypatch):
-    """Compression and SSE of an upload raise where the JAX package
-    would compress a part or seal a key."""
+    """Compression and SSE of an upload (slice 8) are served as the JAX
+    package serves them (the test keeps the name of the refusal it
+    replaced): an upload initiated compressed stores the same deflate
+    part files, an excluded type is stored plain, and an upload the JAX
+    package initiated compressed is completed by the port and read back
+    by both."""
+    from minio_tpu_torch.codec import sse as tsse
+
     monkeypatch.setenv("MINIO_MESH", "0")
     pair = Pair(tmp_path)
+    parts = [bytes(48 + i % 16 for i in range(n)) for n in PART_SIZES]
     monkeypatch.setenv("MINIO_TPU_COMPRESS", "on")
-    with pytest.raises(NotImplementedError, match="slice 8"):
-        pair.port.new_multipart_upload("bkt", "log.txt")
-    # an excluded type is stored as the JAX package stores it
+    tid = pair.port.new_multipart_upload("bkt", "log.txt")
+    jid = pair.ref.new_multipart_upload("bkt", "log.txt")
+    tinfo = [pair.port.put_object_part("bkt", "log.txt", tid, n,
+                                       io.BytesIO(p), len(p))
+             for n, p in enumerate(parts, 1)]
+    jinfo = [pair.ref.put_object_part("bkt", "log.txt", jid, n,
+                                      io.BytesIO(p), len(p))
+             for n, p in enumerate(parts, 1)]
+    assert [p.size for p in tinfo] == [p.size for p in jinfo] == list(
+        PART_SIZES)
+    _completes(pair, "log.txt", tid, jid, tinfo, jinfo)
+    for t, j in zip(pair.troots, pair.jroots):
+        assert _object(t, "log.txt") == _object(j, "log.txt")
+    assert _get(pair.port, "log.txt") == b"".join(parts)
+    # an excluded type is stored as the JAX package stores it: plain
     uid = pair.port.new_multipart_upload(
         "bkt", "clip.mp4", {"content-type": "video/mp4"})
     monkeypatch.delenv("MINIO_TPU_COMPRESS")
-    with pytest.raises(NotImplementedError, match="slice 8"):
-        pair.port.new_multipart_upload("bkt", "k", sse=object())
-    with pytest.raises(NotImplementedError, match="slice 8"):
+    # a customer key on a part of an upload not initiated with one
+    with pytest.raises(tsse.SSEError, match="customer-key"):
         pair.port.put_object_part(
-            "bkt", "clip.mp4", uid, 1, io.BytesIO(b"x"), 1, sse=object())
-    # an upload the JAX package initiated compressed is refused, not
-    # stored uncompressed
+            "bkt", "clip.mp4", uid, 1, io.BytesIO(b"x"), 1,
+            tsse.SSESpec("C", bytes(32)))
+    # an upload the JAX package initiated compressed is continued by the
+    # port: its parts are deflated as the JAX package deflates them
     monkeypatch.setenv("MINIO_TPU_COMPRESS", "on")
     ref = JaxObjects([JaxStorage(r) for r in pair.troots], parity_blocks=M,
                      block_size=BLOCK)
-    juid = ref.new_multipart_upload("bkt", "log.txt")
+    ref.min_part_size = MIN_PART
+    juid = ref.new_multipart_upload("bkt", "log2.txt")
     monkeypatch.delenv("MINIO_TPU_COMPRESS")
-    with pytest.raises(NotImplementedError, match="slice 8"):
-        pair.port.put_object_part(
-            "bkt", "log.txt", juid, 1, io.BytesIO(b"x"), 1)
+    done = [pair.port.put_object_part("bkt", "log2.txt", juid, n,
+                                      io.BytesIO(p), len(p))
+            for n, p in enumerate(parts, 1)]
+    pair.port.complete_multipart_upload(
+        "bkt", "log2.txt", juid,
+        [CompletePart(p.part_number, p.etag) for p in done])
+    for ol in (pair.port, ref):
+        assert _get(ol, "log2.txt") == b"".join(parts)
+        assert ol.get_object_info("bkt", "log2.txt").size == sum(PART_SIZES)

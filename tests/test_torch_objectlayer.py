@@ -204,20 +204,37 @@ def test_overwrite_and_delete(tmp_path):
 
 
 def test_unported_features_raise(sets, tmp_path, monkeypatch):
-    port, _ref, _t, _j = sets
-    with pytest.raises(NotImplementedError, match="slice 8"):
-        port.put_object("bkt", "z", io.BytesIO(b"x" * 8192), 8192, compress=True)
+    """Compression and SSE (slice 8) are served as the JAX package serves
+    them; early parity ack still names its slice."""
+    port, ref, troots, jroots = sets
+    data = b"x" * 8192
+    port.put_object("bkt", "z", io.BytesIO(data), 8192, compress=True)
+    ref.put_object("bkt", "z", io.BytesIO(data), 8192, compress=True)
+    for t, j in zip(troots, jroots):
+        assert _part(t, "z") == _part(j, "z")
+        assert _meta_doc(t, "z") == _meta_doc(j, "z")
+    assert _get(port, "z") == data
+    assert port.get_object_info("bkt", "z").size == 8192
     monkeypatch.setenv("MINIO_TPU_COMPRESS", "on")
     # an object the JAX package stores uncompressed (under 4 KiB) is
-    # stored; one it would compress is refused
+    # stored plain; one it would compress is compressed
     assert port.put_object("bkt", "z", io.BytesIO(b"x"), 1).size == 1
-    with pytest.raises(NotImplementedError, match="slice 8"):
-        port.put_object("bkt", "z.txt", io.BytesIO(b"x" * 8192), 8192)
+    assert "x-internal-compression" not in _meta_doc(troots[0], "z")[0]["metadata"]
+    port.put_object("bkt", "z.txt", io.BytesIO(data), 8192)
+    assert _meta_doc(troots[0], "z.txt")[0]["metadata"][
+        "x-internal-compression"] == "deflate/v1"
+    assert _get(port, "z.txt") == data
     monkeypatch.delenv("MINIO_TPU_COMPRESS")
-    with pytest.raises(NotImplementedError, match="slice 8"):
-        port.put_object("bkt", "z", io.BytesIO(b"x"), 1, sse=object())
+    # SSE-C: stored sealed, read back with the key only
+    from minio_tpu_torch.codec import sse as tsse
+
+    key = bytes(range(32))
+    port.put_object("bkt", "enc", io.BytesIO(data), 8192,
+                    sse=tsse.SSESpec("C", key))
+    assert _get(port, "enc", sse=tsse.SSESpec("C", key)) == data
+    with pytest.raises(tsse.SSEError):
+        _get(port, "enc")
     # heal is ported: a shard lost on one disk comes back byte-identical
-    _port, _ref, troots, _j = sets
     d = sorted(_dead(troots, "block"))[0]
     before = _part(troots[d], "block")
     shard = XLStorage(troots[d]).read_version("bkt", "block").erasure.index - 1
@@ -228,14 +245,16 @@ def test_unported_features_raise(sets, tmp_path, monkeypatch):
     with pytest.raises(NotImplementedError, match="slice 11"):
         port.put_object("bkt", "z", io.BytesIO(b"x"), 1)
     monkeypatch.delenv("MINIO_TPU_PARITY_ACK")
-    # an object the JAX package stored compressed is refused, not misread
-    jroots = [str(tmp_path / f"c{i}") for i in range(N)]
-    ref = JaxObjects([JaxStorage(r) for r in jroots], parity_blocks=M, block_size=BLOCK)
-    ref.make_bucket("bkt")
-    ref.put_object("bkt", "c", io.BytesIO(b"a" * 8192), 8192, compress=True)
-    ol = from_reference_disks(jroots, parity_blocks=M, block_size=BLOCK, device="cpu")
-    with pytest.raises(NotImplementedError, match="slice 8"):
-        _get(ol, "c")
+    # an object the JAX package stored compressed is read, not refused
+    jroots2 = [str(tmp_path / f"c{i}") for i in range(N)]
+    ref2 = JaxObjects([JaxStorage(r) for r in jroots2], parity_blocks=M,
+                      block_size=BLOCK)
+    ref2.make_bucket("bkt")
+    ref2.put_object("bkt", "c", io.BytesIO(b"a" * 8192), 8192, compress=True)
+    ol = from_reference_disks(jroots2, parity_blocks=M, block_size=BLOCK,
+                              device="cpu")
+    assert _get(ol, "c") == b"a" * 8192
+    assert _get(ol, "c", offset=4000, length=100) == b"a" * 100
 
 
 # MINIO_TPU_COMPRESS=on: (name, content-type, size) the JAX package stores
@@ -268,16 +287,24 @@ def test_compress_on_stores_what_the_reference_stores_plain(
 def test_compress_on_refuses_what_the_reference_compresses(
     sets, monkeypatch
 ):
-    port, ref, _troots, jroots = sets
+    """MINIO_TPU_COMPRESS=on: what the JAX package compresses, the port
+    now compresses too (the test keeps the name of the refusal it
+    replaced): the same deflate part files and xl.meta on every disk,
+    the client-visible size and a range read through the decompressor."""
+    port, ref, troots, jroots = sets
     monkeypatch.setenv("MINIO_TPU_COMPRESS", "on")
     size = 64 * 1024
     data = b"compressible text " * (size // 18) + b"x" * (size % 18)
     ref.put_object("bkt", "notes.txt", io.BytesIO(data), size)
+    port.put_object("bkt", "notes.txt", io.BytesIO(data), size)
     assert "x-internal-compression" in str(_meta_doc(jroots[0], "notes.txt"))
-    with pytest.raises(NotImplementedError, match="slice 8"):
-        port.put_object("bkt", "notes.txt", io.BytesIO(data), size)
-    with pytest.raises(api.ObjectNotFound):
-        port.get_object_info("bkt", "notes.txt")
+    for t, j in zip(troots, jroots):
+        assert _part(t, "notes.txt") == _part(j, "notes.txt")
+        assert _meta_doc(t, "notes.txt") == _meta_doc(j, "notes.txt")
+    assert len(_part(troots[0], "notes.txt")) < size // (N - M)
+    assert port.get_object_info("bkt", "notes.txt").size == size
+    assert _get(port, "notes.txt") == data
+    assert _get(port, "notes.txt", offset=5000, length=300) == data[5000:5300]
 
 
 def test_healthy_get_verifies_each_data_shard_once(monkeypatch):

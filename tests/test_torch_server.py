@@ -43,7 +43,9 @@ from minio_tpu.objectlayer.erasure_object import ErasureObjects as JaxObjects
 from minio_tpu.server import auth as jauth
 from minio_tpu.server.http import S3Server as JaxServer
 from minio_tpu.storage.xl import XLStorage as JaxStorage
+from minio_tpu.codec import kms as jkms
 from minio_tpu_torch.codec import backend as tbackend
+from minio_tpu_torch.codec import kms as tkms
 from minio_tpu_torch.objectlayer import bucket_meta as tbucket_meta
 from minio_tpu_torch.objectlayer.api import ObjectNotFound
 from minio_tpu_torch.objectlayer.erasure_object import ErasureObjects
@@ -572,12 +574,6 @@ UNPORTED = [
     # its routes of unported features name their slices
     ("admin", "9b", lambda c: c.request(
         "GET", "/minio-tpu/admin/v1/datausage")),
-    ("sse_s3_put", "8", lambda c: c.put_object(
-        "bkt", "enc", b"x", headers={"x-amz-server-side-encryption": "AES256"})),
-    ("sse_kms_put", "8", lambda c: c.put_object(
-        "bkt", "enc", b"x", headers={"x-amz-server-side-encryption": "aws:kms"})),
-    ("sse_c_get", "8", lambda c: c.get_object("bkt", "obj", headers={
-        "x-amz-server-side-encryption-customer-algorithm": "AES256"})),
     ("web_rpc", "9c", lambda c: _raw(_ep(c), "POST", "/minio-tpu/webrpc")),
     ("console", "9c", lambda c: _raw(_ep(c), "GET", "/minio-tpu/console")),
     ("sts", "9c", lambda c: c.request(
@@ -611,8 +607,6 @@ UNPORTED = [
         "PUT", "/bkt", query={"lifecycle": ""}, body=b"<Lifecycle/>")),
     ("bucket_notification", "9c", lambda c: c.request(
         "GET", "/bkt", query={"notification": ""})),
-    ("bucket_encryption", "9c", lambda c: c.request(
-        "DELETE", "/bkt", query={"encryption": ""})),
     ("bucket_replication", "9c", lambda c: c.request(
         "GET", "/bkt", query={"replication": ""})),
     ("object_acl", "9c", lambda c: c.request(
@@ -652,6 +646,124 @@ def test_unported_bucket_config_refuses_put(port_server, field, slice_name):
     # nothing was written
     with pytest.raises(ObjectNotFound):
         srv.object_layer.get_object_info(bucket, "k")
+
+
+# -- slice 8's routes, once refused, held against the JAX package ----------
+
+SSE_CONFIG = (
+    b'<ServerSideEncryptionConfiguration xmlns="http://s3.amazonaws.com/'
+    b'doc/2006-03-01/"><Rule><ApplyServerSideEncryptionByDefault>'
+    b"<SSEAlgorithm>AES256</SSEAlgorithm>"
+    b"</ApplyServerSideEncryptionByDefault></Rule>"
+    b"</ServerSideEncryptionConfiguration>"
+)
+
+
+@pytest.fixture(scope="module")
+def both_servers(tmp_path_factory):
+    """A JAX and a port server over plain HTTP, one master key in both
+    packages' KMS; bucket ``bkt`` holds ``obj``."""
+    mk = bytes(range(32))
+    with pytest.MonkeyPatch.context() as mp:
+        mp.setenv("MINIO_TPU_SERVER", "threaded")
+        mp.setenv("MINIO_MESH", "0")
+        tkms.set_kms(tkms.MasterKeyKMS("mk1", mk))
+        jkms.set_kms(jkms.MasterKeyKMS("mk1", mk))
+        base = tmp_path_factory.mktemp("sse-both")
+        srvs = {
+            kind: _start(kind, [str(base / f"{kind}{i}") for i in range(N)])
+            for kind in ("jax", "port")
+        }
+        clients = {k: S3Client(v.endpoint) for k, v in srvs.items()}
+        for c in clients.values():
+            assert c.make_bucket("bkt").status == 200
+            assert c.make_bucket("encb").status == 200
+            assert c.put_object("bkt", "obj", b"hello").status == 200
+        try:
+            yield srvs, clients
+        finally:
+            for srv in srvs.values():
+                srv.shutdown()
+            for mod in (tkms, jkms):
+                mod.set_kms(None)
+                mod.reset_kms_cache()
+
+
+# (name, expected status, request): sent to both servers in this order
+SSE_SERVED = [
+    ("sse_s3_put", 200, lambda c: c.put_object(
+        "bkt", "enc", b"x" * 5000,
+        headers={"x-amz-server-side-encryption": "AES256"})),
+    ("sse_s3_get", 200, lambda c: c.get_object("bkt", "enc")),
+    ("sse_s3_head", 200, lambda c: c.head_object("bkt", "enc")),
+    ("sse_kms_put", 501, lambda c: c.put_object(
+        "bkt", "enc", b"x", headers={"x-amz-server-side-encryption": "aws:kms"})),
+    ("sse_bad_algo_put", 400, lambda c: c.put_object(
+        "bkt", "enc", b"x", headers={"x-amz-server-side-encryption": "DES"})),
+    ("sse_c_get", 400, lambda c: c.get_object("bkt", "obj", headers={
+        "x-amz-server-side-encryption-customer-algorithm": "AES256"})),
+    ("bucket_encryption_get_missing", 404, lambda c: c.request(
+        "GET", "/encb", query={"encryption": ""})),
+    ("bucket_encryption_put_kms", 501, lambda c: c.request(
+        "PUT", "/encb", query={"encryption": ""},
+        body=SSE_CONFIG.replace(b"AES256", b"aws:kms"))),
+    ("bucket_encryption_put_malformed", 400, lambda c: c.request(
+        "PUT", "/encb", query={"encryption": ""}, body=b"<not-xml")),
+    ("bucket_encryption_put", 200, lambda c: c.request(
+        "PUT", "/encb", query={"encryption": ""}, body=SSE_CONFIG)),
+    ("bucket_encryption_get", 200, lambda c: c.request(
+        "GET", "/encb", query={"encryption": ""})),
+    ("bucket_default_put", 200, lambda c: c.put_object(
+        "encb", "d", b"default encrypted")),
+    ("bucket_default_head", 200, lambda c: c.head_object("encb", "d")),
+    ("bucket_encryption", 204, lambda c: c.request(
+        "DELETE", "/encb", query={"encryption": ""})),
+    ("bucket_plain_put", 200, lambda c: c.put_object("encb", "p", b"plain")),
+]
+
+
+@pytest.mark.parametrize(
+    "name,status,send", SSE_SERVED, ids=[u[0] for u in SSE_SERVED]
+)
+def test_sse_route_answers_as_the_reference(both_servers, name, status,
+                                            send):
+    """The routes and headers that slice 8 ports, refused as
+    NotImplemented before, answer as the JAX package's server answers:
+    SSE-S3 under a KMS, SSE-KMS NotImplemented, SSE-C over plain HTTP
+    InvalidRequest, and the bucket ``?encryption`` documents."""
+    _srvs, clients = both_servers
+    got = {k: _normalize(_res(send(c))) for k, c in clients.items()}
+    assert got["port"] == got["jax"]
+    assert got["port"][0] == status, got["port"]
+    if name in ("sse_s3_put", "sse_s3_get", "bucket_default_put",
+                "bucket_default_head"):
+        assert got["port"][1]["x-amz-server-side-encryption"] == "AES256"
+    if name == "bucket_plain_put":
+        assert "x-amz-server-side-encryption" not in got["port"][1]
+
+
+def test_bucket_default_encryption_is_stored_sealed(both_servers):
+    """A bucket whose document sets a default rule (as the JAX package's
+    ``?encryption`` route writes it) stores SSE-S3 objects: the seam that
+    refused ``sse_config_xml`` now applies it, and the object's metadata
+    carries the same transform as the JAX package's."""
+    srvs, clients = both_servers
+    metas = {}
+    for kind, srv in srvs.items():
+        srv.bucket_meta.update("bkt", sse_config_xml=SSE_CONFIG.decode())
+        r = clients[kind].put_object("bkt", "dflt", b"payload" * 100)
+        assert r.status == 200
+        assert r.headers["x-amz-server-side-encryption"] == "AES256"
+        srv.bucket_meta.update("bkt", sse_config_xml="")
+        info = srv.object_layer.get_object_info("bkt", "dflt")
+        metas[kind] = {k: v for k, v in info.user_defined.items()
+                       if k.startswith("x-internal-sse")
+                       and not k.endswith(("sealed-key", "sealed-dk",
+                                           "nonce"))}
+        assert info.size == 700
+        assert clients[kind].get_object("bkt", "dflt").body == b"payload" * 100
+    assert metas["port"] == metas["jax"]
+    assert metas["port"]["x-internal-sse"] == "S3"
 
 
 @pytest.mark.parametrize("field,versioned,status", [

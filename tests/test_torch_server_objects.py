@@ -549,16 +549,82 @@ def test_concurrent_copies_and_part_uploads(port_server, tmp_path):
                 assert have[rel] == jparts, rel
 
 
-@pytest.mark.parametrize("name,slice_name,send", [
-    ("copy_sse_header", "8", lambda c: c.put_object(
+# slice 8's seams, refused before: (name, expected status, request), sent
+# to a JAX and a port server alike
+SSE_SEAMS = [
+    ("copy_sse_header", 200, lambda c: c.put_object(
         "bkt", "c", b"", headers={
             "x-amz-copy-source": "/bkt/obj",
             "x-amz-server-side-encryption": "AES256"})),
-    ("copy_source_sse_c", "8", lambda c: c.put_object(
+    ("copy_sse_header_get", 200, lambda c: c.get_object("bkt", "c")),
+    ("copy_source_sse_c", 400, lambda c: c.put_object(
         "bkt", "c", b"", headers={
             "x-amz-copy-source": "/bkt/obj",
             "x-amz-copy-source-server-side-encryption-customer-algorithm":
                 "AES256"})),
+    ("initiate_sse", 200, lambda c: c.request(
+        "POST", "/bkt/m", query={"uploads": ""},
+        headers={"x-amz-server-side-encryption": "AES256"})),
+    ("initiate_compressed", 200, lambda c: c.request(
+        "POST", "/bkt/m.txt", query={"uploads": ""})),
+]
+
+
+@pytest.fixture(scope="module")
+def sse_servers(tmp_path_factory):
+    """A JAX and a port server over plain HTTP, one master key in both
+    packages' KMS, MINIO_TPU_COMPRESS=on; ``bkt/obj`` stored in each."""
+    from minio_tpu.codec import kms as jkms
+    from minio_tpu_torch.codec import kms as tkms
+
+    mk = bytes(range(32))
+    with pytest.MonkeyPatch.context() as mp:
+        mp.setenv("MINIO_TPU_SERVER", "threaded")
+        mp.setenv("MINIO_MESH", "0")
+        mp.setenv("MINIO_TPU_COMPRESS", "on")
+        tkms.set_kms(tkms.MasterKeyKMS("mk1", mk))
+        jkms.set_kms(jkms.MasterKeyKMS("mk1", mk))
+        base = tmp_path_factory.mktemp("sse-seams")
+        srvs = {
+            kind: _start(kind, [str(base / f"{kind}{i}") for i in range(N)])
+            for kind in ("jax", "port")
+        }
+        clients = {k: S3Client(v.endpoint) for k, v in srvs.items()}
+        for c in clients.values():
+            assert c.make_bucket("bkt").status == 200
+            assert c.put_object("bkt", "obj", SRC).status == 200
+        try:
+            yield srvs, clients
+        finally:
+            for srv in srvs.values():
+                srv.shutdown()
+            for mod in (tkms, jkms):
+                mod.set_kms(None)
+                mod.reset_kms_cache()
+
+
+@pytest.mark.parametrize("name,status,send", SSE_SEAMS,
+                         ids=[u[0] for u in SSE_SEAMS])
+def test_sse_seams_answer_as_the_reference(sse_servers, name, status, send):
+    """CopyObject to an SSE-S3 destination, a copy source's SSE-C
+    headers over plain HTTP, and an upload initiated encrypted or
+    compressed answer as the JAX package's server answers them."""
+    _srvs, clients = sse_servers
+    got = {}
+    for kind, c in clients.items():
+        st, hdrs, body = _normalize(_res(send(c)))
+        body = re.sub(rb"<UploadId>[^<]+</UploadId>", b"<UploadId/>", body)
+        got[kind] = (st, hdrs, body)
+    assert got["port"] == got["jax"]
+    assert got["port"][0] == status, got["port"]
+    if name == "copy_sse_header_get":
+        assert got["port"][2] == SRC
+        assert got["port"][1]["x-amz-server-side-encryption"] == "AES256"
+    if name == "initiate_sse":
+        assert got["port"][1]["x-amz-server-side-encryption"] == "AES256"
+
+
+@pytest.mark.parametrize("name,slice_name,send", [
     ("copy_tagging_directive", "9c", lambda c: c.put_object(
         "bkt", "c", b"", headers={"x-amz-copy-source": "/bkt/obj",
                                   "x-amz-tagging-directive": "REPLACE"})),
@@ -568,24 +634,17 @@ def test_concurrent_copies_and_part_uploads(port_server, tmp_path):
     ("copy_legal_hold", "9c", lambda c: c.put_object(
         "bkt", "c", b"", headers={"x-amz-copy-source": "/bkt/obj",
                                   "x-amz-object-lock-legal-hold": "ON"})),
-    ("initiate_sse", "8", lambda c: c.request(
-        "POST", "/bkt/m", query={"uploads": ""},
-        headers={"x-amz-server-side-encryption": "AES256"})),
     ("initiate_tagging", "9c", lambda c: c.request(
         "POST", "/bkt/m", query={"uploads": ""},
         headers={"x-amz-tagging": "a=b"})),
     ("initiate_retention", "9c", lambda c: c.request(
         "POST", "/bkt/m", query={"uploads": ""},
         headers={"x-amz-object-lock-mode": "GOVERNANCE"})),
-    ("initiate_compressed", "8", lambda c: c.request(
-        "POST", "/bkt/m.txt", query={"uploads": ""})),
 ], ids=lambda v: v if isinstance(v, str) else "")
 def test_seams_name_their_slice(port_server, monkeypatch, name, slice_name,
                                 send):
     srv, c = port_server
     assert c.put_object("bkt", "obj", b"hello").status == 200
-    if name == "initiate_compressed":
-        monkeypatch.setenv("MINIO_TPU_COMPRESS", "on")
     status, _h, body = _res(send(c))
     assert status == 501, body
     assert f"(slice {slice_name})".encode() in body
