@@ -152,6 +152,26 @@
    ``miniotpu_select_*`` families must move, ``run_device`` over
    ``as_device_plane`` of the object on the card must answer Q1 (K11),
    and K8-K11, K2 and K3 must launch.  Prints the ``select:`` line.
+9b. The tiered read cache (``read_cache_phase``): on a fresh S3Server and
+   disks of the same deployment with MINIO_TPU_READ_CACHE=device (the hot
+   tier on the card) and RC_ENV's 1 GiB tiers and 2 GiB budget, 8 x 64
+   MiB PUT (populating the device tier) and read 4 times by 4 clients,
+   all device hits; 16 x 64 MiB PUT and read once, after which every hot
+   group is still on the device; one hot GET through the object layer
+   with no disk call but the bucket check (K2 launches counted); a byte
+   flipped in a device-tier tensor dropped by the hit's verification
+   (``verify_drops``), served from disk and admitted again; the cache
+   cleared and shards 1, 3, 10, 12 offline: the miss launches K3 and K2
+   and admits the rebuilt rows, the next GET a device hit; invalidation
+   by overwrite, DELETE (404), ``heal_object`` and
+   ``update_object_meta`` (the FileInfo side-car entry drops); the admin
+   ``read-cache-clear``, then Select Q1 over the 256 MiB lineitem object
+   scanned from the device tier (``device_scan_source``, no shard reader
+   opened, K8-K11) against the host engine's Records; admin
+   ``read-cache-stats``, healthinfo and the ``miniotpu_cache_*``
+   families against the cache's stats; last the hot set's GET MB/s
+   under ``host`` and ``off``, the cache reset between modes.  Prints
+   the ``read_cache:`` line.
 10. The server as users start it (``boot_phase``): ``python -m
    minio_tpu_torch.server --parity 4`` over 24 temp-dir drives in a
    process of its own, on the async plane and the card (neither
@@ -181,6 +201,7 @@ when any phase fails.
 
 from __future__ import annotations
 
+import functools
 import io
 import json
 import os
@@ -3567,10 +3588,13 @@ SELECT_QUERIES = {
 SELECT_FALLBACK = {"Q1": None, "Q2": None, "Q3": "overflow", "Q4": "ratio"}
 
 
+@functools.lru_cache(maxsize=2)
 def lineitem_csv(seed: int, nbytes: int) -> bytes:
     """About ``nbytes`` (whole rows, at most nbytes) of lineitem rows from
     ``seed``: keys, part, supplier and line numbers per row; the other
-    twelve fields of each row drawn from 65,536 rows made from the seed."""
+    twelve fields of each row drawn from 65,536 rows made from the seed.
+    The last two objects are kept: the read-cache phase scans the select
+    phase's object again, and making it takes seconds."""
     import numpy as np
 
     rng = np.random.default_rng(seed)
@@ -4272,6 +4296,476 @@ def select_phase(dev, work: str) -> dict:
     return out
 
 
+# -- phase 9b: the tiered read cache (slice 9a) --------------------------------
+
+RC_HOT = 8  # hot objects of S3_BIG each
+RC_COLD = 16  # one-shot scan objects of S3_BIG each
+RC_GETS = 4  # GETs of each hot object a pass (one a client)
+# cut by the run's time, not by the card's 80 GB: a 1 GiB device tier,
+# a 1 GiB host tier and a 2 GiB device budget for every plane
+RC_ENV = {"MINIO_TPU_READ_CACHE_DEVICE_MB": "1024",
+          "MINIO_TPU_READ_CACHE_MB": "1024",
+          "MINIO_TPU_DEVICE_BUDGET_MB": "2048"}
+
+
+def _disk_calls(disks) -> dict:
+    """api -> calls summed over the metered disks."""
+    out: dict = {}
+    for d in disks:
+        if d is None:
+            continue
+        for api, row in d.api_stats().items():
+            out[api] = out.get(api, 0) + row["calls"]
+    return out
+
+
+def _moved(a: dict, b: dict) -> dict:
+    return {k: v - a.get(k, 0) for k, v in b.items() if v != a.get(k, 0)}
+
+
+class _Sink:
+    """A GET's writer that counts the bytes and keeps none."""
+
+    def __init__(self):
+        self.n = 0
+
+    def write(self, b):
+        self.n += len(b)
+
+
+def _ol_get_s(ol, key: str, reps: int = 3) -> list:
+    """Seconds of each of ``reps`` object-layer GETs of ``key`` (no HTTP)."""
+    out = []
+    for _ in range(reps):
+        sink = _Sink()
+        t0 = time.monotonic()
+        ol.get_object("bench", key, sink)
+        out.append(time.monotonic() - t0)
+        if sink.n != S3_BIG:
+            fail(f"read_cache: an object-layer GET of {key} wrote {sink.n} bytes")
+    return out
+
+
+def hit_breakdown(c, be, key) -> dict:
+    """Where one device-tier hit's time goes, piece by piece on one cached
+    group: K2 over the resident rows (CUDA events), the verify with its
+    digest readback, the D2H copy of the rows into fresh pageable memory,
+    the copy-out of the blocks, and the whole ``lookup`` (host clock,
+    synchronized); medians of 5."""
+    import statistics
+
+    import numpy as np
+    import torch
+
+    from minio_tpu_torch.cache import tiered
+    from minio_tpu_torch.ops import codec_step
+
+    ent = c._tiers["device"][key]
+    t, dig = ent.data, ent.digests
+    L = t.shape[-1]
+    words = t.view(torch.int32)
+    k2 = cuda_ms(lambda: codec_step.digest_words_batched(words, L), 10)
+
+    def clock(fn) -> float:
+        got = []
+        for _ in range(5):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            fn()
+            torch.cuda.synchronize()
+            got.append((time.perf_counter() - t0) * 1e3)
+        return statistics.median(got)
+
+    rows = tiered._to_host(t)
+    block_len = BLOCK
+
+    def copy_out():
+        for gi in range(rows.shape[0]):
+            np.ascontiguousarray(rows[gi, :, :block_len // K]).reshape(-1)[:block_len]
+
+    return {
+        "group_bytes": int(t.numel()), "rows": int(t.shape[0] * t.shape[1]),
+        "k2_ms": k2,
+        "verify_ms": clock(lambda: tiered._verify_resident(t, dig)),
+        "d2h_ms": clock(lambda: tiered._to_host(t)),
+        "copy_out_ms": clock(copy_out),
+        "lookup_ms": clock(lambda: c.lookup(be, key, f"{key[0]}/{key[1]}")),
+    }
+
+
+def _prom_cache(signer) -> dict:
+    """The miniotpu_cache_* samples of the server's Prometheus page."""
+    st, _h, body = signer.request("GET", "/minio-tpu/prometheus/metrics")
+    if st != 200:
+        fail(f"read_cache: Prometheus answered {st}")
+    out = {}
+    for line in body.decode().splitlines():
+        if line.startswith("miniotpu_cache_"):
+            name, _sp, value = line.rpartition(" ")
+            out[name] = float(value)
+    return out
+
+
+def read_cache_phase(dev, work: str, sel: dict) -> dict:
+    """Phase 9b (slice 9a): the tiered read cache under the port's GET, on
+    the S3 phase's deployment (threaded plane, 4 SigV4 clients, 12
+    temp-dir disks, EC 8+4, 10 MiB blocks) with MINIO_TPU_READ_CACHE=device
+    and RC_ENV.  A hot set of RC_HOT x 64 MiB PUT (populating the device
+    tier) and read RC_GETS times over 4 clients; a one-shot scan of
+    RC_COLD x 64 MiB that must leave every hot group on the device; one
+    hot GET through the object layer with no shard or xl.meta read (K2
+    counted); a byte flipped in a device-tier tensor caught by the hit's
+    verification and re-admitted; a cleared cache and shards 1, 3, 10, 12
+    offline (a degraded miss: K3 and K2, admitted with fresh digests);
+    invalidation by overwrite, delete, heal and a metadata update; the
+    admin clear, then Select Q1 over the 256 MiB lineitem object scanned
+    from the device tier (no shard reader, K8-K11) against the host
+    engine; admin stats, healthinfo and the miniotpu_cache_* families
+    against the cache's stats; last the hot set's GET MB/s under ``host``
+    and ``off`` beside ``device`` (the cache reset between modes)."""
+    import hashlib
+
+    import numpy as np
+    import torch
+
+    from minio_tpu_torch import cache as rcache
+    from minio_tpu_torch.codec.telemetry import KERNEL_STATS
+    from minio_tpu_torch.objectlayer.erasure_object import ErasureObjects
+    from minio_tpu_torch.ops import kernels, select_step as ss
+    from minio_tpu_torch.s3select import device as sdev
+    from minio_tpu_torch.server.http import S3Server
+    from minio_tpu_torch.storage.xl import XLStorage
+
+    saved_env = {k: os.environ.get(k) for k in ("MINIO_TPU_READ_CACHE", *RC_ENV)}
+    os.environ.update(RC_ENV)
+    os.environ["MINIO_TPU_READ_CACHE"] = "device"
+    os.environ.pop("MINIO_TPU_SELECT", None)
+    rcache.reset_device_budget()
+    rcache.reset_read_cache()
+    roots = [os.path.join(work, f"rcdisk{i}") for i in range(N)]
+    ol = ErasureObjects([XLStorage(r) for r in roots], parity_blocks=M,
+                        block_size=BLOCK)
+    srv = S3Server(ol, address="127.0.0.1:0").start()
+    if srv.server_mode != "threaded":
+        fail(f"read_cache: server plane {srv.server_mode}")
+    host, port = srv.host, srv.port
+    rng = np.random.default_rng(SEED + 9)
+    hot = {f"hot{i}": rng.bytes(S3_BIG) for i in range(RC_HOT)}
+    sha = {k: hashlib.sha256(v).digest() for k, v in hot.items()}
+    hot_keys = sorted(hot)
+    one = S3Signer(host, port)
+    out: dict = {"objects_bytes": S3_BIG, "hot": RC_HOT, "cold": RC_COLD,
+                 "env": dict(RC_ENV)}
+    t_phase = time.monotonic()
+    try:
+        kernels.reset_launches()
+        KERNEL_STATS.reset()
+        st, _h, body = one.request("PUT", "/bench")
+        if st != 200:
+            fail(f"read_cache: bucket create {st} {body[:200]!r}")
+        c = rcache.read_cache()
+        if c is None or c.mode != "device" or c.device != ol.backend.device:
+            fail(f"read_cache: the cache is {c and (c.mode, str(c.device))}")
+        out["budget_before"] = rcache.device_budget().snapshot()
+
+        def put(signer, key, data=None):
+            data = hot[key] if data is None else data
+            st, _h, body = signer.request("PUT", f"/bench/{key}", body=data,
+                                          unsigned_payload=True)
+            if st != 200:
+                fail(f"read_cache: PUT {key}: {st} {body[:200]!r}")
+            return key
+
+        def get(signer, key, want=None):
+            st, _h, body = signer.request("GET", f"/bench/{key}")
+            want = sha[key] if want is None else want
+            if st != 200 or hashlib.sha256(body).digest() != want:
+                fail(f"read_cache: GET {key}: {st}, body differs from its source")
+            return len(body)
+
+        def passes(mode: str) -> dict:
+            """The hot set read RC_GETS times, one pass a client."""
+            jobs = [[hot_keys[(cl + j) % RC_HOT] for j in range(RC_HOT)]
+                    for cl in range(S3_CLIENTS)][:RC_GETS]
+            s0 = rcache.read_cache_stats()
+            wall, sizes = _in_clients(host, port, jobs, get)
+            s1 = rcache.read_cache_stats()
+            return {"mode": mode, "gets": len(sizes), "bytes": sum(sizes),
+                    "s": wall, "MBps": sum(sizes) / wall / 1e6,
+                    "hits": {t: s1["tiers"][t]["hits"] - s0["tiers"][t]["hits"]
+                             for t in rcache.TIERS},
+                    "misses": {t: s1["tiers"][t]["misses"] - s0["tiers"][t]["misses"]
+                               for t in rcache.TIERS}}
+
+        # 1. the hot set: the PUT populates the device tier
+        hot_jobs = [hot_keys[cl::S3_CLIENTS] for cl in range(S3_CLIENTS)]
+        put_wall, _ = _in_clients(host, port, hot_jobs, put)
+        groups = len(c._tiers["device"])
+        want_groups = RC_HOT * len(range(0, S3_BIG, BLOCK * 4)) + RC_HOT
+        if groups != want_groups:
+            fail(f"read_cache: the PUTs left {groups} device groups, want {want_groups}")
+        out["hot_put"] = {"s": put_wall, "MBps": RC_HOT * S3_BIG / put_wall / 1e6,
+                          "device_groups": groups}
+        dev_pass = passes("device")
+        if dev_pass["hits"]["device"] != RC_GETS * groups or any(dev_pass["misses"].values()):
+            fail(f"read_cache: the hot GETs were not all device hits: {dev_pass}")
+        modes = {"device": dev_pass}
+
+        # 2. a one-shot scan must not displace the hot set
+        hot_dev = {k for k in c._tiers["device"]}
+        cold = [f"cold{i}" for i in range(RC_COLD)]
+        cold_sha = {}
+
+        def cold_put_get(signer, key):
+            data = np.random.default_rng([SEED, 99, int(key[4:])]).bytes(S3_BIG)
+            cold_sha[key] = hashlib.sha256(data).digest()
+            put(signer, key, data)
+            return get(signer, key, cold_sha[key])
+
+        s0 = rcache.read_cache_stats()
+        cold_wall, _ = _in_clients(host, port, [cold[cl::S3_CLIENTS] for cl in
+                                                range(S3_CLIENTS)], cold_put_get)
+        s1 = rcache.read_cache_stats()
+        lost = hot_dev - set(c._tiers["device"])
+        if lost:
+            fail(f"read_cache: the cold scan displaced {len(lost)} hot device groups")
+        after = passes("device (after the cold scan)")
+        if after["hits"]["device"] != RC_GETS * groups or any(after["misses"].values()):
+            fail(f"read_cache: hot GETs after the cold scan: {after}")
+        out["cold_scan"] = {
+            "s": cold_wall, "MBps": 2 * RC_COLD * S3_BIG / cold_wall / 1e6,
+            "rejects": {t: s1["tiers"][t]["rejects"] - s0["tiers"][t]["rejects"]
+                        for t in rcache.TIERS},
+            "evictions": {t: s1["tiers"][t]["evictions"] - s0["tiers"][t]["evictions"]
+                          for t in rcache.TIERS},
+            "demotions": s1["demotions"] - s0["demotions"],
+            "admission": {k: s1["admission"][k] - s0["admission"][k]
+                          for k in s1["admission"]},
+            "stats_after": s1, "hot_after": after}
+
+        # 3. a full hit through the object layer reads no shard, no xl.meta
+        calls0 = _disk_calls(ol.disks)
+        k2 = kernels.LAUNCHES["phash256_batched"]
+        h0 = rcache.read_cache_stats()["tiers"]["device"]["hits"]
+        buf = io.BytesIO()
+        t0 = time.monotonic()
+        ol.get_object("bench", "hot0", buf)
+        hit_s = time.monotonic() - t0
+        moved = _moved(calls0, _disk_calls(ol.disks))
+        k2_hit = kernels.LAUNCHES["phash256_batched"] - k2
+        per_obj = groups // RC_HOT
+        if hashlib.sha256(buf.getvalue()).digest() != sha["hot0"]:
+            fail("read_cache: the object layer's hit differs from its source")
+        if set(moved) - {"stat_vol"} or moved.get("stat_vol", 0) > 1:
+            fail(f"read_cache: a full hit moved the disks' counters {moved}")
+        if (k2_hit != per_obj
+                or rcache.read_cache_stats()["tiers"]["device"]["hits"] - h0 != per_obj):
+            fail(f"read_cache: a full hit launched K2 {k2_hit} times for {per_obj} groups")
+        calls0 = _disk_calls(ol.disks)
+        get(one, "hot0")
+        out["full_hit"] = {"object_layer_disk_calls": moved, "k2_launches": k2_hit,
+                           "groups": per_obj, "s": hit_s,
+                           "s3_get_disk_calls": _moved(calls0, _disk_calls(ol.disks))}
+        first = min(k for k in c._tiers["device"] if k[1] == "hot0")
+        out["hit_breakdown"] = hit_breakdown(c, ol.backend, first)
+        ol_get = {"device": _ol_get_s(ol, "hot0")}
+
+        # 4. rot in a device-tier tensor: dropped, counted, served from disk
+        key = next(k for k in c._tiers["device"] if k[1] == "hot1")
+        c._tiers["device"][key].data[0, 0, 0] ^= 0xFF
+        s0 = rcache.read_cache_stats()
+        get(one, "hot1")
+        s1 = rcache.read_cache_stats()
+        if (s1["verify_drops"] - s0["verify_drops"] != 1
+                or key not in c._tiers["device"]):
+            fail(f"read_cache: the rotted group: drops "
+                 f"{s1['verify_drops'] - s0['verify_drops']}, readmitted "
+                 f"{key in c._tiers['device']}")
+        out["rot"] = {"verify_drops": s1["verify_drops"] - s0["verify_drops"],
+                      "readmitted": True}
+
+        # 5. a degraded miss: K3 rebuilds, K2 digests the rebuilt rows
+        rcache.clear_read_cache()
+        dist = XLStorage(roots[0]).read_version("bench", "hot2").erasure.distribution
+        dead = sorted(d for d in range(N) if dist[d] in (1, 3, 10, 12))
+        live = list(ol.disks)
+        for d in dead:
+            ol.disks[d] = None
+        try:
+            before = dict(kernels.LAUNCHES)
+            get(one, "hot2")
+            deg = _moved(before, dict(kernels.LAUNCHES))
+        finally:
+            ol.disks[:] = live
+        admitted = [k for k in c._tiers["device"] if k[1] == "hot2"]
+        if (not deg.get("gf_matmul_words") or not deg.get("phash256_batched")
+                or len(admitted) != per_obj):
+            fail(f"read_cache: the degraded miss launched {deg}, admitted {len(admitted)}")
+        s0 = rcache.read_cache_stats()
+        get(one, "hot2")
+        s1 = rcache.read_cache_stats()
+        if (s1["tiers"]["device"]["hits"] - s0["tiers"]["device"]["hits"] != per_obj
+                or s1["tiers"]["device"]["misses"] != s0["tiers"]["device"]["misses"]):
+            fail("read_cache: the GET after the degraded miss was not a device hit")
+        out["degraded_miss"] = {"offline_disks": dead, "launches": deg,
+                                "admitted_groups": len(admitted)}
+
+        # 6. invalidation: overwrite, delete, heal, metadata update
+        inv0 = rcache.read_cache_stats()["invalidations"]
+        new = np.random.default_rng(SEED + 10).bytes(S3_BIG)
+        get(one, "hot3")
+        put(one, "hot3", new)
+        get(one, "hot3", hashlib.sha256(new).digest())
+        get(one, "hot4")
+        st, _h, _b = one.request("DELETE", "/bench/hot4")
+        st2, _h, _b = one.request("GET", "/bench/hot4")
+        if (st, st2) != (204, 404):
+            fail(f"read_cache: DELETE then GET answered {st}, {st2}")
+        put(one, "hot4")  # back in the hot set for the modes' passes
+        get(one, "hot5")
+        dist5 = XLStorage(roots[0]).read_version("bench", "hot5").erasure.distribution
+        shutil.rmtree(os.path.join(roots[dist5.index(2)], "bench", "hot5"))
+        inv1 = rcache.read_cache_stats()["invalidations"]
+        healed = ol.heal_object("bench", "hot5")["healed"]
+        inv_heal = rcache.read_cache_stats()["invalidations"] - inv1
+        if not healed or inv_heal != 1:
+            fail(f"read_cache: heal_object healed {healed}, invalidations +{inv_heal}")
+        get(one, "hot6")
+        if c.meta_lookup("bench", "hot6") is None:
+            fail("read_cache: a GET stored no FileInfo side-car entry")
+        ol.update_object_meta("bench", "hot6", {"x-amz-tagging": "k=v"})
+        if c.meta_lookup("bench", "hot6") is not None:
+            fail("read_cache: update_object_meta left the side-car entry")
+        out["invalidation"] = {
+            "invalidations": rcache.read_cache_stats()["invalidations"] - inv0,
+            "healed_shards": healed}
+        sha["hot3"] = hashlib.sha256(new).digest()
+        hot["hot3"] = new
+
+        # 7. the admin clear, then Select Q1 scanned from the device tier
+        st, _h, body = one.request("POST", f"{ADMIN}/read-cache-clear")
+        cleared = json.loads(body) if st == 200 else None
+        left = rcache.read_cache_stats()["tiers"]
+        if not cleared or not cleared.get("cleared") or any(
+                left[t]["entries"] for t in rcache.TIERS):
+            fail(f"read_cache: read-cache-clear answered {st} {body[:200]!r}")
+        big = lineitem_csv(SEED + 6, SELECT_OBJECT)
+        put(one, "lineitem.csv", big)
+        readers = {"opened": 0}
+        part_readers = ol._part_readers
+
+        def counted(*a, **kw):
+            readers["opened"] += 1
+            return part_readers(*a, **kw)
+
+        ol._part_readers = counted
+        try:
+            src = ol.device_scan_source("bench", "lineitem.csv")
+            if src is None or src[0].device != ol.backend.device:
+                fail("read_cache: device_scan_source found no plane on the card")
+            del src
+            before = dict(kernels.LAUNCHES)
+            s0 = sdev.STATS.snapshot()
+            t0 = time.monotonic()
+            st, _h, body = one.request(
+                "POST", "/bench/lineitem.csv", {"select": "", "select-type": "2"},
+                select_body(SELECT_QUERIES["Q1"]))
+            took = time.monotonic() - t0
+            s1 = sdev.STATS.snapshot()
+            launched = _moved(before, dict(kernels.LAUNCHES))
+            opened = readers["opened"]
+        finally:
+            ol._part_readers = part_readers
+        if st != 200:
+            fail(f"read_cache: Q1 from the device tier answered {st} {body[:200]!r}")
+        recs, _k = select_records(body)
+        os.environ["MINIO_TPU_SELECT"] = "host"
+        try:
+            st, _h, hbody = one.request(
+                "POST", "/bench/lineitem.csv", {"select": "", "select-type": "2"},
+                select_body(SELECT_QUERIES["Q1"]))
+        finally:
+            os.environ.pop("MINIO_TPU_SELECT", None)
+        hrecs, _k = select_records(hbody)
+        if st != 200 or recs != hrecs or not recs:
+            fail(f"read_cache: Q1 from the device tier differs from the host "
+                 f"engine's ({len(recs)} and {len(hrecs)} bytes)")
+        if opened or any(not launched.get(n) for n in ss.LAUNCH_NAMES
+                         if n != "select_spans[back]"):
+            fail(f"read_cache: Q1 from the device tier opened {opened} shard "
+                 f"readers, launched {launched}")
+        spooled = sel["queries"]["Q1"]["device"]
+        out["select_Q1"] = {
+            "s": took, "MBps": len(big) / took / 1e6,
+            "device_seconds": s1["device_seconds"] - s0["device_seconds"],
+            "fallbacks": _moved(s0["fallbacks"], s1["fallbacks"]),
+            "shard_readers_opened": opened, "launches": launched,
+            "records_bytes": len(recs),
+            "spooled_s": spooled["s"], "spooled_device_seconds": spooled["device_seconds"]}
+
+        # 8. admin stats, healthinfo and Prometheus agree with stats()
+        stats = rcache.read_cache_stats()
+        st, _h, body = one.request("GET", f"{ADMIN}/read-cache-stats")
+        st2, _h, hbody = one.request("GET", f"{ADMIN}/healthinfo")
+        prom = _prom_cache(one)
+        node = json.loads(hbody)["nodes"][0] if st2 == 200 else {}
+        want_prom = {f'miniotpu_cache_{f}{{tier="{t}"}}': float(stats["tiers"][t][k])
+                     for t in rcache.TIERS
+                     for f, k in (("hits_total", "hits"), ("misses_total", "misses"),
+                                  ("entries", "entries"),
+                                  ("occupancy_bytes", "occupancy_bytes"),
+                                  ("budget_bytes", "capacity_bytes"))}
+        want_prom["miniotpu_cache_invalidations_total"] = float(stats["invalidations"])
+        want_prom["miniotpu_cache_demotions_total"] = float(stats["demotions"])
+        if (st != 200 or json.loads(body) != stats
+                or node.get("read_cache") != stats
+                or any(prom.get(k) != v for k, v in want_prom.items())):
+            fail(f"read_cache: admin/healthinfo/Prometheus disagree with stats(): "
+                 f"{st} {st2} {[k for k, v in want_prom.items() if prom.get(k) != v]}")
+        out["stats"] = stats
+        out["budget"] = rcache.device_budget().snapshot()
+        out["launches_device_part"] = dict(kernels.LAUNCHES)
+        st, _h, _b = one.request("DELETE", "/bench/lineitem.csv")
+
+        # the same hot GETs under host and off (the cache reset between)
+        for mode in ("host", "off"):
+            os.environ["MINIO_TPU_READ_CACHE"] = mode
+            rcache.reset_read_cache()
+            # the host tier fills on its first pass (every GET a miss)
+            warm = passes(mode + " (first pass)") if mode == "host" else None
+            modes[mode] = passes(mode)
+            if warm is not None:
+                modes[mode]["first_pass"] = warm
+            ol_get[mode] = _ol_get_s(ol, "hot0")
+        out["object_layer_get_s"] = ol_get
+        if modes["host"]["hits"]["host"] != RC_GETS * groups:
+            fail(f"read_cache: the host tier's GETs were not all hits: {modes['host']}")
+        if rcache.read_cache() is not None:
+            fail("read_cache: off mode built a cache")
+        out["modes"] = modes
+        out["phase_s"] = time.monotonic() - t_phase
+        out["launches"] = {k: v for k, v in kernels.LAUNCHES.items() if v}
+    finally:
+        one.close()
+        srv.shutdown()
+        for k, v in saved_env.items():
+            if v is None:
+                os.environ.pop(k, None)
+            else:
+                os.environ[k] = v
+        rcache.reset_read_cache()
+        rcache.reset_device_budget()
+        for r in roots:
+            shutil.rmtree(r, ignore_errors=True)
+        torch.cuda.empty_cache()
+    for name in ("encode_pack_pipelined", "phash256_batched", "gf_matmul_words",
+                 "verify_reconstruct_pipelined", "encode_pack[group=0]",
+                 *(n for n in ss.LAUNCH_NAMES if n != "select_spans[back]")):
+        if not out["launches"].get(name):
+            fail(f"read_cache: kernel {name} never launched")
+    return out
+
+
 # the TPU function each kernel replaces: encode_pack_fused (P4),
 # encode_hash_fused (P2, which encode_pack computes without the pack
 # leg), phash256_words_batched (left to XLA), matmul_words (P1),
@@ -4769,7 +5263,7 @@ def main() -> int:
         lap("modes")
         mx = modes_phase(dev, work, payloads, written, MXU_RUNS)
         lap("mxu")
-        # phases 7, 8, 8b and 9 serve in this process on the threaded plane;
+        # phases 7, 8, 8b, 9 and 9b serve in this process on the threaded plane;
         # the boot phase's server takes the default (async)
         os.environ["MINIO_TPU_SERVER"] = "threaded"
         s3 = s3_phase(dev, work, payloads, written, mp)
@@ -4780,6 +5274,8 @@ def main() -> int:
         lap("sse")
         sel = select_phase(dev, work)
         lap("select")
+        rc = read_cache_phase(dev, work, sel)
+        lap("read_cache")
         os.environ.pop("MINIO_TPU_SERVER", None)
         bt = boot_phase(work, payloads)
         lap("boot")
@@ -4794,6 +5290,7 @@ def main() -> int:
     print(f"s3_mp: {json.dumps(s3mp)}", flush=True)
     print(f"sse: {json.dumps(sse)}", flush=True)
     print(f"select: {json.dumps(sel)}", flush=True)
+    print(f"read_cache: {json.dumps(rc)}", flush=True)
     print(f"boot: {json.dumps(bt)}", flush=True)
     print(f"phases_s: {json.dumps(phases_s)}", flush=True)
     phase_launches = {

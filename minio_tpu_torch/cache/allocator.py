@@ -1,21 +1,31 @@
 """Shared device-memory budget ledger for cache planes.
 
-The parity plane (codec/backend.py ParityPlaneCache) posts its live
-device bytes here under the "parity_plane" account.  The account is
-advisory for the parity plane (its own capacity knob bounds it); the
-read cache's device tier, a later slice, sizes itself against the
-combined usage.
+The parity plane (codec/backend.py ParityPlaneCache), the codec's
+staging buffers and the read cache's device hot tier all pin bytes in
+device memory.  Each keeps its own eviction policy, but they draw on ONE
+budget: the ledger tracks live bytes per account (``parity_plane``,
+``codec_staging``, ``read_cache``) so the read cache sizes its effective
+device capacity to what the others are not using, instead of each
+believing it owns the whole device.
+
+Accounts are advisory for the parity plane and the staging (their own
+knobs bound them) and binding for the read cache, which computes its
+headroom against the combined total.
 """
 
 from __future__ import annotations
 
+import os
 import threading
+
+DEFAULT_BUDGET_MB = 192
 
 
 class DeviceBudget:
     """Thread-safe ledger: account name -> live device bytes."""
 
-    def __init__(self):
+    def __init__(self, capacity_bytes: int):
+        self.capacity_bytes = int(capacity_bytes)
         self._mu = threading.Lock()
         self._usage: dict[str, int] = {}
 
@@ -32,10 +42,44 @@ class DeviceBudget:
                 return self._usage.get(account, 0)
             return sum(self._usage.values())
 
+    def headroom(self) -> int:
+        """Unclaimed device bytes under the combined budget."""
+        return max(0, self.capacity_bytes - self.usage())
 
-_BUDGET = DeviceBudget()
+    def snapshot(self) -> dict:
+        with self._mu:
+            return {
+                "capacity_bytes": self.capacity_bytes,
+                "usage_bytes": sum(self._usage.values()),
+                "accounts": dict(self._usage),
+            }
+
+
+_lock = threading.Lock()
+_BUDGET: "DeviceBudget | None" = None
 
 
 def device_budget() -> DeviceBudget:
-    """The process-wide ledger."""
-    return _BUDGET
+    """Process-wide ledger; capacity from MINIO_TPU_DEVICE_BUDGET_MB
+    (default covers the parity plane default plus a device hot tier)."""
+    global _BUDGET
+    with _lock:
+        if _BUDGET is None:
+            try:
+                mb = int(
+                    os.environ.get(
+                        "MINIO_TPU_DEVICE_BUDGET_MB", str(DEFAULT_BUDGET_MB)
+                    )
+                )
+            except ValueError:
+                mb = DEFAULT_BUDGET_MB
+            _BUDGET = DeviceBudget(max(1, mb) << 20)
+        return _BUDGET
+
+
+def reset_device_budget() -> None:
+    """Drop the ledger so the next call re-reads the capacity knob; the
+    planes post their live bytes to the new ledger at their next change."""
+    global _BUDGET
+    with _lock:
+        _BUDGET = None

@@ -110,13 +110,20 @@ class _Begun:
     iteration of the flush loop failed.
     """
 
-    __slots__ = ("handle", "batch", "digest_mode", "consumed")
+    __slots__ = (
+        "handle", "batch", "digest_mode", "consumed", "start_block"
+    )
 
-    def __init__(self, handle, batch, digest_mode: bool):
+    def __init__(self, handle, batch, digest_mode: bool,
+                 start_block: int = 0):
         self.handle = handle
         self.batch = batch
         self.digest_mode = digest_mode
         self.consumed = False
+        # absolute index of the group's first object block: the read
+        # cache keys groups by (first_block, g, shard_len), so the PUT
+        # populate and the GET lookup must agree on block coordinates
+        self.start_block = start_block
 
     def end(self, be):
         self.consumed = True
@@ -140,6 +147,35 @@ class _Begun:
             _log.debug(
                 "encode handle cleanup failed", extra=kv(err=str(exc))
             )
+
+
+class _ReaderBank:
+    """Lazy shard-reader list for the decode path.
+
+    ``source`` is either the reader list itself or a zero-arg callable
+    producing it.  A GET whose every group hits the read cache never
+    calls ``get`` - the shard streams are never opened, so a cache hit
+    makes ZERO disk calls.  The list is materialized at most once and
+    padded to ``n`` slots; the quorum reader's in-place
+    ``readers[s] = None`` death marks persist across batches.
+    """
+
+    __slots__ = ("_source", "_list")
+
+    def __init__(self, source):
+        if callable(source):
+            self._source = source
+            self._list = None
+        else:
+            self._source = None
+            self._list = list(source)
+
+    def get(self, n: int) -> list:
+        if self._list is None:
+            self._list = list(self._source())
+        while len(self._list) < n:
+            self._list.append(None)
+        return self._list
 
 
 def _fanout_reads(fn, slots: list, readers, nbytes: int) -> list:
@@ -218,13 +254,16 @@ class Erasure:
         write_quorum: int,
         batch_blocks: int = DEFAULT_BATCH_BLOCKS,
         backend: "backend_mod.CodecBackend | None" = None,
+        cache_ctx=None,
     ) -> int:
         """Stream from ``reader`` (has .read(n)) into framed shard writers.
 
         Batches of blocks share one device pass.  Returns total bytes
         consumed.  Raises QuorumError when healthy writers drop below
         write_quorum (the parallelWriter quorum reduction,
-        erasure-encode.go:39-70).
+        erasure-encode.go:39-70).  With a ``cache_ctx`` every group's
+        data rows and digest words populate the read cache before its
+        shard writes go out.
         """
         be = backend or backend_mod.get_backend()
         digest_mode = _parity_plane_on() and self.parity_blocks > 0
@@ -245,6 +284,7 @@ class Erasure:
         # while batch k-1's shards stream to disk/network; exactly one
         # batch pending bounds memory at 2 batches
         pending = None
+        blocks_done = 0
         try:
             while not eof:
                 blocks: list[bytes] = []
@@ -260,14 +300,16 @@ class Erasure:
                 if not blocks:
                     break
                 started = self._encode_begin_batch(
-                    be, blocks, stages, digest_mode
+                    be, blocks, stages, digest_mode,
+                    base_block=blocks_done,
                 )
+                blocks_done += len(blocks)
                 blocks = None  # scattered into the batch arrays above
                 if pending is not None:
                     try:
                         self._flush_batch(
                             be, pending, writers, write_quorum,
-                            flusher, stages,
+                            flusher, stages, cache_ctx,
                         )
                     finally:
                         pending = started
@@ -276,7 +318,8 @@ class Erasure:
             if pending is not None:
                 p, pending = pending, None
                 self._flush_batch(
-                    be, p, writers, write_quorum, flusher, stages
+                    be, p, writers, write_quorum, flusher, stages,
+                    cache_ctx,
                 )
             # early-acked batches may still have stragglers in flight:
             # settle them and re-check the quorum over the final disk
@@ -307,21 +350,27 @@ class Erasure:
                 if s < len(writers):
                     writers[s] = None
 
-    def _encode_begin_batch(self, be, blocks, stages, digest_mode=False):
+    def _encode_begin_batch(self, be, blocks, stages, digest_mode=False,
+                            base_block=0):
         """Kick off the device passes for one batch of blocks; returns
         a list of _Begun records, one per uniform-shard-size group."""
         k = self.data_blocks
         m = self.parity_blocks
         # uniform batch: all blocks but possibly the last share shard size
-        groups: list[tuple[int, list[bytes]]] = []
+        groups: list[tuple[int, int, list[bytes]]] = []
         full = [b for b in blocks if len(b) == self.block_size]
         tail = [b for b in blocks if len(b) != self.block_size]
         if full:
-            groups.append((self.shard_size_padded(), full))
+            groups.append((self.shard_size_padded(), base_block, full))
         for b in tail:
-            groups.append((self.shard_size_padded(len(b)), [b]))
+            # a short read ends the stream, so the tail block is always
+            # the batch's last - its absolute index follows the fulls
+            groups.append(
+                (self.shard_size_padded(len(b)), base_block + len(full),
+                 [b])
+            )
         started = []
-        for shard_len, group in groups:
+        for shard_len, group_block, group in groups:
             t0 = time.monotonic()
             batch = np.zeros((len(group), k, shard_len), dtype=np.uint8)
             for bi, block in enumerate(group):
@@ -344,18 +393,22 @@ class Erasure:
                 if digest_mode
                 else be.encode_begin(batch, m)
             )
-            started.append(_Begun(handle, batch, digest_mode))
+            started.append(
+                _Begun(handle, batch, digest_mode, group_block)
+            )
             stages[_codec_stage(be)] += time.monotonic() - t0
         return started
 
     def _flush_batch(
-        self, be, started, writers, write_quorum, flusher, stages
+        self, be, started, writers, write_quorum, flusher, stages,
+        cache_ctx=None,
     ) -> None:
         k, m = self.data_blocks, self.parity_blocks
         n = k + m
         try:
             self._flush_groups(
-                be, started, writers, write_quorum, k, n, flusher, stages
+                be, started, writers, write_quorum, k, n, flusher, stages,
+                cache_ctx,
             )
         except BaseException:
             # end the groups the failed iteration never reached
@@ -415,7 +468,8 @@ class Erasure:
         return _job
 
     def _flush_groups(
-        self, be, started, writers, write_quorum, k, n, flusher, stages
+        self, be, started, writers, write_quorum, k, n, flusher, stages,
+        cache_ctx=None,
     ) -> None:
         """Assemble each disk's contiguous byte run for the whole batch
         with one numpy interleave (digest frames + payload rows) and
@@ -445,6 +499,14 @@ class Erasure:
             dig_u32 = np.ascontiguousarray(digests, dtype=np.uint32)
             dig = dig_u32.view(np.uint8).reshape(B, n, ds)
             stages["assemble"] += time.monotonic() - t0
+            if cache_ctx is not None:
+                # PUT population: the batch's data rows + their digest
+                # words, before any disk write settles - the next GET
+                # for this object never touches the quorum path
+                cache_ctx.populate_from_encode(
+                    rec.start_block, batch,
+                    dig_u32.reshape(B, n, 8)[:, :k],
+                )
             for s in range(n):
                 w = writers[s] if s < len(writers) else None
                 if w is None:
@@ -486,11 +548,14 @@ class Erasure:
         total_length: int,
         batch_blocks: int = DEFAULT_BATCH_BLOCKS,
         backend: "backend_mod.CodecBackend | None" = None,
+        cache_ctx=None,
     ) -> tuple[int, bool]:
         """Reconstruct [offset, offset+length) into ``writer``.
 
         ``readers`` is the shard reader list, one slot per shard (None
-        for an offline disk).
+        for an offline disk), OR a zero-arg callable producing it (lazy
+        open: with a ``cache_ctx`` whose groups all hit, the readers are
+        never opened at all).
 
         Returns (bytes_written, heal_required): heal_required is set when
         any shard was missing or failed bitrot verification but quorum
@@ -500,7 +565,7 @@ class Erasure:
         stages = {"assemble": 0.0, "codec": 0.0, "disk": 0.0}
         written, heal_required = self._decode_stream(
             writer, readers, offset, length, total_length,
-            batch_blocks, backend, stages,
+            batch_blocks, backend, stages, cache_ctx,
         )
         KERNEL_STATS.record_stream("decode", written)
         KERNEL_STATS.record_stages("get", stages)
@@ -518,16 +583,17 @@ class Erasure:
         batch_blocks: int = DEFAULT_BATCH_BLOCKS,
         backend: "backend_mod.CodecBackend | None" = None,
         stages: "dict | None" = None,
+        cache_ctx=None,
     ) -> tuple[int, bool]:
         if length == 0:
             return 0, False
         if offset < 0 or length < 0 or offset + length > total_length:
             raise ValueError("range out of bounds")
         be = backend or backend_mod.get_backend()
-        n = self.total_shards
-        # one list for the whole stream: the quorum reader's in-place
-        # ``readers[s] = None`` death marks persist across batches
-        readers = list(readers) + [None] * max(0, n - len(readers))
+        # one list for the whole stream, opened at most once: the quorum
+        # reader's in-place ``readers[s] = None`` death marks persist
+        # across batches
+        bank = _ReaderBank(readers)
         start_block = offset // self.block_size
         end_block = (offset + length - 1) // self.block_size
         batches: "list[list[int]]" = []
@@ -543,7 +609,7 @@ class Erasure:
         if len(batches) <= 1:
             for batch_idx in batches:
                 datas, healed = self._decode_blocks(
-                    be, readers, batch_idx, total_length, stages
+                    be, bank, batch_idx, total_length, stages, cache_ctx
                 )
                 heal_required = heal_required or healed
                 w, done = self._write_blocks(
@@ -570,7 +636,7 @@ class Erasure:
             fut = pool.submit(
                 ("readahead", next(_RA_SEQ)),
                 lambda b=batches[0]: self._decode_blocks(
-                    be, readers, b, total_length, stages
+                    be, bank, b, total_length, stages, cache_ctx
                 ),
                 aux=True,
             )
@@ -582,7 +648,7 @@ class Erasure:
                     fut = pool.submit(
                         ("readahead", next(_RA_SEQ)),
                         lambda b=batches[i + 1]: self._decode_blocks(
-                            be, readers, b, total_length, stages
+                            be, bank, b, total_length, stages, cache_ctx
                         ),
                         aux=True,
                     )
@@ -632,8 +698,9 @@ class Erasure:
         return written, False
 
     def _decode_blocks(
-        self, be, readers: list, block_indices: list[int],
+        self, be, bank: "_ReaderBank", block_indices: list[int],
         total_length: int, stages: "dict | None" = None,
+        cache_ctx=None,
     ) -> tuple[list[bytes], bool]:
         """Read + verify + reconstruct a batch of blocks -> raw block bytes.
 
@@ -642,6 +709,14 @@ class Erasure:
         parity shards only on read failure or bitrot — a healthy GET
         never touches parity (erasure-decode.go:63-88 newParallelReader
         with prefer[], :120-183 Read with missingPartsHeal escalation).
+
+        With a ``cache_ctx``, each group first consults the tiered read
+        cache: a hit serves the digest-verified data rows without
+        opening a single shard reader - no hedging, no breakers, no
+        disk.  A miss that read no damage populates the cache (subject
+        to frequency admission) from the decoded data rows - read intact
+        with their on-disk digest words, or reconstructed from
+        digest-verified shards with freshly computed words.
         """
         k, m = self.data_blocks, self.parity_blocks
         n = k + m
@@ -651,9 +726,8 @@ class Erasure:
             self.shard_size_padded(self._block_len(b, total_length))
             for b in block_indices
         ]
-        # a reader slot known-dead before we start is a missing shard:
-        # flag heal even though the k-read path may never need it
-        heal = any(r is None for r in readers[:n])
+        readers = None
+        heal = False
         out: list[bytes] = []
         # group contiguous runs with equal shard size into one device pass
         i = 0
@@ -663,6 +737,32 @@ class Erasure:
                 j += 1
             group = block_indices[i:j]
             shard_len = sizes[i]
+            if cache_ctx is not None:
+                t0 = time.monotonic()
+                cached = cache_ctx.lookup(
+                    be, group[0], len(group), shard_len
+                )
+                stages["codec"] += time.monotonic() - t0
+                if cached is not None:
+                    t0 = time.monotonic()
+                    for gi, b in enumerate(group):
+                        block_len = self._block_len(b, total_length)
+                        ss = self.shard_size(block_len)
+                        # one strided copy; the [:block_len] trim is a
+                        # view and _write_blocks streams views as-is
+                        flat = np.ascontiguousarray(
+                            cached[gi, :, :ss]
+                        ).reshape(-1)
+                        out.append(flat[:block_len])
+                    stages["assemble"] += time.monotonic() - t0
+                    i = j
+                    continue
+            if readers is None:
+                readers = bank.get(n)
+                # a reader slot known-dead before we start is a missing
+                # shard: flag heal even though the k-read path may never
+                # need it (a fully-cached GET observes no disks at all)
+                heal = heal or any(readers[s] is None for s in range(n))
             shards, digests, ok, g_heal = self._read_group_quorum(
                 be, readers, group, shard_len, stages
             )
@@ -695,6 +795,24 @@ class Erasure:
                             shards[np.asarray(gis)], pat, k, m
                         )
             stages["codec"] += time.monotonic() - t0
+            if cache_ctx is not None and not g_heal:
+                # admit the decoded data rows.  When every data slot read
+                # intact, reuse the digest words that just verified
+                # against disk; when the preferred k readers included
+                # parity (local shards first), the rows came out of
+                # reconstruct over digest-verified shards, so recompute
+                # their words - the cache only needs digests consistent
+                # with the rows it stores to catch in-cache rot on hit
+                if bool(ok[:, :k].all()):
+                    cache_ctx.admit_from_decode(
+                        group[0], len(group), shard_len,
+                        datas, digests[:, :k, :],
+                    )
+                else:
+                    cache_ctx.admit_from_decode(
+                        group[0], len(group), shard_len,
+                        datas, be.digest(datas),
+                    )
             # raw frames die before blocks copy out
             shards = digests = ok = None
             t0 = time.monotonic()

@@ -503,8 +503,9 @@ class MultipartMixin:
                     except Exception as exc:  # noqa: BLE001
                         _log.debug("tmp cleanup during complete rollback failed", extra=kv(err=str(exc)))
                 raise
-            # the JAX package drops the read cache's generations of the
-            # object here; the port has no read cache yet (slice 9a)
+            # mutation seam: the completed upload is the object's new
+            # generation - cached groups of the old one die
+            self._invalidate_read_cache(bucket, object_name)
             if old_data_dir and old_data_dir != data_dir:
                 for d in disks:
                     if d is None:

@@ -15,10 +15,12 @@ over the merged version journals), multipart uploads
 ``heal_bucket``, fed by ``heal_hook`` through heal/background.py), with
 transparent compression (codec/compress.py) and server-side encryption
 (codec/sse.py, keys from codec/kms.py) between the client's bytes and
-the codec: stored = encrypt(compress(plaintext)).  What the JAX package
-layers on top beyond that - the read cache, early parity ack - raises
-NotImplementedError naming the slice that ports it, instead of being
-silently skipped.
+the codec: stored = encrypt(compress(plaintext)), and the tiered read
+cache (cache/) under GET, populated by PUT and by GET misses and
+dropped on every mutation, with its FileInfo side-car and the device
+tier's scan plane for S3 Select (``device_scan_source``).  The early
+parity ack raises NotImplementedError naming the slice that ports it,
+instead of being silently skipped.
 """
 
 from __future__ import annotations
@@ -28,7 +30,7 @@ import io
 import os
 import uuid
 
-from ..cache import READ_CACHE_SLICE, refused_read_cache
+from .. import cache as rcache
 from ..codec import backend as backend_mod, compress as compmod, kms as kmsmod, sse as ssemod
 from ..codec.erasure import BLOCK_SIZE_V1, Erasure, QuorumError
 from ..dsync.namespace import NamespaceLock
@@ -83,16 +85,6 @@ def _check_parity_ack() -> None:
     the legacy pass structure in slice 11."""
     if os.environ.get("MINIO_TPU_PARITY_ACK", "settle").lower() == "early":
         raise _unported("MINIO_TPU_PARITY_ACK=early", 11)
-
-
-def _check_read_cache() -> None:
-    """MINIO_TPU_READ_CACHE: the JAX package serves PUT and GET through
-    its read cache when the knob resolves to host or device (auto
-    included); that cache is slice 9a, so such a mode raises here.
-    Every value the JAX package resolves to off runs unchanged."""
-    what = refused_read_cache()
-    if what is not None:
-        raise _unported(what, READ_CACHE_SLICE)
 
 
 class ErasureObjects(MultipartMixin, ObjectLayer):
@@ -254,7 +246,6 @@ class ErasureObjects(MultipartMixin, ObjectLayer):
         versioned=False, compress=None, sse=None,
     ) -> ObjectInfo:
         _check_parity_ack()
-        _check_read_cache()
         check_object_name(object_name)
         self._require_bucket(bucket)
         with self.nslock.write(bucket, object_name):
@@ -305,6 +296,13 @@ class ErasureObjects(MultipartMixin, ObjectLayer):
         disks = shuffle_disks(self._online_disks(), distribution)
 
         data_dir = uuid.uuid4().hex
+        # mutation seam: every prior generation's cached groups die
+        # BEFORE the new generation encodes, so the PUT-side populate
+        # below never races its own stale keys
+        self._invalidate_read_cache(bucket, object_name)
+        rctx = rcache.context_for(
+            bucket, object_name, data_dir, 1, self.backend.device
+        )
         tmp_ids = [uuid.uuid4().hex for _ in range(n)]
         writers: list = []
         for i, d in enumerate(disks):
@@ -325,9 +323,11 @@ class ErasureObjects(MultipartMixin, ObjectLayer):
 
         try:
             total = er.encode(
-                src, writers, self.write_quorum, backend=self.backend
+                src, writers, self.write_quorum, backend=self.backend,
+                cache_ctx=rctx,
             )
         except QuorumError as e:
+            self._invalidate_read_cache(bucket, object_name)
             # close writers FIRST, then reap the staging dirs
             for w in writers:
                 if w is not None:
@@ -399,6 +399,7 @@ class ErasureObjects(MultipartMixin, ObjectLayer):
         try:
             reduce_errs(errs, self.write_quorum, WriteQuorumError)
         except WriteQuorumError:
+            self._invalidate_read_cache(bucket, object_name)
             self._cleanup_tmp(disks, tmp_ids)
             raise
         # MRF: quorum met but some disks missed the write
@@ -428,6 +429,17 @@ class ErasureObjects(MultipartMixin, ObjectLayer):
             version_id=version_id,
             user_defined=meta,
         )
+
+    @staticmethod
+    def _invalidate_read_cache(bucket, object_name) -> None:
+        """The cache-invalidation seam: every path that mutates object
+        data or metadata - PUT, overwrite, heal, delete, metadata
+        update, multipart commit - flows through here so the read cache
+        never serves a dead generation.  It never fails the write."""
+        try:
+            rcache.invalidate_object(bucket, object_name)
+        except Exception as exc:  # noqa: BLE001 - never fail the write
+            _log.debug("read-cache invalidate failed", extra=kv(err=str(exc)))
 
     def _cleanup_tmp(self, disks, tmp_ids) -> None:
         for i, d in enumerate(disks):
@@ -640,8 +652,7 @@ class ErasureObjects(MultipartMixin, ObjectLayer):
                 except Exception as e:  # noqa: BLE001 - per-disk error slot
                     errs.append(e)
             reduce_errs(errs, self.write_quorum, WriteQuorumError)
-            # the JAX package drops the read cache's generations here;
-            # the port has no read cache yet (slice 9a)
+            self._invalidate_read_cache(bucket, object_name)
             fi.metadata = merged
             return self._to_object_info(bucket, object_name, fi)
 
@@ -649,11 +660,22 @@ class ErasureObjects(MultipartMixin, ObjectLayer):
         self, bucket, object_name, writer, offset=0, length=-1,
         version_id="", sse=None,
     ) -> ObjectInfo:
-        _check_read_cache()
         check_object_name(object_name)
         self._require_bucket(bucket)
         with self.nslock.read(bucket, object_name):
-            fi, _ = self._read_quorum_fileinfo(bucket, object_name, version_id)
+            # latest-version GETs consult the read cache's FileInfo
+            # side-car before fanning xl.meta reads across the set; the
+            # namespace lock orders the store against any mutation's
+            # post-commit invalidate, so a cached FileInfo is never
+            # staler than what an uncached quorum read would return
+            rc = rcache.read_cache(self.backend.device) if not version_id else None
+            fi = rc.meta_lookup(bucket, object_name) if rc else None
+            if fi is None:
+                fi, _ = self._read_quorum_fileinfo(
+                    bucket, object_name, version_id
+                )
+                if rc is not None and not fi.deleted:
+                    rc.meta_store(bucket, object_name, fi)
             if fi.deleted:
                 raise ObjectNotFound(f"{bucket}/{object_name}")
             compressed = bool(fi.metadata.get(compmod.META_COMPRESSION))
@@ -727,20 +749,36 @@ class ErasureObjects(MultipartMixin, ObjectLayer):
                             0 if compressed else in_off,
                             -1 if compressed else in_len,
                         )
-                readers = self._part_readers(
-                    disks, bucket, object_name, fi, part.number
+                rctx = rcache.context_for(
+                    bucket, object_name, fi.data_dir, part.number,
+                    self.backend.device,
                 )
+                opened: list = []
+                if rctx is None:
+                    readers = self._part_readers(
+                        disks, bucket, object_name, fi, part.number
+                    )
+                    opened = readers
+                else:
+                    # lazy open: a part whose every group hits the cache
+                    # never opens a shard stream (zero disk calls)
+                    def readers(_opened=opened, _pn=part.number):
+                        rs = self._part_readers(
+                            disks, bucket, object_name, fi, _pn
+                        )
+                        _opened.extend(rs)
+                        return rs
                 try:
                     # decode returns early (heal verdict intact) once a
                     # downstream skipping writer's range is satisfied
                     _, healed = er.decode(
                         sink, readers, dec_off, dec_len, part.size,
-                        backend=self.backend,
+                        backend=self.backend, cache_ctx=rctx,
                     )
                 except QuorumError as e:
                     raise ReadQuorumError(str(e)) from e
                 finally:
-                    for r in readers:
+                    for r in opened:
                         if r is not None:
                             try:
                                 r.close()
@@ -760,6 +798,71 @@ class ErasureObjects(MultipartMixin, ObjectLayer):
                     except Exception as exc:  # noqa: BLE001 - never fail the GET
                         _log.debug("deep-heal hook failed", extra=kv(err=str(exc)))
             return info
+
+    def device_scan_source(self, bucket, object_name):
+        """Device-resident scan plane for the S3 Select pushdown, or None
+        when the object cannot be served from the device cache tier
+        (cache off or host mode, transformed bytes, partial group
+        coverage) - the caller then takes the spooled read path.
+
+        A full hit assembles the object's cached (g, k, shard_len) group
+        tensors into one contiguous byte plane on the cache's device
+        with device-side slicing and one concatenation (a copy: the
+        cached tensors are never written): no shard reader opens, no
+        host round-trip.  Returns ``(plane, nbytes)`` ready for
+        S3Select.evaluate's ``device_source``."""
+        check_object_name(object_name)
+        self._require_bucket(bucket)
+        with self.nslock.read(bucket, object_name):
+            rc = rcache.read_cache(self.backend.device)
+            if rc is None or rc.mode != "device":
+                return None
+            fi = rc.meta_lookup(bucket, object_name)
+            if fi is None:
+                try:
+                    fi, _ = self._read_quorum_fileinfo(bucket, object_name, "")
+                except Exception:  # noqa: BLE001 - a miss, not an error
+                    return None
+                if not fi.deleted:
+                    rc.meta_store(bucket, object_name, fi)
+            if fi.deleted or fi.size <= 0:
+                return None
+            if fi.metadata.get(compmod.META_COMPRESSION) or fi.metadata.get(
+                ssemod.META_SSE
+            ):
+                # the cache holds stored bytes; a scan needs plaintext
+                return None
+            entries = rc.device_entries(bucket, object_name)
+            if not entries:
+                return None
+            by_first = {(key[3], key[4]): key for key in entries}
+            er = Erasure(
+                fi.erasure.data_blocks,
+                fi.erasure.parity_blocks,
+                fi.erasure.block_size,
+            )
+            chunks = []
+            for part in fi.parts:
+                nblocks = er.block_count(part.size)
+                b = 0
+                while b < nblocks:
+                    key = by_first.get((part.number, b))
+                    if key is None or key[2] != fi.data_dir:
+                        return None
+                    g, shard_len = key[5], key[6]
+                    data = entries[key]
+                    if b + g > nblocks:
+                        return None
+                    for gi in range(g):
+                        block_len = er._block_len(b + gi, part.size)
+                        if er.shard_size_padded(block_len) != shard_len:
+                            return None
+                        ss = er.shard_size(block_len)
+                        chunks.append(data[gi, :, :ss].reshape(-1)[:block_len])
+                    b += g
+            from ..s3select import device as seldev
+
+            return seldev.as_device_plane(chunks, fi.size, rc.device)
 
     def _part_readers(
         self, disks, bucket, object_name, fi: FileInfo, part_number: int
@@ -813,6 +916,7 @@ class ErasureObjects(MultipartMixin, ObjectLayer):
                 except Exception as e:  # noqa: BLE001 - per-disk error slot
                     errs.append(e)
             reduce_errs(errs, self.write_quorum, WriteQuorumError)
+            self._invalidate_read_cache(bucket, object_name)
             return ObjectInfo(
                 bucket=bucket,
                 name=object_name,
@@ -848,6 +952,7 @@ class ErasureObjects(MultipartMixin, ObjectLayer):
             except Exception as e:  # noqa: BLE001 - per-disk error slot
                 errs.append(e)
         reduce_errs(errs, self.write_quorum, WriteQuorumError)
+        self._invalidate_read_cache(bucket, object_name)
         if old_null_dir:
             for d in disks:
                 if d is None:
@@ -1201,8 +1306,7 @@ class ErasureObjects(MultipartMixin, ObjectLayer):
         stale, or a part file that fails the deep bitrot scan - from the
         survivors, and commit them with the same staging + rename as a
         PUT.  Indices in the result are shard positions (erasure index
-        - 1).  The port has no read cache yet, so there is no cached
-        generation to drop after the rewrite."""
+        - 1)."""
         # heal the bucket volume first (MakeVol on wiped disks) so the
         # shard rename below has a destination (erasure-healing.go:105)
         self.heal_bucket(bucket, dry_run=dry_run)
@@ -1299,6 +1403,10 @@ class ErasureObjects(MultipartMixin, ObjectLayer):
                     SYS_VOL, f"tmp/{tmp_ids[i]}", hfi, bucket, object_name
                 )
                 result["healed"].append(i)
+            # heal rewrote shard files: even though the reconstructed
+            # bytes are identical, cached generations must re-verify
+            # against the fresh frames, so drop them
+            self._invalidate_read_cache(bucket, object_name)
             return result
 
     def storage_info(self) -> dict:

@@ -132,6 +132,11 @@ class ErasureSets(ObjectLayer):
             bucket, object_name, version_id
         )
 
+    def device_scan_source(self, bucket, object_name):
+        return self.set_for(object_name).device_scan_source(
+            bucket, object_name
+        )
+
     def update_object_meta(self, bucket, object_name, updates,
                            version_id=""):
         return self.set_for(object_name).update_object_meta(

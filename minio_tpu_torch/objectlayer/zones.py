@@ -231,6 +231,11 @@ class ErasureZones(ObjectLayer):
         z = self._find_zone(bucket, object_name, version_id)
         return z.get_object_info(bucket, object_name, version_id)
 
+    def device_scan_source(self, bucket, object_name):
+        self.zones[0].get_bucket_info(bucket)
+        z = self._find_zone(bucket, object_name, "")
+        return z.device_scan_source(bucket, object_name)
+
     def update_object_meta(self, bucket, object_name, updates,
                            version_id=""):
         self.zones[0].get_bucket_info(bucket)

@@ -22,8 +22,7 @@ effect here, at boot.
 
 What this package has not ported exits at boot with a message naming
 its slice, instead of being ignored: URL drive endpoints and so a
-second node, fault injection and federation (9b); the read cache
-(``MINIO_TPU_READ_CACHE`` host, device or auto: 9a); the gateway, a
+second node, fault injection and federation (9b); the gateway, a
 single drive (FS mode) and the disk cache (9c).  The data crawler and
 the update tracker (slice 9b) are not started.
 """
@@ -100,13 +99,6 @@ def refuse_unported(zone_args: list[str]) -> None:
         val = (os.environ.get(name) or "").strip()
         if val and val.lower() not in ("0", "off", "false", "no"):
             raise _refuse(f"{what} ({name})", slice_name)
-    # the read cache's knob resolves as the JAX package's does: only the
-    # modes it would serve are refused
-    from ..cache import READ_CACHE_SLICE, refused_read_cache
-
-    cache = refused_read_cache()
-    if cache is not None:
-        raise _refuse(cache, READ_CACHE_SLICE)
     flat = [a for g in group_zone_args(zone_args) for a in g]
     if any("://" in a for a in flat):
         raise _refuse(

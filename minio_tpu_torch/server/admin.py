@@ -6,8 +6,9 @@ privilege default.  The routes answer as the JAX package's do, for
 this node: server and storage info, heal and the background-heal
 status, service stop/restart, codec kernel telemetry, profiling, the
 runtime KV config, IAM management (users, groups, service accounts,
-canned policies), the KMS key status and the server-loop status and
-wedge.
+canned policies), the KMS key status, the server-loop status and
+wedge, the read cache's stats and clear, and healthinfo (this node's
+document: there are no peers before slice 9b).
 
 A route of a feature this package has not ported answers S3
 ``NotImplemented`` naming the slice that ports it (``UNPORTED``), so
@@ -19,6 +20,7 @@ from __future__ import annotations
 import json
 import time
 
+from .. import cache as rcache
 from ..codec import kms as kmsmod
 from ..iam.policy import Policy, PolicyError
 from ..iam.sys import IAMError, PolicyNotFound, UserNotFound
@@ -35,9 +37,7 @@ _START = time.time()
 
 # admin routes of features not ported yet: route -> (what, slice).  The
 # distributed planes, heal sequences, the crawler and the lock plane are
-# slice 9b; the read cache (and healthinfo, which reports it and the
-# Select device) 9a; the disk cache, bucket quota and the replication
-# targets 9c.
+# slice 9b; the disk cache, bucket quota and the replication targets 9c.
 UNPORTED = {
     ("POST", "heal-sequence"): ("admin heal sequences", "9b"),
     ("POST", "heal-sequence/stop"): ("admin heal sequences", "9b"),
@@ -47,9 +47,6 @@ UNPORTED = {
     ("POST", "fault/inject"): ("remote fault injection", "9b"),
     ("POST", "fault/clear"): ("remote fault injection", "9b"),
     ("GET", "fault/status"): ("remote fault injection", "9b"),
-    ("GET", "read-cache-stats"): ("the tiered read cache", "9a"),
-    ("POST", "read-cache-clear"): ("the tiered read cache", "9a"),
-    ("GET", "healthinfo"): ("admin healthinfo", "9a"),
     ("GET", "cache-stats"): ("the disk cache", "9c"),
     ("GET", "get-bucket-quota"): ("bucket quota", "9c"),
     ("PUT", "set-bucket-quota"): ("bucket quota", "9c"),
@@ -86,6 +83,18 @@ class AdminAPI:
         # with the peer plane, slice 9b)
         if route == ("GET", "background-heal/status"):
             return 200, _json({"nodes": [self._bg_heal_local()]})
+        # tiered read cache (cache/tiered.py): device+host tiers of
+        # digest-verified encoded groups in front of the quorum reader
+        if route == ("GET", "read-cache-stats"):
+            return 200, _json(rcache.read_cache_stats())
+        if route == ("POST", "read-cache-clear"):
+            return 200, _json({"cleared": rcache.clear_read_cache()})
+        # cluster health diagnostics (admin-handlers.go:1007
+        # OBDInfoHandler): system + per-drive microbenchmarks.  The
+        # peers' documents come with the peer plane (slice 9b), so the
+        # document holds this node's alone
+        if route == ("GET", "healthinfo"):
+            return 200, _json({"nodes": [self._health_info_local(ol)]})
         # KMS key status (admin-handlers.go KMSKeyStatusHandler): a full
         # generate->unseal roundtrip proves the configured KMS can both
         # mint and open data keys for this key id
@@ -332,6 +341,129 @@ class AdminAPI:
                 "disks": disks,
             }
         )
+
+    def _health_info_local(self, ol) -> dict:
+        """This node's OBD document: platform + memory + per-local-drive
+        latency/throughput microprobe (the reference's getLocalDrivesOBD
+        probe, obdinfo.go), with the read-cache, Select and codec-overlap
+        blocks the JAX package reports."""
+        import os as _os
+        import platform
+        from concurrent.futures import ThreadPoolExecutor
+
+        from ..codec.telemetry import KERNEL_STATS
+        from ..ops import codec_step
+        from ..s3select import device as seldev
+        from .metrics import _iter_disks
+        from .select import scan_device
+
+        doc = {
+            "endpoint": getattr(self.s3, "endpoint", ""),
+            "state": "online",
+            "version": VERSION,
+            "uptime_seconds": round(time.time() - _START, 1),
+            "platform": platform.platform(),
+            "python": platform.python_version(),
+            "cpus": _os.cpu_count(),
+            # request-plane mode + admission/backpressure counters
+            "server_plane": dict(
+                self.s3.plane_stats.snapshot(),
+                mode=getattr(self.s3, "server_mode", "threaded"),
+            )
+            if getattr(self.s3, "plane_stats", None) is not None
+            else {},
+        }
+        plane = getattr(self.s3, "_plane", None)
+        doc["server_loops"] = (
+            plane.describe()
+            if plane is not None
+            else {"count": 0, "reuseport": False, "per_loop": []}
+        )
+        admission = getattr(self.s3, "admission", None)
+        if admission is not None:
+            doc["admission"] = {
+                "tenant_inflight": admission.tenant_inflight(),
+                "tenant_hwm": admission.budget.tenant_hwm(),
+                "select_inflight": admission.budget.select.value(),
+                "select_hwm": admission.budget.select.hwm,
+            }
+        # zero-filled when off, so the shape is stable across modes
+        doc["read_cache"] = rcache.read_cache_stats()
+        doc["select"] = dict(
+            seldev.STATS.snapshot(), mode=seldev.select_mode()
+        )
+        ksnap = KERNEL_STATS.snapshot()
+        doc["codec_overlap"] = {
+            "mode": codec_step.codec_overlap_mode(scan_device(ol)),
+            "overlap_windows": ksnap["overlap_windows"],
+            "h2d": ksnap["h2d"],
+            "d2h": ksnap["d2h"],
+        }
+        try:
+            page = _os.sysconf("SC_PAGE_SIZE")
+            doc["mem_total_bytes"] = page * _os.sysconf("SC_PHYS_PAGES")
+            doc["mem_available_bytes"] = page * _os.sysconf(
+                "SC_AVPHYS_PAGES"
+            )
+        except (ValueError, OSError, AttributeError):
+            pass
+        probe = b"\0" * (1 << 20)
+
+        def probe_drive(d) -> dict:
+            import uuid as _uuid
+
+            # unique path per request (concurrent OBD calls must not
+            # race each other's probe files) + guaranteed cleanup
+            path = f"tmp/obd-probe-{_uuid.uuid4().hex}"
+            entry = {"endpoint": ""}
+            try:
+                info = d.disk_info()
+                entry.update(
+                    endpoint=info.endpoint, total=info.total, free=info.free
+                )
+                t0 = time.monotonic()
+                d.write_all(".sys", path, probe)
+                t1 = time.monotonic()
+                try:
+                    d.read_all(".sys", path)
+                    t2 = time.monotonic()
+                finally:
+                    try:
+                        d.delete_file(".sys", path)
+                    except Exception as exc:  # noqa: BLE001 - best effort
+                        _log.debug("obd probe file cleanup failed", extra=kv(err=str(exc)))
+                entry["write_mibps"] = round(1 / max(t1 - t0, 1e-9), 1)
+                entry["read_mibps"] = round(1 / max(t2 - t1, 1e-9), 1)
+                entry["latency_ms"] = round((t1 - t0) * 1e3, 2)
+                entry["state"] = "ok"
+            except Exception as e:  # noqa: BLE001 - reported in the entry
+                entry["state"] = f"error: {type(e).__name__}"
+            stats_fn = getattr(d, "api_stats", None)
+            if callable(stats_fn):
+                try:
+                    entry["api_stats"] = stats_fn()
+                except Exception as exc:  # noqa: BLE001
+                    _log.debug("disk api_stats read failed", extra=kv(err=str(exc)))
+            h = getattr(d, "health", None)
+            if h is not None:
+                try:
+                    entry["health"] = h.snapshot()
+                except Exception as exc:  # noqa: BLE001
+                    _log.debug("disk health read failed", extra=kv(err=str(exc)))
+            return entry
+
+        local = [
+            d
+            for d in _iter_disks(ol)
+            if d is not None and getattr(d, "is_local", lambda: False)()
+        ]
+        # concurrent probes: wall time is one drive's probe
+        if local:
+            with ThreadPoolExecutor(max_workers=min(8, len(local))) as pool:
+                doc["drives"] = list(pool.map(probe_drive, local))
+        else:
+            doc["drives"] = []
+        return doc
 
     def _bg_heal_local(self) -> dict:
         routine = getattr(self.s3, "heal_routine", None)

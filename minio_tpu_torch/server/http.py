@@ -47,7 +47,6 @@ import uuid
 import xml.etree.ElementTree as ET
 from http.server import BaseHTTPRequestHandler, ThreadingHTTPServer
 
-from ..cache import READ_CACHE_SLICE, refused_read_cache
 from ..codec import sse as ssemod
 from ..iam.sys import IAMSys
 from ..objectlayer.api import CompletePart, ObjectInfo
@@ -1786,11 +1785,6 @@ class _Handler(BaseHTTPRequestHandler):
         ol = self.s3.object_layer
         version_id = query.get("versionId", [""])[0]
         self._refuse_bucket_config(bucket, "notification_xml")
-        # the object layer refuses a read-cache mode too, but only after
-        # the headers went out: refuse it here, while an error can be sent
-        cache = refused_read_cache()
-        if cache is not None:
-            raise unported(cache, READ_CACHE_SLICE)
         info, sse = self._read_info_and_sse(ol, bucket, key, version_id)
         self._check_conditions(info)
         rng = self._parse_range(info.size)

@@ -3,11 +3,12 @@
 A process-local registry fed by the request middleware plus live
 gauges scraped from the object layer (per-disk usage + per-API disk
 latencies), the heal routine, the codec kernel telemetry registry
-(codec/telemetry.py), and the audit log, rendered in the Prometheus
-text exposition format 0.0.4 at ``/minio-tpu/prometheus/metrics``.
+(codec/telemetry.py), the tiered read cache (cache/), and the audit
+log, rendered in the Prometheus text exposition format 0.0.4 at
+``/minio-tpu/prometheus/metrics``.
 
-The read-cache families (slice 9a) and the mesh placement families
-(slice 10) come with the slices that port what feeds them.
+The mesh placement families (slice 10) come with the slice that ports
+what feeds them.
 """
 
 from __future__ import annotations
@@ -222,6 +223,7 @@ class Metrics:
         )
 
         self._emit_codec(emit)
+        self._emit_read_cache(emit)
         self._emit_select(emit)
         self._emit_disk_health(emit)
 
@@ -386,6 +388,79 @@ class Metrics:
             "miniotpu_select_device_seconds_total", "counter",
             "Wall seconds spent in the device scan phase",
             [({}, f"{snap['device_seconds']:.6f}")],
+        )
+
+    @staticmethod
+    def _emit_read_cache(emit):
+        """Tiered read-cache families; every (family, tier) cell is
+        zero-filled so dashboards see identical shapes whether the
+        cache is off, cold, or hot."""
+        from .. import cache as rcache
+
+        st = rcache.read_cache_stats()
+        tiers = st["tiers"]
+
+        def per_tier(field):
+            return [
+                ({"tier": t}, tiers[t][field]) for t in rcache.TIERS
+            ]
+
+        emit(
+            "miniotpu_cache_hits_total", "counter",
+            "Read-cache group hits by tier (digest re-verified)",
+            per_tier("hits"),
+        )
+        emit(
+            "miniotpu_cache_misses_total", "counter",
+            "Read-cache group misses by tier",
+            per_tier("misses"),
+        )
+        emit(
+            "miniotpu_cache_evictions_total", "counter",
+            "Read-cache groups evicted under budget pressure by tier",
+            per_tier("evictions"),
+        )
+        emit(
+            "miniotpu_cache_rejects_total", "counter",
+            "Read-cache admissions rejected by tier (frequency contest"
+            " losses and digest-verification drops)",
+            per_tier("rejects"),
+        )
+        emit(
+            "miniotpu_cache_entries", "gauge",
+            "Read-cache resident groups by tier",
+            per_tier("entries"),
+        )
+        emit(
+            "miniotpu_cache_occupancy_bytes", "gauge",
+            "Read-cache resident bytes by tier",
+            per_tier("occupancy_bytes"),
+        )
+        emit(
+            "miniotpu_cache_budget_bytes", "gauge",
+            "Read-cache configured capacity by tier",
+            per_tier("capacity_bytes"),
+        )
+        emit(
+            "miniotpu_cache_demotions_total", "counter",
+            "Device-tier groups demoted (written back) to the host tier",
+            [({}, st["demotions"])],
+        )
+        emit(
+            "miniotpu_cache_invalidations_total", "counter",
+            "Object invalidations applied to the read cache",
+            [({}, st["invalidations"])],
+        )
+        adm = st["admission"]
+        emit(
+            "miniotpu_cache_admission_events_total", "counter",
+            "TinyLFU admission-filter events by kind",
+            [
+                ({"kind": kind}, adm[kind])
+                for kind in (
+                    "recorded", "seeded", "admitted", "rejected"
+                )
+            ],
         )
 
     @staticmethod

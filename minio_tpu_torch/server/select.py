@@ -2,14 +2,15 @@
 SelectObjectContentHandler -> pkg/s3select).
 
 Scans are the server's second admitted traffic class
-(MINIO_TPU_SELECT_MAX_INFLIGHT, shed reason ``select``).  The object is
-spooled through the normal erasure-decode read path and evaluated by
-the select engines; a device-capable statement screens each chunk on
-the object layer's codec device (s3select/device.py).  A device-capable
-statement over an object whose groups all sit in a device cache tier
-would scan that device-resident plane directly; the port has no such
-tier yet, so ``_device_source`` finds none.  Either way the EventStream
-frames are written as one response.
+(MINIO_TPU_SELECT_MAX_INFLIGHT, shed reason ``select``).  A
+device-capable statement over an object whose groups all sit in the
+read cache's device tier scans that device-resident plane where it lies
+- zero shard reads, candidate rows only across D2H.  Everything else is
+spooled through the normal erasure-decode read path (decompression/SSE
+seams included) and evaluated by the select engines; a device-capable
+statement then screens each chunk on the object layer's codec device
+(s3select/device.py).  Either way the EventStream frames are written as
+one response.
 """
 
 from __future__ import annotations
@@ -98,8 +99,10 @@ def _run_select(handler, bucket, key, info, sel) -> None:
         src = _device_source(handler, bucket, key, sel)
         try:
             if src is not None:
-                # result frames spool either way: a huge SELECT *
-                # result must not live in RAM
+                # the scan runs where the plane lies (the cache tier's
+                # device); result frames spool either way: a huge
+                # SELECT * result must not live in RAM
+                sel.device = src[0].device
                 sel.evaluate(
                     None, info.size, out.write, device_source=src
                 )

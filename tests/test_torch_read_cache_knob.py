@@ -2,14 +2,16 @@
 
 The JAX package serves PUT and GET through its read cache when the knob
 resolves to ``host`` or ``device`` (``auto`` resolves to one of them);
-every other value resolves to ``off``.  The port has no read cache yet
-(slice 9a), so:
+every other value resolves to ``off``.  The port serves the same modes
+(the test names come from the slice before the cache was ported, when
+these modes were refused; each now checks the served behaviour):
 
 * for ``host``, ``device`` and ``auto`` in any case and with any
-  surrounding blanks, the object layer's PUT and GET raise
-  NotImplementedError naming slice 9a, ``refuse_unported`` exits naming
-  it, ``python -m minio_tpu_torch.server`` exits before it listens, and
-  the S3 front answers ``NotImplemented``;
+  surrounding blanks, the object layer's PUT and GET serve through the
+  read cache with the JAX package's bodies and stats,
+  ``refuse_unported`` lets them pass, ``python -m
+  minio_tpu_torch.server`` boots and serves GETs from the cache, and
+  the S3 front answers PUT and GET as the JAX package's does;
 * unset, ``off``, ``0`` and an unknown word run PUT and GET as before,
   and the port's ``cache_mode()`` resolves every value as
   ``minio_tpu.cache.cache_mode()`` does.
@@ -18,19 +20,27 @@ every other value resolves to ``off``.  The port has no read cache yet
 from __future__ import annotations
 
 import io
+import json
 import os
+import signal
 import subprocess
 import sys
 
 import pytest
 
 from minio_tpu import cache as jcache
+from minio_tpu.codec import backend as jbackend
+from minio_tpu.objectlayer.erasure_object import ErasureObjects as JaxObjects
+from minio_tpu.server.http import S3Server as JaxServer
+from minio_tpu.storage.xl import XLStorage as JaxStorage
 from minio_tpu_torch import cache as tcache
+from minio_tpu_torch.codec import backend as tbackend
 from minio_tpu_torch.objectlayer.erasure_object import ErasureObjects
 from minio_tpu_torch.server import __main__ as tmain
 from minio_tpu_torch.server.http import S3Server
 from minio_tpu_torch.storage.xl import XLStorage
 from tests.s3client import S3Client
+from tests.test_torch_main import _env, _free_port, _ready, _until
 from tests.test_torch_threads import torch_threads  # noqa: F401
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
@@ -38,9 +48,27 @@ SERVED = ["host", "DEVICE", " auto ", "Host", "device\n"]
 OFF = [None, "off", "0", "bogus", "", "OFF", "false", "no"]
 
 
-def _layer(tmp_path) -> ErasureObjects:
-    ol = ErasureObjects([XLStorage(str(tmp_path / f"d{i}")) for i in range(4)],
-                        parity_blocks=2, block_size=4096, device="cpu")
+@pytest.fixture(autouse=True)
+def _fresh(monkeypatch):
+    monkeypatch.setenv("MINIO_MESH", "0")
+    for mod in (jcache, tcache):
+        mod.reset_read_cache()
+    yield
+    for mod in (jcache, tcache):
+        mod.reset_read_cache()
+
+
+def _layer(tmp_path, tag="") -> ErasureObjects:
+    ol = ErasureObjects(
+        [XLStorage(str(tmp_path / f"d{tag}{i}")) for i in range(4)],
+        parity_blocks=2, block_size=4096, device="cpu")
+    ol.make_bucket("bkt")
+    return ol
+
+
+def _jax_layer(tmp_path) -> JaxObjects:
+    ol = JaxObjects([JaxStorage(str(tmp_path / f"j{i}")) for i in range(4)],
+                    parity_blocks=2, block_size=4096)
     ol.make_bucket("bkt")
     return ol
 
@@ -50,20 +78,32 @@ def _set(monkeypatch, value) -> None:
         monkeypatch.delenv("MINIO_TPU_READ_CACHE", raising=False)
     else:
         monkeypatch.setenv("MINIO_TPU_READ_CACHE", value)
+    for mod in (jcache, tcache):
+        mod.reset_read_cache()
 
 
 @pytest.mark.parametrize("value", SERVED)
 def test_served_modes_raise_naming_the_slice(tmp_path, monkeypatch, value):
-    ol = _layer(tmp_path)
-    ol.put_object("bkt", "before", io.BytesIO(b"x" * 5000), 5000)
+    """Each served mode runs PUT and GET through the read cache, as the
+    JAX package does: equal bodies, equal cache stats, nothing refused."""
+    ol, ref = _layer(tmp_path), _jax_layer(tmp_path)
+    for layer in (ol, ref):
+        layer.put_object("bkt", "before", io.BytesIO(b"x" * 5000), 5000)
     _set(monkeypatch, value)
-    with pytest.raises(NotImplementedError, match=r"read cache.*\(slice 9a\)"):
-        ol.put_object("bkt", "obj", io.BytesIO(b"y" * 5000), 5000)
-    with pytest.raises(NotImplementedError, match=r"read cache.*\(slice 9a\)"):
-        ol.get_object("bkt", "before", io.BytesIO())
-    # nothing was written by the refused PUT
-    monkeypatch.delenv("MINIO_TPU_READ_CACHE")
-    assert [o.name for o in ol.list_objects("bkt").objects] == ["before"]
+    body = bytes(range(256)) * 40
+    for layer in (ol, ref):
+        layer.put_object("bkt", "obj", io.BytesIO(body), len(body))
+        for name, want in (("obj", body), ("before", b"x" * 5000),
+                           ("before", b"x" * 5000)):
+            out = io.BytesIO()
+            layer.get_object("bkt", name, out)
+            assert out.getvalue() == want
+    st = tcache.read_cache_stats()
+    assert st == jcache.read_cache_stats()
+    mode = jcache.cache_mode()
+    assert st["mode"] == mode != "off"
+    assert st["tiers"][mode]["hits"] >= 2  # obj and the second "before"
+    assert [o.name for o in ol.list_objects("bkt").objects] == ["before", "obj"]
 
 
 @pytest.mark.parametrize("value", OFF)
@@ -83,14 +123,14 @@ def test_cache_mode_resolves_as_the_reference(monkeypatch, value):
     # the JAX side runs on the CPU here, and so does the port's: auto
     # resolves to host in both
     assert tcache.cache_mode() == jcache.cache_mode()
-    assert (tcache.refused_read_cache() is None) == (jcache.cache_mode() == "off")
+    assert (tcache.read_cache("cpu") is None) == (jcache.cache_mode() == "off")
 
 
 @pytest.mark.parametrize("value", SERVED)
 def test_refuse_unported_names_the_slice(tmp_path, monkeypatch, value):
+    """A served mode is no longer refused at boot."""
     _set(monkeypatch, value)
-    with pytest.raises(SystemExit, match=r"read cache.*\(slice 9a\)"):
-        tmain.refuse_unported([str(tmp_path / "d{1...4}")])
+    tmain.refuse_unported([str(tmp_path / "d{1...4}")])
 
 
 @pytest.mark.parametrize("value", OFF)
@@ -100,37 +140,73 @@ def test_refuse_unported_passes_off_modes(tmp_path, monkeypatch, value):
 
 
 def test_boot_exits_naming_the_slice(tmp_path):
-    env = {k: v for k, v in os.environ.items()
-           if not k.startswith(("MINIO_TPU_", "MINIO_ERASURE"))}
-    env.update(MINIO_ERASURE_BACKEND="cpu", MINIO_TPU_READ_CACHE="auto")
-    res = subprocess.run(
+    """``python -m minio_tpu_torch.server`` with MINIO_TPU_READ_CACHE=auto
+    boots (auto resolves to the host tier without a card, to the device
+    tier - here the codec's CPU device - with one) and serves a GET from
+    the cache; the admin route reports it."""
+    port = _free_port()
+    proc = subprocess.Popen(
         [sys.executable, "-m", "minio_tpu_torch.server", "--address",
-         "127.0.0.1:0", str(tmp_path / "d{1...4}")],
-        cwd=ROOT, env=env, capture_output=True, text=True, timeout=60)
-    assert res.returncode != 0, res.stdout
-    assert "(slice 9a)" in res.stderr and "MINIO_TPU_READ_CACHE=auto" in res.stderr
-    assert "listening" not in res.stdout
-    assert not os.path.exists(tmp_path / "d1" / ".sys" / "format.json")
+         f"127.0.0.1:{port}", str(tmp_path / "d{1...4}")],
+        cwd=ROOT, env=_env(MINIO_TPU_READ_CACHE="auto"),
+        stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+    try:
+        _until(lambda: _ready(port) == 200, 90, "readiness 200")
+        c = S3Client(f"http://127.0.0.1:{port}")
+        assert c.make_bucket("bkt").status == 200
+        body = os.urandom(70_000)
+        assert c.put_object("bkt", "obj", body).status == 200
+        for _ in range(2):
+            r = c.get_object("bkt", "obj")
+            assert (r.status, r.body) == (200, body)
+        r = c.request("GET", "/minio-tpu/admin/v1/read-cache-stats")
+        doc = json.loads(r.body)
+        assert r.status == 200 and doc["mode"] in ("host", "device")
+        assert doc["tiers"][doc["mode"]]["hits"] >= 2
+    finally:
+        proc.send_signal(signal.SIGTERM)
+        try:
+            out, _ = proc.communicate(timeout=60)
+        except subprocess.TimeoutExpired:
+            proc.kill()
+            out, _ = proc.communicate()
+    assert proc.returncode == 0, out
+    assert "slice 9a" not in out
+    assert os.path.exists(tmp_path / "d1" / ".sys" / "format.json")
 
 
 def test_s3_front_answers_not_implemented(tmp_path, monkeypatch):
+    """The S3 front serves PUT and GET under a read-cache mode as the JAX
+    package's does: the same statuses and bodies, the same cache stats."""
     monkeypatch.setenv("MINIO_TPU_SERVER", "threaded")
+    jbackend.reset_backend()
+    tbackend.reset_backend()
     ol = ErasureObjects([XLStorage(str(tmp_path / f"d{i}")) for i in range(4)],
                         parity_blocks=2, block_size=4096, device="cpu")
-    srv = S3Server(ol, address="127.0.0.1:0").start()
+    ref = JaxObjects([JaxStorage(str(tmp_path / f"j{i}")) for i in range(4)],
+                     parity_blocks=2, block_size=4096)
+    srvs = [S3Server(ol, address="127.0.0.1:0").start(),
+            JaxServer(ref, address="127.0.0.1:0").start()]
+    got = []
     try:
-        c = S3Client(srv.endpoint)
-        assert c.make_bucket("bkt").status == 200
-        assert c.put_object("bkt", "old", b"hello").status == 200
-        monkeypatch.setenv("MINIO_TPU_READ_CACHE", "host")
-        r = c.put_object("bkt", "obj", b"world")
-        assert r.status == 501, r.body
-        assert b"<Code>NotImplemented</Code>" in r.body
-        assert b"(slice 9a)" in r.body
-        r = c.get_object("bkt", "old")
-        assert r.status == 501 and b"(slice 9a)" in r.body
-        monkeypatch.setenv("MINIO_TPU_READ_CACHE", "off")
-        assert c.put_object("bkt", "obj", b"world").status == 200
-        assert c.get_object("bkt", "obj").body == b"world"
+        for srv in srvs:
+            c = S3Client(srv.endpoint)
+            assert c.make_bucket("bkt").status == 200
+            assert c.put_object("bkt", "old", b"hello").status == 200
+        _set(monkeypatch, "host")
+        for srv in srvs:
+            c = S3Client(srv.endpoint)
+            rs = [c.put_object("bkt", "obj", b"world" * 3000),
+                  c.get_object("bkt", "old"), c.get_object("bkt", "obj"),
+                  c.get_object("bkt", "obj")]
+            got.append([(r.status, r.body) for r in rs])
+        assert got[0] == got[1]
+        assert got[0][3] == (200, b"world" * 3000)
+        st = tcache.read_cache_stats()
+        assert st == jcache.read_cache_stats()
+        assert st["mode"] == "host" and st["tiers"]["host"]["hits"] >= 2
     finally:
-        srv.shutdown()
+        for srv in srvs:
+            srv.shutdown()
+        jbackend.reset_backend()
+        tbackend.reset_backend()
