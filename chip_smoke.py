@@ -192,7 +192,32 @@
    16 MiB lineitem object on the restarted server, against the host
    engine's answer, with ``miniotpu_select_requests_total{engine="device"}``
    at least 1.  Prints the ``boot:`` line.
-11. Prints the kernels JSON line, the card's name and power limit, and as
+11. Four nodes, one erasure set (``cluster_phase``, slice 9b): four
+   ``python -m minio_tpu_torch.server`` processes on this one card,
+   spawned by the port's ClusterHarness (cluster/harness.py) with the same
+   16 ``http://127.0.0.1:P_j/.../d{1..4}`` endpoints - one set of 16
+   drives at the default parity, EC 8+8, the 4-node, 4-drive layout of
+   MinIO's distributed-mode guide - on the async plane with the harness's
+   fast lock and heal cadences, node 1 with MINIO_TPU_READ_CACHE=device.
+   All four boot at once (spawn to ready each; the 16 format.json agree);
+   4 SigV4 clients, client i on node i, PUT 16 x 64 MiB and each object is
+   read back from another node (sha256); the first object's part files
+   and xl.meta on all 16 drives are held against the port's plain CPU
+   codec writing the same bytes; 8 rounds of concurrent PUTs of one key
+   through nodes 1 and 3 (one of the two bodies, one xl.meta generation
+   on every drive, top-locks empty after); 20 rounds of read-after-write
+   across nodes (node 1 reads a hot object twice, from the device tier
+   once admitted, node 2 overwrites it, node 1's GET right after the ack
+   returns the new body; node 1's peer-driven invalidations counted);
+   node 4 SIGKILLed: nodes 1-3 return every object (K3 launches), 4 PUTs
+   succeed at write and lock quorum, node 4 restarts over the same drives
+   and an admin heal on node 1 puts the missed shards on its drives, equal
+   on all 16 drives to the plain codec's; every acknowledged object read
+   back from every node; SIGTERM, each node exits 0.  Each node's kernel
+   launches come from its admin ``kernel-stats`` (K5 on every node's PUTs,
+   K2 on its GETs, K6 and K1 ``group=0`` on the heal).  Prints the
+   ``cluster:`` line; ``phases_s`` gains ``cluster``.
+12. Prints the kernels JSON line, the card's name and power limit, and as
    the last line ``{"ok": true, "device": {...}}``.
 
 Exits non-zero, without the result lines, when there is no CUDA device or
@@ -4766,6 +4791,435 @@ def read_cache_phase(dev, work: str, sel: dict) -> dict:
     return out
 
 
+# ---------------------------------------------------------------------------
+# slice 9b: four nodes, one erasure set (the cluster phase)
+# ---------------------------------------------------------------------------
+
+CLUSTER_NODES = 4
+CLUSTER_DRIVES = 4  # per node: 16 drives, one set, EC 8+8 (default parity)
+CLUSTER_PER_NODE = 4  # 64 MiB objects PUT through each node's client
+CLUSTER_RACE_ROUNDS = 8
+CLUSTER_RACE_SIZE = 16 << 20
+CLUSTER_RAW_ROUNDS = 20
+CLUSTER_HOT_SIZE = 8 << 20
+CLUSTER_DOWN_PUTS = 4  # objects PUT with node 4 killed
+CLUSTER_READY_S = 300.0  # spawn to ready, CUDA start and library load included
+CLUSTER_BUCKET = "cluster"
+# node 1 serves GETs through the tiered read cache, its hot tier on the card
+CLUSTER_CACHE_ENV = {"MINIO_TPU_READ_CACHE": "device",
+                     "MINIO_TPU_READ_CACHE_DEVICE_MB": "1024",
+                     "MINIO_TPU_READ_CACHE_MB": "1024",
+                     "MINIO_TPU_DEVICE_BUDGET_MB": "2048"}
+
+
+def _obj_state(root: str, key: str) -> dict:
+    """One drive's copy of an object: the sha256 of each part file under
+    the version's data dir, and xl.meta's erasure geometry, parts, size
+    and ETag (mod time, data dir and version id are fresh every PUT)."""
+    import hashlib
+
+    from minio_tpu_torch.storage.xl import XLStorage
+
+    fi = XLStorage(root).read_version(CLUSTER_BUCKET, key)
+    ddir = os.path.join(root, CLUSTER_BUCKET, key, fi.data_dir)
+    parts = {}
+    for name in sorted(os.listdir(ddir)):
+        with open(os.path.join(ddir, name), "rb") as f:
+            parts[name] = hashlib.sha256(f.read()).hexdigest()
+    return {"parts": parts, "erasure": fi.erasure.to_dict(),
+            "part_sizes": [p.to_dict() for p in fi.parts], "size": fi.size,
+            "etag": fi.metadata.get("etag")}
+
+
+def _obj_bytes(root: str, key: str) -> int:
+    base = os.path.join(root, CLUSTER_BUCKET, key)
+    return sum(os.path.getsize(os.path.join(d, f))
+               for d, _s, files in os.walk(base) for f in files)
+
+
+def cluster_phase(work: str, backend: "str | None" = None) -> dict:
+    """Phase 11 (slice 9b): four ``python -m minio_tpu_torch.server``
+    processes on this one card, started by the port's ClusterHarness with
+    the same 16 ``http://127.0.0.1:P_j/.../d{1..4}`` endpoints: one
+    erasure set of 16 drives at the default parity (EC 8+8), the
+    4-node, 4-drive layout of MinIO's distributed-mode guide, on the
+    async plane with the harness's fast lock and heal cadences; node 1
+    serves GETs through the device-tier read cache.  Boot, 4 clients
+    (client i on node i), a PUT race through the lock plane, cross-node
+    read-after-write, node 4 killed and restarted, an admin heal, and
+    SIGTERM.  ``backend`` sets MINIO_ERASURE_BACKEND for a rehearsal on
+    the CPU."""
+    import hashlib
+    import json as _json
+    import threading
+
+    import numpy as np
+
+    from minio_tpu_torch.cluster.harness import ClusterHarness
+    from minio_tpu_torch.codec.erasure import BLOCK_SIZE_V1
+    from minio_tpu_torch.objectlayer.erasure_object import ErasureObjects
+    from minio_tpu_torch.storage.meta import XLMeta
+    from minio_tpu_torch.storage.xl import XLStorage
+
+    base = os.path.join(work, "cluster")
+    env = {"MINIO_TPU_SERVER": "async", "MINIO_TPU_LOG_LEVEL": "warning"}
+    if backend is not None:
+        env["MINIO_ERASURE_BACKEND"] = backend
+    h = ClusterHarness(base, nodes=CLUSTER_NODES,
+                       drives_per_node=CLUSTER_DRIVES, env=env,
+                       fault_injection=False,
+                       format_timeout_s=CLUSTER_READY_S)
+    roots = [str(d) for n in h.nodes for d in n.drive_dirs]
+    node_of = [j // CLUSTER_DRIVES for j in range(len(roots))]
+    bkt = CLUSTER_BUCKET
+    rng = np.random.default_rng(SEED + 20)
+    objs = {f"n{i + 1}/big{j}": rng.bytes(S3_BIG)
+            for i in range(CLUSTER_NODES) for j in range(CLUSTER_PER_NODE)}
+    sha = {k: hashlib.sha256(v).hexdigest() for k, v in objs.items()}
+    out: dict = {"nodes": CLUSTER_NODES, "drives": len(roots)}
+
+    def tail(i: int) -> str:
+        return h.nodes[i].log_tail(3000)
+
+    def signer(i: int) -> S3Signer:
+        return S3Signer("127.0.0.1", h.nodes[i].port)
+
+    def admin(i: int, method: str, tail_: str, query=None) -> dict:
+        s = signer(i)
+        try:
+            st, _h, body = s.request(method, f"{ADMIN}/{tail_}", query)
+        finally:
+            s.close()
+        if st != 200:
+            fail(f"cluster: node {i + 1} admin {method} {tail_}: {st} "
+                 f"{body[:2000]!r}; its log: {tail(i)}")
+        return _json.loads(body) if body else {}
+
+    def launches(nodes) -> dict:
+        return {i: admin(i, "GET", "kernel-stats")["launches"] for i in nodes}
+
+    def delta(a: dict, b: dict) -> dict:
+        return {i: {k: b[i][k] - a[i].get(k, 0) for k in b[i]
+                    if b[i][k] != a[i].get(k, 0)} for i in b}
+
+    def by_node(jobs: dict, fn) -> "tuple[float, list]":
+        """``fn(signer, job)`` for each node's jobs, one client thread per
+        node at once; (wall seconds, results)."""
+        results: dict = {}
+        errors: list = []
+        start = threading.Barrier(len(jobs) + 1)
+
+        def run(i):
+            s = signer(i)
+            try:
+                start.wait()
+                results[i] = [fn(s, job) for job in jobs[i]]
+            except BaseException as e:  # noqa: BLE001 - reported below
+                errors.append(e)
+            finally:
+                s.close()
+
+        threads = [threading.Thread(target=run, args=(i,)) for i in jobs]
+        for t in threads:
+            t.start()
+        start.wait()
+        t0 = time.monotonic()
+        for t in threads:
+            t.join()
+        wall = time.monotonic() - t0
+        if errors:
+            fail(f"cluster: a client failed: {errors[0]!r}")
+        return wall, [r for i in sorted(results) for r in results[i]]
+
+    def put(s, job):
+        key, data = job
+        st, _h, body = s.request("PUT", f"/{bkt}/{key}", body=data,
+                                 payload_hash=hashlib.sha256(data).hexdigest())
+        if st != 200:
+            fail(f"cluster: PUT {key} on {s.port}: {st} {body[:300]!r}")
+        return len(data)
+
+    def get_sha(s, job):
+        key, want = job
+        st, _h, body = s.request("GET", f"/{bkt}/{key}")
+        if st != 200 or hashlib.sha256(body).hexdigest() != want:
+            fail(f"cluster: GET {key} on {s.port}: {st}, body differs")
+        return len(body)
+
+    def wait_ready(idx, t_spawn) -> dict:
+        import http.client
+
+        ready: dict = {}
+        while len(ready) < len(idx):
+            for i in idx:
+                if i in ready:
+                    continue
+                node = h.nodes[i]
+                if not node.alive():
+                    fail(f"cluster: node {i + 1} exited "
+                         f"{node.proc.returncode}: {tail(i)}")
+                if time.monotonic() - t_spawn[i] > CLUSTER_READY_S:
+                    fail(f"cluster: node {i + 1} not ready within "
+                         f"{CLUSTER_READY_S} s: {tail(i)}")
+                try:
+                    conn = http.client.HTTPConnection("127.0.0.1", node.port,
+                                                      timeout=5)
+                    conn.request("GET", "/minio/health/ready")
+                    if conn.getresponse().status == 200:
+                        ready[i] = time.monotonic() - t_spawn[i]
+                    conn.close()
+                except OSError:
+                    pass
+            time.sleep(0.05)
+        return ready
+
+    def no_locks(nodes) -> None:
+        deadline = time.monotonic() + 15
+        for i in nodes:
+            while True:
+                locks = admin(i, "GET", "top-locks")["locks"]
+                if not locks:
+                    break
+                if time.monotonic() > deadline:
+                    fail(f"cluster: node {i + 1} top-locks not empty: "
+                         f"{locks[:4]}")
+                time.sleep(0.1)
+
+    ref_roots = [os.path.join(work, "cluster-ref", f"d{j}")
+                 for j in range(len(roots))]
+    ref = None
+
+    def hold(keys_data: dict, what: str) -> int:
+        """Every drive's part files and xl.meta against the port's plain
+        CPU codec writing the same bytes on 16 drives of its own."""
+        nonlocal ref
+        if ref is None:
+            ref = ErasureObjects([XLStorage(r) for r in ref_roots],
+                                 parity_blocks=len(roots) // 2,
+                                 block_size=BLOCK_SIZE_V1, device="cpu")
+            ref.make_bucket(bkt)
+        for key, data in keys_data.items():
+            ref.put_object(bkt, key, io.BytesIO(data), len(data))
+            for j, (r, c) in enumerate(zip(ref_roots, roots)):
+                want, got = _obj_state(r, key), _obj_state(c, key)
+                if got != want:
+                    fail(f"cluster: {what}: {key} on drive {j + 1} (node "
+                         f"{node_of[j] + 1}) differs from the plain codec's")
+        return len(keys_data) * len(roots)
+
+    t_phase = time.monotonic()
+    try:
+        # -- 1. boot all four at once ---------------------------------------
+        t_spawn = {}
+        for i in range(CLUSTER_NODES):
+            t_spawn[i] = time.monotonic()
+            h.spawn(i, extra_env=CLUSTER_CACHE_ENV if i == 0 else None)
+        ready = wait_ready(range(CLUSTER_NODES), t_spawn)
+        out["spawn_to_ready_s"] = [ready[i] for i in range(CLUSTER_NODES)]
+        fmts = []
+        for r in roots:
+            with open(os.path.join(r, ".sys", "format.json")) as f:
+                fmts.append(_json.load(f))
+        sets = fmts[0]["erasure"]["sets"]
+        if ({f["id"] for f in fmts} != {fmts[0]["id"]}
+                or any(f["erasure"]["sets"] != sets for f in fmts)
+                or len(sets) != 1 or len(sets[0]) != len(roots)
+                or [f["erasure"]["this"] for f in fmts] != sets[0]):
+            fail("cluster: the 16 drives disagree on format.json")
+        info = admin(0, "GET", "info")
+        if info.get("mode") != "distributed" or [
+                n.get("state") for n in info.get("nodes", [])] != ["online"] * 3:
+            fail(f"cluster: admin info {info.get('mode')} {info.get('nodes')}")
+        s = signer(0)
+        st, _h, body = s.request("PUT", f"/{bkt}")
+        s.close()
+        if st != 200:
+            fail(f"cluster: bucket create {st} {body[:200]!r}")
+
+        # -- 2. 4 clients, client i on node i: PUT, then GET elsewhere ------
+        keys = sorted(objs)
+        mine = {i: [k for k in keys if k.startswith(f"n{i + 1}/")]
+                for i in range(CLUSTER_NODES)}
+        l0 = launches(range(CLUSTER_NODES))
+        put_wall, put_sizes = by_node(
+            {i: [(k, objs[k]) for k in mine[i]] for i in mine}, put)
+        l1 = launches(range(CLUSTER_NODES))
+        get_wall, get_sizes = by_node(
+            {(i + 1) % CLUSTER_NODES: [(k, sha[k]) for k in mine[i]]
+             for i in mine}, get_sha)
+        l2 = launches(range(CLUSTER_NODES))
+        internode = [sum(_obj_bytes(roots[j], k) for j in range(len(roots))
+                         if node_of[j] != i)
+                     for i in mine for k in mine[i]]
+        stored = [sum(_obj_bytes(r, k) for r in roots) for k in keys]
+        put_l, get_l = delta(l0, l1), delta(l1, l2)
+        for i in range(CLUSTER_NODES):
+            if not put_l[i].get("encode_pack_pipelined"):
+                fail(f"cluster: K5 did not launch on node {i + 1}'s PUTs: "
+                     f"{put_l[i]}")
+            if not get_l[i].get("phash256_batched"):
+                fail(f"cluster: K2 did not launch on node {i + 1}'s GETs: "
+                     f"{get_l[i]}")
+
+        # -- 3. the 16 drives against the plain CPU codec -------------------
+        first = keys[0]
+        t0 = time.monotonic()
+        held = hold({first: objs[first]}, "PUT")
+        hold_s = time.monotonic() - t0
+
+        # -- 4. a PUT race on one key through nodes 1 and 3 ------------------
+        race = [rng.bytes(CLUSTER_RACE_SIZE) for _ in range(2)]
+        race_sha = {hashlib.sha256(b).hexdigest() for b in race}
+        winners = []
+        t0 = time.monotonic()
+        for _r in range(CLUSTER_RACE_ROUNDS):
+            by_node({0: [("race", race[0])], 2: [("race", race[1])]}, put)
+            s = signer(1)
+            st, _h, body = s.request("GET", f"/{bkt}/race")
+            s.close()
+            got = hashlib.sha256(body).hexdigest()
+            if st != 200 or got not in race_sha:
+                fail(f"cluster: race GET {st}: neither body")
+            winners.append(0 if got == hashlib.sha256(race[0]).hexdigest()
+                           else 2)
+            metas = [XLMeta.from_bytes(open(os.path.join(
+                r, bkt, "race", "xl.meta"), "rb").read()) for r in roots]
+            if any(len(m.versions) != 1 for m in metas) or len(
+                    {(m.versions[0].data_dir, m.versions[0].metadata.get("etag"))
+                     for m in metas}) != 1:
+                fail("cluster: the race left more than one xl.meta generation")
+        race_s = time.monotonic() - t0
+        no_locks(range(CLUSTER_NODES))
+        objs["race"] = race[winners[-1] // 2]
+        sha["race"] = hashlib.sha256(objs["race"]).hexdigest()
+
+        # -- 5. read-after-write across nodes (node 1 caches, node 2 writes)
+        hot = [rng.bytes(CLUSTER_HOT_SIZE) for _ in range(CLUSTER_RAW_ROUNDS + 1)]
+        rc0 = admin(0, "GET", "read-cache-stats")
+        s1, s2 = signer(0), signer(1)
+        put(s2, ("hot", hot[0]))
+        fresh, hits = 0, 0
+        t0 = time.monotonic()
+        for r in range(CLUSTER_RAW_ROUNDS):
+            before = admin(0, "GET", "read-cache-stats")
+            for _ in range(2):
+                st, _h, body = s1.request("GET", f"/{bkt}/hot")
+                if st != 200 or body != hot[r]:
+                    fail(f"cluster: round {r}: node 1's GET of the hot object")
+            after = admin(0, "GET", "read-cache-stats")
+            hits += (after["tiers"]["device"]["hits"]
+                     > before["tiers"]["device"]["hits"])
+            put(s2, ("hot", hot[r + 1]))
+            st, _h, body = s1.request("GET", f"/{bkt}/hot")
+            if st != 200 or body != hot[r + 1]:
+                fail(f"cluster: read-after-write broken in round {r + 1}: "
+                     f"node 1 returned {'the old body' if body == hot[r] else st}")
+            fresh += 1
+        raw_s = time.monotonic() - t0
+        s1.close()
+        s2.close()
+        rc1 = admin(0, "GET", "read-cache-stats")
+        if not hits:
+            fail("cluster: node 1 never served the hot object from the device tier")
+        objs["hot"] = hot[-1]
+        sha["hot"] = hashlib.sha256(hot[-1]).hexdigest()
+
+        # -- 6. node 4 killed: degraded GETs, PUTs at quorum, restart, heal --
+        h.kill(3)
+        up = range(CLUSTER_NODES - 1)
+        l3 = launches(up)
+        big = sorted(k for k in objs if k.startswith("n"))
+        down_wall, down_sizes = by_node(
+            {i: [(k, sha[k]) for k in big[i::len(up)]] for i in up}, get_sha)
+        l4 = launches(up)
+        down_l = delta(l3, l4)
+        if not any(down_l[i].get("gf_matmul_words") for i in up):
+            fail(f"cluster: K3 never launched with node 4 down: {down_l}")
+        down_objs = {f"down/k{j}": rng.bytes(BLOCK_SIZE_V1 + 17 + j)
+                     for j in range(CLUSTER_DOWN_PUTS)}
+        for j, (k, v) in enumerate(down_objs.items()):
+            by_node({j % len(up): [(k, v)]}, put)
+        objs.update(down_objs)
+        sha.update({k: hashlib.sha256(v).hexdigest()
+                    for k, v in down_objs.items()})
+        early = [k for k in down_objs for j in range(len(roots))
+                 if node_of[j] == 3
+                 and os.path.exists(os.path.join(roots[j], bkt, k, "xl.meta"))]
+        if early:
+            fail(f"cluster: node 4's drives hold {early} PUT while it was down")
+        t_spawn = {3: time.monotonic()}
+        h.spawn(3)
+        restart_s = wait_ready([3], t_spawn)[3]
+        l5 = launches([0])
+        t0 = time.monotonic()
+        healed = {}
+        for k in down_objs:
+            res = admin(0, "POST", "heal", {"bucket": bkt, "object": k})
+            healed[k] = res.get("healed", res)
+        heal_s = time.monotonic() - t0
+        heal_l = delta(l5, launches([0]))[0]
+        for name in ("verify_reconstruct_pipelined", "encode_pack[group=0]"):
+            if not heal_l.get(name):
+                fail(f"cluster: {name} did not launch in node 1's heal: {heal_l}")
+        held += hold(down_objs, "heal")
+
+        # -- every acknowledged object from every node ------------------------
+        l6 = launches(range(CLUSTER_NODES))
+        all_keys = sorted(objs)
+        all_wall, all_sizes = by_node(
+            {i: [(k, sha[k]) for k in all_keys] for i in range(CLUSTER_NODES)},
+            get_sha)
+        l7 = launches(range(CLUSTER_NODES))
+        no_locks(range(CLUSTER_NODES))
+        node_launches = {f"node{i + 1}": v for i, v in delta(l0, l7).items()}
+        rc2 = admin(0, "GET", "read-cache-stats")
+
+        # -- 7. SIGTERM all four ----------------------------------------------
+        sigterm_s = []
+        for i in range(CLUSTER_NODES):
+            t0 = time.monotonic()
+            rc = h.terminate(i, timeout_s=120)
+            sigterm_s.append(time.monotonic() - t0)
+            if rc != 0 or "shutdown complete" not in tail(i):
+                fail(f"cluster: node {i + 1} SIGTERM exit {rc}: {tail(i)}")
+    finally:
+        h.stop()
+        shutil.rmtree(os.path.join(work, "cluster-ref"), ignore_errors=True)
+    nput, nget = sum(put_sizes), sum(get_sizes)
+    ndown, nall = sum(down_sizes), sum(all_sizes)
+    out.update({
+        "phase_s": time.monotonic() - t_phase,
+        "geometry": {"data": 8, "parity": 8},
+        "put": {"bytes": nput, "s": put_wall, "MBps": nput / put_wall / 1e6},
+        "get_other_node": {"bytes": nget, "s": get_wall,
+                           "MBps": nget / get_wall / 1e6},
+        "get_node_down": {"bytes": ndown, "s": down_wall,
+                          "MBps": ndown / down_wall / 1e6},
+        "get_every_node": {"bytes": nall, "s": all_wall,
+                           "MBps": nall / all_wall / 1e6},
+        "internode_put_bytes_per_object": sum(internode) / len(internode),
+        "stored_bytes_per_object": sum(stored) / len(stored),
+        "held_drive_copies": held, "hold_s": hold_s,
+        "race": {"rounds": CLUSTER_RACE_ROUNDS, "bytes": CLUSTER_RACE_SIZE,
+                 "winners": [w + 1 for w in winners], "s": race_s},
+        "read_after_write": {
+            "rounds": CLUSTER_RAW_ROUNDS, "fresh": fresh,
+            "rounds_with_device_hits": hits, "s": raw_s,
+            "node1_invalidations": rc1["invalidations"] - rc0["invalidations"],
+            "node1_device_hits": rc1["tiers"]["device"]["hits"]
+            - rc0["tiers"]["device"]["hits"]},
+        "restart_ready_s": restart_s,
+        "heal": {"objects": len(down_objs), "s": heal_s, "healed": healed,
+                 "launches": heal_l},
+        "launches": {"put": put_l, "get": get_l, "node_down_get": down_l,
+                     "per_node": node_launches},
+        "node1_read_cache": {k: rc2[k] for k in ("mode", "invalidations",
+                                                 "demotions", "verify_drops")},
+        "sigterm_s": sigterm_s,
+    })
+    return out
+
+
 # the TPU function each kernel replaces: encode_pack_fused (P4),
 # encode_hash_fused (P2, which encode_pack computes without the pack
 # leg), phash256_words_batched (left to XLA), matmul_words (P1),
@@ -5264,7 +5718,7 @@ def main() -> int:
         mx = modes_phase(dev, work, payloads, written, MXU_RUNS)
         lap("mxu")
         # phases 7, 8, 8b, 9 and 9b serve in this process on the threaded plane;
-        # the boot phase's server takes the default (async)
+        # the boot and cluster phases' servers take the default (async)
         os.environ["MINIO_TPU_SERVER"] = "threaded"
         s3 = s3_phase(dev, work, payloads, written, mp)
         lap("s3")
@@ -5279,6 +5733,8 @@ def main() -> int:
         os.environ.pop("MINIO_TPU_SERVER", None)
         bt = boot_phase(work, payloads)
         lap("boot")
+        cl = cluster_phase(work)
+        lap("cluster")
     finally:
         shutil.rmtree(work, ignore_errors=True)
     for label, by_run in (("mode", mo), ("mxu phase", mx)):
@@ -5292,6 +5748,7 @@ def main() -> int:
     print(f"select: {json.dumps(sel)}", flush=True)
     print(f"read_cache: {json.dumps(rc)}", flush=True)
     print(f"boot: {json.dumps(bt)}", flush=True)
+    print(f"cluster: {json.dumps(cl)}", flush=True)
     print(f"phases_s: {json.dumps(phases_s)}", flush=True)
     phase_launches = {
         "main": mp["launches"], "heal": hp["launches"],

@@ -20,9 +20,20 @@ bounded by the shared DeviceBudget it splits with the parity plane and
 the codec staging, MINIO_TPU_DEVICE_BUDGET_MB).
 
 Coherence: the object layer calls ``invalidate_object`` on every
-mutation; ``set_broadcast`` registers the fan-out a peer plane would
-drive (``invalidate_local`` is the remote-called twin that must NOT
-re-broadcast).  Nothing registers one yet: the peer plane is slice 9b.
+mutation; ``set_broadcast`` registers the fan-out of the peer plane
+(cluster/peer.py ``PeerNotifier.read_cache_invalidated``, registered by
+the server main when the layout has peers; ``invalidate_local`` is the
+remote-called twin that must NOT re-broadcast).
+
+Once a broadcast is registered the FileInfo side-car is off
+(``sidecar_enabled``): the object layer then reads ``xl.meta`` by
+quorum on every GET.  The side-car has no TTL and the fan-out is
+fire-and-forget, so a PUT acknowledged on another node (its dsync lock
+released) may not yet have dropped this node's entry; a side-car hit
+would then name the overwritten ``data_dir`` and serve the old body.
+The quorum read names the new one, and the cached groups, keyed by
+``data_dir``, miss.  A single node keeps the side-car: there the
+namespace lock orders every store against the mutation's invalidate.
 """
 
 from __future__ import annotations
@@ -51,6 +62,7 @@ __all__ = [
     "invalidate_object",
     "invalidate_local",
     "set_broadcast",
+    "sidecar_enabled",
     "seed_heat",
     "read_cache_stats",
     "clear_read_cache",
@@ -125,9 +137,16 @@ def context_for(
 
 
 def set_broadcast(fn) -> None:
-    """Register the cross-node fan-out (a peer plane's hook)."""
+    """Register the cross-node fan-out (a peer plane's hook); None
+    unregisters it."""
     global _BROADCAST
     _BROADCAST = fn
+
+
+def sidecar_enabled() -> bool:
+    """True while no cross-node broadcast is registered: only a single
+    node may answer a GET's FileInfo from the side-car."""
+    return _BROADCAST is None
 
 
 def invalidate_object(bucket: str, object_name: str) -> int:

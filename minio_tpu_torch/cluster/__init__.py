@@ -1,5 +1,3 @@
-"""Cluster topology: drive endpoints (bare paths served by this node).
-
-URL endpoints parse; the internode planes that serve a remote drive
-come with slice 9b, and ``server/__main__.py`` refuses them until then.
-"""
+"""Cluster topology and planes: drive endpoints (endpoints.py), the peer
+control plane and bootstrap handshake (peer.py), and the multi-process
+loopback harness (harness.py)."""

@@ -5,9 +5,6 @@ A drive is either a bare path (``/data/disk1``, always local) or a URL
 (``http://host:9000/data/disk1``); a URL is local when its host resolves
 to this machine AND its port is this server's port - the same rule the
 reference applies so one arg list can be passed to every node.
-
-This package serves local drives only: ``server/__main__.py`` refuses
-a remote endpoint, naming slice 9b (the storage REST client).
 """
 
 from __future__ import annotations

@@ -1,2 +1,2 @@
-"""Data crawler and update tracker: slice 9b.  Only the tracker's seam
+"""Data crawler and update tracker: slice 9d.  Only the tracker's seam
 is here (updatetracker.py)."""

@@ -469,7 +469,7 @@ class ErasureObjects(MultipartMixin, ObjectLayer):
             ):
                 raise api.VersionNotFound(f"{bucket}/{object_name}")
             raise ObjectNotFound(f"{bucket}/{object_name}")
-        fi = find_fileinfo_in_quorum(fis, self.read_quorum)
+        fi = find_fileinfo_in_quorum(fis, self.read_quorum, errs)
         return fi, fis
 
     def get_object_info(self, bucket, object_name, version_id="") -> ObjectInfo:
@@ -664,17 +664,21 @@ class ErasureObjects(MultipartMixin, ObjectLayer):
         self._require_bucket(bucket)
         with self.nslock.read(bucket, object_name):
             # latest-version GETs consult the read cache's FileInfo
-            # side-car before fanning xl.meta reads across the set; the
-            # namespace lock orders the store against any mutation's
-            # post-commit invalidate, so a cached FileInfo is never
-            # staler than what an uncached quorum read would return
+            # side-car before fanning xl.meta reads across the set; on
+            # one node the namespace lock orders the store against any
+            # mutation's post-commit invalidate, so a cached FileInfo is
+            # never staler than what an uncached quorum read would
+            # return.  Across nodes it is not (another node's PUT acks
+            # before this node drops its entry), so with a peer plane
+            # the side-car is skipped (cache.sidecar_enabled)
             rc = rcache.read_cache(self.backend.device) if not version_id else None
-            fi = rc.meta_lookup(bucket, object_name) if rc else None
+            sidecar = rc is not None and rcache.sidecar_enabled()
+            fi = rc.meta_lookup(bucket, object_name) if sidecar else None
             if fi is None:
                 fi, _ = self._read_quorum_fileinfo(
                     bucket, object_name, version_id
                 )
-                if rc is not None and not fi.deleted:
+                if sidecar and not fi.deleted:
                     rc.meta_store(bucket, object_name, fi)
             if fi.deleted:
                 raise ObjectNotFound(f"{bucket}/{object_name}")
@@ -817,13 +821,14 @@ class ErasureObjects(MultipartMixin, ObjectLayer):
             rc = rcache.read_cache(self.backend.device)
             if rc is None or rc.mode != "device":
                 return None
-            fi = rc.meta_lookup(bucket, object_name)
+            sidecar = rcache.sidecar_enabled()  # off with a peer plane
+            fi = rc.meta_lookup(bucket, object_name) if sidecar else None
             if fi is None:
                 try:
                     fi, _ = self._read_quorum_fileinfo(bucket, object_name, "")
                 except Exception:  # noqa: BLE001 - a miss, not an error
                     return None
-                if not fi.deleted:
+                if sidecar and not fi.deleted:
                     rc.meta_store(bucket, object_name, fi)
             if fi.deleted or fi.size <= 0:
                 return None
@@ -1312,10 +1317,10 @@ class ErasureObjects(MultipartMixin, ObjectLayer):
         self.heal_bucket(bucket, dry_run=dry_run)
         with self.nslock.write(bucket, object_name):
             disks_raw = self._online_disks()
-            fis, _errs = read_all_fileinfo(
+            fis, errs = read_all_fileinfo(
                 disks_raw, bucket, object_name, version_id
             )
-            fi = find_fileinfo_in_quorum(fis, self.read_quorum)
+            fi = find_fileinfo_in_quorum(fis, self.read_quorum, errs)
             disks = shuffle_disks(disks_raw, fi.erasure.distribution)
             fis_shuffled = shuffle_disks(fis, fi.erasure.distribution)
             er = Erasure(

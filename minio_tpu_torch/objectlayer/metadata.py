@@ -13,7 +13,10 @@ import binascii
 
 from ..storage import errors as serrors
 from ..storage.meta import FileInfo
+from ..utils.log import kv, logger
 from . import api
+
+_log = logger("objectlayer")
 
 
 def hash_order(key: str, cardinality: int) -> list[int]:
@@ -57,11 +60,13 @@ def read_all_fileinfo(
 
 
 def find_fileinfo_in_quorum(
-    fis: list, quorum: int
+    fis: list, quorum: int, errs: "list | None" = None
 ) -> FileInfo:
     """Pick the FileInfo agreeing across >= quorum disks
     (findFileInfoInQuorum, erasure-metadata.go:215: mod_time + data_dir
-    grouping)."""
+    grouping).  With ``errs`` (read_all_fileinfo's) a lost quorum is
+    logged with each disk slot's error, so the node's log says which
+    drives failed and how (the S3 answer names no drive)."""
     counts: dict = {}
     for fi in fis:
         if fi is None:
@@ -77,9 +82,19 @@ def find_fileinfo_in_quorum(
             if best is None or fi.mod_time_ns > best.mod_time_ns:
                 best = fi
     if best is None:
-        raise api.ReadQuorumError(
-            f"no metadata quorum ({quorum}) among {sum(f is not None for f in fis)} disks"
-        )
+        msg = f"no metadata quorum ({quorum}) among {sum(f is not None for f in fis)} disks"
+        if errs is not None:
+            _log.warning(
+                "metadata read quorum lost",
+                extra=kv(
+                    quorum=quorum,
+                    errors=[
+                        f"{i}: {type(e).__name__}: {e}"
+                        for i, e in enumerate(errs) if e is not None
+                    ],
+                ),
+            )
+        raise api.ReadQuorumError(msg)
     return best
 
 

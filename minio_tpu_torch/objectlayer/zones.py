@@ -6,7 +6,7 @@ server-main.go:559): writes go to the zone with the most free space
 order, listings merge across zones.  Each zone is an ErasureSets.
 
 The data-update tracker that marks mutated paths for the crawler comes
-with slice 9b: ``object_path_updated`` here is its no-op seam
+with slice 9d: ``object_path_updated`` here is its no-op seam
 (crawler/updatetracker.py).
 """
 

@@ -1,12 +1,23 @@
 """CLI entry: ``python -m minio_tpu_torch.server [--address host:port] args...``
 
-The `minio server` analogue (cmd/server-main.go) for one node: each
-positional arg is one zone, and an ellipses pattern expands to that
-zone's drives (``/data/disk{1...24}``), split into erasure sets of 2-16
-drives (utils/ellipses.py).  ``format.json`` is minted on fresh drives
-or quorum-loaded per zone (objectlayer/format.py), every local drive is
-guarded as ``DiskIDCheck(MeteredDisk(XLStorage))``, and the object layer
-is Zones(Sets(Objects)) exactly like newObjectLayer
+The `minio server` analogue (cmd/server-main.go): each positional arg is
+one zone, and an ellipses pattern expands to that zone's drives - bare
+paths (``/data/disk{1...24}``) for one node or URLs
+(``http://host{1...4}:9000/data/disk{1...4}``) for distributed mode -
+split into erasure sets of 2-16 drives (utils/ellipses.py).  Every node
+of a cluster is started with the same arguments; a URL drive is local
+when its host is this machine and its port this server's.  Local drives
+are served to the peers over the storage REST plane, remote drives are
+reached through ``StorageRESTClient``, and object locks go through dsync
+quorum locks on the lock REST plane when the layout spans more than one
+node; the peer plane verifies the cluster's fingerprint with every peer
+before the format bootstrap and then fans out cache invalidations.
+``format.json`` is minted on fresh drives (by the owner of the first
+endpoint only) or quorum-loaded per zone (objectlayer/format.py), every
+local drive is guarded as ``DiskIDCheck(MeteredDisk(XLStorage))``
+(``FaultDisk`` at the bottom of the chain under
+``MINIO_TPU_FAULT_INJECTION``), and the object layer is
+Zones(Sets(Objects)) exactly like newObjectLayer
 (server-main.go:559-567).  HTTP serving starts before the object layer
 is ready (503 ServerNotInitialized, readiness 503, until then), on the
 async plane unless ``MINIO_TPU_SERVER=threaded``.  Then the persisted
@@ -21,10 +32,9 @@ exits.  A persisted ``codec backend`` edit (admin set-config-kv) takes
 effect here, at boot.
 
 What this package has not ported exits at boot with a message naming
-its slice, instead of being ignored: URL drive endpoints and so a
-second node, fault injection and federation (9b); the gateway, a
+its slice, instead of being ignored: federation (9d); the gateway, a
 single drive (FS mode) and the disk cache (9c).  The data crawler and
-the update tracker (slice 9b) are not started.
+the update tracker (slice 9d) are not started.
 """
 
 from __future__ import annotations
@@ -37,8 +47,7 @@ import sys
 # env knobs of features this package has not ported: name -> (what,
 # slice).  A non-empty value exits at boot.
 UNPORTED_ENV = {
-    "MINIO_TPU_FAULT_INJECTION": ("fault injection (storage/faults.py)", "9b"),
-    "MINIO_TPU_FEDERATION_DIR": ("bucket federation", "9b"),
+    "MINIO_TPU_FEDERATION_DIR": ("bucket federation", "9d"),
     "MINIO_TPU_CACHE_DRIVES": ("the disk cache (objectlayer/cache.py)", "9c"),
 }
 
@@ -100,18 +109,14 @@ def refuse_unported(zone_args: list[str]) -> None:
         if val and val.lower() not in ("0", "off", "false", "no"):
             raise _refuse(f"{what} ({name})", slice_name)
     flat = [a for g in group_zone_args(zone_args) for a in g]
-    if any("://" in a for a in flat):
-        raise _refuse(
-            "distributed mode (URL drive endpoints, a second node)", "9b"
-        )
-    if len(flat) == 1:
+    if len(flat) == 1 and "://" not in flat[0]:
         raise _refuse("the single-drive FS mode (objectlayer/fs.py)", "9c")
 
 
 def build_object_layer(zone_args: list[str], parity: "int | None" = None,
                        device="cuda"):
     """Single-node convenience: expand bare-path args -> zones layer."""
-    ol, _ = build_cluster(zone_args, local_port=0, parity=parity,
+    ol, _ = build_cluster(zone_args, local_port=0, secret="", parity=parity,
                           device=device)
     return ol
 
@@ -119,17 +124,23 @@ def build_object_layer(zone_args: list[str], parity: "int | None" = None,
 def build_cluster(
     zone_args: list[str],
     local_port: int,
+    secret: str = "",
     parity: "int | None" = None,
     format_timeout_s: float = 120.0,
+    local_disk_map: "dict | None" = None,
+    nslock=None,
     device="cuda",
 ):
-    """Expand args -> local XLStorage drives -> zones layer on ``device``.
+    """Expand args -> local XLStorage + remote REST disks -> zones layer
+    with its codec on ``device``.
 
     Returns (object_layer, local_disks) where local_disks is every
-    XLStorage this node owns.  A remote (URL) drive raises: its storage
-    REST client is slice 9b, and with it the JAX signature's secret,
-    pre-opened drive map and namespace lock; so does a single drive (FS
-    mode, 9c).
+    XLStorage this node owns (to be served on the storage REST plane).
+    ``local_disk_map`` maps a local drive path to a drive opened before
+    (the server main opens them first, so the storage plane serves the
+    peers during the format bootstrap); ``nslock`` is the namespace lock
+    every set shares (dsync quorum locks in a cluster).  A single drive
+    (FS mode) raises: slice 9c.
     """
     from ..cluster.endpoints import resolve_endpoints
     from ..objectlayer.format import wait_for_format
@@ -137,10 +148,12 @@ def build_cluster(
     from ..objectlayer.zones import ErasureZones
     from ..storage import metered
     from ..storage.diskcheck import DiskIDCheck
+    from ..storage.rest_client import StorageRESTClient
     from ..storage.xl import XLStorage
     from ..utils import ellipses
 
-    if sum(map(len, group_zone_args(zone_args))) == 1:
+    flat = [a for g in group_zone_args(zone_args) for a in g]
+    if len(flat) == 1 and "://" not in flat[0]:
         raise _refuse("the single-drive FS mode (objectlayer/fs.py)", "9c")
 
     zones = []
@@ -154,23 +167,28 @@ def build_cluster(
         set_count, drives_per_set = ellipses.layout(len(eps))
         disks = []
         for ep in eps:
-            if not ep.is_local:
-                raise _refuse(
-                    f"the remote drive {ep.raw} (storage REST client)", "9b"
+            if ep.is_local:
+                d = (local_disk_map or {}).get(ep.path)
+                if d is None:
+                    d = XLStorage(ep.path, endpoint=ep.raw)
+                local_disks.append(d)
+                disks.append(d)
+            else:
+                disks.append(
+                    StorageRESTClient(ep.host, ep.port, ep.path, secret)
                 )
-            d = XLStorage(ep.path, endpoint=ep.raw)
-            local_disks.append(d)
-            disks.append(d)
+        # only the owner of the first endpoint may mint a fresh cluster
         ref_fmt, ordered = wait_for_format(
             disks,
             set_count,
             drives_per_set,
-            init_allowed=True,
+            init_allowed=eps[0].is_local,
             timeout_s=format_timeout_s,
         )
-        # per-op disk identity validation (xl-storage-disk-id-check.go):
-        # a swapped drive fails fast.  Metering sits INSIDE the identity
-        # check; the fresh-disk monitor walks the chain to the raw drive
+        # per-op disk identity validation on local drives
+        # (xl-storage-disk-id-check.go): a swapped drive fails fast.
+        # Metering sits INSIDE the identity check; the fresh-disk
+        # monitor walks the chain to the raw drive
         guarded = []
         for i, d in enumerate(ordered):
             if d is not None and d.is_local():
@@ -188,6 +206,7 @@ def build_cluster(
                 set_count,
                 drives_per_set,
                 parity_blocks=parity,
+                nslock=nslock,
                 format_ref=ref_fmt,
                 device=device,
             )
@@ -222,12 +241,75 @@ def start_background_heal(ol):
     return routine, monitor
 
 
+def cluster_nodes(zone_args: list[str], local_port: int):
+    """Sorted unique (host, port, is_local) across every URL endpoint -
+    the lock-plane topology (one locker per node, like newLockAPI per
+    endpoint host)."""
+    from ..cluster.endpoints import resolve_endpoints
+
+    nodes: dict = {}
+    for specs in group_zone_args(zone_args):
+        for ep in resolve_endpoints(specs, local_port):
+            if ep.is_url:
+                nodes[(ep.host, ep.port)] = (
+                    nodes.get((ep.host, ep.port), False) or ep.is_local
+                )
+    return [
+        (h, p, nodes[(h, p)]) for h, p in sorted(nodes)
+    ]
+
+
+def build_lock_plane(
+    zone_args: list[str], local_port: int, secret: str
+):
+    """(nslock, lock_rest_server, maintenance) for this topology.
+
+    Single-node (or bare-path) layouts use the in-process NamespaceLock;
+    multi-node layouts get dsync quorum locks over the lock REST plane
+    with refresh + expiry recovery (see dsync/drwmutex.py).
+    """
+    from ..dsync import drwmutex
+    from ..dsync.local_locker import LocalLocker, LockMaintenance
+    from ..dsync.lock_rest import LockRESTClient, LockRESTServer
+    from ..dsync.namespace import DistNamespaceLock, NamespaceLock
+
+    nodes = cluster_nodes(zone_args, local_port)
+    if len(nodes) <= 1:
+        return NamespaceLock(), None, None
+    refresh_s = float(
+        os.environ.get("MINIO_TPU_LOCK_REFRESH_S")
+        or drwmutex.REFRESH_INTERVAL_S
+    )
+    expiry_s = float(
+        os.environ.get("MINIO_TPU_LOCK_EXPIRY_S") or drwmutex.EXPIRY_S
+    )
+    local = LocalLocker(endpoint=f"local:{local_port}")
+    lockers = [
+        local
+        if is_local
+        else LockRESTClient(host, port, secret)
+        for host, port, is_local in nodes
+    ]
+    ds = drwmutex.Dsync(lockers, refresh_interval_s=refresh_s)
+    maint = LockMaintenance(
+        local, interval_s=max(1.0, expiry_s / 3), expiry_s=expiry_s
+    ).start()
+    return (
+        DistNamespaceLock(ds),
+        LockRESTServer(local, secret),
+        maint,
+    )
+
+
 def main(argv=None) -> int:
     p = argparse.ArgumentParser(prog="minio-tpu server")
     p.add_argument(
         "zones",
         nargs="+",
-        help="one arg per zone; ellipses expand: /data/disk{1...8}",
+        help=(
+            "one arg per zone; ellipses expand: /data/disk{1...8} or "
+            "http://host{1...4}:9000/data/disk{1...4}"
+        ),
     )
     p.add_argument("--address", default="0.0.0.0:9000")
     p.add_argument(
@@ -245,7 +327,7 @@ def main(argv=None) -> int:
     )
     p.add_argument(
         "--format-timeout", type=float, default=120.0,
-        help="seconds to wait for the drives during format bootstrap",
+        help="seconds to wait for peers and drives during bootstrap",
     )
     args = p.parse_args(argv)
 
@@ -263,37 +345,121 @@ def main(argv=None) -> int:
     refuse_unported(args.zones)
     device = codec_device()
 
+    from .. import cache as rcache
+    from ..cluster import peer as peer_mod
+    from ..cluster.endpoints import resolve_endpoints
+    from ..storage.rest_common import PREFIX as STORAGE_PREFIX
+    from ..storage.rest_server import StorageRESTServer
+    from ..storage.xl import XLStorage
     from .http import S3Server
 
     local_port = int(args.address.rsplit(":", 1)[1])
+
+    # Discover local drives first so the storage plane can serve peers
+    # BEFORE the format bootstrap (the reference starts HTTP at
+    # server-main.go:477, then waits for disks).  With
+    # MINIO_TPU_FAULT_INJECTION=1 each local drive is wrapped in a
+    # FaultDisk at the bottom of the wrap chain
+    # (DiskIDCheck(Metered(Fault(XL)))), and the admin fault routes
+    # schedule delay/error/corrupt/hang rules on it from another process
+    fault_on = (os.environ.get("MINIO_TPU_FAULT_INJECTION") or "") in (
+        "1", "on", "true",
+    )
+    fault_seed = int(os.environ.get("MINIO_TPU_FAULT_SEED") or 0)
+    fault_disks: dict = {}
+    pre_local: list = []
+    local_map: dict = {}
+    for specs in group_zone_args(args.zones):
+        for ep in resolve_endpoints(specs, local_port):
+            if ep.is_local:
+                d = XLStorage(ep.path, endpoint=ep.raw)
+                if fault_on:
+                    from ..storage.faults import FaultDisk
+
+                    d = FaultDisk(d, seed=fault_seed + len(fault_disks))
+                    fault_disks[str(d.unwrapped.root)] = d
+                pre_local.append(d)
+                local_map[ep.path] = d
+
     srv = S3Server(
         None,  # object layer attaches after bootstrap
         address=args.address,
         access_key=args.access_key,
         secret_key=args.secret_key,
         region=args.region,
+        internode_secret=args.secret_key,
     )
+    if fault_disks:
+        srv.fault_disks = fault_disks
     # readiness gate: /minio/health/ready stays 503 until every
-    # subsystem flips its flag, so a harness polls instead of sleeping.
-    # One node: the namespace lock is in-process, up from the start.
+    # subsystem flips its flag, so a harness polls instead of sleeping
     srv.boot_status = {
-        "lock_plane": True,
+        "lock_plane": False,
         "boot": False,
         "server_loops": False,
     }
+    storage_rest = StorageRESTServer(pre_local, args.secret_key)
+    srv.register_internode(STORAGE_PREFIX, storage_rest.handle)
+    nslock, lock_rest, lock_maint = build_lock_plane(
+        args.zones, local_port, args.secret_key
+    )
+    if lock_rest is not None:
+        from ..dsync.lock_rest import PREFIX as LOCK_PREFIX
+
+        srv.register_internode(LOCK_PREFIX, lock_rest.handle)
+        srv.local_locker = lock_rest.locker
+    srv.boot_status["lock_plane"] = True
+
+    # peer control plane + bootstrap handshake: every node serves
+    # /minio-tpu/peer/v1 and verifies the cluster fingerprint against
+    # every peer before joining
+    fingerprint = peer_mod.cluster_fingerprint(
+        args.zones, args.access_key, args.secret_key
+    )
+    peers = [
+        peer_mod.PeerRESTClient(host, port, args.secret_key)
+        for host, port, is_local in cluster_nodes(args.zones, local_port)
+        if not is_local
+    ]
+    srv.peer_rest = peer_mod.PeerRESTServer(
+        srv,
+        args.secret_key,
+        fingerprint=fingerprint,
+        local_locker=srv.local_locker,
+    )
+    srv.register_internode(peer_mod.PREFIX, srv.peer_rest.handle)
+    if peers:
+        srv.peer_notifier = peer_mod.PeerNotifier(peers)
+        # object mutations on this node drop every peer's cached read
+        # groups; from here on GETs skip the cache's FileInfo side-car
+        rcache.set_broadcast(srv.peer_notifier.read_cache_invalidated)
+
     srv.start()
     srv.boot_status["server_loops"] = (
         srv._plane is None or srv._plane.loops_ready()
     )
     print(f"minio-tpu listening at {srv.endpoint} (bootstrapping)")
     sys.stdout.flush()
+    if peers:
+        try:
+            peer_mod.verify_cluster(
+                peers, fingerprint, timeout_s=args.format_timeout
+            )
+        except RuntimeError as e:
+            srv.shutdown(drain_s=0.0)
+            raise SystemExit(f"bootstrap handshake failed: {e}") from None
+        print(f"bootstrap handshake ok with {len(peers)} peer(s)")
+        sys.stdout.flush()
 
     def build(dev):
         ol, _ = build_cluster(
             args.zones,
             local_port,
+            args.secret_key,
             args.parity,
             format_timeout_s=args.format_timeout,
+            local_disk_map=local_map,
+            nslock=nslock,
             device=dev,
         )
         return ol
@@ -310,20 +476,40 @@ def main(argv=None) -> int:
         device = want
         ol = build(device)
         srv.object_layer = ol
+    # once formats are known, the storage REST plane serves the
+    # DiskIDCheck-wrapped disks too: peer I/O must not write onto a
+    # swapped drive either (xl-storage-disk-id-check.go applies to the
+    # server side of the plane)
+    from ..storage.diskcheck import DiskIDCheck
+
+    storage_rest.guard_disks({
+        d.unwrapped.root: d
+        for zone in ol.zones
+        for eset in zone.sets
+        for d in eset.disks
+        if isinstance(d, DiskIDCheck)
+    })
     if device == "cuda":
         # the kernel library (found by its source fingerprint, built
         # when missing) loads now, not at the first request
         from ..ops import kernels
 
         kernels.load()
-    # store-backed IAM after the object layer is up (iam.go:419 Init)
+    # store-backed IAM after the object layer is up (iam.go:419 Init);
+    # in a cluster a periodic reload catches a notification a down node
+    # missed
     from ..iam.sys import IAMSys
 
-    srv.attach_iam(IAMSys(args.access_key, args.secret_key, ol))
+    iam = IAMSys(args.access_key, args.secret_key, ol)
+    srv.attach_iam(iam)
+    if peers:
+        srv.iam_refresher = iam.start_refresher(
+            float(os.environ.get("MINIO_TPU_IAM_REFRESH_S") or 120.0)
+        )
     routine, monitor = start_background_heal(ol)
     srv.heal_routine = routine
     srv.heal_queue = routine.queue
-    srv.disk_monitor = monitor
+    srv.disk_monitor = monitor  # also the reloadformat peer RPC
     si = ol.storage_info()
     srv.boot_status["boot"] = True
     print(
@@ -334,13 +520,23 @@ def main(argv=None) -> int:
     log.logger("server").info(
         "online",
         extra=log.kv(endpoint=srv.endpoint, zones=len(ol.zones),
-                     device=device),
+                     device=device, peers=len(peers)),
     )
     stop = signal.sigwait([signal.SIGINT, signal.SIGTERM])
     print(f"signal {stop}, shutting down")
-    # graceful teardown: drain in-flight requests first, then the
-    # fresh-disk monitor and the heal routine (inside srv.shutdown)
+    # graceful teardown order: drain in-flight requests first (their
+    # handlers release their own locks), stop the heal threads and the
+    # peer plane (inside srv.shutdown), THEN unwind whatever dsync
+    # grants remain so peers see clean releases instead of waiting out
+    # the expiry window on orphaned entries
     srv.shutdown()
+    rcache.set_broadcast(None)
+    if lock_maint is not None:
+        lock_maint.stop()
+    if hasattr(nslock, "release_all"):
+        released = nslock.release_all()
+        if released:
+            print(f"released {released} held lock(s)")
     print("shutdown complete")
     sys.stdout.flush()
     return 0

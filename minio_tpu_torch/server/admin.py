@@ -7,8 +7,10 @@ this node: server and storage info, heal and the background-heal
 status, service stop/restart, codec kernel telemetry, profiling, the
 runtime KV config, IAM management (users, groups, service accounts,
 canned policies), the KMS key status, the server-loop status and
-wedge, the read cache's stats and clear, and healthinfo (this node's
-document: there are no peers before slice 9b).
+wedge, the read cache's stats and clear, remote fault injection, and
+healthinfo.  In a cluster, info, healthinfo, the background-heal status,
+top-locks and profiling gather every peer's answer over the peer plane
+(cluster/peer.py), and service stop/restart is sent to the peers first.
 
 A route of a feature this package has not ported answers S3
 ``NotImplemented`` naming the slice that ports it (``UNPORTED``), so
@@ -35,18 +37,14 @@ PREFIX = "/minio-tpu/admin/v1"
 VERSION = "0.3.0"
 _START = time.time()
 
-# admin routes of features not ported yet: route -> (what, slice).  The
-# distributed planes, heal sequences, the crawler and the lock plane are
-# slice 9b; the disk cache, bucket quota and the replication targets 9c.
+# admin routes of features not ported yet: route -> (what, slice).  Heal
+# sequences and the crawler are slice 9d; the disk cache, bucket quota
+# and the replication targets 9c.
 UNPORTED = {
-    ("POST", "heal-sequence"): ("admin heal sequences", "9b"),
-    ("POST", "heal-sequence/stop"): ("admin heal sequences", "9b"),
-    ("GET", "datausage"): ("the data crawler's usage", "9b"),
-    ("POST", "crawl"): ("the data crawler", "9b"),
-    ("GET", "top-locks"): ("the lock plane's top-locks", "9b"),
-    ("POST", "fault/inject"): ("remote fault injection", "9b"),
-    ("POST", "fault/clear"): ("remote fault injection", "9b"),
-    ("GET", "fault/status"): ("remote fault injection", "9b"),
+    ("POST", "heal-sequence"): ("admin heal sequences", "9d"),
+    ("POST", "heal-sequence/stop"): ("admin heal sequences", "9d"),
+    ("GET", "datausage"): ("the data crawler's usage", "9d"),
+    ("POST", "crawl"): ("the data crawler", "9d"),
     ("GET", "cache-stats"): ("the disk cache", "9c"),
     ("GET", "get-bucket-quota"): ("bucket quota", "9c"),
     ("PUT", "set-bucket-quota"): ("bucket quota", "9c"),
@@ -79,10 +77,28 @@ class AdminAPI:
             return 200, _json(ol.storage_info())
         if route == ("POST", "heal"):
             return 200, self._heal(ol, q)
-        # MRF/background-heal state of this node (the peers' rows come
-        # with the peer plane, slice 9b)
+        # aggregate MRF/background-heal state, every node
+        # (getAggregatedBackgroundHealState, admin-heal-ops.go)
         if route == ("GET", "background-heal/status"):
-            return 200, _json({"nodes": [self._bg_heal_local()]})
+            doc = {"nodes": [self._bg_heal_local()]}
+            peers = getattr(self.s3, "peer_notifier", None)
+            if peers is not None:
+                doc["nodes"].extend(
+                    peers._gather(
+                        lambda c: c.call(
+                            "bghealstatus", retry=False
+                        ),
+                        lambda c: {
+                            "endpoint": f"{c.host}:{c.port}",
+                            "state": "offline",
+                        },
+                    )
+                )
+            return 200, _json(doc)
+        if route == ("GET", "top-locks"):
+            return 200, self._top_locks()
+        if tail.startswith("fault/"):
+            return self._fault(method, tail, body)
         # tiered read cache (cache/tiered.py): device+host tiers of
         # digest-verified encoded groups in front of the quorum reader
         if route == ("GET", "read-cache-stats"):
@@ -90,18 +106,31 @@ class AdminAPI:
         if route == ("POST", "read-cache-clear"):
             return 200, _json({"cleared": rcache.clear_read_cache()})
         # cluster health diagnostics (admin-handlers.go:1007
-        # OBDInfoHandler): system + per-drive microbenchmarks.  The
-        # peers' documents come with the peer plane (slice 9b), so the
-        # document holds this node's alone
+        # OBDInfoHandler): system + per-drive microbenchmarks, every
+        # node, one JSON document
         if route == ("GET", "healthinfo"):
-            return 200, _json({"nodes": [self._health_info_local(ol)]})
+            doc = {"nodes": [self._health_info_local(ol)]}
+            peers = getattr(self.s3, "peer_notifier", None)
+            if peers is not None:
+                # concurrent gather, no retry: wall time is ONE
+                # node's probe, and a dead peer costs one timeout
+                doc["nodes"].extend(
+                    peers._gather(
+                        lambda c: c.call("healthinfo", retry=False),
+                        lambda c: {
+                            "endpoint": f"{c.host}:{c.port}",
+                            "state": "offline",
+                        },
+                    )
+                )
+            return 200, _json(doc)
         # KMS key status (admin-handlers.go KMSKeyStatusHandler): a full
         # generate->unseal roundtrip proves the configured KMS can both
         # mint and open data keys for this key id
         if route == ("GET", "kms/key/status"):
             return 200, _json(_kms_key_status(q))
         # service control (ServiceHandler, admin-handlers.go:192):
-        # stop/restart THIS node
+        # stop/restart THIS node, fanned out to peers first
         if route == ("POST", "service"):
             action = q.get("action", "")
             if action not in ("stop", "restart"):
@@ -109,38 +138,85 @@ class AdminAPI:
                     "InvalidArgument",
                     "action must be stop or restart",
                 )
+            peers = getattr(self.s3, "peer_notifier", None)
+            signalled = []
+            if peers is not None:
+                for c in peers.clients:
+                    try:
+                        c.call(
+                            "signalservice", {"action": action},
+                            retry=False,
+                        )
+                        signalled.append(f"{c.host}:{c.port}")
+                    except Exception as exc:
+                        _log.debug("peer signal failed", extra=kv(err=str(exc)))
             self._signal_self(action)
-            return 200, _json({"action": action, "peers_signalled": []})
+            return 200, _json(
+                {"action": action, "peers_signalled": signalled}
+            )
         # codec kernel telemetry dump (codec/telemetry.py): per-op
         # calls/bytes/device-seconds, batcher occupancy, device passes
         if route == ("GET", "kernel-stats"):
             from ..codec.telemetry import KERNEL_STATS
+            from ..ops import kernels
 
-            return 200, _json(KERNEL_STATS.snapshot())
-        # profiling (admin-router.go:82) on this node
+            doc = KERNEL_STATS.snapshot()
+            # this process's kernel launches by wrapper (ops/kernels.py
+            # LAUNCHES; all zero on the CPU codec's plain versions): how
+            # a cluster run reads each node's launches
+            doc["launches"] = dict(kernels.LAUNCHES)
+            return 200, _json(doc)
+        # profiling (admin-router.go:82): start on every node, download
+        # collects per-node artifacts in one JSON document
         if route == ("POST", "profiling/start"):
             kind = q.get("type", "cpu")
             try:
                 self.s3.profiler.start(kind)
             except (ValueError, RuntimeError) as e:
                 raise S3Error("InvalidArgument", str(e)) from None
-            return 200, _json({"started": [self.s3.tracer.node], "type": kind})
+            peers = getattr(self.s3, "peer_notifier", None)
+            started = [self.s3.tracer.node]
+            if peers is not None:
+                for c in peers.clients:
+                    try:
+                        c.call("startprofiling", {"type": kind})
+                        started.append(f"{c.host}:{c.port}")
+                    except Exception as exc:
+                        _log.debug("peer profiling start failed", extra=kv(err=str(exc)))
+            return 200, _json({"started": started, "type": kind})
         if route == ("GET", "profiling/download"):
             import base64
 
             kind = q.get("type", "cpu")
+            profiles: dict = {}
+            local_err = ""
             try:
-                profile = self.s3.profiler.stop(kind)
+                profiles[self.s3.tracer.node] = base64.b64encode(
+                    self.s3.profiler.stop(kind)
+                ).decode()
             except RuntimeError as e:
-                raise S3Error("InvalidArgument", str(e)) from None
+                # still stop the PEERS: bailing here would leave
+                # cProfile running on every other node forever
+                local_err = str(e)
+            peers = getattr(self.s3, "peer_notifier", None)
+            if peers is not None:
+                for c in peers.clients:
+                    try:
+                        res = c.call("downloadprofiling", {"type": kind})
+                        profiles[f"{c.host}:{c.port}"] = (
+                            base64.b64encode(
+                                res.get("profile", b"")
+                            ).decode()
+                        )
+                    except Exception:  # noqa: BLE001
+                        profiles[f"{c.host}:{c.port}"] = ""
+            if local_err and not any(profiles.values()):
+                raise S3Error("InvalidArgument", local_err)
             return 200, _json(
                 {
                     "type": kind,
-                    "profiles": {
-                        self.s3.tracer.node: base64.b64encode(
-                            profile
-                        ).decode()
-                    },
+                    "profiles": profiles,
+                    **({"local_error": local_err} if local_err else {}),
                 }
             )
         # server-loop observability + wedge
@@ -258,11 +334,9 @@ class AdminAPI:
                            zero loops).
         POST loops/wedge   {loop, seconds} - busy-spin one loop's
                            thread so a chaos run can prove a wedged
-                           loop degrades only its own shard.  Gated like
-                           the JAX package's: only a server whose
-                           embedder set ``fault_disks`` accepts it (the
-                           server CLI refuses MINIO_TPU_FAULT_INJECTION
-                           until slice 9b).
+                           loop degrades only its own shard.  Gated on
+                           MINIO_TPU_FAULT_INJECTION=1 like disk faults
+                           (a server whose ``fault_disks`` is set).
         """
         plane = getattr(self.s3, "_plane", None)
         if (method, tail) == ("GET", "loops/status"):
@@ -310,6 +384,77 @@ class AdminAPI:
         )
         return 200, _json({"wedged": index, "seconds": seconds})
 
+    def _fault(
+        self, method: str, tail: str, body: bytes
+    ) -> "tuple[int, bytes]":
+        """Remote fault control for the cluster harness.
+
+        POST fault/inject  {disk, api, delay_s, hang_s, error, corrupt,
+                            prob, calls} - add one schedule rule; "disk"
+                            matches a local drive root by suffix ("*"
+                            or absent = every local drive).
+        POST fault/clear   {disk} - lift rules + release parked hangs.
+        GET  fault/status  per-drive rule count + injected-action tally.
+        """
+        fault_disks = getattr(self.s3, "fault_disks", None)
+        if not fault_disks:
+            raise S3Error(
+                "InvalidArgument",
+                "fault injection disabled: start the server with "
+                "MINIO_TPU_FAULT_INJECTION=1",
+            )
+        if (method, tail) == ("GET", "fault/status"):
+            return 200, _json(
+                {
+                    root: {
+                        "rules": fd.rule_count(),
+                        "injected": fd.injected(),
+                    }
+                    for root, fd in sorted(fault_disks.items())
+                }
+            )
+        doc = _body_json(body) if body.strip() else {}
+        sel = str(doc.get("disk", "*"))
+        matched = {
+            root: fd
+            for root, fd in fault_disks.items()
+            if sel in ("", "*") or root.endswith(sel)
+        }
+        if not matched:
+            raise S3Error(
+                "InvalidArgument", f"no local drive matches {sel!r}"
+            )
+        if (method, tail) == ("POST", "fault/clear"):
+            for fd in matched.values():
+                fd.clear()
+            return 200, _json({"cleared": sorted(matched)})
+        if (method, tail) != ("POST", "fault/inject"):
+            raise S3Error("MethodNotAllowed", f"admin {method} /{tail}")
+        api = doc.get("api")
+        if not api:
+            raise S3Error("InvalidArgument", "missing api")
+        calls = doc.get("calls")
+        if calls is not None and not isinstance(calls, list):
+            raise S3Error("InvalidArgument", "calls must be a list")
+        for fd in matched.values():
+            fd.inject(
+                str(api),
+                delay_s=float(doc.get("delay_s", 0.0)),
+                hang_s=float(doc.get("hang_s", 0.0)),
+                error=bool(doc.get("error", False)),
+                corrupt=bool(doc.get("corrupt", False)),
+                prob=float(doc.get("prob", 1.0)),
+                calls=calls,
+            )
+        _log.info(
+            "fault schedule injected",
+            extra=kv(api=str(api), disks=len(matched)),
+        )
+        # the parked hang is the product here: an injected fault
+        # schedule deliberately outlives this request and is released
+        # by a later POST fault/clear, never by this frame
+        return 200, _json({"injected": sorted(matched)})
+
     def _info(self, ol) -> bytes:
         si = ol.storage_info()
         disks = []
@@ -332,15 +477,34 @@ class AdminAPI:
                 )
             except Exception:  # noqa: BLE001
                 disks.append({"state": "offline"})
-        return _json(
-            {
-                "version": VERSION,
-                "uptime_seconds": round(time.time() - _START, 1),
-                "mode": "erasure",
-                "storage": si,
-                "disks": disks,
-            }
-        )
+        doc = {
+            "version": VERSION,
+            "uptime_seconds": round(time.time() - _START, 1),
+            "mode": "erasure",
+            "storage": si,
+            "disks": disks,
+        }
+        # distributed mode: one entry per peer via the control plane
+        # (madmin ServerInfo aggregates every node)
+        notifier = getattr(self.s3, "peer_notifier", None)
+        if notifier is not None:
+            doc["mode"] = "distributed"
+            doc["nodes"] = notifier.server_infos()
+        return _json(doc)
+
+    def _top_locks(self) -> bytes:
+        """Held locks across the cluster (madmin TopLocks): this
+        node's local locker plus every peer's via the control plane."""
+        locks: list = []
+        local = getattr(self.s3, "local_locker", None)
+        if local is not None:
+            locks.extend(local.dump())
+        notifier = getattr(self.s3, "peer_notifier", None)
+        if notifier is not None:
+            for node_locks in notifier.all_locks():
+                locks.extend(node_locks)
+        return _json({"locks": locks})
+
 
     def _health_info_local(self, ol) -> dict:
         """This node's OBD document: platform + memory + per-local-drive

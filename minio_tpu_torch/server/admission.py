@@ -18,7 +18,7 @@ per-tenant throttles, cmd/handler-api.go): an overloaded stage answers
 ``quota``
     A PUT whose declared Content-Length would overflow the bucket's
     hard quota per the crawler's usage snapshot; without a crawler
-    (slice 9b) nothing is shed.
+    (slice 9d) nothing is shed.
 
 ``PlaneStats`` is the shared observability surface for both server
 modes: inflight gauge, per-stage queue depths, shed counters.  It is
@@ -382,7 +382,7 @@ class AdmissionController:
         dataUsageCache consult) - shed before any body byte is read.
 
         Snapshot-only, as in the JAX package: without a crawler (slice
-        9b) nothing is shed here.  Bucket quotas themselves are slice
+        9d) nothing is shed here.  Bucket quotas themselves are slice
         9c; the handler's PUT seam refuses a bucket whose metadata
         document sets one, after authentication.
         """

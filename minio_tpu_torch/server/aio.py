@@ -476,12 +476,25 @@ class _ServerLoop:
 
     async def _read_head(self, reader, writer, first: bool):
         """One request head (bytes through the blank line), or None on
-        EOF/timeout/oversize.  The timeout caps the WHOLE head — a
-        slow-loris trickling header bytes gets 408, not a held slot."""
-        timeout = self.header_timeout if first else self.idle_timeout
+        EOF/timeout/oversize.  The header timeout caps the WHOLE head - a
+        slow-loris trickling header bytes gets 408, not a held slot.
+        Between keep-alive requests the connection may idle for
+        ``idle_timeout`` and is then closed without a word: a 408 written
+        into an idle connection is read by the client as the answer to
+        the next request it sends there."""
+        lead = b""
+        if not first:
+            try:
+                lead = await asyncio.wait_for(
+                    reader.read(1), self.idle_timeout
+                )
+            except (asyncio.TimeoutError, ConnectionError, OSError):
+                return None
+            if not lead:
+                return None  # client closed
         try:
-            return await asyncio.wait_for(
-                reader.readuntil(b"\r\n\r\n"), timeout
+            return lead + await asyncio.wait_for(
+                reader.readuntil(b"\r\n\r\n"), self.header_timeout
             )
         except asyncio.TimeoutError:
             await self._reject(writer, 408, "RequestTimeout",
@@ -594,9 +607,11 @@ class _ServerLoop:
 
     def _admitted_path(self, upath: str) -> bool:
         """Paths subject to tenant/quota admission: the S3 plane only —
-        health and metrics endpoints bypass it exactly like the global
-        admission slot in route() (the internode planes, which bypass
-        it too, come with slice 9b)."""
+        internode, health, and metrics endpoints bypass it exactly like
+        the global admission slot in route()."""
+        for prefix in self.s3.internode:
+            if upath.startswith(prefix + "/"):
+                return False
         return not upath.startswith(
             ("/minio/health/", "/minio-tpu/prometheus/")
         )

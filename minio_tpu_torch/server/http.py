@@ -68,6 +68,9 @@ _log = logger("http")
 MAX_IN_MEMORY_BODY = 1 << 30  # buffered-body cap (XML configs)
 MAX_OBJECT_SIZE = 5 << 40  # globalMaxObjectSize (cmd/globals.go)
 MAX_MULTI_DELETE_BODY = 1 << 20  # multi-delete key lists
+# internode requests are metadata or bounded shard flushes (4 MiB); a
+# larger body is an attack, not a peer
+MAX_INTERNODE_BODY = 64 << 20
 
 # request-plane mode: the asyncio plane (server/aio.py) unless
 # MINIO_TPU_SERVER=threaded asks for the thread-per-request oracle
@@ -108,7 +111,7 @@ class _ChunkedReader:
     """Decode a chunked transfer-encoded body from the socket.
 
     The stdlib server leaves chunked TE undecoded; the internode shard
-    plane (slice 9b) streams CreateFile bodies through it without either
+    plane streams CreateFile bodies through it without either
     side buffering a whole shard (storage-rest-server.go CreateFile).
     S3 requests never take it: ``_body_size`` refuses chunked TE.
     """
@@ -195,8 +198,12 @@ class S3Server:
         secret_key: str = "minioadmin",
         region: str = "us-east-1",
         iam=None,
+        internode_secret: str = "",
     ):
         self.object_layer = object_layer
+        # when set, internode-plane requests must carry a valid JWT
+        # BEFORE the server reads their body
+        self.internode_secret = internode_secret
         host, port = address.rsplit(":", 1)
         self.host, self.port = host, int(port)
         self.region = region
@@ -219,11 +226,20 @@ class S3Server:
         # populate this dict as subsystems come up.  None keeps the
         # default semantics: ready as soon as an object layer is attached.
         self.boot_status: "dict[str, bool] | None" = None
-        # federation bucket DNS: slice 9b; a value set here makes every
+        # federation bucket DNS: slice 9d; a value set here makes every
         # bucket request answer NotImplemented instead of being ignored
         self.bucket_dns = None
-        # peer control plane (distributed mode, slice 9b): stays None
+        # peer control plane (distributed mode): PeerNotifier fanning
+        # out cache invalidations + aggregating node info; the server
+        # main also sets peer_rest (closed at shutdown) and
+        # local_locker (admin top-locks)
         self.peer_notifier = None
+        self.peer_rest = None
+        self.local_locker = None
+        self.iam_refresher = None  # IAMSys.start_refresher's thread
+        # FaultDisk per local drive root, set by the server main under
+        # MINIO_TPU_FAULT_INJECTION (admin fault/* and loops/wedge)
+        self.fault_disks: "dict | None" = None
         # bucket event notifications (pkg/event): a configured target
         # raises here (slice 9c); rules load lazily per bucket
         from ..event import EventNotifier, targets_from_env
@@ -251,6 +267,11 @@ class S3Server:
         # background workers an embedder attaches (server/__main__.py):
         # shutdown() stops them after the drain
         self.disk_monitor = None
+        # internode planes (storage/lock/peer REST, the
+        # registerDistErasureRouters analogue, routers.go:25-38):
+        # prefix -> handler(method_tail, query, body, headers)
+        #           returning (status, body, extra_headers)
+        self.internode: "dict[str, object]" = {}
         # server-plane telemetry + tenant/quota admission
         # (server/admission.py)
         from .admission import AdmissionController, PlaneStats
@@ -310,9 +331,8 @@ class S3Server:
         self.verifier = SigV4Verifier(iam.lookup_secret, self.region)
 
     def register_internode(self, prefix: str, handler) -> None:
-        """Internode REST planes (storage, lock, peer) come with the
-        distributed planes."""
-        raise unported("the internode REST planes", "9b")
+        """Mount an internode REST plane under a path prefix."""
+        self.internode[prefix] = handler
 
     def ensure_event_rules(self, bucket: str) -> None:
         """Lazily hydrate a bucket's notification rules from the
@@ -445,6 +465,18 @@ class S3Server:
                         "background worker stop failed",
                         extra=kv(worker=attr, err=str(exc)),
                     )
+        # the peer plane: the notifier's fan-out pool and connections,
+        # then the IAM refresher (its reloads would hit a stopped layer)
+        for attr in ("peer_notifier", "peer_rest"):
+            obj = getattr(self, attr, None)
+            if obj is not None:
+                try:
+                    obj.close()
+                except Exception as exc:
+                    _log.debug("peer plane close failed",
+                               extra=kv(part=attr, err=str(exc)))
+        if self.iam_refresher is not None:
+            self.iam_refresher.stop.set()
         # detach the console ring from the package logger: a process
         # constructing several servers must not accumulate handlers
         self.console.uninstall()
@@ -725,6 +757,11 @@ class _Handler(BaseHTTPRequestHandler):
             # keep-alive hygiene, not the stdlib's bare 501 HTML
             self._finish_body()
             return self._error(s3errors.get("MethodNotAllowed"), path)
+        for prefix, handler in self.s3.internode.items():
+            if path.startswith(prefix + "/"):
+                return self._route_internode(
+                    handler, path[len(prefix) + 1 :], query
+                )
         # health endpoints are unauthenticated (healthcheck-handler.go:26-66)
         if path == "/minio/health/live":
             self._finish_body()  # keep-alive hygiene on early return
@@ -969,11 +1006,82 @@ class _Handler(BaseHTTPRequestHandler):
         self._finish_body()
         self._respond(status, payload, content_type="application/json")
 
+    def _route_internode(self, handler, method_tail: str, query) -> None:
+        """Dispatch an internode-plane request.
+
+        The bearer JWT is checked BEFORE the body is read and body size
+        is capped, so an unauthenticated client cannot make this node
+        buffer arbitrary bytes; plane handlers re-verify on their
+        dispatch path (storage-rest-server.go:63-104) as defense in
+        depth.  A chunked body goes to the plane's ``handle_stream``.
+        """
+        try:
+            length = int(self.headers.get("Content-Length") or 0)
+            if length > MAX_INTERNODE_BODY:
+                self.close_connection = True
+                self._respond(413, b"body too large", content_type="text/plain")
+                return
+            if self.s3.internode_secret:
+                from ..utils import jwt as _jwt
+
+                authz = self.headers.get("Authorization", "")
+                try:
+                    if not authz.startswith("Bearer "):
+                        raise _jwt.JWTError("missing bearer token")
+                    _jwt.verify(
+                        authz[len("Bearer "):], self.s3.internode_secret
+                    )
+                except Exception:  # noqa: BLE001
+                    self.close_connection = True
+                    self._respond(
+                        401, b"unauthorized", content_type="text/plain"
+                    )
+                    return
+            te = (self.headers.get("Transfer-Encoding") or "").lower()
+            if te == "chunked":
+                # streaming shard plane: hand the decoded stream to the
+                # plane handler - nothing buffers the whole body
+                plane = getattr(handler, "__self__", None)
+                stream_fn = getattr(plane, "handle_stream", None)
+                if stream_fn is None:
+                    self.close_connection = True
+                    self._respond(
+                        411, b"length required", content_type="text/plain"
+                    )
+                    return
+                reader = _ChunkedReader(self.rfile)
+                status, payload, extra = stream_fn(
+                    method_tail, query, reader,
+                    dict(self.headers.items()),
+                )
+                try:
+                    reader.drain()  # keep-alive hygiene
+                except OSError:
+                    self.close_connection = True
+                self._respond(
+                    status, payload, extra,
+                    content_type="application/octet-stream",
+                )
+                return
+            body = self.rfile.read(length) if length else b""
+            status, payload, extra = handler(
+                method_tail, query, body, dict(self.headers.items())
+            )
+        except Exception as e:  # noqa: BLE001
+            self.close_connection = True
+            self._respond(
+                500, str(e).encode(), content_type="text/plain"
+            )
+            return
+        self._respond(
+            status, payload, extra, content_type="application/octet-stream"
+        )
+
     def _admin_stream(self, kind: str, query) -> None:
-        """`mc admin trace` / `mc admin console`: stream this node's
-        JSON lines for ``duration`` seconds (TraceHandler,
-        cmd/admin-handlers.go:1007; the peers' rings join with the peer
-        plane, slice 9b)."""
+        """`mc admin trace` / `mc admin console`: stream JSON lines for
+        ``duration`` seconds, merging this node's ring with every
+        peer's (TraceHandler + peerRESTClient.Trace aggregation,
+        cmd/admin-handlers.go:1007)."""
         import json as _json
 
         try:
@@ -986,21 +1094,48 @@ class _Handler(BaseHTTPRequestHandler):
             if kind == "trace"
             else self.s3.console.ring
         )
+        peers = (
+            self.s3.peer_notifier.clients
+            if self.s3.peer_notifier is not None
+            else []
+        )
         self.send_response(200)
         self.send_header("Server", "MinIO-TPU")
         self.send_header("Content-Type", "application/x-ndjson")
         self.send_header("Connection", "close")
         self.close_connection = True
         self.end_headers()
+        # poll positions: ours + one per peer
         local_seq, _ = self.s3.tracer.poll(1 << 62) if kind == "trace" \
             else local_ring.since(1 << 62)
+        # peers start from NOW, not their whole ring history: a None
+        # cursor means "not handshaken yet" and triggers a probe with
+        # since=1<<62 (whose items are discarded) on the next loop
+        # turn - an unreachable peer simply stays None until it
+        # answers, never replaying its ring from cursor 0
+        peer_seq: "dict[int, int | None]" = {id(p): None for p in peers}
         deadline = _time.monotonic() + duration
         while _time.monotonic() < deadline:
+            batch: list = []
             if kind == "trace":
                 local_seq, items = self.s3.tracer.poll(local_seq)
             else:
                 local_seq, items = local_ring.since(local_seq)
-            batch = sorted(items, key=lambda e: e.get("time", 0))
+            batch.extend(items)
+            for p in peers:
+                pseq = peer_seq[id(p)]
+                try:
+                    res = p.call(
+                        f"{kind}buf",
+                        {"since": str(1 << 62 if pseq is None else pseq)},
+                    )
+                except Exception:  # noqa: BLE001
+                    continue
+                if "seq" in res:
+                    peer_seq[id(p)] = res["seq"]
+                if pseq is not None:
+                    batch.extend(res.get("items", []))
+            batch.sort(key=lambda e: e.get("time", 0))
             try:
                 for item in batch:
                     line = (_json.dumps(item) + "\n").encode()
@@ -1197,7 +1332,7 @@ class _Handler(BaseHTTPRequestHandler):
             raise S3Error("MethodNotAllowed")
 
         if self.s3.bucket_dns is not None:
-            raise unported("bucket federation", "9b")
+            raise unported("bucket federation", "9d")
 
         if key:
             if m == "GET" and "uploadId" in query:

@@ -1,11 +1,10 @@
 """StorageAPI: the disk abstraction (cmd/storage-interface.go:25-79).
 
-This port implements xl.XLStorage (local POSIX); remote disks over the
-storage REST plane come with the cluster slice.  The object layer only
-ever talks to this interface, so local and remote disks are
-interchangeable - the seam the reference uses to make a distributed
-cluster look like a big JBOD.  Only the calls the object routes,
-multipart and heal paths make are declared here.
+Implementations: xl.XLStorage (local POSIX) and
+rest_client.StorageRESTClient (a remote disk over the storage REST
+plane).  The object layer only ever talks to this interface, so local
+and remote disks are interchangeable - the seam the reference uses to
+make a distributed cluster look like a big JBOD.
 """
 
 from __future__ import annotations
@@ -125,6 +124,21 @@ class StorageAPI:
         raise NotImplementedError
 
     def read_file_stream(self, volume: str, path: str) -> ShardReader:
+        raise NotImplementedError
+
+    def append_file(
+        self,
+        volume: str,
+        path: str,
+        data: bytes,
+        truncate: bool = False,
+        offset: "int | None" = None,
+    ) -> None:
+        """Append a chunk to a shard file (the storage REST plane's
+        bounded-memory CreateFile stream; truncate=True on the first
+        chunk creates/resets the file).  ``offset`` declares where the
+        chunk starts, making retried appends idempotent (the file is
+        truncated back to it before writing)."""
         raise NotImplementedError
 
     # ---- object metadata (xl.meta journal) ------------------------------

@@ -297,6 +297,48 @@ class XLStorage(StorageAPI):
         self._require_vol(volume)
         return _FileShardReader(self._file_path(volume, path))
 
+    def append_file(
+        self,
+        volume: str,
+        path: str,
+        data: bytes,
+        truncate: bool = False,
+        offset: "int | None" = None,
+    ) -> None:
+        """Append shard bytes; with ``offset``, idempotently.
+
+        A remote writer whose response was lost retries the same append;
+        writing at the *declared* offset (truncating any bytes past it)
+        makes the retry converge instead of duplicating shard data.
+        Only one writer ever owns a staging file, so the truncate cannot
+        race another append.
+        """
+        self._require_vol(volume)
+        fp = self._file_path(volume, path)
+        os.makedirs(os.path.dirname(fp), exist_ok=True)
+        if offset is not None:
+            try:
+                size = os.path.getsize(fp)
+            except OSError:
+                size = 0
+            if truncate:
+                offset = 0
+            if size < offset:
+                raise errors.FileCorrupt(
+                    f"{path}: append at {offset} but file has {size}"
+                )
+            with open(fp, "r+b" if size else "wb") as f:
+                f.truncate(offset)
+                f.seek(offset)
+                f.write(data)
+                f.flush()
+                os.fsync(f.fileno())
+            return
+        with open(fp, "wb" if truncate else "ab") as f:
+            f.write(data)
+            f.flush()
+            os.fsync(f.fileno())
+
     # ---- object metadata ------------------------------------------------
 
     def read_xl(self, volume: str, path: str) -> XLMeta:

@@ -16,6 +16,7 @@ from __future__ import annotations
 import http.client
 import os
 import ssl
+import time
 
 
 def enabled() -> bool:
@@ -55,3 +56,29 @@ def client_connection(
             host, port, timeout=timeout, context=_client_context()
         )
     return http.client.HTTPConnection(host, port, timeout=timeout)
+
+
+# A pooled keep-alive connection idle this long is replaced before it is
+# reused.  A server may close an idle connection at any time (the async
+# plane does after MINIO_TPU_IDLE_TIMEOUT_S, 60 s by default), and a
+# request written into a connection the server is closing fails with no
+# sign of whether it ran - which a lock grant cannot retry.
+KEEPALIVE_REUSE_S = 15.0
+
+
+def pooled_connection(
+    local, host: str, port: int, timeout: float
+) -> "http.client.HTTPConnection":
+    """The calling thread's keep-alive connection, kept in
+    ``local.conn``; a new one once the last has idled longer than
+    KEEPALIVE_REUSE_S."""
+    now = time.monotonic()
+    c = getattr(local, "conn", None)
+    if c is not None and now - local.used > KEEPALIVE_REUSE_S:
+        c.close()
+        c = None
+    if c is None:
+        c = client_connection(host, port, timeout)
+        local.conn = c
+    local.used = now
+    return c

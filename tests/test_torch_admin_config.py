@@ -12,7 +12,8 @@ close on the client's schedule).  Deliberate differences are held on
 their own:
 
 * ``kernel-stats`` has the JAX package's keys less its mesh placement
-  (``placement``, ``submeshes``), and the port's batcher counts
+  (``placement``, ``submeshes``) plus the port's kernel launch counts
+  (``launches``), and the port's batcher counts
   ``multi_client_flushes``;
 * the ``codec backend`` key defaults to ``cuda`` and takes ``cuda`` or
   ``cpu`` only (``tpu`` and ``auto`` are refused); its help differs;
@@ -258,7 +259,10 @@ def test_kernel_stats_shape(servers):
         status, doc = _call(srv, "GET", "kernel-stats")
         assert status == 200
         got[kind] = doc
-    assert set(got["port"]) == set(got["jax"]) - {"placement", "submeshes"}
+    # the port adds its kernel wrappers' launch counts (zero on the CPU)
+    assert set(got["port"]) == (set(got["jax"]) - {"placement", "submeshes"}) \
+        | {"launches"}
+    assert got["port"]["launches"] and not any(got["port"]["launches"].values())
     assert set(got["port"]["batch"]) == set(got["jax"]["batch"]) | {
         "multi_client_flushes"}
     assert got["port"]["device_passes"]  # the PUTs above ran codec passes

@@ -12,7 +12,8 @@ bodies must be equal once the ``Date``, ``x-amz-request-id`` and
 * ``Expect: 100-continue``: a waiting client gets its 100 and then its
   200; a request refused on its headers gets its 403 with no 100, and
   the connection closes;
-* the slow-loris header timeout answers 408 and closes;
+* the slow-loris header timeout answers 408 and closes; an idle
+  keep-alive connection is closed without a response (port only);
 * 503 SlowDown shedding by handler backlog and by tenant, before any
   body byte, counted under the same reason;
 * ``MINIO_TPU_SERVER_LOOPS=1`` against three loops (SO_REUSEPORT and
@@ -247,6 +248,41 @@ def test_slow_loris_header_timeout(tmp_path):
     got = _both(tmp_path, scenario, MINIO_TPU_HEADER_TIMEOUT_S="0.5")
     assert got["port"] == got["jax"]
     assert got["port"][0][0] == 408 and got["port"][1:] == (True, b"")
+
+
+def test_idle_keepalive_closed_without_a_response(tmp_path):
+    """Between keep-alive requests the port's plane closes a connection
+    idle past MINIO_TPU_IDLE_TIMEOUT_S without writing anything: a 408
+    there would be read as the answer to the client's next request.
+    (The JAX plane writes the 408; the port differs on purpose.)  A head
+    begun after the idle wait is still bounded by the header timeout."""
+    b = _boot("port", tmp_path / "port", MINIO_TPU_IDLE_TIMEOUT_S="0.5",
+              MINIO_TPU_HEADER_TIMEOUT_S="0.5")
+    try:
+        c = b.client()
+        assert c.make_bucket("idle").status == 200
+        s = _connect(b.srv)
+        try:
+            s.sendall(_signed_head(c, "GET", "/idle"))
+            f = s.makefile("rb")
+            assert _read_response(f)[0] == 200
+            t0 = time.monotonic()
+            assert f.read(1) == b""
+            assert 0.3 < time.monotonic() - t0 < 8.0
+        finally:
+            s.close()
+        s = _connect(b.srv)
+        try:
+            s.sendall(_signed_head(c, "GET", "/idle"))
+            f = s.makefile("rb")
+            assert _read_response(f)[0] == 200
+            s.sendall(b"GET /loris HTTP/1.1\r\nHost: x")  # never finishes
+            assert _read_response(f)[0] == 408
+            assert f.read(1) == b""
+        finally:
+            s.close()
+    finally:
+        b.stop()
 
 
 class _Blocker:

@@ -11,6 +11,8 @@ The server runs as a subprocess with ``MINIO_ERASURE_BACKEND=cpu``:
 * a drive wiped while the server runs is stamped back and healed by the
   fresh-disk monitor and the heal routine;
 * SIGTERM drains and exits 0, printing ``shutdown complete``;
+* URL drive endpoints (one node, and two nodes sharing one endpoint
+  list) and fault injection boot and serve (``SERVED``);
 * each layout or env this package has not ported exits non-zero with a
   message naming its slice, and so does a codec device other than
   ``cuda`` or ``cpu`` (and ``cuda`` on a host without a card).
@@ -164,13 +166,9 @@ def test_boot_serve_heal_and_sigterm(tmp_path):
 REFUSED = [
     # (id, args, env, text the message must hold)
     ("gateway", ["gateway", "nas", "/tmp/x"], {}, "(slice 9c)"),
-    ("url_endpoints", ["http://127.0.0.1:9000/d{{1...4}}"], {}, "(slice 9b)"),
-    ("second_node", ["http://h{{1...2}}:9000/d{{1...2}}"], {}, "(slice 9b)"),
     ("single_drive", ["{base}/solo"], {}, "(slice 9c)"),
-    ("fault_injection", ["{base}/d{{1...4}}"],
-     {"MINIO_TPU_FAULT_INJECTION": "1"}, "(slice 9b)"),
     ("federation", ["{base}/d{{1...4}}"],
-     {"MINIO_TPU_FEDERATION_DIR": "{base}/fed"}, "(slice 9b)"),
+     {"MINIO_TPU_FEDERATION_DIR": "{base}/fed"}, "(slice 9d)"),
     ("disk_cache", ["{base}/d{{1...4}}"],
      {"MINIO_TPU_CACHE_DRIVES": "{base}/cache"}, "(slice 9c)"),
     ("backend_tpu", ["{base}/d{{1...4}}"], {"MINIO_ERASURE_BACKEND": "tpu"},
@@ -192,6 +190,84 @@ def test_refused_layouts_name_their_slice(tmp_path, args, env, text):
     assert text in res.stderr, res.stderr
     assert "listening" not in res.stdout
     assert not os.path.exists(os.path.join(base, "d1", ".sys", "format.json"))
+
+
+def _boot(port: int, args, env):
+    return subprocess.Popen(
+        [sys.executable, "-m", "minio_tpu_torch.server", "--address",
+         f"127.0.0.1:{port}", "--format-timeout", "30", *args],
+        cwd=ROOT, env=env, stdout=subprocess.PIPE,
+        stderr=subprocess.STDOUT, text=True)
+
+
+def _stop(proc) -> str:
+    proc.send_signal(signal.SIGTERM)
+    try:
+        out, _ = proc.communicate(timeout=60)
+    except subprocess.TimeoutExpired:
+        proc.kill()
+        out, _ = proc.communicate()
+    assert proc.returncode == 0, out
+    assert out.splitlines()[-1] == "shutdown complete", out
+    return out
+
+
+def _served_url_endpoints(base: str):
+    port = _free_port()
+    procs = [_boot(port, [f"http://127.0.0.1:{port}{base}/d{{1...4}}"],
+                   _env())]
+    return procs, [port], {}
+
+
+def _served_second_node(base: str):
+    ports = [_free_port(), _free_port()]
+    eps = [f"http://127.0.0.1:{p}{base}/n{i}/d{j}"
+           for i, p in enumerate(ports) for j in (1, 2)]
+    return [_boot(p, eps, _env()) for p in ports], ports, {}
+
+
+def _served_fault_injection(base: str):
+    port = _free_port()
+    env = _env(MINIO_TPU_FAULT_INJECTION="1", MINIO_TPU_FAULT_SEED="7")
+    return [_boot(port, [f"{base}/d{{1...4}}"], env)], [port], {"faults": 4}
+
+
+# layouts and env that once exited at boot and are served now
+SERVED = {
+    "url_endpoints": _served_url_endpoints,
+    "second_node": _served_second_node,
+    "fault_injection": _served_fault_injection,
+}
+
+
+@pytest.mark.parametrize("case", sorted(SERVED))
+def test_served_layouts_boot(tmp_path, case):
+    """Each boots, answers a signed PUT on its first node and a GET on its
+    last, and exits 0 on SIGTERM; a second node verifies the cluster
+    handshake, and fault injection lists its drives in fault/status."""
+    procs, ports, want = SERVED[case](str(tmp_path))
+    try:
+        for port in ports:
+            _until(lambda port=port: _ready(port) == 200, 90, "readiness")
+        first = S3Client(f"http://127.0.0.1:{ports[0]}")
+        last = S3Client(f"http://127.0.0.1:{ports[-1]}")
+        data = os.urandom(300_017)
+        assert first.make_bucket("bkt").status == 200
+        assert first.put_object("bkt", "obj", data).status == 200
+        r = last.get_object("bkt", "obj")
+        assert (r.status, r.body) == (200, data)
+        r = first.request("GET", "/minio-tpu/admin/v1/info")
+        doc = json.loads(r.body)
+        assert doc["mode"] == ("distributed" if len(ports) > 1 else "erasure")
+        assert len(doc.get("nodes", [])) == len(ports) - 1
+        if "faults" in want:
+            r = first.request("GET", "/minio-tpu/admin/v1/fault/status")
+            assert r.status == 200 and len(json.loads(r.body)) == 4
+    finally:
+        outs = [_stop(p) for p in procs]
+    if len(ports) > 1:
+        assert all("bootstrap handshake ok with 1 peer(s)" in o for o in outs)
+    assert not any("Traceback" in o for o in outs), outs
 
 
 def test_no_card_and_cuda_asked_exits(tmp_path):

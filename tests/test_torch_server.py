@@ -572,7 +572,7 @@ UNPORTED = [
     # (name, slice, request)
     # the admin API itself is ported (tests/test_torch_admin_config.py);
     # its routes of unported features name their slices
-    ("admin", "9b", lambda c: c.request(
+    ("admin", "9d", lambda c: c.request(
         "GET", "/minio-tpu/admin/v1/datausage")),
     ("web_rpc", "9c", lambda c: _raw(_ep(c), "POST", "/minio-tpu/webrpc")),
     ("console", "9c", lambda c: _raw(_ep(c), "GET", "/minio-tpu/console")),
@@ -855,15 +855,37 @@ def test_event_target_env_names_slice_9c(tmp_path, monkeypatch):
 
 
 def test_internode_and_federation_name_slice_9b(port_server):
+    """The internode planes (once slice 9b) are served: a mounted plane
+    answers its prefix, with the JWT checked before the body; federation
+    stays refused and names slice 9d."""
+    from minio_tpu_torch.utils import jwt as tjwt
+
     srv, c = port_server
-    with pytest.raises(NotImplementedError, match=r"slice 9b"):
-        srv.register_internode("/minio/storage/v1", lambda *a: None)
+    calls = []
+
+    def plane(tail, query, body, headers):
+        calls.append((tail, body))
+        return 200, b"pong", {}
+
+    srv.register_internode("/minio-tpu/test/v1", plane)
+    srv.internode_secret = "internode-secret"
+    try:
+        bad = _raw(_ep(c), "POST", "/minio-tpu/test/v1/ping", body=b"x")
+        token = tjwt.sign({"sub": "n"}, "internode-secret")
+        good = _raw(_ep(c), "POST", "/minio-tpu/test/v1/ping", body=b"x",
+                    headers={"Authorization": f"Bearer {token}"})
+    finally:
+        srv.internode_secret = ""
+        srv.internode.pop("/minio-tpu/test/v1")
+    assert bad[0] == 401
+    assert good[0] == 200 and good[2] == b"pong"
+    assert calls == [("ping", b"x")]
     srv.bucket_dns = object()
     try:
         status, _h, body = _res(c.get_object("bkt", "obj"))
     finally:
         srv.bucket_dns = None
-    assert status == 501 and b"(slice 9b)" in body
+    assert status == 501 and b"(slice 9d)" in body
 
 
 def test_ported_routes_still_answer(port_server):
