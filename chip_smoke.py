@@ -172,6 +172,28 @@
    families against the cache's stats; last the hot set's GET MB/s
    under ``host`` and ``off``, the cache reset between modes.  Prints
    the ``read_cache:`` line.
+9c. Bucket configurations enforced by the data crawler
+   (``bucket_config_phase``, slice 9c's first half and 9d's crawler): the
+   same deployment built as the server main builds it (zones over one set
+   of 12 guarded drives, the MRF heal routine, ``start_crawler``'s update
+   tracker and data crawler).  A bucket born with object lock and a
+   GOVERNANCE default retention of one day takes 16 x 64 MiB with
+   ``x-amz-tagging`` from 4 clients (K5) and reads them back (K2), one with
+   the drives of shards 1, 3, 10, 12 offline (K3); tags and retentions
+   read back; a retained version refuses its delete (InvalidRequest), the
+   root's governance bypass deletes it, a legal hold refuses even the
+   bypass.  512 x 4 KiB objects over 8 prefixes through the object
+   layer, under a lifecycle rule with an Expiration Date in the past for
+   ``p3/``; a lock-enabled bucket with a FIFO quota over 12 x 1 MiB, one
+   retained; one tagged object's files deleted from one drive.  The admin
+   ``crawl`` expires exactly ``p3/`` (GETs answer NoSuchKey), evicts
+   oldest first down to the quota past the retained object, and queues
+   the damaged object's heal, which the routine restores part file for
+   part file (K6, K1 ``group=0``); ``datausage`` equals ListObjectsV2 of
+   every bucket; a second crawl skips the untouched bucket.  Prints the
+   ``bucket_config:`` line (crawl seconds and objects per second,
+   expired, evicted and healed counts, tagged PUT/GET MB/s beside the S3
+   phase's, launches, the card).
 10. The server as users start it (``boot_phase``): ``python -m
    minio_tpu_torch.server --parity 4`` over 24 temp-dir drives in a
    process of its own, on the async plane and the card (neither
@@ -4862,7 +4884,12 @@ def cluster_phase(work: str, backend: "str | None" = None) -> dict:
     from minio_tpu_torch.storage.xl import XLStorage
 
     base = os.path.join(work, "cluster")
-    env = {"MINIO_TPU_SERVER": "async", "MINIO_TPU_LOG_LEVEL": "warning"}
+    # the phase holds node 4's drives empty of the PUTs it missed until
+    # the admin heal: a background crawl (every 60 s by default) would
+    # queue those heals itself at a moment the phase does not choose, so
+    # the nodes' crawlers wait past the phase (bucket_config drives one)
+    env = {"MINIO_TPU_SERVER": "async", "MINIO_TPU_LOG_LEVEL": "warning",
+           "MINIO_TPU_CRAWL_INTERVAL_S": "3600"}
     if backend is not None:
         env["MINIO_ERASURE_BACKEND"] = backend
     h = ClusterHarness(base, nodes=CLUSTER_NODES,
@@ -5216,6 +5243,409 @@ def cluster_phase(work: str, backend: "str | None" = None) -> dict:
         "node1_read_cache": {k: rc2[k] for k in ("mode", "invalidations",
                                                  "demotions", "verify_drops")},
         "sigterm_s": sigterm_s,
+    })
+    return out
+
+
+# -- phase 9c: bucket configurations enforced by the data crawler -----------
+
+BC_TAGGED = 16  # objects of S3_BIG with x-amz-tagging, PUT by 4 clients
+# objects of BC_SMALL_SIZE through the object layer; cut from 2,048, at
+# which the small PUTs and the two crawls took 220 s of the phase on the
+# H100 machine (16 PUTs/s, 35 versions/s crawled)
+BC_SMALL = 512
+BC_SMALL_SIZE = 4096
+BC_PREFIXES = 8  # the small objects' prefixes p0/ .. p7/
+BC_EXPIRED = "p3/"  # the lifecycle rule's prefix
+BC_FIFO_OBJECTS = 12
+BC_FIFO_SIZE = 1 << 20
+BC_FIFO_QUOTA = 6 << 20
+BC_LOCK_CONFIG = (
+    b"<ObjectLockConfiguration><ObjectLockEnabled>Enabled"
+    b"</ObjectLockEnabled><Rule><DefaultRetention><Mode>GOVERNANCE</Mode>"
+    b"<Days>1</Days></DefaultRetention></Rule></ObjectLockConfiguration>"
+)
+BC_LIFECYCLE = (
+    "<LifecycleConfiguration><Rule><ID>expire-p3</ID><Status>Enabled"
+    f"</Status><Filter><Prefix>{BC_EXPIRED}</Prefix></Filter><Expiration>"
+    "<Date>2020-01-01T00:00:00Z</Date></Expiration></Rule>"
+    "</LifecycleConfiguration>"
+).encode()
+
+
+def _disk_root(disk) -> str:
+    """The directory under a guarded drive's wrappers."""
+    while hasattr(disk, "unwrapped"):
+        disk = disk.unwrapped
+    return disk.root
+
+
+def _listed(signer, bucket: str) -> "tuple[int, int, list]":
+    """(objects, bytes, keys) of a bucket by ListObjectsV2 pages of 1,000."""
+    count = size = 0
+    keys: list = []
+    token = ""
+    while True:
+        q = {"list-type": "2", "max-keys": "1000"}
+        if token:
+            q["continuation-token"] = token
+        st, _h, body = signer.request("GET", f"/{bucket}", q)
+        if st != 200:
+            fail(f"bucket_config phase: ListObjectsV2 {bucket}: {st}")
+        names = _xml_text(body, "Key")
+        keys += names
+        count += len(names)
+        size += sum(int(s) for s in _xml_text(body, "Size"))
+        if _xml_text(body, "IsTruncated") != ["true"]:
+            return count, size, keys
+        token = _xml_text(body, "NextContinuationToken")[0]
+
+
+def bucket_config_phase(dev, work: str, s3: dict,
+                        backend: "str | None" = None) -> dict:
+    """Phase 9c (slice 9c's first half, slice 9d's crawler): bucket
+    lifecycle, object lock, tagging and quotas on the S3 phase's
+    deployment (the threaded plane, 4 SigV4 clients, 12 temp-dir drives at
+    EC 8+4, 10 MiB blocks), built as the server main builds it (zones over
+    a set of guarded drives, the MRF heal routine, the update tracker and
+    the data crawler of ``start_crawler``).  A bucket born with object
+    lock and a GOVERNANCE default of one day takes BC_TAGGED x 64 MiB with
+    x-amz-tagging from 4 clients (K5) and serves them back (K2), one with
+    4 drives offline (K3); locked deletes are refused, the root's
+    governance bypass goes, a legal hold holds; tags and retentions read
+    back.  BC_SMALL x 4 KiB objects over BC_PREFIXES prefixes go in
+    through the object layer, under a lifecycle rule whose Expiration Date
+    is past for BC_EXPIRED; a third bucket, lock-enabled, carries a FIFO
+    quota over BC_FIFO_OBJECTS objects, one of them retained.  One tagged
+    object loses its files on one drive.  The admin ``crawl`` then
+    expires exactly the rule's objects (GETs answer NoSuchKey), evicts
+    oldest first down to the quota past the retained one, and queues the
+    damaged object's heal, which the routine restores (K6, K1
+    ``group=0``); ``datausage`` equals a listing; a second crawl over the
+    untouched namespace skips the clean bucket."""
+    import concurrent.futures
+    import datetime
+    import hashlib
+
+    import numpy as np
+
+    from minio_tpu_torch.crawler import updatetracker as ut_mod
+    from minio_tpu_torch.ops import kernels
+    from minio_tpu_torch.server.__main__ import (
+        build_object_layer,
+        start_background_heal,
+        start_crawler,
+    )
+    from minio_tpu_torch.server.http import S3Server
+    from minio_tpu_torch.storage.xl import XLStorage
+
+    saved_env = os.environ.get("MINIO_TPU_CRAWL_INTERVAL_S")
+    # the crawls of this phase are the admin's; the background cycle waits
+    os.environ["MINIO_TPU_CRAWL_INTERVAL_S"] = "3600"
+    base = os.path.join(work, "bcdisks")
+    ol = build_object_layer([os.path.join(base, "d{1...12}")], parity=M,
+                            device=backend or "cuda")
+    eset = ol.zones[0].sets[0]
+    roots = [_disk_root(d) for d in eset.disks]
+    srv = S3Server(ol, address="127.0.0.1:0").start()
+    if srv.server_mode != "threaded":
+        fail(f"bucket_config phase: server plane {srv.server_mode}")
+    routine, monitor = start_background_heal(ol)
+    srv.heal_routine, srv.heal_queue, srv.disk_monitor = (
+        routine, routine.queue, monitor)
+    tracker = start_crawler(srv, ol, None, roots[0], False)
+    crawler = srv.crawler
+    host, port = srv.host, srv.port
+    rng = np.random.default_rng(SEED + 21)
+    tagged = {f"t{i:02d}": rng.bytes(S3_BIG) for i in range(BC_TAGGED)}
+    tags = {k: f"phase=bucket_config&idx={i}" for i, k in enumerate(tagged)}
+    sha = {k: hashlib.sha256(v).digest() for k, v in tagged.items()}
+    one = S3Signer(host, port)
+    out: dict = {"card": card_name()}
+
+    def ok(res, want, what):
+        st, _h, body = res
+        if st != want:
+            fail(f"bucket_config phase: {what}: {st} {body[:300]!r}")
+        return res
+
+    try:
+        kernels.reset_launches()
+        t_phase = time.monotonic()
+        # a bucket born with object lock, then its default rule
+        ok(one.request("PUT", "/locked", headers={
+            "x-amz-bucket-object-lock-enabled": "true"}), 200,
+            "CreateBucket with object lock")
+        ok(one.request("PUT", "/locked", {"object-lock": ""},
+                       BC_LOCK_CONFIG), 200, "PUT ?object-lock")
+        st, _h, body = ok(one.request("GET", "/locked", {"object-lock": ""}),
+                          200, "GET ?object-lock")
+        if _xml_text(body, "Mode") != ["GOVERNANCE"] or \
+                _xml_text(body, "Days") != ["1"]:
+            fail(f"bucket_config phase: object-lock read back {body!r}")
+        for b in ("aged", "fifo"):
+            ok(one.request("PUT", f"/{b}", headers=(
+                {"x-amz-bucket-object-lock-enabled": "true"}
+                if b == "fifo" else None)), 200, f"CreateBucket {b}")
+        ok(one.request("PUT", "/aged", {"lifecycle": ""}, BC_LIFECYCLE), 200,
+           "PUT ?lifecycle")
+        st, _h, body = ok(one.request("GET", "/aged", {"lifecycle": ""}),
+                          200, "GET ?lifecycle")
+        if _xml_text(body, "Prefix") != [BC_EXPIRED]:
+            fail(f"bucket_config phase: lifecycle read back {body!r}")
+
+        # the tagged objects, 4 clients at once (K5), stamped with the
+        # bucket's default retention
+        def put(signer, key):
+            res = signer.request("PUT", f"/locked/{key}", body=tagged[key],
+                                 unsigned_payload=True,
+                                 headers={"x-amz-tagging": tags[key]})
+            ok(res, 200, f"PUT {key}")
+            return res[1].get("x-amz-version-id", "")
+
+        keys = sorted(tagged)
+        jobs = [keys[c::S3_CLIENTS] for c in range(S3_CLIENTS)]
+        t_before = datetime.datetime.now(datetime.timezone.utc)
+        put_wall, _vids = _in_clients(host, port, jobs, put)
+        t_after = datetime.datetime.now(datetime.timezone.utc)
+
+        def get(signer, key):
+            st, h, body = signer.request("GET", f"/locked/{key}")
+            if st != 200 or hashlib.sha256(body).digest() != sha[key]:
+                fail(f"bucket_config phase: GET {key}: {st}, body differs")
+            if h.get("x-amz-tagging-count") != "2":
+                fail(f"bucket_config phase: GET {key} tag count "
+                     f"{h.get('x-amz-tagging-count')}")
+            return len(body)
+
+        get_wall, sizes = _in_clients(host, port, jobs, get)
+        # tags and retentions read back
+        lo = (t_before + datetime.timedelta(days=1)).replace(microsecond=0)
+        hi = t_after + datetime.timedelta(days=1)
+        for key in keys:
+            st, _h, body = ok(one.request("GET", f"/locked/{key}",
+                                          {"tagging": ""}), 200,
+                              f"GET {key}?tagging")
+            want = dict(p.split("=") for p in tags[key].split("&"))
+            got = dict(zip(_xml_text(body, "Key"), _xml_text(body, "Value")))
+            if got != want:
+                fail(f"bucket_config phase: tags of {key} {got} != {want}")
+            st, _h, body = ok(one.request("GET", f"/locked/{key}",
+                                          {"retention": ""}), 200,
+                              f"GET {key}?retention")
+            until = datetime.datetime.strptime(
+                _xml_text(body, "RetainUntilDate")[0], "%Y-%m-%dT%H:%M:%SZ"
+            ).replace(tzinfo=datetime.timezone.utc)
+            if _xml_text(body, "Mode") != ["GOVERNANCE"] or \
+                    not lo <= until <= hi:
+                fail(f"bucket_config phase: retention of {key}: {body!r}")
+        # one tagged object read with the drives of shards 1, 3, 10 and
+        # 12 offline (K3)
+        deg_key = keys[1]
+        idx = {d: XLStorage(r).read_version("locked", deg_key).erasure.index
+               for d, r in enumerate(roots)}
+        dead = sorted(d for d, i in idx.items() if i in (1, 3, 10, 12))
+        live = list(eset.disks)
+        k3 = kernels.LAUNCHES["gf_matmul_words"]
+        for d in dead:
+            eset.disks[d] = None
+        try:
+            get(one, deg_key)
+        finally:
+            eset.disks[:] = live
+        if kernels.LAUNCHES["gf_matmul_words"] <= k3:
+            fail("bucket_config phase: the degraded GET reconstructed nothing")
+
+        # the WORM guard: a retained version refuses its delete, the
+        # root's bypass of GOVERNANCE goes, a legal hold holds
+        vids = {}
+        for key in ("bypass-me", "held"):
+            st, h, _b = ok(one.request("PUT", f"/locked/{key}", body=b"w" * 64),
+                           200, f"PUT {key}")
+            vids[key] = h["x-amz-version-id"]
+        worm = {}
+        st, _h, body = one.request("DELETE", "/locked/bypass-me",
+                                   {"versionId": vids["bypass-me"]})
+        worm["locked_delete"] = (st, _xml_text(body, "Code"))
+        if worm["locked_delete"] != (400, ["InvalidRequest"]):
+            fail(f"bucket_config phase: a locked delete answered {st} {body!r}")
+        st, _h, body = one.request("DELETE", "/locked/bypass-me",
+                                   {"versionId": vids["bypass-me"]},
+                                   headers={"x-amz-bypass-governance-retention":
+                                            "true"})
+        worm["bypass_delete"] = st
+        if st != 204:
+            fail(f"bucket_config phase: governance bypass answered {st} {body!r}")
+        ok(one.request("PUT", "/locked/held", {"legal-hold": "",
+                                               "versionId": vids["held"]},
+                       b"<LegalHold><Status>ON</Status></LegalHold>"), 200,
+           "PUT ?legal-hold ON")
+        st, _h, body = one.request("DELETE", "/locked/held",
+                                   {"versionId": vids["held"]},
+                                   headers={"x-amz-bypass-governance-retention":
+                                            "true"})
+        worm["held_delete"] = (st, _xml_text(body, "Code"))
+        if worm["held_delete"] != (400, ["InvalidRequest"]):
+            fail(f"bucket_config phase: a held delete answered {st} {body!r}")
+        st, _h, body = ok(one.request("GET", "/locked/held",
+                                      {"legal-hold": ""}), 200,
+                          "GET ?legal-hold")
+        if _xml_text(body, "Status") != ["ON"]:
+            fail(f"bucket_config phase: legal hold read back {body!r}")
+
+        # the namespace the crawl walks: small objects through the
+        # object layer, 8 threads
+        small = {f"p{i % BC_PREFIXES}/o{i:05d}": rng.bytes(BC_SMALL_SIZE)
+                 for i in range(BC_SMALL)}
+        t0 = time.monotonic()
+        with concurrent.futures.ThreadPoolExecutor(8) as pool:
+            list(pool.map(
+                lambda kv: ol.put_object("aged", kv[0], io.BytesIO(kv[1]),
+                                         len(kv[1])),
+                small.items()))
+        small_put_s = time.monotonic() - t0
+        # the FIFO bucket: oldest first, object 1 retained
+        fifo_keys = [f"f{i:02d}" for i in range(BC_FIFO_OBJECTS)]
+        for i, key in enumerate(fifo_keys):
+            hdrs = ({"x-amz-object-lock-mode": "GOVERNANCE",
+                     "x-amz-object-lock-retain-until-date":
+                         "2090-01-01T00:00:00Z"} if i == 1 else None)
+            ok(one.request("PUT", f"/fifo/{key}", body=rng.bytes(BC_FIFO_SIZE),
+                           headers=hdrs), 200, f"PUT fifo/{key}")
+        ok(one.request(
+            "PUT", f"{ADMIN}/set-bucket-quota", {"bucket": "fifo"},
+            json.dumps({"quota": BC_FIFO_QUOTA, "quotatype": "fifo"}).encode(),
+        ), 200, "admin set-bucket-quota")
+        # one tagged object loses its files on one drive
+        damaged = keys[0]
+        gone = next(d for d, r in enumerate(roots)
+                    if os.path.isdir(os.path.join(r, "locked", damaged)))
+        saved = {}
+        obj_dir = os.path.join(roots[gone], "locked", damaged)
+        for dirpath, _dirs, files in os.walk(obj_dir):
+            for f in files:
+                p = os.path.join(dirpath, f)
+                with open(p, "rb") as fh:
+                    saved[os.path.relpath(p, obj_dir)] = fh.read()
+        shutil.rmtree(obj_dir)
+
+        # crawl 1, forced through the admin API
+        healed0 = routine.healed
+        t0 = time.monotonic()
+        st, _h, body = ok(one.request("POST", f"{ADMIN}/crawl"), 200,
+                          "admin crawl")
+        crawl1_s = time.monotonic() - t0
+        usage1 = json.loads(body)
+        stats1 = crawler.stats_snapshot()
+        walked = sum(b["versions"] for b in usage1["buckets"].values()) \
+            + stats1["expired"] + stats1["evicted"]
+        if not routine.drain(timeout_s=300):
+            fail("bucket_config phase: the heal routine did not drain")
+        healed = routine.healed - healed0
+        # expiry: exactly the rule's prefix, each answering NoSuchKey
+        _n, _s, aged_keys = _listed(one, "aged")
+        want_left = sorted(k for k in small if not k.startswith(BC_EXPIRED))
+        if aged_keys != want_left:
+            fail(f"bucket_config phase: {len(aged_keys)} objects left in aged, "
+                 f"want {len(want_left)}")
+        expired = [k for k in small if k.startswith(BC_EXPIRED)]
+        if stats1["expired"] != len(expired):
+            fail(f"bucket_config phase: the crawl expired {stats1['expired']}, "
+                 f"want {len(expired)}")
+        for key in expired[:: max(1, len(expired) // 16)]:
+            st, _h, body = one.request("GET", f"/aged/{key}")
+            if st != 404 or _xml_text(body, "Code") != ["NoSuchKey"]:
+                fail(f"bucket_config phase: GET of expired {key}: {st}")
+        # FIFO: oldest first, never the retained one, down to the quota
+        _n, fifo_size, fifo_left = _listed(one, "fifo")
+        evicted = [k for k in fifo_keys if k not in fifo_left]
+        want_evicted = [k for k in fifo_keys if k != "f01"][
+            : (BC_FIFO_OBJECTS * BC_FIFO_SIZE - BC_FIFO_QUOTA)
+            // BC_FIFO_SIZE]
+        if "f01" not in fifo_left or evicted != want_evicted or \
+                fifo_size > BC_FIFO_QUOTA:
+            fail(f"bucket_config phase: FIFO evicted {evicted}, want "
+                 f"{want_evicted}; {fifo_size} B left")
+        # heal: queued by the crawl's probe, restored by the routine
+        if healed < 1 or stats1["heals_queued"] < 1:
+            fail(f"bucket_config phase: heals queued {stats1['heals_queued']}, "
+                 f"healed {healed}")
+        restored = {}
+        for dirpath, _dirs, files in os.walk(obj_dir):
+            for f in files:
+                if f != "xl.meta":
+                    p = os.path.join(dirpath, f)
+                    with open(p, "rb") as fh:
+                        restored[os.path.relpath(p, obj_dir)] = fh.read()
+        if restored != {k: v for k, v in saved.items() if k != "xl.meta"}:
+            fail("bucket_config phase: the healed part files differ")
+        get(one, damaged)
+        # datausage against a listing of every bucket
+        st, _h, body = ok(one.request("GET", f"{ADMIN}/datausage"), 200,
+                          "admin datausage")
+        usage = json.loads(body)
+        counts = {}
+        for b in ("aged", "fifo", "locked"):
+            n, size, _k = _listed(one, b)
+            got = usage["buckets"][b]
+            counts[b] = {"listed": n, "listed_bytes": size,
+                         "usage": got["objects"], "usage_bytes": got["size"]}
+            if (got["objects"], got["size"]) != (n, size):
+                fail(f"bucket_config phase: datausage {b} {got} != listing "
+                     f"{n} objects, {size} B")
+        # crawl 2 over an untouched namespace: the clean bucket skipped
+        t0 = time.monotonic()
+        usage2 = json.loads(ok(one.request("POST", f"{ADMIN}/crawl"), 200,
+                               "admin crawl 2")[2])
+        crawl2_s = time.monotonic() - t0
+        stats2 = crawler.stats_snapshot()
+        skipped = stats2["buckets_skipped"] - stats1["buckets_skipped"]
+        if skipped != 1 or usage2["buckets"]["locked"] != \
+                usage["buckets"]["locked"]:
+            fail(f"bucket_config phase: crawl 2 skipped {skipped} bucket(s)")
+        tracker.save()
+        if not os.path.isfile(os.path.join(roots[0], ".sys",
+                                           "update-tracker.bin")):
+            fail("bucket_config phase: no update-tracker journal")
+        phase_s = time.monotonic() - t_phase
+        launches = {k: v for k, v in kernels.LAUNCHES.items() if v}
+    finally:
+        one.close()
+        srv.shutdown()
+        ut_mod.install_tracker(None)
+        if saved_env is None:
+            os.environ.pop("MINIO_TPU_CRAWL_INTERVAL_S", None)
+        else:
+            os.environ["MINIO_TPU_CRAWL_INTERVAL_S"] = saved_env
+        shutil.rmtree(base, ignore_errors=True)
+
+    for name in ("encode_pack_pipelined", "phash256_batched", "gf_matmul_words",
+                 "verify_reconstruct_pipelined", "encode_pack[group=0]"):
+        if launches.get(name, 0) <= 0:
+            fail(f"bucket_config phase: kernel {name} never launched")
+    nbig = sum(len(v) for v in tagged.values())
+    out.update({
+        "phase_s": phase_s,
+        "tagged_put": {"bytes": nbig, "s": put_wall,
+                       "MBps": nbig / put_wall / 1e6,
+                       "s3_phase_MBps": s3["put_concurrent"]["MBps"]},
+        "tagged_get": {"bytes": sum(sizes), "s": get_wall,
+                       "MBps": sum(sizes) / get_wall / 1e6,
+                       "s3_phase_MBps": s3["get_concurrent"]["MBps"]},
+        "small_put": {"objects": BC_SMALL, "s": small_put_s,
+                      "objects_per_s": BC_SMALL / small_put_s},
+        "crawl": {"s": crawl1_s, "versions_walked": walked,
+                  "objects_per_s": walked / crawl1_s,
+                  "second_s": crawl2_s, "second_skipped_buckets": skipped},
+        "expired": stats1["expired"],
+        "evicted": evicted,
+        "healed": healed,
+        "heals_queued": stats1["heals_queued"],
+        "worm": worm,
+        "usage_vs_listing": counts,
+        "degraded_offline_disks": dead,
+        "launches": launches,
+        "crawler_stats": stats2,
     })
     return out
 
@@ -5717,7 +6147,7 @@ def main() -> int:
         lap("modes")
         mx = modes_phase(dev, work, payloads, written, MXU_RUNS)
         lap("mxu")
-        # phases 7, 8, 8b, 9 and 9b serve in this process on the threaded plane;
+        # phases 7, 8, 8b, 9, 9b and 9c serve in this process on the threaded plane;
         # the boot and cluster phases' servers take the default (async)
         os.environ["MINIO_TPU_SERVER"] = "threaded"
         s3 = s3_phase(dev, work, payloads, written, mp)
@@ -5730,6 +6160,8 @@ def main() -> int:
         lap("select")
         rc = read_cache_phase(dev, work, sel)
         lap("read_cache")
+        bc = bucket_config_phase(dev, work, s3)
+        lap("bucket_config")
         os.environ.pop("MINIO_TPU_SERVER", None)
         bt = boot_phase(work, payloads)
         lap("boot")
@@ -5747,6 +6179,7 @@ def main() -> int:
     print(f"sse: {json.dumps(sse)}", flush=True)
     print(f"select: {json.dumps(sel)}", flush=True)
     print(f"read_cache: {json.dumps(rc)}", flush=True)
+    print(f"bucket_config: {json.dumps(bc)}", flush=True)
     print(f"boot: {json.dumps(bt)}", flush=True)
     print(f"cluster: {json.dumps(cl)}", flush=True)
     print(f"phases_s: {json.dumps(phases_s)}", flush=True)

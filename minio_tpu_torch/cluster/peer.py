@@ -30,10 +30,11 @@ reads ``xl.meta`` by quorum on every GET (it skips the cache's FileInfo
 side-car, cache/__init__.py ``sidecar_enabled``), and cached groups are
 keyed by the ``data_dir`` that quorum read names.
 
-Ported are every method of ``_METHODS`` but two families: the remote
+Ported is every method of ``_METHODS`` but one family: the remote
 ListenBucketNotification subscriptions (``listenon``/``listenbuf``/
-``listenoff``) answer 501 naming slice 9c, as the S3 listen route does,
-and ``cyclebloom`` (the data-update tracker's filter) names slice 9d.
+``listenoff``) answer 501 naming slice 9c, as the S3 listen route does.
+``cyclebloom`` rotates this node's data-update tracker for the crawling
+node, which unions every peer's filter (``PeerNotifier.cycle_blooms``).
 """
 
 from __future__ import annotations
@@ -238,9 +239,17 @@ class PeerRESTServer:
         return AdminAPI(self.s3)._health_info_local(ol)
 
     def _cycle_bloom(self, q, body) -> dict:
-        """The data-update tracker's filter (CycleServerBloomFilter): the
-        tracker and the crawler that reads it are slice 9d."""
-        raise _unported("the data-update tracker (cyclebloom)", "9d")
+        """Rotate this node's data-update tracker and return its
+        filter for [oldest, current) (the CycleServerBloomFilter peer
+        RPC, peer-rest-client.go cycleServerBloomFilter)."""
+        tracker = getattr(self.s3, "update_tracker", None)
+        if tracker is None:
+            return {"ok": False}
+        req = _unpack(body) or {}
+        resp = tracker.cycle_filter(
+            int(req.get("oldest", 0)), int(req.get("current", 0))
+        )
+        return {"ok": True, **resp.to_wire()}
 
     def _verify_config(self, q, body) -> dict:
         """Bootstrap handshake: peer sends ITS fingerprint; we diff
@@ -655,6 +664,14 @@ class PeerRESTClient:
     def get_locks(self) -> list:
         return self.call("getlocks").get("locks", [])
 
+    def cycle_bloom(self, oldest: int, current: int) -> "dict | None":
+        """Peer's data-update filter for [oldest, current); None when
+        the peer has no tracker."""
+        resp = self.call(
+            "cyclebloom", doc={"oldest": oldest, "current": current}
+        )
+        return resp if resp.get("ok") else None
+
     def verify_config(self, fingerprint: dict) -> dict:
         return self.call("verifyconfig", doc=fingerprint)
 
@@ -775,6 +792,14 @@ class PeerNotifier:
 
     def all_locks(self) -> "list[list]":
         return self._gather(lambda c: c.get_locks(), lambda c: [])
+
+    def cycle_blooms(self, oldest: int, current: int) -> "list[dict | None]":
+        """Every peer's update filter; None marks an unreachable or
+        trackerless peer (the caller must then treat the union as
+        incomplete)."""
+        return self._gather(
+            lambda c: c.cycle_bloom(oldest, current), lambda c: None
+        )
 
     def close(self) -> None:
         self._pool.shutdown(wait=False)

@@ -21,7 +21,8 @@ boot: it never moves a running server onto the CPU, and ``apply()``
 leaves the running backends alone.  ``compression`` and ``crawler``
 keys are stored and applied to their env seams: the object layer reads
 MINIO_TPU_COMPRESS per PUT, so ``compression enable=on`` takes effect on
-the next PUT; the crawler's consumer comes with slice 9d.
+the next PUT, and the data crawler re-reads MINIO_TPU_CRAWL_INTERVAL_S
+each cycle, so ``crawler interval_s`` takes effect from the next wait.
 """
 
 from __future__ import annotations

@@ -116,6 +116,15 @@ class BucketMetadataSys:
             self._cache[bucket] = (bm, now)
         return bm
 
+    def cached(self, bucket: str) -> "BucketMetadata | None":
+        """The document while its cache entry is fresh, else None; never
+        reads the store (for callers on an event loop)."""
+        with self._mu:
+            hit = self._cache.get(bucket)
+            if hit is not None and time.monotonic() - hit[1] < self._ttl:
+                return hit[0]
+        return None
+
     def _load(self, bucket: str) -> BucketMetadata:
         buf = io.BytesIO()
         try:

@@ -5,9 +5,9 @@ server-main.go:559): writes go to the zone with the most free space
 (getAvailableZoneIdx, erasure-zones.go:113), reads/deletes query zones in
 order, listings merge across zones.  Each zone is an ErasureSets.
 
-The data-update tracker that marks mutated paths for the crawler comes
-with slice 9d: ``object_path_updated`` here is its no-op seam
-(crawler/updatetracker.py).
+Every mutation marks its path in the data-update tracker
+(``object_path_updated``, crawler/updatetracker.py), whose bloom journal
+lets the data crawler skip buckets nothing wrote to.
 """
 
 from __future__ import annotations

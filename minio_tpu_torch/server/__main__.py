@@ -31,10 +31,15 @@ plain PyTorch codec on the CPU, and only when asked; any other value
 exits.  A persisted ``codec backend`` edit (admin set-config-kv) takes
 effect here, at boot.
 
+The data-update tracker (its bloom journal on the first local drive,
+saved at shutdown) and the data crawler start with the heal routine:
+the crawler sweeps every ``MINIO_TPU_CRAWL_INTERVAL_S`` (60 s by default,
+or the ``crawler interval_s`` config key), and in a cluster one node
+sweeps a cycle, elected on the dsync lock plane.
+
 What this package has not ported exits at boot with a message naming
 its slice, instead of being ignored: federation (9d); the gateway, a
-single drive (FS mode) and the disk cache (9c).  The data crawler and
-the update tracker (slice 9d) are not started.
+single drive (FS mode) and the disk cache (9c).
 """
 
 from __future__ import annotations
@@ -301,6 +306,72 @@ def build_lock_plane(
     )
 
 
+def start_crawler(srv, ol, nslock, tracker_root, distributed: bool):
+    """Install the data-update tracker (its file on the first local
+    drive) and start the data crawler: usage accounting, lifecycle
+    expiry, FIFO quota eviction and heal-on-crawl (runDataCrawler,
+    server-main.go:524 startBackgroundOps).  Returns the tracker."""
+    from ..crawler import DataCrawler, updatetracker as ut_mod
+    from ..objectlayer.api import META_BUCKET
+
+    tracker = ut_mod.DataUpdateTracker(
+        path=os.path.join(tracker_root, ".sys", "update-tracker.bin")
+        if tracker_root
+        else None
+    )
+    ut_mod.install_tracker(tracker)
+    srv.update_tracker = tracker
+    notifier = srv.peer_notifier
+
+    def cluster_bloom(oldest: int, current: int):
+        """Union of this node's filter and every peer's; any
+        unreachable/trackerless peer poisons completeness so the
+        crawler falls back to a full sweep."""
+        resp = tracker.cycle_filter(oldest, current)
+        if notifier is not None:
+            for wire in notifier.cycle_blooms(oldest, current):
+                if wire is None:
+                    resp.complete = False
+                    continue
+                peer_resp = ut_mod.BloomResponse.from_wire(wire)
+                resp.complete = resp.complete and peer_resp.complete
+                try:
+                    resp.filter.union_into(peer_resp.filter)
+                except ValueError:
+                    resp.complete = False
+        return resp
+
+    srv.crawler = DataCrawler(
+        ol,
+        srv.bucket_meta,
+        interval_s=float(
+            os.environ.get("MINIO_TPU_CRAWL_INTERVAL_S") or 60.0
+        ),
+        events=srv.events,
+        ensure_event_rules=srv.ensure_event_rules,
+        cycle_bloom=cluster_bloom,
+        # heal-on-crawl: full sweeps probe shard health and feed the
+        # MRF heal queue (data scanner healObject path)
+        heal_hook=(
+            srv.heal_queue.push_object
+            if srv.heal_queue is not None
+            else None
+        ),
+        # distributed: elect one sweeping node per cycle on the dsync
+        # lock plane (single node: the local sweep lock serializes)
+        leader_lock=(
+            (
+                lambda: nslock.write(
+                    META_BUCKET, "data-crawler/leader", timeout=2.0
+                )
+            )
+            if distributed
+            else None
+        ),
+    ).start()
+    return tracker
+
+
 def main(argv=None) -> int:
     p = argparse.ArgumentParser(prog="minio-tpu server")
     p.add_argument(
@@ -347,6 +418,7 @@ def main(argv=None) -> int:
 
     from .. import cache as rcache
     from ..cluster import peer as peer_mod
+    from ..crawler import updatetracker as ut_mod
     from ..cluster.endpoints import resolve_endpoints
     from ..storage.rest_common import PREFIX as STORAGE_PREFIX
     from ..storage.rest_server import StorageRESTServer
@@ -482,13 +554,14 @@ def main(argv=None) -> int:
     # server side of the plane)
     from ..storage.diskcheck import DiskIDCheck
 
-    storage_rest.guard_disks({
+    guarded_map = {
         d.unwrapped.root: d
         for zone in ol.zones
         for eset in zone.sets
         for d in eset.disks
         if isinstance(d, DiskIDCheck)
-    })
+    }
+    storage_rest.guard_disks(guarded_map)
     if device == "cuda":
         # the kernel library (found by its source fingerprint, built
         # when missing) loads now, not at the first request
@@ -510,6 +583,8 @@ def main(argv=None) -> int:
     srv.heal_routine = routine
     srv.heal_queue = routine.queue
     srv.disk_monitor = monitor  # also the reloadformat peer RPC
+    tracker = start_crawler(srv, ol, nslock, next(iter(guarded_map), None),
+                            bool(peers))
     si = ol.storage_info()
     srv.boot_status["boot"] = True
     print(
@@ -529,7 +604,9 @@ def main(argv=None) -> int:
     # peer plane (inside srv.shutdown), THEN unwind whatever dsync
     # grants remain so peers see clean releases instead of waiting out
     # the expiry window on orphaned entries
+    tracker.save()  # flush marks recorded since the last rotation
     srv.shutdown()
+    ut_mod.install_tracker(None)
     rcache.set_broadcast(None)
     if lock_maint is not None:
         lock_maint.stop()

@@ -7,8 +7,9 @@ this node: server and storage info, heal and the background-heal
 status, service stop/restart, codec kernel telemetry, profiling, the
 runtime KV config, IAM management (users, groups, service accounts,
 canned policies), the KMS key status, the server-loop status and
-wedge, the read cache's stats and clear, remote fault injection, and
-healthinfo.  In a cluster, info, healthinfo, the background-heal status,
+wedge, the read cache's stats and clear, remote fault injection,
+healthinfo, bucket quotas, and the data crawler's usage snapshot and
+forced crawl.  In a cluster, info, healthinfo, the background-heal status,
 top-locks and profiling gather every peer's answer over the peer plane
 (cluster/peer.py), and service stop/restart is sent to the peers first.
 
@@ -24,9 +25,11 @@ import time
 
 from .. import cache as rcache
 from ..codec import kms as kmsmod
+from ..crawler import DataUsage
 from ..iam.policy import Policy, PolicyError
 from ..iam.sys import IAMError, PolicyNotFound, UserNotFound
 from ..objectlayer.api import unported
+from ..objectlayer.quota import QuotaConfig, QuotaError
 from .s3errors import S3Error
 
 from ..utils.log import kv, logger
@@ -38,16 +41,11 @@ VERSION = "0.3.0"
 _START = time.time()
 
 # admin routes of features not ported yet: route -> (what, slice).  Heal
-# sequences and the crawler are slice 9d; the disk cache, bucket quota
-# and the replication targets 9c.
+# sequences are slice 9d; the disk cache and the replication targets 9c.
 UNPORTED = {
     ("POST", "heal-sequence"): ("admin heal sequences", "9d"),
     ("POST", "heal-sequence/stop"): ("admin heal sequences", "9d"),
-    ("GET", "datausage"): ("the data crawler's usage", "9d"),
-    ("POST", "crawl"): ("the data crawler", "9d"),
     ("GET", "cache-stats"): ("the disk cache", "9c"),
-    ("GET", "get-bucket-quota"): ("bucket quota", "9c"),
-    ("PUT", "set-bucket-quota"): ("bucket quota", "9c"),
     ("GET", "list-remote-targets"): ("bucket replication targets", "9c"),
     ("PUT", "set-remote-target"): ("bucket replication targets", "9c"),
 }
@@ -97,6 +95,36 @@ class AdminAPI:
             return 200, _json(doc)
         if route == ("GET", "top-locks"):
             return 200, self._top_locks()
+        if route == ("GET", "datausage"):
+            crawler = self.s3.crawler
+            if crawler is None:
+                return 200, _json(DataUsage().to_dict())
+            return 200, _json(crawler.usage().to_dict())
+        if route == ("POST", "crawl"):
+            crawler = self.s3.crawler
+            if crawler is None:
+                raise S3Error("ServerNotInitialized")
+            # an explicit admin crawl bypasses the freshness gate
+            return 200, _json(crawler.crawl_once(force=True).to_dict())
+        # bucket quota (admin SetBucketQuota / GetBucketQuotaConfig)
+        if route == ("GET", "get-bucket-quota"):
+            ol.get_bucket_info(_req(q, "bucket"))
+            raw = self.s3.bucket_meta.get(_req(q, "bucket")).quota_json
+            return 200, (raw.encode() if raw else b"{}")
+        if route == ("PUT", "set-bucket-quota"):
+            bucket = _req(q, "bucket")
+            ol.get_bucket_info(bucket)
+            if body.strip() in (b"", b"{}"):
+                self.s3.bucket_meta.update(bucket, quota_json="")
+                return 200, b"{}"
+            try:
+                cfg = QuotaConfig.from_json(body)
+            except QuotaError as e:
+                raise S3Error("InvalidArgument", str(e)) from None
+            self.s3.bucket_meta.update(
+                bucket, quota_json=cfg.to_json()
+            )
+            return 200, b"{}"
         if tail.startswith("fault/"):
             return self._fault(method, tail, body)
         # tiered read cache (cache/tiered.py): device+host tiers of

@@ -17,8 +17,9 @@ per-tenant throttles, cmd/handler-api.go): an overloaded stage answers
     share one bucket so garbage cannot mint unbounded counters.
 ``quota``
     A PUT whose declared Content-Length would overflow the bucket's
-    hard quota per the crawler's usage snapshot; without a crawler
-    (slice 9d) nothing is shed.
+    hard quota per the crawler's usage snapshot; without a crawler, or
+    before its first sweep of the bucket, nothing is shed here and the
+    handler's own quota check answers.
 
 ``PlaneStats`` is the shared observability surface for both server
 modes: inflight gauge, per-stage queue depths, shed counters.  It is
@@ -59,6 +60,10 @@ from __future__ import annotations
 import os
 import re
 import threading
+
+from ..utils.log import kv, logger
+
+_log = logger("admission")
 
 SHED_REASONS = ("queue", "quota", "tenant", "select")
 
@@ -381,9 +386,42 @@ class AdmissionController:
         quota per the crawler snapshot (enforceBucketQuota's
         dataUsageCache consult) - shed before any body byte is read.
 
-        Snapshot-only, as in the JAX package: without a crawler (slice
-        9d) nothing is shed here.  Bucket quotas themselves are slice
-        9c; the handler's PUT seam refuses a bucket whose metadata
-        document sets one, after authentication.
+        Deliberately snapshot-only: without a crawler the handler's
+        synchronous quota check still runs and keeps its exact error
+        code, so this stage can only ever shed earlier, never differ.
+        It reads no store either: the async plane calls it on its event
+        loop, where a bucket-document read (in a cluster a quorum read
+        under a dsync lock) would stall every connection of the loop, the
+        internode planes' included.  A bucket whose document is not in
+        the metadata cache is not shed here.
         """
-        return False
+        if command != "PUT":
+            return False
+        bucket = path.lstrip("/").split("/", 1)[0]
+        if not bucket:
+            return False
+        try:
+            size = int(headers.get("Content-Length") or 0)
+        except ValueError:
+            return False
+        if size <= 0:
+            return False
+        crawler = getattr(self._s3, "crawler", None)
+        if crawler is None:
+            return False
+        from ..objectlayer import quota as quotamod
+
+        try:
+            bu = crawler.usage().buckets.get(bucket)
+            if bu is None:
+                return False
+            bm = self._s3.bucket_meta.cached(bucket)
+            cfg = quotamod.parse_config(bm.quota_json) if bm else None
+            if cfg is None or cfg.quota_type != "hard":
+                return False
+            return bu.size + size > cfg.quota
+        except Exception as exc:  # noqa: BLE001 - never shed on a broken gauge
+            _log.debug(
+                "quota precheck failed open", extra=kv(err=str(exc))
+            )
+            return False

@@ -24,13 +24,15 @@ uploads and the multipart routes (CreateMultipartUpload, UploadPart,
 UploadPartCopy, ListParts, ListMultipartUploads, AbortMultipartUpload,
 CompleteMultipartUpload), bucket default encryption (``?encryption``),
 server-side encryption (SSE-C headers, SSE-S3 and bucket defaults) on
-every object write and read, and the admin API (server/admin.py) with
+every object write and read, bucket lifecycle, tagging, object-lock and
+ACL documents, object tagging, retention, legal hold and ACLs, the
+PUT-time lock and tag headers, the WORM guard on deletes, hard bucket
+quotas on every write path, and the admin API (server/admin.py) with
 its trace and console streams.  Every route of a feature not ported yet
 answers S3 ``NotImplemented`` with a message naming the slice that
-ports it, and every PUT-path seam (quota, object lock and tagging,
-replication, events) raises the same way when the request or the
-bucket's metadata document asks for such a feature - nothing is
-silently ignored.
+ports it, and every PUT-path seam (replication, events) raises the same
+way when the request or the bucket's metadata document asks for such a
+feature - nothing is silently ignored.
 """
 
 from __future__ import annotations
@@ -49,8 +51,17 @@ from http.server import BaseHTTPRequestHandler, ThreadingHTTPServer
 
 from ..codec import sse as ssemod
 from ..iam.sys import IAMSys
-from ..objectlayer.api import CompletePart, ObjectInfo
+from ..ilm import Lifecycle, LifecycleError
+from ..objectlayer import objectlock as olock, quota as quotamod
+from ..objectlayer.api import (
+    BucketNotFound,
+    CompletePart,
+    ObjectInfo,
+    ObjectNotFound,
+    VersionNotFound,
+)
 from ..objectlayer.bucket_meta import BucketMetadataSys
+from ..utils import tags as tagmod
 from ..utils.hashreader import HashReader
 from ..utils.xmlutil import strip_ns
 from . import authz, response as xmlr, s3errors
@@ -85,18 +96,9 @@ WEB_CONSOLE_PATH = "/minio-tpu/console"
 # slice that ports each: a PUT, DELETE or GET on a bucket whose document
 # sets one of these raises instead of ignoring the configuration
 UNPORTED_BUCKET_CONFIG = {
-    "quota_json": ("bucket quota", "9c"),
-    "object_lock_xml": ("object lock", "9c"),
     "replication_xml": ("bucket replication", "9c"),
     "notification_xml": ("bucket event notification", "9c"),
 }
-
-# request headers of features not ported yet (lower-case prefixes)
-_LOCK_HEADERS = (
-    "x-amz-object-lock-mode",
-    "x-amz-object-lock-retain-until-date",
-    "x-amz-object-lock-legal-hold",
-)
 
 
 def unported(what: str, slice_name: str) -> NotImplementedError:
@@ -229,6 +231,11 @@ class S3Server:
         # federation bucket DNS: slice 9d; a value set here makes every
         # bucket request answer NotImplemented instead of being ignored
         self.bucket_dns = None
+        # the data crawler and update tracker, attached by the server
+        # main; the crawler's usage snapshot feeds quotas and admin
+        # datausage
+        self.crawler = None
+        self.update_tracker = None
         # peer control plane (distributed mode): PeerNotifier fanning
         # out cache invalidations + aggregating node info; the server
         # main also sets peer_rest (closed at shutdown) and
@@ -452,10 +459,10 @@ class S3Server:
         if self._thread:
             self._thread.join(timeout=5)
         self.events.shutdown()
-        # background maintenance threads (fresh-disk monitor, heal
-        # routine) stop AFTER the drain so an in-flight PUT's heal
+        # background maintenance threads (crawler, fresh-disk monitor,
+        # heal routine) stop AFTER the drain so an in-flight PUT's heal
         # hooks land
-        for attr in ("disk_monitor", "heal_routine"):
+        for attr in ("crawler", "disk_monitor", "heal_routine"):
             worker = getattr(self, attr, None)
             if worker is not None and hasattr(worker, "stop"):
                 try:
@@ -1266,48 +1273,19 @@ class _Handler(BaseHTTPRequestHandler):
                 "NotImplemented", f"?{sorted(unknown)[0]} is not supported"
             )
 
-    # object and bucket sub-resources of features not ported yet, with
-    # the slice that ports each; matched in the JAX package's dispatch
-    # order (the multipart routes it serves first are served first here
-    # too) so a request naming several answers for the one it serves
-    _UNPORTED_OBJECT = {
-        "GET": (
-            ("tagging", "object tagging", "9c"),
-            ("retention", "object retention", "9c"),
-            ("legal-hold", "object legal hold", "9c"),
-            ("acl", "ACLs", "9c"),
-        ),
-        "PUT": (
-            ("tagging", "object tagging", "9c"),
-            ("retention", "object retention", "9c"),
-            ("legal-hold", "object legal hold", "9c"),
-            ("acl", "ACLs", "9c"),
-        ),
-        "DELETE": (
-            ("tagging", "object tagging", "9c"),
-        ),
-    }
+    # bucket sub-resources of features not ported yet, with the slice
+    # that ports each; a request naming several answers for the first
     _UNPORTED_BUCKET = {
         "GET": (
             ("events", "ListenBucketNotification", "9c"),
             ("notification", "bucket notification", "9c"),
-            ("lifecycle", "bucket lifecycle", "9c"),
-            ("tagging", "bucket tagging", "9c"),
-            ("object-lock", "object lock", "9c"),
-            ("acl", "ACLs", "9c"),
             ("replication", "bucket replication", "9c"),
         ),
         "PUT": (
             ("notification", "bucket notification", "9c"),
-            ("lifecycle", "bucket lifecycle", "9c"),
-            ("tagging", "bucket tagging", "9c"),
-            ("object-lock", "object lock", "9c"),
-            ("acl", "ACLs", "9c"),
             ("replication", "bucket replication", "9c"),
         ),
         "DELETE": (
-            ("lifecycle", "bucket lifecycle", "9c"),
-            ("tagging", "bucket tagging", "9c"),
             ("replication", "bucket replication", "9c"),
         ),
     }
@@ -1335,10 +1313,28 @@ class _Handler(BaseHTTPRequestHandler):
             raise unported("bucket federation", "9d")
 
         if key:
-            if m == "GET" and "uploadId" in query:
-                return self._list_parts(bucket, key, query)
-            if m == "PUT" and "partNumber" in query and "uploadId" in query:
-                return self._put_part(bucket, key, query)
+            if m == "GET":
+                if "uploadId" in query:
+                    return self._list_parts(bucket, key, query)
+                if "tagging" in query:
+                    return self._get_object_tagging(bucket, key, query)
+                if "retention" in query:
+                    return self._get_object_retention(bucket, key, query)
+                if "legal-hold" in query:
+                    return self._get_object_legal_hold(bucket, key, query)
+                if "acl" in query:
+                    return self._get_acl(bucket, key)
+            if m == "PUT":
+                if "partNumber" in query and "uploadId" in query:
+                    return self._put_part(bucket, key, query)
+                if "tagging" in query:
+                    return self._put_object_tagging(bucket, key, query)
+                if "retention" in query:
+                    return self._put_object_retention(bucket, key, query)
+                if "legal-hold" in query:
+                    return self._put_object_legal_hold(bucket, key, query)
+                if "acl" in query:
+                    return self._put_acl(bucket, key)
             if m == "POST":
                 if "uploads" in query:
                     return self._initiate_multipart(bucket, key)
@@ -1348,9 +1344,11 @@ class _Handler(BaseHTTPRequestHandler):
                     )
                 if "select" in query:
                     return self._select_object(bucket, key)
-            if m == "DELETE" and "uploadId" in query:
-                return self._abort_multipart(bucket, key, query)
-            self._refuse_unported(self._UNPORTED_OBJECT, m, query)
+            if m == "DELETE":
+                if "uploadId" in query:
+                    return self._abort_multipart(bucket, key, query)
+                if "tagging" in query:
+                    return self._delete_object_tagging(bucket, key, query)
             if m == "GET":
                 self._reject_subresources(
                     query, self._OBJECT_SUBRESOURCES
@@ -1402,6 +1400,14 @@ class _Handler(BaseHTTPRequestHandler):
                     + xmlr.S3_NS.encode()
                     + b'">' + inner + b"</VersioningConfiguration>",
                 )
+            if "lifecycle" in query:
+                return self._get_bucket_lifecycle(bucket)
+            if "tagging" in query:
+                return self._get_bucket_tagging(bucket)
+            if "object-lock" in query:
+                return self._get_bucket_object_lock(bucket)
+            if "acl" in query:
+                return self._get_acl(bucket, "")
             # dummy configs the reference serves statically
             # (cmd/dummy-handlers.go): empty-but-valid documents
             if "accelerate" in query:
@@ -1449,16 +1455,36 @@ class _Handler(BaseHTTPRequestHandler):
                 return self._put_bucket_versioning(
                     bucket, self._read_body()
                 )
+            if "lifecycle" in query:
+                return self._put_bucket_lifecycle(
+                    bucket, self._read_body()
+                )
+            if "tagging" in query:
+                return self._put_bucket_tagging(bucket, self._read_body())
+            if "object-lock" in query:
+                return self._put_bucket_object_lock(
+                    bucket, self._read_body()
+                )
             if "encryption" in query:
                 return self._put_bucket_encryption(
                     bucket, self._read_body()
                 )
+            if "acl" in query:
+                return self._put_acl(bucket, "")
             self._reject_subresources(query, self._BUCKET_SUBRESOURCES)
             return self._make_bucket(bucket)
         if m == "DELETE":
             if "policy" in query:
                 ol.get_bucket_info(bucket)
                 self.s3.bucket_meta.update(bucket, policy_json="")
+                return self._respond(204)
+            if "lifecycle" in query:
+                ol.get_bucket_info(bucket)
+                self.s3.bucket_meta.update(bucket, lifecycle_xml="")
+                return self._respond(204)
+            if "tagging" in query:
+                ol.get_bucket_info(bucket)
+                self.s3.bucket_meta.update(bucket, tagging_xml="")
                 return self._respond(204)
             if "encryption" in query:
                 ol.get_bucket_info(bucket)
@@ -1490,16 +1516,21 @@ class _Handler(BaseHTTPRequestHandler):
         self.s3.invalidate_event_rules(bucket)
 
     def _make_bucket(self, bucket: str):
-        """CreateBucket; x-amz-bucket-object-lock-enabled: true asks
-        for object lock (bucket-handlers.go:528), which is slice 9c."""
+        """CreateBucket, honoring x-amz-bucket-object-lock-enabled
+        (bucket-handlers.go:528): lock-enabled buckets are born
+        versioned and carry a basic ObjectLockConfiguration."""
         lock_hdr = (
             self.headers.get("x-amz-bucket-object-lock-enabled") or ""
         ).lower()
         if lock_hdr and lock_hdr not in ("true", "false"):
             raise S3Error("InvalidRequest")
-        if lock_hdr == "true":
-            raise unported("object lock", "9c")
         self._bucket_create(bucket)
+        if lock_hdr == "true":
+            self.s3.bucket_meta.update(
+                bucket,
+                versioning="Enabled",
+                object_lock_xml=olock.ObjectLockConfig().to_xml().decode(),
+            )
         self._respond(200, headers={"Location": f"/{bucket}"})
 
     def _refuse_bucket_config(self, bucket: str, *fields: str) -> None:
@@ -1634,6 +1665,252 @@ class _Handler(BaseHTTPRequestHandler):
         )
         self._respond(200)
 
+    # -- bucket lifecycle (bucket-lifecycle-handlers.go) ------------------
+
+    def _get_bucket_lifecycle(self, bucket: str):
+        self.s3.object_layer.get_bucket_info(bucket)
+        raw = self.s3.bucket_meta.get(bucket).lifecycle_xml
+        if not raw:
+            raise S3Error("NoSuchLifecycleConfiguration")
+        self._respond(200, raw.encode())
+
+    def _put_bucket_lifecycle(self, bucket: str, body: bytes):
+        self.s3.object_layer.get_bucket_info(bucket)
+        try:
+            lc = Lifecycle.from_xml(body)
+        except LifecycleError as e:
+            raise S3Error("MalformedXML", str(e)) from None
+        self.s3.bucket_meta.update(
+            bucket, lifecycle_xml=lc.to_xml().decode()
+        )
+        self._respond(200)
+
+    # -- bucket tagging (bucket-handlers.go PutBucketTaggingHandler) ------
+
+    def _get_bucket_tagging(self, bucket: str):
+        self.s3.object_layer.get_bucket_info(bucket)
+        raw = self.s3.bucket_meta.get(bucket).tagging_xml
+        if not raw:
+            raise S3Error("NoSuchTagSet")
+        self._respond(200, raw.encode())
+
+    def _put_bucket_tagging(self, bucket: str, body: bytes):
+        self.s3.object_layer.get_bucket_info(bucket)
+        tags = self._parse_tags(body, tagmod.MAX_BUCKET_TAGS)
+        self.s3.bucket_meta.update(
+            bucket, tagging_xml=tagmod.to_xml(tags).decode()
+        )
+        self._respond(200)
+
+    @staticmethod
+    def _parse_tags(body: bytes, limit: int) -> dict:
+        try:
+            return tagmod.from_xml(body, limit)
+        except tagmod.TagXMLError as e:
+            raise S3Error("MalformedXML", str(e)) from None
+        except tagmod.TagError as e:
+            raise S3Error("InvalidTag", str(e)) from None
+
+    # -- bucket object lock (bucket-handlers.go:1026) ---------------------
+
+    def _get_bucket_object_lock(self, bucket: str):
+        self.s3.object_layer.get_bucket_info(bucket)
+        raw = self.s3.bucket_meta.get(bucket).object_lock_xml
+        if not raw:
+            raise S3Error("ObjectLockConfigurationNotFoundError")
+        self._respond(200, raw.encode())
+
+    def _put_bucket_object_lock(self, bucket: str, body: bytes):
+        self.s3.object_layer.get_bucket_info(bucket)
+        try:
+            cfg = olock.ObjectLockConfig.from_xml(body)
+        except olock.ObjectLockError as e:
+            raise S3Error("MalformedXML", str(e)) from None
+        # lock settings may only change on buckets born lock-enabled
+        # (bucket-handlers.go:1060: "Deny object locking configuration
+        # settings on existing buckets without object lock enabled")
+        if not self.s3.bucket_meta.get(bucket).object_lock_xml:
+            raise S3Error("ObjectLockConfigurationNotFoundError")
+        self.s3.bucket_meta.update(
+            bucket, object_lock_xml=cfg.to_xml().decode()
+        )
+        self._respond(200)
+
+    # -- ACL stubs (cmd/acl-handlers.go: static FULL_CONTROL owner) -------
+
+    def _get_acl(self, bucket: str, key: str):
+        if key:
+            self.s3.object_layer.get_object_info(bucket, key)
+        else:
+            self.s3.object_layer.get_bucket_info(bucket)
+        self._respond(
+            200,
+            b'<?xml version="1.0" encoding="UTF-8"?>'
+            b'<AccessControlPolicy xmlns="' + xmlr.S3_NS.encode() + b'">'
+            b"<Owner><ID>minio</ID><DisplayName>minio</DisplayName></Owner>"
+            b"<AccessControlList><Grant>"
+            b'<Grantee xmlns:xsi="http://www.w3.org/2001/XMLSchema-instance"'
+            b' xsi:type="CanonicalUser">'
+            b"<ID>minio</ID><DisplayName>minio</DisplayName></Grantee>"
+            b"<Permission>FULL_CONTROL</Permission>"
+            b"</Grant></AccessControlList></AccessControlPolicy>",
+        )
+
+    def _put_acl(self, bucket: str, key: str):
+        """Only the 'private' canned ACL round-trips; anything else is
+        NotImplemented (PutBucketACLHandler)."""
+        if key:
+            self.s3.object_layer.get_object_info(bucket, key)
+        else:
+            self.s3.object_layer.get_bucket_info(bucket)
+        canned = self.headers.get("x-amz-acl", "")
+        body = self._read_body()
+        if canned and canned != "private":
+            raise S3Error("NotImplemented", "only private ACL")
+        if body and b"FULL_CONTROL" not in body and b"private" not in body:
+            raise S3Error("NotImplemented", "only private ACL")
+        self._respond(200)
+
+    # -- object tagging (object-handlers.go PutObjectTaggingHandler) ------
+
+    def _get_object_tagging(self, bucket, key, query):
+        vid = query.get("versionId", [""])[0]
+        info = self.s3.object_layer.get_object_info(bucket, key, vid)
+        tags = tagmod.decode(info.user_defined.get("x-amz-tagging", ""))
+        hdrs = (
+            {"x-amz-version-id": info.version_id}
+            if info.version_id
+            else None
+        )
+        self._respond(200, tagmod.to_xml(tags), hdrs)
+
+    def _put_object_tagging(self, bucket, key, query):
+        vid = query.get("versionId", [""])[0]
+        tags = self._parse_tags(self._read_body(), tagmod.MAX_OBJECT_TAGS)
+        self.s3.object_layer.update_object_meta(
+            bucket, key, {"x-amz-tagging": tagmod.encode(tags)}, vid
+        )
+        self._respond(200)
+
+    def _delete_object_tagging(self, bucket, key, query):
+        vid = query.get("versionId", [""])[0]
+        self.s3.object_layer.update_object_meta(
+            bucket, key, {"x-amz-tagging": None}, vid
+        )
+        self._respond(204)
+
+    # -- object retention / legal hold (object-handlers.go) ---------------
+
+    def _require_lock_config(self, bucket: str):
+        if not self.s3.bucket_meta.get(bucket).object_lock_xml:
+            raise S3Error("InvalidBucketObjectLockConfiguration")
+
+    def _get_object_retention(self, bucket, key, query):
+        self._require_lock_config(bucket)
+        vid = query.get("versionId", [""])[0]
+        info = self.s3.object_layer.get_object_info(bucket, key, vid)
+        ret = olock.Retention.from_meta(info.user_defined)
+        if not ret.valid:
+            raise S3Error("NoSuchObjectLockConfiguration")
+        self._respond(200, ret.to_xml())
+
+    def _put_object_retention(self, bucket, key, query):
+        self._require_lock_config(bucket)
+        vid = query.get("versionId", [""])[0]
+        try:
+            ret = olock.Retention.from_xml(self._read_body())
+        except olock.ObjectLockError as e:
+            raise S3Error("MalformedXML", str(e)) from None
+        info = self.s3.object_layer.get_object_info(bucket, key, vid)
+        cur = olock.Retention.from_meta(info.user_defined)
+        active = (
+            cur.valid
+            and cur.retain_until is not None
+            and cur.retain_until > olock.utcnow()
+        )
+        # strengthening is always allowed: same-or-stronger mode with a
+        # same-or-later date (COMPLIANCE > GOVERNANCE).  Anything else
+        # against an active retention is a weakening attempt.
+        strengthens = ret.retain_until >= cur.retain_until if active else True
+        if active and cur.mode == olock.COMPLIANCE:
+            # COMPLIANCE can never be weakened, by anyone
+            # (enforceRetentionBypassForPut compliance branch)
+            if ret.mode != olock.COMPLIANCE or not strengthens:
+                raise S3Error("ObjectLocked")
+        elif active and cur.mode == olock.GOVERNANCE:
+            # weakening GOVERNANCE needs the bypass header + permission;
+            # upgrading to COMPLIANCE or extending the date does not
+            if (
+                not (strengthens and ret.mode in (olock.GOVERNANCE,
+                                                  olock.COMPLIANCE))
+                and not self._governance_bypass_allowed(bucket, key)
+            ):
+                raise S3Error("ObjectLocked")
+        self.s3.object_layer.update_object_meta(
+            bucket, key,
+            {
+                olock.META_MODE: ret.mode,
+                olock.META_RETAIN_UNTIL: olock.format_iso8601(
+                    ret.retain_until
+                ),
+            },
+            vid,
+        )
+        self._respond(200)
+
+    def _get_object_legal_hold(self, bucket, key, query):
+        self._require_lock_config(bucket)
+        vid = query.get("versionId", [""])[0]
+        info = self.s3.object_layer.get_object_info(bucket, key, vid)
+        status = info.user_defined.get(olock.META_LEGAL_HOLD, "OFF")
+        self._respond(200, olock.legal_hold_xml(status))
+
+    def _put_object_legal_hold(self, bucket, key, query):
+        self._require_lock_config(bucket)
+        vid = query.get("versionId", [""])[0]
+        try:
+            status = olock.parse_legal_hold_xml(self._read_body())
+        except olock.ObjectLockError as e:
+            raise S3Error("MalformedXML", str(e)) from None
+        self.s3.object_layer.update_object_meta(
+            bucket, key, {olock.META_LEGAL_HOLD: status}, vid
+        )
+        self._respond(200)
+
+    def _governance_bypass_allowed(self, bucket: str, key: str) -> bool:
+        """Caller set x-amz-bypass-governance-retention AND holds the
+        bypass permission (enforceRetentionBypassForDelete)."""
+        if not olock.is_governance_bypass(dict(self.headers.items())):
+            return False
+        account = self._auth.access_key if self._auth else ""
+        return self._check_action(
+            "s3:BypassGovernanceRetention", bucket, key, account
+        )
+
+    def _enforce_worm(self, bucket, key, version_id: str) -> None:
+        """Block deletion of WORM-protected versions.  Only consulted
+        when the bucket carries an object-lock configuration."""
+        try:
+            if not self.s3.bucket_meta.get(bucket).object_lock_xml:
+                return
+        except BucketNotFound:
+            return
+        try:
+            info = self.s3.object_layer.get_object_info(
+                bucket, key, version_id
+            )
+        except (ObjectNotFound, VersionNotFound):
+            # absent version / delete marker: nothing to protect.  Any
+            # OTHER failure (quorum loss, lock timeout) must propagate -
+            # a WORM gate that fails open is not a gate.
+            return
+        blocked = olock.retention_blocks_delete(
+            info.user_defined,
+            bypass_governance=self._governance_bypass_allowed(bucket, key),
+        )
+        if blocked is not None:
+            raise S3Error("ObjectLocked")
+
     def _list_object_versions(self, bucket: str, query):
         q1 = {k: v[0] for k, v in query.items()}
         try:
@@ -1732,11 +2009,7 @@ class _Handler(BaseHTTPRequestHandler):
             )
             for obj in root.findall(f"{ns}Object")
         ]
-        # the seams DELETE passes: object lock guards a named version or
-        # unversioned data (the JAX package's per-key WORM check), and
-        # every removal is an event
-        if any(vid or not (versioned or suspended) for _k, vid in objs):
-            self._refuse_bucket_config(bucket, "object_lock_xml")
+        # every removal is an event: the event-target seam
         self._refuse_bucket_config(bucket, "notification_xml")
         for key, vid in objs:
             # per-key authorization (DeleteMultipleObjectsHandler checks
@@ -1744,6 +2017,13 @@ class _Handler(BaseHTTPRequestHandler):
             action = "s3:DeleteObjectVersion" if vid else "s3:DeleteObject"
             if not self._check_action(action, bucket, key, account):
                 errs.append((key, "AccessDenied", "Access Denied."))
+                continue
+            # WORM guards a named version or unversioned data
+            try:
+                if vid or not (versioned or suspended):
+                    self._enforce_worm(bucket, key, vid)
+            except S3Error as e:
+                errs.append((key, e.err.code, e.err.message))
                 continue
             try:
                 # a named version is removed outright; an unqualified
@@ -1995,14 +2275,43 @@ class _Handler(BaseHTTPRequestHandler):
             info.etag, info.size, info.version_id,
         )
 
-    def _refuse_lock_and_tag_headers(self) -> None:
-        """PUT-time tagging (x-amz-tagging) and per-object lock headers
-        (checkPutObjectLockAllowed, cmd/object-handlers.go) are
-        slice 9c."""
-        if self.headers.get("x-amz-tagging"):
-            raise unported("object tagging", "9c")
-        if any(self.headers.get(h) for h in _LOCK_HEADERS):
-            raise unported("object lock", "9c")
+    def _put_lock_and_tag_meta(self, bucket: str, key: str) -> dict:
+        """PUT-time tagging + object-lock metadata
+        (checkPutObjectLockAllowed, cmd/object-handlers.go; the
+        x-amz-tagging header carries URL-encoded tags)."""
+        meta: dict = {}
+        tag_hdr = self.headers.get("x-amz-tagging", "")
+        if tag_hdr:
+            try:
+                tags = tagmod.from_header(tag_hdr)
+            except tagmod.TagError as e:
+                raise S3Error("InvalidTag", str(e)) from None
+            meta["x-amz-tagging"] = tagmod.encode(tags)
+        try:
+            lock_meta = olock.retention_meta_from_headers(
+                dict(self.headers.items())
+            )
+        except olock.ObjectLockError as e:
+            raise S3Error("ObjectLockInvalidHeaders", str(e)) from None
+        lock_xml = ""
+        try:
+            lock_xml = self.s3.bucket_meta.get(bucket).object_lock_xml
+        except Exception as exc:
+            _log.debug("bucket object-lock config read failed", extra=kv(err=str(exc)))
+        if lock_meta:
+            # explicit lock headers need the bucket to be lock-enabled
+            if not lock_xml:
+                raise S3Error("InvalidBucketObjectLockConfiguration")
+            meta.update(lock_meta)
+        elif lock_xml:
+            # no explicit headers: the bucket's default rule stamps
+            # every new version
+            try:
+                cfg = olock.ObjectLockConfig.from_xml(lock_xml.encode())
+                meta.update(cfg.default_retention_meta())
+            except olock.ObjectLockError:
+                pass
+        return meta
 
     def _collect_user_metadata(self) -> dict:
         meta = {}
@@ -2015,27 +2324,21 @@ class _Handler(BaseHTTPRequestHandler):
                 meta[lk] = v
         return meta
 
-    def _refuse_unported_put(self, bucket: str) -> None:
-        """The seams of the JAX package's PUT chain whose features are
-        not ported yet - quota, lock/tagging, replication and event
-        targets - each raising when the request or the destination
-        bucket's metadata document asks for it, and a no-op otherwise."""
-        self._refuse_bucket_config(bucket, *UNPORTED_BUCKET_CONFIG)
-        self._refuse_lock_and_tag_headers()
-
     def _checked_put(
         self, bucket, key, hreader, size, meta,
         versioned=False, event_name=None,
     ):
         """The PUT invariant chain of the JAX package's _checked_put -
-        size cap, quota, lock/tagging, replication, bucket-default or
-        requested SSE, events - shared by the S3 PUT and POST-policy
-        paths, with each seam of a feature not ported yet raising
-        (``_refuse_unported_put``), so a PUT stores what the JAX package
-        stores."""
+        size cap, quota, lock/tagging defaults, replication,
+        bucket-default or requested SSE, events - shared by the S3 PUT
+        and POST-policy paths; the replication and event-target seams
+        raise when the bucket's metadata document configures them, so a
+        PUT stores what the JAX package stores."""
         if size > MAX_OBJECT_SIZE:
             raise S3Error("EntityTooLarge")
-        self._refuse_unported_put(bucket)
+        self._refuse_bucket_config(bucket, *UNPORTED_BUCKET_CONFIG)
+        quotamod.enforce_put(self.s3, bucket, size)
+        meta.update(self._put_lock_and_tag_meta(bucket, key))
         sse = self._request_sse(bucket)
         # transparent compression (MINIO_TPU_COMPRESS) is decided inside
         # the object layer so POST-policy/multipart/copy share the seam
@@ -2258,11 +2561,11 @@ class _Handler(BaseHTTPRequestHandler):
     def _delete_object(self, bucket, key, query):
         version_id = query.get("versionId", [""])[0]
         versioned, suspended = self._versioning(bucket)
-        # WORM (object lock, slice 9c) guards deleting a concrete version
-        # or unversioned data; writing a delete marker on a versioned
-        # bucket is always allowed (bucket-object-lock.go:83)
+        # WORM: deleting a concrete version (or unversioned data) is
+        # subject to retention/legal hold; writing a delete marker on a
+        # versioned bucket is always allowed (bucket-object-lock.go:83)
         if version_id or not (versioned or suspended):
-            self._refuse_bucket_config(bucket, "object_lock_xml")
+            self._enforce_worm(bucket, key, version_id)
         self._refuse_bucket_config(bucket, "notification_xml")
         hdrs: dict = {}
         try:
@@ -2304,26 +2607,36 @@ class _Handler(BaseHTTPRequestHandler):
                 "InvalidRequest",
                 "self-copy requires x-amz-metadata-directive: REPLACE",
             )
-        # tags and lock settings of the new version are slice 9c
-        if self.headers.get("x-amz-tagging-directive"):
-            raise unported("object tagging", "9c")
-        self._refuse_unported_put(bucket)
+        self._refuse_bucket_config(bucket, *UNPORTED_BUCKET_CONFIG)
+        # destination-bucket lock defaults / explicit lock headers and
+        # REPLACE-directive tags stamp the new version
+        lock_tag = self._put_lock_and_tag_meta(bucket, key)
         # decrypt with the copy-source key, re-encrypt under the
         # destination's regime (request headers or bucket default)
-        _src_info, sse_src = self._copy_source_info_and_sse(
+        src_info, sse_src = self._copy_source_info_and_sse(
             src_bucket, src_key
         )
         sse_dst = self._request_sse(bucket)
+        # the quota applies to copies exactly like PUTs
+        quotamod.enforce_put(self.s3, bucket, src_info.size)
         meta = (
             self._collect_user_metadata()
             if directive == "REPLACE"
             else None
         )
+        if meta is not None:
+            meta.update(lock_tag)
         versioned, _ = self._versioning(bucket)
         info = self.s3.object_layer.copy_object(
             src_bucket, src_key, bucket, key, meta,
             versioned=versioned, sse_src=sse_src, sse=sse_dst,
         )
+        if meta is None and lock_tag:
+            # COPY directive keeps source metadata; lock stamps still
+            # apply to the fresh destination version
+            self.s3.object_layer.update_object_meta(
+                bucket, key, lock_tag, info.version_id
+            )
         hdrs = (
             {"x-amz-version-id": info.version_id}
             if info.version_id
@@ -2346,9 +2659,9 @@ class _Handler(BaseHTTPRequestHandler):
         # (checkPutObjectLockAllowed in NewMultipartUploadHandler), and
         # so does replication; SSE is sealed once per upload and the
         # object layer decides compression once per upload
-        self._refuse_bucket_config(bucket, "object_lock_xml", "replication_xml")
-        self._refuse_lock_and_tag_headers()
+        self._refuse_bucket_config(bucket, "replication_xml")
         meta = self._collect_user_metadata()
+        meta.update(self._put_lock_and_tag_meta(bucket, key))
         sse = self._request_sse(bucket)
         uid = self.s3.object_layer.new_multipart_upload(
             bucket, key, meta, sse
@@ -2383,8 +2696,7 @@ class _Handler(BaseHTTPRequestHandler):
         reader, size = self._open_body()
         if size > MAX_OBJECT_SIZE:
             raise S3Error("EntityTooLarge")
-        # a part passes the quota
-        self._refuse_bucket_config(bucket, "quota_json")
+        quotamod.enforce_put(self.s3, bucket, size)
         hreader = self._hash_reader(reader, size)
         # SSE-C uploads must present the key on every part
         # (PutObjectPartHandler re-derives the seal per part)
@@ -2438,7 +2750,7 @@ class _Handler(BaseHTTPRequestHandler):
         size = length if length >= 0 else src_info.size
         if size > MAX_OBJECT_SIZE:
             raise S3Error("EntityTooLarge")
-        self._refuse_bucket_config(bucket, "quota_json")
+        quotamod.enforce_put(self.s3, bucket, size)
         # the source decodes in a reader thread into a bounded pipe
         # while this thread encodes the part from it
         pi = streaming_copy(

@@ -59,11 +59,24 @@ def client_connection(
 
 
 # A pooled keep-alive connection idle this long is replaced before it is
-# reused.  A server may close an idle connection at any time (the async
-# plane does after MINIO_TPU_IDLE_TIMEOUT_S, 60 s by default), and a
-# request written into a connection the server is closing fails with no
-# sign of whether it ran - which a lock grant cannot retry.
+# reused, at most: the window shrinks to half the servers' idle timeout.
+# A server closes an idle connection after MINIO_TPU_IDLE_TIMEOUT_S (both
+# request planes; 60 s by default), and a request written into a
+# connection the server is closing fails with no sign of whether it ran
+# - which a lock grant cannot retry - or, from the JAX package's plane,
+# reads the 408 it wrote there as its answer.
 KEEPALIVE_REUSE_S = 15.0
+
+
+def keepalive_reuse_s() -> float:
+    """The reuse window: min(KEEPALIVE_REUSE_S, MINIO_TPU_IDLE_TIMEOUT_S
+    / 2).  The nodes of a cluster share their env, so the timeout read
+    here, as the async plane reads it, is the servers' own."""
+    try:
+        idle = float(os.environ.get("MINIO_TPU_IDLE_TIMEOUT_S") or 60.0)
+    except ValueError:
+        idle = 60.0
+    return min(KEEPALIVE_REUSE_S, idle / 2)
 
 
 def pooled_connection(
@@ -71,10 +84,10 @@ def pooled_connection(
 ) -> "http.client.HTTPConnection":
     """The calling thread's keep-alive connection, kept in
     ``local.conn``; a new one once the last has idled longer than
-    KEEPALIVE_REUSE_S."""
+    ``keepalive_reuse_s()``."""
     now = time.monotonic()
     c = getattr(local, "conn", None)
-    if c is not None and now - local.used > KEEPALIVE_REUSE_S:
+    if c is not None and now - local.used > keepalive_reuse_s():
         c.close()
         c = None
     if c is None:

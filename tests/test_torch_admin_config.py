@@ -32,6 +32,7 @@ import re
 import pytest
 
 from minio_tpu.codec import backend as jbackend
+from minio_tpu.crawler import crawler as jcrawler
 from minio_tpu.heal.background import HealQueue as JaxQueue
 from minio_tpu.heal.background import HealRoutine as JaxRoutine
 from minio_tpu.iam.sys import IAMSys as JaxIAM
@@ -39,6 +40,7 @@ from minio_tpu.server import __main__ as jmain
 from minio_tpu.server.http import S3Server as JaxServer
 from minio_tpu_torch.codec import backend as tbackend
 from minio_tpu_torch.config import ConfigError, ConfigSys
+from minio_tpu_torch.crawler import crawler as tcrawler
 from minio_tpu_torch.heal.background import HealQueue, HealRoutine
 from minio_tpu_torch.iam.sys import IAMSys
 from minio_tpu_torch.server import __main__ as tmain
@@ -319,6 +321,57 @@ def test_unported_admin_route_names_its_slice(servers, route):
     assert b"<Code>NotImplemented</Code>" in r.body
     slice_name = tadmin.UNPORTED[route][1]
     assert f"(slice {slice_name})".encode() in r.body
+
+
+# the routes slice 9c's first half and 9d's crawler serve, once refused:
+# (route, query, body), sent to both servers in this order with a data
+# crawler attached to each
+SERVED = [
+    (("GET", "get-bucket-quota"), {"bucket": "adm"}, b""),
+    (("PUT", "set-bucket-quota"), {"bucket": "adm"},
+     b'{"quota": 100000, "quotatype": "hard"}'),
+    (("GET", "datausage"), None, b""),
+    (("POST", "crawl"), None, b""),
+]
+
+
+@pytest.fixture(scope="module")
+def served(servers):
+    """Each served route's answer, then the quota read back, on both."""
+    out = {}
+    for kind, srv in servers.items():
+        cls = (jcrawler if kind == "jax" else tcrawler).DataCrawler
+        srv.crawler = cls(srv.object_layer, srv.bucket_meta, sleep_every=0)
+        try:
+            got = {r: _call(srv, *r, q, body) for r, q, body in SERVED}
+            got["quota_after"] = _call(srv, "GET", "get-bucket-quota",
+                                       {"bucket": "adm"})
+            got["usage_after"] = _call(srv, "GET", "datausage")
+        finally:
+            srv.crawler = None
+            _call(srv, "PUT", "set-bucket-quota", {"bucket": "adm"}, b"{}")
+        for key, (status, doc) in got.items():
+            if isinstance(doc, dict):
+                doc.pop("last_update_ns", None)
+        out[kind] = got
+    return out
+
+
+@pytest.mark.parametrize(
+    "route", [r for r, _q, _b in SERVED], ids=lambda r: f"{r[0]} {r[1]}")
+def test_served_admin_route_matches(served, route):
+    """Each route that answered NotImplemented before this slice now
+    answers as the JAX package's server does."""
+    assert served["port"][route] == served["jax"][route]
+    assert served["port"][route][0] == 200
+    if route == ("POST", "crawl"):
+        doc = served["port"][route][1]
+        assert doc["buckets"]["adm"]["objects"] == 3
+        assert served["port"]["usage_after"] == served["jax"]["usage_after"]
+        assert served["port"]["usage_after"][1] == doc
+    if route == ("PUT", "set-bucket-quota"):
+        assert served["port"]["quota_after"] == served["jax"][
+            "quota_after"] == (200, {"quota": 100000, "quotatype": "hard"})
 
 
 @pytest.mark.parametrize("value,ok", [

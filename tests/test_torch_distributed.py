@@ -253,7 +253,10 @@ def cluster(tmp_path, monkeypatch):
     h = ClusterHarness(tmp_path / "cl", nodes=2, drives_per_node=2,
                        env={"MINIO_TPU_SERVER_LOOPS": "2",
                             "MINIO_TPU_LOG_LEVEL": "warning",
-                            "PYTHONUNBUFFERED": "1"},
+                            "PYTHONUNBUFFERED": "1",
+                            # no background crawl heals a node's missed
+                            # writes before a test looks at them
+                            "MINIO_TPU_CRAWL_INTERVAL_S": "3600"},
                        format_timeout_s=60)
     h.start(timeout_s=120)
     yield h

@@ -133,6 +133,14 @@ def test_boot_serve_heal_and_sigterm(tmp_path):
         assert (r.status, doc["mode"], doc["count"]) == (200, "async", 2)
         r = c.request("GET", "/minio-tpu/admin/v1/storageinfo")
         assert json.loads(r.body)["zones"][0]["online"] == 4
+        # the data crawler runs in the server: a forced sweep counts the
+        # bucket, and datausage serves the snapshot it published
+        r = c.request("POST", "/minio-tpu/admin/v1/crawl")
+        usage = json.loads(r.body)
+        assert r.status == 200 and usage["buckets"]["bkt"]["objects"] == 4
+        assert usage["size_total"] == sum(len(v) for v in objs.values())
+        r = c.request("GET", "/minio-tpu/admin/v1/datausage")
+        assert json.loads(r.body) == usage
 
         # a drive replaced while the server runs: stamped back, healed
         before = _part_files(drives[1], "bkt")
@@ -155,6 +163,9 @@ def test_boot_serve_heal_and_sigterm(tmp_path):
             proc.kill()
             out, _ = proc.communicate()
     assert proc.returncode == 0, out
+    # the update tracker saved its journal at shutdown
+    assert any(os.path.exists(os.path.join(d, ".sys", "update-tracker.bin"))
+               for d in drives)
     lines = out.splitlines()
     assert f"minio-tpu listening at http://127.0.0.1:{port} (bootstrapping)" \
         in lines

@@ -6,8 +6,8 @@ JAX package's.
   route: every ported method of ``_METHODS`` answers the port's client
   as the JAX node answers (volatile fields - pids, times, endpoints,
   measured rates - compared by their keys); ``listenon``/``listenbuf``/
-  ``listenoff`` answer 501 naming slice 9c and ``cyclebloom`` 501 naming
-  slice 9d.
+  ``listenoff`` answer 501 naming slice 9c (``cyclebloom`` is held
+  against the JAX node in ``tests/test_torch_crawler.py``).
 * The port's ``PeerNotifier`` fans bucket-metadata, IAM and config
   changes out to both packages' nodes, and gathers their server infos
   and lock tables concurrently.
@@ -126,6 +126,8 @@ METHODS = [
     ("bghealstatus", None, None, SHAPE),
     ("backgroundhealstatus", None, None, SHAPE),
     ("signalservice", {"action": "bogus"}, None, EXACT),
+    # a node without an update tracker: {"ok": False} from both
+    ("cyclebloom", None, {"oldest": 0, "current": 1}, EXACT),
     ("verifyconfig", None, dict(FP), EXACT),
     ("verifyconfig_mismatch", None,
      tpeer.cluster_fingerprint(ARGS, "ak", "other"), EXACT),
@@ -190,7 +192,6 @@ def test_profiling_rpcs_answer_as_jax(nodes):
 
 @pytest.mark.parametrize("method,slice_name", [
     ("listenon", "9c"), ("listenbuf", "9c"), ("listenoff", "9c"),
-    ("cyclebloom", "9d"),
 ])
 def test_unported_methods_name_their_slice(nodes, method, slice_name):
     with pytest.raises(ConnectionError) as ei:

@@ -573,7 +573,7 @@ UNPORTED = [
     # the admin API itself is ported (tests/test_torch_admin_config.py);
     # its routes of unported features name their slices
     ("admin", "9d", lambda c: c.request(
-        "GET", "/minio-tpu/admin/v1/datausage")),
+        "POST", "/minio-tpu/admin/v1/heal-sequence")),
     ("web_rpc", "9c", lambda c: _raw(_ep(c), "POST", "/minio-tpu/webrpc")),
     ("console", "9c", lambda c: _raw(_ep(c), "GET", "/minio-tpu/console")),
     ("sts", "9c", lambda c: c.request(
@@ -581,37 +581,43 @@ UNPORTED = [
         headers={"content-type": "application/x-www-form-urlencoded"})),
     ("listen_notification", "9c", lambda c: c.request(
         "GET", "/bkt", query={"events": "s3:ObjectCreated:*"})),
-    ("object_tagging_get", "9c", lambda c: c.request(
-        "GET", "/bkt/obj", query={"tagging": ""})),
-    ("object_tagging_put", "9c", lambda c: c.request(
-        "PUT", "/bkt/obj", query={"tagging": ""}, body=b"<Tagging/>")),
-    ("object_tagging_delete", "9c", lambda c: c.request(
-        "DELETE", "/bkt/obj", query={"tagging": ""})),
-    ("tagging_header_put", "9c", lambda c: c.put_object(
-        "bkt", "tagged", b"x", headers={"x-amz-tagging": "a=b"})),
-    ("bucket_tagging", "9c", lambda c: c.request(
-        "GET", "/bkt", query={"tagging": ""})),
-    ("retention_get", "9c", lambda c: c.request(
-        "GET", "/bkt/obj", query={"retention": ""})),
-    ("legal_hold_put", "9c", lambda c: c.request(
-        "PUT", "/bkt/obj", query={"legal-hold": ""}, body=b"<LegalHold/>")),
-    ("lock_headers_put", "9c", lambda c: c.put_object(
-        "bkt", "locked", b"x", headers={
-            "x-amz-object-lock-legal-hold": "ON"})),
-    ("bucket_object_lock", "9c", lambda c: c.request(
-        "GET", "/bkt", query={"object-lock": ""})),
-    ("bucket_create_lock_enabled", "9c", lambda c: c.request(
-        "PUT", "/lockbkt", headers={
-            "x-amz-bucket-object-lock-enabled": "true"})),
-    ("bucket_lifecycle", "9c", lambda c: c.request(
-        "PUT", "/bkt", query={"lifecycle": ""}, body=b"<Lifecycle/>")),
     ("bucket_notification", "9c", lambda c: c.request(
         "GET", "/bkt", query={"notification": ""})),
     ("bucket_replication", "9c", lambda c: c.request(
         "GET", "/bkt", query={"replication": ""})),
-    ("object_acl", "9c", lambda c: c.request(
+]
+
+# the routes and headers slice 9c's first half serves, once refused
+# here: (name, expected status, request), sent to both servers in this
+# order (tests/test_torch_bucket_config_server.py covers each in depth)
+SERVED_9C = [
+    ("object_tagging_get", 200, lambda c: c.request(
+        "GET", "/bkt/obj", query={"tagging": ""})),
+    ("object_tagging_put", 200, lambda c: c.request(
+        "PUT", "/bkt/obj", query={"tagging": ""}, body=b"<Tagging/>")),
+    ("object_tagging_delete", 204, lambda c: c.request(
+        "DELETE", "/bkt/obj", query={"tagging": ""})),
+    ("tagging_header_put", 200, lambda c: c.put_object(
+        "bkt", "tagged", b"x", headers={"x-amz-tagging": "a=b"})),
+    ("bucket_tagging", 404, lambda c: c.request(
+        "GET", "/bkt", query={"tagging": ""})),
+    ("retention_get", 400, lambda c: c.request(
+        "GET", "/bkt/obj", query={"retention": ""})),
+    ("legal_hold_put", 400, lambda c: c.request(
+        "PUT", "/bkt/obj", query={"legal-hold": ""}, body=b"<LegalHold/>")),
+    ("lock_headers_put", 400, lambda c: c.put_object(
+        "bkt", "locked", b"x", headers={
+            "x-amz-object-lock-legal-hold": "ON"})),
+    ("bucket_object_lock", 404, lambda c: c.request(
+        "GET", "/bkt", query={"object-lock": ""})),
+    ("bucket_create_lock_enabled", 200, lambda c: c.request(
+        "PUT", "/lockbkt", headers={
+            "x-amz-bucket-object-lock-enabled": "true"})),
+    ("bucket_lifecycle", 400, lambda c: c.request(
+        "PUT", "/bkt", query={"lifecycle": ""}, body=b"<Lifecycle/>")),
+    ("object_acl", 200, lambda c: c.request(
         "GET", "/bkt/obj", query={"acl": ""})),
-    ("bucket_acl", "9c", lambda c: c.request(
+    ("bucket_acl", 200, lambda c: c.request(
         "PUT", "/bkt", query={"acl": ""})),
 ]
 
@@ -626,6 +632,19 @@ def test_unported_route_names_its_slice(port_server, name, slice_name,
     assert status == 501, body
     assert b"<Code>NotImplemented</Code>" in body
     assert f"(slice {slice_name})".encode() in body
+
+
+@pytest.mark.parametrize(
+    "name,status,send", SERVED_9C, ids=[u[0] for u in SERVED_9C]
+)
+def test_served_route_answers_as_the_reference(both_servers, name, status,
+                                               send):
+    """Each route of slice 9c's first half that answered NotImplemented
+    here before answers as the JAX package's server does."""
+    _srvs, clients = both_servers
+    got = {k: _normalize(_res(send(c))) for k, c in clients.items()}
+    assert got["port"] == got["jax"]
+    assert got["port"][0] == status, got["port"]
 
 
 @pytest.mark.parametrize(
@@ -646,6 +665,40 @@ def test_unported_bucket_config_refuses_put(port_server, field, slice_name):
     # nothing was written
     with pytest.raises(ObjectNotFound):
         srv.object_layer.get_object_info(bucket, "k")
+
+
+@pytest.mark.parametrize("field,value", [
+    ("object_lock_xml",
+     "<ObjectLockConfiguration><ObjectLockEnabled>Enabled"
+     "</ObjectLockEnabled><Rule><DefaultRetention><Mode>GOVERNANCE</Mode>"
+     "<Days>1</Days></DefaultRetention></Rule></ObjectLockConfiguration>"),
+    ("quota_json", '{"quota": 5, "quotatype": "hard"}'),
+])
+def test_served_bucket_config_applies_to_put(both_servers, field, value):
+    """A bucket document that sets a quota or object lock (as the admin
+    and bucket routes write it) takes PUTs again, as the JAX package's
+    does: the lock default stamps the version, the quota refuses a PUT
+    past it."""
+    srvs, clients = both_servers
+    bucket = "cfg-" + field.replace("_", "-")
+    got = {}
+    for kind, c in clients.items():
+        assert c.make_bucket(bucket).status == 200
+        srvs[kind].bucket_meta.update(bucket, **{field: value})
+        put = _normalize(_res(c.put_object(bucket, "k", b"payload")))
+        meta = {}
+        if put[0] == 200:
+            meta = srvs[kind].object_layer.get_object_info(
+                bucket, "k").user_defined
+        got[kind] = (put, sorted(meta))
+        srvs[kind].bucket_meta.update(bucket, **{field: ""})
+    assert got["port"] == got["jax"]
+    if field == "quota_json":
+        assert got["port"][0][0] == 400
+        assert b"XMinioAdminBucketQuotaExceeded" in got["port"][0][2]
+    else:
+        assert got["port"][0][0] == 200
+        assert "x-amz-object-lock-mode" in got["port"][1]
 
 
 # -- slice 8's routes, once refused, held against the JAX package ----------
@@ -767,15 +820,16 @@ def test_bucket_default_encryption_is_stored_sealed(both_servers):
 
 
 @pytest.mark.parametrize("field,versioned,status", [
-    ("object_lock_xml", False, 501),
+    ("object_lock_xml", False, 204),
     ("object_lock_xml", True, 204),
     ("notification_xml", False, 501),
     ("replication_xml", False, 204),
 ])
 def test_delete_seams(port_server, field, versioned, status):
     """DELETE consults what the JAX package's DELETE consults: object
-    lock where it guards the data (not for a delete marker) and the
-    event rules; replication does not touch a DELETE there either."""
+    lock where it guards the data (not for a delete marker; a version
+    without retention or legal hold goes) and the event rules;
+    replication does not touch a DELETE there either."""
     srv, c = port_server
     bucket = f"del-{field.split('_')[0]}-{int(versioned)}"
     assert c.make_bucket(bucket).status == 200

@@ -624,34 +624,51 @@ def test_sse_seams_answer_as_the_reference(sse_servers, name, status, send):
         assert got["port"][1]["x-amz-server-side-encryption"] == "AES256"
 
 
-@pytest.mark.parametrize("name,slice_name,send", [
-    ("copy_tagging_directive", "9c", lambda c: c.put_object(
+# slice 9c's seams on copies and uploads, refused before: (name,
+# expected status, request), sent to a JAX and a port server alike
+TAG_LOCK_SEAMS = [
+    ("copy_tagging_directive", 200, lambda c: c.put_object(
         "bkt", "c", b"", headers={"x-amz-copy-source": "/bkt/obj",
                                   "x-amz-tagging-directive": "REPLACE"})),
-    ("copy_tagging", "9c", lambda c: c.put_object(
+    ("copy_tagging", 200, lambda c: c.put_object(
         "bkt", "c", b"", headers={"x-amz-copy-source": "/bkt/obj",
                                   "x-amz-tagging": "a=b"})),
-    ("copy_legal_hold", "9c", lambda c: c.put_object(
+    ("copy_legal_hold", 400, lambda c: c.put_object(
         "bkt", "c", b"", headers={"x-amz-copy-source": "/bkt/obj",
                                   "x-amz-object-lock-legal-hold": "ON"})),
-    ("initiate_tagging", "9c", lambda c: c.request(
+    ("initiate_tagging", 200, lambda c: c.request(
         "POST", "/bkt/m", query={"uploads": ""},
         headers={"x-amz-tagging": "a=b"})),
-    ("initiate_retention", "9c", lambda c: c.request(
+    ("initiate_retention", 400, lambda c: c.request(
         "POST", "/bkt/m", query={"uploads": ""},
         headers={"x-amz-object-lock-mode": "GOVERNANCE"})),
-], ids=lambda v: v if isinstance(v, str) else "")
-def test_seams_name_their_slice(port_server, monkeypatch, name, slice_name,
-                                send):
-    srv, c = port_server
-    assert c.put_object("bkt", "obj", b"hello").status == 200
-    status, _h, body = _res(send(c))
-    assert status == 501, body
-    assert f"(slice {slice_name})".encode() in body
+]
+
+
+@pytest.mark.parametrize("name,status,send", TAG_LOCK_SEAMS,
+                         ids=[u[0] for u in TAG_LOCK_SEAMS])
+def test_tag_and_lock_seams_answer_as_the_reference(sse_servers, name,
+                                                    status, send):
+    """Tags and lock headers on a copy or an initiated upload answer as
+    the JAX package's server answers them: tags stamp the new version,
+    lock headers on a bucket without object lock are refused."""
+    _srvs, clients = sse_servers
+    got = {}
+    for kind, c in clients.items():
+        st, hdrs, body = _normalize(_res(send(c)))
+        body = re.sub(rb"<UploadId>[^<]+</UploadId>", b"<UploadId/>", body)
+        got[kind] = (st, hdrs, body)
+    assert got["port"] == got["jax"]
+    assert got["port"][0] == status, got["port"]
+    if name == "copy_tagging":
+        tags = {k: c.request("GET", "/bkt/c", query={"tagging": ""}).body
+                for k, c in clients.items()}
+        assert tags["port"] == tags["jax"]
+        assert b"<Key>a</Key><Value>b</Value>" in tags["port"]
 
 
 @pytest.mark.parametrize("field", [
-    "replication_xml", "quota_json", "object_lock_xml", "notification_xml",
+    "replication_xml", "notification_xml",
 ])
 def test_copy_and_multipart_refuse_unported_bucket_config(port_server, field):
     """A destination bucket whose document configures an unported
@@ -675,14 +692,47 @@ def test_copy_and_multipart_refuse_unported_bucket_config(port_server, field):
         "notification_xml": lambda: c.request(
             "POST", f"/{bucket}/m", query={"uploadId": uid},
             body=_xml([(1, _md5(b"p"))])),
-        "quota_json": lambda: c.request(
-            "PUT", f"/{bucket}/m",
-            query={"partNumber": "2", "uploadId": uid}, body=b"p"),
-        "object_lock_xml": lambda: c.request(
-            "POST", f"/{bucket}/m2", query={"uploads": ""}),
     }[field]()
     assert route.status == 501 and b"(slice 9c)" in route.body
     srv.bucket_meta.update(bucket, **{field: ""})
+
+
+@pytest.mark.parametrize("field,value", [
+    ("quota_json", '{"quota": 3, "quotatype": "hard"}'),
+    ("object_lock_xml",
+     "<ObjectLockConfiguration><ObjectLockEnabled>Enabled"
+     "</ObjectLockEnabled><Rule><DefaultRetention><Mode>COMPLIANCE</Mode>"
+     "<Years>1</Years></DefaultRetention></Rule></ObjectLockConfiguration>"),
+])
+def test_copy_and_multipart_apply_bucket_config(sse_servers, field, value):
+    """A destination bucket that sets a quota or object lock applies it
+    to a copy and to the multipart routes, as the JAX package does: the
+    quota refuses the copy and the part, the lock default stamps the
+    copy and the completed upload."""
+    srvs, clients = sse_servers
+    bucket = "mpcfg-" + field.split("_")[0]
+    got = {}
+    for kind, c in clients.items():
+        assert c.make_bucket(bucket).status == 200
+        uid = _uid(c.request("POST", f"/{bucket}/m", query={"uploads": ""}))
+        srvs[kind].bucket_meta.update(bucket, **{field: value})
+        copy = c.put_object(bucket, "c", b"", headers={
+            "x-amz-copy-source": "/bkt/obj"})
+        part = c.request("PUT", f"/{bucket}/m",
+                         query={"partNumber": "1", "uploadId": uid},
+                         body=b"part")
+        uid2 = _uid(c.request("POST", f"/{bucket}/m2",
+                              query={"uploads": ""}))
+        ret = c.request("GET", f"/{bucket}/c", query={"retention": ""})
+        got[kind] = [_normalize(_res(r))[:1] + (r.error_code,)
+                     for r in (copy, part, ret)] + [bool(uid2)]
+        srvs[kind].bucket_meta.update(bucket, **{field: ""})
+    assert got["port"] == got["jax"]
+    if field == "quota_json":
+        assert got["port"][0] == (400, "XMinioAdminBucketQuotaExceeded")
+        assert got["port"][1] == (400, "XMinioAdminBucketQuotaExceeded")
+    else:
+        assert got["port"][0][0] == 200 and got["port"][2][0] == 200
 
 
 def test_multi_delete_and_post_policy_events_seam(port_server):
