@@ -237,9 +237,34 @@
    on all 16 drives to the plain codec's; every acknowledged object read
    back from every node; SIGTERM, each node exits 0.  Each node's kernel
    launches come from its admin ``kernel-stats`` (K5 on every node's PUTs,
-   K2 on its GETs, K6 and K1 ``group=0`` on the heal).  Prints the
-   ``cluster:`` line; ``phases_s`` gains ``cluster``.
-12. Prints the kernels JSON line, the card's name and power limit, and as
+   K2 on its GETs, K6 and K1 ``group=0`` on the heal).  Node 1 heals
+   once it counts all 16 drives online (admin ``storageinfo``) with every
+   breaker closed (the harness's ``disk_states``): a drive that went down
+   is probed again only every few seconds.  Prints the ``cluster:`` line;
+   ``phases_s`` gains ``cluster``.
+12. Heal sequences (``heal_seq_phase``, slice 9d, after ``bucket_config``):
+   the S3 phase's deployment (S3Server, threaded plane, 12 disks, EC 8+4);
+   16 x 64 MiB objects, two drives' payload wiped (``.sys`` kept); a dry
+   run reports all 16 and writes nothing; ``POST heal-sequence`` polled by
+   client token until ``finished``: every part file and xl.meta equal to
+   before the wipe, 16 healed, the bucket and each object popped once,
+   HealAlreadyRunning, HealOverlappingPaths and HealInvalidClientToken
+   while it runs, K6 and K1 ``group=0`` launched; a third drive wiped,
+   ``heal-sequence/stop`` in mid-walk ends ``stopped`` and a forceStart
+   launch heals the rest.  Prints the ``heal_seq:`` line.
+13. Federation (``federation_phase``, slice 9d, after ``cluster``): two
+   ``python -m minio_tpu_torch.server`` processes on the card, 12 drives
+   each, sharing MINIO_TPU_FEDERATION_DIR; B answers 307 to A for A's
+   bucket (round trip timed), 4 clients PUT (Expect: 100-continue) and GET
+   4 x 64 MiB through the redirect (K5 and K2 on A, nothing on B), racing
+   creates give one 200 and one BucketAlreadyExists, ListBuckets is the
+   union, a DELETE frees the name for B.  Prints the ``federation:`` line.
+14. The chaos grid (``grid_phase``, slice 9d): the first four of the
+   nine cells of ``GRID_ORDER`` (``GRID_RUN``) on 3-node clusters on the
+   card with the JAX grid's invariants, each node's launches from its ``kernel-stats``;
+   ``replication_lag_churn`` refuses naming slice 9c.  Prints a ``grid
+   <cell>:`` line per cell and the ``grid:`` line.
+15. Prints the kernels JSON line, the card's name and power limit, and as
    the last line ``{"ok": true, "device": {...}}``.
 
 Exits non-zero, without the result lines, when there is no CUDA device or
@@ -3240,10 +3265,13 @@ def _wipe_drive(root: str) -> None:
 class _BootedServer:
     """``python -m minio_tpu_torch.server`` in a process of its own (never
     a fork of this one, which holds a CUDA context); its output goes to a
-    log file read back at the end."""
+    log file read back at the end.  ``drives`` is the drive argument (the
+    boot phase's 24 by default); ``what`` names the phase in failures."""
 
-    def __init__(self, work: str, port: int, env: dict, tag: str):
+    def __init__(self, work: str, port: int, env: dict, tag: str,
+                 drives: "str | None" = None, what: str = "boot phase"):
         self.port = port
+        self.what = what
         self.log_path = os.path.join(work, f"server-{tag}.log")
         self._log = open(self.log_path, "w")
         here = os.path.dirname(os.path.abspath(__file__))
@@ -3251,7 +3279,7 @@ class _BootedServer:
         self.proc = subprocess.Popen(
             [sys.executable, "-m", "minio_tpu_torch.server", "--parity",
              str(M), "--address", f"127.0.0.1:{port}",
-             os.path.join(work, "boot", BOOT_SPEC)],
+             drives or os.path.join(work, "boot", BOOT_SPEC)],
             cwd=here, env=env, stdout=self._log, stderr=subprocess.STDOUT)
 
     def wait_ready(self) -> float:
@@ -3261,7 +3289,7 @@ class _BootedServer:
         deadline = self.t_spawn + BOOT_READY_S
         while time.monotonic() < deadline:
             if self.proc.poll() is not None:
-                fail(f"boot phase: the server exited {self.proc.returncode}: "
+                fail(f"{self.what}: the server exited {self.proc.returncode}: "
                      f"{self.output()[-2000:]}")
             try:
                 conn = http.client.HTTPConnection("127.0.0.1", self.port,
@@ -3274,7 +3302,7 @@ class _BootedServer:
             except OSError:
                 pass
             time.sleep(0.05)
-        fail(f"boot phase: not ready within {BOOT_READY_S} s")
+        fail(f"{self.what}: not ready within {BOOT_READY_S} s")
 
     def output(self) -> str:
         self._log.flush()
@@ -3291,11 +3319,11 @@ class _BootedServer:
             rc = self.proc.wait(timeout=120)
         except subprocess.TimeoutExpired:
             self.kill()
-            fail("boot phase: the server did not exit on SIGTERM")
+            fail(f"{self.what}: the server did not exit on SIGTERM")
         took = time.monotonic() - t0
         out = self.output()
         if rc != 0 or "shutdown complete" not in out.splitlines()[-1:]:
-            fail(f"boot phase: SIGTERM exit {rc}: {out[-2000:]}")
+            fail(f"{self.what}: SIGTERM exit {rc}: {out[-2000:]}")
         return took
 
     def kill(self) -> None:
@@ -5177,6 +5205,21 @@ def cluster_phase(work: str, backend: "str | None" = None) -> dict:
         t_spawn = {3: time.monotonic()}
         h.spawn(3)
         restart_s = wait_ready([3], t_spawn)[3]
+        # node 1 probes a drive that went down again only every few
+        # seconds: heal once it counts all 16 drives online, breakers closed
+        t0 = time.monotonic()
+        while True:
+            si = admin(0, "GET", "storageinfo")
+            online = sum(st["online"] for z in si["zones"] for st in z["sets"])
+            states = h.disk_states(0)
+            if (online == len(roots) and len(states) == len(roots)
+                    and not any(states.values())):
+                break
+            if time.monotonic() - t0 > 60:
+                fail(f"cluster: node 1 sees {online} of {len(roots)} drives "
+                     f"online 60 s after node 4's restart; breakers {states}")
+            time.sleep(0.1)
+        reprobe_s = time.monotonic() - t0
         l5 = launches([0])
         t0 = time.monotonic()
         healed = {}
@@ -5236,6 +5279,7 @@ def cluster_phase(work: str, backend: "str | None" = None) -> dict:
             "node1_device_hits": rc1["tiers"]["device"]["hits"]
             - rc0["tiers"]["device"]["hits"]},
         "restart_ready_s": restart_s,
+        "restart_to_all_online_s": reprobe_s,
         "heal": {"objects": len(down_objs), "s": heal_s, "healed": healed,
                  "launches": heal_l},
         "launches": {"put": put_l, "get": get_l, "node_down_get": down_l,
@@ -5244,6 +5288,543 @@ def cluster_phase(work: str, backend: "str | None" = None) -> dict:
                                                  "demotions", "verify_drops")},
         "sigterm_s": sigterm_s,
     })
+    return out
+
+
+# -- phase 12: resumable heal sequences (slice 9d) --------------------------
+
+HS_OBJECTS = 16  # objects of S3_BIG: 1 GiB
+HS_WIPED = (2, 9)  # drives whose payload is wiped, .sys kept
+HS_RESTART_WIPED = (5,)  # wiped again before the stop / force-start round
+HS_BUCKET = "healseq"
+HS_POLL_S = 0.25
+
+
+def _wipe_payload(root: str) -> None:
+    """A replaced drive that kept its format: everything but .sys goes."""
+    for entry in os.listdir(root):
+        if entry != ".sys":
+            shutil.rmtree(os.path.join(root, entry), ignore_errors=True)
+
+
+def _nonzero(counts: dict) -> dict:
+    return {k: v for k, v in counts.items() if v}
+
+
+def _admin_error(body: bytes) -> str:
+    codes = _xml_text(body, "Code")
+    return codes[0] if codes else body[:200].decode(errors="replace")
+
+
+def heal_seq_phase(dev, work: str, heal_object_MBps: float) -> dict:
+    """Phase 12 (slice 9d): admin heal sequences on the S3 phase's
+    deployment - the port's S3Server (threaded plane) over 12 disks at EC
+    8+4 with 10 MiB blocks on the card, SigV4 admin calls.  16 x 64 MiB
+    objects, two drives' payload wiped (``.sys`` kept); a dry run reports
+    without writing; a sequence launched over the bucket and polled by its
+    client token heals every object back to byte-equal part files and
+    xl.meta, answering HealAlreadyRunning, HealOverlappingPaths and
+    HealInvalidClientToken while it runs; then a third drive wiped, the
+    sequence stopped in mid-walk and a forceStart launch healing the rest.
+    ``heal_object_MBps`` is this run's heal phase rate, printed beside."""
+    import json as _json
+
+    import numpy as np
+
+    from minio_tpu_torch.objectlayer.erasure_object import ErasureObjects
+    from minio_tpu_torch.ops import kernels
+    from minio_tpu_torch.server.http import S3Server
+    from minio_tpu_torch.storage.xl import XLStorage
+
+    roots = [os.path.join(work, f"hsdisk{i}") for i in range(N)]
+    ol = ErasureObjects([XLStorage(r) for r in roots], parity_blocks=M,
+                        block_size=BLOCK, device=dev)
+    srv = S3Server(ol, address="127.0.0.1:0").start()
+    if srv.server_mode != "threaded":
+        fail(f"heal_seq: server plane {srv.server_mode}")
+    host, port = srv.host, srv.port
+    rng = np.random.default_rng(SEED + 22)
+    objs = {f"o{j:02d}": rng.bytes(S3_BIG) for j in range(HS_OBJECTS)}
+    nbytes = sum(len(v) for v in objs.values())
+    bkt = HS_BUCKET
+    one = S3Signer(host, port)
+    out: dict = {"objects": HS_OBJECTS, "bytes": nbytes,
+                 "wiped_drives": list(HS_WIPED)}
+
+    def admin(tail: str, query: dict, want: int = 200):
+        st, _h, body = one.request("POST", f"{ADMIN}/{tail}", query)
+        if st != want:
+            fail(f"heal_seq: admin {tail} {query}: {st} {body[:300]!r}")
+        return _json.loads(body) if st == 200 else _admin_error(body)
+
+    def files() -> list:
+        return [_drive_files(r, bkt) for r in roots]
+
+    def poll(path_q: dict, token: str, until=("finished",)) -> "tuple":
+        """Poll until the status leaves running; (last doc, every item)."""
+        items = []
+        deadline = time.monotonic() + 600
+        while True:
+            doc = admin("heal-sequence", {**path_q, "clientToken": token})
+            items.extend(doc["items"])
+            if doc["status"] != "running":
+                break
+            if time.monotonic() > deadline:
+                fail(f"heal_seq: sequence still running after 600 s: {doc}")
+            time.sleep(HS_POLL_S)
+        if doc["status"] not in until:
+            fail(f"heal_seq: sequence ended {doc['status']}: {doc}")
+        return doc, items
+
+    def object_items(items) -> list:
+        return sorted(i.get("object", "") for i in items
+                      if i["type"] == "object")
+
+    try:
+        st, _h, body = one.request("PUT", f"/{bkt}")
+        if st != 200:
+            fail(f"heal_seq: bucket create {st} {body[:200]!r}")
+        kernels.reset_launches()
+        keys = sorted(objs)
+
+        def put(s, k):
+            st, _h, body = s.request("PUT", f"/{bkt}/{k}", body=objs[k])
+            if st != 200:
+                fail(f"heal_seq: PUT {k}: {st} {body[:200]!r}")
+
+        put_s, _ = _in_clients(host, port, [keys[c::S3_CLIENTS]
+                                            for c in range(S3_CLIENTS)], put)
+        out["put"] = {"s": put_s, "MBps": nbytes / put_s / 1e6,
+                      "launches": _nonzero(kernels.LAUNCHES)}
+        before = files()
+        if any(len(f) != 2 * HS_OBJECTS for f in before):
+            fail("heal_seq: a drive does not hold xl.meta and part.1 of "
+                 "every object")
+        for d in HS_WIPED:
+            _wipe_payload(roots[d])
+
+        # -- a dry run reports every object and writes nothing -------------
+        t0 = time.monotonic()
+        tok = admin("heal-sequence", {"bucket": bkt, "dryRun": "true"})[
+            "client_token"]
+        doc, items = poll({"bucket": bkt}, tok)
+        dry_s = time.monotonic() - t0
+        if (doc["scanned"], doc["healed"], doc["failed"]) != (HS_OBJECTS,
+                                                             HS_OBJECTS, 0):
+            fail(f"heal_seq: dry run counted {doc}")
+        outdated = {i["object"]: i["outdated"] for i in items
+                    if i["type"] == "object"}
+        if sorted(outdated) != keys or any(len(v) != len(HS_WIPED)
+                                           for v in outdated.values()):
+            fail(f"heal_seq: dry run reported {outdated}")
+        if any(os.listdir(roots[d]) != [".sys"] for d in HS_WIPED):
+            fail("heal_seq: the dry run wrote onto a wiped drive")
+        out["dry_run"] = {"s": dry_s, "reported": doc["healed"]}
+
+        # -- the sequence, timed; the refusals while it runs -----------------
+        kernels.reset_launches()
+        t0 = time.monotonic()
+        launch = admin("heal-sequence", {"bucket": bkt})
+        tok = launch["client_token"]
+        refusals = {
+            "again": admin("heal-sequence", {"bucket": bkt}, 400),
+            "overlap": admin("heal-sequence", {"bucket": bkt,
+                                               "prefix": "o0"}, 400),
+            "bad_token": admin("heal-sequence", {"bucket": bkt,
+                                                 "clientToken": "0" * 32}, 400),
+        }
+        doc, items = poll({"bucket": bkt}, tok)
+        seq_s = time.monotonic() - t0
+        seq_launches = _nonzero(kernels.LAUNCHES)
+        if refusals != {"again": "XMinioHealAlreadyRunning",
+                        "overlap": "XMinioHealOverlappingPaths",
+                        "bad_token": "XMinioHealInvalidClientToken"}:
+            fail(f"heal_seq: refusals while running {refusals}")
+        if (doc["scanned"], doc["healed"], doc["failed"]) != (HS_OBJECTS,
+                                                             HS_OBJECTS, 0):
+            fail(f"heal_seq: sequence counted {doc}")
+        if [i["type"] for i in items].count("bucket") != 1 or \
+                object_items(items) != keys:
+            fail(f"heal_seq: popped items {[(i['type'], i.get('object')) for i in items]}")
+        if any(i["healed"] != i["outdated"] or len(i["healed"]) != len(HS_WIPED)
+               for i in items if i["type"] == "object"):
+            fail("heal_seq: an item healed other shards than were lost")
+        if files() != before:
+            fail("heal_seq: part files or xl.meta differ from before the wipe")
+        for name in ("verify_reconstruct_pipelined", "encode_pack[group=0]"):
+            if seq_launches.get(name, 0) <= 0:
+                fail(f"heal_seq: {name} never launched in the sequence")
+        out["sequence"] = {
+            "s": seq_s, "MBps": nbytes / seq_s / 1e6,
+            "heal_object_MBps_this_run": heal_object_MBps,
+            "scanned": doc["scanned"], "healed": doc["healed"],
+            "items": len(items), "refusals": refusals,
+            "launches": seq_launches}
+
+        # -- stop in mid-walk, then forceStart heals the rest ----------------
+        for d in HS_RESTART_WIPED:
+            _wipe_payload(roots[d])
+        tok = admin("heal-sequence", {"bucket": bkt})["client_token"]
+        while True:
+            doc = admin("heal-sequence", {"bucket": bkt, "clientToken": tok})
+            if doc["scanned"] >= 2 or doc["status"] != "running":
+                break
+            time.sleep(0.05)
+        stop = admin("heal-sequence/stop", {"bucket": bkt})
+        doc, _items = poll({"bucket": bkt}, tok, until=("stopped",))
+        first = doc["healed"]
+        if stop["status"] != "stopping" or not 0 < first < HS_OBJECTS:
+            fail(f"heal_seq: stop answered {stop}, then healed {first}")
+        tok = admin("heal-sequence", {"bucket": bkt, "forceStart": "true"})[
+            "client_token"]
+        doc, _items = poll({"bucket": bkt}, tok)
+        if doc["healed"] != HS_OBJECTS - first:
+            fail(f"heal_seq: forceStart healed {doc['healed']} after the stop "
+                 f"healed {first}")
+        if files() != before:
+            fail("heal_seq: files differ after the stopped and forced sequences")
+        out["stop_force"] = {"stopped_after": first,
+                             "force_start_healed": doc["healed"]}
+    finally:
+        one.close()
+        srv.shutdown()
+        for r in roots:
+            shutil.rmtree(r, ignore_errors=True)
+    return out
+
+
+# -- phase 13: bucket federation (slice 9d) -----------------------------------
+
+FED_DRIVES = "disk{1...12}"  # per server: one EC 8+4 set
+FED_OBJECTS = 4  # of S3_BIG, PUT and read back through the redirect
+FED_RACES = 4  # rounds of both servers creating one name at once
+FED_RTT_REPS = 20
+
+
+def _read_head(f) -> "tuple[int, dict]":
+    line = f.readline()
+    parts = line.split(None, 2)
+    if len(parts) < 2:
+        raise OSError(f"bad status line {line!r}")
+    headers = {}
+    while True:
+        h = f.readline()
+        if h in (b"\r\n", b"\n", b""):
+            break
+        k, _, v = h.decode("latin-1").partition(":")
+        headers[k.strip().lower()] = v.strip()
+    return int(parts[1]), headers
+
+
+def put_expect(signer: "S3Signer", path: str, body: bytes,
+               payload_hash: str) -> "tuple[int, dict, bytes]":
+    """A signed PUT with ``Expect: 100-continue``, as S3 SDKs send one:
+    the body follows only a 100 Continue, so a 307 to another server
+    costs the headers alone.  (status, headers, body) of the final
+    response, on a connection of its own."""
+    import socket
+    import urllib.parse
+
+    headers = {"host": f"{signer.host}:{signer.port}",
+               "x-amz-date": signer._now(),
+               "x-amz-content-sha256": payload_hash}
+    signer._sign("PUT", path, None, headers, payload_hash)
+    headers["content-length"] = str(len(body))
+    headers["expect"] = "100-continue"
+    s = socket.create_connection((signer.host, signer.port), timeout=600)
+    try:
+        s.sendall((f"PUT {urllib.parse.quote(path)} HTTP/1.1\r\n" + "".join(
+            f"{k}: {v}\r\n" for k, v in headers.items()) + "\r\n").encode())
+        f = s.makefile("rb")
+        status, hdrs = _read_head(f)
+        if status == 100:
+            s.sendall(body)
+            status, hdrs = _read_head(f)
+        n = int(hdrs.get("content-length") or 0)
+        return status, hdrs, f.read(n) if n else b""
+    finally:
+        s.close()
+
+
+def federation_phase(work: str, backend: "str | None" = None) -> dict:
+    """Phase 13 (slice 9d): two ``python -m minio_tpu_torch.server
+    --parity 4`` processes on the card, each over 12 drives of its own
+    (one EC 8+4 set, 10 MiB blocks) on the async plane, sharing one
+    MINIO_TPU_FEDERATION_DIR: the shared etcd of MinIO's bucket-lookup
+    federation guide (docs/federation/lookup).  A bucket made on A is
+    answered 307 to A by B; clients that follow the redirect (PUTs with
+    Expect: 100-continue) write 4 x 64 MiB through B and read them back;
+    both servers creating one name at once give one 200 and one
+    BucketAlreadyExists; ListBuckets is the union on both; a DELETE
+    frees the name for B.  ``backend`` sets MINIO_ERASURE_BACKEND for a
+    rehearsal on the CPU."""
+    import hashlib
+    import json as _json
+    import threading
+    import urllib.parse
+
+    import numpy as np
+
+    fed_dir = os.path.join(work, "federation")
+    env = {k: v for k, v in os.environ.items()
+           if k not in ("MINIO_TPU_SERVER", "MINIO_ERASURE_BACKEND")}
+    env["MINIO_TPU_LOG_LEVEL"] = "warning"
+    env["MINIO_TPU_FEDERATION_DIR"] = fed_dir
+    if backend is not None:
+        env["MINIO_ERASURE_BACKEND"] = backend
+    rng = np.random.default_rng(SEED + 23)
+    objs = {f"big{j}": rng.bytes(S3_BIG) for j in range(FED_OBJECTS)}
+    sha = {k: hashlib.sha256(v).hexdigest() for k, v in objs.items()}
+    nbytes = sum(len(v) for v in objs.values())
+    out: dict = {"servers": 2, "drives_each": N}
+    servers: list = []
+
+    def signer(i: int) -> S3Signer:
+        return S3Signer("127.0.0.1", servers[i].port)
+
+    def call(i: int, method: str, path: str, query=None):
+        s = signer(i)
+        try:
+            return s.request(method, path, query)
+        finally:
+            s.close()
+
+    def launches(i: int) -> dict:
+        st, _h, body = call(i, "GET", f"{ADMIN}/kernel-stats")
+        if st != 200:
+            fail(f"federation: kernel-stats on server {i}: {st}")
+        return _json.loads(body)["launches"]
+
+    def follow(s: S3Signer, method: str, path: str, data: bytes = b""):
+        """One request through ``s``, and to the Location of its 307."""
+        if method == "PUT":
+            st, h, body = put_expect(s, path, data, sha[path.rsplit("/", 1)[1]])
+        else:
+            st, h, body = s.request(method, path)
+        if st != 307:
+            fail(f"federation: {method} {path} on {s.port}: {st}, not 307")
+        loc = urllib.parse.urlsplit(h["location"])
+        owner = S3Signer(loc.hostname, loc.port)
+        try:
+            if method == "PUT":
+                st, h, body = put_expect(owner, loc.path, data,
+                                         sha[path.rsplit("/", 1)[1]])
+            else:
+                st, h, body = owner.request(method, loc.path)
+        finally:
+            owner.close()
+        return st, body, f"{loc.hostname}:{loc.port}"
+
+    def bucket_names(i: int) -> list:
+        st, _h, body = call(i, "GET", "/")
+        if st != 200:
+            fail(f"federation: ListBuckets on server {i}: {st}")
+        return _xml_text(body, "Name")
+
+    t_phase = time.monotonic()
+    try:
+        for tag in ("a", "b"):
+            servers.append(_BootedServer(
+                work, _free_port(), env, f"fed-{tag}", what="federation",
+                drives=os.path.join(work, f"fed-{tag}", FED_DRIVES)))
+        out["spawn_to_ready_s"] = [srv.wait_ready() for srv in servers]
+        a_ep = f"127.0.0.1:{servers[0].port}"
+        for srv in servers:
+            if "federation: bucket DNS at" not in srv.output():
+                fail(f"federation: a server did not federate: {srv.output()[-1000:]}")
+
+        # -- a bucket of A: B answers 307 to A -------------------------------
+        st, _h, body = call(0, "PUT", "/fed-a")
+        if st != 200:
+            fail(f"federation: create on A {st} {body[:200]!r}")
+        rtt = []
+        s = signer(1)
+        try:
+            for _ in range(FED_RTT_REPS):
+                t0 = time.monotonic()
+                st, h, _b = s.request("GET", "/fed-a/big0")
+                rtt.append((time.monotonic() - t0) * 1e3)
+                if st != 307 or h.get("location") != f"http://{a_ep}/fed-a/big0":
+                    fail(f"federation: B answered {st} {h.get('location')}")
+        finally:
+            s.close()
+        out["redirect_ms"] = {"median": sorted(rtt)[len(rtt) // 2],
+                              "min": min(rtt), "max": max(rtt)}
+        la0, lb0 = launches(0), launches(1)
+        keys = sorted(objs)
+        b_port = servers[1].port
+        put_s, owners = _in_clients("127.0.0.1", b_port, [[k] for k in keys],
+                                    lambda s, k: follow(s, "PUT", f"/fed-a/{k}",
+                                                        objs[k]))
+        la1 = launches(0)
+        if any(st != 200 or ep != a_ep for st, _b, ep in owners):
+            fail(f"federation: PUTs through the redirect {[(st, ep) for st, _b, ep in owners]}")
+        get_s, got = _in_clients("127.0.0.1", b_port, [[k] for k in keys],
+                                 lambda s, k: follow(s, "GET", f"/fed-a/{k}"))
+        la2, lb2 = launches(0), launches(1)
+        for k, (st, body, ep) in zip(keys, got):
+            if st != 200 or hashlib.sha256(body).hexdigest() != sha[k]:
+                fail(f"federation: GET {k} through the redirect: {st}, differs")
+        put_l = {k: la1[k] - la0.get(k, 0) for k in la1 if la1[k] != la0.get(k, 0)}
+        get_l = {k: la2[k] - la1.get(k, 0) for k in la2 if la2[k] != la1.get(k, 0)}
+        if not put_l.get("encode_pack_pipelined") or not get_l.get("phash256_batched"):
+            fail(f"federation: K5/K2 did not launch on the owner: {put_l} {get_l}")
+        if lb2 != lb0:
+            fail("federation: the redirecting server launched kernels")
+        out["put_through_redirect"] = {"bytes": nbytes, "s": put_s,
+                                       "MBps": nbytes / put_s / 1e6,
+                                       "owner_launches": put_l}
+        out["get_through_redirect"] = {"bytes": nbytes, "s": get_s,
+                                       "MBps": nbytes / get_s / 1e6,
+                                       "owner_launches": get_l}
+
+        # -- both create one name at once: one 200, one BucketAlreadyExists --
+        races = []
+        for r in range(FED_RACES):
+            name = f"fed-race-{r}"
+            res = [None, None]
+            ts = [threading.Thread(target=lambda i=i, name=name: res.__setitem__(
+                i, call(i, "PUT", f"/{name}"))) for i in (0, 1)]
+            for t in ts:
+                t.start()
+            for t in ts:
+                t.join()
+            codes = sorted((st, (_xml_text(b, "Code") if b else [""])[0])
+                           for st, _h, b in res)
+            if codes != [(200, ""), (409, "BucketAlreadyExists")]:
+                fail(f"federation: racing creates of {name} gave {codes}")
+            races.append(0 if res[0][0] == 200 else 1)
+        out["race_winners"] = races
+
+        # -- ListBuckets is the union on both --------------------------------
+        st, _h, body = call(1, "PUT", "/fed-b")
+        if st != 200:
+            fail(f"federation: create on B {st}")
+        want = sorted(["fed-a", "fed-b", *(f"fed-race-{r}" for r in range(FED_RACES))])
+        lists = [bucket_names(i) for i in (0, 1)]
+        if lists != [want, want]:
+            fail(f"federation: ListBuckets {lists}, want {want}")
+
+        # -- a DELETE unregisters; the name can then be made on B ------------
+        for i, method, path, ok in ((0, "PUT", "/fed-gone", 200),
+                                    (0, "DELETE", "/fed-gone", 204),
+                                    (1, "PUT", "/fed-gone", 200)):
+            st, _h, body = call(i, method, path)
+            if st != ok:
+                fail(f"federation: {method} {path} on server {i}: {st}")
+        st, h, _b = call(0, "GET", "/fed-gone/k")
+        if st != 307 or h.get("location") != f"http://127.0.0.1:{servers[1].port}/fed-gone/k":
+            fail(f"federation: after the handover A answered {st} {h.get('location')}")
+        with open(os.path.join(fed_dir, "fed-gone.json")) as f:
+            out["handover_record"] = _json.load(f)
+        out["sigterm_s"] = [srv.sigterm() for srv in servers]
+    finally:
+        for srv in servers:
+            srv.kill()
+    out["phase_s"] = time.monotonic() - t_phase
+    return out
+
+
+# -- phase 14: the chaos grid (slice 9d) --------------------------------------
+
+# the nine cells that need no replication, in the order they run; when the
+# script must be cut, cells go from the end of this list
+GRID_ORDER = ("heal_storm", "dead_remote_disks", "select_heavy_mix",
+              "hot_key_cache_flood", "partition_mid_put", "rolling_restart",
+              "wedged_loop", "slow_remote_disks", "hot_key_flood")
+# the cells this script runs: with all nine it took 874.4-993.8 s of
+# command on the H100 machines, with five 953.9 s, past the 900 s it keeps
+# to, so only the first four run
+GRID_RUN = GRID_ORDER[:4]
+GRID_REFUSED = "replication_lag_churn"  # needs replication (slice 9c)
+
+
+def grid_phase(work: str, backend: "str | None" = None) -> dict:
+    """Phase 14 (slice 9d): the chaos grid of minio_tpu_torch.testgrid on
+    the card, the cells of ``GRID_RUN``.  Each cell is a loopback cluster
+    of 3 ``python -m minio_tpu_torch.server`` nodes x 2 drives (one
+    6-drive set, EC 3+3) started by the port's ClusterHarness, its codec
+    on the card (the default backend; ``backend`` sets
+    MINIO_ERASURE_BACKEND for a rehearsal on the CPU), driven through its
+    steps with faults delivered over the admin fault endpoint, then the
+    JAX grid's invariant sweep: every object bit-identical at quorum on
+    every live node or cleanly absent, no torn xl.meta, breaker trip and
+    recovery where the cell waits for them.  Before each cluster stops,
+    each live node's kernel launches are read from its admin kernel-stats
+    (a restarted node counts from its restart).  ``replication_lag_churn``
+    must refuse, naming slice 9c."""
+    import json as _json
+
+    from minio_tpu_torch.testgrid import engine, scenario_by_name
+
+    env = {"MINIO_TPU_LOG_LEVEL": "warning"}
+    if backend is not None:
+        env["MINIO_ERASURE_BACKEND"] = backend
+    node_launches: dict = {}
+
+    class _Counted(engine.ClusterHarness):
+        """The engine's harness, reading each live node's launches
+        before it stops the cluster (this script's instrumentation)."""
+
+        def stop(self):
+            got = {}
+            for n in self.nodes:
+                if n.alive():
+                    st, doc = self.admin(n.index, "GET", "kernel-stats")
+                    if st == 200:
+                        got[f"n{n.index + 1}"] = {
+                            k: v for k, v in doc["launches"].items() if v}
+            node_launches[self.base.name] = got
+            super().stop()
+
+    harness = engine.ClusterHarness
+    engine.ClusterHarness = _Counted
+    out: dict = {"cells": {}}
+    t_phase = time.monotonic()
+    try:
+        for name in GRID_RUN:
+            sc = scenario_by_name(name)
+            base = os.path.join(work, "grid", name)
+            t0 = time.monotonic()
+            try:
+                report = engine.run_scenario(sc, base, env=env)
+            except AssertionError as e:
+                fail(f"grid: {name}: {e}")
+            took = time.monotonic() - t0
+            launches = node_launches.get(name, {})
+            if report["objects"] < sc.seed_objects or report["meta_files"] <= 0:
+                fail(f"grid: {name} report {report}")
+            if any(s[0] == "await_breaker" for s in sc.steps) and \
+                    not report["breaker_events"]:
+                fail(f"grid: {name}: breaker cycle not observed")
+            total: dict = {}
+            for per in launches.values():
+                for k, v in per.items():
+                    total[k] = total.get(k, 0) + v
+            want = ["encode_pack_pipelined", "phash256_batched"]
+            if name == "heal_storm":
+                want += ["verify_reconstruct_pipelined", "encode_pack[group=0]"]
+            if name == "select_heavy_mix":
+                want += ["select_screen"]
+            missing = [k for k in want if not total.get(k)]
+            if backend is None and missing:
+                fail(f"grid: {name}: {missing} never launched; {launches}")
+            out["cells"][name] = {"s": took, **report, "launches": launches}
+            print(f"grid {name}: {_json.dumps(out['cells'][name])}", flush=True)
+        # the replication cell refuses at its first replication step
+        sc = scenario_by_name(GRID_REFUSED)
+        t0 = time.monotonic()
+        try:
+            engine.run_scenario(sc, os.path.join(work, "grid", sc.name), env=env)
+            fail(f"grid: {sc.name} ran without replication")
+        except NotImplementedError as e:
+            if "slice 9c" not in str(e):
+                fail(f"grid: {sc.name} refused without naming 9c: {e}")
+            out["refused"] = {sc.name: str(e), "s": time.monotonic() - t0}
+    finally:
+        engine.ClusterHarness = harness
+        shutil.rmtree(os.path.join(work, "grid"), ignore_errors=True)
+    out["phase_s"] = time.monotonic() - t_phase
     return out
 
 
@@ -6162,11 +6743,17 @@ def main() -> int:
         lap("read_cache")
         bc = bucket_config_phase(dev, work, s3)
         lap("bucket_config")
+        hs = heal_seq_phase(dev, work, hp["heal_object_MBps"])
+        lap("heal_seq")
         os.environ.pop("MINIO_TPU_SERVER", None)
         bt = boot_phase(work, payloads)
         lap("boot")
         cl = cluster_phase(work)
         lap("cluster")
+        fed = federation_phase(work)
+        lap("federation")
+        grid = grid_phase(work)
+        lap("grid")
     finally:
         shutil.rmtree(work, ignore_errors=True)
     for label, by_run in (("mode", mo), ("mxu phase", mx)):
@@ -6182,6 +6769,10 @@ def main() -> int:
     print(f"bucket_config: {json.dumps(bc)}", flush=True)
     print(f"boot: {json.dumps(bt)}", flush=True)
     print(f"cluster: {json.dumps(cl)}", flush=True)
+    card = card_name()
+    print(f"heal_seq: {json.dumps({'card': card, **hs})}", flush=True)
+    print(f"federation: {json.dumps({'card': card, **fed})}", flush=True)
+    print(f"grid: {json.dumps({'card': card, **grid})}", flush=True)
     print(f"phases_s: {json.dumps(phases_s)}", flush=True)
     phase_launches = {
         "main": mp["launches"], "heal": hp["launches"],

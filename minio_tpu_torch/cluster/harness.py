@@ -16,10 +16,11 @@ card.  The harness owns:
 - readiness polling against /minio/health/ready (no sleeps),
 - lifecycle: SIGTERM drain, SIGKILL, restart with the same identity,
 - programmatic fault control: the admin ``fault/*`` endpoint schedules
-  FaultDisk delay/error/corrupt/hang rules inside a REMOTE node.
+  FaultDisk delay/error/corrupt/hang rules inside a REMOTE node,
+- per-node Prometheus scrapes merged under a ``node`` label with
+  zero-fill, so breaker/hedge/shed counters are node-attributable.
 
-The chaos scenarios that drive it, with their merged per-node Prometheus
-scrapes, are slice 9d (``testgrid/``).
+The chaos-scenario DSL that drives this lives in minio_tpu_torch/testgrid/.
 """
 
 from __future__ import annotations
@@ -44,12 +45,49 @@ _log = logger("harness")
 
 _REPO_ROOT = str(pathlib.Path(__file__).resolve().parents[2])
 
+# counter families every node must report even when idle: a merged
+# scrape that silently omits a node reads as "nothing happened there"
+# when the truth may be "the node never exported the family"
+ZERO_FILL_FAMILIES = (
+    "miniotpu_disk_state",
+    "miniotpu_hedge_launched_total",
+    "miniotpu_server_shed_total",
+)
+
+
 def free_port() -> int:
     s = socket.socket()
     s.bind(("127.0.0.1", 0))
     port = s.getsockname()[1]
     s.close()
     return port
+
+
+def parse_prometheus(text: str) -> "list[tuple[str, dict, float]]":
+    """Minimal exposition-format parser: (family, labels, value) rows."""
+    rows = []
+    for line in text.splitlines():
+        line = line.strip()
+        if not line or line.startswith("#"):
+            continue
+        name_part, _, value_part = line.rpartition(" ")
+        labels: dict = {}
+        name = name_part
+        if "{" in name_part:
+            name, _, rest = name_part.partition("{")
+            body = rest.rsplit("}", 1)[0]
+            for item in body.split('",'):
+                if not item:
+                    continue
+                k, _, v = item.partition('="')
+                labels[k.strip().strip(",")] = v.rstrip('"')
+        try:
+            rows.append((name, labels, float(value_part)))
+        except ValueError:
+            _log.debug(
+                "unparseable metric line", extra=kv(line=line[:120])
+            )
+    return rows
 
 
 class NodeClient:
@@ -206,6 +244,7 @@ class ClusterHarness:
         if self.fault_injection:
             env["MINIO_TPU_FAULT_INJECTION"] = "1"
             env["MINIO_TPU_FAULT_SEED"] = str(1000 * (node.index + 1))
+        env["MINIO_TPU_PROMETHEUS_AUTH_TYPE"] = "public"
         if self._fast:
             # tighten heal/lock cadences so scenarios converge in
             # seconds instead of the production-default minutes
@@ -399,3 +438,51 @@ class ClusterHarness:
         if status != 200:
             raise RuntimeError(f"fault/status on node{i + 1}: {out}")
         return out
+
+    # -- metrics ----------------------------------------------------------
+
+    def scrape(self, i: int) -> str:
+        """Raw Prometheus exposition from node i (public auth mode)."""
+        req = urllib.request.Request(
+            f"{self.nodes[i].endpoint}/minio-tpu/prometheus/metrics",
+            method="GET",
+        )
+        with urllib.request.urlopen(req, timeout=5) as r:
+            return r.read().decode(errors="replace")
+
+    def merged_metrics(
+        self, families: "tuple | None" = None
+    ) -> "dict[str, list[tuple[dict, float]]]":
+        """Union of every live node's scrape, each sample labelled with
+        node="n<i>".  Families in ZERO_FILL_FAMILIES get an explicit
+        0-valued sample for nodes that did not export them, so a
+        per-node query can always tell "zero" from "absent"."""
+        want = families or ZERO_FILL_FAMILIES
+        merged: dict[str, list] = {f: [] for f in want}
+        for n in self.nodes:
+            if not n.alive():
+                continue
+            tag = f"n{n.index + 1}"
+            seen: set[str] = set()
+            try:
+                rows = parse_prometheus(self.scrape(n.index))
+            except OSError:
+                rows = []
+            for name, labels, value in rows:
+                if families is not None and name not in families:
+                    continue
+                labels = dict(labels, node=tag)
+                merged.setdefault(name, []).append((labels, value))
+                seen.add(name)
+            for fam in want:
+                if fam in ZERO_FILL_FAMILIES and fam not in seen:
+                    merged[fam].append(({"node": tag}, 0.0))
+        return merged
+
+    def disk_states(self, i: int) -> "dict[str, int]":
+        """endpoint -> breaker state (0/1/2) as node i observes it."""
+        return {
+            labels.get("disk", ""): int(value)
+            for name, labels, value in parse_prometheus(self.scrape(i))
+            if name == "miniotpu_disk_state"
+        }

@@ -1,2 +1,2 @@
 """Background healing: the MRF queue, the heal routine and the
-fresh-disk monitor."""
+fresh-disk monitor; resumable admin heal sequences (``sequence``)."""

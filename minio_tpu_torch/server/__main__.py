@@ -37,9 +37,16 @@ the crawler sweeps every ``MINIO_TPU_CRAWL_INTERVAL_S`` (60 s by default,
 or the ``crawler interval_s`` config key), and in a cluster one node
 sweeps a cycle, elected on the dsync lock plane.
 
+``MINIO_TPU_FEDERATION_DIR`` federates this deployment with every
+other one sharing that record directory (cluster/dns.py): each bucket
+name is unique across them, and a bucket another deployment owns
+answers 307 to it, at ``MINIO_TPU_FEDERATION_HOST`` (this listener's
+host by default) and this listener's scheme (``MINIO_TPU_TLS=on``:
+https).
+
 What this package has not ported exits at boot with a message naming
-its slice, instead of being ignored: federation (9d); the gateway, a
-single drive (FS mode) and the disk cache (9c).
+its slice, instead of being ignored: the gateway, a single drive (FS
+mode) and the disk cache (9c).
 """
 
 from __future__ import annotations
@@ -52,7 +59,6 @@ import sys
 # env knobs of features this package has not ported: name -> (what,
 # slice).  A non-empty value exits at boot.
 UNPORTED_ENV = {
-    "MINIO_TPU_FEDERATION_DIR": ("bucket federation", "9d"),
     "MINIO_TPU_CACHE_DRIVES": ("the disk cache (objectlayer/cache.py)", "9c"),
 }
 
@@ -548,6 +554,29 @@ def main(argv=None) -> int:
         device = want
         ol = build(device)
         srv.object_layer = ol
+    # federation: a shared record dir plays etcd's role for bucket
+    # DNS (cmd/config/etcd/dns); every cluster pointing at the same
+    # dir shares one global bucket namespace
+    fed_dir = os.environ.get("MINIO_TPU_FEDERATION_DIR", "")
+    if fed_dir:
+        from ..cluster.dns import BucketDNS, FileDNSStore
+        from ..utils import tlsconf
+
+        adv_host = (
+            os.environ.get("MINIO_TPU_FEDERATION_HOST")
+            or args.address.rsplit(":", 1)[0]
+        )
+        if adv_host in ("0.0.0.0", ""):
+            adv_host = "127.0.0.1"
+        # the record carries the scheme this listener serves
+        srv.bucket_dns = BucketDNS(
+            FileDNSStore(fed_dir),
+            adv_host,
+            local_port,
+            scheme="https" if tlsconf.enabled() else "http",
+        )
+        print(f"federation: bucket DNS at {fed_dir} as "
+              f"{adv_host}:{local_port}")
     # once formats are known, the storage REST plane serves the
     # DiskIDCheck-wrapped disks too: peer I/O must not write onto a
     # swapped drive either (xl-storage-disk-id-check.go applies to the

@@ -21,11 +21,13 @@ no admin call is silently ignored.
 from __future__ import annotations
 
 import json
+import threading
 import time
 
 from .. import cache as rcache
 from ..codec import kms as kmsmod
 from ..crawler import DataUsage
+from ..heal.sequence import AllHealState, HealSequence, HealSequenceError
 from ..iam.policy import Policy, PolicyError
 from ..iam.sys import IAMError, PolicyNotFound, UserNotFound
 from ..objectlayer.api import unported
@@ -36,15 +38,16 @@ from ..utils.log import kv, logger
 
 _log = logger("admin")
 
+# guards lazy creation of the per-server heal-sequence registry
+_heal_state_lock = threading.Lock()
+
 PREFIX = "/minio-tpu/admin/v1"
 VERSION = "0.3.0"
 _START = time.time()
 
-# admin routes of features not ported yet: route -> (what, slice).  Heal
-# sequences are slice 9d; the disk cache and the replication targets 9c.
+# admin routes of features not ported yet: route -> (what, slice): the
+# disk cache and the replication targets are slice 9c.
 UNPORTED = {
-    ("POST", "heal-sequence"): ("admin heal sequences", "9d"),
-    ("POST", "heal-sequence/stop"): ("admin heal sequences", "9d"),
     ("GET", "cache-stats"): ("the disk cache", "9c"),
     ("GET", "list-remote-targets"): ("bucket replication targets", "9c"),
     ("PUT", "set-remote-target"): ("bucket replication targets", "9c"),
@@ -75,6 +78,16 @@ class AdminAPI:
             return 200, _json(ol.storage_info())
         if route == ("POST", "heal"):
             return 200, self._heal(ol, q)
+        # resumable heal sequences with client tokens
+        # (admin-heal-ops.go LaunchNewHealSequence/PopHealStatusJSON)
+        if route == ("POST", "heal-sequence"):
+            return 200, self._heal_sequence(ol, q)
+        if route == ("POST", "heal-sequence/stop"):
+            state = self._heal_state()
+            try:
+                return 200, _json(state.stop(self._heal_path(q)))
+            except HealSequenceError as e:
+                raise S3Error(e.code, str(e)) from None
         # aggregate MRF/background-heal state, every node
         # (getAggregatedBackgroundHealState, admin-heal-ops.go)
         if route == ("GET", "background-heal/status"):
@@ -691,6 +704,45 @@ class AdminAPI:
                     _os.kill(_os.getpid(), _signal.SIGTERM)
 
         _threading.Thread(target=fire, daemon=True).start()
+
+    def _heal_state(self) -> AllHealState:
+        # double-checked under a module lock: two concurrent launches
+        # must share ONE registry or tokens and overlap guards split
+        with _heal_state_lock:
+            state = getattr(self.s3, "heal_state", None)
+            if state is None:
+                state = self.s3.heal_state = AllHealState()
+        return state
+
+    @staticmethod
+    def _heal_path(q: "dict[str, str]") -> str:
+        bucket = q.get("bucket", "")
+        if not bucket:
+            raise S3Error("InvalidArgument", "heal requires bucket")
+        prefix = q.get("prefix", "")
+        return f"{bucket}/{prefix}".rstrip("/")
+
+    def _heal_sequence(self, ol, q: "dict[str, str]") -> bytes:
+        """Launch (no clientToken) or poll (clientToken) a heal
+        sequence; maps HealSequenceError onto admin API errors."""
+        state = self._heal_state()
+        path = self._heal_path(q)
+        token = q.get("clientToken", "")
+        try:
+            if token:
+                return _json(state.pop_status(path, token))
+            seq = HealSequence(
+                ol,
+                q.get("bucket", ""),
+                q.get("prefix", ""),
+                dry_run=q.get("dryRun") == "true",
+                client_address=q.get("clientAddress", ""),
+            )
+            return _json(
+                state.launch(seq, q.get("forceStart") == "true")
+            )
+        except HealSequenceError as e:
+            raise S3Error(e.code, str(e)) from None
 
     def _heal(self, ol, q: "dict[str, str]") -> bytes:
         bucket = q.get("bucket", "")

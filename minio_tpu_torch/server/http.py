@@ -27,8 +27,10 @@ server-side encryption (SSE-C headers, SSE-S3 and bucket defaults) on
 every object write and read, bucket lifecycle, tagging, object-lock and
 ACL documents, object tagging, retention, legal hold and ACLs, the
 PUT-time lock and tag headers, the WORM guard on deletes, hard bucket
-quotas on every write path, and the admin API (server/admin.py) with
-its trace and console streams.  Every route of a feature not ported yet
+quotas on every write path, federation (a bucket owned by another
+cluster sharing the bucket DNS answers 307 to its owner; creation is
+unique across the federation; ListBuckets is the union), and the admin
+API (server/admin.py) with its trace and console streams.  Every route of a feature not ported yet
 answers S3 ``NotImplemented`` with a message naming the slice that
 ports it, and every PUT-path seam (replication, events) raises the same
 way when the request or the bucket's metadata document asks for such a
@@ -54,6 +56,7 @@ from ..iam.sys import IAMSys
 from ..ilm import Lifecycle, LifecycleError
 from ..objectlayer import objectlock as olock, quota as quotamod
 from ..objectlayer.api import (
+    BucketInfo,
     BucketNotFound,
     CompletePart,
     ObjectInfo,
@@ -228,8 +231,8 @@ class S3Server:
         # populate this dict as subsystems come up.  None keeps the
         # default semantics: ready as soon as an object layer is attached.
         self.boot_status: "dict[str, bool] | None" = None
-        # federation bucket DNS: slice 9d; a value set here makes every
-        # bucket request answer NotImplemented instead of being ignored
+        # federation bucket DNS (cluster/dns.BucketDNS); None when
+        # this deployment is not federated
         self.bucket_dns = None
         # the data crawler and update tracker, attached by the server
         # main; the crawler's usage snapshot feeds quotas and admin
@@ -1309,8 +1312,10 @@ class _Handler(BaseHTTPRequestHandler):
                 return self._list_buckets()
             raise S3Error("MethodNotAllowed")
 
-        if self.s3.bucket_dns is not None:
-            raise unported("bucket federation", "9d")
+        if self.s3.bucket_dns is not None and self._federated_redirect(
+            bucket, key, m, query
+        ):
+            return
 
         if key:
             if m == "GET":
@@ -1504,12 +1509,87 @@ class _Handler(BaseHTTPRequestHandler):
                 return self._post_policy(bucket)
         raise S3Error("MethodNotAllowed")
 
+    def _federated_redirect(self, bucket, key, m, query) -> bool:
+        """Federation: requests for a bucket owned by ANOTHER cluster
+        are answered 307 to its endpoint.  DELIBERATE DIVERGENCE from
+        the reference, which relies on external DNS routing
+        (bucket.domain) and only proxies the web plane - a redirect
+        keeps path-style clients working without CoreDNS.  Returns
+        True when the response was written."""
+        from ..cluster.dns import DNSError, NoEntriesFound
+
+        if not key and m == "PUT" and not query:
+            return False  # bucket creation negotiates ownership itself
+        try:
+            self.s3.object_layer.get_bucket_info(bucket)
+            return False  # ours: serve locally
+        except BucketNotFound:
+            pass
+        except Exception:  # noqa: BLE001
+            return False
+        try:
+            recs = self.s3.bucket_dns.lookup(bucket)
+        except (NoEntriesFound, DNSError):
+            return False  # genuinely absent: the normal 404 path
+        if self.s3.bucket_dns.owned_by_us(recs):
+            return False
+        r = recs[0]
+        # the OWNER's scheme rides the record - the local listener's
+        # TLS mode says nothing about the remote cluster's
+        self._respond(
+            307,
+            headers={
+                "Location": f"{r.scheme}://{r.host}:{r.port}{self.path}"
+            },
+        )
+        return True
+
     def _bucket_create(self, bucket: str) -> None:
+        """Bucket creation incl. federation negotiation: a name is
+        unique across every cluster sharing the bucket DNS."""
+        dns = self.s3.bucket_dns
+        if dns is not None:
+            from ..cluster.dns import NoEntriesFound
+
+            try:
+                recs = dns.lookup(bucket)
+            except NoEntriesFound:
+                recs = None
+            if recs is not None:
+                # bucket names are globally unique across the
+                # federation (bucket-handlers.go:601-609)
+                raise S3Error(
+                    "BucketAlreadyOwnedByYou"
+                    if dns.owned_by_us(recs)
+                    else "BucketAlreadyExists"
+                )
         self.s3.object_layer.make_bucket(bucket)
+        if dns is not None:
+            from ..cluster.dns import RecordExists
+
+            try:
+                dns.register(bucket)
+            except RecordExists:
+                # lost the exclusive-create race to another cluster:
+                # the bucket must not exist half-federated
+                # (MakeBucket rollback, bucket-handlers.go:572)
+                self.s3.object_layer.delete_bucket(bucket, force=True)
+                raise S3Error("BucketAlreadyExists") from None
+            except Exception:  # noqa: BLE001
+                self.s3.object_layer.delete_bucket(bucket, force=True)
+                raise S3Error(
+                    "InternalError", "failed to register bucket in DNS"
+                ) from None
 
     def _bucket_delete(self, bucket: str) -> None:
-        """Bucket deletion incl. config/event cleanup."""
+        """Bucket deletion incl. DNS unregistration and config/event
+        cleanup."""
         self.s3.object_layer.delete_bucket(bucket)
+        if self.s3.bucket_dns is not None:
+            try:
+                self.s3.bucket_dns.unregister(bucket)
+            except Exception as exc:
+                _log.debug("bucket DNS unregister failed; stale record", extra=kv(err=str(exc)))
         self.s3.bucket_meta.delete(bucket)
         # a recreated bucket must not inherit the old rules
         self.s3.events.remove_bucket(bucket)
@@ -1551,6 +1631,26 @@ class _Handler(BaseHTTPRequestHandler):
 
     def _list_buckets(self):
         buckets = self.s3.object_layer.list_buckets()
+        if self.s3.bucket_dns is not None:
+            # federated view: every cluster's buckets, deduped
+            # (bucket-handlers.go:74 dnsBuckets merge)
+            have = {b.name for b in buckets}
+            try:
+                federated = self.s3.bucket_dns.federated_buckets()
+            except Exception:  # noqa: BLE001
+                federated = {}
+            for name, recs in sorted(federated.items()):
+                if name not in have:
+                    buckets.append(
+                        BucketInfo(
+                            name=name,
+                            created_ns=min(
+                                (r.creation_ns for r in recs),
+                                default=0,
+                            ),
+                        )
+                    )
+            buckets.sort(key=lambda b: b.name)
         self._respond(200, xmlr.list_buckets_xml(buckets))
 
     # -- bucket ops -------------------------------------------------------

@@ -26,6 +26,7 @@ through each object layer) must be equal.
 
 import io
 import json
+import time
 import os
 import re
 
@@ -321,6 +322,63 @@ def test_unported_admin_route_names_its_slice(servers, route):
     assert b"<Code>NotImplemented</Code>" in r.body
     slice_name = tadmin.UNPORTED[route][1]
     assert f"(slice {slice_name})".encode() in r.body
+
+
+def _heal_sequence_answers(srv, route) -> list:
+    """A heal sequence over bucket ``adm``: launched, polled by its token
+    until it ends (or stopped, then stopped again on a path with no
+    sequence), and the answers with tokens and times left out."""
+    def call(tail, query):
+        status, doc = _call(srv, "POST", tail, query)
+        if isinstance(doc, dict):
+            doc = {k: v for k, v in doc.items()
+                   if k not in ("client_token", "start_time")}
+        return status, doc
+
+    st, doc = _call(srv, "POST", "heal-sequence",
+                    {"bucket": "adm", "forceStart": "true"})
+    assert st == 200, doc
+    token = doc["client_token"]
+    out = [(st, sorted(doc))]
+    if route == ("POST", "heal-sequence"):
+        items = []
+        for _ in range(300):
+            st, doc = call("heal-sequence", {"bucket": "adm",
+                                             "clientToken": token})
+            items.extend(doc["items"])
+            if doc["status"] != "running":
+                break
+            time.sleep(0.05)
+        doc["items"] = items
+        out.append((st, doc))
+        out.append(call("heal-sequence", {"bucket": "adm",
+                                          "clientToken": "bogus"}))
+    else:
+        out.append(call("heal-sequence/stop", {"bucket": "adm"}))
+        out.append(call("heal-sequence/stop", {"bucket": "adm",
+                                               "prefix": "none/"}))
+    return out
+
+
+@pytest.mark.parametrize(
+    "route", [("POST", "heal-sequence"), ("POST", "heal-sequence/stop")],
+    ids=lambda r: f"{r[0]} {r[1]}")
+def test_heal_sequence_route_matches(servers, route):
+    """The heal-sequence routes (once refused, slice 9d) answer as the
+    JAX package's server does; tests/test_torch_heal_sequence.py holds
+    the sequences in depth."""
+    got = {kind: _heal_sequence_answers(srv, route)
+           for kind, srv in servers.items()}
+    assert got["port"] == got["jax"]
+    assert got["port"][0] == (200, ["client_address", "client_token",
+                                    "start_time"])
+    if route == ("POST", "heal-sequence"):
+        assert got["port"][1][1]["status"] == "finished"
+        assert got["port"][1][1]["scanned"] == 3
+        assert got["port"][2][0] == 400
+    else:
+        assert got["port"][1] == (200, {"status": "stopping"})
+        assert got["port"][2][0] == 400
 
 
 # the routes slice 9c's first half and 9d's crawler serve, once refused:

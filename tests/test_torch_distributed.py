@@ -293,6 +293,40 @@ def _no_locks(h, i) -> None:
     assert doc == {"locks": []}
 
 
+def _online(doc) -> "tuple[int, int]":
+    """(online, disks) summed over a storageinfo document's zones."""
+    sets = [s for z in doc["zones"] for s in z.get("sets", [z])]
+    return sum(s["online"] for s in sets), sum(s["disks"] for s in sets)
+
+
+def _await_all_online(h, i, disks, timeout_s=60.0) -> None:
+    """Node i's storageinfo counts ``disks`` drives online and its
+    breakers report every drive healthy (``h.disk_states``)."""
+    deadline = time.monotonic() + timeout_s
+    while True:
+        st, doc = h.admin(i, "GET", "storageinfo")
+        states = h.disk_states(i)
+        if (st == 200 and _online(doc) == (disks, disks)
+                and len(states) == disks
+                and not any(states.values())):
+            return
+        assert time.monotonic() < deadline, (doc, states)
+        time.sleep(0.1)
+
+
+def _await_mrf_idle(h, i, tasks, timeout_s=60.0) -> None:
+    """Node i's heal routine has taken ``tasks`` MRF heals and holds none
+    queued (``background-heal/status``)."""
+    deadline = time.monotonic() + timeout_s
+    while True:
+        st, doc = h.admin(i, "GET", "background-heal/status")
+        me = doc["nodes"][0]
+        if me["queued"] == 0 and me["healed"] + me["failed"] >= tasks:
+            return
+        assert time.monotonic() < deadline, doc
+        time.sleep(0.1)
+
+
 def _drive_parts(h, key) -> list:
     out = []
     for n in h.nodes:
@@ -374,17 +408,27 @@ def test_cluster_kill_restart_and_heal(cluster):
     for k, v in objs.items():
         assert _put(h, 0, k, v) == 200
     parts = {k: _drive_parts(h, k) for k in objs}
+    # node 2's first drive: its shard position (erasure index - 1)
+    wiped = h.nodes[1].drive_dirs[0]
+    shard = {k: TXL(str(wiped)).read_version("bkt", k).erasure.index - 1
+             for k in objs}
     h.kill(1)
     for k, v in objs.items():  # two of four drives: read quorum holds
         assert _fetch(h, 0, k) == (200, v)
+    # those degraded GETs queued MRF heals on node 1; they run while node
+    # 2 is down, so none of them heals after the restart below
+    _await_mrf_idle(h, 0, len(objs))
     # node 2's first drive is wiped while it is down
-    wiped = h.nodes[1].drive_dirs[0]
     shutil.rmtree(wiped / "bkt")
     h.restart(1, timeout_s=120)
+    # node 1 probes a drive that went down again only every few seconds:
+    # heal once it sees all four drives online, breakers closed
+    _await_all_online(h, 0, 4)
     for k in objs:
         st, doc = h.admin(0, "POST", "heal",
                           query={"bucket": "bkt", "object": k})
         assert st == 200, doc
+        assert doc["healed"] == [shard[k]], doc
     for k, v in objs.items():
         assert _drive_parts(h, k) == parts[k]
         for i in (0, 1):

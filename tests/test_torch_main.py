@@ -12,7 +12,9 @@ The server runs as a subprocess with ``MINIO_ERASURE_BACKEND=cpu``:
   fresh-disk monitor and the heal routine;
 * SIGTERM drains and exits 0, printing ``shutdown complete``;
 * URL drive endpoints (one node, and two nodes sharing one endpoint
-  list) and fault injection boot and serve (``SERVED``);
+  list), fault injection and federation (``MINIO_TPU_FEDERATION_DIR``:
+  a new bucket's record lands in the shared directory) boot and serve
+  (``SERVED``);
 * each layout or env this package has not ported exits non-zero with a
   message naming its slice, and so does a codec device other than
   ``cuda`` or ``cpu`` (and ``cuda`` on a host without a card).
@@ -178,8 +180,6 @@ REFUSED = [
     # (id, args, env, text the message must hold)
     ("gateway", ["gateway", "nas", "/tmp/x"], {}, "(slice 9c)"),
     ("single_drive", ["{base}/solo"], {}, "(slice 9c)"),
-    ("federation", ["{base}/d{{1...4}}"],
-     {"MINIO_TPU_FEDERATION_DIR": "{base}/fed"}, "(slice 9d)"),
     ("disk_cache", ["{base}/d{{1...4}}"],
      {"MINIO_TPU_CACHE_DRIVES": "{base}/cache"}, "(slice 9c)"),
     ("backend_tpu", ["{base}/d{{1...4}}"], {"MINIO_ERASURE_BACKEND": "tpu"},
@@ -243,11 +243,19 @@ def _served_fault_injection(base: str):
     return [_boot(port, [f"{base}/d{{1...4}}"], env)], [port], {"faults": 4}
 
 
+def _served_federation(base: str):
+    port = _free_port()
+    env = _env(MINIO_TPU_FEDERATION_DIR=f"{base}/fed")
+    return [_boot(port, [f"{base}/d{{1...4}}"], env)], [port], {
+        "federation": f"{base}/fed"}
+
+
 # layouts and env that once exited at boot and are served now
 SERVED = {
     "url_endpoints": _served_url_endpoints,
     "second_node": _served_second_node,
     "fault_injection": _served_fault_injection,
+    "federation": _served_federation,
 }
 
 
@@ -274,8 +282,18 @@ def test_served_layouts_boot(tmp_path, case):
         if "faults" in want:
             r = first.request("GET", "/minio-tpu/admin/v1/fault/status")
             assert r.status == 200 and len(json.loads(r.body)) == 4
+        if "federation" in want:
+            # the bucket is registered in the shared record directory
+            # under this server's address
+            with open(os.path.join(want["federation"], "bkt.json")) as f:
+                recs = json.load(f)
+            assert [(r["host"], r["port"], r["key"], r["scheme"])
+                    for r in recs] == [("127.0.0.1", ports[0], "bkt", "http")]
     finally:
         outs = [_stop(p) for p in procs]
+    if "federation" in want:
+        assert (f"federation: bucket DNS at {want['federation']} as "
+                f"127.0.0.1:{ports[0]}") in outs[0]
     if len(ports) > 1:
         assert all("bootstrap handshake ok with 1 peer(s)" in o for o in outs)
     assert not any("Traceback" in o for o in outs), outs

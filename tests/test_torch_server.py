@@ -572,8 +572,8 @@ UNPORTED = [
     # (name, slice, request)
     # the admin API itself is ported (tests/test_torch_admin_config.py);
     # its routes of unported features name their slices
-    ("admin", "9d", lambda c: c.request(
-        "POST", "/minio-tpu/admin/v1/heal-sequence")),
+    ("admin", "9c", lambda c: c.request(
+        "GET", "/minio-tpu/admin/v1/cache-stats")),
     ("web_rpc", "9c", lambda c: _raw(_ep(c), "POST", "/minio-tpu/webrpc")),
     ("console", "9c", lambda c: _raw(_ep(c), "GET", "/minio-tpu/console")),
     ("sts", "9c", lambda c: c.request(
@@ -911,7 +911,10 @@ def test_event_target_env_names_slice_9c(tmp_path, monkeypatch):
 def test_internode_and_federation_name_slice_9b(port_server):
     """The internode planes (once slice 9b) are served: a mounted plane
     answers its prefix, with the JWT checked before the body; federation
-    stays refused and names slice 9d."""
+    (once slice 9d) is served: a bucket another cluster owns in the
+    shared bucket DNS answers 307 to its owner, a bucket of this server
+    is served locally, and a name no cluster holds is a 404."""
+    from minio_tpu_torch.cluster.dns import BucketDNS, MemoryDNSStore
     from minio_tpu_torch.utils import jwt as tjwt
 
     srv, c = port_server
@@ -934,12 +937,19 @@ def test_internode_and_federation_name_slice_9b(port_server):
     assert bad[0] == 401
     assert good[0] == 200 and good[2] == b"pong"
     assert calls == [("ping", b"x")]
-    srv.bucket_dns = object()
+    store = MemoryDNSStore()
+    BucketDNS(store, "127.0.0.2", 9555).register("remote-bkt")
+    srv.bucket_dns = BucketDNS(store, c.host, c.port)
     try:
-        status, _h, body = _res(c.get_object("bkt", "obj"))
+        remote = _res(c.get_object("remote-bkt", "k"))
+        local = _res(c.get_object("bkt", "obj"))
+        missing = _res(c.get_object("no-such-bkt", "k"))
     finally:
         srv.bucket_dns = None
-    assert status == 501 and b"(slice 9d)" in body
+    assert remote[0] == 307, remote
+    assert remote[1]["location"] == "http://127.0.0.2:9555/remote-bkt/k"
+    assert local[0] == 200 and local[2] == b"hello"
+    assert missing[0] == 404
 
 
 def test_ported_routes_still_answer(port_server):
