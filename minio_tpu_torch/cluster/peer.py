@@ -30,11 +30,13 @@ reads ``xl.meta`` by quorum on every GET (it skips the cache's FileInfo
 side-car, cache/__init__.py ``sidecar_enabled``), and cached groups are
 keyed by the ``data_dir`` that quorum read names.
 
-Ported is every method of ``_METHODS`` but one family: the remote
+Every method of ``_METHODS`` is ported.  The remote
 ListenBucketNotification subscriptions (``listenon``/``listenbuf``/
-``listenoff``) answer 501 naming slice 9c, as the S3 listen route does.
-``cyclebloom`` rotates this node's data-update tracker for the crawling
-node, which unions every peer's filter (``PeerNotifier.cycle_blooms``).
+``listenoff``) let a watcher on one node see the events of every node:
+each subscription is a queue here, drained by the watcher's polls and
+reaped after ``_LISTEN_TTL_S`` without one.  ``cyclebloom`` rotates
+this node's data-update tracker for the crawling node, which unions
+every peer's filter (``PeerNotifier.cycle_blooms``).
 """
 
 from __future__ import annotations
@@ -60,12 +62,6 @@ VERSION = "minio-tpu/1"  # bumped on wire-format changes
 
 class PeerAuthError(ConnectionError):
     """Peer rejected our internode JWT (mismatched secret key)."""
-
-
-def _unported(what: str, slice_name: str) -> NotImplementedError:
-    return NotImplementedError(
-        f"{what} is not ported to minio_tpu_torch yet (slice {slice_name})"
-    )
 
 
 def _q1(q: dict, key: str) -> str:
@@ -119,11 +115,26 @@ class PeerRESTServer:
         self.fingerprint = fingerprint or {}
         self.local_locker = local_locker
         self.started = time.time()
+        # remote ListenBucketNotification subscriptions (listenon/
+        # listenbuf/listenoff); GC'd when a watcher stops polling -
+        # on every listen RPC and by a background sweeper, so an
+        # orphaned subscription dies even if listen traffic stops
+        self._listeners: "dict[str, dict]" = {}
+        self._listen_mu = threading.Lock()
+        self._listen_gc_thread: "threading.Thread | None" = None
+        self._listen_stop = threading.Event()
         self._obd_mu = threading.Lock()
 
     def close(self) -> None:
-        """Nothing to release: the plane holds no subscriptions (the
-        remote listen methods are slice 9c)."""
+        """Release remote-listener state (sweeper + subscriptions)."""
+        self._listen_stop.set()
+        with self._listen_mu:
+            listeners = list(self._listeners.values())
+            self._listeners.clear()
+        for rec in listeners:
+            self.s3.events.unsubscribe_listener(
+                rec["bucket"], rec["sub"]
+            )
 
     # -- RPC implementations ---------------------------------------------
 
@@ -449,13 +460,108 @@ class PeerRESTServer:
         return {"rows": rows}
 
     # -- cluster-wide event listen (the Listen peer RPC,
-    #    cmd/notification.go:440): slice 9c, as the S3 listen route ----------
+    #    cmd/notification.go:440 remote listen targets; poll-delivered
+    #    like tracebuf, matching this design's internode idiom) -----------
 
-    def _listen(self, q, body) -> dict:
-        raise _unported(
-            "cluster-wide ListenBucketNotification (listenon, listenbuf, "
-            "listenoff)", "9c",
+    _LISTEN_TTL_S = 60.0
+
+    def _listen_gc_locked(self) -> None:
+        now = time.monotonic()
+        for lid in [
+            lid
+            for lid, rec in self._listeners.items()
+            if now - rec["polled"] > self._LISTEN_TTL_S
+        ]:
+            rec = self._listeners.pop(lid)
+            self.s3.events.unsubscribe_listener(
+                rec["bucket"], rec["sub"]
+            )
+
+    def _listen_on(self, q, body) -> dict:
+        """Register a remote listener: events this node generates for
+        the bucket start flowing into a pollable queue."""
+        doc = _unpack(body) or {}
+        bucket = doc.get("bucket", "")
+        lid = doc.get("id", "")
+        if not bucket or not lid:
+            return {"ok": False, "error": "bucket and id required"}
+        with self._listen_mu:
+            self._listen_gc_locked()
+            if lid in self._listeners:
+                return {"ok": True}
+            sub = self.s3.events.subscribe_listener(bucket)
+            self._listeners[lid] = {
+                "bucket": bucket,
+                "sub": sub,
+                "prefix": doc.get("prefix", ""),
+                "suffix": doc.get("suffix", ""),
+                "names": set(doc.get("names") or []),
+                "polled": time.monotonic(),
+            }
+            self._ensure_listen_gc_thread()
+        return {"ok": True}
+
+    def _ensure_listen_gc_thread(self) -> None:
+        """Background sweeper (held under _listen_mu): reaps orphaned
+        subscriptions even when listen traffic stops entirely (a
+        crashed watcher node never sends another RPC); exits once the
+        table is empty."""
+        t = self._listen_gc_thread
+        if t is not None and t.is_alive():
+            return
+
+        def sweep():
+            while not self._listen_stop.wait(self._LISTEN_TTL_S / 2):
+                with self._listen_mu:
+                    self._listen_gc_locked()
+                    if not self._listeners:
+                        self._listen_gc_thread = None
+                        return
+
+        t = threading.Thread(
+            target=sweep, daemon=True, name="peer-listen-gc"
         )
+        self._listen_gc_thread = t
+        t.start()
+
+    def _listen_buf(self, q, body) -> dict:
+        """Drain a remote listener's queue: wire-ready notification
+        records, filtered server-side like the local stream."""
+        from ..event.event import matches_filter, to_listen_record
+
+        lid = _q1(q, "id")
+        with self._listen_mu:
+            # GC here too: a watcher that died without listenoff must
+            # not leak its subscription until the next listenon
+            self._listen_gc_locked()
+            rec = self._listeners.get(lid)
+            if rec is None:
+                return {"ok": False, "records": []}
+            rec["polled"] = time.monotonic()
+        out = [
+            to_listen_record(ev)
+            for ev in rec["sub"].drain()
+            if matches_filter(
+                ev, rec["bucket"], rec["names"],
+                rec["prefix"], rec["suffix"],
+            )
+        ]
+        return {"ok": True, "records": out}
+
+    def listeners(self) -> "dict[str, str]":
+        """Live remote listeners: id -> bucket (admin ``listen-stats``)."""
+        with self._listen_mu:
+            return {lid: rec["bucket"] for lid, rec in self._listeners.items()}
+
+    def _listen_off(self, q, body) -> dict:
+        lid = _q1(q, "id")
+        with self._listen_mu:
+            rec = self._listeners.pop(lid, None)
+        if rec is not None:
+            self.s3.events.unsubscribe_listener(
+                rec["bucket"], rec["sub"]
+            )
+        return {"ok": True}
 
     def _invalidate_read_cache(self, q, body) -> dict:
         """Drop this node's tiered-read-cache entries for one object
@@ -517,9 +623,9 @@ class PeerRESTServer:
         "netobdinfo": _net_obd,
         "dispatchnetobdinfo": _dispatch_net_obd,
         # cluster-wide event listen
-        "listenon": _listen,
-        "listenbuf": _listen,
-        "listenoff": _listen,
+        "listenon": _listen_on,
+        "listenbuf": _listen_buf,
+        "listenoff": _listen_off,
         # tiered read cache coherence
         "invalidatereadcache": _invalidate_read_cache,
     }
@@ -547,8 +653,6 @@ class PeerRESTServer:
             return 400, _pack(f"unknown method {method_name}"), {}
         try:
             return 200, _pack(fn(self, query, body)), {}
-        except NotImplementedError as e:
-            return 501, _pack(str(e)), {}
         except Exception as e:  # noqa: BLE001
             return 500, _pack(str(e)), {}
 
@@ -680,6 +784,30 @@ class PeerRESTClient:
 
     def reload_format(self) -> dict:
         return self.call("reloadformat", retry=False)
+
+    def listen_on(
+        self, lid: str, bucket: str,
+        prefix: str = "", suffix: str = "", names=None,
+    ) -> None:
+        self.call(
+            "listenon",
+            doc={
+                "id": lid, "bucket": bucket, "prefix": prefix,
+                "suffix": suffix, "names": sorted(names or []),
+            },
+            retry=False,
+        )
+
+    def listen_buf(self, lid: str) -> "list[dict]":
+        resp = self.call("listenbuf", {"id": lid}, retry=False)
+        if not resp.get("ok"):
+            # the peer GC'd this listener (stalled poller): the caller
+            # must re-register, exactly like after a transport error
+            raise ConnectionError("listener expired on peer")
+        return resp.get("records", [])
+
+    def listen_off(self, lid: str) -> None:
+        self.call("listenoff", {"id": lid}, retry=False)
 
     def invalidate_read_cache(self, bucket: str, obj: str) -> None:
         self.call(

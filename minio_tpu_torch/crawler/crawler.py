@@ -24,9 +24,9 @@ When a :class:`~minio_tpu_torch.crawler.updatetracker.DataUpdateTracker`
 is attached, each sweep first rotates the bloom filter
 (cycleFilter, data-update-tracker.go:533) and skips buckets whose
 cached usage exists and whose name never hit the filter.  Guards,
-matching the reference's behavior: a bucket with lifecycle or FIFO
-quota config is always swept (time alone changes what those do), a
-full sweep runs every ``_FULL_SWEEP_EVERY`` cycles
+matching the reference's behavior: a bucket with lifecycle, FIFO
+quota, or replication config is always swept (time alone changes what
+those do), a full sweep runs every ``_FULL_SWEEP_EVERY`` cycles
 (dataUsageUpdateDirCycles), and an incomplete filter (restart, peer
 down) disables skipping for that sweep.
 
@@ -34,9 +34,11 @@ Full sweeps (and the first) also probe each latest version's shards
 (``probe_object_health``, metadata only) and queue the damaged ones on
 the MRF heal queue through ``heal_hook``.  ``stats`` counts what the
 sweeps did - buckets crawled and skipped, versions expired, objects
-evicted, heals queued, uploads aborted - for the admin API and the
-chip run; the usage snapshot itself is the JAX package's document.
-The replication catch-up pass comes with bucket replication.
+evicted, heals queued, uploads aborted, replications re-queued - for
+the admin API and the chip run; the usage snapshot itself is the JAX
+package's document.  The replication catch-up pass (healReplication)
+re-queues each latest version whose ``x-amz-replication-status`` is
+still PENDING or FAILED on the ``replication`` pool.
 """
 
 from __future__ import annotations
@@ -69,6 +71,7 @@ STAT_KEYS = (
     "evicted",
     "heals_queued",
     "uploads_aborted",
+    "replication_requeued",
 )
 
 
@@ -127,6 +130,7 @@ class DataCrawler:
         interval_s: float = 60.0,
         events=None,
         ensure_event_rules=None,
+        replication=None,
         sleep_every: int = 256,
         sleep_s: float = 0.05,
         tracker=None,
@@ -138,6 +142,8 @@ class DataCrawler:
         self._meta = bucket_meta
         self._interval = interval_s
         self._events = events
+        # ReplicationPool for the healReplication catch-up pass
+        self._replication = replication
         # data-update tracker: local instance, or a callable
         # (oldest, current) -> BloomResponse that unions the cluster's
         # filters (distributed mode); cycle_bloom wins when both given
@@ -365,15 +371,18 @@ class DataCrawler:
         return None
 
     def _bucket_needs_sweep(self, bucket: str) -> bool:
-        """Buckets where a sweep does WORK (lifecycle, FIFO quota) are
-        never bloom-skipped: time passing changes what those subsystems
-        must do even with zero writes."""
+        """Buckets where a sweep does WORK (lifecycle, FIFO quota,
+        replication catch-up) are never bloom-skipped: time passing
+        changes what those subsystems must do even with zero writes."""
         if self._bucket_lifecycle(bucket) is not None:
             return True
         from ..objectlayer import quota as quotamod
 
         qcfg = quotamod.config_for(self._meta, bucket)
-        return qcfg is not None and qcfg.quota_type == "fifo"
+        if qcfg is not None and qcfg.quota_type == "fifo":
+            return True
+        repl = self._replication
+        return repl is not None and repl.config_for(bucket) is not None
 
     def _crawl_locked(self, prev: "DataUsage | None" = None) -> DataUsage:
         # re-read the persisted snapshot (unless the caller already
@@ -446,6 +455,8 @@ class DataCrawler:
         qcfg = quotamod.config_for(self._meta, bucket)
         fifo = qcfg is not None and qcfg.quota_type == "fifo"
         latest: list = []
+        repl = self._replication
+        repl_cfg = repl.config_for(bucket) if repl is not None else None
 
         def process_key(rows: list) -> None:
             """All versions of ONE key (journal order: newest first);
@@ -485,6 +496,17 @@ class DataCrawler:
                         self._probe_heal(bucket, oi)
                     if fifo:
                         latest.append(oi)
+                    # replication catch-up: PENDING/FAILED never made
+                    # it to the target - queue it again
+                    if repl_cfg is not None:
+                        status = oi.user_defined.get(
+                            "x-amz-replication-status", ""
+                        )
+                        if status in (
+                            "PENDING", "FAILED"
+                        ) and repl_cfg.rule_for(oi.name):
+                            repl.queue(bucket, oi.name, oi.version_id)
+                            self._count("replication_requeued")
 
         key_marker = vid_marker = ""
         group: list = []

@@ -44,9 +44,16 @@ answers 307 to it, at ``MINIO_TPU_FEDERATION_HOST`` (this listener's
 host by default) and this listener's scheme (``MINIO_TPU_TLS=on``:
 https).
 
+``MINIO_TPU_CACHE_DRIVES`` (comma-separated directories) puts the disk
+cache (objectlayer/cache.py) in front of the object layer, each drive
+holding up to ``MINIO_TPU_CACHE_QUOTA_MB``; the crawler re-queues
+replication that is still PENDING or FAILED (bucket replication,
+replication/replicate.py), and ``MINIO_TPU_NOTIFY_*`` configures the
+event targets (event/targets.py).
+
 What this package has not ported exits at boot with a message naming
-its slice, instead of being ignored: the gateway, a single drive (FS
-mode) and the disk cache (9c).
+its slice, instead of being ignored: the gateway and a single drive (FS
+mode), both slice 9c.
 """
 
 from __future__ import annotations
@@ -55,12 +62,6 @@ import argparse
 import os
 import signal
 import sys
-
-# env knobs of features this package has not ported: name -> (what,
-# slice).  A non-empty value exits at boot.
-UNPORTED_ENV = {
-    "MINIO_TPU_CACHE_DRIVES": ("the disk cache (objectlayer/cache.py)", "9c"),
-}
 
 CODEC_DEVICES = ("cuda", "cpu")
 
@@ -115,10 +116,6 @@ def refuse_unported(zone_args: list[str]) -> None:
     """Exit, naming the slice, for what this package does not serve."""
     if zone_args and zone_args[0] == "gateway":
         raise _refuse("gateway mode (server gateway nas|s3)", "9c")
-    for name, (what, slice_name) in UNPORTED_ENV.items():
-        val = (os.environ.get(name) or "").strip()
-        if val and val.lower() not in ("0", "off", "false", "no"):
-            raise _refuse(f"{what} ({name})", slice_name)
     flat = [a for g in group_zone_args(zone_args) for a in g]
     if len(flat) == 1 and "://" not in flat[0]:
         raise _refuse("the single-drive FS mode (objectlayer/fs.py)", "9c")
@@ -355,6 +352,7 @@ def start_crawler(srv, ol, nslock, tracker_root, distributed: bool):
         ),
         events=srv.events,
         ensure_event_rules=srv.ensure_event_rules,
+        replication=srv.replication,
         cycle_bloom=cluster_bloom,
         # heal-on-crawl: full sweeps probe shard health and feed the
         # MRF heal queue (data scanner healObject path)
@@ -554,6 +552,15 @@ def main(argv=None) -> int:
         device = want
         ol = build(device)
         srv.object_layer = ol
+    # optional SSD read cache in front of the object layer
+    # (disk-cache.go CacheObjectLayer, server-main.go:531-540); the
+    # subsystems below keep the bare layer
+    from ..objectlayer.cache import cache_from_env
+
+    ol_front = cache_from_env(ol)
+    if ol_front is not ol:
+        print("disk cache enabled")
+    srv.object_layer = ol_front
     # federation: a shared record dir plays etcd's role for bucket
     # DNS (cmd/config/etcd/dns); every cluster pointing at the same
     # dir shares one global bucket namespace

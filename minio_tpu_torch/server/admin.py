@@ -7,15 +7,17 @@ this node: server and storage info, heal and the background-heal
 status, service stop/restart, codec kernel telemetry, profiling, the
 runtime KV config, IAM management (users, groups, service accounts,
 canned policies), the KMS key status, the server-loop status and
-wedge, the read cache's stats and clear, remote fault injection,
-healthinfo, bucket quotas, and the data crawler's usage snapshot and
-forced crawl.  In a cluster, info, healthinfo, the background-heal status,
+wedge, the read cache's stats and clear, the disk cache's stats,
+remote fault injection, healthinfo, bucket quotas, the replication
+remote targets, and the data crawler's usage snapshot and forced
+crawl.  ``listen-stats`` (the live ListenBucketNotification streams and
+the peers' remote listeners held here) is this package's own, like the
+launch counts in ``kernel-stats``.  In a cluster, info, healthinfo, the background-heal status,
 top-locks and profiling gather every peer's answer over the peer plane
 (cluster/peer.py), and service stop/restart is sent to the peers first.
 
-A route of a feature this package has not ported answers S3
-``NotImplemented`` naming the slice that ports it (``UNPORTED``), so
-no admin call is silently ignored.
+An unknown route answers ``MethodNotAllowed``, so no admin call is
+silently ignored.
 """
 
 from __future__ import annotations
@@ -30,7 +32,6 @@ from ..crawler import DataUsage
 from ..heal.sequence import AllHealState, HealSequence, HealSequenceError
 from ..iam.policy import Policy, PolicyError
 from ..iam.sys import IAMError, PolicyNotFound, UserNotFound
-from ..objectlayer.api import unported
 from ..objectlayer.quota import QuotaConfig, QuotaError
 from .s3errors import S3Error
 
@@ -44,14 +45,6 @@ _heal_state_lock = threading.Lock()
 PREFIX = "/minio-tpu/admin/v1"
 VERSION = "0.3.0"
 _START = time.time()
-
-# admin routes of features not ported yet: route -> (what, slice): the
-# disk cache and the replication targets are slice 9c.
-UNPORTED = {
-    ("GET", "cache-stats"): ("the disk cache", "9c"),
-    ("GET", "list-remote-targets"): ("bucket replication targets", "9c"),
-    ("PUT", "set-remote-target"): ("bucket replication targets", "9c"),
-}
 
 
 class AdminAPI:
@@ -69,9 +62,6 @@ class AdminAPI:
         if ol is None:
             raise S3Error("ServerNotInitialized")
         route = (method, tail)
-        if route in UNPORTED:
-            what, slice_name = UNPORTED[route]
-            raise unported(what, slice_name)
         if route == ("GET", "info"):
             return 200, self._info(ol)
         if route == ("GET", "storageinfo"):
@@ -108,6 +98,23 @@ class AdminAPI:
             return 200, _json(doc)
         if route == ("GET", "top-locks"):
             return 200, self._top_locks()
+        if route == ("GET", "listen-stats"):
+            # this package's own instrumentation (the JAX package has no
+            # such route): every subscription on this node's notifier
+            # (local streams and peers' remote listeners), and the latter
+            plane = self.s3.peer_rest
+            remote = plane.listeners() if plane is not None else {}
+            return 200, _json({
+                "subscriptions": self.s3.events.listeners.num_subscribers,
+                "remote": len(remote),
+                "remote_buckets": sorted(remote.values()),
+            })
+        if route == ("GET", "cache-stats"):
+            # the disk cache (objectlayer/cache.py) when it fronts the layer
+            stats_fn = getattr(ol, "cache_stats", None)
+            if stats_fn is None:
+                return 200, _json({"enabled": False})
+            return 200, _json({"enabled": True, **stats_fn()})
         if route == ("GET", "datausage"):
             crawler = self.s3.crawler
             if crawler is None:
@@ -138,6 +145,45 @@ class AdminAPI:
                 bucket, quota_json=cfg.to_json()
             )
             return 200, b"{}"
+        # replication remote targets (admin SetRemoteTarget)
+        if route == ("GET", "list-remote-targets"):
+            bucket = _req(q, "bucket")
+            ol.get_bucket_info(bucket)
+            raw = self.s3.bucket_meta.get(bucket).replication_targets_json
+            return 200, (raw.encode() if raw else b"[]")
+        if route == ("PUT", "set-remote-target"):
+            bucket = _req(q, "bucket")
+            ol.get_bucket_info(bucket)
+            doc = _body_json(body)
+            for field in ("endpoint", "access_key", "secret_key",
+                          "target_bucket"):
+                if not doc.get(field):
+                    raise S3Error(
+                        "InvalidArgument", f"missing {field}"
+                    )
+            raw = self.s3.bucket_meta.get(
+                bucket
+            ).replication_targets_json
+            try:
+                docs = json.loads(raw) if raw else []
+            except ValueError:
+                docs = []
+            docs = [
+                d
+                for d in docs
+                if d.get("target_bucket") != doc["target_bucket"]
+            ] + [doc]
+            self.s3.bucket_meta.update(
+                bucket, replication_targets_json=json.dumps(docs)
+            )
+            return 200, _json(
+                {
+                    "arn": (
+                        "arn:minio:replication:::"
+                        + doc["target_bucket"]
+                    )
+                }
+            )
         if tail.startswith("fault/"):
             return self._fault(method, tail, body)
         # tiered read cache (cache/tiered.py): device+host tiers of

@@ -30,11 +30,15 @@ PUT-time lock and tag headers, the WORM guard on deletes, hard bucket
 quotas on every write path, federation (a bucket owned by another
 cluster sharing the bucket DNS answers 307 to its owner; creation is
 unique across the federation; ListBuckets is the union), and the admin
-API (server/admin.py) with its trace and console streams.  Every route of a feature not ported yet
-answers S3 ``NotImplemented`` with a message naming the slice that
-ports it, and every PUT-path seam (replication, events) raises the same
-way when the request or the bucket's metadata document asks for such a
-feature - nothing is silently ignored.
+API (server/admin.py) with its trace and console streams, bucket event
+notification (``?notification``, the ListenBucketNotification stream
+``?events``, cluster-wide over the peer plane, and the targets of
+``MINIO_TPU_NOTIFY_*``), and bucket replication (``?replication``; PUT,
+copy, Complete and POST policy stamp ``x-amz-replication-status:
+PENDING`` and queue the version on the lazy ``S3Server.replication``
+pool).  Every route of a feature not ported yet (the web and console
+plane, STS) answers S3 ``NotImplemented`` with a message naming the
+slice that ports it - nothing is silently ignored.
 """
 
 from __future__ import annotations
@@ -64,6 +68,7 @@ from ..objectlayer.api import (
     VersionNotFound,
 )
 from ..objectlayer.bucket_meta import BucketMetadataSys
+from ..replication.replicate import META_REPLICATION_STATUS, ReplicationPool
 from ..utils import tags as tagmod
 from ..utils.hashreader import HashReader
 from ..utils.xmlutil import strip_ns
@@ -94,14 +99,6 @@ DEFAULT_SERVER_MODE = "async"
 WEB_RPC_PATH = "/minio-tpu/webrpc"
 WEB_PREFIX = "/minio-tpu/web"
 WEB_CONSOLE_PATH = "/minio-tpu/console"
-
-# the bucket-metadata fields whose features are not ported yet, with the
-# slice that ports each: a PUT, DELETE or GET on a bucket whose document
-# sets one of these raises instead of ignoring the configuration
-UNPORTED_BUCKET_CONFIG = {
-    "replication_xml": ("bucket replication", "9c"),
-    "notification_xml": ("bucket event notification", "9c"),
-}
 
 
 def unported(what: str, slice_name: str) -> NotImplementedError:
@@ -250,12 +247,16 @@ class S3Server:
         # FaultDisk per local drive root, set by the server main under
         # MINIO_TPU_FAULT_INJECTION (admin fault/* and loops/wedge)
         self.fault_disks: "dict | None" = None
-        # bucket event notifications (pkg/event): a configured target
-        # raises here (slice 9c); rules load lazily per bucket
+        # bucket event notifications (pkg/event): targets from env,
+        # rules loaded lazily per bucket from the metadata subsystem
         from ..event import EventNotifier, targets_from_env
 
         self.events = EventNotifier(targets_from_env()).start()
         self._event_rules_loaded: "set[str]" = set()
+        # the replication pool starts at its first use; the lock keeps two
+        # first requests from starting two pools (shutdown stops one)
+        self._replication_pool = None
+        self._replication_mu = threading.Lock()
         # tracing / audit / profiling / console capture (SURVEY §5)
         from ..utils.profiling import Profiler
         from .trace import AuditLog, ConsoleCapture, Tracer
@@ -271,6 +272,8 @@ class S3Server:
         # concurrent S3 requests; excess waits up to the deadline then
         # gets 503.  0 = unlimited.
         self._inflight = 0
+        # set at shutdown: long-lived streams (listen notifications)
+        # must end so the drain window isn't spent waiting on them
         self.draining = False
         self._adm_mu = threading.Lock()
         self._adm_cv = threading.Condition(self._adm_mu)
@@ -367,6 +370,14 @@ class S3Server:
     def invalidate_event_rules(self, bucket: str) -> None:
         """Peer invalidation path: re-read the config on next event."""
         self._event_rules_loaded.discard(bucket)
+
+    @property
+    def replication(self):
+        """Async replication pool, lazily started (bucket-replication)."""
+        with self._replication_mu:
+            if self._replication_pool is None:
+                self._replication_pool = ReplicationPool(self).start()
+            return self._replication_pool
 
     @property
     def config(self):
@@ -475,8 +486,19 @@ class S3Server:
                         "background worker stop failed",
                         extra=kv(worker=attr, err=str(exc)),
                     )
-        # the peer plane: the notifier's fan-out pool and connections,
-        # then the IAM refresher (its reloads would hit a stopped layer)
+        # replication workers are per-server threads, not process
+        # singletons: leaving them running after shutdown is a leak
+        with self._replication_mu:
+            repl = self._replication_pool
+        if repl is not None:
+            try:
+                repl.stop()
+            except Exception as exc:
+                _log.debug("replication pool stop failed",
+                           extra=kv(err=str(exc)))
+        # the peer plane: the notifier's fan-out pool and connections
+        # (the peer server's close drops its remote listeners), then the
+        # IAM refresher (its reloads would hit a stopped layer)
         for attr in ("peer_notifier", "peer_rest"):
             obj = getattr(self, attr, None)
             if obj is not None:
@@ -1276,28 +1298,6 @@ class _Handler(BaseHTTPRequestHandler):
                 "NotImplemented", f"?{sorted(unknown)[0]} is not supported"
             )
 
-    # bucket sub-resources of features not ported yet, with the slice
-    # that ports each; a request naming several answers for the first
-    _UNPORTED_BUCKET = {
-        "GET": (
-            ("events", "ListenBucketNotification", "9c"),
-            ("notification", "bucket notification", "9c"),
-            ("replication", "bucket replication", "9c"),
-        ),
-        "PUT": (
-            ("notification", "bucket notification", "9c"),
-            ("replication", "bucket replication", "9c"),
-        ),
-        "DELETE": (
-            ("replication", "bucket replication", "9c"),
-        ),
-    }
-
-    def _refuse_unported(self, table, method: str, query) -> None:
-        for sub, what, slice_name in table.get(method, ()):
-            if sub in query:
-                raise unported(what, slice_name)
-
     def _dispatch(self, path: str, query):
         parts = path.lstrip("/").split("/", 1)
         bucket = parts[0]
@@ -1380,8 +1380,9 @@ class _Handler(BaseHTTPRequestHandler):
             raise S3Error("MethodNotAllowed")
 
         # bucket-level
-        self._refuse_unported(self._UNPORTED_BUCKET, m, query)
         if m == "GET":
+            if "events" in query:
+                return self._listen_notification(bucket, query)
             if "location" in query:
                 return self._respond(200, xmlr.location_xml(""))
             if "policy" in query:
@@ -1405,6 +1406,8 @@ class _Handler(BaseHTTPRequestHandler):
                     + xmlr.S3_NS.encode()
                     + b'">' + inner + b"</VersioningConfiguration>",
                 )
+            if "notification" in query:
+                return self._get_bucket_notification(bucket)
             if "lifecycle" in query:
                 return self._get_bucket_lifecycle(bucket)
             if "tagging" in query:
@@ -1448,6 +1451,8 @@ class _Handler(BaseHTTPRequestHandler):
             if "website" in query:
                 ol.get_bucket_info(bucket)
                 raise S3Error("NoSuchWebsiteConfiguration")
+            if "replication" in query:
+                return self._get_bucket_replication(bucket)
             self._reject_subresources(query, self._BUCKET_SUBRESOURCES)
             return self._list_objects(bucket, query)
         if m == "HEAD":
@@ -1458,6 +1463,10 @@ class _Handler(BaseHTTPRequestHandler):
                 return self._put_bucket_policy(bucket, self._read_body())
             if "versioning" in query:
                 return self._put_bucket_versioning(
+                    bucket, self._read_body()
+                )
+            if "notification" in query:
+                return self._put_bucket_notification(
                     bucket, self._read_body()
                 )
             if "lifecycle" in query:
@@ -1476,6 +1485,10 @@ class _Handler(BaseHTTPRequestHandler):
                 )
             if "acl" in query:
                 return self._put_acl(bucket, "")
+            if "replication" in query:
+                return self._put_bucket_replication(
+                    bucket, self._read_body()
+                )
             self._reject_subresources(query, self._BUCKET_SUBRESOURCES)
             return self._make_bucket(bucket)
         if m == "DELETE":
@@ -1495,6 +1508,8 @@ class _Handler(BaseHTTPRequestHandler):
                 ol.get_bucket_info(bucket)
                 self.s3.bucket_meta.update(bucket, sse_config_xml="")
                 return self._respond(204)
+            if "replication" in query:
+                return self._delete_bucket_replication(bucket)
             self._reject_subresources(query, self._BUCKET_SUBRESOURCES)
             self._bucket_delete(bucket)
             return self._respond(204)
@@ -1613,21 +1628,129 @@ class _Handler(BaseHTTPRequestHandler):
             )
         self._respond(200, headers={"Location": f"/{bucket}"})
 
-    def _refuse_bucket_config(self, bucket: str, *fields: str) -> None:
-        """The seam every object route passes: the bucket's metadata
-        document (a small erasure GET of ``.sys``, cached for
-        ``bucket_meta.CACHE_TTL_S``) must not configure a feature that
-        is not ported yet - it would be silently ignored otherwise."""
-        try:
-            bm = self.s3.bucket_meta.get(bucket)
-        except Exception:  # noqa: BLE001 - missing bucket: no document
-            return
-        for field in fields:
-            if getattr(bm, field):
-                what, slice_name = UNPORTED_BUCKET_CONFIG[field]
-                raise unported(what, slice_name)
-
     # -- service ----------------------------------------------------------
+
+    def _listen_notification(self, bucket: str, query) -> None:
+        """ListenBucketNotification (listen-notification-handlers.go):
+        stream matching events to the client as JSON lines with
+        whitespace keep-alives, until it disconnects.
+
+        CLUSTER-WIDE: the subscription fans out over the peer plane
+        (listenon/listenbuf/listenoff RPCs - the Listen peer RPC of
+        cmd/notification.go:440), so a watcher on this node sees
+        events originated on every node; remote records are polled by
+        per-peer threads and merged into the same stream.
+        """
+        import json as _json
+        import uuid as _uuid
+
+        from ..event.event import EventName
+        from ..event.event import matches_filter as ev_matches
+        from ..event.event import to_listen_record
+
+        self.s3.object_layer.get_bucket_info(bucket)
+        prefix = query.get("prefix", [""])[0]
+        suffix = query.get("suffix", [""])[0]
+        names: "set[str]" = set()
+        for raw in query.get("events", [""]):
+            for part in raw.split(","):
+                part = part.strip()
+                if not part:
+                    continue
+                if not EventName.valid(part):
+                    raise S3Error(
+                        "InvalidArgument", f"unknown event {part!r}"
+                    )
+                names.update(EventName.expand(part))
+        self._finish_body()
+        sub = self.s3.events.subscribe_listener(bucket)
+        # remote fan-out: register on every peer, poll each from its
+        # own thread so one slow peer never stalls the stream
+        import collections as _collections
+        import threading as _threading
+
+        remote_lines: "_collections.deque" = _collections.deque(
+            maxlen=10_000
+        )
+        stop_remote = _threading.Event()
+        pollers: "list[_threading.Thread]" = []
+        lid = _uuid.uuid4().hex
+        notifier = getattr(self.s3, "peer_notifier", None)
+
+        def poll_peer(client):
+            registered = False
+            while not stop_remote.is_set():
+                try:
+                    if not registered:
+                        client.listen_on(
+                            lid, bucket, prefix, suffix, names
+                        )
+                        registered = True
+                    for rec in client.listen_buf(lid):
+                        remote_lines.append(
+                            _json.dumps(rec).encode() + b"\n"
+                        )
+                except Exception:  # noqa: BLE001
+                    registered = False  # peer bounced; re-register
+                stop_remote.wait(0.25)
+            if registered:
+                try:
+                    client.listen_off(lid)
+                except Exception as exc:
+                    _log.debug("remote listen_off failed", extra=kv(err=str(exc)))
+
+        for client in getattr(notifier, "clients", []):
+            t = _threading.Thread(
+                target=poll_peer, args=(client,), daemon=True,
+                name=f"listen-poll-{client.host}:{client.port}",
+            )
+            t.start()
+            pollers.append(t)
+        self.send_response(200)
+        self.send_header("Server", "MinIO-TPU")
+        self.send_header("Content-Type", "application/json")
+        self.send_header("Connection", "close")
+        self.close_connection = True
+        self.end_headers()
+        self._last_status = 200
+        last_keepalive = _time.monotonic()
+        try:
+            while not self.s3.draining:
+                ev = sub.get(timeout=0.5)
+                now = _time.monotonic()
+                # keep-alive on EVERY idle-enough iteration: a steady
+                # stream of filtered-out events must not starve the
+                # client of bytes (proxies kill silent connections)
+                if now - last_keepalive >= 5.0:
+                    self.wfile.write(b" ")
+                    self.wfile.flush()
+                    last_keepalive = now
+                while remote_lines:
+                    line = remote_lines.popleft()
+                    self.wfile.write(line)
+                    self.wfile.flush()
+                    self._resp_bytes += len(line)
+                    last_keepalive = now
+                if ev is None:
+                    continue
+                if not ev_matches(ev, bucket, names, prefix, suffix):
+                    continue
+                line = _json.dumps(
+                    to_listen_record(ev)
+                ).encode() + b"\n"
+                self.wfile.write(line)
+                self.wfile.flush()
+                self._resp_bytes += len(line)
+                last_keepalive = now
+        except OSError:
+            pass  # client went away: the normal way this ends
+        finally:
+            stop_remote.set()
+            # join so listen_off reliably fires before the handler
+            # returns (each poller wakes within 0.25s)
+            for t in pollers:
+                t.join(timeout=2)
+            self.s3.events.unsubscribe_listener(bucket, sub)
 
     def _list_buckets(self):
         buckets = self.s3.object_layer.list_buckets()
@@ -1765,6 +1888,34 @@ class _Handler(BaseHTTPRequestHandler):
         )
         self._respond(200)
 
+    # -- bucket notification (bucket-notification-handlers.go) ------------
+
+    def _get_bucket_notification(self, bucket: str):
+        self.s3.object_layer.get_bucket_info(bucket)
+        raw = self.s3.bucket_meta.get(bucket).notification_xml
+        if raw:
+            return self._respond(200, raw.encode())
+        from ..event.rules import NotificationConfig
+
+        self._respond(200, NotificationConfig().to_xml())
+
+    def _put_bucket_notification(self, bucket: str, body: bytes):
+        from ..event.rules import NotificationConfig, NotificationError
+
+        self.s3.object_layer.get_bucket_info(bucket)
+        try:
+            cfg = NotificationConfig.from_xml(body)
+            # validates ARNs against registered targets AND installs
+            # the rules (config.Validate + bucketRulesMap update)
+            self.s3.events.set_bucket_config(bucket, cfg)
+        except NotificationError as e:
+            raise S3Error("InvalidArgument", str(e)) from None
+        self.s3.bucket_meta.update(
+            bucket, notification_xml=cfg.to_xml().decode()
+        )
+        self.s3.mark_event_rules_loaded(bucket)
+        self._respond(200)
+
     # -- bucket lifecycle (bucket-lifecycle-handlers.go) ------------------
 
     def _get_bucket_lifecycle(self, bucket: str):
@@ -1835,6 +1986,36 @@ class _Handler(BaseHTTPRequestHandler):
             bucket, object_lock_xml=cfg.to_xml().decode()
         )
         self._respond(200)
+
+    # -- bucket replication config (the document; the async engine is
+    #    replication/replicate.py behind S3Server.replication) -----------
+
+    def _get_bucket_replication(self, bucket: str):
+        self.s3.object_layer.get_bucket_info(bucket)
+        raw = self.s3.bucket_meta.get(bucket).replication_xml
+        if not raw:
+            raise S3Error("ReplicationConfigurationNotFoundError")
+        self._respond(200, raw.encode())
+
+    def _put_bucket_replication(self, bucket: str, body: bytes):
+        from ..replication.config import ReplicationConfig, ReplicationError
+
+        self.s3.object_layer.get_bucket_info(bucket)
+        if not self.s3.bucket_meta.get(bucket).versioning_enabled:
+            raise S3Error("ReplicationSourceNotVersionedError")
+        try:
+            cfg = ReplicationConfig.from_xml(body)
+        except ReplicationError as e:
+            raise S3Error("MalformedXML", str(e)) from None
+        self.s3.bucket_meta.update(
+            bucket, replication_xml=cfg.to_xml().decode()
+        )
+        self._respond(200)
+
+    def _delete_bucket_replication(self, bucket: str):
+        self.s3.object_layer.get_bucket_info(bucket)
+        self.s3.bucket_meta.update(bucket, replication_xml="")
+        self._respond(204)
 
     # -- ACL stubs (cmd/acl-handlers.go: static FULL_CONTROL owner) -------
 
@@ -2109,8 +2290,6 @@ class _Handler(BaseHTTPRequestHandler):
             )
             for obj in root.findall(f"{ns}Object")
         ]
-        # every removal is an event: the event-target seam
-        self._refuse_bucket_config(bucket, "notification_xml")
         for key, vid in objs:
             # per-key authorization (DeleteMultipleObjectsHandler checks
             # DeleteObject for every named key)
@@ -2232,6 +2411,11 @@ class _Handler(BaseHTTPRequestHandler):
                 "x-amz-object-lock-"
             ):
                 h[k] = v
+        # the replication status rides GET and HEAD as in the reference
+        # (setObjectHeaders); the JAX package keeps it internal
+        status = info.user_defined.get(META_REPLICATION_STATUS)
+        if status:
+            h[META_REPLICATION_STATUS] = status
         if info.version_id:
             h["x-amz-version-id"] = info.version_id
         return h
@@ -2299,7 +2483,6 @@ class _Handler(BaseHTTPRequestHandler):
         block-by-block into wfile - constant memory per request."""
         ol = self.s3.object_layer
         version_id = query.get("versionId", [""])[0]
-        self._refuse_bucket_config(bucket, "notification_xml")
         info, sse = self._read_info_and_sse(ol, bucket, key, version_id)
         self._check_conditions(info)
         rng = self._parse_range(info.size)
@@ -2350,7 +2533,6 @@ class _Handler(BaseHTTPRequestHandler):
 
     def _head_object(self, bucket, key, query):
         version_id = query.get("versionId", [""])[0]
-        self._refuse_bucket_config(bucket, "notification_xml")
         info, _sse = self._read_info_and_sse(
             self.s3.object_layer, bucket, key, version_id
         )  # key required (and checked) for HEAD too
@@ -2428,23 +2610,26 @@ class _Handler(BaseHTTPRequestHandler):
         self, bucket, key, hreader, size, meta,
         versioned=False, event_name=None,
     ):
-        """The PUT invariant chain of the JAX package's _checked_put -
-        size cap, quota, lock/tagging defaults, replication,
-        bucket-default or requested SSE, events - shared by the S3 PUT
-        and POST-policy paths; the replication and event-target seams
-        raise when the bucket's metadata document configures them, so a
-        PUT stores what the JAX package stores."""
+        """The full PUT invariant chain - size cap, quota,
+        lock/tagging defaults, replication stamp + queue,
+        bucket-default/requested SSE, event - shared by the S3 PUT and
+        POST-policy paths so the invariants cannot drift between them
+        (objectPutValidate* in the reference's object-handlers.go)."""
         if size > MAX_OBJECT_SIZE:
             raise S3Error("EntityTooLarge")
-        self._refuse_bucket_config(bucket, *UNPORTED_BUCKET_CONFIG)
         quotamod.enforce_put(self.s3, bucket, size)
         meta.update(self._put_lock_and_tag_meta(bucket, key))
+        replicate = self.s3.replication.should_replicate(bucket, key)
+        if replicate:
+            meta[META_REPLICATION_STATUS] = "PENDING"
         sse = self._request_sse(bucket)
         # transparent compression (MINIO_TPU_COMPRESS) is decided inside
         # the object layer so POST-policy/multipart/copy share the seam
         info = self.s3.object_layer.put_object(
             bucket, key, hreader, size, meta, versioned=versioned, sse=sse,
         )
+        if replicate:
+            self.s3.replication.queue(bucket, key, info.version_id)
         from ..event.event import EventName
 
         self._notify(
@@ -2666,7 +2851,6 @@ class _Handler(BaseHTTPRequestHandler):
         # versioned bucket is always allowed (bucket-object-lock.go:83)
         if version_id or not (versioned or suspended):
             self._enforce_worm(bucket, key, version_id)
-        self._refuse_bucket_config(bucket, "notification_xml")
         hdrs: dict = {}
         try:
             info = self.s3.object_layer.delete_object(
@@ -2707,7 +2891,6 @@ class _Handler(BaseHTTPRequestHandler):
                 "InvalidRequest",
                 "self-copy requires x-amz-metadata-directive: REPLACE",
             )
-        self._refuse_bucket_config(bucket, *UNPORTED_BUCKET_CONFIG)
         # destination-bucket lock defaults / explicit lock headers and
         # REPLACE-directive tags stamp the new version
         lock_tag = self._put_lock_and_tag_meta(bucket, key)
@@ -2717,8 +2900,11 @@ class _Handler(BaseHTTPRequestHandler):
             src_bucket, src_key
         )
         sse_dst = self._request_sse(bucket)
-        # the quota applies to copies exactly like PUTs
+        # quota + replication apply to copies exactly like PUTs
         quotamod.enforce_put(self.s3, bucket, src_info.size)
+        replicate = self.s3.replication.should_replicate(bucket, key)
+        if replicate:
+            lock_tag = {**lock_tag, META_REPLICATION_STATUS: "PENDING"}
         meta = (
             self._collect_user_metadata()
             if directive == "REPLACE"
@@ -2732,11 +2918,13 @@ class _Handler(BaseHTTPRequestHandler):
             versioned=versioned, sse_src=sse_src, sse=sse_dst,
         )
         if meta is None and lock_tag:
-            # COPY directive keeps source metadata; lock stamps still
-            # apply to the fresh destination version
+            # COPY directive keeps source metadata; lock/replication
+            # stamps still apply to the fresh destination version
             self.s3.object_layer.update_object_meta(
                 bucket, key, lock_tag, info.version_id
             )
+        if replicate:
+            self.s3.replication.queue(bucket, key, info.version_id)
         hdrs = (
             {"x-amz-version-id": info.version_id}
             if info.version_id
@@ -2759,9 +2947,10 @@ class _Handler(BaseHTTPRequestHandler):
         # (checkPutObjectLockAllowed in NewMultipartUploadHandler), and
         # so does replication; SSE is sealed once per upload and the
         # object layer decides compression once per upload
-        self._refuse_bucket_config(bucket, "replication_xml")
         meta = self._collect_user_metadata()
         meta.update(self._put_lock_and_tag_meta(bucket, key))
+        if self.s3.replication.should_replicate(bucket, key):
+            meta[META_REPLICATION_STATUS] = "PENDING"
         sse = self._request_sse(bucket)
         uid = self.s3.object_layer.new_multipart_upload(
             bucket, key, meta, sse
@@ -2881,14 +3070,12 @@ class _Handler(BaseHTTPRequestHandler):
                     (pe.findtext(f"{ns}ETag") or "").strip('"'),
                 )
             )
-        # replication and the completion event are the seams here
-        self._refuse_bucket_config(
-            bucket, "replication_xml", "notification_xml"
-        )
         versioned, _ = self._versioning(bucket)
         info = self.s3.object_layer.complete_multipart_upload(
             bucket, key, uid, parts, versioned=versioned
         )
+        if self.s3.replication.should_replicate(bucket, key):
+            self.s3.replication.queue(bucket, key, info.version_id)
         from ..event.event import EventName
 
         self._notify(

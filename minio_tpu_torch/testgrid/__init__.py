@@ -8,9 +8,6 @@ or cleanly absent, no torn xl.meta on any drive, breakers tripping on
 the faulted node and recovering half-open.  The grid itself lives in
 scenarios.py; the interpreter in engine.py.  The nodes run their codec
 on the device ``MINIO_ERASURE_BACKEND`` names (the card by default).
-The replication verbs wait for slice 9c and refuse, so the one cell
-that replicates (``replication_lag_churn``) stops at its first such
-step.
 """
 
 from .engine import Fault, Scenario, run_scenario

@@ -20,10 +20,6 @@ Quorum invariants checked after every scenario:
   observer node's circuit breaker for the faulted node's drives must
   reach TRIPPED while the fault holds and return to HEALTHY after it
   lifts (half-open probe recovery).
-
-The replication verbs (``enable_replication``, ``await_replication``)
-need bucket replication, which is slice 9c: until it is ported they
-raise NotImplementedError naming that slice.
 """
 
 from __future__ import annotations
@@ -513,17 +509,33 @@ def _step_make_bucket(ctx: _Ctx, node: int, name: str) -> None:
         raise AssertionError(f"make_bucket {name}: HTTP {status}")
 
 
-REPLICATION_SLICE = "9c"
+_REPL_XML = (
+    b"<ReplicationConfiguration>"
+    b"<Rule><Status>Enabled</Status><Priority>1</Priority>"
+    b"<Prefix></Prefix>"
+    b"<Destination><Bucket>%s</Bucket></Destination></Rule>"
+    b"</ReplicationConfiguration>"
+)
 
 
 def _step_enable_replication(ctx: _Ctx, node: int, dst: str) -> None:
     """Versioning + a catch-all replication rule on the grid bucket,
-    targeting a local destination bucket: bucket replication is not
-    ported yet."""
-    raise NotImplementedError(
-        "bucket replication is not ported to minio_tpu_torch yet "
-        f"(slice {REPLICATION_SLICE})"
+    targeting a local destination bucket."""
+    status, _, body = _request(
+        ctx, node, "PUT", f"/{BUCKET}", query={"versioning": ""},
+        body=b"<VersioningConfiguration><Status>Enabled</Status>"
+        b"</VersioningConfiguration>",
     )
+    if status != 200:
+        raise AssertionError(f"enable versioning: HTTP {status}")
+    status, _, body = _request(
+        ctx, node, "PUT", f"/{BUCKET}", query={"replication": ""},
+        body=_REPL_XML % dst.encode(),
+    )
+    if status != 200:
+        raise AssertionError(
+            f"replication config: HTTP {status}: {body[:200]!r}"
+        )
 
 
 def _step_await_replication(
@@ -534,10 +546,28 @@ def _step_await_replication(
     timeout_s: float = 90.0,
 ) -> None:
     """Poll the destination bucket until every key reads back one of
-    its acceptable payloads: bucket replication is not ported yet."""
-    raise NotImplementedError(
-        "bucket replication is not ported to minio_tpu_torch yet "
-        f"(slice {REPLICATION_SLICE})"
+    its acceptable payloads — the async queue plus the crawler's
+    PENDING/FAILED catch-up must converge with no manual kick."""
+    deadline = time.monotonic() + timeout_s
+    lagging: "dict[str, object]" = {}
+    while time.monotonic() < deadline:
+        lagging = {}
+        for key in keys:
+            ok_bodies = ctx.objects.get(key, [])
+            try:
+                status, _, body = _request(ctx, node, "GET", f"/{dst}/{key}")
+            except OSError:
+                lagging[key] = "transport"
+                continue
+            if status != 200:
+                lagging[key] = f"HTTP {status}"
+            elif body not in ok_bodies:
+                lagging[key] = f"stale body ({len(body)} bytes)"
+        if not lagging:
+            return
+        time.sleep(0.5)
+    raise AssertionError(
+        f"replication to {dst} never converged: {lagging}"
     )
 
 

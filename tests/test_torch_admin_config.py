@@ -311,19 +311,6 @@ def test_persisted_config_document_matches(servers, answers):
     assert docs["port"]["logger"]["audit"] == {"level": "debug"}
 
 
-@pytest.mark.parametrize(
-    "route", sorted(tadmin.UNPORTED), ids=lambda r: f"{r[0]} {r[1]}")
-def test_unported_admin_route_names_its_slice(servers, route):
-    method, tail = route
-    srv = servers["port"]
-    r = S3Client(srv.endpoint).request(method, f"{ADMIN}/{tail}",
-                                       query={"bucket": "adm"})
-    assert r.status == 501, r.body
-    assert b"<Code>NotImplemented</Code>" in r.body
-    slice_name = tadmin.UNPORTED[route][1]
-    assert f"(slice {slice_name})".encode() in r.body
-
-
 def _heal_sequence_answers(srv, route) -> list:
     """A heal sequence over bucket ``adm``: launched, polled by its token
     until it ends (or stopped, then stopped again on a path with no
@@ -381,15 +368,20 @@ def test_heal_sequence_route_matches(servers, route):
         assert got["port"][2][0] == 400
 
 
-# the routes slice 9c's first half and 9d's crawler serve, once refused:
-# (route, query, body), sent to both servers in this order with a data
-# crawler attached to each
+# the routes slice 9c and 9d's crawler serve, once refused: (route,
+# query, body), sent to both servers in this order with a data crawler
+# attached to each
 SERVED = [
     (("GET", "get-bucket-quota"), {"bucket": "adm"}, b""),
     (("PUT", "set-bucket-quota"), {"bucket": "adm"},
      b'{"quota": 100000, "quotatype": "hard"}'),
     (("GET", "datausage"), None, b""),
     (("POST", "crawl"), None, b""),
+    (("GET", "cache-stats"), None, b""),
+    (("PUT", "set-remote-target"), {"bucket": "adm"},
+     b'{"endpoint": "http://127.0.0.1:1", "access_key": "ak",'
+     b' "secret_key": "sk", "target_bucket": "far"}'),
+    (("GET", "list-remote-targets"), {"bucket": "adm"}, b""),
 ]
 
 
@@ -408,6 +400,7 @@ def served(servers):
         finally:
             srv.crawler = None
             _call(srv, "PUT", "set-bucket-quota", {"bucket": "adm"}, b"{}")
+            srv.bucket_meta.update("adm", replication_targets_json="")
         for key, (status, doc) in got.items():
             if isinstance(doc, dict):
                 doc.pop("last_update_ns", None)
@@ -430,6 +423,13 @@ def test_served_admin_route_matches(served, route):
     if route == ("PUT", "set-bucket-quota"):
         assert served["port"]["quota_after"] == served["jax"][
             "quota_after"] == (200, {"quota": 100000, "quotatype": "hard"})
+    if route == ("GET", "cache-stats"):
+        assert served["port"][route][1] == {"enabled": False}
+    if route == ("PUT", "set-remote-target"):
+        assert served["port"][route][1] == {
+            "arn": "arn:minio:replication:::far"}
+    if route == ("GET", "list-remote-targets"):
+        assert [d["target_bucket"] for d in served["port"][route][1]] == ["far"]
 
 
 @pytest.mark.parametrize("value,ok", [

@@ -12,9 +12,10 @@ The server runs as a subprocess with ``MINIO_ERASURE_BACKEND=cpu``:
   fresh-disk monitor and the heal routine;
 * SIGTERM drains and exits 0, printing ``shutdown complete``;
 * URL drive endpoints (one node, and two nodes sharing one endpoint
-  list), fault injection and federation (``MINIO_TPU_FEDERATION_DIR``:
-  a new bucket's record lands in the shared directory) boot and serve
-  (``SERVED``);
+  list), fault injection, federation (``MINIO_TPU_FEDERATION_DIR``:
+  a new bucket's record lands in the shared directory) and the disk
+  cache (``MINIO_TPU_CACHE_DRIVES``: a second GET is a hit in the admin
+  ``cache-stats``) boot and serve (``SERVED``);
 * each layout or env this package has not ported exits non-zero with a
   message naming its slice, and so does a codec device other than
   ``cuda`` or ``cpu`` (and ``cuda`` on a host without a card).
@@ -180,8 +181,6 @@ REFUSED = [
     # (id, args, env, text the message must hold)
     ("gateway", ["gateway", "nas", "/tmp/x"], {}, "(slice 9c)"),
     ("single_drive", ["{base}/solo"], {}, "(slice 9c)"),
-    ("disk_cache", ["{base}/d{{1...4}}"],
-     {"MINIO_TPU_CACHE_DRIVES": "{base}/cache"}, "(slice 9c)"),
     ("backend_tpu", ["{base}/d{{1...4}}"], {"MINIO_ERASURE_BACKEND": "tpu"},
      "cuda"),
     ("backend_auto", ["{base}/d{{1...4}}"], {"MINIO_ERASURE_BACKEND": "auto"},
@@ -250,8 +249,17 @@ def _served_federation(base: str):
         "federation": f"{base}/fed"}
 
 
+def _served_disk_cache(base: str):
+    port = _free_port()
+    env = _env(MINIO_TPU_CACHE_DRIVES=f"{base}/cache0,{base}/cache1",
+               MINIO_TPU_CACHE_QUOTA_MB="64")
+    return [_boot(port, [f"{base}/d{{1...4}}"], env)], [port], {
+        "disk_cache": [f"{base}/cache0", f"{base}/cache1"]}
+
+
 # layouts and env that once exited at boot and are served now
 SERVED = {
+    "disk_cache": _served_disk_cache,
     "url_endpoints": _served_url_endpoints,
     "second_node": _served_second_node,
     "fault_injection": _served_fault_injection,
@@ -282,6 +290,17 @@ def test_served_layouts_boot(tmp_path, case):
         if "faults" in want:
             r = first.request("GET", "/minio-tpu/admin/v1/fault/status")
             assert r.status == 200 and len(json.loads(r.body)) == 4
+        if "disk_cache" in want:
+            # the GET above was a miss that filled the cache; the next
+            # is a hit, and the entry's data file holds the object
+            r = last.get_object("bkt", "obj")
+            assert (r.status, r.body) == (200, data)
+            r = first.request("GET", "/minio-tpu/admin/v1/cache-stats")
+            doc = json.loads(r.body)
+            assert (doc["enabled"], doc["hits"], doc["misses"]) == (True, 1, 1)
+            assert [d["root"] for d in doc["drives"]] == want["disk_cache"]
+            assert sum(d["used"] for d in doc["drives"]) == len(data)
+            assert all(d["quota"] == 64 << 20 for d in doc["drives"])
         if "federation" in want:
             # the bucket is registered in the shared record directory
             # under this server's address
@@ -291,6 +310,8 @@ def test_served_layouts_boot(tmp_path, case):
                     for r in recs] == [("127.0.0.1", ports[0], "bkt", "http")]
     finally:
         outs = [_stop(p) for p in procs]
+    if "disk_cache" in want:
+        assert "disk cache enabled" in outs[0].splitlines()
     if "federation" in want:
         assert (f"federation: bucket DNS at {want['federation']} as "
                 f"127.0.0.1:{ports[0]}") in outs[0]

@@ -5,9 +5,14 @@ JAX package's.
   its own erasure set with its ``PeerRESTServer`` on the internode
   route: every ported method of ``_METHODS`` answers the port's client
   as the JAX node answers (volatile fields - pids, times, endpoints,
-  measured rates - compared by their keys); ``listenon``/``listenbuf``/
-  ``listenoff`` answer 501 naming slice 9c (``cyclebloom`` is held
+  measured rates - compared by their keys; ``cyclebloom`` is held
   against the JAX node in ``tests/test_torch_crawler.py``).
+* The cluster-wide listen (``listenon``/``listenbuf``/``listenoff``):
+  each package's client against each package's node, the same events
+  published into the node's notifier; the records drained, the filter
+  applied, the unsubscribe and the expired listener's error agree, and
+  the request and response bodies on the wire are byte-equal.  An
+  orphaned subscription is reaped by the TTL sweeper on both.
 * The port's ``PeerNotifier`` fans bucket-metadata, IAM and config
   changes out to both packages' nodes, and gathers their server infos
   and lock tables concurrently.
@@ -190,15 +195,124 @@ def test_profiling_rpcs_answer_as_jax(nodes):
     assert got["port"][1][0] == "ok" and got["port"][1][1]["profile"]
 
 
-@pytest.mark.parametrize("method,slice_name", [
-    ("listenon", "9c"), ("listenbuf", "9c"), ("listenoff", "9c"),
-])
-def test_unported_methods_name_their_slice(nodes, method, slice_name):
-    with pytest.raises(ConnectionError) as ei:
-        _client(nodes["port"]).call(method, {"id": "x"},
-                                    {"bucket": "bkt", "id": "x"})
-    assert "HTTP 501" in str(ei.value)
-    assert f"(slice {slice_name})" in str(ei.value)
+LISTEN_COMBOS = [(c, n) for c in ("port", "jax") for n in ("port", "jax")]
+# (name, key): one matches the listener's filter, two do not
+LISTEN_EVENTS = [
+    ("s3:ObjectCreated:Put", "logs/a.txt"),
+    ("s3:ObjectCreated:Put", "data/b.txt"),
+    ("s3:ObjectRemoved:Delete", "logs/c.txt"),
+    ("s3:ObjectCreated:Copy", "logs/d.log"),
+]
+
+
+def _publish(kind, srv, seq0: int) -> None:
+    """The same events, field for field, into the node's notifier."""
+    if kind == "jax":
+        from minio_tpu.event.event import Event, Identity
+    else:
+        from minio_tpu_torch.event.event import Event, Identity
+    for i, (name, key) in enumerate(LISTEN_EVENTS):
+        srv.events.send(Event(
+            name=name, bucket="bkt", object_key=key, etag="0123abcd",
+            size=17 + i, version_id="", sequencer=f"{seq0 + i:016X}",
+            identity=Identity("minioadmin", "127.0.0.1"),
+            time_ns=1_700_000_000_123_000_000 + i, endpoint="http://node"))
+    assert srv.events.flush()
+    time.sleep(0.1)
+
+
+@pytest.fixture(scope="module")
+def listen_runs(nodes):
+    """Each (client package, node package) pair: the records drained,
+    the state after listenoff, and the internode bodies both ways."""
+    out = {}
+    for client_kind, node_kind in LISTEN_COMBOS:
+        srv = nodes[node_kind]
+        prefix = (tpeer if node_kind == "port" else jpeer).PREFIX
+        inner = srv.internode[prefix]
+        wire = []
+
+        def recording(method, query, body, headers=None, inner=inner,
+                      wire=wire):
+            status, payload, extra = inner(method, query, body, headers)
+            if method.startswith("listen"):
+                wire.append((method, dict(query), body, status, payload))
+            return status, payload, extra
+
+        srv.internode[prefix] = recording
+        try:
+            client = _client(srv, tpeer if client_kind == "port" else jpeer)
+            lid = "watcher-1"  # one id for every pair: equal bodies
+            client.listen_on(lid, "bkt", "logs/", "",
+                             {"s3:ObjectCreated:Put", "s3:ObjectCreated:Copy"})
+            client.listen_on(lid, "bkt", "logs/", "", set())  # idempotent
+            assert srv.events.has_listeners("bkt")
+            _publish(node_kind, srv, 1)
+            records = client.listen_buf(lid)
+            again = client.listen_buf(lid)  # drained
+            client.listen_off(lid)
+            try:
+                client.listen_buf(lid)
+                expired = None
+            except ConnectionError as e:
+                expired = str(e)
+            out[(client_kind, node_kind)] = {
+                "records": records, "again": again, "expired": expired,
+                "listeners": dict(srv.peer_rest._listeners),
+                "subscribed": srv.events.has_listeners("bkt"),
+                "wire": [(m, q, b, st, p) for m, q, b, st, p in wire],
+            }
+        finally:
+            srv.internode[prefix] = inner
+    return out
+
+
+@pytest.mark.parametrize("client_kind,node_kind", LISTEN_COMBOS,
+                         ids=[f"{c}-client-{n}-node" for c, n in LISTEN_COMBOS])
+def test_listen_methods(listen_runs, client_kind, node_kind):
+    """listenon/listenbuf/listenoff (once 501 naming slice 9c) answer
+    each client as the JAX node answers the JAX client, byte for byte
+    on the wire."""
+    got = listen_runs[(client_kind, node_kind)]
+    ref = listen_runs[("jax", "jax")]
+    assert got == ref
+    assert [(r["EventName"], r["Key"]) for r in got["records"]] == [
+        ("s3:ObjectCreated:Put", "bkt/logs/a.txt"),
+        ("s3:ObjectCreated:Copy", "bkt/logs/d.log")]
+    assert got["again"] == [] and got["listeners"] == {}
+    assert not got["subscribed"]
+    assert "listener expired on peer" in got["expired"]
+    assert [w[0] for w in got["wire"]] == [
+        "listenon", "listenon", "listenbuf", "listenbuf", "listenoff",
+        "listenbuf"]
+
+
+@pytest.mark.parametrize("kind", ["port", "jax"])
+def test_listen_ttl_sweep(tmp_path, kind):
+    """A watcher that stops polling is reaped by the background sweeper
+    after the TTL, with no further listen traffic; shutdown drops what
+    is left."""
+    srv = _node(tmp_path, kind)
+    try:
+        srv.object_layer.make_bucket("bkt")
+        plane = srv.peer_rest
+        plane._LISTEN_TTL_S = 0.3
+        client = _client(srv)
+        client.listen_on("orphan", "bkt")
+        assert "orphan" in plane._listeners
+        deadline = time.monotonic() + 5
+        while time.monotonic() < deadline and plane._listeners:
+            time.sleep(0.05)
+        assert plane._listeners == {}
+        assert not srv.events.has_listeners("bkt")
+        with pytest.raises(ConnectionError, match="expired"):
+            client.listen_buf("orphan")
+        plane._LISTEN_TTL_S = 60.0
+        client.listen_on("kept", "bkt")
+    finally:
+        srv.shutdown()
+    assert plane._listeners == {}
+    assert not srv.events.has_listeners("bkt")
 
 
 @pytest.mark.parametrize("kind", ["port", "jax"])

@@ -570,27 +570,27 @@ def _ep(c):
 
 UNPORTED = [
     # (name, slice, request)
-    # the admin API itself is ported (tests/test_torch_admin_config.py);
-    # its routes of unported features name their slices
-    ("admin", "9c", lambda c: c.request(
-        "GET", "/minio-tpu/admin/v1/cache-stats")),
     ("web_rpc", "9c", lambda c: _raw(_ep(c), "POST", "/minio-tpu/webrpc")),
     ("console", "9c", lambda c: _raw(_ep(c), "GET", "/minio-tpu/console")),
     ("sts", "9c", lambda c: c.request(
         "POST", "/", body=b"Action=AssumeRole&Version=2011-06-15",
         headers={"content-type": "application/x-www-form-urlencoded"})),
-    ("listen_notification", "9c", lambda c: c.request(
-        "GET", "/bkt", query={"events": "s3:ObjectCreated:*"})),
-    ("bucket_notification", "9c", lambda c: c.request(
-        "GET", "/bkt", query={"notification": ""})),
-    ("bucket_replication", "9c", lambda c: c.request(
-        "GET", "/bkt", query={"replication": ""})),
 ]
 
-# the routes and headers slice 9c's first half serves, once refused
-# here: (name, expected status, request), sent to both servers in this
-# order (tests/test_torch_bucket_config_server.py covers each in depth)
+# the routes and headers slice 9c serves, once refused here: (name,
+# expected status, request), sent to both servers in this order
+# (tests/test_torch_bucket_config_server.py, test_torch_events_server.py,
+# test_torch_replication.py and test_torch_disk_cache.py cover each in
+# depth)
 SERVED_9C = [
+    ("admin", 200, lambda c: c.request(
+        "GET", "/minio-tpu/admin/v1/cache-stats")),
+    ("listen_notification", 400, lambda c: c.request(
+        "GET", "/bkt", query={"events": "s3:ObjectCreated:Nope"})),
+    ("bucket_notification", 200, lambda c: c.request(
+        "GET", "/bkt", query={"notification": ""})),
+    ("bucket_replication", 404, lambda c: c.request(
+        "GET", "/bkt", query={"replication": ""})),
     ("object_tagging_get", 200, lambda c: c.request(
         "GET", "/bkt/obj", query={"tagging": ""})),
     ("object_tagging_put", 200, lambda c: c.request(
@@ -645,26 +645,6 @@ def test_served_route_answers_as_the_reference(both_servers, name, status,
     got = {k: _normalize(_res(send(c))) for k, c in clients.items()}
     assert got["port"] == got["jax"]
     assert got["port"][0] == status, got["port"]
-
-
-@pytest.mark.parametrize(
-    "field,slice_name",
-    sorted((f, s) for f, (_w, s) in thttp.UNPORTED_BUCKET_CONFIG.items()),
-)
-def test_unported_bucket_config_refuses_put(port_server, field, slice_name):
-    """A bucket document that configures an unported feature (as the
-    JAX package's admin or bucket routes would write it) makes the PUT
-    seam raise instead of ignoring it."""
-    srv, c = port_server
-    bucket = "cfg-" + field.replace("_", "-")
-    assert c.make_bucket(bucket).status == 200
-    srv.bucket_meta.update(bucket, **{field: "set"})
-    status, _h, body = _res(c.put_object(bucket, "k", b"payload"))
-    assert status == 501, body
-    assert f"(slice {slice_name})".encode() in body
-    # nothing was written
-    with pytest.raises(ObjectNotFound):
-        srv.object_layer.get_object_info(bucket, "k")
 
 
 @pytest.mark.parametrize("field,value", [
@@ -822,7 +802,7 @@ def test_bucket_default_encryption_is_stored_sealed(both_servers):
 @pytest.mark.parametrize("field,versioned,status", [
     ("object_lock_xml", False, 204),
     ("object_lock_xml", True, 204),
-    ("notification_xml", False, 501),
+    ("notification_xml", False, 204),
     ("replication_xml", False, 204),
 ])
 def test_delete_seams(port_server, field, versioned, status):
@@ -840,8 +820,6 @@ def test_delete_seams(port_server, field, versioned, status):
     srv.bucket_meta.update(bucket, **fields)
     status_got, _h, body = _res(c.delete_object(bucket, "k"))
     assert status_got == status, body
-    if status == 501:
-        assert b"(slice 9c)" in body
 
 
 def test_async_server_mode_names_slice_5b(tmp_path, monkeypatch):
@@ -898,14 +876,26 @@ def test_admin_info_answers(port_server):
     assert other.request("GET", "/minio-tpu/admin/v1/info").status == 403
 
 
-def test_event_target_env_names_slice_9c(tmp_path, monkeypatch):
+def test_event_target_env_configures_the_server(tmp_path, monkeypatch):
+    """A configured webhook target (once refused naming slice 9c) is
+    built by ``targets_from_env`` and registered with the server's
+    notifier, as the JAX package's server registers it."""
     monkeypatch.setenv("MINIO_TPU_NOTIFY_WEBHOOK_ENABLE_PRIMARY", "on")
     monkeypatch.setenv("MINIO_TPU_NOTIFY_WEBHOOK_ENDPOINT_PRIMARY",
                        "http://127.0.0.1:1/hook")
     ol = ErasureObjects([XLStorage(str(tmp_path / f"d{i}")) for i in range(N)],
                         parity_blocks=M, block_size=BLOCK, device="cpu")
-    with pytest.raises(NotImplementedError, match=r"slice 9c"):
-        S3Server(ol, address="127.0.0.1:0")
+    jol = JaxObjects([JaxStorage(str(tmp_path / f"j{i}")) for i in range(N)],
+                     parity_blocks=M, block_size=BLOCK)
+    srvs = [S3Server(ol, address="127.0.0.1:0"),
+            JaxServer(jol, address="127.0.0.1:0")]
+    try:
+        arns = [sorted(s.events.known_arns) for s in srvs]
+        assert arns[0] == arns[1] == ["arn:minio:sqs::PRIMARY:webhook"]
+    finally:
+        for s in srvs:
+            s.events.shutdown()
+            s.console.uninstall()
 
 
 def test_internode_and_federation_name_slice_9b(port_server):

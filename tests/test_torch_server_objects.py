@@ -667,34 +667,96 @@ def test_tag_and_lock_seams_answer_as_the_reference(sse_servers, name,
         assert b"<Key>a</Key><Value>b</Value>" in tags["port"]
 
 
+_REPL_DOC = (
+    "<ReplicationConfiguration><Rule><Status>Enabled</Status>"
+    "<Priority>1</Priority><Prefix></Prefix><Destination><Bucket>"
+    "arn:minio:replication:::mpcfg-dst</Bucket></Destination></Rule>"
+    "</ReplicationConfiguration>"
+)
+_NOTIFY_DOC = (
+    "<NotificationConfiguration><QueueConfiguration><Id>1</Id>"
+    "<Queue>arn:minio:sqs::mem:memory</Queue>"
+    "<Event>s3:ObjectCreated:*</Event><Event>s3:ObjectRemoved:*</Event>"
+    "</QueueConfiguration></NotificationConfiguration>"
+)
+
+
+def _memory_target(kind: str, srv):
+    """Register a MemoryTarget of the server's package on its notifier."""
+    if kind == "jax":
+        from minio_tpu.event import MemoryTarget
+    else:
+        from minio_tpu_torch.event import MemoryTarget
+    mem = MemoryTarget("mem")
+    srv.events.register_target(mem)
+    return mem
+
+
+def _records(srv, mem) -> list:
+    assert srv.events.flush()
+    deadline = time.monotonic() + 5
+    while time.monotonic() < deadline and srv.events._queue:
+        time.sleep(0.02)
+    time.sleep(0.1)
+    return [(r["EventName"], r["Key"], r["Records"][0]["s3"]["object"]["size"])
+            for r in mem.records]
+
+
 @pytest.mark.parametrize("field", [
     "replication_xml", "notification_xml",
 ])
-def test_copy_and_multipart_refuse_unported_bucket_config(port_server, field):
-    """A destination bucket whose document configures an unported
-    feature refuses a copy and the multipart route that would apply it."""
-    srv, c = port_server
+def test_copy_and_multipart_apply_replication_and_events(sse_servers, field):
+    """A destination bucket whose document configures replication or
+    event rules (once refused naming slice 9c) applies it to a copy and
+    to a completed upload, as the JAX package does: both are stamped
+    PENDING, queued and replicated to COMPLETED, or both fire their
+    ObjectCreated records."""
+    srvs, clients = sse_servers
     bucket = "mpcfg-" + field.split("_")[0]
-    assert c.make_bucket(bucket).status == 200
-    assert c.put_object("bkt", "obj", b"hello").status == 200
-    uid = _uid(c.request("POST", f"/{bucket}/m", query={"uploads": ""}))
-    r = c.request("PUT", f"/{bucket}/m",
-                  query={"partNumber": "1", "uploadId": uid}, body=b"p")
-    assert r.status == 200
-    srv.bucket_meta.update(bucket, **{field: "set"})
-    copy = c.put_object(bucket, "c", b"", headers={
-        "x-amz-copy-source": "/bkt/obj"})
-    assert copy.status == 501 and b"(slice 9c)" in copy.body
-    route = {
-        "replication_xml": lambda: c.request(
-            "POST", f"/{bucket}/m", query={"uploadId": uid},
-            body=_xml([(1, _md5(b"p"))])),
-        "notification_xml": lambda: c.request(
-            "POST", f"/{bucket}/m", query={"uploadId": uid},
-            body=_xml([(1, _md5(b"p"))])),
-    }[field]()
-    assert route.status == 501 and b"(slice 9c)" in route.body
-    srv.bucket_meta.update(bucket, **{field: ""})
+    got = {}
+    for kind, c in clients.items():
+        srv = srvs[kind]
+        assert c.make_bucket(bucket).status == 200
+        mem = None
+        if field == "replication_xml":
+            assert c.make_bucket("mpcfg-dst").status == 200
+            srv.bucket_meta.update(bucket, versioning="Enabled",
+                                   replication_xml=_REPL_DOC)
+        else:
+            mem = _memory_target(kind, srv)
+            srv.bucket_meta.update(bucket, notification_xml=_NOTIFY_DOC)
+            srv.invalidate_event_rules(bucket)
+        uid = _uid(c.request("POST", f"/{bucket}/m", query={"uploads": ""}))
+        r = c.request("PUT", f"/{bucket}/m",
+                      query={"partNumber": "1", "uploadId": uid}, body=b"p")
+        assert r.status == 200
+        copy = c.put_object(bucket, "c", b"", headers={
+            "x-amz-copy-source": "/bkt/obj"})
+        done = c.request("POST", f"/{bucket}/m", query={"uploadId": uid},
+                         body=_xml([(1, _md5(b"p"))]))
+        answers = [_normalize(_res(r))[:1] for r in (copy, done)]
+        if field == "replication_xml":
+            srv.replication.drain()
+            heads = [srv.object_layer.get_object_info(bucket, k).user_defined.get(
+                "x-amz-replication-status") for k in ("c", "m")]
+            if kind == "port":
+                # the port's HEAD shows the status, as the reference's does
+                assert [c.request("HEAD", f"/{bucket}/{k}").headers.get(
+                    "x-amz-replication-status") for k in ("c", "m")] == heads
+            dst = [c.get_object("mpcfg-dst", k).body for k in ("c", "m")]
+            got[kind] = (answers, heads, dst)
+            srv.bucket_meta.update(bucket, replication_xml="")
+        else:
+            got[kind] = (answers, _records(srv, mem))
+            srv.bucket_meta.update(bucket, notification_xml="")
+            srv.invalidate_event_rules(bucket)
+    assert got["port"] == got["jax"]
+    assert got["port"][0] == [(200,), (200,)]
+    if field == "replication_xml":
+        assert got["port"][1:] == (["COMPLETED"] * 2, [SRC, b"p"])
+    else:
+        assert [r[0] for r in got["port"][1]] == [
+            "s3:ObjectCreated:Copy", "s3:ObjectCreated:CompleteMultipartUpload"]
 
 
 @pytest.mark.parametrize("field,value", [
@@ -735,18 +797,30 @@ def test_copy_and_multipart_apply_bucket_config(sse_servers, field, value):
         assert got["port"][0][0] == 200 and got["port"][2][0] == 200
 
 
-def test_multi_delete_and_post_policy_events_seam(port_server):
-    srv, c = port_server
-    assert c.make_bucket("evt").status == 200
-    assert c.put_object("evt", "k", b"v").status == 200
-    srv.bucket_meta.update("evt", notification_xml="set")
-    r = c.request("POST", "/evt", query={"delete": ""},
-                  body=b"<Delete><Object><Key>k</Key></Object></Delete>")
-    assert r.status == 501 and b"(slice 9c)" in r.body
-    status, _h, body = _res(c.post_policy_upload("evt", "p", b"x"))
-    assert status == 501 and b"(slice 9c)" in body
-    srv.bucket_meta.update("evt", notification_xml="")
-    assert c.get_object("evt", "k").body == b"v"
+def test_multi_delete_and_post_policy_events_seam(sse_servers):
+    """A bucket with event rules (once refused naming slice 9c) fires a
+    record for a POST-policy upload and each key of a multi-delete, as
+    the JAX package's server does."""
+    srvs, clients = sse_servers
+    got = {}
+    for kind, c in clients.items():
+        srv = srvs[kind]
+        assert c.make_bucket("evt").status == 200
+        assert c.put_object("evt", "k", b"v").status == 200
+        mem = _memory_target(kind, srv)
+        srv.bucket_meta.update("evt", notification_xml=_NOTIFY_DOC)
+        srv.invalidate_event_rules("evt")
+        status, _h, body = _res(c.post_policy_upload("evt", "p", b"x"))
+        r = c.request("POST", "/evt", query={"delete": ""},
+                      body=b"<Delete><Object><Key>k</Key></Object>"
+                      b"<Object><Key>p</Key></Object></Delete>")
+        got[kind] = (status, r.status, _records(srv, mem))
+        srv.bucket_meta.update("evt", notification_xml="")
+        srv.invalidate_event_rules("evt")
+    assert got["port"] == got["jax"]
+    assert [e[0] for e in got["port"][2]] == [
+        "s3:ObjectCreated:Post", "s3:ObjectRemoved:Delete",
+        "s3:ObjectRemoved:Delete"]
 
 
 def test_counters_name_the_new_routes(runs):

@@ -13,12 +13,16 @@ Fast tier (no server spawned):
 * ``check_no_torn_meta`` passes on a tree of ``xl.meta`` written by
   either package, counting as the JAX sweep does, and fails on a torn
   one;
-* the replication verbs refuse, naming slice 9c.
+* the replication verbs, the JAX package's and the port's, leave the
+  same bucket documents on a port server and judge the same destination
+  converged or lagging;
+* ``test_chaos_grid[replication_lag_churn]``: that cell runs to its
+  invariants on 3 port nodes x 2 drives on the CPU (the destination
+  converges under churn with a write fault on one node).
 
-Slow tier (``-m slow``, not in tier-1): each scenario of the grid on
-3 port nodes x 2 drives spawned by the port's ``ClusterHarness`` with
-``MINIO_ERASURE_BACKEND=cpu``, asserting the JAX grid's invariants;
-``replication_lag_churn`` refuses at its first replication step.
+Slow tier (``-m slow``, not in tier-1): each other scenario of the grid
+on 3 port nodes x 2 drives spawned by the port's ``ClusterHarness`` with
+``MINIO_ERASURE_BACKEND=cpu``, asserting the JAX grid's invariants.
 """
 
 import dataclasses
@@ -40,6 +44,7 @@ from minio_tpu_torch.objectlayer.erasure_object import ErasureObjects
 from minio_tpu_torch.storage.xl import XLStorage
 from minio_tpu_torch.testgrid import GRID, engine as tengine, run_scenario
 from minio_tpu_torch.testgrid import scenario_by_name
+from tests.s3client import S3Client
 from tests.test_torch_threads import torch_threads  # noqa: F401
 
 TEXTS = [
@@ -202,39 +207,101 @@ def test_check_no_torn_meta(tmp_path, monkeypatch):
         assert os.path.join("grid", "k1", "xl.meta") in str(ei.value)
 
 
-@pytest.mark.parametrize("verb,args", [
-    ("enable_replication", (0, "replica")),
-    ("await_replication", (0, "replica", ("churn0",))),
-])
-def test_replication_verbs_name_slice_9c(verb, args):
-    with pytest.raises(NotImplementedError, match=r"slice 9c"):
-        tengine._VERBS[verb](None, *args)
+class _Client:
+    """The harness client's shape over the tests' S3Client."""
+
+    def __init__(self, endpoint):
+        self._c = S3Client(endpoint)
+
+    def request(self, method, path, query=None, body=b"", headers=None):
+        r = self._c.request(method, path, query=query, body=body,
+                            headers=headers)
+        return r.status, r.headers, r.body
+
+    def close(self):
+        pass
 
 
-def test_replication_cell_refuses_at_its_first_replication_step():
-    sc = scenario_by_name("replication_lag_churn")
-    verbs = [s[0] for s in sc.steps]
-    first = verbs.index("enable_replication")
-    assert first == 1 and "enable_replication" in verbs
-    assert all(v not in ("enable_replication", "await_replication")
-               for other in GRID if other is not sc
-               for v in (s[0] for s in other.steps))
+def _verb_ctx(mod, srv):
+    ctx = mod._Ctx(types.SimpleNamespace(
+        client=lambda node: _Client(srv.endpoint)))
+    return ctx
 
 
-# -- slow: the chaos grid --------------------------------------------------
+@pytest.fixture()
+def verb_servers(tmp_path, monkeypatch):
+    """One port server per package's verbs, buckets ``grid``, ``replica``."""
+    from minio_tpu_torch.server.http import S3Server
+
+    monkeypatch.setenv("MINIO_TPU_SERVER", "threaded")
+    out = {}
+    for kind in ("jax", "port"):
+        ol = ErasureObjects([XLStorage(str(tmp_path / kind / f"d{i}"))
+                             for i in range(4)], block_size=4096, device="cpu")
+        srv = S3Server(ol, address="127.0.0.1:0").start()
+        c = S3Client(srv.endpoint)
+        for b in (tengine.BUCKET, "replica"):
+            assert c.make_bucket(b).status == 200
+        out[kind] = srv
+    yield out
+    for srv in out.values():
+        srv.shutdown()
 
 
-@pytest.mark.slow
-@pytest.mark.parametrize("scenario", GRID, ids=[sc.name for sc in GRID])
+def test_enable_replication_verb_matches(verb_servers):
+    """Each package's ``enable_replication`` (once refused naming slice
+    9c) leaves the same versioning and replication documents, and a PUT
+    into the grid bucket then replicates."""
+    got = {}
+    for kind, mod in (("jax", jengine), ("port", tengine)):
+        srv = verb_servers[kind]
+        mod._VERBS["enable_replication"](_verb_ctx(mod, srv), 0, "replica")
+        bm = srv.bucket_meta.get(tengine.BUCKET)
+        c = S3Client(srv.endpoint)
+        assert c.put_object(tengine.BUCKET, "k", b"payload").status == 200
+        srv.replication.drain()
+        got[kind] = (bm.versioning, bm.replication_xml,
+                     c.get_object("replica", "k").body)
+    assert got["port"] == got["jax"]
+    assert got["port"][0] == "Enabled" and got["port"][2] == b"payload"
+
+
+def test_await_replication_verb_matches(verb_servers):
+    """Each package's ``await_replication`` passes once every key reads
+    back an acceptable payload, and names the same lagging keys when
+    one is stale or missing."""
+    got = {}
+    for kind, mod in (("jax", jengine), ("port", tengine)):
+        srv = verb_servers[kind]
+        ctx = _verb_ctx(mod, srv)
+        c = S3Client(srv.endpoint)
+        assert c.put_object("replica", "a", b"A1").status == 200
+        assert c.put_object("replica", "b", b"old").status == 200
+        ctx.objects = {"a": [b"A1"], "b": [b"new", b"newer"], "c": [b"C"]}
+        verb = mod._VERBS["await_replication"]
+        verb(ctx, 0, "replica", ("a",), timeout_s=2)
+        with pytest.raises(AssertionError) as ei:
+            verb(ctx, 0, "replica", ("a", "b", "c"), timeout_s=0.6)
+        got[kind] = str(ei.value)
+    assert got["port"] == got["jax"]
+    assert "'b': 'stale body (3 bytes)'" in got["port"]
+    assert "'c': 'HTTP 404'" in got["port"]
+
+
+# -- the chaos grid (slow but one cell) ----------------------------------
+
+# every cell is slow but ``replication_lag_churn`` (about 30 s on 3 CPU
+# nodes), which runs in tier-1: the replica converges under churn with a
+# write fault on one node, and the sweep holds
+@pytest.mark.parametrize("scenario", [
+    pytest.param(sc, id=sc.name, marks=(
+        () if sc.name == "replication_lag_churn" else pytest.mark.slow))
+    for sc in GRID])
 def test_chaos_grid(scenario, tmp_path, monkeypatch):
     monkeypatch.setenv("MINIO_ERASURE_BACKEND", "cpu")
     for name in ("MINIO_TPU_SERVER", "MINIO_TPU_READ_CACHE",
                  "MINIO_TPU_FEDERATION_DIR", "MINIO_TPU_CACHE_DRIVES"):
         monkeypatch.delenv(name, raising=False)
-    if scenario.name == "replication_lag_churn":
-        with pytest.raises(NotImplementedError, match=r"slice 9c"):
-            run_scenario(scenario, tmp_path)
-        return
     report = run_scenario(scenario, tmp_path)
     assert report["objects"] >= scenario.seed_objects
     assert report["meta_files"] > 0
