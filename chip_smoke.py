@@ -278,17 +278,37 @@
    4 disk-cache misses (K2), then 4 hits with no launch; an overwrite
    misses with its new body, a cached range equals the backend's.
    Prints the ``replication:`` line.
+13c. The backends without a codec (``backends_phase``, slice 9c, after
+   ``replication``): the FS mode (``server <dir>``) and an erasure
+   server U of 12 drives on TLS spawned side by side; 4 clients PUT and
+   GET 4 x 64 MiB on the FS server (each file under ``<dir>`` holds its
+   object's bytes), a multipart upload of 4 x 8 MiB, a copy, a delimiter
+   listing, Select Q1 over a 64 MiB lineitem object (K8-K10 on the FS
+   server, no K5 or K2); ``server gateway nas <dir>`` then lists and
+   reads what the FS server wrote; ``server gateway s3 https://U`` on
+   TLS: 4 clients PUT and GET 4 x 64 MiB through it (K5 and K2 on U, no
+   launch on the gateway; the first object on U's drives against the
+   plain CPU codec), an SSE-C object PUT, read and copied through it and
+   held sealed on U, Select Q1 on U's object scanned on the gateway's
+   card.  Prints the ``backends:`` line.
 14. The chaos grid (``grid_phase``, slice 9d): the first four cells of
    ``GRID_ORDER`` (``GRID_RUN``: heal_storm, dead_remote_disks,
    replication_lag_churn, select_heavy_mix) on
    3-node clusters on the card with the JAX grid's invariants, each
-   node's launches from its ``kernel-stats``.  Prints a ``grid <cell>:``
-   line per cell and the ``grid:`` line.
+   node's launches from its ``kernel-stats``; each timed GET flood's
+   stage breakdown (``get_stages``: the 5 slowest GETs and the median,
+   each joined by request id to the serving node's admin
+   ``request-stages``).  Prints a ``grid <cell>:`` line per cell and the
+   ``grid:`` line.
 15. Prints the kernels JSON line, the card's name and power limit, and as
    the last line ``{"ok": true, "device": {...}}``.
 
 Exits non-zero, without the result lines, when there is no CUDA device or
-when any phase fails.
+when any phase fails.  ``--only NAMES [--repeat N]`` runs only the named
+phases (``select``, ``cluster``, ``federation``, ``replication``,
+``backends``, or ``grid:CELL[+CELL...]``) after the build, N times in
+turn, and prints one line a run and an ``only:`` tally, e.g.
+``python3 chip_smoke.py --only grid:select_heavy_mix --repeat 20``.
 """
 
 from __future__ import annotations
@@ -325,7 +345,9 @@ SEED = 20261016
 
 def fail(msg: str) -> "None":
     print(f"chip_smoke: FAILED: {msg}", file=sys.stderr, flush=True)
-    raise SystemExit(1)
+    err = SystemExit(1)
+    err.message = msg  # what --only's tally prints
+    raise err
 
 
 def cuda_ms(fn, reps: int, warmup: int = 2) -> float:
@@ -3289,17 +3311,20 @@ class _BootedServer:
     boot phase's 24 by default); ``what`` names the phase in failures."""
 
     def __init__(self, work: str, port: int, env: dict, tag: str,
-                 drives: "str | None" = None, what: str = "boot phase"):
+                 drives: "str | list | None" = None, what: str = "boot phase",
+                 cafile: "str | None" = None):
         self.port = port
         self.what = what
+        self.cafile = cafile  # a TLS server's certificate
         self.log_path = os.path.join(work, f"server-{tag}.log")
         self._log = open(self.log_path, "w")
         here = os.path.dirname(os.path.abspath(__file__))
+        if not isinstance(drives, list):
+            drives = [drives or os.path.join(work, "boot", BOOT_SPEC)]
         self.t_spawn = time.monotonic()
         self.proc = subprocess.Popen(
             [sys.executable, "-m", "minio_tpu_torch.server", "--parity",
-             str(M), "--address", f"127.0.0.1:{port}",
-             drives or os.path.join(work, "boot", BOOT_SPEC)],
+             str(M), "--address", f"127.0.0.1:{port}", *drives],
             cwd=here, env=env, stdout=self._log, stderr=subprocess.STDOUT)
 
     def wait_ready(self) -> float:
@@ -3312,8 +3337,15 @@ class _BootedServer:
                 fail(f"{self.what}: the server exited {self.proc.returncode}: "
                      f"{self.output()[-2000:]}")
             try:
-                conn = http.client.HTTPConnection("127.0.0.1", self.port,
-                                                  timeout=5)
+                if self.cafile:
+                    import ssl
+
+                    conn = http.client.HTTPSConnection(
+                        "127.0.0.1", self.port, timeout=5,
+                        context=ssl.create_default_context(cafile=self.cafile))
+                else:
+                    conn = http.client.HTTPConnection("127.0.0.1", self.port,
+                                                      timeout=5)
                 conn.request("GET", "/minio/health/ready")
                 status = conn.getresponse().status
                 conn.close()
@@ -3329,8 +3361,9 @@ class _BootedServer:
         with open(self.log_path) as f:
             return f.read()
 
-    def sigterm(self) -> float:
-        """SIGTERM; seconds until the process exits (0 expected)."""
+    def sigterm(self, last: str = "shutdown complete") -> float:
+        """SIGTERM; seconds until the process exits (0 expected) with
+        ``last`` as its last line (a gateway's: the signal's)."""
         import signal
 
         t0 = time.monotonic()
@@ -3342,7 +3375,7 @@ class _BootedServer:
             fail(f"{self.what}: the server did not exit on SIGTERM")
         took = time.monotonic() - t0
         out = self.output()
-        if rc != 0 or "shutdown complete" not in out.splitlines()[-1:]:
+        if rc != 0 or last not in out.splitlines()[-1:]:
             fail(f"{self.what}: SIGTERM exit {rc}: {out[-2000:]}")
         return took
 
@@ -5258,9 +5291,17 @@ def cluster_phase(work: str, backend: "str | None" = None) -> dict:
         h.spawn(3)
         restart_s = wait_ready([3], t_spawn)[3]
         # node 1 probes a drive that went down again only every few
-        # seconds: heal once it counts all 16 drives online, breakers closed
+        # seconds: heal once it counts all 16 drives online, breakers closed.
+        # A tripped drive's breaker closes on the first call that reaches
+        # it after its backoff (up to 30 s), so a client keeps reading
+        # xl.meta of one object through node 1 (a HEAD touches every
+        # drive) while it waits
         t0 = time.monotonic()
+        s_head = signer(0)
         while True:
+            st, _h, _b = s_head.request("HEAD", f"/{bkt}/{big[0]}")
+            if st != 200:
+                fail(f"cluster: HEAD through node 1 after node 4's restart: {st}")
             si = admin(0, "GET", "storageinfo")
             online = sum(st["online"] for z in si["zones"] for st in z["sets"])
             states = h.disk_states(0)
@@ -5271,6 +5312,7 @@ def cluster_phase(work: str, backend: "str | None" = None) -> dict:
                 fail(f"cluster: node 1 sees {online} of {len(roots)} drives "
                      f"online 60 s after node 4's restart; breakers {states}")
             time.sleep(0.1)
+        s_head.close()
         reprobe_s = time.monotonic() - t0
         l5 = launches([0])
         t0 = time.monotonic()
@@ -6292,6 +6334,77 @@ GRID_ORDER = ("heal_storm", "dead_remote_disks", "replication_lag_churn",
 GRID_RUN = GRID_ORDER[:4]
 
 
+GET_STAGES = ("queue", "lock", "meta", "open", "shard_reads", "verify",
+              "assemble", "write", "unlock")
+
+
+def thread_cpu_moved(before: list, after: list, wall: float) -> dict:
+    """A node's CPU over a window from two ``request-stages`` thread
+    lists: the cores it kept busy and its 6 busiest thread families
+    (names less their trailing numbers), cores each."""
+    was = {t["tid"]: t["cpu_s"] for t in before}
+    fam: dict = {}
+    total = 0.0
+    for t in after:
+        d = t["cpu_s"] - was.get(t["tid"], 0.0)
+        total += d
+        name = re.sub(r"[-_ ]?\d+$", "", t["name"])
+        fam[name] = fam.get(name, 0.0) + d
+    top = sorted(fam.items(), key=lambda kv: -kv[1])[:6]
+    return {"cores": total / wall, "top": {k: v / wall for k, v in top}}
+
+
+def get_stages(seen: list, records: list) -> dict:
+    """Stage breakdown of a timed GET flood: ``seen`` holds the client's
+    (node, seconds, request id) of each GET, ``records`` the nodes'
+    request-stage spans.  For the 5 slowest GETs and the median one: the
+    client's ms, the serving node's handler ms and each stage's ms
+    (``other``: the handler's own work; ``outside``: the client's time
+    outside the handler up to its release, i.e. connect, accept, the
+    head's parse and the reply's way back).  Beside them, the internode requests the nodes
+    served during the flood, by plane: count, mean and max of their
+    queue wait and handler ms."""
+    by_id = {r.get("request_id"): r for r in records if r.get("request_id")}
+
+    def row(node, secs, rid):
+        out = {"client_ms": secs * 1e3, "node": node + 1}
+        r = by_id.get(rid)
+        if r is None:
+            return dict(out, joined=False)
+        st = r.get("stages", {})
+        out["handler_ms"] = r["total"] * 1e3
+        for k in GET_STAGES:
+            out[k] = st.get(k, 0.0) * 1e3
+        out["other"] = out["handler_ms"] - sum(
+            out[k] for k in GET_STAGES if k != "queue")
+        # the release runs after the body went out
+        out["outside"] = (out["client_ms"] - out["queue"]
+                          - (out["handler_ms"] - out["unlock"]))
+        return out
+
+    ranked = sorted(seen, key=lambda x: x[1])
+    internode: dict = {}
+    for r in records:
+        path = r.get("path", "")
+        if not path.startswith("/minio-tpu/") or "/admin/" in path:
+            continue
+        plane = path.split("/")[2]
+        d = internode.setdefault(plane, {"n": 0, "queue_ms": [], "handler_ms": []})
+        d["n"] += 1
+        d["queue_ms"].append(r.get("stages", {}).get("queue", 0.0) * 1e3)
+        d["handler_ms"].append(r["total"] * 1e3)
+    for d in internode.values():
+        for k in ("queue_ms", "handler_ms"):
+            v = d.pop(k)
+            d[k] = {"mean": sum(v) / len(v), "max": max(v)}
+    return {
+        "gets": len(seen),
+        "slowest": [row(*x) for x in ranked[::-1][:5]],
+        "median": row(*ranked[len(ranked) // 2]) if ranked else None,
+        "internode": internode,
+    }
+
+
 def grid_phase(work: str, backend: "str | None" = None) -> dict:
     """Phase 14 (slice 9d): the chaos grid of minio_tpu_torch.testgrid on
     the card, the cells of ``GRID_RUN``.  Each cell is a loopback cluster
@@ -6338,9 +6451,53 @@ def grid_phase(work: str, backend: "str | None" = None) -> dict:
         marks.update({k: ctx.marks[k] * 1e3 for k in (mark, baseline)})
         return assert_p99(ctx, mark, baseline, *args)
 
+    # each timed GET flood's stage breakdown (GET_STAGES): the client's
+    # latency of every GET joined by request id to the serving node's
+    # stage spans (admin request-stages, minio_tpu_torch/utils/spans.py)
+    timed_flood = engine._VERBS["timed_get_flood"]
+    get_once = engine._get
+    breakdowns: dict = {}
+
+    def _staged_flood(ctx, key, count, threads, mark):
+        cpu0 = {}
+        for n in ctx.h.nodes:
+            if n.alive():
+                st, doc = ctx.h.admin(n.index, "GET", "request-stages")
+                cpu0[n.index] = doc.get("threads", []) if st == 200 else []
+        self0, t0 = time.process_time(), time.monotonic()
+        seen: list = []
+
+        def _get(c, node, k):
+            t0 = time.monotonic()
+            res = get_once(c, node, k)
+            seen.append((node, time.monotonic() - t0,
+                         res[1].get("x-amz-request-id", "")))
+            return res
+
+        engine._get = _get
+        try:
+            timed_flood(ctx, key, count, threads, mark)
+        finally:
+            engine._get = get_once
+        wall = time.monotonic() - t0
+        self1 = time.process_time()
+        records, cpu = [], {}
+        for n in ctx.h.nodes:
+            if n.alive():
+                st, doc = ctx.h.admin(n.index, "GET", "request-stages")
+                if st == 200:
+                    records += [dict(r, node=n.index)
+                                for r in doc.get("records", [])]
+                    cpu[f"n{n.index + 1}"] = thread_cpu_moved(
+                        cpu0.get(n.index, []), doc.get("threads", []), wall)
+        breakdowns[mark] = get_stages(seen, records)
+        breakdowns[mark]["cpu"] = {
+            "wall_s": wall, "client_cores": (self1 - self0) / wall, **cpu}
+
     harness = engine.ClusterHarness
     engine.ClusterHarness = _Counted
     engine._VERBS["assert_p99_within"] = _kept_p99
+    engine._VERBS["timed_get_flood"] = _staged_flood
     out: dict = {"cells": {}}
     t_phase = time.monotonic()
     try:
@@ -6349,9 +6506,12 @@ def grid_phase(work: str, backend: "str | None" = None) -> dict:
             base = os.path.join(work, "grid", name)
             t0 = time.monotonic()
             marks.clear()
+            breakdowns.clear()
             try:
                 report = engine.run_scenario(sc, base, env=env)
             except AssertionError as e:
+                print(f"grid {name} failed: " + _json.dumps(
+                    {"p99_ms": marks, "get_stages": breakdowns}), flush=True)
                 fail(f"grid: {name}: {e}")
             took = time.monotonic() - t0
             launches = node_launches.get(name, {})
@@ -6375,11 +6535,315 @@ def grid_phase(work: str, backend: "str | None" = None) -> dict:
             out["cells"][name] = {"s": took, **report, "launches": launches}
             if marks:
                 out["cells"][name]["p99_ms"] = dict(marks)
+            if breakdowns:
+                out["cells"][name]["get_stages"] = dict(breakdowns)
             print(f"grid {name}: {_json.dumps(out['cells'][name])}", flush=True)
     finally:
         engine.ClusterHarness = harness
         engine._VERBS["assert_p99_within"] = assert_p99
+        engine._VERBS["timed_get_flood"] = timed_flood
         shutil.rmtree(os.path.join(work, "grid"), ignore_errors=True)
+    out["phase_s"] = time.monotonic() - t_phase
+    return out
+
+
+# -- phase 15 (slice 9c): the backends without a codec ------------------------
+
+BK_OBJECTS = 4  # objects of S3_BIG, PUT and GET by S3_CLIENTS clients a server
+BK_MP_PARTS = 4  # parts of MP_PART in the FS server's multipart upload
+BK_SELECT = 64 << 20  # the lineitem object Select Q1 scans (cut from 256 MiB)
+BK_UPSTREAM = "disk{1...12}"  # the S3 gateway's upstream U: one EC 8+4 set
+BK_SSEC_KEY = b"K" * 32
+
+
+def backends_phase(dev, work: str, backend: "str | None" = None) -> dict:
+    """Phase 15 (slice 9c): the port's servers over layers without a
+    codec, as users start them (MinIO's standalone single-drive mode and
+    its ``gateway nas`` and ``gateway s3`` guides), each a process of its
+    own on the card (``backend`` sets MINIO_ERASURE_BACKEND for a rehearsal
+    on the CPU).
+
+    - **FS**: ``python -m minio_tpu_torch.server <dir>`` (spawned beside U).
+      S3_CLIENTS clients PUT and GET BK_OBJECTS x S3_BIG; each object's
+      file under ``<dir>/<bucket>/<key>`` has the body's sha256; one
+      multipart upload of BK_MP_PARTS x MP_PART, a copy and a delimiter
+      listing; Select Q1 over a BK_SELECT lineitem object, twice (the
+      first starts the process's CUDA context), answers the host
+      engine's Records; the server's kernel-stats show K8-K10 launches
+      and no K5 or K2.
+    - **NAS gateway**: ``server gateway nas <dir>`` over the same directory
+      once the FS server stopped: it lists and reads what that wrote.
+    - **S3 gateway**: ``server gateway s3 https://U`` on TLS, U an erasure
+      server of 12 drives (EC 8+4) on TLS.  S3_CLIENTS clients PUT and GET
+      BK_OBJECTS x S3_BIG through the gateway; U's part files and xl.meta
+      of the first equal the plain CPU codec's; U's K5 and K2 launches
+      rise and the gateway's stay 0; one SSE-C object goes PUT, GET and a
+      copy through the gateway, and U holds both sealed with the
+      client's key (a GET on U needs it); Select Q1 on an object held in
+      U scans on the gateway's card."""
+    import hashlib
+    import io
+    import json as _json
+
+    import numpy as np
+
+    from minio_tpu_torch.objectlayer.erasure_object import ErasureObjects
+    from minio_tpu_torch.s3select.engine import S3Select, SelectRequest
+    from minio_tpu_torch.storage.xl import XLStorage
+
+    base = os.path.join(work, "bk")
+    fs_dir = os.path.join(base, "fs")
+    os.makedirs(base)
+    cert, key = tls_cert(base)
+    env = {k: v for k, v in os.environ.items()
+           if not k.startswith("MINIO_TPU_") and k != "MINIO_ERASURE_BACKEND"}
+    env["MINIO_TPU_LOG_LEVEL"] = "warning"
+    if backend is not None:
+        env["MINIO_ERASURE_BACKEND"] = backend
+    tls_env = dict(env, MINIO_TPU_TLS="on", MINIO_TPU_CERT_FILE=cert,
+                   MINIO_TPU_KEY_FILE=key)
+    rng = np.random.default_rng(SEED + 15)
+    objs = {f"big{i}": rng.integers(0, 256, S3_BIG, dtype=np.uint8).tobytes()
+            for i in range(BK_OBJECTS)}
+    sha = {k: hashlib.sha256(v).hexdigest() for k, v in objs.items()}
+    nbytes = sum(len(v) for v in objs.values())
+    lineitem = lineitem_csv(SEED + 15, BK_SELECT)
+    q1 = select_body(SELECT_QUERIES["Q1"])
+    # the host engine's answer, in this process
+    os.environ["MINIO_TPU_SELECT"] = "host"
+    try:
+        frames: list = []
+        S3Select(SelectRequest.from_xml(q1), "cpu").evaluate(
+            io.BytesIO(lineitem), len(lineitem), frames.append)
+    finally:
+        os.environ.pop("MINIO_TPU_SELECT", None)
+    want_records, _k = select_records(b"".join(frames))
+    out: dict = {"objects": BK_OBJECTS, "object_bytes": S3_BIG,
+                 "select_object_bytes": len(lineitem)}
+    servers: list = []
+
+    def signer(srv):
+        return S3Signer("127.0.0.1", srv.port, cafile=srv.cafile)
+
+    def call(srv, method, path, query=None, body=b"", headers=None):
+        s = signer(srv)
+        try:
+            return s.request(method, path, query, body, headers)
+        finally:
+            s.close()
+
+    def expect(srv, want, method, path, query=None, body=b"", headers=None):
+        st, h, got = call(srv, method, path, query, body, headers)
+        if st != want:
+            fail(f"backends: {srv.what} {method} {path} {query or ''}: {st} "
+                 f"{got[:300]!r}")
+        return h, got
+
+    def launches(srv) -> dict:
+        _h, body = expect(srv, 200, "GET", f"{ADMIN}/kernel-stats")
+        return {k: v for k, v in _json.loads(body)["launches"].items() if v}
+
+    def moved(a: dict, b: dict) -> dict:
+        return {k: b[k] - a.get(k, 0) for k in b if b[k] != a.get(k, 0)}
+
+    def put_get(srv, bucket: str) -> dict:
+        """S3_CLIENTS clients PUT, then GET, the objects; bodies checked."""
+        jobs = [[k for j, k in enumerate(sorted(objs)) if j % S3_CLIENTS == c]
+                for c in range(S3_CLIENTS)]
+        cafile = srv.cafile
+
+        def put(s, k):
+            st, _h, body = s.request("PUT", f"/{bucket}/{k}", body=objs[k],
+                                     payload_hash=sha[k])
+            return st, body[:200]
+
+        def get(s, k):
+            st, _h, body = s.request("GET", f"/{bucket}/{k}")
+            return st, hashlib.sha256(body).hexdigest() if st == 200 else body[:200]
+
+        put_s, res = _in_clients("127.0.0.1", srv.port, jobs, put, cafile)
+        if any(st != 200 for st, _b in res):
+            fail(f"backends: {srv.what} PUTs {res}")
+        get_s, res = _in_clients("127.0.0.1", srv.port, jobs, get, cafile)
+        keys = [k for js in jobs for k in js]
+        if [r for r in res] != [(200, sha[k]) for k in keys]:
+            fail(f"backends: {srv.what} GET bodies differ")
+        return {"put_MBps": nbytes / put_s / 1e6, "get_MBps": nbytes / get_s / 1e6,
+                "put_s": put_s, "get_s": get_s}
+
+    def select(srv, path: str) -> dict:
+        t0 = time.monotonic()
+        _h, body = expect(srv, 200, "POST", path, {"select": "", "select-type": "2"},
+                          q1)
+        took = time.monotonic() - t0
+        recs, _kinds = select_records(body)
+        if recs != want_records:
+            fail(f"backends: {srv.what} Select Q1 answered {len(recs)} bytes of "
+                 f"Records, the host engine {len(want_records)}")
+        return {"s": took, "MBps": len(lineitem) / took / 1e6,
+                "records_bytes": len(recs)}
+
+    t_phase = time.monotonic()
+    try:
+        # -- FS and U spawned side by side ------------------------------------
+        fs = _BootedServer(base, _free_port(), env, "bk-fs", drives=fs_dir,
+                           what="backends FS server")
+        up = _BootedServer(base, _free_port(), tls_env, "bk-u",
+                           drives=os.path.join(base, "u", BK_UPSTREAM),
+                           what="backends upstream U", cafile=cert)
+        servers += [fs, up]
+        out["spawn_to_ready_s"] = {"fs": fs.wait_ready(), "upstream": up.wait_ready()}
+        if "standalone FS backend (1 drive)" not in fs.output():
+            fail(f"backends: the FS server's boot: {fs.output()[-1000:]}")
+
+        # -- FS: objects are plain files ---------------------------------------
+        l0 = launches(fs)
+        expect(fs, 200, "PUT", "/fsb")
+        res = {"objects": put_get(fs, "fsb")}
+        for k in objs:
+            with open(os.path.join(fs_dir, "fsb", k), "rb") as f:
+                if hashlib.sha256(f.read()).hexdigest() != sha[k]:
+                    fail(f"backends: {fs_dir}/fsb/{k} is not the object's bytes")
+        _h, body = expect(fs, 200, "POST", "/fsb/mp/obj", {"uploads": ""})
+        uid = _xml_text(body, "UploadId")[0]
+        parts = [objs["big0"][i * MP_PART:(i + 1) * MP_PART]
+                 for i in range(BK_MP_PARTS)]
+        etags = []
+        t0 = time.monotonic()
+        for n, part in enumerate(parts, 1):
+            h, _b = expect(fs, 200, "PUT", "/fsb/mp/obj",
+                           {"uploadId": uid, "partNumber": str(n)}, part)
+            etags.append(h["etag"].strip('"'))
+        expect(fs, 200, "POST", "/fsb/mp/obj", {"uploadId": uid},
+               _complete_body(etags))
+        res["multipart_s"] = time.monotonic() - t0
+        _h, body = expect(fs, 200, "GET", "/fsb/mp/obj")
+        if body != b"".join(parts):
+            fail("backends: the FS multipart object's body differs")
+        with open(os.path.join(fs_dir, "fsb", "mp", "obj"), "rb") as f:
+            if f.read() != b"".join(parts):
+                fail("backends: the FS multipart object's file differs")
+        expect(fs, 200, "PUT", "/fsb/copy/big1",
+               headers={"x-amz-copy-source": "/fsb/big1"})
+        _h, body = expect(fs, 200, "GET", "/fsb/copy/big1")
+        if hashlib.sha256(body).hexdigest() != sha["big1"]:
+            fail("backends: the FS copy's body differs")
+        _h, body = expect(fs, 200, "GET", "/fsb", {"delimiter": "/"})
+        listed = (sorted(_xml_text(body, "Key")),
+                  sorted(p for p in _xml_text(body, "Prefix") if p))
+        if listed != (sorted(objs), ["copy/", "mp/"]):
+            fail(f"backends: the FS delimiter listing {listed}")
+        expect(fs, 200, "PUT", "/fsb/lineitem.csv", body=lineitem)
+        l1 = launches(fs)
+        # the first Select also starts the process's CUDA context
+        res["select_Q1"] = select(fs, "/fsb/lineitem.csv")
+        res["select_Q1_warm"] = select(fs, "/fsb/lineitem.csv")
+        l2 = launches(fs)
+        res["launches"] = moved(l0, l2)
+        res["select_launches"] = moved(l1, l2)
+        if backend is None:
+            sel_l = res["select_launches"]
+            if not all(sel_l.get(k) for k in ("select_screen", "select_positions",
+                                              "select_spans[row]")):
+                fail(f"backends: the FS server's Select launched {sel_l}")
+            if any(k in res["launches"] for k in ("encode_pack_pipelined",
+                                                  "phash256_batched")):
+                fail(f"backends: the FS server launched codec kernels {res['launches']}")
+        res["sigterm_s"] = fs.sigterm()
+        out["fs"] = res
+
+        # -- the NAS gateway over the directory the FS server wrote ------------
+        nas = _BootedServer(base, _free_port(), env, "bk-nas",
+                            drives=["gateway", "nas", fs_dir],
+                            what="backends NAS gateway")
+        servers.append(nas)
+        res = {"spawn_to_ready_s": nas.wait_ready()}
+        _h, body = expect(nas, 200, "GET", "/fsb")
+        keys = sorted(_xml_text(body, "Key"))
+        want = sorted([*objs, "copy/big1", "mp/obj", "lineitem.csv"])
+        if keys != want:
+            fail(f"backends: the NAS gateway lists {keys}, want {want}")
+        t0 = time.monotonic()
+        for k in objs:
+            _h, body = expect(nas, 200, "GET", f"/fsb/{k}")
+            if hashlib.sha256(body).hexdigest() != sha[k]:
+                fail(f"backends: the NAS gateway's {k} differs")
+        res["get_MBps"] = nbytes / (time.monotonic() - t0) / 1e6
+        res["launches"] = launches(nas)
+        res["sigterm_s"] = nas.sigterm(last="signal 15, shutting down")
+        out["nas"] = res
+
+        # -- the S3 gateway in front of U, both on TLS --------------------------
+        gw_env = dict(tls_env, SSL_CERT_FILE=cert,
+                      MINIO_TPU_GATEWAY_ACCESS_KEY="minioadmin",
+                      MINIO_TPU_GATEWAY_SECRET_KEY="minioadmin")
+        gw = _BootedServer(base, _free_port(), gw_env, "bk-gw",
+                           drives=["gateway", "s3", f"https://127.0.0.1:{up.port}"],
+                           what="backends S3 gateway", cafile=cert)
+        servers.append(gw)
+        res = {"spawn_to_ready_s": gw.wait_ready()}
+        u0, g0 = launches(up), launches(gw)
+        expect(gw, 200, "PUT", "/gwb")
+        res["objects"] = put_get(gw, "gwb")
+        u1, g1 = launches(up), launches(gw)
+        res["upstream_launches"] = moved(u0, u1)
+        res["gateway_launches"] = moved(g0, g1)
+        if backend is None and not all(res["upstream_launches"].get(k) for k in
+                                       ("encode_pack_pipelined", "phash256_batched")):
+            fail(f"backends: U's K5/K2 did not launch: {res['upstream_launches']}")
+        if res["gateway_launches"]:
+            fail(f"backends: the S3 gateway launched {res['gateway_launches']}")
+        # the first object on U's drives against the plain CPU codec
+        ref_roots = [os.path.join(base, "ref", f"d{j}") for j in range(N)]
+        ref = ErasureObjects([XLStorage(r) for r in ref_roots], parity_blocks=M,
+                             block_size=BLOCK, device="cpu")
+        ref.make_bucket("gwb")
+        ref.put_object("gwb", "big0", io.BytesIO(objs["big0"]), S3_BIG)
+        u_roots = [os.path.join(base, "u", f"disk{j + 1}") for j in range(N)]
+        for j, (r, c) in enumerate(zip(ref_roots, u_roots)):
+            if _obj_state(c, "big0", "gwb") != _obj_state(r, "big0", "gwb"):
+                fail(f"backends: big0 on U's drive {j + 1} differs from the "
+                     "plain codec's")
+        res["held_drives"] = N
+        # SSE-C passes through: PUT, GET and a copy; U holds them sealed
+        plain = objs["big2"][:1 << 20]
+        hdrs = ssec_headers(BK_SSEC_KEY)
+        expect(gw, 200, "PUT", "/gwb/sealed", body=plain, headers=hdrs)
+        _h, body = expect(gw, 200, "GET", "/gwb/sealed", headers=hdrs)
+        if body != plain:
+            fail("backends: the SSE-C GET through the gateway differs")
+        expect(gw, 200, "PUT", "/gwb/sealed-copy", headers={
+            **hdrs, **ssec_headers(BK_SSEC_KEY, copy_source=True),
+            "x-amz-copy-source": "/gwb/sealed"})
+        _h, body = expect(gw, 200, "GET", "/gwb/sealed-copy", headers=hdrs)
+        if body != plain:
+            fail("backends: the SSE-C copy through the gateway differs")
+        for k in ("sealed", "sealed-copy"):
+            meta = XLStorage(u_roots[0]).read_version("gwb", k).metadata
+            if meta.get("x-internal-sse") != "C":
+                fail(f"backends: U holds {k} unsealed: {sorted(meta)}")
+            expect(up, 400, "GET", f"/gwb/{k}")  # U wants the client's key
+            _h, body = expect(up, 200, "GET", f"/gwb/{k}", headers=hdrs)
+            if body != plain:
+                fail(f"backends: U's {k} with the key differs")
+        res["ssec"] = {"bytes": len(plain), "sealed_on_upstream": 2}
+        # Select on an object held in U scans on the gateway's card
+        expect(up, 200, "PUT", "/gwb/lineitem.csv", body=lineitem)
+        g2 = launches(gw)
+        res["select_Q1"] = select(gw, "/gwb/lineitem.csv")
+        res["select_Q1_warm"] = select(gw, "/gwb/lineitem.csv")
+        res["select_launches"] = moved(g2, launches(gw))
+        if backend is None and not all(res["select_launches"].get(k) for k in (
+                "select_screen", "select_positions", "select_spans[row]")):
+            fail(f"backends: the gateway's Select launched {res['select_launches']}")
+        res["upstream_launches_total"] = launches(up)
+        res["sigterm_s"] = gw.sigterm(last="signal 15, shutting down")
+        out["s3_gateway"] = res
+        out["upstream_sigterm_s"] = up.sigterm()
+    finally:
+        for srv in servers:
+            srv.kill()
+        shutil.rmtree(base, ignore_errors=True)
     out["phase_s"] = time.monotonic() - t_phase
     return out
 
@@ -7182,6 +7646,51 @@ def compare_select_copies(dev, mods: dict, order: list) -> list:
     return rows
 
 
+# the phases --only can run alone: each makes its own data and servers
+ONLY_PHASES = {
+    "select": lambda dev, work: select_phase(dev, work),
+    "cluster": lambda dev, work: cluster_phase(work),
+    "federation": lambda dev, work: federation_phase(work),
+    "replication": lambda dev, work: replication_phase(work),
+    "backends": lambda dev, work: backends_phase(dev, work),
+}
+
+
+def run_only(dev, names: list, repeat: int) -> int:
+    """``--only``: the named phases (``grid:CELL+CELL`` for grid cells),
+    ``repeat`` times in turn, each run in a fresh work directory.  A run
+    that fails is counted and the next one starts; prints one line a run
+    and the tally."""
+    global GRID_RUN
+
+    for name in names:
+        if not name.startswith("grid:") and name not in ONLY_PHASES:
+            fail(f"--only: unknown phase {name!r}")
+    card = card_name()
+    tally = {name: {"passed": 0, "failed": 0} for name in names}
+    for r in range(repeat):
+        for name in names:
+            work = tempfile.mkdtemp(prefix="chip_smoke-")
+            t0 = time.monotonic()
+            try:
+                if name.startswith("grid:"):
+                    GRID_RUN = tuple(name[5:].split("+"))
+                    res = grid_phase(work)
+                else:
+                    res = ONLY_PHASES[name](dev, work)
+                ok = True
+            except SystemExit as e:
+                res, ok = {"error": getattr(e, "message", str(e))}, False
+            finally:
+                shutil.rmtree(work, ignore_errors=True)
+            tally[name]["passed" if ok else "failed"] += 1
+            print(f"only {name} run {r + 1}: " + json.dumps(
+                {"ok": ok, "s": time.monotonic() - t0, "card": card, **res}),
+                flush=True)
+    print(f"only: {json.dumps(tally)}", flush=True)
+    return 0 if all(t["failed"] == 0 for t in tally.values()) else 1
+
+
 def card_name() -> str:
     """The card's name and power limit, as nvidia-smi gives them."""
     smi = subprocess.run(
@@ -7205,6 +7714,14 @@ def main() -> int:
         help="another copy of the port (DIR/__init__.py, DIR/ops, DIR/csrc): "
              "build it too and time its K1-K7 and K8-K11 beside this "
              "checkout's, in turns parent, new, new, parent")
+    ap.add_argument(
+        "--only", metavar="NAMES",
+        help="run only these phases, comma-separated, after the build: "
+             f"{', '.join(ONLY_PHASES)}, or grid:CELL[+CELL...] for cells of "
+             "the chaos grid; prints each run's line and an `only:` tally "
+             "and exits 1 when a run failed")
+    ap.add_argument("--repeat", type=int, default=1, metavar="N",
+                    help="with --only: run the phases N times in turn")
     args = ap.parse_args()
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is False", file=sys.stderr)
@@ -7237,6 +7754,9 @@ def main() -> int:
         for line in ptxas_summary(info.get("log", "")):
             print("  ptxas:", line)
         print(f"  sass: {json.dumps(sass_loops(lib, kernels))}", flush=True)
+
+    if args.only:
+        return run_only(dev, args.only.split(","), args.repeat)
 
     import numpy as np
 
@@ -7311,6 +7831,8 @@ def main() -> int:
         lap("federation")
         repl = replication_phase(work)
         lap("replication")
+        bk = backends_phase(dev, work)
+        lap("backends")
         grid = grid_phase(work)
         lap("grid")
     finally:
@@ -7332,6 +7854,7 @@ def main() -> int:
     print(f"heal_seq: {json.dumps({'card': card, **hs})}", flush=True)
     print(f"federation: {json.dumps({'card': card, **fed})}", flush=True)
     print(f"replication: {json.dumps({'card': card, **repl})}", flush=True)
+    print(f"backends: {json.dumps({'card': card, **bk})}", flush=True)
     print(f"grid: {json.dumps({'card': card, **grid})}", flush=True)
     print(f"phases_s: {json.dumps(phases_s)}", flush=True)
     phase_launches = {

@@ -35,6 +35,7 @@ from . import backend as backend_mod, bitrot, compress
 from .telemetry import KERNEL_STATS
 from ..parallel import iopool
 from ..storage import health as disk_health
+from ..utils import spans
 from ..utils.log import kv, logger
 
 _log = logger("codec")
@@ -49,6 +50,10 @@ _RA_SEQ = itertools.count()
 # stage accounting from iopool workers (frame assembly runs on the
 # writer's queue, not the submitting thread)
 _STAGE_LK = threading.Lock()
+
+# a GET's decode stages under their request-span names (utils/spans.py)
+_SPAN_STAGES = (("disk", "shard_reads"), ("codec", "verify"),
+                ("assemble", "assemble"))
 
 
 def _codec_stage(be) -> str:
@@ -569,6 +574,8 @@ class Erasure:
         )
         KERNEL_STATS.record_stream("decode", written)
         KERNEL_STATS.record_stages("get", stages)
+        for stage, name in _SPAN_STAGES:
+            spans.add(name, stages[stage])
         if heal_required:
             KERNEL_STATS.record_heal_required()
         return written, heal_required

@@ -515,6 +515,30 @@ class DataCrawler:
                 page = self._ol.list_object_versions(
                     bucket, "", key_marker, vid_marker, "", 1000
                 )
+            except NotImplementedError:
+                # FS backend: no version journal - stream the flat
+                # namespace (marker-paged list_objects would re-walk
+                # and re-sort the whole bucket per page)
+                walker = getattr(self._ol, "iter_all_objects", None)
+                try:
+                    if walker is not None:
+                        for oi in walker(bucket):
+                            process_key([oi])
+                    else:
+                        marker = ""
+                        while True:
+                            res = self._ol.list_objects(
+                                bucket, "", marker, "", 1000
+                            )
+                            for oi in res.objects:
+                                process_key([oi])
+                            if not res.is_truncated:
+                                break
+                            marker = res.next_marker
+                except Exception as exc:
+                    _log.debug("flat namespace sweep failed", extra=kv(err=str(exc)))
+                group = []
+                break
             except Exception:  # noqa: BLE001
                 break
             for oi in page.versions:

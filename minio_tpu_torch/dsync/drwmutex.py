@@ -3,7 +3,8 @@
 Algorithm (matching the reference's DRWMutex):
 
 - A lock names one or more resources.  Acquisition broadcasts the request
-  to every locker node in parallel; it succeeds iff a quorum grants it
+  to every locker node in parallel (remote lockers on persistent fan-out
+  workers, parallel/fanout.py); it succeeds iff a quorum grants it
   within the acquire window (DRWMutexAcquireTimeout, drwmutex.go:47).
 - Write quorum is n - n//2, bumped by one when that equals the tolerance
   (even n) so two halves of a split brain cannot both hold the lock
@@ -31,6 +32,7 @@ import threading
 import time
 import uuid
 
+from ..parallel.fanout import Fanout, run_all
 from ..utils.log import kv, logger
 
 _log = logger("dsync")
@@ -103,6 +105,18 @@ class Dsync:
         # one refresher thread PER locker so a hung node cannot starve
         # refreshes to healthy nodes past the expiry window
         self._threads: "list[threading.Thread] | None" = None
+        # the lock calls and the release calls, each a pool a remote
+        # locker: a hung node holds only its own workers, and a release
+        # never queues behind asks; the in-process locker is called on
+        # the calling thread
+        self._pools = {
+            kind: [
+                None if getattr(c, "in_process", False)
+                else Fanout(f"dsync-{kind}-{i}")
+                for i, c in enumerate(self.lockers)
+            ]
+            for kind in ("ask", "release")
+        }
 
     # -- held-lock registry (feeds the refreshers) ------------------------
 
@@ -121,6 +135,11 @@ class Dsync:
                 ]
                 for t in self._threads:
                     t.start()
+
+    def pool_for(self, i: int, kind: str = "ask") -> "Fanout | None":
+        """The workers that send ``kind`` calls (``ask`` or ``release``)
+        to locker ``i`` (None: the calling thread)."""
+        return self._pools[kind][i]
 
     def untrack(self, uid: str) -> None:
         with self._mu:
@@ -166,6 +185,10 @@ class Dsync:
 
     def close(self) -> None:
         self._stop.set()
+        for pools in self._pools.values():
+            for pool in pools:
+                if pool is not None:
+                    pool.close()
         if self._threads is not None:
             for t in self._threads:
                 t.join(timeout=2)
@@ -227,6 +250,9 @@ class DRWMutex:
         self.names = tuple(names)
         self._uid = ""
         self._read = False
+        # (mu, flag) of the attempt that acquired: a grant that lands
+        # after the release sees the flag and releases itself
+        self._late = None
 
     # -- public API -------------------------------------------------------
 
@@ -288,7 +314,9 @@ class DRWMutex:
         pending = [n]
         failed = [0]
         granted = [0]
-        abandoned = [False]  # set when the attempt is given up
+        # set when the attempt is given up, or the lock it acquired is
+        # released: a grant answered after that is released by its ask
+        abandoned = [False]
         mu = threading.Lock()
 
         def release_one(i: int) -> None:
@@ -328,16 +356,19 @@ class DRWMutex:
                     done.set()
                 late_abandoned = abandoned[0] and ok
             if late_abandoned:
-                # grant arrived after the attempt was given up
-                # (drwmutex.go releases post-timeout grants the same way)
+                # grant arrived after the attempt was given up, or after
+                # the lock it joined was released (drwmutex.go releases
+                # post-timeout grants the same way)
                 release_one(i)
 
-        threads = [
-            threading.Thread(target=ask, args=(i, c), daemon=True)
-            for i, c in enumerate(lockers)
-        ]
-        for t in threads:
-            t.start()
+        # remote lockers on the fan-out workers (each keeps its
+        # keep-alive connection to every peer), the in-process one here
+        for i, c in enumerate(lockers):
+            if self._ds.pool_for(i) is not None:
+                self._ds.pool_for(i).submit(lambda i=i, c=c: ask(i, c))
+        for i, c in enumerate(lockers):
+            if self._ds.pool_for(i) is None:
+                ask(i, c)
         done.wait(ACQUIRE_TIMEOUT_S)
         with mu:
             met = granted[0] >= quorum
@@ -350,7 +381,9 @@ class DRWMutex:
             self._send_release(args, read, to_release)
             return False
         # stragglers that grant after a successful acquire belong to the
-        # held lock and are released at unlock (indices=None).
+        # held lock and are released at unlock (indices=None), or by
+        # their ask when they land after it
+        self._late = (mu, abandoned)
         return True
 
     def _send_release(
@@ -358,7 +391,8 @@ class DRWMutex:
     ) -> None:
         lockers = self._ds.lockers
         idx = range(len(lockers)) if indices is None else indices
-        for i in idx:
+
+        def release(i: int) -> None:
             try:
                 if read:
                     lockers[i].runlock(args)
@@ -367,10 +401,20 @@ class DRWMutex:
             except Exception as exc:
                 _log.debug("unlock on unreachable node; entry ages out", extra=kv(err=str(exc)))
 
+        # every locker at once, returning when all have answered
+        # (releaseAll, drwmutex.go:336)
+        run_all([(self._ds.pool_for(i, "release"), lambda i=i: release(i))
+                 for i in idx])
+
     def _release(self) -> None:
         if not self._uid:
             return
         args = LockArgs(uid=self._uid, resources=self.names)
         self._ds.untrack(self._uid)
+        if self._late is not None:
+            mu, released = self._late
+            with mu:
+                released[0] = True
+            self._late = None
         self._send_release(args, self._read)
         self._uid = ""

@@ -38,6 +38,9 @@ def _is_write_locked(entries: "list[LockEntry]") -> bool:
 class LocalLocker:
     """In-process NetLocker backing one node's lock REST plane."""
 
+    # dsync asks it on the calling thread (no network call to overlap)
+    in_process = True
+
     def __init__(self, endpoint: str = "local"):
         self.endpoint = endpoint
         self._mu = threading.Lock()

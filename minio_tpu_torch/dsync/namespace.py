@@ -13,6 +13,8 @@ import contextlib
 import threading
 import time
 
+from ..utils import spans
+
 
 class _RWLock:
     """Writer-preference RW lock with timeout support."""
@@ -103,12 +105,15 @@ class NamespaceLock:
         key = f"{volume}/{path}"
         lk = self._get(key)
         try:
-            if not lk.acquire_read(timeout):
+            with spans.span("lock"):
+                got = lk.acquire_read(timeout)
+            if not got:
                 raise LockTimeout(key)
             try:
                 yield
             finally:
-                lk.release_read()
+                with spans.span("unlock"):
+                    lk.release_read()
         finally:
             self._put(key)
 
@@ -117,12 +122,15 @@ class NamespaceLock:
         key = f"{volume}/{path}"
         lk = self._get(key)
         try:
-            if not lk.acquire_write(timeout):
+            with spans.span("lock"):
+                got = lk.acquire_write(timeout)
+            if not got:
                 raise LockTimeout(key)
             try:
                 yield
             finally:
-                lk.release_write()
+                with spans.span("unlock"):
+                    lk.release_write()
         finally:
             self._put(key)
 
@@ -174,14 +182,17 @@ class DistNamespaceLock:
             timeout = self._rtimeout.timeout
         m = DRWMutex(self._ds, f"{volume}/{path}")
         t0 = _t.monotonic()
-        if not m.get_rlock(self._source, timeout):
+        got = m.get_rlock(self._source, timeout)
+        spans.add("lock", _t.monotonic() - t0)
+        if not got:
             self._rtimeout.log_failure()
             raise LockTimeout(f"{volume}/{path}")
         self._rtimeout.log_success(_t.monotonic() - t0)
         try:
             yield
         finally:
-            m.runlock()
+            with spans.span("unlock"):
+                m.runlock()
 
     @contextlib.contextmanager
     def write(self, volume: str, path: str, timeout: "float | None" = None):
@@ -193,11 +204,14 @@ class DistNamespaceLock:
             timeout = self._wtimeout.timeout
         m = DRWMutex(self._ds, f"{volume}/{path}")
         t0 = _t.monotonic()
-        if not m.get_lock(self._source, timeout):
+        got = m.get_lock(self._source, timeout)
+        spans.add("lock", _t.monotonic() - t0)
+        if not got:
             self._wtimeout.log_failure()
             raise LockTimeout(f"{volume}/{path}")
         self._wtimeout.log_success(_t.monotonic() - t0)
         try:
             yield
         finally:
-            m.unlock()
+            with spans.span("unlock"):
+                m.unlock()

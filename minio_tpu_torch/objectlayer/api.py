@@ -2,8 +2,10 @@
 
 The seam between API handlers and storage backends
 (cmd/object-api-interface.go:66-140 ObjectLayer; error types from
-cmd/object-api-errors.go).  This port implements ErasureObjects (one
-erasure set); the S3 front (server/http.py) calls it.
+cmd/object-api-errors.go).  Implementations: ErasureObjects (one set),
+ErasureSets, ErasureZones, FSObjects (one drive, objectlayer/fs.py) and
+S3Objects (the S3 gateway, gateway/s3.py); the S3 front
+(server/http.py) calls them.
 """
 
 from __future__ import annotations
@@ -69,6 +71,10 @@ class InvalidPartOrder(ObjectLayerError):
 
 class EntityTooSmall(ObjectLayerError):
     """Non-final multipart part below the S3 5 MiB minimum."""
+
+
+class PreconditionFailed(ObjectLayerError):
+    pass
 
 
 @dataclasses.dataclass

@@ -45,9 +45,11 @@ from ..storage.meta import (
     now_ns,
 )
 from ..storage.xl import XLStorage
+from ..parallel.fanout import run_all
+from ..utils import spans
 from ..utils.hashreader import HashReader
 from ..utils.log import kv, logger
-from . import api
+from . import api, metadata as metadata_mod
 from .api import (
     BucketExists,
     BucketInfo,
@@ -183,9 +185,9 @@ class ErasureObjects(MultipartMixin, ObjectLayer):
 
     def get_bucket_info(self, bucket: str) -> BucketInfo:
         check_bucket_name(bucket)
-        for d in self._online_disks():
-            if d is None:
-                continue
+        # one drive answers: a local one first, which costs no round trip
+        online = [d for d in self._online_disks() if d is not None]
+        for d in sorted(online, key=lambda d: not metadata_mod.is_local(d)):
             try:
                 vi = d.stat_vol(bucket)
                 return BucketInfo(vi.name, vi.created_ns)
@@ -458,7 +460,10 @@ class ErasureObjects(MultipartMixin, ObjectLayer):
         self, bucket, object_name, version_id=""
     ) -> tuple[FileInfo, list]:
         disks = self._online_disks()
-        fis, errs = read_all_fileinfo(disks, bucket, object_name, version_id)
+        with spans.span("meta"):
+            fis, errs = read_all_fileinfo(
+                disks, bucket, object_name, version_id
+            )
         not_found = sum(
             isinstance(e, (serrors.FileNotFound, serrors.VersionNotFound))
             for e in errs
@@ -759,9 +764,10 @@ class ErasureObjects(MultipartMixin, ObjectLayer):
                 )
                 opened: list = []
                 if rctx is None:
-                    readers = self._part_readers(
-                        disks, bucket, object_name, fi, part.number
-                    )
+                    with spans.span("open"):
+                        readers = self._part_readers(
+                            disks, bucket, object_name, fi, part.number
+                        )
                     opened = readers
                 else:
                     # lazy open: a part whose every group hits the cache
@@ -872,23 +878,21 @@ class ErasureObjects(MultipartMixin, ObjectLayer):
     def _part_readers(
         self, disks, bucket, object_name, fi: FileInfo, part_number: int
     ) -> list:
-        readers: list = []
-        for d in disks:
-            if d is None:
-                readers.append(None)
-                continue
+        readers: list = [None] * len(disks)
+        path = f"{object_name}/{fi.data_dir}/part.{part_number}"
+
+        def open_one(i: int, d) -> None:
             try:
-                readers.append(
-                    tag_disk_stream(
-                        d.read_file_stream(
-                            bucket,
-                            f"{object_name}/{fi.data_dir}/part.{part_number}",
-                        ),
-                        d,
-                    )
-                )
+                readers[i] = tag_disk_stream(d.read_file_stream(bucket, path), d)
             except Exception:  # noqa: BLE001 - a missing shard, not an error
-                readers.append(None)
+                readers[i] = None
+
+        # a remote drive's open is a round trip (statfile): all at once
+        run_all([
+            (None if metadata_mod.is_local(d) else metadata_mod.FANOUT,
+             lambda i=i, d=d: open_one(i, d))
+            for i, d in enumerate(disks) if d is not None
+        ])
         return readers
 
     # ------------------------------------------------------------------

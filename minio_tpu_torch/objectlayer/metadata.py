@@ -11,12 +11,17 @@ from __future__ import annotations
 
 import binascii
 
+from ..parallel.fanout import Fanout, run_all
 from ..storage import errors as serrors
 from ..storage.meta import FileInfo
 from ..utils.log import kv, logger
 from . import api
 
 _log = logger("objectlayer")
+
+# remote drives' xl.meta reads (read_all_fileinfo) and shard opens
+# (erasure_object._part_readers)
+FANOUT = Fanout("meta-fanout", cap=256)
 
 
 def hash_order(key: str, cardinality: int) -> list[int]:
@@ -45,18 +50,32 @@ def read_all_fileinfo(
     disks: list, volume: str, path: str, version_id: str = ""
 ) -> tuple[list, list]:
     """ReadVersion from every disk -> (fileinfos, errors) index-aligned
-    (readAllFileInfo, erasure-metadata-utils.go)."""
+    (readAllFileInfo, erasure-metadata-utils.go).  Remote drives are read
+    at once on the fan-out workers, local ones on the calling thread, as
+    the reference reads every drive in parallel."""
     fis: list = [None] * len(disks)
     errs: list = [None] * len(disks)
-    for i, disk in enumerate(disks):
-        if disk is None:
-            errs[i] = serrors.DiskNotFound("offline")
-            continue
+
+    def one(i: int, disk) -> None:
         try:
             fis[i] = disk.read_version(volume, path, version_id)
         except Exception as e:  # noqa: BLE001 - per-disk error slot
             errs[i] = e
+
+    jobs = []
+    for i, disk in enumerate(disks):
+        if disk is None:
+            errs[i] = serrors.DiskNotFound("offline")
+        else:
+            jobs.append((None if is_local(disk) else FANOUT,
+                         lambda i=i, disk=disk: one(i, disk)))
+    run_all(jobs)
     return fis, errs
+
+
+def is_local(disk) -> bool:
+    probe = getattr(disk, "is_local", None)
+    return probe() if callable(probe) else True
 
 
 def find_fileinfo_in_quorum(

@@ -217,16 +217,27 @@ class ErasureZones(ObjectLayer):
         object_path_updated(f"{bucket}/{object_name}")
         return info
 
+    # A single zone answers reads itself (z.SingleZone(), erasure-zones.go):
+    # locating the object first would read xl.meta by quorum, and stat the
+    # bucket, twice per request, with the same answers.
+
     def get_object(self, bucket, object_name, writer, offset=0, length=-1,
                    version_id="", sse=None):
-        self.zones[0].get_bucket_info(bucket)
-        z = self._find_zone(bucket, object_name, version_id)
+        if len(self.zones) == 1:
+            z = self.zones[0]
+        else:
+            self.zones[0].get_bucket_info(bucket)
+            z = self._find_zone(bucket, object_name, version_id)
         return z.get_object(
             bucket, object_name, writer, offset, length, version_id,
             sse,
         )
 
     def get_object_info(self, bucket, object_name, version_id=""):
+        if len(self.zones) == 1:
+            return self.zones[0].get_object_info(
+                bucket, object_name, version_id
+            )
         self.zones[0].get_bucket_info(bucket)
         z = self._find_zone(bucket, object_name, version_id)
         return z.get_object_info(bucket, object_name, version_id)

@@ -51,9 +51,19 @@ replication that is still PENDING or FAILED (bucket replication,
 replication/replicate.py), and ``MINIO_TPU_NOTIFY_*`` configures the
 event targets (event/targets.py).
 
-What this package has not ported exits at boot with a message naming
-its slice, instead of being ignored: the gateway and a single drive (FS
-mode), both slice 9c.
+One local drive with no ``://`` is the standalone FS mode
+(objectlayer/fs.py, server-main.go:561-564): objects are plain files
+under ``<drive>/<bucket>/<object>``, with the same wrappers around the
+layer as an erasure one (the disk cache, IAM on the layer, the crawler);
+a drive that holds an erasure format exits instead.  ``server gateway
+nas <path>`` serves a shared directory through the same FS layer and
+``server gateway s3 <url>`` an upstream S3 store (gateway/s3.py,
+credentials ``MINIO_TPU_GATEWAY_ACCESS_KEY`` and
+``MINIO_TPU_GATEWAY_SECRET_KEY``, ``MINIO_TPU_GATEWAY_INSECURE=1`` for an
+upstream's self-signed certificate), with no storage, lock or peer
+planes.  These layers have no codec: S3 Select scans their objects on
+the device ``MINIO_ERASURE_BACKEND`` names, which is the card by
+default, so they need one as an erasure server does.
 """
 
 from __future__ import annotations
@@ -64,12 +74,6 @@ import signal
 import sys
 
 CODEC_DEVICES = ("cuda", "cpu")
-
-
-def _refuse(what: str, slice_name: str) -> "SystemExit":
-    return SystemExit(
-        f"{what} is not ported to minio_tpu_torch yet (slice {slice_name})"
-    )
 
 
 def group_zone_args(zone_args: list[str]) -> list[list[str]]:
@@ -112,15 +116,6 @@ def codec_device(value: "str | None" = None) -> str:
     return dev
 
 
-def refuse_unported(zone_args: list[str]) -> None:
-    """Exit, naming the slice, for what this package does not serve."""
-    if zone_args and zone_args[0] == "gateway":
-        raise _refuse("gateway mode (server gateway nas|s3)", "9c")
-    flat = [a for g in group_zone_args(zone_args) for a in g]
-    if len(flat) == 1 and "://" not in flat[0]:
-        raise _refuse("the single-drive FS mode (objectlayer/fs.py)", "9c")
-
-
 def build_object_layer(zone_args: list[str], parity: "int | None" = None,
                        device="cuda"):
     """Single-node convenience: expand bare-path args -> zones layer."""
@@ -147,8 +142,9 @@ def build_cluster(
     ``local_disk_map`` maps a local drive path to a drive opened before
     (the server main opens them first, so the storage plane serves the
     peers during the format bootstrap); ``nslock`` is the namespace lock
-    every set shares (dsync quorum locks in a cluster).  A single drive
-    (FS mode) raises: slice 9c.
+    every set shares (dsync quorum locks in a cluster).  A single local
+    drive is the standalone FS mode: ``FSObjects`` and no drives to
+    serve.
     """
     from ..cluster.endpoints import resolve_endpoints
     from ..objectlayer.format import wait_for_format
@@ -160,9 +156,20 @@ def build_cluster(
     from ..storage.xl import XLStorage
     from ..utils import ellipses
 
+    # standalone FS mode: exactly one local drive and no cluster
+    # topology (newObjectLayer FS selection, server-main.go:561-564).
+    # A drive already carrying an erasure format must never be
+    # reinterpreted as FS (that would misread xl-layout data).
     flat = [a for g in group_zone_args(zone_args) for a in g]
     if len(flat) == 1 and "://" not in flat[0]:
-        raise _refuse("the single-drive FS mode (objectlayer/fs.py)", "9c")
+        if os.path.exists(os.path.join(flat[0], ".sys", "format.json")):
+            raise SystemExit(
+                f"{flat[0]} holds an erasure format; a single-drive FS "
+                "server cannot serve it (add the original drives)"
+            )
+        from ..objectlayer.fs import FSObjects
+
+        return FSObjects(flat[0]), []
 
     zones = []
     local_disks: list = []
@@ -376,6 +383,69 @@ def start_crawler(srv, ol, nslock, tracker_root, distributed: bool):
     return tracker
 
 
+def run_gateway(args) -> int:
+    """Serve the S3 API over a non-erasure backend
+    (cmd/gateway/gateway-main.go).  No storage/lock planes, no heal,
+    no crawler - the backend owns durability.  Select scans on the
+    device ``MINIO_ERASURE_BACKEND`` names (the card by default)."""
+    from .http import S3Server
+
+    if len(args.zones) != 3:
+        raise SystemExit(
+            "usage: server gateway {nas <path> | s3 <endpoint-url>}"
+        )
+    kind, target = args.zones[1], args.zones[2]
+    if kind == "nas":
+        from ..objectlayer.fs import FSObjects
+
+        ol = FSObjects(target)
+        desc = f"NAS gateway over {target}"
+    elif kind == "s3":
+        from ..gateway.s3 import S3Objects
+
+        ol = S3Objects(
+            target,
+            os.environ.get("MINIO_TPU_GATEWAY_ACCESS_KEY")
+            or args.access_key,
+            os.environ.get("MINIO_TPU_GATEWAY_SECRET_KEY")
+            or args.secret_key,
+            region=args.region,
+        )
+        desc = f"S3 gateway to {target}"
+    else:
+        raise SystemExit(f"unknown gateway backend {kind!r}")
+    device = codec_device()
+    srv = S3Server(
+        ol,
+        address=args.address,
+        access_key=args.access_key,
+        secret_key=args.secret_key,
+        region=args.region,
+        device=device,
+    )
+    if device == "cuda":
+        from ..ops import kernels
+
+        kernels.load()
+    from ..iam.sys import IAMSys
+
+    # IAM rides the backend for nas (persistent), memory for s3 (the
+    # upstream bucket namespace is not ours to write into)
+    iam = IAMSys(
+        args.access_key,
+        args.secret_key,
+        ol if kind == "nas" else None,
+    )
+    srv.attach_iam(iam)
+    srv.start()
+    print(f"minio-tpu serving {desc} at {srv.endpoint}")
+    sys.stdout.flush()
+    stop = signal.sigwait([signal.SIGINT, signal.SIGTERM])
+    print(f"signal {stop}, shutting down")
+    srv.shutdown()
+    return 0
+
+
 def main(argv=None) -> int:
     p = argparse.ArgumentParser(prog="minio-tpu server")
     p.add_argument(
@@ -417,7 +487,11 @@ def main(argv=None) -> int:
     from ..utils import log
 
     log.setup(os.environ.get("MINIO_TPU_LOG_LEVEL", "info"))
-    refuse_unported(args.zones)
+
+    # gateway mode (cmd/gateway/): `server gateway nas /path` or
+    # `server gateway s3 http://upstream:9000`
+    if args.zones and args.zones[0] == "gateway":
+        return run_gateway(args)
     device = codec_device()
 
     from .. import cache as rcache
@@ -464,6 +538,7 @@ def main(argv=None) -> int:
         secret_key=args.secret_key,
         region=args.region,
         internode_secret=args.secret_key,
+        device=device,
     )
     if fault_disks:
         srv.fault_disks = fault_disks
@@ -552,6 +627,7 @@ def main(argv=None) -> int:
         device = want
         ol = build(device)
         srv.object_layer = ol
+        srv.device = device
     # optional SSD read cache in front of the object layer
     # (disk-cache.go CacheObjectLayer, server-main.go:531-540); the
     # subsystems below keep the bare layer
@@ -592,7 +668,7 @@ def main(argv=None) -> int:
 
     guarded_map = {
         d.unwrapped.root: d
-        for zone in ol.zones
+        for zone in getattr(ol, "zones", [])
         for eset in zone.sets
         for d in eset.disks
         if isinstance(d, DiskIDCheck)
@@ -615,22 +691,32 @@ def main(argv=None) -> int:
         srv.iam_refresher = iam.start_refresher(
             float(os.environ.get("MINIO_TPU_IAM_REFRESH_S") or 120.0)
         )
-    routine, monitor = start_background_heal(ol)
-    srv.heal_routine = routine
-    srv.heal_queue = routine.queue
-    srv.disk_monitor = monitor  # also the reloadformat peer RPC
-    tracker = start_crawler(srv, ol, nslock, next(iter(guarded_map), None),
-                            bool(peers))
-    si = ol.storage_info()
-    srv.boot_status["boot"] = True
-    print(
-        f"minio-tpu serving {len(ol.zones)} zone(s) "
-        f"{[z['disks'] for z in si['zones']]} drives at {srv.endpoint}"
+    if getattr(ol, "zones", None):
+        routine, monitor = start_background_heal(ol)
+        srv.heal_routine = routine
+        srv.heal_queue = routine.queue
+        srv.disk_monitor = monitor  # also the reloadformat peer RPC
+    tracker = start_crawler(
+        srv, ol, nslock,
+        next(iter(guarded_map), None) or getattr(ol, "root", None),
+        bool(peers),
     )
+    si = ol.storage_info()
+    if "zones" in si:
+        desc = (
+            f"{len(ol.zones)} zone(s) "
+            f"{[z['disks'] for z in si['zones']]} drives"
+        )
+        zcount = len(ol.zones)
+    else:
+        desc = "standalone FS backend (1 drive)"
+        zcount = 0
+    srv.boot_status["boot"] = True
+    print(f"minio-tpu serving {desc} at {srv.endpoint}")
     sys.stdout.flush()
     log.logger("server").info(
         "online",
-        extra=log.kv(endpoint=srv.endpoint, zones=len(ol.zones),
+        extra=log.kv(endpoint=srv.endpoint, zones=zcount,
                      device=device, peers=len(peers)),
     )
     stop = signal.sigwait([signal.SIGINT, signal.SIGTERM])

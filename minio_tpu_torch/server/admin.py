@@ -11,8 +11,9 @@ wedge, the read cache's stats and clear, the disk cache's stats,
 remote fault injection, healthinfo, bucket quotas, the replication
 remote targets, and the data crawler's usage snapshot and forced
 crawl.  ``listen-stats`` (the live ListenBucketNotification streams and
-the peers' remote listeners held here) is this package's own, like the
-launch counts in ``kernel-stats``.  In a cluster, info, healthinfo, the background-heal status,
+the peers' remote listeners held here) and ``request-stages`` (the
+stage spans of the requests served since the last call, utils/spans.py)
+are this package's own, like the launch counts in ``kernel-stats``.  In a cluster, info, healthinfo, the background-heal status,
 top-locks and profiling gather every peer's answer over the peer plane
 (cluster/peer.py), and service stop/restart is sent to the peers first.
 
@@ -253,6 +254,13 @@ class AdminAPI:
             # a cluster run reads each node's launches
             doc["launches"] = dict(kernels.LAUNCHES)
             return 200, _json(doc)
+        # this process's request stage spans since the last call
+        # (utils/spans.py), oldest first; reading clears them
+        if route == ("GET", "request-stages"):
+            from ..utils import spans
+
+            return 200, _json({"records": spans.drain(),
+                               "threads": spans.thread_cpu()})
         # profiling (admin-router.go:82): start on every node, download
         # collects per-node artifacts in one JSON document
         if route == ("POST", "profiling/start"):
@@ -645,7 +653,7 @@ class AdminAPI:
         )
         ksnap = KERNEL_STATS.snapshot()
         doc["codec_overlap"] = {
-            "mode": codec_step.codec_overlap_mode(scan_device(ol)),
+            "mode": codec_step.codec_overlap_mode(scan_device(self.s3)),
             "overlap_windows": ksnap["overlap_windows"],
             "h2d": ksnap["h2d"],
             "d2h": ksnap["d2h"],

@@ -75,12 +75,14 @@ import os
 import queue
 import socket
 import threading
+import time
 import urllib.parse
 import uuid
 from http import client as _hclient
 
 from . import s3errors
 from . import response as xmlr
+from ..utils import spans
 from ..utils.log import kv, logger
 
 _log = logger("aio")
@@ -201,12 +203,15 @@ class _LoopWriter:
             writer.write(data)
             await writer.drain()
 
+        t0 = time.monotonic()
         try:
             asyncio.run_coroutine_threadsafe(
                 _wr(), self._owner.loop
             ).result()
         except (RuntimeError, ConnectionError, asyncio.CancelledError) as e:
             raise OSError(f"connection lost: {e}") from None
+        finally:
+            spans.add("write", time.monotonic() - t0)
         return n
 
     def flush(self) -> None:  # writes are already synchronous
@@ -588,6 +593,7 @@ class _ServerLoop:
         if self._is_streaming(command, upath, query):
             self.pool.spawn_stream(_work)
         else:
+            h._t_enqueued = time.monotonic()
             # reserved above by _enqueue_ok probing; enqueue for real
             if not self.pool.try_submit(_work):
                 if tenant is not None:

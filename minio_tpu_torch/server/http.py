@@ -69,7 +69,7 @@ from ..objectlayer.api import (
 )
 from ..objectlayer.bucket_meta import BucketMetadataSys
 from ..replication.replicate import META_REPLICATION_STATUS, ReplicationPool
-from ..utils import tags as tagmod
+from ..utils import spans, tags as tagmod
 from ..utils.hashreader import HashReader
 from ..utils.xmlutil import strip_ns
 from . import authz, response as xmlr, s3errors
@@ -189,8 +189,10 @@ class S3Server:
     """Owns the listener + object layer; one per process (xhttp.NewServer
     analogue, cmd/http/server.go:185).
 
-    The server takes no device: the object layer it is given runs its
-    codec on the device it was built for (the card by default)."""
+    An erasure layer runs its codec, and S3 Select its scans, on the
+    device it was built for; ``device`` (the card by default) is where
+    Select scans the objects of a layer without a codec (the FS mode and
+    the gateways)."""
 
     def __init__(
         self,
@@ -201,8 +203,10 @@ class S3Server:
         region: str = "us-east-1",
         iam=None,
         internode_secret: str = "",
+        device="cuda",
     ):
         self.object_layer = object_layer
+        self.device = device
         # when set, internode-plane requests must carry a valid JWT
         # BEFORE the server reads their body
         self.internode_secret = internode_secret
@@ -663,10 +667,16 @@ class _Handler(BaseHTTPRequestHandler):
             self.send_header("Content-Length", str(len(body)))
         else:
             self.send_header("Content-Length", "0")
-        self.end_headers()
         if body and self.command != "HEAD":
-            self.wfile.write(body)
+            # the head and the body in one write: on the async plane each
+            # write is a hand-off to the connection's event loop
+            self._headers_buffer.append(b"\r\n")
+            self._headers_sent = True
+            self.wfile.write(b"".join(self._headers_buffer) + body)
+            self._headers_buffer = []
             self._resp_bytes += len(body)
+        else:
+            self.end_headers()
 
     def _error(self, err: s3errors.APIError, resource: str):
         if err.status >= 500:
@@ -770,7 +780,15 @@ class _Handler(BaseHTTPRequestHandler):
             self.wfile.flush()
 
     def route(self):
+        rec = spans.begin(getattr(self, "_t_enqueued", None))
+        try:
+            self._route()
+        finally:
+            spans.end(rec)
+
+    def _route(self):
         path, query = self._parse()
+        spans.note(method=self.command, path=path)
         self._headers_sent = False
         self._raw_body = None
         self._auth = None
@@ -2501,11 +2519,11 @@ class _Handler(BaseHTTPRequestHandler):
         else:
             status, length = 200, info.size
             lo = 0
+        request_id = uuid.uuid4().hex[:16].upper()
+        spans.note(request_id=request_id)
         self.send_response(status)
         self.send_header("Server", "MinIO-TPU")
-        self.send_header(
-            "x-amz-request-id", uuid.uuid4().hex[:16].upper()
-        )
+        self.send_header("x-amz-request-id", request_id)
         for k, v in headers.items():
             self.send_header(k, v)
         self.send_header("Content-Type", ct)
@@ -2724,7 +2742,12 @@ class _Handler(BaseHTTPRequestHandler):
         multipart): explicit SSE-C or SSE-S3 headers, else the bucket's
         default encryption config.  SSE-KMS requests return
         NotImplemented exactly like the reference
-        (object-handlers.go:102)."""
+        (object-handlers.go:102).  A gateway layer (``sse_passthrough``)
+        forwards the intent: the upstream's KMS does the work, so no
+        local KMS is needed."""
+        passthrough = getattr(
+            self.s3.object_layer, "sse_passthrough", False
+        )
         spec = self._parse_ssec_headers(
             "x-amz-server-side-encryption-customer"
         )
@@ -2744,7 +2767,7 @@ class _Handler(BaseHTTPRequestHandler):
                     "InvalidRequest",
                     "The encryption method specified is not supported",
                 )
-            if not ssemod.sse_s3_available():
+            if not passthrough and not ssemod.sse_s3_available():
                 raise S3Error(
                     "InvalidArgument",
                     "Server side encryption specified but KMS is not "
@@ -2758,7 +2781,7 @@ class _Handler(BaseHTTPRequestHandler):
         except Exception:  # noqa: BLE001 - missing bucket: no default
             raw = ""
         if raw and self._default_sse_algo(raw) == "AES256":
-            if not ssemod.sse_s3_available():
+            if not passthrough and not ssemod.sse_s3_available():
                 # the bucket DEMANDS encryption: storing plaintext
                 # because the KMS went away would silently violate it
                 raise S3Error(
@@ -2783,13 +2806,34 @@ class _Handler(BaseHTTPRequestHandler):
         return ""
 
     def _copy_source_info_and_sse(self, src_bucket, src_key):
-        """(src_info, source read-spec) for copy operations."""
-        info = self.s3.object_layer.get_object_info(src_bucket, src_key)
+        """(src_info, source read-spec) for copy operations; gateway
+        layers forward the copy-source customer key to the upstream
+        instead of running local SSE guards (like _read_info_and_sse
+        for GET/HEAD)."""
+        ol = self.s3.object_layer
+        if getattr(ol, "sse_passthrough", False):
+            spec = self._parse_ssec_headers(
+                "x-amz-copy-source-server-side-encryption-customer"
+            )
+            info = ol.get_object_info(src_bucket, src_key, sse=spec)
+            return info, spec
+        info = ol.get_object_info(src_bucket, src_key)
         return info, self._read_sse(info, copy_source=True)
 
     def _read_info_and_sse(self, ol, bucket, key, version_id):
         """(info, read-spec) for a GET/HEAD, checked before any header
-        goes out."""
+        goes out.  Gateway layers do SSE pass-through: the UPSTREAM owns
+        encryption, so the request's customer key rides the gateway
+        HEAD/GET verbatim and the local _read_sse guards do not apply
+        (gateway-s3-sse.go)."""
+        if getattr(ol, "sse_passthrough", False):
+            spec = self._parse_ssec_headers(
+                "x-amz-server-side-encryption-customer"
+            )
+            info = ol.get_object_info(
+                bucket, key, version_id, sse=spec
+            )
+            return info, spec
         info = ol.get_object_info(bucket, key, version_id)
         return info, self._read_sse(info)
 

@@ -272,9 +272,28 @@ def from_exception(e: Exception) -> APIError:
         # (toAPIErrorCode maps crypto errors onto AccessDenied)
         return get("AccessDenied", str(e))
     if isinstance(e, NotImplementedError):
+        # a backend without the capability (FS versioning, gateways), or
         # a feature this package has not ported yet: the message names
         # the slice that brings it
         return get("NotImplemented", str(e) or "")
+    from ..gateway.client import UpstreamError
+
+    if isinstance(e, UpstreamError):
+        # pass the upstream's verdict through with ITS status class
+        # instead of collapsing every gateway failure into a 500
+        # (gateway ErrorRespToObjectError, gateway-common.go)
+        code = {
+            400: "InvalidRequest",
+            403: "AccessDenied",
+            404: "NoSuchKey",
+            409: "OperationAborted",
+            503: "SlowDown",
+        }.get(e.status)
+        if e.code and e.code != "UpstreamError" and e.code in _E:
+            return get(e.code, str(e))
+        if code:
+            return get(code, str(e))
+        return get("InternalError", str(e))
     mapping = [
         (olapi.BucketNotFound, "NoSuchBucket"),
         (olapi.BucketExists, "BucketAlreadyOwnedByYou"),
@@ -288,6 +307,7 @@ def from_exception(e: Exception) -> APIError:
         (olapi.InvalidPartOrder, "InvalidPartOrder"),
         (olapi.InvalidPart, "InvalidPart"),
         (olapi.EntityTooSmall, "EntityTooSmall"),
+        (olapi.PreconditionFailed, "PreconditionFailed"),
         (olapi.ReadQuorumError, "SlowDown"),
         (olapi.WriteQuorumError, "SlowDown"),
         # lock quorum unavailable (dead peers) = service unavailable,

@@ -8,8 +8,9 @@ read cache's device tier scans that device-resident plane where it lies
 - zero shard reads, candidate rows only across D2H.  Everything else is
 spooled through the normal erasure-decode read path (decompression/SSE
 seams included) and evaluated by the select engines; a device-capable
-statement then screens each chunk on the object layer's codec device
-(s3select/device.py).  Either way the EventStream frames are written as
+statement then screens each chunk on the object layer's codec device,
+or on the server's device where the layer has no codec (the FS mode and
+the gateways; s3select/device.py).  Either way the EventStream frames are written as
 one response.
 """
 
@@ -50,12 +51,19 @@ def _spool_reader(spool):
     return spool if hasattr(spool, "readable") else _SpoolReader(spool)
 
 
-def scan_device(object_layer):
-    """The codec device of the object layer that serves the request
-    (zones -> sets -> one erasure set): where its select scans run."""
-    ol = object_layer
+def scan_device(server):
+    """Where the server's select scans run: the codec device of its
+    object layer (zones -> sets -> one erasure set), or, for a layer
+    without a codec (the FS mode, the gateways, which spool the object
+    first), the server's own device."""
+    ol = server.object_layer
     while not hasattr(ol, "backend"):
-        ol = ol.zones[0] if hasattr(ol, "zones") else ol.sets[0]
+        if hasattr(ol, "zones"):
+            ol = ol.zones[0]
+        elif hasattr(ol, "sets"):
+            ol = ol.sets[0]
+        else:
+            return server.device
     return ol.backend.device
 
 
@@ -75,7 +83,7 @@ def _device_source(handler, bucket, key, sel):
 def handle_select(handler, bucket, key, info, body) -> None:
     try:
         req = SelectRequest.from_xml(body)
-        sel = S3Select(req, scan_device(handler.s3.object_layer))
+        sel = S3Select(req, scan_device(handler.s3))
     except SelectError as e:
         raise S3Error(
             e.code if e.code in _KNOWN else "InvalidRequestParameter",

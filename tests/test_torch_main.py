@@ -16,9 +16,13 @@ The server runs as a subprocess with ``MINIO_ERASURE_BACKEND=cpu``:
   a new bucket's record lands in the shared directory) and the disk
   cache (``MINIO_TPU_CACHE_DRIVES``: a second GET is a hit in the admin
   ``cache-stats``) boot and serve (``SERVED``);
-* each layout or env this package has not ported exits non-zero with a
-  message naming its slice, and so does a codec device other than
-  ``cuda`` or ``cpu`` (and ``cuda`` on a host without a card).
+* the standalone FS mode (one drive) and the NAS gateway are spawned
+  beside the JAX package's server in the same mode: the same signed
+  requests get the same answers, Select included, and the object files
+  are byte-equal; a single drive that holds an erasure format exits;
+* a codec device other than ``cuda`` or ``cpu`` exits non-zero, and so
+  does ``cuda`` on a host without a card, for the erasure layouts, the
+  FS mode and both gateways.
 """
 
 import json
@@ -179,8 +183,8 @@ def test_boot_serve_heal_and_sigterm(tmp_path):
 
 REFUSED = [
     # (id, args, env, text the message must hold)
-    ("gateway", ["gateway", "nas", "/tmp/x"], {}, "(slice 9c)"),
-    ("single_drive", ["{base}/solo"], {}, "(slice 9c)"),
+    ("gateway_usage", ["gateway", "nas"], {}, "usage: server gateway"),
+    ("gateway_kind", ["gateway", "azure", "x"], {}, "unknown gateway"),
     ("backend_tpu", ["{base}/d{{1...4}}"], {"MINIO_ERASURE_BACKEND": "tpu"},
      "cuda"),
     ("backend_auto", ["{base}/d{{1...4}}"], {"MINIO_ERASURE_BACKEND": "auto"},
@@ -330,3 +334,171 @@ def test_no_card_and_cuda_asked_exits(tmp_path):
     assert res.returncode != 0
     assert "no CUDA device" in res.stderr
     assert "MINIO_ERASURE_BACKEND=cpu" in res.stderr
+
+
+@pytest.mark.parametrize("args", [
+    ["{base}/solo"], ["gateway", "nas", "{base}/nas"],
+    ["gateway", "s3", "http://127.0.0.1:9"],
+], ids=["fs", "nas", "s3"])
+def test_no_card_fs_and_gateways_exit(tmp_path, args):
+    """These layers scan Select on the card: without one, and without
+    MINIO_ERASURE_BACKEND=cpu, they exit before listening."""
+    import torch
+
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA device is present: the server would boot on it")
+    args = [a.format(base=tmp_path) for a in args]
+    res = _run(["--address", "127.0.0.1:0", *args],
+               _env(MINIO_ERASURE_BACKEND=None))
+    assert res.returncode != 0
+    assert "no CUDA device" in res.stderr
+    assert "listening" not in res.stdout and "serving" not in res.stdout
+
+
+def test_single_drive_holding_an_erasure_format_exits(tmp_path):
+    solo = tmp_path / "solo"
+    (solo / ".sys").mkdir(parents=True)
+    (solo / ".sys" / "format.json").write_text("{}")
+    res = _run(["--address", "127.0.0.1:0", str(solo)], _env())
+    assert res.returncode != 0
+    assert (f"{solo} holds an erasure format; a single-drive FS server "
+            "cannot serve it (add the original drives)") in res.stderr
+    assert not (solo / "bkt").exists()
+
+
+_FS_CSV = b"id,name,qty\n" + b"".join(
+    b"%d,item%d,%d\n" % (i, i, i % 11) for i in range(2000))
+_FS_SELECT = (
+    b"<SelectObjectContentRequest><Expression>SELECT s.id, s.name FROM "
+    b"S3Object s WHERE s.qty &gt; 6</Expression><ExpressionType>SQL"
+    b"</ExpressionType><InputSerialization><CSV><FileHeaderInfo>USE"
+    b"</FileHeaderInfo></CSV></InputSerialization><OutputSerialization>"
+    b"<CSV/></OutputSerialization></SelectObjectContentRequest>")
+
+
+def _stop_gateway(proc) -> str:
+    proc.send_signal(signal.SIGTERM)
+    out, _ = proc.communicate(timeout=60)
+    assert proc.returncode == 0, out
+    assert out.splitlines()[-1] == "signal 15, shutting down", out
+    return out
+
+
+def _fs_requests(c: S3Client) -> list:
+    """The same signed requests to an FS or NAS server of either package;
+    answers normalized as tests/test_torch_server.py does, upload ids
+    and Select's frames apart."""
+    import re
+
+    from minio_tpu_torch.s3select import message
+    from tests.test_torch_server import _normalize
+
+    out = []
+
+    def rec(r):
+        st, h, body = _normalize((r.status, r.headers, r.body))
+        body = re.sub(rb"<UploadId>[^<]*</UploadId>", b"<UploadId/>", body)
+        body = re.sub(rb"<Location>[^<]*</Location>", b"<Location/>", body)
+        out.append((st, h, body))
+        return r
+
+    data = bytes(range(256)) * 300
+    rec(c.make_bucket("fsb"))
+    rec(c.put_object("fsb", "dir/a.bin", data,
+                     headers={"x-amz-meta-k": "v", "content-type": "x/y"}))
+    rec(c.get_object("fsb", "dir/a.bin"))
+    rec(c.head_object("fsb", "dir/a.bin"))
+    rec(c.get_object("fsb", "dir/a.bin", headers={"range": "bytes=10-99"}))
+    rec(c.put_object("fsb", "top.txt", b"top"))
+    rec(c.request("GET", "/fsb", query={"delimiter": "/"}))
+    rec(c.request("PUT", "/fsb/top.txt", query={"tagging": ""},
+                  body=b"<Tagging><TagSet><Tag><Key>a</Key><Value>1</Value>"
+                  b"</Tag></TagSet></Tagging>"))
+    rec(c.request("GET", "/fsb/top.txt", query={"tagging": ""}))
+    r = rec(c.request("POST", "/fsb/mp", query={"uploads": ""}))
+    uid = r.xml_text("UploadId")
+    r = rec(c.request("PUT", "/fsb/mp", query={"uploadId": uid,
+                                                "partNumber": "1"},
+                      body=data))
+    etag = r.headers["etag"]
+    rec(c.request("POST", "/fsb/mp", query={"uploadId": uid},
+                  body=(f"<CompleteMultipartUpload><Part><PartNumber>1"
+                        f"</PartNumber><ETag>{etag}</ETag></Part>"
+                        f"</CompleteMultipartUpload>").encode()))
+    rec(c.get_object("fsb", "mp"))
+    rec(c.request("PUT", "/fsb/copy", headers={
+        "x-amz-copy-source": "/fsb/dir/a.bin"}))
+    rec(c.get_object("fsb", "copy"))
+    rec(c.request("GET", "/fsb", query={"versions": ""}))
+    rec(c.put_object("fsb", "t.csv", _FS_CSV))
+    r = c.request("POST", "/fsb/t.csv", query={"select": "",
+                                               "select-type": "2"},
+                  body=_FS_SELECT)
+    out.append((r.status, b"".join(
+        m["payload"] for m in message.decode_all(r.body)
+        if m["headers"].get(":event-type") == "Records")))
+    rec(c.delete_object("fsb", "top.txt"))
+    rec(c.get_object("fsb", "top.txt"))
+    return out
+
+
+@pytest.mark.parametrize("mode", ["fs", "nas"])
+def test_fs_mode_and_nas_gateway_serve_as_the_jax_server(tmp_path, mode):
+    """``server /dir`` and ``server gateway nas /dir`` of both packages,
+    spawned side by side: equal answers and byte-equal object files.  The
+    JAX server's Select runs its host engine (its device engine needs
+    jax.experimental.enable_x64), the port's the default engine on the
+    CPU.  ListMultipartUploads is held on the port alone: the JAX FS
+    layer's records fail there with a 500."""
+    procs, outs, roots = {}, {}, {}
+    for pkg in ("minio_tpu", "minio_tpu_torch"):
+        roots[pkg] = str(tmp_path / pkg / "drive")
+        port = _free_port()
+        args = ([roots[pkg]] if mode == "fs"
+                else ["gateway", "nas", roots[pkg]])
+        env = _env(MINIO_TPU_SELECT="host" if pkg == "minio_tpu" else None)
+        procs[pkg] = (subprocess.Popen(
+            [sys.executable, "-m", f"{pkg}.server", "--address",
+             f"127.0.0.1:{port}", *args], cwd=ROOT, env=env,
+            stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True), port)
+    try:
+        for pkg, (proc, port) in procs.items():
+            _until(lambda port=port: _ready(port) == 200, 90, "readiness")
+            outs[pkg] = _fs_requests(S3Client(f"http://127.0.0.1:{port}"))
+        port_c = S3Client(f"http://127.0.0.1:{procs['minio_tpu_torch'][1]}")
+        r = port_c.request("POST", "/fsb/pending", query={"uploads": ""})
+        r = port_c.request("GET", "/fsb", query={"uploads": ""})
+        assert r.status == 200 and r.xml_all("Key") == ["pending"]
+    finally:
+        # a gateway's last line is the signal's: it has no planes to drain
+        logs, errors = {}, []
+        for pkg, (proc, _) in procs.items():
+            try:
+                logs[pkg] = (_stop(proc) if mode == "fs"
+                             else _stop_gateway(proc))
+            except AssertionError as e:
+                errors.append(e)
+            finally:
+                if proc.poll() is None:
+                    proc.kill()
+                    proc.wait()
+        if errors:
+            raise errors[0]
+    assert len(outs["minio_tpu_torch"]) == len(outs["minio_tpu"])
+    for got, want in zip(outs["minio_tpu_torch"], outs["minio_tpu"]):
+        assert got == want
+    for bucket_file in ("dir/a.bin", "mp", "copy", "t.csv"):
+        with open(os.path.join(roots["minio_tpu"], "fsb", bucket_file),
+                  "rb") as f:
+            want = f.read()
+        with open(os.path.join(roots["minio_tpu_torch"], "fsb",
+                               bucket_file), "rb") as f:
+            assert f.read() == want, bucket_file
+    serving = [line.split(" at ")[0] for line in
+               logs["minio_tpu_torch"].splitlines() if "serving" in line]
+    want_line = ("minio-tpu serving standalone FS backend (1 drive)"
+                 if mode == "fs" else
+                 f"minio-tpu serving NAS gateway over "
+                 f"{roots['minio_tpu_torch']}")
+    assert serving == [want_line]
+    assert not any("Traceback" in o for o in logs.values()), logs

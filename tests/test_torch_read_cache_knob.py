@@ -8,8 +8,8 @@ these modes were refused; each now checks the served behaviour):
 
 * for ``host``, ``device`` and ``auto`` in any case and with any
   surrounding blanks, the object layer's PUT and GET serve through the
-  read cache with the JAX package's bodies and stats,
-  ``refuse_unported`` lets them pass, ``python -m
+  read cache with the JAX package's bodies and stats, the server
+  main builds its object layer with them set, ``python -m
   minio_tpu_torch.server`` boots and serves GETs from the cache, and
   the S3 front answers PUT and GET as the JAX package's does;
 * unset, ``off``, ``0`` and an unknown word run PUT and GET as before,
@@ -128,15 +128,19 @@ def test_cache_mode_resolves_as_the_reference(monkeypatch, value):
 
 @pytest.mark.parametrize("value", SERVED)
 def test_refuse_unported_names_the_slice(tmp_path, monkeypatch, value):
-    """A served mode is no longer refused at boot."""
+    """A served mode is not refused at boot: the server main builds its
+    object layer with the knob set (since the FS mode and the gateways
+    were ported, the boot refuses no layout for being unported)."""
     _set(monkeypatch, value)
-    tmain.refuse_unported([str(tmp_path / "d{1...4}")])
+    ol = tmain.build_object_layer([str(tmp_path / "d{1...4}")], device="cpu")
+    assert len(ol.zones[0].sets[0].disks) == 4
 
 
 @pytest.mark.parametrize("value", OFF)
 def test_refuse_unported_passes_off_modes(tmp_path, monkeypatch, value):
     _set(monkeypatch, value)
-    tmain.refuse_unported([str(tmp_path / "d{1...4}")])
+    ol = tmain.build_object_layer([str(tmp_path / "d{1...4}")], device="cpu")
+    assert len(ol.zones[0].sets[0].disks) == 4
 
 
 def test_boot_exits_naming_the_slice(tmp_path):
