@@ -182,7 +182,7 @@
    the drives of shards 1, 3, 10, 12 offline (K3); tags and retentions
    read back; a retained version refuses its delete (InvalidRequest), the
    root's governance bypass deletes it, a legal hold refuses even the
-   bypass.  256 x 4 KiB objects over 8 prefixes through the object
+   bypass.  128 x 4 KiB objects over 8 prefixes through the object
    layer, under a lifecycle rule with an Expiration Date in the past for
    ``p3/``; a lock-enabled bucket with a FIFO quota over 12 x 1 MiB, one
    retained; one tagged object's files deleted from one drive.  The admin
@@ -222,7 +222,7 @@
    MinIO's distributed-mode guide - on the async plane with the harness's
    fast lock and heal cadences, node 1 with MINIO_TPU_READ_CACHE=device.
    All four boot at once (spawn to ready each; the 16 format.json agree);
-   4 SigV4 clients, client i on node i, PUT 16 x 64 MiB and each object is
+   4 SigV4 clients, client i on node i, PUT 8 x 64 MiB and each object is
    read back from another node (sha256); the first object's part files
    and xl.meta on all 16 drives are held against the port's plain CPU
    codec writing the same bytes; 8 rounds of concurrent PUTs of one key
@@ -291,6 +291,20 @@
    plain CPU codec), an SSE-C object PUT, read and copied through it and
    held sealed on U, Select Q1 on U's object scanned on the gateway's
    card.  Prints the ``backends:`` line.
+13d. The web plane (``web_phase``, slice 9c, after ``backends``): the
+   server CLI over 12 drives (EC 8+4, 10 MiB blocks) on the async plane,
+   an OpenID provider stub on loopback with an RSA key made here;
+   ``web.Login`` as the root and an IAM user, 4 clients upload 4 x 64 MiB
+   through ``/minio-tpu/web/upload`` (K5; part files equal an S3 PUT's),
+   download each by URL token (K2) and zip all of them in one POST
+   (every entry unzipped and checked), then the downloads and a zip of
+   one object with the drives of 4 of its shards failing (K3); a
+   presigned GET; STS ``AssumeRole`` (its
+   credential PUTs and GETs 64 MiB, a read-only session policy's PUT is
+   403) and ``AssumeRoleWithWebIdentity`` (its credential GETs);
+   ``ListObjects``, ``RemoveObject``, the console page.  Prints the
+   ``web:`` line: upload, download and zip MB/s, degraded download MB/s,
+   AssumeRole and WebIdentity ms, each a median of a few calls.
 14. The chaos grid (``grid_phase``, slice 9d): the first four cells of
    ``GRID_ORDER`` (``GRID_RUN``: heal_storm, dead_remote_disks,
    replication_lag_churn, select_heavy_mix) on
@@ -306,7 +320,7 @@
 Exits non-zero, without the result lines, when there is no CUDA device or
 when any phase fails.  ``--only NAMES [--repeat N]`` runs only the named
 phases (``select``, ``cluster``, ``federation``, ``replication``,
-``backends``, or ``grid:CELL[+CELL...]``) after the build, N times in
+``backends``, ``web``, or ``grid:CELL[+CELL...]``) after the build, N times in
 turn, and prints one line a run and an ``only:`` tally, e.g.
 ``python3 chip_smoke.py --only grid:select_heavy_mix --repeat 20``.
 """
@@ -4900,7 +4914,9 @@ def read_cache_phase(dev, work: str, sel: dict) -> dict:
 
 CLUSTER_NODES = 4
 CLUSTER_DRIVES = 4  # per node: 16 drives, one set, EC 8+8 (default parity)
-CLUSTER_PER_NODE = 4  # 64 MiB objects PUT through each node's client
+# 64 MiB objects PUT through each node's client; cut from 4 to make room
+# for the web phase
+CLUSTER_PER_NODE = 2
 CLUSTER_RACE_ROUNDS = 8
 CLUSTER_RACE_SIZE = 16 << 20
 CLUSTER_RAW_ROUNDS = 10  # cut from 20 (15.7 s) to keep 4 grid cells
@@ -6848,14 +6864,553 @@ def backends_phase(dev, work: str, backend: "str | None" = None) -> dict:
     return out
 
 
+# -- phase 13d (slice 9c): the web plane, STS and OpenID web identity ---------
+
+WEB_DRIVES = "disk{1...12}"  # one EC 8+4 set: the BASELINE.json deployment
+WEB_OBJECTS = 4  # of S3_BIG, one a client
+WEB_ROUNDS = 3  # timed calls of each figure (its median is printed)
+WEB_OFFLINE = (1, 3, 10, 12)  # erasure indices of obj0's drives taken offline
+WEB_STS_REPS = 5
+WEB_RSA_BITS = 2048  # the stub provider's key, as OpenID providers sign
+WEB_AUDIENCE = "minio-tpu-web"
+WEB_READONLY_SESSION = json.dumps({
+    "Version": "2012-10-17",
+    "Statement": [{"Effect": "Allow", "Action": ["s3:GetObject"],
+                   "Resource": ["arn:aws:s3:::*"]}]})
+
+
+def _probable_prime(n: int, rnd) -> bool:
+    """Miller-Rabin with 40 random bases (after trial division)."""
+    for p in (3, 5, 7, 11, 13, 17, 19, 23, 29, 31, 37, 41, 43, 47):
+        if n % p == 0:
+            return n == p
+    d, r = n - 1, 0
+    while d % 2 == 0:
+        d //= 2
+        r += 1
+    for _ in range(40):
+        x = pow(rnd.randrange(2, n - 2), d, n)
+        if x in (1, n - 1):
+            continue
+        for _ in range(r - 1):
+            x = pow(x, 2, n)
+            if x == n - 1:
+                break
+        else:
+            return False
+    return True
+
+
+def rsa_keypair(bits: int, seed: int) -> "tuple[int, int, int]":
+    """(n, e, d) of an RSA key made from ``seed``: two probable primes of
+    ``bits // 2`` bits with the top two bits set, e = 65537."""
+    import random
+
+    rnd = random.Random(seed)
+    e = 65537
+
+    def prime() -> int:
+        while True:
+            c = rnd.getrandbits(bits // 2) | (3 << (bits // 2 - 2)) | 1
+            if (c - 1) % e and _probable_prime(c, rnd):
+                return c
+
+    p = prime()
+    q = prime()
+    while q == p:
+        q = prime()
+    return p * q, e, pow(e, -1, (p - 1) * (q - 1))
+
+
+def _b64url(data: bytes) -> str:
+    import base64
+
+    return base64.urlsafe_b64encode(data).rstrip(b"=").decode()
+
+
+class _StubOpenID:
+    """An OpenID provider on loopback: its discovery document and JWKS
+    (one RSA key), and RS256 ID tokens (RSASSA-PKCS1-v1_5 with SHA-256)
+    signed with that key."""
+
+    def __init__(self, seed: int):
+        import http.server
+        import threading
+
+        self.n, self.e, self._d = rsa_keypair(WEB_RSA_BITS, seed)
+        self.kid = "web-phase-key"
+        self.fetches = 0
+        idp = self
+
+        class Handler(http.server.BaseHTTPRequestHandler):
+            def log_message(self, *a):
+                pass
+
+            def do_GET(self):
+                if self.path == "/.well-known/openid-configuration":
+                    doc = {"issuer": idp.issuer, "jwks_uri": f"{idp.issuer}/jwks"}
+                elif self.path == "/jwks":
+                    doc = {"keys": [{
+                        "kty": "RSA", "kid": idp.kid, "alg": "RS256",
+                        "n": _b64url(idp.n.to_bytes((idp.n.bit_length() + 7) // 8,
+                                                    "big")),
+                        "e": _b64url(idp.e.to_bytes(3, "big"))}]}
+                else:
+                    self.send_error(404)
+                    return
+                idp.fetches += 1
+                body = json.dumps(doc).encode()
+                self.send_response(200)
+                self.send_header("Content-Type", "application/json")
+                self.send_header("Content-Length", str(len(body)))
+                self.end_headers()
+                self.wfile.write(body)
+
+        self._httpd = http.server.ThreadingHTTPServer(("127.0.0.1", 0), Handler)
+        self._httpd.daemon_threads = True
+        self.issuer = f"http://127.0.0.1:{self._httpd.server_address[1]}"
+        self.config_url = f"{self.issuer}/.well-known/openid-configuration"
+        self._thread = threading.Thread(target=self._httpd.serve_forever,
+                                        daemon=True)
+        self._thread.start()
+
+    def token(self, claims: dict) -> str:
+        import hashlib
+
+        header = {"alg": "RS256", "typ": "JWT", "kid": self.kid}
+        body = {"iss": self.issuer, "aud": WEB_AUDIENCE,
+                "exp": int(time.time()) + 3600, **claims}
+        signing = (_b64url(json.dumps(header).encode()) + "."
+                   + _b64url(json.dumps(body).encode()))
+        k = (self.n.bit_length() + 7) // 8
+        info = bytes.fromhex("3031300d060960864801650304020105000420")
+        em = (b"\x00\x01" + b"\xff" * (k - 3 - len(info) - 32) + b"\x00" + info
+              + hashlib.sha256(signing.encode()).digest())
+        sig = pow(int.from_bytes(em, "big"), self._d, self.n).to_bytes(k, "big")
+        return signing + "." + _b64url(sig)
+
+    def close(self) -> None:
+        self._httpd.shutdown()
+        self._httpd.server_close()
+        self._thread.join(timeout=10)
+
+
+class _WebClient:
+    """One keep-alive connection to a server's web plane."""
+
+    def __init__(self, port: int):
+        import http.client
+
+        self.conn = http.client.HTTPConnection("127.0.0.1", port, timeout=600)
+
+    def call(self, method: str, path: str, body: bytes = b"",
+             headers: "dict | None" = None) -> "tuple[int, dict, bytes]":
+        self.conn.request(method, path, body=body or None, headers=headers or {})
+        r = self.conn.getresponse()
+        data = r.read()  # http.client undoes a chunked body
+        return r.status, {k.lower(): v for k, v in r.getheaders()}, data
+
+    def rpc(self, method: str, params: "dict | None" = None,
+            token: "str | None" = None) -> dict:
+        headers = {"Content-Type": "application/json"}
+        if token:
+            headers["Authorization"] = f"Bearer {token}"
+        st, _h, body = self.call("POST", "/minio-tpu/webrpc", json.dumps(
+            {"id": 1, "jsonrpc": "2.0", "method": method,
+             "params": params or {}}).encode(), headers)
+        if st != 200:
+            fail(f"web: {method} answered {st} {body[:300]!r}")
+        return json.loads(body)
+
+    def close(self) -> None:
+        self.conn.close()
+
+
+def _median(xs: list) -> float:
+    return sorted(xs)[len(xs) // 2]
+
+
+def web_phase(work: str, backend: "str | None" = None) -> dict:
+    """Phase 13d (slice 9c): the browser's plane of ``python -m
+    minio_tpu_torch.server --parity 4`` over 12 drives (one EC 8+4 set,
+    10 MiB blocks) on the async plane and the card, as MinIO's browser
+    and STS clients drive it (``backend`` sets MINIO_ERASURE_BACKEND for a
+    rehearsal on the CPU).
+
+    ``web.Login`` as the root and as an IAM user, ``web.MakeBucket``;
+    S3_CLIENTS clients upload WEB_OBJECTS x S3_BIG through ``PUT
+    /minio-tpu/web/upload`` (K5), a web upload's part files equal an S3
+    PUT's of the same payload by erasure index; each object comes back
+    through ``CreateURLToken`` and ``/minio-tpu/web/download`` (K2), and
+    all of them in one ``zip`` POST, unzipped here entry by entry; with
+    the drives of obj0's shards WEB_OFFLINE offline (the admin fault
+    endpoint) the downloads and a zip of obj0 return the same bytes (K3);
+    one ``web.PresignedGet`` URL is fetched; STS ``AssumeRole`` by the root
+    buys a credential whose session token PUTs and GETs one S3_BIG
+    object, a read-only session policy's gets 403 on PUT;
+    ``AssumeRoleWithWebIdentity`` against ``_StubOpenID`` buys one that
+    GETs it; ``ListObjects`` and ``RemoveObject`` answer right and the
+    console page is served.  Each figure is the median of WEB_ROUNDS
+    (transfers) or WEB_STS_REPS (STS) calls."""
+    import hashlib
+    import threading
+    import urllib.parse
+    import zipfile
+
+    import numpy as np
+
+    from minio_tpu_torch.storage.xl import XLStorage
+
+    base = os.path.join(work, "web")
+    os.makedirs(base)
+    roots = [os.path.join(base, f"disk{j + 1}") for j in range(N)]
+    idp = _StubOpenID(SEED + 25)
+    env = {k: v for k, v in os.environ.items()
+           if not k.startswith("MINIO_TPU_") and k != "MINIO_ERASURE_BACKEND"}
+    env.update({
+        "MINIO_TPU_LOG_LEVEL": "warning",
+        "MINIO_TPU_FAULT_INJECTION": "1",  # the admin fault endpoint
+        "MINIO_TPU_IDENTITY_OPENID_CONFIG_URL": idp.config_url,
+        "MINIO_TPU_IDENTITY_OPENID_CLIENT_ID": WEB_AUDIENCE,
+    })
+    if backend is not None:
+        env["MINIO_ERASURE_BACKEND"] = backend
+    rng = np.random.default_rng(SEED + 25)
+    keys = [f"obj{i}" for i in range(WEB_OBJECTS)]
+    objs = {k: rng.integers(0, 256, S3_BIG, dtype=np.uint8).tobytes()
+            for k in keys}
+    sha = {k: hashlib.sha256(v).hexdigest() for k, v in objs.items()}
+    nbytes = sum(len(v) for v in objs.values())
+    out: dict = {"drives": N, "objects": WEB_OBJECTS, "object_bytes": S3_BIG,
+                 "rounds": WEB_ROUNDS}
+    srv = None
+
+    def admin(method: str, path: str, query=None, body: bytes = b""):
+        s = S3Signer("127.0.0.1", srv.port)
+        try:
+            st, _h, got = s.request(method, f"{ADMIN}/{path}", query, body)
+        finally:
+            s.close()
+        if st != 200:
+            fail(f"web: admin {method} {path}: {st} {got[:300]!r}")
+        return json.loads(got) if got else {}
+
+    def launches() -> dict:
+        return {k: v for k, v in admin("GET", "kernel-stats")["launches"].items()
+                if v}
+
+    def moved(a: dict, b: dict) -> dict:
+        return {k: b[k] - a.get(k, 0) for k in b if b[k] != a.get(k, 0)}
+
+    def result(doc: dict, what: str):
+        if "result" not in doc:
+            fail(f"web: {what}: {doc}")
+        return doc["result"]
+
+    def in_clients(jobs: list, fn) -> "tuple[float, list]":
+        """fn(client, job) for each job, one client a job, all at once."""
+        res: list = [None] * len(jobs)
+        errors: list = []
+        start = threading.Barrier(len(jobs) + 1)
+
+        def run(ix):
+            c = _WebClient(srv.port)
+            try:
+                start.wait()
+                res[ix] = fn(c, jobs[ix])
+            except BaseException as e:  # noqa: BLE001 - reported below
+                errors.append(e)
+            finally:
+                c.close()
+
+        threads = [threading.Thread(target=run, args=(i,)) for i in range(len(jobs))]
+        for t in threads:
+            t.start()
+        start.wait()
+        t0 = time.monotonic()
+        for t in threads:
+            t.join()
+        wall = time.monotonic() - t0
+        if errors:
+            fail(f"web: a client failed: {errors[0]!r}")
+        return wall, res
+
+    def upload(c, k, token):
+        st, h, body = c.call("PUT", f"/minio-tpu/web/upload/web/{k}", objs[k], {
+            "Authorization": f"Bearer {token}",
+            "Content-Type": "application/octet-stream"})
+        if st != 200 or h.get("etag") != f'"{hashlib.md5(objs[k]).hexdigest()}"':
+            fail(f"web: upload {k}: {st} {h.get('etag')} {body[:300]!r}")
+
+    def download(c, k, url_token):
+        st, h, body = c.call("GET", f"/minio-tpu/web/download/web/{k}?"
+                             + urllib.parse.urlencode({"token": url_token}))
+        if st != 200 or hashlib.sha256(body).hexdigest() != sha[k]:
+            fail(f"web: download {k}: {st} {len(body)} bytes, not the payload")
+        if h.get("content-disposition") != f'attachment; filename="{k}"':
+            fail(f"web: download {k}: {h.get('content-disposition')}")
+
+    def zip_all(url_token, names: "list | None" = None) -> float:
+        """Seconds of one zip POST of ``names`` (every object by
+        default); each entry unzipped and checked."""
+        import io
+
+        names = names or keys
+
+        c = _WebClient(srv.port)
+        try:
+            t0 = time.monotonic()
+            st, h, body = c.call(
+                "POST", "/minio-tpu/web/zip?" + urllib.parse.urlencode(
+                    {"token": url_token}),
+                json.dumps({"bucketName": "web", "prefix": "",
+                            "objects": names}).encode(),
+                {"Content-Type": "application/json"})
+            took = time.monotonic() - t0
+        finally:
+            c.close()
+        if st != 200 or h.get("content-type") != "application/zip":
+            fail(f"web: zip {st} {h} {body[:300]!r}")
+        zf = zipfile.ZipFile(io.BytesIO(body))
+        if sorted(zf.namelist()) != names:
+            fail(f"web: zip entries {zf.namelist()}")
+        for k in names:
+            if hashlib.sha256(zf.read(k)).hexdigest() != sha[k]:
+                fail(f"web: zip entry {k} differs from its payload")
+        return took
+
+    def sts(form: dict, signer: "S3Signer | None") -> "tuple[float, bytes]":
+        body = urllib.parse.urlencode({"Version": "2011-06-15", **form}).encode()
+        hdrs = {"Content-Type": "application/x-www-form-urlencoded"}
+        t0 = time.monotonic()
+        if signer is None:
+            c = _WebClient(srv.port)
+            try:
+                st, _h, got = c.call("POST", "/", body, hdrs)
+            finally:
+                c.close()
+        else:
+            st, _h, got = signer.request("POST", "/", body=body, headers=hdrs)
+        took = (time.monotonic() - t0) * 1e3
+        if st != 200:
+            fail(f"web: STS {form.get('Action')}: {st} {got[:300]!r}")
+        return took, got
+
+    def temp_signer(xml: bytes) -> "tuple[S3Signer, dict]":
+        ak, sk, tok = (_xml_text(xml, t)[0] for t in (
+            "AccessKeyId", "SecretAccessKey", "SessionToken"))
+        return S3Signer("127.0.0.1", srv.port, ak, sk), {"x-amz-security-token": tok}
+
+    t_phase = time.monotonic()
+    try:
+        srv = _BootedServer(base, _free_port(), env, "web", what="web phase",
+                            drives=os.path.join(base, WEB_DRIVES))
+        out["spawn_to_ready_s"] = srv.wait_ready()
+        c = _WebClient(srv.port)
+        try:
+            # -- login: the root and an IAM user; the bucket -------------------
+            root = result(c.rpc("web.Login", {"username": "minioadmin",
+                                              "password": "minioadmin"}),
+                          "root login")["token"]
+            admin("PUT", "add-user", {"accessKey": "webuser"}, json.dumps(
+                {"secretKey": "webuser-secret", "policy": "readwrite"}).encode())
+            user = result(c.rpc("web.Login", {"username": "webuser",
+                                              "password": "webuser-secret"}),
+                          "IAM user login")["token"]
+            if "error" not in c.rpc("web.Login", {"username": "webuser",
+                                                  "password": "wrong"}):
+                fail("web: a wrong password logged in")
+            result(c.rpc("web.MakeBucket", {"bucketName": "web"}, root),
+                   "MakeBucket")
+            st, h, page = c.call("GET", "/minio-tpu/console")
+            if st != 200 or not h.get("content-type", "").startswith("text/html") \
+                    or b"web.Login" not in page:
+                fail(f"web: the console page answered {st}")
+
+            # -- uploads (K5), the same shards as an S3 PUT --------------------
+            l0 = launches()
+            up_s = []
+            for r in range(WEB_ROUNDS):
+                tok = root if r % 2 == 0 else user
+                wall, _res = in_clients(keys, lambda cl, k: upload(cl, k, tok))
+                up_s.append(wall)
+            l1 = launches()
+            s = S3Signer("127.0.0.1", srv.port)
+            try:
+                if s.request("PUT", "/s3ref")[0] != 200 or s.request(
+                        "PUT", "/s3ref/obj0", body=objs["obj0"],
+                        payload_hash=sha["obj0"])[0] != 200:
+                    fail("web: the S3 PUT of obj0 failed")
+            finally:
+                s.close()
+            l1s = launches()
+            web_parts = {i: hashlib.sha256(b).hexdigest()
+                         for i, b in _by_index(roots, "web", "obj0", 1).items()}
+            s3_parts = {i: hashlib.sha256(b).hexdigest()
+                        for i, b in _by_index(roots, "s3ref", "obj0", 1).items()}
+            if web_parts != s3_parts or len(web_parts) != N:
+                fail("web: a web upload's part files differ from an S3 PUT's")
+            out["same_shards_as_s3"] = N
+
+            # -- downloads (K2) by URL token, the zip, a presigned GET --------
+            listing = result(c.rpc("web.ListObjects", {"bucketName": "web"}, user),
+                             "ListObjects")
+            if [(o["name"], o["size"]) for o in listing["objects"]] != [
+                    (k, S3_BIG) for k in keys]:
+                fail(f"web: ListObjects {listing}")
+            url_tokens = [result(c.rpc("web.CreateURLToken", {}, t),
+                                 "CreateURLToken")["token"] for t in (root, user)]
+            down_s = []
+            for r in range(WEB_ROUNDS):
+                tok = url_tokens[r % 2]
+                wall, _res = in_clients(keys, lambda cl, k: download(cl, k, tok))
+                down_s.append(wall)
+            zip_s = [zip_all(url_tokens[r % 2]) for r in range(WEB_ROUNDS)]
+            url = result(c.rpc("web.PresignedGet", {
+                "bucketName": "web", "objectName": "obj1"}, root),
+                "PresignedGet")["url"]
+            p = urllib.parse.urlsplit(url)
+            st, _h, body = c.call("GET", f"{p.path}?{p.query}")
+            if st != 200 or hashlib.sha256(body).hexdigest() != sha["obj1"]:
+                fail(f"web: the presigned GET answered {st}")
+            l2 = launches()
+            out["launches"] = {"upload": moved(l0, l1), "s3_put": moved(l1, l1s),
+                               "read": moved(l1s, l2)}
+            if backend is None and not (
+                    out["launches"]["upload"].get("encode_pack_pipelined")
+                    and out["launches"]["read"].get("phash256_batched")):
+                fail(f"web: launches {out['launches']}")
+
+            # -- degraded: obj0's shards WEB_OFFLINE on drives that fail ------
+            dead = [j + 1 for j, r in enumerate(roots)
+                    if XLStorage(r).read_version("web", "obj0").erasure.index
+                    in WEB_OFFLINE]
+            for d in dead:
+                admin("POST", "fault/inject", body=json.dumps(
+                    {"disk": f"/disk{d}", "api": "*", "error": True}).encode())
+            try:
+                deg_s = []
+                for r in range(WEB_ROUNDS):
+                    wall, _res = in_clients(
+                        keys, lambda cl, k: download(cl, k, url_tokens[0]))
+                    deg_s.append(wall)
+                deg_zip_s = zip_all(url_tokens[1], ["obj0"])
+                l3 = launches()
+                status = admin("GET", "fault/status")
+            finally:
+                admin("POST", "fault/clear", body=b'{"disk": "*"}')
+            out["launches"]["degraded"] = moved(l2, l3)
+            out["offline_drives"] = dead
+            out["faults_injected"] = {
+                os.path.basename(r): sum(v["injected"].values())
+                for r, v in status.items() if v["injected"]}
+            if sorted(int(d[4:]) for d in out["faults_injected"]) != dead:
+                fail(f"web: the offline drives failed {out['faults_injected']}")
+            if backend is None and not out["launches"]["degraded"].get(
+                    "gf_matmul_words"):
+                fail(f"web: the degraded reads launched {out['launches']['degraded']}")
+
+            # -- STS AssumeRole by the root ------------------------------------
+            root_signer = S3Signer("127.0.0.1", srv.port)
+            try:
+                ar_ms, xml = [], b""
+                for _ in range(WEB_STS_REPS):
+                    took, xml = sts({"Action": "AssumeRole",
+                                     "DurationSeconds": "900"}, root_signer)
+                    ar_ms.append(took)
+                _t, ro_xml = sts({"Action": "AssumeRole",
+                                  "Policy": WEB_READONLY_SESSION}, root_signer)
+            finally:
+                root_signer.close()
+            tmp, hdr = temp_signer(xml)
+            try:
+                st, _h, body = tmp.request("PUT", "/web/sts-obj", body=objs["obj2"],
+                                           headers=hdr, payload_hash=sha["obj2"])
+                if st != 200:
+                    fail(f"web: the AssumeRole credential's PUT: {st} {body[:200]!r}")
+                st, _h, body = tmp.request("GET", "/web/sts-obj", headers=hdr)
+                if st != 200 or hashlib.sha256(body).hexdigest() != sha["obj2"]:
+                    fail(f"web: the AssumeRole credential's GET: {st}")
+                if tmp.request("GET", "/web/sts-obj")[0] != 403:
+                    fail("web: a temp credential without its token was served")
+            finally:
+                tmp.close()
+            ro, ro_hdr = temp_signer(ro_xml)
+            try:
+                st, _h, _b = ro.request("PUT", "/web/ro-put", body=b"nope",
+                                        headers=ro_hdr)
+                if st != 403 or ro.request("GET", "/web/sts-obj",
+                                           headers=ro_hdr)[0] != 200:
+                    fail(f"web: the read-only session PUT answered {st}")
+            finally:
+                ro.close()
+
+            # -- OpenID web identity against the stub provider ---------------
+            wi_ms = []
+            for i in range(WEB_STS_REPS):
+                took, wi_xml = sts({
+                    "Action": "AssumeRoleWithWebIdentity", "DurationSeconds": "900",
+                    "WebIdentityToken": idp.token({"sub": f"web-user-{i}",
+                                                   "policy": "readonly"})}, None)
+                wi_ms.append(took)
+                if f"<SubjectFromWebIdentityToken>web-user-{i}<".encode() \
+                        not in wi_xml:
+                    fail(f"web: WebIdentity answered {wi_xml[:300]!r}")
+            wi, wi_hdr = temp_signer(wi_xml)
+            try:
+                st, _h, body = wi.request("GET", "/web/sts-obj", headers=wi_hdr)
+                if st != 200 or hashlib.sha256(body).hexdigest() != sha["obj2"]:
+                    fail(f"web: the WebIdentity credential's GET: {st}")
+                if wi.request("PUT", "/web/wi-put", body=b"x",
+                              headers=wi_hdr)[0] != 403:
+                    fail("web: the readonly WebIdentity credential could PUT")
+            finally:
+                wi.close()
+            if idp.fetches < 2:
+                fail("web: the server never fetched the provider's keys")
+
+            # -- RemoveObject and the listing after it ---------------------------
+            rm = result(c.rpc("web.RemoveObject", {
+                "bucketName": "web", "objects": ["sts-obj"]}, root),
+                "RemoveObject")
+            listing = result(c.rpc("web.ListObjects", {"bucketName": "web"}, root),
+                             "ListObjects")
+            if rm != {"removed": ["sts-obj"], "errors": []} or [
+                    o["name"] for o in listing["objects"]] != keys:
+                fail(f"web: RemoveObject {rm}, then {listing}")
+        finally:
+            c.close()
+        out.update({
+            "upload_MBps": nbytes / _median(up_s) / 1e6,
+            "download_MBps": nbytes / _median(down_s) / 1e6,
+            "zip_MBps": nbytes / _median(zip_s) / 1e6,
+            "degraded_download_MBps": nbytes / _median(deg_s) / 1e6,
+            "degraded_zip_MBps": S3_BIG / deg_zip_s / 1e6,
+            "assume_role_ms": _median(ar_ms),
+            "web_identity_ms": _median(wi_ms),
+            "upload_s": up_s, "download_s": down_s, "zip_s": zip_s,
+            "degraded_download_s": deg_s, "assume_role_all_ms": ar_ms,
+            "web_identity_all_ms": wi_ms, "provider_fetches": idp.fetches,
+        })
+        out["sigterm_s"] = srv.sigterm()
+    finally:
+        if srv is not None:
+            srv.kill()
+        idp.close()
+        shutil.rmtree(base, ignore_errors=True)
+    out["phase_s"] = time.monotonic() - t_phase
+    return out
+
+
 # -- phase 9c: bucket configurations enforced by the data crawler -----------
 
 BC_TAGGED = 16  # objects of S3_BIG with x-amz-tagging, PUT by 4 clients
 # objects of BC_SMALL_SIZE through the object layer; cut from 2,048, at
 # which the small PUTs and the two crawls took 220 s of the phase on the
 # H100 machine (16 PUTs/s, 35 versions/s crawled), then from 512 (57 s of
-# PUTs and crawls) so that the grid keeps four cells
-BC_SMALL = 256
+# PUTs and crawls) so that the grid keeps four cells, then from 256 (19.5 s)
+# to make room for the web phase
+BC_SMALL = 128
 BC_SMALL_SIZE = 4096
 BC_PREFIXES = 8  # the small objects' prefixes p0/ .. p7/
 BC_EXPIRED = "p3/"  # the lifecycle rule's prefix
@@ -7653,6 +8208,7 @@ ONLY_PHASES = {
     "federation": lambda dev, work: federation_phase(work),
     "replication": lambda dev, work: replication_phase(work),
     "backends": lambda dev, work: backends_phase(dev, work),
+    "web": lambda dev, work: web_phase(work),
 }
 
 
@@ -7833,6 +8389,8 @@ def main() -> int:
         lap("replication")
         bk = backends_phase(dev, work)
         lap("backends")
+        web = web_phase(work)
+        lap("web")
         grid = grid_phase(work)
         lap("grid")
     finally:
@@ -7855,6 +8413,7 @@ def main() -> int:
     print(f"federation: {json.dumps({'card': card, **fed})}", flush=True)
     print(f"replication: {json.dumps({'card': card, **repl})}", flush=True)
     print(f"backends: {json.dumps({'card': card, **bk})}", flush=True)
+    print(f"web: {json.dumps({'card': card, **web})}", flush=True)
     print(f"grid: {json.dumps({'card': card, **grid})}", flush=True)
     print(f"phases_s: {json.dumps(phases_s)}", flush=True)
     phase_launches = {

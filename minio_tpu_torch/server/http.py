@@ -33,12 +33,13 @@ unique across the federation; ListBuckets is the union), and the admin
 API (server/admin.py) with its trace and console streams, bucket event
 notification (``?notification``, the ListenBucketNotification stream
 ``?events``, cluster-wide over the peer plane, and the targets of
-``MINIO_TPU_NOTIFY_*``), and bucket replication (``?replication``; PUT,
+``MINIO_TPU_NOTIFY_*``), bucket replication (``?replication``; PUT,
 copy, Complete and POST policy stamp ``x-amz-replication-status:
 PENDING`` and queue the version on the lazy ``S3Server.replication``
-pool).  Every route of a feature not ported yet (the web and console
-plane, STS) answers S3 ``NotImplemented`` with a message naming the
-slice that ports it - nothing is silently ignored.
+pool), the STS form POST on the root path (server/sts.py: AssumeRole,
+and AssumeRoleWithWebIdentity / ClientGrants against an OpenID
+provider), and the browser's plane (server/web.py: the JWT JSON-RPC,
+upload, download and zip endpoints and the console page).
 """
 
 from __future__ import annotations
@@ -72,7 +73,7 @@ from ..replication.replicate import META_REPLICATION_STATUS, ReplicationPool
 from ..utils import spans, tags as tagmod
 from ..utils.hashreader import HashReader
 from ..utils.xmlutil import strip_ns
-from . import authz, response as xmlr, s3errors
+from . import authz, response as xmlr, s3errors, sts as stsmod, web as webmod
 from .auth import (
     AuthError,
     SigV4ChunkedReader,
@@ -94,19 +95,6 @@ MAX_INTERNODE_BODY = 64 << 20
 # request-plane mode: the asyncio plane (server/aio.py) unless
 # MINIO_TPU_SERVER=threaded asks for the thread-per-request oracle
 DEFAULT_SERVER_MODE = "async"
-
-# mounts of the web/console plane, not ported yet (slice 9c)
-WEB_RPC_PATH = "/minio-tpu/webrpc"
-WEB_PREFIX = "/minio-tpu/web"
-WEB_CONSOLE_PATH = "/minio-tpu/console"
-
-
-def unported(what: str, slice_name: str) -> NotImplementedError:
-    """The error of a feature this package has not ported yet; S3 clients
-    see it as ``NotImplemented`` with this message."""
-    return NotImplementedError(
-        f"{what} is not ported to minio_tpu_torch yet (slice {slice_name})"
-    )
 
 
 class _ChunkedReader:
@@ -887,19 +875,18 @@ class _Handler(BaseHTTPRequestHandler):
         t0 = _time.monotonic()
         self._t_start = t0
         try:
-            if (
-                path in (WEB_RPC_PATH, WEB_CONSOLE_PATH)
-                or path.startswith(WEB_PREFIX + "/")
-            ):
-                # web/console plane: slice 9c
+            if webmod.is_web_path(path):
+                # web plane: JWT-authenticated (not SigV4), its own
+                # error envelope (web-router.go)
                 self._action = "Web"
+                try:
+                    webmod.handle(self, path, query)
+                except Exception as e:  # noqa: BLE001
+                    if not self._headers_sent:
+                        self._error(s3errors.from_exception(e), path)
+                    else:
+                        self.close_connection = True
                 self._finish_body()
-                self._error(
-                    s3errors.from_exception(
-                        unported("the web and console plane", "9c")
-                    ),
-                    path,
-                )
             else:
                 self._route_authed(path, query)
         finally:
@@ -1003,8 +990,8 @@ class _Handler(BaseHTTPRequestHandler):
                 return self._route_admin(
                     path[len(adminmod.PREFIX) + 1 :], query, ctx
                 )
-            # STS plane: POST / with a form body (registerSTSRouter
-            # mounts on the root path)
+            # STS plane: POST / with a form body carrying Action
+            # (registerSTSRouter mounts on the root path)
             if (
                 self.command == "POST"
                 and path == "/"
@@ -1012,7 +999,12 @@ class _Handler(BaseHTTPRequestHandler):
                     "application/x-www-form-urlencoded"
                 )
             ):
-                raise unported("STS", "9c")
+                form = stsmod.parse_form(self._read_body())
+                if "Action" in form:
+                    self._action = f"STS.{form['Action']}"
+                    stsmod.handle_sts(self, form)
+                    self._finish_body()
+                    return
             self._authorize(path, query, ctx)
             self._dispatch(path, query)
         except Exception as e:  # noqa: BLE001

@@ -282,6 +282,16 @@ def test_cache_from_env(tmp_path, monkeypatch):
             assert {d.quota for d in wrapped.drives} == {want}
 
 
+def _await_filled(layer, deadline_s: float = 30.0) -> None:
+    """Wait until a GET's miss has filled the cache: the layer tees the
+    body to the client and adopts the staged copy after the client holds
+    the last byte, so the next request can be served first."""
+    end = time.monotonic() + deadline_s
+    while not any(d.used for d in layer.drives):
+        assert time.monotonic() < end, "the miss never filled the cache"
+        time.sleep(0.005)
+
+
 def test_admin_cache_stats_route(tmp_path):
     """``cache-stats`` on a server whose layer is the disk cache, after
     a miss and a hit, and on one without it, answers alike."""
@@ -301,6 +311,7 @@ def test_admin_cache_stats_route(tmp_path):
                     assert c.put_object("bkt", "o", data).status == 200
                     for _ in range(2):
                         assert c.get_object("bkt", "o").body == data
+                        _await_filled(layer)
                 r = c.request("GET", "/minio-tpu/admin/v1/cache-stats")
                 body = r.body.replace(root.encode(), b"ROOT")
                 answers.append((r.status, body))

@@ -13,11 +13,12 @@
   sharing one directory.  A bucket owned by either server gets the same
   307 ``Location`` from the other, names are unique across both
   packages, and both list the union.
-
-The JAX test of the web plane's DeleteBucket waits for the port's web
-plane (slice 9c).
+* The web plane's DeleteBucket (``web.DeleteBucket`` over the JSON-RPC
+  plane) frees the federated name, in a port federation and in the
+  mixed one.
 """
 
+import http.client
 import json
 import os
 import threading
@@ -382,3 +383,42 @@ def test_mixed_federation_delete_frees_the_name(mixed):
     r = ca.get_object("handover", "k")
     assert (r.status, r.headers["location"]) == (
         307, f"{b.endpoint}/handover/k")
+
+
+def _web_rpc(srv, method, params, token=None) -> dict:
+    host, port = srv.endpoint.split("//")[1].rsplit(":", 1)
+    headers = {"Content-Type": "application/json"}
+    if token:
+        headers["Authorization"] = f"Bearer {token}"
+    conn = http.client.HTTPConnection(host, int(port), timeout=30)
+    try:
+        conn.request("POST", "/minio-tpu/webrpc", json.dumps(
+            {"id": 1, "jsonrpc": "2.0", "method": method,
+             "params": params}).encode(), headers)
+        return json.loads(conn.getresponse().read())
+    finally:
+        conn.close()
+
+
+def _web_delete_frees_the_name(a, b) -> None:
+    ca, cb = S3Client(a.endpoint), S3Client(b.endpoint)
+    assert ca.make_bucket("webfed").status == 200
+    assert cb.make_bucket("webfed").error_code == "BucketAlreadyExists"
+    token = _web_rpc(a, "web.Login", {
+        "username": "minioadmin", "password": "minioadmin"})["result"]["token"]
+    assert "result" in _web_rpc(
+        a, "web.DeleteBucket", {"bucketName": "webfed"}, token)
+    # the name is free across the federation again
+    assert cb.make_bucket("webfed").status == 200
+    r = ca.get_object("webfed", "k")
+    assert (r.status, r.headers["location"]) == (
+        307, f"{b.endpoint}/webfed/k")
+
+
+def test_web_delete_unregisters_dns(federation):
+    """web.DeleteBucket frees the federated name, as a DELETE does."""
+    _web_delete_frees_the_name(*federation)
+
+
+def test_mixed_federation_web_delete_frees_the_name(mixed):
+    _web_delete_frees_the_name(*mixed)

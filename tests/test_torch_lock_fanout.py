@@ -41,7 +41,7 @@ from minio_tpu_torch.server.http import S3Server as TS3Server
 from minio_tpu_torch.storage import rest_common, rest_server
 from minio_tpu_torch.storage.rest_client import StorageRESTClient
 from minio_tpu_torch.storage.xl import XLStorage
-from minio_tpu_torch.utils import tlsconf
+from minio_tpu_torch.utils import spans, tlsconf
 from tests.s3client import S3Client
 from tests.test_torch_threads import torch_threads  # noqa: F401
 
@@ -273,6 +273,26 @@ def test_read_all_fileinfo_remote_at_once_answers_as_jax(tmp_path):
         srv.shutdown()
 
 
+STAGES_PATH = "/minio-tpu/admin/v1/request-stages"
+
+
+def _await_record(match, deadline_s: float = 30.0) -> None:
+    """Wait until a closed record that ``match`` accepts is in the ring:
+    the plane closes a request's record after its last response byte, so
+    the client's next request can be served first."""
+    end = time.monotonic() + deadline_s
+    while True:
+        with spans._mu:
+            if any(match(r) for r in spans._ring):
+                return
+        assert time.monotonic() < end, "the record never reached the ring"
+        time.sleep(0.005)
+
+
+def _await_request(method: str, path: str) -> None:
+    _await_record(lambda r: (r.get("method"), r.get("path")) == (method, path))
+
+
 @pytest.mark.parametrize("plane", ["threaded", "async"])
 def test_get_stage_spans_recorded(tmp_path, monkeypatch, plane):
     monkeypatch.setenv("MINIO_TPU_SERVER", plane)
@@ -281,14 +301,18 @@ def test_get_stage_spans_recorded(tmp_path, monkeypatch, plane):
     srv = TS3Server(ol, address="127.0.0.1:0").start()
     try:
         c = S3Client(srv.endpoint)
+        spans.drain()  # the ring is the process's: drop earlier tests' records
         c.make_bucket("bkt")
+        _await_request("PUT", "/bkt")
         c.put_object("bkt", "obj", b"y" * 20000)
-        c.request("GET", "/minio-tpu/admin/v1/request-stages")
+        _await_request("PUT", "/bkt/obj")
+        c.request("GET", STAGES_PATH)
+        _await_request("GET", STAGES_PATH)
         r = c.get_object("bkt", "obj")
         assert r.status == 200
         rid = r.headers["x-amz-request-id"]
-        doc = json.loads(c.request(
-            "GET", "/minio-tpu/admin/v1/request-stages").body)
+        _await_record(lambda rec: rec.get("request_id") == rid)
+        doc = json.loads(c.request("GET", STAGES_PATH).body)
         rec = {x.get("request_id"): x for x in doc["records"]}[rid]
         assert rec["method"] == "GET" and rec["path"] == "/bkt/obj"
         st = rec["stages"]
@@ -299,9 +323,8 @@ def test_get_stage_spans_recorded(tmp_path, monkeypatch, plane):
             assert st["queue"] >= 0 and st["write"] > 0
         assert rec["total"] >= st["lock"] + st["meta"] + st["open"]
         # reading cleared the ring: only the last read's own record is new
-        doc = json.loads(c.request(
-            "GET", "/minio-tpu/admin/v1/request-stages").body)
-        assert [x["path"] for x in doc["records"]] == [
-            "/minio-tpu/admin/v1/request-stages"]
+        _await_request("GET", STAGES_PATH)
+        doc = json.loads(c.request("GET", STAGES_PATH).body)
+        assert [x["path"] for x in doc["records"]] == [STAGES_PATH]
     finally:
         srv.shutdown()
