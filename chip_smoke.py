@@ -62,7 +62,13 @@
    screen and two long lookaheads on the lineitem chunk, K9 at Q1's and
    Q2's candidates, K10 at Q1's anchors and backwards at Q2's hits, and
    K11 at Q1's gather and at one row, in the same turns (``compare_select_copies``), the card's name and
-   power limit printed before them.
+   power limit printed before them.  The legacy drain's K12 group_flags
+   and K13 pack_nonzero_groups against their plain versions and against
+   the flags and ``packed`` of K1's and K5's own pack legs, at the main
+   path's parity plane (4, 4, 327,680) dense, sparse, all zero and all
+   nonzero, at heal's B = 1, ragged B and a view 4 bytes off alignment
+   (``check_legacy_kernels``); K12 timed beside ``plane.view(B, m, g,
+   256).any(-1)``.
 3. Drives the main path through the object layer under the default
    MINIO_TPU_CODEC_OVERLAP (unset: ``pipeline`` on the card): 12 temp-dir
    disks, EC 8+4, 10 MiB blocks; PUT four 64 MiB objects and one of
@@ -79,12 +85,16 @@
    shards carry the read.  K6 and K1 without the pack leg must launch,
    and K4 must not.
 5. Every mode against every other: on fresh disks, under ``pipeline``,
-   ``off`` and ``async`` in turn and then in reverse order, PUT one
+   ``off``, ``async`` and MINIO_TPU_CODEC_KERNEL=legacy (under ``async``,
+   which legacy ignores; its first turn under
+   MINIO_TPU_DEVICE_COMPRESS=on) in turn and then in reverse order, PUT one
    64 MiB object and the 10 MiB + 17 B one, GET both with 4 disks offline, delete 4 shards of each and
    heal_object them.  Part files must be byte-identical to the main
    path's, and xl.meta equal up to its mod time, data dir and version id
    (fresh for every PUT); each mode's own kernels must launch and
-   ``async`` must count overlap windows both ways.
+   ``async`` must count overlap windows both ways.  Legacy launches K1
+   without the pack leg, K12 (and K13 exactly in the ``on`` turn), K2
+   and K3, and no K4, K5, K6 or sub-chunk pass.
 6. MINIO_TPU_CODEC_FORMULATION=mxu beside swar, on fresh disks: swar
    and mxu under ``pipeline``, mxu and swar under ``off``, then in
    reverse order, the same two objects PUT, read with 4 disks offline
@@ -177,7 +187,7 @@
    same deployment built as the server main builds it (zones over one set
    of 12 guarded drives, the MRF heal routine, ``start_crawler``'s update
    tracker and data crawler).  A bucket born with object lock and a
-   GOVERNANCE default retention of one day takes 16 x 64 MiB with
+   GOVERNANCE default retention of one day takes 8 x 64 MiB with
    ``x-amz-tagging`` from 4 clients (K5) and reads them back (K2), one with
    the drives of shards 1, 3, 10, 12 offline (K3); tags and retentions
    read back; a retained version refuses its delete (InvalidRequest), the
@@ -225,9 +235,9 @@
    4 SigV4 clients, client i on node i, PUT 8 x 64 MiB and each object is
    read back from another node (sha256); the first object's part files
    and xl.meta on all 16 drives are held against the port's plain CPU
-   codec writing the same bytes; 8 rounds of concurrent PUTs of one key
+   codec writing the same bytes; 4 rounds of concurrent PUTs of one key
    through nodes 1 and 3 (one of the two bodies, one xl.meta generation
-   on every drive, top-locks empty after); 10 rounds of read-after-write
+   on every drive, top-locks empty after); 6 rounds of read-after-write
    across nodes (node 1 reads a hot object twice, from the device tier
    once admitted, node 2 overwrites it, node 1's GET right after the ack
    returns the new body; node 1's peer-driven invalidations counted);
@@ -248,10 +258,10 @@
    ``phases_s`` gains ``cluster``.
 12. Heal sequences (``heal_seq_phase``, slice 9d, after ``bucket_config``):
    the S3 phase's deployment (S3Server, threaded plane, 12 disks, EC 8+4);
-   8 x 64 MiB objects, two drives' payload wiped (``.sys`` kept); a dry
-   run reports all 8 and writes nothing; ``POST heal-sequence`` polled by
+   6 x 64 MiB objects, two drives' payload wiped (``.sys`` kept); a dry
+   run reports all 6 and writes nothing; ``POST heal-sequence`` polled by
    client token until ``finished``: every part file and xl.meta equal to
-   before the wipe, 8 healed, the bucket and each object popped once,
+   before the wipe, 6 healed, the bucket and each object popped once,
    HealAlreadyRunning, HealOverlappingPaths and HealInvalidClientToken
    while it runs, K6 and K1 ``group=0`` launched; a third drive wiped,
    ``heal-sequence/stop`` in mid-walk ends ``stopped`` and a forceStart
@@ -305,6 +315,19 @@
    ``ListObjects``, ``RemoveObject``, the console page.  Prints the
    ``web:`` line: upload, download and zip MB/s, degraded download MB/s,
    AssumeRole and WebIdentity ms, each a median of a few calls.
+13e. Quorum-early parity acks (``parity_ack_phase``, slice 11, after
+   ``web``): two server CLIs over 12 drives each (EC 8+4, 10 MiB blocks,
+   async plane, MINIO_TPU_FAULT_INJECTION=1), one under
+   MINIO_TPU_PARITY_ACK=settle and one under ``early``; 4 clients PUT 4 x
+   64 MiB to each in turns (settle, early, early, settle), each PUT's
+   time to ack and the round's MB/s, a GET right after each ack; the same
+   with one drive slowed (``delay_s`` on its writes) that holds a parity
+   shard of every object of the round; then a parity drive's
+   ``rename_data`` failing once behind an early ack:
+   ``miniotpu_codec_stream_heal_required_total`` moves by one and the MRF
+   heal puts the drive's part file back, equal to settle's by erasure
+   index.  Prints the ``parity_ack:`` line with the card's name and power
+   limit.
 14. The chaos grid (``grid_phase``, slice 9d): the first four cells of
    ``GRID_ORDER`` (``GRID_RUN``: heal_storm, dead_remote_disks,
    replication_lag_churn, select_heavy_mix) on
@@ -320,7 +343,7 @@
 Exits non-zero, without the result lines, when there is no CUDA device or
 when any phase fails.  ``--only NAMES [--repeat N]`` runs only the named
 phases (``select``, ``cluster``, ``federation``, ``replication``,
-``backends``, ``web``, or ``grid:CELL[+CELL...]``) after the build, N times in
+``backends``, ``web``, ``parity_ack``, or ``grid:CELL[+CELL...]``) after the build, N times in
 turn, and prints one line a run and an ``only:`` tally, e.g.
 ``python3 chip_smoke.py --only grid:select_heavy_mix --repeat 20``.
 """
@@ -1428,6 +1451,105 @@ def check_mxu_kernels(dev, rng) -> dict:
     return results
 
 
+def legacy_plane(rng, kind: str, shape, device):
+    """A parity plane of u32 words for K12 and K13: ``dense`` (random, the
+    main path's), ``sparse`` (random on about a third of the 256-word
+    groups), ``zeros`` or ``nonzero`` (one word with the high bit set in
+    every group, everything else zero)."""
+    import torch
+
+    x = rand_words(rng, shape, device)
+    *lead, w = shape
+    g = w // 256
+    grouped = x.view(*lead, g, 256)
+    if kind == "sparse":
+        keep = torch.from_numpy(rng.random((*lead, g)) < 1 / 3).to(device)
+        grouped.mul_(keep[..., None].to(torch.int32))
+    elif kind in ("zeros", "nonzero"):
+        x.zero_()
+    if kind == "nonzero":
+        at = torch.from_numpy(rng.integers(0, 256, (*lead, g, 1))).to(device)
+        grouped.scatter_(-1, at, torch.full_like(at, -(1 << 31), dtype=torch.int32))
+    return x
+
+
+def check_legacy_kernels(dev, rng) -> dict:
+    """K12 group_flags and K13 pack_nonzero_groups (the legacy drain's
+    passes, MINIO_TPU_CODEC_KERNEL=legacy) against their plain versions on
+    the card: at the main path's parity plane (4, 4, 327,680) dense,
+    sparse, all zero and all nonzero; at heal's B = 1 and ragged B; on a
+    view 4 bytes off 16-byte alignment; and against the flags and
+    ``packed`` that K1's own pack leg emits for the same parity (what the
+    bisection oracle is for).  Times on the main path's dense plane,
+    K12 beside ``plane.view(B, m, g, 256).any(-1)`` (the one PyTorch call
+    of its function); no PyTorch call computes K13's."""
+    import torch
+
+    from minio_tpu_torch.ops import kernels
+
+    G = 256
+    err = {"group_flags": 0, "pack_nonzero_groups": 0}
+
+    def hold(x, what: str):
+        flags = kernels.group_flags(x, G)
+        got = kernels.pack_nonzero_groups(x, G)
+        torch.cuda.synchronize()
+        want = kernels.pack_nonzero_groups_plain(x, G)
+        e = same((flags,), (want[0],))
+        if e:
+            fail(f"group_flags differs from its plain version on {what}")
+        err["group_flags"] = max(err["group_flags"], e)
+        e = same(got, want)
+        if e:
+            fail(f"pack_nonzero_groups differs from its plain version on {what}")
+        err["pack_nonzero_groups"] = max(err["pack_nonzero_groups"], e)
+        return flags, got
+
+    shapes = [(4, M, W), (1, M, W), (3, M, 8192), (7, M, 2 * G), (5, 2, 3 * G)]
+    for shape in shapes:
+        for kind in ("dense", "sparse", "zeros", "nonzero"):
+            hold(legacy_plane(rng, kind, shape, dev), f"{kind} {shape}")
+    x = legacy_plane(rng, "sparse", (3 * M * 4096 + 256,), dev)
+    x = x[1:1 + 3 * M * 4096].view(3, M, 4096)
+    hold(x, "a view 4 bytes off alignment")
+    # against K1's own pack leg: data with zeroed columns gives a parity
+    # plane with zero groups, flagged and packed inside the encode launch
+    data = legacy_plane(rng, "sparse", (4, K, W), dev)
+    parity, _dig, k1_flags, k1_packed = kernels.encode_pack(data, M, 4 * W, G)
+    flags, (pflags, packed) = hold(parity, "K1's parity")
+    if same((flags, pflags, packed), (k1_flags, k1_flags, k1_packed)):
+        fail("group_flags / pack_nonzero_groups differ from K1's flags and packed")
+    parity, _dig, k5_flags, k5_packed = kernels.encode_pack_pipelined(
+        data, M, 4 * W, G)
+    flags, (pflags, packed) = hold(parity, "K5's parity")
+    if same((flags, pflags, packed), (k5_flags, k5_flags, k5_packed)):
+        fail("group_flags / pack_nonzero_groups differ from K5's flags and packed")
+
+    B = 4
+    plane = legacy_plane(rng, "dense", (B, M, W), dev)
+    g = W // G
+    words = B * M * W
+    results = {}
+    bms, by = bound(4 * (words + B * M * g), words)
+    results["group_flags"] = dict(
+        max_abs_err=err["group_flags"], shape=[B, M, W],
+        ms=cuda_ms(lambda: kernels.group_flags(plane, G), 20),
+        plain_ms=cuda_ms(lambda: kernels.group_flags_plain(plane, G), 3, 1),
+        library_ms=cuda_ms(lambda: plane.view(B, M, g, G).any(-1), 20),
+        bound_ms=bms, bound_by=by,
+        **device_times(lambda: kernels.group_flags(plane, G)),
+    )
+    bms, by = bound(4 * (2 * words + B * M * g), words)
+    results["pack_nonzero_groups"] = dict(
+        max_abs_err=err["pack_nonzero_groups"], shape=[B, M, W],
+        ms=cuda_ms(lambda: kernels.pack_nonzero_groups(plane, G), 20),
+        plain_ms=cuda_ms(lambda: kernels.pack_nonzero_groups_plain(plane, G), 3, 1),
+        library_ms=None, bound_ms=bms, bound_by=by,
+        **device_times(lambda: kernels.pack_nonzero_groups(plane, G)),
+    )
+    return results
+
+
 def k7_phases(kern, matrix, shards) -> "dict | None":
     """K7's clock64 phases per block, from one call of a copy whose
     ``gf_matmul_mxu`` takes ``stamps``: each block's thread 0 writes its
@@ -1794,10 +1916,21 @@ RUN_KERNELS = {
          "verify_reconstruct", "encode_pack_pipelined[mxu]",
          "verify_reconstruct_pipelined[mxu]", "encode_pack[subchunk]",
          "verify_reconstruct[subchunk]")),
+    # MINIO_TPU_CODEC_KERNEL=legacy (under MINIO_TPU_CODEC_OVERLAP=async,
+    # which it ignores): the PUT's K1 without the pack leg, the drain's
+    # K12 (and K13 in the turn under MINIO_TPU_DEVICE_COMPRESS=on), heal's
+    # K2 verify then K3, its re-encode K1 again; no fused pass
+    ("swar", "legacy"): (
+        ("encode_pack[group=0]", "group_flags", "phash256_batched",
+         "gf_matmul_words"),
+        ("encode_pack_pipelined", "verify_reconstruct",
+         "verify_reconstruct_pipelined", "encode_pack[subchunk]",
+         "verify_reconstruct[subchunk]", *_MXU_NAMES)),
 }
-# phase 5: every overlap mode; phase 6: each formulation beside the other
-# under the same mode
-MODE_RUNS = [("swar", "pipeline"), ("swar", "off"), ("swar", "async")]
+# phase 5: every overlap mode and the legacy pass structure; phase 6:
+# each formulation beside the other under the same mode
+MODE_RUNS = [("swar", "pipeline"), ("swar", "off"), ("swar", "async"),
+             ("swar", "legacy")]
 MXU_RUNS = [("swar", "pipeline"), ("mxu", "pipeline"), ("mxu", "off"),
             ("swar", "off")]
 
@@ -1823,7 +1956,14 @@ def modes_phase(dev, work: str, payloads: list, written: dict,
         # over the phase does not favour one run
         for formulation, mode in [*runs, *reversed(runs)]:
             os.environ["MINIO_TPU_CODEC_FORMULATION"] = formulation
-            os.environ["MINIO_TPU_CODEC_OVERLAP"] = mode
+            legacy = mode == "legacy"
+            # legacy ignores the overlap mode: async must not take the
+            # sub-chunk chain under it.  Its first turn packs every drain
+            # (a dense plane under auto launches only K12)
+            os.environ["MINIO_TPU_CODEC_OVERLAP"] = "async" if legacy else mode
+            os.environ["MINIO_TPU_CODEC_KERNEL"] = "legacy" if legacy else "fused1"
+            compress = "on" if legacy and not out[(formulation, mode)] else "auto"
+            os.environ["MINIO_TPU_DEVICE_COMPRESS"] = compress
             roots = [os.path.join(work, f"{formulation}-{mode}{i}") for i in range(N)]
             ol = ErasureObjects(
                 [XLStorage(r) for r in roots], parity_blocks=M,
@@ -1874,17 +2014,21 @@ def modes_phase(dev, work: str, payloads: list, written: dict,
             for name in must_not:
                 if launches[name]:
                     fail(f"{label}: kernel {name} launched")
-            if (mode == "pipeline" or formulation == "mxu") and (
+            if (mode in ("pipeline", "legacy") or formulation == "mxu") and (
                 launches["encode_pack"] != launches["encode_pack[group=0]"]
             ):
                 fail(f"{label}: swar K1 with the pack leg launched")
+            if legacy and (compress == "on") != (launches["pack_nonzero_groups"] > 0):
+                fail(f"{label}: pack_nonzero_groups launched "
+                     f"{launches['pack_nonzero_groups']} times under {compress}")
             windows = stats["overlap_windows"]
-            if mode != "off" and min(windows.values()) <= 0:
+            if mode in ("pipeline", "async") and min(windows.values()) <= 0:
                 fail(f"{label}: overlap windows {windows}")
-            if mode == "off" and any(windows.values()):
+            if mode in ("off", "legacy") and any(windows.values()):
                 fail(f"{label}: overlap windows {windows}")
             nbytes = sum(len(data[n]) for n in MODE_OBJECTS)
             out[(formulation, mode)].append({
+                "device_compress": compress,
                 "bytes": nbytes, "put_s": t_put, "get_degraded_s": t_get,
                 "heal_s": t_heal, "launches": launches,
                 "device_passes": stats["device_passes"],
@@ -1894,8 +2038,9 @@ def modes_phase(dev, work: str, payloads: list, written: dict,
             for r in roots:
                 shutil.rmtree(r, ignore_errors=True)
     finally:
-        os.environ.pop("MINIO_TPU_CODEC_OVERLAP", None)
-        os.environ.pop("MINIO_TPU_CODEC_FORMULATION", None)
+        for env in ("MINIO_TPU_CODEC_OVERLAP", "MINIO_TPU_CODEC_FORMULATION",
+                    "MINIO_TPU_CODEC_KERNEL", "MINIO_TPU_DEVICE_COMPRESS"):
+            os.environ.pop(env, None)
     return out
 
 
@@ -4917,9 +5062,9 @@ CLUSTER_DRIVES = 4  # per node: 16 drives, one set, EC 8+8 (default parity)
 # 64 MiB objects PUT through each node's client; cut from 4 to make room
 # for the web phase
 CLUSTER_PER_NODE = 2
-CLUSTER_RACE_ROUNDS = 8
+CLUSTER_RACE_ROUNDS = 4  # cut from 8 to make room for the parity_ack phase
 CLUSTER_RACE_SIZE = 16 << 20
-CLUSTER_RAW_ROUNDS = 10  # cut from 20 (15.7 s) to keep 4 grid cells
+CLUSTER_RAW_ROUNDS = 6  # cut from 20 (15.7 s), then 10, to keep 4 grid cells
 CLUSTER_HOT_SIZE = 8 << 20
 CLUSTER_DOWN_PUTS = 4  # objects PUT with node 4 killed
 CLUSTER_READY_S = 300.0  # spawn to ready, CUDA start and library load included
@@ -5403,7 +5548,7 @@ def cluster_phase(work: str, backend: "str | None" = None) -> dict:
 
 # -- phase 12: resumable heal sequences (slice 9d) --------------------------
 
-HS_OBJECTS = 8  # objects of S3_BIG, 512 MiB (cut from 16 to keep 4 grid cells)
+HS_OBJECTS = 6  # objects of S3_BIG, 384 MiB (cut from 16, then 8, to keep 4 grid cells)
 HS_WIPED = (2, 9)  # drives whose payload is wiped, .sys kept
 HS_RESTART_WIPED = (5,)  # wiped again before the stop / force-start round
 HS_BUCKET = "healseq"
@@ -5429,8 +5574,8 @@ def _admin_error(body: bytes) -> str:
 def heal_seq_phase(dev, work: str, heal_object_MBps: float) -> dict:
     """Phase 12 (slice 9d): admin heal sequences on the S3 phase's
     deployment - the port's S3Server (threaded plane) over 12 disks at EC
-    8+4 with 10 MiB blocks on the card, SigV4 admin calls.  16 x 64 MiB
-    objects, two drives' payload wiped (``.sys`` kept); a dry run reports
+    8+4 with 10 MiB blocks on the card, SigV4 admin calls.  HS_OBJECTS x
+    64 MiB objects, two drives' payload wiped (``.sys`` kept); a dry run reports
     without writing; a sequence launched over the bucket and polled by its
     client token heals every object back to byte-equal part files and
     xl.meta, answering HealAlreadyRunning, HealOverlappingPaths and
@@ -6868,7 +7013,7 @@ def backends_phase(dev, work: str, backend: "str | None" = None) -> dict:
 
 WEB_DRIVES = "disk{1...12}"  # one EC 8+4 set: the BASELINE.json deployment
 WEB_OBJECTS = 4  # of S3_BIG, one a client
-WEB_ROUNDS = 3  # timed calls of each figure (its median is printed)
+WEB_ROUNDS = 2  # timed calls of each figure (its median is printed; cut from 3)
 WEB_OFFLINE = (1, 3, 10, 12)  # erasure indices of obj0's drives taken offline
 WEB_STS_REPS = 5
 WEB_RSA_BITS = 2048  # the stub provider's key, as OpenID providers sign
@@ -7402,9 +7547,289 @@ def web_phase(work: str, backend: "str | None" = None) -> dict:
     return out
 
 
+# -- phase 13e: quorum-early parity acks (slice 11) -------------------------
+
+PA_DRIVES = "disk{1...12}"  # per server: one EC 8+4 set, the BASELINE.json deployment
+PA_OBJECTS = 4  # of S3_BIG, one a client
+PA_TURNS = ("settle", "early", "early", "settle")  # each condition's PUT rounds
+PA_SLOW_S = 0.2  # delay_s on every write of the slowed parity drive
+PA_HEAL_S = 120.0  # deadline of the heal flag and of the MRF heal
+
+
+def parity_key(prefix: str, count: int, bucket: str) -> "tuple[list, int]":
+    """``count`` keys ``prefix<i>-<j>`` (the first j found) whose objects
+    all keep a parity shard (erasure index 9-12) on one drive, and that
+    drive's position in the set (its ``disk<position + 1>``)."""
+    from minio_tpu_torch.objectlayer.metadata import hash_order
+
+    keys: list = []
+    drives = set(range(N))
+    for i in range(count):
+        for j in range(10_000):
+            key = f"{prefix}{i}-{j}"
+            dist = hash_order(f"{bucket}/{key}", N)
+            hold = {d for d in drives if dist[d] > K}
+            if hold:
+                keys.append(key)
+                drives = hold
+                break
+    return keys, min(drives)
+
+
+def prom_sum(signer: "S3Signer", family: str) -> float:
+    """The sum of a family's samples on the server's Prometheus page."""
+    st, _h, body = signer.request("GET", "/minio-tpu/prometheus/metrics")
+    if st != 200:
+        fail(f"parity_ack: Prometheus answered {st}")
+    return sum(float(line.rpartition(" ")[2]) for line in body.decode().splitlines()
+               if line.startswith(family) and line[len(family)] in " {")
+
+
+def parity_ack_phase(work: str, backend: "str | None" = None) -> dict:
+    """Phase 13e (slice 11): MINIO_TPU_PARITY_ACK=early against settle on
+    the BASELINE.json deployment.  Two ``python -m minio_tpu_torch.server
+    --parity 4`` processes over 12 drives each (EC 8+4, 10 MiB blocks,
+    the async plane, MINIO_TPU_FAULT_INJECTION=1), S under ``settle`` and
+    E under ``early``, spawned at once; ``backend`` sets
+    MINIO_ERASURE_BACKEND for a rehearsal on the CPU.
+
+    In turns (PA_TURNS) S3_CLIENTS SigV4 clients PUT PA_OBJECTS x S3_BIG
+    made from the seed to S or E: PUT MB/s and each PUT's time to ack
+    (request to response), and a GET sent right after each ack returns
+    the payload.  Then the same with one drive slowed on both servers
+    (``delay_s`` PA_SLOW_S on its writes through the admin fault
+    endpoint) whose shard is parity for every object of the round.  Then
+    on E a parity drive's ``rename_data`` fails once: the PUT acks, the
+    band heal-flags it (``miniotpu_codec_stream_heal_required_total`` +1),
+    the fault is cleared and the MRF heal restores the drive's part file,
+    equal by erasure index to S's for the same object.  Each server's
+    launches from its admin ``kernel-stats`` over the phase."""
+    import hashlib
+    import threading
+
+    import numpy as np
+
+    from minio_tpu_torch.storage.xl import XLStorage
+
+    base = os.path.join(work, "parity_ack")
+    rng = np.random.default_rng(SEED + 26)
+    objs = [rng.integers(0, 256, S3_BIG, dtype=np.uint8).tobytes()
+            for _ in range(PA_OBJECTS)]
+    sha = [hashlib.sha256(v).hexdigest() for v in objs]
+    nbytes = sum(len(v) for v in objs)
+    roots = {m: [os.path.join(base, m, f"disk{j + 1}") for j in range(N)]
+             for m in ("settle", "early")}
+    srv: dict = {}
+    out: dict = {"drives": N, "objects": PA_OBJECTS, "object_bytes": S3_BIG,
+                 "slow_delay_s": PA_SLOW_S}
+
+    def admin(mode: str, method: str, path: str, body: bytes = b""):
+        c = S3Signer("127.0.0.1", srv[mode].port)
+        try:
+            st, _h, got = c.request(method, f"{ADMIN}/{path}", body=body)
+        finally:
+            c.close()
+        if st != 200:
+            fail(f"parity_ack: {mode} admin {method} {path}: {st} {got[:300]!r}")
+        return json.loads(got) if got else {}
+
+    def launches(mode: str) -> dict:
+        return {k: v for k, v in admin(mode, "GET", "kernel-stats")["launches"].items()
+                if v}
+
+    def put_round(mode: str, keys: list) -> dict:
+        """S3_CLIENTS clients, one object each, at once: PUT, then a GET
+        right after its ack."""
+        ack_s = [0.0] * len(keys)
+        errors: list = []
+        start = threading.Barrier(len(keys) + 1)
+
+        def client(i):
+            c = S3Signer("127.0.0.1", srv[mode].port)
+            try:
+                start.wait()
+                t0 = time.monotonic()
+                st, _h, body = c.request("PUT", f"/parity/{keys[i]}", body=objs[i],
+                                         payload_hash=sha[i])
+                ack_s[i] = time.monotonic() - t0
+                if st != 200:
+                    raise RuntimeError(f"PUT {keys[i]}: {st} {body[:200]!r}")
+                st, _h, body = c.request("GET", f"/parity/{keys[i]}")
+                if st != 200 or hashlib.sha256(body).hexdigest() != sha[i]:
+                    raise RuntimeError(f"GET {keys[i]} after the ack: {st}, "
+                                       f"{len(body)} bytes, not the payload")
+            except BaseException as e:  # noqa: BLE001 - reported below
+                errors.append(e)
+            finally:
+                c.close()
+
+        threads = [threading.Thread(target=client, args=(i,)) for i in range(len(keys))]
+        for t in threads:
+            t.start()
+        start.wait()
+        t0 = time.monotonic()
+        for t in threads:
+            t.join()
+        if errors:
+            fail(f"parity_ack: {mode}: {errors[0]!r}")
+        return {"put_MBps": nbytes / max(ack_s) / 1e6, "ack_s": ack_s,
+                "committed_s": committed(mode, keys, t0)}
+
+    def committed(mode: str, keys: list, t0: float) -> float:
+        """Seconds from the round's start until every drive holds every
+        key's xl.meta (written last by rename_data): under early, when the
+        band's parity renames have landed.  The next round starts after."""
+        deadline = time.monotonic() + PA_HEAL_S
+        for root in roots[mode]:
+            for key in keys:
+                while not os.path.exists(os.path.join(root, "parity", key, "xl.meta")):
+                    if time.monotonic() > deadline:
+                        fail(f"parity_ack: {mode}: {key} never reached {root}")
+                    time.sleep(0.005)
+        return time.monotonic() - t0
+
+    def rounds(tag: str) -> dict:
+        got: dict = {"settle": [], "early": []}
+        for r, mode in enumerate(PA_TURNS):
+            keys = [f"{tag}{r}-{i}" for i in range(PA_OBJECTS)]
+            got[mode].append(put_round(mode, keys))
+        return got
+
+    t_phase = time.monotonic()
+    env = {k: v for k, v in os.environ.items()
+           if not k.startswith("MINIO_TPU_") and k != "MINIO_ERASURE_BACKEND"}
+    env.update({"MINIO_TPU_LOG_LEVEL": "warning", "MINIO_TPU_FAULT_INJECTION": "1"})
+    if backend is not None:
+        env["MINIO_ERASURE_BACKEND"] = backend
+    try:
+        for mode in ("settle", "early"):
+            os.makedirs(os.path.join(base, mode))
+            srv[mode] = _BootedServer(
+                os.path.join(base, mode), _free_port(),
+                {**env, "MINIO_TPU_PARITY_ACK": mode}, f"pa-{mode}",
+                drives=os.path.join(base, mode, PA_DRIVES),
+                what=f"parity_ack phase ({mode})")
+        out["spawn_to_ready_s"] = {m: s.wait_ready() for m, s in srv.items()}
+        for mode in srv:
+            c = S3Signer("127.0.0.1", srv[mode].port)
+            try:
+                if c.request("PUT", "/parity")[0] != 200:
+                    fail(f"parity_ack: {mode}: bucket create failed")
+            finally:
+                c.close()
+        for mode in srv:  # one untimed PUT each: the first request's set-up
+            put_round(mode, ["warm"])
+        l0 = {m: launches(m) for m in srv}
+
+        # -- healthy drives: settle and early in turns ----------------------
+        out["healthy"] = rounds("h")
+
+        # -- one drive slowed, parity for every object of the round ---------
+        slowed = {}
+        for r in range(len(PA_TURNS)):
+            keys, drive = parity_key(f"s{r}-", PA_OBJECTS, "parity")
+            slowed[r] = (keys, drive)
+        got: dict = {"settle": [], "early": []}
+        for r, mode in enumerate(PA_TURNS):
+            keys, drive = slowed[r]
+            rule = {"disk": f"/disk{drive + 1}", "api": "write",
+                    "delay_s": PA_SLOW_S}
+            admin(mode, "POST", "fault/inject", json.dumps(rule).encode())
+            try:
+                res = put_round(mode, keys)  # committed under the delay too
+            finally:
+                admin(mode, "POST", "fault/clear", b'{"disk": "*"}')
+            for key in keys:
+                idx = XLStorage(roots[mode][drive]).read_version("parity", key).erasure.index
+                if idx <= K:
+                    fail(f"parity_ack: disk{drive + 1} holds data shard {idx} of {key}")
+            res["slowed_drive"] = drive + 1
+            got[mode].append(res)
+        out["slowed"] = got
+
+        # -- a parity rename that fails past the ack, heal-flagged and healed
+        (key,), drive = parity_key("heal", 1, "parity")
+        c = S3Signer("127.0.0.1", srv["early"].port)
+        try:
+            h0 = prom_sum(c, "miniotpu_codec_stream_heal_required_total")
+            s0 = admin("early", "GET", "fault/status")
+            admin("early", "POST", "fault/inject", json.dumps(
+                {"disk": f"/disk{drive + 1}", "api": "rename_data", "error": True,
+                 "calls": [1]}).encode())
+            t0 = time.monotonic()
+            st, _h, body = c.request("PUT", f"/parity/{key}", body=objs[0],
+                                     payload_hash=sha[0])
+            if st != 200:
+                fail(f"parity_ack: the PUT with a failing parity rename: {st} {body[:200]!r}")
+            out["heal_flag_ack_s"] = time.monotonic() - t0
+            deadline = time.monotonic() + PA_HEAL_S
+            while prom_sum(c, "miniotpu_codec_stream_heal_required_total") <= h0:
+                if time.monotonic() > deadline:
+                    fail("parity_ack: the failed parity rename was never heal-flagged")
+                time.sleep(0.05)
+            out["heal_flag_s"] = time.monotonic() - t0
+            s1 = admin("early", "GET", "fault/status")
+            admin("early", "POST", "fault/clear", b'{"disk": "*"}')
+            errors = {os.path.basename(r): v["injected"].get("error", 0)
+                      - s0[r]["injected"].get("error", 0) for r, v in s1.items()}
+            if {d: n for d, n in errors.items() if n} != {f"disk{drive + 1}": 1}:
+                fail(f"parity_ack: rename_data errors injected {errors}")
+            healed_root = roots["early"][drive]
+            while True:
+                try:
+                    XLStorage(healed_root).read_version("parity", key)
+                    break
+                except Exception:  # noqa: BLE001 - not healed yet
+                    if time.monotonic() > deadline:
+                        fail(f"parity_ack: MRF did not heal {key} on disk{drive + 1}")
+                    time.sleep(0.05)
+            out["mrf_heal_s"] = time.monotonic() - t0
+            out["heal_required_moved"] = (
+                prom_sum(c, "miniotpu_codec_stream_heal_required_total") - h0)
+            if out["heal_required_moved"] != 1:
+                fail(f"parity_ack: heal_required moved {out['heal_required_moved']}")
+            st, _h, body = c.request("GET", f"/parity/{key}")
+            if st != 200 or hashlib.sha256(body).hexdigest() != sha[0]:
+                fail(f"parity_ack: GET {key} after the heal: {st}")
+        finally:
+            c.close()
+        c = S3Signer("127.0.0.1", srv["settle"].port)
+        try:
+            if c.request("PUT", f"/parity/{key}", body=objs[0],
+                         payload_hash=sha[0])[0] != 200:
+                fail("parity_ack: the settle PUT of the healed object failed")
+        finally:
+            c.close()
+        healed = _by_index(roots["early"], "parity", key, 1)
+        if healed != _by_index(roots["settle"], "parity", key, 1) or len(healed) != N:
+            fail("parity_ack: the healed object's part files differ from settle's")
+        out["healed_drive"] = drive + 1
+        l1 = {m: launches(m) for m in srv}
+        out["launches"] = {m: {k: v - l0[m].get(k, 0) for k, v in l1[m].items()
+                               if v != l0[m].get(k, 0)} for m in srv}
+        if backend is None and not all(
+                out["launches"][m].get("encode_pack_pipelined") for m in srv):
+            fail(f"parity_ack: launches {out['launches']}")
+        for cond in ("healthy", "slowed"):
+            for mode in ("settle", "early"):
+                runs = out[cond][mode]
+                out[f"{cond}_{mode}_MBps"] = _median([r["put_MBps"] for r in runs])
+                out[f"{cond}_{mode}_ack_s"] = _median(
+                    [a for r in runs for a in r["ack_s"]])
+                out[f"{cond}_{mode}_committed_s"] = _median(
+                    [r["committed_s"] for r in runs])
+        out["sigterm_s"] = {m: s.sigterm() for m, s in srv.items()}
+    finally:
+        for s in srv.values():
+            s.kill()
+        shutil.rmtree(base, ignore_errors=True)
+    out["phase_s"] = time.monotonic() - t_phase
+    return out
+
+
 # -- phase 9c: bucket configurations enforced by the data crawler -----------
 
-BC_TAGGED = 16  # objects of S3_BIG with x-amz-tagging, PUT by 4 clients
+BC_TAGGED = 8  # objects of S3_BIG with x-amz-tagging, PUT by 4 clients (cut from 16)
 # objects of BC_SMALL_SIZE through the object layer; cut from 2,048, at
 # which the small PUTs and the two crawls took 220 s of the phase on the
 # H100 machine (16 PUTs/s, 35 versions/s crawled), then from 512 (57 s of
@@ -7837,6 +8262,8 @@ REPLACES = {
     "select_spans[row]": ("minio_tpu/ops/select_step.py:358", "select"),
     "select_spans[back]": ("minio_tpu/ops/select_step.py:371", "select"),
     "select_gather": ("minio_tpu/ops/select_step.py:387", "select"),
+    "group_flags": ("minio_tpu/ops/codec_step.py:115", "legacy"),
+    "pack_nonzero_groups": ("minio_tpu/ops/codec_step.py:130", "legacy"),
 }
 
 
@@ -8209,6 +8636,7 @@ ONLY_PHASES = {
     "replication": lambda dev, work: replication_phase(work),
     "backends": lambda dev, work: backends_phase(dev, work),
     "web": lambda dev, work: web_phase(work),
+    "parity_ack": lambda dev, work: parity_ack_phase(work),
 }
 
 
@@ -8332,6 +8760,7 @@ def main() -> int:
     kres.update(check_overlap_kernels(dev, rng))
     kres.update(check_mxu_kernels(dev, rng))
     kres.update(check_select_kernels(dev, rng))
+    kres.update(check_legacy_kernels(dev, rng))
     lap("kernel_checks")
     for name, r in kres.items():
         print(f"kernel {name}: {json.dumps(r)}", flush=True)
@@ -8391,6 +8820,8 @@ def main() -> int:
         lap("backends")
         web = web_phase(work)
         lap("web")
+        pa = parity_ack_phase(work)
+        lap("parity_ack")
         grid = grid_phase(work)
         lap("grid")
     finally:
@@ -8414,6 +8845,7 @@ def main() -> int:
     print(f"replication: {json.dumps({'card': card, **repl})}", flush=True)
     print(f"backends: {json.dumps({'card': card, **bk})}", flush=True)
     print(f"web: {json.dumps({'card': card, **web})}", flush=True)
+    print(f"parity_ack: {json.dumps({'card': card, **pa})}", flush=True)
     print(f"grid: {json.dumps({'card': card, **grid})}", flush=True)
     print(f"phases_s: {json.dumps(phases_s)}", flush=True)
     phase_launches = {
@@ -8423,6 +8855,8 @@ def main() -> int:
         "mxu off": mx[("mxu", "off")][0]["launches"],
         "mxu pipeline": mx[("mxu", "pipeline")][0]["launches"],
         "select": sel["launches"],
+        # the legacy run's first turn, under MINIO_TPU_DEVICE_COMPRESS=on
+        "legacy": mo[("swar", "legacy")][0]["launches"],
     }
 
     line = {

@@ -14,7 +14,10 @@ codec-agnostic.  This module is that seam for the port:
   and heal passes: the pipelined kernels (``pipeline``, the default on
   the card), a sub-chunk chain through pinned staging on CUDA streams
   (``async``), or the serialized kernels (``off``, the default on the
-  CPU).
+  CPU).  MINIO_TPU_CODEC_KERNEL=legacy (codec_step.codec_kernel_mode)
+  runs the pre-fusion passes instead, whatever the overlap mode and
+  formulation: the digest encode (K1 without the pack leg), the drain's
+  group_flags and pack_nonzero_groups, verify then reconstruct on heal.
 
 There is no automatic choice of device and no silent fallback: asking
 for the card where there is none raises.
@@ -276,10 +279,13 @@ class _DeviceParityRef:
     """One batch's device-resident parity plane ((B, m, w) int32 words).
 
     ``drain()`` is the single D2H seam: thread-safe and memoized, so the
-    m per-disk parity writers sharing this ref pay one transfer.  The
-    occupancy ``flags`` and the prefix ``packed`` plane come out of the
-    same encode_pack launch as the parity itself, so the drain launches
-    no kernel - it only picks which precomputed plane crosses the bus.
+    m per-disk parity writers sharing this ref pay one transfer.  Under
+    fused1 the occupancy ``flags`` and the prefix ``packed`` plane come
+    out of the same encode_pack launch as the parity itself, so the drain
+    launches no kernel - it only picks which precomputed plane crosses
+    the bus.  A ref without precomputed planes (the legacy encode, or no
+    pack leg) screens at drain time with group_flags and
+    pack_nonzero_groups, as the JAX package's legacy ref does.
     Registered with the ParityPlaneCache until drained or released.
     """
 
@@ -325,7 +331,7 @@ class _DeviceParityRef:
                         self._group,
                     )
                 else:
-                    self._host = self._drain_raw(self._parity_w)
+                    self._host = self._drain_screened(self._parity_w)
                 self._parity_w = None
                 self._flags = None
                 self._packed = None
@@ -348,6 +354,38 @@ class _DeviceParityRef:
         parity = codec_step.tensor_to_words(parity_w)
         _record_d2h("parity", parity.nbytes)
         return codec_step.host_words_to_bytes(parity)
+
+    @staticmethod
+    def _drain_screened(parity_w: torch.Tensor) -> np.ndarray:
+        """The drain of a plane without precomputed planes: the occupancy
+        screen (group_flags) when the device-compress mode is not off and
+        the row has two groups or more, zeros when no group is kept, the
+        pack pass (pack_nonzero_groups) and the prefix's D2H when the mode
+        is on or the fill is at or below the threshold, else the raw
+        plane.  Passes and D2H bytes as in the JAX package (flags cross
+        as one byte each, its bool)."""
+        mode = compmod.device_compress_mode()
+        w = int(parity_w.shape[-1])
+        G = compmod.PARITY_GROUP_WORDS
+        g = w // G if w % G == 0 else 0
+        if mode != "off" and g >= 2:
+            _record_pass("group_flags")
+            flags = (codec_step.group_flags(parity_w, G) != 0).cpu().numpy()
+            kept = int(flags.sum(axis=-1).max()) if flags.size else 0
+            if kept == 0:
+                _record_d2h("parity", flags.nbytes)
+                return np.zeros(
+                    tuple(parity_w.shape[:-1]) + (w * 4,), dtype=np.uint8
+                )
+            if mode == "on" or kept / g <= compmod.parity_fill_threshold():
+                _record_pass("pack_nonzero_groups")
+                _f, packed = codec_step.pack_nonzero_groups(parity_w, G)
+                keep = compmod.prefix_keep(kept, g)
+                prefix = codec_step.tensor_to_words(packed[..., : keep * G])
+                _record_d2h("parity", flags.nbytes + prefix.nbytes)
+                words = compmod.unpack_nonzero_groups(flags, prefix, G, w)
+                return codec_step.host_words_to_bytes(words)
+        return _DeviceParityRef._drain_raw(parity_w)
 
     @staticmethod
     def _drain_precomputed(parity_w, flags_d, packed_d, group) -> np.ndarray:
@@ -444,7 +482,7 @@ class _SubchunkParityRef:
                     p, self._flags[i], self._packed[i], self._group
                 )
                 if self._packed is not None
-                else _DeviceParityRef._drain_raw(p)
+                else _DeviceParityRef._drain_screened(p)
             )
             for i, p in enumerate(self._parity)
         ]
@@ -689,7 +727,6 @@ class TorchBackend(CodecBackend):
         MINIO_TPU_CODEC_OVERLAP and MINIO_TPU_CODEC_FORMULATION do not
         touch this seam (heal's re-encode), as in the JAX package: the
         formulation is only read to check the knob."""
-        codec_step.codec_kernel_mode()
         codec_step.codec_formulation()
         data = np.ascontiguousarray(data, dtype=np.uint8)
         L = data.shape[-1]
@@ -724,11 +761,22 @@ class TorchBackend(CodecBackend):
         runs K5 (K1 at m == 0); ``async`` runs the sub-chunk chain, or
         the serialized path when the batch is too small to cut S >= 3
         chunks.  MINIO_TPU_CODEC_FORMULATION picks the serialized
-        pass's product; the sub-chunk chain stays ``swar``."""
-        codec_step.codec_kernel_mode()
-        formulation = codec_step.codec_formulation()
+        pass's product; the sub-chunk chain stays ``swar``.  Under
+        MINIO_TPU_CODEC_KERNEL=legacy: the digest encode alone (K1 without
+        the pack leg), whatever the overlap mode or formulation; the
+        drain screens the plane (``"digest"`` handle)."""
         data = np.ascontiguousarray(data, dtype=np.uint8)
         B, _k, L = data.shape
+        if codec_step.codec_kernel_mode() == "legacy":
+            # the JAX package's encode_and_hash_words_digest: parity and
+            # digests only, the drain screens the plane
+            words = self._stage(codec_step.host_bytes_to_words(data))
+            parity_w, digests, _f, _p = codec_step.encode_words_fused1(
+                words, parity_shards, L
+            )
+            _record_pass("encode_and_hash_words_digest")
+            return _AsyncHandle("digest", (parity_w, digests))
+        formulation = codec_step.codec_formulation()
         w = L // 4
         G = compmod.PARITY_GROUP_WORDS
         group = (
@@ -838,14 +886,19 @@ class TorchBackend(CodecBackend):
 
     def encode_digest_end(self, handle):
         if not isinstance(handle, _AsyncHandle) or handle.kind not in (
-            "digest-fused1", "digest-subchunk",
+            "digest", "digest-fused1", "digest-subchunk",
         ):
             return super().encode_digest_end(handle)
         if handle.consumed:
             return handle.result
         # digests are the ONLY eager readback; parity, flags and packed
         # stay device-resident behind the ref
-        if handle.kind == "digest-fused1":
+        if handle.kind == "digest":
+            parity_w, digests_d = handle.payload
+            digests = codec_step.tensor_to_words(digests_d)
+            _record_d2h("data", digests.nbytes)
+            ref = _DeviceParityRef(parity_plane_cache(), parity_w)
+        elif handle.kind == "digest-fused1":
             parity_w, digests_d, flags_d, packed_d, group = handle.payload
             digests = codec_step.tensor_to_words(digests_d)
             _record_d2h("data", digests.nbytes)
@@ -908,8 +961,13 @@ class TorchBackend(CodecBackend):
         survivors from the verified mask and re-solve just the hit
         stripes (through gf_matmul_words).  MINIO_TPU_CODEC_FORMULATION
         picks the serialized pass's product; the sub-chunk chain and the
-        re-solve stay ``swar``."""
-        codec_step.codec_kernel_mode()
+        re-solve stay ``swar``.  Under MINIO_TPU_CODEC_KERNEL=legacy the
+        base class composes the separate passes instead, whatever the
+        overlap mode: verify (K2 and a compare), then reconstruct (K3)."""
+        if codec_step.codec_kernel_mode() == "legacy":
+            return super().reconstruct_and_verify(
+                shards, digests, present, data_shards, parity_shards
+            )
         formulation = codec_step.codec_formulation()
         shards = np.ascontiguousarray(shards, dtype=np.uint8)
         pres = np.asarray(present, dtype=bool)

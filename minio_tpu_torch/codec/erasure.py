@@ -259,6 +259,7 @@ class Erasure:
         write_quorum: int,
         batch_blocks: int = DEFAULT_BATCH_BLOCKS,
         backend: "backend_mod.CodecBackend | None" = None,
+        parity_band: "iopool.ParityBand | None" = None,
         cache_ctx=None,
     ) -> int:
         """Stream from ``reader`` (has .read(n)) into framed shard writers.
@@ -269,11 +270,22 @@ class Erasure:
         erasure-encode.go:39-70).  With a ``cache_ctx`` every group's
         data rows and digest words populate the read cache before its
         shard writes go out.
+
+        With ``parity_band`` set (quorum-early commit), encode returns
+        once every DATA shard write settled and quorum holds: parity
+        writes keep draining in the background, adopted by the band, and
+        a parity failure past this return is heal-flagged through it.
+        It needs the digest-only parity plane (MINIO_TPU_PARITY_PLANE=on);
+        without it the band is dropped and encode settles inline.
         """
         be = backend or backend_mod.get_backend()
+        k = self.data_blocks
         digest_mode = _parity_plane_on() and self.parity_blocks > 0
+        if parity_band is not None and not digest_mode:
+            parity_band = None  # the eager path settles inline
         total = 0
         eof = False
+        band_adopted = False
         # quorum-aware shard fan-out: one ordered pool queue per disk,
         # flush() returns at write_quorum acks, stragglers drain in the
         # background (parallelWriter, erasure-encode.go:39-70)
@@ -328,9 +340,17 @@ class Erasure:
                 )
             # early-acked batches may still have stragglers in flight:
             # settle them and re-check the quorum over the final disk
-            # liveness picture before declaring the object durable
+            # liveness picture before declaring the object durable.  The
+            # quorum-early mode settles only the DATA slots here: the
+            # band adopts the parity stragglers, whose liveness stays
+            # optimistic until it settles
             t0 = time.monotonic()
-            for s in flusher.drain():
+            dead = (
+                flusher.drain_slots(range(k))
+                if parity_band is not None
+                else flusher.drain()
+            )
+            for s in dead:
                 if s < len(writers):
                     writers[s] = None
             stages["disk"] += time.monotonic() - t0
@@ -340,6 +360,9 @@ class Erasure:
                     raise QuorumError(
                         f"write quorum lost: {alive} < {write_quorum}"
                     )
+            if parity_band is not None:
+                parity_band.adopt(flusher)
+                band_adopted = True
             KERNEL_STATS.record_stream("encode", total)
             KERNEL_STATS.record_stages("put", stages)
             return total
@@ -350,10 +373,13 @@ class Erasure:
             for rec in pending or []:
                 rec.cleanup(be)
             # nor may background shard writes race the caller closing
-            # its writers: settle the pool before handing back
-            for s in flusher.drain():
-                if s < len(writers):
-                    writers[s] = None
+            # its writers: settle the pool before handing back, unless
+            # the band adopted the stragglers and owns the settle (that
+            # deferral is the quorum-early ack)
+            if not band_adopted:
+                for s in flusher.drain():
+                    if s < len(writers):
+                        writers[s] = None
 
     def _encode_begin_batch(self, be, blocks, stages, digest_mode=False,
                             base_block=0):
@@ -375,33 +401,41 @@ class Erasure:
                  [b])
             )
         started = []
-        for shard_len, group_block, group in groups:
-            t0 = time.monotonic()
-            batch = np.zeros((len(group), k, shard_len), dtype=np.uint8)
-            for bi, block in enumerate(group):
-                # one reshape scatters the whole block across its k
-                # shard rows (the per-shard slice loop was O(k) tiny
-                # copies per block)
-                ss = self.shard_size(len(block))
-                a = np.frombuffer(block, dtype=np.uint8)
-                rows, rem = divmod(len(a), ss)
-                if rows:
-                    batch[bi, :rows, :ss] = a[: rows * ss].reshape(
-                        rows, ss
-                    )
-                if rem:
-                    batch[bi, rows, :rem] = a[rows * ss :]
-            stages["assemble"] += time.monotonic() - t0
-            t0 = time.monotonic()
-            handle = (
-                be.encode_digest_begin(batch, m)
-                if digest_mode
-                else be.encode_begin(batch, m)
-            )
-            started.append(
-                _Begun(handle, batch, digest_mode, group_block)
-            )
-            stages[_codec_stage(be)] += time.monotonic() - t0
+        try:
+            for shard_len, group_block, group in groups:
+                t0 = time.monotonic()
+                batch = np.zeros((len(group), k, shard_len), dtype=np.uint8)
+                for bi, block in enumerate(group):
+                    # one reshape scatters the whole block across its k
+                    # shard rows (the per-shard slice loop was O(k) tiny
+                    # copies per block)
+                    ss = self.shard_size(len(block))
+                    a = np.frombuffer(block, dtype=np.uint8)
+                    rows, rem = divmod(len(a), ss)
+                    if rows:
+                        batch[bi, :rows, :ss] = a[: rows * ss].reshape(
+                            rows, ss
+                        )
+                    if rem:
+                        batch[bi, rows, :rem] = a[rows * ss :]
+                stages["assemble"] += time.monotonic() - t0
+                t0 = time.monotonic()
+                handle = (
+                    be.encode_digest_begin(batch, m)
+                    if digest_mode
+                    else be.encode_begin(batch, m)
+                )
+                started.append(
+                    _Begun(handle, batch, digest_mode, group_block)
+                )
+                stages[_codec_stage(be)] += time.monotonic() - t0
+        except BaseException:
+            # the caller never sees these handles: end them here, or a
+            # batching backend counts their client active for good and
+            # every later flush waits out the coalesce deadline
+            for rec in started:
+                rec.cleanup(be)
+            raise
         return started
 
     def _flush_batch(

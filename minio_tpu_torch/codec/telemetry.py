@@ -29,6 +29,7 @@ LAUNCHES (as opposed to codec passes) are counted by ops/kernels.py.
 
 from __future__ import annotations
 
+import os
 import threading
 import time
 
@@ -412,7 +413,13 @@ class InstrumentedBackend(CodecBackend):
 def instrument(
     backend: CodecBackend, stats: "KernelStats | None" = None
 ) -> CodecBackend:
-    """Wrap a concrete backend with kernel telemetry (idempotent)."""
+    """Wrap a concrete backend with kernel telemetry (idempotent).
+
+    MINIO_TPU_NO_INSTRUMENT=1 returns the backend bare, as in the JAX
+    package: the codec without the per-op timing and accounting wrapper
+    in the loop."""
+    if os.environ.get("MINIO_TPU_NO_INSTRUMENT") == "1":
+        return backend
     if isinstance(backend, InstrumentedBackend):
         return backend
     return InstrumentedBackend(backend, stats)

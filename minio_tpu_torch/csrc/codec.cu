@@ -1,6 +1,7 @@
 // Erasure codec kernels for Hopper (sm_90a): the PUT pass, the bitrot
 // digest, the GF(2^8) product, heal's fused verify + reconstruct, and
-// the pipelined twins of the PUT and heal passes, each behind a plain C
+// the pipelined twins of the PUT and heal passes, the legacy drain's
+// occupancy screen and pack (K12, K13), each behind a plain C
 // entry point that ops/kernels.py binds with ctypes.  Every entry
 // launches on the stream it is given, allocates nothing (the Python
 // wrapper passes outputs and zeroed accumulators) and returns
@@ -488,6 +489,46 @@ pack_kernel(const uint32_t* __restrict__ parity, const uint32_t* __restrict__ fl
     dst[slot * kTile + tid] =
         s_flag[j - start] ? src[(size_t)j * kTile + tid] : 0u;
   }
+}
+
+// --------------------------------------------------------------------------
+// K12 group_flags: replaces codec_step.group_flags (X8, which the JAX
+// package leaves to XLA), the legacy drain's occupancy screen of a parity
+// plane: flag[r][j] = 1 where words j*256 .. j*256+255 of row r hold a
+// nonzero word.  K13 pack_nonzero_groups (X9) is this launch followed by
+// pack_kernel above on its flags, behind the same entry.
+//
+// Bound: bytes - the plane read once (4 bytes a flag written on top), no
+// arithmetic to speak of.  Rows are whole groups (w % 256 == 0), so group
+// q of the flattened plane starts at word q * 256 whatever the row: the
+// kernel walks groups, not rows.  One warp a group: each lane ORs two
+// 16-byte loads (words 4*lane .. 4*lane+3 and 128 further on), so a warp
+// reads its group's 1 KiB in two fully coalesced 512-byte sweeps, and one
+// __any_sync decides the flag, which lane 0 stores.  A plane whose start
+// is not 16-byte aligned (a view at a word offset) takes 8 coalesced
+// 4-byte loads a lane instead.  No shared memory and no barrier, so
+// 8 warps a block and as many blocks as groups / 8 keep every SM's loads
+// in flight.
+template <bool kVec>
+__global__ void __launch_bounds__(kThreads)
+group_flags_kernel(const uint32_t* __restrict__ words, uint32_t* __restrict__ flags,
+                   long long groups) {
+  const long long q = (long long)blockIdx.x * (kThreads / 32) + (threadIdx.x >> 5);
+  if (q >= groups) return;  // uniform per warp
+  const int lane = threadIdx.x & 31;
+  const uint32_t* g = words + q * kTile;
+  uint32_t v;
+  if (kVec) {
+    const uint4 a = __ldg(reinterpret_cast<const uint4*>(g) + lane);
+    const uint4 b = __ldg(reinterpret_cast<const uint4*>(g) + 32 + lane);
+    v = a.x | a.y | a.z | a.w | b.x | b.y | b.z | b.w;
+  } else {
+    v = 0u;
+#pragma unroll
+    for (int i = 0; i < kTile / 32; ++i) v |= __ldg(g + i * 32 + lane);
+  }
+  const bool any = __any_sync(0xffffffffu, v != 0u);
+  if (lane == 0) flags[q] = any ? 1u : 0u;
 }
 
 // --------------------------------------------------------------------------
@@ -2500,6 +2541,33 @@ int mtt_gf_matmul_mxu(const MxuArgs* a) {
   MTT_K7(16, 4) MTT_K7(16, 8) MTT_K7(16, 16)
 #undef MTT_K7
   return (int)err;
+}
+
+// K12: words (rows, w), w % 256 == 0 -> flags (rows, w / 256) 0/1; with a
+// non-null `packed` (K13) also the full-row prefix pack (rows, w) of
+// pack_kernel on those flags.  Any rows, any 4-byte aligned start.
+int mtt_group_flags(int device, const uint32_t* words, uint32_t* flags,
+                    uint32_t* packed, long long rows, int w, void* stream) {
+  if (rows <= 0 || rows > 0x7fffffffLL || w <= 0 || w % kTile != 0)
+    return (int)cudaErrorInvalidValue;
+  const int g = w / kTile;
+  const long long groups = rows * g;
+  const long long blocks = (groups + kThreads / 32 - 1) / (kThreads / 32);
+  const int pack_y = (g + kGroupsPerBlock - 1) / kGroupsPerBlock;
+  if (blocks > 0x7fffffffLL || (packed != nullptr && pack_y > 65535))
+    return (int)cudaErrorInvalidValue;
+  cudaError_t err = cudaSetDevice(device);
+  if (err != cudaSuccess) return (int)err;
+  cudaStream_t st = reinterpret_cast<cudaStream_t>(stream);
+  if ((reinterpret_cast<uintptr_t>(words) & 15u) == 0)
+    group_flags_kernel<true><<<(unsigned)blocks, kThreads, 0, st>>>(words, flags, groups);
+  else
+    group_flags_kernel<false><<<(unsigned)blocks, kThreads, 0, st>>>(words, flags, groups);
+  err = cudaGetLastError();
+  if (err != cudaSuccess || packed == nullptr) return (int)err;
+  dim3 pgrid((unsigned)rows, pack_y);
+  pack_kernel<<<pgrid, kThreads, 0, st>>>(words, flags, packed, w, g);
+  return (int)cudaGetLastError();
 }
 
 // The constants ops/kernels.py shares with this file, as "name=v[,v...]"

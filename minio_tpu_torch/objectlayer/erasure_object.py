@@ -18,9 +18,10 @@ transparent compression (codec/compress.py) and server-side encryption
 the codec: stored = encrypt(compress(plaintext)), and the tiered read
 cache (cache/) under GET, populated by PUT and by GET misses and
 dropped on every mutation, with its FileInfo side-car and the device
-tier's scan plane for S3 Select (``device_scan_source``).  The early
-parity ack raises NotImplementedError naming the slice that ports it,
-instead of being silently skipped.
+tier's scan plane for S3 Select (``device_scan_source``).  Under
+MINIO_TPU_PARITY_ACK=early a PUT acks at data-shard write quorum and a
+background ParityBand (parallel/iopool.py) settles the parity writes,
+closes and renames, heal-flagging whatever fails past the ack.
 """
 
 from __future__ import annotations
@@ -63,7 +64,6 @@ from .api import (
     WriteQuorumError,
     check_bucket_name,
     check_object_name,
-    unported as _unported,
 )
 from .erasure_multipart import MultipartMixin
 from .metadata import (
@@ -79,14 +79,16 @@ SYS_VOL = ".sys"
 _log = logger("objectlayer")
 
 
-def _check_parity_ack() -> None:
-    """MINIO_TPU_PARITY_ACK: only ``settle`` (the default) is ported - a
-    PUT returns after every shard, parity included, is written, closed
-    and renamed.  ``early`` (ack at data-shard quorum, parity settled in
-    the background ParityBand and heal-flagged on failure) comes with
-    the legacy pass structure in slice 11."""
-    if os.environ.get("MINIO_TPU_PARITY_ACK", "settle").lower() == "early":
-        raise _unported("MINIO_TPU_PARITY_ACK=early", 11)
+def _parity_ack_mode() -> str:
+    """MINIO_TPU_PARITY_ACK = settle|early (default settle; any other
+    value resolves to settle).
+
+    settle: a PUT returns only after every shard, parity included, is
+    written, closed and renamed.  early: a PUT acks at DATA-shard write
+    quorum; parity writes, closes and renames drain in a background
+    ParityBand whose failures are heal-flagged through the MRF hook."""
+    v = os.environ.get("MINIO_TPU_PARITY_ACK", "settle").lower()
+    return v if v in ("settle", "early") else "settle"
 
 
 class ErasureObjects(MultipartMixin, ObjectLayer):
@@ -247,7 +249,6 @@ class ErasureObjects(MultipartMixin, ObjectLayer):
         self, bucket, object_name, reader, size=-1, metadata=None,
         versioned=False, compress=None, sse=None,
     ) -> ObjectInfo:
-        _check_parity_ack()
         check_object_name(object_name)
         self._require_bucket(bucket)
         with self.nslock.write(bucket, object_name):
@@ -323,10 +324,18 @@ class ErasureObjects(MultipartMixin, ObjectLayer):
             except Exception:  # noqa: BLE001 - the disk misses this write
                 writers.append(None)
 
+        # quorum-early commit: the band adopts the parity stragglers when
+        # encode returns, then carries the parity closes and renames past
+        # the ack
+        band = (
+            iopool.ParityBand()
+            if _parity_ack_mode() == "early" and m > 0
+            else None
+        )
         try:
             total = er.encode(
                 src, writers, self.write_quorum, backend=self.backend,
-                cache_ctx=rctx,
+                parity_band=band, cache_ctx=rctx,
             )
         except QuorumError as e:
             self._invalidate_read_cache(bucket, object_name)
@@ -339,10 +348,20 @@ class ErasureObjects(MultipartMixin, ObjectLayer):
                         _log.debug("shard writer close failed", extra=kv(err=str(exc)))
             self._cleanup_tmp(disks, tmp_ids)
             raise WriteQuorumError(str(e)) from e
+        if band is not None and not band.adopted:
+            band = None  # encode settled inline (no digest-only plane)
         # close (flush + fsync) shard files concurrently, one job per
-        # disk queue: the commit pays the slowest disk's fsync
+        # disk queue: the commit pays the slowest disk's fsync.  Early
+        # mode closes only the DATA shards here; the parity closes ride
+        # the band, ordered after that disk's writes by its queue
+        if band is not None:
+            for s, w in enumerate(writers):
+                if s >= k and w is not None:
+                    band.submit(s, iopool.stream_io_key(w), w.close)
         for err in iopool.fanout(
-            [(iopool.stream_io_key(w), w.close) for w in writers if w is not None]
+            [(iopool.stream_io_key(w), w.close)
+             for s, w in enumerate(writers)
+             if w is not None and (band is None or s < k)]
         ):
             if err is not None and not isinstance(err, OSError):
                 raise err
@@ -365,7 +384,10 @@ class ErasureObjects(MultipartMixin, ObjectLayer):
         )
 
         # rename_data commits the version journal with its own fsync per
-        # disk: fan the commits out on the disk queues
+        # disk: fan the commits out on the disk queues.  Early mode renames
+        # only the data shards before it acks; the parity renames ride the
+        # band (the key of that disk's close, so the order holds) and
+        # their slot errors stay optimistically None until it settles
         rename_ops = []
         errs: list = [None] * len(disks)
         for i, d in enumerate(disks):
@@ -392,6 +414,9 @@ class ErasureObjects(MultipartMixin, ObjectLayer):
             fn = lambda d=d, fi=fi, tmp=tmp_ids[i]: d.rename_data(  # noqa: E731
                 SYS_VOL, f"tmp/{tmp}", fi, bucket, object_name
             )
+            if band is not None and i >= k:
+                band.submit(i, iopool.stream_io_key(writers[i]), fn)
+                continue
             rename_ops.append((i, iopool.disk_io_key(d) or f"disk-{i}", fn))
         for (i, _k, _f), err in zip(
             rename_ops,
@@ -410,6 +435,22 @@ class ErasureObjects(MultipartMixin, ObjectLayer):
                 self.heal_hook(bucket, object_name)
             except Exception as exc:  # noqa: BLE001 - never fail the PUT
                 _log.debug("partial-write heal hook failed", extra=kv(err=str(exc)))
+        if band is not None:
+            # settle the parity plane in the background; whatever fails
+            # past this ack is heal-flagged through the MRF hook
+            hook = self.heal_hook
+
+            def _on_settled(b, _bucket=bucket, _obj=object_name):
+                if b.heal_required and hook is not None:
+                    try:
+                        hook(_bucket, _obj)
+                    except Exception as exc:  # noqa: BLE001 - never fail the settle
+                        _log.debug(
+                            "parity settle heal hook failed",
+                            extra=kv(err=str(exc)),
+                        )
+
+            band.finish(on_done=_on_settled)
         # overwrite cleanup: drop the replaced data dir (best effort)
         if old_data_dir and old_data_dir != data_dir:
             for d in disks:

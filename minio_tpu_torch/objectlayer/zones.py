@@ -20,6 +20,7 @@ from . import api
 from .api import ListObjectsInfo, ObjectLayer
 from .sets import ErasureSets, merge_list_results
 from ..crawler.updatetracker import object_path_updated
+from ..parallel.fanout import Fanout, run_all
 
 from ..utils.log import kv, logger
 
@@ -33,6 +34,8 @@ _DISK_FILL_FRACTION = 0.95
 # stat every disk (the reference reads cached StorageUsageInfo from
 # the crawler rather than statting per call).
 _USAGE_TTL_S = 10.0
+# The workers of _put_zone_index's existence probes, one process-wide set.
+_PROBES = Fanout("zone-probe")
 
 
 class ErasureZones(ObjectLayer):
@@ -108,33 +111,26 @@ class ErasureZones(ObjectLayer):
         key, so placement is reproducible and testable."""
         if len(self.zones) == 1:
             return 0
-        # probe every zone CONCURRENTLY: the existence check is on
-        # the write path, so its wall cost must be one zone's RTT,
-        # not the sum (r4 review: the serial walk was O(zones)
-        # remote calls per new-object PUT)
+        # probe every zone CONCURRENTLY: the existence check is on the
+        # write path, so its wall cost must be one zone's RTT, not the
+        # sum.  The probes run on persistent workers (zone 0's on this
+        # thread) and every one is joined before the answer: no thread
+        # is started per PUT, and none outlives the call
         hits = [False] * len(self.zones)
 
         def probe(i, z):
-            try:
-                z.get_object_info(bucket, object_name)
-                hits[i] = True
-            except Exception as exc:
-                _log.debug("zone object probe failed", extra=kv(err=str(exc)))
+            def run():
+                try:
+                    z.get_object_info(bucket, object_name)
+                    hits[i] = True
+                except Exception as exc:  # noqa: BLE001 - a miss
+                    _log.debug("zone object probe failed", extra=kv(err=str(exc)))
+            return run
 
-        threads = [
-            threading.Thread(
-                target=probe, args=(i, z), daemon=True
-            )
-            for i, z in enumerate(self.zones)
-        ]
-        for t in threads:
-            t.start()
-        # join in index order and return at the first hit: an early
-        # zone that owns the object answers without waiting for a
-        # slow/hung later zone (the serial walk's fast path, kept)
-        for i, t in enumerate(threads):
-            t.join()
-            if hits[i]:  # lowest index wins, like the serial walk
+        run_all([(None if i == 0 else _PROBES, probe(i, z))
+                 for i, z in enumerate(self.zones)])
+        for i, hit in enumerate(hits):
+            if hit:  # lowest index wins, like the serial walk
                 return i
         avail = self._available_space(size)
         total = sum(avail)

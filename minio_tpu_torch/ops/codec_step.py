@@ -19,7 +19,10 @@ wrappers of ops/kernels.py: the hand-written CUDA kernel on the card,
 the plain PyTorch version on the CPU.  MINIO_TPU_CODEC_OVERLAP picks the
 kernel of the PUT and heal passes, or splits them into sub-chunks
 (codec_overlap_mode); MINIO_TPU_CODEC_FORMULATION picks the GF(2^8)
-product inside those two passes (codec_formulation).
+product inside those two passes (codec_formulation);
+MINIO_TPU_CODEC_KERNEL=legacy replaces both with the pre-fusion passes
+(codec_kernel_mode: the PUT pass without the pack leg, then group_flags
+and pack_nonzero_groups at drain).
 """
 
 from __future__ import annotations
@@ -66,14 +69,16 @@ def tensor_to_words(t: torch.Tensor) -> np.ndarray:
 
 
 def codec_kernel_mode() -> str:
-    """MINIO_TPU_CODEC_KERNEL: only ``fused1`` (the default) is ported."""
+    """MINIO_TPU_CODEC_KERNEL: ``fused1`` (default) or ``legacy``.
+
+    ``legacy`` is the bisection oracle: the exact pre-fusion pass
+    structure (the digest encode pass, then group_flags and
+    pack_nonzero_groups at drain; verify, then reconstruct on heal) with
+    byte-identical outputs, whatever the overlap mode or formulation.
+    Flip it to attribute a regression to the fused kernels or to
+    everything around them.  Unknown values resolve to ``fused1``."""
     v = os.environ.get("MINIO_TPU_CODEC_KERNEL", "fused1").strip().lower()
-    if v == "legacy":
-        raise NotImplementedError(
-            "MINIO_TPU_CODEC_KERNEL=legacy (the three-pass encode with "
-            "group_flags/pack_nonzero_groups at drain) is ported in slice 11"
-        )
-    return "fused1"
+    return v if v in ("fused1", "legacy") else "fused1"
 
 
 def codec_formulation() -> str:
@@ -150,6 +155,25 @@ def encode_words_fused1(
         words, parity_shards, shard_len, group, formulation
     )
     return parity, digests, flags != 0, packed
+
+
+def group_flags(words: torch.Tensor, group: int) -> torch.Tensor:
+    """Per-group nonzero flags: (..., w) int32 -> (..., w // group) int32
+    0/1 (the JAX package's bool as 0/1, the convention of K1's flags).
+
+    The legacy drain's compressibility screen: reading the flags costs
+    one word per ``group`` words, and mostly-zero flags mean
+    pack_nonzero_groups can shrink the parity D2H."""
+    return kernels.group_flags(words, group)
+
+
+def pack_nonzero_groups(words: torch.Tensor, group: int):
+    """The legacy drain's pack pass: (..., w) int32 -> (flags (..., g)
+    int32 0/1, packed (..., w) int32), g = w // group.  Within each row
+    the nonzero groups keep their relative order at the front and zero
+    groups follow, so the host pulls ``flags`` plus the first kept groups
+    and scatters them back (codec/compress.py unpack_nonzero_groups)."""
+    return kernels.pack_nonzero_groups(words, group)
 
 
 def reconstruct_words_batch(

@@ -1,6 +1,6 @@
 """The codec's CUDA kernels: build, binding, and the dispatching wrappers.
 
-Seven kernels, all in ``csrc/codec.cu`` (CUDA C++ for ``sm_90a``):
+Nine kernels, all in ``csrc/codec.cu`` (CUDA C++ for ``sm_90a``):
 
 * ``encode_pack`` (K1) replaces ``rs_pallas.encode_pack_fused`` (P4):
   parity + phash256 partials of all n rows + per-256-word occupancy
@@ -49,6 +49,13 @@ Seven kernels, all in ``csrc/codec.cu`` (CUDA C++ for ``sm_90a``):
   (``k7_fragments``), on a persistent grid (``k7_grid``) fed by a
   producer warp's bulk copies into a shared-memory ring; the operand is
   made once per matrix (``_k7_operand``), the grid once per shape.
+* ``group_flags`` (K12) and ``pack_nonzero_groups`` (K13) are the GPU
+  bodies of ``codec_step.group_flags`` and ``codec_step.pack_nonzero_groups``
+  (X8, X9, left to XLA by the JAX package): the legacy drain's occupancy
+  screen of a parity plane (one flag per 256-word group) and its
+  nonzero-group prefix pack, as separate passes where K1's pack leg
+  computes them inside the encode.  Both go through one entry: K12's
+  flag kernel, then, for K13, K1's pack launch on those flags.
 
 ``formulation="mxu"`` (MINIO_TPU_CODEC_FORMULATION) on K1, K4, K5 and K6
 swaps their xtime chain for the same tensor-core product (the ``mxu``
@@ -135,6 +142,7 @@ LAUNCHES = {
     "verify_reconstruct_pipelined": 0, "gf_matmul_mxu": 0,
     "encode_pack[mxu]": 0, "verify_reconstruct[mxu]": 0,
     "encode_pack_pipelined[mxu]": 0, "verify_reconstruct_pipelined[mxu]": 0,
+    "group_flags": 0, "pack_nonzero_groups": 0,
     # S3 Select's kernels (ops/select_step.py, csrc/select.cu)
     "select_screen": 0, "select_positions": 0, "select_spans[row]": 0,
     "select_spans[back]": 0, "select_gather": 0,
@@ -260,11 +268,12 @@ def _load():
                 I, P, P, P, I, I, I, I, U, U, I, P, I, I, P, P,
             ]
             lib.mtt_gf_matmul_mxu.argtypes = [ctypes.c_char_p]
+            lib.mtt_group_flags.argtypes = [I, P, P, P, ctypes.c_int64, I, P]
             for fn in (lib.mtt_encode_pack, lib.mtt_encode_pack_pipelined,
                        lib.mtt_phash256, lib.mtt_gf_matmul,
                        lib.mtt_verify_reconstruct,
                        lib.mtt_verify_reconstruct_pipelined,
-                       lib.mtt_gf_matmul_mxu):
+                       lib.mtt_gf_matmul_mxu, lib.mtt_group_flags):
                 fn.restype = ctypes.c_int
             lib.mtt_constants.restype = ctypes.c_char_p
             _check_constants(lib.mtt_constants().decode())
@@ -655,22 +664,22 @@ def _mxu_operand(matrix: np.ndarray, device: torch.device) -> torch.Tensor:
 
 
 def _flags_and_pack(parity: torch.Tensor, group: int):
-    """Plain occupancy flags (B, m, w // group) int32 and the full-row
-    prefix pack of a parity plane: nonzero groups first, in order, then
-    zeros."""
-    B, m, w = parity.shape
+    """Plain occupancy flags (..., w // group) int32 and the full-row
+    prefix pack of a parity plane (..., w): nonzero groups first, in
+    order, then zeros."""
+    *lead, w = parity.shape
     if not group:
-        empty = torch.zeros((B, m, 0), dtype=torch.int32, device=parity.device)
+        empty = torch.zeros((*lead, 0), dtype=torch.int32, device=parity.device)
         return empty, parity
     g = w // group
-    grouped = parity.reshape(B, m, g, group)
+    grouped = parity.reshape(*lead, g, group)
     flags = (grouped != 0).any(dim=-1)
     idx = torch.arange(g, dtype=torch.int64, device=parity.device)
     key = torch.where(flags, 0, g) + idx  # unique keys: nonzero groups first
     order = torch.argsort(key, dim=-1)
     packed = torch.take_along_dim(
-        grouped, order[..., None].expand(B, m, g, group), dim=-2
-    ).reshape(B, m, w)
+        grouped, order[..., None].expand(*lead, g, group), dim=-2
+    ).reshape(*lead, w)
     return flags.to(torch.int32), packed
 
 
@@ -850,6 +859,82 @@ def encode_pack_subchunk(chunk: torch.Tensor, acc: torch.Tensor,
     )
     _count("encode_pack[subchunk]")
     return parity, acc, flags, packed
+
+
+# ---------------------------------------------------------------------------
+# K12 group_flags, K13 pack_nonzero_groups (the legacy drain's passes)
+# ---------------------------------------------------------------------------
+
+
+def group_flags_plain(words: torch.Tensor, group: int) -> torch.Tensor:
+    """Plain version of group_flags (any device)."""
+    *lead, w = words.shape
+    grouped = words.reshape(*lead, w // group, group)
+    return (grouped != 0).any(dim=-1).to(torch.int32)
+
+
+def pack_nonzero_groups_plain(words: torch.Tensor, group: int):
+    """Plain version of pack_nonzero_groups (any device): K1's pack leg's
+    function on a plane of its own."""
+    return _flags_and_pack(words, group)
+
+
+def _check_groups(words: torch.Tensor, group: int, name: str) -> None:
+    if words.dim() < 1 or group <= 0 or words.shape[-1] % group:
+        raise ValueError(f"{name}: the last dim must be a multiple of group {group}")
+
+
+def _launch_group_flags(words: torch.Tensor, group: int, name: str, pack: bool):
+    """K12 (and with ``pack`` K1's pack launch on its flags) on checked
+    CUDA words: (flags, packed or None)."""
+    if words.dtype != torch.int32:
+        raise TypeError(f"{name}: expected torch.int32, got {words.dtype}")
+    if not words.is_contiguous():
+        raise ValueError(f"{name}: expected a contiguous tensor")
+    if group != TILE:
+        raise ValueError(f"{name}: the kernel takes group {TILE}, got {group}")
+    *lead, w = words.shape
+    rows = words.numel() // w if w else 0
+    dev = words.device
+    flags = torch.empty((*lead, w // group), dtype=torch.int32, device=dev)
+    packed = torch.empty_like(words) if pack else None
+    if rows:
+        rc = _load().mtt_group_flags(
+            dev.index, words.data_ptr(), flags.data_ptr(),
+            packed.data_ptr() if pack else None, rows, w, _stream(words),
+        )
+        _check_rc(rc, name)
+    return flags, packed
+
+
+def group_flags(words: torch.Tensor, group: int = TILE) -> torch.Tensor:
+    """(..., w) int32 words -> (..., w // group) int32 flags, 1 where the
+    group of ``group`` words holds a nonzero word.  On the card: one K12
+    launch (group must be 256); any rows, any 4-byte aligned start."""
+    _check_groups(words, group, "group_flags")
+    if words.device.type == "cpu":
+        return group_flags_plain(words, group)
+    if words.device.type != "cuda":
+        raise ValueError(f"group_flags: expected a CUDA tensor, got {words.device}")
+    flags, _packed = _launch_group_flags(words, group, "group_flags", False)
+    _count("group_flags")
+    return flags
+
+
+def pack_nonzero_groups(words: torch.Tensor, group: int = TILE):
+    """(..., w) int32 words -> (flags (..., g) int32 0/1, packed (..., w)
+    int32): each row's nonzero groups moved to the front in order, zeros
+    behind them.  On the card: K12's flag launch, then K1's pack launch
+    on those flags (group must be 256)."""
+    _check_groups(words, group, "pack_nonzero_groups")
+    if words.device.type == "cpu":
+        return pack_nonzero_groups_plain(words, group)
+    if words.device.type != "cuda":
+        raise ValueError(
+            f"pack_nonzero_groups: expected a CUDA tensor, got {words.device}")
+    flags, packed = _launch_group_flags(words, group, "pack_nonzero_groups", True)
+    _count("pack_nonzero_groups")
+    return flags, packed
 
 
 # ---------------------------------------------------------------------------

@@ -16,6 +16,10 @@ analogue here is a process-wide pool of ORDERED worker queues:
   as soon as ``quorum`` disks acked the batch, stragglers keep draining
   in the background, and failed disks are reported so the caller can
   mark ``writers[s] = None`` exactly like the sequential path did.
+* ``ParityBand`` carries a quorum-early PUT's parity work past its ack
+  (MINIO_TPU_PARITY_ACK=early): the flusher's straggling parity writes,
+  then each parity disk's close and rename, settled on the aux band, and
+  whatever fails there heal-flagged.
 
 Worker threads are lazy, daemonized, and named ``iopool-<n>`` (the
 leakcheck fixture allowlists the prefix: the global pool is a
@@ -315,11 +319,21 @@ class ShardFlusher:
         self._cur_pending: "dict[int, int]" = {}
         self._cur_failed: "set[int]" = set()
         self._gen_pending: "dict[int, int]" = {}
+        self._slot_pending: "dict[int, int]" = {}
         self._dead: "set[int]" = set()
         self._reported: "set[int]" = set()
+        self._acked_gens: "set[int]" = set()
         self.submitted = 0
+        # Invoked (outside the flusher lock) as on_late_dead(slot, err)
+        # when a job fails AFTER its batch already returned from flush(),
+        # past the quorum ack, where nobody is left waiting to see the
+        # error.  The quorum-early commit path points this at
+        # ParityBand.flag_heal, so a parity straggler dying behind an
+        # acked PUT is heal-flagged, never silent.
+        self.on_late_dead = None
 
     def _on_done(self, gen: int, slot: int, fut: IOFuture) -> None:
+        late_cb = None
         with self._cv:
             self._pending_total -= 1
             left = self._gen_pending.get(gen, 1) - 1
@@ -327,17 +341,29 @@ class ShardFlusher:
                 self._gen_pending.pop(gen, None)
             else:
                 self._gen_pending[gen] = left
+            sleft = self._slot_pending.get(slot, 1) - 1
+            if sleft <= 0:
+                self._slot_pending.pop(slot, None)
+            else:
+                self._slot_pending[slot] = sleft
             if fut.error is not None:
                 self._dead.add(slot)
                 _log.warning(
                     "shard writer failed; disk marked dead",
                     extra=kv(slot=slot, err=str(fut.error)),
                 )
+                if gen in self._acked_gens:
+                    late_cb = self.on_late_dead
             if gen == self._cur_gen:
                 self._cur_pending[slot] = self._cur_pending.get(slot, 1) - 1
                 if fut.error is not None:
                     self._cur_failed.add(slot)
             self._cv.notify_all()
+        if late_cb is not None:
+            try:
+                late_cb(slot, fut.error)
+            except Exception as exc:  # observer bugs must not kill workers
+                _log.warning("late-dead callback failed", extra=kv(err=str(exc)))
 
     def _take_dead_locked(self) -> "set[int]":
         new = self._dead - self._reported
@@ -367,6 +393,8 @@ class ShardFlusher:
             for s, _k, _f, _n in jobs:
                 self._cur_pending[s] = self._cur_pending.get(s, 0) + 1
             self._gen_pending[gen] = len(jobs)
+            for s, _k, _f, _n in jobs:
+                self._slot_pending[s] = self._slot_pending.get(s, 0) + 1
             self._pending_total += len(jobs)
             self.submitted += len(jobs)
         for slot, key, fn, nbytes in jobs:
@@ -383,11 +411,13 @@ class ShardFlusher:
                     and s not in self._cur_failed
                 )
                 if acked >= quorum:
+                    self._acked_gens.add(gen)
                     return self._take_dead_locked()
                 possible = len(slots) - len(self._cur_failed)
                 if possible < quorum:
                     # dead slots stay un-reported: the caller's error
                     # path drain() still gets to mark its writers
+                    self._acked_gens.add(gen)
                     raise self._quorum_exc(
                         f"write quorum lost: {possible} < {quorum}"
                     )
@@ -399,6 +429,118 @@ class ShardFlusher:
             while self._pending_total > 0:
                 self._cv.wait()
             return self._take_dead_locked()
+
+    def drain_slots(self, slots) -> "set[int]":
+        """Wait until every outstanding job of ``slots`` (all batches)
+        finished; return the newly-dead subset of ``slots``.
+
+        The quorum-early commit path drains ONLY the data slots before
+        it acks: parity slots keep streaming in the background and the
+        ParityBand settles them afterwards."""
+        want = set(slots)
+        with self._cv:
+            while any(self._slot_pending.get(s, 0) > 0 for s in want):
+                self._cv.wait()
+            new = (self._dead - self._reported) & want
+            self._reported |= new
+            return new
+
+
+class ParityBand:
+    """Background drain band of the quorum-early parity plane
+    (MINIO_TPU_PARITY_ACK=early).
+
+    The commit path acks a PUT at data-shard write quorum and hands the
+    still-pending parity work to this band: the straggling parity writes
+    adopted from the ShardFlusher, plus the parity close and rename jobs
+    submitted here.  Whatever fails PAST the ack is heal-flagged: logged,
+    counted (miniotpu_codec_stream_heal_required_total) and surfaced
+    through ``heal_required`` / ``dead_slots`` to the object layer's heal
+    hook, never silent.  ``finish`` parks the settle on the pool's aux
+    band so the request thread returns at the ack.
+    """
+
+    def __init__(self, pool: "IOPool | None" = None):
+        self._pool = pool or get_pool()
+        self._lk = threading.Lock()
+        self._futs: "list[tuple[int, IOFuture]]" = []
+        self._flusher: "ShardFlusher | None" = None
+        self._flagged: "set[int]" = set()
+        self.heal_required = False
+        self.dead_slots: "set[int]" = set()
+
+    def submit(self, slot: int, key, fn) -> IOFuture:
+        """A post-ack job (parity close or rename) on the MAIN band under
+        the disk's own routing key: the queue orders it after that disk's
+        writes, so each disk keeps write, then close, then rename."""
+        fut = self._pool.submit(key, fn)
+        with self._lk:
+            self._futs.append((slot, fut))
+        return fut
+
+    def adopt(self, flusher: ShardFlusher) -> None:
+        """Take over a flusher's straggling parity jobs: a late death
+        flags heal at once, settle() awaits the rest."""
+        with self._lk:
+            self._flusher = flusher
+        flusher.on_late_dead = self.flag_heal
+
+    @property
+    def adopted(self) -> bool:
+        """True once encode handed its flusher over, i.e. the encode ran
+        quorum-early (False: it settled inline and the band owns
+        nothing)."""
+        with self._lk:
+            return self._flusher is not None
+
+    def flag_heal(self, slot: int, err) -> None:
+        """Once per slot (the late-dead callback and the settle-time
+        drain can both report one)."""
+        with self._lk:
+            if slot in self._flagged:
+                return
+            self._flagged.add(slot)
+            self.heal_required = True
+            self.dead_slots.add(slot)
+        _log.warning(
+            "parity drain failed past ack; object flagged for heal",
+            extra=kv(slot=slot, err=str(err)),
+        )
+        try:
+            _kernel_stats().record_heal_required()
+        except Exception as exc:  # telemetry must never block settle
+            _log.warning("heal stats failed", extra=kv(err=str(exc)))
+
+    def settle(self) -> bool:
+        """Wait for every adopted and submitted job; True when all were
+        clean."""
+        with self._lk:
+            futs = list(self._futs)
+            flusher = self._flusher
+        if flusher is not None:
+            for s in flusher.drain():
+                self.flag_heal(s, "parity straggler write failed")
+        for slot, fut in futs:
+            fut.wait()
+            if fut.error is not None:
+                self.flag_heal(slot, fut.error)
+        return not self.heal_required
+
+    def finish(self, on_done=None) -> IOFuture:
+        """Settle in the background, then call ``on_done(band)``; returns
+        the settle's future.  The settle waits on main-band futures, so it
+        runs on the aux band; a pool of one queue has no aux band and
+        routes it by key onto its one queue, behind the jobs it waits on
+        (as the JAX package does)."""
+
+        def _settle():
+            clean = self.settle()
+            if on_done is not None:
+                on_done(self)
+            return clean
+
+        return self._pool.submit(("parityband", id(self)), _settle, aux=True)
+
 
 # -- telemetry seam (lazy: avoid import cycles, tolerate bare installs) ---
 

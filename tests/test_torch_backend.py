@@ -7,6 +7,8 @@ devices, which would otherwise take the mesh path).  Digests, drained
 parity bytes, reconstructed rows and verify masks must be bit-identical.
 """
 
+import io
+
 import numpy as np
 import pytest
 
@@ -220,3 +222,73 @@ def test_batcher_counts_cross_request_flushes(backends, clients):
         assert batch["multi_client_flushes"] == (clients > 1)
     finally:
         be.shutdown()
+
+
+class _MemShard:
+    def __init__(self):
+        self.buf = bytearray()
+
+    def write(self, b):
+        self.buf += b
+
+
+def test_failed_encode_begin_ends_the_begun_handles(backends):
+    """A batch of a full block and a short tail begins two handles; when
+    the second begin raises, the first is ended before the error leaves
+    encode, so the batcher counts no client active afterwards and the
+    next PUT's flush waits for nobody."""
+    from minio_tpu_torch.codec.batcher import BatchingBackend
+    from minio_tpu_torch.codec.erasure import Erasure
+
+    _jax_be, port_be = backends
+    batcher = BatchingBackend(port_be, deadline_s=5.0)
+
+    class SecondBeginFails:
+        """The batcher, with its second encode_digest_begin raising."""
+
+        begins = 0
+
+        def __getattr__(self, name):
+            return getattr(batcher, name)
+
+        def encode_digest_begin(self, data, m):
+            self.begins += 1
+            if self.begins == 2:
+                raise RuntimeError("injected begin failure")
+            return batcher.encode_digest_begin(data, m)
+
+    be = SecondBeginFails()
+    payload = np.random.default_rng(3).bytes(2048 + 100)
+    try:
+        with pytest.raises(RuntimeError, match="injected"):
+            Erasure(4, 2, 2048).encode(
+                io.BytesIO(payload), [_MemShard() for _ in range(6)], 5,
+                backend=be)
+        assert batcher._active == {}
+        shards = [_MemShard() for _ in range(6)]
+        assert Erasure(4, 2, 2048).encode(
+            io.BytesIO(payload), shards, 5, backend=be) == len(payload)
+        assert be.begins == 4 and batcher._active == {}
+    finally:
+        batcher.shutdown()
+
+
+@pytest.mark.parametrize("knob", [None, "1"])
+def test_no_instrument_knob_in_both_packages(backends, monkeypatch, knob):
+    """MINIO_TPU_NO_INSTRUMENT=1 returns the backend bare in both
+    packages; unset, both wrap it."""
+    from minio_tpu.codec import telemetry as jtel
+    from minio_tpu_torch.codec import telemetry as ttel
+
+    if knob is None:
+        monkeypatch.delenv("MINIO_TPU_NO_INSTRUMENT", raising=False)
+    else:
+        monkeypatch.setenv("MINIO_TPU_NO_INSTRUMENT", knob)
+    jax_be, port_be = backends
+    got = (jtel.instrument(jax_be), ttel.instrument(port_be))
+    if knob:
+        assert got == (jax_be, port_be)
+    else:
+        assert isinstance(got[0], jtel.InstrumentedBackend)
+        assert isinstance(got[1], ttel.InstrumentedBackend)
+        assert got[1].inner is port_be

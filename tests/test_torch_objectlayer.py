@@ -204,8 +204,9 @@ def test_overwrite_and_delete(tmp_path):
 
 
 def test_unported_features_raise(sets, tmp_path, monkeypatch):
-    """Compression and SSE (slice 8) are served as the JAX package serves
-    them; early parity ack still names its slice."""
+    """Compression and SSE (slice 8) and the early parity ack (slice 11)
+    are served as the JAX package serves them (the name is kept from
+    when they raised)."""
     port, ref, troots, jroots = sets
     data = b"x" * 8192
     port.put_object("bkt", "z", io.BytesIO(data), 8192, compress=True)
@@ -241,9 +242,11 @@ def test_unported_features_raise(sets, tmp_path, monkeypatch):
     shutil.rmtree(f"{troots[d]}/bkt/block")
     assert port.heal_object("bkt", "block")["healed"] == [shard]
     assert _part(troots[d], "block") == before
+    # the early parity ack is served: the PUT acks at data-shard quorum
+    # and reads back; its band settles the parity shards behind the ack
     monkeypatch.setenv("MINIO_TPU_PARITY_ACK", "early")
-    with pytest.raises(NotImplementedError, match="slice 11"):
-        port.put_object("bkt", "z", io.BytesIO(b"x"), 1)
+    port.put_object("bkt", "z", io.BytesIO(b"x"), 1)
+    assert _get(port, "z") == b"x"
     monkeypatch.delenv("MINIO_TPU_PARITY_ACK")
     # an object the JAX package stored compressed is read, not refused
     jroots2 = [str(tmp_path / f"c{i}") for i in range(N)]

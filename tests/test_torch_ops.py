@@ -291,13 +291,16 @@ def test_cpu_wrappers_run_plain_and_count_nothing():
     kernels.encode_pack(words, 4, 2048, 256, formulation="mxu")
     kernels.verify_reconstruct_pipelined(words, (True,) * 8, 6, 2048, "mxu")
     kernels.gf_matmul_mxu(tgf.parity_matrix(8, 4), torch.zeros((8, 9), dtype=torch.uint8))
+    kernels.group_flags(words, 256)
+    kernels.pack_nonzero_groups(words, 256)
     assert set(kernels.LAUNCHES) == {
         "encode_pack", "encode_pack[group=0]", "encode_pack[subchunk]",
         "phash256_batched", "gf_matmul_words", "verify_reconstruct",
         "verify_reconstruct[subchunk]", "encode_pack_pipelined",
         "verify_reconstruct_pipelined", "gf_matmul_mxu", "encode_pack[mxu]",
         "verify_reconstruct[mxu]", "encode_pack_pipelined[mxu]",
-        "verify_reconstruct_pipelined[mxu]", "select_screen",
+        "verify_reconstruct_pipelined[mxu]", "group_flags",
+        "pack_nonzero_groups", "select_screen",
         "select_positions", "select_spans[row]", "select_spans[back]",
         "select_gather",
     }
@@ -390,15 +393,15 @@ def test_library_builds_one_nvcc_per_source_then_links(
     ],
 )
 def test_unported_codec_knobs_raise(monkeypatch, env, value):
-    """legacy still raises, naming its slice; the overlap modes and the
-    mxu formulation are ported: each resolves, and its PUT and heal
-    passes equal the default's."""
+    """Every codec knob of the JAX package is served now (the name is
+    kept from when legacy raised): the legacy pass structure, the
+    overlap modes and the mxu formulation each resolve, and the PUT and
+    heal passes under each equal the default's."""
     monkeypatch.setenv(env, value)
     if env == "MINIO_TPU_CODEC_KERNEL":
-        with pytest.raises(NotImplementedError, match="slice"):
-            tcs.codec_kernel_mode()
-        return
-    if env == "MINIO_TPU_CODEC_FORMULATION":
+        assert tcs.codec_kernel_mode() == "legacy"
+        assert tcs.codec_formulation() == "swar"
+    elif env == "MINIO_TPU_CODEC_FORMULATION":
         assert tcs.codec_formulation() == "mxu"
         assert tcs.codec_kernel_mode() == "fused1"
     else:
@@ -420,6 +423,7 @@ def test_unported_codec_knobs_raise(monkeypatch, env, value):
         )
 
     got = run()
+    monkeypatch.setenv("MINIO_TPU_CODEC_KERNEL", "fused1")
     monkeypatch.setenv("MINIO_TPU_CODEC_OVERLAP", "off")
     monkeypatch.setenv("MINIO_TPU_CODEC_FORMULATION", "swar")
     want = run()

@@ -22,6 +22,7 @@ import concurrent.futures
 import io
 import os
 import threading
+import time
 
 import numpy as np
 import pytest
@@ -32,7 +33,7 @@ from minio_tpu.objectlayer import sets as jsets, zones as jzones
 from minio_tpu.storage.xl import XLStorage as JaxStorage
 from minio_tpu_torch.codec import backend as tbackend
 from minio_tpu_torch.codec.telemetry import KERNEL_STATS
-from minio_tpu_torch.objectlayer import sets as tsets, zones as tzones
+from minio_tpu_torch.objectlayer import api, sets as tsets, zones as tzones
 from minio_tpu_torch.objectlayer.api import CompletePart
 from minio_tpu_torch.storage.meta import XLMeta
 from minio_tpu_torch.storage.xl import XLStorage
@@ -352,3 +353,32 @@ def test_concurrent_puts_share_one_batcher(tmp_path, backends, monkeypatch):
             assert _tree(t) == _tree(j)
     finally:
         tbackend.reset_backend()
+
+
+class _ZoneProbe:
+    """A zone whose existence probe answers after ``delay`` seconds."""
+
+    def __init__(self, hit: bool, delay: float = 0.0):
+        self.hit, self.delay, self.done = hit, delay, 0
+
+    def get_object_info(self, bucket, object_name):
+        time.sleep(self.delay)
+        self.done += 1
+        if not self.hit:
+            raise api.ObjectNotFound(bucket, object_name)
+
+
+def test_zone_probes_are_joined_on_persistent_workers():
+    """A new-object PUT's zone probes: the lowest zone holding the object
+    wins, every probe (a slow later zone's too) has finished when the
+    call returns, and repeated calls start no thread of their own."""
+    zones = [_ZoneProbe(False), _ZoneProbe(True), _ZoneProbe(False, 0.3)]
+    layer = tzones.ErasureZones.__new__(tzones.ErasureZones)
+    layer.zones = zones
+    assert layer._put_zone_index("b", "o") == 1
+    assert [z.done for z in zones] == [1, 1, 1]  # the slow probe too
+    before = threading.active_count()
+    for _ in range(4):
+        assert layer._put_zone_index("b", "o") == 1
+    assert [z.done for z in zones] == [5, 5, 5]
+    assert threading.active_count() == before
