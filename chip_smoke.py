@@ -101,6 +101,22 @@
    and healed.  Part files must equal the main path's; under mxu the
    ``[mxu]`` kernels must launch and the swar PUT and heal-read kernels
    must not, while heal's re-encode stays on swar K1.
+6b. The device mesh (``mesh_phase``, slice 10a): the mesh entry points
+   of ``minio_tpu_torch/parallel/mesh.py`` over slots that repeat the
+   card, (4, 1), (2, 2) and (1, 4) of 4 slots at EC 8+4 and (2, 3) of 6
+   at EC 12+4 (the XOR all-reduce's fold), 10 MiB blocks, B = 4:
+   sharded_encode, sharded_encode_seq, mesh_encode_hash and its
+   begin/end, mesh_reconstruct with 4 data shards absent,
+   mesh_verify_reconstruct with a bitrotted survivor, mesh_digest, each
+   bit for bit against the single-device kernels; then one erasure set
+   whose codec is ``BatchingBackend(instrument(TorchBackend(devices=(dev,)
+   * 4)))`` under MINIO_TPU_PLACEMENT=span, route and auto
+   (MINIO_TPU_SUBMESH_DEVICES=1): PUT, healthy GET, GET with 4 drives
+   offline, heal; bodies equal their sources, part files and xl.meta a
+   single-slot backend's.  K1-K4 must launch in the mesh runs.  Prints
+   the ``mesh:`` line (each shape's entry points' wall ms and launches,
+   each policy's MB/s, placement counters and submesh depth peaks).  No
+   speed is claimed: the slots share one card.
 7. The S3 front: the port's S3Server (threaded plane,
    MINIO_TPU_SERVER=threaded) over a fresh ErasureObjects on the card (12 disks,
    EC 8+4, 10 MiB blocks), driven through SigV4 over HTTP by this
@@ -187,7 +203,7 @@
    same deployment built as the server main builds it (zones over one set
    of 12 guarded drives, the MRF heal routine, ``start_crawler``'s update
    tracker and data crawler).  A bucket born with object lock and a
-   GOVERNANCE default retention of one day takes 8 x 64 MiB with
+   GOVERNANCE default retention of one day takes 4 x 64 MiB with
    ``x-amz-tagging`` from 4 clients (K5) and reads them back (K2), one with
    the drives of shards 1, 3, 10, 12 offline (K3); tags and retentions
    read back; a retained version refuses its delete (InvalidRequest), the
@@ -235,9 +251,9 @@
    4 SigV4 clients, client i on node i, PUT 8 x 64 MiB and each object is
    read back from another node (sha256); the first object's part files
    and xl.meta on all 16 drives are held against the port's plain CPU
-   codec writing the same bytes; 4 rounds of concurrent PUTs of one key
+   codec writing the same bytes; 2 rounds of concurrent PUTs of one key
    through nodes 1 and 3 (one of the two bodies, one xl.meta generation
-   on every drive, top-locks empty after); 6 rounds of read-after-write
+   on every drive, top-locks empty after); 4 rounds of read-after-write
    across nodes (node 1 reads a hot object twice, from the device tier
    once admitted, node 2 overwrites it, node 1's GET right after the ack
    returns the new body; node 1's peer-driven invalidations counted);
@@ -343,7 +359,7 @@
 Exits non-zero, without the result lines, when there is no CUDA device or
 when any phase fails.  ``--only NAMES [--repeat N]`` runs only the named
 phases (``select``, ``cluster``, ``federation``, ``replication``,
-``backends``, ``web``, ``parity_ack``, or ``grid:CELL[+CELL...]``) after the build, N times in
+``backends``, ``web``, ``parity_ack``, ``mesh``, or ``grid:CELL[+CELL...]``) after the build, N times in
 turn, and prints one line a run and an ``only:`` tally, e.g.
 ``python3 chip_smoke.py --only grid:select_heavy_mix --repeat 20``.
 """
@@ -2158,6 +2174,257 @@ class S3Signer:
 
     def close(self) -> None:
         self.conn.close()
+
+
+MESH_SHAPES = ((K, M, 4, 1), (K, M, 2, 2), (K, M, 1, 4),
+               # EC 12+4 on 6 slots: a shard axis of 3, the all-reduce's fold
+               (12, 4, 2, 3))
+MESH_B = 4
+MESH_ABSENT = (0, 2, 5, 7)  # the 4 data shards mesh_reconstruct rebuilds
+MESH_POLICIES = ("span", "route", "auto")
+MESH_OBJECTS = (64 << 20, BLOCK + 17)
+MESH_SLOTS = 4  # the object layer's mesh: the card 4 times
+MESH_KERNELS = ("encode_pack", "phash256_batched", "gf_matmul_words",
+                "verify_reconstruct")
+
+
+def launches_since(before: dict) -> dict:
+    """kernels.LAUNCHES moved since ``before`` (the names that moved)."""
+    from minio_tpu_torch.ops import kernels
+
+    return {name: n - before.get(name, 0)
+            for name, n in kernels.LAUNCHES.items() if n != before.get(name, 0)}
+
+
+def mesh_shard_words(k: int) -> int:
+    """Words a shard of a BLOCK split k ways (bytes rounded up to 32)."""
+    nbytes = -(-BLOCK // k)
+    return -(-nbytes // 32) * 8
+
+
+def mesh_entries(dev, k: int, m: int, stripe: int, shard: int, rng) -> dict:
+    """Part (a) on one mesh: every mesh entry point over ``stripe x
+    shard`` slots that repeat ``dev``, bit for bit against the
+    single-device kernels (K1, K2, K3, K4) on the same inputs, each
+    checked on a first call and timed on a second; the launches of the
+    mesh calls alone."""
+    import numpy as np
+    import torch
+
+    from minio_tpu_torch.ops import codec_step, kernels
+    from minio_tpu_torch.parallel import mesh as pm
+
+    n, w, B = k + m, mesh_shard_words(k), MESH_B
+    L = 4 * w
+    words = rng.integers(0, 1 << 32, (B, k, w), dtype=np.uint64).astype(np.uint32)
+    data_b = words.view(np.uint8)
+
+    def host(t):
+        return codec_step.tensor_to_words(t)
+
+    # the single-device kernels' answers, before the mesh's launches count
+    words_d = torch.from_numpy(words.view(np.int32)).to(dev)
+    par_d, dig_d, _f, _p = codec_step.encode_words_fused1(words_d, m, L)
+    parity, digests = host(par_d), host(dig_d)
+    shards = np.concatenate([words, parity], axis=1)
+    shards_d = torch.from_numpy(shards.view(np.int32)).to(dev)
+    present = tuple(i not in MESH_ABSENT for i in range(n))
+    recon = host(codec_step.reconstruct_words_batch(shards_d, present, k, m))
+    bad = shards.copy()
+    bad[1, 3, 17] ^= 1 << 16  # bitrot in a survivor of stripe 1
+    vr_d, ok_d = codec_step.verify_and_reconstruct_words(
+        torch.from_numpy(bad.view(np.int32)).to(dev), dig_d, (True,) * n, k, m,
+        L)
+    vr_data, vr_ok = host(vr_d), ok_d.cpu().numpy()
+    rows = shards.reshape(B * n, w)
+    row_digests = host(kernels.phash256_batched(
+        torch.from_numpy(rows.view(np.int32)).to(dev), L))
+    slots = stripe * shard
+    seq_w = w - w % slots
+    seq_src = np.ascontiguousarray(data_b[0][:, :4 * seq_w])
+    torch.cuda.synchronize()
+    if not np.array_equal(recon, words):
+        fail(f"mesh {stripe}x{shard}: the single-device reconstruct is wrong")
+    if vr_ok[1, 3] or not np.array_equal(row_digests.reshape(B, n, 8), digests):
+        fail(f"mesh {stripe}x{shard}: the single-device verify is wrong")
+
+    mesh = pm.make_mesh((dev,) * slots, stripe, shard)
+    cases = {
+        "sharded_encode": (
+            lambda: np.asarray(pm.sharded_encode(mesh, data_b, m)),
+            (parity.view(np.uint8),)),
+        "sharded_encode_seq": (
+            lambda: np.asarray(pm.sharded_encode_seq(mesh, seq_src, m)),
+            (np.ascontiguousarray(parity[0][:, :seq_w]).view(np.uint8),)),
+        "mesh_encode_hash": (
+            lambda: pm.mesh_encode_hash(mesh, words, m, L), (parity, digests)),
+        "mesh_reconstruct": (
+            lambda: pm.mesh_reconstruct(mesh, shards, present, k, m), (recon,)),
+        "mesh_verify_reconstruct": (
+            lambda: pm.mesh_verify_reconstruct(mesh, bad, digests, (True,) * n,
+                                               k, m, L),
+            (vr_data, vr_ok)),
+        "mesh_digest": (
+            lambda: pm.mesh_digest(mesh, rows, L), (row_digests,)),
+    }
+    out = {"k": k, "m": m, "stripe": stripe, "shard": shard, "B": B,
+           "words_per_shard": w, "wall_ms": {}}
+    before = dict(kernels.LAUNCHES)
+    for name, (call, want) in cases.items():
+        for turn in ("check", "timed"):
+            t0 = time.monotonic()
+            got = call()
+            ms = (time.monotonic() - t0) * 1e3
+            got = got if isinstance(got, tuple) else (got,)
+            if len(got) != len(want) or not all(
+                    np.array_equal(a, b) for a, b in zip(got, want)):
+                fail(f"mesh {stripe}x{shard} (EC {k}+{m}): {name} differs from"
+                     " the single-device kernels")
+        out["wall_ms"][name] = ms
+    if vr_ok[1, 3]:
+        fail("mesh_verify_reconstruct: the bitrotted survivor verified ok")
+    # begin queues the pass and returns; end is the sync point
+    t0 = time.monotonic()
+    handle = pm.mesh_encode_hash_begin(mesh, words, m, L)
+    t1 = time.monotonic()
+    got = pm.mesh_encode_hash_end(handle)
+    t2 = time.monotonic()
+    if not (np.array_equal(got[0], parity) and np.array_equal(got[1], digests)):
+        fail(f"mesh {stripe}x{shard}: mesh_encode_hash begin/end differs")
+    out["wall_ms"]["mesh_encode_hash_begin"] = (t1 - t0) * 1e3
+    out["wall_ms"]["mesh_encode_hash_end"] = (t2 - t1) * 1e3
+    out["launches"] = launches_since(before)
+    return out
+
+
+def mesh_objects(dev, work: str, rng) -> dict:
+    """Part (b): one erasure set (12 disks, EC 8+4, 10 MiB blocks) whose
+    codec is BatchingBackend(instrument(TorchBackend(devices=(dev,) *
+    4))), under each placement policy with one-slot submeshes: PUT,
+    healthy GET, GET with 4 drives offline, heal; every body equals its
+    source, every part file and xl.meta a single-slot backend's."""
+    from minio_tpu_torch.codec.backend import TorchBackend
+    from minio_tpu_torch.codec.batcher import BatchingBackend
+    from minio_tpu_torch.codec.telemetry import KERNEL_STATS, instrument
+    from minio_tpu_torch.objectlayer.erasure_object import (
+        ErasureObjects,
+        from_reference_disks,
+    )
+    from minio_tpu_torch.ops import kernels
+    from minio_tpu_torch.storage.xl import XLStorage
+
+    payloads = [rng.bytes(s) for s in MESH_OBJECTS]
+    names = [f"mesh{i}" for i in range(len(payloads))]
+    total = sum(MESH_OBJECTS)
+
+    def layer(roots, backend, alive=None):
+        paths = [r if alive is None or d in alive else None
+                 for d, r in enumerate(roots)]
+        ol = from_reference_disks(paths, parity_blocks=M, block_size=BLOCK,
+                                  device=dev)
+        ol.backend = backend
+        return ol
+
+    single = BatchingBackend(instrument(TorchBackend(dev)))
+    ref_roots = [os.path.join(work, f"mesh-ref{i}") for i in range(N)]
+    try:
+        ol = layer(ref_roots, single)
+        ol.make_bucket("bench")
+        for name, data in zip(names, payloads):
+            ol.put_object("bench", name, io.BytesIO(data), len(data))
+    finally:
+        single.shutdown()
+    written = {name: object_files(ref_roots, name) for name in names}
+    runs = {}
+    try:
+        for policy in MESH_POLICIES:
+            os.environ["MINIO_TPU_PLACEMENT"] = policy
+            os.environ["MINIO_TPU_SUBMESH_DEVICES"] = "1"
+            be = BatchingBackend(instrument(TorchBackend(devices=(dev,) * MESH_SLOTS)))
+            roots = [os.path.join(work, f"mesh-{policy}{i}") for i in range(N)]
+            secs = {"put": 0.0, "get": 0.0, "get_degraded": 0.0, "heal": 0.0}
+            try:
+                ol = layer(roots, be)
+                ol.make_bucket("bench")
+                KERNEL_STATS.reset()
+                before = dict(kernels.LAUNCHES)
+                for name, data in zip(names, payloads):
+                    t0 = time.monotonic()
+                    ol.put_object("bench", name, io.BytesIO(data), len(data))
+                    secs["put"] += time.monotonic() - t0
+                for name, data in zip(names, payloads):
+                    sink = io.BytesIO()
+                    t0 = time.monotonic()
+                    ol.get_object("bench", name, sink)
+                    secs["get"] += time.monotonic() - t0
+                    if sink.getvalue() != data:
+                        fail(f"mesh {policy}: GET of {name} differs from its source")
+                for name, data in zip(names, payloads):
+                    dist = XLStorage(roots[0]).read_version("bench", name).erasure.distribution
+                    dead = {d for d in range(N) if dist[d] in (1, 3, 10, 12)}
+                    sink = io.BytesIO()
+                    t0 = time.monotonic()
+                    layer(roots, be, set(range(N)) - dead).get_object("bench", name, sink)
+                    secs["get_degraded"] += time.monotonic() - t0
+                    if sink.getvalue() != data:
+                        fail(f"mesh {policy}: degraded GET of {name} differs")
+                    for d in dead:
+                        shutil.rmtree(os.path.join(roots[d], "bench", name))
+                    t0 = time.monotonic()
+                    healed = ol.heal_object("bench", name)["healed"]
+                    secs["heal"] += time.monotonic() - t0
+                    if sorted(healed) != [0, 2, 9, 11]:
+                        fail(f"mesh {policy}: heal of {name} rebuilt {healed}")
+                for name in names:
+                    if object_files(roots, name) != written[name]:
+                        fail(f"mesh {policy}: {name}'s part files or xl.meta differ"
+                             " from the single-slot backend's")
+                launches = launches_since(before)
+                stats = KERNEL_STATS.snapshot()
+            finally:
+                be.shutdown()
+            runs[policy] = {
+                **{f"{op}_MBps": total / s / 1e6 for op, s in secs.items()},
+                "seconds": secs,
+                "placement": stats["placement"],
+                "submesh_depth_peaks": {s["submesh"]: s["depth_hwm"]
+                                        for s in stats["submeshes"]},
+                "device_passes": stats["device_passes"],
+                "launches": launches,
+            }
+    finally:
+        os.environ.pop("MINIO_TPU_PLACEMENT", None)
+        os.environ.pop("MINIO_TPU_SUBMESH_DEVICES", None)
+    if runs["span"]["placement"]["route"] or not runs["route"]["placement"]["route"]:
+        fail(f"mesh: placement counters off: {runs}")
+    if "mesh_encode_hash" not in runs["span"]["device_passes"]:
+        fail("mesh span: the PUT took no mesh pass")
+    return {"objects": len(names), "bytes": total, "policies": runs}
+
+
+def mesh_phase(dev, work: str) -> dict:
+    """Phase 6b: the device mesh on the card (parts (a) and (b) above);
+    fails unless K1-K4 launched in the mesh runs."""
+    import numpy as np
+    import torch
+
+    rng = np.random.default_rng(SEED + 10)
+    t0 = time.monotonic()
+    shapes = {
+        f"EC {k}+{m} {s}x{h}": mesh_entries(dev, k, m, s, h, rng)
+        for k, m, s, h in MESH_SHAPES
+    }
+    torch.cuda.empty_cache()
+    objects = mesh_objects(dev, work, rng)
+    launches: dict = {}
+    for run in list(shapes.values()) + list(objects["policies"].values()):
+        for name, c in run["launches"].items():
+            launches[name] = launches.get(name, 0) + c
+    for name in MESH_KERNELS:
+        if launches.get(name, 0) <= 0:
+            fail(f"kernel {name} never launched in the mesh phase")
+    return {"card": card_name(), "seconds": time.monotonic() - t0,
+            "shapes": shapes, **objects, "launches": launches}
 
 
 def _in_clients(host, port, jobs_per_client, fn,
@@ -5062,9 +5329,9 @@ CLUSTER_DRIVES = 4  # per node: 16 drives, one set, EC 8+8 (default parity)
 # 64 MiB objects PUT through each node's client; cut from 4 to make room
 # for the web phase
 CLUSTER_PER_NODE = 2
-CLUSTER_RACE_ROUNDS = 4  # cut from 8 to make room for the parity_ack phase
+CLUSTER_RACE_ROUNDS = 2  # cut from 8, then 4, to make room for the parity_ack and mesh phases
 CLUSTER_RACE_SIZE = 16 << 20
-CLUSTER_RAW_ROUNDS = 6  # cut from 20 (15.7 s), then 10, to keep 4 grid cells
+CLUSTER_RAW_ROUNDS = 4  # cut from 20 (15.7 s), then 10 and 6, to keep 4 grid cells and the mesh phase
 CLUSTER_HOT_SIZE = 8 << 20
 CLUSTER_DOWN_PUTS = 4  # objects PUT with node 4 killed
 CLUSTER_READY_S = 300.0  # spawn to ready, CUDA start and library load included
@@ -7829,7 +8096,7 @@ def parity_ack_phase(work: str, backend: "str | None" = None) -> dict:
 
 # -- phase 9c: bucket configurations enforced by the data crawler -----------
 
-BC_TAGGED = 8  # objects of S3_BIG with x-amz-tagging, PUT by 4 clients (cut from 16)
+BC_TAGGED = 4  # objects of S3_BIG with x-amz-tagging, PUT by 4 clients (cut from 16, then 8)
 # objects of BC_SMALL_SIZE through the object layer; cut from 2,048, at
 # which the small PUTs and the two crawls took 220 s of the phase on the
 # H100 machine (16 PUTs/s, 35 versions/s crawled), then from 512 (57 s of
@@ -8637,6 +8904,7 @@ ONLY_PHASES = {
     "backends": lambda dev, work: backends_phase(dev, work),
     "web": lambda dev, work: web_phase(work),
     "parity_ack": lambda dev, work: parity_ack_phase(work),
+    "mesh": lambda dev, work: mesh_phase(dev, work),
 }
 
 
@@ -8790,6 +9058,8 @@ def main() -> int:
         lap("modes")
         mx = modes_phase(dev, work, payloads, written, MXU_RUNS)
         lap("mxu")
+        mesh = mesh_phase(dev, work)
+        lap("mesh")
         # phases 7, 8, 8b, 9, 9b and 9c serve in this process on the threaded plane;
         # the boot and cluster phases' servers take the default (async)
         os.environ["MINIO_TPU_SERVER"] = "threaded"
@@ -8831,6 +9101,7 @@ def main() -> int:
             for i, r in enumerate(runs):
                 print(f"{label} {formulation} {mode} run {i + 1}: {json.dumps(r)}",
                       flush=True)
+    print(f"mesh: {json.dumps(mesh)}", flush=True)
     print(f"s3: {json.dumps(s3)}", flush=True)
     print(f"s3_mp: {json.dumps(s3mp)}", flush=True)
     print(f"sse: {json.dumps(sse)}", flush=True)
@@ -8857,6 +9128,7 @@ def main() -> int:
         "select": sel["launches"],
         # the legacy run's first turn, under MINIO_TPU_DEVICE_COMPRESS=on
         "legacy": mo[("swar", "legacy")][0]["launches"],
+        "mesh": mesh["launches"],
     }
 
     line = {
@@ -8868,6 +9140,8 @@ def main() -> int:
                     "select.cu" if name in select_step.LAUNCH_NAMES else "codec.cu"),
                 "replaces": replaces,
                 "launches": phase_launches[phase].get(name, 0),
+                # the device mesh phase's runs (its own counters)
+                "mesh": phase_launches["mesh"].get(name, 0),
                 "max_abs_err": kres[name]["max_abs_err"],
                 "ms": kres[name]["ms"],
                 "plain_ms": kres[name]["plain_ms"],

@@ -18,6 +18,11 @@ codec-agnostic.  This module is that seam for the port:
   runs the pre-fusion passes instead, whatever the overlap mode and
   formulation: the digest encode (K1 without the pack leg), the drain's
   group_flags and pack_nonzero_groups, verify then reconstruct on heal.
+* TorchBackend(devices=(...)): the same seam over a mesh of slots
+  (parallel/mesh.py, repeats allowed); the mesh passes keep no parity
+  plane on the device and record ``mesh_*`` passes, as the JAX
+  package's multi-device TpuBackend does.  ``placement_router`` carves
+  the slots into submeshes for the batcher (parallel/rules.py).
 
 There is no automatic choice of device and no silent fallback: asking
 for the card where there is none raises.
@@ -671,34 +676,104 @@ class CodecBackend:
         backend keeps nothing device-resident)."""
         return 0.0
 
+    def placement_router(self):
+        """Submesh router for multi-slot placement, or None when the
+        backend has no device set to carve (a single slot).  The batcher
+        feature-detects this seam to route independent merged batches
+        to disjoint submeshes."""
+        return None
+
 
 class TorchBackend(CodecBackend):
-    """Device backend on one torch device: the counterpart of the JAX
-    package's single-device TpuBackend.
+    """Device backend: the counterpart of the JAX package's TpuBackend.
 
     ``device`` is a torch.device (or its name).  On ``cuda`` every pass
     is a hand-written kernel (encode_pack, phash256_batched,
-    gf_matmul_words); on ``cpu`` the same passes run their plain
-    PyTorch versions.
+    gf_matmul_words, verify_reconstruct); on ``cpu`` the same passes run
+    their plain PyTorch versions.
+
+    ``devices`` pins a mesh of slots (repeats allowed: one slot is one
+    virtual device), and ``device`` becomes its first.  Over more than
+    one slot the passes run mesh-parallel (parallel.mesh): stripes over
+    "stripe", the k data shards over "shard" with an XOR all-reduce,
+    mirroring the reference's set- and disk-level fan-out (SURVEY.md
+    section 2.4).  ``None`` keeps one slot on ``device``.  Set
+    MINIO_MESH=0 to force the single-slot path.
     """
 
     name = "torch"
     fused_encode = True  # one encode_pack pass per batch
 
-    def __init__(self, device="cuda"):
+    def __init__(self, device="cuda", devices=None):
+        self._devices = (
+            tuple(torch.device(d) for d in devices)
+            if devices is not None else None
+        )
+        if self._devices is not None:
+            if not self._devices:
+                raise ValueError("TorchBackend: devices= is empty")
+            device = self._devices[0]
         self.device = torch.device(device)
+        for d in self._base_devices():
+            if d.type != self.device.type or d.type not in ("cuda", "cpu"):
+                raise ValueError(f"unsupported codec device {d}")
         if self.device.type == "cuda" and not torch.cuda.is_available():
             raise RuntimeError(
                 "TorchBackend: CUDA requested but torch.cuda.is_available()"
                 " is False"
             )
-        if self.device.type not in ("cuda", "cpu"):
-            raise ValueError(f"unsupported codec device {self.device}")
         self._staging_lk = threading.Lock()
-        self._pinned: "_PinnedStaging | None" = None
+        self._pinned: "dict[torch.device, _PinnedStaging]" = {}
+        self._meshes: "dict[tuple, object]" = {}
+        self._router = None
+        self._router_mu = threading.Lock()
+
+    def _base_devices(self) -> tuple:
+        return self._devices if self._devices is not None else (self.device,)
+
+    def _home(self) -> torch.device:
+        """The device of this thread's single-slot passes: the slot of a
+        submesh the batcher routed here (parallel.rules.placed), else
+        ``device``."""
+        from ..parallel import rules as prules
+
+        routed = prules.current_placement()
+        return routed[0] if routed else self.device
+
+    def _mesh_for(self, batch: int, k: int):
+        """Pick a mesh for this call's geometry, or None for one slot.
+
+        A submesh routed by the batcher (parallel.rules.placed) narrows
+        the slots for this thread; otherwise the full base set spans.
+        """
+        if os.environ.get("MINIO_MESH", "1") == "0":
+            return None
+        from ..parallel import mesh as pm, rules as prules
+
+        devices = prules.current_placement() or self._base_devices()
+        if len(devices) <= 1:
+            return None
+        stripe, shard = pm.pick_axes(len(devices), batch, k)
+        key = (tuple(str(d) for d in devices), stripe, shard)
+        m = self._meshes.get(key)
+        if m is None:
+            m = pm.make_mesh(list(devices), stripe=stripe, shard=shard)
+            self._meshes[key] = m
+        return m
+
+    def placement_router(self):
+        devices = self._base_devices()
+        if len(devices) <= 1:
+            return None
+        with self._router_mu:
+            if self._router is None:
+                from ..parallel import rules as prules
+
+                self._router = prules.PlacementRouter(devices)
+            return self._router
 
     def _stage(self, words_h: np.ndarray) -> torch.Tensor:
-        t = codec_step.words_to_tensor(words_h, self.device)
+        t = codec_step.words_to_tensor(words_h, self._home())
         _record_h2d("data", words_h.nbytes)
         return t
 
@@ -712,7 +787,7 @@ class TorchBackend(CodecBackend):
         runs)."""
         if self.device.type == "cuda":
             windows = kernels.pipeline_windows(
-                B, w, kernels.sm_count(self.device), encode=plane == "put",
+                B, w, kernels.sm_count(self._home()), encode=plane == "put",
                 mxu=formulation == "mxu",
             )
             if windows:
@@ -726,10 +801,21 @@ class TorchBackend(CodecBackend):
         so the pass runs while the caller streams the previous batch.
         MINIO_TPU_CODEC_OVERLAP and MINIO_TPU_CODEC_FORMULATION do not
         touch this seam (heal's re-encode), as in the JAX package: the
-        formulation is only read to check the knob."""
+        formulation is only read to check the knob.  Over several slots
+        the mesh pass (parallel.mesh.mesh_encode_hash_begin) is queued
+        the same way."""
         codec_step.codec_formulation()
         data = np.ascontiguousarray(data, dtype=np.uint8)
-        L = data.shape[-1]
+        B, k, L = data.shape
+        mesh = self._mesh_for(B, k)
+        if mesh is not None:
+            from ..parallel import mesh as pm
+
+            words_h = codec_step.host_bytes_to_words(data)
+            _record_h2d("data", words_h.nbytes)
+            h = pm.mesh_encode_hash_begin(mesh, words_h, parity_shards, L)
+            _record_pass("mesh_encode_hash")
+            return _AsyncHandle("async-mesh", h)
         words = self._stage(codec_step.host_bytes_to_words(data))
         parity_w, digests, _f, _p = codec_step.encode_words_fused1(
             words, parity_shards, L
@@ -742,11 +828,16 @@ class TorchBackend(CodecBackend):
             return handle  # foreign/eager handle: already a result
         if handle.consumed:
             return handle.result
-        if handle.kind != "async":
+        if handle.kind == "async-mesh":
+            from ..parallel import mesh as pm
+
+            parity, digests = pm.mesh_encode_hash_end(handle.payload)
+        elif handle.kind == "async":
+            parity_w, digests_d = handle.payload
+            parity = codec_step.tensor_to_words(parity_w)
+            digests = codec_step.tensor_to_words(digests_d)
+        else:
             raise ValueError(f"encode_end: unknown handle kind {handle.kind!r}")
-        parity_w, digests_d = handle.payload
-        parity = codec_step.tensor_to_words(parity_w)
-        digests = codec_step.tensor_to_words(digests_d)
         _record_d2h("parity", parity.nbytes)
         _record_d2h("data", digests.nbytes)
         handle.result = codec_step.host_words_to_bytes(parity), digests
@@ -764,9 +855,24 @@ class TorchBackend(CodecBackend):
         pass's product; the sub-chunk chain stays ``swar``.  Under
         MINIO_TPU_CODEC_KERNEL=legacy: the digest encode alone (K1 without
         the pack leg), whatever the overlap mode or formulation; the
-        drain screens the plane (``"digest"`` handle)."""
+        drain screens the plane (``"digest"`` handle).  Over several
+        slots, whatever the kernel mode: the eager mesh encode."""
         data = np.ascontiguousarray(data, dtype=np.uint8)
-        B, _k, L = data.shape
+        B, k, L = data.shape
+        if self._mesh_for(B, k) is not None:
+            if self._overlap() != "off":
+                # overlap sub-chunking would fight the mesh "seq" axis
+                # for the stripe-length dimension: warn once, fall back
+                # to the serialized (bit-identical) mesh path
+                from ..parallel import mesh as pm
+
+                pm.warn_overlap_fallback()
+            # the mesh path keeps no device-resident parity plane (its
+            # planes live across slots): compose the eager seam, still
+            # queued through the mesh begin/end split
+            return _AsyncHandle(
+                "digest-eager", self.encode_begin(data, parity_shards)
+            )
         if codec_step.codec_kernel_mode() == "legacy":
             # the JAX package's encode_and_hash_words_digest: parity and
             # digests only, the drain screens the plane
@@ -826,10 +932,11 @@ class TorchBackend(CodecBackend):
         return self._staging().h2d(src, slot)
 
     def _staging(self) -> _PinnedStaging:
+        dev = self._home()
         with self._staging_lk:
-            if self._pinned is None:
-                self._pinned = _PinnedStaging(self.device)
-            return self._pinned
+            if dev not in self._pinned:
+                self._pinned[dev] = _PinnedStaging(dev)
+            return self._pinned[dev]
 
     def _chain_lock(self):
         """Serializes chains over the shared pinned slots (none on the
@@ -859,7 +966,7 @@ class TorchBackend(CodecBackend):
         try:
             with self._chain_lock():
                 acc = torch.zeros(
-                    (B, k + m, 8), dtype=torch.int32, device=self.device
+                    (B, k + m, 8), dtype=torch.int32, device=self._home()
                 )
                 parity_c, flags_c, packed_c = [], [], []
                 for i, off in enumerate(offs):
@@ -886,10 +993,19 @@ class TorchBackend(CodecBackend):
 
     def encode_digest_end(self, handle):
         if not isinstance(handle, _AsyncHandle) or handle.kind not in (
-            "digest", "digest-fused1", "digest-subchunk",
+            "digest", "digest-fused1", "digest-subchunk", "digest-eager",
         ):
             return super().encode_digest_end(handle)
         if handle.consumed:
+            return handle.result
+        if handle.kind == "digest-eager":
+            parity, digests = self.encode_end(handle.payload)
+            handle.result = (
+                np.asarray(digests),
+                _EagerParityRef(np.ascontiguousarray(parity, dtype=np.uint8)),
+            )
+            handle.consumed = True
+            handle.payload = None
             return handle.result
         # digests are the ONLY eager readback; parity, flags and packed
         # stay device-resident behind the ref
@@ -931,6 +1047,19 @@ class TorchBackend(CodecBackend):
 
     def reconstruct(self, shards, present, data_shards, parity_shards):
         shards = np.ascontiguousarray(shards, dtype=np.uint8)
+        mesh = self._mesh_for(shards.shape[0], data_shards)
+        if mesh is not None:
+            from ..parallel import mesh as pm
+
+            words_h = codec_step.host_bytes_to_words(shards)
+            _record_h2d("data", words_h.nbytes)
+            dw = pm.mesh_reconstruct(
+                mesh, words_h, tuple(bool(b) for b in present), data_shards,
+                parity_shards,
+            )
+            _record_pass("mesh_reconstruct")
+            _record_d2h("data", dw.nbytes)
+            return codec_step.host_words_to_bytes(dw)
         words = self._stage(codec_step.host_bytes_to_words(shards))
         dw = codec_step.reconstruct_words_batch(
             words, tuple(bool(b) for b in present), data_shards,
@@ -943,7 +1072,17 @@ class TorchBackend(CodecBackend):
 
     def digest(self, shards):
         shards = np.ascontiguousarray(shards, dtype=np.uint8)
-        L = shards.shape[-1]
+        B, n, L = shards.shape
+        mesh = self._mesh_for(B * n, 1)
+        if mesh is not None:
+            from ..parallel import mesh as pm
+
+            flat = codec_step.host_bytes_to_words(shards).reshape(B * n, -1)
+            _record_h2d("data", flat.nbytes)
+            _record_pass("mesh_digest")
+            out = pm.mesh_digest(mesh, flat, L).reshape(B, n, 8)
+            _record_d2h("data", out.nbytes)
+            return out
         words = self._stage(codec_step.host_bytes_to_words(shards))
         got = codec_step.digest_words_batched(words, L)
         _record_pass("phash256_words_batched")
@@ -963,7 +1102,9 @@ class TorchBackend(CodecBackend):
         picks the serialized pass's product; the sub-chunk chain and the
         re-solve stay ``swar``.  Under MINIO_TPU_CODEC_KERNEL=legacy the
         base class composes the separate passes instead, whatever the
-        overlap mode: verify (K2 and a compare), then reconstruct (K3)."""
+        overlap mode: verify (K2 and a compare), then reconstruct (K3).
+        Over several slots: the mesh pass (K4 once a stripe group), whatever
+        the overlap mode or formulation."""
         if codec_step.codec_kernel_mode() == "legacy":
             return super().reconstruct_and_verify(
                 shards, digests, present, data_shards, parity_shards
@@ -976,7 +1117,20 @@ class TorchBackend(CodecBackend):
         words_h = codec_step.host_bytes_to_words(shards)
         overlap = self._overlap()
         got = None
-        if overlap == "async":
+        mesh = self._mesh_for(B, data_shards)
+        if mesh is not None:
+            from ..parallel import mesh as pm
+
+            if overlap != "off":
+                pm.warn_overlap_fallback()
+            _record_h2d("data", words_h.nbytes)
+            got = pm.mesh_verify_reconstruct(
+                mesh, words_h, np.asarray(digests), present_t, data_shards,
+                parity_shards, L,
+            )
+            _record_pass("mesh_verify_reconstruct")
+            _record_d2h("data", got[0].nbytes)
+        elif overlap == "async":
             got = self._drain_vr_subchunks(
                 words_h, digests, present_t, data_shards, parity_shards, L
             )
@@ -985,7 +1139,7 @@ class TorchBackend(CodecBackend):
         else:
             words = self._stage(words_h)
             stored = codec_step.words_to_tensor(
-                np.ascontiguousarray(digests, dtype=np.uint32), self.device
+                np.ascontiguousarray(digests, dtype=np.uint32), words.device
             )
             pipeline = overlap == "pipeline"
             dw_d, ok_d = codec_step.verify_and_reconstruct_words(
@@ -1033,9 +1187,11 @@ class TorchBackend(CodecBackend):
         try:
             with self._chain_lock():
                 digests_d = codec_step.words_to_tensor(
-                    np.ascontiguousarray(digests, dtype=np.uint32), self.device
+                    np.ascontiguousarray(digests, dtype=np.uint32),
+                    self._home(),
                 )
-                acc = torch.zeros((B, n, 8), dtype=torch.int32, device=self.device)
+                acc = torch.zeros((B, n, 8), dtype=torch.int32,
+                                  device=digests_d.device)
                 pending = None
                 for i, off in enumerate(offs):
                     chunk = self._chain_stage(
@@ -1085,7 +1241,10 @@ def get_backend(device="cuda") -> CodecBackend:
     in telemetry and cross-request batching (MINIO_CODEC_BATCH).
 
     ``device`` defaults to the card; building it raises where
-    torch.cuda.is_available() is False.  There is no auto mode."""
+    torch.cuda.is_available() is False.  There is no auto mode.  On the
+    card the backend's slots are every visible CUDA device, ``device``
+    first (the JAX package's TpuBackend takes jax.devices()): one slot
+    on a one-GPU machine, the mesh path on a larger one."""
     from .batcher import maybe_wrap
     from .telemetry import instrument
 
@@ -1096,7 +1255,13 @@ def get_backend(device="cuda") -> CodecBackend:
     with _lock:
         be = _backends.get(key)
         if be is None:
-            be = maybe_wrap(instrument(TorchBackend(dev)))
+            devices = None
+            if dev.type == "cuda":
+                devices = (dev,) + tuple(
+                    torch.device("cuda", i)
+                    for i in range(torch.cuda.device_count()) if i != dev.index
+                )
+            be = maybe_wrap(instrument(TorchBackend(dev, devices=devices)))
             _backends[key] = be
         return be
 

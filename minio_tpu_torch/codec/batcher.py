@@ -17,11 +17,17 @@ per-disk goroutine fan-out feeding one disk queue
 
 Correctness is trivial: the grouped call is the same math on a
 concatenated batch axis, and results are split back by row counts.
+
+Over a backend of several slots (``placement_router``), each merged
+group is placed: inline on the dispatcher spanning the mesh, or on the
+least-loaded submesh's worker thread (MINIO_TPU_PLACEMENT,
+parallel/rules.py).
 """
 
 from __future__ import annotations
 
 import os
+import queue
 import threading
 import time
 
@@ -77,10 +83,50 @@ class _SlicedParityRef:
         return None
 
 
+class _SubmeshWorker(threading.Thread):
+    """One daemon worker per routed submesh: runs merged groups with the
+    mesh scoped to that submesh's slots (parallel.rules.placed), so two
+    independent batches on disjoint submeshes overlap instead of
+    serializing on the dispatcher thread."""
+
+    def __init__(self, backend: "BatchingBackend", router, sub):
+        super().__init__(name=f"codec-batcher-{sub.name}", daemon=True)
+        self.backend = backend
+        self.router = router
+        self.sub = sub
+        self.q: "queue.SimpleQueue" = queue.SimpleQueue()
+        self.start()
+
+    def submit(self, item) -> None:
+        self.q.put(item)
+
+    def stop(self) -> None:
+        self.q.put(None)
+
+    def run(self) -> None:
+        from ..parallel import rules as prules
+
+        while True:
+            item = self.q.get()
+            if item is None:
+                return
+            op, key, group = item
+            try:
+                with prules.placed(self.sub.devices):
+                    self.backend._run_group_safe(op, key, group)
+            finally:
+                self.router.release(self.sub)
+                KERNEL_STATS.record_submesh_depths(self.router.depths())
+
+
 class BatchingBackend(CodecBackend):
     """Wrap any CodecBackend with cross-request batch coalescing."""
 
     name = "batched"
+
+    # ops the "auto" placement policy may route to a submesh (the
+    # PUT-side throughput plane; see _dispatch_group)
+    _ROUTED_AUTO_OPS = frozenset({"encode", "encode_digest"})
 
     def __init__(
         self,
@@ -101,6 +147,12 @@ class BatchingBackend(CodecBackend):
         # "everyone submitted" fast path unreachable and every flush
         # waits out the full deadline)
         self._active: "dict[int, int]" = {}
+        # submesh placement: feature-detected once from the inner
+        # backend (a single slot returns None -> pure inline dispatch)
+        self._router_known = False
+        self._router_obj = None
+        self._workers: "dict[str, _SubmeshWorker]" = {}
+        self._workers_mu = threading.Lock()
         self._running = True
         self._thread = threading.Thread(
             target=self._loop, name="codec-batcher", daemon=True
@@ -257,11 +309,20 @@ class BatchingBackend(CodecBackend):
             shards, digests, present, data_shards, parity_shards
         )
 
+    def placement_router(self):
+        return getattr(self.inner, "placement_router", lambda: None)()
+
     def shutdown(self) -> None:
         with self._cv:
             self._running = False
             self._cv.notify_all()
         self._thread.join(timeout=2)
+        with self._workers_mu:
+            workers, self._workers = dict(self._workers), {}
+        for w in workers.values():
+            w.stop()
+        for w in workers.values():
+            w.join(timeout=2)
 
     # -- dispatcher -------------------------------------------------------
 
@@ -317,7 +378,50 @@ class BatchingBackend(CodecBackend):
             for j in jobs:
                 groups.setdefault((j.op, j.key), []).append(j)
             for (op, key), group in groups.items():
-                self._run_group_safe(op, key, group)
+                self._dispatch_group(op, key, group)
+
+    def _router(self):
+        """The inner backend's submesh router, feature-detected once."""
+        if not self._router_known:
+            fn = getattr(self.inner, "placement_router", None)
+            self._router_obj = fn() if callable(fn) else None
+            self._router_known = True
+        return self._router_obj
+
+    def _dispatch_group(
+        self, op: str, key: tuple, group: "list[_Job]"
+    ) -> None:
+        """Place one merged group: on the least-loaded submesh (its
+        worker thread, overlapping with other submeshes) or inline on
+        the dispatcher spanning the full mesh."""
+        router = self._router()
+        sub = None
+        if router is not None:
+            # under "auto", only the PUT-side throughput ops are
+            # routed: reconstruct/digest serve degraded reads and
+            # verify, which stay on the span path (an explicit "route"
+            # policy still routes everything)
+            routable = (
+                router.policy == "route" or op in self._ROUTED_AUTO_OPS
+            )
+            if routable:
+                blocks = sum(j.arrays[0].shape[0] for j in group)
+                sub = router.route(blocks)
+        if sub is None:
+            KERNEL_STATS.record_placement("span")
+            self._run_group_safe(op, key, group)
+            return
+        KERNEL_STATS.record_placement("route")
+        KERNEL_STATS.record_submesh_depths(router.depths())
+        self._worker(router, sub).submit((op, key, group))
+
+    def _worker(self, router, sub) -> _SubmeshWorker:
+        with self._workers_mu:
+            w = self._workers.get(sub.name)
+            if w is None:
+                w = _SubmeshWorker(self, router, sub)
+                self._workers[sub.name] = w
+            return w
 
     def _run_group_safe(
         self, op: str, key: tuple, group: "list[_Job]"

@@ -22,9 +22,11 @@ materialization time).  On a host-only backend that IS compute time; on
 a device backend it includes H2D/D2H transfers - which is exactly the
 cost an operator provisioning the serving path cares about.
 
-``KERNEL_STATS.snapshot()`` is the JSON-friendly dump; the S3 front that
-exports it as Prometheus families is ported in a later slice.  Kernel
-LAUNCHES (as opposed to codec passes) are counted by ops/kernels.py.
+``KERNEL_STATS.snapshot()`` is the JSON-friendly dump (admin
+``kernel-stats``), exported as ``miniotpu_codec_*`` Prometheus families
+by server/metrics.py; the placement counters come from the batcher's
+submesh routing (codec/batcher.py).  Kernel LAUNCHES (as opposed to
+codec passes) are counted by ops/kernels.py.
 """
 
 from __future__ import annotations
@@ -74,6 +76,11 @@ class KernelStats:
         # codec passes by entry point: fused1 runs one pass per
         # direction per batch
         self._passes: "dict[str, int]" = {}
+        # submesh placement: outcome ("span"|"route") -> batches, and
+        # per-submesh in-flight depth (current + high-water mark)
+        self._placement: "dict[str, int]" = {}
+        self._submesh_depth: "dict[str, int]" = {}
+        self._submesh_depth_hwm: "dict[str, int]" = {}
 
     # -- recording --------------------------------------------------------
 
@@ -173,6 +180,19 @@ class KernelStats:
             if depth > self._iopool_depth_hwm:
                 self._iopool_depth_hwm = depth
 
+    def record_placement(self, outcome: str) -> None:
+        """One batch placement decision (outcome = span|route)."""
+        with self._mu:
+            self._placement[outcome] = self._placement.get(outcome, 0) + 1
+
+    def record_submesh_depths(self, depths: "dict[str, int]") -> None:
+        """Live per-submesh queue depths from the placement router."""
+        with self._mu:
+            for name, depth in depths.items():
+                self._submesh_depth[name] = depth
+                if depth > self._submesh_depth_hwm.get(name, 0):
+                    self._submesh_depth_hwm[name] = depth
+
     # -- reading ----------------------------------------------------------
 
     def snapshot(self) -> dict:
@@ -234,6 +254,20 @@ class KernelStats:
                         self._stages.items()
                     )
                 ],
+                "placement": {
+                    outcome: self._placement.get(outcome, 0)
+                    for outcome in ("span", "route")
+                },
+                "submeshes": [
+                    {
+                        "submesh": name,
+                        "depth": self._submesh_depth.get(name, 0),
+                        "depth_hwm": hwm,
+                    }
+                    for name, hwm in sorted(
+                        self._submesh_depth_hwm.items()
+                    )
+                ],
                 "iopool": {
                     "queues": [
                         {
@@ -268,6 +302,9 @@ class KernelStats:
             self._h2d.clear()
             self._overlap.clear()
             self._passes.clear()
+            self._placement.clear()
+            self._submesh_depth.clear()
+            self._submesh_depth_hwm.clear()
 
 
 def _parity_cache_stats() -> dict:
@@ -380,6 +417,11 @@ class InstrumentedBackend(CodecBackend):
         """The inner backend's device (codec_overlap_mode resolves its
         default from it)."""
         return getattr(self.inner, "device", None)
+
+    def placement_router(self):
+        # explicit delegation (this wrapper has no __getattr__): the
+        # batcher feature-detects the routing seam through it
+        return self.inner.placement_router()
 
     def digest(self, shards):
         return self._timed(

@@ -26,8 +26,10 @@ failed kernel:
   always.
 
 The scan runs on the device it is given (the object layer's codec
-device); device buffers cross D2H only inside the ``_drain_*`` seam
-functions below.
+device), or on the least-loaded submesh of that device's slots
+(``_scan_router``: every visible CUDA device, as the codec backend's);
+device buffers cross D2H only inside the ``_drain_*`` seam functions
+below.
 """
 
 from __future__ import annotations
@@ -41,6 +43,7 @@ import torch
 
 from . import sql, vector
 from ..ops import select_step as ss
+from ..parallel.rules import PlacementRouter
 
 DEV_CHUNK = 32 << 20  # stream read size: amortize the fixed per-chunk cost
 _RATIO_CAP = 0.25  # screen candidates / rows above this: host chunk
@@ -123,6 +126,39 @@ def select_mode() -> str:
     the pre-device behavior; ``host`` pins the numpy columnar scan."""
     mode = os.environ.get("MINIO_TPU_SELECT", "auto").strip().lower()
     return mode if mode in ("device", "host", "row", "auto") else "auto"
+
+
+# -- placement: scans ride the least-loaded submesh --------------------
+
+_routers: "dict[str, PlacementRouter]" = {}
+_router_mu = threading.Lock()
+
+
+def scan_devices(device) -> tuple:
+    """The slots a scan on ``device`` may take: every visible CUDA
+    device, ``device`` first (the codec backend's set, codec/backend.py
+    get_backend), or the CPU alone."""
+    dev = torch.device(device)
+    if dev.type != "cuda":
+        return (dev,)
+    home = dev.index or 0
+    return (torch.device("cuda", home),) + tuple(
+        torch.device("cuda", i)
+        for i in range(torch.cuda.device_count()) if i != home
+    )
+
+
+def _scan_router(device) -> PlacementRouter:
+    """The process's router over ``device``'s scan slots.  With one slot
+    there is one submesh and ``route`` returns None: the scan stays on
+    ``device``."""
+    key = str(torch.device(device))
+    with _router_mu:
+        router = _routers.get(key)
+        if router is None:
+            router = PlacementRouter(scan_devices(device))
+            _routers[key] = router
+        return router
 
 
 # -- screen compilation ------------------------------------------------
@@ -407,8 +443,12 @@ class DeviceScan(vector.FastScan):
         """Screen host bytes on the device -> candidate-row bytes, or
         None for a whole-chunk host fallback."""
         t0 = time.perf_counter()
+        router = _scan_router(self.device)
+        sub = router.route(1)
         try:
-            arr = host_plane(data, self.device)
+            arr = host_plane(
+                data, sub.devices[0] if sub is not None else self.device
+            )
             spans = self._screen_spans(arr, len(data), scr)
             if spans is None:
                 return None
@@ -418,6 +458,8 @@ class DeviceScan(vector.FastScan):
                 out += data[s:e]
             return bytes(out)
         finally:
+            if sub is not None:
+                router.release(sub)
             STATS.device_time(time.perf_counter() - t0)
 
     def _screen_spans(self, arr, nbytes: int, scr):
@@ -501,6 +543,10 @@ class DeviceScan(vector.FastScan):
             super()._chunk(data)
             return self.matched
         t0 = time.perf_counter()
+        # the plane already lives on its device: the claim only keeps
+        # the submesh's load count honest for concurrent host scans
+        router = _scan_router(self.device)
+        sub = router.route(1)
         try:
             spans = self._screen_spans(dev_arr, nbytes, scr)
             if spans is None:
@@ -528,6 +574,8 @@ class DeviceScan(vector.FastScan):
             super()._chunk(bytes(out))
             return self.matched
         finally:
+            if sub is not None:
+                router.release(sub)
             STATS.device_time(time.perf_counter() - t0)
 
 

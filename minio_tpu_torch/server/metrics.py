@@ -6,9 +6,6 @@ latencies), the heal routine, the codec kernel telemetry registry
 (codec/telemetry.py), the tiered read cache (cache/), and the audit
 log, rendered in the Prometheus text exposition format 0.0.4 at
 ``/minio-tpu/prometheus/metrics``.
-
-The mesh placement families (slice 10) come with the slice that ports
-what feeds them.
 """
 
 from __future__ import annotations
@@ -600,6 +597,33 @@ class Metrics:
             "miniotpu_hedge_wasted_total", "counter",
             "Hedged reads abandoned without contributing",
             [({}, hedge.get("wasted", 0))],
+        )
+        placement = snap.get("placement", {})
+        emit(
+            "miniotpu_codec_placement_total", "counter",
+            "Merged-batch placement decisions (span = full mesh,"
+            " route = least-loaded submesh)",
+            [
+                ({"policy": outcome}, placement.get(outcome, 0))
+                for outcome in ("span", "route")
+            ],
+        )
+        submeshes = snap.get("submeshes", [])
+        emit(
+            "miniotpu_codec_submesh_queue_depth", "gauge",
+            "In-flight merged batches per codec submesh",
+            [
+                ({"submesh": s["submesh"]}, s["depth"])
+                for s in submeshes
+            ],
+        )
+        emit(
+            "miniotpu_codec_submesh_queue_depth_peak", "gauge",
+            "High-water mark of in-flight batches per codec submesh",
+            [
+                ({"submesh": s["submesh"]}, s["depth_hwm"])
+                for s in submeshes
+            ],
         )
         stages = snap["stages"]
         emit(

@@ -263,8 +263,9 @@ def test_kernel_stats_shape(servers):
         assert status == 200
         got[kind] = doc
     # the port adds its kernel wrappers' launch counts (zero on the CPU)
-    assert set(got["port"]) == (set(got["jax"]) - {"placement", "submeshes"}) \
-        | {"launches"}
+    assert set(got["port"]) == set(got["jax"]) | {"launches"}
+    assert set(got["port"]["placement"]) == set(got["jax"]["placement"])
+    assert isinstance(got["port"]["submeshes"], list)
     assert got["port"]["launches"] and not any(got["port"]["launches"].values())
     assert set(got["port"]["batch"]) == set(got["jax"]["batch"]) | {
         "multi_client_flushes"}
