@@ -2138,6 +2138,11 @@ cudaError_t launch_gf_mxu(int device, int blocks, size_t smem, cudaStream_t st,
 
 extern "C" {
 
+// Each export carries an "@ctypes" comment line, its ctypes signature: the
+// signature ops/kernels.py (_load) binds.  `python -m
+// minio_tpu_torch.analysis` holds both the binding and the comment
+// against the ctypes this definition's C types map to (MTPU401-403).
+
 // The arguments of one K1 launch, packed by kernels.py (_ENCODE_ARGS: 9
 // addresses, 9 ints, 2 u32, 4 bytes of padding) and passed as one
 // pointer: ctypes converts one argument instead of twenty.
@@ -2161,6 +2166,7 @@ static_assert(sizeof(EncodeArgs) == 120, "kernels._ENCODE_ARGS packs 120 bytes")
 // parity matrix in kernels.mxu_fragments order) selects the mxu kernel,
 // whose grid is kernels.pipelined_grid's.  Returns the first non-zero
 // CUDA error.
+// @ctypes mtt_encode_pack(c_char_p) -> c_int
 int mtt_encode_pack(const EncodeArgs* a) {
   const uint32_t* data = reinterpret_cast<const uint32_t*>(a->data);
   uint32_t* parity = reinterpret_cast<uint32_t*>(a->parity);
@@ -2240,6 +2246,7 @@ static_assert(sizeof(EncodePipeArgs) == 104, "kernels._ENCODE_PIPE_ARGS packs 10
 // it); a non-null `amat` (kernels.mxu_fragments order) selects the mxu
 // kernel.  Takes m >= 1 and w % 4 == 0, with 16-byte aligned rows;
 // tiles_per_block comes from kernels.encode_pipelined_grid.
+// @ctypes mtt_encode_pack_pipelined(c_char_p) -> c_int
 int mtt_encode_pack_pipelined(const EncodePipeArgs* a) {
   const uint32_t* data = reinterpret_cast<const uint32_t*>(a->data);
   uint32_t* parity = reinterpret_cast<uint32_t*>(a->parity);
@@ -2302,6 +2309,7 @@ int mtt_encode_pack_pipelined(const EncodePipeArgs* a) {
 // stream first.  tiles_per_block (of 256 column quads) comes from the
 // wrapper's grid, which it sizes for rows_per_block (kPhashRows) rows per
 // block.
+// @ctypes mtt_phash256(c_int, c_void_p, c_void_p, c_int, c_int, c_uint32, c_int, c_int, c_void_p) -> c_int
 int mtt_phash256(int device, const uint32_t* words, uint32_t* acc, int R, int w,
                  uint32_t nbytes, int rows_per_block, int tiles_per_block,
                  void* stream) {
@@ -2334,6 +2342,7 @@ static_assert(sizeof(GfMatmulArgs) == 72, "kernels._GF_ARGS packs 72 bytes");
 // `terms` is the (o, s) matrix's term program (kernels.gf_terms,
 // gf_terms_bytes() long) with `rows` product rows; the grid strides over
 // the (stripe, 256-quad tile) pairs with `blocks` blocks.
+// @ctypes mtt_gf_matmul(c_char_p) -> c_int
 int mtt_gf_matmul(const GfMatmulArgs* a) {
   const uint32_t* in = reinterpret_cast<const uint32_t*>(a->in);
   uint32_t* out = reinterpret_cast<uint32_t*>(a->out);
@@ -2382,6 +2391,7 @@ static_assert(sizeof(VrArgs) == 112, "kernels._VR_ARGS packs 112 bytes");
 // rb rebuilt rows); `amat` the (rb, k) matrix of the rebuilt rows in
 // kernels.mxu_fragments order.  tiles_per_block comes from
 // kernels.pipelined_grid.  Returns the first non-zero CUDA error.
+// @ctypes mtt_verify_reconstruct(c_char_p) -> c_int
 int mtt_verify_reconstruct(const VrArgs* a) {
   const int device = a->device, B = a->B, n = a->n, k = a->k, w = a->w, np = a->np,
             rb = a->rb, tiles_per_block = a->tiles_per_block;
@@ -2449,6 +2459,7 @@ int mtt_verify_reconstruct(const VrArgs* a) {
 // `rb` rebuilt rows.  Takes w % 4 == 0 with 16-byte aligned rows; a
 // non-null `amat` (the (rb, k) matrix of the rebuilt rows in
 // kernels.mxu_fragments order) selects the mxu product.
+// @ctypes mtt_verify_reconstruct_pipelined(c_int, c_void_p, c_void_p, c_void_p, c_int, c_int, c_int, c_int, c_uint32, c_uint32, c_int, c_void_p, c_int, c_int, c_void_p, c_void_p) -> c_int
 int mtt_verify_reconstruct_pipelined(int device, const uint32_t* shards,
                                      uint32_t* data, uint32_t* acc, int B,
                                      int n, int k, int w, uint32_t present,
@@ -2513,6 +2524,7 @@ static_assert(sizeof(MxuArgs) == 64, "kernels._MXU_ARGS packs 64 bytes");
 // K7: (o, s) matrix as kernels.k7_fragments (`frags`) @ (s, length) bytes
 // -> (o, length) bytes, rows `length` bytes apart, any length; `blocks`
 // blocks of `tiles_per_block` kMxTile-byte tiles (kernels.k7_grid).
+// @ctypes mtt_gf_matmul_mxu(c_char_p) -> c_int
 int mtt_gf_matmul_mxu(const MxuArgs* a) {
   const uint8_t* in = reinterpret_cast<const uint8_t*>(a->in);
   uint8_t* out = reinterpret_cast<uint8_t*>(a->out);
@@ -2546,6 +2558,7 @@ int mtt_gf_matmul_mxu(const MxuArgs* a) {
 // K12: words (rows, w), w % 256 == 0 -> flags (rows, w / 256) 0/1; with a
 // non-null `packed` (K13) also the full-row prefix pack (rows, w) of
 // pack_kernel on those flags.  Any rows, any 4-byte aligned start.
+// @ctypes mtt_group_flags(c_int, c_void_p, c_void_p, c_void_p, c_int64, c_int, c_void_p) -> c_int
 int mtt_group_flags(int device, const uint32_t* words, uint32_t* flags,
                     uint32_t* packed, long long rows, int w, void* stream) {
   if (rows <= 0 || rows > 0x7fffffffLL || w <= 0 || w % kTile != 0)
@@ -2573,6 +2586,7 @@ int mtt_group_flags(int device, const uint32_t* words, uint32_t* flags,
 // The constants ops/kernels.py shares with this file, as "name=v[,v...]"
 // words: the loader (kernels._load) refuses a library whose values
 // differ from its own.
+// @ctypes mtt_constants() -> c_char_p
 const char* mtt_constants() {
 #define MTT_FIXED_STR(K_, M_) "," #K_ "x" #M_
   static char buf[1024];

@@ -798,6 +798,11 @@ cudaError_t use_device(int device) {
 
 extern "C" {
 
+// Each export carries an "@ctypes" comment line, its ctypes signature: the
+// signature ops/select_step.py (bind) binds.  `python -m
+// minio_tpu_torch.analysis` holds both the binding and the comment
+// against the ctypes this definition's C types map to (MTPU401-403).
+
 // K8's call, packed by select_step.screen_chunk (_SCREEN_CALL); recs is
 // the host address of all nrec records, more their device copy from
 // record kParamRecs on (null when nrec <= kParamRecs)
@@ -809,6 +814,7 @@ struct ScreenCall {
 };
 static_assert(sizeof(ScreenCall) == 120, "select_step._SCREEN_CALL");
 
+// @ctypes mts_screen(c_char_p) -> c_int
 int mts_screen(const ScreenCall* c) {
   const int q = c->q;
   const Rec* recs = reinterpret_cast<const Rec*>(c->recs);
@@ -877,6 +883,7 @@ struct PositionsCall {
 };
 static_assert(sizeof(PositionsCall) == 48, "select_step._POSITIONS_CALL");
 
+// @ctypes mts_positions(c_char_p) -> c_int
 int mts_positions(const PositionsCall* c) {
   // cand and cum are read 16 bytes a load; a block's last rank stays an int
   if (c->nblk <= 0 || c->cap <= 0 || c->cap > 0x7fffffff - kPosThreads || !c->cand ||
@@ -903,6 +910,7 @@ struct SpansCall {
 };
 static_assert(sizeof(SpansCall) == 64, "select_step._SPANS_CALL");
 
+// @ctypes mts_spans(c_char_p) -> c_int
 int mts_spans(const SpansCall* c) {
   if (c->count <= 0 || c->window <= 0 || c->n <= 0 || !c->arr || !c->anchors || !c->out ||
       !c->found)
@@ -934,6 +942,7 @@ struct GatherCall {
 };
 static_assert(sizeof(GatherCall) == 56, "select_step._GATHER_CALL");
 
+// @ctypes mts_gather(c_char_p) -> c_int
 int mts_gather(const GatherCall* c) {
   if (c->count <= 0 || c->window <= 0 || c->window % 4 || c->n <= 0 || !c->arr ||
       !c->starts || !c->out)
@@ -961,6 +970,7 @@ int mts_gather(const GatherCall* c) {
 }
 
 // the constants select_step.py must share, as "name=v[,v...]" words
+// @ctypes mts_constants() -> c_char_p
 const char* mts_constants() {
   static char buf[512];
   snprintf(buf, sizeof buf,

@@ -548,7 +548,7 @@ class AdminAPI:
         # the parked hang is the product here: an injected fault
         # schedule deliberately outlives this request and is released
         # by a later POST fault/clear, never by this frame
-        return 200, _json({"injected": sorted(matched)})
+        return 200, _json({"injected": sorted(matched)})  # noqa: MTPU601,MTPU603 - the hang outlives the request by design
 
     def _info(self, ol) -> bytes:
         si = ol.storage_info()
