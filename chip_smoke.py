@@ -2,7 +2,7 @@
 """Smoke run of the PyTorch/CUDA port (minio_tpu_torch) on one NVIDIA GPU.
 
     python3 chip_smoke.py            # from the repository root
-    python3 chip_smoke.py --parent DIR   # and K1-K11 beside an older copy
+    python3 chip_smoke.py --parent DIR   # and K1-K13 beside an older copy
 
 1. Builds the CUDA kernels from ``minio_tpu_torch/csrc`` with nvcc into
    one library (and ``--parent``'s copy into its own), one ``nvcc -c``
@@ -10,7 +10,7 @@
    prints each library's and each source's build seconds and each
    kernel's registers and spills and the static SASS of K1, K4 and K5
    (EC 8+4, swar and mxu), K2, K3, K6, K7 (4 x 8), K8 (each lookahead), K9, K10
-   (both forms) and K11 (``sass_loops``).
+   (both forms), K11, K12 and K13 (``sass_loops``).
 2. Holds each kernel bit-exactly against its plain PyTorch version on the
    card, at the main path's shapes (EC 8+4, 10 MiB blocks: 327,680 words
    per shard) and at ragged ones, and times kernel, plain version and the
@@ -52,9 +52,9 @@
    wide; K11 at 4-4,096-byte windows, at every start alignment and plane
    offset, clamped at both ends of the plane (``check_select_kernels``).  Beside each kernel's
    back-to-back event time (``ms``): its device time from a replayed
-   CUDA graph, the host's time per wrapper call and its L2-cold time
-   (``device_times``), and for K1, K3, K6 and K7 a one-tile launch (the
-   fixed chain); K7 also every (output, row) bucket, ragged, sub-tile and
+   CUDA graph, the host's time per wrapper call and its L2-cold times
+   after 512 MiB written and after 512 MiB read (``device_times``), and
+   for K1, K3, K6 and K7 a one-tile launch (the fixed chain); K7 also every (output, row) bucket, ragged, sub-tile and
    unaligned shapes against K3, and its ``clock64`` phases per block
    (``check_k7``, ``k7_phases``).  With ``--parent``, K1-K7 of both
    copies at the main path's shapes in turns parent, new, new, parent
@@ -62,13 +62,24 @@
    screen and two long lookaheads on the lineitem chunk, K9 at Q1's and
    Q2's candidates, K10 at Q1's anchors and backwards at Q2's hits, and
    K11 at Q1's gather and at one row, in the same turns (``compare_select_copies``), the card's name and
-   power limit printed before them.  The legacy drain's K12 group_flags
-   and K13 pack_nonzero_groups against their plain versions and against
-   the flags and ``packed`` of K1's and K5's own pack legs, at the main
-   path's parity plane (4, 4, 327,680) dense, sparse, all zero and all
-   nonzero, at heal's B = 1, ragged B and a view 4 bytes off alignment
-   (``check_legacy_kernels``); K12 timed beside ``plane.view(B, m, g,
-   256).any(-1)``.
+   power limit printed before them, then K12 and K13 at the main path's
+   plane and heal's in the same turns (``compare_legacy_copies``).  The
+   legacy drain's K12 group_flags and K13 pack_nonzero_groups against
+   their plain versions and against the flags and ``packed`` of K1's
+   and K5's own pack legs, at the main path's parity plane (4, 4,
+   327,680), heal's B = 1, ragged B and the edges of K13's cluster split
+   (``LEGACY_EDGES``: g below and not a multiple of the cluster, rows
+   past one cluster's shared memory), each dense, sparse, all zero, one
+   nonzero word a group, no zero word and one nonzero word in each row's
+   first or last group, and on views 4 bytes off alignment; K12 also at
+   runs other than its plan's (``K12_RUNS``); K13 one count a call
+   (``check_legacy_kernels``).  Both timed at the main path's plane and
+   heal's, their device times over a rotation of distinct planes past
+   the L2 (``legacy_planes``), K12 beside ``plane.view(B, m, g,
+   256).any(-1)``, and K12 on one group (the fixed cost of a launch in
+   each time).  ``--only legacy`` also checks by the profiler that K13 is
+   one kernel a call and times K12 at each run of ``K12_SWEEP`` (one
+   group a warp up to a persistent grid of long runs).
 2b. The port's static analysis (``analysis_phase``, slice 10b): ``python
    -m minio_tpu_torch.analysis --json --skip lint locks deviceflow
    lifecycle`` as a subprocess must exit 0 with no finding (the four
@@ -369,9 +380,9 @@
 
 Exits non-zero, without the result lines, when there is no CUDA device or
 when any phase fails.  ``--only NAMES [--repeat N]`` runs only the named
-phases (``select``, ``cluster``, ``federation``, ``replication``,
-``backends``, ``web``, ``parity_ack``, ``mesh``, ``analysis``, or
-``grid:CELL[+CELL...]``) after the build, N times in
+phases (``legacy``, ``select``, ``cluster``, ``federation``,
+``replication``, ``backends``, ``web``, ``parity_ack``, ``mesh``,
+``analysis``, or ``grid:CELL[+CELL...]``) after the build, N times in
 turn, and prints one line a run and an ``only:`` tally, e.g.
 ``python3 chip_smoke.py --only grid:select_heavy_mix --repeat 20``.
 """
@@ -381,6 +392,7 @@ from __future__ import annotations
 import functools
 import io
 import json
+import math
 import os
 import re
 import shutil
@@ -441,7 +453,10 @@ def device_times(fn, reps: int = 20) -> dict:
     * ``host_us``: the host's time per call (time.perf_counter around it,
       no synchronisation; median of 100);
     * ``cold_ms``: one call replayed from a graph right after 512 MiB were
-      written, so the 50 MB L2 holds none of its input (median of 9)."""
+      written, so the 50 MB L2 holds none of its input (median of 9);
+    * ``cold_read_ms``: the same right after 512 MiB were read, so the L2
+      holds none of its input and no dirty line that the call's own
+      reads would have to write back first (median of 9)."""
     import statistics
 
     import torch
@@ -480,7 +495,7 @@ def device_times(fn, reps: int = 20) -> dict:
             torch.cuda.synchronize()
     torch.cuda.synchronize()
     flush = torch.empty(512 << 20, dtype=torch.uint8, device="cuda")
-    cold = []
+    cold, cold_read = [], []
     for _ in range(9):
         flush.fill_(1)
         e0.record()
@@ -488,9 +503,17 @@ def device_times(fn, reps: int = 20) -> dict:
         e1.record()
         torch.cuda.synchronize()
         cold.append(e0.elapsed_time(e1))
+    for _ in range(9):
+        flush.view(torch.int64).sum()
+        e0.record()
+        one.replay()
+        e1.record()
+        torch.cuda.synchronize()
+        cold_read.append(e0.elapsed_time(e1))
     return {"device_ms": statistics.median(runs),
             "host_us": statistics.median(host) * 1e6,
-            "cold_ms": statistics.median(cold)}
+            "cold_ms": statistics.median(cold),
+            "cold_read_ms": statistics.median(cold_read)}
 
 
 def bound(nbytes: float, ops: float, mma_ops: float = 0.0) -> "tuple[float, str]":
@@ -1482,8 +1505,10 @@ def check_mxu_kernels(dev, rng) -> dict:
 def legacy_plane(rng, kind: str, shape, device):
     """A parity plane of u32 words for K12 and K13: ``dense`` (random, the
     main path's), ``sparse`` (random on about a third of the 256-word
-    groups), ``zeros`` or ``nonzero`` (one word with the high bit set in
-    every group, everything else zero)."""
+    groups), ``zeros``, ``nonzero`` (one word with the high bit set in
+    every group, everything else zero), ``full`` (no zero word), or
+    ``first`` / ``last`` (one nonzero word in each row's first or last
+    group, everything else zero)."""
     import torch
 
     x = rand_words(rng, shape, device)
@@ -1493,24 +1518,101 @@ def legacy_plane(rng, kind: str, shape, device):
     if kind == "sparse":
         keep = torch.from_numpy(rng.random((*lead, g)) < 1 / 3).to(device)
         grouped.mul_(keep[..., None].to(torch.int32))
-    elif kind in ("zeros", "nonzero"):
+    elif kind == "full":
+        x.bitwise_or_(1)
+    elif kind in ("zeros", "nonzero", "first", "last"):
         x.zero_()
     if kind == "nonzero":
         at = torch.from_numpy(rng.integers(0, 256, (*lead, g, 1))).to(device)
         grouped.scatter_(-1, at, torch.full_like(at, -(1 << 31), dtype=torch.int32))
+    elif kind in ("first", "last"):
+        rows = x.view(-1, w)
+        at = rng.integers(0, 256, rows.shape[0]) + (0 if kind == "first" else w - 256)
+        rows[torch.arange(rows.shape[0]), torch.from_numpy(at)] = torch.from_numpy(
+            rng.integers(1, 1 << 31, rows.shape[0]).astype("int32")
+        ).to(device)
     return x
 
 
-def check_legacy_kernels(dev, rng) -> dict:
+LEGACY_KINDS = ("dense", "sparse", "zeros", "nonzero", "full", "first", "last")
+# planes on the edges of K13's cluster split (kernels.pack_plan): 6 rows
+# of 21 groups (16-block clusters, g not a multiple), 16 of 13 (8-block
+# clusters), 12 of 5 and 1 of 3 (g below the cluster), 1 row of 3,077 and
+# 9 of 1,541 groups (past one cluster's shared memory at 16 and at 8
+# blocks: two passes)
+LEGACY_EDGES = [(2, 3, 21 * 256), (4, 4, 13 * 256), (3, 4, 5 * 256), (1, 1, 3 * 256),
+                (1, 1, 3077 * 256), (3, 3, 1541 * 256)]
+# K12 runs held and timed beside the plan's (kernels.group_plan): one warp
+# a group, runs of 2 and 3 (a batch cut short), 8 (two batches) and 33
+# (two 32-flag stores a warp)
+K12_RUNS = (1, 2, 3, 8, 33)
+# K12 runs timed with ``--only legacy``: at the main path's plane, 1 is
+# 2,560 blocks (about 4 waves of 5 blocks an SM), 5 one wave of 512
+K12_SWEEP = (1, 2, 3, 4, 5, 8)
+# the bytes of distinct planes the graph-replayed device times cycle
+# through: past the 50 MB L2, so no call finds its plane there
+LEGACY_ROTATION_BYTES = 64 << 20
+
+
+def rotation(planes: list):
+    """A function that returns the next of ``planes`` at each call."""
+    turn = [0]
+
+    def nxt():
+        turn[0] += 1
+        return planes[turn[0] % len(planes)]
+    return nxt
+
+
+def legacy_planes(rng, shape, dev) -> list:
+    """Dense planes of ``shape``, at least 3 and LEGACY_ROTATION_BYTES
+    together."""
+    nbytes = 4 * math.prod(shape)
+    count = max(3, -(-LEGACY_ROTATION_BYTES // nbytes))
+    return [legacy_plane(rng, "dense", shape, dev) for _ in range(count)]
+
+
+def kernels_of(fn) -> "list | None":
+    """The device kernels one call of ``fn`` launches, by name, from
+    torch.profiler (CUPTI); None where the profiler sees no device
+    activity."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    names = [e.name for e in prof.events()
+             if e.device_type == torch.autograd.DeviceType.CUDA]
+    return names or None
+
+
+def check_legacy_kernels(dev, rng, design: bool = False) -> dict:
     """K12 group_flags and K13 pack_nonzero_groups (the legacy drain's
     passes, MINIO_TPU_CODEC_KERNEL=legacy) against their plain versions on
-    the card: at the main path's parity plane (4, 4, 327,680) dense,
-    sparse, all zero and all nonzero; at heal's B = 1 and ragged B; on a
-    view 4 bytes off 16-byte alignment; and against the flags and
-    ``packed`` that K1's own pack leg emits for the same parity (what the
-    bisection oracle is for).  Times on the main path's dense plane,
-    K12 beside ``plane.view(B, m, g, 256).any(-1)`` (the one PyTorch call
-    of its function); no PyTorch call computes K13's."""
+    the card: at the main path's parity plane (4, 4, 327,680), at heal's
+    B = 1, ragged B and on the edges of K13's cluster split
+    (``LEGACY_EDGES``), each dense, sparse, all zero, one nonzero word a
+    group, no zero word, and one nonzero word in each row's first or last
+    group; on views 4 bytes off 16-byte alignment (K13's thread-staged
+    path, one pass and two); K12 also at runs other than its plan's
+    (``K12_RUNS``: one warp a group, batches cut short, runs past one
+    32-flag store); and against the flags and ``packed`` that K1's and
+    K5's own pack legs emit for the same parity (what the bisection
+    oracle is for).  K13 must be one count in LAUNCHES a call.  Times at
+    the main path's dense plane and at heal's: events on one plane, K12
+    beside ``plane.view(B, m, g, 256).any(-1)`` (the one PyTorch call of
+    its function; no PyTorch call computes K13's), and the
+    graph-replayed device times over a rotation of distinct planes past
+    the L2 (``legacy_planes``), the cold times; K12 on one group is the
+    fixed cost of a launch in each time (``one_group``).  With
+    ``design`` (``--only legacy``) also: K13 must be one kernel a call by
+    the profiler's count (which must see the card), and K12's times at
+    each run of ``K12_SWEEP`` in two turns (``runs``)."""
+    import statistics
+
     import torch
 
     from minio_tpu_torch.ops import kernels
@@ -1518,12 +1620,15 @@ def check_legacy_kernels(dev, rng) -> dict:
     G = 256
     err = {"group_flags": 0, "pack_nonzero_groups": 0}
 
-    def hold(x, what: str):
+    def hold(x, what: str, runs=(None,)):
         flags = kernels.group_flags(x, G)
         got = kernels.pack_nonzero_groups(x, G)
         torch.cuda.synchronize()
         want = kernels.pack_nonzero_groups_plain(x, G)
         e = same((flags,), (want[0],))
+        for run in runs[1:]:
+            e = max(e, same((kernels._group_call(x, G, "group_flags", False, run)[0],),
+                            (want[0],)))
         if e:
             fail(f"group_flags differs from its plain version on {what}")
         err["group_flags"] = max(err["group_flags"], e)
@@ -1533,13 +1638,16 @@ def check_legacy_kernels(dev, rng) -> dict:
         err["pack_nonzero_groups"] = max(err["pack_nonzero_groups"], e)
         return flags, got
 
-    shapes = [(4, M, W), (1, M, W), (3, M, 8192), (7, M, 2 * G), (5, 2, 3 * G)]
+    shapes = [(4, M, W), (1, M, W), (3, M, 8192), (7, M, 2 * G), (5, 2, 3 * G),
+              *LEGACY_EDGES]
     for shape in shapes:
-        for kind in ("dense", "sparse", "zeros", "nonzero"):
-            hold(legacy_plane(rng, kind, shape, dev), f"{kind} {shape}")
-    x = legacy_plane(rng, "sparse", (3 * M * 4096 + 256,), dev)
-    x = x[1:1 + 3 * M * 4096].view(3, M, 4096)
-    hold(x, "a view 4 bytes off alignment")
+        for kind in LEGACY_KINDS:
+            hold(legacy_plane(rng, kind, shape, dev), f"{kind} {shape}",
+                 (None, *K12_RUNS) if kind in ("sparse", "last") else (None,))
+    for shape in ((3, M, 4096), (1, 1, 3077 * G)):
+        n = math.prod(shape)
+        x = legacy_plane(rng, "sparse", (n + 256,), dev)[1:1 + n].view(shape)
+        hold(x, f"a view {shape} 4 bytes off alignment", (None, *K12_RUNS))
     # against K1's own pack leg: data with zeroed columns gives a parity
     # plane with zero groups, flagged and packed inside the encode launch
     data = legacy_plane(rng, "sparse", (4, K, W), dev)
@@ -1553,29 +1661,124 @@ def check_legacy_kernels(dev, rng) -> dict:
     if same((flags, pflags, packed), (k5_flags, k5_flags, k5_packed)):
         fail("group_flags / pack_nonzero_groups differ from K5's flags and packed")
 
-    B = 4
-    plane = legacy_plane(rng, "dense", (B, M, W), dev)
-    g = W // G
-    words = B * M * W
     results = {}
-    bms, by = bound(4 * (words + B * M * g), words)
-    results["group_flags"] = dict(
-        max_abs_err=err["group_flags"], shape=[B, M, W],
-        ms=cuda_ms(lambda: kernels.group_flags(plane, G), 20),
-        plain_ms=cuda_ms(lambda: kernels.group_flags_plain(plane, G), 3, 1),
-        library_ms=cuda_ms(lambda: plane.view(B, M, g, G).any(-1), 20),
-        bound_ms=bms, bound_by=by,
-        **device_times(lambda: kernels.group_flags(plane, G)),
-    )
-    bms, by = bound(4 * (2 * words + B * M * g), words)
-    results["pack_nonzero_groups"] = dict(
-        max_abs_err=err["pack_nonzero_groups"], shape=[B, M, W],
-        ms=cuda_ms(lambda: kernels.pack_nonzero_groups(plane, G), 20),
-        plain_ms=cuda_ms(lambda: kernels.pack_nonzero_groups_plain(plane, G), 3, 1),
-        library_ms=None, bound_ms=bms, bound_by=by,
-        **device_times(lambda: kernels.pack_nonzero_groups(plane, G)),
-    )
+    # the fixed cost of one launch in each time: K12 on one group
+    one = [legacy_plane(rng, "dense", (1, 1, G), dev) for _ in range(3)]
+    nxt_one = rotation(one)
+    fixed = device_times(lambda: kernels.group_flags(nxt_one(), G))
+    for label, B in (("", 4), ("heal", 1)):
+        planes = legacy_planes(rng, (B, M, W), dev)
+        plane = planes[0]
+        nxt = rotation(planes)
+        g = W // G
+        words = B * M * W
+        lib, launched = {}, None
+        if not label:
+            # one K13 call is one count in LAUNCHES, whatever the plan (and
+            # with ``design`` one kernel by the profiler's count); and the
+            # library call beside K12 at the main path's plane
+            kernels.reset_launches()
+            kernels.pack_nonzero_groups(plane, G)
+            if design:
+                launched = kernels_of(lambda: kernels.pack_nonzero_groups(plane, G))
+                if launched is None:
+                    fail("the profiler saw no kernel of pack_nonzero_groups on the card")
+                elif len(launched) != 1 or "pack_groups_kernel" not in launched[0]:
+                    fail(f"pack_nonzero_groups launched {launched} in one call")
+            counted = dict(kernels.LAUNCHES)
+            want_count = 3 if design else 1
+            if counted["pack_nonzero_groups"] != want_count or counted["group_flags"]:
+                fail(f"pack_nonzero_groups counted {counted['pack_nonzero_groups']} "
+                     f"launches in {want_count} calls")
+            lib = device_times(lambda: nxt().view(B, M, g, G).any(-1))
+        # both host-bound by events: the medians of three turns each,
+        # taken in alternation
+        k12_ms, lib_ms = [], []
+        for _ in range(3):
+            k12_ms.append(cuda_ms(lambda: kernels.group_flags(plane, G), 20))
+            lib_ms.append(cuda_ms(lambda: plane.view(B, M, g, G).any(-1), 20))
+        bms, by = bound(4 * (words + B * M * g), words)
+        k12 = dict(
+            max_abs_err=err["group_flags"], shape=[B, M, W],
+            ms=statistics.median(k12_ms),
+            plain_ms=cuda_ms(lambda: kernels.group_flags_plain(plane, G), 3, 1),
+            library_ms=statistics.median(lib_ms),
+            bound_ms=bms, bound_by=by, rotation=len(planes),
+            **device_times(lambda: kernels.group_flags(nxt(), G)),
+        )
+        k12["run"] = kernels._group_plan(B * M * g, dev.index)
+        if design:
+            # runs of one group a warp (many waves) up to a persistent
+            # grid (one wave of long runs): each run's device and cold
+            # times in two turns, forward then backward
+            k12["runs"] = {}
+            for turn in range(2):
+                for run in K12_SWEEP[::1 if turn == 0 else -1]:
+                    call = (lambda r: lambda: kernels._group_call(
+                        nxt(), G, "group_flags", False, r))(run)
+                    row = k12["runs"].setdefault(
+                        run, {"blocks": -(-(-(-B * M * g // run)) // 8)})
+                    for key, val in device_times(call).items():
+                        row.setdefault(key, []).append(val)
+        if lib:
+            k12["library_device_ms"] = lib["device_ms"]
+            k12["library_cold_ms"] = lib["cold_ms"]
+            k12["library_cold_read_ms"] = lib["cold_read_ms"]
+        bms, by = bound(4 * (2 * words + B * M * g), words)
+        k13 = dict(
+            max_abs_err=err["pack_nonzero_groups"], shape=[B, M, W],
+            ms=cuda_ms(lambda: kernels.pack_nonzero_groups(plane, G), 20),
+            plain_ms=cuda_ms(lambda: kernels.pack_nonzero_groups_plain(plane, G), 3, 1),
+            library_ms=None, bound_ms=bms, bound_by=by, rotation=len(planes),
+            **device_times(lambda: kernels.pack_nonzero_groups(nxt(), G)),
+        )
+        # K13's plan (cluster, seg, passes), how many clusters of that
+        # split the card holds at once, and of the one-pass split
+        k13["plan"] = kernels._pack_plan(B * M, W, dev.index)
+        lib13 = kernels._load()
+        k13["resident"] = lib13.mtt_pack_clusters(dev.index, *k13["plan"][:2])
+        k13["resident_one_pass"] = lib13.mtt_pack_clusters(
+            dev.index, k13["plan"][0], kernels.pack_split(g, k13["plan"][0])[0])
+        if label:
+            results["group_flags"][label] = k12
+            results["pack_nonzero_groups"][label] = k13
+        else:
+            results["group_flags"], results["pack_nonzero_groups"] = k12, k13
+            k13["kernels_a_call"] = launched
+    results["group_flags"]["one_group"] = fixed
     return results
+
+
+def compare_legacy_copies(dev, mods: dict, order: list) -> list:
+    """K12 and K13 of several copies of the port (``mods``: name -> kernels
+    module) in turns (``order``), at the main path's dense plane (4, 4,
+    327,680) and heal's (1, 4, 327,680): each result first held bit for
+    bit against the plain version, then cuda_ms on one plane and
+    device_times over a rotation of distinct planes past the L2."""
+    import numpy as np
+    import torch
+
+    rows = []
+    for turn, name in enumerate(order):
+        kern = mods[name]
+        rng = np.random.default_rng(SEED)
+        for B in (4, 1):
+            planes = legacy_planes(rng, (B, M, W), dev)
+            nxt = rotation(planes)
+            for fn in ("group_flags", "pack_nonzero_groups"):
+                call = getattr(kern, fn)
+                got = call(planes[0], 256)
+                got = got if isinstance(got, tuple) else (got,)
+                want = kern.pack_nonzero_groups_plain(planes[0], 256)
+                if same(got, want[:len(got)]):
+                    fail(f"{fn} of copy {name} differs from its plain version")
+                rows.append({
+                    "turn": turn, "copy": name, "case": f"{fn} ({B}, {M}, {W})",
+                    "events_ms": cuda_ms(lambda: call(planes[0], 256), 20, 3),
+                    "rotation": len(planes),
+                    **device_times(lambda: call(nxt(), 256))})
+        torch.cuda.synchronize()
+    return rows
 
 
 def k7_phases(kern, matrix, shards) -> "dict | None":
@@ -8556,7 +8759,7 @@ _KERNEL_NAME = re.compile(
     r"encode_kernel|encode_mxu_kernel|pack_kernel|phash_kernel|"
     r"gf_matmul_mxu_kernel|gf_matmul_kernel|verify_reconstruct_mxu_kernel|"
     r"verify_reconstruct_kernel|screen_kernel|positions_kernel|spans_kernel|"
-    r"gather_kernel)"
+    r"gather_kernel|group_flags_kernel|pack_groups_kernel)"
     r"(?:I((?:L[ib]\d+E)+)E)?"
 )
 
@@ -8570,6 +8773,10 @@ def kernel_label(mangled: str) -> str:
     name = m.group(1)
     if name == "spans_kernel" and m.group(2):  # <BACK>
         return name + ("<back>" if m.group(2) == "Lb1E" else "<row>")
+    if name == "group_flags_kernel" and m.group(2):  # <kVec>
+        return name + ("<vec>" if m.group(2) == "Lb1E" else "<word>")
+    if name == "pack_groups_kernel" and m.group(2):  # <kBulk>
+        return name + ("<bulk>" if m.group(2) == "Lb1E" else "<staged>")
     if m.group(2):
         args = re.findall(r"L([ib])(\d+)E", m.group(2))
         name += "<" + ",".join(
@@ -8602,7 +8809,10 @@ _MMA_OPS = ("BMMA", "IMMA", "HMMA")  # the tensor-core instructions
 # (4, 8) (gf_matmul_mxu_kernel<8,4>, <SB,OB>; an older copy's is
 # gf_matmul_mxu_kernel<4>, <MB>).  An older copy's
 # K4 is verify_reconstruct_kernel<16,8> (swar) and
-# verify_reconstruct_mxu_kernel<PB,RB>.
+# verify_reconstruct_mxu_kernel<PB,RB>.  K12 on an aligned plane
+# (group_flags_kernel<vec>), K13's bulk-staged kernel
+# (pack_groups_kernel<bulk>; an older copy's K13 is K12's launch then
+# pack_kernel, which K1 and K5 launch for their pack leg).
 SASS_KERNELS = ("phash_kernel", "verify_reconstruct_pipelined",
                 "encode_kernel<8,4,", "encode_mxu_kernel<8,4", "gf_matmul_kernel",
                 "gf_matmul_mxu_kernel<4>", "gf_matmul_mxu_kernel<8,4>",
@@ -8610,7 +8820,8 @@ SASS_KERNELS = ("phash_kernel", "verify_reconstruct_pipelined",
                 "verify_reconstruct_kernel<16,8", "verify_reconstruct_kernel<8,8,swar>",
                 "verify_reconstruct_kernel<8,4,mxu>", "verify_reconstruct_kernel<16,4,mxu>",
                 "verify_reconstruct_mxu_kernel<8,4>", "verify_reconstruct_mxu_kernel<16,4>",
-                "screen_kernel", "positions_kernel", "spans_kernel", "gather_kernel")
+                "screen_kernel", "positions_kernel", "spans_kernel", "gather_kernel",
+                "group_flags_kernel<vec>", "pack_groups_kernel<bulk>", "pack_kernel")
 
 
 def sass_loops(lib, kernels_mod) -> dict:
@@ -8970,8 +9181,27 @@ def analysis_phase(dev, work: str) -> dict:
     }
 
 
+# the copies of the port main() built (--parent's beside this checkout's),
+# for the phases --only runs
+COPIES: dict = {}
+
+
+def legacy_only(dev) -> dict:
+    """``--only legacy``: K12's and K13's checks and times
+    (``check_legacy_kernels``) and, with ``--parent``, both copies' in
+    turns (``compare_legacy_copies``)."""
+    import numpy as np
+
+    res = check_legacy_kernels(dev, np.random.default_rng(SEED), design=True)
+    if "parent" in COPIES:
+        res["compare"] = compare_legacy_copies(
+            dev, COPIES, ["parent", "new", "new", "parent"])
+    return res
+
+
 # the phases --only can run alone: each makes its own data and servers
 ONLY_PHASES = {
+    "legacy": lambda dev, work: legacy_only(dev),
     "select": lambda dev, work: select_phase(dev, work),
     "cluster": lambda dev, work: cluster_phase(work),
     "federation": lambda dev, work: federation_phase(work),
@@ -9040,7 +9270,7 @@ def main() -> int:
     ap.add_argument(
         "--parent", metavar="DIR",
         help="another copy of the port (DIR/__init__.py, DIR/ops, DIR/csrc): "
-             "build it too and time its K1-K7 and K8-K11 beside this "
+             "build it too and time its K1-K13 beside this "
              "checkout's, in turns parent, new, new, parent")
     ap.add_argument(
         "--only", metavar="NAMES",
@@ -9084,6 +9314,7 @@ def main() -> int:
         print(f"  sass: {json.dumps(sass_loops(lib, kernels))}", flush=True)
 
     if args.only:
+        COPIES.update(copies)
         return run_only(dev, args.only.split(","), args.repeat)
 
     import numpy as np
@@ -9108,6 +9339,7 @@ def main() -> int:
     lap("kernel_checks")
     for name, r in kres.items():
         print(f"kernel {name}: {json.dumps(r)}", flush=True)
+    print(f"legacy card: {card_name()}", flush=True)
     an = analysis_phase(dev, "")
     print("analysis: " + json.dumps(an), flush=True)
     lap("analysis")
@@ -9117,6 +9349,8 @@ def main() -> int:
         for row in compare_copies(dev, copies, order):
             print(f"compare: {json.dumps(row)}", flush=True)
         for row in compare_select_copies(dev, copies, order):
+            print(f"compare: {json.dumps(row)}", flush=True)
+        for row in compare_legacy_copies(dev, copies, order):
             print(f"compare: {json.dumps(row)}", flush=True)
     lap("compare")
     xfer = transfer_ms(dev)
@@ -9230,7 +9464,8 @@ def main() -> int:
                 "bound_ms": kres[name]["bound_ms"],
                 "bound_by": kres[name]["bound_by"],
                 "library_ms": kres[name].get("library_ms"),
-                **{key: kres[name][key] for key in ("device_ms", "host_us", "cold_ms")
+                **{key: kres[name][key]
+                   for key in ("device_ms", "host_us", "cold_ms", "cold_read_ms")
                    if key in kres[name]},
             }
             for name, (replaces, phase) in REPLACES.items()

@@ -495,40 +495,70 @@ pack_kernel(const uint32_t* __restrict__ parity, const uint32_t* __restrict__ fl
 // K12 group_flags: replaces codec_step.group_flags (X8, which the JAX
 // package leaves to XLA), the legacy drain's occupancy screen of a parity
 // plane: flag[r][j] = 1 where words j*256 .. j*256+255 of row r hold a
-// nonzero word.  K13 pack_nonzero_groups (X9) is this launch followed by
-// pack_kernel above on its flags, behind the same entry.
+// nonzero word.
 //
 // Bound: bytes - the plane read once (4 bytes a flag written on top), no
 // arithmetic to speak of.  Rows are whole groups (w % 256 == 0), so group
 // q of the flattened plane starts at word q * 256 whatever the row: the
-// kernel walks groups, not rows.  One warp a group: each lane ORs two
-// 16-byte loads (words 4*lane .. 4*lane+3 and 128 further on), so a warp
-// reads its group's 1 KiB in two fully coalesced 512-byte sweeps, and one
-// __any_sync decides the flag, which lane 0 stores.  A plane whose start
-// is not 16-byte aligned (a view at a word offset) takes 8 coalesced
-// 4-byte loads a lane instead.  No shared memory and no barrier, so
-// 8 warps a block and as many blocks as groups / 8 keep every SM's loads
-// in flight.
+// kernel walks groups, not rows.
+// Design: warp v of the grid walks the contiguous run of groups
+// v * run .. v * run + run - 1 (kernels.group_plan sets `run`, the grid
+// is groups / (8 * run) blocks).  A group is two 16-byte loads a lane
+// (words 4*lane .. 4*lane+3 and 128 further on: two fully coalesced
+// 512-byte sweeps); the loads of kFlagsBatch groups are issued before
+// the first of their votes, so up to 128 bytes are in flight a lane;
+// lane i keeps the flag of the run's group i, and the flags of up to 32
+// groups leave as one coalesced store.  On an H100 at the main path's
+// plane, runs of 2 (1,280 blocks, 56 registers: 4 blocks an SM) read
+// faster than one group a warp and than a persistent grid of one wave
+// whose warps walk runs of 5 in two batches (chip_smoke.py --only
+// legacy times each run).  The loads are streaming
+// (ld.global.cs: evict-first in L2), so reading a plane that is read
+// once does not push the dirty lines of earlier work out of L2.  A plane
+// whose start is not 16-byte aligned (a view at a word offset) takes 8
+// coalesced 4-byte loads a lane a group instead.
+constexpr int kFlagsBatch = 4;
+constexpr int kFlagsBlocksPerSM = 4;
+
 template <bool kVec>
-__global__ void __launch_bounds__(kThreads)
-group_flags_kernel(const uint32_t* __restrict__ words, uint32_t* __restrict__ flags,
-                   long long groups) {
-  const long long q = (long long)blockIdx.x * (kThreads / 32) + (threadIdx.x >> 5);
-  if (q >= groups) return;  // uniform per warp
-  const int lane = threadIdx.x & 31;
-  const uint32_t* g = words + q * kTile;
-  uint32_t v;
+__device__ __forceinline__ uint32_t group_or(const uint32_t* g, int lane) {
   if (kVec) {
-    const uint4 a = __ldg(reinterpret_cast<const uint4*>(g) + lane);
-    const uint4 b = __ldg(reinterpret_cast<const uint4*>(g) + 32 + lane);
-    v = a.x | a.y | a.z | a.w | b.x | b.y | b.z | b.w;
-  } else {
-    v = 0u;
-#pragma unroll
-    for (int i = 0; i < kTile / 32; ++i) v |= __ldg(g + i * 32 + lane);
+    const uint4 a = __ldcs(reinterpret_cast<const uint4*>(g) + lane);
+    const uint4 b = __ldcs(reinterpret_cast<const uint4*>(g) + 32 + lane);
+    return a.x | a.y | a.z | a.w | b.x | b.y | b.z | b.w;
   }
-  const bool any = __any_sync(0xffffffffu, v != 0u);
-  if (lane == 0) flags[q] = any ? 1u : 0u;
+  uint32_t v = 0u;
+#pragma unroll
+  for (int i = 0; i < kTile / 32; ++i) v |= __ldcs(g + i * 32 + lane);
+  return v;
+}
+
+template <bool kVec>
+__global__ void __launch_bounds__(kThreads, kFlagsBlocksPerSM)
+group_flags_kernel(const uint32_t* __restrict__ words, uint32_t* __restrict__ flags,
+                   long long groups, int run) {
+  const long long first =
+      ((long long)blockIdx.x * (kThreads / 32) + (threadIdx.x >> 5)) * run;
+  if (first >= groups) return;  // uniform per warp
+  const int n = (int)min((long long)run, groups - first);
+  const int lane = threadIdx.x & 31;
+  const uint32_t* base = words + first * kTile;
+  for (int c = 0; c < n; c += 32) {
+    const int cn = min(32, n - c);
+    uint32_t mine = 0u;
+    for (int b = 0; b < cn; b += kFlagsBatch) {
+      uint32_t v[kFlagsBatch];
+#pragma unroll
+      for (int i = 0; i < kFlagsBatch; ++i)
+        v[i] = b + i < cn ? group_or<kVec>(base + (size_t)(c + b + i) * kTile, lane) : 0u;
+#pragma unroll
+      for (int i = 0; i < kFlagsBatch; ++i) {
+        const bool any = __any_sync(0xffffffffu, v[i] != 0u);
+        if (lane == b + i) mine = any ? 1u : 0u;
+      }
+    }
+    if (lane < cn) flags[first + c + lane] = mine;
+  }
 }
 
 // --------------------------------------------------------------------------
@@ -1734,6 +1764,16 @@ __device__ __forceinline__ void bulk_copy(void* dst, const void* src, unsigned b
       : "memory");
 }
 
+// bulk_copy with an L2 cache policy (createpolicy) for the lines it reads.
+__device__ __forceinline__ void bulk_copy_hint(void* dst, const void* src, unsigned bytes,
+                                               uint64_t* bar, uint64_t policy) {
+  asm volatile(
+      "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes.L2::cache_hint "
+      "[%0], [%1], %2, [%3], %4;\n" ::"r"(smem_addr(dst)),
+      "l"(src), "r"(bytes), "r"(smem_addr(bar)), "l"(policy)
+      : "memory");
+}
+
 __device__ __forceinline__ uint32_t word_of(const uint4& v, int q) {
   return q == 0 ? v.x : (q == 1 ? v.y : (q == 2 ? v.z : v.w));
 }
@@ -1972,6 +2012,179 @@ gf_matmul_mxu_kernel(const uint8_t* __restrict__ in, uint8_t* __restrict__ out,
   }
 }
 
+// --------------------------------------------------------------------------
+// K13 pack_nonzero_groups: replaces codec_step.pack_nonzero_groups (X9,
+// left to XLA): the flags of K12 and each row's nonzero groups moved to
+// the front in order, zeros behind them - the reference's full-row
+// `packed`, every slot written once.
+//
+// Bound: bytes - the plane read once, the packed plane and the flags
+// written once.  A slot depends on every earlier group of its row, which
+// a grid of independent blocks could only learn from a second launch
+// (the parent design: K12, then pack_kernel, reading the plane twice).
+// Design, one launch that reads the plane once:
+// * A thread-block cluster covers a row (kernels.pack_plan: 8 blocks, or
+//   16 - a non-portable size - where 8 a row would leave most SMs idle,
+//   as at heal's 4 rows).  Block `rank` takes segment [rank * seg,
+//   (rank + 1) * seg) of each pass's span of cluster * seg groups.  The
+//   plan takes the fewest passes whose clusters the card holds all at
+//   once (mtt_pack_clusters): an H100 holds 15 clusters of 8 blocks of
+//   160 KiB, so the main path's 16 rows take two passes of 80 KiB
+//   segments rather than a second wave of clusters.
+// * Thread 0 stages the block's segment in shared memory with
+//   cp.async.bulk, kPackChunk groups a copy, each copy counted in by its
+//   own mbarrier, so the warps flag the first groups (one warp a group,
+//   two 16-byte shared loads a lane and __any_sync) while the later ones
+//   land.  The copies and the stores below are evict-first in L2 (the
+//   plane is read once, the packed prefix is read once by the D2H copy),
+//   as K12's loads.  An unaligned plane is staged by the threads, 4
+//   bytes each.
+// * The flags leave as one coalesced store; a ballot a warp gives each
+//   group its place among the block's nonzero groups, and the block's
+//   count is posted in shared memory.
+// * One cluster barrier, then each warp reads the cluster's counts
+//   through distributed shared memory: its block's prefix and the pass's
+//   total.  The nonzero groups go from shared memory to their slots with
+//   16-byte stores; they are consecutive slots, so the stores of a block
+//   are one contiguous run.
+// * A row longer than a cluster's shared memory is walked in passes of
+//   cluster * seg groups with a running prefix (the counts double-buffered
+//   by pass, so one cluster barrier a pass suffices).  After the last
+//   pass each block zeroes its share of the row's tail, slots kept .. g,
+//   and a last cluster barrier keeps every block's counts alive until the
+//   others have read them.
+constexpr int kPackSegMax = 192;  // groups a block stages a pass (192 KiB)
+constexpr int kPackChunk = 16;    // groups a bulk copy (one mbarrier each)
+constexpr int kPackChunks = kPackSegMax / kPackChunk;
+constexpr int kPackClusterMax = 16;
+
+__device__ __forceinline__ unsigned cluster_reg(int which) {
+  unsigned v;
+  if (which == 0)
+    asm volatile("mov.u32 %0, %%cluster_ctarank;" : "=r"(v));
+  else if (which == 1)
+    asm volatile("mov.u32 %0, %%cluster_nctarank;" : "=r"(v));
+  else
+    asm volatile("mov.u32 %0, %%clusterid.x;" : "=r"(v));
+  return v;
+}
+
+__device__ __forceinline__ void cluster_arrive() {
+  asm volatile("barrier.cluster.arrive.release.aligned;\n" ::: "memory");
+}
+
+__device__ __forceinline__ void cluster_wait() {
+  asm volatile("barrier.cluster.wait.acquire.aligned;\n" ::: "memory");
+}
+
+// The word at `p` in the shared memory of cluster block `rank`.
+__device__ __forceinline__ int dsmem_load(const int* p, unsigned rank) {
+  uint32_t remote;
+  int v;
+  asm volatile("mapa.shared::cluster.u32 %0, %1, %2;\n"
+               : "=r"(remote)
+               : "r"(smem_addr(p)), "r"(rank));
+  asm volatile("ld.shared::cluster.u32 %0, [%1];\n" : "=r"(v) : "r"(remote) : "memory");
+  return v;
+}
+
+template <bool kBulk>
+__global__ void __launch_bounds__(kThreads, 1)
+pack_groups_kernel(const uint32_t* __restrict__ words, uint32_t* __restrict__ flags,
+                   uint32_t* __restrict__ packed, int w, int seg) {
+  extern __shared__ __align__(128) uint32_t stage[];  // seg x kTile words
+  __shared__ uint64_t full[kPackChunks];
+  __shared__ uint32_t s_flag[kPackSegMax];
+  __shared__ int s_src[kPackSegMax];
+  __shared__ int s_wsum[kThreads / 32];
+  __shared__ int s_count[2];
+  const unsigned rank = cluster_reg(0), csize = cluster_reg(1);
+  const size_t row = cluster_reg(2);
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  const int g = w / kTile;
+  const uint32_t* src = words + row * (size_t)w;
+  uint32_t* dst = packed + row * (size_t)w;
+  uint32_t* frow = flags + row * (size_t)g;
+  const int span = (int)csize * seg;
+  const int passes = (g + span - 1) / span;
+  uint64_t policy = 0;
+  if (kBulk) {
+    asm volatile("createpolicy.fractional.L2::evict_first.b64 %0, 1.0;\n" : "=l"(policy));
+    if (tid == 0) {
+      for (int i = 0; i < kPackChunks; ++i) mbar_init(&full[i], 1);
+      asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+    }
+    __syncthreads();  // the barriers are initialized
+  }
+  unsigned phase = 0u;  // bit c: the parity chunk c's barrier waits for
+  int run = 0;          // nonzero groups of the row before this pass
+  for (int p = 0; p < passes; ++p) {
+    const int start = p * span + (int)rank * seg;
+    const int n = max(0, min(seg, g - start));  // this block's groups
+    const int nchunks = (n + kPackChunk - 1) / kPackChunk;
+    if (kBulk) {
+      if (tid == 0) {
+        // the previous pass's shared reads are ordered before the copies
+        asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+        for (int c = 0; c < nchunks; ++c) {
+          const unsigned bytes =
+              (unsigned)(min(kPackChunk, n - c * kPackChunk) * kTile * 4);
+          mbar_expect_tx(&full[c], bytes);
+          bulk_copy_hint(stage + c * kPackChunk * kTile,
+                         src + (size_t)(start + c * kPackChunk) * kTile, bytes, &full[c],
+                         policy);
+        }
+      }
+    } else {
+      const uint32_t* from = src + (size_t)start * kTile;
+      for (int i = tid; i < n * kTile; i += kThreads) stage[i] = from[i];
+      __syncthreads();
+    }
+    for (int j = warp; j < n; j += kThreads / 32) {
+      if (kBulk) mbar_wait(&full[j / kPackChunk], (phase >> (j / kPackChunk)) & 1u);
+      const uint4* gq = reinterpret_cast<const uint4*>(stage + j * kTile);
+      const uint4 a = gq[lane], b = gq[32 + lane];
+      const bool any =
+          __any_sync(0xffffffffu, (a.x | a.y | a.z | a.w | b.x | b.y | b.z | b.w) != 0u);
+      if (lane == 0) s_flag[j] = any ? 1u : 0u;
+    }
+    phase ^= (1u << nchunks) - 1u;
+    __syncthreads();
+    const int f = tid < n ? (int)s_flag[tid] : 0;  // seg <= kThreads
+    const unsigned vote = __ballot_sync(0xffffffffu, f != 0);
+    if (lane == 0) s_wsum[warp] = __popc(vote);
+    if (tid < n) frow[start + tid] = (uint32_t)f;
+    __syncthreads();
+    int pre = __popc(vote & ((1u << lane) - 1u)), cnt = 0;
+#pragma unroll
+    for (int i = 0; i < kThreads / 32; ++i) {
+      pre += i < warp ? s_wsum[i] : 0;
+      cnt += s_wsum[i];
+    }
+    if (f) s_src[pre] = tid;
+    if (tid == 0) s_count[p & 1] = cnt;
+    cluster_arrive();  // every block of the row has posted its count
+    cluster_wait();
+    const int v = lane < (int)csize ? dsmem_load(&s_count[p & 1], (unsigned)lane) : 0;
+    const int before = __reduce_add_sync(0xffffffffu, lane < (int)rank ? v : 0);
+    const int total = __reduce_add_sync(0xffffffffu, v);
+    if (p == passes - 1) cluster_arrive();  // done with the others' counts
+    uint4* out = reinterpret_cast<uint4*>(dst + (size_t)(run + before) * kTile);
+    for (int i = tid; i < cnt * (kTile / 4); i += kThreads)
+      __stcs(out + i, reinterpret_cast<const uint4*>(stage + s_src[i / (kTile / 4)] * kTile)
+                          [i % (kTile / 4)]);
+    run += total;
+    __syncthreads();  // stage and s_src are free for the next pass
+  }
+  // the zero tail, slots run .. g, in csize shares
+  const int share = (g - run + (int)csize - 1) / (int)csize;
+  const int z0 = min(g, run + (int)rank * share), z1 = min(g, z0 + share);
+  uint4* zq = reinterpret_cast<uint4*>(dst);
+  for (size_t i = (size_t)z0 * (kTile / 4) + tid; i < (size_t)z1 * (kTile / 4); i += kThreads)
+    __stcs(zq + i, make_uint4(0u, 0u, 0u, 0u));
+  cluster_wait();
+}
+
 constexpr int bucket(int v) { return v <= 4 ? 4 : (v <= 8 ? 8 : 16); }
 
 // Dynamic shared memory of a pipelined launch; above the default 48 KiB
@@ -2132,6 +2345,45 @@ cudaError_t launch_gf_mxu(int device, int blocks, size_t smem, cudaStream_t st,
   gf_matmul_mxu_kernel<SB, OB><<<blocks, bulk ? kMxThreads : kThreads, smem, st>>>(
       in, out, frags, stamps, o, s, length, ntiles, tpb, bulk);
   return cudaGetLastError();
+}
+
+// The one-time opt-ins of a K13 instantiation per device: kPackSegMax
+// groups of dynamic shared memory, and clusters past the portable 8.
+template <bool kBulk>
+cudaError_t pack_opt_in(int device) {
+  static std::atomic<unsigned long long> done{0};
+  const unsigned long long bit = device < 64 ? 1ull << device : 0ull;
+  if (bit && (done.load(std::memory_order_relaxed) & bit)) return cudaSuccess;
+  cudaError_t err =
+      prepare_smem(pack_groups_kernel<kBulk>, (size_t)kPackSegMax * kTile * sizeof(uint32_t));
+  if (err == cudaSuccess)
+    err = cudaFuncSetAttribute(pack_groups_kernel<kBulk>,
+                               cudaFuncAttributeNonPortableClusterSizeAllowed, 1);
+  if (err == cudaSuccess && bit) done.fetch_or(bit, std::memory_order_relaxed);
+  return err;
+}
+
+// The launch of K13 over `rows` clusters of `cluster` blocks, `seg` groups
+// of each block's dynamic shared memory.
+template <bool kBulk>
+cudaError_t launch_pack(int device, const uint32_t* words, uint32_t* flags, uint32_t* packed,
+                        long long rows, int w, int cluster, int seg, cudaStream_t st) {
+  cudaError_t err = pack_opt_in<kBulk>(device);
+  if (err != cudaSuccess) return err;
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = dim3((unsigned)(rows * cluster), 1, 1);
+  cfg.blockDim = dim3(kThreads, 1, 1);
+  cfg.dynamicSmemBytes = (size_t)seg * kTile * sizeof(uint32_t);
+  cfg.stream = st;
+  cudaLaunchAttribute attr[1];
+  attr[0].id = cudaLaunchAttributeClusterDimension;
+  attr[0].val.clusterDim.x = (unsigned)cluster;
+  attr[0].val.clusterDim.y = 1;
+  attr[0].val.clusterDim.z = 1;
+  cfg.attrs = attr;
+  cfg.numAttrs = 1;
+  err = cudaLaunchKernelEx(&cfg, pack_groups_kernel<kBulk>, words, flags, packed, w, seg);
+  return err != cudaSuccess ? err : cudaGetLastError();
 }
 
 }  // namespace
@@ -2555,32 +2807,77 @@ int mtt_gf_matmul_mxu(const MxuArgs* a) {
   return (int)err;
 }
 
-// K12: words (rows, w), w % 256 == 0 -> flags (rows, w / 256) 0/1; with a
-// non-null `packed` (K13) also the full-row prefix pack (rows, w) of
-// pack_kernel on those flags.  Any rows, any 4-byte aligned start.
-// @ctypes mtt_group_flags(c_int, c_void_p, c_void_p, c_void_p, c_int64, c_int, c_void_p) -> c_int
-int mtt_group_flags(int device, const uint32_t* words, uint32_t* flags,
-                    uint32_t* packed, long long rows, int w, void* stream) {
-  if (rows <= 0 || rows > 0x7fffffffLL || w <= 0 || w % kTile != 0)
+// The arguments of one K12 or K13 launch, packed by kernels.py
+// (_GROUP_ARGS: 4 addresses, the rows, 4 ints; `cluster` is K13's, 0 for
+// K12, `seg` K13's segment or K12's run).
+struct GroupArgs {
+  uint64_t words, flags, packed, stream;
+  int64_t rows;
+  int32_t device, w, cluster, seg;
+};
+static_assert(sizeof(GroupArgs) == 56, "kernels._GROUP_ARGS packs 56 bytes");
+
+// K12: words (rows, w), w % 256 == 0 -> flags (rows, w / 256) 0/1, each
+// warp a run of `seg` groups (kernels.group_plan).  With a non-null
+// `packed`, K13 instead: the flags and the full-row prefix pack (rows, w)
+// in one launch of `cluster`-block clusters, one a row, each block
+// staging `seg` groups a pass (kernels.pack_plan).  Any rows, any 4-byte
+// aligned start; `packed` 16-byte aligned.
+// @ctypes mtt_group_flags(c_char_p) -> c_int
+int mtt_group_flags(const GroupArgs* a) {
+  const uint32_t* words = reinterpret_cast<const uint32_t*>(a->words);
+  uint32_t* flags = reinterpret_cast<uint32_t*>(a->flags);
+  uint32_t* packed = reinterpret_cast<uint32_t*>(a->packed);
+  const long long rows = a->rows;
+  const int w = a->w;
+  if (rows <= 0 || w <= 0 || w % kTile != 0 || a->seg < 1) return (int)cudaErrorInvalidValue;
+  const long long groups = rows * (w / kTile);
+  const long long warps = packed == nullptr ? (groups + a->seg - 1) / a->seg : 0;
+  const long long blocks = (warps + kThreads / 32 - 1) / (kThreads / 32);
+  if (packed == nullptr
+          ? blocks > 0x7fffffffLL
+          : a->cluster < 1 || a->cluster > kPackClusterMax ||
+                a->seg > kPackSegMax || rows * a->cluster > 0x7fffffffLL ||
+                (reinterpret_cast<uintptr_t>(packed) & 15u) != 0)
     return (int)cudaErrorInvalidValue;
-  const int g = w / kTile;
-  const long long groups = rows * g;
-  const long long blocks = (groups + kThreads / 32 - 1) / (kThreads / 32);
-  const int pack_y = (g + kGroupsPerBlock - 1) / kGroupsPerBlock;
-  if (blocks > 0x7fffffffLL || (packed != nullptr && pack_y > 65535))
-    return (int)cudaErrorInvalidValue;
-  cudaError_t err = cudaSetDevice(device);
+  cudaError_t err = cudaSetDevice(a->device);
   if (err != cudaSuccess) return (int)err;
-  cudaStream_t st = reinterpret_cast<cudaStream_t>(stream);
-  if ((reinterpret_cast<uintptr_t>(words) & 15u) == 0)
-    group_flags_kernel<true><<<(unsigned)blocks, kThreads, 0, st>>>(words, flags, groups);
+  cudaStream_t st = reinterpret_cast<cudaStream_t>(a->stream);
+  const bool vec = (reinterpret_cast<uintptr_t>(words) & 15u) == 0;
+  if (packed != nullptr)
+    return (int)(vec ? launch_pack<true>(a->device, words, flags, packed, rows, w,
+                                         a->cluster, a->seg, st)
+                     : launch_pack<false>(a->device, words, flags, packed, rows, w,
+                                          a->cluster, a->seg, st));
+  if (vec)
+    group_flags_kernel<true><<<(unsigned)blocks, kThreads, 0, st>>>(words, flags, groups, a->seg);
   else
-    group_flags_kernel<false><<<(unsigned)blocks, kThreads, 0, st>>>(words, flags, groups);
-  err = cudaGetLastError();
-  if (err != cudaSuccess || packed == nullptr) return (int)err;
-  dim3 pgrid((unsigned)rows, pack_y);
-  pack_kernel<<<pgrid, kThreads, 0, st>>>(words, flags, packed, w, g);
+    group_flags_kernel<false><<<(unsigned)blocks, kThreads, 0, st>>>(words, flags, groups, a->seg);
   return (int)cudaGetLastError();
+}
+
+// How many K13 clusters of `cluster` blocks with `seg` groups of shared
+// memory each the card holds at once (kernels.pack_plan), -1 on an error.
+// @ctypes mtt_pack_clusters(c_int, c_int, c_int) -> c_int
+int mtt_pack_clusters(int device, int cluster, int seg) {
+  if (cluster < 1 || cluster > kPackClusterMax || seg < 1 || seg > kPackSegMax) return -1;
+  if (cudaSetDevice(device) != cudaSuccess || pack_opt_in<true>(device) != cudaSuccess)
+    return -1;
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = dim3((unsigned)cluster, 1, 1);
+  cfg.blockDim = dim3(kThreads, 1, 1);
+  cfg.dynamicSmemBytes = (size_t)seg * kTile * sizeof(uint32_t);
+  cudaLaunchAttribute attr[1];
+  attr[0].id = cudaLaunchAttributeClusterDimension;
+  attr[0].val.clusterDim.x = (unsigned)cluster;
+  attr[0].val.clusterDim.y = 1;
+  attr[0].val.clusterDim.z = 1;
+  cfg.attrs = attr;
+  cfg.numAttrs = 1;
+  int n = 0;
+  if (cudaOccupancyMaxActiveClusters(&n, pack_groups_kernel<true>, &cfg) != cudaSuccess)
+    return -1;
+  return n;
 }
 
 // The constants ops/kernels.py shares with this file, as "name=v[,v...]"
@@ -2601,7 +2898,9 @@ const char* mtt_constants() {
       "vr_args_bytes=%d rebuilt_max=%d "
       "mxu_tile_bytes=%d mxu_row_stride=%d mxu_stages=%d "
       "mxu_blocks_per_sm=%d,%d,%d,%d,%d,%d,%d,%d,%d mxu_args_bytes=%d "
-      "ring_swizzle=%d,%d,%d,%d fixed=%s",
+      "ring_swizzle=%d,%d,%d,%d group_args_bytes=%d "
+      "pack_seg_max=%d pack_cluster_max=%d flags_batch=%d flags_blocks_per_sm=%d "
+      "fixed=%s",
       kTile, kMaxRows, kPhashRows, kPhashBlocksPerSM, kPipeBlocksPerSM,
       kEncBlocksPerSM, kGfBlocksPerSM, bucket(1), bucket(2), bucket(3), bucket(4), bucket(5),
       bucket(6), bucket(7), bucket(8), bucket(9), bucket(10), bucket(11),
@@ -2614,7 +2913,8 @@ const char* mtt_constants() {
       k7_min_blocks(8, 16), k7_min_blocks(16, 4), k7_min_blocks(16, 8),
       k7_min_blocks(16, 16),
       (int)sizeof(MxuArgs), ring_swizzle(0),
-      ring_swizzle(4), ring_swizzle(8), ring_swizzle(12),
+      ring_swizzle(4), ring_swizzle(8), ring_swizzle(12), (int)sizeof(GroupArgs),
+      kPackSegMax, kPackClusterMax, kFlagsBatch, kFlagsBlocksPerSM,
       "" MTT_FIXED_GEOMETRIES(MTT_FIXED_STR));
 #undef MTT_FIXED_STR
   (void)len;

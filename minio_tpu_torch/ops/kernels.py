@@ -54,8 +54,12 @@ Nine kernels, all in ``csrc/codec.cu`` (CUDA C++ for ``sm_90a``):
   (X8, X9, left to XLA by the JAX package): the legacy drain's occupancy
   screen of a parity plane (one flag per 256-word group) and its
   nonzero-group prefix pack, as separate passes where K1's pack leg
-  computes them inside the encode.  Both go through one entry: K12's
-  flag kernel, then, for K13, K1's pack launch on those flags.
+  computes them inside the encode.  Both go through one entry and one
+  packed struct (``_GROUP_ARGS``): K12 a grid of at most four waves whose
+  warps walk runs of groups, all their streaming loads issued before
+  their votes (``group_plan``, made once per shape); K13 in one launch of thread-block clusters, one a row, whose
+  blocks stage the row in shared memory and meet through distributed
+  shared memory for the prefix (``pack_plan``, made once per shape).
 
 ``formulation="mxu"`` (MINIO_TPU_CODEC_FORMULATION) on K1, K4, K5 and K6
 swaps their xtime chain for the same tensor-core product (the ``mxu``
@@ -127,6 +131,10 @@ _PHASH_BLOCKS_PER_SM = 2  # K2's one-wave grid (kPhashBlocksPerSM)
 K7_TILE = 1024  # bytes of each row a K7 tile (kMxTile)
 _K7_ROW_STRIDE = K7_TILE + 32  # a ring slot's rows (kMxRowStride)
 _K7_STAGES = 4  # K7's ring depth (kMxStages)
+PACK_SEG_MAX = 192  # groups a K13 block stages a pass (kPackSegMax)
+_PACK_CLUSTER_MAX = 16  # the largest K13 cluster (kPackClusterMax)
+_FLAGS_BATCH = 4  # groups a K12 warp loads before its votes (kFlagsBatch)
+_FLAGS_BLOCKS_PER_SM = 4  # K12's blocks an SM (kFlagsBlocksPerSM)
 
 # (k, m) whose parity product K1 runs as straight-line code with only the
 # matrix's set terms (fixed_parity in codec.cu, generated by fixed_source
@@ -253,9 +261,9 @@ def _load():
         if _lib is None:
             lib = ctypes.CDLL(str(build()))
             P, I, U = ctypes.c_void_p, ctypes.c_int, ctypes.c_uint32
-            # K1, K3, K4, K5 and K7 take one packed argument struct
-            # (_ENCODE_ARGS, _GF_ARGS, _VR_ARGS, _ENCODE_PIPE_ARGS,
-            # _MXU_ARGS):
+            # K1, K3, K4, K5, K7 and K12/K13 take one packed argument
+            # struct (_ENCODE_ARGS, _GF_ARGS, _VR_ARGS, _ENCODE_PIPE_ARGS,
+            # _MXU_ARGS, _GROUP_ARGS):
             # ctypes converts one argument, not 13-20.  In K6 the pointer
             # before the stream is the mxu operand (None: the swar
             # instantiation).
@@ -268,12 +276,14 @@ def _load():
                 I, P, P, P, I, I, I, I, U, U, I, P, I, I, P, P,
             ]
             lib.mtt_gf_matmul_mxu.argtypes = [ctypes.c_char_p]
-            lib.mtt_group_flags.argtypes = [I, P, P, P, ctypes.c_int64, I, P]
+            lib.mtt_group_flags.argtypes = [ctypes.c_char_p]
+            lib.mtt_pack_clusters.argtypes = [I, I, I]
             for fn in (lib.mtt_encode_pack, lib.mtt_encode_pack_pipelined,
                        lib.mtt_phash256, lib.mtt_gf_matmul,
                        lib.mtt_verify_reconstruct,
                        lib.mtt_verify_reconstruct_pipelined,
-                       lib.mtt_gf_matmul_mxu, lib.mtt_group_flags):
+                       lib.mtt_gf_matmul_mxu, lib.mtt_group_flags,
+                       lib.mtt_pack_clusters):
                 fn.restype = ctypes.c_int
             lib.mtt_constants.restype = ctypes.c_char_p
             _check_constants(lib.mtt_constants().decode())
@@ -313,6 +323,9 @@ def _constants() -> dict:
         "mxu_blocks_per_sm": tuple(k7_blocks_per_sm(o, s) for s in (4, 8, 16)
                                    for o in (4, 8, 16)),
         "mxu_args_bytes": (_MXU_ARGS.size,),
+        "group_args_bytes": (_GROUP_ARGS.size,),
+        "pack_seg_max": (PACK_SEG_MAX,), "pack_cluster_max": (_PACK_CLUSTER_MAX,),
+        "flags_batch": (_FLAGS_BATCH,), "flags_blocks_per_sm": (_FLAGS_BLOCKS_PER_SM,),
         "ring_swizzle": tuple(ring_swizzle(r) for r in (0, 4, 8, 12)),
         "fixed": tuple(f"{k}x{m}" for k, m in FIXED_GEOMETRIES),
     }
@@ -533,6 +546,9 @@ _VR_ARGS = struct.Struct("<7Q10i3I4x")
 # K7's (MxuArgs): in, out, frags, stamps, stream addresses; device, o, s,
 # length, blocks, tiles_per_block.
 _MXU_ARGS = struct.Struct("<5Q6i")
+# K12's and K13's (GroupArgs): words, flags, packed, stream addresses;
+# rows; device, w, cluster, seg (K13's plan; for K12 0 and its run).
+_GROUP_ARGS = struct.Struct("<4Qq4i")
 _REBUILT_MAX = 8  # rebuilt rows of the mxu product (kRebuiltMax): min(k, n - k) <= 8
 
 
@@ -879,62 +895,123 @@ def pack_nonzero_groups_plain(words: torch.Tensor, group: int):
     return _flags_and_pack(words, group)
 
 
-def _check_groups(words: torch.Tensor, group: int, name: str) -> None:
-    if words.dim() < 1 or group <= 0 or words.shape[-1] % group:
+def pack_split(g: int, cluster: int, passes: int = 1) -> "tuple[int, int]":
+    """(seg, passes) of a row of ``g`` groups over a K13 cluster: at
+    least ``passes`` passes and as many more as keep each block's segment
+    within ``PACK_SEG_MAX`` groups, the groups spread evenly over them.
+    Pass p's span is groups p * cluster * seg .. (p + 1) * cluster * seg
+    - 1, block r's segment of it the r-th run of ``seg``."""
+    passes = max(passes, -(-g // (cluster * PACK_SEG_MAX)))
+    return -(-g // (cluster * passes)), passes
+
+
+def pack_plan(rows: int, g: int, sms: int, resident) -> "tuple[int, int, int]":
+    """K13's (cluster, seg, passes) for ``rows`` rows of ``g`` groups:
+    one cluster a row, of 16 blocks where the rows at 16 still fit the
+    SMs (heal's 4 rows: 64 SMs, where 8 a row would leave 100 idle), else
+    of 8 (the portable size); then the fewest passes at which the card
+    holds every row's cluster at once - ``resident(cluster, seg)``, the
+    clusters of that split the card holds (``mtt_pack_clusters``).  A
+    second wave of clusters waits for a whole first one: on an H100 the
+    main path's 16 rows in one pass of 160-KiB segments fit 15 clusters
+    of 8, and two passes of 80 KiB measured faster.  Past 16-group
+    segments no split is tried: the fewest passes serve in waves."""
+    for cluster in ((16, 8) if rows * 16 <= sms else (8,)):
+        seg, passes = pack_split(g, cluster)
+        while True:
+            if resident(cluster, seg) >= rows:
+                return cluster, seg, passes
+            if seg <= 16:
+                break
+            seg, passes = pack_split(g, cluster, passes + 1)
+    return (8, *pack_split(g, 8))
+
+
+@functools.lru_cache(maxsize=1024)
+def _pack_plan(rows: int, w: int, index: int) -> "tuple[int, int, int]":
+    """K13's plan over a (rows, w) plane on device ``index``, made once
+    per shape."""
+    lib = _load()
+    return pack_plan(rows, w // TILE, sm_count(torch.device("cuda", index)),
+                     lambda cluster, seg: lib.mtt_pack_clusters(index, cluster, seg))
+
+
+def group_plan(groups: int, sms: int) -> int:
+    """K12's run: the groups each warp walks, at most ``_FLAGS_BATCH`` (so
+    a warp issues all its loads before its first vote) and otherwise as
+    few as keep the grid of ``-(-groups // (8 * run))`` blocks within four
+    waves of ``_FLAGS_BLOCKS_PER_SM`` blocks an SM.  On an H100 that is
+    run 2 at the main path's plane (1,280 blocks), which beat one group a
+    warp and the one-wave grid of runs of 5 in ``chip_smoke.py --only
+    legacy``'s sweep, and run 1 at heal's.  Warp v takes groups v * run ..
+    v * run + run - 1 (the last warp fewer), so the runs cover every group
+    once."""
+    waves = 4 * sms * _FLAGS_BLOCKS_PER_SM * 8  # warps
+    return min(_FLAGS_BATCH, max(1, -(-groups // waves)))
+
+
+@functools.lru_cache(maxsize=1024)
+def _group_plan(groups: int, index: int) -> int:
+    """K12's run over ``groups`` groups on device ``index``, made once
+    per shape."""
+    return group_plan(groups, sm_count(torch.device("cuda", index)))
+
+
+def _group_call(words: torch.Tensor, group: int, name: str, pack: bool,
+                run: "int | None" = None):
+    """K12 (or with ``pack`` K13) on ``words``, each check once and on the
+    tensor's cheapest attributes (the call is a few microseconds of host
+    time on the card): (flags, packed or None).  ``run`` overrides K12's
+    plan (``group_plan``)."""
+    shape = words.shape
+    if not shape or group <= 0 or shape[-1] % group:
         raise ValueError(f"{name}: the last dim must be a multiple of group {group}")
-
-
-def _launch_group_flags(words: torch.Tensor, group: int, name: str, pack: bool):
-    """K12 (and with ``pack`` K1's pack launch on its flags) on checked
-    CUDA words: (flags, packed or None)."""
+    if not words.is_cuda:
+        if words.device.type != "cpu":
+            raise ValueError(f"{name}: expected a CUDA tensor, got {words.device}")
+        if pack:
+            return pack_nonzero_groups_plain(words, group)
+        return group_flags_plain(words, group), None
     if words.dtype != torch.int32:
         raise TypeError(f"{name}: expected torch.int32, got {words.dtype}")
     if not words.is_contiguous():
         raise ValueError(f"{name}: expected a contiguous tensor")
     if group != TILE:
         raise ValueError(f"{name}: the kernel takes group {TILE}, got {group}")
-    *lead, w = words.shape
+    w = shape[-1]
     rows = words.numel() // w if w else 0
-    dev = words.device
-    flags = torch.empty((*lead, w // group), dtype=torch.int32, device=dev)
-    packed = torch.empty_like(words) if pack else None
+    index = words.get_device()
+    flags = words.new_empty((*shape[:-1], w // TILE))
+    packed = words.new_empty(shape) if pack else None
     if rows:
-        rc = _load().mtt_group_flags(
-            dev.index, words.data_ptr(), flags.data_ptr(),
-            packed.data_ptr() if pack else None, rows, w, _stream(words),
-        )
+        if pack:
+            cluster, seg, _passes = _pack_plan(rows, w, index)
+        else:
+            cluster, seg = 0, run or _group_plan(rows * (w // TILE), index)
+        lib = _lib if _lib is not None else _load()
+        rc = lib.mtt_group_flags(_GROUP_ARGS.pack(
+            words.data_ptr(), flags.data_ptr(), packed.data_ptr() if pack else 0,
+            torch._C._cuda_getCurrentRawStream(index), rows, index, w, cluster, seg,
+        ))
         _check_rc(rc, name)
+        _count("pack_nonzero_groups" if pack else "group_flags")
     return flags, packed
 
 
 def group_flags(words: torch.Tensor, group: int = TILE) -> torch.Tensor:
     """(..., w) int32 words -> (..., w // group) int32 flags, 1 where the
     group of ``group`` words holds a nonzero word.  On the card: one K12
-    launch (group must be 256); any rows, any 4-byte aligned start."""
-    _check_groups(words, group, "group_flags")
-    if words.device.type == "cpu":
-        return group_flags_plain(words, group)
-    if words.device.type != "cuda":
-        raise ValueError(f"group_flags: expected a CUDA tensor, got {words.device}")
-    flags, _packed = _launch_group_flags(words, group, "group_flags", False)
-    _count("group_flags")
-    return flags
+    launch, each warp a run of groups (``group_plan``; group must be
+    256); any rows, any 4-byte aligned start."""
+    return _group_call(words, group, "group_flags", False)[0]
 
 
 def pack_nonzero_groups(words: torch.Tensor, group: int = TILE):
     """(..., w) int32 words -> (flags (..., g) int32 0/1, packed (..., w)
     int32): each row's nonzero groups moved to the front in order, zeros
-    behind them.  On the card: K12's flag launch, then K1's pack launch
-    on those flags (group must be 256)."""
-    _check_groups(words, group, "pack_nonzero_groups")
-    if words.device.type == "cpu":
-        return pack_nonzero_groups_plain(words, group)
-    if words.device.type != "cuda":
-        raise ValueError(
-            f"pack_nonzero_groups: expected a CUDA tensor, got {words.device}")
-    flags, packed = _launch_group_flags(words, group, "pack_nonzero_groups", True)
-    _count("pack_nonzero_groups")
-    return flags, packed
+    behind them.  On the card: one K13 launch, one cluster a row (group
+    must be 256); any rows, any 4-byte aligned start."""
+    return _group_call(words, group, "pack_nonzero_groups", True)
 
 
 # ---------------------------------------------------------------------------

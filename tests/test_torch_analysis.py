@@ -559,7 +559,8 @@ def test_abi_real_seam_clean_and_fully_annotated():
         "mtt_encode_pack", "mtt_encode_pack_pipelined", "mtt_phash256",
         "mtt_gf_matmul", "mtt_verify_reconstruct",
         "mtt_verify_reconstruct_pipelined", "mtt_gf_matmul_mxu",
-        "mtt_group_flags", "mtt_constants", "mts_screen", "mts_positions",
+        "mtt_group_flags", "mtt_pack_clusters", "mtt_constants", "mts_screen",
+        "mts_positions",
         "mts_spans", "mts_gather", "mts_constants",
     }
     assert all(e.annot_args is not None for e in exports.values())

@@ -528,7 +528,8 @@ def test_constants_check_accepts_the_library_string_and_refuses_drift():
         "encode_pipe_args_bytes=104 gf_args_bytes=72 vr_args_bytes=112 "
         "rebuilt_max=8 mxu_tile_bytes=1024 mxu_row_stride=1056 mxu_stages=4 "
         "mxu_blocks_per_sm=2,2,1,2,2,1,2,1,1 mxu_args_bytes=64 "
-        "ring_swizzle=0,2,4,6 fixed=," + fixed
+        "ring_swizzle=0,2,4,6 group_args_bytes=56 pack_seg_max=192 "
+        "pack_cluster_max=16 flags_batch=4 flags_blocks_per_sm=4 fixed=," + fixed
     )
     kernels._check_constants(text)
     assert kernels.parse_constants(text)["vr_terms_bytes"] == (548, 2088, 3623)

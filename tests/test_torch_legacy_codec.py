@@ -33,7 +33,14 @@ from minio_tpu_torch.storage.xl import XLStorage
 from tests.test_torch_threads import torch_threads  # noqa: F401
 
 G = 256
-KINDS = ("dense", "sparse", "zeros", "nonzero")
+KINDS = ("dense", "sparse", "zeros", "nonzero", "full", "first", "last")
+# planes on the edges of K12's and K13's partitions (tests/
+# test_torch_legacy_redesign.py): 6 rows of 21 groups (16-block clusters,
+# g not a multiple), 16 of 13 (8-block clusters), 12 of 5 and 1 of 3 (g
+# below the cluster), 1 row of 3,077 and 9 of 1,541 groups (past one
+# cluster's shared memory at 16 and 8 blocks: two passes)
+EDGE_SHAPES = [(2, 3, 21 * G), (4, 4, 13 * G), (3, 4, 5 * G), (1, 3 * G),
+               (1, 1, 3077 * G), (3, 3, 1541 * G)]
 
 
 @pytest.fixture(autouse=True)
@@ -47,8 +54,9 @@ def _fresh_backends(monkeypatch):
 
 
 def _plane(kind: str, shape, seed: int = 0) -> np.ndarray:
-    """u32 words: random, random on a third of the groups, all zero, or
-    one nonzero word (high bit set) in every group."""
+    """u32 words: random, random on a third of the groups, all zero, one
+    nonzero word (high bit set) in every group, no zero word, or one
+    nonzero word in each row's first or last group."""
     rng = np.random.default_rng(seed)
     words = rng.integers(0, 2**32, shape, dtype=np.uint32)
     *lead, w = shape
@@ -63,6 +71,13 @@ def _plane(kind: str, shape, seed: int = 0) -> np.ndarray:
         at = rng.integers(0, G, (*lead, g))
         grouped = words.reshape(*lead, g, G)
         np.put_along_axis(grouped, at[..., None], np.uint32(0x80000000), axis=-1)
+    elif kind == "full":
+        words |= np.uint32(1)
+    elif kind in ("first", "last"):
+        words[:] = 0
+        rows = words.reshape(-1, w)
+        at = rng.integers(0, G, len(rows)) + (0 if kind == "first" else w - G)
+        rows[np.arange(len(rows)), at] = rng.integers(1, 2**32, len(rows), dtype=np.uint32)
     return words
 
 
@@ -71,7 +86,8 @@ def _t(words: np.ndarray) -> torch.Tensor:
 
 
 @pytest.mark.parametrize("kind", KINDS)
-@pytest.mark.parametrize("shape", [(2, 3, 4 * G), (5, 2 * G), (3, 2, 2, 16 * G)])
+@pytest.mark.parametrize("shape", [(2, 3, 4 * G), (5, 2 * G), (3, 2, 2, 16 * G),
+                                   *EDGE_SHAPES])
 def test_group_flags_and_pack_equal_jax(kind, shape):
     words = _plane(kind, shape, seed=len(shape))
     flags = tcs.group_flags(_t(words), G)

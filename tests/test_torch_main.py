@@ -57,10 +57,27 @@ def _env(**extra) -> dict:
     return {k: v for k, v in env.items() if v is not None}
 
 
+# sockets that keep the ports _free_port handed out bound, for the life of
+# the worker process
+_RESERVED: "list[socket.socket]" = []
+
+
 def _free_port() -> int:
-    with socket.socket() as s:
-        s.bind(("127.0.0.1", 0))
-        return s.getsockname()[1]
+    """A free port that stays reserved for the server that will listen on
+    it.  A port released at once can be handed to another process's
+    port-0 bind before the server binds it - and the server's listeners
+    take SO_REUSEPORT, so the two would share it, each taking some of
+    the other's connections.  The reserving socket stays bound, so no
+    port-0 bind returns the port; it carries SO_REUSEADDR and
+    SO_REUSEPORT, so the server's listeners bind beside it, and it never
+    listens, so it takes no connection."""
+    s = socket.socket()
+    s.setsockopt(socket.SOL_SOCKET, socket.SO_REUSEADDR, 1)
+    if hasattr(socket, "SO_REUSEPORT"):
+        s.setsockopt(socket.SOL_SOCKET, socket.SO_REUSEPORT, 1)
+    s.bind(("127.0.0.1", 0))
+    _RESERVED.append(s)
+    return s.getsockname()[1]
 
 
 def _ready(port: int) -> "int | None":
