@@ -366,6 +366,23 @@
    heal puts the drive's part file back, equal to settle's by erasure
    index.  Prints the ``parity_ack:`` line with the card's name and power
    limit.
+13f. The native CPU codec (``native_phase``, slice 12, after
+   ``parity_ack``): builds ``csrc/gf_cpu.cc`` with g++ and prints the
+   build seconds, AVX2, the stripe threads, the host CPU's model and the
+   card's name and power limit; then at three shapes (``NATIVE_SHAPES``:
+   the main path's EC 8+4 batch (4, 8, 1,310,720) encode and
+   reconstruct+verify with shards 1, 3, 10, 12 lost; BASELINE.json's EC
+   4+2 on 1 MiB blocks, 64 stripes, encode; its EC 16+4 on 1 MiB blocks,
+   64 stripes, 3 shards lost, reconstruct+verify) the native codec's
+   GB/s at B = 1 and the full batch, TorchBackend's on the card from host
+   numpy, and the device ms of K1 and K5, K4 and K6 (K2 and K3 at EC
+   16+4, which K4 and K6 refuse), every native output equal to the
+   card's bit for bit; then one server CLI under MINIO_ERASURE_BACKEND=cpu
+   over 12 drives: PUT, GET, GET with 4 drives failing, heal of their
+   shards, each in MB/s, an object's part files and xl.meta equal to a
+   card-backed layer's, ``kernel-stats`` all ``cpu`` with no launch.
+   Prints the ``native:`` line with the card-to-native ratios, the
+   yardstick of BASELINE.json's north star.
 14. The chaos grid (``grid_phase``, slice 9d): the first four cells of
    ``GRID_ORDER`` (``GRID_RUN``: heal_storm, dead_remote_disks,
    replication_lag_churn, select_heavy_mix) on
@@ -382,7 +399,7 @@ Exits non-zero, without the result lines, when there is no CUDA device or
 when any phase fails.  ``--only NAMES [--repeat N]`` runs only the named
 phases (``legacy``, ``select``, ``cluster``, ``federation``,
 ``replication``, ``backends``, ``web``, ``parity_ack``, ``mesh``,
-``analysis``, or ``grid:CELL[+CELL...]``) after the build, N times in
+``analysis``, ``native``, or ``grid:CELL[+CELL...]``) after the build, N times in
 turn, and prints one line a run and an ``only:`` tally, e.g.
 ``python3 chip_smoke.py --only grid:select_heavy_mix --repeat 20``.
 """
@@ -8313,6 +8330,400 @@ def parity_ack_phase(work: str, backend: "str | None" = None) -> dict:
     return out
 
 
+# -- phase 13f: the native CPU codec beside the card's (slice 12) -----------
+
+# (name, k, m, stripes, shard bytes, op, lost erasure indices 1-based):
+# the main path's batch (EC 8+4, 10 MiB blocks, 4 of them), encode and
+# reconstruct+verify with shards 1, 3, 10 and 12 lost; BASELINE.json's
+# first configuration (EC 4+2, 1 MiB blocks, 64 stripes), encode; its
+# third (EC 16+4, 1 MiB blocks, 3 shards lost, 64 stripes), reconstruct
+# + verify
+NATIVE_SHAPES = (
+    ("ec8_4_main", K, M, 4, BLOCK // K, ("encode", "verify"), (1, 3, 10, 12)),
+    ("ec4_2_1MiB", 4, 2, 64, (1 << 20) // 4, ("encode",), ()),
+    ("ec16_4_1MiB", 16, 4, 64, (1 << 20) // 16, ("verify",), (2, 9, 17)),
+)
+NATIVE_REPS = 5  # timed calls of each figure; the median is printed
+NATIVE_DRIVES = "disk{1...12}"  # one EC 8+4 set, the BASELINE.json deployment
+NATIVE_OBJECTS = 2  # of S3_BIG
+NATIVE_OFFLINE = (1, 3, 10, 12)  # the drives taken offline, then healed
+NATIVE_BUCKET = "native"
+
+
+def cpu_model() -> str:
+    """The host CPU's model name, core count and SIMD flags: /proc/cpuinfo's
+    ``model name``, else lscpu's ``Model name``, else its vendor, family
+    and model numbers (a host may report its model as ``unknown``)."""
+    fields: dict = {}
+    try:
+        with open("/proc/cpuinfo") as f:
+            for line in f:
+                key, _, value = line.partition(":")
+                fields.setdefault(key.strip(), value.strip())
+    except OSError:
+        pass
+    name = fields.get("model name", "")
+    if name.lower() in ("", "unknown"):
+        try:
+            out = subprocess.run(["lscpu"], capture_output=True, text=True,
+                                 timeout=30).stdout
+        except (OSError, subprocess.TimeoutExpired):
+            out = ""
+        name = next((line.split(":", 1)[1].strip() for line in out.splitlines()
+                     if line.startswith("Model name")), "")
+    if name.lower() in ("", "unknown"):
+        name = (f"{fields.get('vendor_id', 'unknown vendor')} family "
+                f"{fields.get('cpu family', '?')} model {fields.get('model', '?')}")
+    flags = set(fields.get("flags", "").split())
+    simd = "/".join(f for f in ("avx2", "avx512f", "gfni") if f in flags)
+    return f"{name}, {os.cpu_count()} cores" + (f", {simd}" if simd else "")
+
+
+def _median_s(fn, reps: int = NATIVE_REPS) -> float:
+    """Median wall seconds of ``reps`` calls after one untimed call."""
+    fn()
+    times = []
+    for _ in range(reps):
+        t0 = time.perf_counter()
+        fn()
+        times.append(time.perf_counter() - t0)
+    return _median(times)
+
+
+def native_shapes(dev, rng) -> dict:
+    """Part (b) of the native phase: each NATIVE_SHAPES shape through the
+    native codec (B = 1 and the full batch) and through TorchBackend on
+    the card from host numpy (wall: H2D, kernels, D2H), with the times of
+    the card's kernels from ``device_times`` (CUDA-graph device ms and
+    the L2-cold ms); every native output equal to the card's bit for
+    bit."""
+    import numpy as np
+    import torch
+
+    from minio_tpu_torch.codec.backend import CodecBackend, TorchBackend
+    from minio_tpu_torch.ops import codec_step, gf, kernels
+    from minio_tpu_torch.utils import native
+
+    tb = TorchBackend(dev)
+    out: dict = {"overlap_mode": codec_step.codec_overlap_mode(dev)}
+    for name, k, m, B, L, ops, lost in NATIVE_SHAPES:
+        n = k + m
+        data = np.frombuffer(rng.bytes(B * k * L), np.uint8).reshape(B, k, L)
+        nbytes = data.nbytes  # GB/s counts data bytes (B x k x L)
+        res: dict = {"k": k, "m": m, "stripes": B, "shard_bytes": L,
+                     "data_bytes": nbytes}
+        parity, digests = native.encode_and_hash_cpu(data, m)
+        words_d = codec_step.words_to_tensor(
+            codec_step.host_bytes_to_words(data), dev)
+        if "encode" in ops:
+            s1 = _median_s(lambda: native.encode_and_hash_cpu(data[:1], m))
+            sB = _median_s(lambda: native.encode_and_hash_cpu(data, m))
+            card = tb.encode(data, m)
+            if not (np.array_equal(card[0], parity)
+                    and np.array_equal(card[1], digests)):
+                fail(f"native: {name} encode differs from the card's")
+            for kern in (kernels.encode_pack, kernels.encode_pack_pipelined):
+                p_d, d_d, _f, _p = kern(words_d, m, L, 0)
+                if not (np.array_equal(codec_step.tensor_to_words(p_d),
+                                       parity.view(np.uint32))
+                        and np.array_equal(codec_step.tensor_to_words(d_d),
+                                           digests)):
+                    fail(f"native: {name} {kern.__name__} differs from the "
+                         "native encode")
+            sw = _median_s(lambda: tb.encode(data, m))
+            res["encode"] = {
+                "native_B1_GBps": k * L / s1 / 1e9,
+                "native_GBps": nbytes / sB / 1e9,
+                "card_wall_GBps": nbytes / sw / 1e9,
+                "K1": device_times(lambda: kernels.encode_pack(words_d, m, L, 0)),
+                "K5": device_times(
+                    lambda: kernels.encode_pack_pipelined(words_d, m, L, 0)),
+            }
+            res["encode"]["card_K5_GBps"] = (
+                nbytes / res["encode"]["K5"]["device_ms"] / 1e6)
+        if "verify" in ops:
+            present = np.ones(n, bool)
+            present[[i - 1 for i in lost]] = False
+            shards = np.concatenate([data, parity], axis=1)
+            shards[:, ~present] = 0  # lost rows read as zeros
+            pres_t = tuple(bool(p) for p in present)
+            got, ok = native.reconstruct_and_verify_cpu(shards, digests,
+                                                        present, k, m)
+            if not (np.array_equal(got, data)
+                    and np.array_equal(ok, np.tile(present, (B, 1)))):
+                fail(f"native: {name} reconstruct+verify lost the data")
+            s1 = _median_s(lambda: native.reconstruct_and_verify_cpu(
+                shards[:1], digests[:1], present, k, m))
+            sB = _median_s(lambda: native.reconstruct_and_verify_cpu(
+                shards, digests, present, k, m))
+            before = dict(kernels.LAUNCHES)
+            try:
+                card_rv = tb.reconstruct_and_verify
+                card = card_rv(shards, digests, present, k, m)
+                refused = None
+            except ValueError as e:
+                # K4/K6 take at most 16 rows: the composed pass (K2's
+                # digests, then K3's reconstruct) serves wider sets
+                refused = str(e)
+                card_rv = functools.partial(CodecBackend.reconstruct_and_verify, tb)
+                card = card_rv(shards, digests, present, k, m)
+            ran = {kn: v - before.get(kn, 0) for kn, v in kernels.LAUNCHES.items()
+                   if v != before.get(kn, 0)}
+            if not (np.array_equal(card[0], got) and np.array_equal(card[1], ok)):
+                fail(f"native: {name} reconstruct+verify differs from the card's")
+            sw = _median_s(lambda: card_rv(shards, digests, present, k, m))
+            sh_d = codec_step.words_to_tensor(
+                codec_step.host_bytes_to_words(shards), dev)
+            rv = {"native_B1_GBps": k * L / s1 / 1e9,
+                  "native_GBps": nbytes / sB / 1e9,
+                  "card_wall_GBps": nbytes / sw / 1e9,
+                  "card_kernels": ran, "card_refused": refused}
+            if refused is None:
+                for label, kern in (("K4", kernels.verify_reconstruct),
+                                    ("K6", kernels.verify_reconstruct_pipelined)):
+                    d_d, _g = kern(sh_d, pres_t, k, L)
+                    if not np.array_equal(codec_step.tensor_to_words(d_d),
+                                          got.view(np.uint32)):
+                        fail(f"native: {name} {label} differs from the native "
+                             "reconstruct")
+                    rv[label] = device_times(
+                        lambda kern=kern: kern(sh_d, pres_t, k, L))
+                rv["card_K6_GBps"] = nbytes / rv["K6"]["device_ms"] / 1e6
+            else:
+                surv = tuple(int(i) for i in np.nonzero(present)[0][:k])
+                rm = gf.reconstruction_matrix(k, m, surv)
+                rv["K2"] = device_times(lambda: kernels.phash256_batched(sh_d, L))
+                rv["K3"] = device_times(
+                    lambda: kernels.gf_matmul_words(rm, sh_d, surv))
+                rv["card_K2_K3_GBps"] = nbytes / (
+                    rv["K2"]["device_ms"] + rv["K3"]["device_ms"]) / 1e6
+            res["verify"] = rv
+        out[name] = res
+        del words_d
+        torch.cuda.empty_cache()
+    return out
+
+
+def native_server(dev, work: str) -> dict:
+    """Part (c) of the native phase: one ``python -m minio_tpu_torch.server
+    --parity 4`` under MINIO_ERASURE_BACKEND=cpu over 12 drives (EC 8+4,
+    10 MiB blocks, MINIO_TPU_FAULT_INJECTION=1, MINIO_TPU_BREAKER=0).  PUT NATIVE_OBJECTS x
+    S3_BIG, GET them healthy and with NATIVE_OFFLINE drives failing every
+    call, then (once the server counts every drive online again and the
+    MRF heals the degraded GETs queued have finished) delete those drives'
+    part files and heal each object with an admin heal:
+    MB/s of each, bodies and rebuilt part files equal to
+    their sources.  The first object's part files and xl.meta equal, by
+    erasure index, those of the same PUT to an S3Server in this process
+    whose layer runs on the card; the server's ``kernel-stats`` books
+    every codec op under ``cpu`` and no kernel launch."""
+    import hashlib
+
+    import numpy as np
+
+    from minio_tpu_torch.objectlayer.erasure_object import ErasureObjects
+    from minio_tpu_torch.server.http import S3Server
+    from minio_tpu_torch.storage.meta import XLMeta
+    from minio_tpu_torch.storage.xl import XLStorage
+
+    base = os.path.join(work, "native")
+    os.makedirs(base)
+    rng = np.random.default_rng(SEED + 30)
+    objs = {f"n{i}": rng.bytes(S3_BIG) for i in range(NATIVE_OBJECTS)}
+    sha = {k: hashlib.sha256(v).hexdigest() for k, v in objs.items()}
+    nbytes = sum(len(v) for v in objs.values())
+    roots = [os.path.join(base, f"disk{j + 1}") for j in range(N)]
+    env = {k: v for k, v in os.environ.items()
+           if not k.startswith("MINIO_TPU_") and k != "MINIO_ERASURE_BACKEND"}
+    # no drive breakers: a drive is back the moment its faults clear, so
+    # the heal's time is the heal's alone
+    env.update({"MINIO_TPU_LOG_LEVEL": "warning", "MINIO_TPU_FAULT_INJECTION": "1",
+                "MINIO_ERASURE_BACKEND": "cpu", "MINIO_TPU_BREAKER": "0"})
+    out: dict = {"drives": N, "objects": NATIVE_OBJECTS, "object_bytes": S3_BIG}
+
+    def meta_by_index(rts: list, key: str) -> dict:
+        got = {}
+        for r in rts:
+            fi = XLStorage(r).read_version(NATIVE_BUCKET, key)
+            with open(os.path.join(r, NATIVE_BUCKET, key, "xl.meta"), "rb") as f:
+                docs = [v.to_dict() for v in XLMeta.from_bytes(f.read()).versions]
+            for d in docs:
+                for volatile in ("mod_time_ns", "data_dir", "version_id"):
+                    d.pop(volatile)
+            got[fi.erasure.index] = docs
+        return got
+
+    srv = _BootedServer(base, _free_port(), env, "native",
+                        drives=os.path.join(base, NATIVE_DRIVES),
+                        what="native phase")
+    card_srv = None
+    try:
+        out["spawn_to_ready_s"] = srv.wait_ready()
+        c = S3Signer("127.0.0.1", srv.port)
+
+        def admin(method: str, path: str, body: bytes = b"", query=None):
+            st, _h, got = c.request(method, f"{ADMIN}/{path}", query or {}, body)
+            if st != 200:
+                fail(f"native: admin {method} {path}: {st} {got[:300]!r}")
+            return json.loads(got) if got else {}
+
+        def get_all(what: str) -> float:
+            t0 = time.monotonic()
+            for key in objs:
+                st, _h, body = c.request("GET", f"/{NATIVE_BUCKET}/{key}")
+                if st != 200 or hashlib.sha256(body).hexdigest() != sha[key]:
+                    fail(f"native: {what} GET {key}: {st}, not the payload")
+            return time.monotonic() - t0
+
+        try:
+            if c.request("PUT", f"/{NATIVE_BUCKET}")[0] != 200:
+                fail("native: bucket create failed")
+            t0 = time.monotonic()
+            for key, body in objs.items():
+                st, _h, got = c.request("PUT", f"/{NATIVE_BUCKET}/{key}", body=body,
+                                        payload_hash=sha[key])
+                if st != 200:
+                    fail(f"native: PUT {key}: {st} {got[:200]!r}")
+            out["put_MBps"] = nbytes / (time.monotonic() - t0) / 1e6
+            out["get_MBps"] = nbytes / get_all("healthy") / 1e6
+            for d in NATIVE_OFFLINE:
+                admin("POST", "fault/inject", json.dumps(
+                    {"disk": f"/disk{d}", "api": "*", "error": True}).encode())
+            try:
+                out["get_degraded_MBps"] = nbytes / get_all("degraded") / 1e6
+                status = admin("GET", "fault/status")
+            finally:
+                admin("POST", "fault/clear", b'{"disk": "*"}')
+            failed = sorted(int(os.path.basename(r)[4:]) for r, v in status.items()
+                            if sum(v["injected"].values()))
+            if failed != list(NATIVE_OFFLINE):
+                fail(f"native: the offline drives that failed: {failed}")
+            # a drive's identity check keeps its failed verdict up to 1 s:
+            # heal once every drive counts online again
+            t0 = time.monotonic()
+            while admin("GET", "storageinfo")["zones"][0]["online"] != N:
+                if time.monotonic() - t0 > 30:
+                    fail("native: the drives did not come back online")
+                time.sleep(0.05)
+            out["online_after_clear_s"] = time.monotonic() - t0
+            # the degraded GETs queued MRF heals of both objects: let them
+            # finish (nothing queued, the count of finished heals still for
+            # 1 s) before the deletes, so the admin heals rebuild every file
+            t0, last = time.monotonic(), None
+            while True:
+                me = admin("GET", "background-heal/status")["nodes"][0]
+                done = me["healed"] + me["failed"]
+                if me["queued"] == 0 and done == last:
+                    break
+                if time.monotonic() - t0 > 60:
+                    fail(f"native: the MRF heals did not settle: {me}")
+                last = done if me["queued"] == 0 else None
+                time.sleep(1.0)
+            out["mrf_settled_s"] = time.monotonic() - t0
+            # heal: the offline drives' part files deleted, then rebuilt
+            want = {key: _by_index(roots, NATIVE_BUCKET, key, 1) for key in objs}
+            for key in objs:
+                for d in NATIVE_OFFLINE:
+                    r = roots[d - 1]
+                    fi = XLStorage(r).read_version(NATIVE_BUCKET, key)
+                    os.remove(os.path.join(r, NATIVE_BUCKET, key, fi.data_dir,
+                                           "part.1"))
+            t0 = time.monotonic()
+            healed = [admin("POST", "heal", query={"bucket": NATIVE_BUCKET,
+                                                   "object": key})
+                      for key in objs]
+            out["heal_MBps"] = nbytes / (time.monotonic() - t0) / 1e6
+            if any(len(h["healed"]) != len(NATIVE_OFFLINE) for h in healed):
+                fail(f"native: the heals rebuilt {[h['healed'] for h in healed]}")
+            for key in objs:
+                if _by_index(roots, NATIVE_BUCKET, key, 1) != want[key]:
+                    fail(f"native: the healed part files of {key} differ")
+            stats = admin("GET", "kernel-stats")
+        finally:
+            c.close()
+        backends = {row["backend"] for row in stats["ops"]}
+        ops = {row["op"]: row["calls"] for row in stats["ops"]}
+        launched = {k: v for k, v in stats["launches"].items() if v}
+        out.update({"backends": sorted(backends), "ops": ops, "launches": launched})
+        if backends != {"cpu"} or "encode_digest" not in ops or launched:
+            fail(f"native: the cpu server's kernel-stats: backends {backends}, "
+                 f"ops {ops}, launches {launched}")
+        out["sigterm_s"] = srv.sigterm()
+
+        # the same PUT of the first object to a card-backed layer
+        card_roots = [os.path.join(base, f"card{j + 1}") for j in range(N)]
+        ol = ErasureObjects([XLStorage(r) for r in card_roots], parity_blocks=M,
+                            device=dev)
+        card_srv = S3Server(ol, address="127.0.0.1:0").start()
+        cc = S3Signer(card_srv.host, card_srv.port)
+        try:
+            key = next(iter(objs))
+            if cc.request("PUT", f"/{NATIVE_BUCKET}")[0] != 200:
+                fail("native: the card server's bucket create failed")
+            st, _h, got = cc.request("PUT", f"/{NATIVE_BUCKET}/{key}", body=objs[key],
+                                     payload_hash=sha[key])
+            if st != 200:
+                fail(f"native: the card server's PUT {key}: {st}")
+        finally:
+            cc.close()
+        if (_by_index(card_roots, NATIVE_BUCKET, key, 1)
+                != _by_index(roots, NATIVE_BUCKET, key, 1)):
+            fail(f"native: {key}'s part files differ from the card's")
+        if meta_by_index(card_roots, key) != meta_by_index(roots, key):
+            fail(f"native: {key}'s xl.meta differs from the card's")
+        out["files_equal_card"] = True
+    finally:
+        srv.kill()
+        if card_srv is not None:
+            card_srv.shutdown()
+        shutil.rmtree(base, ignore_errors=True)
+    return out
+
+
+def native_phase(dev, work: str) -> dict:
+    """Phase 13f (slice 12): the native CPU codec (utils/native.py,
+    csrc/gf_cpu.cc) on the card's host beside K1-K6.  (a) builds the
+    library (g++) and describes the host: build seconds, AVX2,
+    default_threads(), CPU model, the card's name and power limit;
+    (b) ``native_shapes``; (c) ``native_server``.  Prints the ``native:``
+    line: GB/s of each shape's native codec at B = 1 and the full batch
+    beside the card's, and the card-to-native ratios, the yardstick of
+    BASELINE.json's north star (a measurement, not a claim)."""
+    import numpy as np
+
+    from minio_tpu_torch.utils import native
+
+    t_phase = time.monotonic()
+    built = not os.path.exists(native._so_path())
+    t0 = time.monotonic()
+    native.lib()
+    res: dict = {
+        "build_s": time.monotonic() - t0, "built": built,
+        "avx2": native.has_avx2(), "threads": native.default_threads(),
+        "cpu": cpu_model(), "card": card_name(),
+    }
+    res["shapes"] = native_shapes(dev, np.random.default_rng(SEED + 29))
+    res["server"] = native_server(dev, work)
+    ratios = {}
+    for name, shape in res["shapes"].items():
+        if not isinstance(shape, dict):
+            continue
+        for op in ("encode", "verify"):
+            r = shape.get(op)
+            if r:
+                ratios[f"{name} {op}"] = {
+                    "card_wall_over_native": r["card_wall_GBps"] / r["native_GBps"],
+                    "card_wall_over_native_B1": r["card_wall_GBps"] / r["native_B1_GBps"],
+                }
+    res["ratios"] = ratios
+    res["yardstick"] = ("BASELINE.json north star: the card's encode+reconstruct "
+                        "GB/s over the AVX2 CPU codec's on EC 8+4, 1 MiB blocks; "
+                        "a measurement here, not a claim")
+    res["phase_s"] = time.monotonic() - t_phase
+    print("native: " + json.dumps(res), flush=True)
+    return res
+
+
 # -- phase 9c: bucket configurations enforced by the data crawler -----------
 
 BC_TAGGED = 4  # objects of S3_BIG with x-amz-tagging, PUT by 4 clients (cut from 16, then 8)
@@ -9211,6 +9622,7 @@ ONLY_PHASES = {
     "parity_ack": lambda dev, work: parity_ack_phase(work),
     "mesh": lambda dev, work: mesh_phase(dev, work),
     "analysis": lambda dev, work: analysis_phase(dev, work),
+    "native": lambda dev, work: native_phase(dev, work),
 }
 
 
@@ -9405,6 +9817,8 @@ def main() -> int:
         lap("web")
         pa = parity_ack_phase(work)
         lap("parity_ack")
+        native_phase(dev, work)  # prints its own ``native:`` line
+        lap("native")
         grid = grid_phase(work)
         lap("grid")
     finally:

@@ -8,7 +8,8 @@ The JAX package's six passes, retargeted to the port's seams:
   loop-blocking calls, read-cache invalidation, stale suppressions);
 * ``abi_contracts``   - ctypes/ABI rules MTPU401-405 across the
   Python/CUDA seam (ops/kernels.py and ops/select_step.py against the
-  ``extern "C"`` blocks of csrc/codec.cu and csrc/select.cu);
+  ``extern "C"`` blocks of csrc/codec.cu and csrc/select.cu) and the
+  native codec's (utils/native.py against csrc/gf_cpu.cc);
 * ``kernel_contracts``- contracts MTPU201-204 for every kernel wrapper:
   the wrappers run on real tensors (the plain versions on the CPU, the
   kernels when the run asks for the card);
@@ -139,7 +140,7 @@ def run_lint(paths: "list[str] | None" = None) -> "list[Finding]":
         raw = lint_source(rel, mod.text, tree=mod.tree)
         findings.extend(raw)
         raw_for_audit = list(raw)
-        if rel in abi_contracts.PY_RELS:
+        if rel in abi_contracts.binding_rels():
             raw_for_audit.extend(
                 f for f in abi_contracts.raw_run() if f.path == rel
             )

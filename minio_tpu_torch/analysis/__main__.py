@@ -49,6 +49,7 @@ PASS_TRIGGER_PREFIXES = {
     "abi": (
         "minio_tpu_torch/ops/kernels.py",
         "minio_tpu_torch/ops/select_step.py",
+        "minio_tpu_torch/utils/native.py",
         "minio_tpu_torch/csrc/",
         "minio_tpu_torch/analysis/abi_contracts.py",
     ),

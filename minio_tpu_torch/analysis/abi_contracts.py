@@ -1,9 +1,12 @@
-"""ABI contract checker: the Python/CUDA seam of the kernel library (MTPU4xx).
+"""ABI contract checker: the port's two ctypes seams (MTPU4xx).
 
 The port's kernels are hand-written CUDA C++ (``csrc/codec.cu``,
 ``csrc/select.cu``) built into one library and reached through ctypes
 bindings in ``ops/kernels.py`` (``_load``) and ``ops/select_step.py``
-(``bind``).  None of the other passes can see across that boundary: an
+(``bind``); the native CPU codec (``csrc/gf_cpu.cc``) is a library of
+its own, bound in ``utils/native.py`` (``lib``).  Each seam is checked
+on its own (``SEAMS``).  None of the other passes can see across that
+boundary: an
 argtypes list that drifts from the C signature corrupts memory
 silently, and a length computed from the wrong tensor is an
 out-of-bounds access the type system never sees.  This pass
@@ -52,8 +55,8 @@ import re
 
 from .findings import Finding, filter_suppressed
 
-# the two binding modules and the two sources that build into the one
-# library; fixtures route through analyze() instead
+# the kernel library's seam: two binding modules and the two sources that
+# build into the one library; fixtures route through analyze() instead
 PY_RELS = (
     "minio_tpu_torch/ops/kernels.py",
     "minio_tpu_torch/ops/select_step.py",
@@ -62,6 +65,12 @@ CC_RELS = (
     "minio_tpu_torch/csrc/codec.cu",
     "minio_tpu_torch/csrc/select.cu",
 )
+# the native CPU codec's seam: its loader and its one source
+NATIVE_PY_RELS = ("minio_tpu_torch/utils/native.py",)
+NATIVE_CC_RELS = ("minio_tpu_torch/csrc/gf_cpu.cc",)
+# (binding modules, sources) of each library: exports and bindings are
+# matched within a seam, never across two
+SEAMS = ((PY_RELS, CC_RELS), (NATIVE_PY_RELS, NATIVE_CC_RELS))
 
 # ---------------------------------------------------------------------------
 # C side: extern "C" export table + @ctypes annotations
@@ -90,7 +99,9 @@ _INT = frozenset({"c_int", "c_int32"})
 _UINT = frozenset({"c_uint", "c_uint32"})
 _I64 = frozenset({"c_int64", "c_longlong"})
 _U64 = frozenset({"c_uint64", "c_ulonglong"})
+_U8 = frozenset({"c_uint8", "c_ubyte"})
 C_TO_CTYPES: "dict[str, frozenset[str]]" = {
+    "uint8_t": _U8, "unsigned char": _U8,
     "int": _INT, "int32_t": _INT, "unsigned": _UINT, "unsigned int": _UINT,
     "uint32_t": _UINT, "long long": _I64, "int64_t": _I64,
     "unsigned long long": _U64, "uint64_t": _U64,
@@ -114,6 +125,10 @@ def c_type_ctypes(decl: str, named: bool = True) -> "frozenset[str] | None":
     if named and len(words) > 1:
         words = words[:-1]
     base = " ".join(words)
+    if decl.count("*") > 1:
+        # an array of row addresses (``const uint8_t* const* in``)
+        return (frozenset({"POINTER(c_void_p)"})
+                if base in _ADDRESS_POINTEES else None)
     if "*" in decl:
         if base == "char":
             return frozenset({"c_char_p"})
@@ -776,29 +791,39 @@ def _read(rel: str) -> str:
         return fh.read()
 
 
-def seam_sources() -> "tuple[dict[str, str], dict[str, str]]":
-    """The real seam's texts: (binding modules, CUDA sources)."""
-    return ({rel: _read(rel) for rel in PY_RELS},
-            {rel: _read(rel) for rel in CC_RELS})
+def seam_sources(
+    seam: "tuple[tuple, tuple]" = SEAMS[0],
+) -> "tuple[dict[str, str], dict[str, str]]":
+    """One real seam's texts (the kernel library's by default): (binding
+    modules, sources)."""
+    py_rels, cc_rels = seam
+    return ({rel: _read(rel) for rel in py_rels},
+            {rel: _read(rel) for rel in cc_rels})
 
 
-def exports() -> "dict[str, Export]":
-    """Every export the CUDA sources declare (the symbols the built
-    library must resolve)."""
+def exports(seam: "tuple[tuple, tuple]" = SEAMS[0]) -> "dict[str, Export]":
+    """Every export one seam's sources declare (the symbols its built
+    library must resolve; the kernel library's by default)."""
     out: "dict[str, Export]" = {}
-    for rel in CC_RELS:
+    for rel in seam[1]:
         out.update(parse_exports(_read(rel), rel))
     return out
 
 
+def binding_rels() -> "tuple[str, ...]":
+    """The binding modules of every seam."""
+    return tuple(rel for py_rels, _cc in SEAMS for rel in py_rels)
+
+
 def raw_run() -> "list[Finding]":
-    """The real seam's findings BEFORE noqa filtering (MTPU106 input)."""
-    py, cc = seam_sources()
-    return analyze_seam(py, cc)
+    """Every seam's findings BEFORE noqa filtering (MTPU106 input)."""
+    found: "list[Finding]" = []
+    for seam in SEAMS:
+        found.extend(analyze_seam(*seam_sources(seam)))
+    return found
 
 
 def run() -> "list[Finding]":
-    """ABI pass over the real seam, noqa-filtered."""
-    py, _cc = seam_sources()
-    lines = {rel: text.splitlines() for rel, text in py.items()}
+    """ABI pass over the real seams, noqa-filtered."""
+    lines = {rel: _read(rel).splitlines() for rel in binding_rels()}
     return filter_suppressed(raw_run(), lines)

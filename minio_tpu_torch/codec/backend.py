@@ -23,9 +23,15 @@ codec-agnostic.  This module is that seam for the port:
   plane on the device and record ``mesh_*`` passes, as the JAX
   package's multi-device TpuBackend does.  ``placement_router`` carves
   the slots into submeshes for the batcher (parallel/rules.py).
+* CpuBackend(): the native C++ codec on the host (utils/native.py), one
+  call per op over the whole batch.  ``native_backend()`` is its
+  process-wide instance, which the server's erasure sets take under
+  MINIO_ERASURE_BACKEND=cpu; in-process ``device="cpu"`` stays
+  TorchBackend's plain path.
 
 There is no automatic choice of device and no silent fallback: asking
-for the card where there is none raises.
+for the card where there is none raises, and so does a native library
+that does not build.
 """
 
 from __future__ import annotations
@@ -38,6 +44,7 @@ import numpy as np
 import torch
 
 from ..ops import codec_step, kernels
+from ..utils import native
 from ..utils.log import logger
 from . import compress as compmod
 
@@ -1232,6 +1239,80 @@ class TorchBackend(CodecBackend):
         _record_d2h("data", part.nbytes)
 
 
+class CpuBackend(CodecBackend):
+    """Host backend: the native C++ codec (utils/native.py,
+    csrc/gf_cpu.cc), the counterpart of the JAX package's CpuBackend.
+
+    Each op is ONE native call over the whole batch (the fused
+    single-pass encode+hash, the batched tiled reconstruct, the fused
+    reconstruct+verify), stripe-parallel inside the C layer with the
+    GIL released.  There is no fallback: building the backend builds
+    (or loads) the library, and a failed build raises there.  ``device``
+    is the host's torch device, where the layer's other device work (the
+    read cache's tiers, Select scans) runs.
+    """
+
+    name = "cpu"
+    fused_encode = True  # one encode_and_hash call per batch
+
+    def __init__(self):
+        native.lib()
+        self.device = torch.device("cpu")
+
+    def encode(self, data, parity_shards):
+        """Fused single-pass batch encode: ONE native call, no Python
+        per-stripe loop, no full-batch concatenate copy."""
+        return native.encode_and_hash_cpu(data, parity_shards)
+
+    def encode_split(self, data, parity_shards):
+        """The split path: per-stripe native matmuls, then a separate
+        digest pass over a concatenated copy.  The baseline the fused
+        encode is held bit-identical against (tests, chip_smoke's
+        native phase); the erasure layer does not use it."""
+        from ..ops import gf
+        data = np.ascontiguousarray(data, dtype=np.uint8)
+        B, k, L = data.shape
+        m = parity_shards
+        parity = np.empty((B, m, L), dtype=np.uint8)
+        matrix = gf.parity_matrix(k, m)
+        for b in range(B):
+            parity[b] = native.gf_matmul_cpu(matrix, data[b])
+        digests = self.digest(np.concatenate([data, parity], axis=1))
+        return parity, digests
+
+    def reconstruct(self, shards, present, data_shards, parity_shards):
+        return native.reconstruct_batch_cpu(
+            shards, np.asarray(present, dtype=bool), data_shards,
+            parity_shards,
+        )
+
+    def reconstruct_and_verify(
+        self, shards, digests, present, data_shards, parity_shards
+    ):
+        """Fused GET-side pass: digest checks + survivor decode in one
+        native memory pass.  Optimistic: decodes from the first k present
+        shards while hashing all of them; on the rare digest mismatch
+        among the chosen survivors, re-picks survivors from the verified
+        mask and reconstructs just the hit stripes."""
+        shards = np.ascontiguousarray(shards, dtype=np.uint8)
+        pres = np.asarray(present, dtype=bool)
+        data, ok = native.reconstruct_and_verify_cpu(
+            shards, digests, pres, data_shards, parity_shards
+        )
+        surv = np.nonzero(pres)[0][:data_shards]
+        bad = ~ok[:, surv].all(axis=1)
+        if bad.any():
+            idxs = np.nonzero(bad)[0]
+            data[idxs] = self._reconstruct_from_ok(
+                shards[idxs], ok[idxs], data_shards, parity_shards
+            )
+        return data, ok
+
+    def digest(self, shards):
+        shards = np.ascontiguousarray(shards, dtype=np.uint8)
+        return native.phash256_rows(shards.view(np.uint32), shards.shape[-1])
+
+
 _lock = threading.Lock()
 _backends: "dict[str, CodecBackend]" = {}
 
@@ -1263,6 +1344,23 @@ def get_backend(device="cuda") -> CodecBackend:
                 )
             be = maybe_wrap(instrument(TorchBackend(dev, devices=devices)))
             _backends[key] = be
+        return be
+
+
+def native_backend() -> CodecBackend:
+    """The process-wide native CPU codec: CpuBackend wrapped in telemetry
+    and cross-request batching, as the JAX package's ``_make("cpu")``
+    builds it.  The server's erasure sets take it under
+    MINIO_ERASURE_BACKEND=cpu; the first call builds the library and
+    raises when that fails."""
+    from .batcher import maybe_wrap
+    from .telemetry import instrument
+
+    with _lock:
+        be = _backends.get("native")
+        if be is None:
+            be = maybe_wrap(instrument(CpuBackend()))
+            _backends["native"] = be
         return be
 
 

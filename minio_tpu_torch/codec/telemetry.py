@@ -7,7 +7,7 @@ those passes in production:
 
 * ``KernelStats`` - process-wide registry of per-op counters: calls,
   bytes processed, and host-observed device seconds, labeled by the
-  resolved backend; plus batcher occupancy (jobs
+  resolved backend (``torch``/``cpu``); plus batcher occupancy (jobs
   coalesced per flush, queue wait) and erasure-stream totals.
 * ``InstrumentedBackend`` - a CodecBackend decorator recording every
   encode / encode_begin-end / digest / reconstruct /
@@ -336,8 +336,6 @@ class InstrumentedBackend(CodecBackend):
 
     @property
     def fused_encode(self):  # type: ignore[override]
-        # live delegation, not an __init__ snapshot: CpuBackend demotes
-        # this when its native build fails mid-process
         return getattr(self.inner, "fused_encode", False)
 
     def _timed(self, op: str, nbytes: int, fn):

@@ -11,10 +11,10 @@ findings.  ``PREFIX_KNOBS`` covers dynamically-composed families
 enumerated statically.
 
 The rows are the JAX package's registry's, name for name and default for
-default, with two differences: ``JAX_ONLY`` holds the three knobs of
-constructs the port has no counterpart of (so nothing here reads them),
-each with its reason, and the three OpenID knobs, which both packages
-read through module constants (``iam/openid.py``), have rows here.
+default, with two differences: ``JAX_ONLY`` holds the one knob of a
+construct the port has no counterpart of (so nothing here reads it),
+with its reason, and the three OpenID knobs, which both packages read
+through module constants (``iam/openid.py``), have rows here.
 
 This module is intentionally data-only (no env reads of its own): the
 runtime seams keep reading ``os.environ`` per call so ConfigSys edits
@@ -163,6 +163,12 @@ KNOBS: "dict[str, Knob]" = {
         "", "enable the fault-injection admin plane: 1 | on | true"
     ),
     "MINIO_TPU_FAULT_SEED": Knob("0", "fault-injection RNG seed"),
+    "MINIO_TPU_SANITIZE": Knob(
+        "0", "build/load the sanitizer native library variant"
+    ),
+    "MINIO_TPU_NATIVE_THREADS": Knob(
+        "0", "native codec thread count (0 = auto)"
+    ),
     # -- background services -----------------------------------------------
     "MINIO_TPU_CRAWL_INTERVAL_S": Knob(
         "60.0", "crawler cycle interval (seconds)"
@@ -245,13 +251,5 @@ JAX_ONLY: "dict[str, Knob]" = {
     "MINIO_TPU_CODEC_INTERPRET": Knob(
         "0", "Pallas interpret mode: the port's kernels are CUDA C++ and "
         "their CPU path is the plain PyTorch version"
-    ),
-    "MINIO_TPU_NATIVE_THREADS": Knob(
-        "0", "threads of the JAX package's native CPU codec; the port's "
-        "cpu backend is plain torch"
-    ),
-    "MINIO_TPU_SANITIZE": Knob(
-        "0", "the ASan/UBSan build of the native CPU codec, which the port "
-        "does not have"
     ),
 }

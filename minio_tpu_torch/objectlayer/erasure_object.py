@@ -95,7 +95,10 @@ class ErasureObjects(MultipartMixin, ObjectLayer):
     """One erasure set over ``disks`` (offline entries are None).
 
     ``device`` names the torch device the codec runs on; it defaults to
-    the card and raises where there is none."""
+    the card and raises where there is none.  ``backend`` is a codec
+    backend to run instead of ``device``'s (the server passes the native
+    CPU codec, ``codec.backend.native_backend()``, under
+    MINIO_ERASURE_BACKEND=cpu)."""
 
     def __init__(
         self,
@@ -104,6 +107,7 @@ class ErasureObjects(MultipartMixin, ObjectLayer):
         block_size: int = BLOCK_SIZE_V1,
         device="cuda",
         nslock=None,
+        backend=None,
     ):
         if len(disks) < 2:
             raise ValueError("erasure set needs >= 2 disks")
@@ -118,7 +122,10 @@ class ErasureObjects(MultipartMixin, ObjectLayer):
         if self.parity_blocks > n // 2:
             raise ValueError("parity cannot exceed half the disks")
         self.block_size = block_size
-        self.backend = backend_mod.get_backend(device)
+        self.backend = (
+            backend if backend is not None
+            else backend_mod.get_backend(device)
+        )
         self.nslock = nslock or NamespaceLock()
         # MRF seam (addPartial, erasure-object.go:999): called with
         # (bucket, object) when a write misses disks or a read detects

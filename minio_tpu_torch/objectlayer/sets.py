@@ -44,6 +44,7 @@ class ErasureSets(ObjectLayer):
         nslock=None,
         format_ref=None,
         device="cuda",
+        backend=None,
     ):
         if len(disks) != set_count * drives_per_set:
             raise ValueError("disk count != sets * drives")
@@ -61,6 +62,7 @@ class ErasureSets(ObjectLayer):
                 block_size=block_size or BLOCK_SIZE_V1,
                 device=device,
                 nslock=nslock,
+                backend=backend,
             )
             for i in range(set_count)
         ]

@@ -27,7 +27,8 @@ and exits 0.
 
 The erasure codec runs on the card: ``MINIO_ERASURE_BACKEND`` unset or
 ``cuda``, and the server exits when there is none.  ``cpu`` runs the
-plain PyTorch codec on the CPU, and only when asked; any other value
+native C++ codec on the host (codec.backend.CpuBackend, built with g++
+at boot; a failed build exits), and only when asked; any other value
 exits.  A persisted ``codec backend`` edit (admin set-config-kv) takes
 effect here, at boot.
 
@@ -96,7 +97,8 @@ def group_zone_args(zone_args: list[str]) -> list[list[str]]:
 
 def codec_device(value: "str | None" = None) -> str:
     """The codec's device from ``value`` or MINIO_ERASURE_BACKEND:
-    ``cuda`` (the default) needs a card; ``cpu`` only when asked."""
+    ``cuda`` (the default) needs a card; ``cpu`` (the native codec on
+    the host) only when asked."""
     if value is None:
         value = os.environ.get("MINIO_ERASURE_BACKEND") or "cuda"
     dev = value.strip().lower()
@@ -116,11 +118,26 @@ def codec_device(value: "str | None" = None) -> str:
     return dev
 
 
+def codec_backend(device: str):
+    """The codec backend the server's erasure sets share on ``device``:
+    the native CPU codec (codec.backend.native_backend(), built here at
+    boot; a failed build raises) for ``cpu``, None for ``cuda`` (each set
+    takes the card's TorchBackend)."""
+    if device != "cpu":
+        return None
+    from ..codec import backend as backend_mod
+
+    try:
+        return backend_mod.native_backend()
+    except RuntimeError as e:
+        raise SystemExit(f"MINIO_ERASURE_BACKEND=cpu: {e}") from None
+
+
 def build_object_layer(zone_args: list[str], parity: "int | None" = None,
-                       device="cuda"):
+                       device="cuda", backend=None):
     """Single-node convenience: expand bare-path args -> zones layer."""
     ol, _ = build_cluster(zone_args, local_port=0, secret="", parity=parity,
-                          device=device)
+                          device=device, backend=backend)
     return ol
 
 
@@ -133,9 +150,11 @@ def build_cluster(
     local_disk_map: "dict | None" = None,
     nslock=None,
     device="cuda",
+    backend=None,
 ):
     """Expand args -> local XLStorage + remote REST disks -> zones layer
-    with its codec on ``device``.
+    with its codec on ``device``, or ``backend`` when one is given (every
+    erasure set shares it).
 
     Returns (object_layer, local_disks) where local_disks is every
     XLStorage this node owns (to be served on the storage REST plane).
@@ -224,6 +243,7 @@ def build_cluster(
                 nslock=nslock,
                 format_ref=ref_fmt,
                 device=device,
+                backend=backend,
             )
         )
     return ErasureZones(zones), local_disks
@@ -493,6 +513,8 @@ def main(argv=None) -> int:
     if args.zones and args.zones[0] == "gateway":
         return run_gateway(args)
     device = codec_device()
+    # the native codec builds (or fails) before anything serves
+    codec_backend(device)
 
     from .. import cache as rcache
     from ..cluster import peer as peer_mod
@@ -612,6 +634,7 @@ def main(argv=None) -> int:
             local_disk_map=local_map,
             nslock=nslock,
             device=dev,
+            backend=codec_backend(dev),
         )
         return ol
 

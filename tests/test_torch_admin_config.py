@@ -1,9 +1,10 @@
 """The port's admin API and runtime config held against minio_tpu's.
 
 Each package builds its single-node cluster with its own
-``build_cluster`` (24 drives, two EC 8+4 sets; the port's codec on the
-CPU), attaches a store-backed IAMSys and a heal routine, and serves it
-on its async plane.  The same signed admin requests go to both;
+``build_cluster`` (24 drives, two EC 8+4 sets) with the codec its server
+runs under ``MINIO_ERASURE_BACKEND=cpu`` - each package's native
+``CpuBackend``, two stripe workers a batch - attaches a store-backed
+IAMSys and a heal routine, and serves it on its async plane.  The same signed admin requests go to both;
 statuses and JSON documents must be equal once the volatile fields are
 normalized: uptime, drive roots and sizes (two trees on one
 filesystem), the node endpoint, service-account keys, profile bytes and
@@ -13,8 +14,9 @@ their own:
 
 * ``kernel-stats`` has the JAX package's keys less its mesh placement
   (``placement``, ``submeshes``) plus the port's kernel launch counts
-  (``launches``), and the port's batcher counts
-  ``multi_client_flushes``;
+  (``launches``, none under ``cpu``), and the port's batcher counts
+  ``multi_client_flushes``; both book the same codec ops under backend
+  ``cpu``;
 * the ``codec backend`` key defaults to ``cuda`` and takes ``cuda`` or
   ``cpu`` only (``tpu`` and ``auto`` are refused); its help differs;
 * every route of a feature not ported answers ``NotImplemented``
@@ -33,6 +35,7 @@ import re
 import pytest
 
 from minio_tpu.codec import backend as jbackend
+from minio_tpu.codec.telemetry import KERNEL_STATS as JAX_STATS
 from minio_tpu.crawler import crawler as jcrawler
 from minio_tpu.heal.background import HealQueue as JaxQueue
 from minio_tpu.heal.background import HealRoutine as JaxRoutine
@@ -40,6 +43,7 @@ from minio_tpu.iam.sys import IAMSys as JaxIAM
 from minio_tpu.server import __main__ as jmain
 from minio_tpu.server.http import S3Server as JaxServer
 from minio_tpu_torch.codec import backend as tbackend
+from minio_tpu_torch.codec.telemetry import KERNEL_STATS
 from minio_tpu_torch.config import ConfigError, ConfigSys
 from minio_tpu_torch.crawler import crawler as tcrawler
 from minio_tpu_torch.heal.background import HealQueue, HealRoutine
@@ -69,7 +73,8 @@ def _boot(kind: str, base):
         srv.attach_iam(JaxIAM("minioadmin", "minioadmin", ol))
         queue, routine_cls = JaxQueue(), JaxRoutine
     else:
-        ol, _ = tmain.build_cluster([pattern], 0, parity=4, device="cpu")
+        ol, _ = tmain.build_cluster([pattern], 0, parity=4, device="cpu",
+                                    backend=tmain.codec_backend("cpu"))
         srv = S3Server(ol, address="127.0.0.1:0")
         srv.attach_iam(IAMSys("minioadmin", "minioadmin", ol))
         queue, routine_cls = HealQueue(), HealRoutine
@@ -86,8 +91,14 @@ def servers(tmp_path_factory):
         mp.setenv("MINIO_TPU_SERVER_LOOPS", "1")
         for env in ENV_SEAMS:
             mp.delenv(env, raising=False)
+        mp.setenv("MINIO_TPU_NATIVE_THREADS", "2")
         jbackend.reset_backend()
         tbackend.reset_backend()
+        # the JAX server's codec under MINIO_ERASURE_BACKEND=cpu
+        mp.setattr(jbackend, "_backend", jbackend._make("cpu"))
+        # each package's codec ops are process-wide: book only this module's
+        JAX_STATS.reset()
+        KERNEL_STATS.reset()
         base = tmp_path_factory.mktemp("admin")
         srvs = {kind: _boot(kind, base) for kind in ("jax", "port")}
         for srv in srvs.values():
@@ -262,14 +273,21 @@ def test_kernel_stats_shape(servers):
         status, doc = _call(srv, "GET", "kernel-stats")
         assert status == 200
         got[kind] = doc
-    # the port adds its kernel wrappers' launch counts (zero on the CPU)
+    # the port adds its kernel wrappers' launch counts (none under cpu)
     assert set(got["port"]) == set(got["jax"]) | {"launches"}
     assert set(got["port"]["placement"]) == set(got["jax"]["placement"])
     assert isinstance(got["port"]["submeshes"], list)
     assert got["port"]["launches"] and not any(got["port"]["launches"].values())
     assert set(got["port"]["batch"]) == set(got["jax"]["batch"]) | {
         "multi_client_flushes"}
-    assert got["port"]["device_passes"]  # the PUTs above ran codec passes
+    # both native codecs booked the PUTs and heals above under ``cpu``,
+    # op for op; neither ran a device pass
+    ops = {kind: {(r["op"], r["backend"]) for r in doc["ops"]}
+           for kind, doc in got.items()}
+    assert ops["port"] == ops["jax"]
+    assert ("encode_digest", "cpu") in ops["port"]
+    assert {be for _op, be in ops["port"]} == {"cpu"}
+    assert not got["port"]["device_passes"] and not got["jax"]["device_passes"]
 
 
 def test_get_config_matches(servers):

@@ -570,6 +570,57 @@ def test_abi_real_seam_clean_and_fully_annotated():
     assert {e.path for e in exports.values()} == set(abi_contracts.CC_RELS)
 
 
+def test_abi_native_seam_clean_and_fully_annotated():
+    seam = (abi_contracts.NATIVE_PY_RELS, abi_contracts.NATIVE_CC_RELS)
+    assert seam in abi_contracts.SEAMS
+    assert abi_contracts.analyze_seam(*abi_contracts.seam_sources(seam)) == []
+    exports = abi_contracts.exports(seam)
+    assert set(exports) == {
+        "gf_matmul", "gf_mul_acc", "phash256_rows", "encode_and_hash",
+        "reconstruct_batch", "reconstruct_and_verify", "gf_has_avx2",
+    }
+    assert all(e.annot_args is not None for e in exports.values())
+    assert all(t is not None for e in exports.values()
+               for t in (*e.c_args, e.c_restype))
+    # the row-address arrays of gf_matmul are POINTER(c_void_p)
+    assert exports["gf_matmul"].c_args[3] == {"POINTER(c_void_p)"}
+
+
+NATIVE_REL = "minio_tpu_torch/utils/native.py"
+GF_CPU_REL = "minio_tpu_torch/csrc/gf_cpu.cc"
+
+
+@pytest.mark.parametrize("py_edit,cc_edit,where", [
+    # the binding drops an argument
+    (("l.phash256_rows.argtypes = [P, Z, Z, ctypes.c_uint64, P]",
+      "l.phash256_rows.argtypes = [P, Z, Z, P]"), None, NATIVE_REL),
+    # the C prototype gains one the binding and the comment lack
+    (None, ("void phash256_rows(const uint32_t* words, size_t nrows,",
+            "void phash256_rows(const uint32_t* words, int extra, size_t nrows,"),
+     None),
+    # the comment alone loses one
+    (None, ("// @ctypes phash256_rows(c_void_p, c_size_t, c_size_t,",
+            "// @ctypes phash256_rows(c_void_p, c_size_t,"), GF_CPU_REL),
+], ids=["binding", "prototype", "comment"])
+def test_native_seam_arity_drift_fires_mtpu401(py_edit, cc_edit, where):
+    seam = (abi_contracts.NATIVE_PY_RELS, abi_contracts.NATIVE_CC_RELS)
+    py, cc = (dict(d) for d in abi_contracts.seam_sources(seam))
+    for src, rel, edit in ((py, NATIVE_REL, py_edit), (cc, GF_CPU_REL, cc_edit)):
+        if edit:
+            seeded = src[rel].replace(*edit, 1)
+            assert seeded != src[rel]
+            src[rel] = seeded
+    found = abi_contracts.analyze_seam(py, cc)
+    mtpu401 = [f for f in found if f.rule == "MTPU401"]
+    assert mtpu401 and all("phash256_rows" in f.message for f in mtpu401)
+    if where is not None:
+        assert {f.path for f in mtpu401} == {where}
+    else:  # the binding and the comment both disagree with the prototype
+        assert {f.path for f in mtpu401} == {NATIVE_REL, GF_CPU_REL}
+    # the kernel library's seam does not see the native one's drift
+    assert abi_contracts.analyze_seam(*abi_contracts.seam_sources()) == []
+
+
 KERNELS_REL = "minio_tpu_torch/ops/kernels.py"
 CODEC_REL = "minio_tpu_torch/csrc/codec.cu"
 

@@ -15,7 +15,8 @@
   the new body.
 * Three ``ClusterHarness`` runs of real ``python -m
   minio_tpu_torch.server`` processes, 2 nodes x 2 drives with
-  ``MINIO_ERASURE_BACKEND=cpu``: the boot (format agreement, a
+  ``MINIO_ERASURE_BACKEND=cpu`` (the native codec, 2 threads a batch):
+  the boot (format agreement, a
   cross-node PUT and GET, peer-aggregated admin info, remote fault
   control, SIGTERM), a
   cross-node PUT race on one key through the dsync lock plane, and a
@@ -247,6 +248,8 @@ def test_read_after_write_with_a_lost_invalidation(tmp_path, monkeypatch,
 @pytest.fixture()
 def cluster(tmp_path, monkeypatch):
     monkeypatch.setenv("MINIO_ERASURE_BACKEND", "cpu")
+    # the native codec's stripe workers: 2 a batch, not a core each
+    monkeypatch.setenv("MINIO_TPU_NATIVE_THREADS", "2")
     for name in ("MINIO_TPU_SERVER", "MINIO_TPU_READ_CACHE",
                  "MINIO_TPU_FEDERATION_DIR", "MINIO_TPU_CACHE_DRIVES"):
         monkeypatch.delenv(name, raising=False)

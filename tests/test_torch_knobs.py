@@ -1,8 +1,8 @@
 """The port's knob registry (``minio_tpu_torch/config/knobs.py``).
 
 * It equals the JAX package's registry, name by name and default by
-  default, apart from ``JAX_ONLY`` (three knobs of constructs the port
-  has no counterpart of, each with its reason) and the three OpenID rows.
+  default, apart from ``JAX_ONLY`` (the one knob of a construct the port
+  has no counterpart of, with its reason) and the three OpenID rows.
 * Every MINIO_TPU_* knob the port reads is registered, and every
   registered knob is read (the lifecycle pass's read sites, module-level
   constants included).
@@ -47,7 +47,7 @@ def test_registry_covers_every_jax_knob():
     assert set(jknobs.KNOBS) == (set(knobs.KNOBS) - OPENID) | set(knobs.JAX_ONLY)
     assert not set(knobs.JAX_ONLY) & set(knobs.KNOBS)
     assert len(jknobs.KNOBS) + len(jknobs.PREFIX_KNOBS) == 77
-    assert len(knobs.KNOBS) - len(OPENID) + len(knobs.PREFIX_KNOBS) == 74
+    assert len(knobs.KNOBS) - len(OPENID) + len(knobs.PREFIX_KNOBS) == 76
 
 
 @pytest.mark.parametrize("name", sorted(set(jknobs.KNOBS) - set(knobs.JAX_ONLY)))

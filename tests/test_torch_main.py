@@ -1,6 +1,7 @@
 """``python -m minio_tpu_torch.server`` as users start it, on the CPU.
 
-The server runs as a subprocess with ``MINIO_ERASURE_BACKEND=cpu``:
+The server runs as a subprocess with ``MINIO_ERASURE_BACKEND=cpu`` (the
+native codec, two stripe workers a batch: ``MINIO_TPU_NATIVE_THREADS=2``):
 
 * it boots over four drives of which only two carry ``format.json`` - no
   quorum - so it listens and answers 503 (readiness, and S3 requests
@@ -50,7 +51,9 @@ _SCRUB = ("MINIO_TPU_SERVER", "MINIO_TPU_SERVER_LOOPS", "MINIO_ERASURE_BACKEND",
 
 def _env(**extra) -> dict:
     env = {k: v for k, v in os.environ.items() if k not in _SCRUB}
+    # the native codec's stripe workers: 2 a batch, not a core each
     env.update({"MINIO_ERASURE_BACKEND": "cpu", "MINIO_TPU_SERVER_LOOPS": "2",
+                "MINIO_TPU_NATIVE_THREADS": "2",
                 "MINIO_TPU_FRESH_DISK_INTERVAL_S": "1",
                 "MINIO_TPU_LOG_LEVEL": "warning", "PYTHONUNBUFFERED": "1"})
     env.update(extra)

@@ -22,7 +22,8 @@ Fast tier (no server spawned):
 
 Slow tier (``-m slow``, not in tier-1): each other scenario of the grid
 on 3 port nodes x 2 drives spawned by the port's ``ClusterHarness`` with
-``MINIO_ERASURE_BACKEND=cpu``, asserting the JAX grid's invariants.
+``MINIO_ERASURE_BACKEND=cpu`` (the native codec, 2 threads a batch),
+asserting the JAX grid's invariants.
 """
 
 import dataclasses
@@ -299,6 +300,8 @@ def test_await_replication_verb_matches(verb_servers):
     for sc in GRID])
 def test_chaos_grid(scenario, tmp_path, monkeypatch):
     monkeypatch.setenv("MINIO_ERASURE_BACKEND", "cpu")
+    # the native codec's stripe workers: 2 a batch, not a core each
+    monkeypatch.setenv("MINIO_TPU_NATIVE_THREADS", "2")
     for name in ("MINIO_TPU_SERVER", "MINIO_TPU_READ_CACHE",
                  "MINIO_TPU_FEDERATION_DIR", "MINIO_TPU_CACHE_DRIVES"):
         monkeypatch.delenv(name, raising=False)
